@@ -1,0 +1,178 @@
+"""The user-facing facade.
+
+Port of the JAX package's ``autodist.py:47-328``: ``AutoDist(
+resource_spec_file, strategy_builder)`` → ``scope()`` / ``capture()`` →
+``create_distributed_session()`` → ``session.run(batch)``, and the
+``function()`` one-liner.  ``device=None`` means the CUDA card (on a
+multi-rank ``torch.distributed`` run, card ``rank % cards``); without a
+card this raises unless ``device="cpu"`` is passed.
+
+The JAX facade defaults to the ``PSLoadBalancing`` builder, and the PS
+family comes with slice 3: with no builder, building the strategy raises
+rather than picking another one.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+from typing import Any, Callable, Dict, Optional, Sequence
+
+from autodist_tpu_torch.const import ENV, not_ported
+from autodist_tpu_torch.graph_item import GraphItem
+from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
+from autodist_tpu_torch.mesh import Mesh, build_mesh, rank_device
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.runner import DistributedSession
+from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
+from autodist_tpu_torch.strategy.compiler import StrategyCompiler
+
+_default_autodist: Optional["AutoDist"] = None
+
+
+def _set_default_autodist(ad: "AutoDist") -> None:
+    """One AutoDist per process; relaxed under AUTODIST_IS_TESTING."""
+    global _default_autodist
+    if _default_autodist is not None and not ENV.AUTODIST_IS_TESTING.val:
+        raise RuntimeError("Only one AutoDist instance is allowed per process")
+    _default_autodist = ad
+
+
+def _reset_default_autodist_for_testing() -> None:
+    global _default_autodist
+    _default_autodist = None
+
+
+class AutoDist:
+    """Facade: resource spec + strategy builder → distributed session.
+
+    Args:
+      resource_spec_file: yaml path (or pass ``resource_spec``); omitting
+        both derives one node from the visible CUDA devices.
+      strategy_builder: a :class:`StrategyBuilder` (this slice:
+        :class:`~autodist_tpu_torch.strategy.AllReduce`).
+      mesh_axes: optional logical mesh shape, e.g. ``{"data": 4}``.
+      device: where this rank computes; the CUDA card unless given.
+    """
+
+    def __init__(self, resource_spec_file: Optional[str] = None,
+                 strategy_builder: Optional[StrategyBuilder] = None,
+                 resource_spec: Optional[ResourceSpec] = None,
+                 mesh_axes: Optional[Dict[str, int]] = None,
+                 device=None):
+        self._device = rank_device(device)
+        _set_default_autodist(self)
+        self._resource_spec = resource_spec or ResourceSpec(resource_spec_file)
+        self._strategy_builder = strategy_builder
+        self._mesh_axes = mesh_axes
+        self._graph_item: Optional[GraphItem] = None
+        self._session: Optional[DistributedSession] = None
+        self._strategy: Optional[Strategy] = None
+
+    @contextlib.contextmanager
+    def scope(self):
+        """The region in which the program is captured.  (Capture by
+        patching the optimizer inside the scope comes with P7; call
+        :meth:`capture`.)"""
+        yield self
+
+    def capture(self, params: Any, optimizer: Any = None,
+                loss_fn: Optional[Callable] = None,
+                sparse_vars: Sequence[str] = (),
+                untrainable_vars: Sequence[str] = (),
+                pipeline_vars: Sequence[str] = (),
+                expert_vars: Sequence[str] = (),
+                remat: Optional[str] = None,
+                has_aux: bool = False,
+                metrics_fn: Optional[Callable] = None,
+                grad_fn: Optional[Callable] = None,
+                accum_steps: int = 1,
+                numerics=None) -> GraphItem:
+        """Capture the training program: parameters (nested dict of
+        tensors or arrays), an optimizer from
+        :mod:`autodist_tpu_torch.optim` and ``loss_fn(params, batch)``.
+        ``metrics_fn(params, batch) -> dict`` extras join every step's and
+        ``evaluate``'s outputs; ``accum_steps=N`` averages gradients over
+        N microbatches per step (with ``has_aux`` the aux comes back
+        stacked along a leading ``[N]`` axis)."""
+        if self.is_built():
+            raise RuntimeError(
+                "Cannot capture after the distributed session was created")
+        self._graph_item = GraphItem(
+            params, optimizer=optimizer, loss_fn=loss_fn,
+            sparse_vars=sparse_vars, untrainable_vars=untrainable_vars,
+            pipeline_vars=pipeline_vars, expert_vars=expert_vars,
+            remat=remat, has_aux=has_aux, metrics_fn=metrics_fn,
+            grad_fn=grad_fn, accum_steps=accum_steps, numerics=numerics)
+        return self._graph_item
+
+    def is_built(self) -> bool:
+        return self._session is not None
+
+    def build_strategy(self) -> Strategy:
+        """The chief builds the strategy and serializes it; a rank with
+        ``AUTODIST_STRATEGY_ID`` set loads that one instead."""
+        if self._graph_item is None:
+            raise RuntimeError(
+                "capture() the program before building a strategy (implicit "
+                "capture inside scope() comes with P7)")
+        self._graph_item.prepare()
+        strategy_id = ENV.AUTODIST_STRATEGY_ID.val
+        if strategy_id:
+            self._strategy = Strategy.deserialize(strategy_id)
+        else:
+            if self._strategy_builder is None:
+                raise not_ported(
+                    "AutoDist's default builder (PSLoadBalancing)",
+                    "slice 3 — the PS family and Zero1; pass "
+                    "strategy_builder=AllReduce()")
+            self._strategy = self._strategy_builder.build(
+                self._graph_item, self._resource_spec)
+            self._strategy.serialize()
+        return self._strategy
+
+    def create_distributed_session(self, mesh=None) -> DistributedSession:
+        """Strategy → compile → lower → session.  ``mesh`` may be a
+        :class:`~autodist_tpu_torch.mesh.Mesh` or a zero-argument callable
+        returning one (built after the process group exists)."""
+        if self._session is not None:
+            return self._session
+        if self._strategy is None:
+            self.build_strategy()
+        if mesh is not None and not isinstance(mesh, Mesh) and callable(mesh):
+            mesh = mesh()
+        if mesh is None:
+            mesh = build_mesh(self._mesh_axes, self._resource_spec,
+                              device=self._device)
+        compiled = StrategyCompiler(mesh).compile(self._strategy,
+                                                  self._graph_item)
+        dist_step = GraphTransformer(compiled, self._graph_item).transform(
+            extra_metrics_fn=self._graph_item.metrics_fn)
+        self._session = DistributedSession(self._graph_item, dist_step)
+        return self._session
+
+    def function(self, fn: Optional[Callable] = None, *,
+                 sync_every: int = 1):
+        """Decorator twin of the JAX facade's: the first call builds the
+        session, every call runs one step.  With ``sync_every=N`` only
+        every N-th call brings metrics to the host; ``fn(metrics)`` selects
+        what to return (None: all metrics)."""
+
+        def wrap(user_fn):
+            if user_fn is not None and not callable(user_fn):
+                raise TypeError(
+                    "ad.function()(...) expects a fetch-selector callable "
+                    f"or None, got {type(user_fn).__name__}")
+            calls = itertools.count(1)
+
+            def run_fn(batch):
+                session = self.create_distributed_session()
+                sync = sync_every <= 1 or next(calls) % sync_every == 0
+                metrics = session.run(batch, sync=sync)
+                out = user_fn(metrics) if user_fn is not None else metrics
+                return out if out is not None else metrics
+            return run_fn
+
+        if fn is not None and not callable(fn):
+            raise TypeError(
+                "ad.function expects a callable (or use @ad.function)")
+        return wrap(fn) if fn is not None else wrap

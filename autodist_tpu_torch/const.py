@@ -1,0 +1,53 @@
+"""Constants and the environment registry of the port.
+
+Port of the JAX package's ``const.py``: mesh-axis names, the working
+directory for run artifacts, and a typed registry of the environment
+variables this slice reads (same names, same parsers).
+"""
+from __future__ import annotations
+
+import enum
+import os
+import tempfile
+
+# Root for run artifacts (serialized strategies).  The JAX package's
+# override variable, under the process's temporary directory by default.
+DEFAULT_WORKING_DIR = os.environ.get(
+    "AUTODIST_TPU_WORKDIR", os.path.join(tempfile.gettempdir(), "autodist_tpu"))
+DEFAULT_STRATEGY_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+
+MESH_AXIS_DATA = "data"      # data parallelism (batch axis)
+MESH_AXIS_MODEL = "model"    # tensor/model parallelism
+MESH_AXIS_SEQ = "seq"        # sequence/context parallelism
+MESH_AXIS_PIPE = "pipe"      # pipeline parallelism
+MESH_AXIS_EXPERT = "expert"  # expert parallelism (MoE)
+
+
+def _bool(v):
+    return v in ("True", "true", "1")
+
+
+def _str(v):
+    return v or ""
+
+
+class ENV(enum.Enum):
+    """``ENV.X.val`` is the parsed value of environment variable ``X``;
+    each member's value is ``(name, parser)``."""
+
+    # strategy id to load instead of building (worker path)
+    AUTODIST_STRATEGY_ID = ("AUTODIST_STRATEGY_ID", _str)
+    # relaxes the one-AutoDist-per-process guard during tests
+    AUTODIST_IS_TESTING = ("AUTODIST_IS_TESTING", _bool)
+
+    @property
+    def val(self):
+        """Parsed value of the environment variable, with the typed default."""
+        return self.value[1](os.environ.get(self.name))
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error an unported option raises: it names the ROADMAP item that
+    brings it, so nothing runs in place of what was asked."""
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch port yet (ROADMAP: {item})")

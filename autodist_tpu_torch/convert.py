@@ -10,7 +10,10 @@ Both packages key parameters by the same logical names
   dict keyed by ``/``-joined names — and returns the port's tree of
   tensors on ``device``;
 * :func:`params_to_numpy` is the inverse: the port's tree as nested
-  dicts of numpy arrays.
+  dicts of numpy arrays;
+* :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
+  state of ``adam``, ``adamw`` and ``sgd`` across (count, moments or
+  momentum trace, keyed like the parameters).
 
 A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 ``(q, scale)`` pair) becomes the port's
@@ -60,6 +63,38 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         return _tensor(node, device)
 
     return walk(tree)
+
+
+def opt_state_from_jax(state, device="cpu") -> Dict[str, Any]:
+    """The JAX optimizer library's state (numpy leaves) for ``adam``,
+    ``adamw`` or ``sgd`` → the port's :mod:`~autodist_tpu_torch.optim`
+    state: ``{"count", "mu", "nu"}`` from the Adam scaling state,
+    ``{"trace"}`` from the momentum trace, ``{}`` when only empty states
+    remain.  Other state trees raise ``ValueError``."""
+    parts = state if isinstance(state, (tuple, list)) else (state,)
+    out: Dict[str, Any] = {}
+    for part in parts:
+        fields = getattr(part, "_fields", None)
+        if fields is None:
+            raise ValueError(f"not an optimizer state: {type(part).__name__}")
+        if set(fields) == {"count", "mu", "nu"}:
+            out["count"] = torch.tensor(int(np.asarray(part.count)),
+                                        dtype=torch.int32, device=device)
+            out["mu"] = params_from_jax(part.mu, device)
+            out["nu"] = params_from_jax(part.nu, device)
+        elif set(fields) == {"trace"}:
+            out["trace"] = params_from_jax(part.trace, device)
+        elif fields:
+            raise ValueError(f"unsupported optimizer state "
+                             f"{type(part).__name__}{tuple(fields)}")
+    return out
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state → nested dicts of numpy arrays (the
+    ``count`` an int32 scalar array)."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else params_to_numpy(v)) for k, v in state.items()}
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

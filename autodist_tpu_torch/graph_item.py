@@ -1,0 +1,165 @@
+"""The captured training program.
+
+Port of the JAX package's ``graph_item.py:57-316``.  Parameters are a
+nested dict of tensors; a variable's name is its key path joined by
+``/`` (``decoder/layers_0/attn/query/kernel``), and the catalog lists
+variables in the order the JAX package flattens the same tree (sorted
+keys at every level), so strategies, bucket plans and checkpoints name
+the same tensors in both packages.
+"""
+from __future__ import annotations
+
+import fnmatch
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from autodist_tpu_torch.const import not_ported
+
+
+def path_name(path: Tuple) -> str:
+    """Name of a key path: its parts joined by ``/``."""
+    return "/".join(str(k) for k in path)
+
+
+def flatten(tree: Any, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
+    """``[(name, leaf)]`` of a nested dict in catalog order (sorted keys
+    at every level, the JAX package's flatten order for dicts)."""
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k in sorted(tree):
+            out.extend(flatten(tree[k], prefix + (k,)))
+        return out
+    return [(path_name(prefix), tree)]
+
+
+def unflatten(named: Sequence[Tuple[str, Any]]) -> Dict[str, Any]:
+    """The nested dict of ``[(name, leaf)]``."""
+    tree: Dict[str, Any] = {}
+    for name, leaf in named:
+        node = tree
+        *parents, last = name.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _dtype_name(leaf) -> str:
+    return str(leaf.dtype).replace("torch.", "")
+
+
+@dataclass
+class VarInfo:
+    """Catalog entry for one variable."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: str
+    trainable: bool = True
+    sparse: bool = False
+    pipeline: bool = False
+    expert: bool = False
+
+    def to_dict(self) -> dict:
+        """The JAX package's catalog entry, field for field."""
+        return {"name": self.name, "shape": list(self.shape),
+                "dtype": self.dtype, "trainable": self.trainable,
+                "sparse": self.sparse, "pipeline": self.pipeline,
+                "expert": self.expert}
+
+
+@dataclass
+class Info:
+    """Variable catalog: the trainable/untrainable split plus sparse
+    annotations."""
+
+    variables: List[VarInfo] = field(default_factory=list)
+
+    @property
+    def trainable_variables(self) -> List[VarInfo]:
+        return [v for v in self.variables if v.trainable]
+
+
+class GraphItem:
+    """The captured program: ``params`` (nested dict of tensors), an
+    optimizer from :mod:`autodist_tpu_torch.optim`, ``loss_fn(params,
+    batch) -> loss`` (or ``(loss, aux)`` with ``has_aux``), the catalog,
+    ``metrics_fn(params, batch) -> dict`` extras and ``accum_steps``
+    microbatches per step.
+
+    ``untrainable_vars`` are frozen for the whole run: no gradient, no
+    synchronization, zero updates and no optimizer state.  ``remat``,
+    ``grad_fn``, ``pipeline_vars``, ``expert_vars`` and ``numerics`` belong
+    to later slices and raise."""
+
+    def __init__(self, params: Any, optimizer: Any = None,
+                 loss_fn: Optional[Callable] = None,
+                 sparse_vars: Sequence[str] = (),
+                 untrainable_vars: Sequence[str] = (),
+                 pipeline_vars: Sequence[str] = (),
+                 expert_vars: Sequence[str] = (),
+                 remat: Optional[str] = None,
+                 has_aux: bool = False,
+                 metrics_fn: Optional[Callable] = None,
+                 grad_fn: Optional[Callable] = None,
+                 accum_steps: int = 1,
+                 numerics=None):
+        if remat not in (None, "", "none"):
+            raise not_ported(f"remat={remat!r}", "P2 — remat")
+        if grad_fn is not None:
+            raise not_ported("capture(grad_fn=...)",
+                             "P10 — non-data mesh axes (the 1F1B pipeline "
+                             "backward)")
+        if pipeline_vars or expert_vars:
+            raise not_ported("pipeline_vars / expert_vars",
+                             "P10 — non-data mesh axes")
+        if numerics is not None:
+            raise not_ported("capture(numerics=...)",
+                             "slice 3 — the numerics guard (P5)")
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        self.params = params
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.has_aux = has_aux
+        self.metrics_fn = metrics_fn
+        self.accum_steps = accum_steps
+        self._sparse_patterns = tuple(sparse_vars)
+        self._untrainable_patterns = tuple(untrainable_vars)
+        self.info = self._build_info()
+
+    @staticmethod
+    def _matches(name: str, patterns: Tuple[str, ...]) -> bool:
+        """Exact name, path prefix, or fnmatch glob (never a substring)."""
+        for p in patterns:
+            if name == p or name.startswith(p.rstrip("/") + "/"):
+                return True
+            if any(ch in p for ch in "*?[") and fnmatch.fnmatch(name, p):
+                return True
+        return False
+
+    def _build_info(self) -> Info:
+        return Info(variables=[
+            VarInfo(name=name, shape=tuple(leaf.shape),
+                    dtype=_dtype_name(leaf),
+                    trainable=not self._matches(name,
+                                                self._untrainable_patterns),
+                    sparse=self._matches(name, self._sparse_patterns))
+            for name, leaf in flatten(self.params)])
+
+    @property
+    def trainable_var_infos(self) -> List[VarInfo]:
+        return self.info.trainable_variables
+
+    def prepare(self) -> "GraphItem":
+        """Refresh the catalog (called at strategy-build time)."""
+        self.info = self._build_info()
+        return self

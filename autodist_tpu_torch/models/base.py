@@ -12,8 +12,9 @@ the functional ``apply`` idiom of the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -53,7 +54,16 @@ class ModelSpec:
     loss_fn: Callable              # (params, batch) -> scalar loss
     apply_fn: Callable             # (params, inputs) -> outputs
     make_batch: Callable           # (rng, batch_size) -> batch dict
+    # optional manual value-and-grad: (params, batch) -> (loss, grads)
+    grad_fn: Any = None
+    sparse_vars: Tuple[str, ...] = ()
+    untrainable_vars: Tuple[str, ...] = ()
     config: Dict[str, Any] = field(default_factory=dict)
+
+    def sample_batch(self, batch_size: int, seed: int = 0):
+        """A batch of numpy arrays from ``RandomState(seed)`` (the same
+        batch the JAX package's ``sample_batch`` draws)."""
+        return self.make_batch(np.random.RandomState(seed), batch_size)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,

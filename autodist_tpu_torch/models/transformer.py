@@ -57,6 +57,23 @@ def dense_attention(q, k, v, causal: bool) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def default_attention() -> Callable:
+    """The attention model factories use when no ``attn_fn`` is passed: the
+    JAX package's backend rule, per call, from the tensors' device (a spec
+    is built before its parameters have one).  The flash kernels for CUDA
+    tensors, dense softmax attention elsewhere (dense on the CPU, as the JAX
+    package is on its CPU backend)."""
+
+    def attn_fn(q, k, v, causal: bool):
+        if q.device.type == "cuda":
+            from autodist_tpu_torch.ops.flash_attention import flash_attention
+
+            return flash_attention(q, k, v, causal)
+        return dense_attention(q, k, v, causal)
+
+    return attn_fn
+
+
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """``x [..., K]`` times a kernel whose leading dims flatten to K and
     trailing dims to N — DenseGeneral's contraction.  A ``Quantized``

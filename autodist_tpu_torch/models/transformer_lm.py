@@ -14,9 +14,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
                                             resolve_device)
 from autodist_tpu_torch.models.transformer import (TransformerStack,
+                                                   default_attention,
                                                    dense_attention)
 
 
@@ -70,16 +72,27 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
                    d_ff: int = 3072, max_len: int = 1024,
                    attn_fn: Optional[Callable] = None,
                    dtype: torch.dtype = torch.float32,
-                   seq_len: Optional[int] = None) -> ModelSpec:
+                   seq_len: Optional[int] = None,
+                   xent_chunk: Optional[int] = None,
+                   remat: str = "none") -> ModelSpec:
     """GPT-2-small-ish defaults; shrink for tests.
 
-    ``attn_fn=None`` → dense softmax attention (the flash kernels come
-    with the training slice).  ``spec.init(seed, device=None)`` builds
-    the parameters on ``device`` — the CUDA card unless the caller asks
-    for another; with no device and no CUDA it raises."""
+    ``attn_fn=None`` → the backend default
+    (``models/transformer.py:default_attention``): the flash kernels K1–K3
+    on CUDA tensors, dense softmax attention on the CPU.  The embedding
+    table is the sparse-gradient variable (``spec.sparse_vars``).
+    ``spec.init(seed, device=None)`` builds the parameters on ``device``
+    — the CUDA card unless the caller asks for another; with no device
+    and no CUDA it raises.  ``xent_chunk`` (the chunked-vocab loss) and
+    ``remat`` are not ported yet and raise."""
+    if xent_chunk:
+        raise not_ported("transformer_lm(xent_chunk=...)",
+                         "P2 — chunked_xent")
+    if remat not in (None, "", "none"):
+        raise not_ported(f"transformer_lm(remat={remat!r})", "P2 — remat")
     seq_len = seq_len or max_len
     model = TransformerLM(vocab_size, num_layers, num_heads, head_dim, d_ff,
-                          max_len, attn_fn=attn_fn or dense_attention,
+                          max_len, attn_fn=attn_fn or default_attention(),
                           dtype=dtype)
 
     def init(seed: int = 0, device=None):
@@ -102,6 +115,7 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
     return ModelSpec(
         name="transformer_lm",
         init=init, loss_fn=loss_fn, apply_fn=apply_fn, make_batch=make_batch,
+        sparse_vars=("embed",),
         config=dict(vocab_size=vocab_size, num_layers=num_layers,
                     num_heads=num_heads, head_dim=head_dim, d_ff=d_ff,
                     max_len=max_len, seq_len=seq_len),

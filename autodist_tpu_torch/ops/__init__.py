@@ -1,5 +1,6 @@
-"""Kernels with their plain versions: paged attention and the int8
-matmul (CUDA sources under ``csrc/``)."""
+"""Kernels with their plain versions: flash attention (forward, dQ, dK/dV;
+import it from :mod:`autodist_tpu_torch.ops.flash_attention`), paged
+attention and the int8 matmul (CUDA sources under ``csrc/``)."""
 from autodist_tpu_torch.ops.fused_kernels import (paged_attention,
                                                   paged_attention_reference)
 from autodist_tpu_torch.ops.quant import (Quantized, int8_matmul,

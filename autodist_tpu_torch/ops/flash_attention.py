@@ -1,0 +1,290 @@
+"""Flash attention: forward (K1), dQ (K2) and dK/dV (K3), with autograd.
+
+Port of the flash-attention kernels of the JAX package's
+``ops/flash_attention.py``: :func:`flash_attention` and
+:func:`flash_attention_with_lse` are the public ``attn_fn(q, k, v,
+causal)`` on ``[B, T, H, D]`` tensors, and one
+:class:`torch.autograd.Function` (the twin of the JAX ``_flash`` custom
+VJP) runs the forward kernel and, in its backward, the dQ and dK/dV
+kernels.  The log-sum-exp output ``lse [B, H, T]`` is differentiable: its
+cotangent folds into the softmax-normalisation term, ``Δ = rowsum(dO∘O) −
+dlse``, so the same backward kernels serve both outputs.
+
+CUDA tensors launch the hand-written kernels of ``csrc/flash_attention.cu``
+or raise; CPU tensors take the plain versions :func:`flash_fwd_reference`,
+:func:`flash_dq_reference` and :func:`flash_dkv_reference`.  There is no
+switch and no fallback.  The kernels read the public layout through
+strides and mask the ragged tail themselves, so nothing is transposed or
+padded (the JAX package's TPU tile policy is not ported).
+
+Contract, checked on every device: q, k and v contiguous float32 of one
+shape ``[B, T, H, D]`` on one device, ``D`` in :data:`HEAD_DIMS`, 16-byte
+aligned.  Other dtypes raise ``TypeError`` (bf16 is still to port).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Callable
+
+import torch
+
+from autodist_tpu_torch.const import not_ported
+
+_NEG_INF = -1e30  # finite -inf: masked scores stay NaN-free
+#: head dims the kernels are built for (four threads per row, each holding
+#: D/4 elements in registers; the streamed tile is 64 rows)
+HEAD_DIMS = (8, 16, 64)
+_SOURCE = "flash_attention.cu"
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P] * 5 + [_I] * 5 + [_F, _P]
+_DQ_ARGS = [_P] * 7 + [_I] * 5 + [_F, _P]
+_DKV_ARGS = [_P] * 8 + [_I] * 5 + [_F, _P]
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path; the kernels' yardstick on the card)
+# ---------------------------------------------------------------------------
+def _scores(q, k, causal: bool) -> torch.Tensor:
+    """Masked scores ``[B, H, Tq, Tk]`` in f32 with Q pre-scaled by
+    1/√D, masked entries at the finite sentinel."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if causal:
+        t = q.shape[1]
+        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, s.new_tensor(_NEG_INF))
+    return s
+
+
+def flash_fwd_reference(q, k, v, causal: bool):
+    """K1's function: ``(o [B, T, H, D] in q's dtype, lse [B, H, T] f32)``
+    with ``o = softmax(S) V`` and ``lse = m + log(max(l, 1e-30))``."""
+    s = _scores(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) \
+        / l.permute(0, 2, 1, 3)
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool):
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, causal: bool):
+    """K2's function: ``dQ = scale · (P∘(dO·Vᵀ − Δ))·K`` with ``P =
+    exp(S − lse)``; ``Δ [B, H, T]`` already carries ``− dlse``."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    return (dq * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool):
+    """K3's function: ``(dK, dV)`` with ``dV = Pᵀ·dO`` and ``dK = dSᵀ·Q``
+    (Q pre-scaled, so dK carries 1/√D)."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    qs = q.float() * (1.0 / math.sqrt(q.shape[-1]))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+class UnportedDtype(TypeError, NotImplementedError):
+    """A dtype the kernels do not take yet (bf16 and f16 come with a later
+    PR): a ``TypeError`` that also names its ROADMAP item."""
+
+
+def _check(q, k, v) -> None:
+    """The kernels' input contract, checked for CPU and CUDA tensors alike
+    so the CPU tests hold the callers to it."""
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be [B, T, H, D], got "
+                         f"shape {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype in (torch.bfloat16, torch.float16):
+            raise UnportedDtype(str(not_ported(
+                f"flash attention in {t.dtype}", "K1–K3 — bf16 flash")))
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_attention: {name} must be float32, got "
+                            f"{t.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} shape "
+                             f"{tuple(t.shape)} differs from q's "
+                             f"{tuple(q.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {q.shape[-1]} outside "
+                         f"the kernels' range {HEAD_DIMS}")
+
+
+def _device_kind(q) -> str:
+    kind = q.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return kind
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"flash attention {what} kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def _dims(q):
+    b, t, h, d = q.shape
+    return b, t, h, d, 1.0 / math.sqrt(d)
+
+
+def _launch(fn, q, *args) -> int:
+    """Calls the C entry point with ``args`` and q's current stream, with
+    q's card made current (the runtime launches on the current card)."""
+    with torch.cuda.device(q.device):
+        return fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_fwd(q, k, v, causal: bool):
+    """K1: ``(o, lse)`` of :func:`flash_fwd_reference`, by the kernel on
+    CUDA tensors and by the plain version on CPU tensors."""
+    _check(q, k, v)
+    if _device_kind(q) == "cpu":
+        return flash_fwd_reference(q, k, v, causal)
+    from autodist_tpu_torch.ops import _build
+
+    b, t, h, d, scale = _dims(q)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = _build.kernel(_SOURCE, "flash_fwd_f32", _FWD_ARGS)
+    _raise_on(_launch(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), lse.data_ptr(), b, t, h, d, int(causal),
+                      scale), "forward")
+    flash_attention.fwd_calls += 1
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v)
+    rows = (q.shape[0], q.shape[2], q.shape[1])        # [B, H, T]
+    for name, t, shape in (("do", do, q.shape), ("lse", lse, rows),
+                           ("delta", delta, rows)):
+        if (t.dtype != torch.float32 or t.shape != shape
+                or t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous aligned float32 of shape "
+                             f"{tuple(shape)} on {q.device}")
+
+
+def _bwd_ptrs(q, k, v, do, lse, delta):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool):
+    """K2: dQ of :func:`flash_dq_reference` (kernel on CUDA tensors, plain
+    version on CPU tensors)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if _device_kind(q) == "cpu":
+        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+    from autodist_tpu_torch.ops import _build
+
+    b, t, h, d, scale = _dims(q)
+    dq = torch.empty_like(q)
+    fn = _build.kernel(_SOURCE, "flash_dq_f32", _DQ_ARGS)
+    _raise_on(_launch(fn, q, *_bwd_ptrs(q, k, v, do, lse, delta),
+                      dq.data_ptr(), b, t, h, d, int(causal), scale), "dQ")
+    flash_attention.dq_calls += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, causal: bool):
+    """K3: ``(dK, dV)`` of :func:`flash_dkv_reference` (kernel on CUDA
+    tensors, plain version on CPU tensors)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if _device_kind(q) == "cpu":
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+    from autodist_tpu_torch.ops import _build
+
+    b, t, h, d, scale = _dims(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.kernel(_SOURCE, "flash_dkv_f32", _DKV_ARGS)
+    _raise_on(_launch(fn, q, *_bwd_ptrs(q, k, v, do, lse, delta),
+                      dk.data_ptr(), dv.data_ptr(), b, t, h, d, int(causal),
+                      scale), "dK/dV")
+    flash_attention.dkv_calls += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v, causal) -> (o, lse)``: K1 forward; the backward runs K2
+    and K3 with ``Δ = rowsum(dO∘O) − dlse`` (plain torch, as the JAX
+    package leaves it to XLA)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        if do.data_ptr() % 16:
+            do = do.clone()
+        delta = (do * o).sum(dim=-1).transpose(1, 2)
+        if dlse is not None:
+            delta = delta - dlse
+        delta = delta.contiguous()
+        dq = flash_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
+    """Drop-in ``attn_fn(q, k, v, causal)`` on ``[B, T, H, D]`` tensors;
+    any ``T >= 1``."""
+    return FlashAttention.apply(q, k, v, causal)[0]
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False):
+    """Like :func:`flash_attention` but also returns ``lse [B, H, T]``
+    (f32), the log-sum-exp of the scaled logits.  Differentiable in both
+    outputs."""
+    return FlashAttention.apply(q, k, v, causal)
+
+
+def make_flash_attention() -> Callable:
+    """The flash ``attn_fn``.  Data parallelism needs nothing of the kernel
+    (each rank attends over its own rows), and ``build_mesh`` refuses the
+    model and seq axes that would shard heads or positions (slice P10)."""
+    return flash_attention
+
+
+#: wrapper calls that launched their kernel since the last reset (CPU
+#: plain-version calls are not counted): K1, K2 and K3, one kernel each.
+flash_attention.fwd_calls = 0
+flash_attention.dq_calls = 0
+flash_attention.dkv_calls = 0
+
+
+def reset_counts() -> None:
+    """Set the three launch counts to 0."""
+    flash_attention.fwd_calls = 0
+    flash_attention.dq_calls = 0
+    flash_attention.dkv_calls = 0

@@ -104,12 +104,14 @@ def _launch(q, kc, vc, bt, rel):
                                device=q.device)
     fn = _build.kernel("paged_attention.cu", "paged_attention_f32",
                        _ARGTYPES)
-    err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
-             rel.data_ptr(), out.data_ptr(),
-             None if part_ml is None else part_ml.data_ptr(),
-             None if part_acc is None else part_acc.data_ptr(),
-             b, h, dh, kc.shape[1], bt.shape[1], splits, 1.0 / dh ** 0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):      # the runtime launches there
+        err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
+                 rel.data_ptr(), out.data_ptr(),
+                 None if part_ml is None else part_ml.data_ptr(),
+                 None if part_acc is None else part_acc.data_ptr(),
+                 b, h, dh, kc.shape[1], bt.shape[1], splits,
+                 1.0 / dh ** 0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(cudaError {err})")

@@ -114,10 +114,12 @@ def _launch(x2: torch.Tensor, w: Quantized) -> torch.Tensor:
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x2.device) if splits > 1 else None)
     fn = _build.kernel("int8_matmul.cu", "int8_matmul_f32", _ARGTYPES)
-    err = fn(x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
-             out.data_ptr(), None if partial is None else partial.data_ptr(),
-             m, n, k, splits,
-             torch.cuda.current_stream(x2.device).cuda_stream)
+    with torch.cuda.device(x2.device):     # the runtime launches there
+        err = fn(x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
+                 out.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
+                 m, n, k, splits,
+                 torch.cuda.current_stream(x2.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_matmul kernel launch failed "
                            f"(cudaError {err})")

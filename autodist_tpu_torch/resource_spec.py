@@ -1,0 +1,145 @@
+"""Cluster resource description.
+
+Port of the JAX package's ``resource_spec.py:140-355`` for what this slice
+reads: the same yaml/dict schema (``nodes`` with ``address``, ``chips``
+per node — the reference's ``gpus`` list is accepted too — ``cpus`` and
+``chief``, and an optional ``mesh`` hint), with GPUs as the chips.  With
+neither a file nor a dict, one node is derived from the visible CUDA
+devices (a CPU-only node when there are none).  Keys of later slices
+(``ssh``, ``network_bandwidth``, ``num_slices``, ...) are ignored.
+
+Example yaml::
+
+    nodes:
+      - address: 10.0.0.1
+        chips: 8
+        chief: true
+    mesh:
+      data: 8
+"""
+from __future__ import annotations
+
+import enum
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+
+class DeviceType(enum.Enum):
+    CPU = "CPU"
+    GPU = "GPU"
+
+
+@dataclass(frozen=True)
+class DeviceSpec:
+    """Device name ``address:GPU:index``."""
+
+    host_address: str
+    device_type: DeviceType = DeviceType.GPU
+    device_index: int = 0
+
+    def name_string(self) -> str:
+        return (f"{self.host_address}:{self.device_type.value}:"
+                f"{self.device_index}")
+
+
+@dataclass
+class NodeSpec:
+    address: str
+    chips: int = 0
+    cpus: List[int] = field(default_factory=list)
+    chief: bool = False
+
+
+class ResourceSpecError(ValueError):
+    pass
+
+
+class ResourceSpec:
+    """Parsed cluster description from a yaml path, a dict, or the local
+    CUDA devices."""
+
+    def __init__(self, resource_file: Optional[str] = None,
+                 resource_info: Optional[dict] = None):
+        self._nodes: List[NodeSpec] = []
+        self.mesh_hint: Dict[str, int] = {}
+        if resource_info is None and resource_file is not None:
+            if not os.path.exists(resource_file):
+                raise ResourceSpecError(
+                    f"Resource spec file not found: {resource_file}")
+            import yaml   # only a file needs the yaml parser
+
+            with open(resource_file, "r", encoding="utf-8") as f:
+                resource_info = yaml.safe_load(f)
+        if resource_info is not None:
+            self._parse(resource_info)
+        else:
+            self._from_local_devices()
+        self._validate()
+
+    def _parse(self, info: dict) -> None:
+        nodes = info.get("nodes")
+        if not nodes:
+            raise ResourceSpecError(
+                "resource spec must contain a non-empty 'nodes' list")
+        for raw in nodes:
+            if "address" not in raw:
+                raise ResourceSpecError(
+                    f"node entry missing 'address': {raw}")
+            chips = int(raw.get("chips", raw.get("tpus", 0)) or 0)
+            if not chips and raw.get("gpus"):
+                chips = len(raw["gpus"])
+            self._nodes.append(NodeSpec(
+                address=str(raw["address"]), chips=chips,
+                cpus=[int(c) for c in raw.get("cpus", [])],
+                chief=bool(raw.get("chief", False))))
+        self.mesh_hint = {str(k): int(v)
+                          for k, v in (info.get("mesh") or {}).items()}
+        if len(self._nodes) == 1:
+            self._nodes[0].chief = True
+
+    def _from_local_devices(self) -> None:
+        import torch
+
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        self._nodes = [NodeSpec(address="localhost", chips=n, chief=True)]
+
+    def _validate(self) -> None:
+        chiefs = [n for n in self._nodes if n.chief]
+        if len(chiefs) != 1:
+            raise ResourceSpecError(
+                f"resource spec must designate exactly one chief node, got "
+                f"{len(chiefs)}")
+        seen = set()
+        for n in self._nodes:
+            if n.address in seen:
+                raise ResourceSpecError(f"duplicate node address {n.address}")
+            seen.add(n.address)
+            if n.chips == 0 and not n.cpus:
+                n.cpus = [0]
+
+    @property
+    def nodes(self) -> List[NodeSpec]:
+        return list(self._nodes)
+
+    @property
+    def chief(self) -> str:
+        return next(n.address for n in self._nodes if n.chief)
+
+    @property
+    def num_chips(self) -> int:
+        return sum(n.chips for n in self._nodes)
+
+    @property
+    def devices(self) -> List[DeviceSpec]:
+        """Replica devices: each node's GPUs, or its CPUs when it has
+        none."""
+        out: List[DeviceSpec] = []
+        for n in self._nodes:
+            if n.chips:
+                out.extend(DeviceSpec(n.address, DeviceType.GPU, i)
+                           for i in range(n.chips))
+            else:
+                out.extend(DeviceSpec(n.address, DeviceType.CPU, i)
+                           for i in n.cpus)
+        return out

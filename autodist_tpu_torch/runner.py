@@ -1,0 +1,161 @@
+"""The distributed session: training state and steps.
+
+Port of the JAX package's ``runner.py:27-422`` for this slice: the session
+holds this rank's copy of the parameters and optimizer state on its
+device and runs the lowered step against them.  ``run(batch)`` takes the
+GLOBAL batch on every rank (the step takes this rank's rows of the data
+axis); ``params`` gathers to host numpy in the logical layout.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from autodist_tpu_torch.const import not_ported
+from autodist_tpu_torch.graph_item import tree_map
+from autodist_tpu_torch.kernel.graph_transformer import DistributedStep
+
+
+def _to_host(tree):
+    return tree_map(lambda x: x.detach().cpu().numpy()
+                    if isinstance(x, torch.Tensor) else np.asarray(x), tree)
+
+
+class ThroughputMeter:
+    """Sliding-window step-time tracker (wall time between ``tick()``s)."""
+
+    def __init__(self, window: int = 50):
+        self._times: deque = deque(maxlen=window + 1)
+
+    def tick(self) -> None:
+        self._times.append(time.perf_counter())
+
+    @property
+    def steps_recorded(self) -> int:
+        return max(0, len(self._times) - 1)
+
+    def step_time(self) -> Optional[float]:
+        """Mean seconds per step over the window (None until 2 ticks)."""
+        if len(self._times) < 2:
+            return None
+        return (self._times[-1] - self._times[0]) / (len(self._times) - 1)
+
+    def stats(self, items_per_step: Optional[int] = None) -> Dict[str, Any]:
+        st = self.step_time()
+        out: Dict[str, Any] = {
+            "steps_measured": self.steps_recorded,
+            "step_time_ms": None if st is None else round(st * 1e3, 3),
+            "steps_per_sec": None if st in (None, 0.0) else round(1.0 / st,
+                                                                  3),
+        }
+        if items_per_step is not None and st not in (None, 0.0):
+            out["items_per_sec"] = round(items_per_step / st, 2)
+        return out
+
+
+class DistributedSession:
+    """Holds this rank's training state and runs lowered steps.
+    Construction places the parameters and initializes the optimizer
+    state."""
+
+    def __init__(self, graph_item, dist_step: DistributedStep):
+        self._gi = graph_item
+        self._step = dist_step
+        self._params = dist_step.place_params(graph_item.params)
+        self._opt_state = dist_step.init_fn(self._params)
+        self._step_count = 0
+        self._meter = ThroughputMeter()
+
+    # -- state -------------------------------------------------------------
+    @property
+    def params(self):
+        """Current parameters as nested dicts of host numpy arrays."""
+        return _to_host(self._params)
+
+    @property
+    def device_params(self):
+        """The parameter tensors the step updates in place."""
+        return self._params
+
+    @property
+    def opt_state(self):
+        return self._opt_state
+
+    def export_state(self):
+        """(params, opt_state) as detached copies on the device."""
+        copy = lambda x: x.detach().clone()  # noqa: E731
+        return (tree_map(copy, self._params), tree_map(copy, self._opt_state))
+
+    def import_state(self, params, opt_state, step: int = 0) -> None:
+        """Load state (tensors or numpy arrays, e.g. from
+        :func:`~autodist_tpu_torch.convert.opt_state_from_jax`)."""
+        self._params = self._step.place_params(params)
+        self._opt_state = tree_map(
+            lambda x: torch.as_tensor(x).detach().to(self._step.device)
+            .clone(), opt_state)
+        self._step_count = step
+
+    @property
+    def step_count(self) -> int:
+        return self._step_count
+
+    @property
+    def mesh(self):
+        return self._step.mesh
+
+    @property
+    def data_axis_size(self) -> int:
+        return self._step.mesh.data_size
+
+    # -- running -----------------------------------------------------------
+    def run(self, batch: Any, sync: bool = True) -> Dict[str, Any]:
+        """One training step on the global batch.  Returns metrics (at
+        least ``{"loss"}``) as host numpy when ``sync``, else as device
+        tensors, so back-to-back steps queue without a host round trip."""
+        out = self._step.step_fn(self._params, self._opt_state,
+                                 self._step.place_batch(batch))
+        self._step_count += 1
+        self._meter.tick()
+        return _to_host(out) if sync else out
+
+    def run_many(self, batches) -> Optional[Dict[str, Any]]:
+        """Run a sequence of batches without a host round trip per step;
+        the last step's metrics on host (None for no batches)."""
+        out = None
+        for b in batches:
+            out = self.run(b, sync=False)
+        return None if out is None else _to_host(out)
+
+    def evaluate(self, batches, sync: bool = True
+                 ) -> Optional[Dict[str, Any]]:
+        """Loss (and aux, and metrics_fn extras) on the current parameters,
+        with no state change.  An iterable of batches returns the mean of
+        every metric over the batches; None for an empty iterable."""
+        if isinstance(batches, dict):
+            batches = [batches]
+        acc, n = None, 0
+        for b in batches:
+            out = self._step.eval_fn(self._params,
+                                     self._step.place_batch(b))
+            acc = out if acc is None else tree_map(lambda a, x: a + x,
+                                                   acc, out)
+            n += 1
+        if acc is None:
+            return None
+        acc = tree_map(lambda a: a / n, acc)
+        return _to_host(acc) if sync else acc
+
+    def fit(self, data, **kwargs):
+        """The epochs x steps loop with callbacks and checkpoints of the
+        JAX package's session; not ported yet."""
+        raise not_ported("DistributedSession.fit", "P5 — fit and checkpoint")
+
+    def throughput(self, items_per_step: Optional[int] = None
+                   ) -> Dict[str, Any]:
+        """Sliding-window step timing: step_time_ms / steps_per_sec (+
+        items_per_sec given a batch size)."""
+        return self._meter.stats(items_per_step)

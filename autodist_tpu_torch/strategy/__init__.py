@@ -1,0 +1,20 @@
+"""Strategy builders (this slice: :class:`AllReduce`; the PS family and
+``Zero1`` raise until slice 3), the Strategy IR and its compiler."""
+from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
+                                              GraphConfig,
+                                              PSSynchronizerConfig, Strategy,
+                                              StrategyBuilder, VarConfig)
+from autodist_tpu_torch.strategy.compiler import (CompiledStrategy,
+                                                  StrategyCompiler, VarPlan,
+                                                  parse_partitioner)
+from autodist_tpu_torch.strategy.ps_family import (PS, Parallax,
+                                                   PartitionedPS,
+                                                   PSLoadBalancing,
+                                                   UnevenPartitionedPS, Zero1)
+
+__all__ = ["AllReduce", "AllReduceSynchronizerConfig", "CompiledStrategy",
+           "GraphConfig", "PS", "PSLoadBalancing", "PSSynchronizerConfig",
+           "Parallax", "PartitionedPS", "Strategy", "StrategyBuilder",
+           "StrategyCompiler", "UnevenPartitionedPS", "VarConfig", "VarPlan",
+           "Zero1", "parse_partitioner"]

@@ -8,14 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing one JSON line:
 
 1. device and build: the card, ``nvidia-smi``'s name and power limit, and
-   the seconds to build every CUDA kernel from ``autodist_tpu_torch/csrc``;
-2. kernel vs plain: each kernel at the shapes the serving path gives it,
-   held against its plain PyTorch version, with its median device time
-   over 50 launches (CUDA events, L2 evicted between launches, host
-   launch overhead excluded), the plain version's time, one PyTorch
-   library call's time and the least time the card could take (bytes
-   over 3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is
-   larger);
+   the seconds to build every CUDA kernel from ``autodist_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
+2. kernel vs plain: each kernel at the shapes its path gives it, held
+   against its plain PyTorch version, with its median device time over
+   50 launches (CUDA events, L2 evicted between launches, host launch
+   overhead excluded), the plain version's time, one PyTorch library
+   call's time and the least time the card could take (bytes over
+   3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is larger).
+   The flash kernels K1–K3 are checked at the training shape (B 8, T 1024,
+   H 12, D 64, causal), at a ragged T = 1000 (causal and not) and at
+   D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV at 1e-4, and two
+   backward runs must give identical bits;
 3. the slice at full width: ``transformer_lm()`` at its defaults (12
    layers, 12 heads x 64, vocab 32128, random weights from seed 0) served
    by ``serve(..., paged=True)`` over real HTTP after one warm-up pass of
@@ -25,12 +29,23 @@ Phases, each printing one JSON line:
 4. the slice in int8: the same weights quantized, a ``PagedDecodeEngine``
    run (after the same warm-up), token-exact against the generator on the
    int8 tree, with the int8 matmul kernel called 73 times per decode
-   tick and per prefill dispatch.
+   tick and per prefill dispatch;
+5. training at full width: ``AutoDist(strategy_builder=AllReduce())``
+   captures ``transformer_lm()`` (attention through K1–K3) with
+   ``adamw(1e-3)``; 3 warm-up and 10 timed ``session.run`` steps on one
+   fixed batch of 8 x 1024 tokens.  Losses must be finite and fall, each
+   step must launch each of K1, K2 and K3 once per layer, and
+   ``evaluate`` must add one forward launch per layer and no backward
+   launch;
+6. training parity: the same facade at full width and depth 2, with the
+   flash kernels and with dense attention from the same parameters: 3
+   steps whose losses agree at rtol 1e-4.
 
 Then one JSON line with every kernel's numbers (``launches`` counts the
-wrapper's calls that launched its C entry point on the serving path; each
-such call issues one kernel, or two where the work is split and then
-merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+wrapper's calls that launched its C entry point on the kernel's own path:
+serving for K9 and K10, the 13 training steps for K1–K3; each such call
+issues one kernel, or two where the work is split and then merged), the
+``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is not 0; without a
 CUDA device, or without the package beside this script, it exits 2 and
 prints no result.
@@ -52,6 +67,12 @@ K9_SOURCE = "autodist_tpu_torch/csrc/paged_attention.cu"
 K9_REPLACES = "autodist_tpu/ops/fused_kernels.py:624"
 K10_SOURCE = "autodist_tpu_torch/csrc/int8_matmul.cu"
 K10_REPLACES = "autodist_tpu/ops/quant.py:74"
+FLASH_SOURCE = "autodist_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "autodist_tpu/ops/flash_attention.py:56",
+                  "flash_dq": "autodist_tpu/ops/flash_attention.py:141",
+                  "flash_dkv": "autodist_tpu/ops/flash_attention.py:183"}
+TRAIN_SHAPE = dict(B=8, T=1024, H=12, D=64)   # transformer_lm() at batch 8
+WARMUP_STEPS, TIMED_STEPS = 3, 10
 SERVE_GEOM = dict(slots=8, window=1024, block_size=32, chunk=16,
                   prefill_chunk=256)
 
@@ -190,6 +211,108 @@ def phase_kernels(torch, timer):
         "library_call": "torch.matmul against the pre-dequantized weight",
     }
     return k9, k10
+
+
+def _flash_case(torch, fa, gen, b, t, h, d, causal):
+    """K1–K3 against their plain versions on one shape (random q, k, v,
+    dO and lse cotangent); returns the max abs errors and the inputs."""
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to("cuda")
+                   for _ in range(4))
+    dlse = torch.randn(b, h, t, generator=gen).to("cuda")
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = ((do * o).sum(-1).transpose(1, 2) - dlse).contiguous()
+    bwd = (q, k, v, do, lse, delta, causal)
+    got = {"o": o, "lse": lse, "dq": fa.flash_dq(*bwd)}
+    got["dk"], got["dv"] = fa.flash_dkv(*bwd)
+    again = (fa.flash_dq(*bwd),) + fa.flash_dkv(*bwd)
+    want = dict(zip(("o", "lse"), fa.flash_fwd_reference(q, k, v, causal)))
+    want["dq"] = fa.flash_dq_reference(*bwd)
+    want["dk"], want["dv"] = fa.flash_dkv_reference(*bwd)
+    torch.cuda.synchronize()
+    label = f"B={b} T={t} H={h} D={d} causal={causal}"
+    for name, tol in (("o", 1e-5), ("lse", 1e-5), ("dq", 1e-4), ("dk", 1e-4),
+                      ("dv", 1e-4)):
+        torch.testing.assert_close(got[name], want[name], rtol=tol, atol=tol,
+                                   msg=f"flash {name} at {label}")
+    if not all(torch.equal(x, y) for x, y in
+               zip(again, (got["dq"], got["dk"], got["dv"]))):
+        raise AssertionError(f"flash backward not bit-identical at {label}")
+    errs = {n: (got[n] - want[n]).abs().max().item() for n in got}
+    return errs, bwd
+
+
+def phase_flash(torch, timer):
+    """K1–K3: correctness at the training and ragged shapes, then times at
+    the training shape (causal)."""
+    import torch.nn.functional as F
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    b, t, h, d = (TRAIN_SHAPE[x] for x in "BTHD")
+    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for shape, causal in (((b, 1000, h, d), True), ((b, 1000, h, d), False),
+                          ((b, 1000, h, 16), True), ((b, t, h, d), True)):
+        e, bwd = _flash_case(torch, fa, gen, *shape, causal)
+        errs["flash_fwd"] = max(errs["flash_fwd"], e["o"], e["lse"])
+        errs["flash_dq"] = max(errs["flash_dq"], e["dq"])
+        errs["flash_dkv"] = max(errs["flash_dkv"], e["dk"], e["dv"])
+        emit({"phase": "flash_check", "shape": list(shape), "causal": causal,
+              "max_abs_err": e})
+    q, k, v, do, lse, delta, _ = bwd          # the training shape, causal
+    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    product = 2.0 * pairs * d                 # one T x T x D product
+    rows, vec = 4.0 * b * t * h * d, 4.0 * b * h * t
+    # K1: S = QK^T, O = PV; K2: S, dP = dO V^T, dQ = dS K; K3: S, dV = P^T
+    # dO, dP, dK = dS^T Q.  Bytes: each input read once, each output once.
+    work = {"flash_fwd": (4 * rows + vec, 2 * product),
+            "flash_dq": (5 * rows + 2 * vec, 3 * product),
+            "flash_dkv": (6 * rows + 2 * vec, 4 * product)}
+    times = {
+        "flash_fwd": (timer(lambda: fa.flash_fwd(q, k, v, True)),
+                      timer(lambda: fa.flash_fwd_reference(q, k, v, True))),
+        "flash_dq": (timer(lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                               True)),
+                     timer(lambda: fa.flash_dq_reference(q, k, v, do, lse,
+                                                         delta, True))),
+        "flash_dkv": (timer(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                 True)),
+                      timer(lambda: fa.flash_dkv_reference(q, k, v, do, lse,
+                                                           delta, True))),
+    }
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    lib_bwd = timer(sdpa_fwd_bwd) - lib_fwd
+    library = {
+        "flash_fwd": (lib_fwd, "F.scaled_dot_product_attention forward "
+                               "(is_causal, [B, H, T, D] copies)"),
+        "flash_dq": (lib_bwd, "F.scaled_dot_product_attention backward "
+                              "(forward+backward minus forward): dQ, dK and "
+                              "dV together, so it compares with "
+                              "flash_dq + flash_dkv"),
+        "flash_dkv": (None, "none alone: SDPA's backward is reported once, "
+                            "on flash_dq"),
+    }
+    rows_out = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        bnd, by = bound_ms(*work[name])
+        rows_out.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name], "shape": dict(TRAIN_SHAPE,
+                                                            causal=True),
+            "max_abs_err": errs[name], "ms": times[name][0],
+            "plain_ms": times[name][1], "bound_ms": bnd, "bound_by": by,
+            "gflop": work[name][1] / 1e9,
+            "library_ms": library[name][0],
+            "library_call": library[name][1]})
+        emit({"phase": "kernel", **rows_out[-1]})
+    return rows_out
 
 
 def _post(url: str, body: dict):
@@ -373,6 +496,139 @@ def phase_int8(torch, spec, params, device="cuda", geom=SERVE_GEOM):
             **_rates(eng)}
 
 
+def _flash_counts(fa_fn):
+    return (fa_fn.fwd_calls, fa_fn.dq_calls, fa_fn.dkv_calls)
+
+
+def _train_session(spec, params, batch_rows):
+    """The program users run: ``AutoDist(AllReduce())`` → capture →
+    session, on the card."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.strategy import AllReduce
+
+    adm._reset_default_autodist_for_testing()   # one facade per phase
+    ad = adm.AutoDist(strategy_builder=AllReduce())
+    with ad.scope():
+        ad.capture(params=params, optimizer=optim.adamw(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars)
+    return ad.create_distributed_session(), spec.sample_batch(batch_rows,
+                                                              seed=SEED)
+
+
+def model_flops_per_step(cfg, batch: int) -> dict:
+    """Model FLOPs of one training step of ``transformer_lm``: 6 per
+    token and weight of every projection and the tied head (forward,
+    input and weight gradients), plus the nine causal T x T x D products
+    the flash kernels do per layer (two forward, three in dQ, four in
+    dK/dV, the backward recomputing S)."""
+    d = cfg["num_heads"] * cfg["head_dim"]
+    t = cfg["seq_len"]
+    weights = cfg["num_layers"] * (4 * d * d + 2 * d * cfg["d_ff"]) \
+        + cfg["vocab_size"] * d
+    dense = 6.0 * weights * batch * t
+    attn = 9 * 2.0 * batch * cfg["num_heads"] * t * (t + 1) // 2 \
+        * cfg["head_dim"] * cfg["num_layers"]
+    return {"projections_and_head": dense, "attention": attn,
+            "total": dense + attn}
+
+
+def phase_train(torch):
+    """Full-width training through the facade: launches per step, losses,
+    step time, tokens/s, peak memory, MFU against the f32 peak."""
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    spec = transformer_lm()       # attn_fn=None: K1–K3 on the card
+    layers = spec.config["num_layers"]
+    params = spec.init(SEED)
+    shapes = {n: tuple(x.shape) for n, x in flatten(params)}
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"])
+    del params
+    fa_fn = fa.flash_attention
+    fa.reset_counts()             # the main path starts here
+    losses, step_s = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        before = _flash_counts(fa_fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(sess.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            step_s.append(time.perf_counter() - t0)
+        per_step = tuple(a - b for a, b in zip(_flash_counts(fa_fn), before))
+        if per_step != (layers, layers, layers):
+            raise AssertionError(f"step {i} launched (K1, K2, K3) = "
+                                 f"{per_step}, expected {layers} each")
+    launches = _flash_counts(fa_fn)   # read just after the main path
+    before = launches
+    ev = sess.evaluate(batch)
+    ev_launches = tuple(a - b for a, b in zip(_flash_counts(fa_fn), before))
+    if ev_launches != (layers, 0, 0):
+        raise AssertionError(f"evaluate launched (K1, K2, K3) = "
+                             f"{ev_launches}, expected ({layers}, 0, 0)")
+    if not all(np.isfinite(losses)) or not np.isfinite(float(ev["loss"])):
+        raise AssertionError(f"non-finite loss: {losses}, eval {ev}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    got = {n: tuple(x.shape) for n, x in flatten(sess.params)}
+    if got != shapes:
+        raise AssertionError("session.params differ from the init tree")
+    step = statistics.median(step_s)
+    flops = model_flops_per_step(spec.config, TRAIN_SHAPE["B"])
+    tokens = TRAIN_SHAPE["B"] * spec.config["seq_len"]
+    out = {"layers": layers, "batch": TRAIN_SHAPE["B"],
+           "seq_len": spec.config["seq_len"], "losses": losses,
+           "eval_loss": float(ev["loss"]), "ms_per_step": step * 1e3,
+           "ms_per_step_min": min(step_s) * 1e3,
+           "ms_per_step_max": max(step_s) * 1e3,
+           "tokens_per_s": tokens / step,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_tflop_per_step": flops["total"] / 1e12,
+           "model_tflop_split": {k: v / 1e12 for k, v in flops.items()},
+           "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                launches)),
+           "launches_per_step": layers, "eval_launches": list(ev_launches)}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity(torch):
+    """Depth 2 at full width: flash kernels vs dense attention from the
+    same parameters, 3 ``adamw`` steps, losses at rtol 1e-4."""
+    from autodist_tpu_torch.models.transformer import dense_attention
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    flash_spec = transformer_lm(num_layers=2)
+    dense_spec = transformer_lm(num_layers=2, attn_fn=dense_attention)
+    params = flash_spec.init(SEED)
+    out = {}
+    for name, spec in (("flash", flash_spec), ("dense", dense_spec)):
+        sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"])
+        before = _flash_counts(fa.flash_attention)
+        out[name] = [float(sess.run(batch)["loss"]) for _ in range(3)]
+        launched = tuple(a - b for a, b in
+                         zip(_flash_counts(fa.flash_attention), before))
+        want = (6, 6, 6) if name == "flash" else (0, 0, 0)
+        if launched != want:
+            raise AssertionError(f"{name} run launched (K1, K2, K3) = "
+                                 f"{launched}, expected {want}")
+        del sess
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["flash"], out["dense"]))
+    if not rel <= 1e-4:
+        raise AssertionError(f"flash vs dense losses differ (rel {rel:.2e}):"
+                             f" {out}")
+    torch.cuda.empty_cache()
+    return {"layers": 2, "flash_losses": out["flash"],
+            "dense_losses": out["dense"], "max_rel_diff": rel,
+            "rtol": 1e-4}
+
+
 def main() -> int:
     import torch
 
@@ -400,7 +656,9 @@ def main() -> int:
 
     timer = Timer(torch)
     k9, k10 = phase_kernels(torch, timer)
+    flash_rows = phase_flash(torch, timer)
     del timer
+    torch.cuda.empty_cache()
 
     spec = transformer_lm()          # the repo's defaults, float32
     t0 = time.perf_counter()
@@ -414,7 +672,18 @@ def main() -> int:
     emit({"phase": "int8", **int8_out})
     k10["launches"] = int8_out["int8_matmul_calls"]
 
-    emit({"kernels": [k9, k10], "card": smi,
+    del params
+    torch.cuda.empty_cache()
+    train_out = phase_train(torch)
+    emit({"phase": "train", "card": smi, **train_out})
+    for row in flash_rows:
+        row["launches"] = train_out["launches"][row["name"]]
+        row["launches_per_step"] = train_out["launches_per_step"]
+        row["share_of_step"] = (row["ms"] * train_out["launches_per_step"]
+                                / train_out["ms_per_step"])
+    emit({"phase": "train_parity", **phase_train_parity(torch)})
+
+    emit({"kernels": flash_rows + [k9, k10], "card": smi,
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

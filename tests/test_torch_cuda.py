@@ -8,12 +8,14 @@ nothing of JAX, so it runs on a machine without it:
 
 Tolerances: paged attention atol/rtol 1e-5 (the JAX kernel test's);
 int8 matmul rtol 1e-5 / atol 1e-4 (the JAX int8 test's), at the model's
-magnitudes (unit-variance activations, weights of std 1/sqrt(K)).
+magnitudes (unit-variance activations, weights of std 1/sqrt(K)); flash
+attention 1e-5 on o and lse, 1e-4 on gradients (the JAX flash tests').
 """
 import numpy as np
 import pytest
 import torch
 
+from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_kernels as fk
 from autodist_tpu_torch.ops import quant
 
@@ -95,3 +97,112 @@ def test_int8_matmul_small_m_results_do_not_depend_on_m(dev, k, n):
     for rows in (1, 3, 8):
         torch.testing.assert_close(quant.int8_matmul(x[:rows], w),
                                    batched[:rows], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 33, 3, 8), (1, 130, 2, 16),
+                                     (2, 64, 2, 16), (1, 1000, 2, 64),
+                                     (1, 70, 1, 64), (1, 1, 1, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain(dev, b, t, h, d, causal):
+    """K1–K3 against their plain versions (o and lse at 1e-5, dQ/dK/dV at
+    1e-4: the JAX flash tests' tolerances), ragged T included; two
+    backward runs give identical bits (no atomics)."""
+    gen = torch.Generator().manual_seed(b * t + d + causal)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to(dev)
+                   for _ in range(4))
+    dlse = torch.randn(b, h, t, generator=gen).to(dev)
+    counts = (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+              fa.flash_attention.dkv_calls)
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    delta = ((do * o).sum(-1).transpose(1, 2) - dlse).contiguous()
+    args = (q, k, v, do, lse, delta, causal)
+    dq, (dk, dv) = fa.flash_dq(*args), fa.flash_dkv(*args)
+    torch.testing.assert_close(dq, fa.flash_dq_reference(*args), rtol=1e-4,
+                               atol=1e-4)
+    rdk, rdv = fa.flash_dkv_reference(*args)
+    torch.testing.assert_close(dk, rdk, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dv, rdv, rtol=1e-4, atol=1e-4)
+    assert torch.equal(fa.flash_dq(*args), dq)
+    assert all(torch.equal(x, y) for x, y in zip(fa.flash_dkv(*args),
+                                                  (dk, dv)))
+    assert (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+            fa.flash_attention.dkv_calls) == (counts[0] + 1, counts[1] + 2,
+                                              counts[2] + 2)
+
+
+def test_flash_autograd_on_the_card_matches_dense(dev):
+    """The autograd Function on CUDA tensors (K1, then K2 and K3 with a
+    loss on both o and lse) against dense attention and the plain lse."""
+    from autodist_tpu_torch.models.transformer import dense_attention
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, w = (torch.randn(2, 50, 3, 16, generator=gen).to(dev)
+                  for _ in range(4))
+    wl = torch.randn(2, 3, 50, generator=gen).to(dev)
+    grads = {}
+    for name in ("flash", "plain"):
+        ts = [x.clone().requires_grad_() for x in (q, k, v)]
+        if name == "flash":
+            o, lse = fa.flash_attention_with_lse(*ts, True)
+        else:
+            o = dense_attention(*ts, True)
+            lse = torch.logsumexp(
+                fa._scores(ts[0], ts[1], True), dim=-1)
+        ((o * w).sum() + (lse * wl).sum()).backward()
+        grads[name] = [x.grad for x in ts]
+    for got, want in zip(grads["flash"], grads["plain"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(dev):
+    """Each wrapper launches on its tensors' card, whichever card is
+    current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    d1 = torch.device("cuda", 1)
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, do = (torch.randn(1, 70, 2, 16, generator=gen).to(d1)
+                   for _ in range(4))
+    with torch.cuda.device(0):
+        o, lse = fa.flash_fwd(q, k, v, True)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        dq = fa.flash_dq(q, k, v, do, lse, delta, True)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, True)
+        x = torch.randn(3, 100, generator=gen).to(d1)
+        w = quant.quantize_weight(torch.randn(100, 77, generator=gen).to(d1))
+        y = quant.int8_matmul(x, w)
+        qp = torch.randn(2, 2, 16, generator=gen).to(d1)
+        kc = torch.randn(5, 4, 2, 16, generator=gen).to(d1)
+        bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=d1)
+        rel = torch.tensor([5, 7], dtype=torch.int32, device=d1)
+        pa = fk.paged_attention(qp, kc, kc, bt, rel)
+    torch.cuda.synchronize(d1)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, True)
+    torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    args = (q, k, v, do, lse, delta, True)
+    torch.testing.assert_close(dq, fa.flash_dq_reference(*args), rtol=1e-4,
+                               atol=1e-4)
+    for got, want in zip((dk, dv), fa.flash_dkv_reference(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, quant.int8_matmul_reference(x, w),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(
+        pa, fk.paged_attention_reference(qp, kc, kc, bt, rel),
+        atol=1e-5, rtol=1e-5)
+
+
+def test_flash_rejects_what_it_cannot_take(dev):
+    x = torch.zeros(1, 8, 2, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fa.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    for d in (24, 32, 128):
+        y = torch.zeros(1, 8, 2, d, device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(y, y, y)
+    z = torch.zeros(64 * 8 + 1, device=dev)[1:].view(1, 8, 8, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(z, z, z)

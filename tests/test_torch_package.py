@@ -5,13 +5,18 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.autodist import (AutoDist,
+                                         _reset_default_autodist_for_testing)
 from autodist_tpu_torch.models import base
 from autodist_tpu_torch.models.generate import make_generator
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.serving import PagedDecodeEngine, serve
+from autodist_tpu_torch.strategy import AllReduce
 
 pytestmark = pytest.mark.torch_port
 
@@ -28,6 +33,14 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch, autodist_tpu_torch.convert\n"
         "import autodist_tpu_torch.models, autodist_tpu_torch.ops\n"
         "import autodist_tpu_torch.serving, autodist_tpu_torch.ops._build\n"
+        "import autodist_tpu_torch.autodist, autodist_tpu_torch.optim\n"
+        "import autodist_tpu_torch.const, autodist_tpu_torch.mesh\n"
+        "import autodist_tpu_torch.resource_spec, autodist_tpu_torch.runner\n"
+        "import autodist_tpu_torch.graph_item, autodist_tpu_torch.strategy\n"
+        "import autodist_tpu_torch.strategy.compiler\n"
+        "import autodist_tpu_torch.kernel.graph_transformer\n"
+        "import autodist_tpu_torch.kernel.synchronization.bucketing\n"
+        "import autodist_tpu_torch.ops.flash_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('autodist_tpu', 'jax', 'flax', 'optax') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -67,6 +80,29 @@ def test_entry_points_raise_without_device_when_cuda_is_absent(monkeypatch):
     assert base.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_training_facade_raises_without_device_when_cuda_is_absent(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
+    _reset_default_autodist_for_testing()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AutoDist(strategy_builder=AllReduce())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AutoDist(strategy_builder=AllReduce()).create_distributed_session()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AutoDist(strategy_builder=AllReduce(), device="cuda")
+    spec = transformer_lm(vocab_size=11, num_layers=1, num_heads=1,
+                          head_dim=8, d_ff=8, max_len=8)
+    ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"),
+                   optimizer=optim.adamw(1e-3), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars)
+    sess = ad.create_distributed_session()
+    assert np.isfinite(float(sess.run(spec.sample_batch(2))["loss"]))
+    assert sess.device_params["embed"].device == torch.device("cpu")
+
+
 def test_engine_refuses_params_on_another_device():
     spec = transformer_lm(vocab_size=11, num_layers=1, num_heads=1,
                           head_dim=4, d_ff=8, max_len=16)
@@ -93,6 +129,7 @@ def test_build_paths_stay_in_the_checkout():
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
     assert {p.name for p in (PACKAGE / "csrc").glob("*.cu")} \
         == set(_build.SOURCES)
+    assert "flash_attention.cu" in _build.SOURCES
     path = _build.library_path("paged_attention.cu")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
