@@ -8,8 +8,8 @@ multi-rank ``torch.distributed`` run, card ``rank % cards``); without a
 card this raises unless ``device="cpu"`` is passed.
 
 The JAX facade defaults to the ``PSLoadBalancing`` builder, and the PS
-family comes with slice 3: with no builder, building the strategy raises
-rather than picking another one.
+family comes with its own slice: with no builder, building the strategy
+raises rather than picking another one.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runner import DistributedSession
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
 from autodist_tpu_torch.strategy.compiler import StrategyCompiler
+from autodist_tpu_torch.strategy.ps_family import ITEM as PS_ITEM
 
 _default_autodist: Optional["AutoDist"] = None
 
@@ -48,8 +49,9 @@ class AutoDist:
     Args:
       resource_spec_file: yaml path (or pass ``resource_spec``); omitting
         both derives one node from the visible CUDA devices.
-      strategy_builder: a :class:`StrategyBuilder` (this slice:
-        :class:`~autodist_tpu_torch.strategy.AllReduce`).
+      strategy_builder: a :class:`StrategyBuilder`
+        (:class:`~autodist_tpu_torch.strategy.AllReduce` or
+        :class:`~autodist_tpu_torch.strategy.Zero1`).
       mesh_axes: optional logical mesh shape, e.g. ``{"data": 4}``.
       device: where this rank computes; the CUDA card unless given.
     """
@@ -93,7 +95,12 @@ class AutoDist:
         ``metrics_fn(params, batch) -> dict`` extras join every step's and
         ``evaluate``'s outputs; ``accum_steps=N`` averages gradients over
         N microbatches per step (with ``has_aux`` the aux comes back
-        stacked along a leading ``[N]`` axis)."""
+        stacked along a leading ``[N]`` axis).  ``numerics`` turns on the
+        gradient-health guard (True, an ``on_nonfinite`` string, a dict of
+        :class:`~autodist_tpu_torch.numerics.NumericsConfig` fields such as
+        ``{"clip_norm": 1.0}``, or a config): every step then returns
+        ``grad_health`` and skips the update when a gradient is not
+        finite."""
         if self.is_built():
             raise RuntimeError(
                 "Cannot capture after the distributed session was created")
@@ -123,8 +130,8 @@ class AutoDist:
             if self._strategy_builder is None:
                 raise not_ported(
                     "AutoDist's default builder (PSLoadBalancing)",
-                    "slice 3 — the PS family and Zero1; pass "
-                    "strategy_builder=AllReduce()")
+                    f"{PS_ITEM}; pass strategy_builder=AllReduce() or "
+                    "Zero1()")
             self._strategy = self._strategy_builder.build(
                 self._graph_item, self._resource_spec)
             self._strategy.serialize()

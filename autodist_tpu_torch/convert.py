@@ -13,7 +13,11 @@ Both packages key parameters by the same logical names
   dicts of numpy arrays;
 * :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
   state of ``adam``, ``adamw`` and ``sgd`` across (count, moments or
-  momentum trace, keyed like the parameters).
+  momentum trace, keyed like the parameters), and the ZeRO-1 layout of
+  the JAX explicit step (``{"vars", "zero1"}``), sliced to one rank's
+  shards;
+* :func:`sync_state_from_jax` carries the numerics state (loss scale and
+  health counters).
 
 A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 ``(q, scale)`` pair) becomes the port's
@@ -21,11 +25,12 @@ A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
+from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops.quant import Quantized
 
 
@@ -65,12 +70,92 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     return walk(tree)
 
 
-def opt_state_from_jax(state, device="cpu") -> Dict[str, Any]:
+def _is_masked(node) -> bool:
+    """The optimizer library's placeholder for a masked leaf: a named tuple
+    without fields."""
+    return getattr(node, "_fields", None) == ()
+
+
+def _drop_masked(tree):
+    """``tree`` without masked leaves and without the dicts left empty."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if _is_masked(v):
+            continue
+        v = _drop_masked(v)
+        if not (isinstance(v, dict) and not v):
+            out[k] = v
+    return out
+
+
+def opt_state_from_jax(state, device="cpu", zero1_buckets: Sequence = (),
+                       rank: int = 0, data: int = 1) -> Dict[str, Any]:
     """The JAX optimizer library's state (numpy leaves) for ``adam``,
     ``adamw`` or ``sgd`` → the port's :mod:`~autodist_tpu_torch.optim`
     state: ``{"count", "mu", "nu"}`` from the Adam scaling state,
     ``{"trace"}`` from the momentum trace, ``{}`` when only empty states
-    remain.  Other state trees raise ``ValueError``."""
+    remain.  Other state trees raise ``ValueError``.
+
+    The ZeRO-1 layout of the JAX explicit step, ``{"vars": the tree
+    optimizer's partition state, "zero1": the state over full bucket
+    vectors}``, becomes the port's ``{"vars", "zero1"}`` for rank ``rank``
+    of ``data``: each bucket vector is cut to its ``total`` elements,
+    zero-padded to the port bucket's ``padded_total`` (the pad only ever
+    holds zeros, and the two packages may pad to different data sizes)
+    and sliced to ``[rank·sz, (rank+1)·sz)`` with ``sz = padded_total //
+    data``.  ``zero1_buckets`` is the port session's plan
+    (``session.zero1_buckets``)."""
+    if isinstance(state, dict) and set(state) == {"vars", "zero1"}:
+        return {"vars": _zero1_tree_state(state["vars"], device),
+                "zero1": _zero1_shards(state["zero1"], zero1_buckets, rank,
+                                       data, device)}
+    return _plain_state(state, device)
+
+
+def _zero1_tree_state(part_state, device) -> Dict[str, Any]:
+    """The "train" partition of the tree optimizer (ZeRO-1 and frozen
+    variables are the masked "zero" partition: no state)."""
+    inner = getattr(part_state, "inner_states", None)
+    if not isinstance(inner, dict) or set(inner) != {"train", "zero"}:
+        raise ValueError("not the ZeRO-1 tree state (a train/zero "
+                         "partition of the optimizer)")
+    return _plain_state(inner["train"].inner_state, device)
+
+
+def _zero1_shards(state, buckets: Sequence, rank: int, data: int,
+                  device) -> Dict[str, Any]:
+    out = _plain_state(state, device)
+    by_key = {b.key: b for b in buckets}
+
+    def shard(key, vec):
+        b = by_key.get(key)
+        if b is None:
+            raise ValueError(f"ZeRO-1 state names bucket {key!r}, which the "
+                             f"session's plan lacks ({sorted(by_key)})")
+        full = vec.new_zeros(b.padded_total)
+        full[:b.total] = vec[:b.total]
+        sz = b.padded_total // data
+        return full[rank * sz:(rank + 1) * sz].clone()
+    return {k: v if isinstance(v, torch.Tensor)
+            else {key: shard(key, x) for key, x in v.items()}
+            for k, v in out.items()}
+
+
+def sync_state_from_jax(sync_state, device="cpu") -> Dict[str, Any]:
+    """The JAX session's sync state (numpy leaves) → the port's: the
+    numerics state (loss scale and health counters, dtypes kept).  Other
+    entries (compressor residuals) raise ``ValueError``."""
+    other = set(sync_state) - {NUMERICS_KEY}
+    if other:
+        raise ValueError(f"sync state entries {sorted(other)} belong to "
+                         f"compressors, which the port does not run yet")
+    return {k: {n: _tensor(x, device) for n, x in v.items()}
+            for k, v in sync_state.items()}
+
+
+def _plain_state(state, device) -> Dict[str, Any]:
     parts = state if isinstance(state, (tuple, list)) else (state,)
     out: Dict[str, Any] = {}
     for part in parts:
@@ -80,10 +165,10 @@ def opt_state_from_jax(state, device="cpu") -> Dict[str, Any]:
         if set(fields) == {"count", "mu", "nu"}:
             out["count"] = torch.tensor(int(np.asarray(part.count)),
                                         dtype=torch.int32, device=device)
-            out["mu"] = params_from_jax(part.mu, device)
-            out["nu"] = params_from_jax(part.nu, device)
+            out["mu"] = params_from_jax(_drop_masked(part.mu), device)
+            out["nu"] = params_from_jax(_drop_masked(part.nu), device)
         elif set(fields) == {"trace"}:
-            out["trace"] = params_from_jax(part.trace, device)
+            out["trace"] = params_from_jax(_drop_masked(part.trace), device)
         elif fields:
             raise ValueError(f"unsupported optimizer state "
                              f"{type(part).__name__}{tuple(fields)}")

@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from autodist_tpu_torch.const import not_ported
+from autodist_tpu_torch.numerics.policy import NumericsConfig
 
 
 def path_name(path: Tuple) -> str:
@@ -96,9 +97,11 @@ class GraphItem:
     microbatches per step.
 
     ``untrainable_vars`` are frozen for the whole run: no gradient, no
-    synchronization, zero updates and no optimizer state.  ``remat``,
-    ``grad_fn``, ``pipeline_vars``, ``expert_vars`` and ``numerics`` belong
-    to later slices and raise."""
+    synchronization, zero updates and no optimizer state.  ``numerics``
+    turns on the gradient-health guard (coerced by
+    :meth:`~autodist_tpu_torch.numerics.NumericsConfig.coerce`; None when
+    off).  ``remat``, ``grad_fn``, ``pipeline_vars`` and ``expert_vars``
+    belong to later slices and raise."""
 
     def __init__(self, params: Any, optimizer: Any = None,
                  loss_fn: Optional[Callable] = None,
@@ -121,9 +124,6 @@ class GraphItem:
         if pipeline_vars or expert_vars:
             raise not_ported("pipeline_vars / expert_vars",
                              "P10 — non-data mesh axes")
-        if numerics is not None:
-            raise not_ported("capture(numerics=...)",
-                             "slice 3 — the numerics guard (P5)")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = params
@@ -132,6 +132,7 @@ class GraphItem:
         self.has_aux = has_aux
         self.metrics_fn = metrics_fn
         self.accum_steps = accum_steps
+        self.numerics = NumericsConfig.coerce(numerics)
         self._sparse_patterns = tuple(sparse_vars)
         self._untrainable_patterns = tuple(untrainable_vars)
         self.info = self._build_info()

@@ -1,8 +1,11 @@
 """GraphTransformer: lower the captured program into a distributed step.
 
-Port of the JAX package's ``kernel/graph_transformer.py`` for this slice's
-path, the twin of its GSPMD step (``:402-493``) reduced to replicated
-AllReduce plans.  One step runs, in order:
+Port of the JAX package's ``kernel/graph_transformer.py``.  Plans that
+need the explicit bucketed step (ZeRO-1's ``reduce_scatter``, a non-zero
+``bucket_bytes``) go to :func:`~autodist_tpu_torch.kernel.
+synchronization.explicit_sync.make_explicit_step` (``:228``).  Every
+other plan runs the twin of the JAX GSPMD step (``:325-493``) reduced to
+replicated AllReduce plans.  One such step runs, in order:
 
 1. loss and gradients: ``loss_fn`` under autograd on this rank's rows of
    the global batch (its slice of the ``data`` axis);
@@ -14,13 +17,19 @@ AllReduce plans.  One step runs, in order:
    bucketing.assign_buckets`' plan, then the mean over the data group
    (NCCL on the card, gloo on CPU ranks); at width 1 there is no
    collective;
-4. the optimizer update, in place under ``torch.no_grad()``; frozen
+4. with ``capture(numerics=...)``, the guard over the averaged gradients,
+   per variable and unfused (``HealthAccumulator(1)``, as the JAX GSPMD
+   step does, ``:440-460``): unscale and clip multiply the gradients, and
+   a non-finite step (``all_finite`` read on the host once) updates
+   nothing;
+5. the optimizer update, in place under ``torch.no_grad()``; frozen
    variables get no gradient, no update and no state;
-5. metrics: ``{"loss"}``, plus ``aux`` and the ``metrics_fn`` extras
-   (computed on the updated parameters and the global batch).
+6. metrics: ``{"loss"}``, plus ``grad_health``, ``aux`` and the
+   ``metrics_fn`` extras (computed on the updated parameters and the
+   global batch).
 
-The options that need the explicit bucketed step or the PS family raise,
-naming their ROADMAP item; nothing runs in place of what was asked.
+The options still to port raise, naming their ROADMAP item; nothing runs
+in place of what was asked.
 """
 from __future__ import annotations
 
@@ -36,15 +45,37 @@ from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_ALL_REDUCE, Bucket, assign_buckets, pack_bucket, unpack_bucket)
+from autodist_tpu_torch.numerics import guard as guard_mod
+from autodist_tpu_torch.numerics import loss_scale as ls_mod
+from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
+
+
+def copy_tree(tree):
+    """Detached copies of a tree's tensors."""
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def sync_state_init(guard: bool, loss_scale, device) -> Callable:
+    """``() -> sync state``: the numerics state under
+    :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY` with the guard on,
+    ``{}`` without it."""
+    if not guard:
+        return dict
+    return lambda: {NUMERICS_KEY: ls_mod.init_state(loss_scale, device)}
 
 
 @dataclass
 class DistributedStep:
     """The lowered step and what running it needs.
 
-    ``step_fn(params, opt_state, batch) -> metrics`` updates ``params`` and
-    ``opt_state`` in place; ``batch`` is the placed GLOBAL batch.
-    ``eval_fn(params, batch) -> metrics`` changes nothing."""
+    ``step_fn(params, opt_state, sync_state, batch) -> metrics`` updates
+    ``params``, ``opt_state`` and ``sync_state`` (the numerics state under
+    :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY`; ``{}`` without the
+    guard) in place; ``batch`` is the placed GLOBAL batch.  ``eval_fn(params,
+    batch) -> metrics`` changes nothing.  ``zero1_buckets`` are the
+    buckets whose optimizer state is sharded over the data axis, and
+    ``fused_kernels`` names the fused kernels the step runs (``"guard"``:
+    K4, ``"update"``: K5)."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -52,6 +83,10 @@ class DistributedStep:
     mesh: Any
     trainable: Tuple[str, ...]
     buckets: Tuple[Bucket, ...] = ()
+    zero1_buckets: Tuple[Bucket, ...] = ()
+    fused_kernels: Tuple[str, ...] = ()
+    init_sync_state: Callable = dict       # () -> sync state
+    export_opt_state: Callable = copy_tree  # state -> logical copy
 
     @property
     def device(self) -> torch.device:
@@ -87,12 +122,6 @@ def _refuse_unported(compiled) -> None:
         if plan.fused:
             raise not_ported(f"fused_groups ({name})",
                              "P6 — compressors and fused groups")
-        if plan.sync_mode != MODE_ALL_REDUCE:
-            raise not_ported(f"sync={plan.sync_mode!r} ({name})",
-                             "slice 3 — the PS family and Zero1")
-        if plan.bucket_bytes:
-            raise not_ported(f"bucket_bytes={plan.bucket_bytes} ({name})",
-                             "slice 3 — the explicit bucketed step")
         if plan.overlap not in ("auto", "none"):
             raise not_ported(f"overlap={plan.overlap!r} ({name})",
                              "P6 — overlap, hier and staleness")
@@ -135,7 +164,24 @@ def _detach(tree):
                     else x, tree)
 
 
-def _value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
+def local_rows(batch, data: int, rank: int, warned: List[int]):
+    """This rank's rows of the global batch (all of it at data size 1, or,
+    with a warning once per size, when the rows do not divide)."""
+    if data == 1:
+        return batch
+    n = _leading_dim(batch)
+    if n % data:
+        if n not in warned:
+            warned.append(n)
+            warnings.warn(
+                f"batch with leading dim {n} is not divisible by the data "
+                f"axis (size {data}); every rank runs the whole batch — pad "
+                f"the global batch for data parallelism")
+        return batch
+    return _rows(batch, rank * (n // data), n // data)
+
+
+def value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
     """``vg(params, batch) -> (loss, aux, {name: grad})`` by autograd."""
     def vg(params, batch):
         leaves = dict(flatten(params))
@@ -149,7 +195,7 @@ def _value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
     return vg
 
 
-def _accumulate(vg: Callable, accum: int, has_aux: bool):
+def accumulate(vg: Callable, accum: int, has_aux: bool):
     """``vg`` averaged over ``accum`` microbatches, accumulated in f32 and
     cast back to the gradients' dtypes (``_accumulate_grads`` and
     ``_uneven_accumulate`` of the JAX package).  With ``has_aux`` the aux
@@ -182,7 +228,7 @@ def _accumulate(vg: Callable, accum: int, has_aux: bool):
     return vg_accum
 
 
-def _merge_metrics(metrics: Dict, extra: Dict) -> Dict:
+def merge_metrics(metrics: Dict, extra: Dict) -> Dict:
     """Merge user metrics, refusing to clobber the framework's keys."""
     overlap = set(metrics) & set(extra)
     if overlap:
@@ -209,6 +255,11 @@ class GraphTransformer:
                 "GraphItem must carry an optimizer and loss_fn to transform "
                 "(capture them via AutoDist.capture)")
         _refuse_unported(self.compiled)
+        from autodist_tpu_torch.kernel.synchronization import explicit_sync
+
+        if explicit_sync.uses_explicit_path(self.compiled):
+            return explicit_sync.make_explicit_step(gi, self.compiled,
+                                                    extra_metrics_fn)
         mesh = self.compiled.mesh
         data, group, rank = mesh.data_size, mesh.data_group, mesh.data_rank
         names = tuple(v.name for v in gi.info.trainable_variables)
@@ -219,25 +270,14 @@ class GraphTransformer:
                 (v.name, v.shape, v.dtype, plans[v.name].compressor,
                  plans[v.name].group, MODE_ALL_REDUCE)
                 for v in gi.info.trainable_variables]))
-        loss_fn, has_aux, optimizer = gi.loss_fn, gi.has_aux, gi.optimizer
-        vg = _value_and_grad(loss_fn, has_aux, names)
-        if gi.accum_steps > 1:
-            vg = _accumulate(vg, gi.accum_steps, has_aux)
+        has_aux, optimizer = gi.has_aux, gi.optimizer
+        num_cfg = gi.numerics
+        num_active = num_cfg is not None and num_cfg.guard
+        num_ls = ls_mod.resolve_loss_scale(
+            num_cfg.loss_scale, [v.dtype for v in gi.info.variables]) \
+            if num_active else None
+        vg_unscaled = scaled_value_and_grad(gi, names, None)
         warned: List[int] = []
-
-        def local_rows(batch):
-            if data == 1:
-                return batch
-            n = _leading_dim(batch)
-            if n % data:
-                if n not in warned:
-                    warned.append(n)
-                    warnings.warn(
-                        f"batch with leading dim {n} is not divisible by the "
-                        f"data axis (size {data}); every rank runs the whole "
-                        f"batch — pad the global batch for data parallelism")
-                return batch
-            return _rows(batch, rank * (n // data), n // data)
 
         def sync(loss, grads):
             for bucket in buckets:
@@ -249,36 +289,89 @@ class GraphTransformer:
             dist.all_reduce(loss, group=group)
             return loss / data
 
-        def step(params, opt_state, batch):
-            loss, aux, grads = vg(params, local_rows(batch))
+        def step(params, opt_state, sync_state, batch):
+            scale = sync_state[NUMERICS_KEY]["scale"] \
+                if num_ls is not None else None
+            vg = vg_unscaled if scale is None \
+                else scaled_value_and_grad(gi, names, scale)
+            loss, aux, grads = vg(params, local_rows(batch, data, rank,
+                                                     warned))
             if data > 1:
                 loss = sync(loss, grads)
-            optimizer.step_(params, grads, opt_state)
-            metrics = {"loss": loss}
+            metrics: Dict[str, Any] = {}
+            ok = True
+            if num_active:
+                # the guard over the averaged gradients: per variable,
+                # unfused, no collective (the values are already global)
+                health = guard_mod.HealthAccumulator(1)
+                for n in names:
+                    health.add(n, grads[n])
+                all_finite, gnorm, per_bucket, inv_scale, mult = \
+                    guard_mod.rollup(health, None, loss, scale,
+                                     num_cfg.clip_norm)
+                ok = bool(all_finite)   # the skip gate's one host sync
+                if ok and mult is not None:
+                    for g in grads.values():
+                        g.mul_(mult)
+            if ok:
+                optimizer.step_(params, grads, opt_state)
+            if num_active:
+                metrics["grad_health"] = guard_mod.close_step(
+                    sync_state, all_finite, gnorm, per_bucket, num_ls)
+                if scale is not None:
+                    loss = loss * inv_scale
+            metrics["loss"] = loss
             if aux is not None:
                 metrics["aux"] = aux
             if extra_metrics_fn is not None:
                 with torch.no_grad():
-                    metrics = _merge_metrics(
+                    metrics = merge_metrics(
                         metrics, extra_metrics_fn(params, batch))
             return metrics
-
-        @torch.no_grad()
-        def eval_step(params, batch):
-            if has_aux:
-                loss, aux = loss_fn(params, batch)
-                out = {"loss": loss, "aux": aux}
-            else:
-                out = {"loss": loss_fn(params, batch)}
-            if extra_metrics_fn is not None:
-                out = _merge_metrics(out, extra_metrics_fn(params, batch))
-            return out
 
         def init_fn(params):
             leaves = dict(flatten(params))
             return optimizer.init(unflatten([(n, leaves[n].detach())
                                              for n in names]))
 
-        return DistributedStep(step_fn=step, init_fn=init_fn,
-                               eval_fn=eval_step, mesh=mesh,
-                               trainable=names, buckets=buckets)
+        return DistributedStep(
+            step_fn=step, init_fn=init_fn,
+            eval_fn=make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
+            mesh=mesh, trainable=names, buckets=buckets,
+            init_sync_state=sync_state_init(num_active, num_ls, mesh.device))
+
+
+def scaled_value_and_grad(gi, names: Tuple[str, ...],
+                          scale: Optional[torch.Tensor]) -> Callable:
+    """``vg(params, batch) -> (loss, aux, {name: grad})`` of the captured
+    loss, multiplied by ``scale`` before the backward pass when one is
+    given (the loss scale), accumulated over ``accum_steps``
+    microbatches."""
+    loss_fn = gi.loss_fn
+    if scale is not None:
+        def loss_fn(p, b):                # noqa: F811 — the scaled loss
+            out = gi.loss_fn(p, b)
+            if gi.has_aux:
+                return out[0] * scale, out[1]
+            return out * scale
+    vg = value_and_grad(loss_fn, gi.has_aux, names)
+    if gi.accum_steps > 1:
+        vg = accumulate(vg, gi.accum_steps, gi.has_aux)
+    return vg
+
+
+def make_eval_step(loss_fn: Callable, has_aux: bool,
+                   extra_metrics_fn: Optional[Callable] = None) -> Callable:
+    """``eval(params, batch) -> metrics``: loss (and aux, and the
+    ``metrics_fn`` extras) on the current parameters, no state change."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        if has_aux:
+            loss, aux = loss_fn(params, batch)
+            out = {"loss": loss, "aux": aux}
+        else:
+            out = {"loss": loss_fn(params, batch)}
+        if extra_metrics_fn is not None:
+            out = merge_metrics(out, extra_metrics_fn(params, batch))
+        return out
+    return eval_step

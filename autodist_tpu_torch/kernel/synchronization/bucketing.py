@@ -14,7 +14,7 @@ variable larger than the cap gets a bucket of its own (never split).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +69,31 @@ class Bucket:
     @property
     def pad(self) -> int:
         return self.padded_total - self.total
+
+
+#: the JAX package's compressors whose state is not flat-composable
+_UNBUCKETABLE = ("PowerSGDCompressor",)
+_COMPRESSORS = ("NoneCompressor", "HorovodCompressor", "HorovodCompressorEF",
+                "PowerSGDCompressor", "Int8Compressor", "Fp8Compressor")
+
+
+def bucket_drop_reason(placement: Sequence, padded: bool,
+                       compressor: str) -> Optional[str]:
+    """Why a variable cannot join a gradient bucket, or None when it can
+    (the JAX package's rule, ``bucketing.py:101-124``).  ``placement`` is
+    the non-trivial part of the variable's layout; a partitioned variable
+    owns a per-shard collective."""
+    if list(placement):
+        return "partitioned/structurally sharded (owns a per-shard collective)"
+    if padded:
+        return "pad-to-divisible sharding"
+    name = compressor or "NoneCompressor"
+    if name not in _COMPRESSORS:
+        return f"unknown compressor {compressor!r}"
+    if name in _UNBUCKETABLE:
+        return (f"{compressor} state is not flat-composable "
+                f"(e.g. PowerSGD low-rank factors)")
+    return None
 
 
 def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,

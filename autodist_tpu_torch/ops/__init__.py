@@ -1,6 +1,8 @@
 """Kernels with their plain versions: flash attention (forward, dQ, dK/dV;
-import it from :mod:`autodist_tpu_torch.ops.flash_attention`), paged
-attention and the int8 matmul (CUDA sources under ``csrc/``)."""
+import it from :mod:`autodist_tpu_torch.ops.flash_attention`), the guard
+statistics and the fused ZeRO-1 Adam update (in
+:mod:`autodist_tpu_torch.ops.fused_kernels`), paged attention and the
+int8 matmul (CUDA sources under ``csrc/``)."""
 from autodist_tpu_torch.ops.fused_kernels import (paged_attention,
                                                   paged_attention_reference)
 from autodist_tpu_torch.ops.quant import (Quantized, int8_matmul,

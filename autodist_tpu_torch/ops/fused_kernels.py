@@ -1,23 +1,285 @@
-"""Decode attention over the paged KV pool (the serving kernel).
+"""Fused kernels: the guard's statistics (K4), the ZeRO-1 Adam shard update
+(K5) and decode attention over the paged KV pool (K9).
 
-Port of the paged-attention kernel of ``autodist_tpu/ops/fused_kernels.py``
-(the other kernels of that module — guard stats, fused Adam, quantize at
-the hop — come with the training and compressed-ring slices).
+Port of ``autodist_tpu/ops/fused_kernels.py`` (its quantize-at-the-hop
+kernels come with the compressed-ring slice).  Each kernel runs
+hand-written CUDA on CUDA tensors and its plain PyTorch version on CPU
+tensors:
 
-:func:`paged_attention` runs the hand-written CUDA kernel
-(``csrc/paged_attention.cu``) on CUDA tensors and its plain version,
-:func:`paged_attention_reference` (the gather path of
-``serving/paged_kv.py``), on CPU tensors.  There is no opt-in switch:
-the JAX package gates its Pallas kernel behind
-``AUTODIST_FUSED_KERNELS=paged_attention`` because Pallas needs a TPU or
-interpret mode; on the card, paged decode always runs the kernel.
+* :func:`fused_detect_stats` — K4, ``csrc/fused_sync.cu``: one pass over a
+  flat f32 vector gives its non-finite count and its sum of squares, the
+  two statistics of the numerics guard
+  (:class:`~autodist_tpu_torch.numerics.guard.HealthAccumulator`);
+  plain version :func:`fused_detect_stats_reference`;
+* :func:`fused_adam_update` — K5, ``csrc/fused_sync.cu``: the loss-scale
+  unscale, the global-norm clip and Adam on one flat f32 ZeRO-1 shard in
+  one pass; plain version :func:`fused_adam_update_reference`.  It needs
+  the Adam hyperparameters statically: :func:`fusable_adam`;
+* :func:`paged_attention` — K9, ``csrc/paged_attention.cu``; plain version
+  :func:`paged_attention_reference` (the gather path of
+  ``serving/paged_kv.py``).
+
+There is no opt-in switch: the JAX package gates its Pallas kernels
+behind ``AUTODIST_FUSED_KERNELS`` because Pallas needs a TPU or interpret
+mode.  Here the explicit bucketed step always takes K4 for its guard, and
+takes K5 for its ZeRO-1 update exactly when :func:`fused_drop_reason`
+finds no reason against it (the JAX rule without its platform clause);
+paged decode always runs K9.  No failure is caught: a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from autodist_tpu_torch.optim import GradientTransformation
+
+#: kernel names, the JAX package's vocabulary
+KERNEL_GUARD = "guard"
+KERNEL_UPDATE = "update"
+_SYNC_SOURCE = "fused_sync.cu"
+_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+_STATS_ARGS = [_P, _LL, _P, _P, _P]
+_ADAM_ARGS = [_P] * 8 + [_LL] + [_F] * 6 + [_P]
+#: K4's first launch: at most this many blocks, one per this many elements
+#: (``csrc/fused_sync.cu``: kStatsMaxBlocks, kStatsPerBlock)
+_STATS_MAX_BLOCKS = 1024
+_STATS_PER_BLOCK = 16384
+
+
+# ---------------------------------------------------------------------------
+# the selection rule
+# ---------------------------------------------------------------------------
+def fused_drop_reason(kernel: str, *, optimizer_fusable: bool = True,
+                      adam_state_shaped: bool = True,
+                      f32_buckets: bool = True) -> Optional[str]:
+    """Why ``kernel`` cannot run on this program, or None when it can:
+    the JAX package's rule without its platform clause (the port runs its
+    kernels on every CUDA tensor)."""
+    if kernel not in (KERNEL_GUARD, KERNEL_UPDATE):
+        raise ValueError(f"unknown fused kernel {kernel!r}")
+    if kernel == KERNEL_UPDATE:
+        if not optimizer_fusable:
+            return ("the fused unscale/clip/update kernel needs the Adam "
+                    "hyperparameters statically: build the optimizer with "
+                    "ops.fused_kernels.fusable_adam(...) (any other "
+                    "optimizer keeps the unfused shard update)")
+        if not adam_state_shaped:
+            return ("optimizer state is not Adam-shaped (count/mu/nu); the "
+                    "fused shard update cannot address its moments")
+        if not f32_buckets:
+            return ("a ZeRO-1 bucket is not float32: the fused update "
+                    "kernel runs the f32 moment math only")
+    return None
+
+
+def resolve_fused(*, guard: bool, has_rs: bool,
+                  optimizer_fusable: bool = False,
+                  adam_state_shaped: bool = True, f32_buckets: bool = True
+                  ) -> Tuple[Tuple[str, ...], List[Tuple[str, str]]]:
+    """``(active, drops)`` for one program: the guard takes K4 whenever it
+    is on; the ZeRO-1 update takes K5 unless :func:`fused_drop_reason`
+    names a reason, which ``drops`` carries as ``(kernel, reason)``.  A
+    kernel whose path the program lacks (no guard, no ZeRO-1 bucket) is
+    neither."""
+    active: List[str] = [KERNEL_GUARD] if guard else []
+    drops: List[Tuple[str, str]] = []
+    if has_rs:
+        why = fused_drop_reason(KERNEL_UPDATE,
+                                optimizer_fusable=optimizer_fusable,
+                                adam_state_shaped=adam_state_shaped,
+                                f32_buckets=f32_buckets)
+        if why is None:
+            active.append(KERNEL_UPDATE)
+        else:
+            drops.append((KERNEL_UPDATE, why))
+    return tuple(active), drops
+
+
+def _launch_c(fn, like: torch.Tensor, *args) -> None:
+    """Calls a C entry point on ``like``'s card and current stream; raises
+    if the launch failed."""
+    with torch.cuda.device(like.device):
+        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def _check_vec(name: str, t: torch.Tensor, like: torch.Tensor = None) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D vector, got shape "
+                         f"{tuple(t.shape)}")
+    if like is not None and (t.device != like.device
+                             or t.shape != like.shape):
+        raise ValueError(f"{name} must match p: {tuple(t.shape)} on "
+                         f"{t.device}, p {tuple(like.shape)} on "
+                         f"{like.device}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# K4: the guard's statistics
+# ---------------------------------------------------------------------------
+def fused_detect_stats_reference(vec: torch.Tensor):
+    """The plain version: ``(non-finite count, sum of squares)``, both f32
+    scalars; NaN and Inf propagate into the sum."""
+    x = vec.reshape(-1).float()
+    return (~torch.isfinite(x)).sum().to(torch.float32), (x * x).sum()
+
+
+def fused_detect_stats(vec: torch.Tensor):
+    """``(non-finite count, sum of squares)`` of a flat f32 vector, both
+    f32 scalars, from one pass: K4 on CUDA tensors, the plain version on
+    CPU tensors.  Input must be a contiguous 1-D float32 vector (no bucket
+    of the slice is low-precision; any other dtype raises ``TypeError``).
+    On the card the result depends on ``n`` only: two runs give the same
+    bits."""
+    _check_vec("fused_detect_stats: vec", vec)
+    if vec.device.type == "cpu":
+        return fused_detect_stats_reference(vec)
+    from autodist_tpu_torch.ops import _build
+
+    n = vec.numel()
+    blocks = max(1, min(-(-n // _STATS_PER_BLOCK), _STATS_MAX_BLOCKS))
+    scratch = torch.empty(2 * blocks, dtype=torch.float32, device=vec.device)
+    out = torch.empty(2, dtype=torch.float32, device=vec.device)
+    fn = _build.kernel(_SYNC_SOURCE, "detect_stats_f32", _STATS_ARGS)
+    _launch_c(fn, vec, vec.data_ptr(), n, scratch.data_ptr(), out.data_ptr())
+    fused_detect_stats.calls += 1
+    return out[0], out[1]
+
+
+def fused_pack_detect(bucket, leaves):
+    """Pack one gradient bucket and detect in the same call: ``(vec,
+    non-finite count, sum of squares)`` with ``vec`` the padded flat bucket
+    (``bucketing.pack_bucket``) and the statistics from one pass over it."""
+    from autodist_tpu_torch.kernel.synchronization.bucketing import \
+        pack_bucket
+
+    vec = pack_bucket(bucket, leaves)
+    nf, sq = fused_detect_stats(vec)
+    return vec, nf, sq
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused unscale/clip/Adam shard update
+# ---------------------------------------------------------------------------
+class AdamSpec(NamedTuple):
+    """Statically known Adam hyperparameters: what K5 closes over."""
+
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+class FusedAdam(GradientTransformation):
+    """:func:`~autodist_tpu_torch.optim.adam` (the same state, the same
+    arithmetic) with the :class:`AdamSpec` K5 needs.  Built by
+    :func:`fusable_adam`."""
+
+    def __init__(self, spec: AdamSpec):
+        super().__init__("adam", dict(lr=spec.lr, b1=spec.b1, b2=spec.b2,
+                                      eps=spec.eps, eps_root=0.0,
+                                      weight_decay=0.0))
+        self.fused_spec = spec
+
+
+def fusable_adam(lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> FusedAdam:
+    """Adam with its hyperparameters attached, so the ZeRO-1 shard update
+    can run K5.  Anywhere else it behaves exactly like ``optim.adam``."""
+    return FusedAdam(AdamSpec(lr=float(lr), b1=float(b1), b2=float(b2),
+                              eps=float(eps)))
+
+
+def find_adam_state(state) -> Optional[Dict[str, Any]]:
+    """The Adam-shaped state (a dict with ``count``, ``mu`` and ``nu``), or
+    None: the probe behind the ``adam_state_shaped`` rule and K5's state
+    addressing."""
+    if isinstance(state, dict) and {"count", "mu", "nu"} <= set(state):
+        return state
+    return None
+
+
+def replace_adam_state(state, new_adam) -> Dict[str, Any]:
+    """``state`` with its Adam entries replaced by ``new_adam``'s."""
+    if find_adam_state(state) is None:
+        raise ValueError("state has no Adam entries (count, mu, nu)")
+    return dict(state, **{k: new_adam[k] for k in ("count", "mu", "nu")})
+
+
+def adam_scalars(count: torch.Tensor, spec: AdamSpec,
+                 mult: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5's three scalars on ``count``'s device, as f32 ``[mult, 1 -
+    b1^(count+1), 1 - b2^(count+1)]``; ``count`` is the Adam step counter
+    before this step, ``mult`` the unscale x clip multiplier (None: 1).
+    Computed on the card: nothing waits for the host."""
+    c = (count + 1).to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=c.device)
+    m = one if mult is None else mult.to(torch.float32).reshape(())
+    return torch.stack([m, 1 - torch.pow(one * spec.b1, c),
+                        1 - torch.pow(one * spec.b2, c)])
+
+
+def fused_adam_update_reference(p, g, mu, nu, scalars, spec: AdamSpec):
+    """The plain version, the TPU kernel's expression line for line:
+    returns new ``(p, mu, nu)``."""
+    mult, bc1, bc2 = scalars[0], scalars[1], scalars[2]
+    g = g.float() * mult
+    m = (1.0 - spec.b1) * g + spec.b1 * mu
+    v = (1.0 - spec.b2) * (g * g) + spec.b2 * nu
+    m_hat = m / bc1
+    v_hat = v / bc2
+    return p - spec.lr * (m_hat / (torch.sqrt(v_hat) + spec.eps)), m, v
+
+
+def fused_adam_update(p, g, mu, nu, scalars: torch.Tensor, spec: AdamSpec):
+    """Unscale, clip and Adam on one flat f32 ZeRO-1 shard in one pass:
+    new ``(p, mu, nu)``, exactly ``adam(spec)`` applied to ``mult * g``.
+    ``scalars`` is :func:`adam_scalars` of the Adam step counter BEFORE
+    this step and the multiplier, computed once for all the buckets of a
+    step (the counter increments once per step, outside).  K5 on CUDA
+    tensors, the plain version on CPU tensors; out of place."""
+    _check_vec("fused_adam_update: p", p)
+    for name, t in (("g", g), ("mu", mu), ("nu", nu)):
+        _check_vec(f"fused_adam_update: {name}", t, p)
+    if scalars.shape != (3,) or scalars.dtype != torch.float32 \
+            or scalars.device != p.device:
+        raise ValueError("fused_adam_update: scalars must be 3 float32 "
+                         f"values on {p.device}")
+    if p.device.type == "cpu":
+        return fused_adam_update_reference(p, g, mu, nu, scalars, spec)
+    from autodist_tpu_torch.ops import _build
+
+    scalars = scalars.contiguous()
+    po, mo, vo = (torch.empty_like(p) for _ in range(3))
+    fn = _build.kernel(_SYNC_SOURCE, "adam_update_f32", _ADAM_ARGS)
+    _launch_c(fn, p, p.data_ptr(), g.data_ptr(), mu.data_ptr(),
+              nu.data_ptr(), scalars.data_ptr(), po.data_ptr(),
+              mo.data_ptr(), vo.data_ptr(), p.numel(), spec.lr, spec.b1,
+              1.0 - spec.b1, spec.b2, 1.0 - spec.b2, spec.eps)
+    fused_adam_update.calls += 1
+    return po, mo, vo
+
+
+#: wrapper calls that launched their kernel since the last reset (CPU
+#: plain-version calls not counted).  A K4 call issues two kernels (the
+#: block partials, then their sum); a K5 call one.
+fused_detect_stats.calls = 0
+fused_adam_update.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: paged decode attention
+# ---------------------------------------------------------------------------
 
 #: the kernel's largest head_dim (one thread per output element) and its
 #: shared-memory budget without opting in to more than 48 KB.

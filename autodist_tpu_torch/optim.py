@@ -20,6 +20,14 @@ for sgd with momentum, ``{}`` for plain sgd.  :meth:`update` is
 functional; :meth:`step_` applies the same arithmetic in place (params and
 state are overwritten, one leaf's temporaries at a time), which is what the
 training step runs under ``torch.no_grad()``.
+
+A frozen or ZeRO-1 variable gets no update and no state from the tree
+optimizer, as under the JAX package's ``multi_transform`` with
+``set_to_zero``: the step builds the state over the tree of the variables
+the optimizer updates and hands ``step_`` only their gradients.  The
+ZeRO-1 step runs the same transformation on ``{bucket key: this rank's
+shard}`` (or K5, for :func:`~autodist_tpu_torch.ops.fused_kernels.
+fusable_adam`).
 """
 from __future__ import annotations
 

@@ -1,10 +1,12 @@
 """The distributed session: training state and steps.
 
-Port of the JAX package's ``runner.py:27-422`` for this slice: the session
-holds this rank's copy of the parameters and optimizer state on its
-device and runs the lowered step against them.  ``run(batch)`` takes the
-GLOBAL batch on every rank (the step takes this rank's rows of the data
-axis); ``params`` gathers to host numpy in the logical layout.
+Port of the JAX package's ``runner.py:27-422`` for what the port runs: the
+session holds this rank's parameters, optimizer state (under ZeRO-1, this
+rank's 1/N shard of every bucket's state) and sync state (the numerics
+state) on its device and runs the lowered step against them.
+``run(batch)`` takes the GLOBAL batch on every rank (the step takes this
+rank's rows of the data axis); ``params`` gathers to host numpy in the
+logical layout.
 """
 from __future__ import annotations
 
@@ -17,12 +19,26 @@ import torch
 
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.graph_item import tree_map
-from autodist_tpu_torch.kernel.graph_transformer import DistributedStep
+from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
+                                                         copy_tree)
+from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
 
 
 def _to_host(tree):
-    return tree_map(lambda x: x.detach().cpu().numpy()
-                    if isinstance(x, torch.Tensor) else np.asarray(x), tree)
+    """Metrics as host numpy; a :class:`GradHealth` comes over in one
+    copy."""
+    def leaf(x):
+        if isinstance(x, GradHealth):
+            return health_to_host(x)
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+    return tree_map(leaf, tree)
+
+
+def _place(tree, device):
+    return tree_map(lambda x: torch.as_tensor(x).detach().to(device).clone(),
+                    tree)
 
 
 class ThroughputMeter:
@@ -67,6 +83,7 @@ class DistributedSession:
         self._step = dist_step
         self._params = dist_step.place_params(graph_item.params)
         self._opt_state = dist_step.init_fn(self._params)
+        self._sync_state = dist_step.init_sync_state()
         self._step_count = 0
         self._meter = ThroughputMeter()
 
@@ -83,20 +100,41 @@ class DistributedSession:
 
     @property
     def opt_state(self):
+        """The optimizer state the step updates: under ZeRO-1 ``{"vars":
+        tree state, "zero1": state over {bucket key: this rank's
+        shard}}``."""
         return self._opt_state
 
-    def export_state(self):
-        """(params, opt_state) as detached copies on the device."""
-        copy = lambda x: x.detach().clone()  # noqa: E731
-        return (tree_map(copy, self._params), tree_map(copy, self._opt_state))
+    @property
+    def sync_state(self):
+        """The step's sync state: ``{NUMERICS_KEY: loss scale and health
+        counters}`` with the guard on, ``{}`` otherwise."""
+        return self._sync_state
 
-    def import_state(self, params, opt_state, step: int = 0) -> None:
-        """Load state (tensors or numpy arrays, e.g. from
-        :func:`~autodist_tpu_torch.convert.opt_state_from_jax`)."""
+    @property
+    def zero1_buckets(self):
+        """The buckets whose optimizer state is sharded over the data axis
+        (empty without ZeRO-1)."""
+        return self._step.zero1_buckets
+
+    def export_state(self):
+        """(params, opt_state) as detached copies on the device, in the
+        LOGICAL layout: under ZeRO-1 every rank gets each bucket's full
+        state vector (``padded_total`` long), gathered over the ranks."""
+        return (copy_tree(self._params),
+                self._step.export_opt_state(self._opt_state))
+
+    def import_state(self, params, opt_state, step: int = 0,
+                     sync_state=None) -> None:
+        """Load state (tensors or numpy arrays), in the session's own
+        layout: ``opt_state`` as :attr:`opt_state` holds it (under ZeRO-1,
+        this rank's shards: :func:`~autodist_tpu_torch.convert.
+        opt_state_from_jax` slices a JAX state to them); ``sync_state`` as
+        :attr:`sync_state` holds it (None: a fresh one)."""
         self._params = self._step.place_params(params)
-        self._opt_state = tree_map(
-            lambda x: torch.as_tensor(x).detach().to(self._step.device)
-            .clone(), opt_state)
+        self._opt_state = _place(opt_state, self._step.device)
+        self._sync_state = (self._step.init_sync_state() if sync_state is None
+                            else _place(sync_state, self._step.device))
         self._step_count = step
 
     @property
@@ -117,6 +155,7 @@ class DistributedSession:
         least ``{"loss"}``) as host numpy when ``sync``, else as device
         tensors, so back-to-back steps queue without a host round trip."""
         out = self._step.step_fn(self._params, self._opt_state,
+                                 self._sync_state,
                                  self._step.place_batch(batch))
         self._step_count += 1
         self._meter.tick()

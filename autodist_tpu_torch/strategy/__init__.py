@@ -1,5 +1,5 @@
-"""Strategy builders (this slice: :class:`AllReduce`; the PS family and
-``Zero1`` raise until slice 3), the Strategy IR and its compiler."""
+"""Strategy builders (:class:`AllReduce` and :class:`Zero1`; the PS family
+raises until its slice), the Strategy IR and its compiler."""
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
                                               GraphConfig,
@@ -11,7 +11,8 @@ from autodist_tpu_torch.strategy.compiler import (CompiledStrategy,
 from autodist_tpu_torch.strategy.ps_family import (PS, Parallax,
                                                    PartitionedPS,
                                                    PSLoadBalancing,
-                                                   UnevenPartitionedPS, Zero1)
+                                                   UnevenPartitionedPS)
+from autodist_tpu_torch.strategy.zero1_strategy import Zero1
 
 __all__ = ["AllReduce", "AllReduceSynchronizerConfig", "CompiledStrategy",
            "GraphConfig", "PS", "PSLoadBalancing", "PSSynchronizerConfig",

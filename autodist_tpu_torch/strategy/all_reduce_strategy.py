@@ -3,12 +3,13 @@
 Port of the JAX package's ``strategy/all_reduce_strategy.py:26-95``:
 variables get AllReduce synchronizers and ``chunk_size`` consecutive
 variables share a collective group.  The builder takes the same arguments
-and builds the same plan; the options that select the explicit bucketed
-step (a compressor, ``fused_groups``, ``sync="reduce_scatter"``,
-``bucket_bytes``, an explicit ``overlap`` schedule, ``hier``) are
-recorded in the plan and refused when it is lowered
-(:mod:`autodist_tpu_torch.kernel.graph_transformer`), until their slice
-ports them.
+and builds the same plan.  ``sync="reduce_scatter"`` and a non-zero
+``bucket_bytes`` select the explicit bucketed step
+(:mod:`autodist_tpu_torch.kernel.synchronization.explicit_sync`); a
+compressor, ``fused_groups``, the ``pipeline``/``ring``/``full`` overlap
+schedules and ``hier`` are recorded in the plan and refused when it is
+lowered (:mod:`autodist_tpu_torch.kernel.graph_transformer`), until their
+slice ports them.
 """
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
 """StrategyCompiler: lower a Strategy onto the mesh.
 
-Port of the JAX package's ``strategy/compiler.py:93-486`` for what this
-slice runs: replicated AllReduce plans over the ``data`` axis.  Each
-per-variable config becomes a :class:`VarPlan`; the parameter and its
-optimizer state are replicated on every rank and the gradient is averaged
-over ``data`` (no axis at data size 1, as GSPMD inserts no collective on
-a 1-wide axis).  A partitioner shards only over a ``model`` axis, which a
-mesh of this slice does not have, so partitioned AllReduce variables stay
-replicated, as they do in the JAX package on a pure data-parallel mesh.
-PS plans (weight-update sharding) come with slice 3 and raise.
+Port of the JAX package's ``strategy/compiler.py:93-486`` for what the
+port runs: AllReduce plans over the ``data`` axis.  Each per-variable
+config becomes a :class:`VarPlan`; the parameter is replicated on every
+rank and the gradient is averaged over ``data`` (no collective at data
+size 1).  The plan carries ``sync_mode`` (``"reduce_scatter"`` for ZeRO-1
+weight-update sharding), ``bucket_bytes``, ``overlap`` and ``hier``
+through to the step (``compiler.py:436-455``).  A partitioner shards only
+over a ``model`` axis, which a mesh of the port does not have yet, so
+partitioned AllReduce variables stay replicated, as they do in the JAX
+package on a pure data-parallel mesh.  PS plans raise, naming their
+slice.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Optional, Tuple
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
                                               PSSynchronizerConfig, Strategy)
+from autodist_tpu_torch.strategy.ps_family import ITEM as PS_ITEM
 
 
 def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
@@ -37,7 +40,9 @@ def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
 
 @dataclass
 class VarPlan:
-    """Lowered per-variable plan (replicated parameter and state)."""
+    """Lowered per-variable plan: replicated parameter, the gradient's
+    sync mode (``"all_reduce"`` or ``"reduce_scatter"``) and the bucket
+    options."""
 
     var_name: str
     compressor: str = "NoneCompressor"
@@ -87,8 +92,7 @@ class StrategyCompiler:
                 f"with shape {var.shape}")
         sync = node.synchronizer
         if isinstance(sync, PSSynchronizerConfig):
-            raise not_ported(f"the PS synchronizer of {var.name}",
-                             "slice 3 — the PS family and Zero1")
+            raise not_ported(f"the PS synchronizer of {var.name}", PS_ITEM)
         if not isinstance(sync, AllReduceSynchronizerConfig):
             raise ValueError(f"node {node.var_name} has no synchronizer")
         return VarPlan(

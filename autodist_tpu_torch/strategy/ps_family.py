@@ -1,23 +1,25 @@
-"""The builders of the PS family and ZeRO-1, which come with slice 3.
+"""The builders of the PS family, which come with their own slice.
 
 Each name exists so that code written for the JAX package fails at the
 builder with the ROADMAP item that brings it, instead of at an import or,
-worse, by running another strategy in its place.
+worse, by running another strategy in its place.  (In the JAX package
+these builders lower through per-variable weight-update sharding and a
+vocab-sharded sparse embedding, not through the bucketed step.)
 """
 from __future__ import annotations
 
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 
-_ITEM = "slice 3 — the PS family and Zero1"
+ITEM = "slice 5 — the PS family"
 
 
 def _unported(name: str):
     def __init__(self, *args, **kwargs):
-        raise not_ported(f"the {name} strategy builder", _ITEM)
+        raise not_ported(f"the {name} strategy builder", ITEM)
 
     return type(name, (StrategyBuilder,), {"__init__": __init__,
-                                           "__doc__": f"{name}: {_ITEM}."})
+                                           "__doc__": f"{name}: {ITEM}."})
 
 
 PS = _unported("PS")
@@ -25,4 +27,3 @@ PSLoadBalancing = _unported("PSLoadBalancing")
 PartitionedPS = _unported("PartitionedPS")
 UnevenPartitionedPS = _unported("UnevenPartitionedPS")
 Parallax = _unported("Parallax")
-Zero1 = _unported("Zero1")

@@ -39,14 +39,33 @@ Phases, each printing one JSON line:
    launch;
 6. training parity: the same facade at full width and depth 2, with the
    flash kernels and with dense attention from the same parameters: 3
-   steps whose losses agree at rtol 1e-4.
+   steps whose losses agree at rtol 1e-4;
+7. ZeRO-1 training at full width: ``AutoDist(strategy_builder=Zero1())``
+   with ``fusable_adam(1e-3)`` and ``numerics={"clip_norm": 1.0}`` on the
+   same fixed batch, 3 warm-up and 10 timed steps: the explicit bucketed
+   step, its guard through K4 (two launches per bucket per step) and its
+   shard update through K5 (one per bucket per step), attention through
+   K1–K3.  Losses must be finite and fall, no step may be skipped;
+8. ZeRO-1 parity: depth 2 at full width, 3 steps of ``Zero1`` +
+   ``fusable_adam`` + clip (K4 and K5) against ``AllReduce`` + ``adam``
+   with the same clip (the unfused per-variable guard): losses at rtol
+   1e-4, parameters at atol 1e-5; then one step whose loss is multiplied
+   by a NaN batch column must be skipped: parameters and optimizer state
+   bit-identical, ``skipped_steps`` 1, no K5 launch.
+
+K4 (guard statistics) and K5 (fused Adam) join phase 2 at the ZeRO-1
+path's bucket sizes (24,674,304, 2,359,296 and 589,824 elements, and a
+ragged 1,000,003): K4's count exactly, its sum of squares at rtol 1e-6 of
+an f64 sum, NaN/+Inf/-Inf counted once and poisoning the sum, the same
+bits twice; K5 over three steps (multipliers 1.0, 0.25, 1.0) at atol 1e-6
+on p, m and v.
 
 Then one JSON line with every kernel's numbers (``launches`` counts the
 wrapper's calls that launched its C entry point on the kernel's own path:
-serving for K9 and K10, the 13 training steps for K1–K3; each such call
-issues one kernel, or two where the work is split and then merged), the
-``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.  Any failed check raises and the exit code is not 0; without a
+serving for K9 and K10, the 13 training steps for K1–K3, the 13 ZeRO-1
+steps for K4 and K5; each such call issues one kernel, or two where the
+work is split and then merged), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Any failed check raises and the exit code is not 0; without a
 CUDA device, or without the package beside this script, it exits 2 and
 prints no result.
 """
@@ -71,6 +90,13 @@ FLASH_SOURCE = "autodist_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"flash_fwd": "autodist_tpu/ops/flash_attention.py:56",
                   "flash_dq": "autodist_tpu/ops/flash_attention.py:141",
                   "flash_dkv": "autodist_tpu/ops/flash_attention.py:183"}
+SYNC_SOURCE = "autodist_tpu_torch/csrc/fused_sync.cu"
+SYNC_REPLACES = {"detect_stats": "autodist_tpu/ops/fused_kernels.py:219",
+                 "adam_update": "autodist_tpu/ops/fused_kernels.py:365"}
+#: the ZeRO-1 path's bucket sizes (the embedding's, a block's two MLP
+#: kernels, four attention projections) and a ragged size
+SYNC_SIZES = (24_674_304, 2_359_296, 589_824, 1_000_003)
+CLIP_NORM = 1.0
 TRAIN_SHAPE = dict(B=8, T=1024, H=12, D=64)   # transformer_lm() at batch 8
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 SERVE_GEOM = dict(slots=8, window=1024, block_size=32, chunk=16,
@@ -315,6 +341,108 @@ def phase_flash(torch, timer):
     return rows_out
 
 
+def phase_sync_kernels(torch, timer):
+    """K4 and K5 against their plain versions at the ZeRO-1 path's bucket
+    sizes; times at the embedding bucket, the largest."""
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dev = torch.device("cuda")
+    spec = fk.AdamSpec(lr=1e-3)
+    # K4: max abs difference from the plain version (count and sum), and
+    # the sum's relative error against an f64 sum (the yardstick)
+    errs = {"detect_stats": 0.0, "adam_update": 0.0, "detect_rel": 0.0}
+    for n in SYNC_SIZES:
+        x = torch.randn(n, generator=gen).to(dev)
+        nf, sq = fk.fused_detect_stats(x)
+        nf2, sq2 = fk.fused_detect_stats(x)
+        pnf, psq = fk.fused_detect_stats_reference(x)
+        want = float((x.double() ** 2).sum())
+        torch.cuda.synchronize()
+        if float(nf) != 0.0 or float(pnf) != 0.0 \
+                or not abs(float(sq) - want) <= 1e-6 * want:
+            raise AssertionError(f"K4 at n={n}: ({float(nf)}, {float(sq)}),"
+                                 f" want (0, {want})")
+        if not (torch.equal(nf, nf2) and torch.equal(sq, sq2)):
+            raise AssertionError(f"K4 at n={n}: two runs differ")
+        errs["detect_stats"] = max(errs["detect_stats"],
+                                   abs(float(sq) - float(psq)))
+        errs["detect_rel"] = max(errs["detect_rel"],
+                                 abs(float(sq) - want) / want)
+        for bad in (float("nan"), float("inf"), -float("inf")):
+            y = x.clone()
+            y[n // 2] = bad
+            bnf, bsq = fk.fused_detect_stats(y)
+            if float(bnf) != 1.0 or np.isfinite(float(bsq)):
+                raise AssertionError(f"K4 at n={n} with {bad}: "
+                                     f"({float(bnf)}, {float(bsq)})")
+        del y
+        p, g, m = (torch.randn(n, generator=gen).to(dev) for _ in range(3))
+        v = torch.rand(n, generator=gen).to(dev)
+        kp, km, kv, rp, rm, rv = p, m, v, p, m, v
+        for step, mult in enumerate((1.0, 0.25, 1.0)):
+            scalars = fk.adam_scalars(
+                torch.tensor(step, dtype=torch.int32, device=dev), spec,
+                torch.tensor(mult, device=dev))
+            kp, km, kv = fk.fused_adam_update(kp, g, km, kv, scalars, spec)
+            rp, rm, rv = fk.fused_adam_update_reference(rp, g, rm, rv,
+                                                        scalars, spec)
+        torch.cuda.synchronize()
+        for name, got, want_t in (("p", kp, rp), ("m", km, rm),
+                                  ("v", kv, rv)):
+            torch.testing.assert_close(got, want_t, atol=1e-6, rtol=0,
+                                       msg=f"K5 {name} at n={n}")
+            errs["adam_update"] = max(errs["adam_update"],
+                                      (got - want_t).abs().max().item())
+        emit({"phase": "sync_check", "n": n,
+              "detect_stats_rel_err_vs_f64": abs(float(sq) - want) / want,
+              "detect_stats_abs_diff_vs_plain": abs(float(sq) - float(psq)),
+              "detect_stats_sums": [float(sq), float(psq), want],
+              "adam_update_max_abs_err": errs["adam_update"]})
+        del kp, km, kv, rp, rm, rv
+    n = SYNC_SIZES[0]
+    x = torch.randn(n, generator=gen).to(dev)
+    p, g, m = (torch.randn(n, generator=gen).to(dev) for _ in range(3))
+    v = torch.rand(n, generator=gen).to(dev)
+    scalars = fk.adam_scalars(torch.tensor(3, dtype=torch.int32, device=dev),
+                              spec, torch.tensor(0.5, device=dev))
+    steps = [torch.tensor(4.0, device=dev)]
+    lib_p, lib_m, lib_v, lib_g = (t.clone() for t in (p, m, v, g))
+    one = torch.ones((), device=dev)
+    rows = []
+    for name, nbytes, t_k, t_plain, t_lib, lib_call in (
+            ("detect_stats", 4.0 * n,
+             timer(lambda: fk.fused_detect_stats(x)),
+             timer(lambda: fk.fused_detect_stats_reference(x)),
+             timer(lambda: torch.linalg.vector_norm(x)),
+             "torch.linalg.vector_norm alone: only the sum-of-squares half "
+             "(no non-finite count)"),
+            ("adam_update", 28.0 * n,
+             timer(lambda: fk.fused_adam_update(p, g, m, v, scalars, spec)),
+             timer(lambda: fk.fused_adam_update_reference(p, g, m, v,
+                                                          scalars, spec)),
+             timer(lambda: torch._fused_adam_(
+                 [lib_p], [lib_g], [lib_m], [lib_v], [], steps, lr=1e-3,
+                 beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                 amsgrad=False, maximize=False, grad_scale=one)),
+             "torch._fused_adam_ on the same shard with grad_scale (another "
+             "expression order; in place)")):
+        # K4: 1 multiply-add + 1 class test per element; K5: ~15 f32
+        # operations per element (4 multiplies, 3 adds, 3 divides, 1 sqrt
+        # in the update, the bias corrections outside)
+        bnd, by = bound_ms(nbytes, (2.0 if name == "detect_stats"
+                                    else 15.0) * n)
+        rows.append({"name": name, "route": "cuda", "source": SYNC_SOURCE,
+                     "replaces": SYNC_REPLACES[name], "shape": {"n": n},
+                     "max_abs_err": errs[name],
+                     "ms": t_k, "plain_ms": t_plain, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": t_lib,
+                     "library_call": lib_call})
+        emit({"phase": "kernel", **rows[-1]})
+    rows[0]["rel_err_vs_f64"] = errs["detect_rel"]
+    return rows
+
+
 def _post(url: str, body: dict):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -500,18 +628,20 @@ def _flash_counts(fa_fn):
     return (fa_fn.fwd_calls, fa_fn.dq_calls, fa_fn.dkv_calls)
 
 
-def _train_session(spec, params, batch_rows):
-    """The program users run: ``AutoDist(AllReduce())`` → capture →
-    session, on the card."""
+def _train_session(spec, params, batch_rows, builder=None, optimizer=None,
+                   loss_fn=None, numerics=None):
+    """The program users run: ``AutoDist(builder)`` → capture → session,
+    on the card (default: ``AllReduce()`` with ``adamw(1e-3)``)."""
     from autodist_tpu_torch import autodist as adm
     from autodist_tpu_torch import optim
     from autodist_tpu_torch.strategy import AllReduce
 
     adm._reset_default_autodist_for_testing()   # one facade per phase
-    ad = adm.AutoDist(strategy_builder=AllReduce())
+    ad = adm.AutoDist(strategy_builder=builder or AllReduce())
     with ad.scope():
-        ad.capture(params=params, optimizer=optim.adamw(1e-3),
-                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars)
+        ad.capture(params=params, optimizer=optimizer or optim.adamw(1e-3),
+                   loss_fn=loss_fn or spec.loss_fn,
+                   sparse_vars=spec.sparse_vars, numerics=numerics)
     return ad.create_distributed_session(), spec.sample_batch(batch_rows,
                                                               seed=SEED)
 
@@ -629,6 +759,159 @@ def phase_train_parity(torch):
             "rtol": 1e-4}
 
 
+def _sync_counts(fk):
+    return (fk.fused_detect_stats.calls, fk.fused_adam_update.calls)
+
+
+def phase_train_zero1(torch):
+    """Full-width ZeRO-1 training through the facade: K1–K3 12 times and
+    K4 2 x buckets, K5 once per bucket each step; losses, step time,
+    tokens/s, peak memory, MFU against the f32 peak."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Zero1
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 Zero1(), fk.fusable_adam(1e-3),
+                                 numerics={"clip_norm": CLIP_NORM})
+    n_buckets = len(sess.zero1_buckets)
+    if sess._step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"the step runs {sess._step.fused_kernels}")
+    fa.reset_counts()             # the main path starts here
+    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    want = (layers, layers, layers, 2 * n_buckets, n_buckets)
+    losses, norms, step_s = [], [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        before = _flash_counts(fa.flash_attention) + _sync_counts(fk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.run(batch)
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            step_s.append(time.perf_counter() - t0)
+        after = _flash_counts(fa.flash_attention) + _sync_counts(fk)
+        per_step = tuple(a - b for a, b in zip(after, before))
+        if per_step != want:
+            raise AssertionError(f"step {i} launched (K1, K2, K3, K4, K5) = "
+                                 f"{per_step}, expected {want}")
+        h = out["grad_health"]
+        if not bool(h.all_finite) or int(h.skipped_steps) != 0 \
+                or not np.isfinite(float(h.global_norm)):
+            raise AssertionError(f"step {i}: grad_health {h}")
+        losses.append(float(out["loss"]))
+        norms.append(float(h.global_norm))
+    launches = _flash_counts(fa.flash_attention) + _sync_counts(fk)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    mu = sess.opt_state["zero1"]["mu"]
+    if sorted(mu) != sorted(b.key for b in sess.zero1_buckets) or any(
+            mu[b.key].numel() != b.padded_total for b in sess.zero1_buckets):
+        raise AssertionError("ZeRO-1 state does not match the bucket plan")
+    step = statistics.median(step_s)
+    flops = model_flops_per_step(spec.config, TRAIN_SHAPE["B"])
+    tokens = TRAIN_SHAPE["B"] * spec.config["seq_len"]
+    elements = sum(b.padded_total for b in sess.zero1_buckets)
+    out = {"layers": layers, "batch": TRAIN_SHAPE["B"],
+           "seq_len": spec.config["seq_len"], "buckets": n_buckets,
+           "bucket_elements": elements,
+           # per step over every bucket: K4 reads each element twice (the
+           # packed vector and the reduced value), K5 moves 28 bytes each
+           "bound_ms_per_step": {
+               "detect_stats": bound_ms(8.0 * elements, 4.0 * elements)[0],
+               "adam_update": bound_ms(28.0 * elements, 15.0 * elements)[0]},
+           "bucket_sizes": sorted({b.total for b in sess.zero1_buckets}),
+           "losses": losses, "global_norms": norms,
+           "ms_per_step": step * 1e3, "ms_per_step_min": min(step_s) * 1e3,
+           "ms_per_step_max": max(step_s) * 1e3,
+           "tokens_per_s": tokens / step,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv",
+                                 "detect_stats", "adam_update"), launches)),
+           "launches_per_step": dict(zip(("flash_fwd", "flash_dq",
+                                          "flash_dkv", "detect_stats",
+                                          "adam_update"), want))}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_zero1_parity(torch):
+    """Depth 2 at full width: ``Zero1`` + ``fusable_adam`` + clip (K4, K5)
+    against ``AllReduce`` + ``adam`` + the same clip, 3 steps; then a
+    poisoned step on the ZeRO-1 session must be skipped bit-identically
+    with no K5 launch."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import AllReduce, Zero1
+
+    spec = transformer_lm(num_layers=2)
+    params = spec.init(SEED)
+
+    def loss_fn(p, b):            # the batch's "s" column poisons a step
+        return spec.loss_fn(p, b) * b["s"].mean()
+
+    def with_s(batch, value):
+        return dict(batch, s=np.full((TRAIN_SHAPE["B"],), value, np.float32))
+
+    runs = {}
+    for name, builder, opt in (
+            ("zero1", Zero1(), fk.fusable_adam(1e-3)),
+            ("allreduce", AllReduce(), optim.adam(1e-3))):
+        sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"], builder,
+                                     opt, loss_fn,
+                                     {"clip_norm": CLIP_NORM})
+        before = _sync_counts(fk)
+        outs = [sess.run(with_s(batch, 1.0)) for _ in range(3)]
+        launched = tuple(a - b for a, b in zip(_sync_counts(fk), before))
+        n = len(sess.zero1_buckets)
+        if launched != ((6 * n, 3 * n) if name == "zero1" else (0, 0)):
+            raise AssertionError(f"{name}: (K4, K5) launched {launched}")
+        runs[name] = (sess, batch, [float(o["loss"]) for o in outs],
+                      [float(o["grad_health"].global_norm) for o in outs])
+    zsess, zbatch, zl, zn = runs["zero1"]
+    asess, _, al, an = runs["allreduce"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(zl, al))
+    if not rel <= 1e-4:
+        raise AssertionError(f"Zero1 vs AllReduce losses differ (rel "
+                             f"{rel:.2e}): {zl} {al}")
+    pdiff = max((a - b).abs().max().item() for (_, a), (_, b) in
+                zip(flatten(zsess.device_params),
+                    flatten(asess.device_params)))
+    if not pdiff <= 1e-5:
+        raise AssertionError(f"Zero1 vs AllReduce params differ by {pdiff}")
+    del asess, runs
+    snap = [x.clone() for _, x in flatten(zsess.device_params)] \
+        + [x.clone() for _, x in flatten(zsess.opt_state)]
+    before = _sync_counts(fk)
+    out = zsess.run(with_s(zbatch, float("nan")))
+    k4, k5 = (a - b for a, b in zip(_sync_counts(fk), before))
+    h = out["grad_health"]
+    after = [x for _, x in flatten(zsess.device_params)] \
+        + [x for _, x in flatten(zsess.opt_state)]
+    if bool(h.all_finite) or int(h.skipped_steps) != 1 or k5 != 0 \
+            or k4 != 2 * len(zsess.zero1_buckets):
+        raise AssertionError(f"poisoned step: {h.all_finite}, skipped "
+                             f"{h.skipped_steps}, K4 {k4}, K5 {k5}")
+    if not all(torch.equal(a, b) for a, b in zip(snap, after)):
+        raise AssertionError("the skipped step changed params or state")
+    del zsess
+    torch.cuda.empty_cache()
+    return {"layers": 2, "zero1_losses": zl, "allreduce_losses": al,
+            "zero1_norms": zn, "allreduce_norms": an, "max_rel_diff": rel,
+            "rtol": 1e-4, "max_param_diff": pdiff, "atol": 1e-5,
+            "poisoned_step": {"all_finite": bool(h.all_finite),
+                              "skipped_steps": int(h.skipped_steps),
+                              "k4_launches": k4, "k5_launches": k5,
+                              "state_bit_identical": True}}
+
+
 def main() -> int:
     import torch
 
@@ -657,6 +940,7 @@ def main() -> int:
     timer = Timer(torch)
     k9, k10 = phase_kernels(torch, timer)
     flash_rows = phase_flash(torch, timer)
+    sync_rows = phase_sync_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -683,7 +967,15 @@ def main() -> int:
                                 / train_out["ms_per_step"])
     emit({"phase": "train_parity", **phase_train_parity(torch)})
 
-    emit({"kernels": flash_rows + [k9, k10], "card": smi,
+    zero1_out = phase_train_zero1(torch)
+    emit({"phase": "train_zero1", "card": smi, **zero1_out})
+    for row in sync_rows:
+        row["launches"] = zero1_out["launches"][row["name"]]
+        row["launches_per_step"] = zero1_out["launches_per_step"][row["name"]]
+    emit({"phase": "train_zero1_parity",
+          **phase_train_zero1_parity(torch)})
+
+    emit({"kernels": flash_rows + sync_rows + [k9, k10], "card": smi,
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,10 @@ nothing of JAX, so it runs on a machine without it:
 Tolerances: paged attention atol/rtol 1e-5 (the JAX kernel test's);
 int8 matmul rtol 1e-5 / atol 1e-4 (the JAX int8 test's), at the model's
 magnitudes (unit-variance activations, weights of std 1/sqrt(K)); flash
-attention 1e-5 on o and lse, 1e-4 on gradients (the JAX flash tests').
+attention 1e-5 on o and lse, 1e-4 on gradients (the JAX flash tests');
+the guard statistics K4: the count exactly, the sum of squares at rtol
+1e-6 of an f64 sum; the Adam update K5 at atol 1e-6 (the JAX kernel
+test's).
 """
 import numpy as np
 import pytest
@@ -206,3 +209,86 @@ def test_flash_rejects_what_it_cannot_take(dev):
     z = torch.zeros(64 * 8 + 1, device=dev)[1:].view(1, 8, 8, 8)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(z, z, z)
+
+
+@pytest.mark.parametrize("n", [589_824, 1_000_003])
+def test_detect_stats_kernel_matches_plain(dev, n):
+    """K4: the count exactly, the sum of squares against an f64 sum, NaN
+    and +-Inf counted once and poisoning the sum, the same bits twice."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=gen).to(dev)
+    before = fk.fused_detect_stats.calls
+    nf, sq = fk.fused_detect_stats(x)
+    again = fk.fused_detect_stats(x)
+    torch.cuda.synchronize()
+    assert fk.fused_detect_stats.calls == before + 2
+    assert float(nf) == 0.0
+    np.testing.assert_allclose(float(sq), float((x.double() ** 2).sum()),
+                               rtol=1e-6)
+    assert torch.equal(again[1], sq)
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        y = x.clone()
+        y[n // 3] = bad
+        bnf, bsq = fk.fused_detect_stats(y)
+        assert float(bnf) == 1.0 and not np.isfinite(float(bsq))
+    rnf, rsq = fk.fused_detect_stats_reference(x[1:])
+    knf, ksq = fk.fused_detect_stats(x[1:])     # not 16-byte aligned
+    assert float(knf) == float(rnf) == 0.0
+    np.testing.assert_allclose(float(ksq), float(rsq), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", [589_824, 1_000_003])
+def test_adam_kernel_matches_plain(dev, n):
+    gen = torch.Generator().manual_seed(n + 1)
+    p, g, mu = (torch.randn(n, generator=gen).to(dev) for _ in range(3))
+    nu = torch.rand(n, generator=gen).to(dev)
+    spec = fk.AdamSpec(lr=1e-3)
+    rp, rmu, rnu = p, mu, nu
+    before = fk.fused_adam_update.calls
+    for step, mult in enumerate((1.0, 0.25, 1.0)):
+        count = torch.tensor(step, dtype=torch.int32, device=dev)
+        mult = torch.tensor(mult, device=dev)
+        scalars = fk.adam_scalars(count, spec, mult)
+        p, mu, nu = fk.fused_adam_update(p, g, mu, nu, scalars, spec)
+        rp, rmu, rnu = fk.fused_adam_update_reference(rp, g, rmu, rnu,
+                                                      scalars, spec)
+    torch.cuda.synchronize()
+    assert fk.fused_adam_update.calls == before + 3
+    for got, want in ((p, rp), (mu, rmu), (nu, rnu)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_zero1_guard_session_launches_k4_and_k5(dev):
+    """Three steps of ``Zero1`` with ``fusable_adam`` and a clip on the card:
+    K4 twice per bucket and K5 once per bucket per step, finite falling
+    losses, nothing skipped."""
+    import os
+
+    from autodist_tpu_torch.autodist import (
+        AutoDist, _reset_default_autodist_for_testing)
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.strategy import Zero1
+
+    os.environ["AUTODIST_IS_TESTING"] = "True"
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(vocab_size=97, num_layers=2, num_heads=2,
+                          head_dim=8, d_ff=32, max_len=16)
+    ad = AutoDist(strategy_builder=Zero1(bucket_bytes=1 << 12))
+    with ad.scope():
+        ad.capture(params=spec.init(0), optimizer=fk.fusable_adam(1e-2),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": 1.0})
+    sess = ad.create_distributed_session()
+    n_buckets = len(sess.zero1_buckets)
+    assert n_buckets > 1
+    batch = spec.sample_batch(8, seed=1)
+    losses = []
+    for _ in range(3):
+        k4, k5 = fk.fused_detect_stats.calls, fk.fused_adam_update.calls
+        out = sess.run(batch)
+        assert fk.fused_detect_stats.calls - k4 == 2 * n_buckets
+        assert fk.fused_adam_update.calls - k5 == n_buckets
+        assert bool(out["grad_health"].all_finite)
+        assert int(out["grad_health"].skipped_steps) == 0
+        losses.append(float(out["loss"]))
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -41,6 +41,13 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.kernel.graph_transformer\n"
         "import autodist_tpu_torch.kernel.synchronization.bucketing\n"
         "import autodist_tpu_torch.ops.flash_attention\n"
+        "import autodist_tpu_torch.ops.fused_kernels\n"
+        "import autodist_tpu_torch.numerics, autodist_tpu_torch.numerics.guard\n"
+        "import autodist_tpu_torch.numerics.loss_scale\n"
+        "import autodist_tpu_torch.numerics.policy\n"
+        "import autodist_tpu_torch.strategy.zero1_strategy\n"
+        "import autodist_tpu_torch.kernel.synchronization.explicit_sync\n"
+        "import autodist_tpu_torch.profile_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('autodist_tpu', 'jax', 'flax', 'optax') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -129,7 +136,7 @@ def test_build_paths_stay_in_the_checkout():
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
     assert {p.name for p in (PACKAGE / "csrc").glob("*.cu")} \
         == set(_build.SOURCES)
-    assert "flash_attention.cu" in _build.SOURCES
+    assert {"flash_attention.cu", "fused_sync.cu"} <= set(_build.SOURCES)
     path = _build.library_path("paged_attention.cu")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
