@@ -17,7 +17,7 @@ Both packages key parameters by the same logical names
   the JAX explicit step (``{"vars", "zero1"}``), sliced to one rank's
   shards;
 * :func:`sync_state_from_jax` carries the numerics state (loss scale and
-  health counters).
+  health counters) and one rank's error-feedback residuals.
 
 A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 ``(q, scale)`` pair) becomes the port's
@@ -143,16 +143,27 @@ def _zero1_shards(state, buckets: Sequence, rank: int, data: int,
             for k, v in out.items()}
 
 
-def sync_state_from_jax(sync_state, device="cpu") -> Dict[str, Any]:
-    """The JAX session's sync state (numpy leaves) → the port's: the
-    numerics state (loss scale and health counters, dtypes kept).  Other
-    entries (compressor residuals) raise ``ValueError``."""
-    other = set(sync_state) - {NUMERICS_KEY}
-    if other:
-        raise ValueError(f"sync state entries {sorted(other)} belong to "
-                         f"compressors, which the port does not run yet")
-    return {k: {n: _tensor(x, device) for n, x in v.items()}
-            for k, v in sync_state.items()}
+def sync_state_from_jax(sync_state, device="cpu",
+                        rank: int = 0) -> Dict[str, Any]:
+    """The JAX session's sync state (numpy leaves) → rank ``rank``'s of
+    the port: the numerics state (loss scale and health counters, dtypes
+    kept) and each quantized bucket's error-feedback residual.  The JAX
+    explicit step stacks the residuals ``[data, padded_total]`` over the
+    data axis (``explicit_sync.py:710-720``); rank ``r`` takes row ``r``,
+    so the two sessions must run the same data size.  Any other entry
+    (per-variable compressor state) raises ``ValueError``."""
+    out: Dict[str, Any] = {}
+    for key, value in sync_state.items():
+        if key == NUMERICS_KEY:
+            out[key] = {n: _tensor(x, device) for n, x in value.items()}
+            continue
+        arr = np.asarray(value) if not isinstance(value, dict) else None
+        if arr is None or arr.ndim != 2 or not 0 <= rank < arr.shape[0]:
+            raise ValueError(
+                f"sync state entry {key!r} is not a [data, padded_total] "
+                f"bucket residual with a row for rank {rank}")
+        out[key] = _tensor(arr[rank], device)
+    return out
 
 
 def _plain_state(state, device) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
 """GraphTransformer: lower the captured program into a distributed step.
 
 Port of the JAX package's ``kernel/graph_transformer.py``.  Plans that
-need the explicit bucketed step (ZeRO-1's ``reduce_scatter``, a non-zero
-``bucket_bytes``) go to :func:`~autodist_tpu_torch.kernel.
+need the explicit bucketed step (a compressor, ZeRO-1's
+``reduce_scatter``, a non-zero ``bucket_bytes``, an explicit ``ring`` or
+``full`` schedule) go to :func:`~autodist_tpu_torch.kernel.
 synchronization.explicit_sync.make_explicit_step` (``:228``).  Every
 other plan runs the twin of the JAX GSPMD step (``:325-493``) reduced to
 replicated AllReduce plans.  One such step runs, in order:
@@ -29,20 +30,22 @@ replicated AllReduce plans.  One such step runs, in order:
    global batch).
 
 The options still to port raise, naming their ROADMAP item; nothing runs
-in place of what was asked.
+in place of what was asked: the cast and low-rank compressors, fused
+groups, the accumulation pipeline (``overlap="pipeline"``, ``"full"``
+with ``accum_steps > 1``) and ``hier``.
 """
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
+from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_ALL_REDUCE, Bucket, assign_buckets, pack_bucket, unpack_bucket)
 from autodist_tpu_torch.numerics import guard as guard_mod
@@ -70,12 +73,15 @@ class DistributedStep:
 
     ``step_fn(params, opt_state, sync_state, batch) -> metrics`` updates
     ``params``, ``opt_state`` and ``sync_state`` (the numerics state under
-    :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY`; ``{}`` without the
-    guard) in place; ``batch`` is the placed GLOBAL batch.  ``eval_fn(params,
-    batch) -> metrics`` changes nothing.  ``zero1_buckets`` are the
-    buckets whose optimizer state is sharded over the data axis, and
+    :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY` with the guard on,
+    each quantized bucket's error-feedback residual under its key; ``{}``
+    without either) in place; ``batch`` is the placed GLOBAL batch.
+    ``eval_fn(params, batch) -> metrics`` changes nothing.
+    ``zero1_buckets`` are the
+    buckets whose optimizer state is sharded over the data axis,
     ``fused_kernels`` names the fused kernels the step runs (``"guard"``:
-    K4, ``"update"``: K5)."""
+    K4, ``"update"``: K5, ``"quant_hop"``: K6–K8) and ``bucket_algs`` each
+    bucket's reduction (``"ring"``, ``"one_shot"`` or ``"fused"``)."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -85,6 +91,7 @@ class DistributedStep:
     buckets: Tuple[Bucket, ...] = ()
     zero1_buckets: Tuple[Bucket, ...] = ()
     fused_kernels: Tuple[str, ...] = ()
+    bucket_algs: Dict[str, str] = field(default_factory=dict)
     init_sync_state: Callable = dict       # () -> sync state
     export_opt_state: Callable = copy_tree  # state -> logical copy
 
@@ -114,20 +121,28 @@ class DistributedStep:
         return tree_map(put, batch)
 
 
-def _refuse_unported(compiled) -> None:
+#: the compressors the port runs (the identity and the quantized wire)
+_PORTED_COMPRESSORS = ("", "NoneCompressor", "Int8Compressor",
+                       "Fp8Compressor")
+
+
+def _refuse_unported(compiled, accum_steps: int) -> None:
     for name, plan in compiled.var_plans.items():
-        if plan.compressor not in ("", "NoneCompressor"):
+        if plan.compressor not in _PORTED_COMPRESSORS:
             raise not_ported(f"compressor {plan.compressor!r} ({name})",
-                             "P6 — compressors and fused groups")
+                             "P6 — cast and low-rank compressors")
         if plan.fused:
             raise not_ported(f"fused_groups ({name})",
-                             "P6 — compressors and fused groups")
-        if plan.overlap not in ("auto", "none"):
-            raise not_ported(f"overlap={plan.overlap!r} ({name})",
-                             "P6 — overlap, hier and staleness")
+                             "P6 — fused groups")
+        if plan.overlap == "pipeline" or (plan.overlap == "full"
+                                          and accum_steps > 1):
+            raise not_ported(f"overlap={plan.overlap!r} with accum_steps="
+                             f"{accum_steps} ({name}): the accumulation "
+                             f"pipeline", "P6 — pipelining, hier and "
+                             "staleness")
         if plan.hier:
             raise not_ported(f"hier=True ({name})",
-                             "P6 — overlap, hier and staleness")
+                             "P6 — pipelining, hier and staleness")
 
 
 def microbatch_slices(length: int, accum: int) -> List[Tuple[int, int]]:
@@ -254,7 +269,7 @@ class GraphTransformer:
             raise ValueError(
                 "GraphItem must carry an optimizer and loss_fn to transform "
                 "(capture them via AutoDist.capture)")
-        _refuse_unported(self.compiled)
+        _refuse_unported(self.compiled, gi.accum_steps)
         from autodist_tpu_torch.kernel.synchronization import explicit_sync
 
         if explicit_sync.uses_explicit_path(self.compiled):
@@ -282,12 +297,9 @@ class GraphTransformer:
         def sync(loss, grads):
             for bucket in buckets:
                 vec = pack_bucket(bucket, [grads[n] for n in bucket.names])
-                dist.all_reduce(vec, group=group)
-                vec.div_(data)
+                vec = coll.all_reduce(vec, group) / data
                 grads.update(zip(bucket.names, unpack_bucket(bucket, vec)))
-            loss = loss.clone()
-            dist.all_reduce(loss, group=group)
-            return loss / data
+            return coll.all_reduce(loss, group) / data
 
         def step(params, opt_state, sync_state, batch):
             scale = sync_state[NUMERICS_KEY]["scale"] \

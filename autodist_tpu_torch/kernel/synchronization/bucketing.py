@@ -27,6 +27,8 @@ MODE_REDUCE_SCATTER = "reduce_scatter"
 SYNC_MODES = (MODE_ALL_REDUCE, MODE_REDUCE_SCATTER)
 #: the bucket-collective schedules of the JAX package (``overlap.py``)
 OVERLAP_MODES = ("auto", "none", "pipeline", "ring", "full")
+OVERLAP_AUTO, OVERLAP_NONE, OVERLAP_PIPELINE, OVERLAP_RING, OVERLAP_FULL = \
+    OVERLAP_MODES
 
 
 def _itemsize(dtype: str) -> int:
@@ -65,6 +67,11 @@ class Bucket:
     @property
     def names(self) -> Tuple[str, ...]:
         return tuple(v.name for v in self.vars)
+
+    @property
+    def nbytes(self) -> int:
+        """Unpadded bytes (what the ring threshold compares)."""
+        return self.total * _itemsize(self.dtype)
 
     @property
     def pad(self) -> int:

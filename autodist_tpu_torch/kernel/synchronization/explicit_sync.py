@@ -1,36 +1,48 @@
 """The explicit bucketed training step, for all-reduce and ZeRO-1 buckets.
 
 Port of the JAX package's ``kernel/synchronization/explicit_sync.py``
-(``:96-119, 223-246, 249-1180``) for uncompressed buckets.  The step runs,
-on each rank, in order:
+(``:96-119, 223-246, 249-1180``).  The step runs, on each rank, in
+order:
 
 1. loss and gradients on this rank's rows of the global batch, the loss
    multiplied by the loss scale first when one is on; with
    ``accum_steps > 1`` the microbatches accumulate inside the step;
 2. per bucket of :func:`plan_step_buckets`' plan: pack, then the
-   reduction over the data group (``all_reduce``, or
-   ``reduce_scatter_tensor`` for a ZeRO-1 bucket, then a division by the
-   data size; no collective at data size 1);
+   reduction over the data group under the bucket's lowering
+   (``overlap.reduce_alg`` of the resolved :class:`~.overlap.
+   OverlapPlan`; no collective at data size 1):
+
+   * an uncompressed bucket through ``overlap.bucket_reduce_fn``: the
+     backend's ``all_reduce`` / ``reduce_scatter``, whatever its label;
+   * a quantized bucket (``Int8Compressor``, ``Fp8Compressor``) through
+     its compressor's ``bucket_reduce`` / ``bucket_reduce_scatter``: the
+     quantized ring under explicit ``"ring"`` / ``"full"`` at 256 KiB and
+     above, its hop boundaries through K6–K8 (``quant_ring``), else the
+     one-shot ``all_to_all``; the error-feedback residual (this rank's
+     ``padded_total`` vector in the sync state, under the bucket key) is
+     added before quantization and replaced by the new one;
 3. with ``capture(numerics=...)``, the guard: each bucket's finiteness
    from its packed local vector and its squared-norm partial from the
    reduced value, both by K4
    (:func:`~autodist_tpu_torch.ops.fused_kernels.fused_detect_stats`),
-   rolled into one :class:`~autodist_tpu_torch.numerics.GradHealth` by
-   ONE all_reduce; the clip multiplier is ``inv_scale x clip``;
+   and a quantized bucket's saturation count, rolled into one
+   :class:`~autodist_tpu_torch.numerics.GradHealth` by ONE all_reduce;
+   the clip multiplier is ``inv_scale x clip``;
 4. the skip gate: ``all_finite`` is read on the host once, before any
    update (the step updates in place, so the JAX package's select between
    the updated and the old state would cost a full copy of both).  A
-   non-finite step updates nothing: params, optimizer state and ZeRO-1
-   shards stay bit-identical; the loss-scale state still moves and
-   ``skipped_steps`` counts the skip;
+   non-finite step updates nothing: params, optimizer state, ZeRO-1
+   shards and error-feedback residuals stay bit-identical; the loss-scale
+   state still moves and ``skipped_steps`` counts the skip;
 5. the ZeRO-1 update of this rank's 1/N shard of each bucket: K5
    (:func:`~autodist_tpu_torch.ops.fused_kernels.fused_adam_update`) when
    the optimizer is ``fusable_adam``, its state Adam-shaped and the
    buckets f32; otherwise the optimizer's own update on the shards, with
    the drop reason in a warning.  This is decided from the configuration
    when the step is built;
-6. the tree update of every other variable, then ``all_gather_into_tensor``
-   of each updated shard and the unpack into the parameters;
+6. the tree update of every other variable, then the ``all_gather`` of
+   each updated shard in ``overlap.gather_schedule`` order and the unpack
+   into the parameters;
 7. metrics: ``loss`` averaged over the data group and unscaled,
    ``grad_health``, ``aux`` averaged, the ``metrics_fn`` extras.
 
@@ -40,13 +52,16 @@ optimizer's state over {bucket key: this rank's shard}}``, so each rank
 holds 1/N of every bucket's moments.
 
 Differences from the JAX package, none of which changes a result: the
-schedule IR (P8) is not built, so buckets reduce in ``assign_buckets``'
-order and gather in forward order; ``overlap="auto"`` runs the
-phase-serial schedule (the same arithmetic; ``pipeline``, ``ring`` and
-``full`` raise, naming P6); the step runs at every data size, where the
-JAX package takes its GSPMD step at size 1.  Compressors, the quantized
-ring, the hierarchical and per-variable tiers and the flight-recorder
-stamps raise or are absent until their ROADMAP items.
+schedule IR (P8) is not built (each bucket's lowering label comes from
+the same rule, ``overlap.reduce_alg``); an uncompressed bucket labelled
+``"ring"`` or ``"one_shot"`` reduces, and a ZeRO-1 shard gathers, through
+the backend's collective, not as ring hops (the same sum up to its last
+bits); buckets reduce in ``assign_buckets``' order; the step runs at every data size, where the
+JAX package takes its GSPMD step at size 1; the quantized ring's hop
+kernels run whenever a bucket is quantized (the JAX package's are an
+opt-in; both put the same bits on the wire).  The accumulation pipeline,
+the hierarchical and per-variable tiers and the flight-recorder stamps
+are refused or absent until their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -54,24 +69,33 @@ import warnings
 from typing import Any, Dict, List
 
 import torch
-import torch.distributed as dist
 
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
+from autodist_tpu_torch.kernel.synchronization import collectives as coll
+from autodist_tpu_torch.kernel.synchronization import overlap as ov_mod
+from autodist_tpu_torch.kernel.synchronization import quant_ring
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     DEFAULT_BUCKET_BYTES, MODE_ALL_REDUCE, MODE_REDUCE_SCATTER, Bucket,
     assign_buckets, bucket_drop_reason, pack_bucket, unpack_bucket)
+from autodist_tpu_torch.kernel.synchronization.compressor import \
+    get_compressor
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops import fused_kernels as fk
 
+
 def uses_explicit_path(compiled) -> bool:
-    """Does the plan need the explicit bucketed step?  ZeRO-1
-    (``reduce_scatter``) and a non-zero ``bucket_bytes`` do.  (The JAX
-    package's other reasons, compressors, fused groups, explicit overlap
-    schedules and ``hier``, are refused before this is asked.)"""
-    return any(plan.sync_mode == MODE_REDUCE_SCATTER or plan.bucket_bytes
+    """Does the plan need the explicit bucketed step?  A compressor,
+    ZeRO-1 (``reduce_scatter``), a non-zero ``bucket_bytes`` and an
+    explicit ``pipeline``/``ring``/``full`` schedule do.  (The JAX
+    package's other reasons, fused groups and ``hier``, are refused before
+    this is asked.)"""
+    return any(plan.compressor not in ("", "NoneCompressor")
+               or plan.sync_mode == MODE_REDUCE_SCATTER or plan.bucket_bytes
+               or plan.overlap in (ov_mod.OVERLAP_PIPELINE,
+                                   ov_mod.OVERLAP_RING, ov_mod.OVERLAP_FULL)
                for plan in compiled.var_plans.values())
 
 
@@ -99,9 +123,7 @@ def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
 def _mean_over(x: torch.Tensor, d: int, group) -> torch.Tensor:
     if d == 1:
         return x
-    x = x.clone()
-    dist.all_reduce(x, group=group)
-    return x / d
+    return coll.all_reduce(x, group) / d
 
 
 def make_explicit_step(gi, compiled, extra_metrics_fn=None
@@ -118,6 +140,21 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     rs_names = {n for b in rs_buckets for n in b.names}
     tree_names = tuple(n for n in names if n not in rs_names)
     optimizer, has_aux = gi.optimizer, gi.has_aux
+
+    # -- the schedule: each bucket's lowering, resolved when it is built ------
+    ov = ov_mod.resolve_overlap(
+        [plan.overlap for plan in compiled.var_plans.values()],
+        accum_steps=gi.accum_steps, buckets=buckets, d=d,
+        has_rs=bool(rs_buckets))
+    for key, why in ov.drops:
+        warnings.warn(f"explicit sync path: overlap scheduling skipped for "
+                      f"bucket {key} ({why})")
+    algs = {b.key: ov_mod.reduce_alg(b, ov, d) for b in buckets}
+    quant = {b.key: get_compressor(b.compressor) for b in buckets
+             if quant_ring.is_quant_ring_compressor(b.compressor)}
+    reduce_fns = {b.key: ov_mod.bucket_reduce_fn(b, group, d)
+                  for b in buckets if b.key not in quant}
+    gathers = ov_mod.gather_schedule(rs_buckets, ov.prefetch)
 
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
@@ -141,7 +178,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         adam_shaped = fk.find_adam_state(
             optimizer.init({"x": torch.zeros(8)})) is not None
     active, drops = fk.resolve_fused(
-        guard=num_active, has_rs=bool(rs_buckets),
+        guard=num_active, has_rs=bool(rs_buckets), has_quant_ring=bool(quant),
         optimizer_fusable=spec is not None, adam_state_shaped=adam_shaped,
         f32_buckets=all(b.dtype == "float32" for b in rs_buckets))
     for kernel, why in drops:
@@ -151,6 +188,27 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     update_fused = fk.KERNEL_UPDATE in active
 
     vg_unscaled = gt.scaled_value_and_grad(gi, names, None)
+
+    def quant_reduce(b: Bucket, vec: torch.Tensor, state):
+        """``(reduced, new residual, saturation count)`` of a quantized
+        bucket under its lowering; a ring's hop boundaries run K6–K8."""
+        comp = quant[b.key]
+        fn = comp.bucket_reduce_scatter if b.mode == MODE_REDUCE_SCATTER \
+            else comp.bucket_reduce
+        return fn(vec, state, group, d, alg=algs[b.key])
+
+    init_numerics = gt.sync_state_init(num_active, num_ls, mesh.device)
+
+    def init_sync_state():
+        """The numerics state and each quantized bucket's zero residual
+        (this rank's, ``padded_total`` long)."""
+        state = init_numerics()
+        for b in buckets:
+            if b.key in quant:
+                state[b.key] = quant[b.key].init_state(torch.zeros(
+                    b.padded_total, dtype=getattr(torch, b.dtype),
+                    device=mesh.device))
+        return state
 
     # -- state ------------------------------------------------------------------
     def shard_of(vec: torch.Tensor, b: Bucket) -> torch.Tensor:
@@ -182,14 +240,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         if not rs_buckets:
             return gt.copy_tree(opt_state)
 
-        def full(key, shard):
+        def full(shard):
             if d == 1:
                 return shard.detach().clone()
-            out = shard.new_empty(by_key[key].padded_total)
-            dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
-            return out
+            return coll.all_gather(shard, group)
         zero1 = {k: v.detach().clone() if isinstance(v, torch.Tensor)
-                 else {key: full(key, s) for key, s in v.items()}
+                 else {key: full(s) for key, s in v.items()}
                  for k, v in opt_state["zero1"].items()}
         return {"vars": gt.copy_tree(opt_state["vars"]), "zero1": zero1}
 
@@ -207,25 +263,23 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         health = guard_mod.HealthAccumulator(d, fused=True) \
             if num_active else None
         reduced: Dict[str, torch.Tensor] = {}
+        residuals: Dict[str, torch.Tensor] = {}
         for b in buckets:
             vec = pack_bucket(b, [grads.pop(n) for n in b.names])
             rs = b.mode == MODE_REDUCE_SCATTER
-            if d == 1:
-                red = vec
-            elif rs:
-                red = vec.new_empty(b.padded_total // d)
-                dist.reduce_scatter_tensor(red, vec, group=group)
-                red.div_(d)
+            qsat = None
+            if b.key in quant:
+                red, residuals[b.key], qsat = quant_reduce(
+                    b, vec, sync_state[b.key])
             else:
-                red = vec.clone()
-                dist.all_reduce(red, group=group)
-                red.div_(d)
+                red = reduce_fns[b.key](vec)
             if health is not None:
                 # finiteness from the packed local vector, the norm
                 # partial from the reduced value (a ZeRO-1 shard's squared
-                # norm sums over the ranks to the bucket's)
+                # norm sums over the ranks to the bucket's), and the
+                # saturation this rank's quantize events counted
                 health.add(b.key, red, shard_axes_size=d if rs else 1,
-                           finite_src=vec)
+                           finite_src=vec, sat_count=qsat)
             reduced[b.key] = red
         mean_loss = _mean_over(loss, d, group)
 
@@ -245,6 +299,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             for b in ar_buckets:
                 grads.update(zip(b.names, unpack_bucket(b, reduced[b.key])))
             _update(params, opt_state, grads, reduced, fused_mult)
+            sync_state.update(residuals)   # a skipped step keeps the old
 
         if num_active:
             metrics["grad_health"] = guard_mod.close_step(
@@ -282,12 +337,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             optimizer.step_(p_shards, {b.key: reduced[b.key]
                                        for b in rs_buckets}, z)
         optimizer.step_(params, grads, opt_state["vars"])
-        for b in rs_buckets:
+        for b in gathers:
             shard = p_shards[b.key]
-            full = shard
-            if d > 1:
-                full = shard.new_empty(b.padded_total)
-                dist.all_gather_into_tensor(full, shard, group=group)
+            full = shard if d == 1 else coll.all_gather(shard, group)
             for n, arr in zip(b.names, unpack_bucket(b, full)):
                 leaves[n].copy_(arr)
 
@@ -296,5 +348,5 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         eval_fn=gt.make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
         mesh=mesh, trainable=names, buckets=tuple(buckets),
         zero1_buckets=tuple(rs_buckets), fused_kernels=active,
-        init_sync_state=gt.sync_state_init(num_active, num_ls, mesh.device),
+        bucket_algs=algs, init_sync_state=init_sync_state,
         export_opt_state=export_opt_state)

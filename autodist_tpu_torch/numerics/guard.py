@@ -21,8 +21,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.numerics.loss_scale import update_state
 
 #: the sync-state key of the numerics step state (``~`` never starts a
@@ -144,7 +144,7 @@ class HealthAccumulator:
                 for x in (sq, nf, zero if sat is None else sat)]
         packed = torch.stack(flat + [loss_nf])
         if group is not None:
-            dist.all_reduce(packed, group=group)
+            packed = coll.all_reduce(packed, group)
         totals = packed[:-1].reshape(-1, 3)
         inv2 = inv_scale * inv_scale
         sq = totals[:, 0] * inv2

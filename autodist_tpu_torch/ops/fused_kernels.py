@@ -1,8 +1,8 @@
 """Fused kernels: the guard's statistics (K4), the ZeRO-1 Adam shard update
-(K5) and decode attention over the paged KV pool (K9).
+(K5), quantize at the ring-hop boundaries (K6–K8) and decode attention
+over the paged KV pool (K9).
 
-Port of ``autodist_tpu/ops/fused_kernels.py`` (its quantize-at-the-hop
-kernels come with the compressed-ring slice).  Each kernel runs
+Port of ``autodist_tpu/ops/fused_kernels.py``.  Each kernel runs
 hand-written CUDA on CUDA tensors and its plain PyTorch version on CPU
 tensors:
 
@@ -15,17 +15,22 @@ tensors:
   unscale, the global-norm clip and Adam on one flat f32 ZeRO-1 shard in
   one pass; plain version :func:`fused_adam_update_reference`.  It needs
   the Adam hyperparameters statically: :func:`fusable_adam`;
+* :func:`fused_quantize` (K6), :func:`fused_hop_accumulate` (K7) and
+  :func:`fused_dequant_add` (K8), ``csrc/quant_hop.cu``: the first send,
+  the middle hops and the last receive of the quantized ring
+  (``kernel/synchronization/quant_ring.py``); plain versions
+  ``*_reference``, built on ``quant_scale.quantize_blocks``;
 * :func:`paged_attention` — K9, ``csrc/paged_attention.cu``; plain version
   :func:`paged_attention_reference` (the gather path of
   ``serving/paged_kv.py``).
 
 There is no opt-in switch: the JAX package gates its Pallas kernels
 behind ``AUTODIST_FUSED_KERNELS`` because Pallas needs a TPU or interpret
-mode.  Here the explicit bucketed step always takes K4 for its guard, and
-takes K5 for its ZeRO-1 update exactly when :func:`fused_drop_reason`
-finds no reason against it (the JAX rule without its platform clause);
-paged decode always runs K9.  No failure is caught: a CUDA tensor
-launches the kernel or raises.
+mode.  Here the explicit bucketed step always takes K4 for its guard,
+K6–K8 for every quantized ring bucket, and K5 for its ZeRO-1 update
+exactly when :func:`fused_drop_reason` finds no reason against it (the
+JAX rule without its platform clause); paged decode always runs K9.  No
+failure is caught: a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,15 +40,22 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from autodist_tpu_torch.ops import quant_scale
 from autodist_tpu_torch.optim import GradientTransformation
 
 #: kernel names, the JAX package's vocabulary
 KERNEL_GUARD = "guard"
 KERNEL_UPDATE = "update"
+KERNEL_QUANT_HOP = "quant_hop"
 _SYNC_SOURCE = "fused_sync.cu"
-_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+_QUANT_SOURCE = "quant_hop.cu"
+_P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_int)
 _STATS_ARGS = [_P, _LL, _P, _P, _P]
 _ADAM_ARGS = [_P] * 8 + [_LL] + [_F] * 6 + [_P]
+_QUANT_ARGS = [_P, _LL, _I, _F] + [_P] * 5
+_HOP_ARGS = [_P] * 3 + [_LL, _I, _F] + [_P] * 5
+_DEQ_ARGS = [_P] * 3 + [_LL, _I, _P, _P]
 #: K4's first launch: at most this many blocks, one per this many elements
 #: (``csrc/fused_sync.cu``: kStatsMaxBlocks, kStatsPerBlock)
 _STATS_MAX_BLOCKS = 1024
@@ -59,7 +71,7 @@ def fused_drop_reason(kernel: str, *, optimizer_fusable: bool = True,
     """Why ``kernel`` cannot run on this program, or None when it can:
     the JAX package's rule without its platform clause (the port runs its
     kernels on every CUDA tensor)."""
-    if kernel not in (KERNEL_GUARD, KERNEL_UPDATE):
+    if kernel not in (KERNEL_GUARD, KERNEL_UPDATE, KERNEL_QUANT_HOP):
         raise ValueError(f"unknown fused kernel {kernel!r}")
     if kernel == KERNEL_UPDATE:
         if not optimizer_fusable:
@@ -77,13 +89,15 @@ def fused_drop_reason(kernel: str, *, optimizer_fusable: bool = True,
 
 
 def resolve_fused(*, guard: bool, has_rs: bool,
+                  has_quant_ring: bool = False,
                   optimizer_fusable: bool = False,
                   adam_state_shaped: bool = True, f32_buckets: bool = True
                   ) -> Tuple[Tuple[str, ...], List[Tuple[str, str]]]:
     """``(active, drops)`` for one program: the guard takes K4 whenever it
-    is on; the ZeRO-1 update takes K5 unless :func:`fused_drop_reason`
-    names a reason, which ``drops`` carries as ``(kernel, reason)``.  A
-    kernel whose path the program lacks (no guard, no ZeRO-1 bucket) is
+    is on, a quantized ring bucket K6–K8; the ZeRO-1 update takes K5
+    unless :func:`fused_drop_reason` names a reason, which ``drops``
+    carries as ``(kernel, reason)``.  A kernel whose path the program
+    lacks (no guard, no quantized bucket, no ZeRO-1 bucket) is
     neither."""
     active: List[str] = [KERNEL_GUARD] if guard else []
     drops: List[Tuple[str, str]] = []
@@ -96,6 +110,8 @@ def resolve_fused(*, guard: bool, has_rs: bool,
             active.append(KERNEL_UPDATE)
         else:
             drops.append((KERNEL_UPDATE, why))
+    if has_quant_ring:
+        active.append(KERNEL_QUANT_HOP)
     return tuple(active), drops
 
 
@@ -275,6 +291,124 @@ def fused_adam_update(p, g, mu, nu, scalars: torch.Tensor, spec: AdamSpec):
 #: block partials, then their sum); a K5 call one.
 fused_detect_stats.calls = 0
 fused_adam_update.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K6-K8: quantize at the ring-hop boundaries
+# ---------------------------------------------------------------------------
+def _check_wire(name: str, q: torch.Tensor, s: torch.Tensor,
+                chunk: torch.Tensor, fmt) -> None:
+    _check_vec(f"{name}: chunk", chunk)
+    if q.dtype != quant_scale.wire_dtype(fmt) or q.shape != chunk.shape \
+            or not q.is_contiguous() or q.device != chunk.device:
+        raise ValueError(f"{name}: q_in must be a contiguous "
+                         f"{quant_scale.wire_dtype(fmt)} vector like chunk "
+                         f"{tuple(chunk.shape)} on {chunk.device}, got "
+                         f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    nb = quant_scale.scale_count(chunk.numel())
+    _check_vec(f"{name}: scales_in", s)
+    if s.shape != (nb,) or s.device != chunk.device:
+        raise ValueError(f"{name}: scales_in must hold {nb} scales on "
+                         f"{chunk.device}, got {tuple(s.shape)} on "
+                         f"{s.device}")
+
+
+def _quant_outputs(like: torch.Tensor, fmt):
+    n = like.numel()
+    return (torch.empty(n, dtype=quant_scale.wire_dtype(fmt), device=like.device),
+            torch.empty(quant_scale.scale_count(n), dtype=torch.float32,
+                        device=like.device),
+            torch.empty_like(like),
+            torch.empty(1, dtype=torch.int64, device=like.device))
+
+
+def fused_quantize_reference(x: torch.Tensor, fmt):
+    """The plain version of K6: ``quant_scale.quantize_blocks`` and the
+    error ``quant_scale.quantization_error`` (``x - q * scale``)."""
+    q, scales, sat = quant_scale.quantize_blocks(x, fmt)
+    return q, scales, quant_scale.quantization_error(x, q, scales), sat
+
+
+def fused_hop_accumulate_reference(q_in, scales_in, chunk, fmt):
+    """The plain version of K7: dequantize, add the chunk, requantize."""
+    return fused_quantize_reference(
+        fused_dequant_add_reference(q_in, scales_in, chunk, fmt), fmt)
+
+
+def fused_dequant_add_reference(q_in, scales_in, chunk, fmt):
+    """The plain version of K8: ``quant_scale.dequantize_add`` (``q_in *
+    scales_in + chunk``)."""
+    return quant_scale.dequantize_add(q_in, scales_in, chunk)
+
+
+def fused_quantize(x: torch.Tensor, fmt):
+    """K6: quantize a flat f32 vector on the per-256-element scale grid
+    with the error and the saturation count from the same pass: ``(q,
+    scales, err, sat)``, ``q`` in ``fmt``'s wire dtype, ``err = x -
+    dequantize(q, scales)``, ``sat`` an f32 scalar on ``x``'s device (no
+    host sync).  The payload and scales equal ``quantize_blocks``' bit
+    for bit.  CUDA tensors launch ``csrc/quant_hop.cu``, CPU tensors take
+    the plain version."""
+    _check_vec("fused_quantize: x", x)
+    if x.device.type == "cpu":
+        return fused_quantize_reference(x, fmt)
+    from autodist_tpu_torch.ops import _build
+
+    q, scales, err, cnt = _quant_outputs(x, fmt)
+    fn = _build.kernel(_QUANT_SOURCE, "quant_hop_quantize", _QUANT_ARGS)
+    _launch_c(fn, x, x.data_ptr(), x.numel(), _wire_id(fmt),
+              quant_scale.reciprocal(fmt.qmax), q.data_ptr(),
+              scales.data_ptr(), err.data_ptr(), cnt.data_ptr())
+    fused_quantize.calls += 1
+    return q, scales, err, cnt[0].to(torch.float32)
+
+
+def fused_hop_accumulate(q_in, scales_in, chunk, fmt):
+    """K7, one ring-hop boundary: dequantize the received ``(q_in,
+    scales_in)``, add this rank's f32 ``chunk`` and requantize with fresh
+    scales, ``(q, scales, err, sat)`` as :func:`fused_quantize`; the f32
+    partial never reaches device memory."""
+    _check_wire("fused_hop_accumulate", q_in, scales_in, chunk, fmt)
+    if chunk.device.type == "cpu":
+        return fused_hop_accumulate_reference(q_in, scales_in, chunk, fmt)
+    from autodist_tpu_torch.ops import _build
+
+    q, scales, err, cnt = _quant_outputs(chunk, fmt)
+    fn = _build.kernel(_QUANT_SOURCE, "quant_hop_accumulate", _HOP_ARGS)
+    _launch_c(fn, chunk, q_in.data_ptr(), scales_in.data_ptr(),
+              chunk.data_ptr(), chunk.numel(), _wire_id(fmt),
+              quant_scale.reciprocal(fmt.qmax), q.data_ptr(),
+              scales.data_ptr(), err.data_ptr(), cnt.data_ptr())
+    fused_hop_accumulate.calls += 1
+    return q, scales, err, cnt[0].to(torch.float32)
+
+
+def fused_dequant_add(q_in, scales_in, chunk, fmt):
+    """K8, the last hop's receive side: ``dequantize(q_in, scales_in) +
+    chunk`` as a flat f32 vector (the owned shard is not requantized)."""
+    _check_wire("fused_dequant_add", q_in, scales_in, chunk, fmt)
+    if chunk.device.type == "cpu":
+        return fused_dequant_add_reference(q_in, scales_in, chunk, fmt)
+    from autodist_tpu_torch.ops import _build
+
+    out = torch.empty_like(chunk)
+    fn = _build.kernel(_QUANT_SOURCE, "quant_hop_dequant_add", _DEQ_ARGS)
+    _launch_c(fn, chunk, q_in.data_ptr(), scales_in.data_ptr(),
+              chunk.data_ptr(), chunk.numel(), _wire_id(fmt),
+              out.data_ptr())
+    fused_dequant_add.calls += 1
+    return out
+
+
+def _wire_id(fmt) -> int:
+    """The C entry points' wire argument: 0 int8, 1 fp8 e4m3."""
+    return 0 if fmt.name == "int8" else 1
+
+
+#: wrapper calls that launched K6, K7 and K8 (one kernel each).
+fused_quantize.calls = 0
+fused_hop_accumulate.calls = 0
+fused_dequant_add.calls = 0
 
 
 # ---------------------------------------------------------------------------

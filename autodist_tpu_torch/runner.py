@@ -3,7 +3,8 @@
 Port of the JAX package's ``runner.py:27-422`` for what the port runs: the
 session holds this rank's parameters, optimizer state (under ZeRO-1, this
 rank's 1/N shard of every bucket's state) and sync state (the numerics
-state) on its device and runs the lowered step against them.
+state and the quantized buckets' error-feedback residuals) on its device
+and runs the lowered step against them.
 ``run(batch)`` takes the GLOBAL batch on every rank (the step takes this
 rank's rows of the data axis); ``params`` gathers to host numpy in the
 logical layout.
@@ -108,7 +109,11 @@ class DistributedSession:
     @property
     def sync_state(self):
         """The step's sync state: ``{NUMERICS_KEY: loss scale and health
-        counters}`` with the guard on, ``{}`` otherwise."""
+        counters}`` with the guard on, and under each quantized bucket's
+        key this rank's error-feedback residual (``padded_total`` long);
+        ``{}`` without either.  :meth:`import_state` takes it back as it
+        is (``convert.sync_state_from_jax`` gives one rank's from a JAX
+        session's)."""
         return self._sync_state
 
     @property
@@ -130,7 +135,8 @@ class DistributedSession:
         layout: ``opt_state`` as :attr:`opt_state` holds it (under ZeRO-1,
         this rank's shards: :func:`~autodist_tpu_torch.convert.
         opt_state_from_jax` slices a JAX state to them); ``sync_state`` as
-        :attr:`sync_state` holds it (None: a fresh one)."""
+        :attr:`sync_state` holds it, residuals included (None: a fresh
+        one, zero residuals)."""
         self._params = self._step.place_params(params)
         self._opt_state = _place(opt_state, self._step.device)
         self._sync_state = (self._step.init_sync_state() if sync_state is None

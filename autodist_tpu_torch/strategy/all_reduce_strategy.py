@@ -3,13 +3,17 @@
 Port of the JAX package's ``strategy/all_reduce_strategy.py:26-95``:
 variables get AllReduce synchronizers and ``chunk_size`` consecutive
 variables share a collective group.  The builder takes the same arguments
-and builds the same plan.  ``sync="reduce_scatter"`` and a non-zero
-``bucket_bytes`` select the explicit bucketed step
-(:mod:`autodist_tpu_torch.kernel.synchronization.explicit_sync`); a
-compressor, ``fused_groups``, the ``pipeline``/``ring``/``full`` overlap
-schedules and ``hier`` are recorded in the plan and refused when it is
-lowered (:mod:`autodist_tpu_torch.kernel.graph_transformer`), until their
-slice ports them.
+and builds the same plan.  ``sync="reduce_scatter"``, a non-zero
+``bucket_bytes``, a compressor and an explicit ``ring``/``full`` schedule
+select the explicit bucketed step
+(:mod:`autodist_tpu_torch.kernel.synchronization.explicit_sync`):
+``compressor="Int8Compressor"`` or ``"Fp8Compressor"`` with
+``overlap="ring"`` reduces every bucket of 256 KiB or more over the
+quantized ring.  The cast and low-rank compressors, ``fused_groups``, the
+accumulation pipeline (``overlap="pipeline"``, ``"full"`` with
+``accum_steps > 1``) and ``hier`` are recorded in the plan and refused
+when it is lowered (:mod:`autodist_tpu_torch.kernel.graph_transformer`),
+until their ROADMAP items port them.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ Port of the JAX package's ``strategy/compiler.py:93-486`` for what the
 port runs: AllReduce plans over the ``data`` axis.  Each per-variable
 config becomes a :class:`VarPlan`; the parameter is replicated on every
 rank and the gradient is averaged over ``data`` (no collective at data
-size 1).  The plan carries ``sync_mode`` (``"reduce_scatter"`` for ZeRO-1
-weight-update sharding), ``bucket_bytes``, ``overlap`` and ``hier``
-through to the step (``compiler.py:436-455``).  A partitioner shards only
+size 1).  The plan carries ``compressor``, ``sync_mode``
+(``"reduce_scatter"`` for ZeRO-1 weight-update sharding),
+``bucket_bytes``, ``overlap`` and ``hier`` through to the step unchanged
+(``compiler.py:436-455``).  A partitioner shards only
 over a ``model`` axis, which a mesh of the port does not have yet, so
 partitioned AllReduce variables stay replicated, as they do in the JAX
 package on a pure data-parallel mesh.  PS plans raise, naming their

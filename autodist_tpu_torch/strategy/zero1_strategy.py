@@ -13,11 +13,16 @@ Clip with ``capture(numerics={"clip_norm": ...})``, not inside the
 optimizer: the guard sums the shards' squared norms over the ranks, so the
 clip factor is the true global norm's.
 
-Options of the JAX builder that the port does not run yet raise when the
-plan is lowered, naming their ROADMAP item: a ``compressor`` (P6) and the
-``pipeline``/``ring``/``full`` overlap schedules and ``hier`` (P6).
-``overlap="auto"`` and ``"none"`` run the phase-serial schedule, the same
-arithmetic as the JAX package's schedules.
+``compressor="Int8Compressor"`` or ``"Fp8Compressor"`` reduce-scatters
+each bucket over the quantized wire (the update runs on the dequantized
+f32 shard); with ``overlap="ring"`` (or ``"full"`` at ``accum_steps ==
+1``) buckets of 256 KiB or more take the quantized ring.  Under
+``"auto"`` an uncompressed bucket of 256 KiB or more rings on more than
+one rank, as in the JAX package.  Options of the JAX builder that the
+port does not run yet raise when the plan is lowered, naming their
+ROADMAP item: the cast and low-rank compressors, the accumulation
+pipeline (``overlap="pipeline"``, ``"full"`` with ``accum_steps > 1``)
+and ``hier`` (P6).
 """
 from __future__ import annotations
 

@@ -53,23 +53,52 @@ Phases, each printing one JSON line:
    by a NaN batch column must be skipped: parameters and optimizer state
    bit-identical, ``skipped_steps`` 1, no K5 launch.
 
+9. the quantized ring (``train_ring``): the script starts itself again as
+   4 worker processes on the one card (``--ring-rank R``), joined by a
+   gloo group over ``tcp://localhost`` (NCCL refuses two ranks on one
+   card; gloo carries the wire bytes through host memory, the kernels
+   run on the card in every rank).  Each trains ``transformer_lm()`` at
+   full width, 2 rows per rank of the same 8 x 1024 batch, with
+   ``AllReduce(compressor="Int8Compressor", overlap="ring")`` + ``adam``
+   and then ``Zero1(compressor="Fp8Compressor", overlap="ring")`` +
+   ``fusable_adam``, both with ``numerics={"clip_norm": 1.0}``: 2 warm-up
+   and 5 timed steps each.  Every step must launch K6 and K8 once and K7
+   twice per ring bucket, K4 twice per bucket, K5 once per ZeRO-1 bucket
+   and K1–K3 once per layer; every step finite with no saturated wire
+   element, its loss within rtol 2e-3 of the one-card f32
+   ``train_zero1`` run's at the same step, and every rank's parameters
+   bit-identical at the end.  Then, on this rank's embedding gradient
+   bucket, the quantized ring reduce-scatter with K6–K8 against the
+   unfused ring (the plain torch ops on the card): output and error at
+   atol 1e-6, saturation counts equal.
+
 K4 (guard statistics) and K5 (fused Adam) join phase 2 at the ZeRO-1
 path's bucket sizes (24,674,304, 2,359,296 and 589,824 elements, and a
 ragged 1,000,003): K4's count exactly, its sum of squares at rtol 1e-6 of
 an f64 sum, NaN/+Inf/-Inf counted once and poisoning the sum, the same
 bits twice; K5 over three steps (multipliers 1.0, 0.25, 1.0) at atol 1e-6
-on p, m and v.
+on p, m and v.  K6–K8 (the quantized ring's hop kernels) join it at the
+ring's chunk sizes at 4 ranks (6,168,576, 589,824 and 147,456 elements,
+and a ragged 1,000,003), int8 and fp8, on standard normal x 3 inputs and
+a copy poisoned with +Inf, NaN and -Inf: the payload bit-equal to the
+plain version's (NaN as NaN), the scales equal, the error and K8's output
+at atol 1e-6, the saturation counts equal (at least 3 when poisoned), the
+same bits twice.
 
 Then one JSON line with every kernel's numbers (``launches`` counts the
 wrapper's calls that launched its C entry point on the kernel's own path:
 serving for K9 and K10, the 13 training steps for K1–K3, the 13 ZeRO-1
-steps for K4 and K5; each such call issues one kernel, or two where the
-work is split and then merged), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises and the exit code is not 0; without a
+steps for K4 and K5, rank 0's 14 quantized-ring steps for K6–K8; each
+such call issues one kernel, or two where the work is split and then
+merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.  Any failed check raises and the exit code is not 0; without a
 CUDA device, or without the package beside this script, it exits 2 and
 prints no result.
 """
+import hashlib
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -96,6 +125,22 @@ SYNC_REPLACES = {"detect_stats": "autodist_tpu/ops/fused_kernels.py:219",
 #: the ZeRO-1 path's bucket sizes (the embedding's, a block's two MLP
 #: kernels, four attention projections) and a ragged size
 SYNC_SIZES = (24_674_304, 2_359_296, 589_824, 1_000_003)
+QUANT_SOURCE = "autodist_tpu_torch/csrc/quant_hop.cu"
+QUANT_REPLACES = {
+    "quant_hop_quantize": "autodist_tpu/ops/fused_kernels.py:493",
+    "quant_hop_accumulate": "autodist_tpu/ops/fused_kernels.py:501",
+    "quant_hop_dequant_add": "autodist_tpu/ops/fused_kernels.py:513"}
+#: the quantized ring's chunks at 4 ranks (the embedding's, an MLP
+#: kernel's, an attention projection's) and a ragged size
+QUANT_SIZES = (6_168_576, 589_824, 147_456, 1_000_003)
+RING_RANKS = 4
+#: the train_ring phase's configurations, in the order they run
+RING_CONFIGS = ("int8_allreduce", "fp8_zero1")
+RING_WARMUP, RING_TIMED = 2, 5
+#: each ring step's loss against the one-card f32 ``train_zero1`` run's at
+#: the same step (same init, batch, Adam and clip): quantization noise only
+RING_LOSS_RTOL = 2e-3
+RING_TIMEOUT_S = 600
 CLIP_NORM = 1.0
 TRAIN_SHAPE = dict(B=8, T=1024, H=12, D=64)   # transformer_lm() at batch 8
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -440,6 +485,131 @@ def phase_sync_kernels(torch, timer):
                      "library_call": lib_call})
         emit({"phase": "kernel", **rows[-1]})
     rows[0]["rel_err_vs_f64"] = errs["detect_rel"]
+    return rows
+
+
+def _same_payload(torch, a, b) -> bool:
+    """Wire payloads bit-equal, fp8 NaN compared as NaN."""
+    if a.dtype == torch.int8:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    return torch.equal(na, nb) and torch.equal(a.view(torch.uint8)[~na],
+                                               b.view(torch.uint8)[~nb])
+
+
+def _check_quantized(torch, got, want, label) -> float:
+    """A K6/K7 result ``(q, scales, err, sat)`` against the plain
+    version's; returns the error's max abs difference."""
+    (q, s, err, sat), (rq, rs, rerr, rsat) = got, want
+    if not _same_payload(torch, q, rq):
+        raise AssertionError(f"{label}: payload differs from the plain "
+                             f"version's")
+    if not torch.equal(s, rs):
+        raise AssertionError(f"{label}: scales differ")
+    torch.testing.assert_close(err, rerr, atol=1e-6, rtol=0, equal_nan=True,
+                               msg=f"{label}: error")
+    if float(sat) != float(rsat):
+        raise AssertionError(f"{label}: saturation {float(sat)} vs "
+                             f"{float(rsat)}")
+    return (err - rerr).abs().nan_to_num(0.0).max().item()
+
+
+def phase_quant_kernels(torch, timer):
+    """K6–K8 against their plain versions at the ring's chunk sizes, int8
+    and fp8, clean and poisoned; times at the embedding chunk."""
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    dev = torch.device("cuda")
+    formats = (qr.WIRE_INT8, qr.WIRE_FP8_E4M3)
+    names = tuple(QUANT_REPLACES)
+    errs = dict.fromkeys(names, 0.0)
+    for n in QUANT_SIZES:
+        x = (torch.randn(n, generator=gen) * 3).to(dev)
+        chunk = torch.randn(n, generator=gen).to(dev)
+        bad = torch.tensor([float("inf"), float("nan"), -float("inf")],
+                           device=dev)
+        at = [5, n // 2, n - 1]
+        px, pchunk = x.clone(), chunk.clone()
+        px[at], pchunk[at] = bad, bad
+        for fmt in formats:
+            # K7/K8 receive the quantized partial of x / 3 and add this
+            # rank's chunk; the poisoned case poisons the input and chunk
+            q_in, s_in = fk.fused_quantize_reference(x / 3, fmt)[:2]
+            sats = {}
+            for label, src, c in (("clean", x, chunk),
+                                  ("poisoned", px, pchunk)):
+                tag = f"{fmt.name} n={n} {label}"
+                k6 = fk.fused_quantize(src, fmt)
+                again = fk.fused_quantize(src, fmt)
+                k7 = fk.fused_hop_accumulate(q_in, s_in, c, fmt)
+                k8 = fk.fused_dequant_add(q_in, s_in, c, fmt)
+                torch.cuda.synchronize()
+                errs[names[0]] = max(errs[names[0]], _check_quantized(
+                    torch, k6, fk.fused_quantize_reference(src, fmt),
+                    f"K6 {tag}"))
+                errs[names[1]] = max(errs[names[1]], _check_quantized(
+                    torch, k7, fk.fused_hop_accumulate_reference(
+                        q_in, s_in, c, fmt), f"K7 {tag}"))
+                r8 = fk.fused_dequant_add_reference(q_in, s_in, c, fmt)
+                torch.testing.assert_close(k8, r8, atol=1e-6, rtol=0,
+                                           equal_nan=True, msg=f"K8 {tag}")
+                errs[names[2]] = max(errs[names[2]], (k8 - r8).abs()
+                                     .nan_to_num(0.0).max().item())
+                if not (_same_payload(torch, again[0], k6[0])
+                        and torch.equal(again[1], k6[1])
+                        and torch.equal(again[2].nan_to_num(),
+                                        k6[2].nan_to_num())
+                        and float(again[3]) == float(k6[3])):
+                    raise AssertionError(f"K6 {tag}: two runs differ")
+                sats[label] = (float(k6[3]), float(k7[3]))
+                if label == "poisoned" and min(sats[label]) < 3:
+                    raise AssertionError(f"K6/K7 {tag}: saturation "
+                                         f"{sats[label]} below 3")
+            emit({"phase": "quant_check", "n": n, "wire": fmt.name,
+                  "sat_counts_k6_k7": sats,
+                  "max_abs_err": {k: errs[k] for k in names}})
+    n = QUANT_SIZES[0]
+    nb = qr.scale_count(n)
+    x = (torch.randn(n, generator=gen) * 3).to(dev)
+    chunk = torch.randn(n, generator=gen).to(dev)
+    # bytes: K6 reads x and writes q, scales, err; K7 reads and writes
+    # (q, scales) and reads the chunk and writes err; K8 reads q, scales
+    # and the chunk and writes the sum.  Operations: ~10 f32 per element
+    # (K8: a multiply-add)
+    work = {names[0]: (9.0 * n + 4.0 * nb, 10.0 * n),
+            names[1]: (10.0 * n + 8.0 * nb, 12.0 * n),
+            names[2]: (9.0 * n + 4.0 * nb, 2.0 * n)}
+    times = {}
+    for fmt in formats:
+        q_in, s_in = fk.fused_quantize(x / 3, fmt)[:2]
+        times[fmt.name] = {
+            names[0]: (timer(lambda: fk.fused_quantize(x, fmt)),
+                       timer(lambda: fk.fused_quantize_reference(x, fmt))),
+            names[1]: (timer(lambda: fk.fused_hop_accumulate(
+                q_in, s_in, chunk, fmt)),
+                timer(lambda: fk.fused_hop_accumulate_reference(
+                    q_in, s_in, chunk, fmt))),
+            names[2]: (timer(lambda: fk.fused_dequant_add(
+                q_in, s_in, chunk, fmt)),
+                timer(lambda: fk.fused_dequant_add_reference(
+                    q_in, s_in, chunk, fmt)))}
+    rows = []
+    for name in names:
+        bnd, by = bound_ms(*work[name])
+        rows.append({
+            "name": name, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": QUANT_REPLACES[name],
+            "shape": {"n": n, "wire": "int8"},
+            "max_abs_err": errs[name], "ms": times["int8"][name][0],
+            "plain_ms": times["int8"][name][1], "bound_ms": bnd,
+            "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call quantizes on a "
+                            "per-block scale grid",
+            "fp8_ms": times["float8_e4m3fn"][name][0],
+            "fp8_plain_ms": times["float8_e4m3fn"][name][1]})
+        emit({"phase": "kernel", **rows[-1]})
     return rows
 
 
@@ -912,9 +1082,272 @@ def phase_train_zero1_parity(torch):
                               "state_bit_identical": True}}
 
 
+def _quant_counts(fk):
+    return (fk.fused_quantize.calls, fk.fused_hop_accumulate.calls,
+            fk.fused_dequant_add.calls)
+
+
+def _ring_wire_bytes(buckets, algs, d: int) -> dict:
+    """Bytes one rank sends per step: each bucket's reduce leg sends
+    ``d - 1`` chunks (ring hops or ``all_to_all``), quantized by
+    ``wire_nbytes``; an all-reduce bucket's gather leg as many again,
+    quantized; a ZeRO-1 bucket's parameter gather ``d - 1`` f32 chunks."""
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+
+    quantized = f32 = 0
+    for b in buckets:
+        chunk = b.padded_total // d
+        fmt = qr.wire_format_of(b.compressor)
+        legs = 1 if b.mode == "reduce_scatter" else 2
+        quantized += legs * (d - 1) * qr.wire_nbytes(chunk, fmt)
+        if b.mode == "reduce_scatter":
+            f32 += (d - 1) * 4 * chunk
+    return {"quantized": quantized, "f32_param_gather": f32,
+            "f32_all_reduce_equivalent": sum(
+                2 * (d - 1) * 4 * (b.padded_total // d) for b in buckets)}
+
+
+def _ring_train(torch, name, builder, optimizer):
+    """One configuration of the ``train_ring`` phase on this rank."""
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 builder, optimizer,
+                                 numerics={"clip_norm": CLIP_NORM})
+    step = sess._step
+    d = sess.data_axis_size
+    if d != RING_RANKS:
+        raise AssertionError(f"{name}: data axis {d}, expected {RING_RANKS}")
+    ring = sum(1 for a in step.bucket_algs.values() if a == "ring")
+    if "quant_hop" not in step.fused_kernels or ring == 0:
+        raise AssertionError(f"{name}: no quantized ring bucket "
+                             f"({step.fused_kernels}, {step.bucket_algs})")
+    n_buckets, n_zero1 = len(step.buckets), len(step.zero1_buckets)
+    want = (layers, layers, layers, 2 * n_buckets, n_zero1, ring,
+            (d - 2) * ring, ring)
+    fa.reset_counts()                   # the main path starts here
+    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    fk.fused_quantize.calls = fk.fused_hop_accumulate.calls = 0
+    fk.fused_dequant_add.calls = 0
+
+    def counts():
+        return (_flash_counts(fa.flash_attention) + _sync_counts(fk)
+                + _quant_counts(fk))
+
+    losses, step_s = [], []
+    for i in range(RING_WARMUP + RING_TIMED):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.run(batch)
+        torch.cuda.synchronize()
+        if i >= RING_WARMUP:
+            step_s.append(time.perf_counter() - t0)
+        per_step = tuple(a - b for a, b in zip(counts(), before))
+        if per_step != want:
+            raise AssertionError(f"{name} step {i} launched (K1, K2, K3, K4,"
+                                 f" K5, K6, K7, K8) = {per_step}, expected "
+                                 f"{want}")
+        h = out["grad_health"]
+        sat = {k: float(v["sat_count"]) for k, v in h.per_bucket.items()
+               if "sat_count" in v}
+        if not bool(h.all_finite) or int(h.skipped_steps) != 0 \
+                or len(sat) != n_buckets or any(sat.values()):
+            raise AssertionError(f"{name} step {i}: all_finite "
+                                 f"{bool(h.all_finite)}, skipped "
+                                 f"{int(h.skipped_steps)}, saturation {sat}")
+        losses.append(float(out["loss"]))
+    launches = counts()                 # read just after the main path
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite losses: {losses}")
+    digest = hashlib.sha256()
+    for pname, x in flatten(sess.device_params):
+        digest.update(pname.encode())
+        digest.update(x.detach().cpu().numpy().tobytes())
+    residual = {k: v for k, v in sess.sync_state.items()
+                if isinstance(v, torch.Tensor)}
+    if sorted(residual) != sorted(b.key for b in step.buckets) or any(
+            residual[b.key].numel() != b.padded_total for b in step.buckets):
+        raise AssertionError(f"{name}: residuals do not match the plan")
+    return sess, {
+        "losses": losses, "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_min": min(step_s) * 1e3,
+        "ms_per_step_max": max(step_s) * 1e3,
+        "buckets": n_buckets, "ring_buckets": ring,
+        "algs": sorted(set(step.bucket_algs.values())),
+        "one_shot_bucket_sizes": sorted(
+            b.total for b in step.buckets
+            if step.bucket_algs[b.key] != "ring"),
+        "wire_bytes_per_step": _ring_wire_bytes(step.buckets,
+                                                step.bucket_algs, d),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv",
+                              "detect_stats", "adam_update",
+                              "quant_hop_quantize", "quant_hop_accumulate",
+                              "quant_hop_dequant_add"), launches)),
+        "launches_per_step": list(want),
+        "params_sha256": digest.hexdigest()}
+
+
+def _ring_fused_vs_unfused(torch, sess, batch_rows, rank):
+    """This rank's embedding gradient bucket through the quantized ring
+    reduce-scatter with K6–K8 and unfused, both wire formats."""
+    import torch.distributed as dist
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+    from autodist_tpu_torch.kernel.synchronization.bucketing import \
+        pack_bucket
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm()
+    bucket = next(b for b in sess._step.buckets if "embed" in b.names)
+    tree = sess.device_params
+    embed = tree["embed"].detach().clone().requires_grad_()
+    rows = {k: torch.as_tensor(v[rank * batch_rows:(rank + 1) * batch_rows],
+                               device=embed.device) for k, v in
+            spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED).items()}
+    (grad,) = torch.autograd.grad(spec.loss_fn(dict(tree, embed=embed), rows),
+                                  embed)
+    flat = dict(flatten(tree))
+    vec = pack_bucket(bucket, [grad.detach() if n == "embed"
+                               else torch.zeros_like(flat[n])
+                               for n in bucket.names])
+    group, d = dist.group.WORLD, dist.get_world_size()
+    out = {"elements": vec.numel(), "chunk": vec.numel() // d}
+    for fmt in (qr.WIRE_INT8, qr.WIRE_FP8_E4M3):
+        fused = qr.quantized_ring_reduce_scatter(vec, group, d, fmt,
+                                                 fused=True)
+        plain = qr.quantized_ring_reduce_scatter(vec, group, d, fmt,
+                                                 fused=False)
+        torch.cuda.synchronize()
+        for part, a, b in (("output", fused[0], plain[0]),
+                           ("err", fused[1], plain[1])):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0,
+                                       msg=f"fused vs unfused {fmt.name} "
+                                           f"{part}")
+        if float(fused[2]) != float(plain[2]):
+            raise AssertionError(f"fused vs unfused {fmt.name}: saturation "
+                                 f"{float(fused[2])} vs {float(plain[2])}")
+        out[fmt.name] = {
+            "max_abs_diff_output": (fused[0] - plain[0]).abs().max().item(),
+            "max_abs_diff_err": (fused[1] - plain[1]).abs().max().item(),
+            "sat": float(fused[2])}
+    return out
+
+
+def ring_worker(rank: int, port: int) -> int:
+    """One rank of the ``train_ring`` phase: prints ``RING_RESULT`` and
+    its JSON as the last line."""
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import AllReduce, Zero1
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=RING_RANKS, rank=rank)
+    try:
+        out = {"rank": rank}
+        for name, builder, opt in (
+                ("int8_allreduce",
+                 AllReduce(compressor="Int8Compressor", overlap="ring"),
+                 optim.adam(1e-3)),
+                ("fp8_zero1", Zero1(compressor="Fp8Compressor",
+                                    overlap="ring"), fk.fusable_adam(1e-3))):
+            sess, out[name] = _ring_train(torch, name, builder, opt)
+            if name == "int8_allreduce":
+                out["fused_vs_unfused"] = _ring_fused_vs_unfused(
+                    torch, sess, TRAIN_SHAPE["B"] // RING_RANKS, rank)
+            del sess
+            torch.cuda.empty_cache()
+        print("RING_RESULT " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_ring_losses(config, losses, f32_losses) -> float:
+    """Each ring step's loss against the f32 one-card run's at the same
+    step, at :data:`RING_LOSS_RTOL`; returns the largest relative
+    difference."""
+    if len(losses) > len(f32_losses):
+        raise AssertionError(f"{config}: {len(losses)} ring steps, only "
+                             f"{len(f32_losses)} f32 steps to hold them to")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)]
+    if not max(rel) <= RING_LOSS_RTOL:
+        raise AssertionError(f"{config}: ring losses {losses} differ from "
+                             f"the f32 run's {f32_losses} by up to "
+                             f"{max(rel):.2e} (rtol {RING_LOSS_RTOL})")
+    return max(rel)
+
+
+def phase_train_ring():
+    """Start the 4 ring ranks on the card, wait for them, check they agree
+    and report rank 0's numbers (every rank's parameters must hash the
+    same)."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--ring-port",
+           str(_free_port()), "--ring-rank"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(RING_RANKS)]
+    logs = [None] * RING_RANKS
+
+    def wait(r):
+        try:
+            logs[r] = procs[r].communicate(timeout=RING_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            procs[r].kill()
+            logs[r] = procs[r].communicate()
+    threads = [threading.Thread(target=wait, args=(r,))
+               for r in range(RING_RANKS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for p in procs:                     # one failed rank strands the rest
+        if p.poll() is None:
+            p.kill()
+    results = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, logs)):
+        last = (stdout or "").strip().splitlines()[-1:]
+        if p.returncode != 0 or not last or \
+                not last[0].startswith("RING_RESULT "):
+            raise RuntimeError(f"ring rank {r} failed (exit {p.returncode}):"
+                               f"\n{(stdout or '')[-2000:]}\n"
+                               f"{(stderr or '')[-4000:]}")
+        results.append(json.loads(last[0][len("RING_RESULT "):]))
+    wall = time.perf_counter() - t0
+    for config in RING_CONFIGS:
+        digests = {res[config]["params_sha256"] for res in results}
+        if len(digests) != 1:
+            raise AssertionError(f"{config}: ranks' parameters differ "
+                                 f"({len(digests)} digests)")
+        for res in results[1:]:
+            if res[config]["launches"] != results[0][config]["launches"]:
+                raise AssertionError(f"{config}: ranks launched "
+                                     f"differently")
+    return results[0], wall, [res["fused_vs_unfused"] for res in results]
+
+
 def main() -> int:
     import torch
 
+    if "--ring-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return ring_worker(int(args["--ring-rank"]), int(args["--ring-port"]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -926,14 +1359,14 @@ def main() -> int:
               f"root of a checkout", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.build_all()
-    emit({"phase": "device", "device": name, "nvidia_smi": smi,
+    emit({"phase": "device", "device": device_name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
 
@@ -941,6 +1374,7 @@ def main() -> int:
     k9, k10 = phase_kernels(torch, timer)
     flash_rows = phase_flash(torch, timer)
     sync_rows = phase_sync_kernels(torch, timer)
+    quant_rows = phase_quant_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
@@ -975,10 +1409,27 @@ def main() -> int:
     emit({"phase": "train_zero1_parity",
           **phase_train_zero1_parity(torch)})
 
-    emit({"kernels": flash_rows + sync_rows + [k9, k10], "card": smi,
+    ring, ring_wall, fused_vs_unfused = phase_train_ring()
+    for config in RING_CONFIGS:
+        rel = check_ring_losses(config, ring[config]["losses"],
+                                zero1_out["losses"])
+        emit({"phase": "train_ring", "config": config, "card": smi,
+              "ranks": RING_RANKS,
+              "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                                   "(host-staged wire)",
+              "max_rel_diff_vs_f32": rel, "rtol_vs_f32": RING_LOSS_RTOL,
+              **ring[config]})
+    emit({"phase": "train_ring_fused_vs_unfused", "atol": 1e-6,
+          "per_rank": fused_vs_unfused, "wall_s": ring_wall})
+    for row in quant_rows:
+        row["launches"] = sum(ring[c]["launches"][row["name"]]
+                              for c in RING_CONFIGS)
+
+    emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
+          "card": smi,
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

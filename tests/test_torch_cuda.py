@@ -12,7 +12,10 @@ magnitudes (unit-variance activations, weights of std 1/sqrt(K)); flash
 attention 1e-5 on o and lse, 1e-4 on gradients (the JAX flash tests');
 the guard statistics K4: the count exactly, the sum of squares at rtol
 1e-6 of an f64 sum; the Adam update K5 at atol 1e-6 (the JAX kernel
-test's).
+test's); the quantized-ring hop kernels K6–K8: payload bit-equal and
+scales equal to the plain version's, error at atol 1e-6, saturation
+counts equal (the JAX kernel test's, ``tests/test_fused_kernels.py:
+148-199``).
 """
 import numpy as np
 import pytest
@@ -256,6 +259,68 @@ def test_adam_kernel_matches_plain(dev, n):
     assert fk.fused_adam_update.calls == before + 3
     for got, want in ((p, rp), (mu, rmu), (nu, rnu)):
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def _same_payload(a, b) -> bool:
+    """Wire payloads bit-equal, fp8 NaN compared as NaN."""
+    if a.dtype == torch.int8:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    return torch.equal(na, nb) and torch.equal(a.view(torch.uint8)[~na],
+                                               b.view(torch.uint8)[~nb])
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("n", [147_456, 1_000_003, 300])
+def test_quant_hop_kernels_match_plain(dev, wire, n):
+    """K6–K8 against their plain versions: payload bit-equal (NaN as NaN),
+    scales equal, error and the dequant-add at atol 1e-6, saturation
+    counts equal (at least 3 on the poisoned input), the same bits twice,
+    and a chunk that is not 16-byte aligned."""
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+
+    fmt = qr.WIRE_INT8 if wire == "int8" else qr.WIRE_FP8_E4M3
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.randn(n + 1, generator=gen) * 3).to(dev)
+    chunk = torch.randn(n + 1, generator=gen).to(dev)
+    poisoned = x.clone()
+    poisoned[[5, n // 2, n - 1]] = torch.tensor(
+        [float("inf"), float("nan"), -float("inf")], device=dev)
+    for src, c, poison in ((x[:n], chunk[:n], False),
+                           (poisoned[:n], chunk[:n], True),
+                           (x[1:], chunk[1:], False)):
+        before = (fk.fused_quantize.calls, fk.fused_hop_accumulate.calls,
+                  fk.fused_dequant_add.calls)
+        got = fk.fused_quantize(src, fmt)
+        again = fk.fused_quantize(src, fmt)
+        q_in, s_in = fk.fused_quantize(src / 3, fmt)[:2]
+        hop = fk.fused_hop_accumulate(q_in, s_in, c, fmt)
+        out = fk.fused_dequant_add(q_in, s_in, c, fmt)
+        torch.cuda.synchronize()
+        assert (fk.fused_quantize.calls - before[0],
+                fk.fused_hop_accumulate.calls - before[1],
+                fk.fused_dequant_add.calls - before[2]) == (3, 1, 1)
+        for kernel, want in (
+                (got, fk.fused_quantize_reference(src, fmt)),
+                (hop, fk.fused_hop_accumulate_reference(q_in, s_in, c,
+                                                        fmt))):
+            (q, s, err, sat), (rq, rs, rerr, rsat) = kernel, want
+            assert _same_payload(q, rq)
+            assert torch.equal(s, rs)
+            torch.testing.assert_close(err, rerr, atol=1e-6, rtol=0,
+                                       equal_nan=True)
+            assert float(sat) == float(rsat)
+        torch.testing.assert_close(
+            out, fk.fused_dequant_add_reference(q_in, s_in, c, fmt),
+            atol=1e-6, rtol=0, equal_nan=True)
+        assert _same_payload(again[0], got[0])
+        assert torch.equal(again[1], got[1])
+        assert torch.equal(again[2].nan_to_num(), got[2].nan_to_num())
+        assert float(again[3]) == float(got[3])
+        if poison:
+            assert float(got[3]) >= 3
+    with pytest.raises(ValueError, match="q_in"):
+        fk.fused_dequant_add(q_in[:-1], s_in, c, fmt)
 
 
 def test_zero1_guard_session_launches_k4_and_k5(dev):

@@ -333,9 +333,10 @@ class _PSBuilder(StrategyBuilder):
     (None, {}, "slice 5"),
     (AllReduce(compressor="HorovodCompressor"), {}, "P6"),
     (AllReduce(fused_groups=True), {}, "P6"),
-    (AllReduce(sync="reduce_scatter", compressor="Int8Compressor"), {},
+    (AllReduce(sync="reduce_scatter", compressor="PowerSGDCompressor"), {},
      "P6"),
-    (AllReduce(bucket_bytes=1 << 20, overlap="ring"), {}, "P6"),
+    (AllReduce(bucket_bytes=1 << 20, overlap="full"), {"accum_steps": 2},
+     "P6"),
     (AllReduce(overlap="pipeline"), {}, "P6"),
     (AllReduce(hier=True), {}, "P6"),
     (_PSBuilder(), {}, "slice 5"),

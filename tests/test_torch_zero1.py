@@ -249,7 +249,8 @@ def test_zero1_without_fusable_adam_warns_and_matches_jax(params0):
 
 @pytest.mark.parametrize("builder,item", [
     (Zero1(compressor="HorovodCompressor"), "P6"),
-    (Zero1(overlap="pipeline"), "P6"), (Zero1(hier=True), "P6")])
+    (Zero1(overlap="pipeline"), "P6"), (Zero1(hier=True), "P6"),
+    (Zero1(compressor="HorovodCompressorEF"), "P6")])
 def test_zero1_options_still_to_port_raise(params0, builder, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
         _port_session(params0, builder)

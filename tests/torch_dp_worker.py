@@ -1,8 +1,8 @@
-"""One rank of a data-parallel run of the port's AutoDist facade on gloo CPU
-ranks (spawned by ``tests/test_torch_training.py`` and
-``tests/test_torch_zero1.py``).
+"""One rank of a data-parallel run of the port on gloo CPU ranks (spawned by
+``tests/test_torch_training.py``, ``tests/test_torch_zero1.py`` and
+``tests/test_torch_quant_ring.py``).
 
-    python tests/torch_dp_worker.py RANK WORLD PORT OUT.npz [zero1 [STATE]]
+    python tests/torch_dp_worker.py RANK WORLD PORT OUT.npz [MODE [IN]]
 
 Trains a tiny ``transformer_lm`` for 3 steps on the same global batch of 8
 rows, then writes the losses, the final parameters and the bucket count
@@ -10,9 +10,22 @@ to ``OUT.npz``.  The default strategy is ``AllReduce()`` with
 ``adam(1e-2)``.  ``zero1`` trains with ``Zero1(4096)``, ``fusable_adam(1e-2)``
 and ``numerics={"clip_norm": 1.0}``, and also writes the global norms,
 this rank's ZeRO-1 shard sizes and the logical state ``export_state``
-gives; with ``STATE`` (a ``torch.save`` file of ``{"params", "opt_state",
+gives; with ``IN`` (a ``torch.save`` file of ``{"params", "opt_state",
 "sync_state", "step"}`` per rank, keyed by rank) it then imports that
 state into a fresh session and writes the losses of 2 more steps.
+
+``quant`` trains :data:`QUANT_CFG` under each of :func:`quant_runs` (the
+quantized ring, ``numerics={"clip_norm": 1.0}``) for 3 steps and writes
+losses, saturation counts, parameters and this rank's error-feedback
+residuals; then the same after one step from each of the states in
+``IN`` (a path with ``{rank}``: this rank's ``torch.save`` file of
+``{run name: {k: {"params", "opt_state", "sync_state"}}}``, the state
+after k steps); then after 3 steps on :func:`linear_loss` and
+:func:`linear_batch`, whose gradients are the batch's rows to the bit.  ``ring`` runs the quantized ring collectives
+on the rows of ``IN.npz`` (:func:`ring_functions`).
+
+Each rank runs one intra-op thread: ranks do not contend for the host's
+cores, and the sums come out the same on any host.
 """
 import os
 import sys
@@ -25,7 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from autodist_tpu_torch import optim  # noqa: E402
-from autodist_tpu_torch.autodist import AutoDist  # noqa: E402
+from autodist_tpu_torch.autodist import (  # noqa: E402
+    AutoDist, _reset_default_autodist_for_testing)
 from autodist_tpu_torch.graph_item import flatten  # noqa: E402
 from autodist_tpu_torch.models.transformer_lm import \
     transformer_lm  # noqa: E402
@@ -39,6 +53,112 @@ CLIP = 1.0
 #: the ZeRO-1 bucket cap of the ``zero1`` run: small, so the tiny model
 #: spreads over several buckets
 ZERO1_BUCKET_BYTES = 1 << 12
+#: the ``quant`` runs' model: the embedding and both MLP kernels are 65,536
+#: elements, so at a 256 KiB cap they are three buckets at the quantized
+#: ring's threshold; the attention and norm variables make one bucket
+#: below it (the one-shot tier)
+QUANT_CFG = dict(vocab_size=1024, num_layers=1, num_heads=2, head_dim=32,
+                 d_ff=1024, max_len=16)
+QUANT_BUCKET_BYTES = 256 << 10
+QUANT_LR = 1e-3
+#: the equal-gradient runs' batch: numpy's seed and the rows' scale
+LINEAR_SEED, LINEAR_SCALE = 3, 1e-2
+
+
+def quant_runs():
+    """``{name: (builder, optimizer)}`` of the ``quant`` mode."""
+    return {"int8_allreduce": (
+                AllReduce(compressor="Int8Compressor", overlap="ring",
+                          bucket_bytes=QUANT_BUCKET_BYTES),
+                optim.adam(QUANT_LR)),
+            "fp8_zero1": (
+                Zero1(QUANT_BUCKET_BYTES, compressor="Fp8Compressor",
+                      overlap="ring"),
+                fusable_adam(QUANT_LR))}
+
+
+def linear_batch(params):
+    """A global batch of 8 rows, ``{parameter name: [8, *shape]}`` f32
+    from numpy: row r holds one value per parameter element."""
+    rng = np.random.default_rng(LINEAR_SEED)
+    return {name: (rng.standard_normal((8,) + tuple(leaf.shape))
+                   * LINEAR_SCALE).astype(np.float32)
+            for name, leaf in flatten(params)}
+
+
+def linear_loss(params, batch):
+    """``sum over parameters of <p, mean of batch[name] over the rows>``:
+    linear in the parameters, so at one row per rank the gradient is that
+    row to the bit, in PyTorch and in JAX alike (torch tensors or JAX
+    arrays)."""
+    return sum((leaf * batch[name].mean(0)).sum()
+               for name, leaf in flatten(params))
+
+
+def quant_session(name, device="cpu", linear=False):
+    """A fresh facade session of quant run ``name`` and its batch (with
+    ``linear``, on :func:`linear_loss` and :func:`linear_batch`)."""
+    _reset_default_autodist_for_testing()
+    builder, opt = quant_runs()[name]
+    spec = transformer_lm(**QUANT_CFG)
+    params = spec.init(0, device=device)
+    ad = AutoDist(strategy_builder=builder, device=device)
+    with ad.scope():
+        ad.capture(params=params, optimizer=opt,
+                   loss_fn=linear_loss if linear else spec.loss_fn,
+                   sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": CLIP})
+    batch = linear_batch(params) if linear else spec.sample_batch(8, seed=1)
+    return ad.create_distributed_session(), batch
+
+
+def ring_functions(x, grid_int8, grid_fp8, state, group, n):
+    """Every quantized ring function on this rank's rows:
+    ``{name: array}`` (scalars as 1-element arrays)."""
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+    from autodist_tpu_torch.kernel.synchronization.compressor import \
+        get_compressor
+
+    out = {}
+    for fmt in (qr.WIRE_INT8, qr.WIRE_FP8_E4M3):
+        f = fmt.name
+        for fused in (False, True):
+            red, err, sat = qr.quantized_ring_reduce_scatter(
+                x, group, n, fmt, fused=fused)
+            out.update({f"rs_{f}_{fused}": red, f"rs_err_{f}_{fused}": err,
+                        f"rs_sat_{f}_{fused}": sat})
+        out[f"ag_{f}"], out[f"ag_sat_{f}"] = qr.quantized_ring_all_gather(
+            red / n, group, n, fmt)
+        (out[f"a2a_{f}"], out[f"a2a_err_{f}"],
+         out[f"a2a_sat_{f}"]) = qr.quantized_all_to_all_reduce_scatter(
+            x, group, n, fmt)
+        out[f"qag_{f}"], out[f"qag_sat_{f}"] = qr.quantized_all_gather(
+            out[f"a2a_{f}"] / n, group, n, fmt)
+        grid = grid_int8 if f == "int8" else grid_fp8
+        for mode in ("all_reduce", "reduce_scatter"):
+            for alg in ("ring", "fused"):
+                for fused in ((False, True) if alg == "ring" else (False,)):
+                    tag = f"{f}_{mode}_{alg}_{fused}"
+                    (out[f"qbr_{tag}"], out[f"qbr_state_{tag}"],
+                     out[f"qbr_sat_{tag}"]) = qr.quant_bucket_reduce(
+                        x, state, group, n, fmt, mode=mode, alg=alg,
+                        fused=fused)
+                    out[f"grid_{tag}"], _, out[f"grid_sat_{tag}"] = \
+                        qr.quant_bucket_reduce(
+                            grid, torch.zeros_like(grid), group, n, fmt,
+                            mode=mode, alg=alg, fused=fused)
+    for name in ("Int8Compressor", "NoneCompressor"):
+        comp = get_compressor(name)
+        st = comp.init_state(x)
+        out[f"c_red_{name}"], st2 = comp.reduce(x.reshape(n, -1), st if st
+                                                is None else st.reshape(n, -1),
+                                                group, n)
+        out[f"c_rs_{name}"], st3 = comp.reduce_scatter(x, st, group, n)
+        if st2 is not None:
+            out[f"c_red_state_{name}"], out[f"c_rs_state_{name}"] = st2, st3
+    return {k: (v.view(torch.uint8) if v.element_size() == 1
+                and v.dtype != torch.int8 else v).reshape(-1).numpy()
+            for k, v in out.items()}
 
 
 def session(strategy="allreduce", device="cpu"):
@@ -65,13 +185,64 @@ def train(strategy="allreduce", device="cpu"):
     return losses, dict(flatten(sess.params)), sess
 
 
+def _quant_steps(out, prefix, sess, batch, steps=3):
+    """``steps`` steps of ``sess``: losses, finiteness and saturation
+    counts per step, then the parameters, this rank's residuals and the
+    lowerings, into ``out`` under ``prefix``."""
+    for step in range(steps):
+        m = sess.run(batch)
+        h = m["grad_health"]
+        out[f"{prefix}/loss/{step}"] = np.float32(m["loss"])
+        out[f"{prefix}/finite/{step}"] = np.bool_(h.all_finite)
+        for key, entry in h.per_bucket.items():
+            out[f"{prefix}/sat/{step}/{key}"] = entry["sat_count"]
+    out.update({f"{prefix}/p/{k}": v for k, v in flatten(sess.params)})
+    out.update({f"{prefix}/residual/{k}": v.numpy()
+                for k, v in sess.sync_state.items()
+                if isinstance(v, torch.Tensor)})
+    out[f"{prefix}/algs"] = np.array(sorted(
+        f"{k}={a}" for k, a in sess._step.bucket_algs.items()))
+
+
+def quant_main(states):
+    """The ``quant`` mode, per run: 3 steps from the init (under the run's
+    name); one step from each state of ``states[name]``, this rank's share
+    of the JAX session's state after k steps, keyed by k (under
+    ``from{k}/{name}``); 3 steps on the linear loss (under
+    ``linear/{name}``)."""
+    out = {}
+    for name in quant_runs():
+        _quant_steps(out, name, *quant_session(name))
+        _quant_steps(out, f"linear/{name}",
+                     *quant_session(name, linear=True))
+        sess, batch = quant_session(name)
+        for k, state in states[name].items():
+            sess.import_state(state["params"], state["opt_state"], step=k,
+                              sync_state=state["sync_state"])
+            _quant_steps(out, f"from{k}/{name}", sess, batch, steps=1)
+    return out
+
+
 def main():
     rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
                               int(sys.argv[3]), sys.argv[4])
     strategy = sys.argv[5] if len(sys.argv) > 5 else "allreduce"
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     try:
+        if strategy == "ring":
+            data = np.load(sys.argv[6])
+            rows = {k: torch.from_numpy(data[k][rank]) for k in
+                    ("x", "grid_int8", "grid_fp8", "state")}
+            np.savez(out, **ring_functions(
+                rows["x"], rows["grid_int8"], rows["grid_fp8"],
+                rows["state"], dist.group.WORLD, world))
+            return
+        if strategy == "quant":
+            np.savez(out, **quant_main(torch.load(
+                sys.argv[6].format(rank=rank))))
+            return
         sess, batch = session(strategy)
         results = [sess.run(batch) for _ in range(STEPS)]
         data_axis, buckets = sess.data_axis_size, len(sess._step.buckets)
