@@ -9,53 +9,660 @@
 // keep the online-softmax state (m, l, acc) in VMEM, so the [T, T] score
 // matrix never reaches HBM.
 //
-// What bounds them on the H100: operations.  At the training shape (B 8,
-// T 1024, H 12, D 64, causal) the forward does two T x T x D products per
-// (batch, head), ~12.9 GFLOP after causal halving, against ~100 MB of
-// inputs and outputs: ~130 flop per byte, far above the f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20 flop per byte).  The backward does three
-// (dQ) and four (dK/dV) such products.
-//
-// Design (simple and right first; f32 on CUDA cores, no tensor cores):
+// Common to all three:
 //  * q, k, v, o, dO are read and written in the public [B, T, H, D] layout
 //    through strides (rows H * D apart); lse and delta are [B, H, T].  No
 //    transposes and no padding: the ragged tail (T not a multiple of the
 //    tile) is masked inside the kernels;
-//  * a block owns 64 rows (q rows for K1/K2, key rows for K3), four threads
-//    per row, each holding a quarter of the row's D elements in registers
-//    (interleaved 8- or 16-byte vectors, so the four threads of a row read
-//    neighbouring shared-memory banks).  A row's dot product is the four
-//    partial sums added with two xor shuffles, which leaves the same value
-//    in all four threads;
-//  * the other operand streams through shared memory in tiles of 64 rows:
-//    K and V for K1/K2, pre-scaled Q, dO, lse and delta for K3 (at most
-//    32.5 KB at D = 64, under the 48 KB default);
-//  * K1 keeps m, l and acc in registers in f32 and, per tile, all the
-//    tile's scores; causal blocks stop at the tile holding their last row's
-//    diagonal (the TPU kernel's `upper`); o = acc / max(l, 1e-30) and
-//    lse = m + log(max(l, 1e-30));
-//  * masked scores are the finite sentinel -1e30, never -inf, so a row whose
-//    tile is fully masked stays NaN-free (the TPU kernel's _NEG_INF);
-//  * K2 recomputes P = exp(S - lse) per q tile and takes delta = rowsum(dO o)
-//    - dlse as an input (the wrapper computes it); dQ = scale * sum dS K;
-//  * K3 owns a key tile and loops over q tiles from the causal lower bound
-//    (its own tile index: tiles are square), keeping dK and dV in registers.  Q is
-//    pre-scaled, so dS^T Q already carries 1/sqrt(D).  No atomics: K2 and K3
-//    sum in a fixed order, and two backward runs give identical bits.
-// Later work: tensor cores (mma / wgmma on tf32 or bf16 tiles), cp.async or
-// TMA double buffering, and a register-tiled S so each shared-memory load
-// feeds more than one multiply-add.
+//  * masked scores are the finite sentinel -1e30, never -inf, so a masked
+//    row stays NaN-free (the TPU kernel's _NEG_INF); o = acc / max(l,
+//    1e-30) and lse = m + log(max(l, 1e-30));
+//  * no atomics: every output element is summed by one thread in a fixed
+//    order, so two backward runs give identical bits.
+//
+// What bounds them on the H100: operations.  At the training shape (B 8,
+// T 1024, H 12, D 64, causal) the forward does two T x T x D products per
+// (batch, head), ~12.9 GFLOP after causal halving, against ~100 MB of
+// inputs and outputs: ~130 flop per byte.  K2 does three such products and
+// K3 four.  On CUDA cores (67 TFLOP/s f32) that is 0.19 / 0.29 / 0.39 ms.
+//
+// K1 and K3: tensor cores, 3xTF32.
+//  * Plain TF32 keeps 10 mantissa bits (~3 decimal digits): a score would
+//    carry a relative error near 5e-4 and o would miss its 1e-5 check.  So
+//    every product is 3xTF32, as the f32 path of PyTorch's memory-efficient
+//    attention does (CUTLASS's OpMultiplyAddFastF32): each f32 operand x is
+//    split into big = rna(x) and small = rna(x - big), both TF32 (round to
+//    nearest, ties away: cvt.rna.tf32.f32's bits, computed with an add and
+//    a mask because sm_90 emulates the cvt in four instructions), and
+//    mma.sync.m16n8k8 accumulates small*big, then big*small, then big*big.
+//    The rounding matters: mma ignores the low 13 bits of a register, so
+//    without it big would be a truncation and small wrong.  The f32-accurate
+//    rate is a third of the 495 TFLOP/s TF32 peak (0.078 ms for K1 and
+//    0.156 ms for K3 at the training shape), which mma.sync, unlike the
+//    warpgroup wgmma, does not reach;
+//  * the mma's f32 accumulation truncates.  Summed into one fragment, the
+//    3 x T / 8 mmas of P V over T keys drift by ~1e-5 relative (o and dV
+//    then miss their checks against the plain version), so each product
+//    goes to a fresh fragment that is added to the running sum in f32 with
+//    round to nearest: per 8-wide step in the short sums over D (S, dP),
+//    per kLongGroup steps in the long ones (P V, dV, dK);
+//  * a warp owns 16 rows (q rows for K1, keys for K3); K1's block is four
+//    warps (64 q rows), K3's eight (128 keys).  Scores live in mma C
+//    fragments and never leave registers: a 16 x 64 tile is 8 n-tiles of 4
+//    f32 per lane.  A row's max and sum come from two xor shuffles inside
+//    the lane quad, and each element's exponential is computed once
+//    (__expf: the ex2 unit after one multiply, within a few ulp for the
+//    arguments that carry weight, far inside the checks);
+//  * P (and dS) feed the next product from registers.  The C fragment of
+//    m16n8 gives lane (g, t) columns 2t and 2t + 1; the A fragment of
+//    m16n8k8 wants columns t and t + 4.  A contraction does not care how
+//    its index is labelled inside an 8-wide step, so A column t is taken as
+//    column 2t and A column t + 4 as 2t + 1, and the B operand's k-rows are
+//    read in the same order (b0 = row 2t, b1 = row 2t + 1): no shuffle and
+//    no shared-memory round trip.  The same freedom pairs columns for
+//    8-byte reads: the B columns of n-tiles 2m and 2m + 1 interleave (lane
+//    g reads columns 16m + 2g and + 1, one per n-tile; the epilogue writes
+//    them back in order), and K1's k-step s takes D columns 8s + 2t and
+//    8s + 2t + 1 for Q's A and K's B;
+//  * the streamed tiles (K and V for K1; Q, dO, lse and delta for K3) are
+//    double-buffered with cp.async: tile i + 1 is in flight while tile i is
+//    multiplied.  The 16-byte cp.async.cg with a source size of 0 fills
+//    rows at or past T with zeros;
+//  * a streamed tile is split once per block, not once per warp: after its
+//    copy lands each thread splits the 16-byte chunks it copied in place
+//    into their big halves and writes the small halves to a second array
+//    (K3 scales Q by 1/sqrt(D) in the same pass, so dS^T Q already carries
+//    it).  Fragment reads are then plain shared-memory loads.  Row strides
+//    of D + 4 floats (D + 8 - D % 16 for K1's K) put every fragment read on
+//    32 distinct banks;
+//  * K1: Q is pre-scaled, split once and kept in registers for the whole
+//    key loop.  Causal blocks stop at ceil((qt * BM + BM) / BN) (the TPU
+//    kernel's `upper`); the element-wise mask runs only in the diagonal
+//    tile and the ragged tail.  Two stages of K and V and one of their
+//    small halves take 105 KB at D = 64, above the 48 KB static limit, so
+//    the launch raises the dynamic shared-memory limit first and returns
+//    its error; two blocks fit on an SM;
+//  * K3: a warp keeps dK and dV (64 registers at D = 64) and the S^T and
+//    dP^T tiles of one 64-row q tile (64 more) in registers and loops over
+//    q tiles from the causal lower bound (kt * BN) div BM, skipping a tile
+//    that lies wholly above its keys.  K's and V's split fragments would
+//    need another 128 registers, so K and V stay in shared memory and their
+//    A fragments are read and split at each k-step.  171 KB of shared
+//    memory at D = 64: one block of eight warps per SM, so the split pass
+//    of Q and dO is shared by eight warps;
+//  * blocks are numbered heaviest causal tile first, so the short ones
+//    fill the tail of the grid.
+//
+// K2 (dQ) is still PR 2's CUDA-core design and the next to move to the
+// tensor cores with the building blocks above: a block owns 64 q rows,
+// four threads per row, each holding a quarter of the row's D elements in
+// registers (interleaved 8- or 16-byte vectors); a row's dot product is
+// the four partial sums added with two xor shuffles; K and V stream
+// through shared memory in synchronous 64-row tiles; P = exp(S - lse) is
+// recomputed per tile and delta = rowsum(dO o) - dlse is an input (the
+// wrapper computes it); dQ = scale * sum dS K.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;         // finite masked-score sentinel
+
+// ---------------------------------------------------------------------------
+// K1 and K3: 3xTF32 tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kTile = 64;                 // q rows of a K1 block; rows of
+                                          // every streamed tile
+constexpr int kFwdThreads = 128;          // K1: four warps of 16 q rows
+constexpr int kDkvKeys = 128;             // K3: keys a block owns
+constexpr int kDkvThreads = 256;          // K3: eight warps of 16 keys
+// 8-wide k-steps whose products share one fresh fragment before the
+// rounded add, in the long sums (P V over keys, dV and dK over q rows)
+constexpr int kLongGroup = 4;
+
+template <int D>
+struct Tc {
+  static constexpr int kNd = D / 8;       // 8-wide steps over D
+  static constexpr int kNn = kTile / 8;   // 8-wide steps over a q tile
+  // Row strides (floats).  kLd = D + 4 (4 mod 8): the reads (row g, col
+  // t) and the paired reads (row 2t, cols 2g, 2g + 1) hit distinct banks.
+  // kLdPair (8 mod 16): K1's paired reads of K (row g, cols 2t, 2t + 1).
+  static constexpr int kLd = D + 4;
+  static constexpr int kLdPair = D + 8 - D % 16;
+  // K1: two stages of K and V (raw, then big halves), one of small halves
+  static constexpr int kFwdSmem = 3 * kTile * (kLdPair + kLd) * 4;
+  // K3: K and V; two stages of Q and dO and one of their small halves; two
+  // stages of lse and delta
+  static constexpr int kDkvSmem =
+      (2 * kDkvKeys * kLd + 6 * kTile * kLd + 4 * kTile) * 4;
+};
+
+// A and B operands of mma.m16n8k8 as TF32 big and small halves.
+struct FragA { uint32_t big[4], small[4]; };
+struct FragB { uint32_t big[2], small[2]; };
+
+// cvt.rna.tf32.f32 for finite x: add half a TF32 ulp to the magnitude bits
+// and clear the low 13 (sign-magnitude, so ties go away from zero).  The
+// same bits as the PTX instruction, which sm_90 has no single SASS
+// instruction for: ptxas emits a compare, an add, a mask and a select.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+// b0 (k-row t, col g) and b1 (k-row t + 4, col g), already split.
+__device__ __forceinline__ FragB frag_b(uint32_t b0, uint32_t b0s,
+                                        uint32_t b1, uint32_t b1s) {
+  return FragB{{b0, b1}, {b0s, b1s}};
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// p += a * b in 3xTF32, in CUTLASS FastF32's order, on the tensor cores.
+__device__ __forceinline__ void mma3(float (&p)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(p, a.small, b.big);
+  mma_tf32(p, a.big, b.small);
+  mma_tf32(p, a.big, b.big);
+}
+
+// c += p in f32, rounded to nearest: p is a fresh fragment holding the
+// products of one or a few 8-wide steps, so the mma's truncating
+// accumulation only ever rounds a short partial (see the header).
+__device__ __forceinline__ void add_to(float (&c)[4], const float (&p)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += p[i];
+}
+
+__device__ __forceinline__ uint2 lds64(const float* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
+__device__ __forceinline__ uint32_t lds32(const float* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until all of this thread's committed copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Issue the copy of rows r0 .. r0 + ROWS of one (batch, head) into
+// dst [ROWS, LD]; rows at or past T are zero-filled.  `src` points at
+// element (b, 0, h, 0); rows are `stride` floats apart.  Thread i copies
+// the 16-byte chunks i, i + NT, ...
+template <int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t stride, int r0, int T) {
+  constexpr int kPerRow = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += NT) {
+    const int r = i / kPerRow;
+    const int c = i - r * kPerRow;
+    const bool in = r0 + r < T;
+    cp_async16(dst + r * LD + c * 4,
+               src + (size_t)(in ? r0 + r : 0) * stride + c * 4, in);
+  }
+}
+
+// After cp_async_wait_all: the chunks this thread copied with stage_rows
+// (its own copies are the ones it may read before the block's barrier),
+// times `mul`, split in place into their TF32 big halves, with the small
+// halves at the same offsets of `small`.
+template <int D, int LD, int ROWS, int NT>
+__device__ __forceinline__ void split_own_chunks(float* tile, float* small,
+                                                 float mul) {
+  constexpr int kPerRow = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += NT) {
+    const int r = i / kPerRow;
+    const int off = r * LD + (i - r * kPerRow) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(tile + off);
+    uint4 big, sm;
+    split(x.x * mul, big.x, sm.x);
+    split(x.y * mul, big.y, sm.y);
+    split(x.z * mul, big.z, sm.z);
+    split(x.w * mul, big.w, sm.w);
+    *reinterpret_cast<uint4*>(tile + off) = big;
+    *reinterpret_cast<uint4*>(small + off) = sm;
+  }
+}
+
+// Issue the copy of vec[r0 .. r0 + kTile) (one (batch, head)'s row of a
+// [B, H, T] tensor) into dst; entries at or past T are zero.  Threads
+// `first` .. `first` + kTile each copy one 4-byte entry (T need not be a
+// multiple of 4, so rows are not 16-byte aligned).
+__device__ __forceinline__ void stage_vec(float* dst, const float* vec,
+                                          int r0, int T, int first) {
+  const int i = threadIdx.x - first;
+  if (i >= 0 && i < kTile) {
+    const bool in = r0 + i < T;
+    cp_async4(dst + i, vec + (in ? r0 + i : 0), in);
+  }
+}
+
+// The B fragments of n-tiles 2m and 2m + 1 of X^T-style products whose
+// k-rows come from an mma C fragment (A column t is row 2t, column t + 4
+// row 2t + 1): b0 = X[2t][col], b1 = X[2t + 1][col], with the n-tile pair's
+// columns interleaved (n-tile 2m + e, B column g is X column 16m + 2g + e)
+// so that one 8-byte read serves both n-tiles.  `r0` points at row 2t's
+// element 16m + 2g of the big halves, `s0` at the small halves'.
+template <int LD>
+__device__ __forceinline__ void frag_b_pair(const float* r0, const float* s0,
+                                            FragB& even, FragB& odd) {
+  const uint2 b0 = lds64(r0), b1 = lds64(r0 + LD);
+  const uint2 b0s = lds64(s0), b1s = lds64(s0 + LD);
+  even = frag_b(b0.x, b0s.x, b1.x, b1s.x);
+  odd = frag_b(b0.y, b0s.y, b1.y, b1s.y);
+}
+
+// Store half h of a 16 x D accumulator (h = 0: the lane's row g, 1: row
+// g + 8) to the row `dst`, times `mul`; its columns are interleaved as
+// frag_b_pair's (natural for D = 8).
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, int t,
+                                           const float (&acc)[D / 8][4],
+                                           int h, float mul) {
+  constexpr int ND = D / 8;
+  if constexpr (ND % 2 == 0) {
+#pragma unroll
+    for (int m = 0; m < ND / 2; ++m)
+      *reinterpret_cast<float4*>(dst + 16 * m + 4 * t) = make_float4(
+          acc[2 * m][2 * h] * mul, acc[2 * m + 1][2 * h] * mul,
+          acc[2 * m][2 * h + 1] * mul, acc[2 * m + 1][2 * h + 1] * mul);
+  } else {
+    *reinterpret_cast<float2*>(dst + 2 * t) =
+        make_float2(acc[0][2 * h] * mul, acc[0][2 * h + 1] * mul);
+  }
+}
+
+// acc[n] += A X, A a 16 x 64 operand held as the C fragments of 8 earlier
+// mmas (p[j] for keys or q rows 8j .. 8j + 8) and X [64, D] in shared
+// memory as big halves `xb` and small halves `xs` (row stride LD), columns
+// interleaved as frag_b_pair's.  kLongGroup k-steps share each fresh
+// fragment.
+template <int D, int LD>
+__device__ __forceinline__ void mma_from_c(float (&acc)[D / 8][4],
+                                           const float (&p)[kTile / 8][4],
+                                           const float* xb, const float* xs,
+                                           int g, int t) {
+  constexpr int ND = D / 8, NN = kTile / 8;
+#pragma unroll
+  for (int j0 = 0; j0 < NN; j0 += kLongGroup) {
+    FragA a[kLongGroup];
+#pragma unroll
+    for (int u = 0; u < kLongGroup; ++u)
+      a[u] = split_a(p[j0 + u][0], p[j0 + u][2], p[j0 + u][1],
+                     p[j0 + u][3]);
+    if constexpr (ND % 2 == 0) {
+#pragma unroll
+      for (int m = 0; m < ND / 2; ++m) {
+        float pe[4] = {0.f, 0.f, 0.f, 0.f}, po[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < kLongGroup; ++u) {
+          const int off = ((j0 + u) * 8 + 2 * t) * LD + 16 * m + 2 * g;
+          FragB be, bo;
+          frag_b_pair<LD>(xb + off, xs + off, be, bo);
+          mma3(pe, a[u], be);
+          mma3(po, a[u], bo);
+        }
+        add_to(acc[2 * m], pe);
+        add_to(acc[2 * m + 1], po);
+      }
+    } else {
+      float pn[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < kLongGroup; ++u) {
+        const int off = ((j0 + u) * 8 + 2 * t) * LD + g;
+        mma3(pn, a[u], frag_b(lds32(xb + off), lds32(xs + off),
+                              lds32(xb + off + LD), lds32(xs + off + LD)));
+      }
+      add_to(acc[0], pn);
+    }
+  }
+}
+
+// K1: one block per (q tile, head, batch), heaviest causal tiles first;
+// warp w owns q rows qt * 64 + 16 w .. + 16.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int T, int H, float scale) {
+  using C = Tc<D>;
+  constexpr int LK = C::kLdPair, LV = C::kLd, ND = C::kNd, NN = C::kNn;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                       // [2][kTile][LK]: raw, then big
+  float* vs = ks + 2 * kTile * LK;        // [2][kTile][LV]
+  float* ksm = vs + 2 * kTile * LV;       // [kTile][LK]: small halves
+  float* vsm = ksm + kTile * LK;          // [kTile][LV]
+
+  const int nkt = (T + kTile - 1) / kTile;   // q tiles and key tiles
+  const int hb = (int)gridDim.x / nkt;       // H * B
+  const int qt = nkt - 1 - (int)blockIdx.x / hb;  // longest causal first
+  const int h = (int)blockIdx.x % hb % H;
+  const int b = (int)blockIdx.x % hb / H;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int q0 = qt * kTile;
+  const int r0 = q0 + (threadIdx.x / 32) * 16 + g;  // rows r0 and r0 + 8
+  const size_t stride = (size_t)H * D;
+  const size_t base = ((size_t)b * T * H + h) * D;
+
+  const int upper =
+      CAUSAL ? min(nkt, (q0 + kTile + kTile - 1) / kTile) : nkt;
+  stage_rows<D, LK, kTile, kFwdThreads>(ks, k + base, stride, 0, T);
+  stage_rows<D, LV, kTile, kFwdThreads>(vs, v + base, stride, 0, T);
+  cp_async_commit();
+
+  // Q, pre-scaled and split, for the whole key loop.  Its k-step s pairs
+  // A columns t, t + 4 with D columns 8s + 2t, 8s + 2t + 1, as K's reads.
+  FragA qa[ND];
+  {
+    const float* q_lo = q + base + (size_t)r0 * stride + 2 * t;
+    const float* q_hi = q_lo + 8 * stride;
+    const bool lo = r0 < T, hi = r0 + 8 < T;
+#pragma unroll
+    for (int s = 0; s < ND; ++s) {
+      const float2 a = lo ? *reinterpret_cast<const float2*>(q_lo + 8 * s)
+                          : make_float2(0.f, 0.f);
+      const float2 c = hi ? *reinterpret_cast<const float2*>(q_hi + 8 * s)
+                          : make_float2(0.f, 0.f);
+      qa[s] = split_a(a.x * scale, c.x * scale, a.y * scale, c.y * scale);
+    }
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                 // this lane's columns only
+
+  for (int kt = 0; kt < upper; ++kt) {
+    const int cur = kt & 1;
+    cp_async_wait_all();     // tile kt, the one group in flight, landed
+    __syncthreads();         // every warp is done with tile kt - 1
+    if (kt + 1 < upper) {
+      stage_rows<D, LK, kTile, kFwdThreads>(ks + (cur ^ 1) * kTile * LK,
+                                            k + base, stride,
+                                            (kt + 1) * kTile, T);
+      stage_rows<D, LV, kTile, kFwdThreads>(vs + (cur ^ 1) * kTile * LV,
+                                            v + base, stride,
+                                            (kt + 1) * kTile, T);
+      cp_async_commit();
+    }
+    float* kc = ks + cur * kTile * LK;
+    float* vc = vs + cur * kTile * LV;
+    split_own_chunks<D, LK, kTile, kFwdThreads>(kc, ksm, 1.f);
+    split_own_chunks<D, LV, kTile, kFwdThreads>(vc, vsm, 1.f);
+    __syncthreads();
+
+    // S = Q K^T: b0, b1 = K[key 8n + g][8s + 2t, 8s + 2t + 1]
+    float s[NN][4];
+#pragma unroll
+    for (int n = 0; n < NN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const int off = (n * 8 + g) * LK + d * 8 + 2 * t;
+        const uint2 bb = lds64(kc + off), bs = lds64(ksm + off);
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(p, qa[d], frag_b(bb.x, bs.x, bb.y, bs.y));
+        add_to(s[n], p);
+      }
+    }
+    const int k0 = kt * kTile;
+    if ((CAUSAL && k0 + kTile - 1 > q0) || k0 + kTile > T) {
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = r0 + (e >> 1) * 8;
+          if (kj >= T || (CAUSAL && kj > qi)) s[n][e] = kNegInf;
+        }
+      }
+    }
+
+    // online softmax on the fragment: rows r0 (e = 0, 1) and r0 + 8 (2, 3)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = __expf(m[r] - mx[r]);
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = __expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+    }
+
+    // O += P V, P straight from the C fragments
+    mma_from_c<D, LV>(acc, s, vc, vsm, g, t);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qi = r0 + r * 8;
+    if (qi >= T) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    store_rows<D>(o + base + (size_t)qi * stride, t, acc, r, 1.f / lc);
+    if (t == 0) lse[((size_t)b * H + h) * T + qi] = m[r] + logf(lc);
+  }
+}
+
+// K3: one block per (key tile of 128, head, batch), heaviest causal tiles
+// first; warp w owns keys kt * 128 + 16 w .. + 16.  Fragments hold S^T and
+// dP^T (rows keys, columns q rows).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kDkvThreads)
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int T, int H, float scale) {
+  using C = Tc<D>;
+  constexpr int LD = C::kLd, ND = C::kNd, NN = C::kNn;
+  constexpr int kTileFloats = kTile * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                          // [kDkvKeys][LD]
+  float* vs = ks + kDkvKeys * LD;            // [kDkvKeys][LD]
+  float* qs = vs + kDkvKeys * LD;            // [2][kTile][LD]: raw, then
+                                             // big halves of scaled Q
+  float* dos = qs + 2 * kTileFloats;         // [2][kTile][LD]
+  float* qsm = dos + 2 * kTileFloats;        // [kTile][LD]: small halves
+  float* dosm = qsm + kTileFloats;           // [kTile][LD]
+  float* ls = dosm + kTileFloats;            // [2][kTile]
+  float* dls = ls + 2 * kTile;               // [2][kTile]
+
+  const int hb = (int)gridDim.x / ((T + kDkvKeys - 1) / kDkvKeys);
+  const int kt = (int)blockIdx.x / hb;  // early key tiles see most q rows
+  const int h = (int)blockIdx.x % hb % H;
+  const int b = (int)blockIdx.x % hb / H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int k0 = kt * kDkvKeys;
+  const int kw = k0 + warp * 16;             // this warp's first key
+  const int kj0 = kw + g;                    // keys kj0 and kj0 + 8
+  const size_t stride = (size_t)H * D;
+  const size_t base = ((size_t)b * T * H + h) * D;
+  const float* lse_bh = lse + ((size_t)b * H + h) * T;
+  const float* delta_bh = delta + ((size_t)b * H + h) * T;
+
+  const int nqt = (T + kTile - 1) / kTile;
+  const int lower = CAUSAL ? k0 / kTile : 0;
+  auto stage_q_tile = [&](int qb, int st) {
+    stage_rows<D, LD, kTile, kDkvThreads>(qs + st * kTileFloats, q + base,
+                                          stride, qb * kTile, T);
+    stage_rows<D, LD, kTile, kDkvThreads>(dos + st * kTileFloats,
+                                          dout + base, stride, qb * kTile,
+                                          T);
+    stage_vec(ls + st * kTile, lse_bh, qb * kTile, T, 0);
+    stage_vec(dls + st * kTile, delta_bh, qb * kTile, T, kTile);
+  };
+  stage_rows<D, LD, kDkvKeys, kDkvThreads>(ks, k + base, stride, k0, T);
+  stage_rows<D, LD, kDkvKeys, kDkvThreads>(vs, v + base, stride, k0, T);
+  stage_q_tile(lower, 0);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  }
+  const float* kr = ks + (warp * 16 + g) * LD + t;  // this warp's A rows
+  const float* vr = vs + (warp * 16 + g) * LD + t;
+
+  for (int qb = lower; qb < nqt; ++qb) {
+    const int cur = (qb - lower) & 1;
+    cp_async_wait_all();     // q tile qb, the one group in flight, landed
+    __syncthreads();         // every warp is done with q tile qb - 1
+    if (qb + 1 < nqt) {
+      stage_q_tile(qb + 1, cur ^ 1);
+      cp_async_commit();
+    }
+    float* qc = qs + cur * kTileFloats;
+    float* dc = dos + cur * kTileFloats;
+    split_own_chunks<D, LD, kTile, kDkvThreads>(qc, qsm, scale);
+    split_own_chunks<D, LD, kTile, kDkvThreads>(dc, dosm, 1.f);
+    __syncthreads();
+    const int q0 = qb * kTile;
+    // the whole q tile lies above this warp's keys: nothing to add
+    if (CAUSAL && kw > q0 + kTile - 1) continue;
+    const float* lc = ls + cur * kTile;
+    const float* dlc = dls + cur * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: A fragments of K and V split from
+    // shared memory; b0, b1 = Q[q 8n + g][8s + t, 8s + t + 4]
+    float st[NN][4], dpt[NN][4];
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    }
+#pragma unroll 2   // fully unrolled, ptxas spills at D = 64
+    for (int d = 0; d < ND; ++d) {
+      const float* kd = kr + d * 8;
+      const float* vd = vr + d * 8;
+      const FragA ka = split_a(kd[0], kd[8 * LD], kd[4], kd[8 * LD + 4]);
+      const FragA va = split_a(vd[0], vd[8 * LD], vd[4], vd[8 * LD + 4]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const int off = (n * 8 + g) * LD + d * 8 + t;
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(p, ka, frag_b(lds32(qc + off), lds32(qsm + off),
+                           lds32(qc + off + 4), lds32(qsm + off + 4)));
+        add_to(st[n], p);
+        float r[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(r, va, frag_b(lds32(dc + off), lds32(dosm + off),
+                           lds32(dc + off + 4), lds32(dosm + off + 4)));
+        add_to(dpt[n], r);
+      }
+    }
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta); columns are q rows
+    const bool edge = (CAUSAL && q0 < k0 + kDkvKeys - 1) || q0 + kTile > T
+                      || k0 + kDkvKeys > T;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float2 lv = *reinterpret_cast<const float2*>(lc + n * 8 + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlc + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + n * 8 + 2 * t + (e & 1);
+        const int kj = kj0 + (e >> 1) * 8;
+        const bool ok = !edge || (qi < T && kj < T && (!CAUSAL || kj <= qi));
+        const float p =
+            ok ? __expf(st[n][e] - ((e & 1) ? lv.y : lv.x)) : 0.f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, from the C fragments
+    mma_from_c<D, LD>(dva, st, dc, dosm, g, t);
+    mma_from_c<D, LD>(dka, dpt, qc, qsm, g, t);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kj0 + r * 8;
+    if (kj >= T) continue;
+    store_rows<D>(dk + base + (size_t)kj * stride, t, dka, r, 1.f);
+    store_rows<D>(dv + base + (size_t)kj * stride, t, dva, r, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: CUDA cores (PR 2's design, next to move to the tensor cores)
+// ---------------------------------------------------------------------------
 constexpr int kRows = 64;                 // rows a block owns and rows of
                                           // each streamed tile
 constexpr int kTpr = 4;                   // threads per owned row
 constexpr int kThreads = kRows * kTpr;    // 256
-constexpr float kNegInf = -1e30f;         // finite masked-score sentinel
 
 template <int D>
 struct Cfg {
@@ -118,109 +725,21 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Stage rows r0 .. r0 + ROWS of one (batch, head) into dst [ROWS, D] with
-// 16-byte loads, times `mul`; rows at or beyond T are zero.  `src` points at
-// element (b, 0, h, 0); rows are `stride` floats apart.
+// 16-byte loads; rows at or beyond T are zero.  `src` points at element
+// (b, 0, h, 0); rows are `stride` floats apart.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          size_t stride, int r0, int T,
-                                          float mul) {
+                                          size_t stride, int r0, int T) {
   constexpr int kPerRow = D / 4;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = i - r * kPerRow;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T) {
+    if (r0 + r < T)
       val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * stride
                                              + c * 4);
-      val.x *= mul; val.y *= mul; val.z *= mul; val.w *= mul;
-    }
     *reinterpret_cast<float4*>(dst + r * D + c * 4) = val;
   }
-}
-
-// K1: one block per (q tile, head, batch).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int BN = kRows;
-  constexpr int NE = Cfg<D>::kNe;
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = threadIdx.x / kTpr;
-  const int part = threadIdx.x % kTpr;
-  const int qi = qt * kRows + row;
-  const bool live = qi < T;
-  const size_t stride = (size_t)H * D;
-  const size_t base = ((size_t)b * T * H + h) * D;
-
-  float qr[NE], acc[NE];
-  if (live) {
-    load_part<D>(q + base + qi * stride, part, qr);
-  } else {
-#pragma unroll
-    for (int e = 0; e < NE; ++e) qr[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < NE; ++e) {
-    qr[e] *= scale;
-    acc[e] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int nkt = (T + BN - 1) / BN;
-  const int upper = CAUSAL ? qt + 1 : nkt;  // the tile of the diagonal
-  for (int kt = 0; kt < upper; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<D, BN>(ks, k + base, stride, k0, T, 1.f);
-    load_tile<D, BN>(vs, v + base, stride, k0, T, 1.f);
-    __syncthreads();
-
-    float s[BN];
-    float tmax = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BN; ++j) {
-      float kr[NE];
-      load_part<D>(ks + j * D, part, kr);
-      float p = 0.f;
-#pragma unroll
-      for (int e = 0; e < NE; ++e) p = fmaf(qr[e], kr[e], p);
-      const float sj = row_sum(p);
-      const int kj = k0 + j;
-      const bool ok = kj < T && (!CAUSAL || kj <= qi);
-      s[j] = ok ? sj : kNegInf;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int e = 0; e < NE; ++e) acc[e] *= corr;
-#pragma unroll
-    for (int j = 0; j < BN; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      float vr[NE];
-      load_part<D>(vs + j * D, part, vr);
-#pragma unroll
-      for (int e = 0; e < NE; ++e) acc[e] = fmaf(p, vr[e], acc[e]);
-    }
-    l = l * corr + psum;
-    m = m_new;
-  }
-  if (!live) return;
-  const float lc = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int e = 0; e < NE; ++e) acc[e] = acc[e] / lc;
-  store_part<D>(o + base + qi * stride, part, acc);
-  if (part == 0) lse[((size_t)b * H + h) * T + qi] = m + logf(lc);
 }
 
 // K2: one block per (q tile, head, batch).
@@ -268,8 +787,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < upper; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
-    load_tile<D, BN>(ks, k + base, stride, k0, T, 1.f);
-    load_tile<D, BN>(vs, v + base, stride, k0, T, 1.f);
+    load_tile<D, BN>(ks, k + base, stride, k0, T);
+    load_tile<D, BN>(vs, v + base, stride, k0, T);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < BN; ++j) {
@@ -298,85 +817,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_part<D>(dq + base + qi * stride, part, dqa);
 }
 
-// K3: one block per (key tile, head, batch).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int T, int H, float scale) {
-  constexpr int BN = kRows;
-  constexpr int NE = Cfg<D>::kNe;
-  __shared__ __align__(16) float qs[BN * D];
-  __shared__ __align__(16) float dos[BN * D];
-  __shared__ float ls[BN];
-  __shared__ float dls[BN];
-
-  const int kt = blockIdx.x;  // early key tiles see the most q rows
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = threadIdx.x / kTpr;
-  const int part = threadIdx.x % kTpr;
-  const int kj = kt * kRows + row;
-  const bool live = kj < T;
-  const size_t stride = (size_t)H * D;
-  const size_t base = ((size_t)b * T * H + h) * D;
-  const size_t bh = (size_t)b * H + h;
-
-  float kr[NE], vr[NE], dka[NE], dva[NE];
-  if (live) {
-    load_part<D>(k + base + kj * stride, part, kr);
-    load_part<D>(v + base + kj * stride, part, vr);
-  } else {
-#pragma unroll
-    for (int e = 0; e < NE; ++e) kr[e] = vr[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < NE; ++e) dka[e] = dva[e] = 0.f;
-
-  const int nqt = (T + BN - 1) / BN;
-  const int lower = CAUSAL ? kt : 0;  // the tile of the diagonal
-  for (int qb = lower; qb < nqt; ++qb) {
-    const int q0 = qb * BN;
-    __syncthreads();
-    load_tile<D, BN>(qs, q + base, stride, q0, T, scale);
-    load_tile<D, BN>(dos, dout + base, stride, q0, T, 1.f);
-    for (int i = threadIdx.x; i < BN; i += kThreads) {
-      const bool in = q0 + i < T;
-      ls[i] = in ? lse[bh * T + q0 + i] : 0.f;
-      dls[i] = in ? delta[bh * T + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    const int nrows = min(BN, T - q0);
-#pragma unroll 4
-    for (int i = 0; i < nrows; ++i) {
-      float qrow[NE], drow[NE];
-      load_part<D>(qs + i * D, part, qrow);
-      load_part<D>(dos + i * D, part, drow);
-      float ps = 0.f, pd = 0.f;
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        ps = fmaf(qrow[e], kr[e], ps);
-        pd = fmaf(drow[e], vr[e], pd);
-      }
-      const float s = row_sum(ps);
-      const float dp = row_sum(pd);
-      const bool ok = live && (!CAUSAL || kj <= q0 + i);
-      const float p = ok ? expf(s - ls[i]) : 0.f;
-      const float ds = p * (dp - dls[i]);
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        dva[e] = fmaf(p, drow[e], dva[e]);
-        dka[e] = fmaf(ds, qrow[e], dka[e]);
-      }
-    }
-  }
-  if (!live) return;
-  store_part<D>(dk + base + kj * stride, part, dka);
-  store_part<D>(dv + base + kj * stride, part, dva);
-}
-
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 dim3 grid_for(int B, int T, int H) {
   return dim3((T + kRows - 1) / kRows, H, B);
 }
@@ -389,42 +832,60 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool C>
-void launch_fwd(const Args& a) {
-  flash_fwd_kernel<D, C><<<grid_for(a.B, a.T, a.H), kThreads, 0, a.stream>>>(
-      a.q, a.k, a.v, a.o, a.lse_out, a.T, a.H, a.scale);
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` (needed above
+// 48 KB) on the current card; returns the runtime's error.
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D, bool C>
-void launch_dq(const Args& a) {
-  flash_dq_kernel<D, C><<<grid_for(a.B, a.T, a.H), kThreads, 0, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.T, a.H, a.scale);
-}
-
-template <int D, bool C>
-void launch_dkv(const Args& a) {
-  flash_dkv_kernel<D, C><<<grid_for(a.B, a.T, a.H), kThreads, 0, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.T, a.H, a.scale);
-}
-
-// Runs LAUNCH<D, causal>(a) for the supported head dims; false otherwise.
-template <template <int, bool> class L>
-bool dispatch(int D, bool causal, const Args& a) {
-  switch (D) {
-    case 8: causal ? L<8, true>::run(a) : L<8, false>::run(a); return true;
-    case 16: causal ? L<16, true>::run(a) : L<16, false>::run(a); return true;
-    case 64: causal ? L<64, true>::run(a) : L<64, false>::run(a); return true;
-    default: return false;
+struct Fwd {
+  static int run(const Args& a) {
+    constexpr int smem = Tc<D>::kFwdSmem;
+    if (int err = allow_smem(flash_fwd_kernel<D, C>, smem)) return err;
+    const int tiles = (a.T + kTile - 1) / kTile;
+    flash_fwd_kernel<D, C><<<tiles * a.H * a.B, kFwdThreads, smem,
+                             a.stream>>>(a.q, a.k, a.v, a.o, a.lse_out, a.T,
+                                         a.H, a.scale);
+    return (int)cudaGetLastError();
   }
-}
+};
 
-template <int D, bool C> struct Fwd { static void run(const Args& a) { launch_fwd<D, C>(a); } };
-template <int D, bool C> struct Dq { static void run(const Args& a) { launch_dq<D, C>(a); } };
-template <int D, bool C> struct Dkv { static void run(const Args& a) { launch_dkv<D, C>(a); } };
+template <int D, bool C>
+struct Dq {
+  static int run(const Args& a) {
+    flash_dq_kernel<D, C><<<grid_for(a.B, a.T, a.H), kThreads, 0, a.stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.T, a.H, a.scale);
+    return (int)cudaGetLastError();
+  }
+};
 
-int finish(bool ok) {
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+template <int D, bool C>
+struct Dkv {
+  static int run(const Args& a) {
+    constexpr int smem = Tc<D>::kDkvSmem;
+    if (int err = allow_smem(flash_dkv_kernel<D, C>, smem)) return err;
+    const int tiles = (a.T + kDkvKeys - 1) / kDkvKeys;
+    flash_dkv_kernel<D, C><<<tiles * a.H * a.B, kDkvThreads, smem,
+                             a.stream>>>(a.q, a.k, a.v, a.dout, a.lse,
+                                         a.delta, a.dk, a.dv, a.T, a.H,
+                                         a.scale);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Runs L<D, causal>::run(a) for the supported head dims and returns its
+// error; cudaErrorInvalidValue for any other D.
+template <template <int, bool> class L>
+int dispatch(int D, bool causal, const Args& a) {
+  switch (D) {
+    case 8: return causal ? L<8, true>::run(a) : L<8, false>::run(a);
+    case 16: return causal ? L<16, true>::run(a) : L<16, false>::run(a);
+    case 64: return causal ? L<64, true>::run(a) : L<64, false>::run(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -432,7 +893,8 @@ int finish(bool ok) {
 // All tensors contiguous f32 on the card, 16-byte aligned: q, k, v, o, dout,
 // dq, dk, dv [B, T, H, D]; lse and delta [B, H, T].  D is one of 8, 16,
 // 64.  Each entry launches one kernel on `stream`, allocates nothing,
-// and returns cudaGetLastError() after the launch (0 = launched).
+// and returns the first error of raising the kernel's shared-memory limit
+// and of cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int T, int H, int D,
                              int causal, float scale, void* stream) {
@@ -442,7 +904,7 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
   a.o = (float*)o; a.lse_out = (float*)lse;
   a.B = B; a.T = T; a.H = H; a.scale = scale;
   a.stream = (cudaStream_t)stream;
-  return finish(dispatch<Fwd>(D, causal != 0, a));
+  return dispatch<Fwd>(D, causal != 0, a);
 }
 
 extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
@@ -456,7 +918,7 @@ extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
   a.delta = (const float*)delta; a.dq = (float*)dq;
   a.B = B; a.T = T; a.H = H; a.scale = scale;
   a.stream = (cudaStream_t)stream;
-  return finish(dispatch<Dq>(D, causal != 0, a));
+  return dispatch<Dq>(D, causal != 0, a);
 }
 
 extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
@@ -471,5 +933,5 @@ extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
   a.delta = (const float*)delta; a.dk = (float*)dk; a.dv = (float*)dv;
   a.B = B; a.T = T; a.H = H; a.scale = scale;
   a.stream = (cudaStream_t)stream;
-  return finish(dispatch<Dkv>(D, causal != 0, a));
+  return dispatch<Dkv>(D, causal != 0, a);
 }

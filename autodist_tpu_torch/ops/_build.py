@@ -34,7 +34,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
+    """The path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``,
+    then ``PATH``; raises if there is none."""
     for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if home and (Path(home) / "bin" / "nvcc").exists():
             return str(Path(home) / "bin" / "nvcc")
@@ -62,7 +64,7 @@ def build_all() -> Dict[str, Path]:
     if not missing:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = find_nvcc()
     procs = []
     for src in missing:
         tmp = paths[src].with_name(paths[src].name + f".tmp.{os.getpid()}")

@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
    50 launches (CUDA events, L2 evicted between launches, host launch
    overhead excluded), the plain version's time, one PyTorch library
    call's time and the least time the card could take (bytes over
-   3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is larger).
+   3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is larger;
+   for K1–K3 also ``bound_tc_ms``, the operations at 495/3 TFLOP/s, the
+   f32-accurate 3xTF32 rate of the tensor cores, and ``vs_library``).
+   An ``nvcc -Xptxas -v`` run of the flash source beside the build gives
+   each flash kernel's registers, spills and static shared memory.
    The flash kernels K1–K3 are checked at the training shape (B 8, T 1024,
    H 12, D 64, causal), at a ragged T = 1000 (causal and not) and at
    D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV at 1e-4, and two
@@ -98,6 +102,7 @@ prints no result.
 import hashlib
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -111,6 +116,9 @@ import numpy as np
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12         # TF32 tensor cores, dense (data sheet, SXM)
+#: f32-accurate 3xTF32 (K1, K3): three TF32 products per f32 product
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 K9_SOURCE = "autodist_tpu_torch/csrc/paged_attention.cu"
 K9_REPLACES = "autodist_tpu/ops/fused_kernels.py:624"
 K10_SOURCE = "autodist_tpu_torch/csrc/int8_matmul.cu"
@@ -152,9 +160,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flops_per_s=H100_F32_FLOPS):
+    """The least time for moving ``nbytes`` and doing ``flops`` at
+    ``flops_per_s`` (f32 CUDA cores unless given): ``(ms, bound_by)``."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -373,17 +383,74 @@ def phase_flash(torch, timer):
     rows_out = []
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         bnd, by = bound_ms(*work[name])
-        rows_out.append({
+        bnd_tc, by_tc = bound_ms(*work[name], H100_3XTF32_FLOPS)
+        row = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name], "shape": dict(TRAIN_SHAPE,
                                                             causal=True),
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bnd, "bound_by": by,
+            "bound_tc_ms": bnd_tc, "bound_tc_by": by_tc,
             "gflop": work[name][1] / 1e9,
             "library_ms": library[name][0],
-            "library_call": library[name][1]})
-        emit({"phase": "kernel", **rows_out[-1]})
+            "library_call": library[name][1]}
+        if row["library_ms"] is not None:
+            row["vs_library"] = row["ms"] / row["library_ms"]
+        rows_out.append(row)
+    # SDPA's backward computes dQ, dK and dV: K2 + K3 against it
+    rows_out[1]["bwd_vs_library"] = ((rows_out[1]["ms"] + rows_out[2]["ms"])
+                                     / rows_out[1]["library_ms"])
+    for row in rows_out:
+        emit({"phase": "kernel", **row})
     return rows_out
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_KERNEL_NAME = re.compile(r"(flash_[a-z]+_kernel)ILi(\d+)ELb([01])E")
+
+
+def start_ptxas_report(source: str):
+    """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>`` (a cubin in the
+    build directory, beside the libraries) with the build's flags; returns
+    the process for :func:`read_ptxas_report`."""
+    from autodist_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = _build.BUILD_DIR / (source + ".ptxas.cubin")
+    return subprocess.Popen(
+        [_build.find_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+         str(out), str(_build.CSRC / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def read_ptxas_report(proc) -> dict:
+    """``{"flash_fwd_kernel<64, causal>": {"registers", "spill_stores",
+    "spill_loads", "stack", "static_smem"}, ...}`` from the process's
+    output; raises if the compile failed."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log}")
+    report, name = {}, None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            k = _KERNEL_NAME.search(m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}, "
+                    f"{'causal' if k.group(3) == '1' else 'full'}>"
+                    if k else m.group(1))
+            report[name] = {}
+        elif name and (m := _PTXAS_SPILL.search(line)):
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        elif name and (m := _PTXAS_USED.search(line)):
+            report[name].update(registers=int(m.group(1)),
+                                static_smem=int(m.group(2) or 0))
+    return report
 
 
 def phase_sync_kernels(torch, timer):
@@ -1365,10 +1432,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report("flash_attention.cu")
     _build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas_report = read_ptxas_report(ptxas)
     emit({"phase": "device", "device": device_name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0})
+          "build_s": build_s})
+    emit({"phase": "ptxas", "source": FLASH_SOURCE,
+          "kernels": ptxas_report})
 
     timer = Timer(torch)
     k9, k10 = phase_kernels(torch, timer)
@@ -1395,6 +1467,7 @@ def main() -> int:
     train_out = phase_train(torch)
     emit({"phase": "train", "card": smi, **train_out})
     for row in flash_rows:
+        row["ptxas"] = ptxas_report[row["name"] + "_kernel<64, causal>"]
         row["launches"] = train_out["launches"][row["name"]]
         row["launches_per_step"] = train_out["launches_per_step"]
         row["share_of_step"] = (row["ms"] * train_out["launches_per_step"]
