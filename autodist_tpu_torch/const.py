@@ -51,3 +51,14 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     brings it, so nothing runs in place of what was asked."""
     return NotImplementedError(
         f"{what} is not ported to the PyTorch port yet (ROADMAP: {item})")
+
+
+def unported_class(name: str, what: str, item: str, bases: tuple = ()):
+    """A class ``name`` whose construction raises :func:`not_ported` for
+    ``what``: code written for the JAX package fails where it makes one,
+    naming the ROADMAP item that brings it, not at its import."""
+    def __init__(self, *args, **kwargs):
+        raise not_ported(what, item)
+
+    return type(name, bases, {"__init__": __init__,
+                              "__doc__": f"{name}: {item}."})

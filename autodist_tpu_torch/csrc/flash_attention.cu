@@ -26,7 +26,7 @@
 // inputs and outputs: ~130 flop per byte.  K2 does three such products and
 // K3 four.  On CUDA cores (67 TFLOP/s f32) that is 0.19 / 0.29 / 0.39 ms.
 //
-// K1 and K3: tensor cores, 3xTF32.
+// All three: tensor cores, 3xTF32.
 //  * Plain TF32 keeps 10 mantissa bits (~3 decimal digits): a score would
 //    carry a relative error near 5e-4 and o would miss its 1e-5 check.  So
 //    every product is 3xTF32, as the f32 path of PyTorch's memory-efficient
@@ -37,20 +37,21 @@
 //    mma.sync.m16n8k8 accumulates small*big, then big*small, then big*big.
 //    The rounding matters: mma ignores the low 13 bits of a register, so
 //    without it big would be a truncation and small wrong.  The f32-accurate
-//    rate is a third of the 495 TFLOP/s TF32 peak (0.078 ms for K1 and
-//    0.156 ms for K3 at the training shape), which mma.sync, unlike the
-//    warpgroup wgmma, does not reach;
+//    rate is a third of the 495 TFLOP/s TF32 peak (0.078 ms for K1, 0.117
+//    for K2 and 0.156 for K3 at the training shape), which mma.sync,
+//    unlike the warpgroup wgmma, does not reach;
 //  * the mma's f32 accumulation truncates.  Summed into one fragment, the
 //    3 x T / 8 mmas of P V over T keys drift by ~1e-5 relative (o and dV
 //    then miss their checks against the plain version), so each product
 //    goes to a fresh fragment that is added to the running sum in f32 with
 //    round to nearest: per 8-wide step in the short sums over D (S, dP),
-//    per kLongGroup steps in the long ones (P V, dV, dK);
-//  * a warp owns 16 rows (q rows for K1, keys for K3); K1's block is four
-//    warps (64 q rows), K3's eight (128 keys).  Scores live in mma C
-//    fragments and never leave registers: a 16 x 64 tile is 8 n-tiles of 4
-//    f32 per lane.  A row's max and sum come from two xor shuffles inside
-//    the lane quad, and each element's exponential is computed once
+//    per kLongGroup steps in the long ones (P V, dQ, dV, dK);
+//  * a warp owns 16 rows (q rows for K1 and K2, keys for K3); K1's block
+//    is four warps (64 q rows), K2's eight (128 q rows), K3's eight (128
+//    keys).  Scores live in mma C fragments and never leave registers: a
+//    16 x 64 tile is 8 n-tiles of 4 f32 per lane.  A row's max and sum come
+//    from two xor shuffles inside the lane quad, and each element's
+//    exponential is computed once
 //    (__expf: the ex2 unit after one multiply, within a few ulp for the
 //    arguments that carry weight, far inside the checks);
 //  * P (and dS) feed the next product from registers.  The C fragment of
@@ -64,15 +65,15 @@
 //    g reads columns 16m + 2g and + 1, one per n-tile; the epilogue writes
 //    them back in order), and K1's k-step s takes D columns 8s + 2t and
 //    8s + 2t + 1 for Q's A and K's B;
-//  * the streamed tiles (K and V for K1; Q, dO, lse and delta for K3) are
-//    double-buffered with cp.async: tile i + 1 is in flight while tile i is
-//    multiplied.  The 16-byte cp.async.cg with a source size of 0 fills
+//  * the streamed tiles (K and V for K1 and K2; Q, dO, lse and delta for
+//    K3) are double-buffered with cp.async: tile i + 1 is in flight while
+//    tile i is multiplied.  The 16-byte cp.async.cg with a source size of 0 fills
 //    rows at or past T with zeros;
 //  * a streamed tile is split once per block, not once per warp: after its
 //    copy lands each thread splits the 16-byte chunks it copied in place
 //    into their big halves and writes the small halves to a second array
 //    (K3 scales Q by 1/sqrt(D) in the same pass, so dS^T Q already carries
-//    it).  Fragment reads are then plain shared-memory loads.  Row strides
+//    it; K2 splits its fixed Q tile the same way).  Fragment reads are then plain shared-memory loads.  Row strides
 //    of D + 4 floats (D + 8 - D % 16 for K1's K) put every fragment read on
 //    32 distinct banks;
 //  * K1: Q is pre-scaled, split once and kept in registers for the whole
@@ -90,17 +91,25 @@
 //    A fragments are read and split at each k-step.  171 KB of shared
 //    memory at D = 64: one block of eight warps per SM, so the split pass
 //    of Q and dO is shared by eight warps;
+//  * K2: P = exp(S - lse) is recomputed per key tile and delta =
+//    rowsum(dO o) - dlse is an input (the wrapper computes it); dQ = scale
+//    * sum dS K.  A warp keeps dQ and the S and dP tiles of one 64-key
+//    tile in registers (96 at D = 64) with each row's lse and delta.  Q
+//    (pre-scaled) and dO are fixed for the block and land once with K's
+//    and V's first tile: Q is split once into big and small halves, and dO
+//    stays raw and is split at each k-step, as K3 splits K and V (split
+//    fragments of both would take 128 more registers, and both halves of
+//    both would not fit beside K and V in shared memory).  K and V stream
+//    as in K1; K is read both ways at the one stride D + 4: as S's B
+//    operand (row g, columns t and t + 4, K3's pattern) and as dQ's
+//    (rows 2t and 2t + 1, paired columns, K1's pattern for V).  Causal
+//    blocks stop at K1's `upper`; a warp skips a key tile that lies wholly
+//    above its rows and masks element-wise only on the diagonal tile and
+//    the ragged tail.  204 KB of shared memory at D = 64: one block of
+//    eight warps per SM, so the split pass of K and V is shared by eight
+//    warps;
 //  * blocks are numbered heaviest causal tile first, so the short ones
 //    fill the tail of the grid.
-//
-// K2 (dQ) is still PR 2's CUDA-core design and the next to move to the
-// tensor cores with the building blocks above: a block owns 64 q rows,
-// four threads per row, each holding a quarter of the row's D elements in
-// registers (interleaved 8- or 16-byte vectors); a row's dot product is
-// the four partial sums added with two xor shuffles; K and V stream
-// through shared memory in synchronous 64-row tiles; P = exp(S - lse) is
-// recomputed per tile and delta = rowsum(dO o) - dlse is an input (the
-// wrapper computes it); dQ = scale * sum dS K.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -110,15 +119,19 @@ namespace {
 constexpr float kNegInf = -1e30f;         // finite masked-score sentinel
 
 // ---------------------------------------------------------------------------
-// K1 and K3: 3xTF32 tensor cores
+// the parts K1-K3 share: 3xTF32 tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kTile = 64;                 // q rows of a K1 block; rows of
                                           // every streamed tile
 constexpr int kFwdThreads = 128;          // K1: four warps of 16 q rows
+constexpr int kDqWarps = 8;               // K2: warps of 16 q rows
+constexpr int kDqRows = 16 * kDqWarps;    // K2: q rows a block owns
+constexpr int kDqThreads = 32 * kDqWarps;
 constexpr int kDkvKeys = 128;             // K3: keys a block owns
 constexpr int kDkvThreads = 256;          // K3: eight warps of 16 keys
 // 8-wide k-steps whose products share one fresh fragment before the
-// rounded add, in the long sums (P V over keys, dV and dK over q rows)
+// rounded add, in the long sums (P V and dQ over keys, dV and dK over q
+// rows)
 constexpr int kLongGroup = 4;
 
 template <int D>
@@ -132,6 +145,9 @@ struct Tc {
   static constexpr int kLdPair = D + 8 - D % 16;
   // K1: two stages of K and V (raw, then big halves), one of small halves
   static constexpr int kFwdSmem = 3 * kTile * (kLdPair + kLd) * 4;
+  // K2: Q's big and small halves and dO for the block's q rows; two stages
+  // of K and V and one of their small halves
+  static constexpr int kDqSmem = (3 * kDqRows + 6 * kTile) * kLd * 4;
   // K3: K and V; two stages of Q and dO and one of their small halves; two
   // stages of lse and delta
   static constexpr int kDkvSmem =
@@ -656,174 +672,155 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K2: CUDA cores (PR 2's design, next to move to the tensor cores)
-// ---------------------------------------------------------------------------
-constexpr int kRows = 64;                 // rows a block owns and rows of
-                                          // each streamed tile
-constexpr int kTpr = 4;                   // threads per owned row
-constexpr int kThreads = kRows * kTpr;    // 256
-
-template <int D>
-struct Cfg {
-  static constexpr int kVec = (D / kTpr) >= 4 ? 4 : 2;  // floats per load
-  static constexpr int kNv = D / (kTpr * kVec);         // loads per row part
-  static constexpr int kNe = kNv * kVec;                // elements per part
-};
-
-// Element offset (within a row of D) of vector x of thread part `part`.
-template <int D>
-__device__ __forceinline__ int vec_off(int part, int x) {
-  return (part + kTpr * x) * Cfg<D>::kVec;
-}
-
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float* in) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
-  }
-}
-
-// This thread's part of a D-element row (row pointer `p`), into regs[kNe].
-template <int D>
-__device__ __forceinline__ void load_part(const float* p, int part,
-                                          float* regs) {
-  constexpr int V = Cfg<D>::kVec;
-#pragma unroll
-  for (int x = 0; x < Cfg<D>::kNv; ++x)
-    load_vec<V>(p + vec_off<D>(part, x), regs + x * V);
-}
-
-template <int D>
-__device__ __forceinline__ void store_part(float* p, int part,
-                                           const float* regs) {
-  constexpr int V = Cfg<D>::kVec;
-#pragma unroll
-  for (int x = 0; x < Cfg<D>::kNv; ++x)
-    store_vec<V>(p + vec_off<D>(part, x), regs + x * V);
-}
-
-// Sum over the four threads of a row (adjacent lanes); every one of the
-// four gets the same bits, (a + b) + (c + d).
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// Stage rows r0 .. r0 + ROWS of one (batch, head) into dst [ROWS, D] with
-// 16-byte loads; rows at or beyond T are zero.  `src` points at element
-// (b, 0, h, 0); rows are `stride` floats apart.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          size_t stride, int r0, int T) {
-  constexpr int kPerRow = D / 4;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = i - r * kPerRow;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < T)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * stride
-                                             + c * 4);
-    *reinterpret_cast<float4*>(dst + r * D + c * 4) = val;
-  }
-}
-
-// K2: one block per (q tile, head, batch).
+// K2: one block per (q tile of kDqRows, head, batch), heaviest causal tiles
+// first; warp w owns q rows qt * kDqRows + 16 w .. + 16.  Fragments hold S
+// and dP (rows q rows, columns keys), then dS in place of dP.
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDqThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 int T, int H, float scale) {
-  constexpr int BN = kRows;
-  constexpr int NE = Cfg<D>::kNe;
-  __shared__ __align__(16) float ks[BN * D];
-  __shared__ __align__(16) float vs[BN * D];
+  using C = Tc<D>;
+  constexpr int LD = C::kLd, ND = C::kNd, NN = C::kNn;
+  constexpr int kRowFloats = kDqRows * LD, kTileFloats = kTile * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                          // [kDqRows][LD]: raw, then big
+                                             // halves of scaled Q
+  float* qsm = qs + kRowFloats;              // [kDqRows][LD]: small halves
+  float* dos = qsm + kRowFloats;             // [kDqRows][LD]: dO
+  float* ks = dos + kRowFloats;              // [2][kTile][LD]: raw, then big
+  float* vs = ks + 2 * kTileFloats;          // [2][kTile][LD]
+  float* ksm = vs + 2 * kTileFloats;         // [kTile][LD]: small halves
+  float* vsm = ksm + kTileFloats;            // [kTile][LD]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = threadIdx.x / kTpr;
-  const int part = threadIdx.x % kTpr;
-  const int qi = qt * kRows + row;
-  const bool live = qi < T;
+  const int nqt = (T + kDqRows - 1) / kDqRows;
+  const int nkt = (T + kTile - 1) / kTile;
+  const int hb = (int)gridDim.x / nqt;       // H * B
+  const int qt = nqt - 1 - (int)blockIdx.x / hb;  // longest causal first
+  const int h = (int)blockIdx.x % hb % H;
+  const int b = (int)blockIdx.x % hb / H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int q0 = qt * kDqRows;
+  const int qw = q0 + warp * 16;             // this warp's first q row
+  const int r0 = qw + g;                     // rows r0 and r0 + 8
   const size_t stride = (size_t)H * D;
   const size_t base = ((size_t)b * T * H + h) * D;
-  const size_t bh = (size_t)b * H + h;
+  const size_t bh = ((size_t)b * H + h) * T;
 
-  float qr[NE], dor[NE], dqa[NE];
-  if (live) {
-    load_part<D>(q + base + qi * stride, part, qr);
-    load_part<D>(dout + base + qi * stride, part, dor);
-  } else {
-#pragma unroll
-    for (int e = 0; e < NE; ++e) qr[e] = dor[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < NE; ++e) {
-    qr[e] *= scale;
-    dqa[e] = 0.f;
-  }
-  const float lse_i = live ? lse[bh * T + qi] : 0.f;
-  const float delta_i = live ? delta[bh * T + qi] : 0.f;
+  const int upper =
+      CAUSAL ? min(nkt, (q0 + kDqRows + kTile - 1) / kTile) : nkt;
+  stage_rows<D, LD, kDqRows, kDqThreads>(qs, q + base, stride, q0, T);
+  stage_rows<D, LD, kDqRows, kDqThreads>(dos, dout + base, stride, q0, T);
+  stage_rows<D, LD, kTile, kDqThreads>(ks, k + base, stride, 0, T);
+  stage_rows<D, LD, kTile, kDqThreads>(vs, v + base, stride, 0, T);
+  cp_async_commit();
 
-  const int nkt = (T + BN - 1) / BN;
-  const int upper = CAUSAL ? qt + 1 : nkt;  // the tile of the diagonal
+  float lr[2], dr[2];                        // lse and delta of the rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    lr[r] = qi < T ? lse[bh + qi] : 0.f;
+    dr[r] = qi < T ? delta[bh + qi] : 0.f;
+  }
+  float dqa[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  // this warp's A rows: Q's halves, read as they are, and raw dO, split at
+  // each k-step (both halves of both would not fit beside K and V)
+  const float* qb = qs + (warp * 16 + g) * LD + t;
+  const float* qsb = qsm + (warp * 16 + g) * LD + t;
+  const float* dob = dos + (warp * 16 + g) * LD + t;
+
+  cp_async_wait_all();
+  split_own_chunks<D, LD, kDqRows, kDqThreads>(qs, qsm, scale);
   for (int kt = 0; kt < upper; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<D, BN>(ks, k + base, stride, k0, T);
-    load_tile<D, BN>(vs, v + base, stride, k0, T);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      float kr[NE], vr[NE];
-      load_part<D>(ks + j * D, part, kr);
-      load_part<D>(vs + j * D, part, vr);
-      float ps = 0.f, pd = 0.f;
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        ps = fmaf(qr[e], kr[e], ps);
-        pd = fmaf(dor[e], vr[e], pd);
-      }
-      const float s = row_sum(ps);
-      const float dp = row_sum(pd);
-      const int kj = k0 + j;
-      const bool ok = kj < T && (!CAUSAL || kj <= qi);
-      const float p = ok ? expf(s - lse_i) : 0.f;
-      const float ds = p * (dp - delta_i);
-#pragma unroll
-      for (int e = 0; e < NE; ++e) dqa[e] = fmaf(ds, kr[e], dqa[e]);
+    const int cur = kt & 1;
+    cp_async_wait_all();     // tile kt, the one group in flight, landed
+    __syncthreads();         // every warp is done with tile kt - 1
+    if (kt + 1 < upper) {
+      stage_rows<D, LD, kTile, kDqThreads>(ks + (cur ^ 1) * kTileFloats,
+                                           k + base, stride,
+                                           (kt + 1) * kTile, T);
+      stage_rows<D, LD, kTile, kDqThreads>(vs + (cur ^ 1) * kTileFloats,
+                                           v + base, stride,
+                                           (kt + 1) * kTile, T);
+      cp_async_commit();
     }
-  }
-  if (!live) return;
+    float* kc = ks + cur * kTileFloats;
+    float* vc = vs + cur * kTileFloats;
+    split_own_chunks<D, LD, kTile, kDqThreads>(kc, ksm, 1.f);
+    split_own_chunks<D, LD, kTile, kDqThreads>(vc, vsm, 1.f);
+    __syncthreads();
+    const int k0 = kt * kTile;
+    // every key of the tile lies above this warp's rows, or no row is live
+    if ((CAUSAL && k0 > qw + 15) || qw >= T) continue;
+
+    // S = Q K^T and dP = dO V^T; b0, b1 = K[key 8n + g][8s + t, 8s + t + 4]
+    float s[NN][4], dp[NN][4];
 #pragma unroll
-  for (int e = 0; e < NE; ++e) dqa[e] *= scale;
-  store_part<D>(dq + base + qi * stride, part, dqa);
+    for (int n = 0; n < NN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float* qd = qb + d * 8;
+      const float* qsd = qsb + d * 8;
+      const FragA qa{{lds32(qd), lds32(qd + 8 * LD), lds32(qd + 4),
+                      lds32(qd + 8 * LD + 4)},
+                     {lds32(qsd), lds32(qsd + 8 * LD), lds32(qsd + 4),
+                      lds32(qsd + 8 * LD + 4)}};
+      const float* dd = dob + d * 8;
+      const FragA oa = split_a(dd[0], dd[8 * LD], dd[4], dd[8 * LD + 4]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const int off = (n * 8 + g) * LD + d * 8 + t;
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(p, qa, frag_b(lds32(kc + off), lds32(ksm + off),
+                           lds32(kc + off + 4), lds32(ksm + off + 4)));
+        add_to(s[n], p);
+        float r[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(r, oa, frag_b(lds32(vc + off), lds32(vsm + off),
+                           lds32(vc + off + 4), lds32(vsm + off + 4)));
+        add_to(dp[n], r);
+      }
+    }
+
+    // P = exp(S - lse), dS = P (dP - delta), in place of dP
+    const bool edge = (CAUSAL && k0 + kTile - 1 > qw) || k0 + kTile > T;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + n * 8 + 2 * t + (e & 1);
+        const int qi = r0 + (e >> 1) * 8;
+        const bool ok = !edge || (kj < T && (!CAUSAL || kj <= qi));
+        const float p = ok ? __expf(s[n][e] - lr[e >> 1]) : 0.f;
+        dp[n][e] = p * (dp[n][e] - dr[e >> 1]);
+      }
+    }
+
+    // dQ += dS K, dS straight from the C fragments
+    mma_from_c<D, LD>(dqa, dp, kc, ksm, g, t);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + r * 8;
+    if (qi >= T) continue;
+    store_rows<D>(dq + base + (size_t)qi * stride, t, dqa, r, scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-dim3 grid_for(int B, int T, int H) {
-  return dim3((T + kRows - 1) / kRows, H, B);
-}
-
 struct Args {
   const float *q, *k, *v, *dout, *lse, *delta;
   float *o, *lse_out, *dq, *dk, *dv;
@@ -856,8 +853,12 @@ struct Fwd {
 template <int D, bool C>
 struct Dq {
   static int run(const Args& a) {
-    flash_dq_kernel<D, C><<<grid_for(a.B, a.T, a.H), kThreads, 0, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.T, a.H, a.scale);
+    constexpr int smem = Tc<D>::kDqSmem;
+    if (int err = allow_smem(flash_dq_kernel<D, C>, smem)) return err;
+    const int tiles = (a.T + kDqRows - 1) / kDqRows;
+    flash_dq_kernel<D, C><<<tiles * a.H * a.B, kDqThreads, smem,
+                            a.stream>>>(a.q, a.k, a.v, a.dout, a.lse,
+                                        a.delta, a.dq, a.T, a.H, a.scale);
     return (int)cudaGetLastError();
   }
 };

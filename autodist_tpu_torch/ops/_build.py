@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +29,12 @@ SOURCES = ("paged_attention.cu", "int8_matmul.cu", "flash_attention.cu",
            "fused_sync.cu", "quant_hop.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_KERNEL_NAME = re.compile(r"(flash_[a-z]+_kernel)ILi(\d+)ELb([01])E")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -105,3 +112,26 @@ def kernel(source: str, symbol: str, argtypes: Sequence,
             fn.restype = restype
             _fns[(source, symbol)] = fn
     return fn
+
+
+def parse_ptxas(log: str) -> dict:
+    """``{"flash_fwd_kernel<64, causal>": {"registers", "spill_stores",
+    "spill_loads", "stack", "static_smem"}, ...}`` from the output of an
+    ``nvcc -Xptxas -v`` run (a flash kernel under its template arguments,
+    any other under its mangled name)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            k = _KERNEL_NAME.search(m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)}, "
+                    f"{'causal' if k.group(3) == '1' else 'full'}>"
+                    if k else m.group(1))
+            report[name] = {}
+        elif name and (m := _PTXAS_SPILL.search(line)):
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        elif name and (m := _PTXAS_USED.search(line)):
+            report[name].update(registers=int(m.group(1)),
+                                static_smem=int(m.group(2) or 0))
+    return report

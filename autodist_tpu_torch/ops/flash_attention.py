@@ -32,8 +32,8 @@ import torch
 from autodist_tpu_torch.const import not_ported
 
 _NEG_INF = -1e30  # finite -inf: masked scores stay NaN-free
-#: head dims the kernels are built for (four threads per row, each holding
-#: D/4 elements in registers; the streamed tile is 64 rows)
+#: head dims the kernels are built for (each a whole number of the tensor
+#: cores' 8-wide k-steps; D = 8 takes one n-tile, the others pairs)
 HEAD_DIMS = (8, 16, 64)
 _SOURCE = "flash_attention.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

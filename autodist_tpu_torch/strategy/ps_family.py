@@ -1,4 +1,5 @@
-"""The builders of the PS family, which come with their own slice.
+"""The builders of the PS family and the partitioned all-reduce builders,
+which come with their own slice.
 
 Each name exists so that code written for the JAX package fails at the
 builder with the ROADMAP item that brings it, instead of at an import or,
@@ -8,18 +9,15 @@ vocab-sharded sparse embedding, not through the bucketed step.)
 """
 from __future__ import annotations
 
-from autodist_tpu_torch.const import not_ported
+from autodist_tpu_torch.const import unported_class
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 
 ITEM = "slice 5 — the PS family"
 
 
 def _unported(name: str):
-    def __init__(self, *args, **kwargs):
-        raise not_ported(f"the {name} strategy builder", ITEM)
-
-    return type(name, (StrategyBuilder,), {"__init__": __init__,
-                                           "__doc__": f"{name}: {ITEM}."})
+    return unported_class(name, f"the {name} strategy builder", ITEM,
+                          (StrategyBuilder,))
 
 
 PS = _unported("PS")
@@ -27,3 +25,5 @@ PSLoadBalancing = _unported("PSLoadBalancing")
 PartitionedPS = _unported("PartitionedPS")
 UnevenPartitionedPS = _unported("UnevenPartitionedPS")
 Parallax = _unported("Parallax")
+PartitionedAR = _unported("PartitionedAR")
+RandomAxisPartitionAR = _unported("RandomAxisPartitionAR")

@@ -21,9 +21,9 @@ Phases, each printing one JSON line:
    An ``nvcc -Xptxas -v`` run of the flash source beside the build gives
    each flash kernel's registers, spills and static shared memory.
    The flash kernels K1–K3 are checked at the training shape (B 8, T 1024,
-   H 12, D 64, causal), at a ragged T = 1000 (causal and not) and at
-   D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV at 1e-4, and two
-   backward runs must give identical bits;
+   H 12, D 64, causal), at it with q x 4 (full), at a ragged T = 1000
+   (causal and not) and at D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV
+   at 1e-4, and two backward runs must give identical bits;
 3. the slice at full width: ``transformer_lm()`` at its defaults (12
    layers, 12 heads x 64, vocab 32128, random weights from seed 0) served
    by ``serve(..., paged=True)`` over real HTTP after one warm-up pass of
@@ -102,7 +102,6 @@ prints no result.
 import hashlib
 import json
 import os
-import re
 import socket
 import statistics
 import subprocess
@@ -117,7 +116,7 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 tensor cores, dense (data sheet, SXM)
-#: f32-accurate 3xTF32 (K1, K3): three TF32 products per f32 product
+#: f32-accurate 3xTF32 (K1–K3): three TF32 products per f32 product
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 K9_SOURCE = "autodist_tpu_torch/csrc/paged_attention.cu"
 K9_REPLACES = "autodist_tpu/ops/fused_kernels.py:624"
@@ -166,38 +165,6 @@ def bound_ms(nbytes: float, flops: float, flops_per_s=H100_F32_FLOPS):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-class Timer:
-    """Median device time per call, with CUDA events.  Before each call
-    the L2 cache (50 MB) is evicted by writing a 256 MB buffer, since the
-    serving path reads each layer's weights and pool cold, and the card
-    is held in a spin (``torch.cuda._sleep``) while the host enqueues the
-    call, so the time is the card's and not the host's launch overhead."""
-
-    SLEEP_CYCLES = 5_000_000     # ~2.5 ms at the H100's boost clock
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.float32,
-                                 device="cuda")
-
-    def __call__(self, fn, iters: int = 50, warmup: int = 5) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(iters):
-            self.flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(self.SLEEP_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
 
 def phase_kernels(torch, timer):
@@ -294,11 +261,13 @@ def phase_kernels(torch, timer):
     return k9, k10
 
 
-def _flash_case(torch, fa, gen, b, t, h, d, causal):
+def _flash_case(torch, fa, gen, b, t, h, d, causal, mul=1.0):
     """K1–K3 against their plain versions on one shape (random q, k, v,
-    dO and lse cotangent); returns the max abs errors and the inputs."""
+    dO and lse cotangent, q times ``mul``); returns the max abs errors and
+    the inputs."""
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to("cuda")
                    for _ in range(4))
+    q = q * mul
     dlse = torch.randn(b, h, t, generator=gen).to("cuda")
     o, lse = fa.flash_fwd(q, k, v, causal)
     delta = ((do * o).sum(-1).transpose(1, 2) - dlse).contiguous()
@@ -310,7 +279,7 @@ def _flash_case(torch, fa, gen, b, t, h, d, causal):
     want["dq"] = fa.flash_dq_reference(*bwd)
     want["dk"], want["dv"] = fa.flash_dkv_reference(*bwd)
     torch.cuda.synchronize()
-    label = f"B={b} T={t} H={h} D={d} causal={causal}"
+    label = f"B={b} T={t} H={h} D={d} causal={causal} q x {mul}"
     for name, tol in (("o", 1e-5), ("lse", 1e-5), ("dq", 1e-4), ("dk", 1e-4),
                       ("dv", 1e-4)):
         torch.testing.assert_close(got[name], want[name], rtol=tol, atol=tol,
@@ -331,14 +300,19 @@ def phase_flash(torch, timer):
     gen = torch.Generator().manual_seed(SEED + 3)
     b, t, h, d = (TRAIN_SHAPE[x] for x in "BTHD")
     errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    for shape, causal in (((b, 1000, h, d), True), ((b, 1000, h, d), False),
-                          ((b, 1000, h, 16), True), ((b, t, h, d), True)):
-        e, bwd = _flash_case(torch, fa, gen, *shape, causal)
+    # q x 4: scores of standard deviation near 4 and a peaked softmax,
+    # where a lost low-order TF32 half would show
+    for shape, causal, mul in (((b, 1000, h, d), True, 1.0),
+                               ((b, 1000, h, d), False, 1.0),
+                               ((b, 1000, h, 16), True, 1.0),
+                               ((b, t, h, d), False, 4.0),
+                               ((b, t, h, d), True, 1.0)):
+        e, bwd = _flash_case(torch, fa, gen, *shape, causal, mul)
         errs["flash_fwd"] = max(errs["flash_fwd"], e["o"], e["lse"])
         errs["flash_dq"] = max(errs["flash_dq"], e["dq"])
         errs["flash_dkv"] = max(errs["flash_dkv"], e["dk"], e["dv"])
         emit({"phase": "flash_check", "shape": list(shape), "causal": causal,
-              "max_abs_err": e})
+              "q_mul": mul, "max_abs_err": e})
     q, k, v, do, lse, delta, _ = bwd          # the training shape, causal
     pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
     product = 2.0 * pairs * d                 # one T x T x D product
@@ -405,13 +379,6 @@ def phase_flash(torch, timer):
     return rows_out
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
-_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads")
-_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
-_KERNEL_NAME = re.compile(r"(flash_[a-z]+_kernel)ILi(\d+)ELb([01])E")
-
-
 def start_ptxas_report(source: str):
     """Starts ``nvcc -Xptxas -v`` on ``csrc/<source>`` (a cubin in the
     build directory, beside the libraries) with the build's flags; returns
@@ -432,25 +399,12 @@ def read_ptxas_report(proc) -> dict:
     """``{"flash_fwd_kernel<64, causal>": {"registers", "spill_stores",
     "spill_loads", "stack", "static_smem"}, ...}`` from the process's
     output; raises if the compile failed."""
+    from autodist_tpu_torch.ops import _build
+
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{log}")
-    report, name = {}, None
-    for line in log.splitlines():
-        if m := _PTXAS_ENTRY.search(line):
-            k = _KERNEL_NAME.search(m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)}, "
-                    f"{'causal' if k.group(3) == '1' else 'full'}>"
-                    if k else m.group(1))
-            report[name] = {}
-        elif name and (m := _PTXAS_SPILL.search(line)):
-            report[name].update(stack=int(m.group(1)),
-                                spill_stores=int(m.group(2)),
-                                spill_loads=int(m.group(3)))
-        elif name and (m := _PTXAS_USED.search(line)):
-            report[name].update(registers=int(m.group(1)),
-                                static_smem=int(m.group(2) or 0))
-    return report
+    return _build.parse_ptxas(log)
 
 
 def phase_sync_kernels(torch, timer):
@@ -1419,6 +1373,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
+        from autodist_tpu_torch.device_timer import Timer
         from autodist_tpu_torch.models.transformer_lm import transformer_lm
         from autodist_tpu_torch.ops import _build
     except ImportError as e:
@@ -1442,7 +1397,7 @@ def main() -> int:
     emit({"phase": "ptxas", "source": FLASH_SOURCE,
           "kernels": ptxas_report})
 
-    timer = Timer(torch)
+    timer = Timer()
     k9, k10 = phase_kernels(torch, timer)
     flash_rows = phase_flash(torch, timer)
     sync_rows = phase_sync_kernels(torch, timer)

@@ -139,32 +139,55 @@ def test_flash_kernels_match_plain(dev, b, t, h, d, causal):
                                               counts[2] + 2)
 
 
-@pytest.mark.parametrize("t", [1024, 50])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_tensor_core_split_stress(dev, t, causal):
-    """K1 and K3 (3xTF32 tensor cores) against their plain versions with q
-    scaled by 4: scores of standard deviation near 16 and a peaked
-    softmax, where a lost low-order TF32 half would show.  T = 50 is below
-    one tile and a multiple of no tile edge.  Tolerances unchanged (o and
-    lse 1e-5, dK/dV 1e-4); the backward gives identical bits twice."""
-    gen = torch.Generator().manual_seed(t + causal)
-    b, h, d = 2, 2, 64
+def _flash_against_plain(dev, b, t, h, d, causal, gen, mul=1.0):
+    """K1–K3 on one shape against their plain versions at the JAX flash
+    tests' tolerances (o and lse 1e-5, dQ/dK/dV 1e-4); the backward gives
+    identical bits twice."""
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to(dev)
                    for _ in range(4))
-    q = q * 4
+    q = q * mul
     dlse = torch.randn(b, h, t, generator=gen).to(dev)
     o, lse = fa.flash_fwd(q, k, v, causal)
     ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
     torch.testing.assert_close(o, ro, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    del ro, rlse
     delta = ((do * o).sum(-1).transpose(1, 2) - dlse).contiguous()
     args = (q, k, v, do, lse, delta, causal)
+    dq = fa.flash_dq(*args)
+    torch.testing.assert_close(dq, fa.flash_dq_reference(*args), rtol=1e-4,
+                               atol=1e-4)
     dk, dv = fa.flash_dkv(*args)
     rdk, rdv = fa.flash_dkv_reference(*args)
     torch.testing.assert_close(dk, rdk, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dv, rdv, rtol=1e-4, atol=1e-4)
+    assert torch.equal(fa.flash_dq(*args), dq)
     assert all(torch.equal(x, y) for x, y in zip(fa.flash_dkv(*args),
                                                   (dk, dv)))
+
+
+@pytest.mark.parametrize("t", [1024, 50])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tensor_core_split_stress(dev, t, causal):
+    """K1–K3 (3xTF32 tensor cores) against their plain versions with q
+    scaled by 4: scores of standard deviation near 16 and a peaked
+    softmax, where a lost low-order TF32 half would show.  T = 50 is below
+    one tile and a multiple of no tile edge.  Tolerances unchanged (o and
+    lse 1e-5, dQ/dK/dV 1e-4); the backward gives identical bits twice."""
+    gen = torch.Generator().manual_seed(t + causal)
+    _flash_against_plain(dev, 2, t, 2, 64, causal, gen, mul=4.0)
+
+
+@pytest.mark.parametrize("t", [4096, 8192])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tensor_core_long_sequences(dev, t, causal):
+    """K1–K3 at 4 and 8 times the training length: the long sums (P V, dQ,
+    dV, dK over up to 8192 rows) add 4–8 times more rounded fresh
+    fragments than at T = 1024, and must still meet the unchanged
+    tolerances against the plain versions (whose T x T scores take about
+    0.5 GB at 8192)."""
+    gen = torch.Generator().manual_seed(t + causal)
+    _flash_against_plain(dev, 1, t, 2, 64, causal, gen)
 
 
 def test_flash_autograd_on_the_card_matches_dense(dev):

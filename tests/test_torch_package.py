@@ -48,6 +48,13 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.strategy.zero1_strategy\n"
         "import autodist_tpu_torch.kernel.synchronization.explicit_sync\n"
         "import autodist_tpu_torch.profile_train\n"
+        "import autodist_tpu_torch.profile_flash, autodist_tpu_torch.fit\n"
+        "import autodist_tpu_torch.device_timer\n"
+        "import autodist_tpu_torch.strategy.auto_strategy\n"
+        "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
+        "    ENV, Callback, TimeHistory, History, __version__)\n"
+        "from autodist_tpu_torch.strategy import (AutoStrategy,\n"
+        "    PartitionedAR, RandomAxisPartitionAR)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('autodist_tpu', 'jax', 'flax', 'optax') and sys.modules[m]]\n"
         "assert not bad, bad\n"
@@ -56,6 +63,55 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_top_level_exports_match_the_jax_package():
+    """The JAX package's top-level names, each resolving (``AutoDist``
+    lazily) or, for ``fit``'s callbacks, raising naming P5 when made."""
+    import autodist_tpu
+    import autodist_tpu_torch as port
+    from autodist_tpu_torch.autodist import AutoDist as facade
+    from autodist_tpu_torch.const import ENV
+    from autodist_tpu_torch.resource_spec import DeviceSpec, ResourceSpec
+
+    assert port.__all__ == autodist_tpu.__all__
+    assert port.__version__ == autodist_tpu.__version__
+    assert (port.AutoDist, port.ResourceSpec, port.DeviceSpec, port.ENV) \
+        == (facade, ResourceSpec, DeviceSpec, ENV)
+    spec = port.ResourceSpec(resource_info={"nodes": [
+        {"address": "localhost", "gpus": [0, 1], "chief": True}]})
+    assert all(isinstance(d, port.DeviceSpec) for d in spec.devices)
+    assert len(spec.devices) == 2
+    for name in ("Callback", "TimeHistory", "History"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP: P5 — fit and checkpoint"):
+            getattr(port, name)()
+    assert issubclass(port.TimeHistory, port.Callback)
+    with pytest.raises(AttributeError):
+        port.NoSuchName  # noqa: B018
+
+
+@pytest.mark.parametrize("name,item", [
+    ("PartitionedAR", "slice 5 — the PS family"),
+    ("RandomAxisPartitionAR", "slice 5 — the PS family"),
+    ("AutoStrategy", "P8 — cost model, search and AutoStrategy")])
+def test_unported_strategy_builders_import_and_raise_naming_their_item(
+        name, item):
+    """Every builder the JAX package exports imports from the port; an
+    unported one raises when built, naming its ROADMAP item."""
+    import autodist_tpu.strategy as jstrategy
+    import autodist_tpu_torch.strategy as strategy
+    from autodist_tpu_torch.strategy import StrategyBuilder
+
+    builders = {n for n in jstrategy.__all__
+                if isinstance(getattr(jstrategy, n), type)
+                and issubclass(getattr(jstrategy, n),
+                               jstrategy.StrategyBuilder)}
+    assert name in builders and builders <= set(strategy.__all__)
+    builder = getattr(strategy, name)
+    assert issubclass(builder, StrategyBuilder)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
+        builder()
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -128,6 +184,40 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
                          env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert res.returncode != 0
     assert res.stdout == ""
+
+
+def test_profile_flash_variants_apply_and_it_needs_a_card(monkeypatch):
+    """Each K2 design variant's substitution finds its text in the flash
+    source and changes it; without a card the script exits 2."""
+    from autodist_tpu_torch import profile_flash
+    from autodist_tpu_torch.ops import _build
+
+    text = (_build.CSRC / profile_flash.SOURCE).read_text()
+    for name, subs in profile_flash.VARIANTS.items():
+        assert profile_flash._variant_source(text, subs) != text, name
+    with pytest.raises(ValueError, match="not found"):
+        profile_flash._variant_source(text, [("no such text", "")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_flash.main() == 2
+
+
+def test_ptxas_report_is_parsed_per_flash_kernel():
+    from autodist_tpu_torch.ops import _build
+
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_115flash_dq_kernelILi64ELb1EEEvPKfS2_'\n"
+           "ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 182 registers, used 0 barriers, 384 bytes "
+           "cmem[0]\n"
+           "ptxas info    : Compiling entry function 'other_kernel'\n"
+           "ptxas info    : Used 40 registers, 32768 bytes smem\n")
+    assert _build.parse_ptxas(log) == {
+        "flash_dq_kernel<64, causal>": {"stack": 0, "spill_stores": 0,
+                                        "spill_loads": 0, "registers": 182,
+                                        "static_smem": 0},
+        "other_kernel": {"registers": 40, "static_smem": 32768}}
 
 
 def test_build_paths_stay_in_the_checkout():
