@@ -14,6 +14,7 @@ without ``nvcc`` (the CPU tests), where only the plain versions run.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -112,6 +113,15 @@ def kernel(source: str, symbol: str, argtypes: Sequence,
             fn.restype = restype
             _fns[(source, symbol)] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of CUDA ``device`` (queried once per device): the launch
+    rules size grids and clusters by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def parse_ptxas(log: str) -> dict:

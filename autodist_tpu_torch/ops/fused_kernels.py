@@ -35,7 +35,6 @@ failure is caught: a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -415,13 +414,25 @@ fused_dequant_add.calls = 0
 # K9: paged decode attention
 # ---------------------------------------------------------------------------
 
-#: the kernel's largest head_dim (one thread per output element) and its
-#: shared-memory budget without opting in to more than 48 KB.
+#: the kernel's largest head_dim (a lane owns output elements lane,
+#: lane + 32, ..) and the shared memory a block may use on the H100
 MAX_HEAD_DIM = 128
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 227 * 1024
+#: the kernel's warps per block, positions per warp per tile and pipeline
+#: depth (``csrc/paged_attention.cu``)
+_PA_WARPS, _PA_ROWS, _PA_STAGES = 4, 8, 3
 #: the C entry point's signature (``csrc/paged_attention.cu``)
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+
+
+def paged_smem_bytes(dh: int) -> int:
+    """The kernel's dynamic shared memory at head_dim ``dh``: per warp
+    ``_PA_STAGES`` stages of ``_PA_ROWS`` K rows (padded to a stride of
+    16 mod 32 floats) and V rows (``dh`` rounded up to 4 floats)."""
+    d4 = -(-dh // 4) * 4
+    ldk = d4 + (16 - d4) % 32
+    return 4 * _PA_WARPS * _PA_STAGES * _PA_ROWS * (ldk + d4)
 
 
 def paged_attention_reference(q, kc, vc, bt, rel):
@@ -470,7 +481,7 @@ def _check(q, kc, vc, bt, rel) -> None:
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
-    smem = 4 * (bs * (dh + 1) + bs * dh + bs + dh)
+    smem = paged_smem_bytes(dh)
     if dh > MAX_HEAD_DIM or smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention: head_dim {dh} / block_size "
                          f"{bs} outside the kernel's range (head_dim <= "
@@ -478,35 +489,32 @@ def _check(q, kc, vc, bt, rel) -> None:
                          f"shared memory)")
 
 
-@functools.lru_cache(maxsize=None)
-def _splits(b: int, h: int, maxb: int, device: torch.device) -> int:
-    """Blocks per (slot, head): enough for about four per SM, at most one
-    per logical block of the window (computed once per shape)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // (b * h)), maxb))
+def splits_for(b: int, h: int, window: int, sms: int) -> int:
+    """Blocks per (slot, head), one cluster: about three blocks per SM
+    (at the engine's shape on the H100 4 splits ran at 0.0316 ms, 5 at
+    0.0412 and 8 at 0.0394: ``profile_serving``), at most 8 (the portable
+    cluster size) and at most one per 32-position tile of the window."""
+    tiles = -(-window // (_PA_WARPS * _PA_ROWS))
+    return max(1, min(8, 3 * sms // (b * h), tiles))
 
 
-def _launch(q, kc, vc, bt, rel):
+def _launch(q, kc, vc, bt, rel, splits: int = None):
+    """Launch the kernel; ``splits`` overrides :func:`splits_for` (to
+    time the choices against each other)."""
     from autodist_tpu_torch.ops import _build
 
     b, h, dh = q.shape
+    bs = kc.shape[1]
+    if splits is None:
+        splits = splits_for(b, h, bt.shape[1] * bs,
+                            _build.sm_count(q.device))
     out = torch.empty_like(q)
-    splits = _splits(b, h, bt.shape[1], q.device)
-    part_ml = part_acc = None
-    if splits > 1:
-        part_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32,
-                               device=q.device)
     fn = _build.kernel("paged_attention.cu", "paged_attention_f32",
                        _ARGTYPES)
     with torch.cuda.device(q.device):      # the runtime launches there
         err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
                  rel.data_ptr(), out.data_ptr(),
-                 None if part_ml is None else part_ml.data_ptr(),
-                 None if part_acc is None else part_acc.data_ptr(),
-                 b, h, dh, kc.shape[1], bt.shape[1], splits,
-                 1.0 / dh ** 0.5,
+                 b, h, dh, bs, bt.shape[1], splits, 1.0 / dh ** 0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed "
@@ -536,6 +544,5 @@ def paged_attention(q, kc, vc, bt, rel):
 
 #: calls that launched the kernel since the last reset (plain-version
 #: calls not counted).  One call is one launch of the C entry point, which
-#: issues two kernels when the window is split (the splits, then their
-#: merge) and one otherwise.
+#: issues one kernel (its splits merge inside it).
 paged_attention.calls = 0

@@ -20,7 +20,6 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -85,40 +84,98 @@ def _check(x: torch.Tensor, w: Quantized) -> None:
             raise ValueError(f"int8_matmul: {name} must be contiguous")
 
 
-#: rows the kernel's skinny (decode) path takes, and its output columns
-#: per block (``csrc/int8_matmul.cu``)
-_SKINNY_M = 16
-_SKINNY_BN = 128
+#: rows up to which the wrapper takes the skinny (decode) kernel; above,
+#: the tiled (prefill) one (``csrc/int8_matmul.cu``).  Both run every M
+#: (the skinny kernel in slabs of 16 rows); on the H100 the skinny one was
+#: the faster at every model shape up to M = 32 and the tiled one at
+#: M = 64 for all but 3072 x 768 (``chip_smoke.py``'s ``k10_crossover``,
+#: ``PERF.md``).  The engine's decode batch (8 slots) and the plain
+#: generator's one-row decode take the same path.
+_SKINNY_M = 32
+#: the skinny kernel's output columns per block and warps per block (each
+#: warp one slice of the k-steps)
+_SKINNY_COLS = 128
+_SKINNY_WARPS = 8
+#: the tiled kernel's variants (C ``variant`` 1, 2, 3): (m-tiles, n-tiles)
+#: per warp of a 2 x 2-warp block, i.e. (output columns, rows of x) per
+#: block = (32 MT, 16 NT), smallest first (``TiledS``, ``TiledM``,
+#: ``TiledL`` in the source)
+_TILES = ((2, 2), (4, 2), (4, 4))
+#: the block counts at which the tiled kernel takes a larger tile: about
+#: three blocks per SM of the H100's 132, or 96 for the middle tile (the
+#: fastest tiles, or within 7% of them, at the model's prefill shapes on
+#: the H100: ``profile_serving``'s ``k10_tiled`` lines, ``PERF.md``)
+_TILED_BLOCKS = (384, 96)
 #: the C entry point's signature (``csrc/int8_matmul.cu``)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=None)
-def _skinny_splits(n: int, k: int, device: torch.device) -> int:
-    """K-splits of the skinny kernel: enough blocks for about four per SM,
-    each split at least 64 rows of K.  Depends on N and K only, so a row's
-    result does not depend on how many rows ride along (computed once per
-    shape)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    col_blocks = -(-n // _SKINNY_BN)
-    return max(1, min(-(-4 * sms // col_blocks), k // 64))
+def skinny_cluster(n: int, k: int, sms: int) -> int:
+    """Blocks of the skinny kernel's cluster along K: about one block per
+    two SMs over all column blocks, at most 8 (the portable cluster size)
+    and no more than the k-steps fill one warp each.  Depends on N and K
+    only, so a row's result does not depend on how many rows ride along.
+    (On the H100 at M = 8, ``profile_serving``: 768 x 3072 ran at 0.0104
+    ms with 3 blocks, 0.0118 with 6; 3072 x 768 at 0.0118 with 8, 0.0303
+    with 1; the head, 251 column blocks, at 0.0195 with 1, 0.0251 with
+    2.)"""
+    col_blocks = -(-n // _SKINNY_COLS)
+    ksteps = -(-k // 8)
+    return max(1, min(8, -(-sms // (2 * col_blocks)),
+                      -(-ksteps // _SKINNY_WARPS)))
 
 
-def _launch(x2: torch.Tensor, w: Quantized) -> torch.Tensor:
+def tiled_split(n: int, k: int) -> int:
+    """Blocks of the tiled kernel's cluster along K: 2 for a long K
+    against few columns (the MLP's second kernel, 3072 x 768, whose grid
+    is small and whose blocks each walk all of K), else 1.  Depends on N
+    and K only, so a prefill row sees the same sums at every M."""
+    return 2 if k >= 2048 and n <= 4096 else 1
+
+
+def tiled_variant(m: int, n: int, k: int) -> int:
+    """The tiled kernel's variant (1, 2, 3): the largest block tile whose
+    grid (with :func:`tiled_split`'s cluster) has ``_TILED_BLOCKS[0]``
+    blocks; failing that the middle tile if it has ``_TILED_BLOCKS[1]``,
+    else the smallest.  The per-element arithmetic is the same in every
+    variant."""
+    split = tiled_split(n, k)
+
+    def blocks(variant):
+        mt, nt = _TILES[variant - 1]
+        return -(-n // (32 * mt)) * -(-m // (16 * nt)) * split
+
+    for variant in (3, 2, 1):
+        if blocks(variant) >= _TILED_BLOCKS[0]:
+            return variant
+    return 2 if blocks(2) >= _TILED_BLOCKS[1] else 1
+
+
+def _launch(x2: torch.Tensor, w: Quantized, path: str = None,
+            cluster: int = None, variant: int = None) -> torch.Tensor:
+    """Launch the kernel on ``x2`` [M, K]: ``path`` "skinny" or "tiled",
+    the ``cluster`` size along K and the tiled ``variant`` override the
+    choices (to time them against each other); by default M <=
+    ``_SKINNY_M`` takes the skinny kernel with :func:`skinny_cluster`'s
+    size, and more rows the tiled one with :func:`tiled_variant` and
+    :func:`tiled_split`."""
     from autodist_tpu_torch.ops import _build
 
     m, k = x2.shape
     n = w.q.shape[1]
+    path = path or ("skinny" if m <= _SKINNY_M else "tiled")
+    if path == "skinny":
+        variant = 0
+        cluster = cluster or skinny_cluster(n, k,
+                                            _build.sm_count(x2.device))
+    else:
+        variant = variant or tiled_variant(m, n, k)
+        cluster = cluster or tiled_split(n, k)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    splits = _skinny_splits(n, k, x2.device) if m <= _SKINNY_M else 1
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x2.device) if splits > 1 else None)
     fn = _build.kernel("int8_matmul.cu", "int8_matmul_f32", _ARGTYPES)
     with torch.cuda.device(x2.device):     # the runtime launches there
         err = fn(x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
-                 out.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 m, n, k, splits,
+                 out.data_ptr(), m, n, k, variant, cluster,
                  torch.cuda.current_stream(x2.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_matmul kernel launch failed "
@@ -148,6 +205,5 @@ def int8_matmul(x: torch.Tensor, w: Quantized) -> torch.Tensor:
 
 #: calls that launched the kernel since the last reset (plain-version
 #: calls not counted).  One call is one launch of the C entry point, which
-#: issues two kernels when K is split (the splits, then their sum) and
-#: one otherwise.
+#: issues one kernel.
 int8_matmul.calls = 0

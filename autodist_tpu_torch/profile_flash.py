@@ -23,6 +23,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -93,19 +94,21 @@ def _variant_source(text: str, subs) -> str:
     return text
 
 
-def build_variants() -> dict:
-    """``{name: (library path, ptxas report)}`` for the source as it is
-    ("as_is") and every variant."""
+def build_variants(source: str = SOURCE, variants=None) -> dict:
+    """``{name: (library path, ptxas report)}`` for ``csrc/<source>`` as it
+    is ("as_is") and every variant (default: this module's
+    :data:`VARIANTS` of the flash source)."""
     from autodist_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC / SOURCE).read_text()
+    text = (_build.CSRC / source).read_text()
+    variants = VARIANTS if variants is None else variants
     procs = {}
-    for name, subs in {"as_is": [], **VARIANTS}.items():
-        src = out_dir / f"{name}.cu"
+    for name, subs in {"as_is": [], **variants}.items():
+        src = out_dir / f"{Path(source).stem}-{name}.cu"
         src.write_text(_variant_source(text, subs))
-        lib = out_dir / f"{name}.so"
+        lib = src.with_suffix(".so")
         procs[name] = (lib, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
              str(lib), str(src)],
@@ -119,12 +122,13 @@ def build_variants() -> dict:
     return built
 
 
-def use_library(path) -> None:
-    """Makes the flash wrappers launch from the library at ``path``."""
+def use_library(path, source: str = SOURCE) -> None:
+    """Makes the wrappers of ``csrc/<source>`` (the flash kernels unless
+    given) launch from the library at ``path``."""
     from autodist_tpu_torch.ops import _build
 
-    _build._libs[SOURCE] = ctypes.CDLL(str(path))
-    for key in [k for k in _build._fns if k[0] == SOURCE]:
+    _build._libs[source] = ctypes.CDLL(str(path))
+    for key in [k for k in _build._fns if k[0] == source]:
         del _build._fns[key]
 
 

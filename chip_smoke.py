@@ -17,9 +17,18 @@ Phases, each printing one JSON line:
    call's time and the least time the card could take (bytes over
    3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is larger;
    for K1–K3 also ``bound_tc_ms``, the operations at 495/3 TFLOP/s, the
-   f32-accurate 3xTF32 rate of the tensor cores, and ``vs_library``).
-   An ``nvcc -Xptxas -v`` run of the flash source beside the build gives
-   each flash kernel's registers, spills and static shared memory.
+   f32-accurate 3xTF32 rate of the tensor cores, and ``vs_library``; for
+   K10 ``bound_tc_ms`` at 495/2 TFLOP/s, 2xTF32, since int8 weights are
+   exact in TF32).  ``nvcc -Xptxas -v`` runs of the flash, int8 and
+   paged-attention sources beside the build give each kernel's
+   registers, spills and static shared memory.
+   K9 (paged attention) is checked at the engine's decode shape in five
+   rel cases at 1e-5, K10 (int8 matmul) at its eight serving shapes (M 8
+   and 512 against the four (K, N) of the model) at rtol 1e-5 / atol
+   1e-4, each twice with identical bits; K10's row in the ``kernels``
+   line carries every shape with its ``vs_library`` and its top-level
+   numbers are the worst shape's.  A ``k10_crossover`` line times K10's
+   skinny and tiled kernels against each other at M 1 to 2048.
    The flash kernels K1–K3 are checked at the training shape (B 8, T 1024,
    H 12, D 64, causal), at it with q x 4 (full), at a ragged T = 1000
    (causal and not) and at D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV
@@ -118,11 +127,20 @@ H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 tensor cores, dense (data sheet, SXM)
 #: f32-accurate 3xTF32 (K1–K3): three TF32 products per f32 product
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
+#: K10 (int8 weights exact in TF32, x split in two): two TF32 products
+H100_2XTF32_FLOPS = H100_TF32_FLOPS / 2
 K9_SOURCE = "autodist_tpu_torch/csrc/paged_attention.cu"
 K9_REPLACES = "autodist_tpu/ops/fused_kernels.py:624"
 K10_SOURCE = "autodist_tpu_torch/csrc/int8_matmul.cu"
 K10_REPLACES = "autodist_tpu/ops/quant.py:74"
+#: K10's (K, N) on the serving path: q/k/v/o, the MLP's two kernels, the
+#: tied head; each at decode (M 8) and prefill (M 512)
+K10_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 32128))
+K10_CROSSOVER_M = (1, 8, 16, 17, 32, 64, 256, 512, 2048)
 FLASH_SOURCE = "autodist_tpu_torch/csrc/flash_attention.cu"
+#: sources whose kernels' registers and spills the ptxas lines report
+PTXAS_SOURCES = ("flash_attention.cu", "int8_matmul.cu",
+                 "paged_attention.cu")
 FLASH_REPLACES = {"flash_fwd": "autodist_tpu/ops/flash_attention.py:56",
                   "flash_dq": "autodist_tpu/ops/flash_attention.py:141",
                   "flash_dkv": "autodist_tpu/ops/flash_attention.py:183"}
@@ -191,10 +209,13 @@ def phase_kernels(torch, timer):
     for name, rel_list in rel_specs.items():
         rel = torch.tensor(rel_list, dtype=torch.int32, device=dev)
         out = fk.paged_attention(q, kc, vc, bt, rel)
+        again = fk.paged_attention(q, kc, vc, bt, rel)
         ref = fk.paged_attention_reference(q, kc, vc, bt, rel)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
                                    msg=f"K9 rel={name}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K9 not bit-identical at rel={name}")
         k9_err = max(k9_err, (out - ref).abs().max().item())
     rel = torch.full((b,), w - 1, dtype=torch.int32, device=dev)
     live = int((rel.long() + 1).sum())
@@ -225,7 +246,7 @@ def phase_kernels(torch, timer):
     # --- K10: every (M, K, N) the serving path gives it -----------------
     k10_rows = []
     for m in (8, 512):
-        for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 32128)):
+        for k, n in K10_SHAPES:
             # the model's scales: unit-variance activations after
             # LayerNorm, lecun-normal weights (std 1/sqrt(K))
             x = torch.randn(m, k, generator=gen).to(dev)
@@ -233,32 +254,72 @@ def phase_kernels(torch, timer):
                 (torch.randn(k, n, generator=gen) / k ** 0.5).to(dev))
             wdeq = wq.q.float() * wq.scale
             out = quant.int8_matmul(x, wq)
+            again = quant.int8_matmul(x, wq)
             ref = quant.int8_matmul_reference(x, wq)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4,
                                        msg=f"K10 M={m} K={k} N={n}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"K10 not bit-identical at M={m} "
+                                     f"K={k} N={n}")
             nbytes = k * n + 4 * (m * k + n + m * n)
             bnd, by = bound_ms(nbytes, 2.0 * m * k * n)
             row = {"M": m, "K": k, "N": n,
+                   "path": "skinny" if m <= quant._SKINNY_M else "tiled",
                    "max_abs_err": (out - ref).abs().max().item(),
                    "ms": timer(lambda: quant.int8_matmul(x, wq)),
                    "plain_ms": timer(
                        lambda: quant.int8_matmul_reference(x, wq)),
                    "bound_ms": bnd, "bound_by": by,
                    "library_ms": timer(lambda: torch.matmul(x, wdeq))}
+            # int8 is exact in TF32: two TF32 products per f32 product
+            row["bound_tc_ms"], row["bound_tc_by"] = bound_ms(
+                nbytes, 2.0 * m * k * n, H100_2XTF32_FLOPS)
+            row["vs_library"] = row["ms"] / row["library_ms"]
             emit({"phase": "kernel", "name": "int8_matmul", **row})
             k10_rows.append(row)
-    head = next(r for r in k10_rows if (r["M"], r["N"]) == (8, 32128))
+    worst = max(k10_rows, key=lambda r: r["vs_library"])
     k10 = {
         "name": "int8_matmul", "route": "cuda", "source": K10_SOURCE,
         "replaces": K10_REPLACES,
-        "shape": {k: head[k] for k in ("M", "K", "N")},
+        "shape": {k: worst[k] for k in ("M", "K", "N")},
         "max_abs_err": max(r["max_abs_err"] for r in k10_rows),
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+        **{k: worst[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "worst_vs_library": worst["vs_library"],
+        "shapes": [{k: r[k] for k in ("M", "K", "N", "path", "ms",
+                                      "library_ms", "bound_ms",
+                                      "bound_tc_ms", "vs_library")}
+                   for r in k10_rows],
         "library_call": "torch.matmul against the pre-dequantized weight",
     }
+    emit({"phase": "k10_crossover", **k10_crossover(torch, timer, gen)})
     return k9, k10
+
+
+def k10_crossover(torch, timer, gen):
+    """K10's skinny and tiled kernels timed against each other (and
+    ``torch.matmul`` on the pre-dequantized weight) at every M of
+    ``K10_CROSSOVER_M`` and each model shape (the skinny kernel runs any
+    M, in slabs of 16 rows): where the tiled one starts to win."""
+    from autodist_tpu_torch.ops import quant
+
+    rows, first_tiled = [], {}
+    for k, n in K10_SHAPES:
+        wq = quant.quantize_weight(
+            (torch.randn(k, n, generator=gen) / k ** 0.5).to("cuda"))
+        wdeq = wq.q.float() * wq.scale
+        for m in K10_CROSSOVER_M:
+            x = torch.randn(m, k, generator=gen).to("cuda")
+            row = {"M": m, "K": k, "N": n}
+            for path in ("skinny", "tiled"):
+                row[path + "_ms"] = timer(lambda: quant._launch(x, wq, path))
+            row["library_ms"] = timer(lambda: torch.matmul(x, wdeq))
+            rows.append(row)
+            if row["tiled_ms"] < row["skinny_ms"]:
+                first_tiled.setdefault(f"{k}x{n}", m)
+    return {"rows": rows, "first_m_where_tiled_wins": first_tiled,
+            "skinny_m": quant._SKINNY_M}
 
 
 def _flash_case(torch, fa, gen, b, t, h, d, causal, mul=1.0):
@@ -1387,15 +1448,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report("flash_attention.cu")
+    ptxas = {src: start_ptxas_report(src) for src in PTXAS_SOURCES}
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas_report = read_ptxas_report(ptxas)
+    ptxas_reports = {src: read_ptxas_report(p) for src, p in ptxas.items()}
+    ptxas_report = ptxas_reports["flash_attention.cu"]
     emit({"phase": "device", "device": device_name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s})
-    emit({"phase": "ptxas", "source": FLASH_SOURCE,
-          "kernels": ptxas_report})
+    for src, report in ptxas_reports.items():
+        emit({"phase": "ptxas", "source": "autodist_tpu_torch/csrc/" + src,
+              "kernels": report})
 
     timer = Timer()
     k9, k10 = phase_kernels(torch, timer)

@@ -105,6 +105,79 @@ def test_int8_matmul_small_m_results_do_not_depend_on_m(dev, k, n):
                                    batched[:rows], atol=0, rtol=0)
 
 
+MODEL_KN = [(768, 768), (768, 3072), (3072, 768), (768, 32128)]
+
+
+@pytest.mark.parametrize("m", [17, 64, 256, 2048])
+@pytest.mark.parametrize("k,n", MODEL_KN)
+def test_int8_matmul_kernels_at_prefill_shapes(dev, m, k, n):
+    """Both kernels (the tiled one, and the skinny one in slabs of 16
+    rows) at the prefill row counts of the model's four projections, at
+    the unchanged tolerance."""
+    gen = torch.Generator().manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, generator=gen).to(dev)
+    w = quant.quantize_weight((torch.randn(k, n, generator=gen)
+                               / np.sqrt(k)).to(dev))
+    want = quant.int8_matmul_reference(x, w)
+    for path in ("tiled", "skinny"):
+        out = quant._launch(x, w, path)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4,
+                                   msg=path)
+
+
+@pytest.mark.parametrize("k,n", MODEL_KN + [(100, 77), (4099, 1002)])
+def test_int8_matmul_tiled_results_do_not_depend_on_m(dev, k, n):
+    """Prefill rows see the same numbers however many rows share the
+    launch: the tiled kernel sums K in one fixed order for every tile
+    shape (M 17 and 512 take different tiles)."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(512, k, generator=gen).to(dev)
+    w = quant.quantize_weight((torch.randn(k, n, generator=gen)
+                               / np.sqrt(k)).to(dev))
+    batched = quant.int8_matmul(x, w)
+    for rows in (17, 100):
+        torch.testing.assert_close(quant._launch(x[:rows], w, "tiled"),
+                                   batched[:rows], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 512])
+@pytest.mark.parametrize("k,n", MODEL_KN)
+def test_int8_matmul_two_launches_give_the_same_bits(dev, m, k, n):
+    """The skinny kernel's cluster reduction and the tiled kernel's sums
+    run in a fixed order: no run-to-run variation."""
+    gen = torch.Generator().manual_seed(m + k)
+    x = torch.randn(m, k, generator=gen).to(dev)
+    w = quant.quantize_weight((torch.randn(k, n, generator=gen)
+                               / np.sqrt(k)).to(dev))
+    assert torch.equal(quant.int8_matmul(x, w), quant.int8_matmul(x, w))
+
+
+@pytest.mark.parametrize("rel_case", ["mixed", "one_live", "full"])
+def test_paged_attention_kernel_at_the_engine_shape(dev, rel_case):
+    """K9 at the engine's decode shape (8 slots, 12 heads x 64, block
+    32, window 1024): the mixed rel case, one live position per slot and
+    the full window, at 1e-5, twice with identical bits (the splits merge
+    through the cluster in a fixed order)."""
+    gen = torch.Generator().manual_seed(17)
+    b, h, dh, bs, maxb = 8, 12, 64, 32, 32
+    nb = b * maxb + maxb + 1
+    q = torch.randn(b, h, dh, generator=gen).to(dev)
+    kc = torch.randn(nb, bs, h, dh, generator=gen).to(dev)
+    vc = torch.randn(nb, bs, h, dh, generator=gen).to(dev)
+    bt = torch.randint(1, nb, (b, maxb), generator=gen).to(dev, torch.int32)
+    rel = {"mixed": [0, 15, 31, 32, 500, 700, 1000, maxb * bs - 1],
+           "one_live": [0] * b, "full": [maxb * bs - 1] * b}[rel_case]
+    rel = torch.tensor(rel, dtype=torch.int32, device=dev)
+    out = fk.paged_attention(q, kc, vc, bt, rel)
+    again = fk.paged_attention(q, kc, vc, bt, rel)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, fk.paged_attention_reference(q, kc, vc, bt, rel),
+        atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("b,t,h,d", [(2, 33, 3, 8), (1, 130, 2, 16),
                                      (2, 64, 2, 16), (1, 1000, 2, 64),
                                      (1, 70, 1, 64), (1, 1, 1, 64)])

@@ -94,17 +94,20 @@ def to_f32(x, truncate: bool = False):
 def mma_f32(a, b, terms: int = 3, group=None, truncate: bool = False,
             acc=None, step=_f64_step):
     """``acc + a [M, K] @ b [K, N]`` as the kernels compute it: per 8-wide
-    k-step 3 TF32 mmas (small·big, big·small, big·big), or 1 (plain TF32),
-    each adding its exact products (``step`` of the k-step's operands:
-    float64, or the lane-level fragment model) to an f32 accumulator with
-    one rounding, to nearest or, with ``truncate``, toward zero.
+    k-step 3 TF32 mmas (small·big, big·small, big·big), 2 (big·small,
+    big·big: for an ``a`` that is exact in TF32, as int8 weights are), or 1
+    (plain TF32), each adding its exact products (``step`` of the k-step's
+    operands: float64, or the lane-level fragment model) to an f32
+    accumulator with one rounding, to nearest or, with ``truncate``, toward
+    zero.
     ``group=None``: one accumulator for the whole sum, starting at
     ``acc``; ``group=n``: every n k-steps go to a fresh fragment, which is
     then added to the running sum in f32 with round to nearest."""
     a_big, a_small = split(a)
     b_big, b_small = split(b)
-    pairs = ([(a_small, b_big), (a_big, b_small), (a_big, b_big)]
-             if terms == 3 else [(a_big, b_big)])
+    pairs = {3: [(a_small, b_big), (a_big, b_small), (a_big, b_big)],
+             2: [(a_big, b_small), (a_big, b_big)],
+             1: [(a_big, b_big)]}[terms]
     run = (np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None
            else np.asarray(acc, np.float32))
     nk = a.shape[1]

@@ -49,6 +49,7 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.kernel.synchronization.explicit_sync\n"
         "import autodist_tpu_torch.profile_train\n"
         "import autodist_tpu_torch.profile_flash, autodist_tpu_torch.fit\n"
+        "import autodist_tpu_torch.profile_serving\n"
         "import autodist_tpu_torch.device_timer\n"
         "import autodist_tpu_torch.strategy.auto_strategy\n"
         "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
@@ -199,6 +200,19 @@ def test_profile_flash_variants_apply_and_it_needs_a_card(monkeypatch):
         profile_flash._variant_source(text, [("no such text", "")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_flash.main() == 2
+
+
+def test_profile_serving_probes_apply_and_it_needs_a_card(monkeypatch):
+    """Each K10 probe's substitution finds its text in the int8 source
+    and changes it; without a card the script exits 2."""
+    from autodist_tpu_torch import profile_flash, profile_serving
+    from autodist_tpu_torch.ops import _build
+
+    text = (_build.CSRC / profile_serving.SOURCE).read_text()
+    for name, subs in profile_serving.PROBES.items():
+        assert profile_flash._variant_source(text, subs) != text, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_serving.main() == 2
 
 
 def test_ptxas_report_is_parsed_per_flash_kernel():
