@@ -5,11 +5,8 @@ resource_spec_file, strategy_builder)`` → ``scope()`` / ``capture()`` →
 ``create_distributed_session()`` → ``session.run(batch)``, and the
 ``function()`` one-liner.  ``device=None`` means the CUDA card (on a
 multi-rank ``torch.distributed`` run, card ``rank % cards``); without a
-card this raises unless ``device="cpu"`` is passed.
-
-The JAX facade defaults to the ``PSLoadBalancing`` builder, and the PS
-family comes with its own slice: with no builder, building the strategy
-raises rather than picking another one.
+card this raises unless ``device="cpu"`` is passed.  With no builder
+the facade builds ``PSLoadBalancing()``, the JAX facade's default.
 """
 from __future__ import annotations
 
@@ -17,7 +14,7 @@ import contextlib
 import itertools
 from typing import Any, Callable, Dict, Optional, Sequence
 
-from autodist_tpu_torch.const import ENV, not_ported
+from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.mesh import Mesh, build_mesh, rank_device
@@ -25,7 +22,7 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runner import DistributedSession
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
 from autodist_tpu_torch.strategy.compiler import StrategyCompiler
-from autodist_tpu_torch.strategy.ps_family import ITEM as PS_ITEM
+from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 
 _default_autodist: Optional["AutoDist"] = None
 
@@ -49,9 +46,9 @@ class AutoDist:
     Args:
       resource_spec_file: yaml path (or pass ``resource_spec``); omitting
         both derives one node from the visible CUDA devices.
-      strategy_builder: a :class:`StrategyBuilder`
-        (:class:`~autodist_tpu_torch.strategy.AllReduce` or
-        :class:`~autodist_tpu_torch.strategy.Zero1`).
+      strategy_builder: a :class:`StrategyBuilder` of
+        :mod:`autodist_tpu_torch.strategy`; ``PSLoadBalancing()`` when
+        omitted.
       mesh_axes: optional logical mesh shape, e.g. ``{"data": 4}``.
       device: where this rank computes; the CUDA card unless given.
     """
@@ -64,7 +61,8 @@ class AutoDist:
         self._device = rank_device(device)
         _set_default_autodist(self)
         self._resource_spec = resource_spec or ResourceSpec(resource_spec_file)
-        self._strategy_builder = strategy_builder
+        self._strategy_builder = PSLoadBalancing() \
+            if strategy_builder is None else strategy_builder
         self._mesh_axes = mesh_axes
         self._graph_item: Optional[GraphItem] = None
         self._session: Optional[DistributedSession] = None
@@ -127,11 +125,6 @@ class AutoDist:
         if strategy_id:
             self._strategy = Strategy.deserialize(strategy_id)
         else:
-            if self._strategy_builder is None:
-                raise not_ported(
-                    "AutoDist's default builder (PSLoadBalancing)",
-                    f"{PS_ITEM}; pass strategy_builder=AllReduce() or "
-                    "Zero1()")
             self._strategy = self._strategy_builder.build(
                 self._graph_item, self._resource_spec)
             self._strategy.serialize()

@@ -13,9 +13,10 @@ Both packages key parameters by the same logical names
   dicts of numpy arrays;
 * :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
   state of ``adam``, ``adamw`` and ``sgd`` across (count, moments or
-  momentum trace, keyed like the parameters), and the ZeRO-1 layout of
-  the JAX explicit step (``{"vars", "zero1"}``), sliced to one rank's
-  shards;
+  momentum trace, keyed like the parameters), and into the port's
+  bucketed layout (``{"vars", "zero1"}``) sliced to one rank's shards:
+  from the ZeRO-1 layout of the JAX explicit step, or from the
+  per-variable state of a JAX PS session (its GSPMD step);
 * :func:`sync_state_from_jax` carries the numerics state (loss scale and
   health counters) and one rank's error-feedback residuals.
 
@@ -30,6 +31,8 @@ from typing import Any, Dict, Sequence
 import numpy as np
 import torch
 
+from autodist_tpu_torch.graph_item import flatten, unflatten
+from autodist_tpu_torch.kernel.synchronization.bucketing import pack_bucket
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops.quant import Quantized
 
@@ -106,12 +109,47 @@ def opt_state_from_jax(state, device="cpu", zero1_buckets: Sequence = (),
     holds zeros, and the two packages may pad to different data sizes)
     and sliced to ``[rank·sz, (rank+1)·sz)`` with ``sz = padded_total //
     data``.  ``zero1_buckets`` is the port session's plan
-    (``session.zero1_buckets``)."""
+    (``session.zero1_buckets``).
+
+    A per-variable state (what a JAX PS session holds: its GSPMD step
+    keeps each variable's moments whole, sharded by layout only) becomes
+    the same layout when ``zero1_buckets`` is given: each bucket's
+    members' moments are packed in bucket order, zero-padded and sliced
+    to rank ``rank``'s shard; the other variables keep theirs under
+    ``"vars"``."""
     if isinstance(state, dict) and set(state) == {"vars", "zero1"}:
         return {"vars": _zero1_tree_state(state["vars"], device),
                 "zero1": _zero1_shards(state["zero1"], zero1_buckets, rank,
                                        data, device)}
-    return _plain_state(state, device)
+    plain = _plain_state(state, device)
+    if not zero1_buckets:
+        return plain
+    return _pack_tree_state(plain, zero1_buckets, rank, data)
+
+
+def _rank_shard(full: torch.Tensor, bucket, rank: int,
+                data: int) -> torch.Tensor:
+    sz = bucket.padded_total // data
+    return full[rank * sz:(rank + 1) * sz].clone()
+
+
+def _pack_tree_state(plain, buckets: Sequence, rank: int,
+                     data: int) -> Dict[str, Any]:
+    """A per-variable state → ``{"vars", "zero1"}`` over ``buckets``."""
+    bucketed = {n for b in buckets for n in b.names}
+    tree: Dict[str, Any] = {}
+    zero1: Dict[str, Any] = {}
+    for k, v in plain.items():
+        if isinstance(v, torch.Tensor):         # the step count
+            tree[k], zero1[k] = v, v.clone()
+            continue
+        leaves = dict(flatten(v))
+        tree[k] = unflatten([(n, x) for n, x in leaves.items()
+                             if n not in bucketed])
+        zero1[k] = {b.key: _rank_shard(pack_bucket(
+            b, [leaves[n] for n in b.names]), b, rank, data)
+            for b in buckets}
+    return {"vars": tree, "zero1": zero1}
 
 
 def _zero1_tree_state(part_state, device) -> Dict[str, Any]:
@@ -136,8 +174,7 @@ def _zero1_shards(state, buckets: Sequence, rank: int, data: int,
                              f"session's plan lacks ({sorted(by_key)})")
         full = vec.new_zeros(b.padded_total)
         full[:b.total] = vec[:b.total]
-        sz = b.padded_total // data
-        return full[rank * sz:(rank + 1) * sz].clone()
+        return _rank_shard(full, b, rank, data)
     return {k: v if isinstance(v, torch.Tensor)
             else {key: shard(key, x) for key, x in v.items()}
             for k, v in out.items()}

@@ -13,6 +13,9 @@ import fnmatch
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.numerics.policy import NumericsConfig
 
@@ -57,6 +60,14 @@ def _dtype_name(leaf) -> str:
     return str(leaf.dtype).replace("torch.", "")
 
 
+def itemsize(dtype: str) -> int:
+    """Bytes per element of a catalog dtype name (``"bfloat16"`` too,
+    which numpy does not know)."""
+    t = getattr(torch, str(dtype), None)
+    return t.itemsize if isinstance(t, torch.dtype) \
+        else np.dtype(dtype).itemsize
+
+
 @dataclass
 class VarInfo:
     """Catalog entry for one variable."""
@@ -68,6 +79,10 @@ class VarInfo:
     sparse: bool = False
     pipeline: bool = False
     expert: bool = False
+
+    @property
+    def byte_size(self) -> int:
+        return int(np.prod(self.shape or (1,))) * itemsize(self.dtype)
 
     def to_dict(self) -> dict:
         """The JAX package's catalog entry, field for field."""

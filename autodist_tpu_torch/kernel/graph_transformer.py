@@ -1,12 +1,15 @@
 """GraphTransformer: lower the captured program into a distributed step.
 
 Port of the JAX package's ``kernel/graph_transformer.py``.  Plans that
-need the explicit bucketed step (a compressor, ZeRO-1's
-``reduce_scatter``, a non-zero ``bucket_bytes``, an explicit ``ring`` or
-``full`` schedule) go to :func:`~autodist_tpu_torch.kernel.
-synchronization.explicit_sync.make_explicit_step` (``:228``).  Every
-other plan runs the twin of the JAX GSPMD step (``:325-493``) reduced to
-replicated AllReduce plans.  One such step runs, in order:
+need the explicit bucketed step (a compressor, the ``reduce_scatter`` of
+``Zero1`` and of every PS plan, a non-zero ``bucket_bytes``, an explicit
+``ring`` or ``full`` schedule) go to :func:`~autodist_tpu_torch.kernel.
+synchronization.explicit_sync.make_explicit_step` (``:228``); the PS
+family's weight-update sharding, which the JAX package runs on its GSPMD
+step (``:428-470``), runs there.  Every other plan (``AllReduce``,
+``PartitionedAR``, ``RandomAxisPartitionAR``: replicated AllReduce plans
+on a data-only mesh) runs the twin of the JAX GSPMD step (``:325-493``).
+One such step runs, in order:
 
 1. loss and gradients: ``loss_fn`` under autograd on this rank's rows of
    the global batch (its slice of the ``data`` axis);
@@ -32,7 +35,8 @@ replicated AllReduce plans.  One such step runs, in order:
 The options still to port raise, naming their ROADMAP item; nothing runs
 in place of what was asked: the cast and low-rank compressors, fused
 groups, the accumulation pipeline (``overlap="pipeline"``, ``"full"``
-with ``accum_steps > 1``) and ``hier``.
+with ``accum_steps > 1``) and ``hier``; PS staleness and proxy variables
+are refused earlier, by the compiler.
 """
 from __future__ import annotations
 

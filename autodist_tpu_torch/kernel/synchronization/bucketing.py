@@ -19,6 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from autodist_tpu_torch.graph_item import itemsize as _itemsize
+
 #: default bucket size cap
 DEFAULT_BUCKET_BYTES = 4 << 20
 
@@ -29,12 +31,6 @@ SYNC_MODES = (MODE_ALL_REDUCE, MODE_REDUCE_SCATTER)
 OVERLAP_MODES = ("auto", "none", "pipeline", "ring", "full")
 OVERLAP_AUTO, OVERLAP_NONE, OVERLAP_PIPELINE, OVERLAP_RING, OVERLAP_FULL = \
     OVERLAP_MODES
-
-
-def _itemsize(dtype: str) -> int:
-    t = getattr(torch, str(dtype), None)
-    return t.itemsize if isinstance(t, torch.dtype) \
-        else np.dtype(dtype).itemsize
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,14 @@
 """The explicit bucketed training step, for all-reduce and ZeRO-1 buckets.
 
 Port of the JAX package's ``kernel/synchronization/explicit_sync.py``
-(``:96-119, 223-246, 249-1180``).  The step runs, on each rank, in
-order:
+(``:96-119, 223-246, 249-1180``).  Reduce-scatter (ZeRO-1) buckets hold
+the variables of ``Zero1`` plans and of every PS plan: the PS family's
+weight-update sharding, which the JAX package lowers through GSPMD
+(``graph_transformer.py:428-470``), runs here as the same
+reduce-scatter → 1/N shard update → all-gather.  One step may mix both
+kinds (``Parallax``: the embedding's PS plan in a reduce-scatter bucket,
+the dense variables' AllReduce plans in all-reduce buckets).  The step
+runs, on each rank, in order:
 
 1. loss and gradients on this rank's rows of the global batch, the loss
    multiplied by the loss scale first when one is on; with
@@ -40,7 +46,8 @@ order:
    buckets f32; otherwise the optimizer's own update on the shards, with
    the drop reason in a warning.  This is decided from the configuration
    when the step is built;
-6. the tree update of every other variable, then the ``all_gather`` of
+6. the tree update of every other variable (the all-reduce buckets'
+   members and anything unbucketed), then the ``all_gather`` of
    each updated shard in ``overlap.gather_schedule`` order and the unpack
    into the parameters;
 7. metrics: ``loss`` averaged over the data group and unscaled,
@@ -61,7 +68,11 @@ JAX package takes its GSPMD step at size 1; the quantized ring's hop
 kernels run whenever a bucket is quantized (the JAX package's are an
 opt-in; both put the same bits on the wire).  The accumulation pipeline,
 the hierarchical and per-variable tiers and the flight-recorder stamps
-are refused or absent until their ROADMAP items.
+are refused or absent until their ROADMAP items.  Under a PS plan the
+parameters stay replicated between steps; the JAX package holds
+PS-partitioned variables and a sparse embedding 1/N per rank
+(``param_spec = P("data")``), the same losses and parameters for more
+memory here.
 """
 from __future__ import annotations
 

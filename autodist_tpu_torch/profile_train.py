@@ -3,13 +3,16 @@
     python3 -m autodist_tpu_torch.profile_train
 
 Trains ``transformer_lm()`` at its defaults (random weights from seed 0)
-on one fixed batch of ``BATCH`` x 1024 tokens through the facade, in two
+on one fixed batch of ``BATCH`` x 1024 tokens through the facade, in three
 configurations, one after the other:
 
 * ``allreduce``: ``AllReduce()`` with ``adamw(1e-3)`` (the plain step);
 * ``zero1``: ``Zero1()`` with ``fusable_adam(1e-3)`` and
   ``numerics={"clip_norm": 1.0}`` (the explicit bucketed step: K4 guard
-  statistics, K5 shard updates and the skip gate's host read).
+  statistics, K5 shard updates and the skip gate's host read);
+* ``parallax``: ``Parallax()`` with the same optimizer and clip (the
+  embedding's PS plan in a reduce-scatter bucket with K5, the dense
+  variables in all-reduce buckets with the optimizer's per-leaf update).
 
 For each, after ``WARMUP`` steps it times ``STEPS`` steps
 (``torch.cuda.synchronize()`` around each), records ``PROFILED`` more under
@@ -73,18 +76,20 @@ def _session(name: str):
     from autodist_tpu_torch import autodist as adm
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
     from autodist_tpu_torch.ops.fused_kernels import fusable_adam
-    from autodist_tpu_torch.strategy import AllReduce, Zero1
+    from autodist_tpu_torch.strategy import AllReduce, Parallax, Zero1
 
     spec = transformer_lm()
     adm._reset_default_autodist_for_testing()    # one facade per config
-    zero1 = name == "zero1"
-    ad = adm.AutoDist(strategy_builder=Zero1() if zero1 else AllReduce())
+    bucketed = name != "allreduce"
+    builder = {"allreduce": AllReduce, "zero1": Zero1,
+               "parallax": Parallax}[name]()
+    ad = adm.AutoDist(strategy_builder=builder)
     with ad.scope():
         ad.capture(params=spec.init(0),
-                   optimizer=fusable_adam(1e-3) if zero1
+                   optimizer=fusable_adam(1e-3) if bucketed
                    else optim.adamw(1e-3),
                    loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
-                   numerics={"clip_norm": CLIP_NORM} if zero1 else None)
+                   numerics={"clip_norm": CLIP_NORM} if bucketed else None)
     return spec, ad.create_distributed_session()
 
 
@@ -158,7 +163,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
         return 2
-    for name in ("allreduce", "zero1"):
+    for name in ("allreduce", "zero1", "parallax"):
         print(json.dumps(profile(name)), flush=True)
     return 0
 

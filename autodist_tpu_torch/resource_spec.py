@@ -131,6 +131,13 @@ class ResourceSpec:
         return sum(n.chips for n in self._nodes)
 
     @property
+    def cpu_devices(self) -> List[DeviceSpec]:
+        """Each node's CPUs (``[0]`` when it lists none): the PS
+        builders' reduction destinations."""
+        return [DeviceSpec(n.address, DeviceType.CPU, i)
+                for n in self._nodes for i in (n.cpus or [0])]
+
+    @property
     def devices(self) -> List[DeviceSpec]:
         """Replica devices: each node's GPUs, or its CPUs when it has
         none."""

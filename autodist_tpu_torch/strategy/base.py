@@ -20,7 +20,9 @@ from autodist_tpu_torch.const import DEFAULT_STRATEGY_DIR
 
 @dataclass
 class PSSynchronizerConfig:
-    """Parameter-server sync (weight-update sharding; slice 3)."""
+    """Parameter-server sync: weight-update sharding over ``data``
+    (``staleness > 0`` and ``local_replication`` are refused when lowered,
+    ROADMAP P6)."""
 
     reduction_destination: str = ""
     local_replication: bool = False
@@ -144,6 +146,13 @@ class Strategy:
         with open(path, "r", encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
 
+    def node_for(self, var_name: str) -> Optional[VarConfig]:
+        """The node config of ``var_name``, or None."""
+        for n in self.node_config:
+            if n.var_name == var_name:
+                return n
+        return None
+
 
 class StrategyBuilder:
     """Maps ``(GraphItem, ResourceSpec) -> Strategy``."""
@@ -155,3 +164,8 @@ class StrategyBuilder:
     def replica_devices(resource_spec) -> List[str]:
         """All compute devices: GPUs, or CPUs of GPU-less nodes."""
         return [d.name_string() for d in resource_spec.devices]
+
+    @staticmethod
+    def reduction_device_names(resource_spec) -> List[str]:
+        """The PS destinations a builder assigns: one per node CPU."""
+        return [d.name_string() for d in resource_spec.cpu_devices]

@@ -1,17 +1,35 @@
 """StrategyCompiler: lower a Strategy onto the mesh.
 
-Port of the JAX package's ``strategy/compiler.py:93-486`` for what the
-port runs: AllReduce plans over the ``data`` axis.  Each per-variable
-config becomes a :class:`VarPlan`; the parameter is replicated on every
-rank and the gradient is averaged over ``data`` (no collective at data
-size 1).  The plan carries ``compressor``, ``sync_mode``
-(``"reduce_scatter"`` for ZeRO-1 weight-update sharding),
-``bucket_bytes``, ``overlap`` and ``hier`` through to the step unchanged
-(``compiler.py:436-455``).  A partitioner shards only
-over a ``model`` axis, which a mesh of the port does not have yet, so
-partitioned AllReduce variables stay replicated, as they do in the JAX
-package on a pure data-parallel mesh.  PS plans raise, naming their
-slice.
+Port of the JAX package's ``strategy/compiler.py:93-486`` for the port's
+mesh, which has a ``data`` axis only.  Each per-variable config becomes a
+:class:`VarPlan`; the parameter keeps a replicated compute copy on every
+rank.
+
+* **AllReduce** plans average the gradient over ``data`` and carry
+  ``compressor``, ``sync_mode`` (``"reduce_scatter"`` for ZeRO-1 weight-
+  update sharding), ``bucket_bytes``, ``overlap`` and ``hier`` to the
+  step unchanged (``compiler.py:436-455``).  A partitioner shards only
+  over a ``model`` axis, so partitioned AllReduce variables stay
+  replicated, as they do in the JAX package on a data-only mesh.
+* **PS** plans are weight-update sharding (``compiler.py:457-484``): the
+  plan reduce-scatters the gradient over ``data`` (``sync_mode=
+  "reduce_scatter"``, no compressor, the default bucket cap), so the
+  explicit bucketed step updates this rank's 1/N share of the optimizer
+  state and all-gathers the fresh parameters, the ZeRO-1 path.  The
+  plan records the reduction destination, the partitioner's axis and
+  shard count and the sparse flag.  ``sync=False`` is carried along and
+  the step stays bulk-synchronous, as in the JAX package.
+  ``staleness > 0`` and ``local_replication`` (proxy variables) raise,
+  naming ROADMAP P6; nothing runs in their place.
+
+Two differences from the JAX lowering, neither of which changes a loss or
+a parameter: the JAX package holds PS-partitioned variables and a sparse
+embedding on PS 1/N per rank between steps and gathers them for compute,
+where the port keeps the replicated compute copy and shards only the
+optimizer moments; and where the JAX package pads a dim that does not
+divide the data size (``pad_axis``: ``UnevenPartitionedPS``, an
+indivisible vocab), the port's flat bucket is padded to a multiple of the
+data size instead.
 """
 from __future__ import annotations
 
@@ -19,9 +37,13 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 from autodist_tpu_torch.const import not_ported
+from autodist_tpu_torch.kernel.synchronization.bucketing import \
+    MODE_REDUCE_SCATTER
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
                                               PSSynchronizerConfig, Strategy)
-from autodist_tpu_torch.strategy.ps_family import ITEM as PS_ITEM
+
+#: the ROADMAP item that brings staleness and proxy variables
+STALE_ITEM = "P6 — pipelining, hier and staleness"
 
 
 def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
@@ -41,11 +63,13 @@ def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
 
 @dataclass
 class VarPlan:
-    """Lowered per-variable plan: replicated parameter, the gradient's
-    sync mode (``"all_reduce"`` or ``"reduce_scatter"``) and the bucket
-    options."""
+    """Lowered per-variable plan: replicated parameter, the synchronizer
+    kind (``"AllReduce"`` or ``"PS"``), the gradient's sync mode
+    (``"all_reduce"`` or ``"reduce_scatter"``), the bucket options and,
+    for PS, the destination, partitioner and sparse flag."""
 
     var_name: str
+    sync_kind: str = "AllReduce"
     compressor: str = "NoneCompressor"
     group: int = 0
     fused: bool = False
@@ -53,6 +77,10 @@ class VarPlan:
     bucket_bytes: int = 0
     overlap: str = "auto"
     hier: bool = False
+    reduction_destination: str = ""
+    partition_axis: Optional[int] = None
+    num_shards: int = 1
+    sparse: bool = False
 
 
 @dataclass
@@ -85,7 +113,7 @@ class StrategyCompiler:
                                 var_plans=plans)
 
     def _compile_node(self, node, var) -> VarPlan:
-        axis, _ = parse_partitioner(node.partitioner)
+        axis, num_shards = parse_partitioner(node.partitioner)
         if axis is not None and (len(var.shape) <= axis
                                  or var.shape[axis] < 2):
             raise ValueError(
@@ -93,7 +121,18 @@ class StrategyCompiler:
                 f"with shape {var.shape}")
         sync = node.synchronizer
         if isinstance(sync, PSSynchronizerConfig):
-            raise not_ported(f"the PS synchronizer of {var.name}", PS_ITEM)
+            if sync.staleness > 0:
+                raise not_ported(f"PS staleness={sync.staleness} "
+                                 f"({var.name})", STALE_ITEM)
+            if sync.local_replication:
+                raise not_ported(f"PS local proxy variables ({var.name})",
+                                 STALE_ITEM)
+            return VarPlan(
+                var_name=var.name, sync_kind="PS",
+                sync_mode=MODE_REDUCE_SCATTER,
+                reduction_destination=sync.reduction_destination,
+                partition_axis=axis, num_shards=num_shards,
+                sparse=var.sparse)
         if not isinstance(sync, AllReduceSynchronizerConfig):
             raise ValueError(f"node {node.var_name} has no synchronizer")
         return VarPlan(

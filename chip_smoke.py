@@ -65,8 +65,16 @@ Phases, each printing one JSON line:
    1e-4, parameters at atol 1e-5; then one step whose loss is multiplied
    by a NaN batch column must be skipped: parameters and optimizer state
    bit-identical, ``skipped_steps`` 1, no K5 launch.
-
-9. the quantized ring (``train_ring``): the script starts itself again as
+9. the facade's default at full width (``train_ps``): ``AutoDist()``
+   with no builder must build ``PSLoadBalancing``'s Strategy (every
+   variable on PS), which lowers to ``train_zero1``'s bucket plan; with
+   ``fusable_adam(1e-3)`` and the clip, 3 warm-up and 10 timed steps
+   launching K1–K5 as ``train_zero1`` does, with its losses bit for bit;
+10. ``Parallax()`` at full width (``train_parallax``): the embedding in a
+   reduce-scatter bucket (K5), every other variable in all-reduce buckets
+   (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
+   losses within rtol 1e-5 of ``train_ps``'s;
+11. the quantized ring (``train_ring``): the script starts itself again as
    4 worker processes on the one card (``--ring-rank R``), joined by a
    gloo group over ``tcp://localhost`` (NCCL refuses two ranks on one
    card; gloo carries the wire bytes through host memory, the kernels
@@ -83,7 +91,13 @@ Phases, each printing one JSON line:
    bit-identical at the end.  Then, on this rank's embedding gradient
    bucket, the quantized ring reduce-scatter with K6–K8 against the
    unfused ring (the plain torch ops on the card): output and error at
-   atol 1e-6, saturation counts equal.
+   atol 1e-6, saturation counts equal.  Then each rank trains
+   ``PSLoadBalancing()`` (``ps_lb``) with ``fusable_adam`` and the clip,
+   2 warm-up and 5 timed steps: each rank's Adam moments are
+   ``padded_total / 4`` of every bucket, K5 launches once per bucket per
+   step (K4 twice, K1–K3 once per layer), every rank's parameters are
+   bit-identical at the end and each step's loss is within rtol 1e-4 of
+   ``train_zero1``'s at the same step.
 
 K4 (guard statistics) and K5 (fused Adam) join phase 2 at the ZeRO-1
 path's bucket sizes (24,674,304, 2,359,296 and 589,824 elements, and a
@@ -101,7 +115,9 @@ same bits twice.
 Then one JSON line with every kernel's numbers (``launches`` counts the
 wrapper's calls that launched its C entry point on the kernel's own path:
 serving for K9 and K10, the 13 training steps for K1–K3, the 13 ZeRO-1
-steps for K4 and K5, rank 0's 14 quantized-ring steps for K6–K8; each
+steps for K4 and K5, with their launches on ``train_ps``, ``train_parallax``
+and rank 0's ``ps_lb`` in ``launches_by_path``, rank 0's 14
+quantized-ring steps for K6–K8; each
 such call issues one kernel, or two where the work is split and then
 merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is not 0; without a
@@ -161,6 +177,8 @@ QUANT_SIZES = (6_168_576, 589_824, 147_456, 1_000_003)
 RING_RANKS = 4
 #: the train_ring phase's configurations, in the order they run
 RING_CONFIGS = ("int8_allreduce", "fp8_zero1")
+#: the 4-rank run of the facade's default builder, after the ring configs
+PS_LB_CONFIG = "ps_lb"
 RING_WARMUP, RING_TIMED = 2, 5
 #: each ring step's loss against the one-card f32 ``train_zero1`` run's at
 #: the same step (same init, batch, Adam and clip): quantization noise only
@@ -169,6 +187,14 @@ RING_TIMEOUT_S = 600
 CLIP_NORM = 1.0
 TRAIN_SHAPE = dict(B=8, T=1024, H=12, D=64)   # transformer_lm() at batch 8
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+#: the ``train_parallax`` phase: its steps, and its losses against
+#: ``train_ps``'s (the same model, batch and Adam; the dense variables take
+#: the tree update where ``train_ps`` runs K5)
+PARALLAX_WARMUP, PARALLAX_TIMED = 2, 3
+PARALLAX_LOSS_RTOL = 1e-5
+#: the 4-rank ``ps_lb`` run's losses against the one-card ``train_zero1``
+#: run's (the JAX package's case-matrix tolerance)
+PS_LB_LOSS_RTOL = 1e-4
 SERVE_GEOM = dict(slots=8, window=1024, block_size=32, chunk=16,
                   prefill_chunk=256)
 
@@ -1015,35 +1041,40 @@ def _sync_counts(fk):
     return (fk.fused_detect_stats.calls, fk.fused_adam_update.calls)
 
 
-def phase_train_zero1(torch):
-    """Full-width ZeRO-1 training through the facade: K1–K3 12 times and
-    K4 2 x buckets, K5 once per bucket each step; losses, step time,
-    tokens/s, peak memory, MFU against the f32 peak."""
-    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+def _plan_digest(buckets) -> str:
+    """One digest of a bucket plan: keys, members, offsets, sizes."""
+    digest = hashlib.sha256()
+    for b in buckets:
+        digest.update(repr((b.key, b.mode, [(v.name, v.shape, v.offset)
+                                             for v in b.vars],
+                            b.total, b.padded_total)).encode())
+    return digest.hexdigest()
+
+
+def _bucketed_steps(torch, sess, batch, layers, warmup, timed):
+    """``warmup + timed`` steps of a bucketed session with the guard and
+    K5, each checked to launch K1–K3 once per layer, K4 twice per bucket
+    and K5 once per reduce-scatter bucket, finite with nothing skipped
+    (whether the losses fall is the caller's check: 7 steps at lr 1e-3
+    end on a spike that step 8 takes back):
+    losses, global norms, the timed steps' seconds, the counts read just
+    after the last step, and the per-step counts.  The counts start at 0
+    here: the main path's launches."""
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_kernels as fk
-    from autodist_tpu_torch.strategy import Zero1
 
-    spec = transformer_lm()
-    layers = spec.config["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
-                                 Zero1(), fk.fusable_adam(1e-3),
-                                 numerics={"clip_norm": CLIP_NORM})
-    n_buckets = len(sess.zero1_buckets)
-    if sess._step.fused_kernels != ("guard", "update"):
-        raise AssertionError(f"the step runs {sess._step.fused_kernels}")
-    fa.reset_counts()             # the main path starts here
+    want = (layers, layers, layers, 2 * len(sess._step.buckets),
+            len(sess.zero1_buckets))
+    fa.reset_counts()
     fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
-    want = (layers, layers, layers, 2 * n_buckets, n_buckets)
     losses, norms, step_s = [], [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
+    for i in range(warmup + timed):
         before = _flash_counts(fa.flash_attention) + _sync_counts(fk)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = sess.run(batch)
         torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
+        if i >= warmup:
             step_s.append(time.perf_counter() - t0)
         after = _flash_counts(fa.flash_attention) + _sync_counts(fk)
         per_step = tuple(a - b for a, b in zip(after, before))
@@ -1057,19 +1088,58 @@ def phase_train_zero1(torch):
         losses.append(float(out["loss"]))
         norms.append(float(h.global_norm))
     launches = _flash_counts(fa.flash_attention) + _sync_counts(fk)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses: {losses}")
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "detect_stats",
+             "adam_update")
+    return (losses, norms, step_s, dict(zip(names, launches)),
+            dict(zip(names, want)))
+
+
+def _check_falling(losses) -> None:
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+
+def _step_rates(torch, spec, step_s) -> dict:
+    step = statistics.median(step_s)
+    flops = model_flops_per_step(spec.config, TRAIN_SHAPE["B"])
+    return {"ms_per_step": step * 1e3, "ms_per_step_min": min(step_s) * 1e3,
+            "ms_per_step_max": max(step_s) * 1e3,
+            "tokens_per_s": TRAIN_SHAPE["B"] * spec.config["seq_len"] / step,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "mfu_f32": flops["total"] / step / H100_F32_FLOPS}
+
+
+def phase_train_zero1(torch):
+    """Full-width ZeRO-1 training through the facade: K1–K3 12 times and
+    K4 2 x buckets, K5 once per bucket each step; losses, step time,
+    tokens/s, peak memory, MFU against the f32 peak."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Zero1
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 Zero1(), fk.fusable_adam(1e-3),
+                                 numerics={"clip_norm": CLIP_NORM})
+    n_buckets = len(sess.zero1_buckets)
+    if sess._step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"the step runs {sess._step.fused_kernels}")
+    losses, norms, step_s, launches, per_step = _bucketed_steps(
+        torch, sess, batch, layers, WARMUP_STEPS, TIMED_STEPS)
+    _check_falling(losses)
     mu = sess.opt_state["zero1"]["mu"]
     if sorted(mu) != sorted(b.key for b in sess.zero1_buckets) or any(
             mu[b.key].numel() != b.padded_total for b in sess.zero1_buckets):
         raise AssertionError("ZeRO-1 state does not match the bucket plan")
-    step = statistics.median(step_s)
-    flops = model_flops_per_step(spec.config, TRAIN_SHAPE["B"])
-    tokens = TRAIN_SHAPE["B"] * spec.config["seq_len"]
     elements = sum(b.padded_total for b in sess.zero1_buckets)
     out = {"layers": layers, "batch": TRAIN_SHAPE["B"],
            "seq_len": spec.config["seq_len"], "buckets": n_buckets,
            "bucket_elements": elements,
+           "bucket_plan_sha256": _plan_digest(sess._step.buckets),
            # per step over every bucket: K4 reads each element twice (the
            # packed vector and the reduced value), K5 moves 28 bytes each
            "bound_ms_per_step": {
@@ -1077,16 +1147,108 @@ def phase_train_zero1(torch):
                "adam_update": bound_ms(28.0 * elements, 15.0 * elements)[0]},
            "bucket_sizes": sorted({b.total for b in sess.zero1_buckets}),
            "losses": losses, "global_norms": norms,
-           "ms_per_step": step * 1e3, "ms_per_step_min": min(step_s) * 1e3,
-           "ms_per_step_max": max(step_s) * 1e3,
-           "tokens_per_s": tokens / step,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
-           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv",
-                                 "detect_stats", "adam_update"), launches)),
-           "launches_per_step": dict(zip(("flash_fwd", "flash_dq",
-                                          "flash_dkv", "detect_stats",
-                                          "adam_update"), want))}
+           **_step_rates(torch, spec, step_s),
+           "launches": launches, "launches_per_step": per_step}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_ps(torch, zero1_out):
+    """The facade's default at full width: ``AutoDist()`` with no builder
+    builds ``PSLoadBalancing``'s Strategy, whose PS plans lower to the
+    same reduce-scatter buckets as ``Zero1()``'s, so the step and its
+    kernels are ``train_zero1``'s and so are its losses, bit for bit."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist()                       # no builder: the default
+    with ad.scope():
+        gi = ad.capture(params=spec.init(SEED),
+                        optimizer=fk.fusable_adam(1e-3),
+                        loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                        numerics={"clip_norm": CLIP_NORM})
+    built = ad.build_strategy()
+    want = PSLoadBalancing().build(gi, ResourceSpec())
+    want.id = built.id
+    if built.to_dict() != want.to_dict() or {
+            n.synchronizer.kind for n in built.node_config} != {"PS"}:
+        raise AssertionError("AutoDist() did not build PSLoadBalancing's "
+                             "Strategy")
+    sess = ad.create_distributed_session()
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    if sess._step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"the step runs {sess._step.fused_kernels}")
+    digest = _plan_digest(sess._step.buckets)
+    if digest != zero1_out["bucket_plan_sha256"]:
+        raise AssertionError("the PS bucket plan differs from Zero1's")
+    losses, norms, step_s, launches, per_step = _bucketed_steps(
+        torch, sess, batch, layers, WARMUP_STEPS, TIMED_STEPS)
+    if losses != zero1_out["losses"]:
+        raise AssertionError(f"PS losses {losses} are not train_zero1's "
+                             f"{zero1_out['losses']} bit for bit")
+    out = {"builder": "PSLoadBalancing (the facade's default)",
+           "layers": layers, "batch": TRAIN_SHAPE["B"],
+           "seq_len": spec.config["seq_len"],
+           "buckets": len(sess.zero1_buckets), "bucket_plan_sha256": digest,
+           "losses": losses, "global_norms": norms,
+           "losses_equal_train_zero1": True,
+           **_step_rates(torch, spec, step_s),
+           "launches": launches, "launches_per_step": per_step}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parallax(torch, ps_out):
+    """``Parallax()`` at full width: the embedding (a sparse variable) on
+    PS in a reduce-scatter bucket with K5, every dense variable in
+    all-reduce buckets with the tree update, the guard (K4) over both;
+    losses within rtol 1e-5 of ``train_ps``'s."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Parallax
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 Parallax(), fk.fusable_adam(1e-3),
+                                 numerics={"clip_norm": CLIP_NORM})
+    step = sess._step
+    rs_names = {n for b in sess.zero1_buckets for n in b.names}
+    ar_names = {n for b in step.buckets if b.mode == "all_reduce"
+                for n in b.names}
+    if rs_names != set(spec.sparse_vars) or \
+            ar_names != set(step.trainable) - rs_names:
+        raise AssertionError(f"Parallax buckets: reduce-scatter {rs_names}, "
+                             f"all-reduce {len(ar_names)} variables")
+    if step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"the step runs {step.fused_kernels}")
+    losses, norms, step_s, launches, per_step = _bucketed_steps(
+        torch, sess, batch, layers, PARALLAX_WARMUP, PARALLAX_TIMED)
+    _check_falling(losses)
+    ref = ps_out["losses"][:len(losses)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    if not rel <= PARALLAX_LOSS_RTOL:
+        raise AssertionError(f"Parallax losses {losses} differ from "
+                             f"train_ps's {ref} by {rel:.2e}")
+    out = {"layers": layers, "batch": TRAIN_SHAPE["B"],
+           "seq_len": spec.config["seq_len"],
+           "buckets": len(step.buckets),
+           "reduce_scatter_buckets": len(sess.zero1_buckets),
+           "all_reduce_buckets": len(step.buckets) - len(sess.zero1_buckets),
+           "losses": losses, "global_norms": norms,
+           "max_rel_diff_vs_train_ps": rel, "rtol": PARALLAX_LOSS_RTOL,
+           **_step_rates(torch, spec, step_s),
+           "launches": launches, "launches_per_step": per_step}
     del sess
     torch.cuda.empty_cache()
     return out
@@ -1191,7 +1353,6 @@ def _ring_wire_bytes(buckets, algs, d: int) -> dict:
 
 def _ring_train(torch, name, builder, optimizer):
     """One configuration of the ``train_ring`` phase on this rank."""
-    from autodist_tpu_torch.graph_item import flatten
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_kernels as fk
@@ -1248,10 +1409,6 @@ def _ring_train(torch, name, builder, optimizer):
     launches = counts()                 # read just after the main path
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: non-finite losses: {losses}")
-    digest = hashlib.sha256()
-    for pname, x in flatten(sess.device_params):
-        digest.update(pname.encode())
-        digest.update(x.detach().cpu().numpy().tobytes())
     residual = {k: v for k, v in sess.sync_state.items()
                 if isinstance(v, torch.Tensor)}
     if sorted(residual) != sorted(b.key for b in step.buckets) or any(
@@ -1274,7 +1431,7 @@ def _ring_train(torch, name, builder, optimizer):
                               "quant_hop_quantize", "quant_hop_accumulate",
                               "quant_hop_dequant_add"), launches)),
         "launches_per_step": list(want),
-        "params_sha256": digest.hexdigest()}
+        **_params_digests(sess)}
 
 
 def _ring_fused_vs_unfused(torch, sess, batch_rows, rank):
@@ -1323,6 +1480,62 @@ def _ring_fused_vs_unfused(torch, sess, batch_rows, rank):
     return out
 
 
+def _params_digests(sess) -> dict:
+    """``params_sha256``, one digest of every parameter in catalog order,
+    and ``param_sha256``, each parameter's own (to name the ones that
+    differ when the ranks disagree)."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    digest, each = hashlib.sha256(), {}
+    for pname, x in flatten(sess.device_params):
+        data = x.detach().cpu().numpy().tobytes()
+        digest.update(pname.encode())
+        digest.update(data)
+        each[pname] = hashlib.sha256(data).hexdigest()[:16]
+    return {"params_sha256": digest.hexdigest(), "param_sha256": each}
+
+
+def _ps_lb_train(torch):
+    """The ``ps_lb`` configuration on this rank: ``PSLoadBalancing()`` with
+    ``fusable_adam`` and clip over the 4 ranks, each holding 1/4 of every
+    bucket's Adam moments; K1–K5 checked per step as in ``train_zero1``."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    spec = transformer_lm()
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 PSLoadBalancing(), fk.fusable_adam(1e-3),
+                                 numerics={"clip_norm": CLIP_NORM})
+    d = sess.data_axis_size
+    if d != RING_RANKS or sess._step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"ps_lb: data axis {d}, kernels "
+                             f"{sess._step.fused_kernels}")
+    losses, norms, step_s, launches, per_step = _bucketed_steps(
+        torch, sess, batch, spec.config["num_layers"], RING_WARMUP,
+        RING_TIMED)
+    z = sess.opt_state["zero1"]
+    for b in sess.zero1_buckets:
+        for m in ("mu", "nu"):
+            if z[m][b.key].numel() != b.padded_total // d:
+                raise AssertionError(f"ps_lb: {m} shard of {b.key} holds "
+                                     f"{z[m][b.key].numel()} elements, "
+                                     f"expected {b.padded_total // d}")
+    return sess, {
+        "losses": losses, "global_norms": norms,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_min": min(step_s) * 1e3,
+        "ms_per_step_max": max(step_s) * 1e3,
+        "buckets": len(sess.zero1_buckets),
+        "moment_elements_per_rank": sum(b.padded_total // d
+                                        for b in sess.zero1_buckets),
+        "moment_elements_logical": sum(b.total for b in sess.zero1_buckets),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": per_step,
+        **_params_digests(sess)}
+
+
 def ring_worker(rank: int, port: int) -> int:
     """One rank of the ``train_ring`` phase: prints ``RING_RESULT`` and
     its JSON as the last line."""
@@ -1348,6 +1561,9 @@ def ring_worker(rank: int, port: int) -> int:
                     torch, sess, TRAIN_SHAPE["B"] // RING_RANKS, rank)
             del sess
             torch.cuda.empty_cache()
+        sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
+        del sess
+        torch.cuda.empty_cache()
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -1412,11 +1628,19 @@ def phase_train_ring():
                                f"{(stderr or '')[-4000:]}")
         results.append(json.loads(last[0][len("RING_RESULT "):]))
     wall = time.perf_counter() - t0
-    for config in RING_CONFIGS:
+    for config in RING_CONFIGS + (PS_LB_CONFIG,):
         digests = {res[config]["params_sha256"] for res in results}
         if len(digests) != 1:
-            raise AssertionError(f"{config}: ranks' parameters differ "
-                                 f"({len(digests)} digests)")
+            each = [res[config]["param_sha256"] for res in results]
+            differ = [n for n in each[0]
+                      if len({e[n] for e in each}) > 1]
+            raise AssertionError(
+                f"{config}: ranks' parameters differ ({len(digests)} "
+                f"digests; {len(differ)} of {len(each[0])} parameters, "
+                f"first {differ[:8]}; rank groups of the first "
+                f"{[e[differ[0]] for e in each] if differ else None})")
+        for res in results:
+            del res[config]["param_sha256"]     # kept out of the report
         for res in results[1:]:
             if res[config]["launches"] != results[0][config]["launches"]:
                 raise AssertionError(f"{config}: ranks launched "
@@ -1499,6 +1723,16 @@ def main() -> int:
         row["launches_per_step"] = zero1_out["launches_per_step"][row["name"]]
     emit({"phase": "train_zero1_parity",
           **phase_train_zero1_parity(torch)})
+    ps_out = phase_train_ps(torch, zero1_out)
+    emit({"phase": "train_ps", "card": smi, **ps_out})
+    parallax_out = phase_train_parallax(torch, ps_out)
+    emit({"phase": "train_parallax", "card": smi, **parallax_out})
+    for row in sync_rows:
+        row["launches_by_path"] = {
+            path: {"launches": out["launches"][row["name"]],
+                   "per_step": out["launches_per_step"][row["name"]]}
+            for path, out in (("train_ps", ps_out),
+                              ("train_parallax", parallax_out))}
 
     ring, ring_wall, fused_vs_unfused = phase_train_ring()
     for config in RING_CONFIGS:
@@ -1515,6 +1749,21 @@ def main() -> int:
     for row in quant_rows:
         row["launches"] = sum(ring[c]["launches"][row["name"]]
                               for c in RING_CONFIGS)
+    ps_lb = ring[PS_LB_CONFIG]
+    ref = zero1_out["losses"][:len(ps_lb["losses"])]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ps_lb["losses"], ref))
+    if not rel <= PS_LB_LOSS_RTOL:
+        raise AssertionError(f"ps_lb losses {ps_lb['losses']} differ from "
+                             f"train_zero1's {ref} by {rel:.2e}")
+    emit({"phase": PS_LB_CONFIG, "card": smi, "ranks": RING_RANKS,
+          "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                               "(host-staged wire)",
+          "max_rel_diff_vs_train_zero1": rel, "rtol": PS_LB_LOSS_RTOL,
+          **ps_lb})
+    for row in sync_rows:
+        row["launches_by_path"][PS_LB_CONFIG + " (rank 0)"] = {
+            "launches": ps_lb["launches"][row["name"]],
+            "per_step": ps_lb["launches_per_step"][row["name"]]}
 
     emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
           "card": smi,

@@ -481,3 +481,67 @@ def test_zero1_guard_session_launches_k4_and_k5(dev):
         assert int(out["grad_health"].skipped_steps) == 0
         losses.append(float(out["loss"]))
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("name", ["PSLoadBalancing", "Parallax"])
+def test_ps_family_session_on_the_card_matches_the_cpu(dev, name):
+    """Three steps of the PS family's bucketed step (the facade's default
+    ``PSLoadBalancing``, and ``Parallax``'s mix of all-reduce and
+    reduce-scatter buckets) with ``fusable_adam`` and a clip, on the card
+    and on the CPU (K4 and K5's plain versions), on the linear loss of
+    ``tests/torch_dp_worker.py`` whose gradients are the batch's mean row:
+    K5 once per reduce-scatter bucket and K4 twice per bucket each step on
+    the card; parameters and moments at K5's atol 1e-6, losses at rtol
+    1e-6."""
+    import os
+    import sys
+    from pathlib import Path
+
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.autodist import (
+        AutoDist, _reset_default_autodist_for_testing)
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_dp_worker as worker
+
+    os.environ["AUTODIST_IS_TESTING"] = "True"
+    spec = transformer_lm(**worker.CFG)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _reset_default_autodist_for_testing()
+        params = spec.init(0, device="cpu")
+        ad = AutoDist(strategy_builder=getattr(strategy, name)(),
+                      device=device)
+        with ad.scope():
+            ad.capture(params=params, optimizer=fk.fusable_adam(1e-2),
+                       loss_fn=worker.linear_loss,
+                       sparse_vars=spec.sparse_vars,
+                       numerics={"clip_norm": 1e-2})
+        sess = ad.create_distributed_session()
+        buckets, rs = sess._step.buckets, sess.zero1_buckets
+        assert len(rs) == 1 and (len(buckets) > 1) == (name == "Parallax")
+        batch = worker.linear_batch(params)
+        losses = []
+        for _ in range(3):
+            k4, k5 = fk.fused_detect_stats.calls, fk.fused_adam_update.calls
+            out = sess.run(batch)
+            launched = (fk.fused_detect_stats.calls - k4,
+                        fk.fused_adam_update.calls - k5)
+            assert launched == ((2 * len(buckets), len(rs))
+                                if device == "cuda" else (0, 0))
+            assert bool(out["grad_health"].all_finite)
+            losses.append(float(out["loss"]))
+        _, opt = sess.export_state()
+        runs[device] = (losses, dict(flatten(sess.params)),
+                        {k: v.cpu() for k, v in flatten(opt)})
+    (gl, gp, go), (wl, wp, wo) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gl, wl, rtol=1e-6)
+    assert gp.keys() == wp.keys() and go.keys() == wo.keys()
+    for n in wp:
+        np.testing.assert_allclose(gp[n], wp[n], rtol=0, atol=1e-6,
+                                   err_msg=n)
+    for n in wo:
+        torch.testing.assert_close(go[n], wo[n], rtol=0, atol=1e-6,
+                                   msg=n)

@@ -93,8 +93,6 @@ def test_top_level_exports_match_the_jax_package():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("PartitionedAR", "slice 5 — the PS family"),
-    ("RandomAxisPartitionAR", "slice 5 — the PS family"),
     ("AutoStrategy", "P8 — cost model, search and AutoStrategy")])
 def test_unported_strategy_builders_import_and_raise_naming_their_item(
         name, item):

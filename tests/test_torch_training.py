@@ -330,7 +330,6 @@ class _PSBuilder(StrategyBuilder):
 
 
 @pytest.mark.parametrize("builder,capture,item", [
-    (None, {}, "slice 5"),
     (AllReduce(compressor="HorovodCompressor"), {}, "P6"),
     (AllReduce(fused_groups=True), {}, "P6"),
     (AllReduce(sync="reduce_scatter", compressor="PowerSGDCompressor"), {},
@@ -339,7 +338,7 @@ class _PSBuilder(StrategyBuilder):
      "P6"),
     (AllReduce(overlap="pipeline"), {}, "P6"),
     (AllReduce(hier=True), {}, "P6"),
-    (_PSBuilder(), {}, "slice 5"),
+    (_PSBuilder(), {}, "P6 — pipelining, hier and staleness"),
     (AllReduce(), {"remat": "full"}, "P2"),
     (AllReduce(), {"grad_fn": lambda p, b: None}, "P10"),
     (AllReduce(), {"pipeline_vars": ("embed",)}, "P10"),
@@ -371,16 +370,50 @@ def test_unported_factory_options_and_fit_raise():
         ad.create_distributed_session().fit([spec.sample_batch(2)])
 
 
+def test_autodist_defaults_to_ps_load_balancing(jmodel):
+    """``AutoDist()`` with no builder builds ``PSLoadBalancing``'s Strategy,
+    as the JAX facade does, and trains like the JAX session with that
+    builder: 3 ``adam(1e-2)`` steps, losses at rtol 1e-5."""
+    from autodist_tpu.strategy import PSLoadBalancing as JPSLoadBalancing
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    jspec, params = jmodel
+    spec = transformer_lm(**CFG)
+    batch = spec.sample_batch(8, seed=1)
+    ad = AutoDist(device="cpu")
+    with ad.scope():
+        gi = ad.capture(params=params_from_jax(params),
+                        optimizer=optim.adam(1e-2), loss_fn=spec.loss_fn,
+                        sparse_vars=spec.sparse_vars)
+    built = ad.build_strategy()
+    want = PSLoadBalancing().build(gi, ResourceSpec())
+    want.id = built.id
+    assert built.to_dict() == want.to_dict()
+    sess = ad.create_distributed_session()
+    jsess = _jax_session(jspec, params, optax.adam(1e-2), JPSLoadBalancing())
+    np.testing.assert_allclose(
+        [float(sess.run(batch)["loss"]) for _ in range(3)],
+        [float(jsess.run(batch)["loss"]) for _ in range(3)], rtol=1e-5)
+    assert [b.mode for b in sess._step.buckets] == ["reduce_scatter"]
+    assert set(sess._step.buckets[0].names) == set(sess._step.trainable)
+
+
 @pytest.mark.parametrize("name", ["PS", "PSLoadBalancing", "PartitionedPS",
-                                  "UnevenPartitionedPS", "Parallax"])
-def test_ps_family_and_zero1_builders_raise(name):
-    """The PS family raises, naming its slice; ``Zero1`` is ported
-    (``tests/test_torch_zero1.py``)."""
+                                  "UnevenPartitionedPS", "Parallax",
+                                  "PartitionedAR", "RandomAxisPartitionAR"])
+def test_ps_family_and_partitioned_builders_build(name):
+    """Every builder of the PS family and the partitioned all-reduce
+    builders is a ``StrategyBuilder`` whose plan covers every trainable
+    variable (parity with the JAX builders' JSON:
+    ``tests/test_torch_ps_family.py``)."""
     import autodist_tpu_torch.strategy as strategy
 
-    with pytest.raises(NotImplementedError, match="ROADMAP: slice 5"):
-        getattr(strategy, name)()
-    assert isinstance(strategy.Zero1(), StrategyBuilder)
+    builder = getattr(strategy, name)()
+    assert isinstance(builder, StrategyBuilder)
+    gi = GraphItem(transformer_lm(**CFG).init(0, device="cpu"))
+    plan = builder.build(gi, ResourceSpec(resource_info=ONE_NODE))
+    assert [n.var_name for n in plan.node_config] == \
+        [v.name for v in gi.trainable_var_infos]
 
 
 def test_non_data_mesh_axes_raise():

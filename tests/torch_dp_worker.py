@@ -14,6 +14,13 @@ gives; with ``IN`` (a ``torch.save`` file of ``{"params", "opt_state",
 "sync_state", "step"}`` per rank, keyed by rank) it then imports that
 state into a fresh session and writes the losses of 2 more steps.
 
+``ps`` trains the PS family in one launch (``IN``: the case matrix's
+parameters and batches, :func:`ps_main`): the model under each of
+:data:`PS_LM_BUILDERS` with ``fusable_adam(1e-2)`` and ``numerics=
+{"clip_norm": 1.0}``, every case of :data:`CASES` under every builder of
+:data:`CASE_BUILDERS`, and the trained :data:`REFERENCE_VARIANTS` on
+``scan``, each case with ``adam(1e-2)`` for 3 steps.
+
 ``quant`` trains :data:`QUANT_CFG` under each of :func:`quant_runs` (the
 quantized ring, ``numerics={"clip_norm": 1.0}``) for 3 steps and writes
 losses, saturation counts, parameters and this rank's error-feedback
@@ -40,11 +47,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from autodist_tpu_torch import optim  # noqa: E402
 from autodist_tpu_torch.autodist import (  # noqa: E402
     AutoDist, _reset_default_autodist_for_testing)
-from autodist_tpu_torch.graph_item import flatten  # noqa: E402
+from autodist_tpu_torch.graph_item import flatten, unflatten  # noqa: E402
 from autodist_tpu_torch.models.transformer_lm import \
     transformer_lm  # noqa: E402
 from autodist_tpu_torch.ops.fused_kernels import fusable_adam  # noqa: E402
-from autodist_tpu_torch.strategy import AllReduce, Zero1  # noqa: E402
+from autodist_tpu_torch import strategy as port_strategy  # noqa: E402
+from autodist_tpu_torch.strategy import (PS, AllReduce,  # noqa: E402
+                                         Parallax, PartitionedPS,
+                                         PSLoadBalancing,
+                                         RandomAxisPartitionAR,
+                                         UnevenPartitionedPS, Zero1)
 
 CFG = dict(vocab_size=97, num_layers=2, num_heads=2, head_dim=8, d_ff=32,
            max_len=16)
@@ -63,6 +75,138 @@ QUANT_BUCKET_BYTES = 256 << 10
 QUANT_LR = 1e-3
 #: the equal-gradient runs' batch: numpy's seed and the rows' scale
 LINEAR_SEED, LINEAR_SCALE = 3, 1e-2
+
+
+#: the ``ps`` mode's builders of the model (by name, with no arguments)
+PS_LM_BUILDERS = ("PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
+                  "Parallax", "PartitionedAR")
+#: the case matrix (``tests/test_case_matrix.py``): its cases on a data-only
+#: mesh, under all 8 builders
+CASES = ("sparse", "scan", "while_loop", "dynamic_lstm")
+CASE_BUILDERS = ("PS", "PSLoadBalancing", "PartitionedPS",
+                 "UnevenPartitionedPS", "AllReduce", "PartitionedAR",
+                 "RandomAxisPartitionAR", "Parallax")
+CASE_LR = 1e-2
+#: the JAX package's reference-variant list
+#: (``tests/test_case_matrix.py:263-274``): :data:`TRAINED_VARIANTS` train
+#: on ``scan``, the others (proxy variables on PS, the Horovod compressors)
+#: raise naming P6.  ``Parallax(local_proxy_variable=True)`` trains: ``scan``
+#: has no sparse variable, so no variable is on PS to take a proxy
+REFERENCE_VARIANTS = (
+    lambda: PS(),
+    lambda: PartitionedPS(local_proxy_variable=True),
+    lambda: AllReduce(chunk_size=1, all_reduce_spec="NCCL",
+                      compressor="NoneCompressor"),
+    lambda: AllReduce(chunk_size=1, all_reduce_spec="NCCL",
+                      compressor="HorovodCompressor"),
+    lambda: AllReduce(chunk_size=1, all_reduce_spec="RING",
+                      compressor="HorovodCompressorEF"),
+    lambda: PSLoadBalancing(local_proxy_variable=True),
+    lambda: Parallax(local_proxy_variable=True),
+    lambda: PSLoadBalancing(),
+    lambda: UnevenPartitionedPS(local_proxy_variable=True),
+    lambda: RandomAxisPartitionAR(chunk_size=4),
+)
+TRAINED_VARIANTS = (0, 2, 6, 7, 9)
+
+
+def case_loss(case):
+    """The PyTorch twin of the case matrix's ``loss_fn`` for ``case``.
+    ``while_loop``'s stopping test reads the max over the GLOBAL batch,
+    as the JAX step's does on a data-sharded batch: an all_reduce over the
+    ranks when there are several."""
+    mse = lambda pred, y: ((pred - y) ** 2).mean()  # noqa: E731
+    if case == "sparse":
+        def loss(p, b):
+            h = p["emb"]["table"][b["ids"].long()]
+            return mse(h.mean(1) @ p["head"]["w"], b["y"])
+    elif case == "scan":
+        def loss(p, b):
+            h = b["x"].new_zeros(b["x"].shape[0], p["cell"]["w_h"].shape[0])
+            for x_t in b["x"].transpose(0, 1):
+                h = torch.tanh(x_t @ p["cell"]["w_x"] + h @ p["cell"]["w_h"])
+            return mse(h @ p["proj"]["w"], b["y"])
+    elif case == "while_loop":
+        def loss(p, b):
+            i, v = 0, b["x"].detach()
+            while i < 8:
+                m = v.abs().max()
+                if dist.is_initialized():
+                    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+                if not m > 1.05:
+                    break
+                i, v = i + 1, 0.7 * v
+            return mse(torch.tanh(v) @ p["lin"]["w"], b["y"])
+    elif case == "dynamic_lstm":
+        def loss(p, b):
+            x = b["x"].transpose(0, 1)                 # [T, B, d_in]
+            live = (torch.arange(x.shape[0])[:, None]
+                    < b["len"][None, :]).to(x.dtype)   # [T, B]
+            h = c = x.new_zeros(x.shape[1], p["lstm"]["w_h"].shape[0])
+            for x_t, m in zip(x, live[:, :, None]):
+                z = x_t @ p["lstm"]["w_x"] + h @ p["lstm"]["w_h"] \
+                    + p["lstm"]["b"]
+                i, f, g, o = z.chunk(4, dim=-1)
+                nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                nh = torch.sigmoid(o) * torch.tanh(nc)
+                h, c = m * nh + (1 - m) * h, m * nc + (1 - m) * c
+            return mse(h @ p["proj"]["w"], b["y"])
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    return loss
+
+
+def case_losses(case, builder, data):
+    """3 ``adam`` steps of ``case`` under ``builder``: the losses.
+    ``data`` holds ``{case}/p/{name}`` and ``{case}/b/{key}`` arrays."""
+    _reset_default_autodist_for_testing()
+    part = {k[len(case) + 1:]: torch.from_numpy(data[k]) for k in data.files
+            if k.startswith(case + "/")}
+    params = unflatten([(k[2:], v) for k, v in part.items()
+                        if k.startswith("p/")])
+    batch = {k[2:]: v for k, v in part.items() if k.startswith("b/")}
+    ad = AutoDist(strategy_builder=builder, device="cpu")
+    with ad.scope():
+        ad.capture(params=params, optimizer=optim.adam(CASE_LR),
+                   loss_fn=case_loss(case),
+                   sparse_vars=("emb/table",) if case == "sparse" else ())
+    sess = ad.create_distributed_session()
+    return np.array([float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+
+
+def ps_main(data):
+    """The ``ps`` mode: ``{key: array}`` of every run (see the module
+    docstring)."""
+    import warnings
+
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # adam's unfused shard update
+        for name in PS_LM_BUILDERS:
+            sess, batch = session(name)
+            results = [sess.run(batch) for _ in range(STEPS)]
+            out[f"lm/{name}/losses"] = np.array(
+                [float(r["loss"]) for r in results])
+            out[f"lm/{name}/norms"] = np.array(
+                [float(r["grad_health"].global_norm) for r in results])
+            out.update({f"lm/{name}/p:{k}": v
+                        for k, v in flatten(sess.params)})
+            if sess.zero1_buckets:
+                _, exported = sess.export_state()
+                z = sess.opt_state["zero1"]
+                out.update({f"lm/{name}/shard:{k}": v.numel()
+                            for k, v in z["mu"].items()})
+                out.update({f"lm/{name}/full_{m}:{k}": v.numpy()
+                            for m in ("mu", "nu")
+                            for k, v in exported["zero1"][m].items()})
+        for case in CASES:
+            for name in CASE_BUILDERS:
+                out[f"case/{case}/{name}"] = case_losses(
+                    case, getattr(port_strategy, name)(), data)
+        for i in TRAINED_VARIANTS:
+            out[f"variant/{i}"] = case_losses("scan", REFERENCE_VARIANTS[i](),
+                                              data)
+    return out
 
 
 def quant_runs():
@@ -163,18 +307,23 @@ def ring_functions(x, grid_int8, grid_fp8, state, group, n):
 
 def session(strategy="allreduce", device="cpu"):
     """The facade's session for ``strategy`` in this process, and the
-    model's fixed global batch."""
+    model's fixed global batch: ``"allreduce"`` (``adam``), ``"zero1"``,
+    or the name of a builder of :data:`PS_LM_BUILDERS` (``fusable_adam``
+    and the guard with clip)."""
     torch.manual_seed(0)
+    _reset_default_autodist_for_testing()
     spec = transformer_lm(**CFG)
-    zero1 = strategy == "zero1"
-    ad = AutoDist(strategy_builder=Zero1(ZERO1_BUCKET_BYTES) if zero1
-                  else AllReduce(), device=device)
+    if strategy == "allreduce":
+        builder, opt, numerics = AllReduce(), optim.adam(1e-2), None
+    else:
+        builder = Zero1(ZERO1_BUCKET_BYTES) if strategy == "zero1" \
+            else getattr(port_strategy, strategy)()
+        opt, numerics = fusable_adam(1e-2), {"clip_norm": CLIP}
+    ad = AutoDist(strategy_builder=builder, device=device)
     with ad.scope():
-        ad.capture(params=spec.init(0, device=device),
-                   optimizer=fusable_adam(1e-2) if zero1
-                   else optim.adam(1e-2),
+        ad.capture(params=spec.init(0, device=device), optimizer=opt,
                    loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
-                   numerics={"clip_norm": CLIP} if zero1 else None)
+                   numerics=numerics)
     return ad.create_distributed_session(), spec.sample_batch(8, seed=1)
 
 
@@ -238,6 +387,9 @@ def main():
             np.savez(out, **ring_functions(
                 rows["x"], rows["grid_int8"], rows["grid_fp8"],
                 rows["state"], dist.group.WORLD, world))
+            return
+        if strategy == "ps":
+            np.savez(out, **ps_main(np.load(sys.argv[6])))
             return
         if strategy == "quant":
             np.savez(out, **quant_main(torch.load(
