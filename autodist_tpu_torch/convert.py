@@ -12,9 +12,10 @@ Both packages key parameters by the same logical names
 * :func:`params_to_numpy` is the inverse: the port's tree as nested
   dicts of numpy arrays;
 * :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
-  state of ``adam``, ``adamw`` and ``sgd`` across (count, moments or
-  momentum trace, keyed like the parameters), and into the port's
-  bucketed layout (``{"vars", "zero1"}``) sliced to one rank's shards:
+  state of ``adam``, ``adamw``, ``sgd`` and ``adagrad`` across (count,
+  moments, momentum trace or sum of squares, keyed like the parameters),
+  and into the port's bucketed layout (``{"vars", "zero1"}``) sliced to
+  one rank's shards:
   from the ZeRO-1 layout of the JAX explicit step, or from the
   per-variable state of a JAX PS session (its GSPMD step);
 * :func:`sync_state_from_jax` carries the numerics state (loss scale and
@@ -96,10 +97,11 @@ def _drop_masked(tree):
 def opt_state_from_jax(state, device="cpu", zero1_buckets: Sequence = (),
                        rank: int = 0, data: int = 1) -> Dict[str, Any]:
     """The JAX optimizer library's state (numpy leaves) for ``adam``,
-    ``adamw`` or ``sgd`` → the port's :mod:`~autodist_tpu_torch.optim`
-    state: ``{"count", "mu", "nu"}`` from the Adam scaling state,
-    ``{"trace"}`` from the momentum trace, ``{}`` when only empty states
-    remain.  Other state trees raise ``ValueError``.
+    ``adamw``, ``sgd`` or ``adagrad`` → the port's
+    :mod:`~autodist_tpu_torch.optim` state: ``{"count", "mu", "nu"}`` from
+    the Adam scaling state, ``{"trace"}`` from the momentum trace,
+    ``{"sum_of_squares"}`` from adagrad's ``ScaleByRssState``, ``{}`` when
+    only empty states remain.  Other state trees raise ``ValueError``.
 
     The ZeRO-1 layout of the JAX explicit step, ``{"vars": the tree
     optimizer's partition state, "zero1": the state over full bucket
@@ -217,6 +219,9 @@ def _plain_state(state, device) -> Dict[str, Any]:
             out["nu"] = params_from_jax(_drop_masked(part.nu), device)
         elif set(fields) == {"trace"}:
             out["trace"] = params_from_jax(_drop_masked(part.trace), device)
+        elif set(fields) == {"sum_of_squares"}:
+            out["sum_of_squares"] = params_from_jax(
+                _drop_masked(part.sum_of_squares), device)
         elif fields:
             raise ValueError(f"unsupported optimizer state "
                              f"{type(part).__name__}{tuple(fields)}")

@@ -12,7 +12,9 @@ on a data-only mesh) runs the twin of the JAX GSPMD step (``:325-493``).
 One such step runs, in order:
 
 1. loss and gradients: ``loss_fn`` under autograd on this rank's rows of
-   the global batch (its slice of the ``data`` axis);
+   the global batch (its slice of the ``data`` axis), inside
+   :func:`~autodist_tpu_torch.mesh.data_rows` so that a loss that is not
+   a mean over rows (BERT's masked mean) keeps the global batch's value;
 2. accumulation: with ``accum_steps > 1`` the gradients are averaged over
    microbatches in f32 — the even split of ``_accumulate_grads`` or the
    row-weighted uneven tail of ``_uneven_accumulate``;
@@ -52,6 +54,7 @@ from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_ALL_REDUCE, Bucket, assign_buckets, pack_bucket, unpack_bucket)
+from autodist_tpu_torch.mesh import data_rows
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
@@ -200,6 +203,18 @@ def local_rows(batch, data: int, rank: int, warned: List[int]):
     return _rows(batch, rank * (n // data), n // data)
 
 
+def local_value_and_grad(vg: Callable, params, batch, data: int, group,
+                         rank: int, warned: List[int]):
+    """``vg`` on this rank's rows of the global ``batch``, inside
+    :func:`~autodist_tpu_torch.mesh.data_rows` when they are a ``1/data``
+    slice of it."""
+    local = local_rows(batch, data, rank, warned)
+    if local is batch:
+        return vg(params, local)
+    with data_rows(group, data):
+        return vg(params, local)
+
+
 def value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
     """``vg(params, batch) -> (loss, aux, {name: grad})`` by autograd."""
     def vg(params, batch):
@@ -310,8 +325,8 @@ class GraphTransformer:
                 if num_ls is not None else None
             vg = vg_unscaled if scale is None \
                 else scaled_value_and_grad(gi, names, scale)
-            loss, aux, grads = vg(params, local_rows(batch, data, rank,
-                                                     warned))
+            loss, aux, grads = local_value_and_grad(vg, params, batch, data,
+                                                    group, rank, warned)
             if data > 1:
                 loss = sync(loss, grads)
             metrics: Dict[str, Any] = {}

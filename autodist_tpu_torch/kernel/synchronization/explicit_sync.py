@@ -10,7 +10,8 @@ kinds (``Parallax``: the embedding's PS plan in a reduce-scatter bucket,
 the dense variables' AllReduce plans in all-reduce buckets).  The step
 runs, on each rank, in order:
 
-1. loss and gradients on this rank's rows of the global batch, the loss
+1. loss and gradients on this rank's rows of the global batch (inside
+   :func:`~autodist_tpu_torch.mesh.data_rows`), the loss
    multiplied by the loss scale first when one is on; with
    ``accum_steps > 1`` the microbatches accumulate inside the step;
 2. per bucket of :func:`plan_step_buckets`' plan: pack, then the
@@ -264,12 +265,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     warned: List[int] = []
 
     def step(params, opt_state, sync_state, batch):
-        local = gt.local_rows(batch, d, rank, warned)
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
             else None
         vg = vg_unscaled if scale is None \
             else gt.scaled_value_and_grad(gi, names, scale)
-        loss, aux, grads = vg(params, local)
+        loss, aux, grads = gt.local_value_and_grad(vg, params, batch, d,
+                                                   group, rank, warned)
 
         health = guard_mod.HealthAccumulator(d, fused=True) \
             if num_active else None

@@ -10,6 +10,8 @@ which comes with slice P10 and raises here.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -50,6 +52,30 @@ class Mesh:
         if self.device_mesh is None:
             return 0
         return self.device_mesh.get_local_rank(MESH_AXIS_DATA)
+
+
+#: ``(group, size)`` while a step computes the loss on this rank's rows
+#: of the global batch, else None
+_DATA_ROWS: contextvars.ContextVar = contextvars.ContextVar("data_rows",
+                                                            default=None)
+
+
+@contextlib.contextmanager
+def data_rows(group, size: int):
+    """Marks the code inside as computing on this rank's ``1/size`` of the
+    global batch's rows over the data ``group``.  A loss that is not a mean
+    over rows (a masked mean) reads it through :func:`current_data_rows` to
+    keep the JAX step's value, which is taken over the global batch."""
+    token = _DATA_ROWS.set((group, size))
+    try:
+        yield
+    finally:
+        _DATA_ROWS.reset(token)
+
+
+def current_data_rows():
+    """``(group, size)`` inside :func:`data_rows`, else None."""
+    return _DATA_ROWS.get()
 
 
 def _canonical_axes(axes: Dict[str, int]) -> Dict[str, int]:

@@ -66,6 +66,13 @@ class ModelSpec:
         return self.make_batch(np.random.RandomState(seed), batch_size)
 
 
+def tree_device(tree) -> torch.device:
+    """The device of a parameter tree's first leaf."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """Bias-free layer norm with eps 1e-6 (the JAX package's ``LayerNorm(
@@ -78,3 +85,27 @@ def cross_entropy_loss(logits: torch.Tensor,
     """Mean softmax cross entropy with integer labels."""
     logz = torch.log_softmax(logits, dim=-1)
     return -logz.gather(-1, labels.long()[..., None]).mean()
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``sum(values * mask) / max(sum(mask), 1)`` over the GLOBAL batch,
+    the value the JAX package's step takes.  Inside a data-parallel step
+    (:func:`~autodist_tpu_torch.mesh.data_rows`) each rank holds a slice of
+    the rows and the step averages the ranks' losses, so the denominator
+    is summed over the data group first and the numerator scaled by the
+    group's size: the average is then the global masked mean, whatever
+    each rank's share of the mask.  With ``accum_steps > 1`` the count is
+    summed per microbatch over the ranks' microbatches of that index, a
+    grouping of rows that differs from the JAX step's microbatches of the
+    global batch."""
+    from autodist_tpu_torch.kernel.synchronization import collectives
+    from autodist_tpu_torch.mesh import current_data_rows
+
+    num = (values * mask).sum()
+    den = mask.sum()
+    rows = current_data_rows()
+    if rows is None:
+        return num / den.clamp_min(1.0)
+    group, size = rows
+    den = collectives.all_reduce(den.detach(), group)
+    return num * size / den.clamp_min(1.0)

@@ -20,6 +20,7 @@ from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
 from autodist_tpu_torch.models.transformer import (TransformerStack,
                                                    default_attention,
                                                    dense_attention)
+from autodist_tpu_torch.ops.chunked_xent import chunked_softmax_cross_entropy
 
 
 class TransformerLM(nn.Module):
@@ -83,11 +84,10 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
     table is the sparse-gradient variable (``spec.sparse_vars``).
     ``spec.init(seed, device=None)`` builds the parameters on ``device``
     — the CUDA card unless the caller asks for another; with no device
-    and no CUDA it raises.  ``xent_chunk`` (the chunked-vocab loss) and
-    ``remat`` are not ported yet and raise."""
-    if xent_chunk:
-        raise not_ported("transformer_lm(xent_chunk=...)",
-                         "P2 — chunked_xent")
+    and no CUDA it raises.  ``xent_chunk`` → train with the chunked-vocab
+    cross entropy (``ops/chunked_xent.py``) against the tied embedding:
+    the ``[B, T, vocab]`` logits never exist.  ``remat`` is not ported
+    yet and raises."""
     if remat not in (None, "", "none"):
         raise not_ported(f"transformer_lm(remat={remat!r})", "P2 — remat")
     seq_len = seq_len or max_len
@@ -105,6 +105,10 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
     def loss_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"],
                                  device=params["embed"].device).long()
+        if xent_chunk:
+            return chunked_softmax_cross_entropy(
+                model.features(params, tokens)[:, :-1], params["embed"],
+                tokens[:, 1:], chunk=xent_chunk)
         logits = model(params, tokens)
         return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
 

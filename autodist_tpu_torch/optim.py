@@ -1,4 +1,5 @@
-"""Optimizers: ``sgd``, ``adam``, ``adamw`` and ``apply_updates``.
+"""Optimizers: ``sgd``, ``adam``, ``adamw``, ``adagrad`` and
+``apply_updates``.
 
 Port of the optimizers the JAX package takes from its optimizer library.
 Each is a :class:`GradientTransformation` with the same state and the same
@@ -13,10 +14,13 @@ float32 rounding:
   step size and eps).
 * sgd: ``update = -lr * g``; with momentum the trace ``t = g + m t`` (and
   ``g + m t`` again under Nesterov) replaces ``g``.
+* adagrad: ``s = g² + s`` (``s`` starts at ``initial_accumulator_value``);
+  ``update = -lr * (rsqrt(s + eps) * g)``, 0 where ``s`` is not positive.
 
 State is a dict of trees shaped like the parameters: ``{"count", "mu",
 "nu"}`` for adam/adamw (``count`` an int32 scalar tensor), ``{"trace"}``
-for sgd with momentum, ``{}`` for plain sgd.  :meth:`update` is
+for sgd with momentum, ``{}`` for plain sgd, ``{"sum_of_squares"}`` for
+adagrad.  :meth:`update` is
 functional; :meth:`step_` applies the same arithmetic in place (params and
 state are overwritten, one leaf's temporaries at a time), which is what the
 training step runs under ``torch.no_grad()``.
@@ -43,7 +47,7 @@ class GradientTransformation:
     (updates, state)``; ``step_(params, grads, state)`` in place."""
 
     def __init__(self, kind: str, hyper: Dict[str, Any]):
-        self.kind = kind          # "adam" | "sgd"
+        self.kind = kind          # "adam" | "sgd" | "adagrad"
         self.hyper = hyper
 
     def init(self, params) -> Dict[str, Any]:
@@ -54,6 +58,10 @@ class GradientTransformation:
             return {"count": torch.zeros((), dtype=torch.int32, device=dev),
                     "mu": tree_map(zeros, params),
                     "nu": tree_map(zeros, params)}
+        if self.kind == "adagrad":
+            init = self.hyper["initial_accumulator_value"]
+            return {"sum_of_squares": tree_map(
+                lambda p: torch.full_like(p, init), params)}
         if self.hyper["momentum"] is not None:
             return {"trace": tree_map(zeros, params)}
         return {}
@@ -69,6 +77,11 @@ class GradientTransformation:
             if h["weight_decay"]:
                 u = u + h["weight_decay"] * p
             return -h["lr"] * u, {"mu": mu, "nu": nu}
+        if self.kind == "adagrad":
+            acc = g * g + slots["sum_of_squares"]
+            inv = torch.where(acc > 0, torch.rsqrt(acc + h["eps"]),
+                              torch.zeros_like(acc))
+            return -h["lr"] * (inv * g), {"sum_of_squares": acc}
         m = h["momentum"]
         if m is None:
             return -h["lr"] * g, {}
@@ -89,6 +102,8 @@ class GradientTransformation:
     def _slot_names(self):
         if self.kind == "adam":
             return ("mu", "nu")
+        if self.kind == "adagrad":
+            return ("sum_of_squares",)
         return ("trace",) if self.hyper["momentum"] is not None else ()
 
     def update(self, grads, state, params=None):
@@ -150,6 +165,16 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation("adam", dict(
         lr=learning_rate, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
         weight_decay=weight_decay))
+
+
+def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
+            eps: float = 1e-7) -> GradientTransformation:
+    """Adagrad with the optimizer library's semantics: the root of the sum
+    of squared gradients to date scales each step (the JAX lm1b example's
+    optimizer)."""
+    return GradientTransformation("adagrad", dict(
+        lr=learning_rate, initial_accumulator_value=initial_accumulator_value,
+        eps=eps))
 
 
 def apply_updates(params, updates):

@@ -1,10 +1,11 @@
 """Where a full-width training step's time goes on the card.
 
-    python3 -m autodist_tpu_torch.profile_train
+    python3 -m autodist_tpu_torch.profile_train [--model NAME ...]
 
-Trains ``transformer_lm()`` at its defaults (random weights from seed 0)
-on one fixed batch of ``BATCH`` x 1024 tokens through the facade, in three
-configurations, one after the other:
+Each configuration trains its model at the repo's defaults (random weights
+from seed 0) on one fixed batch through the facade.  ``--model
+transformer_lm`` (the default) runs ``transformer_lm()`` on ``BATCH`` x
+1024 tokens in three configurations, one after the other:
 
 * ``allreduce``: ``AllReduce()`` with ``adamw(1e-3)`` (the plain step);
 * ``zero1``: ``Zero1()`` with ``fusable_adam(1e-3)`` and
@@ -14,20 +15,30 @@ configurations, one after the other:
   embedding's PS plan in a reduce-scatter bucket with K5, the dense
   variables in all-reduce buckets with the optimizer's per-leaf update).
 
+``--model resnet50|vgg16|bert|lm1b`` runs that BASELINE model under its
+BASELINE builder (BASELINE.json) at batch 32, the JAX examples'
+``--batch-size``: ``resnet50()`` at 224x224 with ``AllReduce()`` and
+``sgd(1e-3, momentum=0.9)``; ``vgg16()`` with ``PartitionedPS()``, the same
+sgd and the clip; ``bert_base()`` at seq 128 with ``PartitionedAR()`` and
+``adamw(1e-3)`` (non-causal K1–K3); ``lm1b()`` (vocabulary 793472, the
+chunked loss) with ``Parallax()``, ``fusable_adam(1e-3)`` and the clip.
+
 For each, after ``WARMUP`` steps it times ``STEPS`` steps
 (``torch.cuda.synchronize()`` around each), records ``PROFILED`` more under
 ``torch.profiler`` (one profile per step) and prints one JSON line: the
 wall time per step (median, min, max), the device busy time per step
 (union of kernel intervals) and the idle share it leaves at the median
 wall time, device time and launches per step grouped by kernel (the flash
-kernels K1–K3, K4 ``detect_stats``, K5 ``adam_update``, cuBLAS GEMMs,
-softmax, other reductions, copies, everything else), and the device idle
-time that follows the step's first device-to-host copy: under the guard,
-the skip gate's read of ``all_finite``, after which the card waits for the
-host to enqueue the update.  Needs a CUDA device; exits 2 without one.
+kernels K1–K3, K4 ``detect_stats``, K5 ``adam_update``, cuDNN
+convolutions, cuBLAS GEMMs, norms, softmax, other reductions, copies,
+everything else), and the device idle time that follows the step's first
+device-to-host copy: under the guard, the skip gate's read of
+``all_finite``, after which the card waits for the host to enqueue the
+update.  Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -37,7 +48,13 @@ import torch
 
 WARMUP, STEPS, PROFILED = 3, 5, 2
 BATCH = 8
+#: the BASELINE models' batch (the JAX examples' ``--batch-size``)
+MODEL_BATCH = 32
 CLIP_NORM = 1.0
+#: ``--model`` → its configurations, in the order they run
+MODELS = {"transformer_lm": ("allreduce", "zero1", "parallax"),
+          "resnet50": ("resnet50",), "vgg16": ("vgg16",), "bert": ("bert",),
+          "lm1b": ("lm1b",)}
 
 
 def _group(name: str) -> str:
@@ -48,13 +65,19 @@ def _group(name: str) -> str:
         return "detect_stats"
     if "adam_update" in name:
         return "adam_update"
-    if "gemm" in name or "sm90_xmma" in name or "cutlass" in name:
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "implicit")):
+        return "cudnn_conv"
+    if "gemm" in low or "sm90_xmma" in low or "cutlass" in low:
         return "gemm"
-    if "softmax" in name.lower():
+    if "norm" in low:
+        return "norms"
+    if "softmax" in low:
         return "softmax"
-    if "reduce" in name.lower():
+    if "reduce" in low:
         return "reductions"
-    if "memcpy" in name.lower() or "copy" in name.lower():
+    if "memcpy" in low or "copy" in low:
         return "copies"
     return "other"
 
@@ -71,52 +94,73 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def _session(name: str):
-    from autodist_tpu_torch import optim
-    from autodist_tpu_torch import autodist as adm
-    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+def config(name: str):
+    """``(spec, builder, optimizer, numerics, batch rows)`` of a
+    configuration."""
+    from autodist_tpu_torch import models, optim
+    from autodist_tpu_torch import strategy as st
     from autodist_tpu_torch.ops.fused_kernels import fusable_adam
-    from autodist_tpu_torch.strategy import AllReduce, Parallax, Zero1
 
-    spec = transformer_lm()
+    clip = {"clip_norm": CLIP_NORM}
+    sgd = optim.sgd(1e-3, momentum=0.9)
+    return {
+        "allreduce": (models.transformer_lm(), st.AllReduce(),
+                      optim.adamw(1e-3), None, BATCH),
+        "zero1": (models.transformer_lm(), st.Zero1(), fusable_adam(1e-3),
+                  clip, BATCH),
+        "parallax": (models.transformer_lm(), st.Parallax(),
+                     fusable_adam(1e-3), clip, BATCH),
+        "resnet50": (models.resnet50(), st.AllReduce(), sgd, None,
+                     MODEL_BATCH),
+        "vgg16": (models.vgg16(), st.PartitionedPS(), sgd, clip,
+                  MODEL_BATCH),
+        "bert": (models.bert_base(), st.PartitionedAR(), optim.adamw(1e-3),
+                 None, MODEL_BATCH),
+        "lm1b": (models.lm1b(), st.Parallax(), fusable_adam(1e-3), clip,
+                 MODEL_BATCH),
+    }[name]
+
+
+def _session(name: str):
+    import warnings
+
+    from autodist_tpu_torch import autodist as adm
+
+    spec, builder, opt, numerics, rows = config(name)
     adm._reset_default_autodist_for_testing()    # one facade per config
-    bucketed = name != "allreduce"
-    builder = {"allreduce": AllReduce, "zero1": Zero1,
-               "parallax": Parallax}[name]()
     ad = adm.AutoDist(strategy_builder=builder)
     with ad.scope():
-        ad.capture(params=spec.init(0),
-                   optimizer=fusable_adam(1e-3) if bucketed
-                   else optim.adamw(1e-3),
+        ad.capture(params=spec.init(0, device="cpu"), optimizer=opt,
                    loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
-                   numerics={"clip_norm": CLIP_NORM} if bucketed else None)
-    return spec, ad.create_distributed_session()
+                   numerics=numerics)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # sgd's unfused shard update
+        sess = ad.create_distributed_session()
+    return spec, sess, spec.sample_batch(rows), rows
 
 
-def profile(name: str) -> dict:
+def _timed_step(sess, batch) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6
+
+
+def profile_steps(sess, batch, profiled: int = PROFILED) -> dict:
+    """``profiled`` steps of ``sess`` under ``torch.profiler``: per step,
+    the wall µs under the profiler, the device busy µs (union of kernel
+    intervals), kernels, device µs and launches per :func:`_group`, and
+    the idle µs after the first device-to-host copy."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    spec, sess = _session(name)
-    batch = spec.sample_batch(BATCH)
-
-    def step() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sess.run(batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e6
-
-    for _ in range(WARMUP):
-        step()
-    walls = sorted(step() for _ in range(STEPS))
-    wall_us = statistics.median(walls)
     per_group: dict = {}
     busy_us = prof_wall_us = gate_us = 0.0
     n_kernels = 0
-    for _ in range(PROFILED):
+    for _ in range(profiled):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
-            prof_wall_us += step()
+            prof_wall_us += _timed_step(sess, batch)
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
@@ -135,36 +179,56 @@ def profile(name: str) -> dict:
             first = events[dtoh[0]]
             gate_us += max(0.0, events[dtoh[0] + 1].time_range.start
                            - first.time_range.end)
-    busy_us /= PROFILED
+    return {"profiled_wall_us": prof_wall_us / profiled,
+            "busy_us": busy_us / profiled, "gate_us": gate_us / profiled,
+            "kernels": n_kernels / profiled,
+            "device_ms": {k: v[0] / profiled / 1e3
+                          for k, v in sorted(per_group.items())},
+            "launches": {k: v[1] / profiled
+                         for k, v in sorted(per_group.items())}}
+
+
+def profile(name: str) -> dict:
+    spec, sess, batch, rows = _session(name)
+    for _ in range(WARMUP):
+        _timed_step(sess, batch)
+    walls = sorted(_timed_step(sess, batch) for _ in range(STEPS))
+    wall_us = statistics.median(walls)
+    prof = profile_steps(sess, batch)
     out = {
-        "config": name, "device": torch.cuda.get_device_name(0),
-        "layers": spec.config["num_layers"], "batch": BATCH,
-        "seq_len": spec.config["seq_len"], "steps": STEPS,
+        "config": name, "model": spec.name,
+        "device": torch.cuda.get_device_name(0), "batch": rows,
+        "model_config": spec.config, "steps": STEPS,
         "buckets": len(sess._step.buckets),
         "wall_ms_per_step": wall_us / 1e3,
         "wall_ms_per_step_min": walls[0] / 1e3,
         "wall_ms_per_step_max": walls[-1] / 1e3,
-        "profiled_wall_ms_per_step": prof_wall_us / PROFILED / 1e3,
-        "device_busy_ms_per_step": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
-        "idle_after_first_dtoh_copy_ms": gate_us / PROFILED / 1e3,
-        "kernels_per_step": n_kernels / PROFILED,
-        "device_ms_per_step": {k: v[0] / PROFILED / 1e3
-                               for k, v in sorted(per_group.items())},
-        "launches_per_step": {k: v[1] / PROFILED
-                              for k, v in sorted(per_group.items())},
+        "profiled_wall_ms_per_step": prof["profiled_wall_us"] / 1e3,
+        "device_busy_ms_per_step": prof["busy_us"] / 1e3,
+        "device_idle_share": 1.0 - prof["busy_us"] / wall_us,
+        "idle_after_first_dtoh_copy_ms": prof["gate_us"] / 1e3,
+        "kernels_per_step": prof["kernels"],
+        "device_ms_per_step": prof["device_ms"],
+        "launches_per_step": prof["launches"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
     del sess
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", nargs="+", choices=sorted(MODELS),
+                        default=["transformer_lm"])
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
         return 2
-    for name in ("allreduce", "zero1", "parallax"):
-        print(json.dumps(profile(name)), flush=True)
+    for model in args.model:
+        for name in MODELS[model]:
+            print(json.dumps(profile(name)), flush=True)
     return 0
 
 

@@ -97,7 +97,37 @@ Phases, each printing one JSON line:
    ``padded_total / 4`` of every bucket, K5 launches once per bucket per
    step (K4 twice, K1–K3 once per layer), every rank's parameters are
    bit-identical at the end and each step's loss is within rtol 1e-4 of
-   ``train_zero1``'s at the same step.
+   ``train_zero1``'s at the same step;
+12. the BASELINE models (BASELINE.json), each at the repo's defaults, f32,
+   weights from ``SEED``, batch 32 (the JAX examples' ``--batch-size``),
+   through the facade under its BASELINE builder, 2 warm-up and 5 timed
+   steps, losses finite and ``session.params`` shaped as the init tree,
+   ms per step, items per second, peak memory and ``mfu_f32`` from a FLOP
+   count of the model's shapes: ``train_resnet50`` (224x224,
+   ``AllReduce()``, ``sgd(1e-3, momentum=0.9)``: K1–K5 launch zero times;
+   cuDNN's share of device time from ``profile_train``'s profile);
+   ``train_vgg16`` (``PartitionedPS()``, the same sgd, the clip: K4 twice
+   per bucket, ``fc1`` in a bucket of its own, no K5 and a warning that
+   the shards take the unfused update); ``train_bert`` (``bert_base()``,
+   seq 128, ``PartitionedAR()``, ``adamw(1e-3)``: K1/K2/K3 non-causal 12
+   each per step, 12/0/0 in ``evaluate``) and ``train_bert_parity`` (a
+   depth-2 copy, flash vs dense attention from the same weights, 3 steps,
+   losses at rtol 1e-4); ``train_lm1b`` (vocabulary 793472, the chunked
+   loss, ``Parallax()``, ``fusable_adam(1e-3)``, the clip: each table in a
+   reduce-scatter bucket of its own, everything else all-reduce, K5 twice
+   and K4 twice per bucket per step, words per second = batch x seq_len
+   over the step, peak memory under ``LM1B_PEAK_BYTES``).
+
+K1–K3 are also checked and timed at BERT-base's shape (B 32, T 128, H 12,
+D 64, non-causal; SDPA with ``is_causal=False``; the ``<64, full>``
+instantiation's ``ptxas`` line), and K4/K5 at one of lm1b's tables
+(406,257,664 elements, 20 timed launches): rows beside the others, under
+``bert_shape`` and ``lm1b_bucket`` in the ``kernels`` line.
+
+``python3 chip_smoke.py --ring-repeat N`` builds the kernels and runs only
+``train_ring`` N times, one line per run (whether the ranks' parameter
+digests agreed, or which parameters differed) and a count of the runs
+that diverged; it exits 1 when one did, and stops at any other failure.
 
 K4 (guard statistics) and K5 (fused Adam) join phase 2 at the ZeRO-1
 path's bucket sizes (24,674,304, 2,359,296 and 589,824 elements, and a
@@ -114,9 +144,10 @@ same bits twice.
 
 Then one JSON line with every kernel's numbers (``launches`` counts the
 wrapper's calls that launched its C entry point on the kernel's own path:
-serving for K9 and K10, the 13 training steps for K1–K3, the 13 ZeRO-1
-steps for K4 and K5, with their launches on ``train_ps``, ``train_parallax``
-and rank 0's ``ps_lb`` in ``launches_by_path``, rank 0's 14
+serving for K9 and K10, the 13 training steps for K1–K3 (``train_bert``'s
+under ``bert_shape``), the 13 ZeRO-1 steps for K4 and K5, with their
+launches on ``train_ps``, ``train_parallax``, rank 0's ``ps_lb``,
+``train_vgg16`` and ``train_lm1b`` in ``launches_by_path``, rank 0's 14
 quantized-ring steps for K6–K8; each
 such call issues one kernel, or two where the work is split and then
 merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -197,6 +228,18 @@ PARALLAX_LOSS_RTOL = 1e-5
 PS_LB_LOSS_RTOL = 1e-4
 SERVE_GEOM = dict(slots=8, window=1024, block_size=32, chunk=16,
                   prefill_chunk=256)
+#: the BASELINE models' phases: the JAX examples' ``--batch-size``, steps
+MODEL_BATCH = 32
+MODEL_WARMUP, MODEL_TIMED = 2, 5
+#: K1–K3 at BERT-base's shape (batch 32, seq 128, 12 heads of 64), non-causal
+BERT_SHAPE = dict(B=32, T=128, H=12, D=64)
+#: the depth-2 BERT copy's flash-vs-dense losses (the train-parity phase's)
+BERT_PARITY_RTOL = 1e-4
+#: one of lm1b's two 793472 x 512 tables: K4 and K5's largest bucket
+LM1B_TABLE = 793_472 * 512
+#: the ceiling predicted for ``train_lm1b``'s peak memory (PERF.md's
+#: prediction for the BASELINE models)
+LM1B_PEAK_BYTES = 26e9
 
 
 def emit(obj) -> None:
@@ -381,7 +424,6 @@ def _flash_case(torch, fa, gen, b, t, h, d, causal, mul=1.0):
 def phase_flash(torch, timer):
     """K1–K3: correctness at the training and ragged shapes, then times at
     the training shape (causal)."""
-    import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -400,8 +442,21 @@ def phase_flash(torch, timer):
         errs["flash_dkv"] = max(errs["flash_dkv"], e["dk"], e["dv"])
         emit({"phase": "flash_check", "shape": list(shape), "causal": causal,
               "q_mul": mul, "max_abs_err": e})
-    q, k, v, do, lse, delta, _ = bwd          # the training shape, causal
-    pairs = b * h * t * (t + 1) // 2          # causal (query, key) pairs
+    return _flash_rows(torch, timer, bwd, dict(TRAIN_SHAPE, causal=True),
+                       errs)
+
+
+def _flash_rows(torch, timer, bwd, shape, errs):
+    """K1–K3 timed on ``bwd`` (:func:`_flash_case`'s inputs): each row's
+    kernel and plain ms, bound_ms / bound_tc_ms and SDPA's time (its
+    backward on K2's row), each emitted as a ``kernel`` line."""
+    import torch.nn.functional as F
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, lse, delta, causal = bwd
+    b, t, h, d = q.shape
+    # (query, key) pairs: all of them, or the causal lower triangle
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     product = 2.0 * pairs * d                 # one T x T x D product
     rows, vec = 4.0 * b * t * h * d, 4.0 * b * h * t
     # K1: S = QK^T, O = PV; K2: S, dP = dO V^T, dQ = dS K; K3: S, dV = P^T
@@ -410,30 +465,26 @@ def phase_flash(torch, timer):
             "flash_dq": (5 * rows + 2 * vec, 3 * product),
             "flash_dkv": (6 * rows + 2 * vec, 4 * product)}
     times = {
-        "flash_fwd": (timer(lambda: fa.flash_fwd(q, k, v, True)),
-                      timer(lambda: fa.flash_fwd_reference(q, k, v, True))),
-        "flash_dq": (timer(lambda: fa.flash_dq(q, k, v, do, lse, delta,
-                                               True)),
-                     timer(lambda: fa.flash_dq_reference(q, k, v, do, lse,
-                                                         delta, True))),
-        "flash_dkv": (timer(lambda: fa.flash_dkv(q, k, v, do, lse, delta,
-                                                 True)),
-                      timer(lambda: fa.flash_dkv_reference(q, k, v, do, lse,
-                                                           delta, True))),
+        "flash_fwd": (timer(lambda: fa.flash_fwd(q, k, v, causal)),
+                      timer(lambda: fa.flash_fwd_reference(q, k, v, causal))),
+        "flash_dq": (timer(lambda: fa.flash_dq(*bwd)),
+                     timer(lambda: fa.flash_dq_reference(*bwd))),
+        "flash_dkv": (timer(lambda: fa.flash_dkv(*bwd)),
+                      timer(lambda: fa.flash_dkv_reference(*bwd))),
     }
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=causal))
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
 
     def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
         torch.autograd.grad(out, (qg, kg, vg), dot)
 
     lib_bwd = timer(sdpa_fwd_bwd) - lib_fwd
     library = {
-        "flash_fwd": (lib_fwd, "F.scaled_dot_product_attention forward "
-                               "(is_causal, [B, H, T, D] copies)"),
+        "flash_fwd": (lib_fwd, f"F.scaled_dot_product_attention forward "
+                               f"(is_causal={causal}, [B, H, T, D] copies)"),
         "flash_dq": (lib_bwd, "F.scaled_dot_product_attention backward "
                               "(forward+backward minus forward): dQ, dK and "
                               "dV together, so it compares with "
@@ -447,8 +498,7 @@ def phase_flash(torch, timer):
         bnd_tc, by_tc = bound_ms(*work[name], H100_3XTF32_FLOPS)
         row = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES[name], "shape": dict(TRAIN_SHAPE,
-                                                            causal=True),
+            "replaces": FLASH_REPLACES[name], "shape": shape,
             "max_abs_err": errs[name], "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bnd, "bound_by": by,
             "bound_tc_ms": bnd_tc, "bound_tc_by": by_tc,
@@ -1051,49 +1101,69 @@ def _plan_digest(buckets) -> str:
     return digest.hexdigest()
 
 
-def _bucketed_steps(torch, sess, batch, layers, warmup, timed):
-    """``warmup + timed`` steps of a bucketed session with the guard and
-    K5, each checked to launch K1–K3 once per layer, K4 twice per bucket
-    and K5 once per reduce-scatter bucket, finite with nothing skipped
-    (whether the losses fall is the caller's check: 7 steps at lr 1e-3
-    end on a spike that step 8 takes back):
-    losses, global norms, the timed steps' seconds, the counts read just
-    after the last step, and the per-step counts.  The counts start at 0
-    here: the main path's launches."""
+def _kernel_counts() -> dict:
+    """K1–K5's launch counters by kernel name."""
     from autodist_tpu_torch.ops import flash_attention as fa
     from autodist_tpu_torch.ops import fused_kernels as fk
 
-    want = (layers, layers, layers, 2 * len(sess._step.buckets),
-            len(sess.zero1_buckets))
+    return dict(zip(("flash_fwd", "flash_dq", "flash_dkv", "detect_stats",
+                     "adam_update"),
+                    _flash_counts(fa.flash_attention) + _sync_counts(fk)))
+
+
+def _checked_steps(torch, name, sess, batch, want, warmup, timed,
+                   guarded):
+    """``warmup + timed`` steps of ``sess``, each checked to launch exactly
+    ``want`` (K1–K5 by name) and to be finite; ``guarded`` sessions must
+    return ``grad_health`` with nothing skipped and a finite global norm,
+    the others must not: losses, global norms (guarded), the timed steps'
+    seconds and the counts read just after the last step.  The counts
+    start at 0 here: the main path's launches."""
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
     fa.reset_counts()
     fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
     losses, norms, step_s = [], [], []
     for i in range(warmup + timed):
-        before = _flash_counts(fa.flash_attention) + _sync_counts(fk)
+        before = _kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = sess.run(batch)
         torch.cuda.synchronize()
         if i >= warmup:
             step_s.append(time.perf_counter() - t0)
-        after = _flash_counts(fa.flash_attention) + _sync_counts(fk)
-        per_step = tuple(a - b for a, b in zip(after, before))
+        per_step = {k: v - before[k] for k, v in _kernel_counts().items()}
         if per_step != want:
-            raise AssertionError(f"step {i} launched (K1, K2, K3, K4, K5) = "
-                                 f"{per_step}, expected {want}")
-        h = out["grad_health"]
-        if not bool(h.all_finite) or int(h.skipped_steps) != 0 \
-                or not np.isfinite(float(h.global_norm)):
-            raise AssertionError(f"step {i}: grad_health {h}")
+            raise AssertionError(f"{name} step {i} launched {per_step}, "
+                                 f"expected {want}")
+        if ("grad_health" in out) != guarded:
+            raise AssertionError(f"{name} step {i}: grad_health "
+                                 f"{'missing' if guarded else 'unexpected'}")
+        if guarded:
+            h = out["grad_health"]
+            if not bool(h.all_finite) or int(h.skipped_steps) != 0 \
+                    or not np.isfinite(float(h.global_norm)):
+                raise AssertionError(f"{name} step {i}: grad_health {h}")
+            norms.append(float(h.global_norm))
         losses.append(float(out["loss"]))
-        norms.append(float(h.global_norm))
-    launches = _flash_counts(fa.flash_attention) + _sync_counts(fk)
+    launches = _kernel_counts()               # read just after the main path
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite losses: {losses}")
-    names = ("flash_fwd", "flash_dq", "flash_dkv", "detect_stats",
-             "adam_update")
-    return (losses, norms, step_s, dict(zip(names, launches)),
-            dict(zip(names, want)))
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    return losses, norms, step_s, launches
+
+
+def _bucketed_steps(torch, sess, batch, layers, warmup, timed):
+    """:func:`_checked_steps` of a bucketed session with the guard and K5:
+    K1–K3 once per layer, K4 twice per bucket and K5 once per
+    reduce-scatter bucket each step (whether the losses fall is the
+    caller's check: 7 steps at lr 1e-3 end on a spike that step 8 takes
+    back); its results and the per-step counts."""
+    want = dict(flash_fwd=layers, flash_dq=layers, flash_dkv=layers,
+                detect_stats=2 * len(sess._step.buckets),
+                adam_update=len(sess.zero1_buckets))
+    return _checked_steps(torch, "bucketed step", sess, batch, want, warmup,
+                          timed, guarded=True) + (want,)
 
 
 def _check_falling(losses) -> None:
@@ -1591,6 +1661,10 @@ def check_ring_losses(config, losses, f32_losses) -> float:
     return max(rel)
 
 
+class RankDivergence(AssertionError):
+    """The ring ranks ended with different parameters."""
+
+
 def phase_train_ring():
     """Start the 4 ring ranks on the card, wait for them, check they agree
     and report rank 0's numbers (every rank's parameters must hash the
@@ -1634,7 +1708,7 @@ def phase_train_ring():
             each = [res[config]["param_sha256"] for res in results]
             differ = [n for n in each[0]
                       if len({e[n] for e in each}) > 1]
-            raise AssertionError(
+            raise RankDivergence(
                 f"{config}: ranks' parameters differ ({len(digests)} "
                 f"digests; {len(differ)} of {len(each[0])} parameters, "
                 f"first {differ[:8]}; rank groups of the first "
@@ -1648,6 +1722,435 @@ def phase_train_ring():
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
+def phase_flash_bert(torch, timer):
+    """K1–K3 at BERT-base's training shape, non-causal: held against their
+    plain versions at the flash tolerances, then timed as
+    :func:`phase_flash` times the causal shape (SDPA with
+    ``is_causal=False``).  Rows by kernel name."""
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    b, t, h, d = (BERT_SHAPE[x] for x in "BTHD")
+    e, bwd = _flash_case(torch, fa, gen, b, t, h, d, False)
+    errs = {"flash_fwd": max(e["o"], e["lse"]), "flash_dq": e["dq"],
+            "flash_dkv": max(e["dk"], e["dv"])}
+    emit({"phase": "flash_check", "shape": [b, t, h, d], "causal": False,
+          "q_mul": 1.0, "max_abs_err": e})
+    return {row["name"]: row for row in _flash_rows(
+        torch, timer, bwd, dict(BERT_SHAPE, causal=False), errs)}
+
+
+def phase_sync_lm1b_bucket(torch, timer):
+    """K4 and K5 at one of lm1b's tables (406,257,664 elements), the
+    largest bucket of any phase: K4's count exactly and its sum at rtol
+    1e-6 of an f64 sum, K5's step at atol 1e-6 of the plain version; then
+    their times, the plain versions' and the library calls'."""
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dev = torch.device("cuda")
+    n = LM1B_TABLE
+    spec = fk.AdamSpec(lr=1e-3)
+    x = torch.randn(n, generator=gen, device=dev)
+    nf, sq = fk.fused_detect_stats(x)
+    want = float((x.double() ** 2).sum())
+    if float(nf) != 0.0 or not abs(float(sq) - want) <= 1e-6 * want:
+        raise AssertionError(f"K4 at n={n}: ({float(nf)}, {float(sq)}), "
+                             f"want (0, {want})")
+    y = x.clone()
+    y[n - 1] = float("nan")
+    if float(fk.fused_detect_stats(y)[0]) != 1.0:
+        raise AssertionError(f"K4 at n={n} missed a NaN in the last element")
+    del y
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=dev)
+    scalars = fk.adam_scalars(torch.tensor(3, dtype=torch.int32, device=dev),
+                              spec, torch.tensor(0.5, device=dev))
+    got = fk.fused_adam_update(p, g, m, v, scalars, spec)
+    ref = fk.fused_adam_update_reference(p, g, m, v, scalars, spec)
+    adam_err = 0.0
+    for part, a, r in zip("pmv", got, ref):
+        torch.testing.assert_close(a, r, atol=1e-6, rtol=0,
+                                   msg=f"K5 {part} at n={n}")
+        adam_err = max(adam_err, (a - r).abs().max().item())
+    del got, ref
+    steps = [torch.tensor(4.0, device=dev)]
+    one = torch.ones((), device=dev)
+    rows = {
+        "detect_stats": {
+            "n": n, "rel_err_vs_f64": abs(float(sq) - want) / want,
+            "ms": timer(lambda: fk.fused_detect_stats(x), iters=20),
+            "plain_ms": timer(lambda: fk.fused_detect_stats_reference(x),
+                              iters=20),
+            "library_ms": timer(lambda: torch.linalg.vector_norm(x),
+                                iters=20)},
+        "adam_update": {
+            "n": n, "max_abs_err": adam_err,
+            "ms": timer(lambda: fk.fused_adam_update(p, g, m, v, scalars,
+                                                     spec), iters=20),
+            "plain_ms": timer(lambda: fk.fused_adam_update_reference(
+                p, g, m, v, scalars, spec), iters=20),
+            "library_ms": timer(lambda: torch._fused_adam_(
+                [p], [g], [m], [v], [], steps, lr=1e-3, beta1=0.9,
+                beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False, grad_scale=one), iters=20)}}
+    for name, nbytes, ops in (("detect_stats", 4.0 * n, 2.0 * n),
+                              ("adam_update", 28.0 * n, 15.0 * n)):
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound_ms(nbytes, ops)
+        emit({"phase": "kernel_lm1b_bucket", "name": name, **rows[name]})
+    del x, p, g, m, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _model_session(torch, spec, builder, optimizer, numerics=None):
+    """The facade's session of a BASELINE model at its defaults (weights
+    from ``SEED``, drawn on the host so the card holds one copy), its
+    batch of ``MODEL_BATCH`` and the parameter shapes of the init tree;
+    the peak-memory counter starts here."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    params = spec.init(SEED, device="cpu")
+    shapes = {n: tuple(x.shape) for n, x in flatten(params)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sess, batch = _train_session(spec, params, MODEL_BATCH, builder,
+                                 optimizer, numerics=numerics)
+    return sess, batch, shapes
+
+
+def _model_out(torch, name, sess, shapes, losses, step_s, launches, want,
+               items_per_step, flops) -> dict:
+    """The phase's report, after checking ``session.params``' shapes
+    against the init tree."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    got = {n: tuple(x.shape) for n, x in flatten(sess.device_params)}
+    if got != shapes:
+        raise AssertionError(f"{name}: session.params differ from the init "
+                             f"tree")
+    step = statistics.median(step_s)
+    return {"batch": MODEL_BATCH, "losses": losses,
+            "ms_per_step": step * 1e3, "ms_per_step_min": min(step_s) * 1e3,
+            "ms_per_step_max": max(step_s) * 1e3,
+            "items_per_s": items_per_step / step,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "model_tflop_per_step": flops["total"] / 1e12,
+            "model_tflop_split": {k: v / 1e12 for k, v in flops.items()},
+            "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
+            "launches": launches, "launches_per_step": want}
+
+
+def resnet_flops(stage_sizes, num_classes: int, image_size: int,
+                 batch: int) -> dict:
+    """Model FLOPs of one ResNet training step, by
+    :func:`model_flops_per_step`'s convention (forward, input and weight
+    gradients): each conv ``2·H_out·W_out·kh·kw·C_in·C_out`` per image,
+    three times, but twice for the stem (the images take no gradient);
+    the head ``2·in·out`` three times.  Norms, pools and activations are
+    not counted."""
+    def out(size, stride):
+        return -(-size // stride)
+
+    h = out(image_size, 2)
+    stem = 2.0 * h * h * 7 * 7 * 3 * 64
+    h = out(h, 2)                              # the 3x3/s2 max pool
+    c, convs = 64, 0.0
+    for i, blocks in enumerate(stage_sizes):
+        f = 64 * 2 ** i
+        for j in range(blocks):
+            s = 2 if i > 0 and j == 0 else 1
+            h2 = out(h, s)
+            convs += 2.0 * h * h * c * f + 2.0 * h2 * h2 * 9 * f * f \
+                + 2.0 * h2 * h2 * f * 4 * f
+            if j == 0:
+                convs += 2.0 * h2 * h2 * c * 4 * f
+            h, c = h2, 4 * f
+    head = 2.0 * c * num_classes
+    split = {"stem": 2 * stem * batch, "convs": 3 * convs * batch,
+             "head": 3 * head * batch}
+    return dict(split, total=sum(split.values()))
+
+
+def vgg_flops(num_classes: int, image_size: int, batch: int) -> dict:
+    """Model FLOPs of one VGG16 training step, by
+    :func:`resnet_flops`' convention (the first conv twice, the rest and
+    the three dense layers three times)."""
+    from autodist_tpu_torch.models.vgg import _CFG16
+
+    h, c, first, convs = image_size, 3, 0.0, 0.0
+    for v in _CFG16:
+        if v == "M":
+            h //= 2
+            continue
+        f = 2.0 * h * h * 9 * c * v
+        if c == 3:
+            first = f
+        else:
+            convs += f
+        c = v
+    dense = 2.0 * (h * h * c * 4096 + 4096 * 4096 + 4096 * num_classes)
+    split = {"first_conv": 2 * first * batch, "convs": 3 * convs * batch,
+             "dense": 3 * dense * batch}
+    return dict(split, total=sum(split.values()))
+
+
+def bert_flops(cfg, batch: int) -> dict:
+    """Model FLOPs of one BERT training step, by
+    :func:`model_flops_per_step`'s convention: 6 per token and weight of
+    every projection, ``mlm_transform`` and the tied decoder, plus the nine
+    T x T x D products the flash kernels do per layer (two forward, three
+    in dQ, four in dK/dV, the backward recomputing S) over every (query,
+    key) pair: attention is not causal."""
+    d = cfg["num_heads"] * cfg["head_dim"]
+    t = cfg["seq_len"]
+    weights = cfg["num_layers"] * (4 * d * d + 2 * d * cfg["d_ff"]) \
+        + d * d + cfg["vocab_size"] * d
+    dense = 6.0 * weights * batch * t
+    attn = 9 * 2.0 * batch * cfg["num_heads"] * t * t * cfg["head_dim"] \
+        * cfg["num_layers"]
+    return {"projections_and_head": dense, "attention": attn,
+            "total": dense + attn}
+
+
+def lm1b_flops(cfg, batch: int) -> dict:
+    """Model FLOPs of one lm1b training step, by
+    :func:`model_flops_per_step`'s convention: the LSTM's four gate
+    products per step (input ``[in, 4H]`` and recurrent ``[H, 4H]``) and
+    the projection, three times each; the chunked loss's ``h @ Wᵀ`` over
+    the whole vocabulary four times (the forward, the backward's
+    recompute, ``dh`` and ``dW``) for the ``T - 1`` predicted positions."""
+    e, hid, t = cfg["emb_dim"], cfg["hidden_dim"], cfg["seq_len"]
+    n = batch * t
+    lstm, width = 0.0, e
+    for _ in range(cfg["num_layers"]):
+        lstm += 2.0 * n * width * 4 * hid + 2.0 * n * hid * 4 * hid
+        width = hid
+    proj = 2.0 * n * hid * e
+    loss = 4 * 2.0 * batch * (t - 1) * cfg["vocab_size"] * e
+    split = {"lstm": 3 * lstm, "proj": 3 * proj, "chunked_loss": loss}
+    return dict(split, total=sum(split.values()))
+
+
+def phase_train_resnet50(torch):
+    """``resnet50()`` at 224x224 through the facade with ``AllReduce()``
+    and ``sgd(1e-3, momentum=0.9)``: no Pallas kernel's twin runs (K1–K5
+    zero), cuDNN's share of device time from ``profile_train``'s
+    profile."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch import profile_train
+    from autodist_tpu_torch.models import resnet50
+    from autodist_tpu_torch.strategy import AllReduce
+
+    spec = resnet50()
+    sess, batch, shapes = _model_session(torch, spec, AllReduce(),
+                                         optim.sgd(1e-3, momentum=0.9))
+    want = dict.fromkeys(_kernel_counts(), 0)
+    losses, _, step_s, launches = _checked_steps(
+        torch, "train_resnet50", sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=False)
+    out = _model_out(torch, "train_resnet50", sess, shapes, losses, step_s,
+                     launches, want, MODEL_BATCH,
+                     resnet_flops([3, 4, 6, 3], 1000, 224, MODEL_BATCH))
+    prof = profile_train.profile_steps(sess, batch)
+    total = sum(prof["device_ms"].values())
+    out.update(images_per_s=out.pop("items_per_s"),
+               device_ms_per_step=prof["device_ms"],
+               launches_per_step_by_group=prof["launches"],
+               device_busy_ms_per_step=prof["busy_us"] / 1e3,
+               cudnn_share_of_device_time=prof["device_ms"].get(
+                   "cudnn_conv", 0.0) / total)
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_vgg16(torch):
+    """``vgg16()`` at 224x224 with ``PartitionedPS()``, ``sgd(1e-3,
+    momentum=0.9)`` and the clip: every variable in a reduce-scatter
+    bucket, ``fc1`` in one of its own, K4 twice per bucket per step, no
+    K5 (the step warns that the shards take the unfused update)."""
+    import warnings
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models import vgg16
+    from autodist_tpu_torch.strategy import PartitionedPS
+
+    spec = vgg16()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sess, batch, shapes = _model_session(
+            torch, spec, PartitionedPS(), optim.sgd(1e-3, momentum=0.9),
+            {"clip_norm": CLIP_NORM})
+    if not any("the ZeRO-1 shards take the unfused update" in str(w.message)
+               and "fusable_adam" in str(w.message) for w in caught):
+        raise AssertionError("train_vgg16: no warning that the shards take "
+                             "the unfused update")
+    step = sess._step
+    if step.fused_kernels != ("guard",) or \
+            ("fc1/kernel",) not in [b.names for b in sess.zero1_buckets]:
+        raise AssertionError(f"train_vgg16: kernels {step.fused_kernels}, "
+                             f"buckets {[b.names for b in step.buckets]}")
+    want = dict.fromkeys(_kernel_counts(), 0)
+    want["detect_stats"] = 2 * len(step.buckets)
+    losses, _, step_s, launches = _checked_steps(
+        torch, "train_vgg16", sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=True)
+    out = _model_out(torch, "train_vgg16", sess, shapes, losses, step_s,
+                     launches, want, MODEL_BATCH,
+                     vgg_flops(1000, 224, MODEL_BATCH))
+    out.update(images_per_s=out.pop("items_per_s"),
+               buckets=len(step.buckets),
+               reduce_scatter_buckets=len(sess.zero1_buckets),
+               fc1_bucket_elements=25088 * 4096)
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bert(torch):
+    """``bert_base()`` at seq 128 with ``PartitionedAR()`` and
+    ``adamw(1e-3)``: K1/K2/K3 non-causal, 12 each per step, 12/0/0 in
+    ``evaluate``."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models import bert_base
+    from autodist_tpu_torch.strategy import PartitionedAR
+
+    spec = bert_base()
+    layers = spec.config["num_layers"]
+    sess, batch, shapes = _model_session(torch, spec, PartitionedAR(),
+                                         optim.adamw(1e-3))
+    want = dict.fromkeys(_kernel_counts(), 0)
+    want.update(flash_fwd=layers, flash_dq=layers, flash_dkv=layers)
+    losses, _, step_s, launches = _checked_steps(
+        torch, "train_bert", sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=False)
+    before = _kernel_counts()
+    ev = sess.evaluate(batch)
+    ev_launches = {k: v - before[k] for k, v in _kernel_counts().items()}
+    if ev_launches != dict(want, flash_dq=0, flash_dkv=0) or \
+            not np.isfinite(float(ev["loss"])):
+        raise AssertionError(f"train_bert evaluate: launched {ev_launches},"
+                             f" loss {ev['loss']}")
+    out = _model_out(torch, "train_bert", sess, shapes, losses, step_s,
+                     launches, want, MODEL_BATCH,
+                     bert_flops(spec.config, MODEL_BATCH))
+    out.update(sequences_per_s=out.pop("items_per_s"),
+               tokens_per_s=MODEL_BATCH * spec.config["seq_len"]
+               / statistics.median(step_s), layers=layers,
+               seq_len=spec.config["seq_len"],
+               eval_loss=float(ev["loss"]), eval_launches=ev_launches)
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bert_parity(torch):
+    """A depth-2 copy of ``bert_base()``: 3 ``PartitionedAR`` + adamw steps
+    with the flash kernels and with dense attention from the same weights,
+    losses at ``BERT_PARITY_RTOL``."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models import bert_base
+    from autodist_tpu_torch.models.transformer import dense_attention
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.strategy import PartitionedAR
+
+    flash_spec = bert_base(num_layers=2)
+    dense_spec = bert_base(num_layers=2, attn_fn=dense_attention)
+    params = flash_spec.init(SEED, device="cpu")
+    out = {}
+    for name, spec in (("flash", flash_spec), ("dense", dense_spec)):
+        sess, batch = _train_session(spec, params, MODEL_BATCH,
+                                     PartitionedAR(), optim.adamw(1e-3))
+        before = _flash_counts(fa.flash_attention)
+        out[name] = [float(sess.run(batch)["loss"]) for _ in range(3)]
+        launched = tuple(a - b for a, b in
+                         zip(_flash_counts(fa.flash_attention), before))
+        want = (6, 6, 6) if name == "flash" else (0, 0, 0)
+        if launched != want:
+            raise AssertionError(f"BERT {name} run launched (K1, K2, K3) = "
+                                 f"{launched}, expected {want}")
+        del sess
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["flash"], out["dense"]))
+    if not rel <= BERT_PARITY_RTOL:
+        raise AssertionError(f"BERT flash vs dense losses differ (rel "
+                             f"{rel:.2e}): {out}")
+    torch.cuda.empty_cache()
+    return {"layers": 2, "flash_losses": out["flash"],
+            "dense_losses": out["dense"], "max_rel_diff": rel,
+            "rtol": BERT_PARITY_RTOL}
+
+
+def phase_train_lm1b(torch):
+    """``lm1b()`` (vocabulary 793472, the chunked exact loss) with
+    ``Parallax()``, ``fusable_adam(1e-3)`` and the clip: each table in a
+    reduce-scatter bucket of its own (K5 twice per step on 406 M
+    elements), every other variable in all-reduce buckets, K4 twice per
+    bucket; peak memory under ``LM1B_PEAK_BYTES``."""
+    from autodist_tpu_torch.models import lm1b
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Parallax
+
+    spec = lm1b()
+    sess, batch, shapes = _model_session(torch, spec, Parallax(),
+                                         fk.fusable_adam(1e-3),
+                                         {"clip_norm": CLIP_NORM})
+    step = sess._step
+    rs = sorted(b.names for b in sess.zero1_buckets)
+    ar = {n for b in step.buckets if b.mode == "all_reduce" for n in b.names}
+    if rs != [("embedding",), ("softmax_embedding",)] or \
+            ar != set(step.trainable) - {"embedding", "softmax_embedding"} \
+            or step.fused_kernels != ("guard", "update"):
+        raise AssertionError(f"train_lm1b: reduce-scatter {rs}, all-reduce "
+                             f"{sorted(ar)}, kernels {step.fused_kernels}")
+    want = dict.fromkeys(_kernel_counts(), 0)
+    want.update(detect_stats=2 * len(step.buckets), adam_update=2)
+    losses, _, step_s, launches = _checked_steps(
+        torch, "train_lm1b", sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=True)
+    out = _model_out(torch, "train_lm1b", sess, shapes, losses, step_s,
+                     launches, want, MODEL_BATCH * spec.config["seq_len"],
+                     lm1b_flops(spec.config, MODEL_BATCH))
+    if not out["max_memory_allocated"] < LM1B_PEAK_BYTES:
+        raise AssertionError(f"train_lm1b: peak memory "
+                             f"{out['max_memory_allocated']} bytes, "
+                             f"predicted under {LM1B_PEAK_BYTES:.0f}")
+    out.update(words_per_s=out.pop("items_per_s"),
+               buckets=len(step.buckets),
+               reduce_scatter_bucket_elements=[b.total for b in
+                                               sess.zero1_buckets],
+               peak_bytes_limit=LM1B_PEAK_BYTES)
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_repeat(torch, times: int) -> int:
+    """``train_ring`` ``times`` times in a row: each repetition's outcome
+    (rank digests agree, or which parameters differ) as one JSON line, then
+    the count that diverged.  Exits 1 when one did; any other failure of
+    the ring propagates."""
+    from autodist_tpu_torch.ops import _build
+
+    _build.build_all()
+    diverged = 0
+    for i in range(times):
+        t0 = time.perf_counter()
+        try:
+            ring, _, _ = phase_train_ring()
+            emit({"phase": "ring_repeat", "run": i, "ok": True,
+                  "wall_s": time.perf_counter() - t0,
+                  "params_sha256": {c: ring[c]["params_sha256"]
+                                    for c in RING_CONFIGS + (PS_LB_CONFIG,)}})
+        except RankDivergence as e:
+            diverged += 1
+            emit({"phase": "ring_repeat", "run": i, "ok": False,
+                  "wall_s": time.perf_counter() - t0, "error": str(e)})
+    emit({"phase": "ring_repeat_summary", "runs": times,
+          "diverged": diverged})
+    return 1 if diverged else 0
+
+
 def main() -> int:
     import torch
 
@@ -1657,6 +2160,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--ring-repeat" in sys.argv:
+        return ring_repeat(torch, int(sys.argv[sys.argv.index(
+            "--ring-repeat") + 1]))
     try:
         from autodist_tpu_torch.device_timer import Timer
         from autodist_tpu_torch.models.transformer_lm import transformer_lm
@@ -1687,7 +2193,9 @@ def main() -> int:
     timer = Timer()
     k9, k10 = phase_kernels(torch, timer)
     flash_rows = phase_flash(torch, timer)
+    bert_rows = phase_flash_bert(torch, timer)
     sync_rows = phase_sync_kernels(torch, timer)
+    lm1b_bucket = phase_sync_lm1b_bucket(torch, timer)
     quant_rows = phase_quant_kernels(torch, timer)
     del timer
     torch.cuda.empty_cache()
@@ -1764,6 +2272,30 @@ def main() -> int:
         row["launches_by_path"][PS_LB_CONFIG + " (rank 0)"] = {
             "launches": ps_lb["launches"][row["name"]],
             "per_step": ps_lb["launches_per_step"][row["name"]]}
+
+    # the BASELINE models, each at full width under its BASELINE builder
+    resnet_out = phase_train_resnet50(torch)
+    emit({"phase": "train_resnet50", "card": smi, **resnet_out})
+    vgg_out = phase_train_vgg16(torch)
+    emit({"phase": "train_vgg16", "card": smi, **vgg_out})
+    bert_out = phase_train_bert(torch)
+    emit({"phase": "train_bert", "card": smi, **bert_out})
+    emit({"phase": "train_bert_parity", **phase_train_bert_parity(torch)})
+    lm1b_out = phase_train_lm1b(torch)
+    emit({"phase": "train_lm1b", "card": smi, **lm1b_out})
+    for row in flash_rows:
+        bert_row = bert_rows[row["name"]]
+        bert_row["ptxas"] = ptxas_report[row["name"] + "_kernel<64, full>"]
+        bert_row["launches"] = bert_out["launches"][row["name"]]
+        bert_row["launches_per_step"] = bert_out["launches_per_step"][
+            row["name"]]
+        row["bert_shape"] = bert_row
+    for row in sync_rows:
+        row["lm1b_bucket"] = lm1b_bucket[row["name"]]
+        for path, out in (("train_vgg16", vgg_out), ("train_lm1b", lm1b_out)):
+            row["launches_by_path"][path] = {
+                "launches": out["launches"][row["name"]],
+                "per_step": out["launches_per_step"][row["name"]]}
 
     emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
           "card": smi,

@@ -15,7 +15,8 @@ the guard statistics K4: the count exactly, the sum of squares at rtol
 test's); the quantized-ring hop kernels K6–K8: payload bit-equal and
 scales equal to the plain version's, error at atol 1e-6, saturation
 counts equal (the JAX kernel test's, ``tests/test_fused_kernels.py:
-148-199``).
+148-199``); the tiny BASELINE models' steps on the card against the CPU:
+losses at rtol 1e-5, parameters at atol 1e-4 (the gloo tests').
 """
 import numpy as np
 import pytest
@@ -545,3 +546,110 @@ def test_ps_family_session_on_the_card_matches_the_cpu(dev, name):
     for n in wo:
         torch.testing.assert_close(go[n], wo[n], rtol=0, atol=1e-6,
                                    msg=n)
+
+
+def _worker():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_dp_worker as worker
+    return worker
+
+
+def _baseline_steps(worker, name, device, builder, opt, numerics, steps=2):
+    """``steps`` facade steps of the tiny ``name`` on ``device`` from the
+    port's init (seed 0): losses, final parameters and the K1–K5 launches
+    of each step."""
+    import os
+
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.autodist import (
+        AutoDist, _reset_default_autodist_for_testing)
+    from autodist_tpu_torch.graph_item import flatten
+
+    os.environ["AUTODIST_IS_TESTING"] = "True"
+    _reset_default_autodist_for_testing()
+    spec = worker.model_spec(name)
+    ad = AutoDist(strategy_builder=getattr(strategy, builder)(),
+                  device=device)
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"), optimizer=opt,
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics=numerics)
+    sess = ad.create_distributed_session()
+    batch = spec.sample_batch(worker.MODEL_BATCH, seed=1)
+    losses, launches = [], []
+
+    def counts():
+        return (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+                fa.flash_attention.dkv_calls, fk.fused_detect_stats.calls,
+                fk.fused_adam_update.calls)
+    for _ in range(steps):
+        before = counts()
+        losses.append(float(sess.run(batch)["loss"]))
+        launches.append(tuple(a - b for a, b in zip(counts(), before)))
+    return losses, dict(flatten(sess.params)), launches, sess
+
+
+@pytest.mark.parametrize("name", ["resnet", "vgg", "bert", "lm1b"])
+def test_baseline_model_step_on_the_card_matches_the_cpu(dev, name):
+    """Each tiny BASELINE model (``tests/torch_dp_worker.py``'s
+    ``MODEL_RUNS``) under its builder and optimizer: 2 steps on the card
+    against the same steps on the CPU (the plain versions), losses at rtol
+    1e-5 and parameters at atol 1e-4 (the gloo tests' tolerances).  BERT
+    attends through K1–K3 non-causal on the card (one launch of each per
+    layer per step, one K1 per layer in ``evaluate``); VGG's guard runs K4
+    twice per bucket."""
+    import warnings
+
+    from autodist_tpu_torch import optim
+
+    worker = _worker()
+    builder, opt, kw, numerics = worker.MODEL_RUNS[name]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # sgd's unfused shard update
+            runs[device] = _baseline_steps(
+                worker, name, device, builder, getattr(optim, opt)(**kw),
+                numerics)
+    (gl, gp, launches, sess), (wl, wp, cpu_launches, _) = \
+        runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    assert gp.keys() == wp.keys()
+    for n in wp:
+        np.testing.assert_allclose(gp[n], wp[n], rtol=0, atol=1e-4,
+                                   err_msg=n)
+    layers = worker.MODEL_CFGS["bert"]["num_layers"]
+    k4 = 2 * len(sess._step.buckets) if numerics else 0
+    want = (layers,) * 3 + (0, 0) if name == "bert" else (0, 0, 0, k4, 0)
+    assert launches == [want, want]
+    assert cpu_launches == [(0,) * 5] * 2
+    if name == "bert":
+        before = fa.flash_attention.fwd_calls
+        sess.evaluate(worker.model_spec(name).sample_batch(
+            worker.MODEL_BATCH, seed=1))
+        assert fa.flash_attention.fwd_calls - before == layers
+
+
+def test_lm1b_parallax_fusable_adam_launches_k5_on_the_card(dev):
+    """Tiny lm1b under ``Parallax`` with ``fusable_adam`` and the clip: its
+    two tables in reduce-scatter buckets take K5 (one launch per bucket per
+    step), K4 twice per bucket; losses and parameters against the CPU at
+    rtol 1e-5 / atol 1e-4."""
+    worker = _worker()
+    runs = {device: _baseline_steps(worker, "lm1b", device, "Parallax",
+                                    fk.fusable_adam(1e-2), {"clip_norm": 1.0},
+                                    steps=3)
+            for device in ("cuda", "cpu")}
+    (gl, gp, launches, sess), (wl, wp, _, _) = runs["cuda"], runs["cpu"]
+    rs = len(sess.zero1_buckets)
+    assert rs >= 1 and sorted(n for b in sess.zero1_buckets
+                              for n in b.names) == ["embedding",
+                                                    "softmax_embedding"]
+    assert launches == [(0, 0, 0, 2 * len(sess._step.buckets), rs)] * 3
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    for n in wp:
+        np.testing.assert_allclose(gp[n], wp[n], rtol=0, atol=1e-4,
+                                   err_msg=n)

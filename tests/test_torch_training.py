@@ -357,9 +357,20 @@ def test_unported_options_raise_naming_their_roadmap_item(
     assert not ad.is_built()
 
 
+def test_transformer_lm_xent_chunk_matches_dense():
+    """``xent_chunk`` trains with the chunked loss: the same value as the
+    dense loss at the JAX test's rtol 1e-5 (``tests/test_models.py``)."""
+    dense = transformer_lm(**CFG)
+    params = dense.init(0, device="cpu")
+    batch = dense.sample_batch(4)
+    for chunk in (32, 1000):
+        np.testing.assert_allclose(
+            float(transformer_lm(**CFG, xent_chunk=chunk).loss_fn(params,
+                                                                  batch)),
+            float(dense.loss_fn(params, batch)), rtol=1e-5)
+
+
 def test_unported_factory_options_and_fit_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP: P2 — chunked"):
-        transformer_lm(**CFG, xent_chunk=32)
     with pytest.raises(NotImplementedError, match="ROADMAP: P2 — remat"):
         transformer_lm(**CFG, remat="full")
     spec = transformer_lm(**CFG)

@@ -1,6 +1,7 @@
 """One rank of a data-parallel run of the port on gloo CPU ranks (spawned by
-``tests/test_torch_training.py``, ``tests/test_torch_zero1.py`` and
-``tests/test_torch_quant_ring.py``).
+``tests/test_torch_training.py``, ``tests/test_torch_zero1.py``,
+``tests/test_torch_quant_ring.py``, ``tests/test_torch_ps_family.py`` and
+``tests/test_torch_models.py``).
 
     python tests/torch_dp_worker.py RANK WORLD PORT OUT.npz [MODE [IN]]
 
@@ -20,6 +21,12 @@ parameters and batches, :func:`ps_main`): the model under each of
 {"clip_norm": 1.0}``, every case of :data:`CASES` under every builder of
 :data:`CASE_BUILDERS`, and the trained :data:`REFERENCE_VARIANTS` on
 ``scan``, each case with ``adam(1e-2)`` for 3 steps.
+
+``models`` trains each BASELINE configuration of :data:`MODEL_RUNS` (a
+tiny model of each family under its builder and optimizer) for 3 steps
+from ``IN``'s weights on ``IN``'s global batch (``{name}/p/{variable}``,
+``{name}/b/{key}``), and writes the losses, the parameters and lm1b's
+adagrad state as ``export_state`` gives it.
 
 ``quant`` trains :data:`QUANT_CFG` under each of :func:`quant_runs` (the
 quantized ring, ``numerics={"clip_norm": 1.0}``) for 3 steps and writes
@@ -209,6 +216,77 @@ def ps_main(data):
     return out
 
 
+#: the ``models`` mode's tiny models: each family's factory arguments
+MODEL_CFGS = {
+    "resnet": dict(stage_sizes=(1, 2, 1, 1), num_classes=8, image_size=32),
+    "vgg": dict(num_classes=8, image_size=32),
+    "bert": dict(vocab_size=512, num_layers=2, num_heads=2, head_dim=16,
+                 d_ff=64, max_len=64, seq_len=16),
+    "lm1b": dict(vocab_size=512, emb_dim=32, hidden_dim=64, num_layers=2,
+                 seq_len=8, xent_chunk=128),
+}
+#: each BASELINE configuration (BASELINE.json): builder name, optimizer name
+#: and arguments (the same names in the port's ``optim`` and in the JAX
+#: package's optimizer library), ``capture(numerics=...)``
+MODEL_RUNS = {
+    "resnet": ("AllReduce", "sgd", dict(learning_rate=1e-2, momentum=0.9),
+               None),
+    "vgg": ("PartitionedPS", "sgd", dict(learning_rate=1e-2, momentum=0.9),
+            {"clip_norm": CLIP}),
+    "bert": ("PartitionedAR", "adamw", dict(learning_rate=1e-3), None),
+    "lm1b": ("Parallax", "adagrad", dict(learning_rate=0.1), None),
+}
+MODEL_BATCH = 8
+
+
+def model_spec(name, **over):
+    """The port's spec of :data:`MODEL_CFGS` ``name``, its arguments
+    updated by ``over`` (ResNet's ``stem`` too)."""
+    from autodist_tpu_torch.models import bert, lm1b, vgg16
+    from autodist_tpu_torch.models.resnet import ResNet, _image_spec
+
+    cfg = dict(MODEL_CFGS[name], **over)
+    if name == "resnet":
+        model = ResNet(cfg.pop("stage_sizes"), cfg["num_classes"],
+                       stem=cfg.pop("stem", "conv7"))
+        return _image_spec("resnet", model, **cfg)
+    return {"vgg": vgg16, "bert": bert, "lm1b": lm1b}[name](**cfg)
+
+
+def models_main(data):
+    """The ``models`` mode: ``{key: array}`` of every run."""
+    import warnings
+
+    out = {}
+    for name, (builder, opt, kw, numerics) in MODEL_RUNS.items():
+        _reset_default_autodist_for_testing()
+        part = {k[len(name) + 1:]: data[k] for k in data.files
+                if k.startswith(name + "/")}
+        params = unflatten([(k[2:], torch.from_numpy(v))
+                            for k, v in part.items() if k.startswith("p/")])
+        batch = {k[2:]: v for k, v in part.items() if k.startswith("b/")}
+        spec = model_spec(name)
+        ad = AutoDist(strategy_builder=getattr(port_strategy, builder)(),
+                      device="cpu")
+        with ad.scope():
+            ad.capture(params=params, optimizer=getattr(optim, opt)(**kw),
+                       loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                       numerics=numerics)
+        sess = ad.create_distributed_session()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # sgd's unfused shard update
+            out[f"{name}/losses"] = np.array(
+                [float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+        out.update({f"{name}/p:{k}": v for k, v in flatten(sess.params)})
+        if opt == "adagrad":
+            _, exported = sess.export_state()
+            out.update({f"{name}/zero1:{k}": v.numpy() for k, v in
+                        exported["zero1"]["sum_of_squares"].items()})
+            out.update({f"{name}/vars:{k}": v.numpy() for k, v in flatten(
+                exported["vars"]["sum_of_squares"])})
+    return out
+
+
 def quant_runs():
     """``{name: (builder, optimizer)}`` of the ``quant`` mode."""
     return {"int8_allreduce": (
@@ -390,6 +468,9 @@ def main():
             return
         if strategy == "ps":
             np.savez(out, **ps_main(np.load(sys.argv[6])))
+            return
+        if strategy == "models":
+            np.savez(out, **models_main(np.load(sys.argv[6])))
             return
         if strategy == "quant":
             np.savez(out, **quant_main(torch.load(
