@@ -1,12 +1,12 @@
 """PyTorch + CUDA port of autodist-tpu (the JAX package stays the reference).
 
 The public surface is the JAX package's: ``AutoDist(resource_spec,
-strategy_builder)`` (exported lazily: the facade pulls in the training
-stack), ``ResourceSpec``, ``DeviceSpec``, ``ENV`` and ``__version__``;
-``Callback``, ``TimeHistory`` and ``History`` raise until ``fit`` is
-ported (ROADMAP P5).
+strategy_builder)``, ``ResourceSpec``, ``DeviceSpec``, ``ENV``,
+``__version__``, and ``fit``'s ``Callback``, ``TimeHistory`` and
+``History`` (the facade and the callbacks exported lazily: they pull in
+the training stack).
 
-Four slices run so far.  Serving: the flagship ``transformer_lm``
+Seven slices run so far.  Serving: the flagship ``transformer_lm``
 through the paged continuous-batching engine and its HTTP front; on an
 NVIDIA H100, decode attention runs a hand-written CUDA paged-attention
 kernel and weight-only int8 trees a hand-written CUDA int8 matmul.
@@ -19,6 +19,10 @@ gradient-health guard, clip and skip, with hand-written CUDA kernels for
 the guard's statistics and the fused Adam shard update.  The quantized
 wire: ``Int8Compressor``/``Fp8Compressor`` with ``overlap="ring"``, with
 hand-written CUDA quantize, hop-accumulate and dequant-add kernels.
+The PS family and the BASELINE models train on the same steps, and
+``DistributedSession.fit`` drives them through epochs with callbacks,
+checkpoints (``checkpoint.Saver``), exact resume and the numerics
+rollback.
 Kernels live in ``csrc/`` and are built at first use by ``ops/_build.py``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

@@ -39,6 +39,9 @@ class ENV(enum.Enum):
     AUTODIST_STRATEGY_ID = ("AUTODIST_STRATEGY_ID", _str)
     # relaxes the one-AutoDist-per-process guard during tests
     AUTODIST_IS_TESTING = ("AUTODIST_IS_TESTING", _bool)
+    # the supervisor's failure-marker directory (numerics rollbacks write
+    # their marker there)
+    AUTODIST_SUPERVISOR_DIR = ("AUTODIST_SUPERVISOR_DIR", _str)
 
     @property
     def val(self):

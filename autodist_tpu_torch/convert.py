@@ -50,7 +50,14 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """A copy of ``a`` as a tensor on ``device``; a bfloat16 array (the
+    JAX side's ``ml_dtypes`` dtype, which numpy lacks) through its 16-bit
+    payload."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:

@@ -73,6 +73,12 @@ def tree_device(tree) -> torch.device:
     return tree.device
 
 
+def promote_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype JAX promotes it to against a float32 parameter
+    (bf16 and f16 to float32; float32 and wider unchanged)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """Bias-free layer norm with eps 1e-6 (the JAX package's ``LayerNorm(

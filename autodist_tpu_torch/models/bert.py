@@ -6,9 +6,12 @@ token-type embeddings, the bias-free ``embeddings_ln``, a non-causal
 :class:`~autodist_tpu_torch.models.transformer.TransformerStack`
 (``encoder``), and the MLM head (``mlm_transform`` with a bias, tanh GELU,
 ``mlm_ln``) with its decoder tied to ``word_embeddings``.  Same defaults,
-config keys and parameter tree as the JAX factory.  Attention is the
-backend default: the flash kernels K1–K3 (non-causal) on CUDA tensors,
-dense softmax attention on the CPU.
+config keys and parameter tree as the JAX factory.  ``dtype`` is the three
+embedding tables' dtype only, as there: every other parameter is float32,
+``embeddings_ln`` promotes the embeddings' sum to float32, and the tied
+decoder gives float32 logits.  Attention is the backend default: the
+flash kernels K1–K3 (non-causal) on CUDA tensors, dense softmax attention
+on the CPU.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from autodist_tpu_torch.models.base import (ModelSpec, layer_norm,
-                                            masked_mean, resolve_device,
-                                            tree_device)
+                                            masked_mean, promote_f32,
+                                            resolve_device, tree_device)
 from autodist_tpu_torch.models.transformer import (TransformerStack,
                                                    default_attention,
                                                    lecun_normal)
@@ -43,9 +46,9 @@ class BertModel(nn.Module):
                                         attn_fn=attn_fn or default_attention())
 
     def init_params(self, seed: int, device) -> Dict:
-        """normal(0.02) embeddings, lecun-normal kernels, zero biases, unit
-        LayerNorm scales, drawn on the CPU from a generator seeded with
-        ``seed``.  (Not JAX's random bits.)"""
+        """normal(0.02) embeddings in ``dtype``; lecun-normal kernels, zero
+        biases and unit LayerNorm scales in float32; drawn on the CPU from
+        a generator seeded with ``seed``.  (Not JAX's random bits.)"""
         gen = torch.Generator().manual_seed(int(seed))
         d = self.d_model
 
@@ -55,12 +58,12 @@ class BertModel(nn.Module):
         params = {"word_embeddings": normal((self.vocab_size, d)),
                   "position_embeddings": normal((self.max_len, d)),
                   "token_type_embeddings": normal((self.type_vocab, d)),
-                  "embeddings_ln": {"scale": torch.ones(d, dtype=self.dtype)},
-                  "encoder": self.encoder.init(d, gen, self.dtype),
+                  "embeddings_ln": {"scale": torch.ones(d)},
+                  "encoder": self.encoder.init(d, gen, torch.float32),
                   "mlm_transform": {
-                      "kernel": lecun_normal((d, d), d, gen, self.dtype),
-                      "bias": torch.zeros(d, dtype=self.dtype)},
-                  "mlm_ln": {"scale": torch.ones(d, dtype=self.dtype)}}
+                      "kernel": lecun_normal((d, d), d, gen, torch.float32),
+                      "bias": torch.zeros(d)},
+                  "mlm_ln": {"scale": torch.ones(d)}}
         return _to_device(params, device)
 
     def forward(self, params, tokens: torch.Tensor,
@@ -69,13 +72,14 @@ class BertModel(nn.Module):
         x = (emb[tokens]
              + params["position_embeddings"][None, :tokens.shape[1]]
              + params["token_type_embeddings"][segment_ids])
-        x = layer_norm(x, params["embeddings_ln"]["scale"])
+        # JAX promotes against the f32 LayerNorm scale: f32 from here on
+        x = layer_norm(promote_f32(x), params["embeddings_ln"]["scale"])
         x = self.encoder(params["encoder"], x)
         h = x @ params["mlm_transform"]["kernel"] \
             + params["mlm_transform"]["bias"]
         h = F.gelu(h, approximate="tanh")
         h = layer_norm(h, params["mlm_ln"]["scale"])
-        return torch.einsum("btd,vd->btv", h, emb)
+        return torch.einsum("btd,vd->btv", h, emb.to(h.dtype))
 
 
 def bert(vocab_size: int = 30528, num_layers: int = 12, num_heads: int = 12,

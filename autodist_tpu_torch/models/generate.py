@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from autodist_tpu_torch.models.base import (ModelSpec, layer_norm,
-                                            resolve_device)
+                                            promote_f32, resolve_device)
 from autodist_tpu_torch.models.quantize import (embed_lookup, head_logits,
                                                 is_quantized)
 from autodist_tpu_torch.models.transformer import (TransformerLayer,
@@ -135,13 +135,14 @@ def _token_step(layer_params, ln_final_scale, embed, x, k_cache, v_cache,
             k_cache[_i, pos] = k[:, 0].to(k_cache.dtype)
             v_cache[_i, pos] = v[:, 0].to(v_cache.dtype)
             depth = q.shape[-1]
-            logits = torch.einsum("bhk,tbhk->bht", q[:, 0], k_cache[_i]) \
+            logits = torch.einsum("bhk,tbhk->bht", q[:, 0],
+                                  k_cache[_i].to(q.dtype)) \
                 / q.new_tensor(float(depth)).sqrt()
             logits = torch.where(mask, logits,
                                  torch.finfo(logits.dtype).min)
             probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
             return torch.einsum("bht,tbhk->bhk", probs,
-                                v_cache[_i])[:, None]
+                                v_cache[_i].to(q.dtype))[:, None]
 
         x = layer(lp, x, cached_attn)
     x = layer_norm(x, ln_final_scale)
@@ -158,7 +159,8 @@ def _prefill_forward(layer_params, ln_final_scale, embed, pos_embed,
     numerics closest to tick-by-tick decode)."""
     layer = decode_layer(heads, head_dim, _d_ff(layer_params))
     p = tokens_2d.shape[1]
-    x = embed_lookup(embed, tokens_2d, pos_embed.dtype) + pos_embed[None, :p]
+    x = promote_f32(embed_lookup(embed, tokens_2d, pos_embed.dtype)
+                    + pos_embed[None, :p])
     ks, vs = [], []
 
     def capture_attn(q, k, v, causal):
@@ -217,8 +219,8 @@ def make_generator(spec: ModelSpec, device=None):
         done = torch.zeros(b, dtype=torch.bool, device=dev)
         step_logits = []
         for pos in range(total - 1):
-            x = embed_lookup(embed, tokens[:, pos], pos_embed.dtype) \
-                + pos_embed[pos]
+            x = promote_f32(embed_lookup(embed, tokens[:, pos],
+                                         pos_embed.dtype) + pos_embed[pos])
             logits = _token_step(layer_params, ln_final, embed, x, k_cache,
                                  v_cache, pos, total)
             if keep_logits:

@@ -113,4 +113,4 @@ def head_logits(embed, x: torch.Tensor) -> torch.Tensor:
     """Tied-head logits [B, V] for hidden x [B, D]."""
     if isinstance(embed, Quantized):                            # [D, V]
         return int8_matmul(x, embed)
-    return x @ embed.t()
+    return x @ embed.t().to(x.dtype)

@@ -5,6 +5,12 @@ with learned positional embeddings and a tied output head (logits
 against the embedding table).  Same defaults and config keys as the JAX
 factory; parameters are the JAX package's tree (``embed [V, D]``,
 ``pos_embed [max_len, D]``, ``decoder/...``).
+
+``dtype`` is the embedding tables' dtype only, as in the JAX factory:
+every decoder parameter stays float32 (the JAX modules' default
+parameter dtype), and the forward promotes as JAX does, so from the first
+LayerNorm on the model computes in float32 and the tied head gives
+float32 logits.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from torch import nn
 
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
-                                            resolve_device)
+                                            promote_f32, resolve_device)
 from autodist_tpu_torch.models.transformer import (TransformerStack,
                                                    default_attention,
                                                    dense_attention)
@@ -36,9 +42,10 @@ class TransformerLM(nn.Module):
                                         d_ff, causal=True, attn_fn=attn_fn)
 
     def init_params(self, seed: int, device) -> Dict:
-        """normal(0.02) embeddings, lecun-normal kernels, unit LayerNorm
-        scales, drawn on the CPU from a generator seeded with ``seed``
-        and moved to ``device``.  (Not JAX's random bits.)"""
+        """normal(0.02) embeddings in ``dtype``, lecun-normal kernels and
+        unit LayerNorm scales in float32, drawn on the CPU from a generator
+        seeded with ``seed`` and moved to ``device``.  (Not JAX's random
+        bits.)"""
         gen = torch.Generator().manual_seed(int(seed))
         d = self.d_model
 
@@ -47,19 +54,22 @@ class TransformerLM(nn.Module):
 
         params = {"embed": normal((self.vocab_size, d)),
                   "pos_embed": normal((self.max_len, d)),
-                  "decoder": self.decoder.init(d, gen, self.dtype)}
+                  "decoder": self.decoder.init(d, gen, torch.float32)}
         return _to_device(params, device)
 
     def features(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Pre-logits activations ``[B, T, D]``."""
         x = params["embed"][tokens] \
             + params["pos_embed"][None, :tokens.shape[1]]
-        return self.decoder(params["decoder"], x)
+        # JAX promotes the embeddings' dtype against the float32 LayerNorm
+        # scale and the residual stream after it: the decoder runs in f32
+        return self.decoder(params["decoder"], promote_f32(x))
 
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        # Tied output head: logits against the embedding table.
-        return torch.einsum("btd,vd->btv", self.features(params, tokens),
-                            params["embed"])
+        # Tied output head: logits against the embedding table, promoted to
+        # the features' dtype as the JAX einsum promotes it.
+        h = self.features(params, tokens)
+        return torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype))
 
 
 def _to_device(tree, device):

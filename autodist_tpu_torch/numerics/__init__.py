@@ -6,7 +6,8 @@ Port of the JAX package's ``numerics/``: :mod:`.guard` (``GradHealth``,
 and :mod:`.policy` (``NumericsConfig``).  Turn it on with
 ``AutoDist.capture(..., numerics=True)`` or a dict of ``NumericsConfig``
 fields; it is off by default.  ``fit``'s host policy
-(``StepHealthMonitor``, rollback) comes with P5.
+(:class:`StepHealthMonitor`: raise, or roll back to the last
+verified-good checkpoint) is in :mod:`.policy`.
 """
 from autodist_tpu_torch.numerics.guard import (NUMERICS_KEY, GradHealth,
                                                HealthAccumulator)
@@ -14,9 +15,12 @@ from autodist_tpu_torch.numerics.loss_scale import (LossScale,
                                                     resolve_loss_scale,
                                                     scale_saturates_wire,
                                                     wire_dtype_of)
-from autodist_tpu_torch.numerics.policy import (ON_NONFINITE, NonFiniteError,
-                                                NumericsConfig)
+from autodist_tpu_torch.numerics.policy import (NUMERICS_MARKER_CODE,
+                                                ON_NONFINITE, NonFiniteError,
+                                                NumericsConfig,
+                                                StepHealthMonitor)
 
 __all__ = ["GradHealth", "HealthAccumulator", "LossScale", "NUMERICS_KEY",
-           "NonFiniteError", "NumericsConfig", "ON_NONFINITE",
+           "NUMERICS_MARKER_CODE", "NonFiniteError", "NumericsConfig",
+           "ON_NONFINITE", "StepHealthMonitor",
            "resolve_loss_scale", "scale_saturates_wire", "wire_dtype_of"]

@@ -13,13 +13,12 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import not_ported
-from autodist_tpu_torch.graph_item import tree_map
+from autodist_tpu_torch.graph_item import flatten, tree_map
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree)
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
@@ -35,6 +34,16 @@ def _to_host(tree):
             return x.detach().cpu().numpy()
         return np.asarray(x)
     return tree_map(leaf, tree)
+
+
+def _copy_async(x, device):
+    """A host array or tensor copied to ``device`` from pinned memory,
+    without waiting (on the current stream); anything else as it is."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x
 
 
 def _place(tree, device):
@@ -195,9 +204,57 @@ class DistributedSession:
         return _to_host(acc) if sync else acc
 
     def fit(self, data, **kwargs):
-        """The epochs x steps loop with callbacks and checkpoints of the
-        JAX package's session; not ported yet."""
-        raise not_ported("DistributedSession.fit", "P5 — fit and checkpoint")
+        """Train through epochs x steps with callbacks, checkpoints and the
+        numerics host policy: :func:`autodist_tpu_torch.fit.fit`."""
+        from autodist_tpu_torch import fit as fit_mod
+
+        return fit_mod.fit(self, data, **kwargs)
+
+    def place_batch(self, batch):
+        """``batch`` with every array leaf as a tensor on the session's
+        device (a batch placed already comes back as it is)."""
+        return self._step.place_batch(batch)
+
+    def prefetch(self, batches: Iterable, depth: int = 2) -> Iterator:
+        """Yield ``batches`` placed on the device, copying up to ``depth``
+        of them ahead of compute.  On the card each host batch is copied
+        from pinned memory on a side stream with ``non_blocking=True``,
+        and the compute stream waits for the copy's event before it uses
+        the batch; elsewhere (or at ``depth`` 0) each batch is placed as
+        it is taken."""
+        dev = self._step.device
+        it = iter(batches)
+        if dev.type != "cuda" or depth < 1:
+            for b in it:
+                yield self.place_batch(b)
+            return
+        side = torch.cuda.Stream(device=dev)
+        queue: deque = deque()
+
+        def enqueue() -> bool:
+            try:
+                b = next(it)
+            except StopIteration:
+                return False
+            with torch.cuda.stream(side):
+                placed = tree_map(lambda x: _copy_async(x, dev), b)
+                done = torch.cuda.Event()
+                done.record(side)
+            queue.append((placed, done))
+            return True
+
+        for _ in range(depth):
+            if not enqueue():
+                break
+        while queue:
+            placed, done = queue.popleft()
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(done)
+            for _, x in flatten(placed):
+                if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                    x.record_stream(compute)   # freed after compute's use
+            enqueue()
+            yield placed
 
     def throughput(self, items_per_step: Optional[int] = None
                    ) -> Dict[str, Any]:

@@ -70,11 +70,31 @@ Phases, each printing one JSON line:
    variable on PS), which lowers to ``train_zero1``'s bucket plan; with
    ``fusable_adam(1e-3)`` and the clip, 3 warm-up and 10 timed steps
    launching K1–K5 as ``train_zero1`` does, with its losses bit for bit;
-10. ``Parallax()`` at full width (``train_parallax``): the embedding in a
+10. ``fit`` at full width (``train_fit``): the same model, batch and
+   ``AutoDist()`` default with ``fusable_adam(1e-3)`` and ``numerics=
+   {"clip_norm": 1.0, "on_nonfinite": "rollback", "rollback_after": 2}``,
+   3 steps per epoch, the loss multiplied by a batch column ``s`` (1.0,
+   NaN on a poisoned step).  ``fit(epochs=3)`` under ``"skip"`` with
+   ``TimeHistory`` (its epoch losses must be ``train_ps``'s losses at
+   steps 3, 6 and 9 bit for bit, and each step must launch K1–K5 as a
+   ``train_ps`` step does); ``fit(epochs=1, checkpoint_dir=D)``, then a
+   new session's ``fit(epochs=3, resume=True)`` must train epochs 2–3
+   only and end on the uninterrupted run's epoch losses and parameter
+   digest bit for bit; two poisoned steps in epoch 2 must roll back once
+   to the verified-good step-3 checkpoint (the parameters right after the
+   restore carry that checkpoint's digest), replay and end on the same
+   digest; ``on_nonfinite="raise"`` must raise ``NonFiniteError`` at a
+   poisoned step.  It prints fit's ms per step under ``skip`` and under
+   ``rollback`` (one health read per step), in turns over 10-step epochs,
+   against ``train_ps``'s, with ``TimeHistory``'s tokens/s, the
+   seconds of a sync save, an async save's blocking part and its whole,
+   a deep verify and a restore, and the checkpoint's bytes on disk (in a
+   temporary directory, at most two checkpoints at a time);
+11. ``Parallax()`` at full width (``train_parallax``): the embedding in a
    reduce-scatter bucket (K5), every other variable in all-reduce buckets
    (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
    losses within rtol 1e-5 of ``train_ps``'s;
-11. the quantized ring (``train_ring``): the script starts itself again as
+12. the quantized ring (``train_ring``): the script starts itself again as
    4 worker processes on the one card (``--ring-rank R``), joined by a
    gloo group over ``tcp://localhost`` (NCCL refuses two ranks on one
    card; gloo carries the wire bytes through host memory, the kernels
@@ -98,7 +118,7 @@ Phases, each printing one JSON line:
    step (K4 twice, K1–K3 once per layer), every rank's parameters are
    bit-identical at the end and each step's loss is within rtol 1e-4 of
    ``train_zero1``'s at the same step;
-12. the BASELINE models (BASELINE.json), each at the repo's defaults, f32,
+13. the BASELINE models (BASELINE.json), each at the repo's defaults, f32,
    weights from ``SEED``, batch 32 (the JAX examples' ``--batch-size``),
    through the facade under its BASELINE builder, 2 warm-up and 5 timed
    steps, losses finite and ``session.params`` shaped as the init tree,
@@ -145,10 +165,11 @@ same bits twice.
 Then one JSON line with every kernel's numbers (``launches`` counts the
 wrapper's calls that launched its C entry point on the kernel's own path:
 serving for K9 and K10, the 13 training steps for K1–K3 (``train_bert``'s
-under ``bert_shape``), the 13 ZeRO-1 steps for K4 and K5, with their
-launches on ``train_ps``, ``train_parallax``, rank 0's ``ps_lb``,
-``train_vgg16`` and ``train_lm1b`` in ``launches_by_path``, rank 0's 14
-quantized-ring steps for K6–K8; each
+under ``bert_shape``, ``train_fit``'s in ``launches_by_path``), the 13
+ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
+``train_fit``, ``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``
+and ``train_lm1b`` in ``launches_by_path``, rank 0's 14 quantized-ring
+steps for K6–K8; each
 such call issues one kernel, or two where the work is split and then
 merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the exit code is not 0; without a
@@ -223,6 +244,11 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 #: the tree update where ``train_ps`` runs K5)
 PARALLAX_WARMUP, PARALLAX_TIMED = 2, 3
 PARALLAX_LOSS_RTOL = 1e-5
+#: the ``train_fit`` phase: steps per epoch, epochs, and the rollback
+#: policy's streak of non-finite steps
+FIT_STEPS_PER_EPOCH, FIT_EPOCHS, FIT_ROLLBACK_AFTER = 3, 3, 2
+#: the steps of each timed ``fit`` epoch (``skip`` and ``rollback`` in turns)
+FIT_TIMED_STEPS = 10
 #: the 4-rank ``ps_lb`` run's losses against the one-card ``train_zero1``
 #: run's (the JAX package's case-matrix tolerance)
 PS_LB_LOSS_RTOL = 1e-4
@@ -1277,6 +1303,256 @@ def phase_train_ps(torch, zero1_out):
     return out
 
 
+def _fit_session(spec):
+    """``train_fit``'s session: ``AutoDist()``'s default with
+    ``fusable_adam(1e-3)`` and the rollback policy, on the loss times the
+    batch's ``s`` column."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    def loss_fn(p, b):            # a NaN in "s" poisons the step
+        return spec.loss_fn(p, b) * b["s"].mean()
+
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist()
+    with ad.scope():
+        ad.capture(params=spec.init(SEED), optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": CLIP_NORM,
+                             "on_nonfinite": "rollback",
+                             "rollback_after": FIT_ROLLBACK_AFTER})
+    return ad.create_distributed_session()
+
+
+def _fit_data(batch, poison=None, steps=None):
+    """A generator factory of ``steps`` (``FIT_STEPS_PER_EPOCH``) copies of
+    ``batch`` with ``s`` = 1.0; ``poison = (epoch, steps)`` sets ``s`` to
+    NaN at those steps of that epoch's first pass only (not in its
+    replay)."""
+    calls = []
+    steps = steps or FIT_STEPS_PER_EPOCH
+
+    def with_s(value):
+        return dict(batch, s=np.full((TRAIN_SHAPE["B"],), value,
+                                     np.float32))
+
+    def factory():
+        calls.append(1)
+        bad = poison is not None and len(calls) == poison[0] + 1
+        return iter([with_s(float("nan") if bad and i in poison[1] else 1.0)
+                     for i in range(steps)])
+    return factory
+
+
+def _per_step_ms(th, steps: int) -> list:
+    return [t / steps * 1e3 for t in th.epoch_times]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_train_fit(torch, ps_out):
+    """``DistributedSession.fit`` at full width on ``train_ps``'s step:
+    the uninterrupted run, an exact resume, a rollback, ``raise``, the
+    launches per step and the checkpoint's costs."""
+    import shutil
+    import tempfile
+
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.checkpoint.saver import tree_digest
+    from autodist_tpu_torch.fit import Callback, TimeHistory
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.numerics import NonFiniteError
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    spec = transformer_lm()
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    tokens = TRAIN_SHAPE["B"] * spec.config["seq_len"]
+    spe, epochs = FIT_STEPS_PER_EPOCH, FIT_EPOCHS
+    out = {"layers": spec.config["num_layers"], "steps_per_epoch": spe,
+           "epochs": epochs}
+
+    # 1. uninterrupted, the policy overridden to "skip": no checkpoint and
+    #    no per-step health read; the counts start at 0 here
+    sess = _fit_session(spec)
+    th = TimeHistory(tokens)
+    fa.reset_counts()
+    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    hist = sess.fit(_fit_data(batch), epochs=epochs, steps_per_epoch=spe,
+                    callbacks=[th], on_nonfinite="skip")
+    launches = _kernel_counts()
+    steps = hist.steps_run
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != ps_out["launches_per_step"] or steps != spe * epochs:
+        raise AssertionError(f"fit launched {launches} in {steps} steps, "
+                             f"train_ps {ps_out['launches_per_step']} per "
+                             f"step")
+    want = [ps_out["losses"][spe * (e + 1) - 1] for e in range(epochs)]
+    if hist.history["epoch_loss"] != want:
+        raise AssertionError(f"fit's epoch losses {hist.history} are not "
+                             f"train_ps's {want} bit for bit")
+    losses = hist.history["epoch_loss"]
+    digest = tree_digest(sess.device_params)
+    out.update(epoch_losses=losses, params_digest=digest,
+               launches=launches, launches_per_step=per_step,
+               skip_ms_per_step_by_epoch=_per_step_ms(th, spe),
+               skip_tokens_per_s_by_epoch=th.items_per_sec,
+               train_ps_ms_per_step=ps_out["ms_per_step"])
+    del sess
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="train_fit_")
+    try:
+        # 2. exact resume: epoch 1 with a checkpoint, a new session resumes
+        resume_dir = os.path.join(root, "resume")
+        sess = _fit_session(spec)
+        sess.fit(_fit_data(batch), epochs=1, steps_per_epoch=spe,
+                 checkpoint_dir=resume_dir)
+        if Saver.good_steps(resume_dir) != [spe]:
+            raise AssertionError(f"epoch 1's checkpoint: good steps "
+                                 f"{Saver.good_steps(resume_dir)}")
+        del sess
+        torch.cuda.empty_cache()
+        sess = _fit_session(spec)
+        th = TimeHistory(tokens)
+        hist = sess.fit(_fit_data(batch), epochs=epochs, steps_per_epoch=spe,
+                        checkpoint_dir=resume_dir, checkpoint_keep=1,
+                        callbacks=[th])
+        if hist.steps_run != spe * (epochs - 1) or \
+                hist.history["epoch_loss"] != losses[1:]:
+            raise AssertionError(f"resume ran {hist.steps_run} steps, "
+                                 f"losses {hist.history['epoch_loss']} vs "
+                                 f"{losses[1:]}")
+        if tree_digest(sess.device_params) != digest:
+            raise AssertionError("the resumed run's parameters differ")
+        out.update(resumed_steps=hist.steps_run,
+                   rollback_ms_per_step_by_epoch=_per_step_ms(th, spe),
+                   rollback_tokens_per_s_by_epoch=th.items_per_sec)
+
+        # the checkpoint's costs, on the resumed session's state
+        shutil.rmtree(resume_dir)
+        cost_dir = os.path.join(root, "cost")
+        t0 = time.perf_counter()
+        path = Saver(sess).save(cost_dir)
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not Saver.verify(path, deep=True):
+            raise AssertionError(f"{path} failed the deep verify")
+        verify_s = time.perf_counter() - t0
+        sizes = {item: _dir_bytes(os.path.join(path, item))
+                 for item in ("params", "opt_state", "sync_state")}
+        t0 = time.perf_counter()
+        if Saver(sess).restore(path) != sess.step_count:
+            raise AssertionError("restore returned another step")
+        restore_s = time.perf_counter() - t0
+        shutil.rmtree(cost_dir)
+        saver = Saver(sess, async_save=True)
+        t0 = time.perf_counter()
+        saver.save(cost_dir)
+        async_block_s = time.perf_counter() - t0
+        saver.wait()
+        async_total_s = time.perf_counter() - t0
+        shutil.rmtree(cost_dir)
+        out["checkpoint"] = {"sync_save_s": sync_s,
+                             "async_save_blocking_s": async_block_s,
+                             "async_save_total_s": async_total_s,
+                             "deep_verify_s": verify_s,
+                             "restore_s": restore_s, "bytes": sizes}
+        del sess, saver
+        torch.cuda.empty_cache()
+
+        # 3. rollback: epoch 2's first two steps poisoned on their first
+        #    pass; fit restores step 3 (verified good) and replays
+        rb_dir = os.path.join(root, "rollback")
+
+        class Probe(Callback):
+            """Each step's health; right after the restore, the params'
+            digest and the restored checkpoint's (before retention)."""
+
+            def __init__(self):
+                self.begins, self.health, self.sess = [], [], None
+                self.restored = self.anchor = None
+
+            def on_train_begin(self, session):
+                self.sess = session
+
+            def on_epoch_begin(self, epoch):
+                if epoch in self.begins:
+                    self.restored = tree_digest(self.sess.device_params)
+                    self.anchor = Saver.read_meta(Saver.last_good_checkpoint(
+                        rb_dir))["checksums"]["params"]
+                self.begins.append(epoch)
+
+            def on_step_end(self, step, metrics):
+                h = metrics["grad_health"]
+                self.health.append((step, bool(h.all_finite),
+                                    int(h.skipped_steps)))
+
+        probe = Probe()
+        sess = _fit_session(spec)
+        hist = sess.fit(_fit_data(batch, poison=(1, {0, 1})), epochs=epochs,
+                        steps_per_epoch=spe, checkpoint_dir=rb_dir,
+                        checkpoint_keep=1, callbacks=[probe])
+        want_rb = [{"at_step": spe + 2, "restored_step": spe,
+                    "reason": f"{FIT_ROLLBACK_AFTER} consecutive non-finite "
+                              f"steps"}]
+        bad = [h for h in probe.health if not h[1]]
+        if hist.history.get("rollbacks") != want_rb or bad != [
+                (spe + 1, False, 1), (spe + 2, False, 2)]:
+            raise AssertionError(f"rollback: {hist.history}, bad steps "
+                                 f"{bad}")
+        if probe.begins != [0, 1, 1, 2] or probe.restored != probe.anchor:
+            raise AssertionError(f"after the restore: epochs {probe.begins}"
+                                 f", digest {probe.restored} vs step "
+                                 f"{spe}'s {probe.anchor}")
+        final = tree_digest(sess.device_params)
+        if final != digest or sess.step_count != spe * epochs or \
+                not all(np.isfinite(hist.history["epoch_loss"])):
+            raise AssertionError(f"after the rollback: digest {final}, "
+                                 f"step {sess.step_count}, "
+                                 f"{hist.history['epoch_loss']}")
+        out["rollback"] = {"history": hist.history,
+                           "bad_steps": bad,
+                           "digest_after_restore": probe.restored,
+                           "final_digest_equals_uninterrupted": True}
+
+        # 4. raise: the second step of a poisoned epoch
+        try:
+            sess.fit(_fit_data(batch, poison=(0, {1})), epochs=1,
+                     steps_per_epoch=spe, on_nonfinite="raise")
+        except NonFiniteError as e:
+            if f"step {spe * epochs + 2}" not in str(e):
+                raise AssertionError(f"raised at another step: {e}")
+            out["raise"] = str(e)
+        else:
+            raise AssertionError("on_nonfinite='raise' did not raise")
+
+        # 5. ms per step under "skip" and "rollback" (one health read per
+        #    step), in turns, one epoch of FIT_TIMED_STEPS each
+        timing = {"skip": [], "rollback": []}
+        for policy in ("skip", "rollback", "rollback", "skip"):
+            th = TimeHistory(tokens)
+            kw = {} if policy == "skip" else dict(
+                checkpoint_dir=os.path.join(root, "timing"),
+                checkpoint_keep=1, resume=False)
+            sess.fit(_fit_data(batch, steps=FIT_TIMED_STEPS), epochs=1,
+                     steps_per_epoch=FIT_TIMED_STEPS, callbacks=[th],
+                     on_nonfinite=policy, **kw)
+            timing[policy].append({
+                "ms_per_step": th.epoch_times[0] / FIT_TIMED_STEPS * 1e3,
+                "tokens_per_s": th.items_per_sec[0]})
+        out["timed"] = dict(timing, steps=FIT_TIMED_STEPS,
+                            order="skip, rollback, rollback, skip")
+        del sess
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def phase_train_parallax(torch, ps_out):
     """``Parallax()`` at full width: the embedding (a sparse variable) on
     PS in a reduce-scatter bucket with K5, every dense variable in
@@ -2233,13 +2509,21 @@ def main() -> int:
           **phase_train_zero1_parity(torch)})
     ps_out = phase_train_ps(torch, zero1_out)
     emit({"phase": "train_ps", "card": smi, **ps_out})
+    t0 = time.perf_counter()
+    fit_out = phase_train_fit(torch, ps_out)
+    emit({"phase": "train_fit", "card": smi,
+          "wall_s": time.perf_counter() - t0, **fit_out})
+    for row in flash_rows:
+        row["launches_by_path"] = {"train_fit": {
+            "launches": fit_out["launches"][row["name"]],
+            "per_step": fit_out["launches_per_step"][row["name"]]}}
     parallax_out = phase_train_parallax(torch, ps_out)
     emit({"phase": "train_parallax", "card": smi, **parallax_out})
     for row in sync_rows:
         row["launches_by_path"] = {
             path: {"launches": out["launches"][row["name"]],
                    "per_step": out["launches_per_step"][row["name"]]}
-            for path, out in (("train_ps", ps_out),
+            for path, out in (("train_ps", ps_out), ("train_fit", fit_out),
                               ("train_parallax", parallax_out))}
 
     ring, ring_wall, fused_vs_unfused = phase_train_ring()

@@ -653,3 +653,71 @@ def test_lm1b_parallax_fusable_adam_launches_k5_on_the_card(dev):
     for n in wp:
         np.testing.assert_allclose(gp[n], wp[n], rtol=0, atol=1e-4,
                                    err_msg=n)
+
+
+def _tiny_lm_session(dtype=torch.float32, builder=None, optimizer=None,
+                     guard=True):
+    """A tiny ``transformer_lm`` session on the card (flash K1–K3 by
+    default) and its batch."""
+    import os
+
+    from autodist_tpu_torch.autodist import (
+        AutoDist, _reset_default_autodist_for_testing)
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    os.environ["AUTODIST_IS_TESTING"] = "True"
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(vocab_size=97, num_layers=2, num_heads=2,
+                          head_dim=16, d_ff=32, max_len=16, dtype=dtype)
+    ad = AutoDist(strategy_builder=builder or PSLoadBalancing())
+    with ad.scope():
+        ad.capture(params=spec.init(0), optimizer=optimizer
+                   or fk.fusable_adam(1e-2), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": 1.0} if guard else None)
+    return ad.create_distributed_session(), spec.sample_batch(8, seed=1)
+
+
+def test_fit_resume_on_the_card_is_bit_identical(dev, tmp_path):
+    """``fit`` with a checkpoint after epoch 1 and a fresh session's
+    ``fit(resume=True)`` to 3 epochs ends on the uninterrupted run's epoch
+    losses and parameters to the bit (the facade's default with K1–K5)."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    sess, batch = _tiny_lm_session()
+    data = [batch, dict(batch, tokens=batch["tokens"][::-1].copy())]
+    want = sess.fit(data, epochs=3).history["epoch_loss"]
+    want_p = dict(flatten(sess.params))
+    sess, _ = _tiny_lm_session()
+    sess.fit(data, epochs=1, steps_per_epoch=2, checkpoint_dir=str(tmp_path))
+    calls = fa.flash_attention.fwd_calls
+    sess, _ = _tiny_lm_session()
+    hist = sess.fit(data, epochs=3, steps_per_epoch=2,
+                    checkpoint_dir=str(tmp_path))
+    assert fa.flash_attention.fwd_calls - calls == 2 * 4
+    assert hist.history["epoch_loss"] == want[1:]
+    for name, x in flatten(sess.params):
+        np.testing.assert_array_equal(x, want_p[name], err_msg=name)
+
+
+def test_bf16_lm_trains_a_step_through_the_f32_flash_kernels(dev):
+    """A bf16 ``transformer_lm`` (bf16 embedding tables, f32 decoder, as
+    in the JAX package) trains on the card: attention gets f32 q/k/v, so
+    K1–K3 launch once per layer per step, and the loss is finite."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.strategy import AllReduce
+
+    sess, batch = _tiny_lm_session(torch.bfloat16, AllReduce(),
+                                   optim.adam(1e-2), guard=False)
+    assert sess.device_params["embed"].dtype == torch.bfloat16
+    assert sess.device_params["decoder"]["ln_final"]["scale"].dtype \
+        == torch.float32
+    before = (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+              fa.flash_attention.dkv_calls)
+    loss = float(sess.run(batch)["loss"])
+    after = (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+             fa.flash_attention.dkv_calls)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert np.isfinite(loss)
+    assert sess.device_params["embed"].dtype == torch.bfloat16

@@ -45,6 +45,7 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.numerics, autodist_tpu_torch.numerics.guard\n"
         "import autodist_tpu_torch.numerics.loss_scale\n"
         "import autodist_tpu_torch.numerics.policy\n"
+        "import autodist_tpu_torch.checkpoint.saver\n"
         "import autodist_tpu_torch.strategy.zero1_strategy\n"
         "import autodist_tpu_torch.kernel.synchronization.explicit_sync\n"
         "import autodist_tpu_torch.profile_train\n"
@@ -68,7 +69,7 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
 
 def test_top_level_exports_match_the_jax_package():
     """The JAX package's top-level names, each resolving (``AutoDist``
-    lazily) or, for ``fit``'s callbacks, raising naming P5 when made."""
+    and ``fit``'s callbacks lazily)."""
     import autodist_tpu
     import autodist_tpu_torch as port
     from autodist_tpu_torch.autodist import AutoDist as facade
@@ -83,10 +84,12 @@ def test_top_level_exports_match_the_jax_package():
         {"address": "localhost", "gpus": [0, 1], "chief": True}]})
     assert all(isinstance(d, port.DeviceSpec) for d in spec.devices)
     assert len(spec.devices) == 2
-    for name in ("Callback", "TimeHistory", "History"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP: P5 — fit and checkpoint"):
-            getattr(port, name)()
+    from autodist_tpu_torch import fit
+    assert (port.Callback, port.TimeHistory, port.History) \
+        == (fit.Callback, fit.TimeHistory, fit.History)
+    assert port.History().history == {"loss": [], "loss_step": [],
+                                      "epoch_loss": []}
+    assert port.TimeHistory(8).items_per_step == 8
     assert issubclass(port.TimeHistory, port.Callback)
     with pytest.raises(AttributeError):
         port.NoSuchName  # noqa: B018

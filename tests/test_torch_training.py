@@ -377,8 +377,9 @@ def test_unported_factory_options_and_fit_raise():
     ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
     ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.sgd(0.1),
                loss_fn=spec.loss_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP: P5"):
-        ad.create_distributed_session().fit([spec.sample_batch(2)])
+    with pytest.raises(NotImplementedError, match="ROADMAP: P8"):
+        ad.create_distributed_session().fit([spec.sample_batch(2)],
+                                            validate=True)
 
 
 def test_autodist_defaults_to_ps_load_balancing(jmodel):

@@ -1,7 +1,7 @@
 """One rank of a data-parallel run of the port on gloo CPU ranks (spawned by
 ``tests/test_torch_training.py``, ``tests/test_torch_zero1.py``,
-``tests/test_torch_quant_ring.py``, ``tests/test_torch_ps_family.py`` and
-``tests/test_torch_models.py``).
+``tests/test_torch_quant_ring.py``, ``tests/test_torch_ps_family.py``,
+``tests/test_torch_models.py`` and ``tests/test_torch_checkpoint.py``).
 
     python tests/torch_dp_worker.py RANK WORLD PORT OUT.npz [MODE [IN]]
 
@@ -37,6 +37,13 @@ residuals; then the same after one step from each of the states in
 after k steps); then after 3 steps on :func:`linear_loss` and
 :func:`linear_batch`, whose gradients are the batch's rows to the bit.  ``ring`` runs the quantized ring collectives
 on the rows of ``IN.npz`` (:func:`ring_functions`).
+
+``ckpt`` trains each run of :func:`ckpt_runs` through ``fit`` for
+:data:`CKPT_EPOCHS` epochs uninterrupted, then again with a checkpoint
+after epoch 1 under ``IN/{run}`` (rank 0 writes), a fresh session and a
+``fit(resume=True)`` to the same total, and writes both runs' epoch
+losses and parameters; then the rollback policy's run with and without
+two poisoned steps (:func:`ckpt_main`).
 
 Each rank runs one intra-op thread: ranks do not contend for the host's
 cores, and the sums come out the same on any host.
@@ -383,6 +390,91 @@ def ring_functions(x, grid_int8, grid_fp8, state, group, n):
             for k, v in out.items()}
 
 
+#: the ``ckpt`` mode's epochs (2 steps each); the checkpoint is taken after
+#: the first
+CKPT_EPOCHS = 3
+
+
+def ckpt_runs():
+    """``{name: () -> (session, batch)}`` of the ``ckpt`` mode: the plain
+    step, ZeRO-1, the facade's default and the Int8 ring (residuals in the
+    sync state)."""
+    return {"allreduce": lambda: session("allreduce"),
+            "zero1": lambda: session("zero1"),
+            "PSLoadBalancing": lambda: session("PSLoadBalancing"),
+            "int8_allreduce": lambda: quant_session("int8_allreduce")}
+
+
+def rollback_session():
+    """``Zero1`` with ``on_nonfinite="rollback"`` on the loss times the
+    batch's ``s`` column (NaN poisons a step), and the clean batch."""
+    torch.manual_seed(0)
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(**CFG)
+
+    def loss_fn(p, b):
+        return spec.loss_fn(p, b) * b["s"].mean()
+
+    ad = AutoDist(strategy_builder=Zero1(ZERO1_BUCKET_BYTES), device="cpu")
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"),
+                   optimizer=fusable_adam(1e-2), loss_fn=loss_fn,
+                   sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": CLIP, "on_nonfinite": "rollback",
+                             "rollback_after": 2})
+    batch = dict(spec.sample_batch(8, seed=1), s=np.ones(8, np.float32))
+    return ad.create_distributed_session(), batch
+
+
+def poisoned_epoch(batch, epoch):
+    """A generator factory of two copies of ``batch``; the first pass of
+    ``epoch`` has ``s`` = NaN in both."""
+    calls = []
+
+    def factory():
+        calls.append(1)
+        s = np.full(8, np.nan if len(calls) == epoch + 1 else 1.0,
+                    np.float32)
+        return iter([dict(batch, s=s), dict(batch, s=s)])
+    return factory
+
+
+def ckpt_main(directory):
+    """The ``ckpt`` mode: per run, the uninterrupted ``fit`` and the resumed
+    one (``{run}/epoch_loss``, ``{run}/p/{variable}``, and the same under
+    ``{run}/resumed/``)."""
+    out = {}
+    for name, make in ckpt_runs().items():
+        ckpt_dir = os.path.join(directory, name)
+        sess, batch = make()
+        hist = sess.fit([batch, batch], epochs=CKPT_EPOCHS)
+        out[f"{name}/epoch_loss"] = np.array(hist.history["epoch_loss"])
+        out.update({f"{name}/p/{k}": v for k, v in flatten(sess.params)})
+        sess, batch = make()
+        sess.fit([batch, batch], epochs=1, steps_per_epoch=2,
+                 checkpoint_dir=ckpt_dir)
+        sess, batch = make()
+        hist = sess.fit([batch, batch], epochs=CKPT_EPOCHS, steps_per_epoch=2,
+                        checkpoint_dir=ckpt_dir, resume=True)
+        out[f"{name}/resumed/epoch_loss"] = np.array(
+            hist.history["epoch_loss"])
+        out[f"{name}/resumed/step"] = np.int64(sess.step_count)
+        out.update({f"{name}/resumed/p/{k}": v
+                    for k, v in flatten(sess.params)})
+    for poisoned in (False, True):
+        sess, batch = rollback_session()
+        data = poisoned_epoch(batch, 1 if poisoned else -1)
+        hist = sess.fit(data, epochs=CKPT_EPOCHS, steps_per_epoch=2,
+                        checkpoint_dir=os.path.join(
+                            directory, f"rollback{int(poisoned)}"))
+        tag = "rollback/poisoned" if poisoned else "rollback"
+        out[f"{tag}/rollbacks"] = np.array(
+            [(r["at_step"], r["restored_step"])
+             for r in hist.history.get("rollbacks", [])]).reshape(-1, 2)
+        out.update({f"{tag}/p/{k}": v for k, v in flatten(sess.params)})
+    return out
+
+
 def session(strategy="allreduce", device="cpu"):
     """The facade's session for ``strategy`` in this process, and the
     model's fixed global batch: ``"allreduce"`` (``adam``), ``"zero1"``,
@@ -471,6 +563,9 @@ def main():
             return
         if strategy == "models":
             np.savez(out, **models_main(np.load(sys.argv[6])))
+            return
+        if strategy == "ckpt":
+            np.savez(out, **ckpt_main(sys.argv[6]))
             return
         if strategy == "quant":
             np.savez(out, **quant_main(torch.load(
