@@ -7,6 +7,8 @@ resource_spec_file, strategy_builder)`` → ``scope()`` / ``capture()`` →
 multi-rank ``torch.distributed`` run, card ``rank % cards``); without a
 card this raises unless ``device="cpu"`` is passed.  With no builder
 the facade builds ``PSLoadBalancing()``, the JAX facade's default.
+``AutoDist.cluster`` and ``.coordinator`` (the multi-host launcher) come
+with P12 and raise naming it.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import contextlib
 import itertools
 from typing import Any, Callable, Dict, Optional, Sequence
 
-from autodist_tpu_torch.const import ENV
+from autodist_tpu_torch.const import ENV, P12, not_ported
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.mesh import Mesh, build_mesh, rank_device
@@ -25,6 +27,11 @@ from autodist_tpu_torch.strategy.compiler import StrategyCompiler
 from autodist_tpu_torch.strategy.ps_lb_strategy import PSLoadBalancing
 
 _default_autodist: Optional["AutoDist"] = None
+
+
+def get_default_autodist() -> Optional["AutoDist"]:
+    """The process's AutoDist (the last one made), or None."""
+    return _default_autodist
 
 
 def _set_default_autodist(ad: "AutoDist") -> None:
@@ -109,6 +116,24 @@ class AutoDist:
             remat=remat, has_aux=has_aux, metrics_fn=metrics_fn,
             grad_fn=grad_fn, accum_steps=accum_steps, numerics=numerics)
         return self._graph_item
+
+    @property
+    def graph_item(self) -> Optional[GraphItem]:
+        """The captured program (None before :meth:`capture`)."""
+        return self._graph_item
+
+    @property
+    def resource_spec(self) -> ResourceSpec:
+        return self._resource_spec
+
+    @property
+    def cluster(self):
+        raise not_ported("AutoDist.cluster, the multi-host cluster", P12)
+
+    @property
+    def coordinator(self):
+        raise not_ported("AutoDist.coordinator, the multi-host launcher",
+                         P12)
 
     def is_built(self) -> bool:
         return self._session is not None

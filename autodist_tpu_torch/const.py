@@ -49,11 +49,30 @@ class ENV(enum.Enum):
         return self.value[1](os.environ.get(self.name))
 
 
+#: the ROADMAP items that :func:`not_ported` errors name most often
+P8 = "P8 — cost model, search and AutoStrategy"
+P9 = "P9 — telemetry and resilience"
+P10 = "P10 — non-data mesh axes"
+P11 = "P11 — the rest of serving"
+P12 = "P12 — runtime, cluster and coordinator"
+
+
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error an unported option raises: it names the ROADMAP item that
     brings it, so nothing runs in place of what was asked."""
     return NotImplementedError(
         f"{what} is not ported to the PyTorch port yet (ROADMAP: {item})")
+
+
+def unported_function(name: str, what: str, item: str):
+    """A function ``name`` that raises :func:`not_ported` for ``what`` when
+    called: it imports like the JAX package's function of that name."""
+    def stub(*args, **kwargs):
+        raise not_ported(what, item)
+
+    stub.__name__ = stub.__qualname__ = name
+    stub.__doc__ = f"{name}: {item}."
+    return stub
 
 
 def unported_class(name: str, what: str, item: str, bases: tuple = ()):

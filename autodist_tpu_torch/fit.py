@@ -28,16 +28,13 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 
-from autodist_tpu_torch.const import not_ported
+from autodist_tpu_torch.const import P8, P9, not_ported
 from autodist_tpu_torch.numerics.policy import (ON_NONFINITE, NonFiniteError,
                                                 RollbackRequest,
                                                 StepHealthMonitor,
                                                 emit_failure_marker)
 
 log = logging.getLogger(__name__)
-
-_P8 = "P8 — cost model, search and AutoStrategy"
-_P9 = "P9 — telemetry and resilience"
 
 
 class Callback:
@@ -166,15 +163,15 @@ def _epoch_iter(data: DataArg, steps_per_epoch: Optional[int]):
 def _refuse_unported(validate, tuner, tiers, snapshot_every, snapshot_keep,
                      snapshot_dir) -> None:
     if validate:
-        raise not_ported("fit(validate=True): the pre-flight analyzer", _P8)
+        raise not_ported("fit(validate=True): the pre-flight analyzer", P8)
     if tuner is not None:
-        raise not_ported("fit(tuner=...): the schedule tuner", _P8)
+        raise not_ported("fit(tuner=...): the schedule tuner", P8)
     for name, value in (("tiers", tiers), ("snapshot_every", snapshot_every),
                         ("snapshot_keep", snapshot_keep),
                         ("snapshot_dir", snapshot_dir)):
         if value:
             raise not_ported(f"fit({name}=...): the RAM and peer checkpoint "
-                             "tiers", _P9)
+                             "tiers", P9)
 
 
 def fit(session, data: DataArg, epochs: int = 1,

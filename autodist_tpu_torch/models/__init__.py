@@ -1,12 +1,19 @@
 """Models: the flagship decoder ``transformer_lm`` with its generator and
-weight-only int8 tree, and the BASELINE families: ``resnet50``/``resnet101``,
-``vgg16``, ``bert`` (``bert_base``, ``bert_large``) and the ``lm1b`` LSTM.
-``ALL_MODELS`` holds the ported entries of the JAX package's dict
-(``densenet121``, ``inception_v3`` and ``ncf`` are not ported yet)."""
-from autodist_tpu_torch.models.base import ModelSpec, resolve_device
+weight-only int8 tree, and the reference's benchmark families:
+``resnet50``/``resnet101``, ``vgg16``, ``densenet121``, ``inception_v3``,
+``bert`` (``bert_base``, ``bert_large``), the ``lm1b`` LSTM and ``ncf``.
+``ALL_MODELS`` is the JAX package's dict.  The JAX package's LoRA helpers
+and speculative generator (P11) and its mesh-parameterized models (P10)
+are names that raise naming their ROADMAP item."""
+from autodist_tpu_torch.const import P10, P11, unported_function
+from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
+                                            resolve_device)
 from autodist_tpu_torch.models.bert import bert, bert_base, bert_large
+from autodist_tpu_torch.models.densenet import densenet121
 from autodist_tpu_torch.models.generate import make_generator
+from autodist_tpu_torch.models.inception import inception_v3
 from autodist_tpu_torch.models.lm1b import lm1b
+from autodist_tpu_torch.models.ncf import ncf
 from autodist_tpu_torch.models.quantize import (dequantize_lm_params,
                                                 quantize_lm_params)
 from autodist_tpu_torch.models.resnet import resnet50, resnet101
@@ -14,16 +21,35 @@ from autodist_tpu_torch.models.transformer_lm import (TransformerLM,
                                                       transformer_lm)
 from autodist_tpu_torch.models.vgg import vgg16
 
+lora_init = unported_function("lora_init", "LoRA adapters", P11)
+lora_merge = unported_function("lora_merge", "LoRA adapters", P11)
+lora_setup = unported_function("lora_setup", "LoRA adapters", P11)
+make_speculative_generator = unported_function(
+    "make_speculative_generator", "the speculative generator", P11)
+moe_transformer_lm = unported_function(
+    "moe_transformer_lm", "the expert-parallel MoE LM", P10)
+pipelined_transformer_lm = unported_function(
+    "pipelined_transformer_lm", "the pipelined LM", P10)
+pipelined_moe_transformer_lm = unported_function(
+    "pipelined_moe_transformer_lm", "the pipelined MoE LM", P10)
+
 ALL_MODELS = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "vgg16": vgg16,
+    "densenet121": densenet121,
+    "inception_v3": inception_v3,
     "bert": bert,
     "lm1b": lm1b,
+    "ncf": ncf,
     "transformer_lm": transformer_lm,
 }
 
-__all__ = ["ModelSpec", "resolve_device", "make_generator",
-           "dequantize_lm_params", "quantize_lm_params", "TransformerLM",
-           "transformer_lm", "resnet50", "resnet101", "vgg16", "bert",
-           "bert_base", "bert_large", "lm1b", "ALL_MODELS"]
+__all__ = ["ModelSpec", "resolve_device", "cross_entropy_loss",
+           "make_generator", "dequantize_lm_params", "quantize_lm_params",
+           "TransformerLM", "transformer_lm", "resnet50", "resnet101",
+           "vgg16", "densenet121", "inception_v3", "bert", "bert_base",
+           "bert_large", "lm1b", "ncf", "lora_init", "lora_merge",
+           "lora_setup", "make_speculative_generator", "moe_transformer_lm",
+           "pipelined_transformer_lm", "pipelined_moe_transformer_lm",
+           "ALL_MODELS"]

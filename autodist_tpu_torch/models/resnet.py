@@ -65,8 +65,11 @@ def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(x, k, stride)
 
 
-def group_norm(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    return F.group_norm(x, GROUPS, p["scale"], p["bias"], NORM_EPS)
+def group_norm(x: torch.Tensor, p: Dict, groups: int = GROUPS
+               ) -> torch.Tensor:
+    """The JAX model's ``GroupNorm(num_groups=groups)`` (eps 1e-6) on
+    NCHW."""
+    return F.group_norm(x, groups, p["scale"], p["bias"], NORM_EPS)
 
 
 def dense(x: torch.Tensor, p: Dict) -> torch.Tensor:

@@ -20,6 +20,7 @@ SDPA's backward at the same shape for scale.  Needs a CUDA device and
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import subprocess
 import sys
@@ -133,7 +134,7 @@ def use_library(path, source: str = SOURCE) -> None:
 
 
 def _inputs(gen, b, t, h, d, causal=True, mul=1.0):
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to("cuda")
                    for _ in range(4))
@@ -147,7 +148,7 @@ def _inputs(gen, b, t, h, d, causal=True, mul=1.0):
 def check_dq(gen) -> float:
     """dQ of the current library against the plain version on the checked
     shapes; returns the largest error."""
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     b, t, h, d = (SHAPE[x] for x in "BTHD")
     worst = 0.0
@@ -175,7 +176,7 @@ def main() -> int:
         print("profile_flash: no CUDA device available", file=sys.stderr)
         return 2
     import torch.nn.functional as F
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

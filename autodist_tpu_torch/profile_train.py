@@ -22,6 +22,11 @@ BASELINE builder (BASELINE.json) at batch 32, the JAX examples'
 sgd and the clip; ``bert_base()`` at seq 128 with ``PartitionedAR()`` and
 ``adamw(1e-3)`` (non-causal K1–K3); ``lm1b()`` (vocabulary 793472, the
 chunked loss) with ``Parallax()``, ``fusable_adam(1e-3)`` and the clip.
+``--model densenet121|inception_v3`` runs that model (224x224, 299x299)
+as ``imagenet.py`` does by default: ``AllReduce()`` and the same sgd at
+batch 32; ``--model ncf`` runs ``ncf()`` at BASELINE's batch of 4096 under
+``PSLoadBalancing()`` with ``fusable_adam(1e-3)`` and the clip (its four
+tables in reduce-scatter buckets: K4 and K5).
 
 For each, after ``WARMUP`` steps it times ``STEPS`` steps
 (``torch.cuda.synchronize()`` around each), records ``PROFILED`` more under
@@ -50,11 +55,14 @@ WARMUP, STEPS, PROFILED = 3, 5, 2
 BATCH = 8
 #: the BASELINE models' batch (the JAX examples' ``--batch-size``)
 MODEL_BATCH = 32
+#: NCF's batch (BASELINE.md's NCF row)
+NCF_BATCH = 4096
 CLIP_NORM = 1.0
 #: ``--model`` → its configurations, in the order they run
 MODELS = {"transformer_lm": ("allreduce", "zero1", "parallax"),
           "resnet50": ("resnet50",), "vgg16": ("vgg16",), "bert": ("bert",),
-          "lm1b": ("lm1b",)}
+          "lm1b": ("lm1b",), "densenet121": ("densenet121",),
+          "inception_v3": ("inception_v3",), "ncf": ("ncf",)}
 
 
 def _group(name: str) -> str:
@@ -118,6 +126,12 @@ def config(name: str):
                  None, MODEL_BATCH),
         "lm1b": (models.lm1b(), st.Parallax(), fusable_adam(1e-3), clip,
                  MODEL_BATCH),
+        "densenet121": (models.densenet121(), st.AllReduce(), sgd, None,
+                        MODEL_BATCH),
+        "inception_v3": (models.inception_v3(), st.AllReduce(), sgd, None,
+                         MODEL_BATCH),
+        "ncf": (models.ncf(), st.PSLoadBalancing(), fusable_adam(1e-3), clip,
+                NCF_BATCH),
     }[name]
 
 

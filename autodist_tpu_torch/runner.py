@@ -7,7 +7,9 @@ state and the quantized buckets' error-feedback residuals) on its device
 and runs the lowered step against them.
 ``run(batch)`` takes the GLOBAL batch on every rank (the step takes this
 rank's rows of the data axis); ``params`` gathers to host numpy in the
-logical layout.
+logical layout.  ``schedule_ir``/``schedule_fingerprint`` (P8),
+``telemetry`` (P9) and ``place_local_batch`` (P12) raise naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch.const import P8, P9, P12, not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
-                                                         copy_tree)
+                                                         copy_tree,
+                                                         local_rows)
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
 
 
@@ -49,6 +53,31 @@ def _copy_async(x, device):
 def _place(tree, device):
     return tree_map(lambda x: torch.as_tensor(x).detach().to(device).clone(),
                     tree)
+
+
+def _meta(x, length=None):
+    """A ``device="meta"`` tensor of ``x``'s shape (``(length,)`` when
+    given) and dtype; anything else as it is."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    shape = tuple(x.shape) if length is None else (length,)
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+#: dense bf16 tensor-core peak FLOP/s of one card, by a substring of
+#: ``torch.cuda.get_device_name()`` (NVIDIA's data sheets, without
+#: sparsity): the denominator of :meth:`DistributedSession.mfu`, as the
+#: JAX package's ``utils/metrics.py`` takes each TPU's bf16 peak
+PEAK_BF16_FLOPS = {"H100 80GB HBM3": 989e12, "H100 PCIe": 756e12}
+
+
+def peak_flops(device) -> Optional[float]:
+    """The card's dense bf16 peak; None on the CPU or for an unknown
+    card."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((v for k, v in PEAK_BF16_FLOPS.items() if k in name), None)
 
 
 class ThroughputMeter:
@@ -96,6 +125,8 @@ class DistributedSession:
         self._sync_state = dist_step.init_sync_state()
         self._step_count = 0
         self._meter = ThroughputMeter()
+        self._last_batch = None     # for flops_per_step
+        self._flops = None          # cached; False when unavailable
 
     # -- state -------------------------------------------------------------
     @property
@@ -106,6 +137,13 @@ class DistributedSession:
     @property
     def device_params(self):
         """The parameter tensors the step updates in place."""
+        return self._params
+
+    @property
+    def sharded_params(self):
+        """The JAX session's name for :attr:`device_params`: the step's
+        device-resident tree (replicated per rank: the port keeps no 1/N
+        parameter storage)."""
         return self._params
 
     @property
@@ -152,6 +190,46 @@ class DistributedSession:
                             else _place(sync_state, self._step.device))
         self._step_count = step
 
+    def set_params(self, params) -> None:
+        """Place new parameter values (tensors or numpy arrays, e.g. from a
+        checkpoint); the optimizer state and the sync state start afresh
+        from them."""
+        self._params = self._step.place_params(params)
+        self._opt_state = self._step.init_fn(self._params)
+        self._sync_state = self._step.init_sync_state()
+
+    def load_state(self, params, opt_state, step: int = 0,
+                   sync_state=None) -> None:
+        """Full resume from values already placed in the session's layout
+        (tensors on the session's device, as :attr:`device_params`,
+        :attr:`opt_state` and :attr:`sync_state` hold them; ``export_state``
+        gives such values); ``sync_state`` None starts a fresh one.  The
+        session takes the tensors as they are (no copy) and marks the
+        trainable leaves as requiring grad."""
+        for name, leaf in flatten(params):
+            leaf.requires_grad_(name in self._step.trainable)
+        self._params = params
+        self._opt_state = opt_state
+        self._sync_state = (self._step.init_sync_state() if sync_state is None
+                            else sync_state)
+        self._step_count = step
+
+    def restore_targets(self):
+        """``(params, opt_state)`` of ``device="meta"`` tensors with the
+        shapes and dtypes :meth:`export_state` gives: the LOGICAL layout,
+        each ZeRO-1 bucket's state vector ``padded_total`` long."""
+        opt = self._opt_state
+        if self.zero1_buckets:
+            sizes = {b.key: b.padded_total for b in self.zero1_buckets}
+            opt = {"vars": tree_map(_meta, opt["vars"]),
+                   "zero1": {k: _meta(v) if not isinstance(v, dict) else
+                             {key: _meta(s, sizes[key])
+                              for key, s in v.items()}
+                             for k, v in opt["zero1"].items()}}
+        else:
+            opt = tree_map(_meta, opt)
+        return tree_map(_meta, self._params), opt
+
     @property
     def step_count(self) -> int:
         return self._step_count
@@ -164,11 +242,25 @@ class DistributedSession:
     def data_axis_size(self) -> int:
         return self._step.mesh.data_size
 
+    @property
+    def schedule_ir(self):
+        raise not_ported("DistributedSession.schedule_ir", P8)
+
+    @property
+    def schedule_fingerprint(self):
+        raise not_ported("DistributedSession.schedule_fingerprint", P8)
+
+    @property
+    def telemetry(self):
+        raise not_ported("DistributedSession.telemetry, the step recorder",
+                         P9)
+
     # -- running -----------------------------------------------------------
     def run(self, batch: Any, sync: bool = True) -> Dict[str, Any]:
         """One training step on the global batch.  Returns metrics (at
         least ``{"loss"}``) as host numpy when ``sync``, else as device
         tensors, so back-to-back steps queue without a host round trip."""
+        self._last_batch = batch
         out = self._step.step_fn(self._params, self._opt_state,
                                  self._sync_state,
                                  self._step.place_batch(batch))
@@ -183,6 +275,13 @@ class DistributedSession:
         for b in batches:
             out = self.run(b, sync=False)
         return None if out is None else _to_host(out)
+
+    def run_epoch(self, batches, prefetch_depth: int = 2
+                  ) -> Optional[Dict[str, Any]]:
+        """Every batch of an epoch with :meth:`prefetch` and no host round
+        trip per step; the last step's metrics on host (None for no
+        batches)."""
+        return self.run_many(self.prefetch(batches, prefetch_depth))
 
     def evaluate(self, batches, sync: bool = True
                  ) -> Optional[Dict[str, Any]]:
@@ -214,6 +313,10 @@ class DistributedSession:
         """``batch`` with every array leaf as a tensor on the session's
         device (a batch placed already comes back as it is)."""
         return self._step.place_batch(batch)
+
+    def place_local_batch(self, local_batch):
+        raise not_ported("DistributedSession.place_local_batch, the "
+                         "multi-host input path", P12)
 
     def prefetch(self, batches: Iterable, depth: int = 2) -> Iterator:
         """Yield ``batches`` placed on the device, copying up to ``depth``
@@ -261,3 +364,39 @@ class DistributedSession:
         """Sliding-window step timing: step_time_ms / steps_per_sec (+
         items_per_sec given a batch size)."""
         return self._meter.stats(items_per_step)
+
+    def flops_per_step(self) -> Optional[float]:
+        """Model FLOPs of one step on this rank: one forward and backward
+        of the loss on this rank's rows of the last batch, counted by
+        ``torch.utils.flop_counter.FlopCounterMode`` (the matmuls and
+        convolutions; gathers, norms, elementwise ops and the hand-written
+        kernels count 0).  Counted once and cached, "unavailable" (None: no
+        counted op) too; None before the first :meth:`run`."""
+        if self._flops is None and self._last_batch is not None:
+            from torch.utils.flop_counter import FlopCounterMode
+
+            mesh = self._step.mesh
+            batch = local_rows(self._step.place_batch(self._last_batch),
+                               mesh.data_size, mesh.data_rank, [])
+            # detached leaves: backward() fills their .grad, not the
+            # session's (autograd.grad refuses the module tracker's hooks)
+            params = tree_map(lambda x: x.detach().requires_grad_(
+                x.requires_grad), self._params)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                out = self._gi.loss_fn(params, batch)
+                (out[0] if self._gi.has_aux else out).backward()
+            self._flops = float(counter.get_total_flops()) or False
+        return self._flops or None
+
+    def mfu(self) -> Optional[float]:
+        """Model-FLOPs utilization of the last measurement window:
+        :meth:`flops_per_step` over the step time and one card's dense
+        bf16 peak (:data:`PEAK_BF16_FLOPS`); None on the CPU, for an unknown
+        card, or before 2 steps."""
+        st = self._meter.step_time()
+        peak = peak_flops(self._step.device)
+        if st is None or peak is None:
+            return None
+        flops = self.flops_per_step()
+        return None if flops is None else flops / st / peak

@@ -40,6 +40,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch.const import P10, P11, not_ported
 from autodist_tpu_torch.models.base import ModelSpec, resolve_device
 from autodist_tpu_torch.models.generate import (_vocab_size,
                                                 check_sampling_args,
@@ -163,13 +164,11 @@ class PagedDecodeEngine:
                  draft_params=None,
                  deadline_defaults: Optional[Dict[str, float]] = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "PagedDecodeEngine(mesh=...): the sharded pool is not yet "
-                "ported to PyTorch")
+            raise not_ported("PagedDecodeEngine(mesh=...), the sharded pool",
+                             P10)
         if draft_spec is not None or draft_params is not None:
-            raise NotImplementedError(
-                "PagedDecodeEngine(draft_spec=...): speculative decoding "
-                "is not yet ported to PyTorch")
+            raise not_ported("PagedDecodeEngine(draft_spec=...), "
+                             "speculative decoding", P11)
         require_lm_spec(spec, "PagedDecodeEngine")
         cfg = spec.config
         self._device = resolve_device(device)

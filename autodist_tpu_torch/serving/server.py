@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch.const import P11, not_ported
 from autodist_tpu_torch.serving.engine import AdmissionError, DeadlineError
 from autodist_tpu_torch.serving.scheduler import PagedDecodeEngine
 
@@ -528,7 +529,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
-          prefix_tokens=None, paged: bool = False, device=None,
+          tokenizer=None, prefix_tokens=None, prefix_text=None,
+          paged: bool = False, speculative=None,
+          drain_on_sigterm: Optional[bool] = None, device=None,
           **engine_kwargs) -> EngineServer:
     """Build a :class:`PagedDecodeEngine` over ``(spec, params)`` on
     ``device`` (the CUDA card unless the caller asks for another) and
@@ -537,14 +540,19 @@ def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
     sampling knobs, ...).  ``prefix_tokens`` registers the shared system
     prompt; requests opt in with ``"use_prefix": true``.
 
-    ``paged=True`` is required: the default slot engine of the JAX
-    package (``paged=False``) is not ported yet and raises.  Its
-    tokenizer options (``tokenizer``, ``prefix_text``, prompt text) are
-    not ported yet either."""
+    ``paged=True`` is required: the JAX package's default slot engine
+    (``paged=False``), its tokenizer options (``tokenizer``,
+    ``prefix_text``), ``speculative`` and ``drain_on_sigterm=True`` raise
+    naming P11."""
     if not paged:
-        raise NotImplementedError(
-            "serve(paged=False): the slot DecodeEngine is not yet ported "
-            "to PyTorch; use paged=True")
+        raise not_ported("serve(paged=False), the slot DecodeEngine (use "
+                         "paged=True)", P11)
+    for name, value in (("tokenizer", tokenizer),
+                        ("prefix_text", prefix_text),
+                        ("speculative", speculative),
+                        ("drain_on_sigterm", drain_on_sigterm)):
+        if value:
+            raise not_ported(f"serve({name}=...)", P11)
     eng = PagedDecodeEngine(spec, params, device=device, **engine_kwargs)
     if prefix_tokens is not None:
         eng.set_prefix(prefix_tokens)

@@ -6,10 +6,8 @@ builder with the ROADMAP item that brings it, not at its import.
 """
 from __future__ import annotations
 
-from autodist_tpu_torch.const import unported_class
+from autodist_tpu_torch.const import P8, unported_class
 from autodist_tpu_torch.strategy.base import StrategyBuilder
 
-ITEM = "P8 — cost model, search and AutoStrategy"
-
 AutoStrategy = unported_class("AutoStrategy", "the AutoStrategy builder",
-                              ITEM, (StrategyBuilder,))
+                              P8, (StrategyBuilder,))

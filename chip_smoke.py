@@ -136,7 +136,19 @@ Phases, each printing one JSON line:
    loss, ``Parallax()``, ``fusable_adam(1e-3)``, the clip: each table in a
    reduce-scatter bucket of its own, everything else all-reduce, K5 twice
    and K4 twice per bucket per step, words per second = batch x seq_len
-   over the step, peak memory under ``LM1B_PEAK_BYTES``).
+   over the step, peak memory under ``LM1B_PEAK_BYTES``);
+14. the rest of the model zoo, each printing its device busy time, idle
+   share and kernel groups from ``profile_train``'s profile, and
+   ``session.flops_per_step()``/``session.mfu()`` beside its written-out
+   FLOP count: ``train_ncf`` (``ncf()`` at its defaults, batch
+   ``NCF_BATCH`` = 4096, BASELINE's NCF config: ``PSLoadBalancing()``,
+   ``fusable_adam(1e-3)``, the clip; the bucket plan must be the one
+   ``tests/test_torch_models.py`` pins to the JAX planner's, K4 twice and
+   K5 once per bucket per step, losses falling; samples per second),
+   ``train_densenet121`` (224x224) and ``train_inception_v3`` (299x299),
+   both as ``imagenet.py`` runs them by default (``AllReduce()``,
+   ``sgd(1e-3, momentum=0.9)``, batch 32) with no kernel of K1–K10
+   launched.  Every phase's launch check counts K1–K10.
 
 K1–K3 are also checked and timed at BERT-base's shape (B 32, T 128, H 12,
 D 64, non-causal; SDPA with ``is_causal=False``; the ``<64, full>``
@@ -167,8 +179,9 @@ wrapper's calls that launched its C entry point on the kernel's own path:
 serving for K9 and K10, the 13 training steps for K1–K3 (``train_bert``'s
 under ``bert_shape``, ``train_fit``'s in ``launches_by_path``), the 13
 ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
-``train_fit``, ``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``
-and ``train_lm1b`` in ``launches_by_path``, rank 0's 14 quantized-ring
+``train_fit``, ``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``,
+``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 14
+quantized-ring
 steps for K6–K8; each
 such call issues one kernel, or two where the work is split and then
 merged), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
@@ -177,6 +190,7 @@ CUDA device, or without the package beside this script, it exits 2 and
 prints no result.
 """
 import hashlib
+import importlib
 import json
 import os
 import socket
@@ -266,6 +280,14 @@ LM1B_TABLE = 793_472 * 512
 #: the ceiling predicted for ``train_lm1b``'s peak memory (PERF.md's
 #: prediction for the BASELINE models)
 LM1B_PEAK_BYTES = 26e9
+#: NCF's batch (BASELINE.md's NCF row: batch 4096, PSLoadBalancing, Adam)
+NCF_BATCH = 4096
+#: ``ncf()``'s plan under ``PSLoadBalancing`` on one card: its buckets and
+#: the :func:`_plan_digest` that ``tests/test_torch_models.py`` pins to
+#: the JAX planner's plan
+NCF_BUCKETS = 6
+NCF_PLAN_SHA256 = ("820c3fa12b770e87d0984651ee7e0d4c"
+                   "72476256521595a6d4f8d6ca9b7ecfc0")
 
 
 def emit(obj) -> None:
@@ -450,7 +472,7 @@ def _flash_case(torch, fa, gen, b, t, h, d, causal, mul=1.0):
 def phase_flash(torch, timer):
     """K1–K3: correctness at the training and ragged shapes, then times at
     the training shape (causal)."""
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     gen = torch.Generator().manual_seed(SEED + 3)
     b, t, h, d = (TRAIN_SHAPE[x] for x in "BTHD")
@@ -477,7 +499,7 @@ def _flash_rows(torch, timer, bwd, shape, errs):
     kernel and plain ms, bound_ms / bound_tc_ms and SDPA's time (its
     backward on K2's row), each emitted as a ``kernel`` line."""
     import torch.nn.functional as F
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     q, k, v, do, lse, delta, causal = bwd
     b, t, h, d = q.shape
@@ -982,6 +1004,16 @@ def _flash_counts(fa_fn):
     return (fa_fn.fwd_calls, fa_fn.dq_calls, fa_fn.dkv_calls)
 
 
+def _fresh_peak(torch) -> None:
+    """Drop the last phase's facade (the process's default AutoDist holds
+    its session) and restart the peak-memory counter from what is left."""
+    from autodist_tpu_torch import autodist as adm
+
+    adm._reset_default_autodist_for_testing()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _train_session(spec, params, batch_rows, builder=None, optimizer=None,
                    loss_fn=None, numerics=None):
     """The program users run: ``AutoDist(builder)`` → capture → session,
@@ -1022,13 +1054,13 @@ def phase_train(torch):
     step time, tokens/s, peak memory, MFU against the f32 peak."""
     from autodist_tpu_torch.graph_item import flatten
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     spec = transformer_lm()       # attn_fn=None: K1–K3 on the card
     layers = spec.config["num_layers"]
     params = spec.init(SEED)
     shapes = {n: tuple(x.shape) for n, x in flatten(params)}
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"])
     del params
     fa_fn = fa.flash_attention
@@ -1086,7 +1118,7 @@ def phase_train_parity(torch):
     same parameters, 3 ``adamw`` steps, losses at rtol 1e-4."""
     from autodist_tpu_torch.models.transformer import dense_attention
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     flash_spec = transformer_lm(num_layers=2)
     dense_spec = transformer_lm(num_layers=2, attn_fn=dense_attention)
@@ -1128,28 +1160,42 @@ def _plan_digest(buckets) -> str:
 
 
 def _kernel_counts() -> dict:
-    """K1–K5's launch counters by kernel name."""
-    from autodist_tpu_torch.ops import flash_attention as fa
+    """K1–K10's launch counters by kernel name."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
     from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.ops import quant
 
     return dict(zip(("flash_fwd", "flash_dq", "flash_dkv", "detect_stats",
-                     "adam_update"),
-                    _flash_counts(fa.flash_attention) + _sync_counts(fk)))
+                     "adam_update", "quant_hop_quantize",
+                     "quant_hop_accumulate", "quant_hop_dequant_add",
+                     "paged_attention", "int8_matmul"),
+                    _flash_counts(fa.flash_attention) + _sync_counts(fk)
+                    + _quant_counts(fk) + (fk.paged_attention.calls,
+                                           quant.int8_matmul.calls)))
+
+
+def _reset_all_counts() -> None:
+    """Set K1–K10's launch counters to 0."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.ops import quant
+
+    fa.reset_counts()
+    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    fk.fused_quantize.calls = fk.fused_hop_accumulate.calls = 0
+    fk.fused_dequant_add.calls = fk.paged_attention.calls = 0
+    quant.int8_matmul.calls = 0
 
 
 def _checked_steps(torch, name, sess, batch, want, warmup, timed,
                    guarded):
     """``warmup + timed`` steps of ``sess``, each checked to launch exactly
-    ``want`` (K1–K5 by name) and to be finite; ``guarded`` sessions must
+    ``want`` (K1–K10 by name) and to be finite; ``guarded`` sessions must
     return ``grad_health`` with nothing skipped and a finite global norm,
     the others must not: losses, global norms (guarded), the timed steps'
     seconds and the counts read just after the last step.  The counts
     start at 0 here: the main path's launches."""
-    from autodist_tpu_torch.ops import flash_attention as fa
-    from autodist_tpu_torch.ops import fused_kernels as fk
-
-    fa.reset_counts()
-    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    _reset_all_counts()
     losses, norms, step_s = [], [], []
     for i in range(warmup + timed):
         before = _kernel_counts()
@@ -1185,7 +1231,8 @@ def _bucketed_steps(torch, sess, batch, layers, warmup, timed):
     reduce-scatter bucket each step (whether the losses fall is the
     caller's check: 7 steps at lr 1e-3 end on a spike that step 8 takes
     back); its results and the per-step counts."""
-    want = dict(flash_fwd=layers, flash_dq=layers, flash_dkv=layers,
+    want = dict(dict.fromkeys(_kernel_counts(), 0), flash_fwd=layers,
+                flash_dq=layers, flash_dkv=layers,
                 detect_stats=2 * len(sess._step.buckets),
                 adam_update=len(sess.zero1_buckets))
     return _checked_steps(torch, "bucketed step", sess, batch, want, warmup,
@@ -1217,7 +1264,7 @@ def phase_train_zero1(torch):
 
     spec = transformer_lm()
     layers = spec.config["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
                                  Zero1(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
@@ -1263,8 +1310,7 @@ def phase_train_ps(torch, zero1_out):
 
     spec = transformer_lm()
     layers = spec.config["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
-    adm._reset_default_autodist_for_testing()
+    _fresh_peak(torch)
     ad = adm.AutoDist()                       # no builder: the default
     with ad.scope():
         gi = ad.capture(params=spec.init(SEED),
@@ -1365,8 +1411,6 @@ def phase_train_fit(torch, ps_out):
     from autodist_tpu_torch.fit import Callback, TimeHistory
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
     from autodist_tpu_torch.numerics import NonFiniteError
-    from autodist_tpu_torch.ops import flash_attention as fa
-    from autodist_tpu_torch.ops import fused_kernels as fk
 
     spec = transformer_lm()
     batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
@@ -1379,8 +1423,7 @@ def phase_train_fit(torch, ps_out):
     #    no per-step health read; the counts start at 0 here
     sess = _fit_session(spec)
     th = TimeHistory(tokens)
-    fa.reset_counts()
-    fk.fused_detect_stats.calls = fk.fused_adam_update.calls = 0
+    _reset_all_counts()
     hist = sess.fit(_fit_data(batch), epochs=epochs, steps_per_epoch=spe,
                     callbacks=[th], on_nonfinite="skip")
     launches = _kernel_counts()
@@ -1564,7 +1607,7 @@ def phase_train_parallax(torch, ps_out):
 
     spec = transformer_lm()
     layers = spec.config["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
                                  Parallax(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
@@ -1700,12 +1743,12 @@ def _ring_wire_bytes(buckets, algs, d: int) -> dict:
 def _ring_train(torch, name, builder, optimizer):
     """One configuration of the ``train_ring`` phase on this rank."""
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
     from autodist_tpu_torch.ops import fused_kernels as fk
 
     spec = transformer_lm()
     layers = spec.config["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
                                  builder, optimizer,
                                  numerics={"clip_norm": CLIP_NORM})
@@ -1850,7 +1893,7 @@ def _ps_lb_train(torch):
     from autodist_tpu_torch.strategy import PSLoadBalancing
 
     spec = transformer_lm()
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_peak(torch)
     sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
                                  PSLoadBalancing(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
@@ -2003,7 +2046,7 @@ def phase_flash_bert(torch, timer):
     plain versions at the flash tolerances, then timed as
     :func:`phase_flash` times the causal shape (SDPA with
     ``is_causal=False``).  Rows by kernel name."""
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 
     gen = torch.Generator().manual_seed(SEED + 6)
     b, t, h, d = (BERT_SHAPE[x] for x in "BTHD")
@@ -2079,24 +2122,24 @@ def phase_sync_lm1b_bucket(torch, timer):
     return rows
 
 
-def _model_session(torch, spec, builder, optimizer, numerics=None):
+def _model_session(torch, spec, builder, optimizer, numerics=None,
+                   rows=MODEL_BATCH):
     """The facade's session of a BASELINE model at its defaults (weights
     from ``SEED``, drawn on the host so the card holds one copy), its
-    batch of ``MODEL_BATCH`` and the parameter shapes of the init tree;
-    the peak-memory counter starts here."""
+    batch of ``rows`` and the parameter shapes of the init tree; the
+    peak-memory counter starts here."""
     from autodist_tpu_torch.graph_item import flatten
 
     params = spec.init(SEED, device="cpu")
     shapes = {n: tuple(x.shape) for n, x in flatten(params)}
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sess, batch = _train_session(spec, params, MODEL_BATCH, builder,
+    _fresh_peak(torch)
+    sess, batch = _train_session(spec, params, rows, builder,
                                  optimizer, numerics=numerics)
     return sess, batch, shapes
 
 
 def _model_out(torch, name, sess, shapes, losses, step_s, launches, want,
-               items_per_step, flops) -> dict:
+               items_per_step, flops, rows=MODEL_BATCH) -> dict:
     """The phase's report, after checking ``session.params``' shapes
     against the init tree."""
     from autodist_tpu_torch.graph_item import flatten
@@ -2106,7 +2149,7 @@ def _model_out(torch, name, sess, shapes, losses, step_s, launches, want,
         raise AssertionError(f"{name}: session.params differ from the init "
                              f"tree")
     step = statistics.median(step_s)
-    return {"batch": MODEL_BATCH, "losses": losses,
+    return {"batch": rows, "losses": losses,
             "ms_per_step": step * 1e3, "ms_per_step_min": min(step_s) * 1e3,
             "ms_per_step_max": max(step_s) * 1e3,
             "items_per_s": items_per_step / step,
@@ -2115,6 +2158,27 @@ def _model_out(torch, name, sess, shapes, losses, step_s, launches, want,
             "model_tflop_split": {k: v / 1e12 for k, v in flops.items()},
             "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
             "launches": launches, "launches_per_step": want}
+
+
+def _session_flops(sess, flops) -> dict:
+    """``sess.mfu()`` (its step-time window, the card's bf16 peak) and
+    ``sess.flops_per_step()`` (``FlopCounterMode``'s count of one forward
+    and backward) beside the written-out count ``flops``."""
+    mfu = sess.mfu()
+    counted = sess.flops_per_step()
+    return {"session_mfu_bf16_peak": mfu, "session_flops_per_step": counted,
+            "session_flops_over_written_count":
+                None if counted is None else counted / flops["total"]}
+
+
+def _device_split(prof, ms_per_step) -> dict:
+    """``profile_train.profile_steps``' numbers: busy ms, the idle share
+    at the median step, kernels and device ms per kernel group."""
+    return {"device_busy_ms_per_step": prof["busy_us"] / 1e3,
+            "device_idle_share": 1.0 - prof["busy_us"] / 1e3 / ms_per_step,
+            "kernels_per_step": prof["kernels"],
+            "device_ms_per_step": prof["device_ms"],
+            "launches_per_step_by_group": prof["launches"]}
 
 
 def resnet_flops(stage_sizes, num_classes: int, image_size: int,
@@ -2208,6 +2272,73 @@ def lm1b_flops(cfg, batch: int) -> dict:
     return dict(split, total=sum(split.values()))
 
 
+def ncf_flops(mf_dim: int, mlp_dims, batch: int) -> dict:
+    """Model FLOPs of one NCF training step: 6 per sample and weight of
+    the MLP's dense layers and ``prediction`` (forward, input and weight
+    gradients: the first layer's input is the tables' rows, which take a
+    gradient).  The gathers and the GMF product are not counted."""
+    weights, width = 0, mlp_dims[0]
+    for d in mlp_dims[1:]:
+        weights += width * d
+        width = d
+    weights += width + mf_dim
+    return {"dense": 6.0 * weights * batch, "total": 6.0 * weights * batch}
+
+
+def densenet_flops(block_sizes, growth: int, num_classes: int,
+                   image_size: int, batch: int) -> dict:
+    """Model FLOPs of one DenseNet training step, by :func:`resnet_flops`'
+    convention: ``conv_init`` (7x7/s2, SAME) twice, every other conv and
+    the head three times; each dense layer a 1x1 conv to ``4·growth`` and
+    a 3x3 conv to ``growth``, each transition a 1x1 conv halving the
+    channels before the 2x2 pool."""
+    h = -(-image_size // 2)
+    stem = 2.0 * h * h * 7 * 7 * 3 * 2 * growth
+    h, c, convs = -(-h // 2), 2 * growth, 0.0
+    for i, n in enumerate(block_sizes):
+        for _ in range(n):
+            convs += 2.0 * h * h * (c * 4 * growth + 9 * 4 * growth * growth)
+            c += growth
+        if i != len(block_sizes) - 1:
+            convs += 2.0 * h * h * c * (c // 2)
+            h, c = h // 2, c // 2
+    head = 2.0 * c * num_classes
+    split = {"stem": 2 * stem * batch, "convs": 3 * convs * batch,
+             "head": 3 * head * batch}
+    return dict(split, total=sum(split.values()))
+
+
+def inception_flops(num_classes: int, image_size: int, batch: int) -> dict:
+    """Model FLOPs of one InceptionV3 training step, by
+    :func:`resnet_flops`' convention (``stem1`` twice, every other conv and
+    the head three times), each conv's ``2·H_out·W_out·kh·kw·C_in·C_out``
+    taken from the model's own block structure walked on a ``meta``
+    image."""
+    import torch
+
+    from autodist_tpu_torch.models.inception import VALID, InceptionV3
+    from autodist_tpu_torch.models.resnet import conv
+
+    per_conv = []
+
+    def count(p, name, x, filters, kernel, stride=1, valid=False):
+        kh, kw = kernel
+        y = conv(x, torch.empty((kh, kw, x.shape[1], filters),
+                                device="meta"), stride,
+                 VALID if valid else None)
+        per_conv.append(2.0 * y.shape[2] * y.shape[3] * kh * kw
+                        * x.shape[1] * filters)
+        return y
+
+    x = InceptionV3._features(count, {}, torch.empty(
+        (1, 3, image_size, image_size), device="meta"))
+    head = 2.0 * x.shape[1] * num_classes
+    split = {"stem": 2 * per_conv[0] * batch,
+             "convs": 3 * sum(per_conv[1:]) * batch,
+             "head": 3 * head * batch}
+    return dict(split, total=sum(split.values()))
+
+
 def phase_train_resnet50(torch):
     """``resnet50()`` at 224x224 through the facade with ``AllReduce()``
     and ``sgd(1e-3, momentum=0.9)``: no Pallas kernel's twin runs (K1–K5
@@ -2231,9 +2362,7 @@ def phase_train_resnet50(torch):
     prof = profile_train.profile_steps(sess, batch)
     total = sum(prof["device_ms"].values())
     out.update(images_per_s=out.pop("items_per_s"),
-               device_ms_per_step=prof["device_ms"],
-               launches_per_step_by_group=prof["launches"],
-               device_busy_ms_per_step=prof["busy_us"] / 1e3,
+               **_device_split(prof, out["ms_per_step"]),
                cudnn_share_of_device_time=prof["device_ms"].get(
                    "cudnn_conv", 0.0) / total)
     del sess
@@ -2328,7 +2457,7 @@ def phase_train_bert_parity(torch):
     from autodist_tpu_torch import optim
     from autodist_tpu_torch.models import bert_base
     from autodist_tpu_torch.models.transformer import dense_attention
-    from autodist_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
     from autodist_tpu_torch.strategy import PartitionedAR
 
     flash_spec = bert_base(num_layers=2)
@@ -2399,6 +2528,102 @@ def phase_train_lm1b(torch):
     del sess
     torch.cuda.empty_cache()
     return out
+
+
+def phase_train_ncf(torch):
+    """``ncf()`` at its defaults (138496 users, 26752 items, 31.7 M table
+    elements) at BASELINE's batch of ``NCF_BATCH`` under
+    ``PSLoadBalancing()`` with ``fusable_adam(1e-3)`` and the clip: every
+    variable on PS, the plan the CPU test pins (``NCF_BUCKETS`` buckets,
+    ``NCF_PLAN_SHA256``), K4 twice and K5 once per bucket per step and no
+    other kernel; losses finite and falling; the device split and idle
+    share from ``profile_train``'s profile."""
+    from autodist_tpu_torch import profile_train
+    from autodist_tpu_torch.models import ncf
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    spec = ncf()
+    sess, batch, shapes = _model_session(
+        torch, spec, PSLoadBalancing(), fk.fusable_adam(1e-3),
+        {"clip_norm": CLIP_NORM}, rows=NCF_BATCH)
+    step = sess._step
+    digest = _plan_digest(step.buckets)
+    if step.fused_kernels != ("guard", "update") \
+            or len(sess.zero1_buckets) != NCF_BUCKETS \
+            or digest != NCF_PLAN_SHA256:
+        raise AssertionError(f"train_ncf: kernels {step.fused_kernels}, "
+                             f"buckets {[b.names for b in step.buckets]}, "
+                             f"plan {digest}")
+    want = dict.fromkeys(_kernel_counts(), 0)
+    want.update(detect_stats=2 * len(step.buckets),
+                adam_update=len(sess.zero1_buckets))
+    losses, _, step_s, launches = _checked_steps(
+        torch, "train_ncf", sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=True)
+    _check_falling(losses)
+    flops = ncf_flops(64, (256, 256, 128, 64), NCF_BATCH)
+    out = _model_out(torch, "train_ncf", sess, shapes, losses, step_s,
+                     launches, want, NCF_BATCH, flops, rows=NCF_BATCH)
+    elements = sum(b.padded_total for b in sess.zero1_buckets)
+    out.update(samples_per_s=out.pop("items_per_s"),
+               buckets=len(step.buckets), bucket_plan_sha256=digest,
+               bucket_elements=elements,
+               bound_ms_per_step={
+                   "detect_stats": bound_ms(8.0 * elements,
+                                            4.0 * elements)[0],
+                   "adam_update": bound_ms(28.0 * elements,
+                                           15.0 * elements)[0]},
+               **_session_flops(sess, flops),
+               **_device_split(profile_train.profile_steps(sess, batch),
+                               out["ms_per_step"]))
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def _image_phase(torch, name, spec, flops) -> dict:
+    """An image model at batch ``MODEL_BATCH`` as ``imagenet.py`` runs it by
+    default: ``AllReduce()`` and ``sgd(1e-3, momentum=0.9)``; no kernel of
+    K1–K10 may launch; the device split and idle share from
+    ``profile_train``'s profile."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch import profile_train
+    from autodist_tpu_torch.strategy import AllReduce
+
+    sess, batch, shapes = _model_session(torch, spec, AllReduce(),
+                                         optim.sgd(1e-3, momentum=0.9))
+    want = dict.fromkeys(_kernel_counts(), 0)
+    losses, _, step_s, launches = _checked_steps(
+        torch, name, sess, batch, want, MODEL_WARMUP, MODEL_TIMED,
+        guarded=False)
+    out = _model_out(torch, name, sess, shapes, losses, step_s, launches,
+                     want, MODEL_BATCH, flops)
+    out.update(images_per_s=out.pop("items_per_s"),
+               image_size=spec.config["image_size"],
+               **_session_flops(sess, flops),
+               **_device_split(profile_train.profile_steps(sess, batch),
+                               out["ms_per_step"]))
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_densenet121(torch):
+    """``densenet121()`` at 224x224 (:func:`_image_phase`)."""
+    from autodist_tpu_torch.models import densenet121
+
+    return _image_phase(torch, "train_densenet121", densenet121(),
+                        densenet_flops([6, 12, 24, 16], 32, 1000, 224,
+                                       MODEL_BATCH))
+
+
+def phase_train_inception_v3(torch):
+    """``inception_v3()`` at 299x299 (:func:`_image_phase`)."""
+    from autodist_tpu_torch.models import inception_v3
+
+    return _image_phase(torch, "train_inception_v3", inception_v3(),
+                        inception_flops(1000, 299, MODEL_BATCH))
 
 
 def ring_repeat(torch, times: int) -> int:
@@ -2567,6 +2792,12 @@ def main() -> int:
     emit({"phase": "train_bert_parity", **phase_train_bert_parity(torch)})
     lm1b_out = phase_train_lm1b(torch)
     emit({"phase": "train_lm1b", "card": smi, **lm1b_out})
+    ncf_out = phase_train_ncf(torch)
+    emit({"phase": "train_ncf", "card": smi, **ncf_out})
+    emit({"phase": "train_densenet121", "card": smi,
+          **phase_train_densenet121(torch)})
+    emit({"phase": "train_inception_v3", "card": smi,
+          **phase_train_inception_v3(torch)})
     for row in flash_rows:
         bert_row = bert_rows[row["name"]]
         bert_row["ptxas"] = ptxas_report[row["name"] + "_kernel<64, full>"]
@@ -2576,7 +2807,8 @@ def main() -> int:
         row["bert_shape"] = bert_row
     for row in sync_rows:
         row["lm1b_bucket"] = lm1b_bucket[row["name"]]
-        for path, out in (("train_vgg16", vgg_out), ("train_lm1b", lm1b_out)):
+        for path, out in (("train_vgg16", vgg_out), ("train_lm1b", lm1b_out),
+                          ("train_ncf", ncf_out)):
             row["launches_by_path"][path] = {
                 "launches": out["launches"][row["name"]],
                 "per_step": out["launches_per_step"][row["name"]]}

@@ -18,14 +18,17 @@ counts equal (the JAX kernel test's, ``tests/test_fused_kernels.py:
 148-199``); the tiny BASELINE models' steps on the card against the CPU:
 losses at rtol 1e-5, parameters at atol 1e-4 (the gloo tests').
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_kernels as fk
 from autodist_tpu_torch.ops import quant
 
+# the module (the package's ``flash_attention`` attribute is the function)
+fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
 

@@ -7,17 +7,26 @@
   both stems, VGG16 at 64x64 (a 2x2x512 last feature map, where ``fc1``'s
   NHWC flatten order shows), BERT at the JAX test's TINY, lm1b with the
   chunked loss (4 chunks, 2 layers) and with ``sampled_softmax=16`` on the
-  JAX draw's negatives.  VGG's gradients are held in float64 on both sides:
-  in float32 a pre-activation within rounding of 0 (``conv2`` at -1.8e-8
-  in the port, +6.7e-8 in float64) flips a ReLU and moves ``conv0``–
-  ``conv2``'s gradients by up to 8.7e-5, a kink of the function, not of
-  either implementation (its logits and loss stay float32 at 1e-5);
+  JAX draw's negatives, NCF at 64 users, 32 items, ``mf_dim`` 8 and MLP
+  ``(32, 16, 8)``, DenseNet121 at full depth on 32x32 (the asymmetric SAME
+  pads of ``conv_init`` and the max pool, every transition, a 1x1 last
+  map) and InceptionV3 at its full structure on 75x75, the smallest input
+  that reaches ``mixed10`` (the 1-group norms of the 48- and 80-filter
+  convs, the padded average pools, the VALID stride-2 convs and pools).
+  The deep image models' gradients (VGG16, DenseNet121, InceptionV3) are
+  held in float64 on both sides: in float32 a pre-activation within
+  rounding of 0 (VGG's ``conv2`` at -1.8e-8 in the port, +6.7e-8 in
+  float64) flips a ReLU and moves ``conv0``–``conv2``'s gradients by up to
+  8.7e-5, a kink of the function, not of either implementation (their
+  logits and losses stay float32 at 1e-5);
 * each model's tree: JAX's names, shapes and dtypes from the port's init,
   and an exact round trip through ``params_from_jax``/``params_to_numpy``;
   ``convert_stem_params`` equal to JAX's;
 * the catalog: ``sparse_vars`` resolve as in the JAX package; lm1b's
   793472 x 512 tables are one oversized bucket each, the plan equal to
-  the JAX planner's;
+  the JAX planner's; NCF's full-width plan under ``PSLoadBalancing``
+  equals the JAX planner's and the digest ``chip_smoke.py`` asserts on
+  the card;
 * the Strategy JSON of ``AllReduce``, ``PartitionedPS``, ``Parallax`` and
   ``PartitionedAR`` on each tiny model equals the JAX builder's;
 * ``optim.adagrad`` against the JAX package's optimizer library, and its
@@ -59,6 +68,8 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy import StrategyCompiler
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 import torch_dp_worker as worker  # noqa: E402
 
 # the module (the package's ``lm1b`` attribute is the factory)
@@ -84,7 +95,19 @@ def _jax_spec(name, **over):
                         stem=cfg.pop("stem", "conv7"))
         return jax_image_spec("resnet", model, **cfg)
     return {"vgg": jmodels.vgg16, "bert": jmodels.bert,
-            "lm1b": jmodels.lm1b}[name](**cfg)
+            "lm1b": jmodels.lm1b, "ncf": jmodels.ncf,
+            "densenet": jmodels.densenet121,
+            "inception": jmodels.inception_v3}[name](**cfg)
+
+
+def _compiled(fn, *args, level=None):
+    """``jax.jit(fn)(*args)``; ``level=0`` compiles at XLA's backend
+    optimization level 0, in about half the time for the deep image
+    models' float64 gradients (it changes float32 roundings, so float32
+    values keep the default)."""
+    options = {} if level is None else {
+        "xla_backend_optimization_level": level}
+    return jax.jit(fn).lower(*args).compile(compiler_options=options)(*args)
 
 
 _PARAMS = {}
@@ -94,7 +117,7 @@ def _jax_params(jspec):
     """The JAX init's weights from key 0 as numpy, computed once per spec."""
     if id(jspec) not in _PARAMS:
         _PARAMS[id(jspec)] = jax.tree.map(
-            np.asarray, jax.jit(jspec.init)(jax.random.PRNGKey(0)))
+            np.asarray, _compiled(jspec.init, jax.random.PRNGKey(0)))
     return _PARAMS[id(jspec)]
 
 
@@ -118,27 +141,31 @@ def _assert_grads_close(got, want, tol):
                                    **tol)
 
 
-def _check_parity(jspec, spec, params, batch, inputs, grads_f64=False):
-    """Logits (``apply_fn(params, *inputs)``), loss and gradients."""
-    jlogits = np.asarray(jax.jit(jspec.apply_fn)(params, *inputs))
-    logits = spec.apply_fn(params_from_jax(params), *inputs)
-    np.testing.assert_allclose(logits.detach().numpy(), jlogits, **TOL)
+def _check_parity(jspec, spec, params, batch, inputs, grads_f64=False,
+                  level=None):
+    """Logits (``apply_fn(params, *inputs)``), loss and gradients
+    (``level``: :func:`_compiled`'s, for the float64 gradients)."""
+    jlogits, jloss = _compiled(lambda p, b: (jspec.apply_fn(p, *inputs),
+                                             jspec.loss_fn(p, b)),
+                               params, batch)
+    tree = params_from_jax(params)
+    np.testing.assert_allclose(spec.apply_fn(tree, *inputs).detach().numpy(),
+                               np.asarray(jlogits), **TOL)
+    np.testing.assert_allclose(float(spec.loss_fn(tree, batch)),
+                               float(jloss), **TOL)
     if grads_f64:
-        np.testing.assert_allclose(float(spec.loss_fn(
-            params_from_jax(params), batch)), float(jspec.loss_fn(params,
-                                                                  batch)),
-            **TOL)
         with jax.enable_x64(True):
-            p64 = jax.tree.map(lambda x: x.astype(np.float64), params)
-            b64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v
-                   for k, v in batch.items()}
-            jloss, jgrads = jax.jit(jax.value_and_grad(jspec.loss_fn))(
-                p64, b64)
+            params = jax.tree.map(lambda x: x.astype(np.float64), params)
+            batch = {k: v.astype(np.float64) if v.dtype == np.float32
+                     else v for k, v in batch.items()}
+            jloss, jgrads = _compiled(jax.value_and_grad(jspec.loss_fn),
+                                      params, batch, level=level)
             jgrads = dict(flatten(jax.tree.map(np.asarray, jgrads)))
-        loss, grads = _port_value_and_grads(spec, p64, b64, torch.float64)
+        loss, grads = _port_value_and_grads(spec, params, batch,
+                                            torch.float64)
     else:
-        jloss, jgrads = jax.jit(jax.value_and_grad(jspec.loss_fn))(params,
-                                                                   batch)
+        jloss, jgrads = _compiled(jax.value_and_grad(jspec.loss_fn), params,
+                                  batch)
         jgrads = dict(flatten(jax.tree.map(np.asarray, jgrads)))
         loss, grads = _port_value_and_grads(spec, params, batch)
     np.testing.assert_allclose(loss, float(jloss), **TOL)
@@ -222,9 +249,35 @@ def test_lm1b_sampled_matches_jax_with_its_negatives(monkeypatch):
     _check_parity(jspec, spec, params, batch, (batch["tokens"],))
 
 
+def test_ncf_matches_jax():
+    jspec, spec = _jax_spec("ncf"), worker.model_spec("ncf")
+    params = _jax_params(jspec)
+    batch = jspec.sample_batch(16, seed=2)
+    _check_parity(jspec, spec, params, batch,
+                  (batch["users"], batch["items"]))
+
+
+def test_densenet121_matches_jax_at_32():
+    jspec, spec = _jax_spec("densenet"), worker.model_spec("densenet")
+    params = _jax_params(jspec)
+    batch = jspec.sample_batch(2, seed=2)
+    _check_parity(jspec, spec, params, batch, (batch["images"],),
+                  grads_f64=True, level=0)
+
+
+def test_inception_v3_matches_jax_at_75():
+    jspec, spec = _jax_spec("inception"), worker.model_spec("inception")
+    params = _jax_params(jspec)
+    assert params["mixed10"]["b3_3b"]["conv"]["kernel"].shape == \
+        (3, 1, 384, 384)
+    batch = jspec.sample_batch(2, seed=2)
+    _check_parity(jspec, spec, params, batch, (batch["images"],),
+                  grads_f64=True, level=0)
+
+
 # --- trees, conversion, catalog, strategies -------------------------------
 
-NAMES = ("resnet", "vgg", "bert", "lm1b")
+NAMES = ("resnet", "vgg", "bert", "lm1b", "ncf", "densenet", "inception")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -289,6 +342,40 @@ def test_lm1b_full_width_tables_are_one_bucket_each():
                  b.padded_total) for b in want]
 
 
+def test_ncf_full_width_plan_matches_jax_and_the_chip_check():
+    """At NCF's defaults under ``PSLoadBalancing`` (every variable on PS)
+    the plan equals the JAX planner's on the same entries (shapes only:
+    meta tensors) at data sizes 1 and 8, the four tables (31,727,616
+    elements) in reduce-scatter buckets; at size 1 its digest is the one
+    ``chip_smoke.py``'s ``train_ncf`` asserts on the card."""
+    shapes = jax.eval_shape(jmodels.ncf().init, jax.random.PRNGKey(0))
+    spec = models.ncf()
+    meta = worker.unflatten([(n, torch.empty(s.shape, device="meta"))
+                             for n, s in flatten(shapes)])
+    gi = GraphItem(meta, sparse_vars=spec.sparse_vars)
+    assert sum(v.byte_size for v in gi.info.variables
+               if v.name in spec.sparse_vars) == 31_727_616 * 4
+    built = strategy.PSLoadBalancing().build(gi, ResourceSpec(
+        resource_info=ONE_NODE))
+    compiled = StrategyCompiler(None).compile(built, gi)
+    for d in (1, 8):
+        buckets = plan_step_buckets(gi, compiled, d)
+        assert all(b.mode == "reduce_scatter" for b in buckets)
+        assert sorted(n for b in buckets for n in b.names) == \
+            sorted(v.name for v in gi.info.variables)
+        want = jax_assign_buckets(
+            [(v.name, v.shape, v.dtype, "NoneCompressor", 0,
+              compiled.var_plans[v.name].sync_mode)
+             for v in gi.info.variables], shard_divisor=d)
+        assert [(b.key, b.names, b.total, b.padded_total) for b in buckets] \
+            == [(b.key, tuple(v.name for v in b.vars), b.total,
+                 b.padded_total) for b in want]
+        if d == 1:
+            assert len(buckets) == chip_smoke.NCF_BUCKETS
+            assert chip_smoke._plan_digest(buckets) == \
+                chip_smoke.NCF_PLAN_SHA256
+
+
 def _jax_to_port_json(strategy_dict):
     return json.loads(json.dumps(strategy_dict).replace(":TPU:", ":GPU:"))
 
@@ -310,8 +397,7 @@ def test_strategy_json_matches_jax(name, builder):
 
 
 def test_all_models_are_the_ported_entries_of_jax():
-    assert set(models.ALL_MODELS) == set(jmodels.ALL_MODELS) - {
-        "densenet121", "inception_v3", "ncf"}
+    assert set(models.ALL_MODELS) == set(jmodels.ALL_MODELS)
 
 
 # --- adagrad ---------------------------------------------------------------

@@ -3,7 +3,9 @@ ranks against the JAX package.
 
 Each of :data:`torch_dp_worker.MODEL_RUNS` (ResNet + ``AllReduce`` + sgd
 with momentum, VGG16 + ``PartitionedPS`` + sgd with the clip, BERT +
-``PartitionedAR`` + adamw, lm1b + ``Parallax`` + adagrad), a tiny model of
+``PartitionedAR`` + adamw, lm1b + ``Parallax`` + adagrad, NCF +
+``PSLoadBalancing`` + ``fusable_adam`` with the clip, its four tables on
+the reduce-scatter buckets of K4/K5's plain versions), a tiny model of
 the family, trains 3 steps on 2 gloo ranks in one launch of
 ``tests/torch_dp_worker.py`` (mode ``models``, started with the module so
 it runs beside the JAX sessions), against the JAX session on its 8-device
@@ -29,6 +31,7 @@ import autodist_tpu.strategy as jstrategy
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.autodist import \
     _reset_default_autodist_for_testing as jax_reset
+from autodist_tpu.ops.fused_kernels import fusable_adam as jax_fusable_adam
 from autodist_tpu_torch import strategy
 from autodist_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from autodist_tpu_torch.graph_item import GraphItem, flatten
@@ -119,9 +122,11 @@ def jax_runs(model_inputs):
             jspec, params, batch = model_inputs[name]
             builder, opt, kw, numerics = worker.MODEL_RUNS[name]
             jax_reset()
+            optimizer = jax_fusable_adam(**kw) if opt == "fusable_adam" \
+                else getattr(optax, opt)(**kw)
             ad = JAutoDist(strategy_builder=getattr(jstrategy, builder)())
             with ad.scope():
-                ad.capture(params=params, optimizer=getattr(optax, opt)(**kw),
+                ad.capture(params=params, optimizer=optimizer,
                            loss_fn=jspec.loss_fn,
                            sparse_vars=jspec.sparse_vars, numerics=numerics)
             sess = ad.create_distributed_session()
@@ -139,6 +144,8 @@ def test_baseline_config_on_two_gloo_ranks_matches_jax(name, jax_runs,
                                                        gloo_models):
     losses, (jparams, _) = jax_runs(name)
     for out in gloo_models():
+        if name == "ncf":       # the four tables' buckets through K4/K5
+            assert tuple(out["ncf/fused_kernels"]) == ("guard", "update")
         np.testing.assert_allclose(out[f"{name}/losses"], losses, rtol=1e-5)
         prefix = f"{name}/p:"
         got = {k[len(prefix):]: out[k] for k in out.files

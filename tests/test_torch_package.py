@@ -1,22 +1,43 @@
 """Boundaries of the port package: no JAX, nothing of the JAX package, no
-silent CPU fallback, and a chip smoke test that refuses to run alone."""
+silent CPU fallback, and a chip smoke test that refuses to run alone.
+The public surface (F3): every public name of the JAX package at the top
+level, in ``ops``, ``models`` and ``autodist``, and on ``AutoDist`` and
+``DistributedSession`` exists in the port, or raises ``not_ported`` naming
+its ROADMAP item, or is one of :data:`JAX_ONLY_MODULES`; the session's
+``run_epoch``, ``set_params``, ``load_state``, ``restore_targets``,
+``sharded_params``, ``flops_per_step`` and ``mfu``."""
+import importlib
+import inspect
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
-from autodist_tpu_torch import optim
+from autodist_tpu.autodist import AutoDist as JAutoDist
+from autodist_tpu.autodist import \
+    _reset_default_autodist_for_testing as jax_reset
+from autodist_tpu.mesh import build_mesh as jax_build_mesh
+from autodist_tpu.models.transformer import dense_attention as jax_dense
+from autodist_tpu.models.transformer_lm import transformer_lm as jax_lm
+from autodist_tpu.strategy import AllReduce as JAllReduce
+from autodist_tpu_torch import models, optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
+from autodist_tpu_torch.const import P8, P9, P10, P11, P12
+from autodist_tpu_torch.convert import params_from_jax
+from autodist_tpu_torch.graph_item import flatten
 from autodist_tpu_torch.models import base
 from autodist_tpu_torch.models.generate import make_generator
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
+from autodist_tpu_torch.ops.fused_kernels import fusable_adam
 from autodist_tpu_torch.serving import PagedDecodeEngine, serve
-from autodist_tpu_torch.strategy import AllReduce
+from autodist_tpu_torch.strategy import AllReduce, Zero1
 
 pytestmark = pytest.mark.torch_port
 
@@ -245,3 +266,278 @@ def test_build_paths_stay_in_the_checkout():
     path = _build.library_path("paged_attention.cu")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# --- the public surface (F3) ------------------------------------------------
+
+#: JAX modules the port has no counterpart of, with the reason
+JAX_ONLY_MODULES = {
+    "autodist_tpu.ops.pallas_utils": "Pallas helpers: the port has no Pallas",
+    "autodist_tpu.parallel": P10,
+    "autodist_tpu.utils": P12,
+}
+LM = dict(vocab_size=97, num_layers=2, num_heads=2, head_dim=8, d_ff=32,
+          max_len=16)
+
+
+def _public(module):
+    """A module's public names: its ``__all__``, else the names it binds to
+    data or to objects of its own (a package: of its submodules), the
+    submodules themselves left out."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    package = hasattr(module, "__path__")
+
+    def own(v):
+        where = getattr(v, "__module__", None)
+        if where is None:
+            return not inspect.ismodule(v)
+        return where.startswith(module.__name__ + ".") if package \
+            else where == module.__name__
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and own(v)}
+
+
+@pytest.mark.parametrize("scope", ["", ".ops", ".models", ".autodist"])
+def test_public_names_of_each_scope_exist_in_the_port(scope):
+    jmod = importlib.import_module("autodist_tpu" + scope)
+    port = importlib.import_module("autodist_tpu_torch" + scope)
+    names = _public(jmod)
+    assert names, scope
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("cls", ["AutoDist", "DistributedSession"])
+def test_public_attributes_of_the_facade_and_session_exist_in_the_port(cls):
+    module = "autodist" if cls == "AutoDist" else "runner"
+    jcls = getattr(importlib.import_module(f"autodist_tpu.{module}"), cls)
+    pcls = getattr(importlib.import_module(f"autodist_tpu_torch.{module}"),
+                   cls)
+    missing = sorted(n for n in dir(jcls)
+                     if not n.startswith("_") and not hasattr(pcls, n))
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ONLY_MODULES))
+def test_jax_only_modules_are_jax_modules_the_port_lacks(name):
+    assert importlib.util.find_spec(name) is not None
+    port = name.replace("autodist_tpu", "autodist_tpu_torch", 1)
+    parent, _, child = port.rpartition(".")
+    assert importlib.util.find_spec(port) is None
+    assert not hasattr(importlib.import_module(parent), child)
+
+
+@pytest.fixture
+def lm_session(monkeypatch):
+    monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(**LM)
+    ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"),
+                   optimizer=optim.adam(1e-2), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars)
+    return spec, ad, ad.create_distributed_session()
+
+
+def _stub_calls(spec, ad, sess):
+    params = sess.device_params
+    return {
+        "models.lora_init": (lambda: models.lora_init(None, params), P11),
+        "models.lora_merge": (lambda: models.lora_merge(params, {}), P11),
+        "models.lora_setup": (lambda: models.lora_setup(params, None), P11),
+        "models.make_speculative_generator": (
+            lambda: models.make_speculative_generator(spec, spec), P11),
+        "models.moe_transformer_lm": (models.moe_transformer_lm, P10),
+        "models.pipelined_transformer_lm": (models.pipelined_transformer_lm,
+                                            P10),
+        "models.pipelined_moe_transformer_lm": (
+            models.pipelined_moe_transformer_lm, P10),
+        "AutoDist.cluster": (lambda: ad.cluster, P12),
+        "AutoDist.coordinator": (lambda: ad.coordinator, P12),
+        "session.schedule_ir": (lambda: sess.schedule_ir, P8),
+        "session.schedule_fingerprint": (lambda: sess.schedule_fingerprint,
+                                         P8),
+        "session.telemetry": (lambda: sess.telemetry, P9),
+        "session.place_local_batch": (
+            lambda: sess.place_local_batch(spec.sample_batch(2)), P12),
+        "serve(paged=False)": (
+            lambda: serve(spec, params, device="cpu", port=0), P11),
+        "serve(tokenizer=)": (lambda: serve(
+            spec, params, paged=True, device="cpu", port=0,
+            tokenizer=object()), P11),
+        "serve(prefix_text=)": (lambda: serve(
+            spec, params, paged=True, device="cpu", port=0,
+            prefix_text="a"), P11),
+        "serve(speculative=)": (lambda: serve(
+            spec, params, paged=True, device="cpu", port=0,
+            speculative={"spec": spec, "params": params}), P11),
+        "serve(drain_on_sigterm=True)": (lambda: serve(
+            spec, params, paged=True, device="cpu", port=0,
+            drain_on_sigterm=True), P11),
+        "PagedDecodeEngine(mesh=)": (lambda: PagedDecodeEngine(
+            spec, params, device="cpu", mesh=object()), P10),
+        "PagedDecodeEngine(draft_spec=)": (lambda: PagedDecodeEngine(
+            spec, params, device="cpu", draft_spec=spec,
+            draft_params=params), P11),
+    }
+
+
+STUBS = ["models.lora_init", "models.lora_merge", "models.lora_setup",
+         "models.make_speculative_generator", "models.moe_transformer_lm",
+         "models.pipelined_transformer_lm",
+         "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
+         "AutoDist.coordinator", "session.schedule_ir",
+         "session.schedule_fingerprint", "session.telemetry",
+         "session.place_local_batch", "serve(paged=False)",
+         "serve(tokenizer=)", "serve(prefix_text=)", "serve(speculative=)",
+         "serve(drain_on_sigterm=True)", "PagedDecodeEngine(mesh=)",
+         "PagedDecodeEngine(draft_spec=)"]
+
+
+@pytest.mark.parametrize("name", STUBS)
+def test_stubs_and_serving_refusals_name_their_roadmap_item(name,
+                                                            lm_session):
+    call, item = _stub_calls(*lm_session)[name]
+    with pytest.raises(NotImplementedError) as err:
+        call()
+    assert str(err.value).endswith(f"(ROADMAP: {item})"), str(err.value)
+
+
+def test_every_stub_is_checked():
+    from types import SimpleNamespace
+
+    assert sorted(STUBS) == sorted(_stub_calls(
+        None, None, SimpleNamespace(device_params=None)))
+
+
+def test_flash_attention_is_the_function_and_cross_entropy_exported():
+    from autodist_tpu_torch.ops import flash_attention, make_flash_attention
+
+    mod = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    assert flash_attention is mod.flash_attention
+    assert make_flash_attention() is flash_attention
+    assert models.cross_entropy_loss is base.cross_entropy_loss
+
+
+def test_facade_exposes_its_graph_item_and_resource_spec(lm_session):
+    from autodist_tpu_torch.autodist import get_default_autodist
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    _, ad, _ = lm_session
+    assert get_default_autodist() is ad
+    assert isinstance(ad.resource_spec, ResourceSpec)
+    assert {v.name for v in ad.graph_item.info.variables} == {
+        n for n, _ in flatten(ad.graph_item.params)}
+
+
+def _jax_lm_session(params, builder):
+    jax_reset()
+    jspec = jax_lm(**LM, attn_fn=jax_dense)
+    ad = JAutoDist(strategy_builder=builder)
+    with ad.scope():
+        ad.capture(params=params, optimizer=optax.adam(1e-2),
+                   loss_fn=jspec.loss_fn, sparse_vars=jspec.sparse_vars)
+    return ad.create_distributed_session(
+        mesh=jax_build_mesh(devices=jax.devices()[:1]))
+
+
+def _port_lm_session(params, builder, optimizer=None):
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(**LM)
+    ad = AutoDist(strategy_builder=builder, device="cpu")
+    with ad.scope():
+        ad.capture(params=params_from_jax(params),
+                   optimizer=optimizer or optim.adam(1e-2),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars)
+    return ad.create_distributed_session()
+
+
+def test_session_state_methods_follow_the_jax_session(monkeypatch):
+    """On the tiny LM from the JAX init, both sessions: ``run_epoch`` over
+    3 batches returns the last step's metrics (losses at rtol 1e-5);
+    ``set_params`` puts the init back with a fresh optimizer, so the next
+    step's loss is the first step's again; ``load_state`` of a session's
+    own exported-then-placed state resumes it (the next loss equal to a
+    session that ran on); ``sharded_params`` is the device tree;
+    ``restore_targets`` has the logical shapes and dtypes of
+    ``export_state`` (the parameters' the JAX session's too), on ``meta``
+    tensors, the ZeRO-1 state vectors ``padded_total`` long."""
+    monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
+    jspec = jax_lm(**LM, attn_fn=jax_dense)
+    params = jax.tree.map(np.asarray, jspec.init(jax.random.PRNGKey(0)))
+    batches = [jspec.sample_batch(8, seed=s) for s in range(3)]
+    jsess = _jax_lm_session(params, JAllReduce())
+    sess = _port_lm_session(params, AllReduce())
+    jlast = jsess.run_epoch(batches)
+    last = sess.run_epoch(batches)
+    assert sess.step_count == jsess.step_count == 3
+    np.testing.assert_allclose(last["loss"], jlast["loss"], rtol=1e-5)
+    assert sess.sharded_params is sess.device_params
+
+    first = float(_port_lm_session(params, AllReduce()).run(
+        batches[0])["loss"])
+    sess.set_params(params_from_jax(params))
+    jsess.set_params(params)
+    jloss = float(jsess.run(batches[0])["loss"])
+    assert float(sess.run(batches[0])["loss"]) == first
+    np.testing.assert_allclose(first, jloss, rtol=1e-5)
+
+    saved = sess.export_state()
+    ahead = float(sess.run(batches[1])["loss"])
+    sess.load_state(*saved, step=7, sync_state=sess.sync_state)
+    assert sess.step_count == 7
+    assert float(sess.run(batches[1])["loss"]) == ahead
+
+    jparams = dict(flatten(jax.tree.map(
+        lambda a: (tuple(a.shape), str(a.dtype)), jsess.restore_targets()[0],
+        is_leaf=lambda a: hasattr(a, "shape"))))
+    for builder in (AllReduce(), Zero1(bucket_bytes=4096)):
+        s = _port_lm_session(params, builder, fusable_adam(1e-2))
+        s.run(batches[0])
+        targets, exported = s.restore_targets(), s.export_state()
+        for got, want in zip(targets, exported):
+            got, want = dict(flatten(got)), dict(flatten(want))
+            assert got.keys() == want.keys()
+            for n, x in want.items():
+                if isinstance(x, torch.Tensor):
+                    assert got[n].device.type == "meta", n
+                    assert (got[n].shape, got[n].dtype) == (x.shape, x.dtype)
+        assert {n: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                for n, x in flatten(targets[0])} == jparams
+
+
+@pytest.mark.parametrize("embedded,factor", [(True, 6), (False, 4)])
+def test_flops_per_step_counts_one_dense_layer(embedded, factor,
+                                               monkeypatch):
+    """One dense layer ``[B, in] @ [in, out]``: the forward, the weight
+    gradient and, when its input is a trainable table's rows (the gather
+    counts 0), the input gradient, 2·B·in·out each; without an input that
+    takes a gradient autograd runs no input product, so 4·B·in·out.  None
+    before the first step, and ``mfu()`` None on the CPU."""
+    monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
+    _reset_default_autodist_for_testing()
+    b, n_in, n_out = 16, 24, 10
+    rng = np.random.RandomState(0)
+    params = {"table": torch.from_numpy(rng.randn(32, n_in).astype(
+        np.float32)), "w": torch.from_numpy(rng.randn(n_in, n_out).astype(
+            np.float32))}
+
+    def loss_fn(p, batch):
+        x = p["table"][torch.as_tensor(batch["ids"]).long()] if embedded \
+            else torch.as_tensor(batch["x"])
+        return torch.log_softmax(x @ p["w"], dim=-1).mean()
+
+    ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
+    with ad.scope():
+        ad.capture(params=params, optimizer=optim.sgd(1e-2),
+                   loss_fn=loss_fn)
+    sess = ad.create_distributed_session()
+    assert sess.flops_per_step() is None and sess.mfu() is None
+    batch = {"ids": rng.randint(0, 32, (b,)).astype(np.int32),
+             "x": rng.randn(b, n_in).astype(np.float32)}
+    for _ in range(3):
+        sess.run(batch)
+    assert sess.flops_per_step() == factor * b * n_in * n_out
+    assert sess.mfu() is None

@@ -299,10 +299,10 @@ def test_paged_validation_and_unported_modes(lm):
     with pytest.raises(ValueError, match="multiple"):
         PagedDecodeEngine(spec, params, window=30, block_size=8,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: P11"):
         PagedDecodeEngine(spec, params, device="cpu", draft_spec=spec,
                           draft_params=params)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
         PagedDecodeEngine(spec, params, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="paged=True"):
         serve(spec, params, device="cpu", port=0)

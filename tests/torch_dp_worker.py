@@ -23,10 +23,11 @@ parameters and batches, :func:`ps_main`): the model under each of
 ``scan``, each case with ``adam(1e-2)`` for 3 steps.
 
 ``models`` trains each BASELINE configuration of :data:`MODEL_RUNS` (a
-tiny model of each family under its builder and optimizer) for 3 steps
+tiny model of each family under its builder and optimizer, NCF's under
+``PSLoadBalancing`` with ``fusable_adam`` and the clip) for 3 steps
 from ``IN``'s weights on ``IN``'s global batch (``{name}/p/{variable}``,
-``{name}/b/{key}``), and writes the losses, the parameters and lm1b's
-adagrad state as ``export_state`` gives it.
+``{name}/b/{key}``), and writes the losses, the parameters, the step's
+fused kernels and lm1b's adagrad state as ``export_state`` gives it.
 
 ``quant`` trains :data:`QUANT_CFG` under each of :func:`quant_runs` (the
 quantized ring, ``numerics={"clip_norm": 1.0}``) for 3 steps and writes
@@ -231,10 +232,14 @@ MODEL_CFGS = {
                  d_ff=64, max_len=64, seq_len=16),
     "lm1b": dict(vocab_size=512, emb_dim=32, hidden_dim=64, num_layers=2,
                  seq_len=8, xent_chunk=128),
+    "ncf": dict(num_users=64, num_items=32, mf_dim=8, mlp_dims=(32, 16, 8)),
+    "densenet": dict(num_classes=8, image_size=32),
+    "inception": dict(num_classes=8, image_size=75),
 }
 #: each BASELINE configuration (BASELINE.json): builder name, optimizer name
 #: and arguments (the same names in the port's ``optim`` and in the JAX
-#: package's optimizer library), ``capture(numerics=...)``
+#: package's optimizer library; ``fusable_adam`` from each package's
+#: ``ops.fused_kernels``), ``capture(numerics=...)``
 MODEL_RUNS = {
     "resnet": ("AllReduce", "sgd", dict(learning_rate=1e-2, momentum=0.9),
                None),
@@ -242,6 +247,8 @@ MODEL_RUNS = {
             {"clip_norm": CLIP}),
     "bert": ("PartitionedAR", "adamw", dict(learning_rate=1e-3), None),
     "lm1b": ("Parallax", "adagrad", dict(learning_rate=0.1), None),
+    "ncf": ("PSLoadBalancing", "fusable_adam", dict(lr=1e-3),
+            {"clip_norm": CLIP}),
 }
 MODEL_BATCH = 8
 
@@ -249,7 +256,8 @@ MODEL_BATCH = 8
 def model_spec(name, **over):
     """The port's spec of :data:`MODEL_CFGS` ``name``, its arguments
     updated by ``over`` (ResNet's ``stem`` too)."""
-    from autodist_tpu_torch.models import bert, lm1b, vgg16
+    from autodist_tpu_torch.models import (bert, densenet121, inception_v3,
+                                           lm1b, ncf, vgg16)
     from autodist_tpu_torch.models.resnet import ResNet, _image_spec
 
     cfg = dict(MODEL_CFGS[name], **over)
@@ -257,7 +265,8 @@ def model_spec(name, **over):
         model = ResNet(cfg.pop("stage_sizes"), cfg["num_classes"],
                        stem=cfg.pop("stem", "conv7"))
         return _image_spec("resnet", model, **cfg)
-    return {"vgg": vgg16, "bert": bert, "lm1b": lm1b}[name](**cfg)
+    return {"vgg": vgg16, "bert": bert, "lm1b": lm1b, "ncf": ncf,
+            "densenet": densenet121, "inception": inception_v3}[name](**cfg)
 
 
 def models_main(data):
@@ -273,10 +282,12 @@ def models_main(data):
                             for k, v in part.items() if k.startswith("p/")])
         batch = {k[2:]: v for k, v in part.items() if k.startswith("b/")}
         spec = model_spec(name)
+        optimizer = fusable_adam(**kw) if opt == "fusable_adam" \
+            else getattr(optim, opt)(**kw)
         ad = AutoDist(strategy_builder=getattr(port_strategy, builder)(),
                       device="cpu")
         with ad.scope():
-            ad.capture(params=params, optimizer=getattr(optim, opt)(**kw),
+            ad.capture(params=params, optimizer=optimizer,
                        loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
                        numerics=numerics)
         sess = ad.create_distributed_session()
@@ -285,6 +296,8 @@ def models_main(data):
             out[f"{name}/losses"] = np.array(
                 [float(sess.run(batch)["loss"]) for _ in range(STEPS)])
         out.update({f"{name}/p:{k}": v for k, v in flatten(sess.params)})
+        out[f"{name}/fused_kernels"] = np.array(sess._step.fused_kernels,
+                                                dtype=str)
         if opt == "adagrad":
             _, exported = sess.export_state()
             out.update({f"{name}/zero1:{k}": v.numpy() for k, v in
