@@ -10,14 +10,66 @@ the same tensors in both packages.
 from __future__ import annotations
 
 import fnmatch
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.numerics.policy import NumericsConfig
+
+_aten = torch.ops.aten
+#: the remat policies: the operators whose outputs the backward keeps
+#: (everything else is recomputed), None to recompute everything.
+#: ``dots`` is ``checkpoint_dots`` (every matmul: ``x @ w`` lowers to
+#: ``mm``, a biased linear to ``addmm``, a batched einsum to ``bmm``);
+#: ``dots_no_batch`` is ``checkpoint_dots_with_no_batch_dims`` (the 2-D
+#: products only).  The flash kernel K1 is one operator that is not a
+#: matmul, so both recompute it, as JAX recomputes its ``pallas_call``;
+#: with K1 holding the attention products no ``bmm`` is left in a
+#: transformer on the card, and the two policies save the same tensors.
+_REMAT_POLICIES = {
+    "full": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def rematerialize(fn: Callable, policy: str) -> Callable:
+    """``fn`` under non-reentrant activation checkpointing with the named
+    :data:`_REMAT_POLICIES` entry: the forward keeps only what the policy
+    saves, and the backward recomputes the rest (bit for bit: the same
+    operators on the same inputs).  Outside autograd ``fn`` runs as it
+    is.  The step's ``torch.autograd.grad`` needs the non-reentrant
+    variant."""
+    saved = _REMAT_POLICIES[policy]
+    kw = {} if saved is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, list(saved))}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def _apply_remat(loss_fn: Optional[Callable], remat: Optional[str]
+                 ) -> Optional[Callable]:
+    """``loss_fn`` rematerialized under the named policy (the JAX
+    package's checkpoint around the whole loss); identity when
+    off."""
+    if loss_fn is None or remat in (None, "", "none"):
+        return loss_fn
+    if remat not in _REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {remat!r}; choose from "
+            f"{sorted(_REMAT_POLICIES)} or None")
+    return rematerialize(loss_fn, remat)
 
 
 def path_name(path: Tuple) -> str:
@@ -115,8 +167,12 @@ class GraphItem:
     synchronization, zero updates and no optimizer state.  ``numerics``
     turns on the gradient-health guard (coerced by
     :meth:`~autodist_tpu_torch.numerics.NumericsConfig.coerce`; None when
-    off).  ``remat``, ``grad_fn``, ``pipeline_vars`` and ``expert_vars``
-    belong to later slices and raise."""
+    off).  ``remat`` rematerializes the loss in the backward: ``None`` /
+    ``"none"`` off, ``"full"`` (recompute everything), ``"dots"`` (keep
+    the matmul outputs), ``"dots_no_batch"`` (keep the 2-D matmul
+    outputs); see :data:`_REMAT_POLICIES`.  ``grad_fn``,
+    ``pipeline_vars`` and ``expert_vars`` belong to later slices and
+    raise."""
 
     def __init__(self, params: Any, optimizer: Any = None,
                  loss_fn: Optional[Callable] = None,
@@ -130,8 +186,6 @@ class GraphItem:
                  grad_fn: Optional[Callable] = None,
                  accum_steps: int = 1,
                  numerics=None):
-        if remat not in (None, "", "none"):
-            raise not_ported(f"remat={remat!r}", "P2 — remat")
         if grad_fn is not None:
             raise not_ported("capture(grad_fn=...)",
                              "P10 — non-data mesh axes (the 1F1B pipeline "
@@ -143,7 +197,8 @@ class GraphItem:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = params
         self.optimizer = optimizer
-        self.loss_fn = loss_fn
+        self.loss_fn = _apply_remat(loss_fn, remat)
+        self.remat = remat
         self.has_aux = has_aux
         self.metrics_fn = metrics_fn
         self.accum_steps = accum_steps

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch.graph_item import rematerialize
 from autodist_tpu_torch.models.base import layer_norm
 from autodist_tpu_torch.ops.quant import Quantized, int8_matmul
 
@@ -149,13 +150,25 @@ class TransformerLayer(nn.Module):
 
 
 class TransformerStack(nn.Module):
+    """The layers and the final norm.  ``remat`` is per-layer
+    rematerialization: ``"none"`` keeps every activation, ``"full"``
+    recomputes the whole layer in the backward (one more forward of
+    FLOPs), ``"dots"`` keeps the matmul outputs and recomputes the rest,
+    the flash forward K1 included (``graph_item.rematerialize``)."""
+
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  d_ff: int, causal: bool = False,
-                 attn_fn: Callable = dense_attention):
+                 attn_fn: Callable = dense_attention, remat: str = "none"):
         super().__init__()
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat={remat!r}: expected 'none', "
+                             f"'full', or 'dots'")
         self.num_layers = num_layers
+        self.remat = remat
         self.layer = TransformerLayer(num_heads, head_dim, d_ff, causal,
                                       attn_fn)
+        self._layer = self.layer if remat == "none" \
+            else rematerialize(self.layer, remat)
 
     def init(self, d_model: int, gen: torch.Generator, dtype) -> Dict:
         p = {f"layers_{i}": self.layer.init(d_model, gen, dtype)
@@ -165,5 +178,5 @@ class TransformerStack(nn.Module):
 
     def forward(self, params, x):
         for i in range(self.num_layers):
-            x = self.layer(params[f"layers_{i}"], x)
+            x = self._layer(params[f"layers_{i}"], x)
         return layer_norm(x, params["ln_final"]["scale"])

@@ -20,26 +20,28 @@ import numpy as np
 import torch
 from torch import nn
 
-from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
                                             promote_f32, resolve_device)
 from autodist_tpu_torch.models.transformer import (TransformerStack,
                                                    default_attention,
                                                    dense_attention)
+from autodist_tpu_torch.models.quantize import embed_lookup
 from autodist_tpu_torch.ops.chunked_xent import chunked_softmax_cross_entropy
+from autodist_tpu_torch.ops.quant import Quantized, int8_matmul
 
 
 class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
                  head_dim: int, d_ff: int, max_len: int,
                  attn_fn: Callable = dense_attention,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: str = "none"):
         super().__init__()
         self.vocab_size, self.max_len = vocab_size, max_len
         self.d_model = num_heads * head_dim
         self.dtype = dtype
         self.decoder = TransformerStack(num_layers, num_heads, head_dim,
-                                        d_ff, causal=True, attn_fn=attn_fn)
+                                        d_ff, causal=True, attn_fn=attn_fn,
+                                        remat=remat)
 
     def init_params(self, seed: int, device) -> Dict:
         """normal(0.02) embeddings in ``dtype``, lecun-normal kernels and
@@ -59,7 +61,7 @@ class TransformerLM(nn.Module):
 
     def features(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Pre-logits activations ``[B, T, D]``."""
-        x = params["embed"][tokens] \
+        x = embed_lookup(params["embed"], tokens, params["pos_embed"].dtype) \
             + params["pos_embed"][None, :tokens.shape[1]]
         # JAX promotes the embeddings' dtype against the float32 LayerNorm
         # scale and the residual stream after it: the decoder runs in f32
@@ -69,6 +71,8 @@ class TransformerLM(nn.Module):
         # Tied output head: logits against the embedding table, promoted to
         # the features' dtype as the JAX einsum promotes it.
         h = self.features(params, tokens)
+        if isinstance(params["embed"], Quantized):       # an int8 tree
+            return int8_matmul(h, params["embed"])
         return torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype))
 
 
@@ -96,20 +100,20 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
     — the CUDA card unless the caller asks for another; with no device
     and no CUDA it raises.  ``xent_chunk`` → train with the chunked-vocab
     cross entropy (``ops/chunked_xent.py``) against the tied embedding:
-    the ``[B, T, vocab]`` logits never exist.  ``remat`` is not ported
-    yet and raises."""
-    if remat not in (None, "", "none"):
-        raise not_ported(f"transformer_lm(remat={remat!r})", "P2 — remat")
+    the ``[B, T, vocab]`` logits never exist.  ``remat`` → per-layer
+    rematerialization (``"none"`` | ``"dots"`` | ``"full"``, see
+    :class:`~autodist_tpu_torch.models.transformer.TransformerStack`):
+    recompute in the backward for activation memory."""
     seq_len = seq_len or max_len
     model = TransformerLM(vocab_size, num_layers, num_heads, head_dim, d_ff,
                           max_len, attn_fn=attn_fn or default_attention(),
-                          dtype=dtype)
+                          dtype=dtype, remat=remat)
 
     def init(seed: int = 0, device=None):
         return model.init_params(seed, resolve_device(device))
 
     def apply_fn(params, tokens):
-        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        tokens = torch.as_tensor(tokens, device=params["pos_embed"].device)
         return model(params, tokens.long())
 
     def loss_fn(params, batch):

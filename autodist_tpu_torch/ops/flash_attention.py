@@ -13,13 +13,26 @@ dlse``, so the same backward kernels serve both outputs.
 CUDA tensors launch the hand-written kernels of ``csrc/flash_attention.cu``
 or raise; CPU tensors take the plain versions :func:`flash_fwd_reference`,
 :func:`flash_dq_reference` and :func:`flash_dkv_reference`.  There is no
-switch and no fallback.  The kernels read the public layout through
-strides and mask the ragged tail themselves, so nothing is transposed or
-padded (the JAX package's TPU tile policy is not ported).
+switch and no fallback.
+
+The kernels read the public layout through strides and mask the ragged
+tail themselves, so nothing is transposed or padded (the JAX package's
+TPU tile policy is not ported).
+
+K1 is a registered operator, ``torch.ops.autodist_tpu_torch.flash_fwd``
+(``torch.library``): its CPU implementation is the plain version, its CUDA
+implementation the kernel's launch, and its fake implementation gives the
+output shapes, so ``torch.export`` captures it as one node (a program
+exported from card tensors serves on the CPU through the plain version)
+and selective checkpointing sees it as one operator.  Nothing else is
+registered for it: a CUDA tensor cannot reach the plain version.  K2 and
+K3 (the backward) stay direct calls.
 
 Contract, checked on every device: q, k and v contiguous float32 of one
-shape ``[B, T, H, D]`` on one device, ``D`` in :data:`HEAD_DIMS`, 16-byte
-aligned.  Other dtypes raise ``TypeError`` (bf16 is still to port).
+shape ``[B, T, H, D]`` on one device, ``D`` in :data:`HEAD_DIMS`; on the
+card also 16-byte aligned (checked where the kernel launches: a traced
+tensor has no address).  Other dtypes raise ``TypeError`` (bf16 is still
+to port).
 """
 from __future__ import annotations
 
@@ -123,9 +136,6 @@ def _check(q, k, v) -> None:
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be 16-byte "
-                             f"aligned")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {q.shape[-1]} outside "
                          f"the kernels' range {HEAD_DIMS}")
@@ -156,14 +166,18 @@ def _launch(fn, q, *args) -> int:
         return fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def flash_fwd(q, k, v, causal: bool):
-    """K1: ``(o, lse)`` of :func:`flash_fwd_reference`, by the kernel on
-    CUDA tensors and by the plain version on CPU tensors."""
-    _check(q, k, v)
-    if _device_kind(q) == "cpu":
-        return flash_fwd_reference(q, k, v, causal)
+def _check_aligned(*named) -> None:
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned")
+
+
+def _fwd_cuda(q, k, v, causal: bool):
+    """The operator's CUDA implementation: K1's launch."""
     from autodist_tpu_torch.ops import _build
 
+    _check_aligned(("q", q), ("k", k), ("v", v))
     b, t, h, d, scale = _dims(q)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -175,8 +189,35 @@ def flash_fwd(q, k, v, causal: bool):
     return o, lse
 
 
+def _fwd_fake(q, k, v, causal: bool):
+    """The operator's fake implementation: ``o [B, T, H, D]`` in q's dtype
+    and ``lse [B, H, T]`` f32."""
+    b, t, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, t), dtype=torch.float32)
+
+
+_LIB = torch.library.Library("autodist_tpu_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("flash_fwd", flash_fwd_reference, "CPU")
+_LIB.impl("flash_fwd", _fwd_cuda, "CUDA")
+torch.library.register_fake("autodist_tpu_torch::flash_fwd", _fwd_fake,
+                            lib=_LIB)
+_FWD_OP = torch.ops.autodist_tpu_torch.flash_fwd.default
+
+
+def flash_fwd(q, k, v, causal: bool):
+    """K1: ``(o, lse)`` of :func:`flash_fwd_reference`, through the
+    registered operator: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    _check(q, k, v)
+    _device_kind(q)
+    return _FWD_OP(q, k, v, causal)
+
+
 def _check_bwd(q, k, v, do, lse, delta) -> None:
     _check(q, k, v)
+    _check_aligned(("q", q), ("k", k), ("v", v))
     rows = (q.shape[0], q.shape[2], q.shape[1])        # [B, H, T]
     for name, t, shape in (("do", do, q.shape), ("lse", lse, rows),
                            ("delta", delta, rows)):

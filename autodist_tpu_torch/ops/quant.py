@@ -16,6 +16,15 @@ per output in its epilogue.
 Port of ``autodist_tpu/ops/quant.py``; on a CPU tensor
 :func:`int8_matmul` runs :func:`int8_matmul_reference`, on a CUDA tensor
 the kernel.
+
+K10 is also a registered operator, ``torch.ops.autodist_tpu_torch.
+int8_matmul(x, q, scale)`` (``torch.library``: the plain version on the
+CPU, the launch on CUDA, a fake implementation for the shape ``[..., N]``),
+so ``torch.export`` captures an int8 tree's projections as its nodes.  An
+eager call on a plain tensor launches directly: the dispatcher's round
+trip costs a few microseconds a call, and a decode tick makes 73 of them
+on a host-bound tick (``PERF.md`` §5).  A traced tensor (``torch.export``,
+``torch.compile``) goes through the operator.
 """
 from __future__ import annotations
 
@@ -184,23 +193,52 @@ def _launch(x2: torch.Tensor, w: Quantized, path: str = None,
     return out
 
 
+def _int8_cpu(x: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version."""
+    out = int8_matmul_reference(x.reshape(-1, x.shape[-1]),
+                                Quantized(q, scale))
+    return out.reshape(tuple(x.shape[:-1]) + (q.shape[1],))
+
+
+def _int8_cuda(x: torch.Tensor, q: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA implementation: K10's launch."""
+    out = _launch(x.view(-1, x.shape[-1]), Quantized(q, scale))
+    return out.view(tuple(x.shape[:-1]) + (q.shape[1],))
+
+
+def _int8_fake(x: torch.Tensor, q: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """The operator's fake implementation: ``[..., N]`` in x's dtype."""
+    return x.new_empty(tuple(x.shape[:-1]) + (q.shape[1],))
+
+
+_LIB = torch.library.Library("autodist_tpu_torch", "FRAGMENT")
+_LIB.define("int8_matmul(Tensor x, Tensor q, Tensor scale) -> Tensor")
+_LIB.impl("int8_matmul", _int8_cpu, "CPU")
+_LIB.impl("int8_matmul", _int8_cuda, "CUDA")
+torch.library.register_fake("autodist_tpu_torch::int8_matmul", _int8_fake,
+                            lib=_LIB)
+_OP = torch.ops.autodist_tpu_torch.int8_matmul.default
+
+
 def int8_matmul(x: torch.Tensor, w: Quantized) -> torch.Tensor:
     """``x @ dequant(w)`` with int8 weights resident in device memory.
 
     ``x``: [..., K] contiguous float32 (leading dims flattened for the
     kernel); returns ``[..., N]`` float32.  The contract is checked on
     every device; CPU tensors take the plain version, CUDA tensors
-    launch the kernel."""
+    launch the kernel, by a direct call for a plain tensor and through
+    the registered operator for a traced one."""
     _check(x, w)
-    k = x.shape[-1]
-    lead = tuple(x.shape[:-1])
-    if x.device.type == "cpu":
-        out = int8_matmul_reference(x.reshape(-1, k), w)
-    elif x.device.type == "cuda":
-        out = _launch(x.view(-1, k), w)
-    else:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
-    return out.reshape(lead + (w.q.shape[1],))
+    if type(x) is not torch.Tensor:
+        return _OP(x, w.q, w.scale)
+    if x.device.type == "cpu":
+        return _int8_cpu(x, w.q, w.scale)
+    return _int8_cuda(x, w.q, w.scale)
 
 
 #: calls that launched the kernel since the last reset (plain-version

@@ -14,7 +14,14 @@ kernel intervals) and the idle share it leaves at the median wall time,
 and device time and kernel launches per tick grouped by kernel (the
 port's two CUDA kernels, cuBLAS GEMMs, everything else).  A last line
 gives the host time to issue one projection (plain matmul, int8 kernel)
-and one paged-attention call.  Needs a CUDA device; exits 2 without one.
+and one paged-attention call, and K10's through its registered operator
+(``torch.ops.autodist_tpu_torch.int8_matmul``, the dispatcher's round
+trip that an eager call skips).  With ``--int8`` a ``k10_routes`` line
+times the two routes of an eager K10 call against each other in one
+engine: windows of all slots live in turns (direct, operator, operator,
+direct) over ``ROUTE_ROUNDS`` rounds, every K10 call of a window launched
+directly (the port's route) or through the operator.
+Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import torch
 TICKS = 32
 WINDOWS = 5
 LIVE_SLOTS = (8, 4)
+#: rounds of the K10 route comparison, four windows each
+ROUTE_ROUNDS = 4
 
 
 def _group(name: str) -> str:
@@ -78,6 +87,7 @@ def _host_us_per_call(calls: int = 200) -> dict:
     for name, fn in (
             ("matmul", lambda: x @ w),
             ("int8_matmul", lambda: quant.int8_matmul(x, wq)),
+            ("int8_matmul_operator", lambda: quant._OP(x, wq.q, wq.scale)),
             ("paged_attention", lambda: fk.paged_attention(q, kc, kc, bt,
                                                            rel))):
         fn()
@@ -181,8 +191,44 @@ def main(argv=None) -> int:
             "launches_per_tick": {k: v[1] / prof_ticks
                                   for k, v in sorted(per_group.items())},
         }), flush=True)
+    if args.int8:
+        print(json.dumps({"k10_routes": _k10_routes(eng, fill, window)}),
+              flush=True)
     print(json.dumps({"host_us_per_call": _host_us_per_call()}), flush=True)
     return 0
+
+
+def _k10_routes(eng, fill, window) -> dict:
+    """Wall ms per tick with every K10 call launched directly and through
+    the registered operator, in turns in one engine (all slots live):
+    median, min and max per route."""
+    from autodist_tpu_torch.ops import quant
+
+    direct = quant._int8_cuda
+
+    def operator(x, q, scale):
+        return quant._OP(x, q, scale)
+
+    walls = {"direct": [], "operator": []}
+    ids = fill(ROUTE_ROUNDS * 4 * TICKS + 64)
+    try:
+        for _ in range(ROUTE_ROUNDS):
+            for route in ("direct", "operator", "operator", "direct"):
+                quant._int8_cuda = direct if route == "direct" else operator
+                us, n = window()
+                walls[route].append(us / n / 1e3)
+    finally:
+        quant._int8_cuda = direct
+    for rid in ids:
+        eng.cancel(rid)
+    eng.run()
+    out = {route: {"wall_ms_per_tick": statistics.median(w),
+                   "wall_ms_per_tick_min": min(w),
+                   "wall_ms_per_tick_max": max(w), "windows": len(w)}
+           for route, w in walls.items()}
+    out["operator_over_direct"] = (out["operator"]["wall_ms_per_tick"]
+                                   / out["direct"]["wall_ms_per_tick"])
+    return out
 
 
 if __name__ == "__main__":

@@ -65,6 +65,30 @@ Phases, each printing one JSON line:
    1e-4, parameters at atol 1e-5; then one step whose loss is multiplied
    by a NaN batch column must be skipped: parameters and optimizer state
    bit-identical, ``skipped_steps`` 1, no K5 launch.
+8a. remat at full width (``train_remat``): ``transformer_lm(remat=)``
+   under ``train_zero1``'s program (``Zero1`` + ``fusable_adam`` +
+   clip), 2 warm-up and 5 timed steps for each of ``REMAT_CONFIGS``
+   (``none``, ``full`` and ``dots`` at batch 8; ``dots`` at 16 and 32,
+   the batch sweep; ``none`` at 32, the control): ms per step, tokens/s,
+   peak memory, ``mfu_f32`` on the model's FLOPs; K1 twice per layer per
+   step under ``full``/``dots`` (the backward recomputes the registered
+   flash operator), K2/K3 once; at batch 8 ``full`` and ``dots`` end on
+   ``none``'s losses and parameters bit for bit (or within rtol 1e-6,
+   naming the leaves whose bits differ); and what ``dots`` keeps on the
+   card (six ``aten.mm`` outputs a layer, K1 recomputed);
+8b. bf16 optimizer state (``train_bf16_state``): ``train_zero1`` with
+   ``cast_opt_state(fusable_adam(1e-3))``, 2 + 6 steps: bf16 moments on
+   the shards and an int32 count, K5 dropped by the rule (its reason
+   printed), K4 twice per bucket, losses finite and falling; the state's
+   bytes and ms per step against ``train_zero1``'s;
+8c. the model export (``export``): the full-width LM's logits
+   ``apply_fn`` (batch 1 x 128 tokens) exported with
+   ``SavedModelBuilder`` from card params, f32 and its int8 tree, and
+   served by a fresh process that imports the checkpoint package and the
+   kernels' operators but not the models: on the card equal to the eager
+   forward bit for bit (K1 12 launches; K10 73 on the int8 tree), on the
+   CPU at rtol 1e-4 / atol 1e-5; export, load and first-call seconds and
+   the artifact's bytes;
 9. the facade's default at full width (``train_ps``): ``AutoDist()``
    with no builder must build ``PSLoadBalancing``'s Strategy (every
    variable on PS), which lowers to ``train_zero1``'s bucket plan; with
@@ -179,7 +203,9 @@ wrapper's calls that launched its C entry point on the kernel's own path:
 serving for K9 and K10, the 13 training steps for K1–K3 (``train_bert``'s
 under ``bert_shape``, ``train_fit``'s in ``launches_by_path``), the 13
 ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
-``train_fit``, ``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``,
+``train_fit``, ``train_remat``'s configurations (K1–K5),
+``train_bf16_state`` (K1–K5), the export's serving process (K1, K10),
+``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``,
 ``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 14
 quantized-ring
 steps for K6–K8; each
@@ -286,6 +312,24 @@ NCF_BATCH = 4096
 #: the :func:`_plan_digest` that ``tests/test_torch_models.py`` pins to
 #: the JAX planner's plan
 NCF_BUCKETS = 6
+#: ``train_remat``: (policy, batch) per configuration, in the order they
+#: run (docs/performance.md's batch sweep of ``remat="dots"`` and the
+#: batch-32 control without remat), and the steps of each
+REMAT_CONFIGS = (("none", 8), ("full", 8), ("dots", 8), ("dots", 16),
+                 ("dots", 32), ("none", 32))
+REMAT_WARMUP, REMAT_TIMED = 2, 5
+#: remat's losses and parameters against the run without it, where the
+#: bits differ (the JAX package's remat gradient tolerance)
+REMAT_RTOL = 1e-6
+#: ``train_bf16_state``'s steps: 8, as step 7 of this model, batch and
+#: Adam is a spike that step 8 takes back (``train_zero1``'s losses)
+BF16_WARMUP, BF16_TIMED = 2, 6
+#: ``export``: the prompt (batch 1 x 128 tokens) and the CPU serving
+#: tolerance (the JAX package's saved-model test's)
+EXPORT_TOKENS = (1, 128)
+#: the exported trees: the f32 weights and their int8 tree
+EXPORT_TREES = ("f32", "int8")
+EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-5
 NCF_PLAN_SHA256 = ("820c3fa12b770e87d0984651ee7e0d4c"
                    "72476256521595a6d4f8d6ca9b7ecfc0")
 
@@ -1291,9 +1335,315 @@ def phase_train_zero1(torch):
            "bucket_sizes": sorted({b.total for b in sess.zero1_buckets}),
            "losses": losses, "global_norms": norms,
            **_step_rates(torch, spec, step_s),
+           "opt_state_bytes": _state_bytes(sess.opt_state),
            "launches": launches, "launches_per_step": per_step}
     del sess
     torch.cuda.empty_cache()
+    return out
+
+
+def _state_bytes(tree) -> int:
+    from autodist_tpu_torch.graph_item import flatten
+
+    return sum(x.numel() * x.element_size() for _, x in flatten(tree))
+
+
+def _host_tree(tree):
+    """``{name: CPU copy}`` of a parameter tree."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    return {n: x.detach().cpu() for n, x in flatten(tree)}
+
+
+def _compare_to(torch, got, want) -> dict:
+    """Losses and parameters against another run's: bit for bit, else
+    at rtol ``REMAT_RTOL``, naming the leaves whose bits differ."""
+    losses_equal = got["losses"] == want["losses"]
+    differ = sorted(n for n, x in got["params"].items()
+                    if not torch.equal(x, want["params"][n]))
+    rel = max([abs(a - b) / abs(b)
+               for a, b in zip(got["losses"], want["losses"])] + [0.0])
+    for n in differ:
+        if not torch.allclose(got["params"][n], want["params"][n],
+                              rtol=REMAT_RTOL, atol=0.0):
+            raise AssertionError(f"parameter {n} beyond rtol {REMAT_RTOL}")
+    if rel > REMAT_RTOL:
+        raise AssertionError(f"losses {got['losses']} differ from "
+                             f"{want['losses']} by {rel:.2e}")
+    return {"bit_equal": losses_equal and not differ,
+            "losses_bit_equal": losses_equal,
+            "max_rel_loss_diff": rel, "leaves_differing": differ}
+
+
+def _dots_kept_ops(torch) -> dict:
+    """What the ``dots`` policy keeps on the card: one forward and
+    backward of a depth-1 full-width LM (batch 2) under the policy, the
+    kept operators counted by name, and whether the flash operator K1
+    was recomputed (kept: no)."""
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    from autodist_tpu_torch.graph_item import _REMAT_POLICIES, flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    saved, kept, recomputed = _REMAT_POLICIES["dots"], {}, set()
+
+    def policy(ctx, op, *args, **kwargs):
+        if ctx.is_recompute:
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        if op in saved:
+            kept[str(op)] = kept.get(str(op), 0) + 1
+            return CheckpointPolicy.MUST_SAVE
+        recomputed.add(str(op))
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    spec = transformer_lm(num_layers=1)
+    params = spec.init(SEED)
+    for _, x in flatten(params):
+        x.requires_grad_()
+    checkpoint(spec.loss_fn, params, spec.sample_batch(2, seed=SEED),
+               use_reentrant=False,
+               context_fn=lambda: create_selective_checkpoint_contexts(
+                   policy)).backward()
+    k1 = "autodist_tpu_torch.flash_fwd.default"
+    if kept.get("aten.mm.default") != 6 or k1 not in recomputed:
+        raise AssertionError(f"dots kept {kept}; K1 recomputed: "
+                             f"{k1 in recomputed}")
+    return {"kept": kept, "flash_fwd_recomputed": True}
+
+
+def phase_train_remat(torch):
+    """``transformer_lm(remat=)`` at full width under ``Zero1`` +
+    ``fusable_adam`` + clip, each of :data:`REMAT_CONFIGS`: ms per step,
+    tokens/s, peak memory, K1–K3 per step (K1 twice per layer under
+    ``full``/``dots``: the backward recomputes it), ``mfu_f32`` on the
+    model's FLOPs (the recompute not counted); at batch 8 ``full`` and
+    ``dots`` against ``none``, bit for bit or at ``REMAT_RTOL``."""
+    from autodist_tpu_torch.graph_item import flatten, unflatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Zero1
+
+    layers = transformer_lm().config["num_layers"]
+    params0 = flatten(transformer_lm().init(SEED, device="cpu"))
+    configs, runs = [], {}
+    for remat, rows in REMAT_CONFIGS:
+        spec = transformer_lm(remat=remat)
+        _fresh_peak(torch)
+        params = unflatten([(n, x.to("cuda")) for n, x in params0])
+        sess, batch = _train_session(spec, params, rows, Zero1(),
+                                     fk.fusable_adam(1e-3),
+                                     numerics={"clip_norm": CLIP_NORM})
+        del params
+        want = dict(dict.fromkeys(_kernel_counts(), 0),
+                    flash_fwd=layers * (1 if remat == "none" else 2),
+                    flash_dq=layers, flash_dkv=layers,
+                    detect_stats=2 * len(sess._step.buckets),
+                    adam_update=len(sess.zero1_buckets))
+        name = f"train_remat {remat} batch {rows}"
+        losses, _, step_s, launches = _checked_steps(
+            torch, name, sess, batch, want, REMAT_WARMUP, REMAT_TIMED,
+            guarded=True)
+        step = statistics.median(step_s)
+        flops = model_flops_per_step(spec.config, rows)
+        out = {"remat": remat, "batch": rows, "losses": losses,
+               "ms_per_step": step * 1e3,
+               "ms_per_step_min": min(step_s) * 1e3,
+               "ms_per_step_max": max(step_s) * 1e3,
+               "tokens_per_s": rows * spec.config["seq_len"] / step,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_per_step": {k: v for k, v in want.items() if v}}
+        if rows == TRAIN_SHAPE["B"]:
+            runs[remat] = {"losses": losses,
+                           "params": _host_tree(sess.device_params)}
+            if remat != "none":
+                out["vs_none"] = _compare_to(torch, runs[remat],
+                                             runs["none"])
+        configs.append(out)
+        del sess
+    del runs
+    _fresh_peak(torch)
+    return {"configs": configs, "warmup": REMAT_WARMUP,
+            "timed": REMAT_TIMED, "dots_kept_ops": _dots_kept_ops(torch)}
+
+
+def phase_train_bf16_state(torch, zero1_out):
+    """``train_zero1`` with ``cast_opt_state(fusable_adam(1e-3))``: bf16
+    moments on the ZeRO-1 shards, the count int32; K5 dropped by the
+    rule (its reason printed), K4 twice per bucket; the state's bytes and
+    ms per step against ``train_zero1``'s; losses finite and falling."""
+    import warnings
+
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.ops.opt_state_dtype import cast_opt_state
+    from autodist_tpu_torch.strategy import Zero1
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    _fresh_peak(torch)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sess, batch = _train_session(
+            spec, spec.init(SEED), TRAIN_SHAPE["B"], Zero1(),
+            cast_opt_state(fk.fusable_adam(1e-3)),
+            numerics={"clip_norm": CLIP_NORM})
+    reason = fk.fused_drop_reason(fk.KERNEL_UPDATE, optimizer_fusable=False)
+    if sess._step.fused_kernels != (fk.KERNEL_GUARD,) or not any(
+            reason in str(w.message) for w in caught):
+        raise AssertionError(f"the step runs {sess._step.fused_kernels}; "
+                             f"warnings {[str(w.message) for w in caught]}")
+    want = dict(dict.fromkeys(_kernel_counts(), 0), flash_fwd=layers,
+                flash_dq=layers, flash_dkv=layers,
+                detect_stats=2 * len(sess._step.buckets))
+    losses, norms, step_s, launches = _checked_steps(
+        torch, "train_bf16_state", sess, batch, want, BF16_WARMUP,
+        BF16_TIMED, guarded=True)
+    _check_falling(losses)
+    dtypes = sorted({f"{x.dim()}:{x.dtype}"
+                     for _, x in flatten(sess.opt_state)})
+    if dtypes != ["0:torch.int32", "1:torch.bfloat16"]:
+        raise AssertionError(f"optimizer state dtypes {dtypes}")
+    state_bytes = _state_bytes(sess.opt_state)
+    ref = zero1_out["losses"][:len(losses)]
+    out = {"losses": losses, "global_norms": norms,
+           "losses_train_zero1": ref,
+           "max_rel_loss_diff_vs_train_zero1": max(
+               abs(a - b) / abs(b) for a, b in zip(losses, ref)),
+           **_step_rates(torch, spec, step_s),
+           "ms_per_step_train_zero1": zero1_out["ms_per_step"],
+           "opt_state_bytes": state_bytes,
+           "opt_state_bytes_train_zero1": zero1_out["opt_state_bytes"],
+           "opt_state_ratio": state_bytes / zero1_out["opt_state_bytes"],
+           "opt_state_dtypes": dtypes, "k5_drop_reason": reason,
+           "launches": launches, "launches_per_step": want}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the ``export`` phase's serving process: loads each export (on the card,
+#: then on the CPU) with the checkpoint package and the kernels' operators
+#: only, and writes the outputs, the seconds and the K1/K10 launches
+EXPORT_SERVE = """
+import json, sys, time
+import numpy as np
+import torch
+import autodist_tpu_torch.checkpoint
+import autodist_tpu_torch.ops
+import importlib
+from autodist_tpu_torch.checkpoint import load_saved_model
+from autodist_tpu_torch.ops import quant
+fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+root, out = sys.argv[1], {}
+tokens = np.load(f"{root}/tokens.npy")
+for case in sys.argv[2:]:
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fn = load_saved_model(f"{root}/{case}", device=dev)
+        load_s = time.perf_counter() - t0
+        fa.reset_counts()
+        quant.int8_matmul.calls = 0
+        t0 = time.perf_counter()
+        y = fn(tokens)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        np.save(f"{root}/{case}.{dev}.npy", y.cpu().numpy())
+        out[f"{case}/{dev}"] = {
+            "load_s": load_s, "first_call_s": serve_s,
+            "flash_fwd": fa.flash_attention.fwd_calls,
+            "int8_matmul": quant.int8_matmul.calls}
+out["models_imported"] = sorted(
+    m for m in sys.modules if m.startswith("autodist_tpu_torch.models"))
+print(json.dumps(out))
+"""
+
+
+def _dir_size(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_export(torch):
+    """The full-width LM's logits ``apply_fn`` exported from card params
+    (f32, and its int8 tree), served by a fresh process that imports the
+    checkpoint package and the operators, not the models: on the card
+    bit for bit the eager forward (K1 12 launches; K10 73 on the int8
+    tree), on the CPU at ``EXPORT_RTOL`` / ``EXPORT_ATOL``; export and
+    load seconds, artifact bytes."""
+    import shutil
+    import tempfile
+
+    from autodist_tpu_torch.checkpoint import SavedModelBuilder
+    from autodist_tpu_torch.models.quantize import quantize_lm_params
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    params = spec.init(SEED)
+    trees = dict(zip(EXPORT_TREES, (params, quantize_lm_params(params))))
+    tokens = np.random.RandomState(SEED).randint(
+        0, spec.config["vocab_size"], EXPORT_TOKENS).astype(np.int32)
+    root = tempfile.mkdtemp(prefix="export_")
+    out = {"tokens": list(EXPORT_TOKENS)}
+    try:
+        np.save(os.path.join(root, "tokens.npy"), tokens)
+        eager = {}
+        for case, tree in trees.items():
+            with torch.no_grad():
+                eager[case] = spec.apply_fn(tree, tokens).cpu().numpy()
+            t0 = time.perf_counter()
+            builder = SavedModelBuilder(os.path.join(root, case))
+            builder.add_graph_and_variables(spec.apply_fn, tree, [tokens])
+            builder.save()
+            out[case] = {"export_s": time.perf_counter() - t0,
+                         "artifact_bytes": _dir_size(os.path.join(root,
+                                                                  case)),
+                         "program_bytes": os.path.getsize(os.path.join(
+                             root, case, "model.pt2"))}
+        del trees, params
+        torch.cuda.empty_cache()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_SERVE, root,
+                               *EXPORT_TREES], env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the serving process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["serving_process_s"] = time.perf_counter() - t0
+        if served.pop("models_imported"):
+            raise AssertionError("the serving process imported the models")
+        for case in EXPORT_TREES:
+            want = eager[case]
+            card = np.load(os.path.join(root, f"{case}.cuda.npy"))
+            cpu = np.load(os.path.join(root, f"{case}.cpu.npy"))
+            if card.shape != want.shape or not np.isfinite(card).all():
+                raise AssertionError(f"export {case}: shape {card.shape}")
+            if not np.array_equal(card, want):
+                raise AssertionError(
+                    f"export {case}: the card's output differs from the "
+                    f"eager forward by {np.abs(card - want).max():.3e}")
+            np.testing.assert_allclose(cpu, want, rtol=EXPORT_RTOL,
+                                       atol=EXPORT_ATOL)
+            on_card = served[f"{case}/cuda"]
+            k10 = 6 * layers + 1 if case == "int8" else 0
+            if (on_card["flash_fwd"], on_card["int8_matmul"]) \
+                    != (layers, k10) or served[f"{case}/cpu"]["flash_fwd"] \
+                    or served[f"{case}/cpu"]["int8_matmul"]:
+                raise AssertionError(f"export {case}: launches {served}")
+            out[case].update(
+                card=on_card, cpu=served[f"{case}/cpu"],
+                card_bit_equal=True,
+                cpu_max_abs_err=float(np.abs(cpu - want).max()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -2732,6 +3082,12 @@ def main() -> int:
         row["launches_per_step"] = zero1_out["launches_per_step"][row["name"]]
     emit({"phase": "train_zero1_parity",
           **phase_train_zero1_parity(torch)})
+    remat_out = phase_train_remat(torch)
+    emit({"phase": "train_remat", "card": smi, **remat_out})
+    bf16_out = phase_train_bf16_state(torch, zero1_out)
+    emit({"phase": "train_bf16_state", "card": smi, **bf16_out})
+    export_out = phase_export(torch)
+    emit({"phase": "export", "card": smi, **export_out})
     ps_out = phase_train_ps(torch, zero1_out)
     emit({"phase": "train_ps", "card": smi, **ps_out})
     t0 = time.perf_counter()
@@ -2742,6 +3098,18 @@ def main() -> int:
         row["launches_by_path"] = {"train_fit": {
             "launches": fit_out["launches"][row["name"]],
             "per_step": fit_out["launches_per_step"][row["name"]]}}
+        for c in remat_out["configs"]:
+            row["launches_by_path"][
+                f"train_remat {c['remat']} batch {c['batch']}"] = {
+                "launches": c["launches"][row["name"]],
+                "per_step": c["launches_per_step"][row["name"]]}
+        row["launches_by_path"]["train_bf16_state"] = {
+            "launches": bf16_out["launches"][row["name"]],
+            "per_step": bf16_out["launches_per_step"][row["name"]]}
+    flash_rows[0]["launches_by_path"]["export (serving process)"] = {
+        case: export_out[case]["card"]["flash_fwd"] for case in EXPORT_TREES}
+    k10["launches_by_path"] = {"export int8 (serving process)": export_out[
+        "int8"]["card"]["int8_matmul"]}
     parallax_out = phase_train_parallax(torch, ps_out)
     emit({"phase": "train_parallax", "card": smi, **parallax_out})
     for row in sync_rows:
@@ -2749,7 +3117,13 @@ def main() -> int:
             path: {"launches": out["launches"][row["name"]],
                    "per_step": out["launches_per_step"][row["name"]]}
             for path, out in (("train_ps", ps_out), ("train_fit", fit_out),
-                              ("train_parallax", parallax_out))}
+                              ("train_parallax", parallax_out),
+                              ("train_bf16_state", bf16_out))}
+        row["launches_by_path"].update({
+            f"train_remat {c['remat']} batch {c['batch']}": {
+                "launches": c["launches"][row["name"]],
+                "per_step": c["launches_per_step"][row["name"]]}
+            for c in remat_out["configs"]})
 
     ring, ring_wall, fused_vs_unfused = phase_train_ring()
     for config in RING_CONFIGS:

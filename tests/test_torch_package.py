@@ -67,6 +67,8 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.numerics.loss_scale\n"
         "import autodist_tpu_torch.numerics.policy\n"
         "import autodist_tpu_torch.checkpoint.saver\n"
+        "import autodist_tpu_torch.checkpoint.saved_model_builder\n"
+        "import autodist_tpu_torch.ops.opt_state_dtype\n"
         "import autodist_tpu_torch.strategy.zero1_strategy\n"
         "import autodist_tpu_torch.kernel.synchronization.explicit_sync\n"
         "import autodist_tpu_torch.profile_train\n"
@@ -298,7 +300,9 @@ def _public(module):
             if not n.startswith("_") and own(v)}
 
 
-@pytest.mark.parametrize("scope", ["", ".ops", ".models", ".autodist"])
+@pytest.mark.parametrize("scope", ["", ".ops", ".models", ".autodist",
+                                   ".ops.opt_state_dtype",
+                                   ".checkpoint.saved_model_builder"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)

@@ -339,7 +339,6 @@ class _PSBuilder(StrategyBuilder):
     (AllReduce(overlap="pipeline"), {}, "P6"),
     (AllReduce(hier=True), {}, "P6"),
     (_PSBuilder(), {}, "P6 — pipelining, hier and staleness"),
-    (AllReduce(), {"remat": "full"}, "P2"),
     (AllReduce(), {"grad_fn": lambda p, b: None}, "P10"),
     (AllReduce(), {"pipeline_vars": ("embed",)}, "P10"),
 ])
@@ -371,8 +370,6 @@ def test_transformer_lm_xent_chunk_matches_dense():
 
 
 def test_unported_factory_options_and_fit_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP: P2 — remat"):
-        transformer_lm(**CFG, remat="full")
     spec = transformer_lm(**CFG)
     ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
     ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.sgd(0.1),

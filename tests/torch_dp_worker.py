@@ -39,6 +39,12 @@ after k steps); then after 3 steps on :func:`linear_loss` and
 :func:`linear_batch`, whose gradients are the batch's rows to the bit.  ``ring`` runs the quantized ring collectives
 on the rows of ``IN.npz`` (:func:`ring_functions`).
 
+``levers`` trains what ``IN`` holds (:func:`levers_main`): the remat
+model (:data:`REMAT_CFG`, ``remat/...`` weights and batch) under each of
+:data:`REMAT_POLICIES` with ``AllReduce()`` and ``adam(1e-2)``, and the
+two-layer problem (``zero1/...``) under ``Zero1()`` with ``adam(1e-2)``
+and with ``cast_opt_state(adam(1e-2))``.
+
 ``ckpt`` trains each run of :func:`ckpt_runs` through ``fit`` for
 :data:`CKPT_EPOCHS` epochs uninterrupted, then again with a checkpoint
 after epoch 1 under ``IN/{run}`` (rank 0 writes), a fresh session and a
@@ -96,8 +102,8 @@ LINEAR_SEED, LINEAR_SCALE = 3, 1e-2
 PS_LM_BUILDERS = ("PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
                   "Parallax", "PartitionedAR")
 #: the case matrix (``tests/test_case_matrix.py``): its cases on a data-only
-#: mesh, under all 8 builders
-CASES = ("sparse", "scan", "while_loop", "dynamic_lstm")
+#: mesh, under all 8 builders (``bf16_remat`` with ``capture(remat="dots")``)
+CASES = ("sparse", "scan", "bf16_remat", "while_loop", "dynamic_lstm")
 CASE_BUILDERS = ("PS", "PSLoadBalancing", "PartitionedPS",
                  "UnevenPartitionedPS", "AllReduce", "PartitionedAR",
                  "RandomAxisPartitionAR", "Parallax")
@@ -141,6 +147,10 @@ def case_loss(case):
             for x_t in b["x"].transpose(0, 1):
                 h = torch.tanh(x_t @ p["cell"]["w_x"] + h @ p["cell"]["w_h"])
             return mse(h @ p["proj"]["w"], b["y"])
+    elif case == "bf16_remat":
+        def loss(p, b):
+            h = torch.tanh(b["x"] @ p["l1"]["w"])
+            return mse((h @ p["l2"]["w"]).float(), b["y"].float())
     elif case == "while_loop":
         def loss(p, b):
             i, v = 0, b["x"].detach()
@@ -173,10 +183,15 @@ def case_loss(case):
 
 def case_losses(case, builder, data):
     """3 ``adam`` steps of ``case`` under ``builder``: the losses.
-    ``data`` holds ``{case}/p/{name}`` and ``{case}/b/{key}`` arrays."""
+    ``data`` holds ``{case}/p/{name}`` and ``{case}/b/{key}`` arrays, a
+    bfloat16 one as its 16-bit payload under ``...:bfloat16``."""
     _reset_default_autodist_for_testing()
-    part = {k[len(case) + 1:]: torch.from_numpy(data[k]) for k in data.files
-            if k.startswith(case + "/")}
+    part = {}
+    for k in data.files:
+        if k.startswith(case + "/"):
+            name, _, dtype = k[len(case) + 1:].partition(":")
+            t = torch.from_numpy(data[k])
+            part[name] = t.view(torch.bfloat16) if dtype == "bfloat16" else t
     params = unflatten([(k[2:], v) for k, v in part.items()
                         if k.startswith("p/")])
     batch = {k[2:]: v for k, v in part.items() if k.startswith("b/")}
@@ -184,9 +199,65 @@ def case_losses(case, builder, data):
     with ad.scope():
         ad.capture(params=params, optimizer=optim.adam(CASE_LR),
                    loss_fn=case_loss(case),
-                   sparse_vars=("emb/table",) if case == "sparse" else ())
+                   sparse_vars=("emb/table",) if case == "sparse" else (),
+                   remat="dots" if case == "bf16_remat" else None)
     sess = ad.create_distributed_session()
     return np.array([float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+
+
+#: the ``levers`` mode's remat model (``tests/test_remat.py``'s) and its
+#: policies (None: no remat)
+REMAT_CFG = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=8,
+                 d_ff=32, max_len=16, seq_len=16)
+REMAT_POLICIES = (None, "full", "dots", "dots_no_batch")
+#: the ``levers`` mode's ZeRO-1 steps with bf16 moments
+BF16_STEPS = 30
+
+
+def levers_main(data):
+    """The ``levers`` mode: the remat losses per policy, and the bf16
+    moments' losses, dtypes and bytes of this rank's state."""
+    from autodist_tpu_torch.ops.opt_state_dtype import cast_opt_state
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(data[k])
+                for k in data.files if k.startswith(prefix)}
+
+    out = {}
+    spec = transformer_lm(**REMAT_CFG)
+    batch = {"tokens": data["remat/b/tokens"]} \
+        if "remat/b/tokens" in data.files else None
+    for policy in REMAT_POLICIES if batch is not None else ():
+        _reset_default_autodist_for_testing()
+        ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
+        with ad.scope():
+            ad.capture(params=unflatten(list(part("remat/p/").items())),
+                       optimizer=optim.adam(CASE_LR), loss_fn=spec.loss_fn,
+                       remat=policy)
+        sess = ad.create_distributed_session()
+        out[f"remat/{policy}"] = np.array(
+            [float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+
+    zbatch = part("zero1/b/")
+    for name, opt in (("f32", optim.adam(CASE_LR)),
+                      ("bf16", cast_opt_state(optim.adam(CASE_LR))))\
+            if zbatch else ():
+        _reset_default_autodist_for_testing()
+        ad = AutoDist(strategy_builder=Zero1(), device="cpu")
+        with ad.scope():
+            ad.capture(params=unflatten(list(part("zero1/p/").items())),
+                       optimizer=opt, loss_fn=lambda p, b: ((torch.tanh(
+                           b["x"] @ p["l1"]["w"] + p["l1"]["b"])
+                           @ p["l2"]["w"] - b["y"]) ** 2).mean())
+        sess = ad.create_distributed_session()
+        leaves = [v for _, v in flatten(sess.opt_state)]
+        out[f"zero1/{name}/bytes"] = sum(v.numel() * v.element_size()
+                                         for v in leaves)
+        out[f"zero1/{name}/dtypes"] = np.array(sorted(
+            {f"{v.dim()}:{v.dtype}" for v in leaves}))
+        out[f"zero1/{name}/losses"] = np.array(
+            [float(sess.run(zbatch)["loss"]) for _ in range(BF16_STEPS)])
+    return out
 
 
 def ps_main(data):
@@ -576,6 +647,9 @@ def main():
             return
         if strategy == "models":
             np.savez(out, **models_main(np.load(sys.argv[6])))
+            return
+        if strategy == "levers":
+            np.savez(out, **levers_main(np.load(sys.argv[6])))
             return
         if strategy == "ckpt":
             np.savez(out, **ckpt_main(sys.argv[6]))
