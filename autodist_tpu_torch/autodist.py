@@ -168,7 +168,8 @@ class AutoDist:
         if mesh is None:
             mesh = build_mesh(self._mesh_axes, self._resource_spec,
                               device=self._device)
-        compiled = StrategyCompiler(mesh).compile(self._strategy,
+        compiled = StrategyCompiler(mesh, self._resource_spec).compile(
+            self._strategy,
                                                   self._graph_item)
         dist_step = GraphTransformer(compiled, self._graph_item).transform(
             extra_metrics_fn=self._graph_item.metrics_fn)

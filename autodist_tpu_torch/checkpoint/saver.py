@@ -33,9 +33,18 @@ under the dtype name ``"bfloat16"``.  No Orbax.
   CRC32 over ``f"{shape}|{dtype}"`` and then the bytes, summed mod 2^64),
   so the ``params`` digest of a state equals the JAX Saver's for the same
   logical values.
-* **Sync state:** the numerics state as it is, and each quantized bucket's
-  error-feedback residual gathered over the ranks into the JAX package's
-  ``[data, padded_total]`` stack; a restore takes this rank's row.
+* **Sync state:** the session's logical sync state
+  (``session.export_sync_state()``): the numerics state as it is, each
+  compressor state (a bucket's error-feedback residual, PowerSGD's
+  ``{"q", "residual"}``) gathered over the ranks into the JAX package's
+  ``[data, ...]`` stack, of which a restore takes this rank's row, and
+  the bounded-staleness state per variable (``queue``, ``cache``,
+  ``step``), which restores into any shard layout.
+* **Shard layout:** ZeRO-1 state is stored as whole bucket vectors in
+  chunk order; a restore slices the chunk each rank holds
+  (``session._step.shard_owner``: the two-tier ``hier`` permutation or
+  the rank), so a ``hier`` checkpoint restores into a flat session and
+  the other way round.
 * **Ranks:** every rank takes part in a save (the ZeRO-1 gather); rank 0
   writes, and the ranks meet at a barrier once the step is committed.
 
@@ -69,6 +78,8 @@ import torch.distributed as dist
 from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.convert import _pack_tree_state, _rank_shard
 from autodist_tpu_torch.graph_item import flatten, unflatten
+from autodist_tpu_torch.kernel.synchronization.stale_sync import (
+    MASTER_KEY, STALE_KEYS)
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 
 log = logging.getLogger(__name__)
@@ -461,21 +472,6 @@ class Saver:
                               ignore_errors=True)
 
     # -- save --------------------------------------------------------------
-    def _gathered_sync_state(self, session) -> Dict[str, Any]:
-        """The sync state with each residual stacked ``[data,
-        padded_total]`` over the ranks (the JAX package's layout)."""
-        d, group, _ = self._mesh(session)
-        out: Dict[str, Any] = {}
-        for key, value in session.sync_state.items():
-            if key == NUMERICS_KEY or not isinstance(value, torch.Tensor):
-                out[key] = value
-                continue
-            from autodist_tpu_torch.kernel.synchronization import \
-                collectives as coll
-            out[key] = (coll.all_gather(value, group) if d > 1
-                        else value).reshape(d, -1)
-        return out
-
     def save(self, directory: str, step: Optional[int] = None,
              session=None, extra_meta: Optional[dict] = None,
              mark_good: bool = False) -> str:
@@ -493,7 +489,7 @@ class Saver:
         d, _, rank = self._mesh(session)
         # every rank takes part in the gathers; rank 0 copies and writes
         params, opt_state = session.export_state()
-        sync_state = self._gathered_sync_state(session)
+        sync_state = session.export_sync_state()
         has_sync = bool(flatten(sync_state))
         items: Dict[str, HostItem] = {}
         if rank == 0:
@@ -592,14 +588,17 @@ class Saver:
                     f"from this session's (size {d}); elastic resume",
                     "P9 — telemetry and resilience")
             by_key = {b.key: b for b in new}
+            owner = session._step.shard_owner
             opt_state = dict(opt_state, zero1={
                 slot: v if isinstance(v, torch.Tensor) else
-                {k: _rank_shard(x, by_key[k], rank, d) for k, x in v.items()}
+                {k: _rank_shard(x, by_key[k], owner.get(k, rank), d)
+                 for k, x in v.items()}
                 for slot, v in opt_state["zero1"].items()})
         elif old:
             opt_state = _unpack_layout(opt_state, old)
         elif new:
-            opt_state = _pack_tree_state(opt_state, new, rank, d)
+            opt_state = _pack_tree_state(opt_state, new, rank, d,
+                                         session._step.shard_owner)
         sync_state = None
         if meta.get("has_sync_state") and \
                 os.path.isdir(os.path.join(path, "sync_state")):
@@ -614,16 +613,28 @@ class Saver:
         return step
 
     def _sync_for(self, session, saved, path) -> Optional[Dict[str, Any]]:
-        """This rank's sync state from the saved stack, or None (a fresh
-        one) when it does not fit the session's."""
+        """This rank's sync state from the saved one (its row of each
+        stacked compressor state; the stale state as it is), or None (a
+        fresh one) when it does not fit the session's."""
         d, _, rank = self._mesh(session)
         mine = session.sync_state
         out: Dict[str, Any] = {}
+        stale_keys = set(STALE_KEYS) | {MASTER_KEY}
+        if (stale_keys & set(mine)) and not set(STALE_KEYS) <= set(saved):
+            log.warning("%s holds no bounded-staleness state; starting it "
+                        "fresh (the resume is then approximate)", path)
+            return None
+        out.update({k: saved[k] for k in STALE_KEYS
+                    if k in saved and stale_keys & set(mine)})
         for key, value in mine.items():
+            if key in stale_keys:
+                continue
             got = saved.get(key)
-            if key != NUMERICS_KEY and isinstance(got, torch.Tensor) \
-                    and got.dim() == 2 and got.shape[0] == d:
-                got = got[rank]
+            if key != NUMERICS_KEY and got is not None:
+                rows = [(n, x) for n, x in flatten(got)]
+                if all(x.dim() >= 1 and x.shape[0] == d for _, x in rows):
+                    got = unflatten([(n, x[rank]) for n, x in rows]) \
+                        if isinstance(got, dict) else got[rank]
             ok = got is not None and (
                 [(n, tuple(x.shape), x.dtype) for n, x in flatten(got)]
                 == [(n, tuple(x.shape), x.dtype) for n, x in flatten(value)])

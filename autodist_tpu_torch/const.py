@@ -31,6 +31,19 @@ def _str(v):
     return v or ""
 
 
+def _proxy_refresh(v):
+    """``stale_sync.proxy_refresh_period``'s parser: at least 1."""
+    return max(1, int("1" if v is None else v))
+
+
+def _dcn_wire(v):
+    """``schedule_ir.dcn_wire_compressor_default``'s parser: ``int8``
+    puts the cross-slice leg on the quantized wire, anything else is the
+    full-precision wire."""
+    return "Int8Compressor" if (v or "").strip().lower() == "int8" \
+        else "NoneCompressor"
+
+
 class ENV(enum.Enum):
     """``ENV.X.val`` is the parsed value of environment variable ``X``;
     each member's value is ``(name, parser)``."""
@@ -42,6 +55,10 @@ class ENV(enum.Enum):
     # the supervisor's failure-marker directory (numerics rollbacks write
     # their marker there)
     AUTODIST_SUPERVISOR_DIR = ("AUTODIST_SUPERVISOR_DIR", _str)
+    # proxy variables' refresh period in steps (1: always fresh)
+    AUTODIST_PROXY_REFRESH = ("AUTODIST_PROXY_REFRESH", _proxy_refresh)
+    # the hier cross-slice leg's wire: the compressor it names
+    AUTODIST_DCN_WIRE = ("AUTODIST_DCN_WIRE", _dcn_wire)
 
     @property
     def val(self):

@@ -19,7 +19,10 @@ Both packages key parameters by the same logical names
   from the ZeRO-1 layout of the JAX explicit step, or from the
   per-variable state of a JAX PS session (its GSPMD step);
 * :func:`sync_state_from_jax` carries the numerics state (loss scale and
-  health counters) and one rank's error-feedback residuals.
+  health counters), one rank's compressor states (error-feedback
+  residuals, PowerSGD's basis and residual) and the bounded-staleness
+  state (queue, proxy cache, step), which the session packs into its
+  own shards.
 
 A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 ``(q, scale)`` pair) becomes the port's
@@ -27,7 +30,7 @@ A weight-only int8 leaf (the JAX ``Quantized`` named tuple, or any
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -138,13 +141,17 @@ def opt_state_from_jax(state, device="cpu", zero1_buckets: Sequence = (),
 
 def _rank_shard(full: torch.Tensor, bucket, rank: int,
                 data: int) -> torch.Tensor:
+    """Chunk ``rank`` of ``data`` of a full bucket vector."""
     sz = bucket.padded_total // data
     return full[rank * sz:(rank + 1) * sz].clone()
 
 
-def _pack_tree_state(plain, buckets: Sequence, rank: int,
-                     data: int) -> Dict[str, Any]:
-    """A per-variable state → ``{"vars", "zero1"}`` over ``buckets``."""
+def _pack_tree_state(plain, buckets: Sequence, rank: int, data: int,
+                     owner: Optional[Dict[str, int]] = None
+                     ) -> Dict[str, Any]:
+    """A per-variable state → ``{"vars", "zero1"}`` over ``buckets``,
+    each bucket's chunk ``owner[key]`` (default: ``rank``)."""
+    owner = owner or {}
     bucketed = {n for b in buckets for n in b.names}
     tree: Dict[str, Any] = {}
     zero1: Dict[str, Any] = {}
@@ -156,8 +163,8 @@ def _pack_tree_state(plain, buckets: Sequence, rank: int,
         tree[k] = unflatten([(n, x) for n, x in leaves.items()
                              if n not in bucketed])
         zero1[k] = {b.key: _rank_shard(pack_bucket(
-            b, [leaves[n] for n in b.names]), b, rank, data)
-            for b in buckets}
+            b, [leaves[n] for n in b.names]), b, owner.get(b.key, rank),
+            data) for b in buckets}
     return {"vars": tree, "zero1": zero1}
 
 
@@ -192,23 +199,57 @@ def _zero1_shards(state, buckets: Sequence, rank: int, data: int,
 def sync_state_from_jax(sync_state, device="cpu",
                         rank: int = 0) -> Dict[str, Any]:
     """The JAX session's sync state (numpy leaves) → rank ``rank``'s of
-    the port: the numerics state (loss scale and health counters, dtypes
-    kept) and each quantized bucket's error-feedback residual.  The JAX
-    explicit step stacks the residuals ``[data, padded_total]`` over the
-    data axis (``explicit_sync.py:710-720``); rank ``r`` takes row ``r``,
-    so the two sessions must run the same data size.  Any other entry
-    (per-variable compressor state) raises ``ValueError``."""
+    the port, for ``session.import_state``:
+
+    * the numerics state (loss scale and health counters, dtypes kept);
+    * the explicit step's compressor states, stacked ``[data, ...]`` over
+      the data axis (``explicit_sync.py:710-746``): a bucket's
+      error-feedback residual ``[data, padded_total]``, a per-variable
+      state such as PowerSGD's ``{"q": [data, m, r], "residual": [data,
+      n, m]}``; rank ``r`` takes row ``r`` of each, so the two sessions
+      must run the same data size;
+    * the bounded-staleness state ``{"queue": {name: [s, *shape]},
+      "cache": {name: mirror}, "step"}`` (``stale_sync.py:86-98``),
+      logical: the session packs it into its own shards.
+
+    An entry of another shape raises ``ValueError``."""
     out: Dict[str, Any] = {}
     for key, value in sync_state.items():
         if key == NUMERICS_KEY:
             out[key] = {n: _tensor(x, device) for n, x in value.items()}
             continue
-        arr = np.asarray(value) if not isinstance(value, dict) else None
-        if arr is None or arr.ndim != 2 or not 0 <= rank < arr.shape[0]:
-            raise ValueError(
-                f"sync state entry {key!r} is not a [data, padded_total] "
-                f"bucket residual with a row for rank {rank}")
-        out[key] = _tensor(arr[rank], device)
+        if key in ("queue", "cache"):
+            out[key] = {n: _tensor(x, device)
+                        for n, x in _flat_named(value).items()}
+            continue
+        if key == "step":
+            out[key] = _tensor(np.asarray(value), device)
+            continue
+        leaves = _flat_named(value) if isinstance(value, dict) \
+            else {"": value}
+        rows = {}
+        for name, x in leaves.items():
+            arr = np.asarray(x)
+            if arr.ndim < 2 or not 0 <= rank < arr.shape[0]:
+                raise ValueError(
+                    f"sync state entry {key!r} is not a [data, ...] "
+                    f"compressor state with a row for rank {rank}")
+            rows[name] = _tensor(arr[rank], device)
+        out[key] = rows[""] if "" in rows else _unflatten(rows)
+    return out
+
+
+def _flat_named(tree) -> Dict[str, Any]:
+    """A nested dict as ``{"/"-joined name: leaf}``."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + (str(k),))
+        else:
+            out["/".join(prefix)] = node
+    walk(tree, ())
     return out
 
 

@@ -34,11 +34,9 @@ One such step runs, in order:
    ``metrics_fn`` extras (computed on the updated parameters and the
    global batch).
 
-The options still to port raise, naming their ROADMAP item; nothing runs
-in place of what was asked: the cast and low-rank compressors, fused
-groups, the accumulation pipeline (``overlap="pipeline"``, ``"full"``
-with ``accum_steps > 1``) and ``hier``; PS staleness and proxy variables
-are refused earlier, by the compiler.
+The cast and low-rank compressors, fused groups, the accumulation
+pipeline, ``hier`` and PS staleness and proxy variables all run on the
+explicit step.
 """
 from __future__ import annotations
 
@@ -49,7 +47,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
@@ -66,12 +63,13 @@ def copy_tree(tree):
 
 
 def sync_state_init(guard: bool, loss_scale, device) -> Callable:
-    """``() -> sync state``: the numerics state under
+    """``(params=None) -> sync state``: the numerics state under
     :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY` with the guard on,
     ``{}`` without it."""
     if not guard:
-        return dict
-    return lambda: {NUMERICS_KEY: ls_mod.init_state(loss_scale, device)}
+        return lambda params=None: {}
+    return lambda params=None: {
+        NUMERICS_KEY: ls_mod.init_state(loss_scale, device)}
 
 
 @dataclass
@@ -81,14 +79,23 @@ class DistributedStep:
     ``step_fn(params, opt_state, sync_state, batch) -> metrics`` updates
     ``params``, ``opt_state`` and ``sync_state`` (the numerics state under
     :data:`~autodist_tpu_torch.numerics.NUMERICS_KEY` with the guard on,
-    each quantized bucket's error-feedback residual under its key; ``{}``
-    without either) in place; ``batch`` is the placed GLOBAL batch.
+    each stateful bucket's and variable's compressor state under its key,
+    the stale state under ``queue``/``step``/``master``; ``{}`` without
+    any) in place; ``batch`` is the placed GLOBAL batch.
     ``eval_fn(params, batch) -> metrics`` changes nothing.
     ``zero1_buckets`` are the
     buckets whose optimizer state is sharded over the data axis,
-    ``fused_kernels`` names the fused kernels the step runs (``"guard"``:
-    K4, ``"update"``: K5, ``"quant_hop"``: K6–K8) and ``bucket_algs`` each
-    bucket's reduction (``"ring"``, ``"one_shot"`` or ``"fused"``)."""
+    ``shard_owner`` the chunk of each this rank holds (its rank, or the
+    two-tier permutation's chunk), ``fused_kernels`` names the fused
+    kernels the step runs (``"guard"``: K4, ``"update"``: K5,
+    ``"quant_hop"``: K6–K8), ``bucket_algs`` each bucket's reduction
+    (``"ring"``, ``"one_shot"`` or ``"fused"``), ``hier_keys`` the
+    buckets that reduce in two tiers and ``pipelined_keys`` those that
+    reduce once per microbatch (the accumulation pipeline).  ``init_sync_state(params)`` makes a
+    fresh sync state; ``export_params`` / ``export_sync_state`` give the
+    true parameters and the logical sync state (collectives: every rank
+    calls them), ``import_sync_state(sync_state, params)`` this rank's
+    sync state back from it."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -99,8 +106,14 @@ class DistributedStep:
     zero1_buckets: Tuple[Bucket, ...] = ()
     fused_kernels: Tuple[str, ...] = ()
     bucket_algs: Dict[str, str] = field(default_factory=dict)
-    init_sync_state: Callable = dict       # () -> sync state
+    hier_keys: Tuple[str, ...] = ()
+    pipelined_keys: Tuple[str, ...] = ()
+    shard_owner: Dict[str, int] = field(default_factory=dict)
+    init_sync_state: Callable = lambda params=None: {}
     export_opt_state: Callable = copy_tree  # state -> logical copy
+    export_params: Callable = lambda params, sync_state: params
+    export_sync_state: Callable = lambda params, sync_state: dict(sync_state)
+    import_sync_state: Callable = lambda sync_state, params: sync_state
 
     @property
     def device(self) -> torch.device:
@@ -126,30 +139,6 @@ class DistributedStep:
                     .to(self.device)
             return x
         return tree_map(put, batch)
-
-
-#: the compressors the port runs (the identity and the quantized wire)
-_PORTED_COMPRESSORS = ("", "NoneCompressor", "Int8Compressor",
-                       "Fp8Compressor")
-
-
-def _refuse_unported(compiled, accum_steps: int) -> None:
-    for name, plan in compiled.var_plans.items():
-        if plan.compressor not in _PORTED_COMPRESSORS:
-            raise not_ported(f"compressor {plan.compressor!r} ({name})",
-                             "P6 — cast and low-rank compressors")
-        if plan.fused:
-            raise not_ported(f"fused_groups ({name})",
-                             "P6 — fused groups")
-        if plan.overlap == "pipeline" or (plan.overlap == "full"
-                                          and accum_steps > 1):
-            raise not_ported(f"overlap={plan.overlap!r} with accum_steps="
-                             f"{accum_steps} ({name}): the accumulation "
-                             f"pipeline", "P6 — pipelining, hier and "
-                             "staleness")
-        if plan.hier:
-            raise not_ported(f"hier=True ({name})",
-                             "P6 — pipelining, hier and staleness")
 
 
 def microbatch_slices(length: int, accum: int) -> List[Tuple[int, int]]:
@@ -288,7 +277,6 @@ class GraphTransformer:
             raise ValueError(
                 "GraphItem must carry an optimizer and loss_fn to transform "
                 "(capture them via AutoDist.capture)")
-        _refuse_unported(self.compiled, gi.accum_steps)
         from autodist_tpu_torch.kernel.synchronization import explicit_sync
 
         if explicit_sync.uses_explicit_path(self.compiled):
@@ -372,20 +360,27 @@ class GraphTransformer:
             init_sync_state=sync_state_init(num_active, num_ls, mesh.device))
 
 
+def scaled_loss(gi, scale: Optional[torch.Tensor]) -> Callable:
+    """The captured loss, multiplied by ``scale`` (the loss scale) when
+    one is given."""
+    if scale is None:
+        return gi.loss_fn
+
+    def loss_fn(p, b):
+        out = gi.loss_fn(p, b)
+        if gi.has_aux:
+            return out[0] * scale, out[1]
+        return out * scale
+    return loss_fn
+
+
 def scaled_value_and_grad(gi, names: Tuple[str, ...],
                           scale: Optional[torch.Tensor]) -> Callable:
     """``vg(params, batch) -> (loss, aux, {name: grad})`` of the captured
     loss, multiplied by ``scale`` before the backward pass when one is
     given (the loss scale), accumulated over ``accum_steps``
     microbatches."""
-    loss_fn = gi.loss_fn
-    if scale is not None:
-        def loss_fn(p, b):                # noqa: F811 — the scaled loss
-            out = gi.loss_fn(p, b)
-            if gi.has_aux:
-                return out[0] * scale, out[1]
-            return out * scale
-    vg = value_and_grad(loss_fn, gi.has_aux, names)
+    vg = value_and_grad(scaled_loss(gi, scale), gi.has_aux, names)
     if gi.accum_steps > 1:
         vg = accumulate(vg, gi.accum_steps, gi.has_aux)
     return vg

@@ -13,12 +13,22 @@ tensors:
 * :func:`reduce_scatter` — ``reduce_scatter_tensor``, summed;
 * :func:`all_reduce` — ``all_reduce``, summed.
 
+A collective over a part of the ranks (``axis_index_groups`` in ``lax``:
+the ``within`` and ``across`` groups of ``hier`` sync) runs over a
+process group of its own, made once per step by :func:`subgroups`.
+:func:`all_reduce_async` / :func:`reduce_scatter_async` issue a
+collective and return a :class:`Pending` whose ``wait()`` gives the
+result, so the accumulation pipeline can run the next microbatch's
+backward while the collective is in flight.
+
 NCCL moves device tensors directly.  gloo has no device-side transport:
 a CUDA tensor crosses a gloo group through a copy to the host and back
 (four ranks sharing one card run so; their kernels still run on the
-card).  The branch is chosen from ``dist.get_backend(group)``.  One-byte
-wire formats (int8, fp8) travel as ``uint8`` bits.  Every function
-returns a new tensor and leaves its input as it was.
+card).  The branch is chosen from ``dist.get_backend(group)``; the
+host-staged branch is synchronous, an asynchronous call on it returns a
+finished :class:`Pending`.  One-byte wire formats (int8, fp8) travel as
+``uint8`` bits.  Every function returns a new tensor and leaves its input
+as it was.
 """
 from __future__ import annotations
 
@@ -37,16 +47,67 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+class Pending:
+    """An issued collective: :meth:`wait` blocks until it is done and
+    returns its result."""
+
+    def __init__(self, work, out: torch.Tensor, finish):
+        self._work, self._out, self._finish = work, out, finish
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._finish(self._out)
+
+    def then(self, fn) -> "Pending":
+        """This collective, its result passed through ``fn``."""
+        finish = self._finish
+        return Pending(self._work, self._out, lambda o: fn(finish(o)))
+
+
+def done(value: torch.Tensor) -> Pending:
+    """A finished :class:`Pending` holding ``value``."""
+    return Pending(None, value, lambda o: o)
+
+
+def _issue(group, t: torch.Tensor, out_numel: int, op,
+           async_op: bool) -> Pending:
+    """``op(out, src, async_op)`` on a fresh output of ``out_numel``
+    elements, on the host (and synchronously) when the group cannot move
+    ``t``'s device memory."""
+    src = _bits(t.contiguous()).reshape(-1)
+    staged = _host_staged(group, src)
+    if staged:
+        src = src.cpu()
+    out = src.new_empty(out_numel)
+    work = op(out, src, async_op and not staged)
+
+    def finish(o):
+        o = o.to(t.device) if o.device != t.device else o
+        return o.view(t.dtype) if o.dtype != t.dtype else o
+    return Pending(work, out, finish)
+
+
 def _run(group, t: torch.Tensor, out_numel: int, op) -> torch.Tensor:
     """``op(out, src)`` on a fresh output of ``out_numel`` elements, on
     the host when the group cannot move ``t``'s device memory."""
-    src = _bits(t.contiguous()).reshape(-1)
-    if _host_staged(group, src):
-        src = src.cpu()
-    out = src.new_empty(out_numel)
-    op(out, src)
-    out = out.to(t.device) if out.device != t.device else out
-    return out.view(t.dtype) if out.dtype != t.dtype else out
+    return _issue(group, t, out_numel,
+                  lambda out, src, _: op(out, src), False).wait()
+
+
+def subgroups(group, rank_lists):
+    """One process group per list of ranks of ``group`` (every rank makes
+    every group, in the same order, as ``dist.new_group`` requires);
+    returns the one holding this rank, or None when none does."""
+    mine = None
+    me = dist.get_rank(group)
+    for ranks in rank_lists:
+        sub = dist.new_group(ranks=[dist.get_global_rank(group, r)
+                                    for r in ranks])
+        if me in ranks:
+            mine = sub
+    return mine
 
 
 def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
@@ -89,8 +150,26 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """``lax.psum``: the sum of every rank's ``t`` (any shape)."""
-    def op(out, src):
+    return _all_reduce(t, group, False).wait()
+
+
+def all_reduce_async(t: torch.Tensor, group) -> Pending:
+    """:func:`all_reduce`, issued; ``wait()`` gives the sum."""
+    return _all_reduce(t, group, True)
+
+
+def _all_reduce(t: torch.Tensor, group, async_op: bool) -> Pending:
+    def op(out, src, asynchronous):
         out.copy_(src)
-        dist.all_reduce(out, group=group)
-    return _run(group, t, t.numel(), op).view(t.shape)
+        return dist.all_reduce(out, group=group, async_op=asynchronous)
+    return _issue(group, t, t.numel(), op, async_op).then(
+        lambda o: o.view(t.shape))
+
+
+def reduce_scatter_async(t: torch.Tensor, group) -> Pending:
+    """:func:`reduce_scatter`, issued; ``wait()`` gives this rank's
+    chunk of the sum."""
+    n = dist.get_world_size(group)
+    return _issue(group, t, t.numel() // n, lambda out, src, async_op:
+                  dist.reduce_scatter_tensor(out, src, group=group,
+                                             async_op=async_op), True)

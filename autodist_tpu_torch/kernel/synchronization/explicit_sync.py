@@ -1,26 +1,40 @@
 """The explicit bucketed training step, for all-reduce and ZeRO-1 buckets.
 
-Port of the JAX package's ``kernel/synchronization/explicit_sync.py``
-(``:96-119, 223-246, 249-1180``).  Reduce-scatter (ZeRO-1) buckets hold
-the variables of ``Zero1`` plans and of every PS plan: the PS family's
-weight-update sharding, which the JAX package lowers through GSPMD
-(``graph_transformer.py:428-470``), runs here as the same
-reduce-scatter → 1/N shard update → all-gather.  One step may mix both
-kinds (``Parallax``: the embedding's PS plan in a reduce-scatter bucket,
-the dense variables' AllReduce plans in all-reduce buckets).  The step
-runs, on each rank, in order:
+Port of the JAX package's ``kernel/synchronization/explicit_sync.py``.
+Reduce-scatter (ZeRO-1) buckets hold the variables of ``Zero1`` plans and
+of every PS plan: the PS family's weight-update sharding, which the JAX
+package lowers through GSPMD (``graph_transformer.py:428-470``), runs
+here as the same reduce-scatter → 1/N shard update → all-gather.  One
+step may mix both kinds (``Parallax``: the embedding's PS plan in a
+reduce-scatter bucket, the dense variables' AllReduce plans in
+all-reduce buckets).  The step runs, on each rank, in order:
 
 1. loss and gradients on this rank's rows of the global batch (inside
-   :func:`~autodist_tpu_torch.mesh.data_rows`), the loss
-   multiplied by the loss scale first when one is on; with
-   ``accum_steps > 1`` the microbatches accumulate inside the step;
-2. per bucket of :func:`plan_step_buckets`' plan: pack, then the
+   :func:`~autodist_tpu_torch.mesh.data_rows`), the loss multiplied by
+   the loss scale first when one is on; with ``accum_steps > 1`` the
+   microbatches accumulate inside the step, or, for the buckets the
+   accumulation pipeline takes (``overlap.pipeline_eligible``), run
+   through :func:`~.overlap.pipelined_accumulate`: each microbatch's
+   buckets reduce while the next microbatch's backward runs;
+2. the per-variable tier: a variable whose compressor does not compose
+   with flat buckets (``PowerSGDCompressor``: its factors need the 2-D
+   gradient) reduces through its compressor's ``reduce`` with its state
+   under its name in the sync state (a ZeRO-1 request falls back to it,
+   with the JAX package's warning, and to the tree update);
+3. per bucket of :func:`plan_step_buckets`' plan: pack, then the
    reduction over the data group under the bucket's lowering
-   (``overlap.reduce_alg`` of the resolved :class:`~.overlap.
-   OverlapPlan`; no collective at data size 1):
+   (``overlap.reduce_alg``; no collective at data size 1):
 
-   * an uncompressed bucket through ``overlap.bucket_reduce_fn``: the
-     backend's ``all_reduce`` / ``reduce_scatter``, whatever its label;
+   * an uncompressed bucket through ``overlap.bucket_reduce_fn`` (the
+     backend's ``all_reduce`` / ``reduce_scatter``, whatever its label),
+     or, when every member's plan asks for ``hier`` and
+     ``overlap.hier_applies(d, num_slices)``, through the two-tier
+     ``overlap.hier_bucket_reduce_fn`` (its cross-slice leg on the int8
+     wire under ``AUTODIST_DCN_WIRE=int8``);
+   * a cast bucket (``HorovodCompressor``, ``HorovodCompressorEF``)
+     through its compressor's ``reduce`` / ``reduce_scatter``: bf16 on
+     the wire, the EF residual (``padded_total`` long) under the bucket
+     key;
    * a quantized bucket (``Int8Compressor``, ``Fp8Compressor``) through
      its compressor's ``bucket_reduce`` / ``bucket_reduce_scatter``: the
      quantized ring under explicit ``"ring"`` / ``"full"`` at 256 KiB and
@@ -28,30 +42,37 @@ runs, on each rank, in order:
      one-shot ``all_to_all``; the error-feedback residual (this rank's
      ``padded_total`` vector in the sync state, under the bucket key) is
      added before quantization and replaced by the new one;
-3. with ``capture(numerics=...)``, the guard: each bucket's finiteness
+4. with ``capture(numerics=...)``, the guard: each bucket's finiteness
    from its packed local vector and its squared-norm partial from the
    reduced value, both by K4
    (:func:`~autodist_tpu_torch.ops.fused_kernels.fused_detect_stats`),
-   and a quantized bucket's saturation count, rolled into one
-   :class:`~autodist_tpu_torch.numerics.GradHealth` by ONE all_reduce;
-   the clip multiplier is ``inv_scale x clip``;
-4. the skip gate: ``all_finite`` is read on the host once, before any
+   a cast wire's saturation flag and a quantized bucket's saturation
+   count, rolled into one :class:`~autodist_tpu_torch.numerics.
+   GradHealth` by ONE all_reduce; the clip multiplier is ``inv_scale x
+   clip``;
+5. the skip gate: ``all_finite`` is read on the host once, before any
    update (the step updates in place, so the JAX package's select between
    the updated and the old state would cost a full copy of both).  A
    non-finite step updates nothing: params, optimizer state, ZeRO-1
-   shards and error-feedback residuals stay bit-identical; the loss-scale
-   state still moves and ``skipped_steps`` counts the skip;
-5. the ZeRO-1 update of this rank's 1/N shard of each bucket: K5
+   shards and compressor states stay bit-identical; the loss-scale state
+   still moves and ``skipped_steps`` counts the skip;
+6. with bounded staleness (PS ``staleness``) each stale bucket's reduced
+   shard goes through its delay queue (:mod:`.stale_sync`), and the
+   shard that comes out is applied;
+7. the ZeRO-1 update of this rank's 1/N shard of each bucket (under
+   ``hier`` the global chunk ``overlap.hier_owner`` names): K5
    (:func:`~autodist_tpu_torch.ops.fused_kernels.fused_adam_update`) when
    the optimizer is ``fusable_adam``, its state Adam-shaped and the
    buckets f32; otherwise the optimizer's own update on the shards, with
    the drop reason in a warning.  This is decided from the configuration
    when the step is built;
-6. the tree update of every other variable (the all-reduce buckets'
-   members and anything unbucketed), then the ``all_gather`` of
-   each updated shard in ``overlap.gather_schedule`` order and the unpack
-   into the parameters;
-7. metrics: ``loss`` averaged over the data group and unscaled,
+8. the tree update of every other variable (the all-reduce buckets'
+   members, the per-variable tier and anything unbucketed), then the
+   ``all_gather`` of each updated shard in ``overlap.gather_schedule``
+   order (the two-tier gather for a ``hier`` bucket) and the unpack into
+   the parameters; a bucket of proxy variables keeps its true shard in
+   the sync state and gathers only on refresh steps;
+9. metrics: ``loss`` averaged over the data group and unscaled,
    ``grad_health``, ``aux`` averaged, the ``metrics_fn`` extras.
 
 Optimizer state: without ZeRO-1 buckets, the tree state of the plain step;
@@ -59,56 +80,120 @@ with them, ``{"vars": tree state of the other variables, "zero1": the
 optimizer's state over {bucket key: this rank's shard}}``, so each rank
 holds 1/N of every bucket's moments.
 
+Two rules of the JAX package's lowering are kept as they are: at data
+size > 1 a strategy that takes the JAX explicit path (a compressor, an
+AllReduce plan's ``reduce_scatter``, ``bucket_bytes``, an explicit
+schedule, ``hier``, fused groups) together with staleness or proxies
+runs fully synchronously, with the JAX warning
+(``graph_transformer.py:234-243``); and a stale or proxy step turns the
+numerics guard off, with the JAX warning (``:334-339``), so K4 does not
+launch there.
+
 Differences from the JAX package, none of which changes a result: the
 schedule IR (P8) is not built (each bucket's lowering label comes from
-the same rule, ``overlap.reduce_alg``); an uncompressed bucket labelled
-``"ring"`` or ``"one_shot"`` reduces, and a ZeRO-1 shard gathers, through
-the backend's collective, not as ring hops (the same sum up to its last
-bits); buckets reduce in ``assign_buckets``' order; the step runs at every data size, where the
-JAX package takes its GSPMD step at size 1; the quantized ring's hop
+the same rule, ``overlap.reduce_alg``, and the two-tier buckets are
+recorded in ``hier_keys`` beside ``bucket_algs``); an uncompressed bucket
+labelled ``"ring"`` or ``"one_shot"`` reduces, and a ZeRO-1 shard
+gathers, through the backend's collective, not as ring hops (the same
+sum up to its last bits); buckets reduce in ``assign_buckets``' order;
+the step runs at every data size, where the JAX package takes its GSPMD
+step at size 1 (there every compressor but the quantized wire returns
+the gradient as it is, and staleness applies); the quantized ring's hop
 kernels run whenever a bucket is quantized (the JAX package's are an
-opt-in; both put the same bits on the wire).  The accumulation pipeline,
-the hierarchical and per-variable tiers and the flight-recorder stamps
-are refused or absent until their ROADMAP items.  Under a PS plan the
-parameters stay replicated between steps; the JAX package holds
-PS-partitioned variables and a sparse embedding 1/N per rank
-(``param_spec = P("data")``), the same losses and parameters for more
-memory here.
+opt-in; both put the same bits on the wire).  The port's mesh has only
+the data axis (P10), so no variable keeps a per-shard collective
+(:func:`partition_drop_reason` gives the JAX rule); the flight-recorder
+stamps are P9's.  Under a PS plan the parameters stay replicated between
+steps; the JAX package holds PS-partitioned variables and a sparse
+embedding 1/N per rank (``param_spec = P("data")``), the same losses and
+parameters for more memory here.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
+from autodist_tpu_torch.const import ENV, MESH_AXIS_DATA
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization import overlap as ov_mod
 from autodist_tpu_torch.kernel.synchronization import quant_ring
+from autodist_tpu_torch.kernel.synchronization import stale_sync
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     DEFAULT_BUCKET_BYTES, MODE_ALL_REDUCE, MODE_REDUCE_SCATTER, Bucket,
     assign_buckets, bucket_drop_reason, pack_bucket, unpack_bucket)
-from autodist_tpu_torch.kernel.synchronization.compressor import \
-    get_compressor
+from autodist_tpu_torch.kernel.synchronization.compressor import (
+    Compressor, get_compressor)
+from autodist_tpu_torch.mesh import data_rows
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops import fused_kernels as fk
 
 
-def uses_explicit_path(compiled) -> bool:
+def _explicit_reason(plan) -> bool:
+    return (plan.compressor not in ("", "NoneCompressor")
+            or plan.sync_mode == MODE_REDUCE_SCATTER or bool(plan.bucket_bytes)
+            or plan.overlap in (ov_mod.OVERLAP_PIPELINE, ov_mod.OVERLAP_RING,
+                                ov_mod.OVERLAP_FULL)
+            or plan.hier)
+
+
+def uses_explicit_path(compiled, skip_ps: bool = False) -> bool:
     """Does the plan need the explicit bucketed step?  A compressor,
-    ZeRO-1 (``reduce_scatter``), a non-zero ``bucket_bytes`` and an
-    explicit ``pipeline``/``ring``/``full`` schedule do.  (The JAX
-    package's other reasons, fused groups and ``hier``, are refused before
-    this is asked.)"""
-    return any(plan.compressor not in ("", "NoneCompressor")
-               or plan.sync_mode == MODE_REDUCE_SCATTER or plan.bucket_bytes
-               or plan.overlap in (ov_mod.OVERLAP_PIPELINE,
-                                   ov_mod.OVERLAP_RING, ov_mod.OVERLAP_FULL)
-               for plan in compiled.var_plans.values())
+    ZeRO-1 (``reduce_scatter``), a non-zero ``bucket_bytes``, an explicit
+    ``pipeline``/``ring``/``full`` schedule, ``hier``, and fused groups
+    with a group to fuse do.  ``skip_ps``: would the JAX package lower
+    the plan on its explicit path (it runs PS plans on its GSPMD step, so
+    they give no reason)?"""
+    if any(_explicit_reason(plan) for plan in compiled.var_plans.values()
+           if not (skip_ps and plan.sync_kind == "PS")):
+        return True
+    return (any(plan.fused for plan in compiled.var_plans.values())
+            and bool(compiled.fusable_groups()))
+
+
+def _grad_shaped_state(comp: Compressor, shape: tuple, dtype) -> bool:
+    """Is ``comp``'s per-rank state for a value of ``shape`` None or one
+    tensor of exactly that shape and dtype?  Probed on a meta tensor."""
+    probe = comp.init_state(torch.zeros(shape, dtype=dtype, device="meta"))
+    if probe is None:
+        return True
+    leaves = [x for _, x in flatten(probe)] if isinstance(probe, dict) \
+        else [probe]
+    return (len(leaves) == 1 and tuple(leaves[0].shape) == tuple(shape)
+            and leaves[0].dtype == dtype)
+
+
+def partition_drop_reason(spec_axes, shape, dtype, axis_sizes, padded,
+                          comp: Compressor) -> Optional[str]:
+    """Why the explicit path drops a partitioned variable's sharding, or
+    None when the partitioning is kept (the JAX package's rule).
+    ``spec_axes`` is ``[(tensor_dim, mesh_axis_name), ...]`` of the
+    layout, ``axis_sizes`` maps axis name → size."""
+    spec_axes = list(spec_axes)
+    if not spec_axes:
+        return None
+    if padded:
+        return "pad-to-divisible sharding"
+    if len(spec_axes) != 1:
+        return f"multi-axis sharding {spec_axes}"
+    part_axis, axis_name = spec_axes[0]
+    if axis_name == MESH_AXIS_DATA:
+        return "sharded over the data (reduction) axis"
+    n = int(axis_sizes.get(axis_name, 1))
+    if n > 1 and shape[part_axis] % n:
+        return f"dim {shape[part_axis]} not divisible by {n}"
+    shard = list(shape)
+    if n > 1:
+        shard[part_axis] //= n
+    if not _grad_shaped_state(comp, tuple(shard), dtype):
+        return (f"{comp.name} state is not grad-shaped"
+                f" (e.g. PowerSGD low-rank factors)")
+    return None
 
 
 def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
@@ -146,31 +231,110 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     mesh = compiled.mesh
     d, group, rank = mesh.data_size, mesh.data_group, mesh.data_rank
     names = tuple(v.name for v in gi.info.trainable_variables)
+    plans = compiled.var_plans
     buckets = plan_step_buckets(gi, compiled, d)
+    bucketed = {n for b in buckets for n in b.names}
     rs_buckets = [b for b in buckets if b.mode == MODE_REDUCE_SCATTER]
     ar_buckets = [b for b in buckets if b.mode == MODE_ALL_REDUCE]
     rs_names = {n for b in rs_buckets for n in b.names}
     tree_names = tuple(n for n in names if n not in rs_names)
     optimizer, has_aux = gi.optimizer, gi.has_aux
 
+    # -- the per-variable tier: non-bucketable compressors ------------------
+    pervar = {n: get_compressor(plans[n].compressor) for n in names
+              if n in plans and n not in bucketed}
+    for n in pervar:
+        if plans[n].sync_mode == MODE_REDUCE_SCATTER:
+            warnings.warn(
+                f"explicit sync path: {n} requested reduce_scatter (ZeRO-1) "
+                "but cannot join a flat bucket (partitioned or "
+                "non-bucketable compressor); falling back to its "
+                "per-variable/per-shard collective with replicated "
+                "optimizer state")
+
+    # -- the two-tier hierarchy: every member opted in, and the axis factors -
+    num_slices = int(getattr(compiled, "num_slices", 1) or 1)
+    hier_keys = ()
+    within = across = None
+    if ov_mod.hier_applies(d, num_slices):
+        hier_keys = tuple(
+            b.key for b in buckets
+            if ov_mod.is_linear_compressor(b.compressor)
+            and all(plans[n].hier for n in b.names))
+        within_lists, across_lists = ov_mod.hier_groups(d, num_slices)
+        within = coll.subgroups(group, within_lists)
+        across = coll.subgroups(group, across_lists)
+    dcn_wire = quant_ring.wire_format_of(ENV.AUTODIST_DCN_WIRE.val)
+
+    def owner(b: Bucket) -> int:
+        """The chunk of ``b`` this rank's shard holds."""
+        return ov_mod.hier_owner(rank, d, num_slices) \
+            if b.key in hier_keys else rank
+
+    def chunk_of(b: Bucket, vec: torch.Tensor) -> torch.Tensor:
+        if d == 1:
+            return vec
+        sz = b.padded_total // d
+        i = owner(b)
+        return vec[i * sz:(i + 1) * sz]
+
+    def gather_full(b: Bucket, shard: torch.Tensor) -> torch.Tensor:
+        if d == 1:
+            return shard
+        if b.key in hier_keys:
+            return ov_mod.hier_gather_fn(within, across)(shard)
+        return coll.all_gather(shard, group)
+
     # -- the schedule: each bucket's lowering, resolved when it is built ------
     ov = ov_mod.resolve_overlap(
-        [plan.overlap for plan in compiled.var_plans.values()],
+        [plan.overlap for plan in plans.values()],
         accum_steps=gi.accum_steps, buckets=buckets, d=d,
         has_rs=bool(rs_buckets))
     for key, why in ov.drops:
         warnings.warn(f"explicit sync path: overlap scheduling skipped for "
                       f"bucket {key} ({why})")
-    algs = {b.key: ov_mod.reduce_alg(b, ov, d) for b in buckets}
+    algs = {b.key: ov_mod.reduce_alg(b, ov, d, hier=b.key in hier_keys)
+            for b in buckets}
     quant = {b.key: get_compressor(b.compressor) for b in buckets
              if quant_ring.is_quant_ring_compressor(b.compressor)}
-    reduce_fns = {b.key: ov_mod.bucket_reduce_fn(b, group, d)
-                  for b in buckets if b.key not in quant}
+    cast = {b.key: get_compressor(b.compressor) for b in buckets
+            if b.key not in quant
+            and not ov_mod.is_linear_compressor(b.compressor)}
+    reduce_fns = {b.key: (ov_mod.hier_bucket_reduce_fn(
+        b, within, across, rank, d, num_slices, dcn_wire=dcn_wire)
+        if b.key in hier_keys else ov_mod.bucket_reduce_fn(b, group, d))
+        for b in buckets if ov_mod.is_linear_compressor(b.compressor)}
+    pipe = [b for b in buckets if ov.pipeline
+            and ov_mod.pipeline_eligible(b, ov.mode, gi.accum_steps)]
+    issue_fns = {b.key: (ov_mod.bucket_reduce_issue_fn(b, group, d)
+                         if b.key not in hier_keys else
+                         (lambda v, f=reduce_fns[b.key]: coll.done(f(v))))
+                 for b in pipe if b.key in reduce_fns}
     gathers = ov_mod.gather_schedule(rs_buckets, ov.prefetch)
+
+    # -- bounded staleness and proxies ----------------------------------------
+    stale = None
+    if stale_sync.uses_stale_path(compiled):
+        if d > 1 and uses_explicit_path(compiled, skip_ps=True):
+            warnings.warn(
+                "strategy requests bounded staleness / proxy variables AND "
+                "gradient compression; the explicit compressor path runs "
+                "fully synchronous — staleness/proxy settings are ignored")
+        else:
+            stale = stale_sync.StaleSync(compiled, rs_buckets, chunk_of,
+                                         gather_full)
+    proxied = set(stale.proxied_keys) if stale is not None else set()
+    proxy_names = set(stale.proxied) if stale is not None else set()
 
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
     num_active = num_cfg is not None and num_cfg.guard
+    if num_active and stale is not None:
+        warnings.warn(
+            "numerics guard disabled: bounded-staleness/proxy sync state "
+            "owns the sync_state slot on this path; drop staleness or "
+            "route through the explicit bucketed path")
+        num_active = False
     num_ls = None
     if num_active:
         num_ls = ls_mod.resolve_loss_scale(
@@ -211,26 +375,93 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     init_numerics = gt.sync_state_init(num_active, num_ls, mesh.device)
 
-    def init_sync_state():
-        """The numerics state and each quantized bucket's zero residual
-        (this rank's, ``padded_total`` long)."""
-        state = init_numerics()
-        for b in buckets:
-            if b.key in quant:
-                state[b.key] = quant[b.key].init_state(torch.zeros(
-                    b.padded_total, dtype=getattr(torch, b.dtype),
-                    device=mesh.device))
-        return state
-
     # -- state ------------------------------------------------------------------
-    def shard_of(vec: torch.Tensor, b: Bucket) -> torch.Tensor:
-        if d == 1:
-            return vec
-        sz = b.padded_total // d
-        return vec[rank * sz:(rank + 1) * sz]
-
     def pack_params(leaves, b: Bucket) -> torch.Tensor:
         return pack_bucket(b, [leaves[n].detach() for n in b.names])
+
+    def param_shards(leaves) -> Dict[str, torch.Tensor]:
+        return {b.key: chunk_of(b, pack_params(leaves, b)).clone()
+                for b in rs_buckets}
+
+    def init_sync_state(params=None):
+        """The numerics state, each stateful bucket's (``padded_total``
+        long) and variable's compressor state, and the stale state (from
+        ``params``, the true values)."""
+        state = init_numerics()
+        for b in buckets:
+            comp = quant.get(b.key) or cast.get(b.key)
+            if comp is not None:
+                st = comp.init_state(torch.zeros(
+                    b.padded_total, dtype=getattr(torch, b.dtype),
+                    device=mesh.device))
+                if st is not None:
+                    state[b.key] = st
+        for v in gi.info.variables:
+            if v.name in pervar:
+                st = pervar[v.name].init_state(torch.zeros(
+                    v.shape, dtype=getattr(torch, v.dtype),
+                    device=mesh.device))
+                if st is not None:
+                    state[v.name] = st
+        if stale is not None:
+            if params is None:
+                raise ValueError("the stale state starts from the parameters")
+            state.update(stale.init_state(param_shards(dict(flatten(params)))))
+        return state
+
+    def true_leaves(params, sync_state) -> Dict[str, torch.Tensor]:
+        """The parameters' true values by name: proxied members come from
+        the true shards (gathered), the rest from ``params``."""
+        leaves = dict(flatten(params))
+        if proxied:
+            masters = sync_state[stale_sync.MASTER_KEY]
+            for b in rs_buckets:
+                if b.key in proxied:
+                    full = gather_full(b, masters[b.key])
+                    for n, arr in zip(b.names, unpack_bucket(b, full)):
+                        if n in proxy_names:
+                            leaves[n] = arr.detach().clone()
+        return leaves
+
+    def export_params(params, sync_state):
+        """The parameters' true values (a gather when proxies lag)."""
+        if not proxied:
+            return params
+        leaves = true_leaves(params, sync_state)
+        return unflatten([(n, leaves[n]) for n, _ in flatten(params)])
+
+    def export_sync_state(params, sync_state):
+        """The LOGICAL sync state: the numerics state as it is, every
+        compressor state stacked ``[data, ...]`` over the ranks, the stale
+        state per variable (``stale_sync.StaleSync.export_state``)."""
+        out: Dict[str, Any] = {}
+        for key, value in sync_state.items():
+            if key == NUMERICS_KEY:
+                out[key] = value
+            elif key not in stale_sync.STALE_KEYS + (stale_sync.MASTER_KEY,):
+                out[key] = tree_map(lambda x: (coll.all_gather(x, group)
+                                               if d > 1 else x)
+                                    .reshape((d,) + tuple(x.shape)), value)
+        if stale is not None:
+            out.update(stale.export_state(sync_state, dict(flatten(params))))
+        return out
+
+    def import_sync_state(sync_state, params):
+        """This rank's sync state from ``sync_state`` (the step's own
+        entries as they are, the stale state logical or the step's own)
+        and ``params`` (the true values); proxied variables' compute copy
+        takes the mirror (``cache``) in place."""
+        out = {k: v for k, v in sync_state.items()
+               if k not in stale_sync.STALE_KEYS + (stale_sync.MASTER_KEY,)}
+        if stale is None:
+            return out
+        leaves = dict(flatten(params))
+        out.update(stale.import_state(sync_state, param_shards(leaves)))
+        with torch.no_grad():
+            for n, mirror in sync_state.get("cache", {}).items():
+                if n in leaves:
+                    leaves[n].copy_(mirror)
+        return out
 
     def init_fn(params):
         leaves = dict(flatten(params))
@@ -240,58 +471,107 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             tree["count"] = tree["count"].to(mesh.device)
         if not rs_buckets:
             return tree
-        shards = {b.key: shard_of(pack_params(leaves, b), b).clone()
-                  for b in rs_buckets}
-        return {"vars": tree, "zero1": optimizer.init(shards)}
+        return {"vars": tree, "zero1": optimizer.init(param_shards(leaves))}
 
     by_key = {b.key: b for b in rs_buckets}
 
     def export_opt_state(opt_state):
-        """The LOGICAL state: ZeRO-1 shards all-gathered to full bucket
-        vectors (``padded_total`` long), copies on the device."""
+        """The LOGICAL state: ZeRO-1 shards gathered to full bucket vectors
+        (``padded_total`` long, in chunk order), copies on the device."""
         if not rs_buckets:
             return gt.copy_tree(opt_state)
-
-        def full(shard):
-            if d == 1:
-                return shard.detach().clone()
-            return coll.all_gather(shard, group)
         zero1 = {k: v.detach().clone() if isinstance(v, torch.Tensor)
-                 else {key: full(s) for key, s in v.items()}
+                 else {key: gather_full(by_key[key], s).detach().clone()
+                       for key, s in v.items()}
                  for k, v in opt_state["zero1"].items()}
         return {"vars": gt.copy_tree(opt_state["vars"]), "zero1": zero1}
 
     # -- the step ---------------------------------------------------------------
     warned: List[int] = []
 
+    def gradients(params, sync_state, batch):
+        """``(loss, aux, local grads, pipelined buckets' reduced values,
+        their new residuals, their saturation counts)``."""
+        scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
+            else None
+        if not pipe:
+            vg = vg_unscaled if scale is None \
+                else gt.scaled_value_and_grad(gi, names, scale)
+            loss, aux, grads = gt.local_value_and_grad(
+                vg, params, batch, d, group, rank, warned)
+            return loss, aux, grads, {}, {}, {}
+        loss_fn = gt.scaled_loss(gi, scale)
+        single = gt.value_and_grad(loss_fn, has_aux, names)
+        local = gt.local_rows(batch, d, rank, warned)
+        slices = gt.microbatch_slices(gt._leading_dim(local),
+                                      gi.accum_steps)
+        qfns = {k: (lambda v, s, b=b: quant_reduce(b, v, s))
+                for b in pipe for k in [b.key] if k in quant}
+
+        def run():
+            return ov_mod.pipelined_accumulate(
+                lambda mb: single(params, mb), slices,
+                lambda off, rows: gt._rows(local, off, rows), has_aux, pipe,
+                issue_fns, quant_fns=qfns,
+                quant_states={k: sync_state[k] for k in qfns})
+        if local is batch:
+            return run()
+        with data_rows(group, d):
+            return run()
+
     def step(params, opt_state, sync_state, batch):
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
             else None
-        vg = vg_unscaled if scale is None \
-            else gt.scaled_value_and_grad(gi, names, scale)
-        loss, aux, grads = gt.local_value_and_grad(vg, params, batch, d,
-                                                   group, rank, warned)
+        loss, aux, grads, pipe_red, pipe_state, pipe_sat = gradients(
+            params, sync_state, batch)
 
         health = guard_mod.HealthAccumulator(d, fused=True) \
             if num_active else None
         reduced: Dict[str, torch.Tensor] = {}
-        residuals: Dict[str, torch.Tensor] = {}
+        new_state: Dict[str, Any] = dict(pipe_state)
+        for n, comp in pervar.items():
+            g = grads[n]
+            grads[n], st = comp.reduce(g, sync_state.get(n), group, d)
+            if n in sync_state:
+                new_state[n] = st
+            if health is not None:
+                health.add(n, grads[n], finite_src=g,
+                           saturation=guard_mod.wire_saturation(
+                               g, ls_mod.wire_dtype_of(comp.name)))
         for b in buckets:
-            vec = pack_bucket(b, [grads.pop(n) for n in b.names])
             rs = b.mode == MODE_REDUCE_SCATTER
-            qsat = None
+            if b.key in pipe_red:
+                red = pipe_red[b.key]
+                if health is not None:
+                    # a NaN survives the per-microbatch reduction: the
+                    # accumulated reduced value is the finiteness source
+                    health.add(b.key, red, shard_axes_size=d if rs else 1,
+                               sat_count=pipe_sat.get(b.key))
+                reduced[b.key] = red
+                continue
+            vec = pack_bucket(b, [grads.pop(n) for n in b.names])
+            qsat = sat = None
             if b.key in quant:
-                red, residuals[b.key], qsat = quant_reduce(
+                red, new_state[b.key], qsat = quant_reduce(
                     b, vec, sync_state[b.key])
+            elif b.key in cast:
+                comp = cast[b.key]
+                fn = comp.reduce_scatter if rs else comp.reduce
+                red, st = fn(vec, sync_state.get(b.key), group, d)
+                if b.key in sync_state:
+                    new_state[b.key] = st
+                if health is not None:
+                    sat = guard_mod.wire_saturation(
+                        vec, ls_mod.wire_dtype_of(b.compressor))
             else:
                 red = reduce_fns[b.key](vec)
             if health is not None:
                 # finiteness from the packed local vector, the norm
                 # partial from the reduced value (a ZeRO-1 shard's squared
-                # norm sums over the ranks to the bucket's), and the
-                # saturation this rank's quantize events counted
+                # norm sums over the ranks to the bucket's), a cast wire's
+                # saturation flag and the quantize events' count
                 health.add(b.key, red, shard_axes_size=d if rs else 1,
-                           finite_src=vec, sat_count=qsat)
+                           finite_src=vec, saturation=sat, sat_count=qsat)
             reduced[b.key] = red
         mean_loss = _mean_over(loss, d, group)
 
@@ -307,11 +587,18 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 for b in buckets:
                     if b.mode == MODE_ALL_REDUCE or not update_fused:
                         reduced[b.key].mul_(mult)
+                for n in pervar:
+                    grads[n].mul_(mult)
                 fused_mult = mult if update_fused else None
+            if stale is not None:
+                for b in rs_buckets:
+                    reduced[b.key] = stale.exchange(b.key, reduced[b.key],
+                                                    sync_state)
             for b in ar_buckets:
                 grads.update(zip(b.names, unpack_bucket(b, reduced[b.key])))
-            _update(params, opt_state, grads, reduced, fused_mult)
-            sync_state.update(residuals)   # a skipped step keeps the old
+            _update(params, opt_state, sync_state, grads, reduced,
+                    fused_mult)
+            sync_state.update(new_state)   # a skipped step keeps the old
 
         if num_active:
             metrics["grad_health"] = guard_mod.close_step(
@@ -328,13 +615,15 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         return metrics
 
     @torch.no_grad()
-    def _update(params, opt_state, grads, reduced, fused_mult):
+    def _update(params, opt_state, sync_state, grads, reduced, fused_mult):
         """The ZeRO-1 shard update, the tree update, then the gather."""
         if not rs_buckets:
             optimizer.step_(params, grads, opt_state)
             return
         leaves = dict(flatten(params))
-        p_shards = {b.key: shard_of(pack_params(leaves, b), b)
+        masters = sync_state.get(stale_sync.MASTER_KEY, {})
+        p_shards = {b.key: masters[b.key] if b.key in proxied
+                    else chunk_of(b, pack_params(leaves, b))
                     for b in rs_buckets}
         z = opt_state["zero1"]
         if update_fused:
@@ -349,16 +638,31 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             optimizer.step_(p_shards, {b.key: reduced[b.key]
                                        for b in rs_buckets}, z)
         optimizer.step_(params, grads, opt_state["vars"])
+        refresh = stale is not None and stale.refresh_due(sync_state)
+        for k in proxied:
+            masters[k] = p_shards[k]
+        if stale is not None:
+            stale.advance(sync_state)
         for b in gathers:
-            shard = p_shards[b.key]
-            full = shard if d == 1 else coll.all_gather(shard, group)
+            # a proxied bucket gathers on refresh steps, or for its
+            # members that are not proxied
+            keep = proxy_names if b.key in proxied and not refresh else ()
+            if keep and set(b.names) <= keep:
+                continue
+            full = gather_full(b, p_shards[b.key])
             for n, arr in zip(b.names, unpack_bucket(b, full)):
-                leaves[n].copy_(arr)
+                if n not in keep:
+                    leaves[n].copy_(arr)
 
     return gt.DistributedStep(
         step_fn=step, init_fn=init_fn,
         eval_fn=gt.make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
         mesh=mesh, trainable=names, buckets=tuple(buckets),
         zero1_buckets=tuple(rs_buckets), fused_kernels=active,
-        bucket_algs=algs, init_sync_state=init_sync_state,
-        export_opt_state=export_opt_state)
+        bucket_algs=algs, hier_keys=hier_keys,
+        pipelined_keys=tuple(b.key for b in pipe),
+        shard_owner={b.key: owner(b) for b in rs_buckets},
+        init_sync_state=init_sync_state,
+        export_opt_state=export_opt_state, export_params=export_params,
+        export_sync_state=export_sync_state,
+        import_sync_state=import_sync_state)

@@ -1,7 +1,6 @@
 """Bucket-collective schedules of the explicit bucketed step.
 
-Port of the JAX package's ``kernel/synchronization/overlap.py:72-436``
-for what the port runs at ``accum_steps == 1``:
+Port of the JAX package's ``kernel/synchronization/overlap.py``:
 
 * the ``overlap=`` vocabulary and :func:`resolve_overlap`, which turns
   the plans' values into one :class:`OverlapPlan` (an explicit ``"none"``
@@ -20,24 +19,36 @@ for what the port runs at ``accum_steps == 1``:
   is phase-serial, so that decomposition would only add calls (ROADMAP:
   the linear ring lowering waits for a measured NCCL run);
 * the ZeRO-1 parameter gathers in :func:`gather_schedule` order (reverse
-  bucket order under prefetch), each one backend ``all_gather``.
-
-The accumulation pipeline (``"pipeline"``, and ``"full"`` with
-``accum_steps > 1``) and the hierarchical tier are not ported; the
-lowering refuses them (``kernel/graph_transformer.py``).
+  bucket order under prefetch), each one backend ``all_gather``;
+* the two-tier (``hier``) collectives (``:438-556``): a data axis of ``d``
+  ranks in ``s`` slices reduces a bucket within each slice
+  (reduce-scatter), across the slices (one rank per slice: the slower
+  network, optionally on the int8 wire, ``AUTODIST_DCN_WIRE=int8``) and
+  gathers back within the slice, gated by :func:`hier_applies`.  Under
+  ZeRO-1 rank ``g·d_in + i`` then owns global chunk ``i·s + g``
+  (:func:`hier_owner`), which the shard update and
+  :func:`hier_gather_fn` follow;
+* the accumulation pipeline (``:576-760``, :func:`pipelined_accumulate`):
+  iteration *k* issues microbatch *k−1*'s bucket collectives, then runs
+  microbatch *k*'s backward, so the collective is in flight during the
+  backward (on NCCL; the gloo host-staged wire is synchronous).
+  A quantized bucket under an explicit ``"pipeline"``/``"full"`` issues
+  one quantized collective per slot, its error feedback carried across
+  the slots and the last slot's residual kept into the next step.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization import quant_ring
 from autodist_tpu_torch.kernel.synchronization.bucketing import (  # noqa: F401
     MODE_REDUCE_SCATTER, OVERLAP_AUTO, OVERLAP_FULL, OVERLAP_MODES,
-    OVERLAP_NONE, OVERLAP_PIPELINE, OVERLAP_RING, Bucket)
+    OVERLAP_NONE, OVERLAP_PIPELINE, OVERLAP_RING, Bucket, pack_bucket)
 
 #: buckets at or above this byte size take the ring lowering
 RING_THRESHOLD_BYTES = 256 << 10
@@ -102,14 +113,24 @@ def overlap_drop_reason(overlap: str, *, accum_steps: int, compressor: str,
     return None
 
 
-def pipeline_eligible(bucket: Bucket, mode: str, accum_steps: int) -> bool:
-    """Does this bucket join the accumulation pipeline under ``mode``?"""
-    if accum_steps <= 1:
+def pipeline_applies(overlap: str, *, accum_steps: int, compressor: str,
+                     bucketable: bool = True, explicit_path: bool = True,
+                     dtype: str = "float32") -> bool:
+    """Does accumulation pipelining take effect for this variable?"""
+    if overlap not in (OVERLAP_AUTO, OVERLAP_PIPELINE, OVERLAP_FULL):
+        return False
+    if accum_steps <= 1 or not explicit_path or not bucketable:
         return False
     return overlap_drop_reason(
-        mode, accum_steps=accum_steps, compressor=bucket.compressor,
-        bucketable=True, explicit_path=True, dtype=bucket.dtype) is None \
-        and mode in (OVERLAP_AUTO, OVERLAP_PIPELINE, OVERLAP_FULL)
+        overlap, accum_steps=accum_steps, compressor=compressor,
+        bucketable=bucketable, explicit_path=explicit_path,
+        dtype=dtype) is None
+
+
+def pipeline_eligible(bucket: Bucket, mode: str, accum_steps: int) -> bool:
+    """Does this bucket join the accumulation pipeline under ``mode``?"""
+    return pipeline_applies(mode, accum_steps=accum_steps,
+                            compressor=bucket.compressor, dtype=bucket.dtype)
 
 
 @dataclass(frozen=True)
@@ -167,13 +188,16 @@ def resolve_overlap(modes: Sequence[str], *, accum_steps: int,
                        drops=tuple((k, w) for k, w in drops if w))
 
 
-def reduce_alg(bucket: Bucket, plan: OverlapPlan, d: int) -> str:
+def reduce_alg(bucket: Bucket, plan: OverlapPlan, d: int,
+               hier: bool = False) -> str:
     """The lowering of ``bucket``'s reduction: the schedule IR's rule
-    (``schedule_ir.py:1199-1210``) without its hierarchical and per-variable
-    branches."""
+    (``schedule_ir.py:1192-1210``) without its per-variable branch; a
+    two-tier bucket (``hier``) is ``"one_shot"``."""
     rs = bucket.mode == MODE_REDUCE_SCATTER
     linear = is_linear_compressor(bucket.compressor)
     qfmt = quant_ring.wire_format_of(bucket.compressor or "")
+    if hier:
+        return ALG_ONE_SHOT
     if linear and plan.ring and d > 1 \
             and bucket.nbytes >= plan.ring_threshold:
         return ALG_RING
@@ -199,8 +223,188 @@ def bucket_reduce_fn(bucket: Bucket, group, n: int) -> Callable:
     shard of mean(vec)`` (ZeRO-1 bucket) for an UNCOMPRESSED bucket: the
     backend's collective, whatever :func:`reduce_alg` labels it (a linear
     sum's order changes only its last bits)."""
+    issue = bucket_reduce_issue_fn(bucket, group, n)
+    return lambda v: issue(v).wait()
+
+
+def bucket_reduce_issue_fn(bucket: Bucket, group, n: int) -> Callable:
+    """:func:`bucket_reduce_fn`, issued: ``vec -> Pending`` whose
+    ``wait()`` gives the mean (or this rank's shard of it)."""
     if n <= 1:
-        return lambda v: v
-    if bucket.mode == MODE_REDUCE_SCATTER:
-        return lambda v: coll.reduce_scatter(v, group) / n
-    return lambda v: coll.all_reduce(v, group) / n
+        return coll.done
+    collective = coll.reduce_scatter_async \
+        if bucket.mode == MODE_REDUCE_SCATTER else coll.all_reduce_async
+    return lambda v: collective(v, group).then(lambda o: o / n)
+
+
+# -- hierarchical two-tier collectives ---------------------------------------
+
+def hier_applies(d: int, num_slices: int) -> bool:
+    """Does the two-tier hierarchy factor this data axis?  ``num_slices``
+    > 1 slices that divide the axis evenly, with at least 2 ranks per
+    slice (the JAX package's ``schedule_ir.hier_applies``)."""
+    d = max(int(d), 1)
+    s = max(int(num_slices), 1)
+    return s > 1 and d % s == 0 and d // s > 1
+
+
+def hier_groups(d: int, s: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """``(within, across)`` rank lists for a ``d``-rank data axis in ``s``
+    slices of ``d // s`` ranks, slice-major (rank ``g * d_in + i`` is
+    position ``i`` of slice ``g``): ``within`` groups share a slice,
+    ``across`` groups hold the same position in every slice."""
+    d_in = d // s
+    within = [[g * d_in + i for i in range(d_in)] for g in range(s)]
+    across = [[g * d_in + i for g in range(s)] for i in range(d_in)]
+    return within, across
+
+
+def hier_owner(rank: int, d: int, s: int) -> int:
+    """The global chunk a two-tier reduce-scatter leaves on ``rank``:
+    ``i·s + g`` for rank ``g·d_in + i``."""
+    d_in = d // s
+    return (rank % d_in) * s + rank // d_in
+
+
+def _dcn_quantized_sum(sh: torch.Tensor, across, s: int, fmt):
+    """The int8/fp8 cross-slice leg: quantize the local partial on the
+    per-chunk scale grid (``quant_ring.quantize_blocks``, stateless),
+    all-gather payload and scales over the ``across`` group, dequantize
+    every slice's contribution and sum them in slice order."""
+    q, scales, _sat = quant_ring.quantize_blocks(sh, fmt)
+    qs = coll.all_gather(q, across).reshape(s, -1)
+    ss = coll.all_gather(scales, across).reshape(s, -1)
+    out = torch.zeros_like(sh)
+    for j in range(s):
+        out = out + quant_ring.dequantize_blocks(qs[j], ss[j])
+    return out
+
+
+def hier_bucket_reduce_fn(bucket: Bucket, within, across, rank: int, d: int,
+                          s: int, *, dcn_wire=None) -> Callable:
+    """Two-level mean reduction of one bucket: reduce-scatter within the
+    slice, one leg across the slices, then (all-reduce buckets) the
+    gather within the slice.  ``vec -> mean(vec)`` for all-reduce buckets,
+    ``vec -> this rank's shard of mean(vec)`` (global chunk
+    :func:`hier_owner`) for ZeRO-1 ones.  ``dcn_wire`` (a
+    ``quant_ring.WireFormat`` or None) quantizes the cross-slice leg
+    only."""
+    slice_idx = rank // (d // s)
+
+    def reduce_ar(v):
+        sh = coll.reduce_scatter(v, within)
+        if dcn_wire is not None:
+            sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
+        else:
+            sh = coll.all_reduce(sh, across)
+        return coll.all_gather(sh / d, within)
+
+    def reduce_rs(v):
+        sh = coll.reduce_scatter(v, within)
+        if dcn_wire is not None:
+            sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
+            sh = sh.reshape(s, -1)[slice_idx]
+        else:
+            sh = coll.reduce_scatter(sh, across)
+        return sh / d
+
+    return reduce_rs if bucket.mode == MODE_REDUCE_SCATTER else reduce_ar
+
+
+def hier_gather_fn(within, across) -> Callable:
+    """ZeRO-1 parameter gather of a two-tier bucket: over ``across``
+    first (chunks ``i·s .. i·s+s-1`` in order), then over ``within``,
+    which undoes the ownership permutation."""
+    def gather(shard):
+        return coll.all_gather(coll.all_gather(shard, across), within)
+    return gather
+
+
+# -- the accumulation pipeline -----------------------------------------------
+
+def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
+                         rows_of: Callable, has_aux: bool,
+                         pipe_buckets: Sequence[Bucket],
+                         issue_fns: Dict[str, Callable],
+                         quant_fns: Optional[Dict[str, Callable]] = None,
+                         quant_states: Optional[Dict] = None):
+    """Software-pipelined gradient accumulation over the microbatches
+    ``slices`` (``(offset, rows)``, ``rows_of(off, rows)`` gives one):
+    iteration *k* issues the bucket collectives of microbatch *k−1*'s
+    gradients, then runs microbatch *k*'s backward, then waits for the
+    collectives.  ``vg(microbatch) -> (loss, aux, {name: grad})``.
+
+    Returns ``(loss, aux, grads, reduced, quant_state, quant_sat)``:
+    ``loss`` the microbatches' mean loss, ``aux`` the auxes stacked on a
+    leading axis (or None), ``grads`` the locally averaged gradients of
+    every variable outside ``pipe_buckets`` (the other tiers' single
+    end-of-step collective), ``reduced`` ``{bucket key: the reduced mean
+    vector or this rank's shard}`` of every pipelined bucket,
+    ``quant_state`` the last slot's residual per quantized bucket and
+    ``quant_sat`` its saturation count summed over the slots.
+
+    The sums follow ``graph_transformer.accumulate``: even microbatches
+    add plain and divide once at the end, an uneven tail weights each by
+    its share of the rows; the accumulators are f32.  A linear
+    ``issue_fns`` leg thus gives the sequential schedule's value up to the
+    order of the sums (bit for bit at data size 1).  ``quant_fns[key](vec,
+    state) -> (reduced, new_state, sat)`` runs a quantized bucket's
+    collective, one per slot."""
+    quant_fns = quant_fns or {}
+    qstate = dict(quant_states or {})
+    length = sum(rows for _, rows in slices)
+    accum = len(slices)
+    even = len({rows for _, rows in slices}) == 1
+    weights = [1.0 if even else rows / length for _, rows in slices]
+    piped = {n for b in pipe_buckets for n in b.names}
+    qsat = {k: None for k in quant_fns}
+    red_acc: Dict[str, torch.Tensor] = {}
+    acc: Dict = {}
+    auxes = []
+
+    def add(store, key, value, w):
+        value = w * value.float()
+        store[key] = value if key not in store else store[key] + value
+
+    def issue(packed):
+        out = {}
+        for key, vec in packed.items():
+            if key in quant_fns:
+                red, qstate[key], cnt = quant_fns[key](vec, qstate.get(key))
+                qsat[key] = cnt if qsat[key] is None else qsat[key] + cnt
+                out[key] = coll.done(red)
+            else:
+                out[key] = issue_fns[key](vec)
+        return out
+
+    def collect(pending, w):
+        for key, p in pending.items():
+            add(red_acc, key, p.wait(), w)
+
+    prev, dtypes = None, {}
+    for k, (off, rows) in enumerate(slices):
+        pending = issue(prev) if prev is not None else {}
+        loss, aux, grads = vg(rows_of(off, rows))
+        collect(pending, weights[k - 1] if k else 1.0)
+        auxes.append(aux)
+        add(acc, "~loss", loss, weights[k])
+        prev = {}
+        for b in pipe_buckets:
+            prev[b.key] = pack_bucket(b, [grads.pop(n) for n in b.names])
+        for n, g in grads.items():
+            dtypes[n] = g.dtype
+            add(acc, n, g, weights[k])
+        del grads
+    collect(issue(prev), weights[-1])
+    div = accum if even else 1
+    loss = acc.pop("~loss") / div
+    grads = {n: (a / div).to(dtypes[n]) for n, a in acc.items()
+             if n not in piped}
+    reduced = {b.key: (red_acc[b.key] / div).to(getattr(torch, b.dtype))
+               for b in pipe_buckets}
+    aux = None
+    if has_aux:
+        from autodist_tpu_torch.graph_item import tree_map
+        aux = tree_map(lambda *xs: torch.stack(xs), auxes[0], *auxes[1:])
+    sat = {k: v for k, v in qsat.items() if v is not None}
+    return loss, aux, grads, reduced, qstate, sat

@@ -5,8 +5,11 @@ reads: the same yaml/dict schema (``nodes`` with ``address``, ``chips``
 per node — the reference's ``gpus`` list is accepted too — ``cpus`` and
 ``chief``, and an optional ``mesh`` hint), with GPUs as the chips.  With
 neither a file nor a dict, one node is derived from the visible CUDA
-devices (a CPU-only node when there are none).  Keys of later slices
-(``ssh``, ``network_bandwidth``, ``num_slices``, ...) are ignored.
+devices (a CPU-only node when there are none).  ``num_slices`` (the
+two-tier topology of ``hier`` sync: slices of equal size, joined by the
+slower network) is read and must tile the devices
+(``resource_spec.py:122-136, 225-229, 270``).  Keys of later slices
+(``ssh``, ``network_bandwidth``, ...) are ignored.
 
 Example yaml::
 
@@ -14,6 +17,7 @@ Example yaml::
       - address: 10.0.0.1
         chips: 8
         chief: true
+    num_slices: 2     # optional: two slices of 4 chips
     mesh:
       data: 8
 """
@@ -55,6 +59,23 @@ class ResourceSpecError(ValueError):
     pass
 
 
+#: the slice/device divisibility rule's name, quoted by the fail-fast
+RULE_SLICE_MISMATCH = "legality/slice-mismatch"
+
+
+def slice_mismatch_reason(num_devices: int, num_slices: int) -> Optional[str]:
+    """Why ``num_slices`` cannot tile ``num_devices``, else None: every
+    slice must hold the same whole number of chips."""
+    if num_slices <= 1:
+        return None
+    if num_devices <= 0:
+        return None  # device count unknown at this point; checked elsewhere
+    if num_devices % num_slices != 0:
+        return (f"{RULE_SLICE_MISMATCH}: num_slices={num_slices} does not "
+                f"divide device count {num_devices}")
+    return None
+
+
 class ResourceSpec:
     """Parsed cluster description from a yaml path, a dict, or the local
     CUDA devices."""
@@ -63,6 +84,8 @@ class ResourceSpec:
                  resource_info: Optional[dict] = None):
         self._nodes: List[NodeSpec] = []
         self.mesh_hint: Dict[str, int] = {}
+        #: slices of the two-tier topology (1: one flat slice)
+        self.num_slices: int = 1
         if resource_info is None and resource_file is not None:
             if not os.path.exists(resource_file):
                 raise ResourceSpecError(
@@ -93,6 +116,11 @@ class ResourceSpec:
                 address=str(raw["address"]), chips=chips,
                 cpus=[int(c) for c in raw.get("cpus", [])],
                 chief=bool(raw.get("chief", False))))
+        if info.get("num_slices") is not None:
+            self.num_slices = int(info["num_slices"])
+            if self.num_slices < 1:
+                raise ResourceSpecError(
+                    f"num_slices must be >= 1, got {self.num_slices}")
         self.mesh_hint = {str(k): int(v)
                           for k, v in (info.get("mesh") or {}).items()}
         if len(self._nodes) == 1:
@@ -117,6 +145,9 @@ class ResourceSpec:
             seen.add(n.address)
             if n.chips == 0 and not n.cpus:
                 n.cpus = [0]
+        reason = slice_mismatch_reason(self.num_chips, self.num_slices)
+        if reason is not None:
+            raise ResourceSpecError(reason)
 
     @property
     def nodes(self) -> List[NodeSpec]:

@@ -122,7 +122,7 @@ class DistributedSession:
         self._step = dist_step
         self._params = dist_step.place_params(graph_item.params)
         self._opt_state = dist_step.init_fn(self._params)
-        self._sync_state = dist_step.init_sync_state()
+        self._sync_state = dist_step.init_sync_state(self._params)
         self._step_count = 0
         self._meter = ThroughputMeter()
         self._last_batch = None     # for flops_per_step
@@ -131,8 +131,11 @@ class DistributedSession:
     # -- state -------------------------------------------------------------
     @property
     def params(self):
-        """Current parameters as nested dicts of host numpy arrays."""
-        return _to_host(self._params)
+        """Current parameters as nested dicts of host numpy arrays (the
+        true values: with proxy variables that lag, the ZeRO-1 shards are
+        gathered, so every rank reads them)."""
+        return _to_host(self._step.export_params(self._params,
+                                                 self._sync_state))
 
     @property
     def device_params(self):
@@ -156,12 +159,23 @@ class DistributedSession:
     @property
     def sync_state(self):
         """The step's sync state: ``{NUMERICS_KEY: loss scale and health
-        counters}`` with the guard on, and under each quantized bucket's
-        key this rank's error-feedback residual (``padded_total`` long);
-        ``{}`` without either.  :meth:`import_state` takes it back as it
-        is (``convert.sync_state_from_jax`` gives one rank's from a JAX
+        counters}`` with the guard on; under each stateful bucket's key
+        this rank's error-feedback residual (``padded_total`` long); under
+        a per-variable compressor's variable its state (PowerSGD's ``{"q",
+        "residual"}``); with bounded staleness or lagging proxies
+        ``queue`` (this rank's shard of each stale bucket's delayed
+        gradients), ``step`` and ``master`` (the proxied buckets' true
+        shards); ``{}`` without any.  :meth:`import_state` takes it back
+        (``convert.sync_state_from_jax`` gives one rank's from a JAX
         session's)."""
         return self._sync_state
+
+    def export_sync_state(self):
+        """The LOGICAL sync state (every rank calls it: a collective):
+        compressor states stacked ``[data, ...]`` over the ranks, the stale
+        state per variable (``{"queue": {name: [s, *shape]}, "cache",
+        "step"}``, the JAX package's layout)."""
+        return self._step.export_sync_state(self._params, self._sync_state)
 
     @property
     def zero1_buckets(self):
@@ -173,7 +187,8 @@ class DistributedSession:
         """(params, opt_state) as detached copies on the device, in the
         LOGICAL layout: under ZeRO-1 every rank gets each bucket's full
         state vector (``padded_total`` long), gathered over the ranks."""
-        return (copy_tree(self._params),
+        return (copy_tree(self._step.export_params(self._params,
+                                                   self._sync_state)),
                 self._step.export_opt_state(self._opt_state))
 
     def import_state(self, params, opt_state, step: int = 0,
@@ -182,13 +197,20 @@ class DistributedSession:
         layout: ``opt_state`` as :attr:`opt_state` holds it (under ZeRO-1,
         this rank's shards: :func:`~autodist_tpu_torch.convert.
         opt_state_from_jax` slices a JAX state to them); ``sync_state`` as
-        :attr:`sync_state` holds it, residuals included (None: a fresh
-        one, zero residuals)."""
+        :attr:`sync_state` holds it, residuals included, its stale state
+        as the step holds it or logical (:meth:`export_sync_state`'s; None:
+        a fresh one, zero residuals).  ``params`` are the true values; a
+        proxy's compute copy takes the stale state's ``cache``."""
         self._params = self._step.place_params(params)
         self._opt_state = _place(opt_state, self._step.device)
-        self._sync_state = (self._step.init_sync_state() if sync_state is None
-                            else _place(sync_state, self._step.device))
+        self._sync_state = self._adopt(sync_state)
         self._step_count = step
+
+    def _adopt(self, sync_state):
+        if sync_state is None:
+            return self._step.init_sync_state(self._params)
+        return self._step.import_sync_state(
+            _place(sync_state, self._step.device), self._params)
 
     def set_params(self, params) -> None:
         """Place new parameter values (tensors or numpy arrays, e.g. from a
@@ -196,7 +218,7 @@ class DistributedSession:
         from them."""
         self._params = self._step.place_params(params)
         self._opt_state = self._step.init_fn(self._params)
-        self._sync_state = self._step.init_sync_state()
+        self._sync_state = self._step.init_sync_state(self._params)
 
     def load_state(self, params, opt_state, step: int = 0,
                    sync_state=None) -> None:
@@ -210,8 +232,9 @@ class DistributedSession:
             leaf.requires_grad_(name in self._step.trainable)
         self._params = params
         self._opt_state = opt_state
-        self._sync_state = (self._step.init_sync_state() if sync_state is None
-                            else sync_state)
+        self._sync_state = (
+            self._step.init_sync_state(params) if sync_state is None
+            else self._step.import_sync_state(sync_state, params))
         self._step_count = step
 
     def restore_targets(self):

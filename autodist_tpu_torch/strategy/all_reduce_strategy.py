@@ -9,11 +9,13 @@ select the explicit bucketed step
 (:mod:`autodist_tpu_torch.kernel.synchronization.explicit_sync`):
 ``compressor="Int8Compressor"`` or ``"Fp8Compressor"`` with
 ``overlap="ring"`` reduces every bucket of 256 KiB or more over the
-quantized ring.  The cast and low-rank compressors, ``fused_groups``, the
-accumulation pipeline (``overlap="pipeline"``, ``"full"`` with
-``accum_steps > 1``) and ``hier`` are recorded in the plan and refused
-when it is lowered (:mod:`autodist_tpu_torch.kernel.graph_transformer`),
-until their ROADMAP items port them.
+quantized ring; the cast compressors (``"HorovodCompressor"``,
+``"HorovodCompressorEF"``) put bf16 on the wire and ``"PowerSGDCompressor"``
+a rank-1 factorization of each 2-D gradient; ``fused_groups=True`` fuses
+each strategy group into one collective; ``overlap="pipeline"`` (and
+``"full"``) with ``accum_steps > 1`` reduces each microbatch's buckets
+while the next one's backward runs; ``hier=True`` with a resource spec's
+``num_slices`` reduces within and across slices.
 """
 from __future__ import annotations
 

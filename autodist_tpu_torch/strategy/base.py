@@ -20,9 +20,9 @@ from autodist_tpu_torch.const import DEFAULT_STRATEGY_DIR
 
 @dataclass
 class PSSynchronizerConfig:
-    """Parameter-server sync: weight-update sharding over ``data``
-    (``staleness > 0`` and ``local_replication`` are refused when lowered,
-    ROADMAP P6)."""
+    """Parameter-server sync: weight-update sharding over ``data``;
+    ``staleness`` delays the applied gradient, ``local_replication``
+    reads a periodically refreshed proxy copy."""
 
     reduction_destination: str = ""
     local_replication: bool = False
@@ -37,7 +37,7 @@ class AllReduceSynchronizerConfig:
     """All-reduce sync.  ``group`` ids merge consecutive variables into one
     collective group; ``compressor``, ``fused``, ``sync="reduce_scatter"``,
     a non-zero ``bucket_bytes``, an explicit ``overlap`` schedule and
-    ``hier`` select the explicit bucketed step of later slices."""
+    ``hier`` select the explicit bucketed step."""
 
     spec: str = "AUTO"
     compressor: str = "NoneCompressor"

@@ -17,10 +17,16 @@ rank.
   explicit bucketed step updates this rank's 1/N share of the optimizer
   state and all-gathers the fresh parameters, the ZeRO-1 path.  The
   plan records the reduction destination, the partitioner's axis and
-  shard count and the sparse flag.  ``sync=False`` is carried along and
-  the step stays bulk-synchronous, as in the JAX package.
-  ``staleness > 0`` and ``local_replication`` (proxy variables) raise,
-  naming ROADMAP P6; nothing runs in their place.
+  shard count, the sparse flag, ``staleness`` (the delay of bounded
+  staleness) and ``local_replication`` (proxy variables), which the step
+  runs (``kernel/synchronization/stale_sync.py``).  ``sync=False`` is
+  carried along and the step stays bulk-synchronous, as in the JAX
+  package.
+
+The compiled strategy carries the resource spec's ``num_slices``, the
+two-tier topology ``hier`` buckets reduce over, and
+:meth:`CompiledStrategy.fusable_groups`, the groups ``fused_groups``
+fuses (``compiler.py:141-170, 243``).
 
 Two differences from the JAX lowering, neither of which changes a loss or
 a parameter: the JAX package holds PS-partitioned variables and a sparse
@@ -34,16 +40,12 @@ data size instead.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.kernel.synchronization.bucketing import \
     MODE_REDUCE_SCATTER
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
                                               PSSynchronizerConfig, Strategy)
-
-#: the ROADMAP item that brings staleness and proxy variables
-STALE_ITEM = "P6 — pipelining, hier and staleness"
 
 
 def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
@@ -66,7 +68,8 @@ class VarPlan:
     """Lowered per-variable plan: replicated parameter, the synchronizer
     kind (``"AllReduce"`` or ``"PS"``), the gradient's sync mode
     (``"all_reduce"`` or ``"reduce_scatter"``), the bucket options and,
-    for PS, the destination, partitioner and sparse flag."""
+    for PS, the destination, partitioner, sparse flag, staleness and proxy
+    flag."""
 
     var_name: str
     sync_kind: str = "AllReduce"
@@ -81,22 +84,39 @@ class VarPlan:
     partition_axis: Optional[int] = None
     num_shards: int = 1
     sparse: bool = False
+    staleness: int = 0
+    local_replication: bool = False
 
 
 @dataclass
 class CompiledStrategy:
-    """A Strategy bound to a mesh: the per-variable plans."""
+    """A Strategy bound to a mesh: the per-variable plans and the slice
+    count of the two-tier topology (1: flat)."""
 
     strategy: Strategy
     mesh: object
     var_plans: Dict[str, VarPlan]
+    num_slices: int = 1
+
+    def fusable_groups(self) -> Dict[int, List[str]]:
+        """Collective groups with >= 2 uncompressed AllReduce variables:
+        what ``fused_groups`` merges into one collective."""
+        by_group: Dict[int, List[str]] = {}
+        for name, plan in self.var_plans.items():
+            if plan.sync_kind != "AllReduce":
+                continue
+            if (plan.compressor or "NoneCompressor") != "NoneCompressor":
+                continue
+            by_group.setdefault(plan.group, []).append(name)
+        return {g: ns for g, ns in by_group.items() if len(ns) >= 2}
 
 
 class StrategyCompiler:
     """Compile ``Strategy × GraphItem × Mesh → CompiledStrategy``."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, resource_spec=None):
         self.mesh = mesh
+        self.num_slices = int(getattr(resource_spec, "num_slices", 1) or 1)
 
     def compile(self, strategy: Strategy, graph_item) -> CompiledStrategy:
         plans: Dict[str, VarPlan] = {}
@@ -110,7 +130,7 @@ class StrategyCompiler:
             if var.trainable and name not in plans:
                 plans[name] = VarPlan(var_name=name)   # replicate + average
         return CompiledStrategy(strategy=strategy, mesh=self.mesh,
-                                var_plans=plans)
+                                var_plans=plans, num_slices=self.num_slices)
 
     def _compile_node(self, node, var) -> VarPlan:
         axis, num_shards = parse_partitioner(node.partitioner)
@@ -121,18 +141,13 @@ class StrategyCompiler:
                 f"with shape {var.shape}")
         sync = node.synchronizer
         if isinstance(sync, PSSynchronizerConfig):
-            if sync.staleness > 0:
-                raise not_ported(f"PS staleness={sync.staleness} "
-                                 f"({var.name})", STALE_ITEM)
-            if sync.local_replication:
-                raise not_ported(f"PS local proxy variables ({var.name})",
-                                 STALE_ITEM)
             return VarPlan(
                 var_name=var.name, sync_kind="PS",
                 sync_mode=MODE_REDUCE_SCATTER,
                 reduction_destination=sync.reduction_destination,
                 partition_axis=axis, num_shards=num_shards,
-                sparse=var.sparse)
+                sparse=var.sparse, staleness=int(sync.staleness),
+                local_replication=bool(sync.local_replication))
         if not isinstance(sync, AllReduceSynchronizerConfig):
             raise ValueError(f"node {node.var_name} has no synchronizer")
         return VarPlan(

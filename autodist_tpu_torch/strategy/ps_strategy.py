@@ -5,8 +5,10 @@ arguments and plan.  Every variable gets a PS synchronizer whose
 reduction destination is the first node's CPU; the replicas are all the
 compute devices.  The compiler lowers a PS plan to weight-update sharding
 on the explicit bucketed step (:mod:`autodist_tpu_torch.strategy.
-compiler`); ``staleness > 0`` and ``local_proxy_variable=True`` are
-refused there (ROADMAP P6).
+compiler`); ``staleness > 0`` delays each applied gradient by that many
+steps and ``local_proxy_variable=True`` computes against a compute copy
+refreshed every ``AUTODIST_PROXY_REFRESH`` steps
+(:mod:`autodist_tpu_torch.kernel.synchronization.stale_sync`).
 """
 from __future__ import annotations
 

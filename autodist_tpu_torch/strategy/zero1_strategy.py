@@ -18,11 +18,12 @@ each bucket over the quantized wire (the update runs on the dequantized
 f32 shard); with ``overlap="ring"`` (or ``"full"`` at ``accum_steps ==
 1``) buckets of 256 KiB or more take the quantized ring.  Under
 ``"auto"`` an uncompressed bucket of 256 KiB or more rings on more than
-one rank, as in the JAX package.  Options of the JAX builder that the
-port does not run yet raise when the plan is lowered, naming their
-ROADMAP item: the cast and low-rank compressors, the accumulation
-pipeline (``overlap="pipeline"``, ``"full"`` with ``accum_steps > 1``)
-and ``hier`` (P6).
+one rank, as in the JAX package.  ``compressor="HorovodCompressor"`` /
+``"HorovodCompressorEF"`` reduce-scatter in bf16 (the EF residual is the
+whole bucket's); ``overlap="pipeline"`` with ``accum_steps > 1``
+reduce-scatters each microbatch's buckets while the next one's backward
+runs; ``hier=True`` with a resource spec's ``num_slices`` reduces within
+and across slices, rank ``g·d_in + i`` updating chunk ``i·s + g``.
 """
 from __future__ import annotations
 

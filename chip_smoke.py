@@ -67,7 +67,7 @@ Phases, each printing one JSON line:
    bit-identical, ``skipped_steps`` 1, no K5 launch.
 8a. remat at full width (``train_remat``): ``transformer_lm(remat=)``
    under ``train_zero1``'s program (``Zero1`` + ``fusable_adam`` +
-   clip), 2 warm-up and 5 timed steps for each of ``REMAT_CONFIGS``
+   clip), 2 warm-up and 3 timed steps for each of ``REMAT_CONFIGS``
    (``none``, ``full`` and ``dots`` at batch 8; ``dots`` at 16 and 32,
    the batch sweep; ``none`` at 32, the control): ms per step, tokens/s,
    peak memory, ``mfu_f32`` on the model's FLOPs; K1 twice per layer per
@@ -89,6 +89,21 @@ Phases, each printing one JSON line:
    forward bit for bit (K1 12 launches; K10 73 on the int8 tree), on the
    CPU at rtol 1e-4 / atol 1e-5; export, load and first-call seconds and
    the artifact's bytes;
+8d. the accumulation pipeline (``train_accum``): ``train_zero1``'s program
+   at ``accum_steps=4`` (2 rows a microbatch) under ``overlap="none"`` and
+   ``"pipeline"``, 1 + 2 steps each: K1–K3 48 a step, K5 once per bucket,
+   K4 twice per bucket (once per pipelined bucket, whose reduced value
+   is its finiteness source, as in the JAX package); the two end on the
+   same losses and parameters bit for bit (or within rtol 1e-6, naming
+   the leaves whose bits differ); ms per step, peak memory, tokens/s;
+8e. bounded staleness and proxies (``train_stale``): ``PS(staleness=2)``
+   + ``fusable_adam`` at full width, 5 steps: the guard off (K4 0, as in
+   the JAX package), K5 once per bucket; the first 2 steps leave the
+   parameters unchanged, and each later step's shards, moments included,
+   equal K5 applied to the delay queue's oldest entry (step t−2's
+   gradient) bit for bit; then ``PS(local_proxy_variable=True)`` with
+   ``AUTODIST_PROXY_REFRESH=2``, 4 steps: the true shards move every
+   step, the compute copy is gathered on steps 2 and 4 only;
 9. the facade's default at full width (``train_ps``): ``AutoDist()``
    with no builder must build ``PSLoadBalancing``'s Strategy (every
    variable on PS), which lowers to ``train_zero1``'s bucket plan; with
@@ -126,8 +141,8 @@ Phases, each printing one JSON line:
    full width, 2 rows per rank of the same 8 x 1024 batch, with
    ``AllReduce(compressor="Int8Compressor", overlap="ring")`` + ``adam``
    and then ``Zero1(compressor="Fp8Compressor", overlap="ring")`` +
-   ``fusable_adam``, both with ``numerics={"clip_norm": 1.0}``: 2 warm-up
-   and 5 timed steps each.  Every step must launch K6 and K8 once and K7
+   ``fusable_adam``, both with ``numerics={"clip_norm": 1.0}``: 1 warm-up
+   and 2 timed steps each.  Every step must launch K6 and K8 once and K7
    twice per ring bucket, K4 twice per bucket, K5 once per ZeRO-1 bucket
    and K1–K3 once per layer; every step finite with no saturated wire
    element, its loss within rtol 2e-3 of the one-card f32
@@ -137,11 +152,22 @@ Phases, each printing one JSON line:
    unfused ring (the plain torch ops on the card): output and error at
    atol 1e-6, saturation counts equal.  Then each rank trains
    ``PSLoadBalancing()`` (``ps_lb``) with ``fusable_adam`` and the clip,
-   2 warm-up and 5 timed steps: each rank's Adam moments are
+   1 warm-up and 2 timed steps: each rank's Adam moments are
    ``padded_total / 4`` of every bucket, K5 launches once per bucket per
    step (K4 twice, K1–K3 once per layer), every rank's parameters are
    bit-identical at the end and each step's loss is within rtol 1e-4 of
-   ``train_zero1``'s at the same step;
+   ``train_zero1``'s at the same step.  Then each rank runs ``train_p6``
+   on ``transformer_lm(num_layers=4)`` at full width with the clip, 1 + 2
+   steps each: ``AllReduce`` with ``HorovodCompressor`` and with
+   ``PowerSGDCompressor``, ``Zero1`` with ``HorovodCompressorEF``,
+   Program E (``HorovodCompressorEF``, fused groups, chunk 2,
+   ``accum_steps=2``), ``Zero1`` + ``Int8Compressor`` at ``accum_steps=2``
+   under ``overlap="pipeline"`` (one-shot per slot) and ``"full"`` (the
+   ring per slot: K6–K8), and ``Zero1(hier=True)`` over 2 slices of 2,
+   f32 and with ``AUTODIST_DCN_WIRE=int8``: finite, falling losses, K1–K8
+   per step from the plan, every rank's parameters bit-identical, wire
+   bytes per rank per step from the plan against an f32 all-reduce's,
+   ms per step and peak memory per rank;
 13. the BASELINE models (BASELINE.json), each at the repo's defaults, f32,
    weights from ``SEED``, batch 32 (the JAX examples' ``--batch-size``),
    through the facade under its BASELINE builder, 2 warm-up and 5 timed
@@ -181,9 +207,17 @@ instantiation's ``ptxas`` line), and K4/K5 at one of lm1b's tables
 ``bert_shape`` and ``lm1b_bucket`` in the ``kernels`` line.
 
 ``python3 chip_smoke.py --ring-repeat N`` builds the kernels and runs only
-``train_ring`` N times, one line per run (whether the ranks' parameter
-digests agreed, or which parameters differed) and a count of the runs
-that diverged; it exits 1 when one did, and stops at any other failure.
+``train_ring`` (with ``ps_lb`` and ``train_p6``) N times, one line per run
+(whether the ranks' parameter digests agreed in every configuration, or
+which parameters differed) and a count of the runs that diverged; it
+exits 1 when one did, and stops at any other failure.
+
+``python3 chip_smoke.py --p6-lr-control`` builds the kernels and, on the
+ring's 4 ranks, prints rank 0's loss traces of ``train_p6``'s model and
+batch under ``AllReduce()`` (f32 wire) and ``AllReduce(compressor=
+"HorovodCompressor")`` (bf16 wire), with ``adam`` at 1e-3 and at
+``train_p6``'s learning rate, 7 steps each: the control that tells a
+defect of the bf16 wire from Adam's own overshoot at 1e-3.
 
 K4 (guard statistics) and K5 (fused Adam) join phase 2 at the ZeRO-1
 path's bucket sizes (24,674,304, 2,359,296 and 589,824 elements, and a
@@ -205,8 +239,9 @@ under ``bert_shape``, ``train_fit``'s in ``launches_by_path``), the 13
 ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
 ``train_fit``, ``train_remat``'s configurations (K1–K5),
 ``train_bf16_state`` (K1–K5), the export's serving process (K1, K10),
-``train_parallax``, rank 0's ``ps_lb``, ``train_vgg16``,
-``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 14
+``train_parallax``, rank 0's ``ps_lb``, ``train_accum``, ``train_stale``,
+rank 0's ``train_p6`` configurations (K1–K8), ``train_vgg16``,
+``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 6
 quantized-ring
 steps for K6–K8; each
 such call issues one kernel, or two where the work is split and then
@@ -271,7 +306,8 @@ RING_RANKS = 4
 RING_CONFIGS = ("int8_allreduce", "fp8_zero1")
 #: the 4-rank run of the facade's default builder, after the ring configs
 PS_LB_CONFIG = "ps_lb"
-RING_WARMUP, RING_TIMED = 2, 5
+#: (cut from 2 + 5 in PR 13 to keep the script's time with train_p6)
+RING_WARMUP, RING_TIMED = 1, 2
 #: each ring step's loss against the one-card f32 ``train_zero1`` run's at
 #: the same step (same init, batch, Adam and clip): quantization noise only
 RING_LOSS_RTOL = 2e-3
@@ -317,7 +353,8 @@ NCF_BUCKETS = 6
 #: batch-32 control without remat), and the steps of each
 REMAT_CONFIGS = (("none", 8), ("full", 8), ("dots", 8), ("dots", 16),
                  ("dots", 32), ("none", 32))
-REMAT_WARMUP, REMAT_TIMED = 2, 5
+#: (timed steps cut from 5 in PR 13 to keep the script's time)
+REMAT_WARMUP, REMAT_TIMED = 2, 3
 #: remat's losses and parameters against the run without it, where the
 #: bits differ (the JAX package's remat gradient tolerance)
 REMAT_RTOL = 1e-6
@@ -332,6 +369,53 @@ EXPORT_TREES = ("f32", "int8")
 EXPORT_RTOL, EXPORT_ATOL = 1e-4, 1e-5
 NCF_PLAN_SHA256 = ("820c3fa12b770e87d0984651ee7e0d4c"
                    "72476256521595a6d4f8d6ca9b7ecfc0")
+#: ``train_accum``: microbatches per step (batch 8: 2 rows each), steps,
+#: and the pipeline's losses and parameters against ``overlap="none"``
+#: where their bits differ
+ACCUM_STEPS = 4
+ACCUM_WARMUP, ACCUM_TIMED = 1, 2
+ACCUM_RTOL = 1e-6
+#: ``train_stale``: ``PS(staleness=STALE_DEPTH)``'s steps; the proxy
+#: run's refresh period and steps
+STALE_DEPTH, STALE_STEPS = 2, 5
+PROXY_REFRESH, PROXY_STEPS = 2, 4
+#: ``train_p6``: the P6 options on the ring's 4 ranks, ``transformer_lm()``
+#: at full width and P6_LAYERS layers, in the order they run
+P6_LAYERS = 4
+P6_WARMUP, P6_TIMED = 1, 2
+#: their learning rate: at 1e-3 Adam's fifth step on 4 layers spikes
+#: (8.74 -> 11.94) with the f32 wire as with the bf16 one, the two traces
+#: within 1e-4 of each other; at 3e-4 both fall on every step
+#: (``--p6-lr-control``)
+P6_LR = 3e-4
+#: ``--p6-lr-control``: the learning rates and steps of its traces
+P6_CONTROL_LRS = (1e-3, P6_LR)
+P6_CONTROL_STEPS = 7
+P6_CONFIGS = ("horovod_allreduce", "horovod_ef_zero1", "powersgd_allreduce",
+              "program_e", "int8_pipeline", "int8_full", "hier_zero1",
+              "hier_zero1_int8_dcn")
+#: what the plan of each ``train_p6`` configuration must hold, fixed
+#: here and not read from the plan: every bucket's compressor (None: no
+#: bucket, PowerSGD's per-variable tier), the step's fused kernels (K4's
+#: guard, K5's update, K6–K8's quant_hop), and whether every bucket is
+#: pipelined, some run ring hops (K6–K8) and every bucket has two tiers
+P6_PLAN = {
+    "horovod_allreduce": ("HorovodCompressor", {"guard"}, False, False,
+                          False),
+    "horovod_ef_zero1": ("HorovodCompressorEF", {"guard", "update"}, False,
+                         False, False),
+    "powersgd_allreduce": (None, {"guard"}, False, False, False),
+    "program_e": ("HorovodCompressorEF", {"guard"}, False, False, False),
+    "int8_pipeline": ("Int8Compressor", {"guard", "update", "quant_hop"},
+                      True, False, False),
+    "int8_full": ("Int8Compressor", {"guard", "update", "quant_hop"}, True,
+                  True, False),
+    "hier_zero1": ("NoneCompressor", {"guard", "update"}, False, False, True),
+    "hier_zero1_int8_dcn": ("NoneCompressor", {"guard", "update"}, False,
+                            False, True)}
+#: the two-tier runs' cluster: 2 slices of 2 of the 4 ranks
+HIER_SPEC = {"nodes": [{"address": "localhost", "chips": RING_RANKS}],
+             "num_slices": 2}
 
 
 def emit(obj) -> None:
@@ -1059,19 +1143,25 @@ def _fresh_peak(torch) -> None:
 
 
 def _train_session(spec, params, batch_rows, builder=None, optimizer=None,
-                   loss_fn=None, numerics=None):
+                   loss_fn=None, numerics=None, resource_info=None,
+                   accum_steps=1):
     """The program users run: ``AutoDist(builder)`` → capture → session,
-    on the card (default: ``AllReduce()`` with ``adamw(1e-3)``)."""
+    on the card (default: ``AllReduce()`` with ``adamw(1e-3)``;
+    ``resource_info``: the cluster's resource spec as a dict)."""
     from autodist_tpu_torch import autodist as adm
     from autodist_tpu_torch import optim
+    from autodist_tpu_torch.resource_spec import ResourceSpec
     from autodist_tpu_torch.strategy import AllReduce
 
     adm._reset_default_autodist_for_testing()   # one facade per phase
-    ad = adm.AutoDist(strategy_builder=builder or AllReduce())
+    ad = adm.AutoDist(strategy_builder=builder or AllReduce(),
+                      resource_spec=ResourceSpec(resource_info=resource_info)
+                      if resource_info else None)
     with ad.scope():
         ad.capture(params=params, optimizer=optimizer or optim.adamw(1e-3),
                    loss_fn=loss_fn or spec.loss_fn,
-                   sparse_vars=spec.sparse_vars, numerics=numerics)
+                   sparse_vars=spec.sparse_vars, numerics=numerics,
+                   accum_steps=accum_steps)
     return ad.create_distributed_session(), spec.sample_batch(batch_rows,
                                                               seed=SEED)
 
@@ -2065,6 +2155,419 @@ def phase_train_zero1_parity(torch):
                               "state_bit_identical": True}}
 
 
+def _host_params(sess) -> dict:
+    """Every parameter as a host array, by name."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    return {n: x.detach().cpu().numpy() for n, x in
+            flatten(sess.device_params)}
+
+
+def _expected_launches(sess, layers: int, accum: int = 1) -> dict:
+    """K1–K10 per step of a bucketed session from its plan: K1–K3 once per
+    layer and microbatch; K4 twice per bucket and per variable of the
+    per-variable tier (the packed local vector and the reduced value),
+    once per pipelined bucket (the reduced value is the finiteness
+    source, as in the JAX package), none without the guard; K5 once per
+    ZeRO-1 bucket when it runs; K6/K8 once and K7 ``d - 2`` times per ring
+    bucket and reduction (one per microbatch slot when pipelined)."""
+    step = sess._step
+    d = sess.data_axis_size
+    piped = set(step.pipelined_keys)
+    bucketed = {n for b in step.buckets for n in b.names}
+    pervar = [n for n in step.trainable if n not in bucketed]
+    guard = "guard" in step.fused_kernels
+    k4 = (2 * (len(step.buckets) - len(piped)) + len(piped)
+          + 2 * len(pervar)) if guard else 0
+    rings = sum(accum if b.key in piped else 1 for b in step.buckets
+                if step.bucket_algs[b.key] == "ring")
+    return dict(dict.fromkeys(_kernel_counts(), 0),
+                flash_fwd=accum * layers, flash_dq=accum * layers,
+                flash_dkv=accum * layers, detect_stats=k4,
+                adam_update=len(step.zero1_buckets)
+                if "update" in step.fused_kernels else 0,
+                quant_hop_quantize=rings,
+                quant_hop_accumulate=(d - 2) * rings,
+                quant_hop_dequant_add=rings)
+
+
+def _max_rel_diff(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(a[n] - b[n])
+                            / np.maximum(np.abs(b[n]), 1e-30)))
+               for n in b)
+
+
+def phase_train_accum(torch):
+    """``Zero1`` + ``fusable_adam`` + clip at ``accum_steps=4`` on the
+    full-width LM, unpipelined and pipelined: the same losses and
+    parameters (bit for bit, or within :data:`ACCUM_RTOL`, naming the
+    leaves whose bits differ); K1–K3 48 times a step, K4 twice per bucket
+    (once per pipelined bucket), K5 once per bucket."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import Zero1
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    out, params = {}, {}
+    for overlap in ("none", "pipeline"):
+        _fresh_peak(torch)
+        sess, batch = _train_session(
+            spec, spec.init(SEED), TRAIN_SHAPE["B"], Zero1(overlap=overlap),
+            fk.fusable_adam(1e-3), numerics={"clip_norm": CLIP_NORM},
+            accum_steps=ACCUM_STEPS)
+        piped = len(sess._step.pipelined_keys)
+        if piped != (len(sess._step.buckets) if overlap == "pipeline"
+                     else 0):
+            raise AssertionError(f"train_accum {overlap}: {piped} pipelined "
+                                 f"buckets of {len(sess._step.buckets)}")
+        want = _expected_launches(sess, layers, ACCUM_STEPS)
+        losses, norms, step_s, launches = _checked_steps(
+            torch, f"train_accum {overlap}", sess, batch, want, ACCUM_WARMUP,
+            ACCUM_TIMED, guarded=True)
+        params[overlap] = _host_params(sess)
+        out[overlap] = {"losses": losses, "global_norms": norms,
+                        "buckets": len(sess._step.buckets),
+                        "pipelined_buckets": piped,
+                        **_step_rates(torch, spec, step_s),
+                        "launches": launches, "launches_per_step": want}
+        del sess
+        torch.cuda.empty_cache()
+    differ = [n for n in params["none"]
+              if not np.array_equal(params["none"][n], params["pipeline"][n])]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["pipeline"]["losses"], out["none"]["losses"]))
+    param_rel = _max_rel_diff(params["pipeline"], params["none"]) \
+        if differ else 0.0
+    if max(loss_rel, param_rel) > ACCUM_RTOL:
+        raise AssertionError(f"train_accum: the pipeline's losses/params "
+                             f"differ from overlap=none's by {loss_rel:.2e} "
+                             f"/ {param_rel:.2e} (leaves {differ[:8]})")
+    _check_falling(out["none"]["losses"])
+    return {"layers": layers, "batch": TRAIN_SHAPE["B"],
+            "accum_steps": ACCUM_STEPS, "configs": out,
+            "bit_identical": not differ and loss_rel == 0.0,
+            "differing_leaves": differ, "max_rel_diff_losses": loss_rel,
+            "max_rel_diff_params": param_rel, "rtol": ACCUM_RTOL}
+
+
+def _device_copy(sess) -> list:
+    """A copy of every parameter on the card."""
+    from autodist_tpu_torch.graph_item import flatten
+
+    return [x.detach().clone() for _, x in flatten(sess.device_params)]
+
+
+def _same_params(sess, copy) -> bool:
+    """Does every parameter of the session equal its copy in ``copy``?"""
+    import torch
+
+    from autodist_tpu_torch.graph_item import flatten
+
+    return all(torch.equal(x, y) for (_, x), y in
+               zip(flatten(sess.device_params), copy))
+
+
+def _bucket_shards(sess) -> dict:
+    """Each ZeRO-1 bucket's packed parameters (one rank: the whole
+    vector)."""
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.kernel.synchronization.bucketing import \
+        pack_bucket
+
+    leaves = dict(flatten(sess.device_params))
+    return {b.key: pack_bucket(b, [leaves[n].detach() for n in b.names])
+            for b in sess.zero1_buckets}
+
+
+def phase_train_stale(torch):
+    """``PS(staleness=2)`` + ``fusable_adam`` on the full-width LM: the
+    guard off (K4 0), K5 once per bucket; the first 2 steps leave the
+    parameters unchanged, and each later step applies the gradient step
+    ``t - 2`` pushed, bit for bit (K5 on the queue's oldest entry and the
+    state before the step gives the step's shards exactly).  Then
+    ``PS(local_proxy_variable=True)`` with ``AUTODIST_PROXY_REFRESH=2``:
+    the compute copy is gathered on refresh steps only, the true shards
+    move every step."""
+    import warnings
+
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PS
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    _fresh_peak(torch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the guard's drop, as in JAX
+        sess, batch = _train_session(
+            spec, spec.init(SEED), TRAIN_SHAPE["B"], PS(staleness=STALE_DEPTH),
+            fk.fusable_adam(1e-3), numerics={"clip_norm": CLIP_NORM})
+    if sess._step.fused_kernels != ("update",):
+        raise AssertionError(f"train_stale runs {sess._step.fused_kernels}")
+    adam = sess._gi.optimizer.fused_spec
+    want = _expected_launches(sess, layers)
+    _reset_all_counts()
+    checked = 0
+    first = _device_copy(sess)
+    losses, step_s = [], []
+    for i in range(STALE_STEPS):
+        expected = None
+        if i >= STALE_DEPTH:
+            # outside the counted window: K5 on the delayed gradient
+            z, q = sess.opt_state["zero1"], sess.sync_state["queue"]
+            scalars = fk.adam_scalars(z["count"], adam)
+            expected = {k: fk.fused_adam_update(
+                p, q[k][0], z["mu"][k], z["nu"][k], scalars, adam)
+                for k, p in _bucket_shards(sess).items()}
+            checked += len(expected)
+        before = _kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.run(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step = {k: v - before[k] for k, v in _kernel_counts().items()}
+        if per_step != want or "grad_health" in out:
+            raise AssertionError(f"train_stale step {i} launched {per_step} "
+                                 f"(expected {want})")
+        losses.append(float(out["loss"]))
+        same = _same_params(sess, first)
+        if same != (i < STALE_DEPTH):
+            raise AssertionError(f"train_stale step {i}: parameters "
+                                 f"{'un' if same else ''}changed")
+        if expected is not None:
+            z, got = sess.opt_state["zero1"], _bucket_shards(sess)
+            for k, (p, m, v) in expected.items():
+                if not (torch.equal(got[k], p) and torch.equal(z["mu"][k], m)
+                        and torch.equal(z["nu"][k], v)):
+                    raise AssertionError(f"train_stale step {i}: bucket {k} "
+                                         "did not apply step "
+                                         f"{i - STALE_DEPTH}'s gradient")
+    launches = {k: v - (checked if k == "adam_update" else 0)
+                for k, v in _kernel_counts().items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_stale: non-finite losses {losses}")
+    stale = {"losses": losses, "steps_unchanged": STALE_DEPTH,
+             "steps_checked_bit_for_bit": STALE_STEPS - STALE_DEPTH,
+             **_step_rates(torch, spec, step_s[STALE_DEPTH:]),
+             "launches": launches, "launches_per_step": want}
+    del sess, expected
+    torch.cuda.empty_cache()
+
+    os.environ["AUTODIST_PROXY_REFRESH"] = str(PROXY_REFRESH)
+    try:
+        _fresh_peak(torch)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sess, batch = _train_session(
+                spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                PS(local_proxy_variable=True), fk.fusable_adam(1e-3),
+                numerics={"clip_norm": CLIP_NORM})
+    finally:
+        os.environ.pop("AUTODIST_PROXY_REFRESH")
+    want = _expected_launches(sess, layers)
+    _reset_all_counts()
+    refreshed, losses, step_s = [], [], []
+    for i in range(PROXY_STEPS):
+        copy = _device_copy(sess)
+        true = [x.clone() for x in sess.sync_state["master"].values()]
+        before = _kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.run(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step = {k: v - before[k] for k, v in _kernel_counts().items()}
+        if per_step != want:
+            raise AssertionError(f"proxy step {i} launched {per_step} "
+                                 f"(expected {want})")
+        losses.append(float(out["loss"]))
+        if any(torch.equal(a, b) for a, b in
+               zip(true, sess.sync_state["master"].values())):
+            raise AssertionError(f"proxy step {i}: a true shard did not move")
+        if not _same_params(sess, copy):
+            refreshed.append(i)
+    due = [i for i in range(PROXY_STEPS) if (i + 1) % PROXY_REFRESH == 0]
+    if refreshed != due:
+        raise AssertionError(f"proxy: the compute copy was gathered at steps "
+                             f"{refreshed}, expected {due}")
+    proxy = {"refresh": PROXY_REFRESH, "losses": losses,
+             "gather_steps": refreshed, "gathers": len(refreshed),
+             "steps": PROXY_STEPS, **_step_rates(torch, spec, step_s),
+             "launches": _kernel_counts(), "launches_per_step": want}
+    del sess
+    torch.cuda.empty_cache()
+    return {"layers": layers, "batch": TRAIN_SHAPE["B"],
+            "staleness": STALE_DEPTH, "stale": stale, "proxy": proxy}
+
+
+def _p6_configs():
+    """``(name, builder, optimizer, accum_steps, resource spec, env)`` of
+    the ``train_p6`` configurations, in :data:`P6_CONFIGS` order."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import AllReduce, Zero1
+
+    adam, fadam = (lambda: optim.adam(P6_LR)), (lambda: fk.fusable_adam(P6_LR))
+    return (
+        ("horovod_allreduce", AllReduce(compressor="HorovodCompressor"),
+         adam, 1, None, {}),
+        ("horovod_ef_zero1", Zero1(compressor="HorovodCompressorEF"), fadam,
+         1, None, {}),
+        ("powersgd_allreduce", AllReduce(compressor="PowerSGDCompressor"),
+         adam, 1, None, {}),
+        ("program_e", AllReduce(compressor="HorovodCompressorEF",
+                                fused_groups=True, chunk_size=2), adam, 2,
+         None, {}),
+        ("int8_pipeline", Zero1(compressor="Int8Compressor",
+                                overlap="pipeline"), fadam, 2, None, {}),
+        ("int8_full", Zero1(compressor="Int8Compressor", overlap="full"),
+         fadam, 2, None, {}),
+        ("hier_zero1", Zero1(hier=True), fadam, 1, HIER_SPEC, {}),
+        ("hier_zero1_int8_dcn", Zero1(hier=True), fadam, 1, HIER_SPEC,
+         {"AUTODIST_DCN_WIRE": "int8"}))
+
+
+def _p6_wire_bytes(sess, accum: int, dcn_wire: str) -> dict:
+    """Bytes one rank sends per step, from the plan: a bucket's reduction
+    over a ring (an all-reduce sends ``2 (d-1)/d`` of the vector, a
+    reduce-scatter ``(d-1)/d``) at its wire width (f32 4 bytes, the cast
+    compressors' bf16 2, the int8 wire 1 plus its scales), once per
+    microbatch when pipelined; a ZeRO-1 bucket's f32 parameter gather;
+    under ``hier`` the within-slice legs at f32 and the cross-slice leg on
+    the slice's shard (on ``dcn_wire``, the compressor
+    ``AUTODIST_DCN_WIRE`` names); a PowerSGD matrix ``r (n + m)`` f32
+    elements twice, any other per-variable gradient whole."""
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+    from autodist_tpu_torch.kernel.synchronization.compressor import \
+        PowerSGDCompressor
+
+    step, d = sess._step, sess.data_axis_size
+    out = {"buckets": 0.0, "param_gather": 0.0, "per_variable": 0.0}
+    f32 = 0.0
+    for b in step.buckets:
+        n, rs = b.padded_total, b.mode == "reduce_scatter"
+        slots = accum if b.key in step.pipelined_keys else 1
+        legs = 1 if rs else 2
+        f32 += legs * (d - 1) / d * n * 4
+        fmt = qr.wire_format_of(b.compressor)
+        if b.key in step.hier_keys:
+            s = HIER_SPEC["num_slices"]
+            d_in = d // s
+            dcn = qr.wire_format_of(dcn_wire)
+            sh = n // d_in
+            cross = (s - 1) * qr.wire_nbytes(sh, dcn) if dcn else \
+                legs * (s - 1) / s * sh * 4
+            out["buckets"] += slots * (legs * (d_in - 1) / d_in * n * 4
+                                       + cross)
+        elif fmt is not None:
+            out["buckets"] += slots * legs * (d - 1) * qr.wire_nbytes(
+                n // d, fmt)
+        else:
+            width = 2 if b.compressor in ("HorovodCompressor",
+                                          "HorovodCompressorEF") else 4
+            out["buckets"] += slots * legs * (d - 1) / d * n * width
+        if rs:
+            out["param_gather"] += (d - 1) / d * n * 4
+            f32 += (d - 1) / d * n * 4
+    bucketed = {n for b in step.buckets for n in b.names}
+    for name, x in flatten(sess.device_params):
+        if name not in step.trainable or name in bucketed:
+            continue
+        f32 += 2 * (d - 1) / d * x.numel() * 4
+        elems = PowerSGDCompressor().rank * (x.shape[0] + x.shape[1]) \
+            if x.dim() == 2 else x.numel()
+        out["per_variable"] += 2 * (d - 1) / d * elems * 4
+    out["total"] = sum(out.values())
+    out["f32_all_reduce_equivalent"] = f32
+    out["ratio_to_f32"] = out["total"] / f32
+    return out
+
+
+def _check_p6_plan(name, step, builder) -> None:
+    """``step``'s plan against :data:`P6_PLAN`, so that the launch counts
+    :func:`_expected_launches` derives from the plan check the options
+    themselves: ZeRO-1 buckets reduce-scatter and the others all-reduce,
+    and ``fused_groups`` puts each strategy group (``chunk_size``
+    variables) in buckets of its own, every group present."""
+    comp, kernels, piped, ring, two_tier = P6_PLAN[name]
+    zero1 = "update" in kernels
+    got = {
+        "compressors": {b.compressor for b in step.buckets},
+        "fused_kernels": set(step.fused_kernels),
+        "all_pipelined": bool(step.buckets)
+        and set(step.pipelined_keys) == {b.key for b in step.buckets},
+        "any_pipelined": bool(step.pipelined_keys),
+        "ring": "ring" in step.bucket_algs.values(),
+        "all_two_tier": bool(step.buckets)
+        and set(step.hier_keys) == {b.key for b in step.buckets},
+        "any_two_tier": bool(step.hier_keys),
+        "modes": {b.mode for b in step.buckets}}
+    want = {
+        "compressors": {comp} if comp else set(), "fused_kernels": kernels,
+        "all_pipelined": piped, "any_pipelined": piped, "ring": ring,
+        "all_two_tier": two_tier, "any_two_tier": two_tier,
+        "modes": ({"reduce_scatter" if zero1 else "all_reduce"}
+                  if comp else set())}
+    if getattr(builder, "_fused", False):
+        chunk = builder._chunk_size
+        groups = -(-len(step.trainable) // chunk)
+        got["groups"] = ({b.group for b in step.buckets},
+                         max(len(b.vars) for b in step.buckets))
+        want["groups"] = (set(range(groups)), chunk)
+    if got != want:
+        raise AssertionError(f"{name}: plan {got}, expected {want}")
+
+
+def _p6_train(torch, name, builder, optimizer, accum, resource_info, env):
+    """One ``train_p6`` configuration on this rank: finite, falling losses,
+    K1–K8 per step from the plan, the wire bytes, ms per step and peak
+    memory, and the parameter digests the ranks must share."""
+    import warnings
+
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm(num_layers=P6_LAYERS)
+    _fresh_peak(torch)
+    os.environ.update(env)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the JAX fallbacks' warnings
+            sess, batch = _train_session(
+                spec, spec.init(SEED), TRAIN_SHAPE["B"], builder, optimizer,
+                numerics={"clip_norm": CLIP_NORM},
+                resource_info=resource_info, accum_steps=accum)
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    if sess.data_axis_size != RING_RANKS:
+        raise AssertionError(f"{name}: data axis {sess.data_axis_size}")
+    _check_p6_plan(name, sess._step, builder)
+    step = sess._step
+    want = _expected_launches(sess, P6_LAYERS, accum)
+    losses, _, step_s, launches = _checked_steps(
+        torch, name, sess, batch, want, P6_WARMUP, P6_TIMED, guarded=True)
+    _check_falling(losses)
+    return sess, {
+        "layers": P6_LAYERS, "accum_steps": accum, "losses": losses,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_min": min(step_s) * 1e3,
+        "ms_per_step_max": max(step_s) * 1e3,
+        "buckets": len(step.buckets), "pipelined": len(step.pipelined_keys),
+        "two_tier": len(step.hier_keys),
+        "algs": sorted(set(step.bucket_algs.values())),
+        "fused_kernels": list(step.fused_kernels),
+        "sync_state_keys": len(sess.sync_state),
+        "wire_bytes_per_rank_per_step": _p6_wire_bytes(
+            sess, accum, "Int8Compressor"
+            if env.get("AUTODIST_DCN_WIRE") == "int8" else "NoneCompressor"),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
+
+
 def _quant_counts(fk):
     return (fk.fused_quantize.calls, fk.fused_hop_accumulate.calls,
             fk.fused_dequant_add.calls)
@@ -2275,9 +2778,35 @@ def _ps_lb_train(torch):
         **_params_digests(sess)}
 
 
-def ring_worker(rank: int, port: int) -> int:
-    """One rank of the ``train_ring`` phase: prints ``RING_RESULT`` and
-    its JSON as the last line."""
+def _p6_lr_control(torch) -> dict:
+    """``--p6-lr-control`` on this rank: the losses of ``train_p6``'s
+    model, weights and batch under ``AllReduce()`` and
+    ``AllReduce(compressor="HorovodCompressor")``, with the clip and
+    ``adam`` at each of :data:`P6_CONTROL_LRS`, by wire and rate."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.strategy import AllReduce
+
+    spec = transformer_lm(num_layers=P6_LAYERS)
+    out = {}
+    for lr in P6_CONTROL_LRS:
+        for wire, comp in (("f32", "NoneCompressor"),
+                           ("bf16", "HorovodCompressor")):
+            sess, batch = _train_session(
+                spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                AllReduce(compressor=comp), optim.adam(lr),
+                numerics={"clip_norm": CLIP_NORM})
+            out[f"{wire} lr {lr:g}"] = [float(sess.run(batch)["loss"])
+                                        for _ in range(P6_CONTROL_STEPS)]
+            del sess
+            torch.cuda.empty_cache()
+    return out
+
+
+def ring_worker(rank: int, port: int, mode: str) -> int:
+    """One rank of the ``train_ring`` phase (``mode`` "smoke"), or of
+    ``--p6-lr-control`` ("lr_control"): prints ``RING_RESULT`` and its
+    JSON as the last line."""
     import torch
     import torch.distributed as dist
     from autodist_tpu_torch import optim
@@ -2288,6 +2817,10 @@ def ring_worker(rank: int, port: int) -> int:
                             world_size=RING_RANKS, rank=rank)
     try:
         out = {"rank": rank}
+        if mode == "lr_control":
+            out["lr_control"] = _p6_lr_control(torch)
+            print("RING_RESULT " + json.dumps(out), flush=True)
+            return 0
         for name, builder, opt in (
                 ("int8_allreduce",
                  AllReduce(compressor="Int8Compressor", overlap="ring"),
@@ -2303,6 +2836,11 @@ def ring_worker(rank: int, port: int) -> int:
         sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
         del sess
         torch.cuda.empty_cache()
+        for name, builder, opt, accum, info, env in _p6_configs():
+            sess, out[name] = _p6_train(torch, name, builder, opt(), accum,
+                                        info, env)
+            del sess
+            torch.cuda.empty_cache()
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -2334,12 +2872,12 @@ class RankDivergence(AssertionError):
     """The ring ranks ended with different parameters."""
 
 
-def phase_train_ring():
+def phase_train_ring(mode: str = "smoke"):
     """Start the 4 ring ranks on the card, wait for them, check they agree
     and report rank 0's numbers (every rank's parameters must hash the
-    same)."""
+    same); ``mode`` "lr_control" runs ``--p6-lr-control``'s ranks."""
     cmd = [sys.executable, os.path.abspath(__file__), "--ring-port",
-           str(_free_port()), "--ring-rank"]
+           str(_free_port()), "--ring-mode", mode, "--ring-rank"]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -2371,7 +2909,9 @@ def phase_train_ring():
                                f"{(stderr or '')[-4000:]}")
         results.append(json.loads(last[0][len("RING_RESULT "):]))
     wall = time.perf_counter() - t0
-    for config in RING_CONFIGS + (PS_LB_CONFIG,):
+    if mode != "smoke":
+        return results[0], wall, None
+    for config in RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS:
         digests = {res[config]["params_sha256"] for res in results}
         if len(digests) != 1:
             each = [res[config]["param_sha256"] for res in results]
@@ -2992,7 +3532,8 @@ def ring_repeat(torch, times: int) -> int:
             emit({"phase": "ring_repeat", "run": i, "ok": True,
                   "wall_s": time.perf_counter() - t0,
                   "params_sha256": {c: ring[c]["params_sha256"]
-                                    for c in RING_CONFIGS + (PS_LB_CONFIG,)}})
+                                    for c in RING_CONFIGS + (PS_LB_CONFIG,)
+                                    + P6_CONFIGS}})
         except RankDivergence as e:
             diverged += 1
             emit({"phase": "ring_repeat", "run": i, "ok": False,
@@ -3002,15 +3543,40 @@ def ring_repeat(torch, times: int) -> int:
     return 1 if diverged else 0
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def p6_lr_control(torch) -> int:
+    """``--p6-lr-control``: build the kernels, run its 4 ranks and print
+    rank 0's loss traces beside the card's name and power limit."""
+    from autodist_tpu_torch.ops import _build
+
+    _build.build_all()
+    ring, wall, _ = phase_train_ring("lr_control")
+    emit({"phase": "p6_lr_control", "card": nvidia_smi(),
+          "ranks": RING_RANKS, "layers": P6_LAYERS,
+          "batch": TRAIN_SHAPE["B"], "clip_norm": CLIP_NORM,
+          "wall_s": wall, "losses": ring["lr_control"]})
+    return 0
+
+
 def main() -> int:
     import torch
 
     if "--ring-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
-        return ring_worker(int(args["--ring-rank"]), int(args["--ring-port"]))
+        return ring_worker(int(args["--ring-rank"]), int(args["--ring-port"]),
+                           args["--ring-mode"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--p6-lr-control" in sys.argv:
+        return p6_lr_control(torch)
     if "--ring-repeat" in sys.argv:
         return ring_repeat(torch, int(sys.argv[sys.argv.index(
             "--ring-repeat") + 1]))
@@ -3024,10 +3590,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     device_name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     t0 = time.perf_counter()
     ptxas = {src: start_ptxas_report(src) for src in PTXAS_SOURCES}
     _build.build_all()
@@ -3082,6 +3645,10 @@ def main() -> int:
         row["launches_per_step"] = zero1_out["launches_per_step"][row["name"]]
     emit({"phase": "train_zero1_parity",
           **phase_train_zero1_parity(torch)})
+    accum_out = phase_train_accum(torch)
+    emit({"phase": "train_accum", "card": smi, **accum_out})
+    stale_out = phase_train_stale(torch)
+    emit({"phase": "train_stale", "card": smi, **stale_out})
     remat_out = phase_train_remat(torch)
     emit({"phase": "train_remat", "card": smi, **remat_out})
     bf16_out = phase_train_bf16_state(torch, zero1_out)
@@ -3155,6 +3722,22 @@ def main() -> int:
         row["launches_by_path"][PS_LB_CONFIG + " (rank 0)"] = {
             "launches": ps_lb["launches"][row["name"]],
             "per_step": ps_lb["launches_per_step"][row["name"]]}
+    for config in P6_CONFIGS:
+        emit({"phase": "train_p6", "config": config, "card": smi,
+              "ranks": RING_RANKS,
+              "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                                   "(host-staged wire)", **ring[config]})
+    p6_paths = {f"train_accum {k}": v for k, v in
+                accum_out["configs"].items()}
+    p6_paths.update({"train_stale": stale_out["stale"],
+                     "train_stale proxy": stale_out["proxy"]})
+    p6_paths.update({f"train_p6 {c} (rank 0)": ring[c] for c in P6_CONFIGS})
+    for row in flash_rows + sync_rows + quant_rows:
+        row.setdefault("launches_by_path", {}).update({
+            path: {"launches": out["launches"][row["name"]],
+                   "per_step": out["launches_per_step"][row["name"]]}
+            for path, out in p6_paths.items()
+            if out["launches_per_step"][row["name"]]})
 
     # the BASELINE models, each at full width under its BASELINE builder
     resnet_out = phase_train_resnet50(torch)

@@ -329,6 +329,40 @@ def test_kernels_launch_on_a_card_that_is_not_current(dev):
         atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+def test_async_collectives_issue_on_nccl(dev, dtype):
+    """``all_reduce_async`` and ``reduce_scatter_async`` on an NCCL group
+    take the asynchronous branch (a work handle, waited on in ``wait()``)
+    and give the synchronous functions' results; one rank, so the sums are
+    the inputs (one-byte floats as their bits)."""
+    import torch.distributed as dist
+
+    from autodist_tpu_torch.kernel.synchronization import collectives as coll
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        group = dist.group.WORLD
+        x = torch.randn(4096, generator=torch.Generator().manual_seed(5))
+        x = x.to(dev, dtype)
+        keep = x.clone()
+        for issue, sync in ((coll.all_reduce_async, coll.all_reduce),
+                            (coll.reduce_scatter_async,
+                             coll.reduce_scatter)):
+            pending = issue(x, group)
+            assert pending._work is not None       # issued, not finished
+            got = pending.wait()
+            want = sync(x, group)
+            assert got.dtype == dtype and got.device == x.device
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+        assert torch.equal(x.view(torch.uint8), keep.view(torch.uint8))
+    finally:
+        dist.destroy_process_group()
+
+
 def test_flash_rejects_what_it_cannot_take(dev):
     x = torch.zeros(1, 8, 2, 8, device=dev)
     with pytest.raises(NotImplementedError, match="bf16"):

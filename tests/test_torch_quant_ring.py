@@ -296,8 +296,30 @@ def test_quant_ring_degenerate_single_rank():
     ("HorovodCompressorEF", "P6 — cast and low-rank"),
     ("PowerSGDCompressor", "P6 — cast and low-rank")])
 def test_unported_compressors_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        get_compressor(name)
+    """Once refused naming ``item``, the cast and low-rank compressors are
+    registered: JAX's name and ``bucketable`` flag, state of the JAX
+    compressor's structure, shapes and dtypes (zeros where it is zeros),
+    and at one rank the identity, as the JAX package's GSPMD step at data
+    size 1 is."""
+    comp, jcomp = get_compressor(name), jget_compressor(name)
+    assert (comp.name, comp.bucketable) == (jcomp.name, jcomp.bucketable)
+    for shape in ((6, 5), (7,)):
+        x = torch.linspace(-1, 1, int(np.prod(shape))).reshape(shape)
+        st = comp.init_state(x)
+        jst = jcomp.init_state(jnp.asarray(x.numpy()))
+        got = [] if st is None else sorted(flatten(st)) if isinstance(
+            st, dict) else [("", st)]
+        want = [] if jst is None else sorted(
+            (k, np.asarray(v)) for k, v in jst.items()) if isinstance(
+            jst, dict) else [("", np.asarray(jst))]
+        assert [(k, tuple(v.shape)) for k, v in got] == \
+            [(k, v.shape) for k, v in want]
+        for (k, v), (_, w) in zip(got, want):
+            assert str(v.dtype).endswith(w.dtype.name)
+            if k != "q":       # PowerSGD's basis: another generator
+                np.testing.assert_array_equal(v.numpy(), w)
+        out, st2 = comp.reduce(x, st, None, 1)
+        assert out is x and st2 is st
     with pytest.raises(ValueError, match="unknown compressor"):
         get_compressor("ZipCompressor")
     assert get_compressor("").name == jget_compressor(

@@ -39,7 +39,8 @@ from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
 from autodist_tpu_torch.convert import (opt_state_from_jax,
-                                        opt_state_to_numpy, params_from_jax)
+                                        opt_state_to_numpy, params_from_jax,
+                                        params_to_numpy)
 from autodist_tpu_torch.graph_item import GraphItem, flatten
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     assign_buckets, pack_bucket, unpack_bucket)
@@ -344,16 +345,62 @@ class _PSBuilder(StrategyBuilder):
 ])
 def test_unported_options_raise_naming_their_roadmap_item(
         jmodel, builder, capture, item):
+    """The options still to port (P10) raise naming their ROADMAP item.
+    The P6 options, ported, train on one rank and match their oracle: the
+    compressors, fused groups, the pipeline and ``hier`` equal the plain
+    ``AllReduce()`` session bit for bit (the JAX package runs them on its
+    GSPMD step at data size 1, where nothing is compressed), and
+    ``staleness=2`` leaves the parameters unchanged for 2 steps, then
+    applies step 1's gradient (the optimizer fed ``[0, 0, g1]``)."""
+    import warnings
+
     _, params = jmodel
     spec = transformer_lm(**CFG)
-    ad = AutoDist(strategy_builder=builder, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
+    batch = spec.sample_batch(4, seed=2)
+
+    def session(b, **cap):
+        _reset_default_autodist_for_testing()
+        ad = AutoDist(strategy_builder=b, device="cpu")
         with ad.scope():
             ad.capture(params=params_from_jax(params),
                        optimizer=optim.adam(1e-3), loss_fn=spec.loss_fn,
-                       **capture)
-        ad.create_distributed_session()
-    assert not ad.is_built()
+                       **cap)
+        return ad, ad.create_distributed_session()
+
+    if not item.startswith("P6"):
+        ad = AutoDist(strategy_builder=builder, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
+            with ad.scope():
+                ad.capture(params=params_from_jax(params),
+                           optimizer=optim.adam(1e-3), loss_fn=spec.loss_fn,
+                           **capture)
+            ad.create_distributed_session()
+        assert not ad.is_built()
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the JAX fallbacks' warnings
+        _, sess = session(builder, **capture)
+    got = [float(sess.run(batch)["loss"]) for _ in range(3)]
+    if isinstance(builder, _PSBuilder):
+        opt, ref = optim.adam(1e-3), params_from_jax(params)
+        state, leaves = opt.init(ref), dict(flatten(ref))
+        for x in leaves.values():
+            x.requires_grad_(True)
+        loss = spec.loss_fn(ref, sess.place_batch(batch))
+        g1 = dict(zip(leaves, torch.autograd.grad(loss,
+                                                  list(leaves.values()))))
+        zeros = {n: torch.zeros_like(g) for n, g in g1.items()}
+        with torch.no_grad():
+            for g in (zeros, zeros, g1):
+                opt.step_(ref, g, state)
+        assert got[0] == got[1] == float(loss.detach())
+        _assert_params_close(sess.params, params_to_numpy(ref), atol=0)
+        return
+    _, plain = session(AllReduce(), **capture)
+    want = [float(plain.run(batch)["loss"]) for _ in range(3)]
+    assert got == want
+    for (n, a), (_, b) in zip(flatten(sess.params), flatten(plain.params)):
+        np.testing.assert_array_equal(a, b, err_msg=n)
 
 
 def test_transformer_lm_xent_chunk_matches_dense():

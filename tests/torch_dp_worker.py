@@ -19,7 +19,7 @@ state into a fresh session and writes the losses of 2 more steps.
 parameters and batches, :func:`ps_main`): the model under each of
 :data:`PS_LM_BUILDERS` with ``fusable_adam(1e-2)`` and ``numerics=
 {"clip_norm": 1.0}``, every case of :data:`CASES` under every builder of
-:data:`CASE_BUILDERS`, and the trained :data:`REFERENCE_VARIANTS` on
+:data:`CASE_BUILDERS`, and every one of :data:`REFERENCE_VARIANTS` on
 ``scan``, each case with ``adam(1e-2)`` for 3 steps.
 
 ``models`` trains each BASELINE configuration of :data:`MODEL_RUNS` (a
@@ -51,6 +51,16 @@ after epoch 1 under ``IN/{run}`` (rank 0 writes), a fresh session and a
 ``fit(resume=True)`` to the same total, and writes both runs' epoch
 losses and parameters; then the rollback policy's run with and without
 two poisoned steps (:func:`ckpt_main`).
+
+``p6`` runs the P6 options (:func:`p6_main`; ``IN``: a ``torch.save``
+file of :func:`p6_inputs`' arrays and the JAX PowerSGD state per rank):
+the compressors' ``reduce``/``reduce_scatter`` on the rows of ``IN``,
+:data:`P6_COMPRESSORS` on :func:`lin_problem` (5 steps, and 60 for
+convergence), Program E (:func:`prog_e_problem`), fused groups, bounded
+staleness and proxies on :func:`stale_problem`, the accumulation pipeline
+on the LM (even and uneven microbatches, ``Int8Compressor`` per slot) and,
+at 4 ranks, ``hier`` on :func:`hier_problem` (f32 and the int8 DCN wire)
+and a ``hier`` checkpoint restored into a flat session and back.
 
 Each rank runs one intra-op thread: ranks do not contend for the host's
 cores, and the sums come out the same on any host.
@@ -109,10 +119,7 @@ CASE_BUILDERS = ("PS", "PSLoadBalancing", "PartitionedPS",
                  "RandomAxisPartitionAR", "Parallax")
 CASE_LR = 1e-2
 #: the JAX package's reference-variant list
-#: (``tests/test_case_matrix.py:263-274``): :data:`TRAINED_VARIANTS` train
-#: on ``scan``, the others (proxy variables on PS, the Horovod compressors)
-#: raise naming P6.  ``Parallax(local_proxy_variable=True)`` trains: ``scan``
-#: has no sparse variable, so no variable is on PS to take a proxy
+#: (``tests/test_case_matrix.py:263-274``), every one trained on ``scan``
 REFERENCE_VARIANTS = (
     lambda: PS(),
     lambda: PartitionedPS(local_proxy_variable=True),
@@ -128,7 +135,6 @@ REFERENCE_VARIANTS = (
     lambda: UnevenPartitionedPS(local_proxy_variable=True),
     lambda: RandomAxisPartitionAR(chunk_size=4),
 )
-TRAINED_VARIANTS = (0, 2, 6, 7, 9)
 
 
 def case_loss(case):
@@ -289,7 +295,7 @@ def ps_main(data):
             for name in CASE_BUILDERS:
                 out[f"case/{case}/{name}"] = case_losses(
                     case, getattr(port_strategy, name)(), data)
-        for i in TRAINED_VARIANTS:
+        for i in range(len(REFERENCE_VARIANTS)):
             out[f"variant/{i}"] = case_losses("scan", REFERENCE_VARIANTS[i](),
                                               data)
     return out
@@ -481,12 +487,41 @@ CKPT_EPOCHS = 3
 
 def ckpt_runs():
     """``{name: () -> (session, batch)}`` of the ``ckpt`` mode: the plain
-    step, ZeRO-1, the facade's default and the Int8 ring (residuals in the
-    sync state)."""
+    step, ZeRO-1, the facade's default, the Int8 ring (residuals in the
+    sync state), the bf16 wire with error feedback, PowerSGD (per-variable
+    state) and bounded staleness (the delay queue)."""
     return {"allreduce": lambda: session("allreduce"),
             "zero1": lambda: session("zero1"),
             "PSLoadBalancing": lambda: session("PSLoadBalancing"),
-            "int8_allreduce": lambda: quant_session("int8_allreduce")}
+            "int8_allreduce": lambda: quant_session("int8_allreduce"),
+            "horovod_ef": lambda: lm_session(
+                AllReduce(compressor="HorovodCompressorEF")),
+            "powersgd": lambda: lm_session(
+                AllReduce(compressor="PowerSGDCompressor")),
+            "ps_stale": lambda: lm_session(PS(staleness=2),
+                                           opt=fusable_adam(1e-2))}
+
+
+def lm_session(builder, opt=None, accum=1, cfg=None, bucket=None,
+               numerics=None, rows=8):
+    """A facade session of the LM (:data:`CFG`, or ``cfg``) under
+    ``builder`` (``adam(1e-2)`` unless ``opt``), and its batch of
+    ``rows``."""
+    import warnings
+
+    torch.manual_seed(0)
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(**(cfg or CFG))
+    ad = AutoDist(strategy_builder=builder, device="cpu")
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"),
+                   optimizer=opt or optim.adam(1e-2), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars, accum_steps=accum,
+                   numerics=numerics)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the JAX fallbacks' warnings
+        sess = ad.create_distributed_session()
+    return sess, spec.sample_batch(rows, seed=1)
 
 
 def rollback_session():
@@ -557,6 +592,277 @@ def ckpt_main(directory):
              for r in hist.history.get("rollbacks", [])]).reshape(-1, 2)
         out.update({f"{tag}/p/{k}": v for k, v in flatten(sess.params)})
     return out
+
+# -- P6: compressors, fused groups, the pipeline, hier, staleness ------------
+#: the compressors of the ``p6`` mode's sessions on :func:`lin_problem`
+P6_COMPRESSORS = ("NoneCompressor", "HorovodCompressor",
+                  "HorovodCompressorEF", "PowerSGDCompressor")
+#: the resource spec of the 4-rank ``hier`` runs: 2 slices of 2
+HIER_SPEC = {"nodes": [{"address": "localhost", "chips": 4}],
+             "num_slices": 2}
+#: the pipeline runs on the LM: (name, builder, accum, rows of the batch
+#: per rank): 4 rows make 2 even microbatches, 5 an uneven tail
+PIPE_RUNS = (
+    ("zero1_pipe", lambda: Zero1(overlap="pipeline"), 2, 4),
+    ("zero1_none", lambda: Zero1(overlap="none"), 2, 4),
+    ("ar_pipe", lambda: AllReduce(bucket_bytes=1 << 20, overlap="pipeline"),
+     2, 4),
+    ("zero1_pipe_uneven", lambda: Zero1(overlap="pipeline"), 2, 5),
+    ("zero1_none_uneven", lambda: Zero1(overlap="none"), 2, 5),
+)
+#: the quantized pipelined runs (the ring at 256 KiB under "full")
+QPIPE_RUNS = (
+    ("int8_pipeline", lambda: Zero1(QUANT_BUCKET_BYTES,
+                                    compressor="Int8Compressor",
+                                    overlap="pipeline")),
+    ("int8_full", lambda: Zero1(QUANT_BUCKET_BYTES,
+                                compressor="Int8Compressor",
+                                overlap="full")),
+)
+#: the staleness runs: (name, builder kwargs, refresh period, steps)
+STALE_RUNS = (("s1", {"staleness": 1}, 1, 10),
+              ("s2", {"staleness": 2}, 1, 10),
+              ("s4", {"staleness": 4}, 1, 10),
+              ("warm3", {"staleness": 3}, 1, 3),
+              ("proxy_r2", {"local_proxy_variable": True}, 2, 8),
+              ("proxy_r1", {"local_proxy_variable": True}, 1, 6),
+              ("both", {"staleness": 2, "local_proxy_variable": True}, 2,
+               10))
+
+
+def lin_problem():
+    """``tests/test_compressors.py``'s least squares: ``(params, loss,
+    batch)`` as numpy."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(16, 8).astype(np.float32)
+    true_w = rng.randn(8, 4).astype(np.float32)
+    params = {"linear": {"w": np.zeros((8, 4), np.float32),
+                         "b": np.zeros((4,), np.float32)}}
+
+    def loss(p, b):
+        return ((b["x"] @ p["linear"]["w"] + p["linear"]["b"]
+                 - b["y"]) ** 2).mean()
+    return params, loss, {"x": x, "y": (x @ true_w).astype(np.float32)}
+
+
+def prog_e_problem(n):
+    """Program E of the JAX multichip dry run (``__graft_entry__.py:
+    243-266``) at ``n`` ranks: ``(params, loss, batch)``."""
+    rng = np.random.RandomState(3)
+    batch = {"x": rng.randn(4 * n, 8).astype(np.float32),
+             "y": rng.randn(4 * n, 4).astype(np.float32)}
+    params = {"w1": (rng.randn(8, 16) * 0.2).astype(np.float32),
+              "w2": (rng.randn(16, 4) * 0.2).astype(np.float32),
+              "b": np.zeros((4,), np.float32)}
+
+    def loss(p, b):
+        h = (b["x"] @ p["w1"]).tanh() if isinstance(b["x"], torch.Tensor) \
+            else np.tanh(b["x"] @ p["w1"])
+        return ((h @ p["w2"] + p["b"] - b["y"]) ** 2).mean()
+    return params, loss, batch
+
+
+def hier_problem():
+    """``tests/test_hier_sync.py``'s problem: ``(params, loss, batch)``."""
+    rng = np.random.RandomState(3)
+    params = {"a": {"w": (rng.randn(13, 9) * 0.1).astype(np.float32),
+                    "b": (rng.randn(9) * 0.1).astype(np.float32)},
+              "out": {"w": (rng.randn(9, 4) * 0.1).astype(np.float32)}}
+    batch = {"x": rng.randn(16, 13).astype(np.float32),
+             "y": rng.randn(16, 4).astype(np.float32)}
+
+    def loss(p, b):
+        h = torch.tanh(b["x"] @ p["a"]["w"] + p["a"]["b"])
+        return ((h @ p["out"]["w"] - b["y"]) ** 2).mean()
+    return params, loss, batch
+
+
+def stale_problem(steps):
+    """``tests/test_stale_sync.py``'s problem and batches: ``(params, loss,
+    batches)``."""
+    params = {"w": np.zeros((4, 1), np.float32)}
+    rng = np.random.RandomState(3)
+    batches = [{"x": rng.randn(16, 4).astype(np.float32),
+                "y": rng.randn(16, 1).astype(np.float32)}
+               for _ in range(steps)]
+
+    def loss(p, b):
+        return ((b["x"] @ p["w"] - b["y"]) ** 2).mean()
+    return params, loss, batches
+
+
+def p6_inputs(n, seed=5):
+    """The compressor units' rows: ``{"g": [n, 6, 5], "s": [n, 6, 5],
+    "v": [n, 40]}`` f32 (a gradient, an EF residual and a flat bucket per
+    rank)."""
+    rng = np.random.RandomState(seed)
+    return {"g": rng.randn(n, 6, 5).astype(np.float32),
+            "s": (rng.randn(n, 6, 5) * 1e-3).astype(np.float32),
+            "v": rng.randn(n, 40).astype(np.float32)}
+
+
+def facade(builder, params, loss, opt, accum=1, spec=None):
+    """A facade session of ``loss`` from numpy ``params``."""
+    import warnings
+
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    _reset_default_autodist_for_testing()
+    ad = AutoDist(strategy_builder=builder, device="cpu",
+                  resource_spec=ResourceSpec(resource_info=spec)
+                  if spec else None)
+    with ad.scope():
+        ad.capture(params=unflatten([(k, torch.from_numpy(np.array(v)))
+                                     for k, v in flatten(params)]),
+                   optimizer=opt, loss_fn=loss, accum_steps=accum)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return ad.create_distributed_session()
+
+
+def _params_out(out, prefix, sess):
+    out.update({f"{prefix}/p/{k}": v for k, v in flatten(sess.params)})
+
+
+def p6_main(inputs):
+    """The ``p6`` mode: ``{key: array}`` of every run (see the module
+    docstring)."""
+    from autodist_tpu_torch.kernel.synchronization.compressor import \
+        get_compressor
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    group = dist.group.WORLD
+    out = {}
+    # the compressor units
+    g, st, v = (torch.from_numpy(inputs[k][rank]) for k in ("g", "s", "v"))
+    for name in ("HorovodCompressor", "HorovodCompressorEF"):
+        comp = get_compressor(name)
+        state = st if name.endswith("EF") else None
+        red, new = comp.reduce(g, state, group, n)
+        out[f"unit/{name}/reduce"] = red.numpy()
+        shard, new2 = comp.reduce_scatter(v, None if state is None
+                                          else v * 1e-3, group, n)
+        out[f"unit/{name}/rs"] = shard.numpy()
+        if state is not None:
+            out[f"unit/{name}/state"] = new.numpy()
+            out[f"unit/{name}/rs_state"] = new2.numpy()
+    comp = get_compressor("PowerSGDCompressor")
+    q = torch.from_numpy(inputs["q"])
+    red, new = comp.reduce(g, {"q": q, "residual": st}, group, n)
+    out["unit/PowerSGD/reduce"] = red.numpy()
+    out["unit/PowerSGD/q"] = new["q"].numpy()
+    out["unit/PowerSGD/residual"] = new["residual"].numpy()
+
+    # sessions on the least squares
+    params, loss, batch = lin_problem()
+    for name in P6_COMPRESSORS:
+        for steps in (5, 60):
+            sess = facade(AllReduce(compressor=name), params, loss,
+                          optim.sgd(0.1))
+            if name == "PowerSGDCompressor":
+                sess.import_state(sess.params, sess.opt_state,
+                                  sync_state=inputs["psgd"][rank])
+            out[f"comp/{name}/{steps}"] = np.array(
+                [float(sess.run(batch)["loss"]) for _ in range(steps)])
+            if steps == 5:
+                _params_out(out, f"comp/{name}", sess)
+
+    # Program E and fused groups
+    params, loss, batch = prog_e_problem(n)
+    for tag, builder, accum in (
+            ("e_comp", AllReduce(compressor="HorovodCompressorEF",
+                                 fused_groups=True, chunk_size=2), 2),
+            ("e_ref", AllReduce(), 2),
+            ("fused", AllReduce(chunk_size=2, fused_groups=True), 1),
+            ("plain", AllReduce(chunk_size=2), 1)):
+        sess = facade(builder, params, loss, optim.sgd(0.1), accum=accum)
+        out[f"{tag}/losses"] = np.array(
+            [float(sess.run(batch)["loss"]) for _ in range(5)])
+        out[f"{tag}/buckets"] = np.array(
+            sorted(b.key for b in sess._step.buckets))
+        out[f"{tag}/sync"] = np.array(sorted(sess.sync_state))
+        _params_out(out, tag, sess)
+
+    # bounded staleness and proxies
+    for tag, kw, refresh, steps in STALE_RUNS:
+        os.environ["AUTODIST_PROXY_REFRESH"] = str(refresh)
+        params, loss, batches = stale_problem(steps)
+        sess = facade(PS(**kw), params, loss, optim.sgd(0.1))
+        for b in batches:
+            sess.run(b)
+        out[f"stale/{tag}/w"] = sess.params["w"]
+    os.environ.pop("AUTODIST_PROXY_REFRESH", None)
+
+    # the accumulation pipeline on the LM
+    for tag, make, accum, rows in PIPE_RUNS:
+        sess, batch = lm_session(make(), accum=accum, rows=rows * n)
+        out[f"pipe/{tag}/losses"] = np.array(
+            [float(sess.run(batch)["loss"]) for _ in range(3)])
+        _params_out(out, f"pipe/{tag}", sess)
+    for tag, make in QPIPE_RUNS:
+        sess, batch = lm_session(make(), opt=fusable_adam(QUANT_LR),
+                                 accum=2, cfg=QUANT_CFG,
+                                 numerics={"clip_norm": CLIP})
+        res = [sess.run(batch) for _ in range(3)]
+        out[f"qpipe/{tag}/losses"] = np.array([float(r["loss"])
+                                               for r in res])
+        out[f"qpipe/{tag}/algs"] = np.array(sorted(
+            f"{k}={a}" for k, a in sess._step.bucket_algs.items()))
+        _params_out(out, f"qpipe/{tag}", sess)
+
+    if n == 4:
+        out.update(p6_hier_main())
+    return out
+
+
+def p6_hier_main():
+    """The 4-rank ``hier`` runs: flat and two-tier ``AllReduce`` and
+    ``Zero1`` on :func:`hier_problem`, f32 and with the int8 DCN wire, and
+    a two-tier ZeRO-1 checkpoint restored flat and back."""
+    import tempfile
+
+    from autodist_tpu_torch.checkpoint import Saver
+
+    out = {}
+    params, loss, batch = hier_problem()
+    for wire in ("f32", "int8"):
+        if wire == "int8":
+            os.environ["AUTODIST_DCN_WIRE"] = "int8"
+        for tag, make in (("ar", lambda h: AllReduce(bucket_bytes=1 << 20,
+                                                     hier=h)),
+                          ("zero1", lambda h: Zero1(hier=h))):
+            for hier in (False, True):
+                sess = facade(make(hier), params, loss, optim.adam(1e-2),
+                              spec=HIER_SPEC)
+                key = f"hier/{wire}/{tag}/{'hier' if hier else 'flat'}"
+                out[f"{key}/losses"] = np.array(
+                    [float(sess.run(batch)["loss"]) for _ in range(5)])
+                out[f"{key}/hier_keys"] = np.array(
+                    len(sess._step.hier_keys))
+                _params_out(out, key, sess)
+        os.environ.pop("AUTODIST_DCN_WIRE", None)
+    # a hier checkpoint restored flat, a flat one restored hier
+    directory = tempfile.mkdtemp() if dist.get_rank() == 0 else None
+    holder = [directory]
+    dist.broadcast_object_list(holder)
+    for src, dst in ((True, False), (False, True)):
+        a = facade(Zero1(hier=src), params, loss, optim.adam(1e-2),
+                   spec=HIER_SPEC)
+        for _ in range(2):
+            a.run(batch)
+        path = Saver(a).save(os.path.join(holder[0], f"h{int(src)}"))
+        b = facade(Zero1(hier=dst), params, loss, optim.adam(1e-2),
+                   spec=HIER_SPEC)
+        Saver(b).restore(path)
+        tag = f"hier_ckpt/{int(src)}to{int(dst)}"
+        (pa, oa), (pb, ob) = a.export_state(), b.export_state()
+        out[f"{tag}/same"] = np.array(all(
+            torch.equal(x, y) for (_, x), (_, y) in
+            zip(flatten({"p": pa, "o": oa}), flatten({"p": pb, "o": ob}))))
+        out[f"{tag}/next"] = np.array([float(a.run(batch)["loss"]),
+                                       float(b.run(batch)["loss"])])
+    return out
+
 
 
 def session(strategy="allreduce", device="cpu"):
@@ -650,6 +956,10 @@ def main():
             return
         if strategy == "levers":
             np.savez(out, **levers_main(np.load(sys.argv[6])))
+            return
+        if strategy == "p6":
+            np.savez(out, **p6_main(torch.load(sys.argv[6],
+                                               weights_only=False)))
             return
         if strategy == "ckpt":
             np.savez(out, **ckpt_main(sys.argv[6]))
