@@ -18,6 +18,9 @@ Both packages key parameters by the same logical names
   one rank's shards:
   from the ZeRO-1 layout of the JAX explicit step, or from the
   per-variable state of a JAX PS session (its GSPMD step);
+* :func:`lora_from_jax` carries a LoRA adapter tree (``{dotted name:
+  {"a", "b"}}``), its random init included: the JAX package draws it
+  from its own keys, which a ``torch.Generator`` cannot reproduce;
 * :func:`sync_state_from_jax` carries the numerics state (loss scale and
   health counters), one rank's compressor states (error-feedback
   residuals, PowerSGD's basis and residual) and the bounded-staleness
@@ -82,6 +85,24 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         return _tensor(node, device)
 
     return walk(tree)
+
+
+def lora_from_jax(adapters: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The JAX package's LoRA adapter tree (numpy leaves) → the port's on
+    ``device``, for ``models.lora_merge`` or the ``"lora"`` half of a
+    ``lora_setup`` capture.  Each entry must be an ``{"a": [fan_in, r],
+    "b": [r, fan_out]}`` pair of one rank."""
+    out: Dict[str, Any] = {}
+    for name, pair in adapters.items():
+        if not isinstance(pair, dict) or set(pair) != {"a", "b"}:
+            raise ValueError(f"LoRA entry {name!r} is not an (a, b) pair")
+        a, b = (_tensor(pair[k], device) for k in ("a", "b"))
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(
+                f"LoRA entry {name!r}: a {tuple(a.shape)} and b "
+                f"{tuple(b.shape)} are not [fan_in, r] and [r, fan_out]")
+        out[name] = {"a": a, "b": b}
+    return out
 
 
 def _is_masked(node) -> bool:

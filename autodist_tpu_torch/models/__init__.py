@@ -2,10 +2,10 @@
 weight-only int8 tree, and the reference's benchmark families:
 ``resnet50``/``resnet101``, ``vgg16``, ``densenet121``, ``inception_v3``,
 ``bert`` (``bert_base``, ``bert_large``), the ``lm1b`` LSTM and ``ncf``.
-``ALL_MODELS`` is the JAX package's dict.  The JAX package's LoRA helpers
-and speculative generator (P11) and its mesh-parameterized models (P10)
-are names that raise naming their ROADMAP item."""
-from autodist_tpu_torch.const import P10, P11, unported_function
+``ALL_MODELS`` is the JAX package's dict.  The LoRA helpers and the
+speculative generator are ported; the JAX package's mesh-parameterized
+models (P10) are names that raise naming their ROADMAP item."""
+from autodist_tpu_torch.const import P10, unported_function
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
                                             resolve_device)
 from autodist_tpu_torch.models.bert import bert, bert_base, bert_large
@@ -13,19 +13,16 @@ from autodist_tpu_torch.models.densenet import densenet121
 from autodist_tpu_torch.models.generate import make_generator
 from autodist_tpu_torch.models.inception import inception_v3
 from autodist_tpu_torch.models.lm1b import lm1b
+from autodist_tpu_torch.models.lora import lora_init, lora_merge, lora_setup
 from autodist_tpu_torch.models.ncf import ncf
 from autodist_tpu_torch.models.quantize import (dequantize_lm_params,
                                                 quantize_lm_params)
 from autodist_tpu_torch.models.resnet import resnet50, resnet101
+from autodist_tpu_torch.models.speculative import make_speculative_generator
 from autodist_tpu_torch.models.transformer_lm import (TransformerLM,
                                                       transformer_lm)
 from autodist_tpu_torch.models.vgg import vgg16
 
-lora_init = unported_function("lora_init", "LoRA adapters", P11)
-lora_merge = unported_function("lora_merge", "LoRA adapters", P11)
-lora_setup = unported_function("lora_setup", "LoRA adapters", P11)
-make_speculative_generator = unported_function(
-    "make_speculative_generator", "the speculative generator", P11)
 moe_transformer_lm = unported_function(
     "moe_transformer_lm", "the expert-parallel MoE LM", P10)
 pipelined_transformer_lm = unported_function(

@@ -120,13 +120,23 @@ def _d_ff(layer_params) -> int:
 
 
 def _token_step(layer_params, ln_final_scale, embed, x, k_cache, v_cache,
-                pos: int, total_len: int):
+                pos: int, total_len: int, attn_mask=None, prefix_kv=None,
+                prefix_mask=None):
     """One decode position through all layers.  ``x``: [B, D] embedded
     input; ``k_cache``/``v_cache``: [L, T, B, H, Dh], written in place at
-    ``pos``; cache positions ``0..pos`` attend.  Returns logits [B, V]."""
+    ``pos``; cache positions ``0..pos`` attend.  Returns logits [B, V].
+
+    ``attn_mask``: optional [B, total_len] bool of attendable cache
+    positions (the slot engine's per-slot ring windows) in place of
+    ``arange(total_len) <= pos``.  ``prefix_kv``: optional ``(kp, vp)``
+    each [L, Pp, H, Dh], a SHARED cached prefix attended by the rows
+    whose ``prefix_mask`` [B, Pp] says so, logically before the cache."""
     heads, hd = k_cache.shape[-2], k_cache.shape[-1]
     layer = decode_layer(heads, hd, _d_ff(layer_params))
-    mask = (torch.arange(total_len, device=x.device) <= pos)[None, None]
+    if attn_mask is None:
+        mask = (torch.arange(total_len, device=x.device) <= pos)[None, None]
+    else:
+        mask = attn_mask[:, None, :]                      # [B, 1, T]
     x = x[:, None, :]                                    # [B, 1, D]
     for i, lp in enumerate(layer_params):
 
@@ -135,12 +145,25 @@ def _token_step(layer_params, ln_final_scale, embed, x, k_cache, v_cache,
             k_cache[_i, pos] = k[:, 0].to(k_cache.dtype)
             v_cache[_i, pos] = v[:, 0].to(v_cache.dtype)
             depth = q.shape[-1]
+            scale = q.new_tensor(float(depth)).sqrt()
+            neg = torch.finfo(q.dtype).min
             logits = torch.einsum("bhk,tbhk->bht", q[:, 0],
-                                  k_cache[_i].to(q.dtype)) \
-                / q.new_tensor(float(depth)).sqrt()
-            logits = torch.where(mask, logits,
-                                 torch.finfo(logits.dtype).min)
+                                  k_cache[_i].to(q.dtype)) / scale
+            logits = torch.where(mask, logits, neg)
+            if prefix_kv is not None:
+                kp, vp = prefix_kv
+                pl = torch.einsum("bhk,phk->bhp", q[:, 0],
+                                  kp[_i].to(q.dtype)) / scale
+                pl = torch.where(prefix_mask[:, None, :], pl, neg)
+                logits = torch.cat([pl, logits], dim=-1)
             probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            if prefix_kv is not None:
+                pp = prefix_kv[0].shape[1]
+                out = torch.einsum("bhp,phk->bhk", probs[..., :pp],
+                                   prefix_kv[1][_i].to(q.dtype))
+                out = out + torch.einsum("bht,tbhk->bhk", probs[..., pp:],
+                                         v_cache[_i].to(q.dtype))
+                return out[:, None]
             return torch.einsum("bht,tbhk->bhk", probs,
                                 v_cache[_i].to(q.dtype))[:, None]
 
@@ -150,23 +173,54 @@ def _token_step(layer_params, ln_final_scale, embed, x, k_cache, v_cache,
 
 
 def _prefill_forward(layer_params, ln_final_scale, embed, pos_embed,
-                     tokens_2d, heads: int, head_dim: int):
+                     tokens_2d, heads: int, head_dim: int, prefix_kv=None,
+                     plen: int = 0):
     """Parallel prompt prefill: ONE causal forward over ``tokens_2d``
     [K, P] that also returns every layer's K/V.  Returns ``(xs [K, P, D]
     final-normed activations, ks [L, K, P, H, Dh], vs [L, K, P, H, Dh])``.
     Dense attention deliberately (the JAX package's choice: prompt
     buckets sit far below the flash crossover, and dense keeps prefill
-    numerics closest to tick-by-tick decode)."""
+    numerics closest to tick-by-tick decode).
+
+    ``prefix_kv``/``plen``: a SHARED cached prefix ``(kp, vp)`` each
+    [L, Ppb, H, Dh] every row attends besides its causal self-window,
+    positions offset by ``plen`` (bucket pad rows beyond ``plen`` masked,
+    position ids clamped)."""
     layer = decode_layer(heads, head_dim, _d_ff(layer_params))
     p = tokens_2d.shape[1]
-    x = promote_f32(embed_lookup(embed, tokens_2d, pos_embed.dtype)
-                    + pos_embed[None, :p])
+    x = embed_lookup(embed, tokens_2d, pos_embed.dtype)
+    if plen:
+        pos_ids = torch.clamp(plen + torch.arange(p, device=x.device), 0,
+                              pos_embed.shape[0] - 1)
+        x = x + pos_embed[pos_ids][None]
+    else:
+        x = x + pos_embed[None, :p]
+    x = promote_f32(x)
     ks, vs = [], []
 
     def capture_attn(q, k, v, causal):
+        i = len(ks)
         ks.append(k)
         vs.append(v)
-        return dense_attention(q, k, v, causal)
+        if prefix_kv is None:
+            return dense_attention(q, k, v, causal)
+        kp, vp = prefix_kv
+        scale = q.new_tensor(float(q.shape[-1])).sqrt()
+        neg = torch.finfo(q.dtype).min
+        sl = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
+        causal_m = torch.ones(sl.shape[-2:], dtype=torch.bool,
+                              device=q.device).tril()
+        sl = torch.where(causal_m, sl, neg)
+        ppb = kp.shape[1]
+        pl = torch.einsum("bqhd,phd->bhqp", q, kp[i].to(q.dtype)) / scale
+        pmask = (torch.arange(ppb, device=q.device) < plen)[None, None,
+                                                              None, :]
+        pl = torch.where(pmask, pl, neg)
+        probs = torch.softmax(torch.cat([pl, sl], dim=-1).float(),
+                              dim=-1).to(q.dtype)
+        out = torch.einsum("bhqp,phd->bqhd", probs[..., :ppb],
+                           vp[i].to(q.dtype))
+        return out + torch.einsum("bhqk,bkhd->bqhd", probs[..., ppb:], v)
 
     for lp in layer_params:
         x = layer(lp, x, capture_attn)
@@ -189,7 +243,8 @@ def make_generator(spec: ModelSpec, device=None):
 
     Returns ``[B, P + max_new_tokens]`` int64 tokens (prompt included);
     ``.with_logits`` also returns the per-position logits
-    ``[total-1, B, V]``."""
+    ``[total-1, B, V]``; ``.beam_search(params, prompt, n, num_beams=4)``
+    and ``.score(params, tokens)`` are the JAX generator's."""
     require_lm_spec(spec, "make_generator")
     dev = resolve_device(device)
     cfg = spec.config
@@ -257,5 +312,95 @@ def make_generator(spec: ModelSpec, device=None):
                               -1 if eos_id is None else int(eos_id), False)
         return tokens
 
+    @torch.no_grad()
+    def _beam_generate(params, prompt, max_new_tokens: int, w: int):
+        embed, pos_embed, layer_params, ln_final = unpack_lm_params(
+            params, num_layers)
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        b, p_len = prompt.shape
+        total = p_len + max_new_tokens
+        if total > cfg["max_len"]:
+            raise ValueError(
+                f"prompt + max_new_tokens = {total} exceeds the model's "
+                f"max_len {cfg['max_len']}")
+        tokens = torch.cat([prompt, prompt.new_zeros((b, max_new_tokens))],
+                           dim=1)
+        # Phase 1: prefill at batch B (all beams would be identical).
+        k_cache = torch.zeros((num_layers, total, b, heads, hd),
+                              dtype=pos_embed.dtype, device=dev)
+        v_cache = torch.zeros_like(k_cache)
+        for pos in range(p_len - 1):
+            x = promote_f32(embed_lookup(embed, tokens[:, pos],
+                                         pos_embed.dtype) + pos_embed[pos])
+            _token_step(layer_params, ln_final, embed, x, k_cache, v_cache,
+                        pos, total)
+        # Fan out once: beams ride the batch dim ([B·W] rows); beams
+        # 1..W-1 start at -1e30 so the first position fans out of beam 0.
+        tokens = tokens.repeat_interleave(w, dim=0)
+        k_cache = k_cache.repeat_interleave(w, dim=2)
+        v_cache = v_cache.repeat_interleave(w, dim=2)
+        logprobs = torch.tensor([0.0] + [-1e30] * (w - 1),
+                                device=dev).repeat(b, 1)        # [B, W]
+        base = (torch.arange(b, device=dev) * w)[:, None]
+        for pos in range(p_len - 1, total - 1):
+            x = promote_f32(embed_lookup(embed, tokens[:, pos],
+                                         pos_embed.dtype) + pos_embed[pos])
+            logits = _token_step(layer_params, ln_final, embed, x, k_cache,
+                                 v_cache, pos, total)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            v = logp.shape[-1]
+            # the beam score is the logprob of the GENERATED suffix
+            scores = (logprobs[..., None]
+                      + logp.reshape(b, w, v)).reshape(b, w * v)
+            logprobs, top_idx = torch.topk(scores, w, dim=-1)   # [B, W]
+            src = (base + torch.div(top_idx, v, rounding_mode="floor")
+                   ).reshape(-1)
+            tokens = tokens.index_select(0, src)
+            k_cache = k_cache.index_select(2, src)
+            v_cache = v_cache.index_select(2, src)
+            tokens[:, pos + 1] = (top_idx % v).reshape(-1)
+        best = torch.argmax(logprobs, dim=-1)                   # [B]
+        tokens = tokens.reshape(b, w, total)
+        return (tokens[torch.arange(b, device=dev), best],
+                logprobs.max(dim=-1).values)
+
+    def beam_search(params, prompt, max_new_tokens: int,
+                    num_beams: int = 4):
+        """Beam-search decode; returns ``(tokens [B, P+N], logprob [B])``,
+        the total log-probability of the generated suffix.  No
+        ``eos_id``: finished-beam bookkeeping is another algorithm."""
+        if num_beams < 1:
+            raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        vocab = _vocab_size(params)
+        if num_beams > vocab:
+            # beyond V beams the -1e30 starter beams would survive the
+            # first top-k as degenerate beams
+            raise ValueError(
+                f"num_beams must be <= vocab_size={vocab}, got {num_beams}")
+        return _beam_generate(params, prompt, int(max_new_tokens),
+                              int(num_beams))
+
+    @torch.no_grad()
+    def score(params, tokens):
+        """Teacher-forced scoring: ``(log_likelihood [B], perplexity
+        [B])`` of ``tokens[:, 1:]`` given the prefix, from ONE parallel
+        forward (``spec.apply_fn``: the flash forward K1 on the card)."""
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        if tokens.shape[1] < 2:
+            raise ValueError("score needs sequences of length >= 2 "
+                             "(nothing to predict for a single token)")
+        if is_quantized(params):
+            raise ValueError(
+                "score runs the full parallel forward (spec.apply_fn) "
+                "and needs full-precision params: decode-only int8 trees "
+                "(quantize_lm_params) are not scoreable; keep the "
+                "original params for scoring")
+        logits = spec.apply_fn(params, tokens)[:, :-1]          # [B, T-1, V]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, tokens[:, 1:, None])[..., 0].sum(dim=1)
+        return ll, torch.exp(-ll / (tokens.shape[1] - 1))
+
     generate.with_logits = with_logits
+    generate.beam_search = beam_search
+    generate.score = score
     return generate

@@ -394,7 +394,8 @@ def _paged_chunk_program(n: int, knobs, params, tokens, kc, vc, bt, start,
 @torch.no_grad()
 def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
                            bt_rows, slot_ids, n_shared, c_lens, is_final,
-                           temp, rng, any_sampled: bool):
+                           temp, rng, any_sampled: bool,
+                           with_preds: bool = False):
     """One prefill CHUNK for K rows: a [K, Pb]-parallel causal forward
     over each row's next ``c_lens[k]`` uncharged prompt tokens, with
     everything already charged — trie-cached prefix blocks AND earlier
@@ -410,9 +411,11 @@ def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
     last row) write identical K/V to the same places; the token they
     deposit is read back as ``landed`` (returned, on the device).
 
-    Only the last position's logits are computed: the every-position
-    argmax the JAX program also returns serves speculative verify, which
-    this port does not have yet.  ``knobs`` = (top_k, top_p,
+    ``with_preds`` (speculative verify) computes every position's logits
+    and also returns ``preds`` [K, Pb], the greedy argmax at each chunk
+    position: the ``n_shared`` context mask makes a multi-token verify
+    the same program as a prefill chunk.  Otherwise only the last
+    position's logits are computed.  ``knobs`` = (top_k, top_p,
     block_size)."""
     top_k, top_p, bs = knobs
     num_layers = kc.shape[0]
@@ -463,14 +466,22 @@ def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
     kc[:, blk, off] = torch.stack(ks).to(kc.dtype)          # [L,K,Pb,H,Dh]
     vc[:, blk, off] = torch.stack(vs).to(vc.dtype)
 
-    last = x[torch.arange(k_rows, device=dev),
-             torch.clamp(c_lens - 1, 0, pb - 1)]            # [K, D]
-    logits = head_logits(embed, last)                       # [K, V]
+    last_pos = torch.clamp(c_lens - 1, 0, pb - 1)
+    rows = torch.arange(k_rows, device=dev)
+    if with_preds:
+        all_logits = head_logits(embed, x.reshape(k_rows * pb, -1)) \
+            .reshape(k_rows, pb, -1)                        # [K, Pb, V]
+        preds = torch.argmax(all_logits, dim=-1)
+        logits = all_logits[rows, last_pos]                 # [K, V]
+    else:
+        logits = head_logits(embed, x[rows, last_pos])      # [K, V]
     toks = _sample_per_slot(logits, rng, temp[slot_ids], top_k, top_p,
                             any_sampled)
     w_pos = torch.clamp(n_shared + c_lens, 0, tokens.shape[1] - 1)
     cur = tokens[slot_ids, w_pos]
     tokens[slot_ids, w_pos] = torch.where(is_final, toks, cur)
+    if with_preds:
+        return tokens[slot_ids, w_pos], preds
     return tokens[slot_ids, w_pos]
 
 

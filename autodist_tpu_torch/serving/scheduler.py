@@ -21,14 +21,25 @@ programs never see a request boundary.
   pieces interleaved with decode chunks.
 * **Deadlines.**  Past-deadline requests are cancelled at the next step
   boundary wherever they sit; infeasible ones are shed at submit.
+* **Speculative decoding.**  With ``draft_spec``/``draft_params`` the
+  engine replaces per-token decode ticks with draft-and-verify rounds:
+  the draft proposes ``gamma`` tokens through its OWN paged K/V (its
+  pages come from the SAME :class:`BlockPool`; admission reserves both
+  spans, draft blocks are request-private and never trie-shared), then
+  the target verifies all ``gamma + 1`` candidates in one
+  ``_paged_prefill_program`` dispatch.  Greedy acceptance keeps the
+  output token-exact against the target alone.  ``gamma`` adapts every
+  round: it shrinks toward 1 when the latency queue backs up or no slot
+  is free, regrows when slots idle, and an acceptance-length EWMA caps
+  it.
 
 Host syncs sit where the JAX engine fetched device arrays: once per
 decode chunk (the done flags), once per prefill dispatch (the landed
-tokens) and at harvest (a finished row's tokens) — never per tick.
+tokens), once per speculative round (the verify's predictions with the
+proposals) and at harvest (a finished row's tokens) — never per tick.
 
-Not ported yet: speculative decoding (``draft_spec``), the mesh-sharded
-pool (``mesh``) and the telemetry spans/events; passing ``draft_spec=``
-or ``mesh=`` raises.
+Not ported yet: the mesh-sharded pool (``mesh=`` raises) and the
+telemetry spans/events.
 """
 from __future__ import annotations
 
@@ -40,17 +51,19 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P10, P11, not_ported
+from autodist_tpu_torch.const import P10, not_ported
 from autodist_tpu_torch.models.base import ModelSpec, resolve_device
 from autodist_tpu_torch.models.generate import (_vocab_size,
                                                 check_sampling_args,
                                                 require_lm_spec)
 from autodist_tpu_torch.serving.engine import (AdmissionError, DeadlineError,
-                                               TEMPERATURE_FLOOR,
-                                               _write_prompt_program)
+                                               _write_prompt_program,
+                                               check_request_knobs,
+                                               check_speculative_args)
 from autodist_tpu_torch.serving.paged_kv import (SCRATCH_BLOCK, BlockPool,
                                                  BlockPoolExhausted,
                                                  PrefixTrie,
+                                                 _commit_tokens_program,
                                                  _paged_chunk_program,
                                                  _paged_prefill_program)
 
@@ -81,6 +94,18 @@ class PagedRequest:
     blocks: List[int] = field(default_factory=list)
     slot: Optional[int] = None
     charged: int = 0               # prompt tokens whose K/V are in pool
+    # Speculative-mode lifecycle (unused on a target-only engine):
+    gamma: int = 0                 # per-request proposal-depth cap
+    draft_blocks: List[int] = field(default_factory=list)
+    draft_charged: int = 0         # prompt tokens in the DRAFT's pages
+    spec_rounds: int = 0           # draft-and-verify rounds this request
+    spec_proposed: int = 0         # draft tokens proposed
+    spec_accepted: int = 0         # draft tokens accepted
+    spec_bonus: int = 0            # target bonus tokens committed
+    # wall time of the two round windows: the draft window covers its
+    # dispatch, the verify window the verify, its sync and acceptance
+    draft_s: float = 0.0
+    verify_s: float = 0.0
 
 
 @dataclass
@@ -101,8 +126,26 @@ class PagedEngineStats:
     prompt_tokens: int = 0
     cached_prompt_tokens: int = 0  # prompt tokens served from the trie
     prefix_requests: int = 0       # requests with >= 1 cached block
+    spec_rounds: int = 0           # per-request draft-and-verify rounds
+    draft_prefill_dispatches: int = 0
+    draft_tokens_proposed: int = 0
+    draft_tokens_accepted: int = 0
+    bonus_tokens: int = 0          # target tokens at the first mismatch
 
     _slots: int = field(default=0, repr=False)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target's argmax confirmed."""
+        return (self.draft_tokens_accepted / self.draft_tokens_proposed
+                if self.draft_tokens_proposed else 0.0)
+
+    @property
+    def mean_accept_len(self) -> float:
+        """Mean accepted draft tokens per verify round (the always
+        committed bonus token excluded)."""
+        return (self.draft_tokens_accepted / self.spec_rounds
+                if self.spec_rounds else 0.0)
 
     @property
     def slot_utilization(self) -> float:
@@ -145,10 +188,15 @@ class PagedDecodeEngine:
     params must live there.  ``rng`` is a ``torch.Generator`` on that
     device for sampled requests.
 
+    ``draft_spec``/``draft_params`` turn on speculative decoding with
+    proposal depth ``gamma`` (adapted to SLO pressure when
+    ``adapt_gamma``); it is greedy-only.
+
     ``timeline`` keeps the wall time of recent device dispatches —
-    ``("decode", ticks, live_slot_ticks, seconds)`` and
-    ``("prefill", rows, prompt_tokens, seconds)`` — each closed by the
-    dispatch's own host sync.
+    ``("decode", ticks, live_slot_ticks, seconds)``,
+    ``("prefill", rows, prompt_tokens, seconds)`` and, per speculative
+    round, ``("spec", live_slots, committed_tokens, seconds,
+    draft_ticks)`` — each closed by the dispatch's own host sync.
     """
 
     def __init__(self, spec: ModelSpec, params, *, slots: int = 8,
@@ -161,14 +209,12 @@ class PagedDecodeEngine:
                  eos_id: Optional[int] = None,
                  rng: Optional[torch.Generator] = None, device=None,
                  mesh=None, draft_spec: Optional[ModelSpec] = None,
-                 draft_params=None,
+                 draft_params=None, gamma: int = 4,
+                 adapt_gamma: bool = True,
                  deadline_defaults: Optional[Dict[str, float]] = None):
         if mesh is not None:
             raise not_ported("PagedDecodeEngine(mesh=...), the sharded pool",
                              P10)
-        if draft_spec is not None or draft_params is not None:
-            raise not_ported("PagedDecodeEngine(draft_spec=...), "
-                             "speculative decoding", P11)
         require_lm_spec(spec, "PagedDecodeEngine")
         cfg = spec.config
         self._device = resolve_device(device)
@@ -201,7 +247,31 @@ class PagedDecodeEngine:
                 f"and reserve_blocks={reserve_blocks}")
         vocab = _vocab_size(params)
         check_sampling_args(vocab, temperature, top_k, top_p, eos_id, rng)
+        if (draft_spec is None) != (draft_params is None):
+            raise ValueError("draft_spec and draft_params must be "
+                             "passed together")
+        if draft_spec is not None:
+            require_lm_spec(draft_spec, "PagedDecodeEngine draft")
+            dcfg = draft_spec.config
+            if dcfg["vocab_size"] != cfg["vocab_size"]:
+                raise ValueError(
+                    f"target/draft vocab mismatch: {cfg['vocab_size']} "
+                    f"vs {dcfg['vocab_size']}")
+            if window > dcfg["max_len"]:
+                raise ValueError(
+                    f"window={window} exceeds the draft model's "
+                    f"max_len {dcfg['max_len']}")
+            if draft_params["pos_embed"].device != self._device:
+                raise ValueError(
+                    f"draft params live on "
+                    f"{draft_params['pos_embed'].device}, the engine "
+                    f"runs on {self._device}")
+            check_speculative_args(gamma, temperature)
 
+        self._draft_spec = draft_spec
+        self._draft_params = draft_params
+        self._gamma_max = int(gamma)
+        self._adapt_gamma = bool(adapt_gamma)
         self._spec = spec
         self._params = params
         self._cfg = cfg
@@ -260,6 +330,7 @@ class PagedDecodeEngine:
     def _alloc_state(self) -> None:
         slots, w, cfg = self._slots, self._window, self._cfg
         self._tokens = self._kc = self._vc = None   # drop before realloc
+        self._dkc = self._dvc = None
         self._start = np.zeros(slots, np.int64)
         self._p_end = np.zeros(slots, np.int64)
         self._end = np.zeros(slots, np.int64)
@@ -268,6 +339,15 @@ class PagedDecodeEngine:
         self._temp = np.full(slots, self._temperature, np.float32)
         self._eos = np.full(slots, self._eos_id, np.int64)
         self._bt = np.full((slots, self._maxb), SCRATCH_BLOCK, np.int32)
+        # Speculative state: the draft's block table (same pool, same
+        # shape), per-slot committed-token counts (rounds advance by a
+        # variable amount) and the gamma adaptation.
+        self._dbt = np.full((slots, self._maxb), SCRATCH_BLOCK, np.int32)
+        self._committed = np.zeros(slots, np.int64)
+        self._gamma = self._gamma_max              # SLO-adapted, [1, max]
+        self._accept_ewma = float(self._gamma_max)  # optimistic start
+        self._gamma_hist: Dict[int, int] = {}
+        self._draft_blocks_live = 0
         self._tick = 0
         dtype = self._params["pos_embed"].dtype
         pool_shape = (cfg["num_layers"], self._num_blocks, self._block_size,
@@ -276,6 +356,13 @@ class PagedDecodeEngine:
                                    device=self._device)
         self._kc = torch.zeros(pool_shape, dtype=dtype, device=self._device)
         self._vc = torch.zeros(pool_shape, dtype=dtype, device=self._device)
+        if self._draft_spec is not None:
+            dcfg = self._draft_spec.config
+            dshape = (dcfg["num_layers"], self._num_blocks, self._block_size,
+                      dcfg["num_heads"], dcfg["head_dim"])
+            ddtype = self._draft_params["pos_embed"].dtype
+            self._dkc = torch.zeros(dshape, dtype=ddtype, device=self._device)
+            self._dvc = torch.zeros(dshape, dtype=ddtype, device=self._device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
@@ -340,8 +427,13 @@ class PagedDecodeEngine:
                temperature: Optional[float] = None,
                eos_id: Optional[int] = None, slo: str = SLO_LATENCY,
                use_prefix: bool = False, trace_id: str = "",
+               gamma: Optional[int] = None,
                deadline_s: Optional[float] = None) -> int:
         """Queue a request into its SLO class; returns its id.
+
+        On a speculative engine ``gamma`` caps THIS request's proposal
+        depth (default: the engine's ``gamma``); the SLO adaptation only
+        shrinks below it.
 
         ``deadline_s`` bounds the request's whole lifetime (default: the
         engine's ``deadline_defaults`` for its class).  Admission sheds
@@ -352,7 +444,8 @@ class PagedDecodeEngine:
 
         Raises :class:`AdmissionError` when the class's queue is at
         ``max_queue``; raises ``ValueError`` for a request that could
-        NEVER be admitted (span over the window) and for bad knobs."""
+        NEVER be admitted (span over the window) and for bad knobs,
+        speculation's included (``check_speculative_args``)."""
         self._check_usable()
         if slo not in SLO_CLASSES:
             raise ValueError(f"slo must be one of {SLO_CLASSES}, "
@@ -376,7 +469,17 @@ class PagedDecodeEngine:
             raise ValueError(
                 f"prompt + max_new_tokens = {span} exceeds the engine "
                 f"window {self._window}; raise window= or split")
-        temperature, eos_id = self._check_knobs(temperature, eos_id)
+        temperature, eos_id = check_request_knobs(self, temperature, eos_id)
+        if self._draft_spec is None:
+            if gamma is not None:
+                raise ValueError(
+                    "per-request gamma needs a speculative engine "
+                    "(pass draft_spec/draft_params at construction)")
+            gamma = 0
+        else:
+            gamma = self._gamma_max if gamma is None else int(gamma)
+            check_speculative_args(gamma, temperature, span=span,
+                                   window=self._window)
         if deadline_s is None:
             deadline_s = self._deadline_defaults.get(slo)
         elif float(deadline_s) <= 0:
@@ -400,45 +503,13 @@ class PagedDecodeEngine:
                            slo=slo, temperature=temperature,
                            eos_id=eos_id, strip=strip,
                            trace_id=str(trace_id or ""),
-                           submit_t=time.monotonic())
+                           submit_t=time.monotonic(), gamma=gamma)
         if deadline_s is not None:
             req.deadline_t = req.submit_t + float(deadline_s)
         self._next_id += 1
         q.append(req)
         self.stats.submitted += 1
         return req.request_id
-
-    def _check_knobs(self, temperature, eos_id):
-        """Per-request sampling-knob validation."""
-        if temperature is None:
-            temperature = self._temperature
-        else:
-            temperature = float(temperature)
-            if not np.isfinite(temperature) or temperature < 0.0:
-                raise ValueError(f"temperature must be a finite number "
-                                 f">= 0, got {temperature}")
-            if temperature > 0.0 and float(np.float32(temperature)) == 0.0:
-                raise ValueError(f"temperature {temperature} underflows "
-                                 f"float32; use 0 for greedy or >= 1e-6")
-            if 0.0 < temperature < TEMPERATURE_FLOOR:
-                raise ValueError(
-                    f"temperature {temperature} is below the sampling "
-                    f"floor {TEMPERATURE_FLOOR}; use 0 for greedy or "
-                    f">= {TEMPERATURE_FLOOR}")
-            if (temperature > 0.0 and self._temperature <= 0.0
-                    and not self._rng_explicit):
-                raise ValueError(
-                    "per-request temperature sampling on a greedy-built "
-                    "engine needs an explicit rng= at engine "
-                    "construction")
-        if eos_id is None:
-            eos_id = self._eos_id
-        else:
-            eos_id = int(eos_id)
-            if eos_id != -1 and not 0 <= eos_id < self._vocab:
-                raise ValueError(f"eos_id must be -1 (none) or in [0, "
-                                 f"{self._vocab}), got {eos_id}")
-        return temperature, eos_id
 
     def _retry_hint(self) -> float:
         per_req = self._avg_request_s or 1.0
@@ -519,7 +590,10 @@ class PagedDecodeEngine:
             self._harvest()
             self._admit()
         if np.any(self._active & ~self._done):
-            self._run_chunk()
+            if self._draft_spec is not None:
+                self._run_spec_round()
+            else:
+                self._run_chunk()
         if self._pending_work():
             return True
         self._harvest()
@@ -600,6 +674,26 @@ class PagedDecodeEngine:
             "shed_deadline": self.stats.shed_deadline,
             "expired_deadline": self.stats.expired_deadline,
         }
+        # occupancy split: draft pages are 0 on a target-only engine
+        cap = max(self.pool.capacity, 1)
+        draft_used = self._draft_blocks_live
+        out["draft_blocks_used"] = draft_used
+        out["block_occupancy_draft"] = round(draft_used / cap, 4)
+        out["block_occupancy_target"] = round(
+            max(self.pool.used_count - draft_used, 0) / cap, 4)
+        if self._draft_spec is not None:
+            out["speculative"] = {
+                "gamma": self._gamma,
+                "gamma_max": self._gamma_max,
+                "accept_ewma": round(self._accept_ewma, 4),
+                "rounds": self.stats.spec_rounds,
+                "proposed": self.stats.draft_tokens_proposed,
+                "accepted": self.stats.draft_tokens_accepted,
+                "bonus": self.stats.bonus_tokens,
+                "acceptance_rate": round(self.stats.acceptance_rate, 4),
+                "mean_accept_len": round(self.stats.mean_accept_len, 4),
+                "gamma_hist": dict(self._gamma_hist),
+            }
         if self.trie is not None:
             out["trie_blocks"] = len(self.trie)
             out["trie_evictions"] = self.trie.stats.evictions
@@ -616,6 +710,10 @@ class PagedDecodeEngine:
         assert self.pool.used_count == cached, (
             f"{self.pool.used_count - cached} block(s) leaked "
             f"(used={self.pool.used_count}, trie-cached={cached})")
+        assert self._draft_blocks_live == 0, (
+            f"{self._draft_blocks_live} draft block(s) leaked")
+        assert np.all(self._dbt == SCRATCH_BLOCK), \
+            "draft block-table rows leaked (stale entries after drain)"
 
     # ------------------------------------------------------------------
     # scheduler internals
@@ -660,29 +758,36 @@ class PagedDecodeEngine:
     def _try_allocate(self, req: PagedRequest) -> bool:
         """Reserve the request's whole worst-case span in blocks:
         trie-matched prefix blocks are referenced, the rest allocated
-        fresh, keeping ``reserve_blocks`` free.  All-or-nothing; under
+        fresh, keeping ``reserve_blocks`` free.  A speculative engine
+        reserves the DRAFT span in the same breath (the draft processes
+        at most ``span - 1`` positions, so the same block count covers
+        it; draft blocks are always fresh).  All-or-nothing; under
         pressure unpinned cached blocks are LRU-evicted first."""
         span = req.prompt.size + req.max_new_tokens
         need_total = self.pool.blocks_for_tokens(span)
+        need_draft = need_total if self._draft_spec is not None else 0
         n_cached, cached = (self.trie.match(req.prompt)
                             if self.trie is not None else (0, []))
         need_new = need_total - len(cached)
-        short = need_new + self._reserve - self.pool.free_count
+        short = need_new + need_draft + self._reserve - self.pool.free_count
         if short > 0 and self.trie is not None:
             self.trie.evict(short)
-        if self.pool.free_count < need_new + self._reserve:
+        if self.pool.free_count < need_new + need_draft + self._reserve:
             for blk in cached:      # undo the match references
                 self.pool.release(blk)
             return False
         try:
-            fresh = self.pool.alloc(need_new)
+            both = self.pool.alloc(need_new + need_draft)
         except BlockPoolExhausted:   # pragma: no cover - guarded above
             for blk in cached:
                 self.pool.release(blk)
             return False
-        req.blocks = cached + fresh
+        req.blocks = cached + both[:need_new]
+        req.draft_blocks = both[need_new:]
+        self._draft_blocks_live += len(req.draft_blocks)
         req.n_cached = n_cached
         req.charged = n_cached
+        req.draft_charged = 0       # no trie for draft pages
         return True
 
     def _place(self, req: PagedRequest, b: int) -> None:
@@ -692,6 +797,9 @@ class PagedDecodeEngine:
         p = req.prompt.size
         self._bt[b, :] = SCRATCH_BLOCK
         self._bt[b, :len(req.blocks)] = req.blocks
+        self._dbt[b, :] = SCRATCH_BLOCK
+        self._dbt[b, :len(req.draft_blocks)] = req.draft_blocks
+        self._committed[b] = 0
         padded = np.zeros(_pow2_bucket(p, self._window), np.int64)
         padded[:p] = req.prompt
         try:
@@ -719,17 +827,36 @@ class PagedDecodeEngine:
 
     def _dispatch_prefills(self) -> None:
         """One prefill wave: each prefilling request charges its next
-        chunk, batched by pow-2 chunk bucket into few dispatches."""
+        chunk, batched by pow-2 chunk bucket into few dispatches.  On a
+        speculative engine the DRAFT then catches up to the target's
+        charge over its own pages (it has no prefix cache, so its first
+        chunk also covers the trie-matched region)."""
+        wave = [self._prefilling[b] for b in sorted(self._prefilling)]
         buckets: Dict[int, List[PagedRequest]] = {}
-        for b in sorted(self._prefilling):
-            req = self._prefilling[b]
+        for req in wave:
             pb = _pow2_bucket(self._next_chunk_len(req), self._window)
             buckets.setdefault(pb, []).append(req)
+        self._run_buckets(buckets, self._run_prefill_chunk)
+        if self._draft_spec is None:
+            return
+        # requests whose FINAL chunk just ran left _prefilling but still
+        # need their draft pages charged: hence the wave snapshot
+        dbuckets: Dict[int, List[PagedRequest]] = {}
+        for req in wave:
+            c = req.charged - req.draft_charged
+            if c > 0:
+                dbuckets.setdefault(_pow2_bucket(c, self._window),
+                                    []).append(req)
+        self._run_buckets(dbuckets, self._run_draft_prefill_chunk)
+
+    @staticmethod
+    def _run_buckets(buckets, run) -> None:
+        """Dispatch each bucket's requests in pow-2-sized sub-batches."""
         for pb in sorted(buckets):
             entries = buckets[pb]
             while entries:
                 k = 1 << (len(entries).bit_length() - 1)   # pow2 <= len
-                self._run_prefill_chunk(entries[:k], pb)
+                run(entries[:k], pb)
                 entries = entries[k:]
 
     def _run_prefill_chunk(self, reqs: List[PagedRequest],
@@ -784,11 +911,48 @@ class PagedDecodeEngine:
             self._done[b] = (req.max_new_tokens == 1
                              or (req.eos_id >= 0 and tok == req.eos_id))
             self._active[b] = True
+            self._committed[b] = p + 1   # prompt + the landed token
             self._slot_req[b] = req
             del self._prefilling[b]
             req.first_token_t = now
             if self.trie is not None:
                 self.trie.insert(req.prompt, req.blocks)
+
+    def _run_draft_prefill_chunk(self, reqs: List[PagedRequest],
+                                 pb: int) -> None:
+        """Charge a prompt chunk into the DRAFT's pages: the same
+        ``_paged_prefill_program`` over the draft params, pools and block
+        table, from the request's own draft charge (draft K/V cannot be
+        seeded from target cache entries).  Never final: only the target
+        samples tokens."""
+        k_real = len(reqs)
+        k_pad = 1 << (k_real - 1).bit_length()
+        chunk = np.zeros((k_pad, pb), np.int64)
+        n_shared = np.zeros(k_pad, np.int64)
+        c_lens = np.ones(k_pad, np.int64)
+        slot_ids = np.zeros(k_pad, np.int64)
+        bt_rows = np.full((k_pad, self._maxb), SCRATCH_BLOCK, np.int32)
+        for i in range(k_pad):
+            req = reqs[min(i, k_real - 1)]   # pad repeats the last row
+            c = req.charged - req.draft_charged
+            chunk[i, :c] = req.prompt[req.draft_charged:req.charged]
+            n_shared[i] = req.draft_charged
+            c_lens[i] = c
+            slot_ids[i] = req.slot
+            bt_rows[i] = self._dbt[req.slot]
+        try:
+            _paged_prefill_program(
+                self._knobs, self._draft_params, self._tokens, self._dkc,
+                self._dvc, self._dev(chunk), self._dev(bt_rows),
+                self._dev(slot_ids), self._dev(n_shared), self._dev(c_lens),
+                self._dev(np.zeros(k_pad, bool)), self._dev(self._temp),
+                self._rng, False)
+        except Exception:
+            self._poisoned = True
+            raise
+        self.stats.draft_prefill_dispatches += 1
+        for req in reqs:
+            req.draft_charged = req.charged
 
     def _run_chunk(self) -> None:
         n = self._chunk
@@ -820,13 +984,179 @@ class PagedDecodeEngine:
         self.stats.busy_slot_ticks += busy
         self.stats.chunks += 1
 
+    def _retune_gamma(self) -> None:
+        """SLO-aware gamma adaptation, one adjustment per round: shrink
+        toward 1 when the latency class queues or every slot is taken
+        with work waiting, grow back toward ``gamma_max`` when slots idle
+        and nothing is queued, and cap at twice the acceptance-length
+        EWMA so a mismatched draft degrades toward plain decode."""
+        if not self._adapt_gamma:
+            return
+        g = self._gamma
+        queued = any(self._queues.values())
+        free = len(self._free_slots())
+        if self._queues[SLO_LATENCY] or (free == 0 and queued):
+            g = max(1, g - 1)
+        elif free > 0 and not queued:
+            g = min(self._gamma_max, g + 1)
+        self._gamma = min(g, max(1, int(round(2 * self._accept_ewma))))
+
+    def _run_spec_round(self) -> None:
+        """One draft-and-verify round over every live decode slot, in
+        place of ``_run_chunk``'s per-token ticks.
+
+        A slot's committed count ``m`` (prompt + landed) means its target
+        K/V covers ``0..m-2`` and its token row is final through ``m-1``;
+        ``ge = min(gamma, request cap, tokens remaining)``.
+
+        1. **Draft scan**: ``_paged_chunk_program`` over the draft's
+           params, pools and table, re-based so tick 0 is a CATCH-UP
+           tick (``start = 2 - m``, ``p_end = 2``: it rewrites the draft
+           K/V at ``m-2`` without touching the token at ``m-1``); ticks
+           1..ge write greedy proposals at ``m..m+ge-1`` (``end = ge +
+           2`` bounds the depth, ``eos = -1``).
+        2. **Verify**: ``_paged_prefill_program`` over the TARGET with the
+           committed token and the proposals, gathered on the device, as
+           a ``ge + 1``-token chunk at ``n_shared = m - 1``; it returns
+           the target's argmax at every position.  The predictions and
+           the proposals come to the host together: the round's ONE
+           sync.  The longest agreeing prefix ``a`` is accepted and the
+           target's token at the first mismatch is the bonus.
+        3. **Commit**: accepted proposals already sit in the token row;
+           the bonus tokens are one batched point-write.
+
+        Rejected proposals' K/V is rewritten before it is read again:
+        the verify mask stops at ``m - 1`` and the next draft scan
+        rewrites every position past ``m - 2``."""
+        live = [b for b in range(self._slots)
+                if self._active[b] and not self._done[b]]
+        if not live:
+            return
+        self._retune_gamma()
+        g_used = self._gamma
+        reqs = [self._slot_req[b] for b in live]
+        m = self._committed[live].astype(np.int64)
+        end_total = np.array([r.prompt.size + r.max_new_tokens
+                              for r in reqs])
+        ge = np.minimum(np.minimum(g_used, [r.gamma for r in reqs]),
+                        end_total - m).astype(np.int64)
+        # --- draft scan ------------------------------------------------
+        start = np.zeros(self._slots, np.int64)
+        p_end = np.zeros(self._slots, np.int64)
+        end = np.zeros(self._slots, np.int64)
+        done0 = np.ones(self._slots, bool)
+        active = np.zeros(self._slots, bool)
+        start[live] = 2 - m
+        p_end[live] = 2
+        end[live] = ge + 2
+        done0[live] = False
+        active[live] = True
+        # exact tick count: the set of lengths is {2..gamma_max+1}
+        n = int(ge.max()) + 1
+        t0 = time.perf_counter()
+        try:
+            _paged_chunk_program(
+                n, self._knobs, self._draft_params, self._tokens, self._dkc,
+                self._dvc, self._dev(self._dbt), self._dev(start),
+                self._dev(p_end), self._dev(end), self._dev(done0),
+                self._dev(active), self._dev(np.zeros(self._slots,
+                                                      np.float32)),
+                self._dev(np.full(self._slots, -1, np.int64)), 0,
+                self._rng, False)
+        except Exception:
+            self._poisoned = True
+            raise
+        t1 = time.perf_counter()
+        # --- verify ----------------------------------------------------
+        k_real = len(live)
+        k_pad = 1 << (k_real - 1).bit_length()
+        pb = _pow2_bucket(int(ge.max()) + 1, self._window)
+        pick = np.minimum(np.arange(k_pad), k_real - 1)   # pad: last row
+        slot_ids = np.asarray(live, np.int64)[pick]
+        n_shared = m[pick] - 1
+        c_lens = ge[pick] + 1
+        cols = np.clip(n_shared[:, None] + np.arange(pb), 0,
+                       self._window - 1)
+        try:
+            slots_dev = self._dev(slot_ids)
+            # the committed token + proposals: rows the draft just wrote
+            chunk = self._tokens[slots_dev[:, None], self._dev(cols)]
+            _, preds = _paged_prefill_program(
+                self._knobs, self._params, self._tokens, self._kc, self._vc,
+                chunk, self._dev(self._bt[slot_ids]), slots_dev,
+                self._dev(n_shared), self._dev(c_lens),
+                self._dev(np.zeros(k_pad, bool)), self._dev(self._temp),
+                self._rng, False, with_preds=True)
+            # the round's ONE host sync: predictions and proposals
+            preds, props = torch.stack([preds, chunk]).cpu().numpy()
+        except Exception:
+            self._poisoned = True
+            raise
+        t2 = time.perf_counter()
+        # --- host acceptance + bonus commit ----------------------------
+        rows: List[int] = []
+        pos: List[int] = []
+        vals: List[int] = []
+        accepts = []
+        committed = 0
+        for i, b in enumerate(live):
+            req, g_i, m_i = reqs[i], int(ge[i]), int(m[i])
+            drafted = props[i, 1:1 + g_i]
+            a = 0
+            while a < g_i and int(preds[i, a]) == int(drafted[a]):
+                a += 1
+            accepts.append(a)
+            new_m = min(m_i + a + 1, int(end_total[i]))
+            committed_new = [int(t) for t in drafted[:a]]
+            if m_i + a < end_total[i]:
+                bonus = int(preds[i, a])
+                rows.append(b)
+                pos.append(m_i + a)
+                vals.append(bonus)
+                committed_new.append(bonus)
+                req.spec_bonus += 1
+                self.stats.bonus_tokens += 1
+            req.spec_rounds += 1
+            req.spec_proposed += g_i
+            req.spec_accepted += a
+            req.draft_s += t1 - t0
+            req.verify_s += t2 - t1
+            self.stats.draft_tokens_proposed += g_i
+            self.stats.draft_tokens_accepted += a
+            if new_m >= end_total[i] or (
+                    req.eos_id >= 0 and req.eos_id in committed_new):
+                self._done[b] = True
+            committed += new_m - m_i
+            self._committed[b] = new_m
+        if rows:
+            k_rows = 1 << (len(rows) - 1).bit_length()
+            pick = np.minimum(np.arange(k_rows), len(rows) - 1)
+            try:
+                _commit_tokens_program(
+                    self._tokens, self._dev(np.asarray(rows)[pick]),
+                    self._dev(np.asarray(pos)[pick]),
+                    self._dev(np.asarray(vals)[pick]))
+            except Exception:
+                self._poisoned = True
+                raise
+        self.timeline.append(("spec", len(live), committed,
+                              time.perf_counter() - t0, n))
+        self._accept_ewma = (0.8 * self._accept_ewma
+                             + 0.2 * float(np.mean(accepts)))
+        self._gamma_hist[g_used] = self._gamma_hist.get(g_used, 0) + 1
+        self.stats.spec_rounds += len(live)
+        self.stats.ticks += 1
+        self.stats.busy_slot_ticks += len(live)
+
     def _slot_tokens(self, b: int, req: PagedRequest) -> np.ndarray:
         """Tokens written so far for slot ``b``: logical positions
         0..written-1 pulled as one row slice, eos-truncated after the
-        prompt, prefix strip applied."""
+        prompt, prefix strip applied.  Speculative rounds advance by a
+        variable amount: there the committed count is the progress."""
         s, pe, e = int(self._start[b]), int(self._p_end[b]), \
             int(self._end[b])
-        written = min(e, self._tick + 1) - s
+        written = int(self._committed[b]) if self._draft_spec is not None \
+            else min(e, self._tick + 1) - s
         row = self._tokens[b, :max(written, 0)].cpu().numpy()
         seq = row.astype(np.int32)
         eos = int(self._eos[b])
@@ -841,10 +1171,12 @@ class PagedDecodeEngine:
         """Return the request's blocks to the pool (shared prefix blocks
         just drop this reader's reference) and clear its block-table
         row — the slot and the memory recycle at THIS boundary."""
-        for blk in req.blocks:
+        for blk in req.blocks + req.draft_blocks:
             self.pool.release(blk)
-        req.blocks = []
+        self._draft_blocks_live -= len(req.draft_blocks)
+        req.blocks, req.draft_blocks = [], []
         self._bt[b, :] = SCRATCH_BLOCK
+        self._dbt[b, :] = SCRATCH_BLOCK
 
     def _harvest(self) -> None:
         for b in range(self._slots):
@@ -880,3 +1212,14 @@ class PagedDecodeEngine:
                 "trace_id": req.trace_id,
                 "slo": req.slo,
             }
+            if self._draft_spec is not None:
+                self._timings[req.request_id].update({
+                    "spec_rounds": float(req.spec_rounds),
+                    "spec_proposed": float(req.spec_proposed),
+                    "spec_accepted": float(req.spec_accepted),
+                    "spec_bonus": float(req.spec_bonus),
+                    "accept_len_mean": (req.spec_accepted / req.spec_rounds
+                                        if req.spec_rounds else 0.0),
+                    "draft_s": req.draft_s,
+                    "verify_s": req.verify_s,
+                })

@@ -1,4 +1,6 @@
-"""HTTP serving front for the paged engine.
+"""HTTP serving front for the slot :class:`~autodist_tpu_torch.serving.
+engine.DecodeEngine` and the paged :class:`~autodist_tpu_torch.serving.
+scheduler.PagedDecodeEngine`.
 
 Port of ``autodist_tpu/serving/server.py`` (stdlib ``http.server`` +
 ``threading``, no web-framework dependency).
@@ -15,17 +17,19 @@ Endpoints
 ---------
 - ``POST /v1/completions`` — body ``{"prompt_tokens": [ints],
   "max_new_tokens": N, "stream": false}`` plus optional
-  ``temperature``, ``eos_id``, ``use_prefix``, ``slo``, ``deadline_s``.
-  Streaming responses are Server-Sent Events, one ``data:`` JSON per
-  new-token delta; the final event carries the full result.
+  ``temperature``, ``eos_id``, ``use_prefix``, and on the paged engine
+  ``slo``, ``deadline_s`` (and ``gamma`` when it is speculative); with a
+  tokenizer installed, ``"prompt": "text"`` is accepted and ``"text"``
+  is returned.  Streaming responses are Server-Sent Events, one
+  ``data:`` JSON per new-token delta; the final event carries the full
+  result.
 - ``POST /v1/cancel`` — body ``{"id": N}``.
 - ``GET /v1/stats`` — engine counters + scheduler surface + server
   counters.
 - ``GET /healthz``.
 
-Not ported yet: the slot engine (``paged=False``), ``/metrics``,
-``/admin/drain`` and SIGTERM drain, chaos injection, trace spans, and
-the tokenizer (``"prompt"`` text in, ``"text"`` out).
+Not ported yet: ``/metrics``, ``/admin/drain`` and the SIGTERM drain,
+chaos injection and trace spans.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch.const import P11, not_ported
-from autodist_tpu_torch.serving.engine import AdmissionError, DeadlineError
+from autodist_tpu_torch.serving.engine import (AdmissionError, DeadlineError,
+                                               DecodeEngine)
 from autodist_tpu_torch.serving.scheduler import PagedDecodeEngine
 
 log = logging.getLogger(__name__)
@@ -53,15 +58,28 @@ _DEADLINE = object()    # ... and for deadline-expired requests (504)
 
 
 class EngineServer:
-    """Serve a :class:`PagedDecodeEngine` over HTTP.
+    """Serve a :class:`DecodeEngine` or a :class:`PagedDecodeEngine` over
+    HTTP.
 
+    ``tokenizer`` (optional) is any object with ``encode(str) ->
+    list[int]`` and ``decode(seq[int]) -> str``; installing one enables
+    the ``"prompt"`` string form and ``"text"`` in responses.
     ``request_timeout_s`` bounds how long a completion may wait before
     the handler answers 504 and cancels it."""
 
-    def __init__(self, engine: PagedDecodeEngine, *,
-                 host: str = "127.0.0.1", port: int = 0,
-                 request_timeout_s: float = 600.0):
+    def __init__(self, engine, *, host: str = "127.0.0.1", port: int = 0,
+                 tokenizer=None, request_timeout_s: float = 600.0):
         self._engine = engine
+        self._tokenizer = tokenizer
+        tok_vocab = getattr(tokenizer, "vocab_size", None)
+        if tok_vocab is not None and tok_vocab < engine._vocab:
+            # the model can sample ids the tokenizer cannot decode
+            raise ValueError(
+                f"tokenizer vocab_size {tok_vocab} < model vocab "
+                f"{engine._vocab}: generated ids would not decode")
+        # scheduler-backed engines report SLO queues, deadlines and pools
+        self._paged = hasattr(engine, "scheduler_stats")
+        self._spec = getattr(engine, "_draft_spec", None) is not None
         self._timeout = float(request_timeout_s)
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -123,7 +141,7 @@ class EngineServer:
         return self._httpd.server_address[:2]
 
     @property
-    def engine(self) -> PagedDecodeEngine:
+    def engine(self):
         return self._engine
 
     # -- driver loop -------------------------------------------------------
@@ -173,7 +191,8 @@ class EngineServer:
         for rid, toks in self._engine.results().items():
             if rid in self._outstanding:
                 self._resolve(rid, toks)
-        for rid, info in self._engine.pop_expired().items():
+        expired = self._engine.pop_expired() if self._paged else {}
+        for rid, info in expired.items():
             if rid in self._outstanding:
                 self._deadline_info[rid] = info
                 self._resolve(rid, _DEADLINE)
@@ -192,15 +211,31 @@ class EngineServer:
     def _submit(self, prompt: np.ndarray, max_new: int, *, stream: bool,
                 temperature=None, eos_id=None, use_prefix: bool = False,
                 slo: Optional[str] = None, trace_id: str = "",
+                gamma: Optional[int] = None,
                 deadline_s: Optional[float] = None) -> int:
         with self._locked():
             if self._stop or self._engine_error is not None:
                 raise _Unavailable()
             kwargs = dict(temperature=temperature, eos_id=eos_id,
-                          use_prefix=use_prefix, trace_id=trace_id,
-                          deadline_s=deadline_s)
-            if slo is not None:
-                kwargs["slo"] = slo
+                          use_prefix=use_prefix)
+            if self._paged:
+                kwargs["trace_id"] = trace_id
+            if gamma is not None:
+                if not self._spec:
+                    raise ValueError(
+                        "this server's engine is not speculative; "
+                        "drop the gamma field")
+                kwargs["gamma"] = gamma
+            for name, value, what in (
+                    ("slo", slo, "SLO classes"),
+                    ("deadline_s", deadline_s, "deadline support")):
+                if value is None:
+                    continue
+                if not self._paged:
+                    raise ValueError(
+                        f"this server's engine has no {what} (slot "
+                        f"engine); drop the {name} field")
+                kwargs[name] = value
             rid = self._engine.submit(prompt, max_new, **kwargs)
             self._outstanding.add(rid)
             if stream:
@@ -267,26 +302,39 @@ class EngineServer:
             st["requests_served"] = self.requests_served
             st["requests_failed"] = self.requests_failed
             st["engine_failed"] = self._engine_error is not None
-            st.update(self._engine.scheduler_stats())
+            if self._paged:
+                st.update(self._engine.scheduler_stats())
             return st
 
     # -- body parsing ------------------------------------------------------
 
-    @staticmethod
-    def parse_prompt(body: Dict[str, Any]) -> np.ndarray:
-        toks = body.get("prompt_tokens")
-        # type(t) is int, not isinstance: bool subclasses int.
-        if (not isinstance(toks, list) or not toks
-                or not all(type(t) is int for t in toks)):
-            raise ValueError("body needs prompt_tokens, a non-empty list "
-                             "of ints (prompt text is not served yet)")
-        return np.asarray(toks, np.int32)
+    def parse_prompt(self, body: Dict[str, Any]) -> np.ndarray:
+        if "prompt_tokens" in body:
+            toks = body["prompt_tokens"]
+            # type(t) is int, not isinstance: bool subclasses int.
+            if (not isinstance(toks, list) or not toks
+                    or not all(type(t) is int for t in toks)):
+                raise ValueError(
+                    "prompt_tokens must be a non-empty list of ints")
+            return np.asarray(toks, np.int32)
+        if "prompt" in body:
+            if self._tokenizer is None:
+                raise ValueError(
+                    "server has no tokenizer: send prompt_tokens "
+                    "(a list of token ids) instead of prompt text")
+            return np.asarray(self._tokenizer.encode(body["prompt"]),
+                              np.int32)
+        raise ValueError("body needs prompt_tokens (or prompt, "
+                         "with a tokenizer installed)")
 
-    @staticmethod
-    def render(rid: int, tokens: np.ndarray,
+    def render(self, rid: int, tokens: np.ndarray,
                prompt_len: int) -> Dict[str, Any]:
-        return {"id": rid, "tokens": [int(t) for t in tokens],
-                "new_tokens": [int(t) for t in tokens[prompt_len:]]}
+        out: Dict[str, Any] = {
+            "id": rid, "tokens": [int(t) for t in tokens],
+            "new_tokens": [int(t) for t in tokens[prompt_len:]]}
+        if self._tokenizer is not None:
+            out["text"] = self._tokenizer.decode(out["tokens"])
+        return out
 
 
 class _CountedLock:
@@ -392,13 +440,17 @@ class _Handler(BaseHTTPRequestHandler):
         slo = body.get("slo")
         if slo is not None and not isinstance(slo, str):
             raise ValueError("slo must be a string")
+        gamma = body.get("gamma")
+        if gamma is not None and type(gamma) is not int:
+            raise ValueError("gamma must be an int")
         deadline_s = body.get("deadline_s")
         if deadline_s is not None:
             if type(deadline_s) not in (int, float) or deadline_s <= 0:
                 raise ValueError("deadline_s must be a number > 0")
             deadline_s = float(deadline_s)
         return dict(max_new=max_new, temperature=temperature, eos_id=eos_id,
-                    use_prefix=use_prefix, slo=slo, deadline_s=deadline_s)
+                    use_prefix=use_prefix, slo=slo, gamma=gamma,
+                    deadline_s=deadline_s)
 
     def _completions(self, srv: EngineServer, body: Dict[str, Any]) -> None:
         trace_id = str(self.headers.get("X-Autodist-Trace", "")
@@ -533,27 +585,54 @@ def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
           paged: bool = False, speculative=None,
           drain_on_sigterm: Optional[bool] = None, device=None,
           **engine_kwargs) -> EngineServer:
-    """Build a :class:`PagedDecodeEngine` over ``(spec, params)`` on
-    ``device`` (the CUDA card unless the caller asks for another) and
-    start an :class:`EngineServer` on it.  ``engine_kwargs`` pass through
-    to the engine (slots, window, block_size, chunk, prefill_chunk,
-    sampling knobs, ...).  ``prefix_tokens`` registers the shared system
-    prompt; requests opt in with ``"use_prefix": true``.
+    """Build an engine over ``(spec, params)`` on ``device`` (the CUDA
+    card unless the caller asks for another) and start an
+    :class:`EngineServer` on it.  The default is the slot
+    :class:`DecodeEngine`; ``paged=True`` selects the
+    :class:`PagedDecodeEngine` (SLO queues, prefix trie, block pool).
+    ``engine_kwargs`` pass through to the engine (slots, window, chunk,
+    sampling knobs, ...).  A tokenizer with a registered ``<eos>``
+    special token supplies the engine's ``eos_id`` (an explicit
+    ``eos_id=`` wins).  ``prefix_tokens`` (ids) or ``prefix_text``
+    (tokenizer required) registers the shared system prompt; requests
+    opt in with ``"use_prefix": true``.
 
-    ``paged=True`` is required: the JAX package's default slot engine
-    (``paged=False``), its tokenizer options (``tokenizer``,
-    ``prefix_text``), ``speculative`` and ``drain_on_sigterm=True`` raise
-    naming P11."""
-    if not paged:
-        raise not_ported("serve(paged=False), the slot DecodeEngine (use "
-                         "paged=True)", P11)
-    for name, value in (("tokenizer", tokenizer),
-                        ("prefix_text", prefix_text),
-                        ("speculative", speculative),
-                        ("drain_on_sigterm", drain_on_sigterm)):
-        if value:
-            raise not_ported(f"serve({name}=...)", P11)
-    eng = PagedDecodeEngine(spec, params, device=device, **engine_kwargs)
+    ``speculative`` turns on speculative decoding: a dict with ``spec``
+    and ``params`` for the draft model, plus optional ``gamma``
+    (proposal depth, default 4) and ``adapt_gamma`` (SLO adaptation,
+    default True).  It is a mode of the paged scheduler, so it implies
+    ``paged=True``.  ``drain_on_sigterm=True`` raises naming its ROADMAP
+    item."""
+    if drain_on_sigterm:
+        raise not_ported("serve(drain_on_sigterm=...)", P11)
+    if "eos_id" not in engine_kwargs:
+        eos = getattr(tokenizer, "eos_id", None)
+        if eos is not None:
+            engine_kwargs["eos_id"] = int(eos)
+    if speculative is not None:
+        unknown = set(speculative) - {"spec", "params", "gamma",
+                                      "adapt_gamma"}
+        if unknown or not {"spec", "params"} <= set(speculative):
+            raise ValueError(
+                "speculative= takes a dict with 'spec' and 'params' "
+                f"(optional 'gamma', 'adapt_gamma'); got "
+                f"{sorted(speculative)}")
+        paged = True
+        engine_kwargs["draft_spec"] = speculative["spec"]
+        engine_kwargs["draft_params"] = speculative["params"]
+        for k in ("gamma", "adapt_gamma"):
+            if k in speculative:
+                engine_kwargs[k] = speculative[k]
+    engine_cls = PagedDecodeEngine if paged else DecodeEngine
+    eng = engine_cls(spec, params, device=device, **engine_kwargs)
+    if prefix_text is not None:
+        if tokenizer is None:
+            raise ValueError("prefix_text needs a tokenizer; pass "
+                             "prefix_tokens instead")
+        if prefix_tokens is not None:
+            raise ValueError("pass prefix_tokens OR prefix_text")
+        prefix_tokens = tokenizer.encode(prefix_text)
     if prefix_tokens is not None:
         eng.set_prefix(prefix_tokens)
-    return EngineServer(eng, host=host, port=port).start()
+    return EngineServer(eng, host=host, port=port,
+                        tokenizer=tokenizer).start()

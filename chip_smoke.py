@@ -199,6 +199,38 @@ Phases, each printing one JSON line:
    both as ``imagenet.py`` runs them by default (``AllReduce()``,
    ``sgd(1e-3, momentum=0.9)``, batch 32) with no kernel of K1–K10
    launched.  Every phase's launch check counts K1–K10.
+15. the rest of serving at full width, last (after a fresh init of
+   phase 3's model, so no earlier phase runs after its engines and
+   profiles): ``serve_slot``, ``serve(spec,
+   params)``'s default slot ``DecodeEngine`` (8 slots, window 1024) over
+   real HTTP with phase 3's seven requests (the shared prefix registered
+   with ``prefix_tokens``, a streamed and a 700-token request) after a
+   warm-up pass, on the f32 tree and on an int8 tree of the same widths
+   cut to ``SLOT_INT8_LAYERS`` layers (its generator oracle, token by
+   token, is most of the slice's time): token-exact against the
+   generator, K10 ``6 * layers + 1`` times per decode tick and prefill
+   dispatch on int8 (0 on f32, K9 0), ms per tick, decode and prefill
+   tokens/s, and a profile of 16 decode ticks with every slot live (host
+   wall against device busy per tick); ``beam_score`` (batch 2, a
+   16-token prompt, 32 new tokens): ``beam_search(num_beams=1)`` equal to
+   greedy, width 4 finite, ``score`` (K1 once per layer) within rtol 1e-4
+   of the teacher-forced decode logits' log-softmax sum; ``spec``: the
+   speculative generator (gamma 4, batch 2 x 16, 48 new tokens) and
+   ``serve(speculative=...)`` (the paged engine, gamma 4 adaptive, three
+   HTTP requests), each with the target itself as draft (acceptance at
+   least 0.95) and a 2-layer draft of the same widths from another seed,
+   all token-exact against target-only greedy, K9 once per draft layer
+   per draft tick (the verify is the paged prefill program); acceptance,
+   tokens/s, K9 per round; ``tokenizer``: a ``BPETokenizer`` trained here
+   on generated text (512 merges and ``<eos>``, padded with reserved
+   tokens to the model's vocabulary), ``serve(tokenizer=,
+   prefix_text=)``: ``{"prompt": text}`` answers ``text`` whose tokens
+   are the generator's on ``encode(text)``; ``lora``: ``lora_setup``
+   (rank 8, attention and MLP kernels) through the facade (``AllReduce``,
+   adam), 2 + 3 steps with K1–K3 12 each a step, losses falling, the
+   base bit-identical, the merged tree served by ``serve()`` token-exact.
+   Each prints its ``wall_s``; the ``kernels`` line their sum,
+   ``serving_slice_s``.
 
 K1–K3 are also checked and timed at BERT-base's shape (B 32, T 128, H 12,
 D 64, non-causal; SDPA with ``is_causal=False``; the ``<64, full>``
@@ -416,6 +448,35 @@ P6_PLAN = {
 #: the two-tier runs' cluster: 2 slices of 2 of the 4 ranks
 HIER_SPEC = {"nodes": [{"address": "localhost", "chips": RING_RANKS}],
              "num_slices": 2}
+#: the slot engine's geometry (serve()'s default engine) and the decode
+#: ticks of each of its profile windows
+SLOT_GEOM = dict(slots=8, window=1024, chunk=16)
+SLOT_PROFILE_TICKS = 16
+#: the depth of the slot engine's int8 pass (full width): its oracle, the
+#: plain generator on the int8 tree, runs every prompt position as one
+#: host-bound decode tick, 2231 for the seven requests
+SLOT_INT8_LAYERS = 6
+#: beam search and score: batch, prompt, new tokens; score against the
+#: teacher-forced decode logits
+BEAM_BATCH, BEAM_PROMPT, BEAM_NEW = 2, 16, 32
+SCORE_RTOL = 1e-4
+#: speculative decoding: proposal depth, the second draft's depth, the
+#: generator's batch (prompt, new tokens), the paged engine's HTTP
+#: requests (prompt, new tokens), and the self-draft's least acceptance
+SPEC_GAMMA = 4
+SPEC_DRAFT_LAYERS = 2
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 2, 16, 48
+SPEC_REQUESTS = ((16, 32), (64, 48), (32, 24))
+SELF_ACCEPT_MIN = 0.95
+#: the tokenizer's generated corpus (words) and its learned merges
+TOKENIZER_WORDS = 6000
+TOKENIZER_MERGES = 512
+#: LoRA: rank, targets (the JAX package's LM test: attention output split
+#: at 2, q/k/v, MLP), learning rate, warm-up and timed steps
+LORA_RANK = 8
+LORA_TARGETS = [("*/attn/out/*", 2), "*/attn/*", "*/mlp/*"]
+LORA_LR = 1e-3
+LORA_WARMUP, LORA_TIMED = 2, 3
 
 
 def emit(obj) -> None:
@@ -962,14 +1023,16 @@ def _post(url: str, body: dict):
         return json.loads(resp.read()), 1
 
 
-def _check_exact(torch, gen, params, prompt, n, got, label):
-    """``got`` must equal the plain generator's greedy output; on a
+def _check_exact(torch, gen, params, prompt, n, got, label, want=None):
+    """``got`` must equal the plain generator's greedy output (``want``,
+    when the caller computed it for the same tree and request); on a
     mismatch report the first differing position and the top-2 logit gap
-    there."""
-    want = gen(params, prompt[None, :], n)[0].cpu().numpy()
+    there.  Returns the generator's output."""
+    if want is None:
+        want = gen(params, prompt[None, :], n)[0].cpu().numpy()
     got = np.asarray(got)
     if got.shape == want.shape and np.array_equal(got, want):
-        return
+        return want
     _, logits = gen.with_logits(params, prompt[None, :], n)
     diff = np.nonzero(got[:want.size] != want[:got.size])[0]
     pos = int(diff[0]) if diff.size else min(got.size, want.size)
@@ -1014,16 +1077,7 @@ def phase_serve(torch, spec, params, device="cuda", geom=SERVE_GEOM):
     from autodist_tpu_torch.ops import quant
     from autodist_tpu_torch.serving import serve
 
-    vocab = spec.config["vocab_size"]
-    rng = np.random.RandomState(SEED + 1)
-    shared = rng.randint(0, vocab, 64).astype(np.int32)
-    first = (np.concatenate([shared, rng.randint(0, vocab, 16)]), 48, False)
-    second = (np.concatenate([shared, rng.randint(0, vocab, 30)]), 40, False)
-    rest = [(rng.randint(0, vocab, p), n, stream) for p, n, stream in
-            ((700, 128, False), (16, 64, True), (300, 96, False),
-             (40, 32, False), (500, 100, False))]
-    requests = [first, second] + [(p.astype(np.int32), n, s)
-                                  for p, n, s in rest]
+    requests, _ = _serve_requests(spec.config["vocab_size"], SEED + 1)
 
     _warm_up(spec, params, [r[0] for r in requests], device, geom)
     fk.paged_attention.calls = 0
@@ -1032,28 +1086,11 @@ def phase_serve(torch, spec, params, device="cuda", geom=SERVE_GEOM):
                 port=0, **geom)
     try:
         url = "http://%s:%d" % srv.address
-        answers = [None] * len(requests)
-        sse_events = 0
-
-        def call(i):
-            nonlocal sse_events
-            prompt, n, stream = requests[i]
-            answers[i], ev = _post(url + "/v1/completions", {
-                "prompt_tokens": [int(t) for t in prompt],
-                "max_new_tokens": n, "stream": stream})
-            sse_events += ev if stream else 0
-
-        t0 = time.perf_counter()
-        call(0)                   # warms the prefix trie
-        threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(1, len(requests))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        if any(a is None for a in answers):
-            raise RuntimeError("a request got no answer")
+        # the first request alone warms the prefix trie
+        answers, sse_events, wall = _http_round(url, [
+            {"prompt_tokens": [int(t) for t in prompt],
+             "max_new_tokens": n, "stream": stream}
+            for prompt, n, stream in requests])
         with urllib.request.urlopen(url + "/v1/stats", timeout=60) as resp:
             stats = json.loads(resp.read())
         k9_calls = fk.paged_attention.calls
@@ -1072,10 +1109,11 @@ def phase_serve(torch, spec, params, device="cuda", geom=SERVE_GEOM):
     if sse_events < 2:
         raise AssertionError("the streamed request sent no SSE events")
     gen = make_generator(spec, device=device)
-    for i, ((prompt, n, _), ans) in enumerate(zip(requests, answers)):
-        _check_exact(torch, gen, params, prompt, n, ans["tokens"],
-                     f"HTTP request {i}")
-    return {"requests": len(requests), "wall_s": wall,
+    oracle = [_check_exact(torch, gen, params, prompt, n, ans["tokens"],
+                           f"HTTP request {i}")
+              for i, ((prompt, n, _), ans) in enumerate(zip(requests,
+                                                            answers))]
+    return {"requests": len(requests), "wall_s": wall, "oracle": oracle,
             "paged_attention_calls": k9_calls,
             "int8_matmul_calls": k10_calls,
             "prefix_hit_tokens": eng.stats.cached_prompt_tokens,
@@ -1130,6 +1168,470 @@ def phase_int8(torch, spec, params, device="cuda", geom=SERVE_GEOM):
 
 def _flash_counts(fa_fn):
     return (fa_fn.fwd_calls, fa_fn.dq_calls, fa_fn.dkv_calls)
+
+
+def _expect_launches(label: str, got, want) -> None:
+    """A kernel launch count of a phase's main path must be ``want``."""
+    if got != want:
+        raise AssertionError(f"{label}: {got} launches, expected {want}")
+
+
+def _serve_requests(vocab: int, seed: int):
+    """``phase_serve``'s seven requests: a shared 64-token prefix (two
+    requests), a 700-token prompt, a streamed one and three others, as
+    ``(prompt, max_new_tokens, stream)``; and the shared prefix."""
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, vocab, 64).astype(np.int32)
+    first = (np.concatenate([shared, rng.randint(0, vocab, 16)]), 48, False)
+    second = (np.concatenate([shared, rng.randint(0, vocab, 30)]), 40, False)
+    rest = [(rng.randint(0, vocab, p), n, stream) for p, n, stream in
+            ((700, 128, False), (16, 64, True), (300, 96, False),
+             (40, 32, False), (500, 100, False))]
+    return [(p.astype(np.int32), n, s) for p, n, s in
+            [first, second] + rest], shared
+
+
+def _http_round(url: str, bodies):
+    """POST the first body alone, then the others concurrently; returns
+    the answers, the SSE event count and the wall seconds."""
+    answers = [None] * len(bodies)
+    sse_events = 0
+
+    def call(i):
+        nonlocal sse_events
+        answers[i], ev = _post(url + "/v1/completions", bodies[i])
+        sse_events += ev if bodies[i].get("stream") else 0
+
+    t0 = time.perf_counter()
+    call(0)
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(1, len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(a is None for a in answers):
+        raise RuntimeError("a request got no answer")
+    return answers, sse_events, time.perf_counter() - t0
+
+
+def _tick_profile(torch, eng, vocab: int, ticks: int = SLOT_PROFILE_TICKS):
+    """All slots of ``eng`` live (64-token prompts), then ``ticks`` decode
+    ticks timed on the host clock, and as many again under
+    ``torch.profiler``: host wall and device busy (union of kernel
+    intervals) per tick, and the idle share between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from autodist_tpu_torch.profile_decode import _union_us
+
+    rng = np.random.RandomState(SEED + 9)
+    ids = [eng.submit(rng.randint(0, vocab, 64), 2 * ticks + 48)
+           for _ in range(eng._slots)]
+    eng.step()                      # admission, prefill, the first chunk
+
+    def window():
+        torch.cuda.synchronize()
+        t0, start = time.perf_counter(), eng.stats.ticks
+        while eng.stats.ticks - start < ticks:
+            eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, eng.stats.ticks - start
+
+    wall_s, n = window()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, n_prof = window()
+    for rid in ids:
+        eng.cancel(rid)
+    eng.run()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    busy_ms = _union_us((e.time_range.start, e.time_range.end)
+                        for e in kernels) / n_prof / 1e3
+    wall_ms = wall_s / n * 1e3
+    return {"live_slots": eng._slots, "ticks": n, "wall_ms_per_tick": wall_ms,
+            "device_busy_ms_per_tick": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels_per_tick": len(kernels) / n_prof}
+
+
+def phase_serve_slot(torch, spec, params, tree: str, device="cuda",
+                     geom=SLOT_GEOM, oracle=None):
+    """``serve(spec, params)``, the slot ``DecodeEngine`` (serve()'s
+    default), over real HTTP with ``phase_serve``'s seven requests (the
+    shared prefix registered with ``prefix_tokens`` and opted into), after
+    a warm-up pass: token-exact against the generator (``oracle``: its
+    outputs for these requests on this tree, as ``phase_serve`` computed
+    them); on the int8 tree K10 once per projection and head per decode
+    tick and prefill dispatch (``6 * layers + 1``); then a decode-tick
+    profile of the same engine."""
+    from autodist_tpu_torch.models.generate import make_generator
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.ops import quant
+    from autodist_tpu_torch.serving import DecodeEngine, serve
+
+    vocab = spec.config["vocab_size"]
+    requests, shared = _serve_requests(vocab, SEED + 1)
+    bodies = []
+    for i, (prompt, n, stream) in enumerate(requests):
+        tail = prompt[shared.size:] if i < 2 else prompt
+        bodies.append({"prompt_tokens": [int(t) for t in tail],
+                       "max_new_tokens": n, "stream": stream,
+                       "use_prefix": i < 2})
+    warm = DecodeEngine(spec, params, device=device, **geom)
+    warm.set_prefix(shared)
+    for b in bodies:
+        warm.submit(b["prompt_tokens"], 2, use_prefix=b["use_prefix"])
+    warm.run()
+    del warm
+    srv = serve(spec, params, device=device, host="127.0.0.1", port=0,
+                prefix_tokens=shared, **geom)
+    try:
+        if type(srv.engine) is not DecodeEngine:
+            raise AssertionError(f"serve() built {type(srv.engine)}")
+        _reset_all_counts()          # the main path starts here
+        answers, sse_events, wall = _http_round(
+            "http://%s:%d" % srv.address, bodies)
+        counts = _kernel_counts()    # read just after it
+    finally:
+        srv.close()
+    eng = srv.engine
+    layers = spec.config["num_layers"]
+    per_forward = 6 * layers + 1
+    dispatches = eng.stats.ticks + eng.stats.prefill_dispatches
+    if tree == "int8":
+        _expect_launches("slot int8 K10", counts["int8_matmul"],
+                         per_forward * dispatches)
+    else:
+        _expect_launches("slot f32 K10", counts["int8_matmul"], 0)
+    _expect_launches("slot K9", counts["paged_attention"], 0)
+    if sse_events < 2:
+        raise AssertionError("the streamed request sent no SSE events")
+    if eng.stats.prefix_admissions != 2:
+        raise AssertionError(f"prefix admissions {eng.stats}")
+    gen = make_generator(spec, device=device)
+    for i, ((prompt, n, _), ans) in enumerate(zip(requests, answers)):
+        got = np.asarray(ans["tokens"])
+        if i < 2:      # the prefix is attended, not returned
+            got = np.concatenate([shared, got])
+        _check_exact(torch, gen, params, prompt, n, got,
+                     f"slot {tree} HTTP request {i}",
+                     want=None if oracle is None else oracle[i])
+    out = {"tree": tree, "layers": layers, "requests": len(requests),
+           "http_wall_s": wall,
+           "launches": counts, "int8_matmul_per_dispatch":
+           per_forward if tree == "int8" else 0,
+           "generated_tokens": eng.stats.generated_tokens,
+           "slot_utilization": eng.stats.slot_utilization,
+           "sse_events": sse_events, **_rates(eng)}
+    out["profile"] = _tick_profile(torch, eng, vocab)
+    return out
+
+
+def phase_beam_score(torch, spec, params, device="cuda"):
+    """``beam_search`` and ``score`` at full width: batch 2, a 16-token
+    prompt, 32 new tokens.  Width 1 equals greedy decode; width 4 runs;
+    ``score`` (one forward through ``spec.apply_fn``: K1 once per layer)
+    equals the log-softmax sum of the teacher-forced decode logits at
+    rtol ``SCORE_RTOL``."""
+    from autodist_tpu_torch.models.generate import make_generator
+
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    gen = make_generator(spec, device=device)
+    rng = np.random.RandomState(SEED + 3)
+    prompt = rng.randint(0, spec.config["vocab_size"],
+                         (BEAM_BATCH, BEAM_PROMPT)).astype(np.int32)
+    greedy = gen(params, prompt, BEAM_NEW)
+    gen.beam_search(params, prompt, BEAM_NEW, num_beams=4)   # warm-up
+    times = {}
+    for beams in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, logprob = gen.beam_search(params, prompt, BEAM_NEW,
+                                          num_beams=beams)
+        torch.cuda.synchronize()
+        times[beams] = time.perf_counter() - t0
+        if beams == 1 and not torch.equal(tokens, greedy):
+            raise AssertionError("beam_search(num_beams=1) differs from "
+                                 "greedy decode")
+        if not bool(torch.isfinite(logprob).all()) \
+                or tokens.shape != greedy.shape:
+            raise AssertionError(f"beam {beams}: {tokens.shape}, {logprob}")
+    gen.score(params, greedy)                                  # warm-up
+    _reset_all_counts()              # the main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll, ppl = gen.score(params, greedy)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    k1 = fa.flash_attention.fwd_calls
+    _expect_launches("score K1", k1, spec.config["num_layers"])
+    t = greedy.shape[1] - 1
+    _, logits = gen.with_logits(params, greedy, 1)
+    forced = torch.log_softmax(logits[:t].float(), dim=-1).gather(
+        -1, greedy[:, 1:].t()[..., None])[..., 0].sum(0)
+    rel = float(((ll - forced).abs() / forced.abs()).max())
+    if not rel <= SCORE_RTOL or not bool(torch.isfinite(ppl).all()):
+        raise AssertionError(f"score {ll.tolist()} vs decode logits "
+                             f"{forced.tolist()}: rel {rel:.2e}")
+    return {"batch": BEAM_BATCH, "prompt": BEAM_PROMPT, "new": BEAM_NEW,
+            "beam1_equals_greedy": True, "beam_ms": {
+                str(k): v * 1e3 for k, v in times.items()},
+            "score_ms": score_s * 1e3, "log_likelihood": ll.tolist(),
+            "perplexity": ppl.tolist(), "score_max_rel_diff": rel,
+            "score_rtol": SCORE_RTOL, "flash_fwd_per_score": k1}
+
+
+def phase_spec(torch, spec, params, device="cuda", geom=SERVE_GEOM):
+    """Speculative decoding at full width with two drafts: the target
+    itself (acceptance at least ``SELF_ACCEPT_MIN``) and a 2-layer model
+    of the same widths from another seed.  The slot generator
+    (``make_speculative_generator``, gamma ``SPEC_GAMMA``) and
+    ``serve(speculative=...)`` (the paged engine, adaptive gamma, K9 in
+    every draft tick) are token-exact against target-only greedy."""
+    from autodist_tpu_torch.models import (make_generator,
+                                           make_speculative_generator)
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.serving import serve
+
+    cfg = {k: v for k, v in spec.config.items() if k != "seq_len"}
+    small = transformer_lm(**{**cfg, "num_layers": SPEC_DRAFT_LAYERS})
+    drafts = {"self": (spec, params),
+              "draft2": (small, small.init(SEED + 5, device=device))}
+    gen = make_generator(spec, device=device)
+    rng = np.random.RandomState(SEED + 4)
+    vocab = cfg["vocab_size"]
+    prompt = rng.randint(0, vocab, (SPEC_BATCH, SPEC_PROMPT)) \
+        .astype(np.int32)
+    want = gen(params, prompt, SPEC_NEW)
+    reqs = [(rng.randint(0, vocab, p).astype(np.int32), n)
+            for p, n in SPEC_REQUESTS]
+    wants = [gen(params, p[None], n)[0].cpu().numpy() for p, n in reqs]
+    out = {}
+    for name, (dspec, dparams) in drafts.items():
+        sg = make_speculative_generator(spec, dspec, device=device)
+        sg(params, dparams, prompt[:, :8], 4, SPEC_GAMMA)       # warm-up
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, stats = sg(params, dparams, prompt, SPEC_NEW, SPEC_GAMMA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernel_counts()
+        if not torch.equal(tokens, want):
+            raise AssertionError(f"speculative generator ({name}) differs "
+                                 f"from target-only greedy")
+        _expect_launches(f"spec generator ({name}) K9",
+                         counts["paged_attention"], 0)
+        gen_accept = float(stats["accepted"].sum() / stats["proposed"].sum())
+        srv = serve(spec, params, device=device, host="127.0.0.1", port=0,
+                    speculative={"spec": dspec, "params": dparams,
+                                 "gamma": SPEC_GAMMA, "adapt_gamma": True},
+                    **geom)
+        try:
+            url = "http://%s:%d" % srv.address
+            _post(url + "/v1/completions",
+                  {"prompt_tokens": [1, 2, 3], "max_new_tokens": 8})
+            srv.engine.timeline.clear()
+            _reset_all_counts()          # the main path starts here
+            answers, _, http_s = _http_round(url, [
+                {"prompt_tokens": [int(t) for t in p], "max_new_tokens": n}
+                for p, n in reqs])
+            counts_paged = _kernel_counts()
+            sched = srv.engine.scheduler_stats()["speculative"]
+        finally:
+            srv.close()
+        eng = srv.engine
+        eng.assert_no_leaks()
+        for i, (ans, w) in enumerate(zip(answers, wants)):
+            if not np.array_equal(np.asarray(ans["tokens"]), w):
+                _check_exact(torch, gen, params, reqs[i][0], reqs[i][1],
+                             ans["tokens"], f"paged spec ({name}) {i}")
+        rounds = [e for e in eng.timeline if e[0] == "spec"]
+        draft_ticks = sum(e[4] for e in rounds)
+        _expect_launches(f"paged spec ({name}) K9",
+                         counts_paged["paged_attention"],
+                         dspec.config["num_layers"] * draft_ticks)
+        accept = sched["acceptance_rate"]
+        if name == "self" and not (accept >= SELF_ACCEPT_MIN
+                                   and gen_accept >= SELF_ACCEPT_MIN):
+            raise AssertionError(f"self-draft acceptance {accept} / "
+                                 f"{gen_accept} below {SELF_ACCEPT_MIN}")
+        round_s = sum(e[3] for e in rounds)
+        out[name] = {
+            "draft_layers": dspec.config["num_layers"],
+            "generator": {"acceptance": gen_accept,
+                          "iterations": stats["iterations"],
+                          "tokens_per_s": SPEC_BATCH * SPEC_NEW / wall,
+                          "wall_ms": wall * 1e3},
+            "paged": {"acceptance": accept,
+                      "mean_accept_len": sched["mean_accept_len"],
+                      "gamma_hist": sched["gamma_hist"],
+                      "rounds": len(rounds), "draft_ticks": draft_ticks,
+                      "paged_attention_per_round":
+                      counts_paged["paged_attention"] / len(rounds),
+                      "tokens_per_s": sum(e[2] for e in rounds) / round_s,
+                      "ms_per_round": round_s / len(rounds) * 1e3,
+                      "http_wall_s": http_s,
+                      "launches": counts_paged}}
+    return {"gamma": SPEC_GAMMA, "batch": SPEC_BATCH, "prompt": SPEC_PROMPT,
+            "new": SPEC_NEW, "requests": SPEC_REQUESTS, **out}
+
+
+def _corpus(seed: int, words: int = TOKENIZER_WORDS):
+    """Text the script makes: sentences of pseudo-words (a few hundred
+    distinct ones, Zipf-like frequencies) with digits and punctuation."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("etaoinshrdlcumwfgypbvkjxqz"))
+    vocab = ["".join(rng.choice(letters, rng.randint(2, 9),
+                                p=None)) for _ in range(400)]
+    weights = 1.0 / np.arange(1, len(vocab) + 1)
+    picks = rng.choice(len(vocab), words, p=weights / weights.sum())
+    out, line = [], []
+    for i, w in enumerate(picks):
+        line.append(vocab[w])
+        if rng.rand() < 0.08:
+            line.append(str(rng.randint(0, 1000)))
+        if len(line) > 12:
+            out.append(" ".join(line) + rng.choice([".", "?", "!", ","]))
+            line = []
+    return out
+
+
+def phase_tokenizer(torch, spec, params, device="cuda", geom=SLOT_GEOM):
+    """A ``BPETokenizer`` trained here on generated text, its vocabulary
+    padded with reserved tokens to the model's (as T5's 32128 holds extra
+    ids beside its merges), served by ``serve(tokenizer=, prefix_text=)``:
+    ``{"prompt": text}`` answers ``text`` whose tokens are the generator's
+    on ``encode(text)`` (the tokenizer's ``<eos>`` is the engine's)."""
+    from autodist_tpu_torch.models.generate import make_generator
+    from autodist_tpu_torch.runtime import BPETokenizer
+    from autodist_tpu_torch.serving import serve
+
+    texts = _corpus(SEED + 6)
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(texts, vocab_size=256 + TOKENIZER_MERGES,
+                             special_tokens=["<eos>"])
+    train_s = time.perf_counter() - t0
+    vocab = spec.config["vocab_size"]
+    tok.add_special_tokens([f"<extra_{i}>"
+                            for i in range(vocab - tok.vocab_size)])
+    sample = " ".join(texts[:40])
+    sample_ids = tok.encode(sample)
+    if tok.decode(sample_ids) != sample or tok.vocab_size != vocab:
+        raise AssertionError("the tokenizer does not round-trip")
+    prefix = texts[0]
+    srv = serve(spec, params, device=device, host="127.0.0.1", port=0,
+                tokenizer=tok, prefix_text=prefix, **geom)
+    try:
+        if srv.engine._eos_id != tok.eos_id:
+            raise AssertionError("the tokenizer's <eos> is not the engine's")
+        url = "http://%s:%d" % srv.address
+        bodies = [{"prompt": texts[1], "max_new_tokens": 24},
+                  {"prompt": " " + texts[2], "max_new_tokens": 24,
+                   "use_prefix": True}]
+        answers, _, wall = _http_round(url, bodies)
+    finally:
+        srv.close()
+    gen = make_generator(spec, device=device)
+    pre = tok.encode(prefix)
+    for body, ans in zip(bodies, answers):
+        ids = tok.encode(body["prompt"])
+        full = (pre if body.get("use_prefix") else []) + ids
+        want = gen(params, np.asarray([full]), body["max_new_tokens"],
+                   eos_id=tok.eos_id)[0].cpu().numpy()[len(full) - len(ids):]
+        got = np.asarray(ans["tokens"])
+        if not (np.array_equal(got, want[:got.size]) and (
+                got.size == want.size or got[-1] == tok.eos_id)):
+            raise AssertionError(f"text request differs from the generator "
+                                 f"on encode(text): {got} vs {want}")
+        if ans["text"] != tok.decode(ans["tokens"]) \
+                or not ans["text"].startswith(body["prompt"]):
+            raise AssertionError(f"text {ans['text'][:80]!r} does not "
+                                 f"round-trip {body['prompt'][:40]!r}")
+    return {"merges": len(tok.merges), "vocab_size": tok.vocab_size,
+            "train_s": train_s, "corpus_bytes": sum(len(t) for t in texts),
+            "bytes_per_token": len(sample.encode()) / len(sample_ids),
+            "prefix_tokens": len(pre), "requests": len(bodies),
+            "http_wall_s": wall}
+
+
+def phase_lora(torch, spec, params, device="cuda", geom=SLOT_GEOM):
+    """``lora_setup`` on the full-width LM (rank ``LORA_RANK`` on the
+    attention and MLP kernels) through the facade (``AllReduce()``, Adam):
+    ``LORA_WARMUP`` + ``LORA_TIMED`` steps, K1–K3 once per layer each per
+    step, losses finite and falling, the base bit-identical; the merged
+    tree served by ``serve()`` is token-exact against the generator on
+    it."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.models import lora_setup, make_generator
+    from autodist_tpu_torch.serving import serve
+    from autodist_tpu_torch.strategy import AllReduce
+
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    base = {n: x.clone() for n, x in flatten(params)}
+    setup = lora_setup(params, spec.loss_fn, rank=LORA_RANK,
+                       targets=LORA_TARGETS,
+                       rng=torch.Generator(device=device).manual_seed(SEED))
+    _fresh_peak(torch)
+    ad = adm.AutoDist(strategy_builder=AllReduce(), device=device)
+    with ad.scope():
+        ad.capture(**setup.capture_args, optimizer=optim.adam(LORA_LR))
+    sess = ad.create_distributed_session()
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    layers = spec.config["num_layers"]
+    losses, step_s = [], []
+    for i in range(LORA_WARMUP + LORA_TIMED):
+        fa.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(sess.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        if i >= LORA_WARMUP:
+            step_s.append(time.perf_counter() - t0)
+        _expect_launches(f"lora step {i} (K1, K2, K3)",
+                         _flash_counts(fa.flash_attention),
+                         (layers, layers, layers))
+    launches = _flash_counts(fa.flash_attention)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite LoRA loss: {losses}")
+    _check_falling(losses)
+    trained = sess.device_params
+    changed = [n for n, x in flatten(trained["base"])
+               if not torch.equal(x, base[n])]
+    if changed:
+        raise AssertionError(f"LoRA changed base parameters: {changed[:5]}")
+    merged = setup.merge(trained)
+    peak = torch.cuda.max_memory_allocated()
+    del sess, ad
+    _fresh_peak(torch)
+    rng = np.random.RandomState(SEED + 7)
+    reqs = [(rng.randint(0, spec.config["vocab_size"], p).astype(np.int32),
+             n) for p, n in ((24, 16), (80, 24))]
+    srv = serve(spec, merged, device=device, host="127.0.0.1", port=0,
+                **geom)
+    try:
+        answers, _, _ = _http_round("http://%s:%d" % srv.address, [
+            {"prompt_tokens": [int(t) for t in p], "max_new_tokens": n}
+            for p, n in reqs])
+    finally:
+        srv.close()
+    gen = make_generator(spec, device=device)
+    for i, ((prompt, n), ans) in enumerate(zip(reqs, answers)):
+        _check_exact(torch, gen, merged, prompt, n, ans["tokens"],
+                     f"merged LoRA request {i}")
+    return {"rank": LORA_RANK, "adapter_params": setup.num_adapter_params,
+            "losses": losses, **_step_rates(torch, spec, step_s),
+            "max_memory_allocated": peak,
+            "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                 launches)),
+            "launches_per_step": layers, "served_requests": len(reqs)}
+
+
 
 
 def _fresh_peak(torch) -> None:
@@ -3619,6 +4121,7 @@ def main() -> int:
     params = spec.init(SEED, device="cuda")
     init_s = time.perf_counter() - t0
     serve_out = phase_serve(torch, spec, params)
+    serve_oracle = serve_out.pop("oracle")
     emit({"phase": "serve", "init_s": init_s, **serve_out})
     k9["launches"] = serve_out["paged_attention_calls"]
 
@@ -3770,8 +4273,57 @@ def main() -> int:
                 "launches": out["launches"][row["name"]],
                 "per_step": out["launches_per_step"][row["name"]]}
 
+    # the rest of serving, last so that no earlier phase runs after its
+    # engines and profiles: the slot engine, beam search and score,
+    # speculative decoding, the tokenizer, LoRA
+    from autodist_tpu_torch.models.quantize import quantize_lm_params
+
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    params = spec.init(SEED, device="cuda")
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(torch, *args, **kwargs)
+        emit({"phase": name, "card": smi,
+              "wall_s": time.perf_counter() - t, **out})
+        return out
+
+    slot_out = {"f32": timed("serve_slot", phase_serve_slot, spec, params,
+                             "f32", oracle=serve_oracle)}
+    int8_spec = transformer_lm(**{
+        **{k: v for k, v in spec.config.items() if k != "seq_len"},
+        "num_layers": SLOT_INT8_LAYERS})
+    qparams = quantize_lm_params(int8_spec.init(SEED, device="cuda"))
+    slot_out["int8"] = timed("serve_slot", phase_serve_slot, int8_spec,
+                             qparams, "int8")
+    del qparams
+    beam_out = timed("beam_score", phase_beam_score, spec, params)
+    spec_out = timed("spec", phase_spec, spec, params)
+    timed("tokenizer", phase_tokenizer, spec, params)
+    lora_out = timed("lora", phase_lora, spec, params)
+    del params
+    serving_slice_s = time.perf_counter() - t0
+
+    for row in flash_rows:
+        row["launches_by_path"]["lora"] = {
+            "launches": lora_out["launches"][row["name"]],
+            "per_step": lora_out["launches_per_step"]}
+    flash_rows[0]["launches_by_path"]["beam_score score"] = {
+        "launches": beam_out["flash_fwd_per_score"], "per_step": None}
+    k9["launches_by_path"] = {
+        f"spec paged {name}": {
+            "launches": spec_out[name]["paged"]["launches"][
+                "paged_attention"],
+            "per_round": spec_out[name]["paged"][
+                "paged_attention_per_round"]}
+        for name in ("self", "draft2")}
+    k10["launches_by_path"]["serve_slot int8"] = {
+        "launches": slot_out["int8"]["launches"]["int8_matmul"],
+        "per_dispatch": slot_out["int8"]["int8_matmul_per_dispatch"]}
+
     emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
-          "card": smi,
+          "card": smi, "serving_slice_s": serving_slice_s,
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

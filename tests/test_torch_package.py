@@ -36,7 +36,7 @@ from autodist_tpu_torch.models import base
 from autodist_tpu_torch.models.generate import make_generator
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.ops.fused_kernels import fusable_adam
-from autodist_tpu_torch.serving import PagedDecodeEngine, serve
+from autodist_tpu_torch.serving import DecodeEngine, PagedDecodeEngine, serve
 from autodist_tpu_torch.strategy import AllReduce, Zero1
 
 pytestmark = pytest.mark.torch_port
@@ -163,6 +163,13 @@ def test_entry_points_raise_without_device_when_cuda_is_absent(monkeypatch):
         PagedDecodeEngine(spec, params, window=8, block_size=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(spec, params, paged=True, port=0, window=8, block_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(spec, params, window=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(spec, params, port=0, window=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.make_speculative_generator(spec, spec)(params, params,
+                                                      [[1]], 2, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         base.resolve_device("cuda")
     assert base.resolve_device("cpu") == torch.device("cpu")
@@ -348,11 +355,6 @@ def lm_session(monkeypatch):
 def _stub_calls(spec, ad, sess):
     params = sess.device_params
     return {
-        "models.lora_init": (lambda: models.lora_init(None, params), P11),
-        "models.lora_merge": (lambda: models.lora_merge(params, {}), P11),
-        "models.lora_setup": (lambda: models.lora_setup(params, None), P11),
-        "models.make_speculative_generator": (
-            lambda: models.make_speculative_generator(spec, spec), P11),
         "models.moe_transformer_lm": (models.moe_transformer_lm, P10),
         "models.pipelined_transformer_lm": (models.pipelined_transformer_lm,
                                             P10),
@@ -366,38 +368,74 @@ def _stub_calls(spec, ad, sess):
         "session.telemetry": (lambda: sess.telemetry, P9),
         "session.place_local_batch": (
             lambda: sess.place_local_batch(spec.sample_batch(2)), P12),
-        "serve(paged=False)": (
-            lambda: serve(spec, params, device="cpu", port=0), P11),
-        "serve(tokenizer=)": (lambda: serve(
-            spec, params, paged=True, device="cpu", port=0,
-            tokenizer=object()), P11),
-        "serve(prefix_text=)": (lambda: serve(
-            spec, params, paged=True, device="cpu", port=0,
-            prefix_text="a"), P11),
-        "serve(speculative=)": (lambda: serve(
-            spec, params, paged=True, device="cpu", port=0,
-            speculative={"spec": spec, "params": params}), P11),
         "serve(drain_on_sigterm=True)": (lambda: serve(
             spec, params, paged=True, device="cpu", port=0,
             drain_on_sigterm=True), P11),
         "PagedDecodeEngine(mesh=)": (lambda: PagedDecodeEngine(
             spec, params, device="cpu", mesh=object()), P10),
-        "PagedDecodeEngine(draft_spec=)": (lambda: PagedDecodeEngine(
-            spec, params, device="cpu", draft_spec=spec,
-            draft_params=params), P11),
     }
 
 
-STUBS = ["models.lora_init", "models.lora_merge", "models.lora_setup",
-         "models.make_speculative_generator", "models.moe_transformer_lm",
-         "models.pipelined_transformer_lm",
+STUBS = ["models.moe_transformer_lm", "models.pipelined_transformer_lm",
          "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
          "AutoDist.coordinator", "session.schedule_ir",
          "session.schedule_fingerprint", "session.telemetry",
-         "session.place_local_batch", "serve(paged=False)",
-         "serve(tokenizer=)", "serve(prefix_text=)", "serve(speculative=)",
-         "serve(drain_on_sigterm=True)", "PagedDecodeEngine(mesh=)",
-         "PagedDecodeEngine(draft_spec=)"]
+         "session.place_local_batch", "serve(drain_on_sigterm=True)",
+         "PagedDecodeEngine(mesh=)"]
+
+
+def _ported_calls(spec, params):
+    """The P11 names that raised until the serving slice: each call and
+    a check of what it returns.  Servers are closed by the caller."""
+    from autodist_tpu_torch.runtime import BPETokenizer
+
+    small = dict(device="cpu", port=0, window=16)
+    paged = dict(small, paged=True, block_size=8)
+    gen = torch.Generator().manual_seed(0)
+    prompt = np.array([[1, 2, 3]], np.int32)
+    return {
+        "models.lora_init": (
+            lambda: models.lora_init(gen, params),
+            lambda ad: ad and all(set(v) == {"a", "b"} for v in ad.values())),
+        "models.lora_merge": (
+            lambda: models.lora_merge(params, {}, alpha=2.0, rank=1),
+            lambda tree: flatten(tree) == flatten(params)),
+        "models.lora_setup": (
+            lambda: models.lora_setup(params, spec.loss_fn, rng=gen),
+            lambda setup: setup.capture_args["untrainable_vars"]
+            == ("base",)),
+        "models.make_speculative_generator": (
+            lambda: models.make_speculative_generator(
+                spec, spec, device="cpu")(params, params, prompt, 4, 2),
+            lambda out: torch.equal(out[0], make_generator(
+                spec, device="cpu")(params, prompt, 4))),
+        "serve(paged=False)": (
+            lambda: serve(spec, params, **small),
+            lambda srv: type(srv.engine) is DecodeEngine),
+        "serve(tokenizer=)": (
+            lambda: serve(spec, params, tokenizer=BPETokenizer([]),
+                          **paged),
+            lambda srv: srv._tokenizer is not None),
+        "serve(prefix_text=)": (
+            lambda: serve(spec, params, tokenizer=BPETokenizer([]),
+                          prefix_text="\x01\x02", **paged),
+            lambda srv: srv.engine.prefix_len == 2),
+        "serve(speculative=)": (
+            lambda: serve(spec, params, **paged,
+                          speculative={"spec": spec, "params": params}),
+            lambda srv: srv.engine._draft_spec is spec),
+        "PagedDecodeEngine(draft_spec=)": (
+            lambda: PagedDecodeEngine(spec, params, device="cpu", window=16,
+                                      block_size=8, draft_spec=spec,
+                                      draft_params=params),
+            lambda eng: eng.scheduler_stats()["speculative"]["gamma"] == 4),
+    }
+
+
+PORTED = ["models.lora_init", "models.lora_merge", "models.lora_setup",
+          "models.make_speculative_generator", "serve(paged=False)",
+          "serve(tokenizer=)", "serve(prefix_text=)", "serve(speculative=)",
+          "PagedDecodeEngine(draft_spec=)"]
 
 
 @pytest.mark.parametrize("name", STUBS)
@@ -414,6 +452,22 @@ def test_every_stub_is_checked():
 
     assert sorted(STUBS) == sorted(_stub_calls(
         None, None, SimpleNamespace(device_params=None)))
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_serving_slice_entry_points_run(name, lm_session):
+    """The nine P11 refusals of the stub table now run (ROADMAP P11, the
+    serving slice): ``serve()``'s default builds the slot engine."""
+    spec, _, sess = lm_session
+    assert sorted(PORTED) == sorted(_ported_calls(spec,
+                                                  sess.device_params))
+    call, check = _ported_calls(spec, sess.device_params)[name]
+    out = call()
+    try:
+        assert check(out), name
+    finally:
+        if hasattr(out, "close"):
+            out.close()
 
 
 def test_flash_attention_is_the_function_and_cross_entropy_exported():

@@ -299,12 +299,19 @@ def test_paged_validation_and_unported_modes(lm):
     with pytest.raises(ValueError, match="multiple"):
         PagedDecodeEngine(spec, params, window=30, block_size=8,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP: P11"):
-        PagedDecodeEngine(spec, params, device="cpu", draft_spec=spec,
-                          draft_params=params)
+    with pytest.raises(ValueError, match="passed together"):
+        PagedDecodeEngine(spec, params, device="cpu", window=32,
+                          block_size=8, draft_spec=spec)
+    with pytest.raises(ValueError, match="greedy-only"):
+        PagedDecodeEngine(spec, params, device="cpu", window=32,
+                          block_size=8, draft_spec=spec,
+                          draft_params=params, temperature=0.5,
+                          rng=torch.Generator())
     with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
         PagedDecodeEngine(spec, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="paged=True"):
+    # serve()'s default is the slot engine, as in the JAX package: its
+    # window must fit the model like the paged engine's
+    with pytest.raises(ValueError, match="max_len"):
         serve(spec, params, device="cpu", port=0)
 
 
