@@ -44,8 +44,12 @@ under the dtype name ``"bfloat16"``.  No Orbax.
   chunk order; a restore slices the chunk each rank holds
   (``session._step.shard_owner``: the two-tier ``hier`` permutation or
   the rank), so a ``hier`` checkpoint restores into a flat session and
-  the other way round.
-* **Ranks:** every rank takes part in a save (the ZeRO-1 gather); rank 0
+  the other way round.  A variable stored 1/N is saved whole (gathered)
+  and restored into each rank's part, so such a checkpoint written on N
+  ranks restores on 1 and the other way round, where the bucket layouts
+  agree (a stored variable fills buckets of its own at every size).
+* **Ranks:** every rank takes part in a save (the ZeRO-1 and parameter
+  gathers); rank 0
   writes, and the ranks meet at a barrier once the step is committed.
 
 Verified-good steps: :meth:`Saver.mark_good` stamps a step that passes a

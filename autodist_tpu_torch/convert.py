@@ -8,7 +8,10 @@ Both packages key parameters by the same logical names
 * :func:`params_from_jax` takes the JAX tree as numpy arrays (what
   ``tree.map(np.asarray, params)`` gives) — nested dicts, or one flat
   dict keyed by ``/``-joined names — and returns the port's tree of
-  tensors on ``device``;
+  tensors on ``device``: logical, what ``session.import_state`` takes,
+  or, given a session's ``stored_buckets``, cut to one rank's parts of
+  the variables stored 1/N (``session.device_params``' layout, what
+  ``session.load_state`` takes);
 * :func:`params_to_numpy` is the inverse: the port's tree as nested
   dicts of numpy arrays;
 * :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch.graph_item import flatten, unflatten
-from autodist_tpu_torch.kernel.synchronization.bucketing import pack_bucket
+from autodist_tpu_torch.kernel.synchronization.bucketing import (member_spans,
+                                                                  pack_bucket)
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops.quant import Quantized
 
@@ -66,11 +70,23 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], device="cpu",
+                    stored_buckets: Sequence = (), rank: int = 0,
+                    data: int = 1) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves) → the port's tree on
-    ``device``.  ``(q, scale)`` pairs become ``Quantized``."""
+    ``device``.  ``(q, scale)`` pairs become ``Quantized``.  With
+    ``stored_buckets`` (a session's buckets stored 1/N), each of their
+    members becomes rank ``rank`` of ``data``'s part of its bucket's
+    chunk, a flat tensor."""
     if any("/" in k for k in tree):
         tree = _unflatten(tree)
+    if stored_buckets:
+        flat = dict(flatten(params_from_jax(tree, device)))
+        for b in stored_buckets:
+            spans = member_spans(b, rank, b.padded_total // data)
+            for n, (a, e) in zip(b.names, spans):
+                flat[n] = flat[n].reshape(-1)[a:e].clone()
+        return _unflatten(flat)
 
     def walk(node):
         if isinstance(node, dict):

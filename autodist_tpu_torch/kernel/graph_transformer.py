@@ -95,7 +95,11 @@ class DistributedStep:
     fresh sync state; ``export_params`` / ``export_sync_state`` give the
     true parameters and the logical sync state (collectives: every rank
     calls them), ``import_sync_state(sync_state, params)`` this rank's
-    sync state back from it."""
+    sync state back from it.  ``stored_shapes`` gives the logical
+    ``(shape, dtype)`` of each variable stored 1/N between steps (data
+    size > 1), by name, and ``shard_params(params)`` cuts a placed tree
+    to this rank's parts of them (the step's own layout; the identity
+    without them)."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -114,20 +118,25 @@ class DistributedStep:
     export_params: Callable = lambda params, sync_state: params
     export_sync_state: Callable = lambda params, sync_state: dict(sync_state)
     import_sync_state: Callable = lambda sync_state, params: sync_state
+    stored_shapes: Dict[str, Tuple[Tuple[int, ...], str]] = field(
+        default_factory=dict)
+    shard_params: Callable = lambda params: params
 
     @property
     def device(self) -> torch.device:
         return self.mesh.device
 
     def place_params(self, params):
-        """A copy of ``params`` (tensors or numpy arrays) on the mesh's
-        device; trainable leaves require grad.  The caller's tensors are
-        never updated in place."""
+        """A copy of ``params`` (tensors or numpy arrays, logical) on the
+        mesh's device in the step's layout (:attr:`shard_params`);
+        trainable leaves that are not stored 1/N require grad.  The
+        caller's tensors are never updated in place."""
         named = []
         for name, leaf in flatten(params):
             t = torch.as_tensor(leaf).detach().to(self.device).clone()
-            named.append((name, t.requires_grad_(name in self.trainable)))
-        return unflatten(named)
+            named.append((name, t.requires_grad_(
+                name in self.trainable and name not in self.stored_shapes)))
+        return self.shard_params(unflatten(named))
 
     def place_batch(self, batch):
         """Every array leaf as a tensor on the mesh's device."""

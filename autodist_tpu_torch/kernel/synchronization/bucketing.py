@@ -10,6 +10,14 @@ and the same ``Bucket.key`` as the JAX package for the same inputs.
 Keying: ``(mode, dtype, compressor, group)``; within a key variables fill
 greedily in catalog order until ``bucket_bytes`` is reached, and a single
 variable larger than the cap gets a bucket of its own (never split).
+
+Storage: an entry may carry a seventh field, ``stored`` (the parameter
+is stored 1/N per rank between steps, ``VarPlan.storage_axis``).  A
+bucket's members are then all stored that way or none is: a member whose
+flag differs from the open bucket's closes it first, as an oversized
+member does, so the keys keep the JAX package's form and a plan whose
+stored variables each fill a bucket of their own (every full-width
+model's embedding tables) is the JAX planner's plan.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ class Bucket:
     total: int           # sum of member sizes (elements, unpadded)
     padded_total: int    # total rounded up to the shard divisor
     order: int = 0
+    stored: bool = False  # members stored 1/N between steps
 
     @property
     def names(self) -> Tuple[str, ...]:
@@ -99,13 +108,12 @@ def bucket_drop_reason(placement: Sequence, padded: bool,
     return None
 
 
-def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,
-                                           int, str]],
+def assign_buckets(entries: Sequence[Tuple],
                    bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                    shard_divisor: int = 1) -> List[Bucket]:
     """Plan buckets over ``entries`` = [(name, shape, dtype, compressor,
-    group, mode), ...] in catalog order.  ``bucket_bytes`` caps each
-    bucket's unpadded byte size (0 or None: the default);
+    group, mode[, stored]), ...] in catalog order.  ``bucket_bytes`` caps
+    each bucket's unpadded byte size (0 or None: the default);
     ``shard_divisor`` rounds ``padded_total`` up to a multiple of it."""
     cap = int(bucket_bytes) if bucket_bytes else DEFAULT_BUCKET_BYTES
     d = max(int(shard_divisor), 1)
@@ -113,14 +121,17 @@ def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,
     first_touch: List[Tuple] = []
     closed: List[Tuple[Tuple, List[BucketVar]]] = []
     seq: Dict[Tuple, int] = {}
+    stored_of: Dict[Tuple, bool] = {}   # the open bucket's storage
 
     def close(bkey: Tuple) -> None:
         members = open_buckets.pop(bkey, None)
         if members:
-            closed.append((bkey + (seq[bkey],), members))
+            closed.append((bkey + (seq[bkey], stored_of[bkey]), members))
             seq[bkey] = seq[bkey] + 1
 
-    for name, shape, dtype, compressor, group, mode in entries:
+    for entry in entries:
+        name, shape, dtype, compressor, group, mode = entry[:6]
+        stored = bool(entry[6]) if len(entry) > 6 else False
         if mode not in SYNC_MODES:
             raise ValueError(f"unknown sync mode {mode!r} for {name}; "
                              f"expected one of {SYNC_MODES}")
@@ -132,12 +143,14 @@ def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,
             first_touch.append(bkey)
         members = open_buckets.get(bkey)
         current = sum(v.size for v in members) if members else 0
-        if members and (current + size) * itemsize > cap:
-            close(bkey)   # cap reached: this member starts a fresh bucket
+        if members and ((current + size) * itemsize > cap
+                        or stored_of[bkey] != stored):
+            close(bkey)   # cap reached or storage changes: a fresh bucket
             members = None
             current = 0
         if members is None:
             members = open_buckets.setdefault(bkey, [])
+            stored_of[bkey] = stored
         members.append(BucketVar(name=name, shape=tuple(shape),
                                  offset=current))
         if (current + size) * itemsize >= cap:
@@ -146,7 +159,7 @@ def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,
         close(bkey)
 
     buckets: List[Bucket] = []
-    for order, ((mode, dtype, compressor, group, idx), members) \
+    for order, ((mode, dtype, compressor, group, idx, stored), members) \
             in enumerate(closed):
         total = sum(v.size for v in members)
         comp_tag = "" if compressor in ("", "NoneCompressor") \
@@ -155,7 +168,7 @@ def assign_buckets(entries: Sequence[Tuple[str, Tuple[int, ...], str, str,
             key=f"{mode}:{dtype}:{comp_tag}g{group}:{idx}",
             mode=mode, dtype=dtype, compressor=compressor, group=int(group),
             vars=tuple(members), total=total,
-            padded_total=-(-total // d) * d, order=order))
+            padded_total=-(-total // d) * d, order=order, stored=stored))
     return buckets
 
 
@@ -172,3 +185,19 @@ def unpack_bucket(bucket: Bucket, vec: torch.Tensor) -> List[torch.Tensor]:
     """Split the flat vector back into member-shaped views."""
     return [vec[v.offset:v.offset + v.size].view(v.shape)
             for v in bucket.vars]
+
+
+def member_spans(bucket: Bucket, index: int, shard: int
+                 ) -> List[Tuple[int, int]]:
+    """Per member, the ``(start, stop)`` of its flattened elements that
+    chunk ``index`` (``shard`` elements long) of the bucket vector holds;
+    ``start == stop`` for a member outside the chunk.  The members' spans
+    lie in the chunk one after another, in bucket order, and the pad
+    follows them."""
+    lo, hi = index * shard, (index + 1) * shard
+    spans = []
+    for v in bucket.vars:
+        a = min(max(lo, v.offset), v.offset + v.size) - v.offset
+        b = max(min(hi, v.offset + v.size), v.offset) - v.offset
+        spans.append((a, max(a, b)))
+    return spans

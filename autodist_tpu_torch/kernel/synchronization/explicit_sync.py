@@ -9,6 +9,12 @@ step may mix both kinds (``Parallax``: the embedding's PS plan in a
 reduce-scatter bucket, the dense variables' AllReduce plans in
 all-reduce buckets).  The step runs, on each rank, in order:
 
+0. at data size > 1, the compute copy of the variables stored 1/N
+   (``CompiledStrategy.stored_vars``: their buckets are ``stored``):
+   each such bucket's chunk, the only copy a rank keeps between steps, is
+   all-gathered (``overlap.gather_schedule(..., at_start=True)`` order)
+   and unpacked into transient full tensors; they are dropped once the
+   backward has produced the gradients;
 1. loss and gradients on this rank's rows of the global batch (inside
    :func:`~autodist_tpu_torch.mesh.data_rows`), the loss multiplied by
    the loss scale first when one is on; with ``accum_steps > 1`` the
@@ -70,7 +76,9 @@ all-reduce buckets).  The step runs, on each rank, in order:
    members, the per-variable tier and anything unbucketed), then the
    ``all_gather`` of each updated shard in ``overlap.gather_schedule``
    order (the two-tier gather for a ``hier`` bucket) and the unpack into
-   the parameters; a bucket of proxy variables keeps its true shard in
+   the parameters; a stored bucket keeps its updated chunk and gathers
+   at the start of the next step instead (step 0: the same collective
+   and bytes, moved); a bucket of proxy variables keeps its true shard in
    the sync state and gathers only on refresh steps;
 9. metrics: ``loss`` averaged over the data group and unscaled,
    ``grad_health``, ``aux`` averaged, the ``metrics_fn`` extras.
@@ -79,6 +87,16 @@ Optimizer state: without ZeRO-1 buckets, the tree state of the plain step;
 with them, ``{"vars": tree state of the other variables, "zero1": the
 optimizer's state over {bucket key: this rank's shard}}``, so each rank
 holds 1/N of every bucket's moments.
+
+Parameter storage: the step's parameter tree holds, for a member of a
+stored bucket at data size > 1, this rank's part of the bucket's chunk
+as a 1-D tensor (:func:`~.bucketing.member_spans`; empty where the
+member lies outside the chunk), and the replicated value for every other
+variable.  ``place_params``/``shard_params`` cut logical values to it,
+``export_params`` gathers it back (a collective: every rank calls it;
+the session evaluates on what it gives).  A proxied bucket keeps the
+JAX package's rule for a proxy: its compute copy is the replicated
+mirror, its true shard in the sync state.
 
 Two rules of the JAX package's lowering are kept as they are: at data
 size > 1 a strategy that takes the JAX explicit path (a compressor, an
@@ -103,10 +121,10 @@ kernels run whenever a bucket is quantized (the JAX package's are an
 opt-in; both put the same bits on the wire).  The port's mesh has only
 the data axis (P10), so no variable keeps a per-shard collective
 (:func:`partition_drop_reason` gives the JAX rule); the flight-recorder
-stamps are P9's.  Under a PS plan the parameters stay replicated between
-steps; the JAX package holds PS-partitioned variables and a sparse
-embedding 1/N per rank (``param_spec = P("data")``), the same losses and
-parameters for more memory here.
+stamps are P9's.  A stored variable lives in its flat bucket: a rank
+holds its chunk of the bucket vector where the JAX package holds its
+slice of the variable along the storage axis (``param_spec =
+P("data")``), the flat bucket padded where JAX pads the dim.
 """
 from __future__ import annotations
 
@@ -124,7 +142,8 @@ from autodist_tpu_torch.kernel.synchronization import quant_ring
 from autodist_tpu_torch.kernel.synchronization import stale_sync
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     DEFAULT_BUCKET_BYTES, MODE_ALL_REDUCE, MODE_REDUCE_SCATTER, Bucket,
-    assign_buckets, bucket_drop_reason, pack_bucket, unpack_bucket)
+    assign_buckets, bucket_drop_reason, member_spans, pack_bucket,
+    unpack_bucket)
 from autodist_tpu_torch.kernel.synchronization.compressor import (
     Compressor, get_compressor)
 from autodist_tpu_torch.mesh import data_rows
@@ -200,7 +219,11 @@ def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
     """The step's buckets: every synced variable whose compressor composes
     with flat buckets, in catalog order, keyed by (mode, dtype,
     compressor, group), capped by the largest ``bucket_bytes`` of the
-    plans and padded to a multiple of the data size ``d``."""
+    plans and padded to a multiple of the data size ``d``; the variables
+    stored 1/N fill buckets of their own (``Bucket.stored``), at ``d`` 1
+    too, where nothing is sharded, so that a checkpoint's bucket layout
+    does not depend on the data size (but for a variable the JAX rule
+    keeps replicated at ``d``, ``VarPlan.stored_at``)."""
     entries = []
     cap = 0
     for v in gi.info.variables:
@@ -210,8 +233,10 @@ def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
         comp = plan.compressor or "NoneCompressor"
         if bucket_drop_reason((), False, comp) is not None:
             continue
-        entries.append((v.name, v.shape, v.dtype, comp, plan.group,
-                        plan.sync_mode or MODE_ALL_REDUCE))
+        mode = plan.sync_mode or MODE_ALL_REDUCE
+        entries.append((v.name, v.shape, v.dtype, comp, plan.group, mode,
+                        mode == MODE_REDUCE_SCATTER
+                        and plan.stored_at(d)))
         cap = max(cap, plan.bucket_bytes)
     return assign_buckets(entries, bucket_bytes=cap or DEFAULT_BUCKET_BYTES,
                           shard_divisor=max(d, 1))
@@ -326,6 +351,89 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     proxied = set(stale.proxied_keys) if stale is not None else set()
     proxy_names = set(stale.proxied) if stale is not None else set()
 
+    # -- 1/N parameter storage: the stored buckets, at data size > 1 --------
+    stored = [b for b in rs_buckets
+              if b.stored and d > 1 and b.key not in proxied]
+    stored_keys = {b.key for b in stored}
+    starts = ov_mod.gather_schedule(stored, ov.prefetch, at_start=True)
+    trainable = set(names)
+
+    def spans(b: Bucket):
+        return member_spans(b, owner(b), b.padded_total // d)
+
+    def stored_chunk(b: Bucket, leaves) -> torch.Tensor:
+        """This rank's chunk of stored bucket ``b`` from its members'
+        parts: the part itself when it fills the chunk, else a copy."""
+        parts = [leaves[n].detach() for n in b.names]
+        filled = [p for p in parts if p.numel()]
+        sz = b.padded_total // d
+        have = sum(p.numel() for p in filled)
+        if len(filled) == 1 and have == sz:
+            return filled[0]
+        return torch.cat(filled + [parts[0].new_zeros(sz - have)])
+
+    def write_parts(b: Bucket, leaves, chunk: torch.Tensor) -> None:
+        """Copy an updated chunk into the members' parts (in place)."""
+        pos = 0
+        for n, (a, e) in zip(b.names, spans(b)):
+            part = chunk[pos:pos + e - a]
+            pos += e - a
+            if part.numel() and part.data_ptr() != leaves[n].data_ptr():
+                leaves[n].copy_(part)
+
+    def shard_params(params):
+        """``params`` (placed) with each stored member cut to this rank's
+        part, a flat tensor that does not require grad; a leaf already
+        cut is kept."""
+        if not stored:
+            return params
+        leaves = dict(flatten(params))
+        for b in stored:
+            for n, v, (a, e) in zip(b.names, b.vars, spans(b)):
+                x = leaves[n].detach().reshape(-1)
+                if x.numel() == v.size:
+                    x = x[a:e].clone()
+                elif x.numel() != e - a:
+                    raise ValueError(
+                        f"{n}: {x.numel()} elements are neither the "
+                        f"variable {v.shape} nor this rank's part "
+                        f"({e - a} elements of bucket {b.key})")
+                leaves[n] = x
+        return unflatten([(n, leaves[n]) for n, _ in flatten(params)])
+
+    def materialize(params, grad: bool = True, lend: bool = False):
+        """The compute tree: each stored bucket gathered and unpacked into
+        full tensors (trainable ones require grad when ``grad``); every
+        other leaf as it is.  ``lend``: the stored parts borrow their
+        values' storage in the gathered vector until :func:`reclaim`, so
+        that a rank does not hold its chunk twice while the compute copy
+        lives (the peak of the step)."""
+        if not stored:
+            return params
+        leaves = dict(flatten(params))
+        compute = dict(leaves)
+        for b in starts:
+            full = gather_full(b, stored_chunk(b, leaves))
+            pos = owner(b) * (b.padded_total // d)
+            for n, arr, (a, e) in zip(b.names, unpack_bucket(b, full),
+                                      spans(b)):
+                compute[n] = arr.detach().requires_grad_(grad
+                                                         and n in trainable)
+                if lend and e > a:
+                    leaves[n].set_(full.untyped_storage(),
+                                   full.storage_offset() + pos, (e - a,))
+                pos += e - a
+        return unflatten([(n, compute[n]) for n, _ in flatten(params)])
+
+    def reclaim(params) -> None:
+        """Give each stored part its own storage again (a copy out of the
+        gathered vector :func:`materialize` lent it)."""
+        leaves = dict(flatten(params))
+        with torch.no_grad():
+            for b in stored:
+                for n in b.names:
+                    leaves[n].set_(leaves[n].clone())
+
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
     num_active = num_cfg is not None and num_cfg.guard
@@ -380,7 +488,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         return pack_bucket(b, [leaves[n].detach() for n in b.names])
 
     def param_shards(leaves) -> Dict[str, torch.Tensor]:
-        return {b.key: chunk_of(b, pack_params(leaves, b)).clone()
+        return {b.key: (stored_chunk(b, leaves) if b.key in stored_keys
+                        else chunk_of(b, pack_params(leaves, b))).clone()
                 for b in rs_buckets}
 
     def init_sync_state(params=None):
@@ -410,9 +519,10 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         return state
 
     def true_leaves(params, sync_state) -> Dict[str, torch.Tensor]:
-        """The parameters' true values by name: proxied members come from
-        the true shards (gathered), the rest from ``params``."""
-        leaves = dict(flatten(params))
+        """The parameters' true values by name: stored members and proxied
+        members come from their shards (gathered), the rest from
+        ``params``."""
+        leaves = dict(flatten(materialize(params, grad=False)))
         if proxied:
             masters = sync_state[stale_sync.MASTER_KEY]
             for b in rs_buckets:
@@ -424,8 +534,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         return leaves
 
     def export_params(params, sync_state):
-        """The parameters' true values (a gather when proxies lag)."""
-        if not proxied:
+        """The parameters' true values, logical (a gather when variables
+        are stored 1/N or proxies lag)."""
+        if not proxied and not stored:
             return params
         leaves = true_leaves(params, sync_state)
         return unflatten([(n, leaves[n]) for n, _ in flatten(params)])
@@ -522,8 +633,10 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     def step(params, opt_state, sync_state, batch):
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
             else None
+        # the stored buckets' compute copy lives until the gradients exist
         loss, aux, grads, pipe_red, pipe_state, pipe_sat = gradients(
-            params, sync_state, batch)
+            materialize(params, lend=True), sync_state, batch)
+        reclaim(params)
 
         health = guard_mod.HealthAccumulator(d, fused=True) \
             if num_active else None
@@ -610,8 +723,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             metrics["aux"] = tree_map(lambda x: _mean_over(x, d, group), aux)
         if extra_metrics_fn is not None:
             with torch.no_grad():
-                metrics = gt.merge_metrics(metrics,
-                                           extra_metrics_fn(params, batch))
+                metrics = gt.merge_metrics(metrics, extra_metrics_fn(
+                    materialize(params, grad=False), batch))
         return metrics
 
     @torch.no_grad()
@@ -623,6 +736,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         leaves = dict(flatten(params))
         masters = sync_state.get(stale_sync.MASTER_KEY, {})
         p_shards = {b.key: masters[b.key] if b.key in proxied
+                    else stored_chunk(b, leaves) if b.key in stored_keys
                     else chunk_of(b, pack_params(leaves, b))
                     for b in rs_buckets}
         z = opt_state["zero1"]
@@ -641,9 +755,13 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         refresh = stale is not None and stale.refresh_due(sync_state)
         for k in proxied:
             masters[k] = p_shards[k]
+        for b in stored:            # kept as they are: gathered next step
+            write_parts(b, leaves, p_shards[b.key])
         if stale is not None:
             stale.advance(sync_state)
         for b in gathers:
+            if b.key in stored_keys:
+                continue
             # a proxied bucket gathers on refresh steps, or for its
             # members that are not proxied
             keep = proxy_names if b.key in proxied and not refresh else ()
@@ -654,6 +772,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 if n not in keep:
                     leaves[n].copy_(arr)
 
+    shapes = {v.name: (tuple(v.shape), v.dtype) for v in gi.info.variables}
     return gt.DistributedStep(
         step_fn=step, init_fn=init_fn,
         eval_fn=gt.make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
@@ -665,4 +784,6 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         init_sync_state=init_sync_state,
         export_opt_state=export_opt_state, export_params=export_params,
         export_sync_state=export_sync_state,
-        import_sync_state=import_sync_state)
+        import_sync_state=import_sync_state,
+        stored_shapes={n: shapes[n] for b in stored for n in b.names},
+        shard_params=shard_params)

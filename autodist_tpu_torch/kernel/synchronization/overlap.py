@@ -19,7 +19,8 @@ Port of the JAX package's ``kernel/synchronization/overlap.py``:
   is phase-serial, so that decomposition would only add calls (ROADMAP:
   the linear ring lowering waits for a measured NCCL run);
 * the ZeRO-1 parameter gathers in :func:`gather_schedule` order (reverse
-  bucket order under prefetch), each one backend ``all_gather``;
+  bucket order under prefetch; the start-of-step gathers of the buckets
+  stored 1/N in bucket order), each one backend ``all_gather``;
 * the two-tier (``hier``) collectives (``:438-556``): a data axis of ``d``
   ranks in ``s`` slices reduces a bucket within each slice
   (reduce-scatter), across the slices (one rank per slice: the slower
@@ -209,13 +210,16 @@ def reduce_alg(bucket: Bucket, plan: OverlapPlan, d: int,
     return ALG_FUSED
 
 
-def gather_schedule(buckets: Sequence[Bucket],
-                    prefetch: bool) -> List[Bucket]:
-    """ZeRO-1 parameter-gather issue order: reverse bucket order under
-    prefetch (backward fills the last bucket first), else bucket
-    order."""
+def gather_schedule(buckets: Sequence[Bucket], prefetch: bool,
+                    at_start: bool = False) -> List[Bucket]:
+    """ZeRO-1 parameter-gather issue order: after the update, reverse
+    bucket order under prefetch (backward fills the last bucket first),
+    else bucket order; ``at_start``, the start-of-step gathers of the
+    buckets stored 1/N, always bucket order (the forward reads the first
+    bucket first)."""
     ordered = sorted(buckets, key=lambda b: b.order)
-    return list(reversed(ordered)) if prefetch else ordered
+    return list(reversed(ordered)) if prefetch and not at_start \
+        else ordered
 
 
 def bucket_reduce_fn(bucket: Bucket, group, n: int) -> Callable:

@@ -1,7 +1,8 @@
 """The distributed session: training state and steps.
 
 Port of the JAX package's ``runner.py:27-422`` for what the port runs: the
-session holds this rank's parameters, optimizer state (under ZeRO-1, this
+session holds this rank's parameters (for a variable stored 1/N, this
+rank's part of its bucket's chunk), optimizer state (under ZeRO-1, this
 rank's 1/N shard of every bucket's state) and sync state (the numerics
 state and the quantized buckets' error-feedback residuals) on its device
 and runs the lowered step against them.
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch.const import P8, P9, P12, not_ported
-from autodist_tpu_torch.graph_item import flatten, tree_map
+from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
                                                          local_rows)
@@ -139,15 +140,26 @@ class DistributedSession:
 
     @property
     def device_params(self):
-        """The parameter tensors the step updates in place."""
+        """The parameter tensors the step updates in place: the replicated
+        value of each variable, except that a variable stored 1/N
+        (:attr:`stored_buckets`) holds this rank's part of its bucket's
+        chunk, a flat tensor (:attr:`params` gives logical values)."""
         return self._params
 
     @property
     def sharded_params(self):
-        """The JAX session's name for :attr:`device_params`: the step's
-        device-resident tree (replicated per rank: the port keeps no 1/N
-        parameter storage)."""
+        """The JAX session's name for :attr:`device_params`: the device
+        tree the step holds, with this rank's shard of each variable
+        stored 1/N."""
         return self._params
+
+    @property
+    def stored_buckets(self):
+        """The ZeRO-1 buckets whose members are stored 1/N between steps
+        (empty at data size 1 and without PS-partitioned or sparse-on-PS
+        variables)."""
+        return tuple(b for b in self.zero1_buckets
+                     if b.names[0] in self._step.stored_shapes)
 
     @property
     def opt_state(self):
@@ -225,11 +237,16 @@ class DistributedSession:
         """Full resume from values already placed in the session's layout
         (tensors on the session's device, as :attr:`device_params`,
         :attr:`opt_state` and :attr:`sync_state` hold them; ``export_state``
-        gives such values); ``sync_state`` None starts a fresh one.  The
-        session takes the tensors as they are (no copy) and marks the
-        trainable leaves as requiring grad."""
+        gives such values, a variable stored 1/N as its logical value or
+        as this rank's part); ``sync_state`` None starts a fresh one.  The
+        session takes the tensors as they are (no copy, but for a logical
+        value of a variable stored 1/N, which is cut to this rank's part)
+        and marks the trainable leaves that are not stored 1/N as
+        requiring grad."""
+        params = self._step.shard_params(params)
         for name, leaf in flatten(params):
-            leaf.requires_grad_(name in self._step.trainable)
+            leaf.requires_grad_(name in self._step.trainable
+                                and name not in self._step.stored_shapes)
         self._params = params
         self._opt_state = opt_state
         self._sync_state = (
@@ -251,7 +268,20 @@ class DistributedSession:
                              for k, v in opt["zero1"].items()}}
         else:
             opt = tree_map(_meta, opt)
-        return tree_map(_meta, self._params), opt
+        return self._logical(
+            _meta,
+            lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                             device="meta")), opt
+
+    def _logical(self, leaf, stored):
+        """The parameter tree as ``leaf(x)`` of each replicated leaf and
+        ``stored(shape, dtype)`` of the logical shape of each variable
+        stored 1/N (no collective)."""
+        shapes = self._step.stored_shapes
+        return unflatten([
+            (n, stored(shapes[n][0], getattr(torch, shapes[n][1]))
+             if n in shapes else leaf(x))
+            for n, x in flatten(self._params)])
 
     @property
     def step_count(self) -> int:
@@ -308,15 +338,20 @@ class DistributedSession:
 
     def evaluate(self, batches, sync: bool = True
                  ) -> Optional[Dict[str, Any]]:
-        """Loss (and aux, and metrics_fn extras) on the current parameters,
-        with no state change.  An iterable of batches returns the mean of
-        every metric over the batches; None for an empty iterable."""
+        """Loss (and aux, and metrics_fn extras) on the current parameters
+        (their true values: a variable stored 1/N is gathered, a lagging
+        proxy's true shard used), with no state change.  An iterable of
+        batches returns the mean of every metric over the batches; None
+        for an empty iterable."""
         if isinstance(batches, dict):
             batches = [batches]
         acc, n = None, 0
+        params = None
         for b in batches:
-            out = self._step.eval_fn(self._params,
-                                     self._step.place_batch(b))
+            if params is None:      # the true values: gathered where stored
+                params = self._step.export_params(self._params,
+                                                  self._sync_state)
+            out = self._step.eval_fn(params, self._step.place_batch(b))
             acc = out if acc is None else tree_map(lambda a, x: a + x,
                                                    acc, out)
             n += 1
@@ -402,9 +437,13 @@ class DistributedSession:
             batch = local_rows(self._step.place_batch(self._last_batch),
                                mesh.data_size, mesh.data_rank, [])
             # detached leaves: backward() fills their .grad, not the
-            # session's (autograd.grad refuses the module tracker's hooks)
-            params = tree_map(lambda x: x.detach().requires_grad_(
-                x.requires_grad), self._params)
+            # session's (autograd.grad refuses the module tracker's hooks);
+            # a variable stored 1/N counts on zeros of its logical shape
+            params = self._logical(
+                lambda x: x.detach().requires_grad_(x.requires_grad),
+                lambda shape, dtype: torch.zeros(
+                    shape, dtype=dtype,
+                    device=self._step.device).requires_grad_())
             counter = FlopCounterMode(display=False)
             with counter:
                 out = self._gi.loss_fn(params, batch)

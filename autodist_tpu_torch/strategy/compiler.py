@@ -2,8 +2,7 @@
 
 Port of the JAX package's ``strategy/compiler.py:93-486`` for the port's
 mesh, which has a ``data`` axis only.  Each per-variable config becomes a
-:class:`VarPlan`; the parameter keeps a replicated compute copy on every
-rank.
+:class:`VarPlan`.
 
 * **AllReduce** plans average the gradient over ``data`` and carry
   ``compressor``, ``sync_mode`` (``"reduce_scatter"`` for ZeRO-1 weight-
@@ -15,27 +14,35 @@ rank.
   plan reduce-scatters the gradient over ``data`` (``sync_mode=
   "reduce_scatter"``, no compressor, the default bucket cap), so the
   explicit bucketed step updates this rank's 1/N share of the optimizer
-  state and all-gathers the fresh parameters, the ZeRO-1 path.  The
-  plan records the reduction destination, the partitioner's axis and
-  shard count, the sparse flag, ``staleness`` (the delay of bounded
-  staleness) and ``local_replication`` (proxy variables), which the step
-  runs (``kernel/synchronization/stale_sync.py``).  ``sync=False`` is
-  carried along and the step stays bulk-synchronous, as in the JAX
-  package.
+  state, the ZeRO-1 path.  The plan records the reduction destination,
+  the partitioner's axis and shard count, the sparse flag, ``staleness``
+  (the delay of bounded staleness) and ``local_replication`` (proxy
+  variables), which the step runs
+  (``kernel/synchronization/stale_sync.py``).  ``sync=False`` is carried
+  along and the step stays bulk-synchronous, as in the JAX package.
+* **Parameter storage** (``storage_axis``): the dim the JAX lowering
+  shards the parameter over ``data`` between steps (its ``param_spec``,
+  ``compiler.py:457-484``): a partitioner's axis under PS, and axis 0 for
+  a sparse variable on PS without one (the vocab-axis shard of the
+  Parallax lowering).  Such a variable is stored 1/N per rank between
+  steps at data size > 1 (:meth:`CompiledStrategy.stored_vars`), unless,
+  as in the JAX lowering, padding the dim to a multiple of the data size
+  would at least double it; every other parameter keeps a replicated
+  copy.
 
 The compiled strategy carries the resource spec's ``num_slices``, the
 two-tier topology ``hier`` buckets reduce over, and
 :meth:`CompiledStrategy.fusable_groups`, the groups ``fused_groups``
 fuses (``compiler.py:141-170, 243``).
 
-Two differences from the JAX lowering, neither of which changes a loss or
-a parameter: the JAX package holds PS-partitioned variables and a sparse
-embedding on PS 1/N per rank between steps and gathers them for compute,
-where the port keeps the replicated compute copy and shards only the
-optimizer moments; and where the JAX package pads a dim that does not
+One difference from the JAX lowering, which changes no loss or
+parameter: a variable stored 1/N lives in a flat ZeRO-1 bucket, and a
+rank holds its chunk of that bucket, not JAX's slice of the variable
+along ``storage_axis``; where the JAX package pads a dim that does not
 divide the data size (``pad_axis``: ``UnevenPartitionedPS``, an
-indivisible vocab), the port's flat bucket is padded to a multiple of the
-data size instead.
+indivisible vocab), the flat bucket is padded to a multiple of the data
+size instead.  For a bucket of one variable stored along axis 0 whose
+rows divide by the data size, the chunk is JAX's shard, row for row.
 """
 from __future__ import annotations
 
@@ -65,11 +72,11 @@ def parse_partitioner(partitioner: str) -> Tuple[Optional[int], int]:
 
 @dataclass
 class VarPlan:
-    """Lowered per-variable plan: replicated parameter, the synchronizer
-    kind (``"AllReduce"`` or ``"PS"``), the gradient's sync mode
-    (``"all_reduce"`` or ``"reduce_scatter"``), the bucket options and,
-    for PS, the destination, partitioner, sparse flag, staleness and proxy
-    flag."""
+    """Lowered per-variable plan: the synchronizer kind (``"AllReduce"``
+    or ``"PS"``), the gradient's sync mode (``"all_reduce"`` or
+    ``"reduce_scatter"``), the bucket options and, for PS, the
+    destination, partitioner, sparse flag, staleness, proxy flag and the
+    storage axis (None: a replicated parameter)."""
 
     var_name: str
     sync_kind: str = "AllReduce"
@@ -86,6 +93,17 @@ class VarPlan:
     sparse: bool = False
     staleness: int = 0
     local_replication: bool = False
+    storage_axis: Optional[int] = None
+    storage_dim: int = 0
+
+    def stored_at(self, data: int) -> bool:
+        """Is the parameter stored 1/N at data size ``data``?  Not when
+        padding its storage dim to a multiple of ``data`` would at least
+        double it (the JAX lowering keeps such a variable replicated)."""
+        if self.storage_axis is None:
+            return False
+        dim, d = self.storage_dim, max(int(data), 1)
+        return not (dim % d and -(-dim // d) * d >= 2 * dim)
 
 
 @dataclass
@@ -109,6 +127,15 @@ class CompiledStrategy:
                 continue
             by_group.setdefault(plan.group, []).append(name)
         return {g: ns for g, ns in by_group.items() if len(ns) >= 2}
+
+    def stored_vars(self, data: Optional[int] = None) -> Tuple[str, ...]:
+        """The variables stored 1/N per rank between steps at data size
+        ``data`` (default: the mesh's), the JAX lowering's ``param_spec``
+        over ``data`` (none at size 1)."""
+        if data is None:
+            data = getattr(self.mesh, "data_size", 1)
+        return tuple(name for name, plan in self.var_plans.items()
+                     if data > 1 and plan.stored_at(data))
 
 
 class StrategyCompiler:
@@ -141,13 +168,19 @@ class StrategyCompiler:
                 f"with shape {var.shape}")
         sync = node.synchronizer
         if isinstance(sync, PSSynchronizerConfig):
+            storage = axis
+            if (var.sparse and axis is None and var.shape
+                    and not (var.pipeline or var.expert)):
+                storage = 0     # the vocab-axis shard of a sparse table
             return VarPlan(
                 var_name=var.name, sync_kind="PS",
                 sync_mode=MODE_REDUCE_SCATTER,
                 reduction_destination=sync.reduction_destination,
                 partition_axis=axis, num_shards=num_shards,
                 sparse=var.sparse, staleness=int(sync.staleness),
-                local_replication=bool(sync.local_replication))
+                local_replication=bool(sync.local_replication),
+                storage_axis=storage,
+                storage_dim=var.shape[storage] if storage is not None else 0)
         if not isinstance(sync, AllReduceSynchronizerConfig):
             raise ValueError(f"node {node.var_name} has no synchronizer")
         return VarPlan(

@@ -153,10 +153,14 @@ Phases, each printing one JSON line:
    atol 1e-6, saturation counts equal.  Then each rank trains
    ``PSLoadBalancing()`` (``ps_lb``) with ``fusable_adam`` and the clip,
    1 warm-up and 2 timed steps: each rank's Adam moments are
-   ``padded_total / 4`` of every bucket, K5 launches once per bucket per
-   step (K4 twice, K1–K3 once per layer), every rank's parameters are
-   bit-identical at the end and each step's loss is within rtol 1e-4 of
-   ``train_zero1``'s at the same step.  Then each rank runs ``train_p6``
+   ``padded_total / 4`` of every bucket, and the sparse ``embed`` is
+   stored 1/4 a rank between steps (its bucket's chunk, gathered at the
+   start of each step: ``resident_bytes``, ``stored_1n_bytes`` and the
+   drop against the replicated layout, 74,022,912 B within 1 MiB), K5
+   launches once per bucket per step (K4 twice, K1–K3 once per layer),
+   every rank's parameters (gathered) are bit-identical at the end and
+   each step's loss is within rtol 1e-4 of ``train_zero1``'s at the same
+   step.  Then each rank runs ``train_p6``
    on ``transformer_lm(num_layers=4)`` at full width with the clip, 1 + 2
    steps each: ``AllReduce`` with ``HorovodCompressor`` and with
    ``PowerSGDCompressor``, ``Zero1`` with ``HorovodCompressorEF``,
@@ -230,7 +234,14 @@ Phases, each printing one JSON line:
    adam), 2 + 3 steps with K1–K3 12 each a step, losses falling, the
    base bit-identical, the merged tree served by ``serve()`` token-exact.
    Each prints its ``wall_s``; the ``kernels`` line their sum,
-   ``serving_slice_s``.
+   ``serving_slice_s``.  Last, ``examples``: every twin of the JAX
+   example scripts under ``examples_torch/`` through its ``main`` on the
+   card (the benchmark twins at their full-width defaults for 3 timed
+   steps, the demos at theirs; :data:`EXAMPLE_TWINS`), its own asserts
+   holding, one line each with its seconds, rate and kernel launches
+   (BERT-base's K1–K3; none of K1 and K9 in the dense-attention demos);
+   the ``kernels`` line adds their launches by path and their sum,
+   ``examples_s``.
 
 K1–K3 are also checked and timed at BERT-base's shape (B 32, T 128, H 12,
 D 64, non-causal; SDPA with ``is_causal=False``; the ``<64, full>``
@@ -286,7 +297,7 @@ import hashlib
 import importlib
 import json
 import os
-import socket
+import shutil
 import statistics
 import subprocess
 import sys
@@ -297,6 +308,8 @@ import urllib.request
 import numpy as np
 
 SEED = 0
+#: the interface the ring ranks' gloo pairs use
+LOOPBACK = "lo"
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 tensor cores, dense (data sheet, SXM)
@@ -360,6 +373,36 @@ FIT_TIMED_STEPS = 10
 #: the 4-rank ``ps_lb`` run's losses against the one-card ``train_zero1``
 #: run's (the JAX package's case-matrix tolerance)
 PS_LB_LOSS_RTOL = 1e-4
+#: ``ps_lb``: what a rank no longer holds between steps, ``embed`` (32128
+#: x 768 f32, the sparse table ``PSLoadBalancing`` stores 1/4 per rank):
+#: 3/4 of its bytes, held within :data:`PS_LB_DROP_TOL`
+PS_LB_DROP_BYTES = 74_022_912
+PS_LB_DROP_TOL = 1 << 20
+#: the ``examples`` phase: each twin under ``examples_torch/`` by module,
+#: with its arguments: the benchmark twins at their full-width defaults
+#: (ResNet-50 at 224 and batch 32, BERT-base at seq 128, NCF, lm1b at vocab
+#: 793472 under ``Parallax``) for 3 timed steps after 1 of warmup, the
+#: demos at their own defaults
+EXAMPLE_TWINS = (
+    ("linear_regression", ()),
+    ("image_classifier", ()),
+    ("benchmark.imagenet", ("--model", "resnet50", "--image-size", "224",
+                            "--batch-size", "32", "--steps", "3",
+                            "--warmup", "1")),
+    ("benchmark.bert", ("--size", "base", "--seq-len", "128", "--steps",
+                        "3", "--warmup", "1")),
+    ("benchmark.ncf", ("--steps", "3", "--warmup", "1")),
+    ("lm1b.lm1b_train", ("--steps", "3", "--warmup", "1")),
+    ("generate_text", ()),
+    ("sentiment_classifier", ()),
+    ("lora_finetune", ()),
+    ("serving_engine", ()),
+    ("serve_http", ()),
+    ("speculative_draft", ()),
+)
+#: the twins whose JAX scripts pass ``dense_attention``: no K1, no K9
+EXAMPLE_DENSE = ("generate_text", "lora_finetune", "serving_engine",
+                 "speculative_draft")
 SERVE_GEOM = dict(slots=8, window=1024, block_size=32, chunk=16,
                   prefill_chunk=256)
 #: the BASELINE models' phases: the JAX examples' ``--batch-size``, steps
@@ -2167,7 +2210,6 @@ def phase_export(torch):
     bit for bit the eager forward (K1 12 launches; K10 73 on the int8
     tree), on the CPU at ``EXPORT_RTOL`` / ``EXPORT_ATOL``; export and
     load seconds, artifact bytes."""
-    import shutil
     import tempfile
 
     from autodist_tpu_torch.checkpoint import SavedModelBuilder
@@ -3225,14 +3267,19 @@ def _ring_fused_vs_unfused(torch, sess, batch_rows, rank):
 
 
 def _params_digests(sess) -> dict:
-    """``params_sha256``, one digest of every parameter in catalog order,
-    and ``param_sha256``, each parameter's own (to name the ones that
-    differ when the ranks disagree)."""
+    """``params_sha256``, one digest of every parameter's logical value in
+    catalog order (gathered where a rank stores 1/N: every rank calls
+    it), and ``param_sha256``, each parameter's own (to name the ones
+    that differ when the ranks disagree)."""
+    import torch
+
     from autodist_tpu_torch.graph_item import flatten
 
     digest, each = hashlib.sha256(), {}
-    for pname, x in flatten(sess.device_params):
-        data = x.detach().cpu().numpy().tobytes()
+    for pname, x in flatten(sess._step.export_params(sess.device_params,
+                                                     sess.sync_state)):
+        data = x.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes()
         digest.update(pname.encode())
         digest.update(data)
         each[pname] = hashlib.sha256(data).hexdigest()[:16]
@@ -3242,7 +3289,13 @@ def _params_digests(sess) -> dict:
 def _ps_lb_train(torch):
     """The ``ps_lb`` configuration on this rank: ``PSLoadBalancing()`` with
     ``fusable_adam`` and clip over the 4 ranks, each holding 1/4 of every
-    bucket's Adam moments; K1–K5 checked per step as in ``train_zero1``."""
+    bucket's Adam moments and 1/4 of the sparse ``embed`` (its bucket's
+    chunk, gathered at the start of each step); K1–K5 checked per step as
+    in ``train_zero1``, K4/K5 on the stored bucket too.  After the last
+    step: ``resident_bytes`` (``memory_allocated``), the stored chunk's
+    bytes and the drop against the replicated layout, held to
+    :data:`PS_LB_DROP_BYTES`."""
+    from autodist_tpu_torch.graph_item import flatten
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
     from autodist_tpu_torch.ops import fused_kernels as fk
     from autodist_tpu_torch.strategy import PSLoadBalancing
@@ -3259,6 +3312,8 @@ def _ps_lb_train(torch):
     losses, norms, step_s, launches, per_step = _bucketed_steps(
         torch, sess, batch, spec.config["num_layers"], RING_WARMUP,
         RING_TIMED)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     z = sess.opt_state["zero1"]
     for b in sess.zero1_buckets:
         for m in ("mu", "nu"):
@@ -3266,6 +3321,20 @@ def _ps_lb_train(torch):
                 raise AssertionError(f"ps_lb: {m} shard of {b.key} holds "
                                      f"{z[m][b.key].numel()} elements, "
                                      f"expected {b.padded_total // d}")
+    stored = sess.stored_buckets
+    if [b.names for b in stored] != [("embed",)]:
+        raise AssertionError(f"ps_lb: stored buckets "
+                             f"{[b.names for b in stored]}, expected embed")
+    leaves = dict(flatten(sess.device_params))
+    held = sum(leaves[n].numel() * leaves[n].element_size()
+               for b in stored for n in b.names)
+    logical = sum(b.total * leaves[b.names[0]].element_size()
+                  for b in stored)
+    if abs(logical - held - PS_LB_DROP_BYTES) > PS_LB_DROP_TOL:
+        raise AssertionError(f"ps_lb: the rank holds {held} of the stored "
+                             f"variables' {logical} bytes, a drop of "
+                             f"{logical - held}, expected "
+                             f"{PS_LB_DROP_BYTES}")
     return sess, {
         "losses": losses, "global_norms": norms,
         "ms_per_step": statistics.median(step_s) * 1e3,
@@ -3276,6 +3345,9 @@ def _ps_lb_train(torch):
                                         for b in sess.zero1_buckets),
         "moment_elements_logical": sum(b.total for b in sess.zero1_buckets),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "resident_bytes": resident, "stored_1n_bytes": held,
+        "stored_logical_bytes": logical, "drop_bytes": logical - held,
+        "stored_buckets": [b.key for b in stored],
         "launches": launches, "launches_per_step": per_step,
         **_params_digests(sess)}
 
@@ -3305,7 +3377,7 @@ def _p6_lr_control(torch) -> dict:
     return out
 
 
-def ring_worker(rank: int, port: int, mode: str) -> int:
+def ring_worker(rank: int, init: str, mode: str) -> int:
     """One rank of the ``train_ring`` phase (``mode`` "smoke"), or of
     ``--p6-lr-control`` ("lr_control"): prints ``RING_RESULT`` and its
     JSON as the last line."""
@@ -3315,7 +3387,8 @@ def ring_worker(rank: int, port: int, mode: str) -> int:
     from autodist_tpu_torch.ops import fused_kernels as fk
     from autodist_tpu_torch.strategy import AllReduce, Zero1
 
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", LOOPBACK)
+    dist.init_process_group("gloo", init_method=init,
                             world_size=RING_RANKS, rank=rank)
     try:
         out = {"rank": rank}
@@ -3349,10 +3422,15 @@ def ring_worker(rank: int, port: int, mode: str) -> int:
     return 0
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def _rendezvous() -> str:
+    """A ``file://`` init method for the ring ranks, in a fresh temporary
+    directory: no TCP port is picked and released before the ranks
+    rendezvous (gloo's own pairs take ports the kernel assigns and
+    holds)."""
+    import tempfile
+
+    return "file://" + os.path.join(tempfile.mkdtemp(prefix="ring_"),
+                                    "rendezvous")
 
 
 def check_ring_losses(config, losses, f32_losses) -> float:
@@ -3374,15 +3452,62 @@ class RankDivergence(AssertionError):
     """The ring ranks ended with different parameters."""
 
 
+def phase_examples(torch, smi) -> dict:
+    """Every twin of :data:`EXAMPLE_TWINS` in this process on the card,
+    through its ``main`` (what ``python examples_torch/<twin>.py`` runs;
+    its own asserts hold or the phase fails; its printout goes to stderr):
+    one line per twin with its seconds, its rate where it reports one
+    (items/sec of a benchmark twin, tokens/sec of the engine) and its
+    kernel launches.  ``benchmark/bert.py`` must launch K1–K3 (BERT's
+    default attention), the twins of :data:`EXAMPLE_DENSE` neither K1 nor
+    K9."""
+    import contextlib
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    twins, total = {}, 0.0
+    for name, args in EXAMPLE_TWINS:
+        _fresh_peak(torch)
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result = importlib.import_module(
+                "examples_torch." + name).main(list(args))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total += seconds
+        launches = _kernel_counts()
+        if name == "benchmark.bert" and not all(
+                launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+            raise AssertionError(f"examples {name}: K1–K3 launches "
+                                 f"{launches}")
+        if name in EXAMPLE_DENSE and (launches["flash_fwd"]
+                                      or launches["paged_attention"]):
+            raise AssertionError(f"examples {name}: dense attention, but "
+                                 f"launches {launches}")
+        rate = result if name.startswith(("benchmark.", "lm1b.")) or \
+            name == "serving_engine" else None
+        twins[name] = {"seconds": seconds, "rate": rate,
+                       "launches": {k: v for k, v in launches.items() if v},
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        emit({"phase": "examples", "twin": name, "card": smi,
+              "args": list(args), **twins[name]})
+    _fresh_peak(torch)
+    return {"twins": twins, "seconds": total}
+
+
 def phase_train_ring(mode: str = "smoke"):
     """Start the 4 ring ranks on the card, wait for them, check they agree
     and report rank 0's numbers (every rank's parameters must hash the
     same); ``mode`` "lr_control" runs ``--p6-lr-control``'s ranks."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--ring-port",
-           str(_free_port()), "--ring-mode", mode, "--ring-rank"]
+    init = _rendezvous()
+    cmd = [sys.executable, os.path.abspath(__file__), "--ring-init", init,
+           "--ring-mode", mode, "--ring-rank"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=LOOPBACK)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
+                              stderr=subprocess.PIPE, text=True, env=env)
              for r in range(RING_RANKS)]
     logs = [None] * RING_RANKS
 
@@ -3401,6 +3526,7 @@ def phase_train_ring(mode: str = "smoke"):
     for p in procs:                     # one failed rank strands the rest
         if p.poll() is None:
             p.kill()
+    shutil.rmtree(os.path.dirname(init[len("file://"):]), ignore_errors=True)
     results = []
     for r, (p, (stdout, stderr)) in enumerate(zip(procs, logs)):
         last = (stdout or "").strip().splitlines()[-1:]
@@ -4072,7 +4198,7 @@ def main() -> int:
 
     if "--ring-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
-        return ring_worker(int(args["--ring-rank"]), int(args["--ring-port"]),
+        return ring_worker(int(args["--ring-rank"]), args["--ring-init"],
                            args["--ring-mode"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4322,8 +4448,16 @@ def main() -> int:
         "launches": slot_out["int8"]["launches"]["int8_matmul"],
         "per_dispatch": slot_out["int8"]["int8_matmul_per_dispatch"]}
 
+    examples_out = phase_examples(torch, smi)
+    for row in flash_rows + sync_rows + quant_rows + [k9, k10]:
+        row.setdefault("launches_by_path", {}).update({
+            f"examples {name}": {"launches": out["launches"][row["name"]]}
+            for name, out in examples_out["twins"].items()
+            if out["launches"].get(row["name"])})
+
     emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
           "card": smi, "serving_slice_s": serving_slice_s,
+          "examples_s": examples_out["seconds"],
           "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

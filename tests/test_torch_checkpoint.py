@@ -22,8 +22,6 @@ The model is ``tests/torch_dp_worker.py``'s tiny LM (vocab 97, 2 layers,
 import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -57,6 +55,7 @@ from autodist_tpu_torch.strategy import AllReduce
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker as worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -186,22 +185,10 @@ def two_rank_resume(tmp_path_factory):
     """One launch of 2 gloo ranks in ``ckpt`` mode: every run of
     ``worker.ckpt_runs`` uninterrupted and resumed through ``fit``."""
     tmp = tmp_path_factory.mktemp("ckpt2")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp / f"rank{rank}.npz"), "ckpt", str(tmp / "ck")], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init, tmp / f"rank{rank}.npz",
+                            "ckpt", tmp / "ck"],
+        world=2, tmp_dir=tmp, timeout=240)
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)], tmp
 
 

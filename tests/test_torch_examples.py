@@ -1,0 +1,234 @@
+"""The port's twins of the example scripts (``examples_torch/``) on the CPU.
+
+Each twin runs in this process (``main(argv)``, ``--device cpu``) at the
+arguments ``tests/test_examples.py`` gives its JAX script, and prints the
+lines that test asserts; a twin whose JAX test is marked ``integration``
+is marked so too (on the card ``chip_smoke.py`` runs every twin at full
+length).  ``benchmark/bert.py`` and ``benchmark/ncf.py``, which the JAX
+suite does not run, run at small sizes.  Against the JAX scripts, run
+here too on the 8-device CPU mesh: ``linear_regression``'s printed losses
+at rtol 1e-5, and the losses of every step of ``benchmark/ncf.py`` and
+``lm1b/lm1b_train.py`` at rtol 1e-4, the twins handed the JAX scripts'
+initial parameters through ``main(params=...)``.  Every twin imports
+with ``jax`` and ``autodist_tpu`` blocked.
+"""
+import importlib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from autodist_tpu.autodist import \
+    _reset_default_autodist_for_testing as jax_reset
+from autodist_tpu.runner import DistributedSession as JSession
+from autodist_tpu_torch.autodist import _reset_default_autodist_for_testing
+from autodist_tpu_torch.convert import params_from_jax
+from autodist_tpu_torch.runner import DistributedSession
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+pytestmark = pytest.mark.torch_port
+
+#: every twin, by module under ``examples_torch``
+TWINS = ("linear_regression", "image_classifier", "generate_text",
+         "sentiment_classifier", "lora_finetune", "serving_engine",
+         "serve_http", "speculative_draft", "benchmark.common",
+         "benchmark.imagenet", "benchmark.bert", "benchmark.ncf",
+         "lm1b.lm1b_train")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread_and_testing_env(monkeypatch):
+    monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _reset_default_autodist_for_testing()
+    yield
+    torch.set_num_threads(threads)
+
+
+def _twin(name):
+    return importlib.import_module(f"examples_torch.{name}")
+
+
+def _run(capsys, name, args=()):
+    """The twin's ``main`` on the CPU at ``args``: its return value and
+    what it printed."""
+    result = _twin(name).main([*args, "--device", "cpu"])
+    return result, capsys.readouterr().out
+
+
+def test_linear_regression(capsys):
+    _, out = _run(capsys, "linear_regression")
+    assert "w=" in out or "loss" in out.lower()
+
+
+def test_image_classifier(capsys):
+    _, out = _run(capsys, "image_classifier",
+                  ("--image-size", "32", "--batch-size", "8", "--steps",
+                   "3"))
+    assert "step 2: loss" in out
+
+
+@pytest.mark.integration
+def test_imagenet_benchmark(capsys):
+    _run(capsys, "benchmark.imagenet",
+         ("--model", "resnet50", "--image-size", "32", "--batch-size", "8",
+          "--steps", "2", "--warmup", "1"))
+
+
+@pytest.mark.integration
+def test_imagenet_benchmark_fit_epochs(capsys):
+    _, out = _run(capsys, "benchmark.imagenet",
+                  ("--model", "resnet50", "--image-size", "32",
+                   "--batch-size", "8", "--steps", "2", "--epochs", "2"))
+    assert "epoch 1:" in out
+
+
+def test_bert_benchmark(capsys):
+    rate, out = _run(capsys, "benchmark.bert",
+                     ("--size", "tiny", "--batch-size", "8", "--steps", "2",
+                      "--warmup", "1"))
+    assert "bert: " in out and "samples/sec" in out and rate > 0
+
+
+def test_ncf_benchmark(capsys):
+    rate, out = _run(capsys, "benchmark.ncf",
+                     ("--num-users", "1024", "--num-items", "512",
+                      "--batch-size", "64", "--steps", "2", "--warmup", "1"))
+    assert "ncf: " in out and "samples/sec" in out and rate > 0
+
+
+@pytest.mark.integration
+def test_lm1b_train_example(capsys):
+    _, out = _run(capsys, "lm1b.lm1b_train",
+                  ("--vocab-size", "512", "--emb-dim", "16",
+                   "--hidden-dim", "32", "--batch-size", "8", "--steps",
+                   "5", "--warmup", "1"))
+    assert "words" in out
+
+
+@pytest.mark.integration
+def test_sentiment_classifier_example(capsys):
+    _, out = _run(capsys, "sentiment_classifier", ("--steps", "300"))
+    assert "final loss" in out
+
+
+@pytest.mark.integration
+def test_generate_text_example(capsys):
+    _, out = _run(capsys, "generate_text", ("--steps", "200"))
+    assert "continuation accuracy:" in out
+
+
+def test_serving_engine_example(capsys):
+    _, out = _run(capsys, "serving_engine")
+    assert "oracle-exact" in out
+    assert "slot_utilization=" in out
+
+
+def test_lora_finetune_example(capsys):
+    _, out = _run(capsys, "lora_finetune", ("--steps", "30"))
+    assert "lora_finetune demo OK" in out
+    assert "base drift: 0.0" in out
+
+
+def test_serve_http_example(capsys):
+    _, out = _run(capsys, "serve_http")
+    assert "serve_http demo OK" in out
+    assert "stream:" in out
+
+
+@pytest.mark.integration
+def test_speculative_draft_example(capsys):
+    _, out = _run(capsys, "speculative_draft")
+    assert "acceptance rate:" in out
+    assert "token-exact" in out
+
+
+# -- against the JAX scripts -------------------------------------------------
+def _record(monkeypatch, cls):
+    """Every loss ``cls.run`` returns, in order (a host read per step)."""
+    losses = []
+    run = cls.run
+
+    def recording(self, batch, *args, **kwargs):
+        out = run(self, batch, *args, **kwargs)
+        losses.append(float(np.asarray(out["loss"])))
+        return out
+    monkeypatch.setattr(cls, "run", recording)
+    return losses
+
+
+def _jax_main(monkeypatch, module, args=()):
+    """A JAX example's ``main`` in this process (its flags through
+    ``sys.argv``)."""
+    jax_reset()
+    monkeypatch.setattr(sys, "argv", [module, *args])
+    importlib.import_module(module).main()
+
+
+def test_linear_regression_prints_the_jax_scripts_losses(capsys,
+                                                         monkeypatch):
+    _jax_main(monkeypatch, "examples.linear_regression")
+    want = capsys.readouterr().out
+    _, got = _run(capsys, "linear_regression")
+    pattern = r"step +(\d+) loss ([0-9.]+)"
+    want_steps, got_steps = re.findall(pattern, want), \
+        re.findall(pattern, got)
+    assert [s for s, _ in got_steps] == [s for s, _ in want_steps] == \
+        ["0", "50", "100", "150"]
+    np.testing.assert_allclose([float(x) for _, x in got_steps],
+                               [float(x) for _, x in want_steps], rtol=1e-5)
+    learned = r"learned w=([0-9.]+) .*b=([0-9.]+)"
+    assert re.findall(learned, got) == re.findall(learned, want)
+
+
+@pytest.mark.parametrize("script,model,args", [
+    ("benchmark.ncf", lambda: importlib.import_module(
+        "autodist_tpu.models.ncf").ncf(num_users=1024, num_items=512),
+     ("--num-users", "1024", "--num-items", "512", "--batch-size", "64",
+      "--steps", "3", "--warmup", "1")),
+    ("lm1b.lm1b_train", lambda: importlib.import_module(
+        "autodist_tpu.models.lm1b").lm1b(vocab_size=512, seq_len=20,
+                                         emb_dim=16, hidden_dim=32),
+     ("--vocab-size", "512", "--emb-dim", "16", "--hidden-dim", "32",
+      "--batch-size", "8", "--steps", "3", "--warmup", "1")),
+], ids=["ncf", "lm1b"])
+def test_training_twin_takes_the_jax_scripts_steps(monkeypatch, capsys,
+                                                   script, model, args):
+    """Every step's loss (warmup and timed) of the JAX script and of the
+    twin from the JAX script's initial parameters, at rtol 1e-4."""
+    want = _record(monkeypatch, JSession)
+    _jax_main(monkeypatch, f"examples.{script}", args)
+    got = _record(monkeypatch, DistributedSession)
+    params = params_from_jax(jax.tree.map(
+        np.asarray, model().init(jax.random.PRNGKey(0))))
+    _twin(script).main([*args, "--device", "cpu"], params=params)
+    capsys.readouterr()
+    assert len(got) == len(want) == 5
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_twins_import_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'flax', 'optax', 'autodist_tpu', 'examples'):\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {TWINS!r}:\n"
+        "    importlib.import_module('examples_torch.' + name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('autodist_tpu', 'jax', 'flax', 'optax', 'examples') "
+        "and sys.modules[m]]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

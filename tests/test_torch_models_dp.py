@@ -15,9 +15,6 @@ tolerances); lm1b's adagrad state, its tables' in reduce-scatter buckets,
 at atol 1e-4, and through ``convert.opt_state_from_jax``.  BERT's masked
 mean is the global batch's on both sides (``models.base.masked_mean``).
 """
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -45,6 +42,7 @@ from autodist_tpu_torch.strategy import StrategyCompiler
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_torch_models as tm  # noqa: E402
 import torch_dp_worker as worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -54,12 +52,6 @@ WORKER = Path(__file__).resolve().parent / "torch_dp_worker.py"
 @pytest.fixture(autouse=True)
 def _testing_env(monkeypatch):
     monkeypatch.setenv("AUTODIST_IS_TESTING", "True")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -83,31 +75,19 @@ def gloo_models(tmp_path_factory, model_inputs):
         data.update({f"{name}/p/{n}": x for n, x in flatten(params)})
         data.update({f"{name}/b/{k}": np.asarray(v) for k, v in batch.items()})
     np.savez(tmp / "in.npz", **data)
-    port = _free_port()
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp / f"rank{rank}.npz"), "models", str(tmp / "in.npz")],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
+    launch = torch_launch.Launch(
+        lambda rank, init: [WORKER, rank, 2, init, tmp / f"rank{rank}.npz",
+                            "models", tmp / "in.npz"],
+        world=2, tmp_dir=tmp)
     result = []
 
     def wait():
         if not result:
-            try:
-                logs = [p.communicate(timeout=300)[0] for p in procs]
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-            assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+            launch.wait(300)
             result.extend(np.load(tmp / f"rank{r}.npz") for r in range(2))
         return result
     yield wait
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.communicate()
+    launch.kill()
 
 
 @pytest.fixture(scope="module")

@@ -9,9 +9,6 @@ The trajectory is held against JAX's ``cast_opt_state(optax.adam)`` at
 rtol 1e-5 (both round the moments to nearest even every step), and
 against the f32-state run at the JAX test's rtol 0.1.
 """
-import os
-import socket
-import subprocess
 import sys
 import warnings
 from pathlib import Path
@@ -41,6 +38,8 @@ from autodist_tpu_torch.strategy import AllReduce, Zero1
 pytestmark = pytest.mark.torch_port
 
 WORKER = Path(__file__).resolve().parent / "torch_dp_worker.py"
+sys.path.insert(0, str(WORKER.parent))
+import torch_launch  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -262,22 +261,10 @@ def gloo(tmp_path_factory):
     data = tmp / "in.npz"
     np.savez(data, **{f"zero1/p/{n}": x for n, x in flatten(params)},
              **{f"zero1/b/{k}": x for k, x in batch.items()})
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp / f"rank{rank}.npz"), "levers", str(data)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init, tmp / f"rank{rank}.npz",
+                            "levers", data],
+        world=2, tmp_dir=tmp, timeout=240)
     return [np.load(tmp / f"rank{r}.npz") for r in range(2)]
 
 

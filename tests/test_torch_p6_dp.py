@@ -23,8 +23,6 @@ to f32 summation order (rtol 1e-5) unless stated; LM parameters at atol
 1e-4 (``tests/test_torch_training.py``).
 """
 import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -58,6 +56,7 @@ from autodist_tpu_torch.models.transformer_lm import transformer_lm
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker as worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -72,24 +71,11 @@ def spawn_p6(n, tmp_path, psgd_sync):
                       for r in range(n)}
     infile = tmp_path / "p6in.pt"
     torch.save(inputs, infile)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    env.pop("AUTODIST_PROXY_REFRESH", None)
-    env.pop("AUTODIST_DCN_WIRE", None)
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(n), str(port),
-         str(tmp_path / f"rank{r}.npz"), "p6", str(infile)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
-    try:
-        logs = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0] * n, "\n".join(logs)
+    torch_launch.run(
+        lambda r, init: [WORKER, r, n, init, tmp_path / f"rank{r}.npz",
+                         "p6", infile],
+        world=n, tmp_dir=tmp_path, timeout=300,
+        env={"AUTODIST_PROXY_REFRESH": None, "AUTODIST_DCN_WIRE": None})
     return inputs, [dict(np.load(tmp_path / f"rank{r}.npz"))
                     for r in range(n)]
 

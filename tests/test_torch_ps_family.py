@@ -25,10 +25,7 @@ Every multi-rank run is one launch of a gloo worker pair
 (``tests/torch_dp_worker.py``, mode ``ps``).
 """
 import json
-import os
 import random
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -68,6 +65,7 @@ from autodist_tpu_torch.strategy import partition_utils as pu
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_case_matrix as jcm  # noqa: E402  (the JAX case matrix)
 import torch_dp_worker as worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -451,12 +449,6 @@ def _plan(params0, name, d):
         if b.mode == "reduce_scatter"]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def case_data(tmp_path_factory):
     """The JAX case matrix's parameters and batches, as the worker reads
@@ -482,20 +474,10 @@ def gloo(case_data):
     """One launch of a 2-rank gloo worker pair in ``ps`` mode: both
     ranks' outputs."""
     tmp = case_data.parent
-    port = _free_port()
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp / f"rank{rank}.npz"), "ps", str(case_data)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init, tmp / f"rank{rank}.npz",
+                            "ps", case_data],
+        world=2, tmp_dir=tmp, timeout=240)
     return [np.load(tmp / f"rank{r}.npz") for r in range(2)]
 
 

@@ -24,9 +24,6 @@ the JAX package's own tests hold them (``tests/test_fused_kernels.py:
   parameter).
 """
 import itertools
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -69,6 +66,7 @@ from autodist_tpu_torch.ops import quant_scale
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -327,27 +325,11 @@ def test_unported_compressors_raise(name, item):
 
 
 # -- the ring functions on 4 gloo ranks ----------------------------------------
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(world, tmp_path, mode, infile, timeout=240):
-    port = _free_port()
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), str(world), str(port),
-         str(tmp_path / f"rank{rank}.npz"), mode, str(infile)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(world)]
-    try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0] * world, "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, world, init,
+                            tmp_path / f"rank{rank}.npz", mode, infile],
+        world=world, tmp_dir=tmp_path, timeout=timeout)
     return [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
 
 

@@ -9,9 +9,6 @@ rtol 1e-6 / atol 1e-7.  The port's run without remat is held against
 the JAX 8-device session at rtol 1e-5, the port's float32 training
 tolerance (``tests/test_torch_training.py``).
 """
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -43,6 +40,7 @@ from autodist_tpu_torch.strategy import AllReduce
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker as worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -116,22 +114,10 @@ def gloo(problem, tmp_path_factory):
     data = tmp / "in.npz"
     np.savez(data, **{f"remat/p/{n}": x for n, x in flatten(params)},
              **{"remat/b/tokens": batch["tokens"]})
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp / f"rank{rank}.npz"), "levers", str(data)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init, tmp / f"rank{rank}.npz",
+                            "levers", data],
+        world=2, tmp_dir=tmp, timeout=240)
     return [np.load(tmp / f"rank{r}.npz") for r in range(2)]
 
 

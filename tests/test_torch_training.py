@@ -10,9 +10,6 @@ different summation order); final parameters at atol 1e-4, because Adam's
 normalized step turns float32-level differences in near-zero gradients
 into parameter differences up to ~1e-5 after a few steps at lr 1e-2.
 """
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -53,6 +50,7 @@ from autodist_tpu_torch.strategy import (AllReduce, PSSynchronizerConfig,
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -288,30 +286,14 @@ def test_pack_unpack_roundtrip():
     assert torch.equal(ua, a) and torch.equal(ub, b)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_gloo_ranks_match_one_rank(tmp_path):
     """Data parallelism over 2 gloo CPU ranks (each takes 4 of the 8 rows;
     gradients averaged by one all_reduce per bucket) equals 1 rank on the
     same global batch."""
-    port = _free_port()
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp_path / f"rank{rank}.npz")], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init,
+                            tmp_path / f"rank{rank}.npz"],
+        world=2, tmp_dir=tmp_path, timeout=120)
     losses, params, sess = torch_dp_worker.train()
     assert sess.data_axis_size == 1 and sess._step.buckets == ()
     for rank in range(2):
@@ -450,8 +432,12 @@ def test_autodist_defaults_to_ps_load_balancing(jmodel):
     np.testing.assert_allclose(
         [float(sess.run(batch)["loss"]) for _ in range(3)],
         [float(jsess.run(batch)["loss"]) for _ in range(3)], rtol=1e-5)
-    assert [b.mode for b in sess._step.buckets] == ["reduce_scatter"]
-    assert set(sess._step.buckets[0].names) == set(sess._step.trainable)
+    # one reduce-scatter bucket family over every trainable variable; the
+    # sparse embedding, stored 1/N at data size > 1, fills its own
+    assert {b.mode for b in sess._step.buckets} == {"reduce_scatter"}
+    assert sorted(n for b in sess._step.buckets for n in b.names) == \
+        sorted(sess._step.trainable)
+    assert [b.names for b in sess._step.buckets if b.stored] == [("embed",)]
 
 
 @pytest.mark.parametrize("name", ["PS", "PSLoadBalancing", "PartitionedPS",

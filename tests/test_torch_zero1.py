@@ -12,9 +12,6 @@ transformer (Adam's normalized step turns f32-level differences in
 near-zero gradients into parameter differences near 1e-5, as in
 ``tests/test_torch_training.py``) and 1e-5 between port runs.
 """
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -49,6 +46,7 @@ from autodist_tpu_torch.strategy import StrategyCompiler, Zero1
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_dp_worker  # noqa: E402
+import torch_launch  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -276,12 +274,6 @@ def test_zero1_options_still_to_port_raise(params0, builder, item):
         np.testing.assert_array_equal(a, b, err_msg=n)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_gloo_ranks_shard_the_state_and_match_jax(params0, tmp_path):
     """Zero1 on 2 gloo ranks: losses equal the 1-rank port's and the JAX
     8-device mesh's; each rank holds ``padded_total / 2`` of every bucket's
@@ -302,21 +294,11 @@ def test_two_gloo_ranks_shard_the_state_and_match_jax(params0, tmp_path):
                     "sync_state": sync_state_from_jax(jsync), "step": 3}
                 for r in range(2)}, tmp_path / "state.pt")
 
-    port = _free_port()
-    env = dict(os.environ, AUTODIST_IS_TESTING="True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(rank), "2", str(port),
-         str(tmp_path / f"rank{rank}.npz"), "zero1",
-         str(tmp_path / "state.pt")], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(2)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 2, init,
+                            tmp_path / f"rank{rank}.npz", "zero1",
+                            tmp_path / "state.pt"],
+        world=2, tmp_dir=tmp_path, timeout=120)
 
     _reset_default_autodist_for_testing()
     losses, params, sess = torch_dp_worker.train("zero1")

@@ -3,7 +3,10 @@
 ``tests/test_torch_quant_ring.py``, ``tests/test_torch_ps_family.py``,
 ``tests/test_torch_models.py`` and ``tests/test_torch_checkpoint.py``).
 
-    python tests/torch_dp_worker.py RANK WORLD PORT OUT.npz [MODE [IN]]
+    python tests/torch_dp_worker.py RANK WORLD INIT OUT.npz [MODE [IN]]
+
+(started by ``tests/torch_launch.py``; ``INIT`` is the group's init
+method, a ``file://`` store).
 
 Trains a tiny ``transformer_lm`` for 3 steps on the same global batch of 8
 rows, then writes the losses, the final parameters and the bucket count
@@ -28,6 +31,12 @@ tiny model of each family under its builder and optimizer, NCF's under
 from ``IN``'s weights on ``IN``'s global batch (``{name}/p/{variable}``,
 ``{name}/b/{key}``), and writes the losses, the parameters, the step's
 fused kernels and lm1b's adagrad state as ``export_state`` gives it.
+
+``storage`` trains every case of :data:`STORAGE_CASES` (variables stored
+1/N between steps) from ``IN``'s weights for 3 steps and writes the
+logical state and this rank's stored parts (:func:`storage_main`); it
+also saves checkpoints under ``CKPT`` (the 8th argument) for a 1-rank
+restore, restores the test's 1-rank ones, and runs a numerics rollback.
 
 ``quant`` trains :data:`QUANT_CFG` under each of :func:`quant_runs` (the
 quantized ring, ``numerics={"clip_norm": 1.0}``) for 3 steps and writes
@@ -74,6 +83,9 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch_launch  # noqa: E402
 
 from autodist_tpu_torch import optim  # noqa: E402
 from autodist_tpu_torch.autodist import (  # noqa: E402
@@ -593,6 +605,139 @@ def ckpt_main(directory):
         out.update({f"{tag}/p/{k}": v for k, v in flatten(sess.params)})
     return out
 
+# -- 1/N parameter storage ---------------------------------------------------
+#: the ``storage`` mode's model (vocab by case): 2 layers at width 32
+STORAGE_CFG = dict(num_layers=2, num_heads=2, head_dim=16, d_ff=64,
+                   max_len=16)
+#: ``{case: (builder, its arguments, vocab, environment)}``: the sparse
+#: ``embed`` on PS, every variable partitioned, vocab 97 on 4 ranks (JAX
+#: pads it), the hybrid, bounded staleness and a proxy plan
+STORAGE_CASES = {
+    "ps_lb": ("PSLoadBalancing", {}, 96, {}),
+    "partitioned_ps": ("PartitionedPS", {}, 96, {}),
+    "uneven_ps": ("UnevenPartitionedPS", {}, 97, {}),
+    "parallax": ("Parallax", {}, 96, {}),
+    "ps_stale": ("PS", {"staleness": 2}, 96, {}),
+    "parallax_proxy": ("Parallax", {"local_proxy_variable": True}, 96,
+                       {"AUTODIST_PROXY_REFRESH": "2"}),
+}
+#: the cases a checkpoint crosses rank counts with
+STORAGE_CKPT_CASES = ("ps_lb", "uneven_ps")
+#: the resource spec the builders of the ``storage`` mode plan for: one
+#: node of 4 chips, the JAX session's too
+STORAGE_SPEC = {"nodes": [{"address": "localhost", "chips": 4,
+                           "chief": True}]}
+
+
+def storage_session(case, params, numerics=None, loss_wrap=None):
+    """The facade's session of ``case`` (:data:`STORAGE_CASES`) from
+    ``params`` with ``fusable_adam(1e-2)`` and clip (``numerics``
+    overrides), and its model spec."""
+    import warnings
+
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    name, kwargs, vocab, env = STORAGE_CASES[case]
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(vocab_size=vocab, **STORAGE_CFG)
+    loss_fn = spec.loss_fn if loss_wrap is None else loss_wrap(spec.loss_fn)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)          # read when the session is built
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the stale guard's drop
+            ad = AutoDist(strategy_builder=getattr(port_strategy, name)(
+                **kwargs), resource_spec=ResourceSpec(
+                    resource_info=STORAGE_SPEC), device="cpu")
+            with ad.scope():
+                ad.capture(params=unflatten([
+                    (n, torch.from_numpy(np.array(x))) for n, x in
+                    flatten(params)]), optimizer=fusable_adam(1e-2),
+                    loss_fn=loss_fn, sparse_vars=spec.sparse_vars,
+                    numerics=numerics or {"clip_norm": CLIP})
+            sess = ad.create_distributed_session()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return sess, spec
+
+
+def storage_state(out, prefix, sess):
+    """The logical parameters and moments, and this rank's stored parts
+    and their chunk facts, into ``out`` under ``prefix``."""
+    params, opt = sess.export_state()
+    out.update({f"{prefix}/p/{k}": v.numpy() for k, v in flatten(params)})
+    if "zero1" in opt:
+        out.update({f"{prefix}/o/{m}/{k}": v.numpy()
+                    for m in ("mu", "nu")
+                    for k, v in opt["zero1"][m].items()})
+    leaves = dict(flatten(sess.device_params))
+    for b in sess.stored_buckets:
+        out[f"{prefix}/stored/{b.key}"] = np.array(
+            [b.padded_total, sum(leaves[n].numel() for n in b.names),
+             b.total])
+        out.update({f"{prefix}/part/{n}": leaves[n].detach().numpy()
+                    for n in b.names})
+    out.update({f"{prefix}/shape/{n}": np.array(tuple(x.shape))
+                for n, x in leaves.items()})
+    out.update({f"{prefix}/target/{n}": np.array(tuple(x.shape))
+                for n, x in flatten(sess.restore_targets()[0])})
+
+
+def storage_main(data, directory):
+    """The ``storage`` mode: per case of :data:`STORAGE_CASES`, 3 steps on
+    ``data``'s weights and batch (``{case}/losses``, the logical state,
+    the stored parts); a checkpoint of 3 steps written for a 1-rank
+    restore and the test's 1-rank checkpoint restored here; a numerics
+    rollback against its uninterrupted twin."""
+    from autodist_tpu_torch.checkpoint import Saver
+
+    out = {}
+    for case, (_, _, vocab, _) in STORAGE_CASES.items():
+        params = {k[len(f"v{vocab}/p/"):]: data[k] for k in data.files
+                  if k.startswith(f"v{vocab}/p/")}
+        batch = {"tokens": data[f"v{vocab}/tokens"]}
+        sess, _ = storage_session(case, unflatten(list(params.items())))
+        out[f"{case}/losses"] = np.array(
+            [float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+        out[f"{case}/eval"] = np.float32(sess.evaluate(batch)["loss"])
+        out[f"{case}/flops"] = np.float64(sess.flops_per_step())
+        storage_state(out, case, sess)
+        if case in STORAGE_CKPT_CASES:
+            Saver(sess).save(os.path.join(directory, f"{case}_four"))
+            sess, _ = storage_session(case, unflatten(list(params.items())))
+            Saver(sess).restore(os.path.join(directory, f"{case}_one",
+                                             "step_2"))
+            storage_state(out, f"{case}/from_one", sess)
+
+    # the numerics rollback on the stored shards: two NaN epochs' steps
+    # restore the verified-good step and replay, ending on the clean run
+    params = {k[len("v96/p/"):]: data[k] for k in data.files
+              if k.startswith("v96/p/")}
+    batch = {"tokens": data["v96/tokens"]}
+
+    def scaled(loss_fn):
+        return lambda p, b: loss_fn(p, b) * b["s"].mean()
+    for poisoned in (False, True):
+        sess, _ = storage_session(
+            "ps_lb", unflatten(list(params.items())),
+            numerics={"clip_norm": CLIP, "on_nonfinite": "rollback",
+                      "rollback_after": 2}, loss_wrap=scaled)
+        hist = sess.fit(poisoned_epoch(batch, 1 if poisoned else -1),
+                        epochs=CKPT_EPOCHS, steps_per_epoch=2,
+                        checkpoint_dir=os.path.join(
+                            directory, f"rollback{int(poisoned)}"))
+        tag = "rollback/poisoned" if poisoned else "rollback"
+        out[f"{tag}/rollbacks"] = np.array(
+            [(r["at_step"], r["restored_step"])
+             for r in hist.history.get("rollbacks", [])]).reshape(-1, 2)
+        storage_state(out, tag, sess)
+    return out
+
+
 # -- P6: compressors, fused groups, the pipeline, hier, staleness ------------
 #: the compressors of the ``p6`` mode's sessions on :func:`lin_problem`
 P6_COMPRESSORS = ("NoneCompressor", "HorovodCompressor",
@@ -933,12 +1078,11 @@ def quant_main(states):
 
 
 def main():
-    rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
-                              int(sys.argv[3]), sys.argv[4])
+    rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
     strategy = sys.argv[5] if len(sys.argv) > 5 else "allreduce"
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
+    torch_launch.init_process_group(init, world, rank)
     try:
         if strategy == "ring":
             data = np.load(sys.argv[6])
@@ -963,6 +1107,9 @@ def main():
             return
         if strategy == "ckpt":
             np.savez(out, **ckpt_main(sys.argv[6]))
+            return
+        if strategy == "storage":
+            np.savez(out, **storage_main(np.load(sys.argv[6]), sys.argv[7]))
             return
         if strategy == "quant":
             np.savez(out, **quant_main(torch.load(
