@@ -6,7 +6,7 @@ strategy_builder)``, ``ResourceSpec``, ``DeviceSpec``, ``ENV``,
 ``History`` (the facade and the callbacks exported lazily: they pull in
 the training stack).
 
-Seven slices run so far.  Serving: the flagship ``transformer_lm``
+Serving: the flagship ``transformer_lm``
 through the paged continuous-batching engine and its HTTP front; on an
 NVIDIA H100, decode attention runs a hand-written CUDA paged-attention
 kernel and weight-only int8 trees a hand-written CUDA int8 matmul.
@@ -22,7 +22,8 @@ hand-written CUDA quantize, hop-accumulate and dequant-add kernels.
 The PS family and the BASELINE models train on the same steps, and
 ``DistributedSession.fit`` drives them through epochs with callbacks,
 checkpoints (``checkpoint.Saver``), exact resume and the numerics
-rollback.
+rollback.  ``telemetry`` records every step, the sync legs' profiler
+ranges, goodput and the event journal, in the JAX package's formats.
 Kernels live in ``csrc/`` and are built at first use by ``ops/_build.py``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

@@ -85,6 +85,7 @@ from autodist_tpu_torch.graph_item import flatten, unflatten
 from autodist_tpu_torch.kernel.synchronization.stale_sync import (
     MASTER_KEY, STALE_KEYS)
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
+from autodist_tpu_torch.telemetry import emit_event
 
 log = logging.getLogger(__name__)
 
@@ -427,7 +428,11 @@ class Saver:
         does not.  The caller vouches for the training state it holds
         (``fit`` marks saves taken under a clean guard)."""
         path = os.path.abspath(path)
-        if not Saver.verify(path, deep=deep):
+        t_verify = time.perf_counter()
+        ok = Saver.verify(path, deep=deep)
+        emit_event("checkpoint/verify", path=path, deep=deep, ok=ok,
+                   duration_s=round(time.perf_counter() - t_verify, 6))
+        if not ok:
             log.warning("mark_good: %s failed %s verification: not marked",
                         path, "deep" if deep else "shallow")
             return False
@@ -488,6 +493,7 @@ class Saver:
             raise ValueError("Saver has no bound session")
         self._session = session
         self.wait()                 # one save in flight at most
+        t_save = time.perf_counter()
         step = session.step_count if step is None else int(step)
         path = self._step_dir(directory, step)
         d, _, rank = self._mesh(session)
@@ -529,6 +535,11 @@ class Saver:
                     Saver.mark_good(path)
             self._maybe_gc()
             self._barrier(session)
+        # journaled as in the JAX package: an async save's duration is its
+        # snapshot and dispatch; durability lands at the next wait or save
+        emit_event("checkpoint/save", step=int(step), path=path,
+                   duration_s=round(time.perf_counter() - t_save, 6),
+                   async_save=self._async, mark_good=mark_good)
         return path
 
     def _write_guarded(self, *args) -> None:
@@ -576,6 +587,7 @@ class Saver:
         if session is None:
             raise ValueError("Saver has no bound session")
         self.wait()                 # an in-flight save lands first
+        t_restore = time.perf_counter()
         path = os.path.abspath(path)
         meta = self.read_meta(path)
         d, _, rank = self._mesh(session)
@@ -614,6 +626,9 @@ class Saver:
         del params, opt_state
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        emit_event("checkpoint/restore", step=step, path=path,
+                   duration_s=round(time.perf_counter() - t_restore, 6),
+                   elastic=False)
         return step
 
     def _sync_for(self, session, saved, path) -> Optional[Dict[str, Any]]:

@@ -1,8 +1,9 @@
 """Constants and the environment registry of the port.
 
 Port of the JAX package's ``const.py``: mesh-axis names, the working
-directory for run artifacts, and a typed registry of the environment
-variables this slice reads (same names, same parsers).
+directory for run artifacts (strategies, profiler traces, plan dumps,
+logs, telemetry), and a typed registry of the environment variables the
+port reads (same names, same parsers, same defaults).
 """
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ import tempfile
 DEFAULT_WORKING_DIR = os.environ.get(
     "AUTODIST_TPU_WORKDIR", os.path.join(tempfile.gettempdir(), "autodist_tpu"))
 DEFAULT_STRATEGY_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
+DEFAULT_GRAPH_DIR = os.path.join(DEFAULT_WORKING_DIR, "graphs")
+DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
+DEFAULT_TELEMETRY_DIR = os.path.join(DEFAULT_WORKING_DIR, "telemetry")
 
 MESH_AXIS_DATA = "data"      # data parallelism (batch axis)
 MESH_AXIS_MODEL = "model"    # tensor/model parallelism
@@ -29,6 +34,18 @@ def _bool(v):
 
 def _str(v):
     return v or ""
+
+
+def _int0(v):
+    return int(v) if v else 0
+
+
+def _loglevel(v):
+    return v or "INFO"
+
+
+def _bool_default_true(v):
+    return v not in ("False", "false", "0")
 
 
 def _proxy_refresh(v):
@@ -59,6 +76,28 @@ class ENV(enum.Enum):
     AUTODIST_PROXY_REFRESH = ("AUTODIST_PROXY_REFRESH", _proxy_refresh)
     # the hier cross-slice leg's wire: the compressor it names
     AUTODIST_DCN_WIRE = ("AUTODIST_DCN_WIRE", _dcn_wire)
+    AUTODIST_MIN_LOG_LEVEL = ("AUTODIST_MIN_LOG_LEVEL", _loglevel)
+    # profiler-trace the first N session steps (0: off)
+    AUTODIST_TRACE_STEPS = ("AUTODIST_TRACE_STEPS", _int0)
+    # comma-separated steps at which a trace window opens mid-run (each
+    # AUTODIST_TRACE_STEPS steps long, at least 1); windows never overlap
+    AUTODIST_TRACE_AT = ("AUTODIST_TRACE_AT", _str)
+    # telemetry master switch (default on): the metrics registry, the
+    # per-step StepRecords and the event journal
+    AUTODIST_TELEMETRY = ("AUTODIST_TELEMETRY", _bool_default_true)
+    # when set, StepRecords, the event journal and request spans flush as
+    # JSONL under this run directory (one writer per process)
+    AUTODIST_TELEMETRY_DIR = ("AUTODIST_TELEMETRY_DIR", _str)
+    # a calibration.json of fitted cost-model constants (read by the
+    # default loader; the cost model that consumes it is P8's)
+    AUTODIST_CALIBRATION = ("AUTODIST_CALIBRATION", _str)
+    # flight recorder: "0" off, "host" (and the default) step and
+    # checkpoint phase cursors; "legs" needs the schedule IR (P8)
+    AUTODIST_FLIGHTREC = ("AUTODIST_FLIGHTREC", _str)
+    # which supervisor attempt this process belongs to
+    AUTODIST_ATTEMPT = ("AUTODIST_ATTEMPT", _int0)
+    # dump the strategy's plan table at session build
+    AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", _bool)
 
     @property
     def val(self):

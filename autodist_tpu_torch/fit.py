@@ -11,11 +11,19 @@ host only at ``log_every`` boundaries and at epoch ends, plus one health
 read per step under ``on_nonfinite="raise"``/``"rollback"`` (or a spike
 detector).  Nothing else in the loop waits for the device.
 
+Telemetry, as in the JAX package: with the session's step recorder on,
+each record gets the ``data_load`` phase (pulling the batch) and, where
+the loop reads the loss, the ``blocking_fetch`` phase and the loss; where
+it reads the guard's health (one host transfer of all four scalars), the
+health fields.  The journal gets ``numerics/skip``, ``numerics/rollback``
+and ``goodput/attempt``, and ``History.goodput`` is the attempt's goodput
+(useful step time over wall time, checkpoint stalls, rollback loss).
+
 Not ported (each raises, naming its ROADMAP item): ``validate=True`` and
 ``tuner`` (P8), and the RAM and peer checkpoint tiers, ``tiers``,
-``snapshot_every``, ``snapshot_keep`` and ``snapshot_dir`` (P9).
-``History.goodput`` stays None: the goodput accounting is P9's
-telemetry.
+``snapshot_every``, ``snapshot_keep`` and ``snapshot_dir`` (P9); the
+preemption deadline decision (``checkpoint/preempt_decision``) comes
+with them.
 """
 from __future__ import annotations
 
@@ -27,8 +35,9 @@ import time
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from autodist_tpu_torch.const import P8, P9, not_ported
+from autodist_tpu_torch.const import ENV, P8, P9, not_ported
 from autodist_tpu_torch.numerics.policy import (ON_NONFINITE, NonFiniteError,
                                                 RollbackRequest,
                                                 StepHealthMonitor,
@@ -101,7 +110,8 @@ class History:
         #: where the resume came from ("persistent", or None for a fresh
         #: start); the RAM and peer tiers are P9's.
         self.resume_tier: Optional[str] = None
-        #: the attempt's goodput summary: P9's telemetry, None here.
+        #: this attempt's goodput summary (``telemetry.goodput.
+        #: attempt_goodput``'s), or None when fit ran no steps.
         self.goodput: Optional[dict] = None
 
     def _sample(self, step: int, loss: float) -> None:
@@ -327,6 +337,10 @@ def fit(session, data: DataArg, epochs: int = 1,
     preempt = {"signum": None}
     guard_state = {"last_finite": None, "last_skipped": None}
     last_saved_step = None
+    # goodput: wall clock from here, checkpoint stalls and rollback loss
+    # as they happen, the summary journaled before fit returns
+    t_fit0 = time.perf_counter()
+    goodput = {"ckpt_stall_s": 0.0, "rollback_s": 0.0}
     try:
         with _preemption_handlers(handler_nums, preempt):
             # inside the handler scope: a signal during a slow callback
@@ -347,33 +361,78 @@ def fit(session, data: DataArg, epochs: int = 1,
                         prefetch_depth=prefetch_depth,
                         initial_epoch=initial_epoch, saver=saver, hist=hist,
                         preempt=preempt, data_track=data_track,
-                        monitor=monitor, guard_state=guard_state)
+                        monitor=monitor, guard_state=guard_state,
+                        goodput=goodput)
                     break
                 except RollbackRequest as rb:
                     rollbacks += 1
                     initial_epoch = _handle_rollback(
-                        saver=saver, checkpoint_dir=checkpoint_dir,
+                        session=session, saver=saver,
+                        checkpoint_dir=checkpoint_dir,
                         data=data, rb=rb, rollbacks=rollbacks,
                         num_cfg=num_cfg, epochs=epochs,
                         steps_per_epoch=steps_per_epoch,
-                        data_track=data_track, hist=hist, monitor=monitor)
+                        data_track=data_track, hist=hist, monitor=monitor,
+                        goodput=goodput)
                     guard_state["last_finite"] = None
                     guard_state["last_skipped"] = None
 
         if (saver is not None and hist.steps_run and not hist.preempted
                 and last_saved_step != session.step_count):
             # never lose the tail epochs to the checkpoint_every stride
+            t0 = time.perf_counter()
             saver.save(checkpoint_dir, step=session.step_count,
                        extra_meta=_data_state_meta(data_track),
                        mark_good=_guard_clean(guard_state, monitor))
+            goodput["ckpt_stall_s"] += time.perf_counter() - t0
     finally:
         # an in-flight async save becomes durable even when fit raises
         if saver is not None:
+            t0 = time.perf_counter()
             saver.wait()
+            goodput["ckpt_stall_s"] += time.perf_counter() - t0
 
+    hist.goodput = _finish_goodput(session, hist, goodput,
+                                   time.perf_counter() - t_fit0)
     for cb in callbacks:
         cb.on_train_end(hist)
     return hist
+
+
+def _attempt_useful_s(session, steps_run: int) -> Optional[float]:
+    """Useful (forward-progress) seconds of this attempt: the mean
+    recorded step time x steps run; None when telemetry recorded nothing
+    (the ratio is then unknown rather than flattered)."""
+    rec = getattr(session, "telemetry", None)
+    if rec is None or not steps_run:
+        return None
+    times = [r.step_time_s for r in rec.records if r.step_time_s]
+    if not times:
+        return None
+    return float(np.mean(times)) * steps_run
+
+
+def _finish_goodput(session, hist, goodput: dict,
+                    wall_s: float) -> Optional[dict]:
+    """The attempt's goodput summary: gauge, journal event and
+    ``History.goodput``."""
+    if not hist.steps_run:
+        return None
+    from autodist_tpu_torch.telemetry import (attempt_goodput, emit_event,
+                                              gauge)
+
+    gp = attempt_goodput(wall_s, _attempt_useful_s(session, hist.steps_run),
+                         ckpt_stall_s=goodput["ckpt_stall_s"],
+                         rollback_s=goodput["rollback_s"],
+                         steps=hist.steps_run)
+    if gp.get("goodput_ratio") is not None:
+        gauge("autodist_goodput_ratio",
+              "useful step time / wall time of the last fit attempt"
+              ).set(gp["goodput_ratio"])
+    emit_event("goodput/attempt", attempt=ENV.AUTODIST_ATTEMPT.val,
+               preempted=hist.preempted, resume_tier=hist.resume_tier,
+               **gp)
+    return gp
 
 
 def _data_state_meta(data_track) -> Optional[dict]:
@@ -392,26 +451,79 @@ def _guard_clean(guard_state, monitor) -> bool:
     return monitor is None or monitor.bad_streak == 0
 
 
-def _observe_health(out, guard_state) -> Optional[bool]:
-    """The step's ``grad_health`` into the host-side tracking; its
-    ``all_finite``, or None when the guard is off."""
+def _health_scalars(health):
+    """``(all_finite, global_norm, loss_scale, skipped_steps)`` of a
+    GradHealth on the host, in ONE device-to-host transfer when they are
+    tensors."""
+    fields = (health.all_finite, health.global_norm, health.loss_scale,
+              health.skipped_steps)
+    if all(isinstance(x, torch.Tensor) for x in fields):
+        host = torch.stack([x.detach().double().reshape(())
+                            for x in fields]).cpu().tolist()
+    else:
+        host = [float(np.asarray(x)) for x in fields]
+    return bool(host[0]), host[1], host[2], int(host[3])
+
+
+def _observe_health(out, guard_state, session=None) -> Optional[bool]:
+    """The step's ``grad_health`` into the host-side tracking (one host
+    transfer); its ``all_finite``, or None when the guard is off.  With
+    the session's step recorder on, the health fields annotate the
+    latest record, and a rise of the skip count is journaled."""
     health = out.get("grad_health") if isinstance(out, dict) else None
     if health is None:
         return None
-    finite = bool(health.all_finite)
+    finite, norm, scale, skipped = _health_scalars(health)
+    prev_skipped = guard_state["last_skipped"]
     guard_state["last_finite"] = finite
-    guard_state["last_skipped"] = int(health.skipped_steps)
+    guard_state["last_skipped"] = skipped
+    rec = getattr(session, "telemetry", None)
+    if rec is not None:
+        rec.annotate(all_finite=finite, global_norm=norm, loss_scale=scale,
+                     skipped_steps=skipped)
+    if prev_skipped is not None and skipped > prev_skipped:
+        from autodist_tpu_torch.telemetry import emit_event
+        emit_event("numerics/skip",
+                   step=getattr(session, "step_count", None),
+                   skipped_total=skipped, new_skips=skipped - prev_skipped)
     return finite
 
 
-def _host_loss(out) -> float:
-    """The step's loss on the host (waits for the step)."""
-    return float(out["loss"])
+def _host_loss(out, session=None) -> float:
+    """The step's loss on the host (waits for the step), the wait timed
+    as the ``blocking_fetch`` phase and the value annotated on the
+    latest record."""
+    rec = getattr(session, "telemetry", None)
+    t0 = time.perf_counter()
+    loss = float(out["loss"])
+    if rec is not None:
+        rec.add_phase("blocking_fetch", time.perf_counter() - t0)
+        rec.annotate(loss=loss)
+    return loss
 
 
-def _handle_rollback(*, saver, checkpoint_dir, data, rb, rollbacks, num_cfg,
-                     epochs, steps_per_epoch, data_track, hist,
-                     monitor) -> int:
+def _timed_batches(it, rec):
+    """The epoch's batch iterator with the time spent PULLING each batch
+    (the input pipeline's host half) in the ``data_load`` phase of the
+    step records; ``it`` itself when telemetry is off."""
+    if rec is None:
+        return it
+
+    def gen():
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            rec.add_phase("data_load", time.perf_counter() - t0)
+            yield b
+    return gen()
+
+
+def _handle_rollback(*, session, saver, checkpoint_dir, data, rb, rollbacks,
+                     num_cfg, epochs, steps_per_epoch, data_track, hist,
+                     monitor, goodput) -> int:
     """Restore the last verified-good checkpoint, reposition (and maybe
     re-seed) the data, write the failure marker; the epoch to resume
     from.  NonFiniteError when recovery is impossible."""
@@ -434,6 +546,19 @@ def _handle_rollback(*, saver, checkpoint_dir, data, rb, rollbacks, num_cfg,
     hist.history.setdefault("rollbacks", []).append(
         {"at_step": rb.step, "restored_step": restored,
          "reason": rb.reason})
+    # rollback loss: the discarded steps between the anchor and the
+    # failure, at the recorded mean step time
+    lost = max(int(rb.step) - int(restored), 0)
+    per_step = _attempt_useful_s(session, 1)
+    if lost and per_step:
+        goodput["rollback_s"] += lost * per_step
+    from autodist_tpu_torch.telemetry import emit_event
+    emit_event("numerics/rollback", step=rb.step, reason=rb.reason,
+               restored_step=restored, rollback_index=rollbacks,
+               max_rollbacks=num_cfg.max_rollbacks)
+    rec = getattr(session, "telemetry", None)
+    if rec is not None:
+        rec.annotate(step=rb.step, rolled_back=True)
     log.warning("numerics rollback %d/%d: %s; restored verified-good step "
                 "%d from %s", rollbacks, num_cfg.max_rollbacks, rb.reason,
                 restored, good_path)
@@ -478,7 +603,7 @@ def _handle_rollback(*, saver, checkpoint_dir, data, rb, rollbacks, num_cfg,
 def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                 validation_steps, callbacks, log_every, checkpoint_dir,
                 checkpoint_every, prefetch_depth, initial_epoch, saver,
-                hist, preempt, data_track, monitor, guard_state):
+                hist, preempt, data_track, monitor, guard_state, goodput):
     """The epoch loop (keyword-only, wrapped by ``fit`` in the signal
     handler scope); the last step saved."""
     last_saved_step = None
@@ -493,6 +618,7 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
             # cap BEFORE prefetch: the prefetcher must not pull (and drop)
             # batches past the cap of a shared iterator
             it = itertools.islice(it, steps_per_epoch)
+        it = _timed_batches(it, getattr(session, "telemetry", None))
         out = None
         epoch_steps = 0
         last_sampled_step = None
@@ -504,14 +630,14 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                 cb.on_step_end(session.step_count, out)
             if monitor is not None:
                 # raise/rollback/spike: one health read per step
-                finite = _observe_health(out, guard_state)
+                finite = _observe_health(out, guard_state, session)
                 if finite is None:
                     raise ValueError(
                         "numerics monitoring needs grad_health in the step "
                         "metrics: this session was built without the "
                         "numerics guard (capture(numerics=...))")
                 action = monitor.observe(session.step_count,
-                                         _host_loss(out), finite)
+                                         _host_loss(out, session), finite)
                 if action == "raise":
                     raise NonFiniteError(
                         f"non-finite gradients at step {session.step_count} "
@@ -522,7 +648,7 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                         "loss spike" if finite else
                         f"{monitor.bad_streak} consecutive non-finite steps")
             if log_every and hist.steps_run % log_every == 0:
-                loss = _host_loss(out)
+                loss = _host_loss(out, session)
                 hist._sample(session.step_count, loss)
                 last_sampled_step = session.step_count
                 log.info("fit: epoch %d step %d loss %.5f (%.1f steps/s)",
@@ -534,7 +660,7 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
             # the step in flight finished: checkpoint NOW, mid-epoch, and
             # stop; the partial epoch stays out of epochs_run
             hist.preempted = True
-            loss = _host_loss(out) if out is not None else None
+            loss = _host_loss(out, session) if out is not None else None
             if loss is not None and last_sampled_step != session.step_count:
                 hist._sample(session.step_count, loss)
             if data_track["enabled"]:
@@ -543,11 +669,13 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                                      "seed": data_track["seed"]}
             if saver is not None and hist.steps_run:
                 if out is not None:
-                    _observe_health(out, guard_state)
+                    _observe_health(out, guard_state, session)
+                t0 = time.perf_counter()
                 saver.save(checkpoint_dir, step=session.step_count,
                            extra_meta=_data_state_meta(data_track),
                            mark_good=_guard_clean(guard_state, monitor))
                 saver.wait()   # the process exits next: must be durable
+                goodput["ckpt_stall_s"] += time.perf_counter() - t0
                 hist.preempt_tier = "persistent"
                 last_saved_step = session.step_count
             for cb in callbacks:
@@ -575,7 +703,8 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
         # epoch boundary: one host read (reused when the last step was a
         # log_every sample)
         loss = hist.history["loss"][-1] \
-            if last_sampled_step == session.step_count else _host_loss(out)
+            if last_sampled_step == session.step_count \
+            else _host_loss(out, session)
         if last_sampled_step != session.step_count:
             hist._sample(session.step_count, loss)
         hist.history["epoch_loss"].append(loss)
@@ -586,7 +715,7 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
         logs = {"loss": loss, "epoch_steps": epoch_steps,
                 "step": session.step_count}
         # the guard's bookkeeping rides the epoch boundary's host read
-        _observe_health(out, guard_state)
+        _observe_health(out, guard_state, session)
         if guard_state["last_skipped"] is not None:
             hist.history.setdefault("skipped_steps", []).append(
                 guard_state["last_skipped"])
@@ -607,9 +736,11 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
         for cb in callbacks:
             cb.on_epoch_end(epoch, logs)
         if saver is not None and (epoch + 1) % checkpoint_every == 0:
+            t0 = time.perf_counter()
             saver.save(checkpoint_dir, step=session.step_count,
                        extra_meta=_data_state_meta(data_track),
                        mark_good=_guard_clean(guard_state, monitor))
+            goodput["ckpt_stall_s"] += time.perf_counter() - t0
             last_saved_step = session.step_count
 
     return last_saved_step

@@ -121,6 +121,9 @@ class DistributedStep:
     stored_shapes: Dict[str, Tuple[Tuple[int, ...], str]] = field(
         default_factory=dict)
     shard_params: Callable = lambda params: params
+    #: the :class:`~autodist_tpu_torch.strategy.compiler.CompiledStrategy`
+    #: this step lowers (set by :meth:`GraphTransformer.transform`)
+    compiled_strategy: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -281,6 +284,12 @@ class GraphTransformer:
 
     def transform(self, extra_metrics_fn: Optional[Callable] = None
                   ) -> DistributedStep:
+        step = self._lower(extra_metrics_fn)
+        step.compiled_strategy = self.compiled
+        return step
+
+    def _lower(self, extra_metrics_fn: Optional[Callable]
+               ) -> DistributedStep:
         gi = self.graph_item
         if gi.optimizer is None or gi.loss_fn is None:
             raise ValueError(

@@ -151,6 +151,7 @@ from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops import fused_kernels as fk
+from autodist_tpu_torch.telemetry.timeline import sync_span
 
 
 def _explicit_reason(plan) -> bool:
@@ -413,7 +414,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         leaves = dict(flatten(params))
         compute = dict(leaves)
         for b in starts:
-            full = gather_full(b, stored_chunk(b, leaves))
+            with sync_span(f"param_gather/{b.key}"):
+                full = gather_full(b, stored_chunk(b, leaves))
             pos = owner(b) * (b.padded_total // d)
             for n, arr, (a, e) in zip(b.names, unpack_bucket(b, full),
                                       spans(b)):
@@ -644,7 +646,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         new_state: Dict[str, Any] = dict(pipe_state)
         for n, comp in pervar.items():
             g = grads[n]
-            grads[n], st = comp.reduce(g, sync_state.get(n), group, d)
+            with sync_span(f"per_var_reduce/{n}"):
+                grads[n], st = comp.reduce(g, sync_state.get(n), group, d)
             if n in sync_state:
                 new_state[n] = st
             if health is not None:
@@ -665,19 +668,22 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             vec = pack_bucket(b, [grads.pop(n) for n in b.names])
             qsat = sat = None
             if b.key in quant:
-                red, new_state[b.key], qsat = quant_reduce(
-                    b, vec, sync_state[b.key])
+                with sync_span(f"bucket_quant_reduce/{b.key}"):
+                    red, new_state[b.key], qsat = quant_reduce(
+                        b, vec, sync_state[b.key])
             elif b.key in cast:
                 comp = cast[b.key]
                 fn = comp.reduce_scatter if rs else comp.reduce
-                red, st = fn(vec, sync_state.get(b.key), group, d)
+                with sync_span(f"bucket_compressed_reduce/{b.key}"):
+                    red, st = fn(vec, sync_state.get(b.key), group, d)
                 if b.key in sync_state:
                     new_state[b.key] = st
                 if health is not None:
                     sat = guard_mod.wire_saturation(
                         vec, ls_mod.wire_dtype_of(b.compressor))
             else:
-                red = reduce_fns[b.key](vec)
+                with sync_span(f"bucket_reduce/{b.key}"):
+                    red = reduce_fns[b.key](vec)
             if health is not None:
                 # finiteness from the packed local vector, the norm
                 # partial from the reduced value (a ZeRO-1 shard's squared
@@ -691,9 +697,11 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         metrics: Dict[str, Any] = {}
         ok, mult, fused_mult = True, None, None
         if num_active:
-            all_finite, gnorm, per_bucket, inv_scale, mult = guard_mod.rollup(
-                health, group if d > 1 else None, loss, scale,
-                num_cfg.clip_norm)
+            # ONE all_reduce of every bucket's and variable's partials
+            with sync_span("guard_rollup"):
+                all_finite, gnorm, per_bucket, inv_scale, mult = \
+                    guard_mod.rollup(health, group if d > 1 else None, loss,
+                                     scale, num_cfg.clip_norm)
             ok = bool(all_finite)       # the skip gate's one host sync
         if ok:
             if mult is not None:
@@ -731,7 +739,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     def _update(params, opt_state, sync_state, grads, reduced, fused_mult):
         """The ZeRO-1 shard update, the tree update, then the gather."""
         if not rs_buckets:
-            optimizer.step_(params, grads, opt_state)
+            with sync_span("tree_update"):
+                optimizer.step_(params, grads, opt_state)
             return
         leaves = dict(flatten(params))
         masters = sync_state.get(stale_sync.MASTER_KEY, {})
@@ -741,17 +750,22 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                     for b in rs_buckets}
         z = opt_state["zero1"]
         if update_fused:
-            scalars = fk.adam_scalars(z["count"], spec, fused_mult)
-            for b in rs_buckets:
-                k = b.key
-                p_shards[k], z["mu"][k], z["nu"][k] = fk.fused_adam_update(
-                    p_shards[k], reduced[k], z["mu"][k], z["nu"][k], scalars,
-                    spec)
-            z["count"] = z["count"] + 1
+            # K5, one launch per bucket shard
+            with sync_span("fused_shard_update"):
+                scalars = fk.adam_scalars(z["count"], spec, fused_mult)
+                for b in rs_buckets:
+                    k = b.key
+                    p_shards[k], z["mu"][k], z["nu"][k] = \
+                        fk.fused_adam_update(p_shards[k], reduced[k],
+                                             z["mu"][k], z["nu"][k], scalars,
+                                             spec)
+                z["count"] = z["count"] + 1
         else:
-            optimizer.step_(p_shards, {b.key: reduced[b.key]
-                                       for b in rs_buckets}, z)
-        optimizer.step_(params, grads, opt_state["vars"])
+            with sync_span("zero1_shard_update"):
+                optimizer.step_(p_shards, {b.key: reduced[b.key]
+                                           for b in rs_buckets}, z)
+        with sync_span("tree_update"):
+            optimizer.step_(params, grads, opt_state["vars"])
         refresh = stale is not None and stale.refresh_due(sync_state)
         for k in proxied:
             masters[k] = p_shards[k]
@@ -767,7 +781,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             keep = proxy_names if b.key in proxied and not refresh else ()
             if keep and set(b.names) <= keep:
                 continue
-            full = gather_full(b, p_shards[b.key])
+            with sync_span(f"param_gather/{b.key}"):
+                full = gather_full(b, p_shards[b.key])
             for n, arr in zip(b.names, unpack_bucket(b, full)):
                 if n not in keep:
                     leaves[n].copy_(arr)

@@ -50,6 +50,7 @@ from autodist_tpu_torch.kernel.synchronization import quant_ring
 from autodist_tpu_torch.kernel.synchronization.bucketing import (  # noqa: F401
     MODE_REDUCE_SCATTER, OVERLAP_AUTO, OVERLAP_FULL, OVERLAP_MODES,
     OVERLAP_NONE, OVERLAP_PIPELINE, OVERLAP_RING, Bucket, pack_bucket)
+from autodist_tpu_torch.telemetry.timeline import sync_span
 
 #: buckets at or above this byte size take the ring lowering
 RING_THRESHOLD_BYTES = 256 << 10
@@ -236,9 +237,14 @@ def bucket_reduce_issue_fn(bucket: Bucket, group, n: int) -> Callable:
     ``wait()`` gives the mean (or this rank's shard of it)."""
     if n <= 1:
         return coll.done
-    collective = coll.reduce_scatter_async \
-        if bucket.mode == MODE_REDUCE_SCATTER else coll.all_reduce_async
-    return lambda v: collective(v, group).then(lambda o: o / n)
+    rs = bucket.mode == MODE_REDUCE_SCATTER
+    collective = coll.reduce_scatter_async if rs else coll.all_reduce_async
+    leg = "reduce_scatter" if rs else "all_reduce"
+
+    def issue(v):
+        with sync_span(leg):    # the JAX package's inner leg name
+            return collective(v, group).then(lambda o: o / n)
+    return issue
 
 
 # -- hierarchical two-tier collectives ---------------------------------------
@@ -296,20 +302,26 @@ def hier_bucket_reduce_fn(bucket: Bucket, within, across, rank: int, d: int,
     slice_idx = rank // (d // s)
 
     def reduce_ar(v):
-        sh = coll.reduce_scatter(v, within)
-        if dcn_wire is not None:
-            sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
-        else:
-            sh = coll.all_reduce(sh, across)
-        return coll.all_gather(sh / d, within)
+        with sync_span("hier_reduce_scatter"):
+            sh = coll.reduce_scatter(v, within)
+        with sync_span("dcn_all_reduce"):
+            if dcn_wire is not None:
+                sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
+            else:
+                sh = coll.all_reduce(sh, across)
+        sh = sh / d
+        with sync_span("hier_all_gather"):
+            return coll.all_gather(sh, within)
 
     def reduce_rs(v):
-        sh = coll.reduce_scatter(v, within)
-        if dcn_wire is not None:
-            sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
-            sh = sh.reshape(s, -1)[slice_idx]
-        else:
-            sh = coll.reduce_scatter(sh, across)
+        with sync_span("hier_reduce_scatter"):
+            sh = coll.reduce_scatter(v, within)
+        with sync_span("dcn_exchange"):
+            if dcn_wire is not None:
+                sh = _dcn_quantized_sum(sh, across, s, dcn_wire)
+                sh = sh.reshape(s, -1)[slice_idx]
+            else:
+                sh = coll.reduce_scatter(sh, across)
         return sh / d
 
     return reduce_rs if bucket.mode == MODE_REDUCE_SCATTER else reduce_ar
@@ -320,7 +332,10 @@ def hier_gather_fn(within, across) -> Callable:
     first (chunks ``i·s .. i·s+s-1`` in order), then over ``within``,
     which undoes the ownership permutation."""
     def gather(shard):
-        return coll.all_gather(coll.all_gather(shard, across), within)
+        with sync_span("hier_all_gather/dcn"):
+            part = coll.all_gather(shard, across)
+        with sync_span("hier_all_gather/ici"):
+            return coll.all_gather(part, within)
     return gather
 
 

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
+from autodist_tpu_torch.telemetry.timeline import sync_span
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_REDUCE_SCATTER, OVERLAP_FULL, OVERLAP_RING)
 from autodist_tpu_torch.ops import fused_kernels as fk
@@ -105,30 +106,34 @@ def quantized_ring_reduce_scatter(vec: torch.Tensor, group, n: int,
     if fused:
         # hop s's receive side and hop s+1's send side are one boundary;
         # the first send and the last receive are the half-boundaries
-        q, scales, err[(idx - 1) % n], sat = fk.fused_quantize(
-            chunks[(idx - 1) % n], fmt)
+        with sync_span("quant_ring_fused/leg1"):
+            q, scales, err[(idx - 1) % n], sat = fk.fused_quantize(
+                chunks[(idx - 1) % n], fmt)
         for s in range(1, n):
-            q = coll.ring_shift(q, group)
-            scales = coll.ring_shift(scales, group)
-            chunk = chunks[(idx - 1 - s) % n]
-            if s < n - 1:
-                q, scales, err_h, s_cnt = fk.fused_hop_accumulate(
-                    q, scales, chunk, fmt)
-                err[(idx - 1 - s) % n] = err_h
-                sat = sat + s_cnt
-            else:
-                acc = fk.fused_dequant_add(q, scales, chunk, fmt)
+            with sync_span(f"quant_ring_fused/leg{s}"):
+                q = coll.ring_shift(q, group)
+                scales = coll.ring_shift(scales, group)
+                chunk = chunks[(idx - 1 - s) % n]
+                if s < n - 1:
+                    q, scales, err_h, s_cnt = fk.fused_hop_accumulate(
+                        q, scales, chunk, fmt)
+                    err[(idx - 1 - s) % n] = err_h
+                    sat = sat + s_cnt
+                else:
+                    acc = fk.fused_dequant_add(q, scales, chunk, fmt)
         return acc, err.reshape(vec.shape), sat
     acc = chunks[(idx - 1) % n]
     sat = _zero(vec)
     for s in range(1, n):
-        q, scales, s_cnt = quantize_blocks(acc, fmt)
-        # before hop s this rank's partial is destined for chunk idx - s
-        err[(idx - s) % n] = quantization_error(acc, q, scales)
-        sat = sat + s_cnt
-        q = coll.ring_shift(q, group)
-        scales = coll.ring_shift(scales, group)
-        acc = dequantize_add(q, scales, chunks[(idx - 1 - s) % n])
+        with sync_span(f"quant_ring_reduce_scatter/leg{s}"):
+            q, scales, s_cnt = quantize_blocks(acc, fmt)
+            # before hop s this rank's partial is destined for chunk
+            # idx - s
+            err[(idx - s) % n] = quantization_error(acc, q, scales)
+            sat = sat + s_cnt
+            q = coll.ring_shift(q, group)
+            scales = coll.ring_shift(scales, group)
+            acc = dequantize_add(q, scales, chunks[(idx - 1 - s) % n])
     return acc, err.reshape(vec.shape), sat
 
 
@@ -146,9 +151,10 @@ def quantized_ring_all_gather(shard: torch.Tensor, group, n: int,
     out = shard.new_empty((n, shard.numel()), dtype=torch.float32)
     out[idx] = dequantize_blocks(q, scales)
     for s in range(1, n):
-        q = coll.ring_shift(q, group)
-        scales = coll.ring_shift(scales, group)
-        out[(idx - s) % n] = dequantize_blocks(q, scales)
+        with sync_span(f"quant_ring_all_gather/leg{s}"):
+            q = coll.ring_shift(q, group)
+            scales = coll.ring_shift(scales, group)
+            out[(idx - s) % n] = dequantize_blocks(q, scales)
     return out.reshape(-1), sat
 
 
@@ -163,15 +169,17 @@ def quantized_all_to_all_reduce_scatter(vec: torch.Tensor, group, n: int,
     if n <= 1:
         return vec, torch.zeros_like(vec), _zero(vec)
     chunks = vec.reshape(n, -1)
-    parts = [quantize_blocks(c, fmt) for c in chunks]
-    q = torch.stack([p[0] for p in parts])
-    scales = torch.stack([p[1] for p in parts])
-    err = torch.cat([quantization_error(c, p[0], p[1])
-                     for c, p in zip(chunks, parts)])
-    recv_q = coll.all_to_all(q.reshape(-1), group).reshape(q.shape)
-    recv_s = coll.all_to_all(scales.reshape(-1), group).reshape(scales.shape)
-    owned = torch.stack([dequantize_blocks(recv_q[j], recv_s[j])
-                         for j in range(n)]).sum(dim=0)
+    with sync_span("quant_all_to_all_reduce_scatter"):
+        parts = [quantize_blocks(c, fmt) for c in chunks]
+        q = torch.stack([p[0] for p in parts])
+        scales = torch.stack([p[1] for p in parts])
+        err = torch.cat([quantization_error(c, p[0], p[1])
+                         for c, p in zip(chunks, parts)])
+        recv_q = coll.all_to_all(q.reshape(-1), group).reshape(q.shape)
+        recv_s = coll.all_to_all(scales.reshape(-1),
+                                 group).reshape(scales.shape)
+        owned = torch.stack([dequantize_blocks(recv_q[j], recv_s[j])
+                             for j in range(n)]).sum(dim=0)
     return owned, err, torch.stack([p[2] for p in parts]).sum()
 
 
@@ -182,10 +190,12 @@ def quantized_all_gather(shard: torch.Tensor, group, n: int,
     one included.  ``(gathered, sat)``."""
     if n <= 1:
         return shard, _zero(shard)
-    q, scales, sat = quantize_blocks(shard, fmt)
-    gq = coll.all_gather(q, group).reshape(n, -1)
-    gs = coll.all_gather(scales, group).reshape(n, -1)
-    full = torch.cat([dequantize_blocks(gq[j], gs[j]) for j in range(n)])
+    with sync_span("quant_all_gather"):
+        q, scales, sat = quantize_blocks(shard, fmt)
+        gq = coll.all_gather(q, group).reshape(n, -1)
+        gs = coll.all_gather(scales, group).reshape(n, -1)
+        full = torch.cat([dequantize_blocks(gq[j], gs[j])
+                          for j in range(n)])
     return full, sat
 
 

@@ -109,10 +109,13 @@ class HealthAccumulator:
         if self._fused:
             from autodist_tpu_torch.ops.fused_kernels import \
                 fused_detect_stats
+            from autodist_tpu_torch.telemetry.timeline import sync_span
 
-            nf, sq_raw = fused_detect_stats(value.reshape(-1))
-            if finite_src is not None:
-                nf, _ = fused_detect_stats(finite_src.reshape(-1))
+            # one K4 pass per tensor gives both statistics
+            with sync_span(f"fused_pack_detect/{key}"):
+                nf, sq_raw = fused_detect_stats(value.reshape(-1))
+                if finite_src is not None:
+                    nf, _ = fused_detect_stats(finite_src.reshape(-1))
             sq = sq_raw / repl
             nonfinite = (nf > 0).to(torch.float32) / self._n
         else:

@@ -175,8 +175,11 @@ def profile_steps(sess, batch, profiled: int = PROFILED) -> dict:
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             prof_wall_us += _timed_step(sess, batch)
+        # kernels and copies; the device ranges of the step's
+        # autodist_sync/ spans (user annotations) are not device work
         events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
                         key=lambda e: e.time_range.start)
         if not events:
             raise RuntimeError("the profiler recorded no device time")

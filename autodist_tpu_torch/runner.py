@@ -8,25 +8,33 @@ state and the quantized buckets' error-feedback residuals) on its device
 and runs the lowered step against them.
 ``run(batch)`` takes the GLOBAL batch on every rank (the step takes this
 rank's rows of the data axis); ``params`` gathers to host numpy in the
-logical layout.  ``schedule_ir``/``schedule_fingerprint`` (P8),
-``telemetry`` (P9) and ``place_local_batch`` (P12) raise naming their
-ROADMAP item.
+logical layout.  Each ``run`` records a
+:class:`~autodist_tpu_torch.telemetry.timeline.StepRecord` on
+:attr:`DistributedSession.telemetry` (unless ``AUTODIST_TELEMETRY=0``),
+stamps the flight recorder's step cursors and runs inside the
+``RunTracer``'s capture window when one is open.
+``schedule_ir``/``schedule_fingerprint`` (P8) and ``place_local_batch``
+(P12) raise naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, Iterable, Iterator, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P8, P9, P12, not_ported
+from autodist_tpu_torch.const import P8, P12, not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
                                                          local_rows)
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
+from autodist_tpu_torch.telemetry import flightrec
+from autodist_tpu_torch.telemetry.timeline import StepRecorder
+from autodist_tpu_torch.utils import tracing
+from autodist_tpu_torch.utils.metrics import ThroughputMeter
 
 
 def _to_host(tree):
@@ -81,36 +89,27 @@ def peak_flops(device) -> Optional[float]:
     return next((v for k, v in PEAK_BF16_FLOPS.items() if k in name), None)
 
 
-class ThroughputMeter:
-    """Sliding-window step-time tracker (wall time between ``tick()``s)."""
+def _batch_sizes(batch) -> Tuple[Optional[int], Optional[int]]:
+    """(items, tokens) of a batch from its shapes alone: items = the
+    first leaf's leading dim; tokens = rows x seq of the first 2-D
+    integer leaf (token ids), when one exists."""
+    items = tokens = None
+    for _, leaf in flatten(batch):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape:
+            continue
+        if items is None:
+            items = int(shape[0])
+        if tokens is None and len(shape) == 2 and _is_integer(leaf):
+            tokens = int(shape[0]) * int(shape[1])
+    return items, tokens
 
-    def __init__(self, window: int = 50):
-        self._times: deque = deque(maxlen=window + 1)
 
-    def tick(self) -> None:
-        self._times.append(time.perf_counter())
-
-    @property
-    def steps_recorded(self) -> int:
-        return max(0, len(self._times) - 1)
-
-    def step_time(self) -> Optional[float]:
-        """Mean seconds per step over the window (None until 2 ticks)."""
-        if len(self._times) < 2:
-            return None
-        return (self._times[-1] - self._times[0]) / (len(self._times) - 1)
-
-    def stats(self, items_per_step: Optional[int] = None) -> Dict[str, Any]:
-        st = self.step_time()
-        out: Dict[str, Any] = {
-            "steps_measured": self.steps_recorded,
-            "step_time_ms": None if st is None else round(st * 1e3, 3),
-            "steps_per_sec": None if st in (None, 0.0) else round(1.0 / st,
-                                                                  3),
-        }
-        if items_per_step is not None and st not in (None, 0.0):
-            out["items_per_sec"] = round(items_per_step / st, 2)
-        return out
+def _is_integer(leaf) -> bool:
+    if isinstance(leaf, torch.Tensor):
+        return not leaf.dtype.is_floating_point \
+            and not leaf.dtype.is_complex and leaf.dtype != torch.bool
+    return np.issubdtype(np.asarray(leaf).dtype, np.integer)
 
 
 class DistributedSession:
@@ -128,6 +127,23 @@ class DistributedSession:
         self._meter = ThroughputMeter()
         self._last_batch = None     # for flops_per_step
         self._flops = None          # cached; False when unavailable
+        # run artifacts keyed by the strategy id, as in the JAX package
+        compiled = dist_step.compiled_strategy
+        self._run_id = compiled.strategy.id if compiled is not None \
+            else "session"
+        self._tracer = tracing.RunTracer(self._run_id, dist_step.device)
+        # one StepRecord per step (None when AUTODIST_TELEMETRY=0: the
+        # step pays one identity check); no prediction until the cost
+        # model is ported (ROADMAP P8)
+        self._telemetry = StepRecorder.create(self._run_id)
+        # AUTODIST_FLIGHTREC=legs raises here (the leg ids are P8's)
+        flightrec.trace_stamps_enabled()
+        if flightrec.enabled() and self._telemetry is not None \
+                and self._telemetry.directory:
+            flightrec.install_fatal_handlers(self._telemetry.directory)
+        if tracing.dumps_enabled() and compiled is not None:
+            tracing.dump_stage(self._run_id, "1-strategy-plans",
+                               tracing.plan_table(compiled))
 
     # -- state -------------------------------------------------------------
     @property
@@ -305,20 +321,44 @@ class DistributedSession:
 
     @property
     def telemetry(self):
-        raise not_ported("DistributedSession.telemetry, the step recorder",
-                         P9)
+        """The session's :class:`~autodist_tpu_torch.telemetry.timeline.
+        StepRecorder` (None when AUTODIST_TELEMETRY=0).  One StepRecord
+        per step; ``fit`` adds host-phase timings and health annotations;
+        JSONL flushes under AUTODIST_TELEMETRY_DIR."""
+        return self._telemetry
+
+    @property
+    def tracer(self):
+        """The session's :class:`~autodist_tpu_torch.utils.tracing.
+        RunTracer` (its ``paths`` are the traces it wrote)."""
+        return self._tracer
 
     # -- running -----------------------------------------------------------
     def run(self, batch: Any, sync: bool = True) -> Dict[str, Any]:
         """One training step on the global batch.  Returns metrics (at
         least ``{"loss"}``) as host numpy when ``sync``, else as device
-        tensors, so back-to-back steps queue without a host round trip."""
+        tensors, so back-to-back steps queue without a host round trip.
+
+        With telemetry on, the step's record gets the ``dispatch`` phase
+        (the host time to issue the step: without ``sync`` the card may
+        still run it) and items and tokens from the batch's shapes."""
+        rec = self._telemetry
+        t0 = time.perf_counter() if rec is not None else 0.0
+        flightrec.record_cursor("step", kind="phase", event="enter",
+                                step=self._step_count)
         self._last_batch = batch
-        out = self._step.step_fn(self._params, self._opt_state,
-                                 self._sync_state,
-                                 self._step.place_batch(batch))
+        with self._tracer.step(self._step_count):
+            out = self._step.step_fn(self._params, self._opt_state,
+                                     self._sync_state,
+                                     self._step.place_batch(batch))
+        self._tracer.after_step(self._step_count)
+        step_index = self._step_count
         self._step_count += 1
         self._meter.tick()
+        if rec is not None:
+            rec.add_phase("dispatch", time.perf_counter() - t0)
+            items, tokens = _batch_sizes(batch)
+            rec.record_step(step_index, items=items, tokens=tokens)
         return _to_host(out) if sync else out
 
     def run_many(self, batches) -> Optional[Dict[str, Any]]:

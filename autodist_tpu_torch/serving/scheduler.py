@@ -38,8 +38,13 @@ decode chunk (the done flags), once per prefill dispatch (the landed
 tokens), once per speculative round (the verify's predictions with the
 proposals) and at harvest (a finished row's tokens) — never per tick.
 
-Not ported yet: the mesh-sharded pool (``mesh=`` raises) and the
-telemetry spans/events.
+Telemetry, as in the JAX package: a request shed at admission or by the
+deadline sweep is journaled as ``serving/shed``, and a harvested
+request's lifecycle (``queue_wait``, ``prefill``, ``decode``, and the
+speculative ``spec_draft``/``spec_verify``) is recorded as request spans
+(``telemetry.profiler.record_span``) with its trace id.
+
+Not ported yet: the mesh-sharded pool (``mesh=`` raises).
 """
 from __future__ import annotations
 
@@ -66,6 +71,8 @@ from autodist_tpu_torch.serving.paged_kv import (SCRATCH_BLOCK, BlockPool,
                                                  _commit_tokens_program,
                                                  _paged_chunk_program,
                                                  _paged_prefill_program)
+from autodist_tpu_torch.telemetry import emit_event
+from autodist_tpu_torch.telemetry.profiler import record_span
 
 #: SLO classes, in strict admission-priority order.
 SLO_LATENCY = "latency"
@@ -494,6 +501,10 @@ class PagedDecodeEngine:
             est = self._deadline_estimate(int(max_new_tokens))
             if est is not None and est > float(deadline_s):
                 self.stats.shed_deadline += 1
+                emit_event("serving/shed", phase="admission", slo=slo,
+                           deadline_s=float(deadline_s),
+                           estimate_s=round(est, 4),
+                           trace_id=str(trace_id or ""))
                 raise DeadlineError(
                     f"cannot meet deadline_s={deadline_s:g}: estimated "
                     f"completion {est:.3f}s (measured queue-wait + "
@@ -556,9 +567,13 @@ class PagedDecodeEngine:
                 victims.append((req, "decoding"))
         for req, phase in victims:
             self.stats.expired_deadline += 1
+            overrun = now - req.deadline_t
+            emit_event("serving/shed", phase=phase, slo=req.slo,
+                       request_id=req.request_id, trace_id=req.trace_id,
+                       overrun_s=round(overrun, 4))
             self._expired[req.request_id] = {
                 "phase": phase, "slo": req.slo, "trace_id": req.trace_id,
-                "overrun_s": now - req.deadline_t}
+                "overrun_s": overrun}
 
     def pop_expired(self) -> Dict[int, Dict[str, object]]:
         """Requests the deadline sweep cancelled since the last call:
@@ -1178,6 +1193,45 @@ class PagedDecodeEngine:
         self._bt[b, :] = SCRATCH_BLOCK
         self._dbt[b, :] = SCRATCH_BLOCK
 
+    def _emit_request_spans(self, req: PagedRequest, gen: int) -> None:
+        """The request's lifecycle spans (queue wait, prefill, decode)
+        into the span stream at harvest, where every boundary is known
+        and nothing waits for the card; monotonic times anchored to the
+        wall clock at 'now'.  Never raises (``record_span``'s
+        contract)."""
+        now_mono = req.done_t or time.monotonic()
+        now_wall = time.time()
+
+        def wall(mono: float) -> float:
+            return now_wall - (now_mono - mono)
+
+        admit = req.admit_t or now_mono
+        record_span("queue_wait", start_unix=wall(req.submit_t),
+                    dur_s=max(admit - req.submit_t, 0.0),
+                    trace_id=req.trace_id, request_id=req.request_id,
+                    slo=req.slo)
+        first = req.first_token_t or admit
+        record_span("prefill", start_unix=wall(admit),
+                    dur_s=max(first - admit, 0.0), trace_id=req.trace_id,
+                    request_id=req.request_id,
+                    prompt_tokens=int(req.prompt.size),
+                    cached_tokens=int(req.n_cached))
+        record_span("decode", start_unix=wall(first),
+                    dur_s=max(now_mono - first, 0.0), trace_id=req.trace_id,
+                    request_id=req.request_id, generated=int(gen))
+        if req.spec_rounds:
+            # cumulative draft and verify windows inside the decode span
+            record_span("spec_draft", start_unix=wall(first),
+                        dur_s=req.draft_s, trace_id=req.trace_id,
+                        request_id=req.request_id,
+                        rounds=int(req.spec_rounds),
+                        proposed=int(req.spec_proposed),
+                        accepted=int(req.spec_accepted))
+            record_span("spec_verify", start_unix=wall(first),
+                        dur_s=req.verify_s, trace_id=req.trace_id,
+                        request_id=req.request_id,
+                        bonus=int(req.spec_bonus))
+
     def _harvest(self) -> None:
         for b in range(self._slots):
             if not (self._active[b] and self._done[b]):
@@ -1203,6 +1257,7 @@ class PagedDecodeEngine:
                 (req.admit_t or req.done_t) - req.submit_t)
             if per_tok > 0.0:
                 self._per_tok_samples.append(per_tok)
+            self._emit_request_spans(req, gen)
             self._timings[req.request_id] = {
                 "queue_wait_s": (req.admit_t or req.done_t) - req.submit_t,
                 "ttft_s": ttft,

@@ -26,10 +26,22 @@ Endpoints
 - ``POST /v1/cancel`` — body ``{"id": N}``.
 - ``GET /v1/stats`` — engine counters + scheduler surface + server
   counters.
+- ``GET /metrics`` — Prometheus text of the server's own
+  :class:`~autodist_tpu_torch.telemetry.registry.MetricsRegistry` (live
+  whatever ``AUTODIST_TELEMETRY`` says): request latency, queue depth,
+  served/failed/timeout counters, outstanding requests and, on the paged
+  engine, TTFT, per-token and queue-wait histograms and the pool and
+  queue gauges, with the JAX package's names and fixed bucket bounds,
+  so scrapes of several replicas merge exactly.
 - ``GET /healthz``.
 
-Not ported yet: ``/metrics``, ``/admin/drain`` and the SIGTERM drain,
-chaos injection and trace spans.
+Each answered completion records a ``request`` span with its trace id
+(``X-Autodist-Trace``, or a fresh one), beside the scheduler's
+queue-wait/prefill/decode spans; a request that times out is journaled
+as ``serving/timeout``.
+
+Not ported yet: ``/admin/drain``, the SIGTERM drain and its events, and
+chaos injection (ROADMAP P11 and P9's resilience half).
 """
 from __future__ import annotations
 
@@ -49,6 +61,12 @@ from autodist_tpu_torch.const import P11, not_ported
 from autodist_tpu_torch.serving.engine import (AdmissionError, DeadlineError,
                                                DecodeEngine)
 from autodist_tpu_torch.serving.scheduler import PagedDecodeEngine
+from autodist_tpu_torch.telemetry import emit_event
+from autodist_tpu_torch.telemetry.profiler import record_span
+from autodist_tpu_torch.telemetry.registry import (DEPTH_BUCKETS,
+                                                   TIME_BUCKETS,
+                                                   MetricsRegistry,
+                                                   render_prometheus)
 
 log = logging.getLogger(__name__)
 
@@ -98,6 +116,7 @@ class EngineServer:
         self._stop = False
         self.requests_served = 0
         self.requests_failed = 0
+        self._init_metrics()
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
         self._httpd.owner = self
@@ -107,6 +126,80 @@ class EngineServer:
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, name="engine-server-http",
             daemon=True)
+
+    def _init_metrics(self) -> None:
+        """The server's own registry (the JAX server's metrics, names and
+        bounds): live whatever the AUTODIST_TELEMETRY switch says, since
+        ``/metrics`` is a feature of the server."""
+        reg = self._registry = MetricsRegistry()
+        self._m_latency = reg.histogram(
+            "autodist_serving_request_latency_seconds",
+            "end-to-end completion latency (submit to final token)",
+            buckets=TIME_BUCKETS)
+        self._m_queue = reg.histogram(
+            "autodist_serving_queue_depth",
+            "requests outstanding at submit time", buckets=DEPTH_BUCKETS)
+        self._m_served = reg.counter(
+            "autodist_serving_requests_served_total",
+            "completion requests answered successfully")
+        self._m_failed = reg.counter(
+            "autodist_serving_requests_failed_total",
+            "completion requests failed/cancelled/timed out")
+        self._m_outstanding = reg.gauge(
+            "autodist_serving_outstanding", "requests currently in flight")
+        self._m_shed = reg.counter(
+            "autodist_serving_shed_total",
+            "requests shed at admission: measured service rates say "
+            "the deadline cannot be met (503)")
+        self._m_expired = reg.counter(
+            "autodist_serving_deadline_expired_total",
+            "admitted requests cancelled past their deadline (504)")
+        self._m_timeouts = reg.counter(
+            "autodist_serving_timeouts_total",
+            "requests that hit request_timeout_s and were cancelled "
+            "(504)")
+        if self._paged:
+            self._m_ttft = reg.histogram(
+                "autodist_serving_ttft_seconds",
+                "submit to first generated token", buckets=TIME_BUCKETS)
+            self._m_itl = reg.histogram(
+                "autodist_serving_per_token_seconds",
+                "mean inter-token latency after the first token",
+                buckets=TIME_BUCKETS)
+            self._m_queue_wait = reg.histogram(
+                "autodist_serving_queue_wait_seconds",
+                "submit to admission (slot + blocks assigned)",
+                buckets=TIME_BUCKETS)
+            self._m_occupancy = reg.gauge(
+                "autodist_serving_block_occupancy",
+                "fraction of the paged KV block pool in use")
+            self._m_prefix_rate = reg.gauge(
+                "autodist_serving_prefix_hit_rate",
+                "fraction of prompt tokens served from the prefix cache")
+            self._m_class_depth = {
+                c: reg.gauge("autodist_serving_queue_depth_class",
+                             "admission queue depth by SLO class",
+                             labels={"slo": c})
+                for c in ("latency", "throughput")}
+            self._m_occ_target = reg.gauge(
+                "autodist_serving_block_occupancy_target",
+                "pool fraction holding TARGET-model KV blocks")
+            self._m_occ_draft = reg.gauge(
+                "autodist_serving_block_occupancy_draft",
+                "pool fraction holding draft-model KV blocks "
+                "(speculative decoding)")
+        if self._spec:
+            self._m_accept_len = reg.histogram(
+                "autodist_serving_spec_accept_len",
+                "mean accepted draft tokens per verify round, per "
+                "request", buckets=DEPTH_BUCKETS)
+            self._m_gamma_hist = reg.histogram(
+                "autodist_serving_spec_gamma",
+                "SLO-adapted proposal depth, sampled per driver fold",
+                buckets=DEPTH_BUCKETS)
+            self._m_gamma = reg.gauge(
+                "autodist_serving_spec_gamma_current",
+                "current SLO-adapted proposal depth")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -195,11 +288,38 @@ class EngineServer:
         for rid, info in expired.items():
             if rid in self._outstanding:
                 self._deadline_info[rid] = info
+                self._m_expired.inc()
                 self._resolve(rid, _DEADLINE)
+        if self._paged:
+            self._observe_paged()
         for rid in self._streaming & self._outstanding:
             part = self._engine.partial(rid)
             if part is not None:
                 self._partials[rid] = part
+
+    def _observe_paged(self) -> None:
+        """Fold the scheduler's per-request timings and live occupancy
+        into the server registry (driver thread, under the lock)."""
+        for timing in self._engine.pop_timings().values():
+            self._m_ttft.observe(timing["ttft_s"])
+            self._m_queue_wait.observe(timing["queue_wait_s"])
+            if timing.get("per_token_s"):
+                self._m_itl.observe(timing["per_token_s"])
+            if self._spec and timing.get("spec_rounds"):
+                self._m_accept_len.observe(timing["accept_len_mean"])
+        sched = self._engine.scheduler_stats()
+        self._m_occupancy.set(sched["block_occupancy"])
+        self._m_prefix_rate.set(sched["prefix_hit_rate"])
+        self._m_occ_target.set(sched["block_occupancy_target"])
+        self._m_occ_draft.set(sched["block_occupancy_draft"])
+        for c, depth in sched["queue_depth"].items():
+            g = self._m_class_depth.get(c)
+            if g is not None:
+                g.set(depth)
+        if self._spec:
+            gamma = sched["speculative"]["gamma"]
+            self._m_gamma.set(gamma)
+            self._m_gamma_hist.observe(float(gamma))
 
     # -- request plumbing (called from handler threads) --------------------
 
@@ -216,6 +336,7 @@ class EngineServer:
         with self._locked():
             if self._stop or self._engine_error is not None:
                 raise _Unavailable()
+            self._m_queue.observe(float(len(self._outstanding)))
             kwargs = dict(temperature=temperature, eos_id=eos_id,
                           use_prefix=use_prefix)
             if self._paged:
@@ -238,6 +359,7 @@ class EngineServer:
                 kwargs[name] = value
             rid = self._engine.submit(prompt, max_new, **kwargs)
             self._outstanding.add(rid)
+            self._m_outstanding.set(len(self._outstanding))
             if stream:
                 self._streaming.add(rid)
             self._events[rid] = threading.Event()
@@ -256,6 +378,9 @@ class EngineServer:
                     self._engine.cancel(rid)
                     self._outstanding.discard(rid)
                     self._events.pop(rid, None)
+                    self._m_timeouts.inc()
+                    emit_event("serving/timeout", request_id=rid,
+                               timeout_s=float(timeout_s))
                     raise _Timeout()
         with self._locked():
             if rid not in self._done:
@@ -285,12 +410,19 @@ class EngineServer:
             self._partials.pop(rid, None)
             return self._done.pop(rid, None)
 
-    def count_request(self, *, served: bool) -> None:
+    def count_request(self, *, served: bool,
+                      latency_s: Optional[float] = None) -> None:
+        """Bump the served/failed counters; ``latency_s`` feeds the
+        request latency histogram when the terminal path knows it."""
         with self._meta_lock:
             if served:
                 self.requests_served += 1
             else:
                 self.requests_failed += 1
+        (self._m_served if served else self._m_failed).inc()
+        if latency_s is not None:
+            self._m_latency.observe(latency_s)
+        self._m_outstanding.set(len(self._outstanding))
 
     def stats(self) -> Dict[str, Any]:
         with self._locked():
@@ -302,9 +434,24 @@ class EngineServer:
             st["requests_served"] = self.requests_served
             st["requests_failed"] = self.requests_failed
             st["engine_failed"] = self._engine_error is not None
+            p50 = self._m_latency.percentile(0.5)
+            if p50 is not None:
+                st["latency_p50_ms"] = round(p50 * 1e3, 3)
+                st["latency_p99_ms"] = round(
+                    self._m_latency.percentile(0.99) * 1e3, 3)
             if self._paged:
                 st.update(self._engine.scheduler_stats())
+                p50 = self._m_ttft.percentile(0.5)
+                if p50 is not None:
+                    st["ttft_p50_ms"] = round(p50 * 1e3, 3)
+                    st["ttft_p99_ms"] = round(
+                        self._m_ttft.percentile(0.99) * 1e3, 3)
             return st
+
+    def render_metrics(self) -> str:
+        """Prometheus text of the server registry (the ``/metrics`` scrape
+        body)."""
+        return render_prometheus(self._registry)
 
     # -- body parsing ------------------------------------------------------
 
@@ -385,6 +532,15 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    def _text(self, code: int, body: str,
+              content_type: str = "text/plain; version=0.0.4") -> None:
+        data = body.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
     def _body(self) -> Dict[str, Any]:
         n = int(self.headers.get("Content-Length", 0))
         if n > _MAX_BODY_BYTES:
@@ -401,6 +557,8 @@ class _Handler(BaseHTTPRequestHandler):
                              and not srv._stop})
         elif self.path == "/v1/stats":
             self._json(200, srv.stats())
+        elif self.path == "/metrics":
+            self._text(200, srv.render_metrics())
         else:
             self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -453,6 +611,8 @@ class _Handler(BaseHTTPRequestHandler):
                     deadline_s=deadline_s)
 
     def _completions(self, srv: EngineServer, body: Dict[str, Any]) -> None:
+        t0 = time.perf_counter()
+        t0_unix = time.time()
         trace_id = str(self.headers.get("X-Autodist-Trace", "")
                        or uuid.uuid4().hex[:16])
         stream = bool(body.get("stream"))
@@ -466,6 +626,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         except DeadlineError as e:
             srv.count_request(served=False)
+            srv._m_shed.inc()
             retry, headers = _retry_headers(e.retry_after_s)
             self._json(503, {"error": str(e), "shed": True,
                              "retry_after_s": retry}, headers=headers)
@@ -481,38 +642,46 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(400, {"error": str(e)})
             return
         if stream:
-            self._stream(srv, rid, prompt.size)
+            self._stream(srv, rid, prompt.size, t0)
             return
         try:
             tokens = srv._wait(rid, srv._timeout)
         except _Timeout:
-            srv.count_request(served=False)
+            srv.count_request(served=False,
+                              latency_s=time.perf_counter() - t0)
             self._json(504, {"error": f"request {rid} timed out and was "
                              f"cancelled", "id": rid})
             return
         except _Unavailable:
-            srv.count_request(served=False)
+            srv.count_request(served=False,
+                              latency_s=time.perf_counter() - t0)
             self._json(503, {"error": "engine unavailable", "id": rid})
             return
         if tokens is _DEADLINE:
             info = srv._deadline_info.pop(rid, {})
-            srv.count_request(served=False)
+            srv.count_request(served=False,
+                              latency_s=time.perf_counter() - t0)
             self._json(504, {"error": f"request {rid} missed its deadline "
                              f"and was cancelled", "id": rid,
                              "deadline_exceeded": True,
                              "phase": info.get("phase", "")})
             return
         if tokens is _CANCELLED:
-            srv.count_request(served=False)
+            srv.count_request(served=False,
+                              latency_s=time.perf_counter() - t0)
             self._json(409, {"error": f"request {rid} was cancelled",
                              "id": rid})
             return
-        srv.count_request(served=True)
+        latency = time.perf_counter() - t0
+        srv.count_request(served=True, latency_s=latency)
+        record_span("request", start_unix=t0_unix, dur_s=latency,
+                    trace_id=trace_id, request_id=rid)
         payload = srv.render(rid, tokens, prompt.size)
         payload["trace_id"] = trace_id
         self._json(200, payload, headers={"X-Autodist-Trace": trace_id})
 
-    def _stream(self, srv: EngineServer, rid: int, prompt_len: int) -> None:
+    def _stream(self, srv: EngineServer, rid: int, prompt_len: int,
+                t0: float) -> None:
         """SSE: one ``data:`` event per new-token delta (deltas surface at
         decode-chunk boundaries), final event carries the full result.
         ``request_timeout_s`` applies here too."""
@@ -534,7 +703,8 @@ class _Handler(BaseHTTPRequestHandler):
             nonlocal counted
             if not counted:
                 counted = True
-                srv.count_request(served=served)
+                srv.count_request(served=served,
+                                  latency_s=time.perf_counter() - t0)
 
         try:
             emit({"id": rid, "done": False, "new_tokens": []})
@@ -549,6 +719,9 @@ class _Handler(BaseHTTPRequestHandler):
                     srv._cancel(rid)
                     srv._finish_stream(rid)
                     count(served=False)
+                    srv._m_timeouts.inc()
+                    emit_event("serving/timeout", request_id=rid,
+                               timeout_s=srv._timeout, stream=True)
                     emit({"id": rid, "done": True, "timeout": True})
                     return
                 if done:

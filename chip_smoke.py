@@ -129,6 +129,29 @@ Phases, each printing one JSON line:
    seconds of a sync save, an async save's blocking part and its whole,
    a deep verify and a restore, and the checkpoint's bytes on disk (in a
    temporary directory, at most two checkpoints at a time);
+10a. telemetry (``telemetry``), on ``train_ps``'s program at full width:
+   four fresh sessions of 3 + 10 steps, telemetry on, off, off, on
+   (``AUTODIST_TELEMETRY=0`` off), each launching K1–K5 as ``train_ps``
+   with its losses bit for bit; the "on" runs' 13 StepRecords on disk
+   under ``AUTODIST_TELEMETRY_DIR`` with the batch's 8 items and 8192
+   tokens; the median ms per step of each mode, their difference and
+   the spread between runs of a mode; the host cost of one
+   ``autodist_sync/`` span with no profiler active; ``python -m
+   autodist_tpu_torch.telemetry <dir> --json`` in a child process (the
+   step count and the records' median step time) and ``--export-trace``;
+   a trace window (``AUTODIST_TRACE_STEPS=2``): ``LegProfiler.
+   parse_trace`` gives one sample per device range, every K4 kernel
+   event lies inside a ``fused_pack_detect`` device range and every K5
+   one inside ``fused_shard_update``, and the ``autodist_leg_exposed_ms``
+   gauge per kind; ``fit`` (2 epochs x 4 steps, a checkpoint):
+   ``History.goodput``'s ratio in (0, 1], the records' phases, loss and
+   health, the journal's ``goodput/attempt``, ``checkpoint/save`` and
+   ``checkpoint/verify``; ``serve(paged=True)`` (K9) answering 4
+   requests, ``GET /metrics`` counting them in the latency and TTFT
+   histograms, and each request's spans under its trace id.  ``ps_lb``
+   (phase 12) traces one more step on rank 0 under ``torch.profiler``:
+   each sync leg's device range (the host-staged collectives' copies
+   included) parsed once;
 11. ``Parallax()`` at full width (``train_parallax``): the embedding in a
    reduce-scatter bucket (K5), every other variable in all-reduce buckets
    (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
@@ -370,6 +393,18 @@ PARALLAX_LOSS_RTOL = 1e-5
 FIT_STEPS_PER_EPOCH, FIT_EPOCHS, FIT_ROLLBACK_AFTER = 3, 3, 2
 #: the steps of each timed ``fit`` epoch (``skip`` and ``rollback`` in turns)
 FIT_TIMED_STEPS = 10
+#: the ``telemetry`` phase: telemetry on and off in turns (on, off, off,
+#: on), each a fresh session of ``train_ps``'s program for ``WARMUP_STEPS``
+#: + ``TIMED_STEPS``; the trace window's steps; ``fit``'s epochs x steps;
+#: the requests to the paged server and their new tokens
+TELEMETRY_ORDER = ("on", "off", "off", "on")
+TELEMETRY_TRACE_STEPS = 2
+TELEMETRY_FIT = (2, 4)
+TELEMETRY_REQUESTS, TELEMETRY_NEW_TOKENS = 4, 16
+#: the CUDA symbols of K4's and K5's kernels, and the ``autodist_sync/``
+#: ranges each must lie in on the card
+TELEMETRY_KERNEL_RANGES = {"detect_stats": "fused_pack_detect/",
+                           "adam_update": "fused_shard_update"}
 #: the 4-rank ``ps_lb`` run's losses against the one-card ``train_zero1``
 #: run's (the JAX package's case-matrix tolerance)
 PS_LB_LOSS_RTOL = 1e-4
@@ -2580,6 +2615,397 @@ def phase_train_fit(torch, ps_out):
     return out
 
 
+def _telemetry_session(spec, env):
+    """``train_ps``'s program (``PSLoadBalancing()``, the facade's
+    default, with ``fusable_adam(1e-3)`` and the clip) from ``SEED``'s
+    weights, built with the environment ``env`` (a None value removes
+    its variable), which the session reads when it is built."""
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        os.environ.pop(k, None) if v is None else os.environ.update({k: v})
+    try:
+        return _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                              PSLoadBalancing(), fk.fusable_adam(1e-3),
+                              numerics={"clip_norm": CLIP_NORM})
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.update(
+                {k: v})
+
+
+def _check_records(run_dir: str, steps: int, tokens: int) -> list:
+    """The StepRecords on disk under ``run_dir``: ``steps`` of them, each
+    but the first with the batch's items and tokens (rate x step time)
+    and a ``dispatch`` phase."""
+    from autodist_tpu_torch.telemetry import load_step_records
+
+    recs = load_step_records(run_dir)
+    if [r.step for r in recs] != list(range(steps)):
+        raise AssertionError(f"{len(recs)} records on disk under {run_dir}, "
+                             f"steps {[r.step for r in recs]}")
+    for r in recs[1:]:
+        items = r.items_per_s * r.step_time_s
+        toks = r.tokens_per_s * r.step_time_s
+        if abs(items - TRAIN_SHAPE["B"]) > 1e-6 * TRAIN_SHAPE["B"] \
+                or abs(toks - tokens) > 1e-6 * tokens \
+                or not r.phases.get("dispatch", 0) > 0:
+            raise AssertionError(f"record {r.step}: items {items}, tokens "
+                                 f"{toks}, phases {r.phases}")
+    return recs
+
+
+def _trace_window(torch, spec, tmp: str, want: dict) -> dict:
+    """A session under ``AUTODIST_TRACE_STEPS``: the window's Chrome trace,
+    ``LegProfiler.parse_trace``'s samples (each device range once), K4's
+    and K5's kernel events inside their ``autodist_sync/`` device ranges,
+    and the ``autodist_leg_exposed_ms`` gauge per kind."""
+    from autodist_tpu_torch.telemetry import DEFAULT_REGISTRY, LegProfiler
+    from autodist_tpu_torch.telemetry.profiler import (DEVICE_RANGE,
+                                                       HOST_RANGE,
+                                                       SYNC_SCOPE_PREFIX)
+    from autodist_tpu_torch.utils import tracing
+
+    default_dir = tracing.DEFAULT_TRACE_DIR
+    tracing.DEFAULT_TRACE_DIR = os.path.join(tmp, "traces")
+    try:
+        sess, batch = _telemetry_session(spec, {
+            "AUTODIST_TRACE_STEPS": str(TELEMETRY_TRACE_STEPS)})
+    finally:
+        tracing.DEFAULT_TRACE_DIR = default_dir
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TELEMETRY_TRACE_STEPS):
+        sess.run(batch)
+    window_s = time.perf_counter() - t0           # the export included
+    launches = _kernel_counts()
+    if launches != {k: v * TELEMETRY_TRACE_STEPS for k, v in want.items()}:
+        raise AssertionError(f"the traced steps launched {launches}")
+    (path,) = sess.tracer.paths
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    samples = LegProfiler().parse_trace(os.path.dirname(path))
+    ranges = {cat: [e for e in events if e.get("cat") == cat
+                    and str(e.get("name", "")).startswith(SYNC_SCOPE_PREFIX)]
+              for cat in (HOST_RANGE, DEVICE_RANGE)}
+    if len(samples) != len(ranges[DEVICE_RANGE]) or not samples:
+        raise AssertionError(f"{len(samples)} samples from "
+                             f"{len(ranges[DEVICE_RANGE])} device ranges")
+    kinds: dict = {}
+    for smp in samples:
+        if not smp.measured_s > 0:
+            raise AssertionError(f"sample {smp.leg_id}: {smp.measured_s}")
+        row = kinds.setdefault(smp.kind, {"samples": 0, "device_ms": 0.0})
+        row["samples"] += 1
+        row["device_ms"] += smp.measured_s * 1e3
+    for kind in ("fused_detect", "psum_guard", "fused_update"):
+        if kind not in kinds:
+            raise AssertionError(f"no {kind} sample: {sorted(kinds)}")
+    contained = {}
+    for symbol, leg in TELEMETRY_KERNEL_RANGES.items():
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in ranges[DEVICE_RANGE]
+                 if e["name"].startswith(SYNC_SCOPE_PREFIX + leg)]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and symbol in e.get("name", "")]
+        outside = [k["name"] for k in kernels
+                   if not any(a - 1e-3 <= k["ts"] and
+                              k["ts"] + k["dur"] <= b + 1e-3
+                              for a, b in spans)]
+        if not kernels or outside:
+            raise AssertionError(f"{symbol}: {len(kernels)} kernel events, "
+                                 f"{len(outside)} outside the "
+                                 f"{SYNC_SCOPE_PREFIX}{leg} ranges")
+        contained[symbol] = {"kernel_events": len(kernels),
+                             "ranges": len(spans)}
+    host = {}
+    for e in ranges[HOST_RANGE]:
+        name = e["name"][len(SYNC_SCOPE_PREFIX):].split("/")[0]
+        host[name] = host.get(name, 0) + 1
+    gauges = {m.labels["kind"]: m.value for m in DEFAULT_REGISTRY.metrics()
+              if m.name == "autodist_leg_exposed_ms"}
+    out = {"trace_file": os.path.relpath(path, tmp),
+           "spans_per_step": len(ranges[HOST_RANGE])
+           / TELEMETRY_TRACE_STEPS,
+           "trace_bytes": os.path.getsize(path),
+           "window_steps": TELEMETRY_TRACE_STEPS, "window_s": window_s,
+           "host_ranges_by_name": host,
+           "device_ranges": len(ranges[DEVICE_RANGE]),
+           "samples_by_kind": kinds, "kernels_in_ranges": contained,
+           "leg_exposed_ms": gauges, "launches": launches}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def _span_cost_us(n: int = 200_000) -> float:
+    """Host microseconds of one ``sync_span`` entered and left with no
+    profiler active (what each of a step's spans costs outside a trace
+    window): the median of 5 loops of ``n``."""
+    from autodist_tpu_torch.telemetry import sync_span
+
+    loops = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with sync_span("bucket_reduce/x"):
+                pass
+        loops.append((time.perf_counter() - t0) / n * 1e6)
+    return statistics.median(loops)
+
+
+def _launched(label: str, count: int) -> None:
+    """A kernel of a phase's main path must have launched."""
+    if not count:
+        raise AssertionError(f"{label}: no launch")
+
+
+def _serve_metrics(torch, spec, tmp: str, device: str = "cuda") -> dict:
+    """``serve(spec, params, paged=True)`` on the card (K9) answers
+    ``TELEMETRY_REQUESTS`` requests, one after another; ``GET /metrics``
+    must count them in the latency and TTFT histograms, and the span file
+    must hold each request's spans under its trace id."""
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.serving import serve
+    from autodist_tpu_torch.telemetry import configure_spans, load_spans
+
+    span_dir = os.path.join(tmp, "spans")
+    configure_spans(span_dir)
+    params = spec.init(SEED, device=device)
+    vocab = spec.config["vocab_size"]
+    rng = np.random.RandomState(SEED + 7)
+    fk.paged_attention.calls = 0
+    srv = serve(spec, params, paged=True, device=device, host="127.0.0.1",
+                port=0, **SERVE_GEOM)
+    url = "http://%s:%d" % srv.address
+    try:
+        t0 = time.perf_counter()
+        for i in range(TELEMETRY_REQUESTS):
+            body = {"prompt_tokens": rng.randint(0, vocab, 16 + 8 * i)
+                    .tolist(), "max_new_tokens": TELEMETRY_NEW_TOKENS}
+            req = urllib.request.Request(
+                url + "/v1/completions", json.dumps(body).encode(),
+                {"Content-Type": "application/json",
+                 "X-Autodist-Trace": f"telemetry-{i}"})
+            answer = json.loads(urllib.request.urlopen(req, timeout=600)
+                                .read())
+            if len(answer["new_tokens"]) != TELEMETRY_NEW_TOKENS:
+                raise AssertionError(f"request {i}: {answer}")
+        requests_s = time.perf_counter() - t0
+        text = urllib.request.urlopen(url + "/metrics", timeout=60).read() \
+            .decode()
+    finally:
+        srv.close()
+    configure_spans(None)
+    lines = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                 if line and not line.startswith("#"))
+    counts = {k: float(lines[k]) for k in (
+        "autodist_serving_request_latency_seconds_count",
+        "autodist_serving_ttft_seconds_count",
+        "autodist_serving_requests_served_total")}
+    if set(counts.values()) != {float(TELEMETRY_REQUESTS)}:
+        raise AssertionError(f"/metrics counts {counts}")
+    by_trace: dict = {}
+    for span in load_spans(span_dir):
+        by_trace.setdefault(span["trace_id"], set()).add(span["name"])
+    want = {f"telemetry-{i}": {"request", "queue_wait", "prefill", "decode"}
+            for i in range(TELEMETRY_REQUESTS)}
+    if by_trace != want:
+        raise AssertionError(f"request spans {by_trace}")
+    _launched("the paged server's K9", fk.paged_attention.calls)
+    del params
+    torch.cuda.empty_cache()
+    return {"requests": TELEMETRY_REQUESTS, "metrics_counts": counts,
+            "ttft_mean_s": float(lines[
+                "autodist_serving_ttft_seconds_sum"]) / TELEMETRY_REQUESTS,
+            "latency_mean_s": float(lines[
+                "autodist_serving_request_latency_seconds_sum"])
+            / TELEMETRY_REQUESTS,
+            "spans_by_trace": {k: sorted(v) for k, v in by_trace.items()},
+            "paged_attention_launches": fk.paged_attention.calls,
+            "requests_s": requests_s}
+
+
+def phase_telemetry(torch, ps_out):
+    """The telemetry slice on ``train_ps``'s step at full width:
+    telemetry on against off in turns (bit-identical losses, K1–K5 a step
+    as ``train_ps``, 13 records on disk with the batch's items and
+    tokens, ms per step of each and their difference against the runs'
+    spread); a trace window (its device ranges parsed once each, K4 and
+    K5 inside their ranges, the exposed ms per leg kind); ``fit`` with
+    goodput, a checkpoint and the journal; the CLI in a child process;
+    the paged server's ``/metrics`` and request spans."""
+    import tempfile
+
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.telemetry import configure_events, \
+        load_run_events
+
+    t_phase = time.perf_counter()
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    tokens = TRAIN_SHAPE["B"] * spec.config["seq_len"]
+    want = ps_out["launches_per_step"]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    tmp = tempfile.mkdtemp(prefix="telemetry_")
+    out = {"layers": layers, "steps_per_run": steps,
+           "order": list(TELEMETRY_ORDER)}
+    try:
+        # 1. telemetry on against off, in turns, outside any trace window
+        runs = []
+        for i, mode in enumerate(TELEMETRY_ORDER):
+            run_dir = os.path.join(tmp, f"run{i}")
+            env = {"AUTODIST_TELEMETRY_DIR": run_dir,
+                   "AUTODIST_TELEMETRY": None} if mode == "on" else \
+                {"AUTODIST_TELEMETRY": "0", "AUTODIST_TELEMETRY_DIR": None}
+            _fresh_peak(torch)
+            sess, batch = _telemetry_session(spec, env)
+            if (sess.telemetry is None) != (mode == "off"):
+                raise AssertionError(f"run {i} ({mode}): recorder "
+                                     f"{sess.telemetry}")
+            losses, _, step_s, launches, per_step = _bucketed_steps(
+                torch, sess, batch, layers, WARMUP_STEPS, TIMED_STEPS)
+            if per_step != want or losses != ps_out["losses"]:
+                raise AssertionError(f"run {i} ({mode}): {per_step} a step, "
+                                     f"losses {losses} vs train_ps "
+                                     f"{ps_out['losses']}")
+            row = {"mode": mode, "ms_per_step":
+                   statistics.median(step_s) * 1e3,
+                   "ms_per_step_min": min(step_s) * 1e3,
+                   "ms_per_step_max": max(step_s) * 1e3,
+                   "step_ms": [t * 1e3 for t in step_s]}
+            if mode == "on":
+                sess.telemetry.flush()
+                recs = _check_records(sess.telemetry.directory, steps,
+                                      tokens)
+                row["records"] = len(recs)
+                row["run_dir"] = sess.telemetry.directory
+            runs.append(row)
+            del sess
+        by_mode = {m: [r for r in runs if r["mode"] == m]
+                   for m in ("on", "off")}
+        med = {m: statistics.median([t for r in rs for t in r["step_ms"]])
+               for m, rs in by_mode.items()}
+        spread = {m: max(r["ms_per_step"] for r in rs)
+                  - min(r["ms_per_step"] for r in rs)
+                  for m, rs in by_mode.items()}
+        out.update(runs=[{k: v for k, v in r.items() if k != "step_ms"}
+                         for r in runs],
+                   on_ms_per_step=med["on"], off_ms_per_step=med["off"],
+                   on_minus_off_ms=med["on"] - med["off"],
+                   spread_ms=spread, losses_bit_identical=True,
+                   launches_per_step=want)
+
+        out["span_us_no_profiler"] = _span_cost_us()
+
+        # 2. the CLI on the first "on" run's directory, in a child
+        run_dir = runs[0]["run_dir"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+               if p]))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "autodist_tpu_torch.telemetry", run_dir,
+             "--json"], env=env, capture_output=True, text=True,
+            timeout=120, check=True)
+        summary = json.loads(cli.stdout)
+        times = [r.step_time_s for r in _check_records(run_dir, steps,
+                                                       tokens)
+                 if r.step_time_s]
+        p50 = round(float(np.percentile(times, 50)) * 1e3, 3)
+        if summary["steps"] != steps or \
+                summary["step_time"]["p50_ms"] != p50:
+            raise AssertionError(f"the CLI: {summary.get('steps')} steps, "
+                                 f"p50 {summary.get('step_time')} vs {p50}")
+        trace = subprocess.run(
+            [sys.executable, "-m", "autodist_tpu_torch.telemetry", run_dir,
+             "--export-trace"], env=env, capture_output=True, text=True,
+            timeout=120, check=True)
+        with open(os.path.join(run_dir, "trace.json")) as f:
+            exported = json.load(f)["traceEvents"]
+        if sum(e["name"].startswith("step ") for e in exported) \
+                != steps - 1:
+            raise AssertionError(f"exported trace: {trace.stdout}")
+        out["cli"] = {"steps": summary["steps"],
+                      "p50_ms": summary["step_time"]["p50_ms"],
+                      "records_p50_ms": p50, "seconds":
+                      time.perf_counter() - t0,
+                      "exported_events": len(exported)}
+
+        # 3. the trace window
+        _fresh_peak(torch)
+        out["trace"] = _trace_window(torch, spec, tmp, want)
+
+        # 4. fit with goodput, a checkpoint and the journal
+        _fresh_peak(torch)
+        fit_dir = os.path.join(tmp, "fit")
+        configure_events(fit_dir)
+        saved = os.environ.get("AUTODIST_TELEMETRY_DIR")
+        os.environ["AUTODIST_TELEMETRY_DIR"] = fit_dir
+        try:
+            sess = _fit_session(spec)
+        finally:
+            os.environ.pop("AUTODIST_TELEMETRY_DIR")
+            if saved is not None:
+                os.environ["AUTODIST_TELEMETRY_DIR"] = saved
+        batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+        epochs, spe = TELEMETRY_FIT
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        hist = sess.fit(_fit_data(batch, steps=spe), epochs=epochs,
+                        steps_per_epoch=spe, log_every=1,
+                        checkpoint_dir=os.path.join(tmp, "ckpt"),
+                        checkpoint_every=epochs, checkpoint_keep=1)
+        fit_s = time.perf_counter() - t0
+        fit_launches = _kernel_counts()
+        if fit_launches != {k: v * epochs * spe for k, v in want.items()}:
+            raise AssertionError(f"fit launched {fit_launches}")
+        gp = hist.goodput
+        if not 0.0 < gp["goodput_ratio"] <= 1.0:
+            raise AssertionError(f"goodput {gp}")
+        recs = sess.telemetry.records
+        # the prefetcher pulls batches ahead, so a pull's data_load lands
+        # in the record of the step that pulled it (as in the JAX
+        # package); each loss read's wait lands in the next record
+        pulls = sum("data_load" in r.phases for r in recs)
+        if len(recs) != epochs * spe or not epochs <= pulls <= len(recs) \
+                or not all(r.loss is not None and r.all_finite is True
+                           and r.global_norm > 0
+                           and r.loss_scale is not None
+                           and r.skipped_steps == 0 for r in recs) \
+                or not all("blocking_fetch" in r.phases for r in recs[1:]):
+            raise AssertionError(f"fit's records {recs}")
+        kinds = [e["kind"] for e in load_run_events(fit_dir)]
+        for kind in ("goodput/attempt", "checkpoint/save",
+                     "checkpoint/verify"):
+            if kind not in kinds:
+                raise AssertionError(f"no {kind} in the journal: {kinds}")
+        configure_events(None)
+        out["fit"] = {"epochs": epochs, "steps_per_epoch": spe,
+                      "goodput": gp, "seconds": fit_s,
+                      "journal": sorted(set(kinds)),
+                      "records_with_data_load": pulls,
+                      "phases_mean_ms": {
+                          name: statistics.mean(r.phases.get(name, 0.0)
+                                                for r in recs) * 1e3
+                          for name in ("data_load", "dispatch",
+                                       "blocking_fetch")},
+                      "launches": fit_launches}
+        del sess
+        torch.cuda.empty_cache()
+
+        # 5. the server's /metrics and request spans (K9)
+        _fresh_peak(torch)
+        out["serve"] = _serve_metrics(torch, spec, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_train_parallax(torch, ps_out):
     """``Parallax()`` at full width: the embedding (a sparse variable) on
     PS in a reduce-scatter bucket with K5, every dense variable in
@@ -3352,6 +3778,52 @@ def _ps_lb_train(torch):
         **_params_digests(sess)}
 
 
+def _ps_lb_trace(torch, sess, rank: int):
+    """One more ``ps_lb`` step on every rank, rank 0's under
+    ``torch.profiler`` (CPU and CUDA): ``LegProfiler.parse_trace``'s
+    samples per leg kind from the trace, where each sync leg's device
+    range holds its work (the host-staged collectives' copies and the
+    kernels around them), and the host ranges against them."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from autodist_tpu_torch.telemetry import LegProfiler
+    from autodist_tpu_torch.telemetry.profiler import (DEVICE_RANGE,
+                                                       HOST_RANGE,
+                                                       span_leg_kind)
+
+    batch = sess._last_batch
+    if rank != 0:
+        sess.run(batch)
+        return None
+    tmp = tempfile.mkdtemp(prefix="ps_lb_trace_")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sess.run(batch)
+        prof.export_chrome_trace(os.path.join(tmp, "ps_lb.trace.json"))
+        with open(os.path.join(tmp, "ps_lb.trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        samples = LegProfiler().parse_trace(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranges = {cat: sum(1 for e in events if e.get("cat") == cat
+                       and span_leg_kind(str(e.get("name", ""))))
+              for cat in (HOST_RANGE, DEVICE_RANGE)}
+    kinds: dict = {}
+    for smp in samples:
+        row = kinds.setdefault(smp.kind, {"samples": 0, "device_ms": 0.0,
+                                          "min_ms": None})
+        row["samples"] += 1
+        row["device_ms"] += smp.measured_s * 1e3
+        row["min_ms"] = smp.measured_s * 1e3 if row["min_ms"] is None \
+            else min(row["min_ms"], smp.measured_s * 1e3)
+    return {"host_ranges": ranges[HOST_RANGE],
+            "device_ranges": ranges[DEVICE_RANGE],
+            "samples": len(samples), "by_kind": kinds}
+
+
 def _p6_lr_control(torch) -> dict:
     """``--p6-lr-control`` on this rank: the losses of ``train_p6``'s
     model, weights and batch under ``AllReduce()`` and
@@ -3409,6 +3881,7 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
             del sess
             torch.cuda.empty_cache()
         sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
+        out[PS_LB_CONFIG]["trace"] = _ps_lb_trace(torch, sess, rank)
         del sess
         torch.cuda.empty_cache()
         for name, builder, opt, accum, info, env in _p6_configs():
@@ -4290,6 +4763,8 @@ def main() -> int:
     fit_out = phase_train_fit(torch, ps_out)
     emit({"phase": "train_fit", "card": smi,
           "wall_s": time.perf_counter() - t0, **fit_out})
+    telemetry_out = phase_telemetry(torch, ps_out)
+    emit({"phase": "telemetry", "card": smi, **telemetry_out})
     for row in flash_rows:
         row["launches_by_path"] = {"train_fit": {
             "launches": fit_out["launches"][row["name"]],
@@ -4320,6 +4795,10 @@ def main() -> int:
                 "launches": c["launches"][row["name"]],
                 "per_step": c["launches_per_step"][row["name"]]}
             for c in remat_out["configs"]})
+    for row in flash_rows + sync_rows:
+        row.setdefault("launches_by_path", {})["telemetry fit"] = {
+            "launches": telemetry_out["fit"]["launches"][row["name"]],
+            "per_step": telemetry_out["launches_per_step"][row["name"]]}
 
     ring, ring_wall, fused_vs_unfused = phase_train_ring()
     for config in RING_CONFIGS:
@@ -4342,6 +4821,12 @@ def main() -> int:
     if not rel <= PS_LB_LOSS_RTOL:
         raise AssertionError(f"ps_lb losses {ps_lb['losses']} differ from "
                              f"train_zero1's {ref} by {rel:.2e}")
+    trace = ps_lb["trace"]
+    if trace["samples"] != trace["device_ranges"] or not all(
+            trace["by_kind"].get(k, {}).get("min_ms", 0) > 0
+            for k in ("all_reduce", "all_gather", "fused_detect",
+                      "psum_guard", "fused_update")):
+        raise AssertionError(f"ps_lb's traced step: {trace}")
     emit({"phase": PS_LB_CONFIG, "card": smi, "ranks": RING_RANKS,
           "ms_per_step_label": "4 ranks time-sharing one card over gloo "
                                "(host-staged wire)",

@@ -106,7 +106,13 @@ def test_fit_trains_and_records_history():
     assert len(hist.history["epoch_loss"]) == 3
     assert hist.history["epoch_loss"][-1] < first
     assert hist.history["epoch_loss"][2] < hist.history["epoch_loss"][0]
-    assert hist.goodput is None and hist.resume_tier is None
+    # the JAX fit's goodput summary (telemetry is on by default)
+    assert set(hist.goodput) == {"wall_s", "useful_step_s",
+                                 "checkpoint_stall_s", "rollback_s",
+                                 "steps", "goodput_ratio"}
+    assert hist.goodput["steps"] == 24
+    assert 0.0 < hist.goodput["goodput_ratio"] <= 1.0
+    assert hist.resume_tier is None
 
 
 def test_fit_single_batch_dict_and_log_every():

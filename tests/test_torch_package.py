@@ -8,6 +8,7 @@ its ROADMAP item, or is one of :data:`JAX_ONLY_MODULES`; the session's
 ``sharded_params``, ``flops_per_step`` and ``mfu``."""
 import importlib
 import inspect
+import os
 import re
 import subprocess
 import sys
@@ -29,7 +30,7 @@ from autodist_tpu.strategy import AllReduce as JAllReduce
 from autodist_tpu_torch import models, optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
-from autodist_tpu_torch.const import P8, P9, P10, P11, P12
+from autodist_tpu_torch.const import P8, P10, P11, P12
 from autodist_tpu_torch.convert import params_from_jax
 from autodist_tpu_torch.graph_item import flatten
 from autodist_tpu_torch.models import base
@@ -76,6 +77,11 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.profile_serving\n"
         "import autodist_tpu_torch.device_timer\n"
         "import autodist_tpu_torch.strategy.auto_strategy\n"
+        "import autodist_tpu_torch.telemetry\n"
+        "import autodist_tpu_torch.telemetry.__main__\n"
+        "import autodist_tpu_torch.utils.tracing\n"
+        "import autodist_tpu_torch.utils.logging\n"
+        "import autodist_tpu_torch.utils.metrics\n"
         "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
         "    ENV, Callback, TimeHistory, History, __version__)\n"
         "from autodist_tpu_torch.strategy import (AutoStrategy,\n"
@@ -283,7 +289,9 @@ def test_build_paths_stay_in_the_checkout():
 JAX_ONLY_MODULES = {
     "autodist_tpu.ops.pallas_utils": "Pallas helpers: the port has no Pallas",
     "autodist_tpu.parallel": P10,
-    "autodist_tpu.utils": P12,
+    "autodist_tpu.utils.compat": "JAX version shims: the port has no JAX",
+    "autodist_tpu.utils.network": P12,
+    "autodist_tpu.utils.visualization": "sharding renderings of JAX arrays",
 }
 LM = dict(vocab_size=97, num_layers=2, num_heads=2, head_dim=8, d_ff=32,
           max_len=16)
@@ -309,7 +317,8 @@ def _public(module):
 
 @pytest.mark.parametrize("scope", ["", ".ops", ".models", ".autodist",
                                    ".ops.opt_state_dtype",
-                                   ".checkpoint.saved_model_builder"])
+                                   ".checkpoint.saved_model_builder",
+                                   ".telemetry"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -352,7 +361,23 @@ def lm_session(monkeypatch):
     return spec, ad, ad.create_distributed_session()
 
 
+def _with_env(name, value, fn):
+    """``fn()`` with environment variable ``name`` set to ``value``."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
 def _stub_calls(spec, ad, sess):
+    from autodist_tpu_torch.runner import DistributedSession
+    from autodist_tpu_torch.telemetry import LegProfiler, flightrec
+
     params = sess.device_params
     return {
         "models.moe_transformer_lm": (models.moe_transformer_lm, P10),
@@ -365,7 +390,15 @@ def _stub_calls(spec, ad, sess):
         "session.schedule_ir": (lambda: sess.schedule_ir, P8),
         "session.schedule_fingerprint": (lambda: sess.schedule_fingerprint,
                                          P8),
-        "session.telemetry": (lambda: sess.telemetry, P9),
+        "LegProfiler.profile_ir": (lambda: LegProfiler().profile_ir(None),
+                                   P8),
+        "flightrec.traced_stamp": (lambda: flightrec.traced_stamp("leg"),
+                                   P8),
+        "flightrec.publish_ir": (lambda: flightrec.publish_ir(None, "."),
+                                 P8),
+        "AUTODIST_FLIGHTREC=legs": (lambda: _with_env(
+            "AUTODIST_FLIGHTREC", "legs",
+            lambda: DistributedSession(sess._gi, sess._step)), P8),
         "session.place_local_batch": (
             lambda: sess.place_local_batch(spec.sample_batch(2)), P12),
         "serve(drain_on_sigterm=True)": (lambda: serve(
@@ -379,9 +412,10 @@ def _stub_calls(spec, ad, sess):
 STUBS = ["models.moe_transformer_lm", "models.pipelined_transformer_lm",
          "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
          "AutoDist.coordinator", "session.schedule_ir",
-         "session.schedule_fingerprint", "session.telemetry",
-         "session.place_local_batch", "serve(drain_on_sigterm=True)",
-         "PagedDecodeEngine(mesh=)"]
+         "session.schedule_fingerprint", "LegProfiler.profile_ir",
+         "flightrec.traced_stamp", "flightrec.publish_ir",
+         "AUTODIST_FLIGHTREC=legs", "session.place_local_batch",
+         "serve(drain_on_sigterm=True)", "PagedDecodeEngine(mesh=)"]
 
 
 def _ported_calls(spec, params):
@@ -468,6 +502,25 @@ def test_ported_serving_slice_entry_points_run(name, lm_session):
     finally:
         if hasattr(out, "close"):
             out.close()
+
+
+@pytest.mark.parametrize("name", ["session.telemetry",
+                                  "session.telemetry (AUTODIST_TELEMETRY=0)"])
+def test_ported_telemetry_entry_points_run(name, lm_session):
+    """``session.telemetry`` raised (P9) until the telemetry slice: it is
+    the session's step recorder, None with telemetry off."""
+    from autodist_tpu_torch.runner import DistributedSession
+    from autodist_tpu_torch.telemetry import StepRecorder
+
+    spec, _, sess = lm_session
+    if name == "session.telemetry":
+        sess.run(spec.sample_batch(2))
+        assert isinstance(sess.telemetry, StepRecorder)
+        assert [r.step for r in sess.telemetry.records] == [0]
+    else:
+        off = _with_env("AUTODIST_TELEMETRY", "0",
+                        lambda: DistributedSession(sess._gi, sess._step))
+        assert off.telemetry is None
 
 
 def test_flash_attention_is_the_function_and_cross_entropy_exported():

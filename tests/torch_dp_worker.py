@@ -71,6 +71,14 @@ on the LM (even and uneven microbatches, ``Int8Compressor`` per slot) and,
 at 4 ranks, ``hier`` on :func:`hier_problem` (f32 and the int8 DCN wire)
 and a ``hier`` checkpoint restored into a flat session and back.
 
+``telemetry`` (2 ranks; ``IN``: a directory) mirrors the JAX package's
+session telemetry tests (:func:`telemetry_main`): step records flushed to
+``AUTODIST_TELEMETRY_DIR``, ``AUTODIST_TRACE_AT`` windows, ``fit``'s
+phases and goodput, and losses with telemetry on and off.  ``spans`` (4
+ranks) runs one step of each of :func:`span_runs` under a CPU
+``torch.profiler`` and writes the ``autodist_sync/`` range names and
+counts it records (:func:`spans_main`).
+
 Each rank runs one intra-op thread: ranks do not contend for the host's
 cores, and the sums come out the same on any host.
 """
@@ -1010,6 +1018,128 @@ def p6_hier_main():
 
 
 
+def telemetry_main(directory):
+    """The ``telemetry`` mode: what the JAX package's session telemetry
+    tests check, on this rank (``directory`` holds the run directory and
+    the trace windows)."""
+    import json
+
+    from autodist_tpu_torch.telemetry import LegProfiler, load_step_records
+    from autodist_tpu_torch.utils import tracing
+
+    rank = dist.get_rank()
+    out = {}
+    run_dir = os.path.join(directory, "telemetry")
+    # records flush to the env directory, one file per rank
+    os.environ["AUTODIST_TELEMETRY_DIR"] = run_dir
+    sess, batch = session("zero1")
+    on = [float(sess.run(batch, sync=False)["loss"]) for _ in range(STEPS)]
+    sess.telemetry.flush()
+    out["on_losses"] = np.array(on)
+    out["record_steps"] = np.array([r.step for r in sess.telemetry.records])
+    out["record_items"] = np.array(
+        [r.items_per_s is not None for r in sess.telemetry.records])
+    out["dispatch"] = np.array(
+        [r.phases.get("dispatch", 0.0) > 0 for r in sess.telemetry.records])
+    out["directory"] = np.array(sess.telemetry.directory)
+    dist.barrier()
+    out["loaded"] = np.array(len(load_step_records(run_dir)))
+    # fit adds data_load, blocking_fetch and the loss, and its goodput
+    hist = sess.fit([batch] * 4, epochs=1, log_every=2)
+    recs = sess.telemetry.records[-4:]
+    out["fit_data_load"] = np.array(["data_load" in r.phases for r in recs])
+    out["fit_loss"] = np.array([r.loss is not None for r in recs])
+    out["fit_health"] = np.array([r.all_finite is not None for r in recs])
+    out["goodput"] = np.array(json.dumps(hist.goodput))
+    # the same steps with telemetry off: the same losses, bit for bit
+    os.environ["AUTODIST_TELEMETRY"] = "0"
+    os.environ.pop("AUTODIST_TELEMETRY_DIR")
+    sess, batch = session("zero1")
+    out["off_losses"] = np.array(
+        [float(sess.run(batch, sync=False)["loss"]) for _ in range(STEPS)])
+    out["off_recorder"] = np.array(sess.telemetry is None)
+    os.environ.pop("AUTODIST_TELEMETRY")
+    # windows opened mid-run at steps 2 and 4, one step each
+    os.environ["AUTODIST_TRACE_STEPS"] = "1"
+    os.environ["AUTODIST_TRACE_AT"] = "2,4"
+    tracing.DEFAULT_TRACE_DIR = os.path.join(directory, f"traces{rank}")
+    sess, batch = session("zero1")
+    for _ in range(6):
+        sess.run(batch)
+    tracing.flush_active_trace()
+    out["trace_paths"] = np.array(
+        [os.path.relpath(p, directory) for p in sess.tracer.paths])
+    kinds = {}
+    for path in sess.tracer.paths:
+        for sample in LegProfiler().parse_trace(os.path.dirname(path)):
+            kinds[sample.kind] = kinds.get(sample.kind, 0) + 1
+    out["trace_kinds"] = np.array(json.dumps(kinds, sort_keys=True))
+    return out
+
+
+def span_runs():
+    """``{name: () -> (session, batch)}`` of the ``spans`` mode: every
+    sync leg the bucketed step names, at 4 ranks."""
+    hier = hier_problem()
+    return {
+        "allreduce": lambda: lm_session(AllReduce(bucket_bytes=1 << 12),
+                                        numerics={"clip_norm": CLIP}),
+        "zero1": lambda: session("zero1"),
+        "PSLoadBalancing": lambda: session("PSLoadBalancing"),
+        "int8_ring": lambda: quant_session("int8_allreduce"),
+        "fp8_ring_zero1": lambda: quant_session("fp8_zero1"),
+        "horovod": lambda: lm_session(AllReduce(
+            compressor="HorovodCompressor")),
+        "powersgd": lambda: lm_session(AllReduce(
+            compressor="PowerSGDCompressor")),
+        "hier_zero1": lambda: (facade(Zero1(hier=True), hier[0], hier[1],
+                                      optim.adam(1e-2), spec=HIER_SPEC),
+                               hier[2]),
+        "hier_allreduce": lambda: (facade(
+            AllReduce(bucket_bytes=1 << 20, hier=True), hier[0], hier[1],
+            optim.adam(1e-2), spec=HIER_SPEC), hier[2]),
+        "pipeline": lambda: lm_session(
+            Zero1(ZERO1_BUCKET_BYTES, overlap="pipeline"),
+            opt=fusable_adam(1e-2), accum=2, numerics={"clip_norm": CLIP}),
+        "pipeline_int8": lambda: lm_session(
+            Zero1(ZERO1_BUCKET_BYTES, compressor="Int8Compressor",
+                  overlap="pipeline"), opt=fusable_adam(1e-2), accum=2),
+    }
+
+
+def spans_main(directory):
+    """The ``spans`` mode: one warm-up step and one step under a CPU
+    ``torch.profiler`` of each of :func:`span_runs`; per run, the
+    ``autodist_sync/`` range names this rank recorded, how many, and the
+    samples ``LegProfiler.parse_trace`` gives from the exported trace."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from autodist_tpu_torch.telemetry import LegProfiler
+    from autodist_tpu_torch.telemetry.profiler import (SYNC_SCOPE_PREFIX,
+                                                       span_leg_kind)
+
+    rank = dist.get_rank()
+    out = {}
+    for name, make in span_runs().items():
+        sess, batch = make()
+        sess.run(batch)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sess.run(batch)
+        trace_dir = os.path.join(directory, name, f"rank{rank}")
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "run.trace.json"))
+        names = [e.name for e in prof.events()
+                 if e.name.startswith(SYNC_SCOPE_PREFIX)]
+        samples = LegProfiler().parse_trace(trace_dir)
+        out[f"{name}/names"] = np.array(json.dumps(sorted(set(names))))
+        out[f"{name}/ranges"] = np.array(
+            sum(span_leg_kind(n) is not None for n in names))
+        out[f"{name}/samples"] = np.array(len(samples))
+    return out
+
+
 def session(strategy="allreduce", device="cpu"):
     """The facade's session for ``strategy`` in this process, and the
     model's fixed global batch: ``"allreduce"`` (``adam``), ``"zero1"``,
@@ -1114,6 +1244,12 @@ def main():
         if strategy == "quant":
             np.savez(out, **quant_main(torch.load(
                 sys.argv[6].format(rank=rank))))
+            return
+        if strategy == "telemetry":
+            np.savez(out, **telemetry_main(sys.argv[6]))
+            return
+        if strategy == "spans":
+            np.savez(out, **spans_main(sys.argv[6]))
             return
         sess, batch = session(strategy)
         results = [sess.run(batch) for _ in range(STEPS)]
