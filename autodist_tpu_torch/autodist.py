@@ -16,6 +16,9 @@ import contextlib
 import itertools
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import torch
+import torch.distributed as dist
+
 from autodist_tpu_torch.const import ENV, P12, not_ported
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
@@ -45,6 +48,28 @@ def _set_default_autodist(ad: "AutoDist") -> None:
 def _reset_default_autodist_for_testing() -> None:
     global _default_autodist
     _default_autodist = None
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _object_device(device) -> torch.device:
+    """Where an object collective over the world group stages its bytes:
+    the host under gloo, this rank's card under NCCL alone."""
+    return torch.device("cpu") if "gloo" in dist.get_backend() \
+        else torch.device(device)
+
+
+def _check_ranks_agree(fingerprint: str) -> None:
+    """Every rank lowers the same schedule, or all of them raise (on NCCL
+    the gather stages on the card :func:`build_mesh` made current)."""
+    each = [None] * dist.get_world_size()
+    dist.all_gather_object(each, fingerprint)
+    if len(set(each)) != 1:
+        raise RuntimeError(
+            f"ranks lowered different schedules (schedule fingerprints by "
+            f"rank: {each}); build the strategy once, on rank 0")
 
 
 class AutoDist:
@@ -140,7 +165,13 @@ class AutoDist:
 
     def build_strategy(self) -> Strategy:
         """The chief builds the strategy and serializes it; a rank with
-        ``AUTODIST_STRATEGY_ID`` set loads that one instead."""
+        ``AUTODIST_STRATEGY_ID`` set loads that one instead.
+
+        On a ``torch.distributed`` world of more than one rank only rank 0
+        runs the builder, and every other rank takes its plan over the
+        world group: a search that stops on a wall-clock budget could
+        otherwise pick a different plan on a slower rank, and the ranks
+        would issue mismatched collectives."""
         if self._graph_item is None:
             raise RuntimeError(
                 "capture() the program before building a strategy (implicit "
@@ -149,16 +180,48 @@ class AutoDist:
         strategy_id = ENV.AUTODIST_STRATEGY_ID.val
         if strategy_id:
             self._strategy = Strategy.deserialize(strategy_id)
+        elif _world_size() > 1:
+            self._strategy = self._chief_strategy()
         else:
             self._strategy = self._strategy_builder.build(
                 self._graph_item, self._resource_spec)
             self._strategy.serialize()
         return self._strategy
 
-    def create_distributed_session(self, mesh=None) -> DistributedSession:
+    def _chief_strategy(self) -> Strategy:
+        """Rank 0 builds and serializes; the plan reaches every rank by
+        one broadcast.  A failed build on rank 0 raises there and, as a
+        RuntimeError, on every other rank, so that no rank waits."""
+        payload, failure = [None], None
+        if dist.get_rank() == 0:
+            try:
+                strategy = self._strategy_builder.build(
+                    self._graph_item, self._resource_spec)
+                strategy.serialize()
+                payload = [strategy.to_dict()]
+            except Exception as exc:    # re-raised after the broadcast
+                failure = exc
+        dist.broadcast_object_list(payload, src=0,
+                                   device=_object_device(self._device))
+        if failure is not None:
+            raise failure
+        if payload[0] is None:
+            raise RuntimeError("rank 0 failed to build the strategy")
+        return Strategy.from_dict(payload[0])
+
+    def create_distributed_session(self, mesh=None,
+                                   validate: Optional[bool] = None
+                                   ) -> DistributedSession:
         """Strategy → compile → lower → session.  ``mesh`` may be a
         :class:`~autodist_tpu_torch.mesh.Mesh` or a zero-argument callable
-        returning one (built after the process group exists)."""
+        returning one (built after the process group exists).
+
+        ``validate`` runs the static pre-flight analyzer
+        (:mod:`autodist_tpu_torch.analysis`) on the compiled strategy
+        before the step is built: ERROR diagnostics raise
+        :class:`~autodist_tpu_torch.analysis.StrategyValidationError`
+        before any kernel launch, WARNs log once.  Defaults to the
+        ``AUTODIST_VALIDATE`` environment knob."""
         if self._session is not None:
             return self._session
         if self._strategy is None:
@@ -169,11 +232,21 @@ class AutoDist:
             mesh = build_mesh(self._mesh_axes, self._resource_spec,
                               device=self._device)
         compiled = StrategyCompiler(mesh, self._resource_spec).compile(
-            self._strategy,
-                                                  self._graph_item)
+            self._strategy, self._graph_item)
+        if validate is None:
+            validate = ENV.AUTODIST_VALIDATE.val
+        if validate:
+            from autodist_tpu_torch.analysis import preflight
+
+            preflight(compiled, self._graph_item,
+                      resource_spec=self._resource_spec,
+                      context=f"build:{self._strategy.id}")
         dist_step = GraphTransformer(compiled, self._graph_item).transform(
             extra_metrics_fn=self._graph_item.metrics_fn)
-        self._session = DistributedSession(self._graph_item, dist_step)
+        session = DistributedSession(self._graph_item, dist_step)
+        if _world_size() > 1:
+            _check_ranks_agree(session.schedule_fingerprint)
+        self._session = session
         return self._session
 
     def function(self, fn: Optional[Callable] = None, *,

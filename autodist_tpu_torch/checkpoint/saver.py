@@ -58,10 +58,13 @@ for; :meth:`Saver.latest_step` prefers such steps, :meth:`Saver.
 restore_last_good` is the numerics rollback's restore, and ``keep=``
 garbage collection never removes the last good step.
 
+The meta carries the session's ``schedule_fingerprint`` (its schedule
+IR's); a restore whose session executes another schedule logs the drift
+(a warning on the same mesh: the sync config itself drifted).
+
 Not ported: elastic resume (a checkpoint whose ZeRO-1 bucket layout
 differs from the session's, e.g. written at another data-axis size) and
-the RAM and peer tiers (``checkpoint/tiers.py``) are P9; the schedule
-fingerprint is P8's.
+the RAM and peer tiers (``checkpoint/tiers.py``) are P9.
 """
 from __future__ import annotations
 
@@ -264,6 +267,26 @@ def _unpack_layout(opt_state, layout: Sequence[dict]) -> Dict[str, Any]:
 
 
 # -- the Saver ----------------------------------------------------------------
+
+def _log_schedule_drift(meta: dict, session, path: str) -> None:
+    """A resume on the SAME mesh should execute the schedule the
+    checkpoint was trained under: a differing fingerprint means the
+    bucketing/overlap/guard config drifted (a warning); across a mesh
+    resize it is expected (info)."""
+    old_fp = meta.get("schedule_fingerprint")
+    new_fp = session.schedule_fingerprint
+    if not (old_fp and new_fp and old_fp != new_fp):
+        return
+    same_mesh = (meta.get("mesh_axes") or {}) == {
+        str(k): int(v) for k, v in session.mesh.shape.items()} \
+        if meta.get("mesh_axes") else False
+    (log.warning if same_mesh else log.info)(
+        "checkpoint %s was written under sync schedule %s but this "
+        "session executes %s%s", path, old_fp, new_fp,
+        " — same mesh, so the sync config itself drifted "
+        "(bucket_bytes/overlap/compressor/guard)" if same_mesh
+        else " (expected across a mesh resize)")
+
 
 class Saver:
     """Save/restore a :class:`~autodist_tpu_torch.runner.DistributedSession`'s
@@ -518,6 +541,9 @@ class Saver:
             "data_axis_size": int(d)}
         if session.zero1_buckets:
             meta["zero1_buckets"] = bucket_layout(session.zero1_buckets)
+        fp = session.schedule_fingerprint
+        if fp:
+            meta["schedule_fingerprint"] = fp
         extra = dict(extra_meta or {})
         self._gc_dir = directory
         if self._async:
@@ -624,6 +650,7 @@ class Saver:
         step = int(meta.get("step", 0))
         session.import_state(params, opt_state, step, sync_state=sync_state)
         del params, opt_state
+        _log_schedule_drift(meta, session, path)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         emit_event("checkpoint/restore", step=step, path=path,

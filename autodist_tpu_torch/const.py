@@ -89,15 +89,20 @@ class ENV(enum.Enum):
     # JSONL under this run directory (one writer per process)
     AUTODIST_TELEMETRY_DIR = ("AUTODIST_TELEMETRY_DIR", _str)
     # a calibration.json of fitted cost-model constants (read by the
-    # default loader; the cost model that consumes it is P8's)
+    # default loader of strategy/cost_model.estimate_ir_cost)
     AUTODIST_CALIBRATION = ("AUTODIST_CALIBRATION", _str)
     # flight recorder: "0" off, "host" (and the default) step and
-    # checkpoint phase cursors; "legs" needs the schedule IR (P8)
+    # checkpoint phase cursors; "legs" (leg cursors) is P8's second half
     AUTODIST_FLIGHTREC = ("AUTODIST_FLIGHTREC", _str)
     # which supervisor attempt this process belongs to
     AUTODIST_ATTEMPT = ("AUTODIST_ATTEMPT", _int0)
     # dump the strategy's plan table at session build
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", _bool)
+    # pre-flight static strategy analysis (autodist_tpu_torch.analysis)
+    # before the session builds: ERROR diagnostics raise
+    # StrategyValidationError before any step, WARNs log once.  Also
+    # create_distributed_session(validate=...) / fit(validate=...).
+    AUTODIST_VALIDATE = ("AUTODIST_VALIDATE", _bool)
 
     @property
     def val(self):
@@ -106,7 +111,10 @@ class ENV(enum.Enum):
 
 
 #: the ROADMAP items that :func:`not_ported` errors name most often
-P8 = "P8 — cost model, search and AutoStrategy"
+#: P8's first half (the schedule IR, the analyzer, the cost model, the
+#: search and AutoStrategy) is ported; what raises names the second half
+P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
+      "analyzer's CLI, the leg profiler and the leg cursors")
 P9 = "P9 — telemetry and resilience"
 P10 = "P10 — non-data mesh axes"
 P11 = "P11 — the rest of serving"

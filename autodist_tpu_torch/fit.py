@@ -19,8 +19,11 @@ health fields.  The journal gets ``numerics/skip``, ``numerics/rollback``
 and ``goodput/attempt``, and ``History.goodput`` is the attempt's goodput
 (useful step time over wall time, checkpoint stalls, rollback loss).
 
-Not ported (each raises, naming its ROADMAP item): ``validate=True`` and
-``tuner`` (P8), and the RAM and peer checkpoint tiers, ``tiers``,
+``validate=True`` runs the static pre-flight analyzer on the session's
+compiled strategy before anything else (``analysis.preflight_session``).
+
+Not ported (each raises, naming its ROADMAP item): ``tuner`` (the second
+half of P8), and the RAM and peer checkpoint tiers, ``tiers``,
 ``snapshot_every``, ``snapshot_keep`` and ``snapshot_dir`` (P9); the
 preemption deadline decision (``checkpoint/preempt_decision``) comes
 with them.
@@ -170,10 +173,8 @@ def _epoch_iter(data: DataArg, steps_per_epoch: Optional[int]):
     return iter(data)
 
 
-def _refuse_unported(validate, tuner, tiers, snapshot_every, snapshot_keep,
+def _refuse_unported(tuner, tiers, snapshot_every, snapshot_keep,
                      snapshot_dir) -> None:
-    if validate:
-        raise not_ported("fit(validate=True): the pre-flight analyzer", P8)
     if tuner is not None:
         raise not_ported("fit(tuner=...): the schedule tuner", P8)
     for name, value in (("tiers", tiers), ("snapshot_every", snapshot_every),
@@ -245,9 +246,21 @@ def fit(session, data: DataArg, epochs: int = 1,
         ``raise``/``rollback`` read the step's health on the host every
         step.
 
+      validate: run the static pre-flight analyzer
+        (:mod:`autodist_tpu_torch.analysis`) on the session's compiled
+        strategy before anything else: ERROR diagnostics raise
+        :class:`~autodist_tpu_torch.analysis.StrategyValidationError`,
+        WARNs log once.
+
     Returns a :class:`History`."""
-    _refuse_unported(validate, tuner, tiers, snapshot_every, snapshot_keep,
+    _refuse_unported(tuner, tiers, snapshot_every, snapshot_keep,
                      snapshot_dir)
+    # pre-flight first: an illegal plan fails before any restore or user
+    # callback runs, and before the first step
+    if validate:
+        from autodist_tpu_torch.analysis import preflight_session
+
+        preflight_session(session)
     # a bad signal name fails before any restore runs
     handler_nums = _validate_signals(preemption_signals)
 

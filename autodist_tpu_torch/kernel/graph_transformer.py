@@ -124,6 +124,9 @@ class DistributedStep:
     #: the :class:`~autodist_tpu_torch.strategy.compiler.CompiledStrategy`
     #: this step lowers (set by :meth:`GraphTransformer.transform`)
     compiled_strategy: Any = None
+    #: the verified schedule IR of the step's sync
+    #: (:mod:`~autodist_tpu_torch.kernel.synchronization.schedule_ir`)
+    schedule_ir: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -275,6 +278,40 @@ def merge_metrics(metrics: Dict, extra: Dict) -> Dict:
     return out
 
 
+def plain_schedule_ir(gi, compiled):
+    """The plain step's schedule IR: ``ir_from_facts`` over the trainable
+    variables' plans, the JAX GSPMD step's IR (``graph_transformer.py:
+    384-400``): one per-variable reduction each (the step itself packs
+    them into all-reduce buckets at data size > 1, the same sums), the
+    guard's roll-up when the guard is on, no fused kernel (its guard runs
+    per variable, unfused)."""
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+
+    d = compiled.mesh.data_size
+    infos = {v.name: v for v in gi.info.variables}
+    facts = [sir.fact_from_varplan(plan, infos[name], d)
+             for name, plan in compiled.var_plans.items()
+             if name in infos and infos[name].trainable]
+    axes = {str(a): int(n) for a, n in compiled.mesh.shape.items()}
+    num_cfg = gi.numerics
+    return sir.ir_from_facts(
+        facts, axes=axes, accum_steps=gi.accum_steps,
+        guard=bool(num_cfg is not None and num_cfg.guard),
+        moe=sir.moe_facts_from_vars(gi.info.variables, axes=axes))
+
+
+def lowered_schedule_ir(gi, compiled):
+    """``(ir, fused drops)``: the schedule IR of the step ``compiled``
+    lowers ``gi`` to, the explicit bucketed step's or the plain one's,
+    without building the step (what the analyzer checks)."""
+    from autodist_tpu_torch.kernel.synchronization import explicit_sync
+
+    if explicit_sync.uses_explicit_path(compiled):
+        sp = explicit_sync.plan_step(gi, compiled)
+        return sp.ir, sp.fused_drops
+    return plain_schedule_ir(gi, compiled), []
+
+
 class GraphTransformer:
     """Builds a :class:`DistributedStep` from strategy + program."""
 
@@ -300,6 +337,10 @@ class GraphTransformer:
         if explicit_sync.uses_explicit_path(self.compiled):
             return explicit_sync.make_explicit_step(gi, self.compiled,
                                                     extra_metrics_fn)
+        from autodist_tpu_torch.kernel.synchronization import schedule_ir
+
+        sched = plain_schedule_ir(gi, self.compiled)
+        schedule_ir.assert_verified(sched, "plain build")
         mesh = self.compiled.mesh
         data, group, rank = mesh.data_size, mesh.data_group, mesh.data_rank
         names = tuple(v.name for v in gi.info.trainable_variables)
@@ -375,7 +416,8 @@ class GraphTransformer:
             step_fn=step, init_fn=init_fn,
             eval_fn=make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
             mesh=mesh, trainable=names, buckets=buckets,
-            init_sync_state=sync_state_init(num_active, num_ls, mesh.device))
+            init_sync_state=sync_state_init(num_active, num_ls, mesh.device),
+            schedule_ir=sched)
 
 
 def scaled_loss(gi, scale: Optional[torch.Tensor]) -> Callable:

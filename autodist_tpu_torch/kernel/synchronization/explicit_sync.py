@@ -28,8 +28,11 @@ all-reduce buckets).  The step runs, on each rank, in order:
    under its name in the sync state (a ZeRO-1 request falls back to it,
    with the JAX package's warning, and to the tree update);
 3. per bucket of :func:`plan_step_buckets`' plan: pack, then the
-   reduction over the data group under the bucket's lowering
-   (``overlap.reduce_alg``; no collective at data size 1):
+   reduction over the data group under the bucket's lowering, read from
+   the bucket's node in the step's schedule IR (:func:`plan_step`: the
+   IR is built from the bucket plan and the overlap plan and verified by
+   ``schedule_ir.assert_verified`` before the step exists; no collective
+   at data size 1):
 
    * an uncompressed bucket through ``overlap.bucket_reduce_fn`` (the
      backend's ``all_reduce`` / ``reduce_scatter``, whatever its label),
@@ -107,10 +110,10 @@ runs fully synchronously, with the JAX warning
 numerics guard off, with the JAX warning (``:334-339``), so K4 does not
 launch there.
 
-Differences from the JAX package, none of which changes a result: the
-schedule IR (P8) is not built (each bucket's lowering label comes from
-the same rule, ``overlap.reduce_alg``, and the two-tier buckets are
-recorded in ``hier_keys`` beside ``bucket_algs``); an uncompressed bucket
+Differences from the JAX package, none of which changes a result: PS
+plans run here, so their buckets are reduce-scatter bucket nodes of the
+IR where the JAX package's GSPMD step has per-variable ``ps_exchange``
+legs; an uncompressed bucket
 labelled ``"ring"`` or ``"one_shot"`` reduces, and a ZeRO-1 shard
 gathers, through the backend's collective, not as ring hops (the same
 sum up to its last bits); buckets reduce in ``assign_buckets``' order;
@@ -129,7 +132,8 @@ P("data")``), the flat bucket padded where JAX pads the dim.
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -139,6 +143,7 @@ from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization import overlap as ov_mod
 from autodist_tpu_torch.kernel.synchronization import quant_ring
+from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
 from autodist_tpu_torch.kernel.synchronization import stale_sync
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     DEFAULT_BUCKET_BYTES, MODE_ALL_REDUCE, MODE_REDUCE_SCATTER, Bucket,
@@ -249,6 +254,101 @@ def _mean_over(x: torch.Tensor, d: int, group) -> torch.Tensor:
     return coll.all_reduce(x, group) / d
 
 
+def stale_step(compiled) -> bool:
+    """Does the step run bounded staleness or proxies?  Not when the
+    strategy also takes the JAX package's explicit path at data size > 1
+    (it then runs fully synchronously, with the JAX warning)."""
+    d = compiled.mesh.data_size
+    return stale_sync.uses_stale_path(compiled) and not (
+        d > 1 and uses_explicit_path(compiled, skip_ps=True))
+
+
+def _meta_state(comp: Compressor, shape, dtype: str):
+    return comp.init_state(torch.empty(tuple(shape), device="meta",
+                                       dtype=getattr(torch, dtype)))
+
+
+@dataclass
+class StepPlan:
+    """What the bucketed step is built from, decided before it is built:
+    the buckets, the overlap plan, the fused kernels it runs (and those
+    it drops, with the reason), whether the guard is on, and the
+    schedule IR of it all, from which the step takes each bucket's
+    lowering."""
+
+    buckets: List[Bucket]
+    overlap: Any
+    fused_kernels: Tuple[str, ...]
+    fused_drops: List[Tuple[str, str]]
+    guard: bool
+    ir: Any
+
+
+def plan_step(gi, compiled) -> StepPlan:
+    """The explicit step's plan, pure (no collective, no memory): the same
+    inputs as the JAX package's ``make_explicit_step`` gives
+    ``schedule_ir.build_schedule_ir`` (``explicit_sync.py:488-523``),
+    from this port's bucket plan."""
+    d = compiled.mesh.data_size
+    plans = compiled.var_plans
+    buckets = plan_step_buckets(gi, compiled, d)
+    bucketed = {n for b in buckets for n in b.names}
+    rs_buckets = [b for b in buckets if b.mode == MODE_REDUCE_SCATTER]
+    num_slices = int(getattr(compiled, "num_slices", 1) or 1)
+    hier_keys = [b.key for b in buckets
+                 if ov_mod.hier_applies(d, num_slices) and b.names
+                 and all(plans[n].hier for n in b.names)]
+    ov = ov_mod.resolve_overlap(
+        [plan.overlap for plan in plans.values()],
+        accum_steps=gi.accum_steps, buckets=buckets, d=d,
+        has_rs=bool(rs_buckets))
+    num_cfg = gi.numerics
+    guard = bool(num_cfg is not None and num_cfg.guard) \
+        and not stale_step(compiled)
+    spec = getattr(gi.optimizer, "fused_spec", None)
+    adam_shaped = True
+    if spec is not None and rs_buckets:
+        adam_shaped = fk.find_adam_state(
+            gi.optimizer.init({"x": torch.zeros(8)})) is not None
+    active, drops = fk.resolve_fused(
+        guard=guard, has_rs=bool(rs_buckets),
+        has_quant_ring=any(quant_ring.is_quant_ring_compressor(b.compressor)
+                           for b in buckets),
+        optimizer_fusable=spec is not None, adam_state_shaped=adam_shaped,
+        f32_buckets=all(b.dtype == "float32" for b in rs_buckets))
+
+    # sync state: the stateful per-variable entries, buckets, numerics
+    infos = {v.name: v for v in gi.info.variables}
+    stateful_vars = [v.name for v in gi.info.variables
+                     if v.trainable and v.name in plans
+                     and v.name not in bucketed
+                     and _meta_state(get_compressor(plans[v.name].compressor),
+                                     v.shape, v.dtype) is not None]
+    stateful_buckets = [b.key for b in buckets if _meta_state(
+        get_compressor(b.compressor), (b.padded_total,), b.dtype) is not None]
+    sync_keys = stateful_vars + stateful_buckets \
+        + ([NUMERICS_KEY] if guard else [])
+    per_var = [sir.PerVarEntry(
+        name=n, dtype=infos[n].dtype, nbytes=infos[n].byte_size,
+        sync_kind="AllReduce",
+        compressor=plan.compressor or "NoneCompressor",
+        sig=sir.fact_from_varplan(plan, infos[n], d).sig(),
+        stateful=n in stateful_vars)
+        for n, plan in plans.items()
+        if n not in bucketed and n in infos and infos[n].trainable]
+    axes = {str(a): int(n) for a, n in compiled.mesh.shape.items()}
+    ir = sir.build_schedule_ir(
+        axes=axes, accum_steps=gi.accum_steps, buckets=buckets, plan=ov,
+        num_slices=num_slices, hier_keys=hier_keys, per_var=per_var,
+        guard=guard,
+        donated=tuple(f"sync:{k}" for k in sync_keys)
+        if not stateful_vars else (),
+        stateful_keys=set(stateful_buckets), fused_kernels=active,
+        moe=sir.moe_facts_from_vars(gi.info.variables, axes=axes))
+    return StepPlan(buckets=buckets, overlap=ov, fused_kernels=active,
+                    fused_drops=drops, guard=guard, ir=ir)
+
+
 def make_explicit_step(gi, compiled, extra_metrics_fn=None
                        ) -> "gt.DistributedStep":
     """The explicit bucketed step of ``gi`` under ``compiled`` (see the
@@ -258,7 +358,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     d, group, rank = mesh.data_size, mesh.data_group, mesh.data_rank
     names = tuple(v.name for v in gi.info.trainable_variables)
     plans = compiled.var_plans
-    buckets = plan_step_buckets(gi, compiled, d)
+    # the plan and its schedule IR, verified before anything runs; each
+    # bucket's lowering is read from the IR's bucket nodes
+    sp = plan_step(gi, compiled)
+    sir.assert_verified(sp.ir, "explicit sync build")
+    ir = sp.ir
+    buckets = sp.buckets
     bucketed = {n for b in buckets for n in b.names}
     rs_buckets = [b for b in buckets if b.mode == MODE_REDUCE_SCATTER]
     ar_buckets = [b for b in buckets if b.mode == MODE_ALL_REDUCE]
@@ -280,13 +385,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     # -- the two-tier hierarchy: every member opted in, and the axis factors -
     num_slices = int(getattr(compiled, "num_slices", 1) or 1)
-    hier_keys = ()
+    hier_keys = tuple(n["key"] for n in ir.buckets if n.get("hier"))
     within = across = None
-    if ov_mod.hier_applies(d, num_slices):
-        hier_keys = tuple(
-            b.key for b in buckets
-            if ov_mod.is_linear_compressor(b.compressor)
-            and all(plans[n].hier for n in b.names))
+    if hier_keys:
         within_lists, across_lists = ov_mod.hier_groups(d, num_slices)
         within = coll.subgroups(group, within_lists)
         across = coll.subgroups(group, across_lists)
@@ -311,16 +412,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             return ov_mod.hier_gather_fn(within, across)(shard)
         return coll.all_gather(shard, group)
 
-    # -- the schedule: each bucket's lowering, resolved when it is built ------
-    ov = ov_mod.resolve_overlap(
-        [plan.overlap for plan in plans.values()],
-        accum_steps=gi.accum_steps, buckets=buckets, d=d,
-        has_rs=bool(rs_buckets))
+    # -- the schedule: each bucket's lowering, from the IR's bucket nodes ----
+    ov = sp.overlap
     for key, why in ov.drops:
         warnings.warn(f"explicit sync path: overlap scheduling skipped for "
                       f"bucket {key} ({why})")
-    algs = {b.key: ov_mod.reduce_alg(b, ov, d, hier=b.key in hier_keys)
-            for b in buckets}
+    algs = {n["key"]: n["alg"] for n in ir.buckets}
     quant = {b.key: get_compressor(b.compressor) for b in buckets
              if quant_ring.is_quant_ring_compressor(b.compressor)}
     cast = {b.key: get_compressor(b.compressor) for b in buckets
@@ -330,18 +427,19 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         b, within, across, rank, d, num_slices, dcn_wire=dcn_wire)
         if b.key in hier_keys else ov_mod.bucket_reduce_fn(b, group, d))
         for b in buckets if ov_mod.is_linear_compressor(b.compressor)}
-    pipe = [b for b in buckets if ov.pipeline
-            and ov_mod.pipeline_eligible(b, ov.mode, gi.accum_steps)]
+    pipe_keys = ir.pipelined_keys()
+    pipe = [b for b in buckets if b.key in pipe_keys]
     issue_fns = {b.key: (ov_mod.bucket_reduce_issue_fn(b, group, d)
                          if b.key not in hier_keys else
                          (lambda v, f=reduce_fns[b.key]: coll.done(f(v))))
                  for b in pipe if b.key in reduce_fns}
-    gathers = ov_mod.gather_schedule(rs_buckets, ov.prefetch)
+    by_key = {b.key: b for b in rs_buckets}
+    gathers = [by_key[k] for k, _ in ir.gather_plan()]
 
     # -- bounded staleness and proxies ----------------------------------------
     stale = None
     if stale_sync.uses_stale_path(compiled):
-        if d > 1 and uses_explicit_path(compiled, skip_ps=True):
+        if not stale_step(compiled):
             warnings.warn(
                 "strategy requests bounded staleness / proxy variables AND "
                 "gradient compression; the explicit compressor path runs "
@@ -438,13 +536,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
-    num_active = num_cfg is not None and num_cfg.guard
-    if num_active and stale is not None:
+    num_active = sp.guard
+    if num_cfg is not None and num_cfg.guard and stale is not None:
         warnings.warn(
             "numerics guard disabled: bounded-staleness/proxy sync state "
             "owns the sync_state slot on this path; drop staleness or "
             "route through the explicit bucketed path")
-        num_active = False
     num_ls = None
     if num_active:
         num_ls = ls_mod.resolve_loss_scale(
@@ -459,15 +556,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     # -- the ZeRO-1 update's kernel: K5 unless the drop rule says not --------
     spec = getattr(optimizer, "fused_spec", None)
-    adam_shaped = True
-    if spec is not None and rs_buckets:
-        adam_shaped = fk.find_adam_state(
-            optimizer.init({"x": torch.zeros(8)})) is not None
-    active, drops = fk.resolve_fused(
-        guard=num_active, has_rs=bool(rs_buckets), has_quant_ring=bool(quant),
-        optimizer_fusable=spec is not None, adam_state_shaped=adam_shaped,
-        f32_buckets=all(b.dtype == "float32" for b in rs_buckets))
-    for kernel, why in drops:
+    active = sp.fused_kernels
+    for kernel, why in sp.fused_drops:
         warnings.warn(f"explicit sync path: fused kernel {kernel} is not "
                       f"used, the ZeRO-1 shards take the unfused update "
                       f"({why})")
@@ -585,8 +675,6 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         if not rs_buckets:
             return tree
         return {"vars": tree, "zero1": optimizer.init(param_shards(leaves))}
-
-    by_key = {b.key: b for b in rs_buckets}
 
     def export_opt_state(opt_state):
         """The LOGICAL state: ZeRO-1 shards gathered to full bucket vectors
@@ -801,4 +889,4 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         export_sync_state=export_sync_state,
         import_sync_state=import_sync_state,
         stored_shapes={n: shapes[n] for b in stored for n in b.names},
-        shard_params=shard_params)
+        shard_params=shard_params, schedule_ir=ir)

@@ -5,11 +5,11 @@ Port of the JAX package's ``kernel/synchronization/overlap.py``:
 * the ``overlap=`` vocabulary and :func:`resolve_overlap`, which turns
   the plans' values into one :class:`OverlapPlan` (an explicit ``"none"``
   wins, then the first explicit mode, else ``"auto"``);
-* :func:`reduce_alg`, each bucket's lowering label, the rule of the JAX
-  package's schedule IR (``schedule_ir.py:1199-1210``; the IR itself is
-  ROADMAP P8) line for line: ``"ring"`` at :data:`RING_THRESHOLD_BYTES`
-  and above when the plan rings, ``"one_shot"`` for small all-reduce
-  buckets under explicit ``"ring"``/``"full"``, else ``"fused"`` (the
+* each bucket's lowering label is the schedule IR's
+  (``schedule_ir.build_schedule_ir``, whose bucket nodes the step
+  reads): ``"ring"`` at :data:`RING_THRESHOLD_BYTES` and above when the
+  plan rings, ``"one_shot"`` for small all-reduce buckets under explicit
+  ``"ring"``/``"full"`` and for two-tier buckets, else ``"fused"`` (the
   backend's collective).  A quantized bucket reduces as its label says
   (``quant_ring.quant_bucket_reduce``);
 * :func:`bucket_reduce_fn`, the reduction of an uncompressed bucket: the
@@ -55,10 +55,10 @@ from autodist_tpu_torch.telemetry.timeline import sync_span
 #: buckets at or above this byte size take the ring lowering
 RING_THRESHOLD_BYTES = 256 << 10
 
-#: the lowerings of a bucket's reduction (the schedule IR's names)
-ALG_RING = "ring"            # explicit ring hop chain
-ALG_ONE_SHOT = "one_shot"    # one all-gather and a local reduction
-ALG_FUSED = "fused"          # the backend's own collective
+#: fraction of the ZeRO-1 param all-gather the cost model treats as
+#: hidden behind the next step's prologue under the prefetch issue order
+#: (a ranking constant of the JAX package, not a prediction)
+PREFETCH_OVERLAP_FRACTION = 0.5
 
 _LINEAR_COMPRESSORS = ("", "NoneCompressor")
 
@@ -135,6 +135,31 @@ def pipeline_eligible(bucket: Bucket, mode: str, accum_steps: int) -> bool:
                             compressor=bucket.compressor, dtype=bucket.dtype)
 
 
+def prefetch_applies(overlap: str, *, sync_mode: str,
+                     explicit_path: bool = True) -> bool:
+    """Is the reverse-order ZeRO-1 param all-gather issue order active?"""
+    return (overlap in (OVERLAP_AUTO, OVERLAP_RING, OVERLAP_FULL)
+            and sync_mode == MODE_REDUCE_SCATTER and explicit_path)
+
+
+def explicit_hint(compressor: str, sync_mode: str, bucket_bytes: int,
+                  fused: bool = False, overlap: str = OVERLAP_AUTO,
+                  hier: bool = False) -> bool:
+    """Does ONE plan take the explicit bucketed step (the JAX package's
+    rule, mesh-free, read by the analyzer and the cost model)?"""
+    if (compressor or "NoneCompressor") != "NoneCompressor":
+        return True
+    if sync_mode == MODE_REDUCE_SCATTER:
+        return True
+    if int(bucket_bytes or 0) > 0:
+        return True
+    if overlap in (OVERLAP_PIPELINE, OVERLAP_RING, OVERLAP_FULL):
+        return True
+    if hier:
+        return True
+    return bool(fused)
+
+
 @dataclass(frozen=True)
 class OverlapPlan:
     """The resolved step-level schedule."""
@@ -190,27 +215,6 @@ def resolve_overlap(modes: Sequence[str], *, accum_steps: int,
                        drops=tuple((k, w) for k, w in drops if w))
 
 
-def reduce_alg(bucket: Bucket, plan: OverlapPlan, d: int,
-               hier: bool = False) -> str:
-    """The lowering of ``bucket``'s reduction: the schedule IR's rule
-    (``schedule_ir.py:1192-1210``) without its per-variable branch; a
-    two-tier bucket (``hier``) is ``"one_shot"``."""
-    rs = bucket.mode == MODE_REDUCE_SCATTER
-    linear = is_linear_compressor(bucket.compressor)
-    qfmt = quant_ring.wire_format_of(bucket.compressor or "")
-    if hier:
-        return ALG_ONE_SHOT
-    if linear and plan.ring and d > 1 \
-            and bucket.nbytes >= plan.ring_threshold:
-        return ALG_RING
-    if linear and plan.one_shot_small and d > 1 and not rs:
-        return ALG_ONE_SHOT
-    if qfmt is not None and quant_ring.ring_applies(
-            plan.mode, bucket.nbytes, d, plan.ring_threshold):
-        return ALG_RING
-    return ALG_FUSED
-
-
 def gather_schedule(buckets: Sequence[Bucket], prefetch: bool,
                     at_start: bool = False) -> List[Bucket]:
     """ZeRO-1 parameter-gather issue order: after the update, reverse
@@ -226,7 +230,7 @@ def gather_schedule(buckets: Sequence[Bucket], prefetch: bool,
 def bucket_reduce_fn(bucket: Bucket, group, n: int) -> Callable:
     """``vec -> mean(vec)`` (all-reduce bucket) or ``vec -> this rank's
     shard of mean(vec)`` (ZeRO-1 bucket) for an UNCOMPRESSED bucket: the
-    backend's collective, whatever :func:`reduce_alg` labels it (a linear
+    backend's collective, whatever the IR labels it (a linear
     sum's order changes only its last bits)."""
     issue = bucket_reduce_issue_fn(bucket, group, n)
     return lambda v: issue(v).wait()

@@ -8,8 +8,22 @@ neither a file nor a dict, one node is derived from the visible CUDA
 devices (a CPU-only node when there are none).  ``num_slices`` (the
 two-tier topology of ``hier`` sync: slices of equal size, joined by the
 slower network) is read and must tile the devices
-(``resource_spec.py:122-136, 225-229, 270``).  Keys of later slices
-(``ssh``, ``network_bandwidth``, ...) are ignored.
+(``resource_spec.py:122-136, 225-229, 270``).  The keys the cost model
+and the analyzer's memory pass read have the JAX package's names, so one
+yaml means the same in both packages; on GPUs they mean:
+
+* ``network_bandwidth`` (Gb/s, default 1.0): the host network, as in the
+  JAX package;
+* ``ici_connected`` (bool): the chips are one NVLink domain (the JAX
+  package's ICI), so collectives among them never fall back to the NIC;
+* ``dcn_gbps`` (Gb/s): the network between slices, one NIC per GPU
+  (:attr:`ResourceSpec.dcn_bytes_per_s` in bytes/s), which prices the
+  cross-slice (``dcn``) legs of the two-tier hierarchy;
+* ``hbm_gb`` (GiB): the memory of one card
+  (:attr:`ResourceSpec.hbm_bytes_per_chip`), the budget of the memory
+  pass.
+
+``ssh`` is a later slice's (P12) and is ignored.
 
 Example yaml::
 
@@ -18,6 +32,8 @@ Example yaml::
         chips: 8
         chief: true
     num_slices: 2     # optional: two slices of 4 chips
+    dcn_gbps: 400     # optional: one 400 Gb/s NIC per GPU between slices
+    hbm_gb: 80        # optional: the memory pass's budget per card
     mesh:
       data: 8
 """
@@ -86,6 +102,13 @@ class ResourceSpec:
         self.mesh_hint: Dict[str, int] = {}
         #: slices of the two-tier topology (1: one flat slice)
         self.num_slices: int = 1
+        self.network_bandwidth_gbps: float = 1.0
+        #: the chips are one NVLink domain
+        self.ici_connected: bool = False
+        #: the network between slices, Gb/s (None: not declared)
+        self.dcn_gbps: Optional[float] = None
+        #: the memory of one card, GiB (None: no budget declared)
+        self.hbm_gb: Optional[float] = None
         if resource_info is None and resource_file is not None:
             if not os.path.exists(resource_file):
                 raise ResourceSpecError(
@@ -116,11 +139,23 @@ class ResourceSpec:
                 address=str(raw["address"]), chips=chips,
                 cpus=[int(c) for c in raw.get("cpus", [])],
                 chief=bool(raw.get("chief", False))))
+        self.network_bandwidth_gbps = float(info.get("network_bandwidth", 1.0))
+        self.ici_connected = bool(info.get("ici_connected", False))
         if info.get("num_slices") is not None:
             self.num_slices = int(info["num_slices"])
             if self.num_slices < 1:
                 raise ResourceSpecError(
                     f"num_slices must be >= 1, got {self.num_slices}")
+        if info.get("dcn_gbps") is not None:
+            self.dcn_gbps = float(info["dcn_gbps"])
+            if self.dcn_gbps <= 0:
+                raise ResourceSpecError(
+                    f"dcn_gbps must be positive, got {self.dcn_gbps}")
+        if info.get("hbm_gb") is not None:
+            self.hbm_gb = float(info["hbm_gb"])
+            if self.hbm_gb <= 0:
+                raise ResourceSpecError(
+                    f"hbm_gb must be positive, got {self.hbm_gb}")
         self.mesh_hint = {str(k): int(v)
                           for k, v in (info.get("mesh") or {}).items()}
         if len(self._nodes) == 1:
@@ -154,12 +189,33 @@ class ResourceSpec:
         return list(self._nodes)
 
     @property
+    def num_nodes(self) -> int:
+        return len(self._nodes)
+
+    @property
     def chief(self) -> str:
         return next(n.address for n in self._nodes if n.chief)
 
     @property
     def num_chips(self) -> int:
         return sum(n.chips for n in self._nodes)
+
+    @property
+    def dcn_bytes_per_s(self) -> Optional[float]:
+        """The declared network between slices in bytes/s (None when the
+        spec carries none): the constant of the ``dcn`` legs before any
+        fitted calibration exists."""
+        if self.dcn_gbps is None:
+            return None
+        return self.dcn_gbps * 1e9 / 8.0
+
+    @property
+    def hbm_bytes_per_chip(self) -> Optional[int]:
+        """The declared memory of one card in bytes (None when the spec
+        carries none): the memory pass's default budget."""
+        if self.hbm_gb is None:
+            return None
+        return int(self.hbm_gb * (1 << 30))
 
     @property
     def cpu_devices(self) -> List[DeviceSpec]:

@@ -12,9 +12,11 @@ logical layout.  Each ``run`` records a
 :class:`~autodist_tpu_torch.telemetry.timeline.StepRecord` on
 :attr:`DistributedSession.telemetry` (unless ``AUTODIST_TELEMETRY=0``),
 stamps the flight recorder's step cursors and runs inside the
-``RunTracer``'s capture window when one is open.
-``schedule_ir``/``schedule_fingerprint`` (P8) and ``place_local_batch``
-(P12) raise naming their ROADMAP item.
+``RunTracer``'s capture window when one is open.  Each record carries
+the cost model's prediction for the session's strategy
+(:meth:`DistributedSession._predict_cost`) and the fingerprint of the
+step's schedule IR (:attr:`DistributedSession.schedule_fingerprint`).
+``place_local_batch`` (P12) raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P8, P12, not_ported
+from autodist_tpu_torch.const import P12, not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
@@ -133,14 +135,18 @@ class DistributedSession:
             else "session"
         self._tracer = tracing.RunTracer(self._run_id, dist_step.device)
         # one StepRecord per step (None when AUTODIST_TELEMETRY=0: the
-        # step pays one identity check); no prediction until the cost
-        # model is ported (ROADMAP P8)
-        self._telemetry = StepRecorder.create(self._run_id)
-        # AUTODIST_FLIGHTREC=legs raises here (the leg ids are P8's)
+        # step pays one identity check), with the cost model's prediction
+        self._telemetry = StepRecorder.create(self._run_id,
+                                              predictor=self._predict_cost)
+        # AUTODIST_FLIGHTREC=legs raises here (the leg cursors are the
+        # second half of P8's)
         flightrec.trace_stamps_enabled()
-        if flightrec.enabled() and self._telemetry is not None \
-                and self._telemetry.directory:
-            flightrec.install_fatal_handlers(self._telemetry.directory)
+        ir = dist_step.schedule_ir
+        if ir is not None and flightrec.enabled():
+            flightrec.set_fingerprint(ir.fingerprint())
+            if self._telemetry is not None and self._telemetry.directory:
+                flightrec.publish_ir(ir, self._telemetry.directory)
+                flightrec.install_fatal_handlers(self._telemetry.directory)
         if tracing.dumps_enabled() and compiled is not None:
             tracing.dump_stage(self._run_id, "1-strategy-plans",
                                tracing.plan_table(compiled))
@@ -312,12 +318,43 @@ class DistributedSession:
         return self._step.mesh.data_size
 
     @property
-    def schedule_ir(self):
-        raise not_ported("DistributedSession.schedule_ir", P8)
+    def schedule_fingerprint(self) -> Optional[str]:
+        """Short hash of the step's schedule IR, stamped into every
+        StepRecord and the checkpoint meta, so that a drift between the
+        planned and the executed schedule shows across a resume."""
+        ir = self._step.schedule_ir
+        return ir.fingerprint() if ir is not None else None
 
     @property
-    def schedule_fingerprint(self):
-        raise not_ported("DistributedSession.schedule_fingerprint", P8)
+    def schedule_ir(self):
+        """The step's verified schedule IR
+        (:mod:`~autodist_tpu_torch.kernel.synchronization.schedule_ir`)."""
+        return self._step.schedule_ir
+
+    def _predict_cost(self) -> Optional[dict]:
+        """The cost model's estimate for this session's strategy on a spec
+        of the mesh's data size (the JAX package's ``runner.py:235-256``),
+        stamped into every StepRecord: measured against predicted is the
+        calibration bridge (``telemetry/calibration.py``).  Advisory: a
+        failure returns None."""
+        try:
+            from autodist_tpu_torch.resource_spec import ResourceSpec
+            from autodist_tpu_torch.strategy.cost_model import estimate_cost
+
+            spec = ResourceSpec(resource_info={"nodes": [
+                {"address": "localhost", "chips": self.data_axis_size,
+                 "chief": True}]})
+            report = estimate_cost(self._step.compiled_strategy.strategy,
+                                   self._gi, spec)
+            return {
+                "time_s": report.time_s,
+                "wire_bytes": report.wire_bytes,
+                "exposed_wire_bytes": report.exposed_wire_bytes,
+                "num_collectives": report.num_collectives,
+                "schedule_fingerprint": self.schedule_fingerprint,
+            }
+        except Exception:
+            return None
 
     @property
     def telemetry(self):

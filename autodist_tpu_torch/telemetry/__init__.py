@@ -22,7 +22,7 @@ either CLI.
 * :mod:`~autodist_tpu_torch.telemetry.goodput` and
   :mod:`~autodist_tpu_torch.telemetry.calibration` — goodput accounting
   and the regression of cost-model constants from records (the cost
-  model itself is ROADMAP P8's).
+  model is ``strategy/cost_model.py``).
 * :mod:`~autodist_tpu_torch.telemetry.flightrec` — progress cursors,
   hang localization and crash bundles.
 * :mod:`~autodist_tpu_torch.telemetry.profiler` — leg samples from

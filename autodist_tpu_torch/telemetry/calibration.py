@@ -24,11 +24,13 @@ Whatever it returns plugs straight into
 pattern: one string, used by the lint, the CLI, and any runtime check —
 they cannot drift from each other).
 
-This module is numpy-only (no torch): the CLI runs it on hosts with no
+This module imports numpy only: the CLI runs it on hosts with no
 accelerator stack.  A port of the JAX package's
 ``telemetry/calibration.py``; the port carries no ``calibration.json``
-of its own (the constants are fitted from the card's records), and the
-cost model these constants feed is ROADMAP P8's.
+of its own (the constants are fitted from the card's records).  Its
+defaults are the cost model's card constants
+(``strategy/cost_model.ICI_BANDWIDTH`` and ``COLLECTIVE_ALPHA``), read
+when a function is called (:func:`card_defaults`), not mirrored here.
 """
 from __future__ import annotations
 
@@ -57,10 +59,15 @@ STRAGGLER_THRESHOLD = 1.5
 #: calibration.json schema version (docs/observability.md).
 CALIBRATION_VERSION = 1
 
-# Defaults mirrored from strategy/cost_model.py without importing it
-# (this module must stay light: numpy and the standard library).
-DEFAULT_ICI_BANDWIDTH = 45e9
-DEFAULT_ALPHA = 5e-6
+
+def card_defaults() -> Tuple[float, float]:
+    """``(bandwidth, alpha)``: the cost model's card constants
+    (``ICI_BANDWIDTH``, ``COLLECTIVE_ALPHA``), the defaults of every
+    function here; imported when called, so this module stays light."""
+    from autodist_tpu_torch.strategy import cost_model
+
+    return cost_model.ICI_BANDWIDTH, cost_model.COLLECTIVE_ALPHA
+
 
 _MIN_BANDWIDTH = 1e6       # 1 MB/s: slower than any real interconnect
 _MAX_BANDWIDTH = 1e15      # effectively "comm is free on this host"
@@ -153,11 +160,15 @@ def comm_time_s(exposed_bytes: float, num_collectives: float,
 
 
 def prediction_error(records: Sequence,
-                     ici_bandwidth: float = DEFAULT_ICI_BANDWIDTH,
-                     alpha: float = DEFAULT_ALPHA) -> Optional[float]:
+                     ici_bandwidth: Optional[float] = None,
+                     alpha: Optional[float] = None) -> Optional[float]:
     """Mean |measured − modeled| step time (seconds) over the records'
-    communication model under the given constants; None without usable
-    records.  The figure calibration must reduce."""
+    communication model under the given constants (the card's by
+    default); None without usable records.  The figure calibration must
+    reduce."""
+    bw0, a0 = card_defaults()
+    ici_bandwidth = bw0 if ici_bandwidth is None else ici_bandwidth
+    alpha = a0 if alpha is None else alpha
     rows = _rows(records)
     if rows.size == 0:
         return None
@@ -166,8 +177,8 @@ def prediction_error(records: Sequence,
 
 
 def fit_constants(records: Sequence,
-                  default_bandwidth: float = DEFAULT_ICI_BANDWIDTH,
-                  default_alpha: float = DEFAULT_ALPHA
+                  default_bandwidth: Optional[float] = None,
+                  default_alpha: Optional[float] = None
                   ) -> Optional[CalibratedConstants]:
     """Least-squares fit of (bandwidth, alpha) from StepRecords (objects
     or dicts).  Returns None without usable records.
@@ -187,6 +198,10 @@ def fit_constants(records: Sequence,
     rows = _rows(records)
     if rows.size == 0:
         return None
+    bw0, a0 = card_defaults()
+    default_bandwidth = bw0 if default_bandwidth is None \
+        else default_bandwidth
+    default_alpha = a0 if default_alpha is None else default_alpha
     x, n, y = rows[:, 0], rows[:, 1], rows[:, 2]
     A = np.stack([x, n], axis=1)
     sol, *_ = np.linalg.lstsq(A, y, rcond=None)
@@ -357,8 +372,8 @@ class LegCalibration:
     bandwidths: Dict[str, float] = field(default_factory=dict)
     quant_overhead_per_byte: float = 0.0
     scale: float = 1.0
-    ici_bandwidth: float = DEFAULT_ICI_BANDWIDTH
-    alpha: float = DEFAULT_ALPHA
+    ici_bandwidth: float = field(default_factory=lambda: card_defaults()[0])
+    alpha: float = field(default_factory=lambda: card_defaults()[1])
     #: per-schedule-fingerprint leg-predicted step time (s) under these
     #: constants — lets record-level prediction skip re-pricing the IR.
     fingerprints: Dict[str, float] = field(default_factory=dict)
@@ -372,8 +387,9 @@ class LegCalibration:
                    quantized: bool = False) -> float:
         """One leg's calibrated time: per-kind alpha + bytes/bandwidth
         (+ the quantize overhead for quantized wire)."""
-        a = self.alphas.get(kind, DEFAULT_ALPHA)
-        bw = self.bandwidths.get(kind, DEFAULT_ICI_BANDWIDTH)
+        bw0, a0 = card_defaults()
+        a = self.alphas.get(kind, a0)
+        bw = self.bandwidths.get(kind, bw0)
         t = a + float(nbytes) / bw
         if quantized:
             t += self.quant_overhead_per_byte * float(nbytes)
@@ -512,8 +528,7 @@ def fit_leg_constants(samples: Sequence, records: Sequence = (),
         if not data:
             continue
         arr = np.asarray(data, dtype=np.float64)
-        alpha, bw = _fit_affine(arr[:, 0], arr[:, 1],
-                                DEFAULT_ICI_BANDWIDTH, DEFAULT_ALPHA)
+        alpha, bw = _fit_affine(arr[:, 0], arr[:, 1], *card_defaults())
         cal.alphas[kind] = alpha
         cal.bandwidths[kind] = bw
     if quant_rows:
@@ -527,8 +542,7 @@ def fit_leg_constants(samples: Sequence, records: Sequence = (),
             if kind not in cal.bandwidths:
                 arr_b = np.asarray([b], np.float64)
                 arr_t = np.asarray([t], np.float64)
-                a, w = _fit_affine(arr_b, arr_t, DEFAULT_ICI_BANDWIDTH,
-                                   DEFAULT_ALPHA)
+                a, w = _fit_affine(arr_b, arr_t, *card_defaults())
                 cal.alphas[kind], cal.bandwidths[kind] = a, w
         nb_arr = np.asarray(nb, np.float64)
         resid_arr = np.asarray(resid, np.float64)

@@ -7,10 +7,13 @@ box that turns DEAD/WEDGED/crash verdicts into localized diagnoses:
   or phase, microbatch slot, monotonic timestamp) into a lock-free
   in-process :class:`CursorRing`.  The session stamps step enter/exit
   phase cursors (one object + one list store per stamp).  The latest
-  cursor rides a heartbeat beacon (:func:`beacon_cursor`).  The JAX
-  package's leg cursors, stamped from inside the step at the schedule
-  IR's leg boundaries (:func:`traced_stamp`, ``AUTODIST_FLIGHTREC=legs``),
-  key on the schedule IR, which is ROADMAP P8's: asking for them raises.
+  cursor rides a heartbeat beacon (:func:`beacon_cursor`).  Cursors
+  carry the session's schedule-IR fingerprint (:func:`set_fingerprint`),
+  and the session publishes its IR into the run directory
+  (:func:`publish_ir`).  The JAX package's leg cursors, stamped from
+  inside the step at the IR's leg boundaries (:func:`traced_stamp`,
+  ``AUTODIST_FLIGHTREC=legs``), are the second half of ROADMAP P8:
+  asking for them raises.
 * **Hang localization** — :func:`localize_hang` diffs per-host cursors
   against a schedule's happens-before relation (a pure ancestor-set
   reachability over the IR's legs, given as the JSON a schedule IR
@@ -167,13 +170,9 @@ def ring() -> CursorRing:
 
 
 def set_fingerprint(fp: Optional[str]) -> None:
-    """Stamp the active schedule fingerprint onto subsequent cursors.
-    The fingerprint is the schedule IR's (ROADMAP P8): only None (no
-    fingerprint) is accepted until then."""
+    """Stamp the active schedule fingerprint onto subsequent cursors
+    (set once per session build)."""
     global _fingerprint
-    if fp is not None:
-        raise _not_ported("flightrec.set_fingerprint, the schedule IR's "
-                          "fingerprint on cursors")
     _fingerprint = fp
 
 
@@ -298,8 +297,8 @@ def reset_for_testing() -> None:
 # -- traced stamps (the runtime-path half) -----------------------------------
 
 def trace_stamps_enabled() -> bool:
-    """Should the step stamp leg-boundary cursors?  The leg ids are the
-    schedule IR's (ROADMAP P8): ``AUTODIST_FLIGHTREC=legs`` (or
+    """Should the step stamp leg-boundary cursors?  The leg cursors are
+    the second half of ROADMAP P8: ``AUTODIST_FLIGHTREC=legs`` (or
     ``trace``) raises naming it, rather than silently stamping nothing;
     every other mode is False (the JAX package's ``auto`` picks legs on
     TPU backends only)."""
@@ -315,8 +314,8 @@ def trace_stamps_enabled() -> bool:
 
 
 def traced_stamp(leg: str, *, slot: Any = None, leg_kind: str = "") -> None:
-    """The JAX package's in-step leg-boundary stamp: its leg ids are the
-    schedule IR's (ROADMAP P8), so it raises."""
+    """The JAX package's in-step leg-boundary stamp, the second half of
+    ROADMAP P8: it raises."""
     raise _not_ported("flightrec.traced_stamp, leg cursors at the schedule "
                       "IR's leg boundaries")
 
@@ -324,11 +323,27 @@ def traced_stamp(leg: str, *, slot: Any = None, leg_kind: str = "") -> None:
 # -- schedule-IR publication -------------------------------------------------
 
 def publish_ir(ir, directory: str) -> Optional[str]:
-    """The JAX package writes the session's schedule IR as
-    ``schedule-<fp>.json`` here; the schedule IR is ROADMAP P8's, so it
-    raises.  (:func:`load_published_ir` reads such files, whichever
-    package wrote them.)"""
-    raise _not_ported("flightrec.publish_ir, the session's schedule IR")
+    """Write the session's schedule IR as ``schedule-<fp>.json`` under
+    the run directory (once per fingerprint), so the chief, a separate
+    process, can localize hangs against the exact program the workers
+    lowered (:func:`load_published_ir` reads it, whichever package wrote
+    it).  ``ir`` needs ``fingerprint()`` and ``to_json()``; never
+    raises."""
+    try:
+        if not directory:
+            return None
+        fp = ir.fingerprint()
+        path = os.path.join(directory, f"schedule-{fp}.json")
+        if os.path.exists(path):
+            return path
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(ir.to_json())
+        os.replace(tmp, path)
+        return path
+    except Exception:  # pragma: no cover - advisory
+        return None
 
 
 def load_published_ir(run_dir: str,
@@ -413,8 +428,7 @@ def _topo(views: Sequence[_LegView]) -> Optional[List[str]]:
 class _PureReach:
     """Ancestor-set reachability over a topological order: ``reaches(a,
     b)`` is True when leg ``a`` happens before leg ``b`` (the JAX
-    package's pure fallback; its analyzer's packed-bitset closure is
-    ROADMAP P8's)."""
+    package's pure fallback)."""
 
     def __init__(self, views: Sequence[_LegView], order: Sequence[str]):
         by_id = {v.id: v for v in views}

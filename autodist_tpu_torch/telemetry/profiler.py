@@ -10,9 +10,8 @@ sync legs one by one, which is what a per-leg calibration regresses:
 * :class:`LegProfiler` — produces LegSamples two ways:
 
   - **timed micro-runs** (:meth:`LegProfiler.profile_ir`): each leg
-    group of a schedule IR timed at its byte size.  The schedule IR and
-    the leg-priced cost model are ROADMAP P8's, so ``profile_ir``
-    raises; its micro-programs (:meth:`LegProfiler._build_micro`) are
+    group of a schedule IR timed at its byte size, the second half of
+    ROADMAP P8, so ``profile_ir`` raises; its micro-programs (:meth:`LegProfiler._build_micro`) are
     ported: the same local computations as the JAX package's, and on a
     ``torch.distributed`` group of size > 1 the group's real collective;
   - **profiler-trace parsing** (:meth:`LegProfiler.parse_trace`): the
@@ -206,7 +205,8 @@ class LegProfiler:
     def profile_ir(self, ir, *, include_update: bool = True
                    ) -> List[LegSample]:
         """Timed micro-runs over a schedule IR's leg groups, priced by
-        the leg cost model: both are ROADMAP P8's, so this raises."""
+        the leg cost model: the second half of ROADMAP P8, so this
+        raises."""
         from autodist_tpu_torch.const import P8, not_ported
 
         raise not_ported("LegProfiler.profile_ir, micro-runs over the "

@@ -8,8 +8,9 @@ reads either's run directory.  Three instruments, one per time scale:
 * :class:`StepRecord` / :class:`StepRecorder` — ONE structured record
   per training step: wall step time, host-phase breakdown (data_load /
   dispatch / blocking_fetch), throughput, and the numerics guard's
-  health summary when the host has it.  The cost model's PREDICTION
-  fields stay empty until the cost model is ported (ROADMAP P8).
+  health summary when the host has it, and the cost model's
+  PREDICTION for the session's strategy with the fingerprint of its
+  schedule IR (``DistributedSession._predict_cost``).
   Records ride a bounded ring buffer and flush periodically as JSONL
   (rotated) into the run directory.
 * :func:`host_span` — ``torch.profiler.record_function`` for HOST-side
@@ -85,7 +86,7 @@ class StepRecord:
     exposed_bytes: Optional[float] = None       # predicted exposed wire B
     num_collectives: Optional[int] = None
     predicted_step_time_s: Optional[float] = None
-    # Short hash of the step's sync-schedule IR (ROADMAP P8 in the port):
+    # Short hash of the step's sync-schedule IR:
     # records stamped with a different fingerprint than the checkpoint
     # they resumed from executed a DIFFERENT schedule than planned.
     schedule_fingerprint: Optional[str] = None

@@ -152,6 +152,27 @@ Phases, each printing one JSON line:
    (phase 12) traces one more step on rank 0 under ``torch.profiler``:
    each sync leg's device range (the host-staged collectives' copies
    included) parsed once;
+10b. planning (``auto``): ``AutoStrategy()``, ``AutoStrategy(search=
+   True)`` and ``AutoStrategy(search="beam")`` built for one card and for
+   spec-only 4- and 8-card meshes (``hbm_gb`` the card's memory): each
+   choice, its build seconds and its schedule IR's fingerprint and
+   leg-priced cost (the beam's evaluations, rounds and pruned rule ids);
+   the beam's one-card choice through ``create_distributed_session(
+   validate=True)``, 3 + 10 steps with ``fusable_adam`` and the clip:
+   K1–K3 12 a step, K4 and K5 as the session's schedule IR predicts
+   (two K4 per ``fused_detect`` leg, one K5 per ``fused_update`` leg),
+   finite and falling losses, ``train_ps``'s losses bit for bit where the
+   fingerprints match; ms per step against ``train_ps``'s; the records'
+   prediction and the IR-priced one against the measured step; the
+   memory pass's watermark against ``max_memory_allocated``; the
+   analyzer's and the verifier's seconds; ``fit(validate=True)`` (1 x 2,
+   a checkpoint): one fingerprint in every record, the checkpoint meta,
+   the session and a second build; an illegal plan (a variable left
+   unsynced) refused with ``StrategyValidationError`` and no launch; a
+   4-byte ``all_reduce``'s launch latency on a one-rank NCCL group beside
+   the cost model's ``COLLECTIVE_ALPHA``.  The ring's 4 ranks (phase 12)
+   then build ``AutoStrategy(search="beam")`` for 4 cards, validate,
+   train 1 + 2 steps with the IR's launches and end bit-identical;
 11. ``Parallax()`` at full width (``train_parallax``): the embedding in a
    reduce-scatter bucket (K5), every other variable in all-reduce buckets
    (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
@@ -278,6 +299,9 @@ instantiation's ``ptxas`` line), and K4/K5 at one of lm1b's tables
 which parameters differed) and a count of the runs that diverged; it
 exits 1 when one did, and stops at any other failure.
 
+``python3 chip_smoke.py --collective-alpha`` measures only the launch
+latency of one collective (the cost model's ``COLLECTIVE_ALPHA``).
+
 ``python3 chip_smoke.py --p6-lr-control`` builds the kernels and, on the
 ring's 4 ranks, prints rank 0's loss traces of ``train_p6``'s model and
 batch under ``AllReduce()`` (f32 wire) and ``AllReduce(compressor=
@@ -376,6 +400,9 @@ RING_CONFIGS = ("int8_allreduce", "fp8_zero1")
 PS_LB_CONFIG = "ps_lb"
 #: (cut from 2 + 5 in PR 13 to keep the script's time with train_p6)
 RING_WARMUP, RING_TIMED = 1, 2
+#: the 4-rank run of ``AutoStrategy(search="beam")`` on a 4-chip spec,
+#: after ``train_p6`` (the ``auto`` phase's sixth check)
+AUTO_RING_CONFIG = "auto_beam"
 #: each ring step's loss against the one-card f32 ``train_zero1`` run's at
 #: the same step (same init, batch, Adam and clip): quantization noise only
 RING_LOSS_RTOL = 2e-3
@@ -388,6 +415,13 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 #: the tree update where ``train_ps`` runs K5)
 PARALLAX_WARMUP, PARALLAX_TIMED = 2, 3
 PARALLAX_LOSS_RTOL = 1e-5
+#: the ``auto`` phase: AutoStrategy's search modes (name, ``search=``), the
+#: spec-only meshes' chip counts, the beam choice's steps, the ``fit``
+#: epoch's steps
+AUTO_MODES = (("heuristic", False), ("rank", True), ("beam", "beam"))
+AUTO_SPEC_CHIPS = (4, 8)
+AUTO_WARMUP, AUTO_TIMED = 3, 10
+AUTO_FIT_STEPS = 2
 #: the ``train_fit`` phase: steps per epoch, epochs, and the rollback
 #: policy's streak of non-finite steps
 FIT_STEPS_PER_EPOCH, FIT_EPOCHS, FIT_ROLLBACK_AFTER = 3, 3, 2
@@ -1724,7 +1758,7 @@ def _fresh_peak(torch) -> None:
 
 def _train_session(spec, params, batch_rows, builder=None, optimizer=None,
                    loss_fn=None, numerics=None, resource_info=None,
-                   accum_steps=1):
+                   accum_steps=1, validate=None):
     """The program users run: ``AutoDist(builder)`` → capture → session,
     on the card (default: ``AllReduce()`` with ``adamw(1e-3)``;
     ``resource_info``: the cluster's resource spec as a dict)."""
@@ -1742,8 +1776,8 @@ def _train_session(spec, params, batch_rows, builder=None, optimizer=None,
                    loss_fn=loss_fn or spec.loss_fn,
                    sparse_vars=spec.sparse_vars, numerics=numerics,
                    accum_steps=accum_steps)
-    return ad.create_distributed_session(), spec.sample_batch(batch_rows,
-                                                              seed=SEED)
+    return ad.create_distributed_session(validate=validate), \
+        spec.sample_batch(batch_rows, seed=SEED)
 
 
 def model_flops_per_step(cfg, batch: int) -> dict:
@@ -2359,6 +2393,7 @@ def phase_train_ps(torch, zero1_out):
            "layers": layers, "batch": TRAIN_SHAPE["B"],
            "seq_len": spec.config["seq_len"],
            "buckets": len(sess.zero1_buckets), "bucket_plan_sha256": digest,
+           "schedule_fingerprint": sess.schedule_fingerprint,
            "losses": losses, "global_norms": norms,
            "losses_equal_train_zero1": True,
            **_step_rates(torch, spec, step_s),
@@ -3004,6 +3039,308 @@ def phase_telemetry(torch, ps_out):
         shutil.rmtree(tmp, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     return out
+
+
+def _auto_info(torch, chips: int) -> dict:
+    """A spec of ``chips`` H100s: the analyzer's memory budget is this
+    card's memory (``hbm_gb``)."""
+    return {"nodes": [{"address": "localhost", "chips": chips}],
+            "hbm_gb": torch.cuda.get_device_properties(0).total_memory
+            / (1 << 30)}
+
+
+def _ir_predicted_launches(ir, layers: int) -> dict:
+    """K1–K10 a step as the schedule IR predicts them: K1–K3 once per
+    layer, K4 twice per ``fused_detect`` leg (the packed vector's
+    finiteness and the reduced value's squared norm; once for a
+    pipelined bucket, whose reduced value is both), K5 once per
+    ``fused_update`` leg."""
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+
+    pipe = ir.pipelined_keys()
+    k4 = sum(1 if leg.bucket in pipe else 2 for leg in ir.legs
+             if leg.kind == sir.LEG_FUSED_DETECT)
+    k5 = sum(1 for leg in ir.legs if leg.kind == sir.LEG_FUSED_UPDATE)
+    return dict(dict.fromkeys(_kernel_counts(), 0), flash_fwd=layers,
+                flash_dq=layers, flash_dkv=layers, detect_stats=k4,
+                adam_update=k5)
+
+
+def _auto_choose(torch, gi, chips: int, search) -> tuple:
+    """``AutoStrategy(search=...)`` built on a ``chips``-card spec: the
+    Strategy, and its choice, build seconds, the fingerprint and
+    leg-priced cost of its schedule IR (and for the beam: evaluations,
+    rounds, pruned candidates and their rule ids)."""
+    from autodist_tpu_torch.analysis.search import facts_for_candidate
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AutoStrategy
+    from autodist_tpu_torch.strategy.cost_model import estimate_ir_cost
+    from autodist_tpu_torch.strategy.search import resolve_axes
+
+    rs = ResourceSpec(resource_info=_auto_info(torch, chips))
+    builder = AutoStrategy(search=search)
+    t0 = time.perf_counter()
+    strategy = builder.build(gi, rs)
+    build_s = time.perf_counter() - t0
+    axes = resolve_axes(gi, rs)
+    facts, _, guard, prune = facts_for_candidate(strategy, gi, axes,
+                                                 resource_spec=rs)
+    if prune is not None:
+        raise AssertionError(f"auto: the {search} choice is illegal: {prune}")
+    ir = sir.ir_from_facts(facts, axes=axes, accum_steps=gi.accum_steps,
+                           guard=guard)
+    out = {"chips": chips, "search": search,
+           "choice": builder.last_choice or "tiers", "build_s": build_s,
+           "fingerprint": ir.fingerprint(),
+           "ir_cost_ms": estimate_ir_cost(ir).time_s * 1e3}
+    result = builder.last_search
+    if result is not None:
+        out.update(evaluations=result.n_evals, rounds=result.rounds,
+                   search_wall_s=result.wall_time_s,
+                   pruned=len(result.pruned),
+                   pruned_rules=sorted({p.pruned_by.split(":")[0]
+                                        for p in result.pruned}),
+                   best_cost_ms=result.best.cost_s * 1e3)
+    return strategy, out
+
+
+def _auto_memory(torch, sess, gi, rs, batch) -> dict:
+    """The memory pass's per-device estimate for the session's compiled
+    strategy (its terms and the schedule's liveness watermark, the data
+    of its ``memory/watermark`` finding) beside the card's measured
+    peak."""
+    from autodist_tpu_torch.analysis import analyze
+
+    report = analyze(sess._step.compiled_strategy, gi, resource_spec=rs,
+                     batch=batch, passes=("legality", "memory"))
+    found = report.by_rule("memory/watermark")
+    if len(found) != 1:
+        raise AssertionError(f"auto: {len(found)} memory/watermark findings")
+    est = dict(found[0].data)
+    peak = torch.cuda.max_memory_allocated()
+    return {**est, "max_memory_allocated": peak,
+            "measured_over_estimate": peak / est["watermark_bytes"]}
+
+
+class _Unsynced:
+    """A builder whose Strategy leaves the first trainable variable
+    without a sync rule: ``sync/unsynced-trainable``, an ERROR."""
+
+    def build(self, graph_item, resource_spec):
+        from autodist_tpu_torch.strategy import AllReduce
+
+        st = AllReduce().build(graph_item, resource_spec)
+        st.node_config = st.node_config[1:]
+        return st
+
+
+def phase_auto(torch, ps_out):
+    """P8's main path at full width: ``AutoStrategy`` in each search mode
+    on the one-card spec and on spec-only 4- and 8-card meshes; the
+    beam's choice trained through ``create_distributed_session(
+    validate=True)`` (K1–K3 12 a step, K4 and K5 as the schedule IR
+    predicts, losses against ``train_ps``'s, the cost model's prediction
+    and the memory pass's estimate against the card); ``fit(validate=
+    True)`` with the fingerprint in every record, the checkpoint meta, the
+    session and a second build; an illegal plan refused before any
+    launch; the launch latency of one collective."""
+    import shutil
+    import tempfile
+
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.analysis import StrategyValidationError, analyze
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.graph_item import GraphItem
+    from autodist_tpu_torch.kernel.graph_transformer import (
+        lowered_schedule_ir)
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AutoStrategy, StrategyCompiler
+    from autodist_tpu_torch.strategy import cost_model as cm
+    from autodist_tpu_torch.telemetry.calibration import model_drift_reason
+
+    t_phase = time.perf_counter()
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    _fresh_peak(torch)
+    params = spec.init(SEED)
+    numerics = {"clip_norm": CLIP_NORM}
+    gi = GraphItem(params, optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics=numerics)
+    # 1-2. the choice on the one-card spec, then on spec-only meshes
+    choices = [_auto_choose(torch, gi, chips, search)[1]
+               for chips in (1,) + AUTO_SPEC_CHIPS
+               for _, search in AUTO_MODES]
+
+    # 3. the beam's choice trained on the card, validated first
+    rs = ResourceSpec(resource_info=_auto_info(torch, 1))
+    builder = AutoStrategy(search="beam")
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(resource_spec=rs, strategy_builder=builder)
+    with ad.scope():
+        ad.capture(params=params, optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics=numerics)
+    t0 = time.perf_counter()
+    sess = ad.create_distributed_session(validate=True)
+    session_s = time.perf_counter() - t0
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    compiled = sess._step.compiled_strategy
+    t0 = time.perf_counter()
+    report = analyze(compiled, ad.graph_item, resource_spec=rs)
+    analyzer_s = time.perf_counter() - t0
+    ir = sess.schedule_ir
+    t0 = time.perf_counter()
+    violations = sir.verify(ir)
+    verifier_s = time.perf_counter() - t0
+    if report.has_errors() or sir.errors(violations):
+        raise AssertionError(f"auto: the beam's plan does not verify: "
+                             f"{report.errors} {violations}")
+    want = _ir_predicted_launches(ir, layers)
+    losses, norms, step_s, launches = _checked_steps(
+        torch, "auto", sess, batch, want, AUTO_WARMUP, AUTO_TIMED,
+        guarded=True)
+    _check_falling(losses)
+    same_plan = sess.schedule_fingerprint == ps_out["schedule_fingerprint"]
+    if same_plan and losses != ps_out["losses"]:
+        raise AssertionError(f"auto: train_ps's plan, but losses {losses} "
+                             f"are not train_ps's {ps_out['losses']}")
+    measured = statistics.median(step_s)
+    record = sess.telemetry.records[-1]
+    predicted = record.predicted_step_time_s
+    if predicted is None:
+        raise AssertionError("auto: the step records carry no prediction")
+    ir_predicted = cm.estimate_ir_cost(ir).time_s
+    memory_out = _auto_memory(torch, sess, ad.graph_item, rs, batch)
+    trained = {
+        "choice": builder.last_choice, "layers": layers,
+        "batch": TRAIN_SHAPE["B"],
+        "schedule_fingerprint": sess.schedule_fingerprint,
+        "train_ps_fingerprint": ps_out["schedule_fingerprint"],
+        "same_plan_as_train_ps": same_plan,
+        "buckets": len(sess._step.buckets),
+        "zero1_buckets": len(sess.zero1_buckets),
+        "fused_kernels": list(sess._step.fused_kernels),
+        "ir_legs": len(ir.legs), "ir_buckets": len(ir.buckets),
+        "session_build_s": session_s, "analyzer_s": analyzer_s,
+        "verifier_s": verifier_s, "losses": losses, "global_norms": norms,
+        **_step_rates(torch, spec, step_s),
+        "train_ps_ms_per_step": ps_out["ms_per_step"],
+        "train_ps_ms_per_step_range": [ps_out["ms_per_step_min"],
+                                       ps_out["ms_per_step_max"]],
+        "predicted_step_time_s": predicted,
+        "measured_step_time_s": measured,
+        "drift_ratio": measured / predicted if predicted else None,
+        "drift_reason": model_drift_reason(predicted, measured),
+        "ir_predicted_step_time_s": ir_predicted,
+        "ir_drift_ratio": measured / ir_predicted if ir_predicted else None,
+        "memory": memory_out, "launches": launches,
+        "launches_per_step": want}
+
+    # 4. fit(validate=True): one fingerprint everywhere
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_auto_")
+    try:
+        first = len(sess.telemetry.records)
+        sess.fit(batch, epochs=1, steps_per_epoch=AUTO_FIT_STEPS,
+                 validate=True, checkpoint_dir=ckpt)
+        fit_fps = {r.schedule_fingerprint
+                   for r in sess.telemetry.records[first:]}
+        meta_fp = Saver.read_meta(Saver.latest_checkpoint(ckpt)).get(
+            "schedule_fingerprint")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    again = AutoStrategy(search="beam").build(ad.graph_item, rs)
+    second_fp = lowered_schedule_ir(ad.graph_item, StrategyCompiler(
+        sess.mesh, rs).compile(again, ad.graph_item))[0].fingerprint()
+    fps = {"records": sorted(fit_fps | {r.schedule_fingerprint for r in
+                                        sess.telemetry.records}),
+           "checkpoint_meta": meta_fp,
+           "session": sess.schedule_fingerprint, "second_build": second_fp}
+    if fps["records"] != [sess.schedule_fingerprint] or len(
+            {meta_fp, sess.schedule_fingerprint, second_fp}) != 1:
+        raise AssertionError(f"auto: schedule fingerprints differ: {fps}")
+    del sess, ad
+    torch.cuda.empty_cache()
+
+    # 5. an illegal plan is refused before any launch
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(resource_spec=rs, strategy_builder=_Unsynced())
+    with ad.scope():
+        ad.capture(params=params, optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics=numerics)
+    before = _kernel_counts()
+    try:
+        ad.create_distributed_session(validate=True)
+    except StrategyValidationError as err:
+        refused = sorted({d.rule for d in err.report.errors})
+    else:
+        raise AssertionError("auto: the illegal plan was not refused")
+    if _kernel_counts() != before:
+        raise AssertionError("auto: a kernel launched before the refusal")
+    adm._reset_default_autodist_for_testing()
+    del ad, params, gi
+    torch.cuda.empty_cache()
+    alpha = collective_alpha(torch)
+    ratio = alpha["host_s_per_call"] / cm.COLLECTIVE_ALPHA
+    if not 1 / ALPHA_FACTOR <= ratio <= ALPHA_FACTOR:
+        raise AssertionError(
+            f"auto: this card's collective latency "
+            f"{alpha['host_s_per_call']:.3e} s is {ratio:.2f}x the cost "
+            f"model's COLLECTIVE_ALPHA {cm.COLLECTIVE_ALPHA:.3e} s")
+    return {"choices": choices, "trained": trained,
+            "fingerprints": fps, "refused_rules": refused,
+            "collective_alpha": {**alpha,
+                                 "cost_model_alpha_s": cm.COLLECTIVE_ALPHA,
+                                 "ratio": ratio},
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def _auto_ring_train(torch):
+    """The ``auto_beam`` configuration on this rank: ``AutoStrategy(
+    search="beam")`` on a 4-card spec over the 4 ranks, validated, 1 + 2
+    steps, K1–K5 each step as the schedule IR predicts.  Only rank 0
+    searches; the others take its plan.  Rank-identical parameters and
+    schedule fingerprints are checked by the caller."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import AutoStrategy
+
+    spec = transformer_lm()
+    _fresh_peak(torch)
+    builder = AutoStrategy(search="beam")
+    t0 = time.perf_counter()
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 builder, fk.fusable_adam(1e-3),
+                                 numerics={"clip_norm": CLIP_NORM},
+                                 resource_info=_auto_info(torch, RING_RANKS),
+                                 validate=True)
+    build_s = time.perf_counter() - t0
+    if sess.data_axis_size != RING_RANKS:
+        raise AssertionError(f"auto_beam: data axis {sess.data_axis_size}")
+    searched = builder.last_search is not None
+    if searched != (torch.distributed.get_rank() == 0):
+        raise AssertionError(f"auto_beam: rank "
+                             f"{torch.distributed.get_rank()} searched: "
+                             f"{searched}")
+    want = _ir_predicted_launches(sess.schedule_ir,
+                                  spec.config["num_layers"])
+    losses, _, step_s, launches = _checked_steps(
+        torch, AUTO_RING_CONFIG, sess, batch, want, RING_WARMUP, RING_TIMED,
+        guarded=True)
+    return sess, {
+        "choice": builder.last_choice if searched else None,
+        "search_evaluations": builder.last_search.n_evals if searched
+        else None,
+        "build_s": build_s,
+        "schedule_fingerprint": sess.schedule_fingerprint,
+        "losses": losses, "ms_per_step": statistics.median(step_s) * 1e3,
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
 
 
 def phase_train_parallax(torch, ps_out):
@@ -3889,6 +4226,9 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
                                         info, env)
             del sess
             torch.cuda.empty_cache()
+        sess, out[AUTO_RING_CONFIG] = _auto_ring_train(torch)
+        del sess
+        torch.cuda.empty_cache()
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -4012,7 +4352,8 @@ def phase_train_ring(mode: str = "smoke"):
     wall = time.perf_counter() - t0
     if mode != "smoke":
         return results[0], wall, None
-    for config in RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS:
+    for config in RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS \
+            + (AUTO_RING_CONFIG,):
         digests = {res[config]["params_sha256"] for res in results}
         if len(digests) != 1:
             each = [res[config]["param_sha256"] for res in results]
@@ -4029,6 +4370,10 @@ def phase_train_ring(mode: str = "smoke"):
             if res[config]["launches"] != results[0][config]["launches"]:
                 raise AssertionError(f"{config}: ranks launched "
                                      f"differently")
+    fps = [res[AUTO_RING_CONFIG]["schedule_fingerprint"] for res in results]
+    if len(set(fps)) != 1:
+        raise AssertionError(f"{AUTO_RING_CONFIG}: schedule fingerprints by "
+                             f"rank {fps}")
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
@@ -4652,6 +4997,48 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+#: the launch-latency probe: warm-up and timed 4-byte all_reduce calls
+ALPHA_WARMUP, ALPHA_CALLS = 100, 2000
+#: how far (either way) the ``auto`` phase's reading may lie from the
+#: cost model's ``COLLECTIVE_ALPHA``: the model's drift threshold
+#: (``telemetry.calibration.DRIFT_THRESHOLD``); three machines read
+#: 0.85–1.73x of it
+ALPHA_FACTOR = 3.0
+
+
+def collective_alpha(torch) -> dict:
+    """The fixed cost of one collective on this card: a 4-byte
+    ``all_reduce`` on a one-rank NCCL group, ``ALPHA_CALLS`` calls back
+    to back after ``ALPHA_WARMUP``, timed by the host clock up to a
+    synchronize (``host_s_per_call``: what a step that issues the
+    collective waits) and by CUDA events (``device_s_per_call``).  The
+    cost model's ``COLLECTIVE_ALPHA`` is the host reading."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        x = torch.ones(1, device="cuda")
+        for _ in range(ALPHA_WARMUP):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(ALPHA_CALLS):
+            dist.all_reduce(x)
+        end.record()
+        torch.cuda.synchronize()
+        host_s = (time.perf_counter() - t0) / ALPHA_CALLS
+        device_s = start.elapsed_time(end) / 1e3 / ALPHA_CALLS
+    finally:
+        dist.destroy_process_group()
+    return {"calls": ALPHA_CALLS, "nbytes": 4,
+            "host_s_per_call": host_s, "device_s_per_call": device_s}
+
+
 def p6_lr_control(torch) -> int:
     """``--p6-lr-control``: build the kernels, run its 4 ranks and print
     rank 0's loss traces beside the card's name and power limit."""
@@ -4678,6 +5065,10 @@ def main() -> int:
         return 2
     if "--p6-lr-control" in sys.argv:
         return p6_lr_control(torch)
+    if "--collective-alpha" in sys.argv:
+        emit({"phase": "collective_alpha", "card": nvidia_smi(),
+              **collective_alpha(torch)})
+        return 0
     if "--ring-repeat" in sys.argv:
         return ring_repeat(torch, int(sys.argv[sys.argv.index(
             "--ring-repeat") + 1]))
@@ -4765,6 +5156,8 @@ def main() -> int:
           "wall_s": time.perf_counter() - t0, **fit_out})
     telemetry_out = phase_telemetry(torch, ps_out)
     emit({"phase": "telemetry", "card": smi, **telemetry_out})
+    auto_out = phase_auto(torch, ps_out)
+    emit({"phase": "auto", "card": smi, **auto_out})
     for row in flash_rows:
         row["launches_by_path"] = {"train_fit": {
             "launches": fit_out["launches"][row["name"]],
@@ -4799,6 +5192,10 @@ def main() -> int:
         row.setdefault("launches_by_path", {})["telemetry fit"] = {
             "launches": telemetry_out["fit"]["launches"][row["name"]],
             "per_step": telemetry_out["launches_per_step"][row["name"]]}
+        row["launches_by_path"]["auto"] = {
+            "launches": auto_out["trained"]["launches"][row["name"]],
+            "per_step": auto_out["trained"]["launches_per_step"][
+                row["name"]]}
 
     ring, ring_wall, fused_vs_unfused = phase_train_ring()
     for config in RING_CONFIGS:
@@ -4836,6 +5233,15 @@ def main() -> int:
         row["launches_by_path"][PS_LB_CONFIG + " (rank 0)"] = {
             "launches": ps_lb["launches"][row["name"]],
             "per_step": ps_lb["launches_per_step"][row["name"]]}
+    auto_ring = ring[AUTO_RING_CONFIG]
+    emit({"phase": "auto", "config": AUTO_RING_CONFIG, "card": smi,
+          "ranks": RING_RANKS, "params_identical_across_ranks": True,
+          "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                               "(host-staged wire)", **auto_ring})
+    for row in sync_rows + flash_rows:
+        row["launches_by_path"][AUTO_RING_CONFIG + " (rank 0)"] = {
+            "launches": auto_ring["launches"][row["name"]],
+            "per_step": auto_ring["launches_per_step"][row["name"]]}
     for config in P6_CONFIGS:
         emit({"phase": "train_p6", "config": config, "card": smi,
               "ranks": RING_RANKS,

@@ -42,6 +42,7 @@ from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
 from autodist_tpu_torch.checkpoint import Saver
+from autodist_tpu_torch.const import P8
 from autodist_tpu_torch.fit import Callback, History, TimeHistory
 from autodist_tpu_torch.graph_item import flatten
 from autodist_tpu_torch.numerics import (NUMERICS_MARKER_CODE,
@@ -612,14 +613,18 @@ def test_step_health_monitor_matches_jax():
                 ref.reset()
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(validate=True), "P8 — cost model, search and AutoStrategy"),
-    (dict(tuner=object()), "P8 — cost model, search and AutoStrategy"),
+_UNPORTED_FIT = [
+    (dict(tuner=object()), P8),
     (dict(tiers=object()), "P9 — telemetry and resilience"),
     (dict(snapshot_every=2), "P9 — telemetry and resilience"),
     (dict(snapshot_keep=2), "P9 — telemetry and resilience"),
     (dict(snapshot_dir="snapshots"), "P9 — telemetry and resilience"),
-])
+]
+
+
+# the ids the cases have had since ``validate=True`` (option0) was ported
+@pytest.mark.parametrize("option,item", _UNPORTED_FIT, ids=[
+    f"option{i + 1}-{item}" for i, (_, item) in enumerate(_UNPORTED_FIT)])
 def test_unported_fit_options_raise_naming_their_item(option, item):
     sess = _make_session()
     with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):

@@ -304,17 +304,43 @@ def test_fatal_handlers_dump_a_bundle_in_a_child(tmp_path):
     assert any(f.startswith("fatal-") for f in os.listdir(run_dir))
 
 
-# -- what waits on the schedule IR (P8) ---------------------------------------
+# -- the schedule IR's hooks; the leg cursors wait (P8, second half) ---------
 
 @pytest.mark.parametrize("call", [
-    lambda: fr.traced_stamp("leg"),
-    lambda: fr.publish_ir(object(), "/nonexistent"),
-    lambda: fr.set_fingerprint("fp"),
+    pytest.param(lambda: fr.traced_stamp("leg"), id="<lambda>0"),
 ])
 def test_schedule_ir_stamps_raise_naming_p8(call):
     with pytest.raises(NotImplementedError, match=f"ROADMAP: {P8}"):
         call()
     fr.set_fingerprint(None)
+
+
+def test_fingerprint_stamps_cursors_and_ir_publishes_as_the_jax_package(
+        tmp_path):
+    """``set_fingerprint`` stamps subsequent cursors and ``publish_ir``
+    writes ``schedule-<fp>.json`` once, equal to the JAX package's file
+    for the same IR, which ``load_published_ir`` reads back."""
+    from autodist_tpu.kernel.synchronization import schedule_ir as jsir
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+
+    ir = sir.build_schedule_ir(axes={"data": 4}, guard=True, per_var=[
+        sir.PerVarEntry(name="w", dtype="float32", nbytes=64)])
+    jir = jsir.ScheduleIR.from_json(ir.to_json())
+    fr.set_fingerprint(ir.fingerprint())
+    try:
+        fr.record_cursor("step", kind="phase", event="enter", step=0)
+        assert fr.ring().latest().fingerprint == ir.fingerprint()
+    finally:
+        fr.set_fingerprint(None)
+    path = fr.publish_ir(ir, str(tmp_path / "port"))
+    assert fr.publish_ir(ir, str(tmp_path / "port")) == path
+    jpath = jfr.publish_ir(jir, str(tmp_path / "jax"))
+    assert os.path.basename(path) == os.path.basename(jpath) \
+        == f"schedule-{ir.fingerprint()}.json"
+    assert open(path).read() == open(jpath).read()
+    assert fr.load_published_ir(str(tmp_path / "port")) == json.loads(
+        ir.to_json())
+    assert fr.publish_ir(object(), "/nonexistent") is None
 
 
 @pytest.mark.parametrize("mode", ["legs", "trace", "host", "auto", "", "0"])

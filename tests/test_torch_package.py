@@ -77,6 +77,13 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.profile_serving\n"
         "import autodist_tpu_torch.device_timer\n"
         "import autodist_tpu_torch.strategy.auto_strategy\n"
+        "import autodist_tpu_torch.strategy.cost_model\n"
+        "import autodist_tpu_torch.strategy.search\n"
+        "import autodist_tpu_torch.analysis\n"
+        "import autodist_tpu_torch.analysis.analyzer\n"
+        "autodist_tpu_torch.analysis.analyzer._load_passes()\n"
+        "import autodist_tpu_torch.analysis.search\n"
+        "import autodist_tpu_torch.kernel.synchronization.schedule_ir\n"
         "import autodist_tpu_torch.telemetry\n"
         "import autodist_tpu_torch.telemetry.__main__\n"
         "import autodist_tpu_torch.utils.tracing\n"
@@ -124,25 +131,39 @@ def test_top_level_exports_match_the_jax_package():
         port.NoSuchName  # noqa: B018
 
 
-@pytest.mark.parametrize("name,item", [
-    ("AutoStrategy", "P8 — cost model, search and AutoStrategy")])
-def test_unported_strategy_builders_import_and_raise_naming_their_item(
-        name, item):
-    """Every builder the JAX package exports imports from the port; an
-    unported one raises when built, naming its ROADMAP item."""
+@pytest.mark.parametrize("chips", [1, 8])
+@pytest.mark.parametrize("search", [False, True, "beam"])
+def test_auto_strategy_builds_the_jax_package_plan(search, chips):
+    """Every builder the JAX package exports is the port's, AutoStrategy
+    too: in each search mode it builds the JAX package's plan on the
+    small LM (``tests/test_torch_search.py`` holds the rest)."""
     import autodist_tpu.strategy as jstrategy
+    from autodist_tpu.graph_item import GraphItem as JGraphItem
+    from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
+
     import autodist_tpu_torch.strategy as strategy
-    from autodist_tpu_torch.strategy import StrategyBuilder
+    from autodist_tpu_torch.graph_item import GraphItem
+    from autodist_tpu_torch.resource_spec import ResourceSpec
 
     builders = {n for n in jstrategy.__all__
                 if isinstance(getattr(jstrategy, n), type)
                 and issubclass(getattr(jstrategy, n),
                                jstrategy.StrategyBuilder)}
-    assert name in builders and builders <= set(strategy.__all__)
-    builder = getattr(strategy, name)
-    assert issubclass(builder, StrategyBuilder)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        builder()
+    assert "AutoStrategy" in builders and builders <= set(strategy.__all__)
+    jspec = jax_lm(**LM)
+    jparams = jspec.init(jax.random.PRNGKey(0))
+    info = {"nodes": [{"address": "localhost", "chips": chips}]}
+    jb = jstrategy.AutoStrategy(search=search)
+    pb = strategy.AutoStrategy(search=search)
+    want = jb.build(JGraphItem(jparams, optimizer=optax.adam(1e-3),
+                               sparse_vars=jspec.sparse_vars),
+                    JResourceSpec(resource_info=info))
+    got = pb.build(GraphItem(params_from_jax(jparams),
+                             optimizer=optim.adam(1e-3),
+                             sparse_vars=jspec.sparse_vars),
+                   ResourceSpec(resource_info=info))
+    assert got.to_dict()["node_config"] == want.to_dict()["node_config"]
+    assert pb.last_choice == jb.last_choice
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -318,7 +339,10 @@ def _public(module):
 @pytest.mark.parametrize("scope", ["", ".ops", ".models", ".autodist",
                                    ".ops.opt_state_dtype",
                                    ".checkpoint.saved_model_builder",
-                                   ".telemetry"])
+                                   ".telemetry", ".strategy", ".analysis",
+                                   ".strategy.cost_model",
+                                   ".strategy.search",
+                                   ".kernel.synchronization.schedule_ir"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -387,15 +411,13 @@ def _stub_calls(spec, ad, sess):
             models.pipelined_moe_transformer_lm, P10),
         "AutoDist.cluster": (lambda: ad.cluster, P12),
         "AutoDist.coordinator": (lambda: ad.coordinator, P12),
-        "session.schedule_ir": (lambda: sess.schedule_ir, P8),
-        "session.schedule_fingerprint": (lambda: sess.schedule_fingerprint,
-                                         P8),
         "LegProfiler.profile_ir": (lambda: LegProfiler().profile_ir(None),
                                    P8),
         "flightrec.traced_stamp": (lambda: flightrec.traced_stamp("leg"),
                                    P8),
-        "flightrec.publish_ir": (lambda: flightrec.publish_ir(None, "."),
-                                 P8),
+        "fit(tuner=)": (lambda: sess.fit(spec.sample_batch(2), epochs=1,
+                                         steps_per_epoch=1,
+                                         tuner=object()), P8),
         "AUTODIST_FLIGHTREC=legs": (lambda: _with_env(
             "AUTODIST_FLIGHTREC", "legs",
             lambda: DistributedSession(sess._gi, sess._step)), P8),
@@ -411,9 +433,8 @@ def _stub_calls(spec, ad, sess):
 
 STUBS = ["models.moe_transformer_lm", "models.pipelined_transformer_lm",
          "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
-         "AutoDist.coordinator", "session.schedule_ir",
-         "session.schedule_fingerprint", "LegProfiler.profile_ir",
-         "flightrec.traced_stamp", "flightrec.publish_ir",
+         "AutoDist.coordinator", "LegProfiler.profile_ir",
+         "flightrec.traced_stamp", "fit(tuner=)",
          "AUTODIST_FLIGHTREC=legs", "session.place_local_batch",
          "serve(drain_on_sigterm=True)", "PagedDecodeEngine(mesh=)"]
 
@@ -521,6 +542,40 @@ def test_ported_telemetry_entry_points_run(name, lm_session):
         off = _with_env("AUTODIST_TELEMETRY", "0",
                         lambda: DistributedSession(sess._gi, sess._step))
         assert off.telemetry is None
+
+
+@pytest.mark.parametrize("name", ["session.schedule_ir",
+                                  "session.schedule_fingerprint",
+                                  "flightrec.publish_ir",
+                                  "fit(validate=True)"])
+def test_ported_schedule_ir_entry_points_run(name, lm_session, tmp_path):
+    """The P8 refusals of the stub table now run (ROADMAP P8, first
+    half): the session's IR is verified and equal to the JAX package's
+    for the same facts, its fingerprint is the IR's, it publishes, and
+    ``fit(validate=True)`` runs the analyzer before training."""
+    from autodist_tpu.kernel.synchronization import schedule_ir as jsir
+
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.telemetry import flightrec
+
+    spec, _, sess = lm_session
+    ir = sess.schedule_ir
+    if name == "session.schedule_ir":
+        assert not sir.errors(sir.verify(ir))
+        facts = [jsir.PlanFact(name=v.name, shape=tuple(v.shape),
+                               dtype=v.dtype, sync_kind="AllReduce")
+                 for v in sess._gi.info.trainable_variables]
+        assert ir.to_json() == jsir.ir_from_facts(
+            facts, axes={"data": 1}).to_json()
+    elif name == "session.schedule_fingerprint":
+        assert sess.schedule_fingerprint == ir.fingerprint()
+    elif name == "flightrec.publish_ir":
+        path = flightrec.publish_ir(ir, str(tmp_path))
+        assert path.endswith(f"schedule-{ir.fingerprint()}.json")
+    else:
+        hist = sess.fit(spec.sample_batch(2), epochs=1, steps_per_epoch=1,
+                        validate=True)
+        assert sess.step_count == 1 and len(hist.history["loss"]) == 1
 
 
 def test_flash_attention_is_the_function_and_cross_entropy_exported():

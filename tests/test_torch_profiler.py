@@ -82,6 +82,15 @@ def _clean(monkeypatch):
     for var in ("AUTODIST_TELEMETRY", "AUTODIST_TELEMETRY_DIR",
                 "AUTODIST_CALIBRATION"):
         monkeypatch.delenv(var, raising=False)
+    # the same constants in both packages: the port's defaults are the
+    # card's (its cost model), the JAX package's are its own; the fits
+    # and reports are compared under the JAX package's
+    from autodist_tpu.strategy import cost_model as jcm
+    from autodist_tpu_torch.strategy import cost_model as cm
+    monkeypatch.setattr(cm, "ICI_BANDWIDTH", jcal.DEFAULT_ICI_BANDWIDTH)
+    monkeypatch.setattr(cm, "COLLECTIVE_ALPHA", jcal.DEFAULT_ALPHA)
+    assert (jcal.DEFAULT_ICI_BANDWIDTH, jcal.DEFAULT_ALPHA) == \
+        (jcm.ICI_BANDWIDTH, jcm.COLLECTIVE_ALPHA)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     for mod in (cal, jcal):

@@ -58,6 +58,7 @@ from autodist_tpu_torch.graph_item import flatten
 from autodist_tpu_torch.kernel.synchronization import bucketing
 from autodist_tpu_torch.kernel.synchronization import overlap as ov
 from autodist_tpu_torch.kernel.synchronization import quant_ring as qr
+from autodist_tpu_torch.kernel.synchronization import schedule_ir as psir
 from autodist_tpu_torch.kernel.synchronization.compressor import \
     get_compressor
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
@@ -235,9 +236,10 @@ def _plan_cases():
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 @pytest.mark.parametrize("mode", ["auto", "none", "ring", "full"])
 def test_schedule_rules_match_jax_ir(d, mode):
-    """``resolve_overlap``, ``reduce_alg`` and ``gather_schedule`` equal
-    the JAX package's ``resolve_overlap`` and its schedule IR's
-    ``reduce_alg`` / ``gather_plan`` order."""
+    """``resolve_overlap``, the port's schedule IR's ``reduce_alg`` (the
+    lowering the step reads) and ``gather_schedule`` equal the JAX
+    package's ``resolve_overlap`` and its schedule IR's ``reduce_alg`` /
+    ``gather_plan`` order."""
     entries = _plan_cases()
     buckets = bucketing.assign_buckets(entries, 1 << 30, d)
     jbuckets = jbucketing.assign_buckets(entries, 1 << 30, d)
@@ -252,12 +254,14 @@ def test_schedule_rules_match_jax_ir(d, mode):
         jplan.prefetch, jplan.ring_threshold, jplan.drops)
     ir = jsir.build_schedule_ir(axes={"data": d}, accum_steps=1,
                                 buckets=jbuckets, plan=jplan)
-    assert {b.key: ov.reduce_alg(b, plan, d) for b in buckets} == \
+    port_ir = psir.build_schedule_ir(axes={"data": d}, accum_steps=1,
+                                     buckets=buckets, plan=plan)
+    assert {b.key: port_ir.reduce_alg(b.key) for b in buckets} == \
         {b.key: ir.reduce_alg(b.key) for b in jbuckets}
     rs = [b for b in buckets if b.mode == "reduce_scatter"]
     assert [b.key for b in ov.gather_schedule(rs, plan.prefetch)] == \
         [key for key, _ in ir.gather_plan()]
-    algs = {ov.reduce_alg(b, plan, d) for b in buckets}
+    algs = {port_ir.reduce_alg(b.key) for b in buckets}
     assert algs == ({"fused"} if d == 1 or mode == "none" else
                     {"ring", "fused"} if mode == "auto" else
                     {"ring", "one_shot", "fused"})

@@ -258,7 +258,12 @@ def _planted(seed, n=40, outlier=False, degenerate=False):
 def test_fit_constants_equal_jax(case):
     records = _planted(1, outlier=case == "outlier",
                        degenerate=case == "degenerate")
-    got, want = cal.fit_constants(records), jcal.fit_constants(records)
+    # the port's defaults are the card's constants: the JAX package is
+    # given them explicitly
+    bw, alpha = cal.card_defaults()
+    got = cal.fit_constants(records)
+    want = jcal.fit_constants(records, default_bandwidth=bw,
+                              default_alpha=alpha)
     for field in ("ici_bandwidth", "alpha", "mean_abs_error_s",
                   "baseline_mean_abs_error_s"):
         assert getattr(got, field) == pytest.approx(getattr(want, field),
@@ -460,7 +465,12 @@ def test_session_records_steps_and_off_is_bit_identical(monkeypatch):
     assert last.step_time_s > 0 and last.phases["dispatch"] > 0
     assert last.items_per_s == pytest.approx(8 / last.step_time_s)
     assert last.tokens_per_s == pytest.approx(8 * 16 / last.step_time_s)
-    assert last.predicted_step_time_s is None     # the cost model is P8's
+    # the cost model's prediction, once per session, with the fingerprint
+    pred = sess._predict_cost()
+    assert (last.predicted_step_time_s, last.sync_bytes,
+            last.schedule_fingerprint) == (pred["time_s"],
+                                           pred["wire_bytes"],
+                                           sess.schedule_fingerprint)
     monkeypatch.setenv("AUTODIST_TELEMETRY", "0")
     sess, batch = _lm_session(numerics={"clip_norm": 1.0})
     assert sess.telemetry is None

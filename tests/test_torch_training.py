@@ -403,9 +403,11 @@ def test_unported_factory_options_and_fit_raise():
     ad = AutoDist(strategy_builder=AllReduce(), device="cpu")
     ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.sgd(0.1),
                loss_fn=spec.loss_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP: P8"):
-        ad.create_distributed_session().fit([spec.sample_batch(2)],
-                                            validate=True)
+    sess = ad.create_distributed_session()
+    # validate=True runs since P8's first half; the tuner is its second
+    with pytest.raises(NotImplementedError, match="ROADMAP: P8, second half"):
+        sess.fit([spec.sample_batch(2)], validate=True, tuner=object())
+    assert sess.step_count == 0
 
 
 def test_autodist_defaults_to_ps_load_balancing(jmodel):

@@ -79,6 +79,17 @@ ranks) runs one step of each of :func:`span_runs` under a CPU
 ``torch.profiler`` and writes the ``autodist_sync/`` range names and
 counts it records (:func:`spans_main`).
 
+``auto`` (4 ranks; ``IN``: the JAX weights ``p:<name>`` and the batch
+``b:<key>``) builds ``AutoStrategy(search="beam")`` on a 4-chip spec
+under the calibration ``AUTODIST_CALIBRATION`` names,
+``create_distributed_session(validate=True)``, trains ``fusable_adam``
+and the clip for 3 steps and writes the losses, the parameters,
+``last_choice``, the strategy's id and the schedule fingerprint
+(:func:`auto_main`).  Every rank but 0 lets its search price one
+candidate (``max_evals=1``): a rank that searched on its own would stop
+there, as a search stops on its wall-clock budget on a slower host, and
+would pick another plan.
+
 Each rank runs one intra-op thread: ranks do not contend for the host's
 cores, and the sums come out the same on any host.
 """
@@ -1140,6 +1151,38 @@ def spans_main(directory):
     return out
 
 
+def auto_main(data):
+    """The ``auto`` mode (see the module docstring)."""
+    from autodist_tpu_torch.convert import params_from_jax
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    params = unflatten([(k[2:], data[k]) for k in data.files
+                        if k.startswith("p:")])
+    batch = {k[2:]: data[k] for k in data.files if k.startswith("b:")}
+    _reset_default_autodist_for_testing()
+    if dist.get_rank() != 0:
+        import functools
+
+        from autodist_tpu_torch.strategy import search
+        search.SearchSpace = functools.partial(
+            search.SearchSpace, max_evals=1)
+    spec = transformer_lm(**CFG)
+    builder = port_strategy.AutoStrategy(search="beam")
+    ad = AutoDist(resource_spec=ResourceSpec(resource_info={
+        "nodes": [{"address": "localhost", "chips": 4}]}),
+        strategy_builder=builder, device="cpu")
+    with ad.scope():
+        ad.capture(params=params_from_jax(params),
+                   optimizer=fusable_adam(1e-3), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars, numerics={"clip_norm": CLIP})
+    sess = ad.create_distributed_session(validate=True)
+    losses = [float(sess.run(batch)["loss"]) for _ in range(STEPS)]
+    return {"losses": np.array(losses), "choice": builder.last_choice,
+            "strategy_id": ad._strategy.id,
+            "fingerprint": sess.schedule_fingerprint,
+            **{f"p:{k}": v for k, v in flatten(sess.params)}}
+
+
 def session(strategy="allreduce", device="cpu"):
     """The facade's session for ``strategy`` in this process, and the
     model's fixed global batch: ``"allreduce"`` (``adam``), ``"zero1"``,
@@ -1250,6 +1293,9 @@ def main():
             return
         if strategy == "spans":
             np.savez(out, **spans_main(sys.argv[6]))
+            return
+        if strategy == "auto":
+            np.savez(out, **auto_main(np.load(sys.argv[6])))
             return
         sess, batch = session(strategy)
         results = [sess.run(batch) for _ in range(STEPS)]
