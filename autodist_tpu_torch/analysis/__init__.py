@@ -17,8 +17,9 @@ Entry points:
   ``fit``: raise :class:`StrategyValidationError` on ERROR diagnostics,
   log WARNs once.
 
-The analyzer's CLI and the what-if simulator are the second half of
-ROADMAP P8.
+The analyzer's CLI is ``python -m autodist_tpu_torch.analysis``
+(``__main__.py``), and its ``--simulate`` sweep is :mod:`autodist_tpu_torch.
+analysis.simulate`.
 """
 from autodist_tpu_torch.analysis.analyzer import (
     AnalysisContext,

@@ -8,7 +8,7 @@ projection per candidate.  This module owns that hook
 surface: :func:`search_report` runs the beam search and packages the
 top-K candidates with their per-leg-kind cost breakdown and the exact
 legality rule that killed each pruned branch (the JAX package's CLI
-prints it; the port's CLI is the second half of ROADMAP P8).
+prints it, and so does the port's, ``--search-report``).
 """
 from __future__ import annotations
 

@@ -7,8 +7,11 @@ resource_spec_file, strategy_builder)`` → ``scope()`` / ``capture()`` →
 multi-rank ``torch.distributed`` run, card ``rank % cards``); without a
 card this raises unless ``device="cpu"`` is passed.  With no builder
 the facade builds ``PSLoadBalancing()``, the JAX facade's default.
-``AutoDist.cluster`` and ``.coordinator`` (the multi-host launcher) come
-with P12 and raise naming it.
+Inside ``scope()`` a plain script is captured without ``capture()``
+(``patch.py``: the optimizer factories and ``torch.func``'s gradients),
+unless ``AUTODIST_PATCH=False``.  ``AutoDist.cluster`` and
+``.coordinator`` (the multi-host launcher) come with P12 and raise naming
+it.
 """
 from __future__ import annotations
 
@@ -99,13 +102,24 @@ class AutoDist:
         self._graph_item: Optional[GraphItem] = None
         self._session: Optional[DistributedSession] = None
         self._strategy: Optional[Strategy] = None
+        self._implicit_record = None   # patch.CaptureRecord of the scope
 
     @contextlib.contextmanager
     def scope(self):
-        """The region in which the program is captured.  (Capture by
-        patching the optimizer inside the scope comes with P7; call
-        :meth:`capture`.)"""
-        yield self
+        """The region in which the program is captured: unless
+        ``AUTODIST_PATCH=False``, the implicit-capture wrappers
+        (:mod:`autodist_tpu_torch.patch`) are installed inside it, so that
+        a plain script is captured without calling :meth:`capture`."""
+        from autodist_tpu_torch.patch import PatchOptim
+
+        patched = ENV.AUTODIST_PATCH.val
+        if patched:
+            PatchOptim.patch()
+        try:
+            yield self
+        finally:
+            if patched:
+                self._implicit_record = PatchOptim.unpatch()
 
     def capture(self, params: Any, optimizer: Any = None,
                 loss_fn: Optional[Callable] = None,
@@ -163,6 +177,24 @@ class AutoDist:
     def is_built(self) -> bool:
         return self._session is not None
 
+    def _assemble_implicit_graph_item(self) -> None:
+        """The GraphItem from the scope's implicit capture record when
+        :meth:`capture` was never called."""
+        rec = self._implicit_record
+        if rec is None or (rec.params is None and rec.optimizer is None
+                           and rec.loss_fn is None):
+            raise RuntimeError(
+                "capture() the program before building a strategy (or build "
+                "the optimizer, opt.init(params) and torch.func.grad_and_value"
+                "(loss_fn) inside ad.scope() for implicit capture)")
+        if not rec.complete():
+            raise RuntimeError(
+                "implicit capture inside ad.scope() is incomplete; missing: "
+                + "; ".join(rec.missing()))
+        self._graph_item = GraphItem(
+            rec.params, optimizer=rec.optimizer, loss_fn=rec.loss_fn,
+            has_aux=rec.has_aux)
+
     def build_strategy(self) -> Strategy:
         """The chief builds the strategy and serializes it; a rank with
         ``AUTODIST_STRATEGY_ID`` set loads that one instead.
@@ -173,9 +205,7 @@ class AutoDist:
         otherwise pick a different plan on a slower rank, and the ranks
         would issue mismatched collectives."""
         if self._graph_item is None:
-            raise RuntimeError(
-                "capture() the program before building a strategy (implicit "
-                "capture inside scope() comes with P7)")
+            self._assemble_implicit_graph_item()
         self._graph_item.prepare()
         strategy_id = ENV.AUTODIST_STRATEGY_ID.val
         if strategy_id:

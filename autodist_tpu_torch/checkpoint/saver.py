@@ -62,9 +62,11 @@ The meta carries the session's ``schedule_fingerprint`` (its schedule
 IR's); a restore whose session executes another schedule logs the drift
 (a warning on the same mesh: the sync config itself drifted).
 
-Not ported: elastic resume (a checkpoint whose ZeRO-1 bucket layout
-differs from the session's, e.g. written at another data-axis size) and
-the RAM and peer tiers (``checkpoint/tiers.py``) are P9.
+:func:`import_logical_state` puts a logical state into the session's
+layout; the RAM and peer tiers (``checkpoint/tiers.py``) restore through
+it too.  Not ported: elastic resume (a checkpoint whose ZeRO-1 bucket
+layout differs from the session's, e.g. written at another data-axis
+size) is P9.
 """
 from __future__ import annotations
 
@@ -266,6 +268,86 @@ def _unpack_layout(opt_state, layout: Sequence[dict]) -> Dict[str, Any]:
     return plain
 
 
+def import_logical_state(session, params, opt_state, step: int, *,
+                         zero1_layout: Optional[Sequence[dict]] = None,
+                         sync_state=None, source: str = "",
+                         data_axis_size: Optional[int] = None) -> None:
+    """Load a LOGICAL state (``session.export_state()``'s layout: whole
+    ZeRO-1 bucket vectors; ``export_sync_state()``'s sync state) into the
+    session's own layout, as :meth:`Saver.restore` and the RAM and peer
+    tiers (``checkpoint/tiers.py``) both do.
+
+    ``zero1_layout`` is the writer's bucket plan (:func:`bucket_layout`;
+    None or empty: a per-variable optimizer state).  ZeRO-1 bucket vectors
+    are sliced to the chunk this rank holds (``session._step.
+    shard_owner``); a ZeRO-1 state into a session without buckets is cut
+    back per variable; a per-variable state into a ZeRO-1 session is
+    packed into its buckets.  A ZeRO-1 layout that differs from the
+    session's raises (elastic resume is P9).  A sync state that does not
+    fit the session's (another strategy or compressor) starts fresh, with
+    a warning, as in the JAX package."""
+    d, _, rank = Saver._mesh(session)
+    old = list(zero1_layout or [])
+    new = tuple(session.zero1_buckets or ())
+    if old and new:
+        if old != bucket_layout(new):
+            raise not_ported(
+                f"restoring {source or 'a state'}: its ZeRO-1 bucket layout "
+                f"(written at data-axis size {data_axis_size}) differs from "
+                f"this session's (size {d}); elastic resume",
+                "P9 — telemetry and resilience")
+        by_key = {b.key: b for b in new}
+        owner = session._step.shard_owner
+        opt_state = dict(opt_state, zero1={
+            slot: v if isinstance(v, torch.Tensor) else
+            {k: _rank_shard(x, by_key[k], owner.get(k, rank), d)
+             for k, x in v.items()}
+            for slot, v in opt_state["zero1"].items()})
+    elif old:
+        opt_state = _unpack_layout(opt_state, old)
+    elif new:
+        opt_state = _pack_tree_state(opt_state, new, rank, d,
+                                     session._step.shard_owner)
+    if sync_state is not None:
+        sync_state = _sync_for(session, sync_state, source)
+    session.import_state(params, opt_state, int(step), sync_state=sync_state)
+
+
+def _sync_for(session, saved, source) -> Optional[Dict[str, Any]]:
+    """This rank's sync state from the logical one (its row of each
+    stacked compressor state; the stale state as it is), or None (a fresh
+    one) when it does not fit the session's."""
+    d, _, rank = Saver._mesh(session)
+    mine = session.sync_state
+    out: Dict[str, Any] = {}
+    stale_keys = set(STALE_KEYS) | {MASTER_KEY}
+    if (stale_keys & set(mine)) and not set(STALE_KEYS) <= set(saved):
+        log.warning("%s holds no bounded-staleness state; starting it "
+                    "fresh (the resume is then approximate)", source)
+        return None
+    out.update({k: saved[k] for k in STALE_KEYS
+                if k in saved and stale_keys & set(mine)})
+    for key, value in mine.items():
+        if key in stale_keys:
+            continue
+        got = saved.get(key)
+        if key != NUMERICS_KEY and got is not None:
+            rows = [(n, x) for n, x in flatten(got)]
+            if all(x.dim() >= 1 and x.shape[0] == d for _, x in rows):
+                got = unflatten([(n, x[rank]) for n, x in rows]) \
+                    if isinstance(got, dict) else got[rank]
+        ok = got is not None and (
+            [(n, tuple(x.shape), x.dtype) for n, x in flatten(got)]
+            == [(n, tuple(x.shape), x.dtype) for n, x in flatten(value)])
+        if not ok:
+            log.warning("sync state %r in %s does not match this "
+                        "session's; starting it fresh (the resume is "
+                        "then approximate)", key, source)
+            return None
+        out[key] = got
+    return out
+
+
 # -- the Saver ----------------------------------------------------------------
 
 def _log_schedule_drift(meta: dict, session, path: str) -> None:
@@ -310,6 +392,10 @@ class Saver:
         self._pending_mark: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        #: seconds the last durable save took, snapshot to commit (what
+        #: the preemption decision estimates the next one by); None
+        #: before the first
+        self.last_persist_s: Optional[float] = None
 
     # -- ranks -------------------------------------------------------------
     @staticmethod
@@ -549,7 +635,7 @@ class Saver:
         if self._async:
             self._thread = threading.Thread(
                 target=self._write_guarded,
-                args=(directory, step, items, meta, extra),
+                args=(t_save, directory, step, items, meta, extra),
                 name=f"checkpoint-step_{step}", daemon=True)
             self._thread.start()
             if mark_good:
@@ -559,6 +645,7 @@ class Saver:
                 self._write(directory, step, items, meta, extra)
                 if mark_good:
                     Saver.mark_good(path)
+            self.last_persist_s = time.perf_counter() - t_save
             self._maybe_gc()
             self._barrier(session)
         # journaled as in the JAX package: an async save's duration is its
@@ -568,9 +655,10 @@ class Saver:
                    async_save=self._async, mark_good=mark_good)
         return path
 
-    def _write_guarded(self, *args) -> None:
+    def _write_guarded(self, t_save: float, *args) -> None:
         try:
             self._write(*args)
+            self.last_persist_s = time.perf_counter() - t_save
         except Exception as e:          # raised again by the next join
             self._error = e
 
@@ -616,81 +704,23 @@ class Saver:
         t_restore = time.perf_counter()
         path = os.path.abspath(path)
         meta = self.read_meta(path)
-        d, _, rank = self._mesh(session)
-        dev = session.mesh.device
-        params = read_item(path, "params")
-        opt_state = read_item(path, "opt_state")
-        old = meta.get("zero1_buckets") or []
-        new = tuple(session.zero1_buckets or ())
-        if old and new:
-            if old != bucket_layout(new):
-                raise not_ported(
-                    f"restoring {path}: its ZeRO-1 bucket layout (written at "
-                    f"data-axis size {meta.get('data_axis_size')}) differs "
-                    f"from this session's (size {d}); elastic resume",
-                    "P9 — telemetry and resilience")
-            by_key = {b.key: b for b in new}
-            owner = session._step.shard_owner
-            opt_state = dict(opt_state, zero1={
-                slot: v if isinstance(v, torch.Tensor) else
-                {k: _rank_shard(x, by_key[k], owner.get(k, rank), d)
-                 for k, x in v.items()}
-                for slot, v in opt_state["zero1"].items()})
-        elif old:
-            opt_state = _unpack_layout(opt_state, old)
-        elif new:
-            opt_state = _pack_tree_state(opt_state, new, rank, d,
-                                         session._step.shard_owner)
         sync_state = None
         if meta.get("has_sync_state") and \
                 os.path.isdir(os.path.join(path, "sync_state")):
-            sync_state = self._sync_for(session, read_item(path,
-                                                           "sync_state"),
-                                        path)
+            sync_state = read_item(path, "sync_state")
         step = int(meta.get("step", 0))
-        session.import_state(params, opt_state, step, sync_state=sync_state)
-        del params, opt_state
+        import_logical_state(session, read_item(path, "params"),
+                             read_item(path, "opt_state"), step,
+                             zero1_layout=meta.get("zero1_buckets"),
+                             sync_state=sync_state, source=path,
+                             data_axis_size=meta.get("data_axis_size"))
         _log_schedule_drift(meta, session, path)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if session.mesh.device.type == "cuda":
+            torch.cuda.synchronize(session.mesh.device)
         emit_event("checkpoint/restore", step=step, path=path,
                    duration_s=round(time.perf_counter() - t_restore, 6),
                    elastic=False)
         return step
-
-    def _sync_for(self, session, saved, path) -> Optional[Dict[str, Any]]:
-        """This rank's sync state from the saved one (its row of each
-        stacked compressor state; the stale state as it is), or None (a
-        fresh one) when it does not fit the session's."""
-        d, _, rank = self._mesh(session)
-        mine = session.sync_state
-        out: Dict[str, Any] = {}
-        stale_keys = set(STALE_KEYS) | {MASTER_KEY}
-        if (stale_keys & set(mine)) and not set(STALE_KEYS) <= set(saved):
-            log.warning("%s holds no bounded-staleness state; starting it "
-                        "fresh (the resume is then approximate)", path)
-            return None
-        out.update({k: saved[k] for k in STALE_KEYS
-                    if k in saved and stale_keys & set(mine)})
-        for key, value in mine.items():
-            if key in stale_keys:
-                continue
-            got = saved.get(key)
-            if key != NUMERICS_KEY and got is not None:
-                rows = [(n, x) for n, x in flatten(got)]
-                if all(x.dim() >= 1 and x.shape[0] == d for _, x in rows):
-                    got = unflatten([(n, x[rank]) for n, x in rows]) \
-                        if isinstance(got, dict) else got[rank]
-            ok = got is not None and (
-                [(n, tuple(x.shape), x.dtype) for n, x in flatten(got)]
-                == [(n, tuple(x.shape), x.dtype) for n, x in flatten(value)])
-            if not ok:
-                log.warning("sync state %r in %s does not match this "
-                            "session's; starting it fresh (the resume is "
-                            "then approximate)", key, path)
-                return None
-            out[key] = got
-        return out
 
     @staticmethod
     def restore_params(path: str) -> Dict[str, Any]:

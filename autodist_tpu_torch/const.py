@@ -40,6 +40,14 @@ def _int0(v):
     return int(v) if v else 0
 
 
+def _int2(v):
+    return int(v) if v else 2
+
+
+def _float0(v):
+    return float(v) if v else 0.0
+
+
 def _loglevel(v):
     return v or "INFO"
 
@@ -92,8 +100,25 @@ class ENV(enum.Enum):
     # default loader of strategy/cost_model.estimate_ir_cost)
     AUTODIST_CALIBRATION = ("AUTODIST_CALIBRATION", _str)
     # flight recorder: "0" off, "host" (and the default) step and
-    # checkpoint phase cursors; "legs" (leg cursors) is P8's second half
+    # checkpoint phase cursors; "legs" adds a cursor at the schedule IR's
+    # leg boundaries inside the step (stream-ordered on the card)
     AUTODIST_FLIGHTREC = ("AUTODIST_FLIGHTREC", _str)
+    # implicit program capture inside ad.scope() (the optimizer factories
+    # and torch.func's gradient transforms, autodist_tpu_torch/patch.py)
+    AUTODIST_PATCH = ("AUTODIST_PATCH", _bool_default_true)
+    # preemption grace window in seconds: at a preemption notice, fit
+    # compares the last measured persistent-save time against it and
+    # sends the emergency state to the peer RAM tier when a durable save
+    # cannot finish in time; 0: no deadline (always the persistent save)
+    AUTODIST_PREEMPT_GRACE_S = ("AUTODIST_PREEMPT_GRACE_S", _float0)
+    # RAM checkpoint tier (checkpoint/tiers.py): snapshot cadence in steps
+    # (0: off), ring depth and the peer-mirror directory; fit() arguments
+    # override all three
+    AUTODIST_SNAPSHOT_EVERY = ("AUTODIST_SNAPSHOT_EVERY", _int0)
+    AUTODIST_SNAPSHOT_KEEP = ("AUTODIST_SNAPSHOT_KEEP", _int2)
+    AUTODIST_SNAPSHOT_DIR = ("AUTODIST_SNAPSHOT_DIR", _str)
+    # buddy host address RAM snapshots mirror to (checkpoint.tiers.buddy_of)
+    AUTODIST_BUDDY = ("AUTODIST_BUDDY", _str)
     # which supervisor attempt this process belongs to
     AUTODIST_ATTEMPT = ("AUTODIST_ATTEMPT", _int0)
     # dump the strategy's plan table at session build
@@ -110,9 +135,10 @@ class ENV(enum.Enum):
         return self.value[1](os.environ.get(self.name))
 
 
-#: the ROADMAP items that :func:`not_ported` errors name most often
-#: P8's first half (the schedule IR, the analyzer, the cost model, the
-#: search and AutoStrategy) is ported; what raises names the second half
+#: the ROADMAP items that :func:`not_ported` errors name most often.
+#: P8 (the schedule IR, the analyzer and its CLI, the cost model, the
+#: search, AutoStrategy, the tuner, the simulator, the leg profiler and
+#: the leg cursors) is ported whole: nothing raises naming it any more
 P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
       "analyzer's CLI, the leg profiler and the leg cursors")
 P9 = "P9 — telemetry and resilience"

@@ -22,17 +22,24 @@ and ``goodput/attempt``, and ``History.goodput`` is the attempt's goodput
 ``validate=True`` runs the static pre-flight analyzer on the session's
 compiled strategy before anything else (``analysis.preflight_session``).
 
-Not ported (each raises, naming its ROADMAP item): ``tuner`` (the second
-half of P8), and the RAM and peer checkpoint tiers, ``tiers``,
-``snapshot_every``, ``snapshot_keep`` and ``snapshot_dir`` (P9); the
-preemption deadline decision (``checkpoint/preempt_decision``) comes
-with them.
+The RAM and peer checkpoint tiers (``checkpoint/tiers.py``): ``tiers=``,
+or ``snapshot_every`` / ``snapshot_keep`` / ``snapshot_dir`` (or the
+``AUTODIST_SNAPSHOT_*`` knobs) snapshot the logical state every N steps;
+a resume takes the newest usable step across RAM, peer and persistent
+tiers (``History.resume_tier``); a preemption notice with a grace window
+(``AUTODIST_PREEMPT_GRACE_S``) sends the emergency state to the peer tier
+when the last measured persistent save would not finish in time (the
+``checkpoint/preempt_decision`` event).  ``tuner=`` hands the session to a
+:class:`~autodist_tpu_torch.strategy.tuner.ScheduleTuner` at its own
+interval, which may swap the session's schedule in place: the loop, the
+callbacks and the checkpoints do not notice.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 import logging
+import os
 import signal as _signal
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
@@ -40,7 +47,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import ENV, P8, P9, not_ported
+from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.numerics.policy import (ON_NONFINITE, NonFiniteError,
                                                 RollbackRequest,
                                                 StepHealthMonitor,
@@ -107,11 +114,11 @@ class History:
         #: True when ``fit`` stopped early on a preemption signal (the
         #: partial epoch is NOT counted in ``epochs_run``).
         self.preempted = False
-        #: where the emergency preemption state went ("persistent" or
-        #: None); the peer tier is P9's.
+        #: where the emergency preemption state went ("persistent",
+        #: "peer", or None when no tier took it)
         self.preempt_tier: Optional[str] = None
-        #: where the resume came from ("persistent", or None for a fresh
-        #: start); the RAM and peer tiers are P9's.
+        #: where the resume came from ("ram", "peer", "persistent", or
+        #: None for a fresh start)
         self.resume_tier: Optional[str] = None
         #: this attempt's goodput summary (``telemetry.goodput.
         #: attempt_goodput``'s), or None when fit ran no steps.
@@ -171,18 +178,6 @@ def _epoch_iter(data: DataArg, steps_per_epoch: Optional[int]):
                 "a single-batch `data` dict requires steps_per_epoch")
         return iter(data for _ in range(steps_per_epoch))
     return iter(data)
-
-
-def _refuse_unported(tuner, tiers, snapshot_every, snapshot_keep,
-                     snapshot_dir) -> None:
-    if tuner is not None:
-        raise not_ported("fit(tuner=...): the schedule tuner", P8)
-    for name, value in (("tiers", tiers), ("snapshot_every", snapshot_every),
-                        ("snapshot_keep", snapshot_keep),
-                        ("snapshot_dir", snapshot_dir)):
-        if value:
-            raise not_ported(f"fit({name}=...): the RAM and peer checkpoint "
-                             "tiers", P9)
 
 
 def fit(session, data: DataArg, epochs: int = 1,
@@ -251,10 +246,18 @@ def fit(session, data: DataArg, epochs: int = 1,
         strategy before anything else: ERROR diagnostics raise
         :class:`~autodist_tpu_torch.analysis.StrategyValidationError`,
         WARNs log once.
+      snapshot_every, snapshot_keep, snapshot_dir: the RAM tier's
+        cadence in steps, ring depth and peer-mirror directory (default:
+        ``AUTODIST_SNAPSHOT_*``; the peer directory defaults to
+        ``<checkpoint_dir>/peer_tier``); ``tiers`` a ready
+        :class:`~autodist_tpu_torch.checkpoint.tiers.CheckpointTiers`
+        instead.  With ``resume``, the newest usable step across the
+        tiers is restored first.
+      tuner: a :class:`~autodist_tpu_torch.strategy.tuner.ScheduleTuner`;
+        its ``on_step`` runs after every step (it acts at its own
+        interval).
 
     Returns a :class:`History`."""
-    _refuse_unported(tuner, tiers, snapshot_every, snapshot_keep,
-                     snapshot_dir)
     # pre-flight first: an illegal plan fails before any restore or user
     # callback runs, and before the first step
     if validate:
@@ -294,12 +297,32 @@ def fit(session, data: DataArg, epochs: int = 1,
 
         saver = Saver(session, async_save=async_checkpoints,
                       keep=checkpoint_keep)
-        path = Saver.latest_checkpoint(checkpoint_dir) if resume else None
-        if path is not None:
-            resumed_step = saver.restore(path)
-            hist.resume_tier = "persistent"
-            log.info("fit: resumed at step %d from %s", resumed_step, path)
-            ds = Saver.read_meta(path).get("data_state")
+    # the RAM/peer tiers: an explicit object, fit's knobs, or the
+    # AUTODIST_SNAPSHOT_* knobs, in that order
+    if tiers is None:
+        every = snapshot_every or ENV.AUTODIST_SNAPSHOT_EVERY.val
+        if every:
+            from autodist_tpu_torch.checkpoint.tiers import CheckpointTiers
+
+            peer_dir = snapshot_dir or ENV.AUTODIST_SNAPSHOT_DIR.val or (
+                os.path.join(checkpoint_dir, "peer_tier")
+                if checkpoint_dir else None)
+            keep = snapshot_keep if snapshot_keep is not None \
+                else ENV.AUTODIST_SNAPSHOT_KEEP.val
+            tiers = CheckpointTiers(session, snapshot_every=every,
+                                    keep=keep, peer_dir=peer_dir,
+                                    buddy=ENV.AUTODIST_BUDDY.val or None)
+    elif tiers._session is None:
+        tiers._session = session
+    if resume and (checkpoint_dir is not None or tiers is not None):
+        from autodist_tpu_torch.checkpoint.tiers import route_restore
+
+        routed = route_restore(session, checkpoint_dir, tiers=tiers)
+        if routed is not None:
+            resumed_step, hist.resume_tier, resume_meta = routed
+            log.info("fit: resumed at step %d from the %s tier",
+                     resumed_step, hist.resume_tier)
+            ds = resume_meta.get("data_state")
             if track_data and ds:
                 try:
                     data_resume = data.load_state(ds)
@@ -375,7 +398,7 @@ def fit(session, data: DataArg, epochs: int = 1,
                         initial_epoch=initial_epoch, saver=saver, hist=hist,
                         preempt=preempt, data_track=data_track,
                         monitor=monitor, guard_state=guard_state,
-                        goodput=goodput)
+                        goodput=goodput, tiers=tiers, tuner=tuner)
                     break
                 except RollbackRequest as rb:
                     rollbacks += 1
@@ -446,6 +469,51 @@ def _finish_goodput(session, hist, goodput: dict,
                preempted=hist.preempted, resume_tier=hist.resume_tier,
                **gp)
     return gp
+
+
+def _preempt_save(*, session, saver, tiers, checkpoint_dir, data_track,
+                  guard_state, monitor, goodput) -> Optional[str]:
+    """The deadline-aware preemption decision: can the persistent save
+    finish inside ``AUTODIST_PREEMPT_GRACE_S``, or does the emergency
+    state go to the peer RAM tier?  The estimate is the last MEASURED
+    persistent save (``Saver.last_persist_s``) with a 1.25x margin; with a
+    grace window and no measurement yet the peer tier wins (seconds,
+    bounded) over gambling the window on unknown storage.  No window
+    (grace 0) always saves persistently.  The tier that took the state,
+    or None."""
+    from autodist_tpu_torch.checkpoint.tiers import phase
+    from autodist_tpu_torch.telemetry import emit_event
+
+    grace = ENV.AUTODIST_PREEMPT_GRACE_S.val
+    est = saver.last_persist_s if saver is not None else None
+    can_peer = tiers is not None and tiers.enabled \
+        and tiers.mirror is not None
+    if saver is None:
+        use_peer = can_peer
+    elif grace > 0:
+        use_peer = can_peer and (est is None or est * 1.25 >= grace)
+    else:
+        use_peer = False
+    emit_event("checkpoint/preempt_decision", step=session.step_count,
+               grace_s=grace or None, est_persist_s=est,
+               tier="peer" if use_peer else
+               ("persistent" if saver is not None else None))
+    t0 = time.perf_counter()
+    with phase("draining", session.step_count):
+        if use_peer:
+            snap = tiers.snapshot(session.step_count,
+                                  extra_meta=_data_state_meta(data_track),
+                                  emergency=True)
+            goodput["ckpt_stall_s"] += time.perf_counter() - t0
+            return "peer" if snap is not None else None
+        if saver is not None:
+            saver.save(checkpoint_dir, step=session.step_count,
+                       extra_meta=_data_state_meta(data_track),
+                       mark_good=_guard_clean(guard_state, monitor))
+            saver.wait()   # the process exits next: must be durable
+            goodput["ckpt_stall_s"] += time.perf_counter() - t0
+            return "persistent"
+    return None
 
 
 def _data_state_meta(data_track) -> Optional[dict]:
@@ -616,7 +684,8 @@ def _handle_rollback(*, session, saver, checkpoint_dir, data, rb, rollbacks,
 def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                 validation_steps, callbacks, log_every, checkpoint_dir,
                 checkpoint_every, prefetch_depth, initial_epoch, saver,
-                hist, preempt, data_track, monitor, guard_state, goodput):
+                hist, preempt, data_track, monitor, guard_state, goodput,
+                tiers=None, tuner=None):
     """The epoch loop (keyword-only, wrapped by ``fit`` in the signal
     handler scope); the last step saved."""
     last_saved_step = None
@@ -641,6 +710,22 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
             hist.steps_run += 1
             for cb in callbacks:
                 cb.on_step_end(session.step_count, out)
+            if tiers is not None:
+                # the RAM tier's cadence: one modulo check when idle; a
+                # snapshot (a checkpoint stall) carries the exact data
+                # position, so that a tier resume is exact mid-epoch
+                extra = None
+                if data_track["enabled"]:
+                    extra = {"data_state": {
+                        "epoch": epoch, "offset": epoch_base + epoch_steps,
+                        "seed": data_track["seed"]}}
+                if tiers.on_step(session.step_count,
+                                 extra_meta=extra) is not None:
+                    goodput["ckpt_stall_s"] += tiers.last_snapshot_s or 0.0
+            if tuner is not None:
+                # the tuner owns its cadence and swaps the session in
+                # place: nothing else in the loop changes
+                tuner.on_step(session, session.step_count)
             if monitor is not None:
                 # raise/rollback/spike: one health read per step
                 finite = _observe_health(out, guard_state, session)
@@ -680,23 +765,25 @@ def _fit_epochs(*, session, data, epochs, steps_per_epoch, validation_data,
                 data_track["pos"] = {"epoch": epoch,
                                      "offset": epoch_base + epoch_steps,
                                      "seed": data_track["seed"]}
-            if saver is not None and hist.steps_run:
+            if (saver is not None or tiers is not None) and hist.steps_run:
                 if out is not None:
                     _observe_health(out, guard_state, session)
-                t0 = time.perf_counter()
-                saver.save(checkpoint_dir, step=session.step_count,
-                           extra_meta=_data_state_meta(data_track),
-                           mark_good=_guard_clean(guard_state, monitor))
-                saver.wait()   # the process exits next: must be durable
-                goodput["ckpt_stall_s"] += time.perf_counter() - t0
-                hist.preempt_tier = "persistent"
-                last_saved_step = session.step_count
+                hist.preempt_tier = _preempt_save(
+                    session=session, saver=saver, tiers=tiers,
+                    checkpoint_dir=checkpoint_dir, data_track=data_track,
+                    guard_state=guard_state, monitor=monitor,
+                    goodput=goodput)
+                if hist.preempt_tier == "persistent":
+                    last_saved_step = session.step_count
             for cb in callbacks:
                 cb.on_epoch_end(epoch, {
                     "loss": loss, "epoch_steps": epoch_steps,
                     "step": session.step_count, "preempted": True})
-            log.warning("fit: preempted (signal %d) at step %d",
-                        preempt["signum"], session.step_count)
+            log.warning("fit: preempted (signal %d) at step %d%s",
+                        preempt["signum"], session.step_count,
+                        f": the emergency state took the "
+                        f"{hist.preempt_tier} tier"
+                        if hist.preempt_tier else "")
             break
         if out is None:
             # on_epoch_end still fires (begin/end stay paired); an

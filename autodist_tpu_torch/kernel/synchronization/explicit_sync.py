@@ -123,8 +123,12 @@ the gradient as it is, and staleness applies); the quantized ring's hop
 kernels run whenever a bucket is quantized (the JAX package's are an
 opt-in; both put the same bits on the wire).  The port's mesh has only
 the data axis (P10), so no variable keeps a per-shard collective
-(:func:`partition_drop_reason` gives the JAX rule); the flight-recorder
-stamps are P9's.  A stored variable lives in its flat bucket: a rank
+(:func:`partition_drop_reason` gives the JAX rule).  Under
+``AUTODIST_FLIGHTREC=legs`` the step stamps a leg cursor where the JAX
+package's stamps one (:func:`leg_stamp_points`: each bucket's reduce, the
+guard roll-up, the ZeRO-1 or tree update, each parameter gather, a
+pipelined bucket's reduce per microbatch slot), stream-ordered on the
+card (``ops/leg_cursor.py``).  A stored variable lives in its flat bucket: a rank
 holds its chunk of the bucket vector where the JAX package holds its
 slice of the variable along the storage axis (``param_spec =
 P("data")``), the flat bucket padded where JAX pads the dim.
@@ -156,6 +160,7 @@ from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
 from autodist_tpu_torch.ops import fused_kernels as fk
+from autodist_tpu_torch.telemetry import flightrec
 from autodist_tpu_torch.telemetry.timeline import sync_span
 
 
@@ -349,6 +354,58 @@ def plan_step(gi, compiled) -> StepPlan:
                     fused_drops=drops, guard=guard, ir=ir)
 
 
+def leg_stamp_points(ir) -> Dict[str, Dict[str, Tuple[str, str]]]:
+    """Where the step stamps leg cursors, under the IR's leg ids (the JAX
+    package's ``explicit_sync.py:538-564``): ``{"reduce": {bucket key:
+    (leg id, kind)}, "update": {bucket key or "~tree": ...}, "gather":
+    {bucket key: ...}}``.  A bucket's reduce is its last leg that writes
+    the reduced value (a pipelined bucket's first, as a ``{slot}``
+    template); its gather the last ``@gather`` leg that writes its
+    parameters."""
+    import re
+
+    pipe = ir.pipelined_keys()
+    reduce: Dict[str, Tuple[str, str]] = {}
+    update: Dict[str, Tuple[str, str]] = {}
+    gather: Dict[str, Tuple[str, str]] = {}
+    for node in ir.buckets:
+        key = node["key"]
+        finals = [leg for leg in ir.legs
+                  if leg.bucket == key and f"red:{key}" in leg.writes]
+        if finals and key in pipe:
+            reduce[key] = (re.sub(r"@\d+/", "@{slot}/", finals[0].id),
+                           finals[0].kind)
+        elif finals:
+            reduce[key] = (finals[-1].id, finals[-1].kind)
+        gathers = [leg for leg in ir.legs
+                   if leg.bucket == key and "@gather" in leg.id
+                   and f"param:{key}" in leg.writes]
+        if gathers:
+            gather[key] = (gathers[-1].id, gathers[-1].kind)
+    for leg in ir.legs:
+        if leg.id.startswith("update/"):
+            update[leg.bucket] = (leg.id, leg.kind)
+    return {"reduce": reduce, "update": update, "gather": gather}
+
+
+def stamped_legs(ir, rs_keys) -> List[str]:
+    """The leg ids one step of an unpipelined schedule stamps, in order:
+    each bucket's reduce (bucket order), the guard roll-up, the first
+    reduce-scatter bucket's update (``rs_keys``; the tree update without
+    any), then the gathers in the IR's gather order."""
+    pts = leg_stamp_points(ir)
+    out = [pts["reduce"][n["key"]][0] for n in ir.buckets
+           if n["key"] in pts["reduce"]]
+    if any(leg.id == "guard/rollup" for leg in ir.legs):
+        out.append("guard/rollup")
+    first = rs_keys[0] if rs_keys else "~tree"
+    if first in pts["update"]:
+        out.append(pts["update"][first][0])
+    out += [pts["gather"][k][0] for k, _ in ir.gather_plan()
+            if k in pts["gather"]]
+    return out
+
+
 def make_explicit_step(gi, compiled, extra_metrics_fn=None
                        ) -> "gt.DistributedStep":
     """The explicit bucketed step of ``gi`` under ``compiled`` (see the
@@ -435,6 +492,17 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                  for b in pipe if b.key in reduce_fns}
     by_key = {b.key: b for b in rs_buckets}
     gathers = [by_key[k] for k, _ in ir.gather_plan()]
+
+    # -- flight-recorder leg cursors, resolved when the step is built -------
+    legs_on = flightrec.trace_stamps_enabled()
+    points = leg_stamp_points(ir) if legs_on \
+        else {"reduce": {}, "update": {}, "gather": {}}
+
+    def stamp(group: str, key: str, slot=None) -> None:
+        if key in points[group]:
+            lid, kind = points[group][key]
+            flightrec.traced_stamp(lid, slot=slot, leg_kind=kind,
+                                   device=mesh.device)
 
     # -- bounded staleness and proxies ----------------------------------------
     stale = None
@@ -714,7 +782,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 lambda mb: single(params, mb), slices,
                 lambda off, rows: gt._rows(local, off, rows), has_aux, pipe,
                 issue_fns, quant_fns=qfns,
-                quant_states={k: sync_state[k] for k in qfns})
+                quant_states={k: sync_state[k] for k in qfns},
+                stamp=lambda key, slot: stamp("reduce", key, slot))
         if local is batch:
             return run()
         with data_rows(group, d):
@@ -753,6 +822,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                                sat_count=pipe_sat.get(b.key))
                 reduced[b.key] = red
                 continue
+            stamp("reduce", b.key)
             vec = pack_bucket(b, [grads.pop(n) for n in b.names])
             qsat = sat = None
             if b.key in quant:
@@ -786,6 +856,10 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         ok, mult, fused_mult = True, None, None
         if num_active:
             # ONE all_reduce of every bucket's and variable's partials
+            if legs_on:
+                flightrec.traced_stamp("guard/rollup",
+                                       leg_kind=sir.LEG_PSUM_GUARD,
+                                       device=mesh.device)
             with sync_span("guard_rollup"):
                 all_finite, gnorm, per_bucket, inv_scale, mult = \
                     guard_mod.rollup(health, group if d > 1 else None, loss,
@@ -827,6 +901,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     def _update(params, opt_state, sync_state, grads, reduced, fused_mult):
         """The ZeRO-1 shard update, the tree update, then the gather."""
         if not rs_buckets:
+            stamp("update", "~tree")
             with sync_span("tree_update"):
                 optimizer.step_(params, grads, opt_state)
             return
@@ -837,6 +912,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                     else chunk_of(b, pack_params(leaves, b))
                     for b in rs_buckets}
         z = opt_state["zero1"]
+        stamp("update", rs_buckets[0].key)
         if update_fused:
             # K5, one launch per bucket shard
             with sync_span("fused_shard_update"):
@@ -869,6 +945,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             keep = proxy_names if b.key in proxied and not refresh else ()
             if keep and set(b.names) <= keep:
                 continue
+            stamp("gather", b.key)
             with sync_span(f"param_gather/{b.key}"):
                 full = gather_full(b, p_shards[b.key])
             for n, arr in zip(b.names, unpack_bucket(b, full)):

@@ -350,7 +350,8 @@ def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
                          pipe_buckets: Sequence[Bucket],
                          issue_fns: Dict[str, Callable],
                          quant_fns: Optional[Dict[str, Callable]] = None,
-                         quant_states: Optional[Dict] = None):
+                         quant_states: Optional[Dict] = None,
+                         stamp: Optional[Callable] = None):
     """Software-pipelined gradient accumulation over the microbatches
     ``slices`` (``(offset, rows)``, ``rows_of(off, rows)`` gives one):
     iteration *k* issues the bucket collectives of microbatch *k−1*'s
@@ -372,7 +373,9 @@ def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
     ``issue_fns`` leg thus gives the sequential schedule's value up to the
     order of the sums (bit for bit at data size 1).  ``quant_fns[key](vec,
     state) -> (reduced, new_state, sat)`` runs a quantized bucket's
-    collective, one per slot."""
+    collective, one per slot.  ``stamp(key, slot)``, when given, runs just
+    before each bucket's collective of microbatch ``slot`` (the flight
+    recorder's per-slot leg cursor)."""
     quant_fns = quant_fns or {}
     qstate = dict(quant_states or {})
     length = sum(rows for _, rows in slices)
@@ -389,9 +392,11 @@ def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
         value = w * value.float()
         store[key] = value if key not in store else store[key] + value
 
-    def issue(packed):
+    def issue(packed, slot):
         out = {}
         for key, vec in packed.items():
+            if stamp is not None:
+                stamp(key, slot)
             if key in quant_fns:
                 red, qstate[key], cnt = quant_fns[key](vec, qstate.get(key))
                 qsat[key] = cnt if qsat[key] is None else qsat[key] + cnt
@@ -406,7 +411,7 @@ def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
 
     prev, dtypes = None, {}
     for k, (off, rows) in enumerate(slices):
-        pending = issue(prev) if prev is not None else {}
+        pending = issue(prev, k - 1) if prev is not None else {}
         loss, aux, grads = vg(rows_of(off, rows))
         collect(pending, weights[k - 1] if k else 1.0)
         auxes.append(aux)
@@ -418,7 +423,7 @@ def pipelined_accumulate(vg: Callable, slices: Sequence[Tuple[int, int]],
             dtypes[n] = g.dtype
             add(acc, n, g, weights[k])
         del grads
-    collect(issue(prev), weights[-1])
+    collect(issue(prev, accum - 1), weights[-1])
     div = accum if even else 1
     loss = acc.pop("~loss") / div
     grads = {n: (a / div).to(dtypes[n]) for n, a in acc.items()

@@ -27,7 +27,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("paged_attention.cu", "int8_matmul.cu", "flash_attention.cu",
-           "fused_sync.cu", "quant_hop.cu")
+           "fused_sync.cu", "quant_hop.cu", "leg_cursor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

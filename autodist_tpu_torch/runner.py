@@ -138,9 +138,6 @@ class DistributedSession:
         # step pays one identity check), with the cost model's prediction
         self._telemetry = StepRecorder.create(self._run_id,
                                               predictor=self._predict_cost)
-        # AUTODIST_FLIGHTREC=legs raises here (the leg cursors are the
-        # second half of P8's)
-        flightrec.trace_stamps_enabled()
         ir = dist_step.schedule_ir
         if ir is not None and flightrec.enabled():
             flightrec.set_fingerprint(ir.fingerprint())

@@ -1,7 +1,8 @@
 """Strategy builders (:class:`AllReduce`, :class:`Zero1`, the PS family,
 the partitioned all-reduce builders and :class:`AutoStrategy`, whose
-``search=`` ranks or beam-searches by the cost model), the Strategy IR
-and its compiler."""
+``search=`` ranks or beam-searches by the cost model), the Strategy IR,
+its compiler, and the :class:`ScheduleTuner` that re-searches on drift
+and hot-swaps a running session's schedule."""
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.auto_strategy import AutoStrategy
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
@@ -27,11 +28,8 @@ from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
     import RandomAxisPartitionAR
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
     UnevenPartitionedPS
+from autodist_tpu_torch.strategy.tuner import ScheduleTuner
 from autodist_tpu_torch.strategy.zero1_strategy import Zero1
-from autodist_tpu_torch.const import P8, unported_class
-
-#: the self-tuning loop (``strategy/tuner.py``) is the second half of P8
-ScheduleTuner = unported_class("ScheduleTuner", "the schedule tuner", P8)
 
 __all__ = [
     "AllReduce", "AllReduceSynchronizerConfig", "AutoStrategy",

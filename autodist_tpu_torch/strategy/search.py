@@ -50,8 +50,8 @@ evaluations, and wall time (``wall_budget_s``).
 Everything here is mesh-free (the analyzer's ``{axis: size}`` world);
 nothing runs.  A port of the JAX package's ``strategy/search.py``: the
 same moves, seeds, dedupe and tie-break, so both packages choose the same
-plan under the same constants.  The self-tuning loop around it is the
-second half of ROADMAP P8.
+plan under the same constants.  The self-tuning loop around it is
+:class:`~autodist_tpu_torch.strategy.tuner.ScheduleTuner`.
 """
 from __future__ import annotations
 

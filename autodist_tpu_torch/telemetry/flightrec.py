@@ -10,10 +10,15 @@ box that turns DEAD/WEDGED/crash verdicts into localized diagnoses:
   cursor rides a heartbeat beacon (:func:`beacon_cursor`).  Cursors
   carry the session's schedule-IR fingerprint (:func:`set_fingerprint`),
   and the session publishes its IR into the run directory
-  (:func:`publish_ir`).  The JAX package's leg cursors, stamped from
-  inside the step at the IR's leg boundaries (:func:`traced_stamp`,
-  ``AUTODIST_FLIGHTREC=legs``), are the second half of ROADMAP P8:
-  asking for them raises.
+  (:func:`publish_ir`).  Under ``AUTODIST_FLIGHTREC=legs`` the bucketed
+  step also stamps leg cursors at the IR's leg boundaries, under the
+  IR's leg ids (:func:`traced_stamp`).  On the card such a stamp is
+  stream-ordered: a one-thread kernel (``ops/leg_cursor.py``) writes it
+  into mapped host memory when the device reaches the leg, and the
+  recorder pulls the stamps the device has reached into the ring
+  whenever the ring is read (:func:`add_cursor_source`), so a hang is
+  blamed on the leg the device reached, not on the last one the host
+  enqueued.
 * **Hang localization** — :func:`localize_hang` diffs per-host cursors
   against a schedule's happens-before relation (a pure ancestor-set
   reachability over the IR's legs, given as the JSON a schedule IR
@@ -26,7 +31,8 @@ box that turns DEAD/WEDGED/crash verdicts into localized diagnoses:
   crashes.  ``python -m autodist_tpu_torch.telemetry --hang-report
   <bundle>`` renders one.
 
-Everything here is the standard library: the CLI runs it anywhere.
+Everything here is the standard library (the card's stamps are imported
+only where a stamp is made on the card): the CLI runs it anywhere.
 """
 from __future__ import annotations
 
@@ -163,9 +169,29 @@ class CursorRing:
 
 _ring = CursorRing()
 _fingerprint: Optional[str] = None
+#: callables returning the cursors a device has reached since their last
+#: call (dicts of Cursor fields), pulled into the ring when it is read
+_sources: List[Any] = []
+
+
+def add_cursor_source(fn) -> None:
+    """Register a source of device-side cursors (``ops/leg_cursor.drain``):
+    every read of the ring first records what each source returns."""
+    if fn not in _sources:
+        _sources.append(fn)
+
+
+def _pull() -> None:
+    for fn in list(_sources):
+        try:
+            for d in fn():
+                _ring.record(Cursor(kind="leg", **d))
+        except Exception:  # pragma: no cover - the recorder never raises
+            pass
 
 
 def ring() -> CursorRing:
+    _pull()
     return _ring
 
 
@@ -174,12 +200,6 @@ def set_fingerprint(fp: Optional[str]) -> None:
     (set once per session build)."""
     global _fingerprint
     _fingerprint = fp
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    from autodist_tpu_torch.const import P8, not_ported
-
-    return not_ported(what, P8)
 
 
 def enabled() -> bool:
@@ -213,6 +233,7 @@ def record_cursor(leg: str, *, kind: str = "leg", leg_kind: str = "",
 
 
 def latest_cursor() -> Optional[Cursor]:
+    _pull()
     return _ring.latest()
 
 
@@ -267,6 +288,7 @@ def dump_cursors(directory: str) -> Optional[str]:
     under ``directory`` (the per-host half of a crash bundle)."""
     if not directory:
         return None
+    _pull()
     return _ring.dump(os.path.join(
         directory, f"cursors-{_host()}-{os.getpid()}.jsonl"))
 
@@ -290,6 +312,7 @@ def load_cursors(path: str) -> List[Cursor]:
 
 def reset_for_testing() -> None:
     global _fingerprint
+    _pull()                 # what the devices reached so far goes too
     _ring.clear()
     _fingerprint = None
 
@@ -297,27 +320,38 @@ def reset_for_testing() -> None:
 # -- traced stamps (the runtime-path half) -----------------------------------
 
 def trace_stamps_enabled() -> bool:
-    """Should the step stamp leg-boundary cursors?  The leg cursors are
-    the second half of ROADMAP P8: ``AUTODIST_FLIGHTREC=legs`` (or
-    ``trace``) raises naming it, rather than silently stamping nothing;
-    every other mode is False (the JAX package's ``auto`` picks legs on
-    TPU backends only)."""
+    """Should the bucketed step stamp leg-boundary cursors?
+    ``AUTODIST_FLIGHTREC=legs`` (or ``trace``) forces them on; every other
+    mode is off (the JAX package's ``auto`` picks them on TPU backends
+    only; on the card each stamp is one kernel launch, so the port keeps
+    them opt-in)."""
     if not enabled():
         return False
     from autodist_tpu_torch.const import ENV
 
     mode = (ENV.AUTODIST_FLIGHTREC.val or "auto").strip().lower()
-    if mode in ("legs", "trace"):
-        raise _not_ported("AUTODIST_FLIGHTREC=legs, leg cursors at the "
-                          "schedule IR's leg boundaries")
-    return False
+    return mode in ("legs", "trace")
 
 
-def traced_stamp(leg: str, *, slot: Any = None, leg_kind: str = "") -> None:
-    """The JAX package's in-step leg-boundary stamp, the second half of
-    ROADMAP P8: it raises."""
-    raise _not_ported("flightrec.traced_stamp, leg cursors at the schedule "
-                      "IR's leg boundaries")
+def traced_stamp(leg: str, *, slot: Any = None, leg_kind: str = "",
+                 device: Any = None) -> None:
+    """Stamp a leg-boundary cursor from inside the step.  ``leg`` may hold
+    a ``{slot}`` placeholder, resolved with ``slot`` (the pipelined
+    microbatch index), so per-slot leg ids stay exact.  On a CUDA
+    ``device`` the stamp is stream-ordered (``ops/leg_cursor.stamp``: it
+    lands when the device gets there); elsewhere it is
+    :func:`record_cursor` at once.  Call sites gate on
+    :func:`trace_stamps_enabled` when the step is built."""
+    s = -1 if slot is None else int(slot)
+    if "{slot}" in leg:
+        leg = leg.format(slot=s)
+    if device is not None and getattr(device, "type", None) == "cuda":
+        from autodist_tpu_torch.ops import leg_cursor
+
+        leg_cursor.stamp(device, leg, leg_kind=leg_kind, slot=s,
+                         fingerprint=_fingerprint)
+        return
+    record_cursor(leg, leg_kind=leg_kind, slot=s)
 
 
 # -- schedule-IR publication -------------------------------------------------

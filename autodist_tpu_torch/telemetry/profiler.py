@@ -10,10 +10,12 @@ sync legs one by one, which is what a per-leg calibration regresses:
 * :class:`LegProfiler` — produces LegSamples two ways:
 
   - **timed micro-runs** (:meth:`LegProfiler.profile_ir`): each leg
-    group of a schedule IR timed at its byte size, the second half of
-    ROADMAP P8, so ``profile_ir`` raises; its micro-programs (:meth:`LegProfiler._build_micro`) are
-    ported: the same local computations as the JAX package's, and on a
-    ``torch.distributed`` group of size > 1 the group's real collective;
+    group of a schedule IR timed at its byte size (min of repeats, the
+    device synchronized around each run on the card), one sample per
+    leg, ``predicted_s`` from the leg cost model.  The micro-programs
+    (:meth:`LegProfiler._build_micro`) are the JAX package's local
+    computations, and on a ``torch.distributed`` group of size > 1 the
+    group's real collective;
   - **profiler-trace parsing** (:meth:`LegProfiler.parse_trace`): the
     ``autodist_sync/*`` ranges the bucketed step carries
     (``timeline.sync_span``) read out of the Chrome trace a capture
@@ -204,14 +206,39 @@ class LegProfiler:
     # -- micro-runs --------------------------------------------------------
     def profile_ir(self, ir, *, include_update: bool = True
                    ) -> List[LegSample]:
-        """Timed micro-runs over a schedule IR's leg groups, priced by
-        the leg cost model: the second half of ROADMAP P8, so this
-        raises."""
-        from autodist_tpu_torch.const import P8, not_ported
+        """Timed micro-runs over the IR's leg groups; one
+        :class:`LegSample` per leg (legs of one group share the group's
+        measured time).  ``predicted_s`` is the leg-priced cost model's
+        estimate under the default constants."""
+        from autodist_tpu_torch.strategy.cost_model import leg_cost_s
 
-        raise not_ported("LegProfiler.profile_ir, micro-runs over the "
-                         "schedule IR's legs priced by the leg cost model",
-                         P8)
+        fingerprint = ir.fingerprint()
+        groups: Dict[Tuple, List[Any]] = {}
+        for leg in ir.legs:
+            if leg.kind in ("update", "fused_update") and not include_update:
+                continue
+            key = (leg.kind, leg.alg, leg.dtype, leg.compressor,
+                   leg.axis, int(leg.nbytes))
+            groups.setdefault(key, []).append(leg)
+        out: List[LegSample] = []
+        now = time.time()
+        for (kind, alg, dtype, compressor, axis, nbytes), legs \
+                in groups.items():
+            d = max(int(ir.axes.get(axis, 1)), 1) if axis else 1
+            t = self._time_group(kind, dtype, nbytes, axis, d)
+            if t is None:
+                continue
+            for leg in legs:
+                out.append(LegSample(
+                    schedule_fingerprint=fingerprint, leg_id=leg.id,
+                    kind=kind, measured_s=t, alg=alg, dtype=dtype,
+                    compressor=compressor, axis=axis, slot=int(leg.slot),
+                    nbytes=int(nbytes),
+                    predicted_s=leg_cost_s(leg, ir),
+                    source=SOURCE_MICROBENCH, host=self._host,
+                    time_unix=now))
+        self._set_kind_gauges(out)
+        return out
 
     def _time_group(self, kind: str, dtype: str, nbytes: int,
                     axis: str, d: int) -> Optional[float]:
@@ -397,6 +424,9 @@ def trace_ranges(events: Sequence[dict]) -> List[dict]:
 
 
 def _block(x):
+    """Wait for ``x`` (a tensor or a tuple of them): on the card the
+    device is synchronized, so that a min-of-repeats wall time measures
+    the work and not its enqueue."""
     import torch
 
     leaves = x if isinstance(x, tuple) else (x,)

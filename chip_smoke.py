@@ -173,6 +173,34 @@ Phases, each printing one JSON line:
    the cost model's ``COLLECTIVE_ALPHA``.  The ring's 4 ranks (phase 12)
    then build ``AutoStrategy(search="beam")`` for 4 cards, validate,
    train 1 + 2 steps with the IR's launches and end bit-identical;
+10c. the schedule tuner and its tiers (``tune``), at full width: (a)
+   ``LegProfiler.profile_ir`` on ``train_ps``'s IR, one sample per leg,
+   the median per leg kind, and ``fit_leg_constants`` on those samples
+   and the step records (printed beside the card); (b) ``train_ps``
+   under ``AUTODIST_FLIGHTREC=legs``: one step's leg cursors equal the
+   IR's stamped legs in order (the leg-cursor kernel launched once per
+   stamp), ms per step with legs on and off (median of 10 each), and the
+   stall check: a device-side delay (``torch.cuda._sleep``) enqueued
+   just before the second bucket's reduce, the cursor read from another
+   thread while the device waits must name the first bucket's reduce,
+   while the host has enqueued further; (d) ``fit`` with RAM snapshots
+   every 2 steps mirrored to a peer directory, 2 steps and the
+   uninterrupted 2 more, then a new session resumed from the RAM ring
+   and another from the peer directory, each to the same losses and
+   parameter digest (snapshot seconds and bytes); (e) implicit capture
+   inside ``ad.scope()`` (``optim.adamw``, ``opt.init``,
+   ``torch.func.grad_and_value``), 1 + 2 steps bit for bit the explicit
+   ``capture()``'s.  The ring's 4 ranks (phase 12) run (c) ``tune_swap``:
+   ``AllReduce`` 3 steps, the planted all-reduce drift, ``ScheduleTuner.
+   maybe_retune`` (rank 0 alone searches), a fingerprint-changing swap
+   at an unchanged step, 3 steps, K1–K5 each step as each schedule's IR
+   predicts, one fingerprint and bit-identical parameters on the 4
+   ranks, and an oracle started on the winner from the swap step's
+   snapshot matching the swapped run's losses and parameters bit for
+   bit (the swap's milliseconds and the snapshot's bytes).  The
+   ``kernels`` line gains the leg-cursor kernel (a port-only kernel: the
+   JAX package stamps with a host callback), held against the plain
+   host stamp;
 11. ``Parallax()`` at full width (``train_parallax``): the embedding in a
    reduce-scatter bucket (K5), every other variable in all-reduce buckets
    (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
@@ -302,6 +330,11 @@ exits 1 when one did, and stops at any other failure.
 ``python3 chip_smoke.py --collective-alpha`` measures only the launch
 latency of one collective (the cost model's ``COLLECTIVE_ALPHA``).
 
+``python3 chip_smoke.py --tune`` builds the kernels and runs only the
+``tune`` phase and the ring's ``tune_swap``; ``python3 chip_smoke.py
+--tune-predict`` runs ``tune_swap``'s re-search on ``meta`` tensors on
+the CPU (no card) and prints its winner.
+
 ``python3 chip_smoke.py --p6-lr-control`` builds the kernels and, on the
 ring's 4 ranks, prints rank 0's loss traces of ``train_p6``'s model and
 batch under ``AllReduce()`` (f32 wire) and ``AllReduce(compressor=
@@ -405,6 +438,24 @@ RING_WARMUP, RING_TIMED = 1, 2
 AUTO_RING_CONFIG = "auto_beam"
 #: each ring step's loss against the one-card f32 ``train_zero1`` run's at
 #: the same step (same init, batch, Adam and clip): quantization noise only
+#: the tune phase: the ring configuration of the 4-rank swap drill
+TUNE_RING_CONFIG = "tune_swap"
+#: steps before and after the swap (and the oracle's)
+TUNE_DRILL_STEPS = 3
+#: steps of each legs-on / legs-off median
+TUNE_LEG_STEPS = 10
+#: cycles of the device-side delay of the stall check (~1 s on the H100)
+TUNE_SLEEP_CYCLES = 2_000_000_000
+#: the tiers drill: epochs x steps per epoch before the stop, snapshot
+#: every 2 steps
+TUNE_FIT_EPOCHS, TUNE_FIT_STEPS, TUNE_SNAPSHOT_EVERY = 1, 2, 2
+#: rounds of the drill's re-search (its winner is one move from a seed)
+TUNE_SEARCH_ROUNDS = 1
+#: the leg-cursor kernel (not a TPU kernel: the JAX package's leg cursor
+#: is a host callback)
+LEG_CURSOR_SOURCE = "autodist_tpu_torch/csrc/leg_cursor.cu"
+LEG_CURSOR_REPLACES = ("autodist_tpu/telemetry/flightrec.py:328 "
+                       "(traced_stamp, a host callback: no TPU kernel)")
 RING_LOSS_RTOL = 2e-3
 RING_TIMEOUT_S = 600
 CLIP_NORM = 1.0
@@ -4186,6 +4237,494 @@ def _p6_lr_control(torch) -> dict:
     return out
 
 
+# -- the tune phase: the schedule tuner, leg cursors, tiers, implicit capture
+
+
+def tune_constants():
+    """The ACTIVE calibration the drill's running schedule is priced with:
+    every leg kind at 45 GB/s and 5 us (the JAX package's drill,
+    ``tests/test_search.py:379-466``)."""
+    from autodist_tpu_torch.telemetry.calibration import (LEG_KINDS,
+                                                          LegCalibration)
+
+    cal = LegCalibration()
+    for kind in LEG_KINDS:
+        cal.bandwidths[kind] = 45e9
+        cal.alphas[kind] = 5e-6
+    cal.quant_overhead_per_byte = 0.0
+    return cal
+
+
+def tune_drift_samples():
+    """The planted drift: all_reduce legs 20x slower than the active
+    constants predict (a throttled interconnect), every other kind on its
+    model, six samples per kind at 256 KiB, 1 MiB and 4 MiB."""
+    from autodist_tpu_torch.telemetry.profiler import LegSample
+
+    out = []
+    for nb in (1 << 18, 1 << 20, 4 << 20):
+        for kind in ("all_reduce", "reduce_scatter", "all_gather",
+                     "ps_exchange", "ppermute_hop", "update", "psum_guard"):
+            t = 20 * nb / 45e9 if kind == "all_reduce" else nb / 45e9 + 5e-6
+            out += [LegSample(schedule_fingerprint="planted",
+                              leg_id=f"{kind}/{nb}/{i}", kind=kind,
+                              measured_s=t, nbytes=nb) for i in range(6)]
+    return out
+
+
+class _FixedBuilder:
+    """A builder of one given Strategy (the drill's oracle)."""
+
+    def __init__(self, strategy):
+        self._strategy = strategy
+
+    def build(self, graph_item, resource_spec):
+        return self._strategy
+
+
+def tune_prediction(device: str = "meta", chips: int = RING_RANKS) -> dict:
+    """The 4-rank drill's re-search, run on ``meta`` tensors (no memory,
+    no card): the winner the ScheduleTuner's ``maybe_retune`` would pick
+    on a ``chips``-card spec from AllReduce after :func:`tune_drift_
+    samples`.  ``python3 chip_smoke.py --tune-predict`` prints it."""
+    from autodist_tpu_torch.graph_item import GraphItem
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AllReduce
+    from autodist_tpu_torch.strategy.search import SearchSpace, beam_search
+    from autodist_tpu_torch.telemetry.calibration import (drifted_leg_kinds,
+                                                          fit_leg_constants)
+
+    spec = transformer_lm()
+    gi = GraphItem(spec.init(SEED, device=device),
+                   optimizer=fk.fusable_adam(1e-3), loss_fn=spec.loss_fn,
+                   sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": CLIP_NORM})
+    gi.prepare()
+    rs = ResourceSpec(resource_info={
+        "nodes": [{"address": "localhost", "chips": chips}], "hbm_gb": 80})
+    samples = tune_drift_samples()
+    reasons = drifted_leg_kinds(samples, tune_constants())
+    refit = fit_leg_constants(samples)
+    current = AllReduce().build(gi, rs)
+    t0 = time.perf_counter()
+    result = beam_search(gi, rs, axes={"data": chips},
+                         space=SearchSpace(max_rounds=TUNE_SEARCH_ROUNDS),
+                         constants=refit,
+                         extra_seeds=[("current", current)])
+    cur = next(e for e in result.evaluated if e.name == "seed:current")
+    return {"chips": chips, "drifted_kinds": sorted(reasons),
+            "winner": result.best.name,
+            "winner_fingerprint": result.best.fingerprint,
+            "winner_cost_ms": result.best.cost_s * 1e3,
+            "current_fingerprint": cur.fingerprint,
+            "current_cost_ms": cur.cost_s * 1e3,
+            "winner_sync": sorted({n.synchronizer.kind for n in
+                                   result.best_strategy.node_config}),
+            "evaluated": len(result.evaluated),
+            "search_s": time.perf_counter() - t0}
+
+
+def _tune_ring_train(torch):
+    """The ``tune_swap`` configuration on this rank (4 ranks on one card):
+    ``AllReduce`` with ``fusable_adam`` and the clip at full width, 3
+    steps, the planted drift, ``ScheduleTuner.maybe_retune`` (only rank 0
+    searches; every rank swaps), 3 steps on the winner, then an oracle
+    session started on the winner's Strategy from the anchor snapshot
+    taken at the swap step: its 3 steps must give the swapped run's losses
+    and parameters bit for bit.  K1–K5 each step as each schedule's IR
+    predicts."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.checkpoint.tiers import capture_snapshot
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AllReduce, ScheduleTuner
+    from autodist_tpu_torch.strategy.search import SearchSpace
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    rank = torch.distributed.get_rank()
+    info = _auto_info(torch, RING_RANKS)
+    kw = dict(numerics={"clip_norm": CLIP_NORM}, resource_info=info)
+    _fresh_peak(torch)
+    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                                 AllReduce(), fk.fusable_adam(1e-3), **kw)
+    gi = adm.get_default_autodist().graph_item
+    old_fp = sess.schedule_fingerprint
+    want0 = _ir_predicted_launches(sess.schedule_ir, layers)
+    losses0, _, _, _ = _checked_steps(torch, "tune_swap before", sess, batch,
+                                      want0, 0, TUNE_DRILL_STEPS, True)
+    anchor = capture_snapshot(sess)
+    step0 = sess.step_count
+    tuner = ScheduleTuner(gi, ResourceSpec(resource_info=info),
+                          constants=tune_constants(),
+                          space=SearchSpace(max_rounds=TUNE_SEARCH_ROUNDS),
+                          calibration_path=None)
+    tuner.feed_samples(tune_drift_samples())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swapped = tuner.maybe_retune(sess)
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    new_fp = sess.schedule_fingerprint
+    searched = tuner.last_result is not None
+    if not swapped or new_fp == old_fp or sess.step_count != step0 \
+            or searched != (rank == 0):
+        raise AssertionError(
+            f"tune_swap rank {rank}: swapped {swapped}, fingerprint "
+            f"{old_fp} -> {new_fp}, step {step0} -> {sess.step_count}, "
+            f"searched {searched}")
+    want1 = _ir_predicted_launches(sess.schedule_ir, layers)
+    losses1, _, _, launches = _checked_steps(
+        torch, "tune_swap after", sess, batch, want1, 0, TUNE_DRILL_STEPS,
+        True)
+    digests = _params_digests(sess)
+    strategy = sess._step.compiled_strategy.strategy
+    out = {"from_fingerprint": old_fp, "to_fingerprint": new_fp,
+           "winner": tuner.last_result.best.name if searched else None,
+           "winner_sync": sorted({n.synchronizer.kind
+                                  for n in strategy.node_config}),
+           "searched": searched, "swap_ms": swap_s * 1e3,
+           "swap_in_tuner_ms": tuner.last_swap_s * 1e3,
+           "snapshot_bytes": anchor.nbytes,
+           "moments_exact": tuner.last_swap_exact_opt,
+           "moments_note": tuner.last_swap_note,
+           "step_at_swap": step0, "losses_before": losses0,
+           "losses_after": losses1, "launches_per_step_before": want0,
+           "launches_per_step_after": want1, "launches": launches,
+           "schedule_fingerprint": new_fp}
+    del sess
+    _fresh_peak(torch)
+    oracle, _ = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                               _FixedBuilder(strategy), fk.fusable_adam(1e-3),
+                               **kw)
+    tuner.adopt_snapshot(oracle, anchor, oracle._step)
+    del anchor
+    if oracle.schedule_fingerprint != new_fp or oracle.step_count != step0:
+        raise AssertionError(f"tune_swap oracle: fingerprint "
+                             f"{oracle.schedule_fingerprint}, step "
+                             f"{oracle.step_count}")
+    oracle_losses = [float(oracle.run(batch)["loss"])
+                     for _ in range(TUNE_DRILL_STEPS)]
+    oracle_digests = _params_digests(oracle)
+    if oracle_losses != losses1 or \
+            oracle_digests["params_sha256"] != digests["params_sha256"]:
+        raise AssertionError(f"tune_swap: the oracle's losses "
+                             f"{oracle_losses} / parameters differ from the "
+                             f"swapped run's {losses1}")
+    out.update(oracle_losses_equal=True, oracle_params_equal=True,
+               **digests)
+    return oracle, out
+
+
+def _median_step_ms(torch, sess, batch, steps: int) -> float:
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _tune_leg_profile(torch, spec) -> dict:
+    """(a) ``LegProfiler.profile_ir`` on ``train_ps``'s IR (one sample per
+    leg, the median per leg kind) and ``fit_leg_constants`` on those
+    samples and the session's step records."""
+    from autodist_tpu_torch.telemetry.calibration import fit_leg_constants
+    from autodist_tpu_torch.telemetry.profiler import LegProfiler
+
+    _fresh_peak(torch)
+    sess, batch = _telemetry_session(spec, {})
+    for _ in range(3):
+        sess.run(batch)
+    ir = sess.schedule_ir
+    t0 = time.perf_counter()
+    samples = LegProfiler(mesh=sess.mesh).profile_ir(ir)
+    profile_s = time.perf_counter() - t0
+    if sorted(s.leg_id for s in samples) != sorted(l.id for l in ir.legs):
+        raise AssertionError(f"profile_ir: {len(samples)} samples for "
+                             f"{len(ir.legs)} legs")
+    by_kind = {}
+    for smp in samples:
+        by_kind.setdefault(smp.kind, []).append(smp)
+    fitted = fit_leg_constants(samples, sess.telemetry.records)
+    if fitted is None:
+        raise AssertionError("fit_leg_constants fitted nothing")
+    out = {"legs": len(ir.legs), "samples": len(samples),
+           "profile_s": profile_s,
+           "median_ms_by_kind": {
+               k: statistics.median(x.measured_s for x in v) * 1e3
+               for k, v in sorted(by_kind.items())},
+           "predicted_ms_by_kind": {
+               k: statistics.median(x.predicted_s or 0.0 for x in v) * 1e3
+               for k, v in sorted(by_kind.items())},
+           "fitted": fitted.to_dict()}
+    del sess
+    return out
+
+
+def _leg_cursor_row(torch, launches: int, step_cursor_ok: bool) -> dict:
+    """The leg-cursor kernel held against its plain version (the host
+    stamp, :func:`flightrec.record_cursor`): the same legs in the same
+    order; its device time per stamp from CUDA events over a run of
+    stamps, the plain version's host time per stamp."""
+    from autodist_tpu_torch.ops import leg_cursor
+    from autodist_tpu_torch.telemetry import flightrec as fr
+
+    legs = [f"leg/{i}" for i in range(256)]
+    dev = torch.device("cuda")
+    fr.reset_for_testing()
+    for leg in legs:
+        leg_cursor.stamp(dev, leg)
+    torch.cuda.synchronize()
+    got = [c.leg for c in fr.ring().cursors()]
+    fr.reset_for_testing()
+    for leg in legs:
+        fr.record_cursor(leg)
+    plain = [c.leg for c in fr.ring().cursors()]
+    fr.reset_for_testing()
+    if got != plain:
+        raise AssertionError("leg cursors differ from the plain stamps")
+    n = 1000
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        leg_cursor.stamp(dev, "t")
+    e1.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fr.record_cursor("t")
+    plain_ms = (time.perf_counter() - t0) * 1e3 / n
+    fr.reset_for_testing()
+    bnd, by = bound_ms(16, 0)
+    return {"name": "leg_cursor", "route": "cuda",
+            "source": LEG_CURSOR_SOURCE, "replaces": LEG_CURSOR_REPLACES,
+            "shape": {"stamps": n, "bytes_per_stamp": 16},
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": e0.elapsed_time(e1) / n, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "step_cursors_equal_ir_legs": step_cursor_ok}
+
+
+def _tune_legs(torch, spec) -> dict:
+    """(b) ``train_ps`` under ``AUTODIST_FLIGHTREC=legs``: one step's leg
+    cursors are the IR's stamped legs in order; ms per step with legs on
+    and off (median of 10 each); the stall check: a device-side delay
+    enqueued just before a chosen leg, the cursor read while the device
+    waits names the leg before it, not the last one the host enqueued."""
+    from autodist_tpu_torch.kernel.synchronization.explicit_sync import \
+        stamped_legs
+    from autodist_tpu_torch.ops import leg_cursor
+    from autodist_tpu_torch.telemetry import flightrec as fr
+
+    _fresh_peak(torch)
+    sess, batch = _telemetry_session(spec, {"AUTODIST_FLIGHTREC": "legs"})
+    ir = sess.schedule_ir
+    want = stamped_legs(ir, [b.key for b in sess.zero1_buckets])
+    sess.run(batch)                     # builds the cursor ring
+    fr.reset_for_testing()
+    fr.set_fingerprint(ir.fingerprint())
+    leg_cursor.stamp.calls = 0
+    _reset_all_counts()
+    sess.run(batch)
+    torch.cuda.synchronize()
+    launches = leg_cursor.stamp.calls
+    seen = [c for c in fr.ring().cursors() if c.kind == "leg"]
+    if [c.leg for c in seen] != want or launches != len(want) or any(
+            c.fingerprint != ir.fingerprint() for c in seen):
+        raise AssertionError(f"leg cursors {[c.leg for c in seen]} "
+                             f"({launches} launches), the IR's {want}")
+    on_ms = _median_step_ms(torch, sess, batch, TUNE_LEG_STEPS)
+
+    # the stall: a delay just before the second bucket's reduce leg
+    chosen, before = want[1], want[0]
+    real = fr.traced_stamp
+
+    def delayed(leg, **kw):
+        if leg == chosen:
+            torch.cuda._sleep(TUNE_SLEEP_CYCLES)
+        real(leg, **kw)
+    seen_at = {}
+
+    def watch():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 30:
+            cur = fr.latest_cursor()
+            if cur is not None and cur.kind == "leg" and cur.leg == before:
+                time.sleep(0.2)          # the device is inside the delay
+                seen_at["device"] = fr.latest_cursor().leg
+                seen_at["host"] = leg_cursor.enqueued_leg(sess.mesh.device)
+                return
+            time.sleep(0.002)
+    fr.reset_for_testing()
+    fr.traced_stamp = delayed
+    watcher = threading.Thread(target=watch)
+    try:
+        watcher.start()
+        t0 = time.perf_counter()
+        sess.run(batch)
+        torch.cuda.synchronize()
+        stall_step_s = time.perf_counter() - t0
+    finally:
+        fr.traced_stamp = real
+        watcher.join()
+    if seen_at.get("device") != before or seen_at.get("host") in (None,
+                                                                  before):
+        raise AssertionError(f"stall check: while the device waited before "
+                             f"{chosen}, the cursor read {seen_at}; want "
+                             f"{before} (the host had enqueued further)")
+    del sess
+    _fresh_peak(torch)
+    sess, batch = _telemetry_session(spec, {"AUTODIST_FLIGHTREC": None})
+    sess.run(batch)
+    off_ms = _median_step_ms(torch, sess, batch, TUNE_LEG_STEPS)
+    del sess
+    fr.reset_for_testing()
+    return {"stamped_legs": len(want), "ir_legs": len(ir.legs),
+            "cursors_equal_ir_legs": True, "launches": launches,
+            "legs_on_ms_per_step": on_ms, "legs_off_ms_per_step": off_ms,
+            "stall": {"delayed_before": chosen, "device_cursor":
+                      seen_at["device"], "host_enqueued": seen_at["host"],
+                      "step_s": stall_step_s}}
+
+
+def _tune_tiers(torch, spec) -> dict:
+    """(d) ``fit`` with RAM snapshots every 2 steps mirrored to a peer
+    directory: 2 steps (one snapshot), then the uninterrupted
+    continuation (2 more steps); a new session resumes from the RAM ring
+    and another from the peer directory, each to the same losses and
+    parameters bit for bit."""
+    import shutil
+    import tempfile
+
+    from autodist_tpu_torch.checkpoint.saver import tree_digest
+    from autodist_tpu_torch.checkpoint.tiers import CheckpointTiers
+
+    root = tempfile.mkdtemp(prefix="tune_tiers_")
+    peer = os.path.join(root, "peer")
+    spe, epochs = TUNE_FIT_STEPS, TUNE_FIT_EPOCHS
+    try:
+        _fresh_peak(torch)
+        sess, batch = _telemetry_session(spec, {})
+        tiers = CheckpointTiers(sess, snapshot_every=TUNE_SNAPSHOT_EVERY,
+                                peer_dir=peer)
+        hist = sess.fit(batch, epochs=epochs, steps_per_epoch=spe,
+                        tiers=tiers, log_every=1)
+        snap = tiers.ring.latest()
+        if tiers.ring.steps() != list(range(
+                TUNE_SNAPSHOT_EVERY, spe * epochs + 1, TUNE_SNAPSHOT_EVERY)) \
+                or snap.step != spe * epochs or \
+                hist.resume_tier is not None:
+            raise AssertionError(f"tiers: ring {tiers.ring.steps()}")
+        out = {"snapshot_s": tiers.last_snapshot_s,
+               "snapshot_bytes": snap.nbytes,
+               "peer_files": sorted(os.listdir(os.path.join(peer,
+                                                            tiers.host_id)))}
+        ref = sess.fit(batch, epochs=1, steps_per_epoch=spe, log_every=1)
+        ref_losses = ref.history["loss"]
+        ref_digest = tree_digest(sess.device_params)
+        del sess
+        for tier in ("ram", "peer"):
+            _fresh_peak(torch)
+            sess, batch = _telemetry_session(spec, {})
+            t = CheckpointTiers(sess, peer_dir=peer if tier == "peer"
+                                else None)
+            if tier == "ram":
+                t.ring = tiers.ring     # this process's ring survived
+            t0 = time.perf_counter()
+            hist = sess.fit(batch, epochs=epochs + 1, steps_per_epoch=spe,
+                            tiers=t, log_every=1)
+            wall = time.perf_counter() - t0
+            digest = tree_digest(sess.device_params)
+            if hist.resume_tier != tier or hist.steps_run != spe or \
+                    hist.history["loss"] != ref_losses or \
+                    digest != ref_digest:
+                raise AssertionError(
+                    f"tiers: the {tier} resume ({hist.resume_tier}, "
+                    f"{hist.steps_run} steps, losses {hist.history['loss']}"
+                    f") differs from the uninterrupted {ref_losses}")
+            out[f"{tier}_resume"] = {"losses": hist.history["loss"],
+                                     "params_digest": digest,
+                                     "fit_wall_s": wall, "equal": True}
+            del sess
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tune_implicit(torch, spec) -> dict:
+    """(e) A plain script inside ``ad.scope()``: ``optim.adamw``, its
+    ``init`` on the parameters and ``torch.func.grad_and_value`` of the
+    loss, no ``capture()``; 1 + 2 steps bit for bit the explicit
+    ``capture()``'s."""
+    import torch.func
+
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint.saver import tree_digest
+
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    runs = {}
+    for mode in ("implicit", "explicit"):
+        _fresh_peak(torch)
+        ad = adm.AutoDist()
+        with ad.scope():
+            if mode == "implicit":
+                opt = optim.adamw(1e-3)
+                opt.init(spec.init(SEED))
+                torch.func.grad_and_value(spec.loss_fn)
+            else:
+                ad.capture(params=spec.init(SEED),
+                           optimizer=optim.adamw(1e-3), loss_fn=spec.loss_fn)
+        sess = ad.create_distributed_session()
+        want = _ir_predicted_launches(sess.schedule_ir,
+                                      spec.config["num_layers"])
+        losses, _, _, launches = _checked_steps(
+            torch, f"implicit capture ({mode})", sess, batch, want, 1, 2,
+            False)
+        runs[mode] = {"losses": losses,
+                      "params_digest": tree_digest(sess.device_params),
+                      "launches": launches,
+                      "optimizer_factory": ad._implicit_record
+                      .optimizer_factory if mode == "implicit" else None}
+        del sess, ad
+    if runs["implicit"]["losses"] != runs["explicit"]["losses"] or \
+            runs["implicit"]["params_digest"] != \
+            runs["explicit"]["params_digest"]:
+        raise AssertionError(f"implicit capture {runs['implicit']} differs "
+                             f"from explicit {runs['explicit']}")
+    return dict(runs, equal=True)
+
+
+def phase_tune(torch, smi) -> tuple:
+    """P8's second half at full width on one card: (a) the leg profile
+    and the fitted constants, (b) the leg cursors, (d) the RAM and peer
+    tiers, (e) implicit capture; the 4-rank swap drill (c) runs with the
+    ring ranks.  The result and the leg-cursor kernel's row."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm()
+    out, seconds = {"card": smi}, {}
+    for name, fn in (("leg_profile", _tune_leg_profile),
+                     ("leg_cursors", _tune_legs),
+                     ("tiers", _tune_tiers),
+                     ("implicit_capture", _tune_implicit)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, spec)
+        seconds[name] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    legs = out["leg_cursors"]
+    row = _leg_cursor_row(torch, legs["launches"],
+                          legs["cursors_equal_ir_legs"])
+    out["seconds"] = seconds
+    return out, row
+
+
 def ring_worker(rank: int, init: str, mode: str) -> int:
     """One rank of the ``train_ring`` phase (``mode`` "smoke"), or of
     ``--p6-lr-control`` ("lr_control"): prints ``RING_RESULT`` and its
@@ -4203,6 +4742,11 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
         out = {"rank": rank}
         if mode == "lr_control":
             out["lr_control"] = _p6_lr_control(torch)
+            print("RING_RESULT " + json.dumps(out), flush=True)
+            return 0
+        if mode == "tune":
+            sess, out[TUNE_RING_CONFIG] = _tune_ring_train(torch)
+            del sess
             print("RING_RESULT " + json.dumps(out), flush=True)
             return 0
         for name, builder, opt in (
@@ -4227,6 +4771,9 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
             del sess
             torch.cuda.empty_cache()
         sess, out[AUTO_RING_CONFIG] = _auto_ring_train(torch)
+        del sess
+        torch.cuda.empty_cache()
+        sess, out[TUNE_RING_CONFIG] = _tune_ring_train(torch)
         del sess
         torch.cuda.empty_cache()
         print("RING_RESULT " + json.dumps(out), flush=True)
@@ -4350,10 +4897,21 @@ def phase_train_ring(mode: str = "smoke"):
                                f"{(stderr or '')[-4000:]}")
         results.append(json.loads(last[0][len("RING_RESULT "):]))
     wall = time.perf_counter() - t0
+    if mode == "tune":
+        _check_rank_results(results, (TUNE_RING_CONFIG,))
+        return results[0], wall, None
     if mode != "smoke":
         return results[0], wall, None
-    for config in RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS \
-            + (AUTO_RING_CONFIG,):
+    _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
+                        + (AUTO_RING_CONFIG, TUNE_RING_CONFIG))
+    return results[0], wall, [res["fused_vs_unfused"] for res in results]
+
+
+def _check_rank_results(results, configs) -> None:
+    """Every rank's parameters hash the same after each configuration, and
+    every rank launched the same; the search configurations end on one
+    schedule fingerprint, and only rank 0 searched the tuner's drill."""
+    for config in configs:
         digests = {res[config]["params_sha256"] for res in results}
         if len(digests) != 1:
             each = [res[config]["param_sha256"] for res in results]
@@ -4370,11 +4928,16 @@ def phase_train_ring(mode: str = "smoke"):
             if res[config]["launches"] != results[0][config]["launches"]:
                 raise AssertionError(f"{config}: ranks launched "
                                      f"differently")
-    fps = [res[AUTO_RING_CONFIG]["schedule_fingerprint"] for res in results]
-    if len(set(fps)) != 1:
-        raise AssertionError(f"{AUTO_RING_CONFIG}: schedule fingerprints by "
-                             f"rank {fps}")
-    return results[0], wall, [res["fused_vs_unfused"] for res in results]
+    for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG} & set(configs):
+        fps = [res[config]["schedule_fingerprint"] for res in results]
+        if len(set(fps)) != 1:
+            raise AssertionError(f"{config}: schedule fingerprints by rank "
+                                 f"{fps}")
+    if TUNE_RING_CONFIG in configs and [
+            res[TUNE_RING_CONFIG]["searched"] for res in results] != [
+                True] + [False] * (len(results) - 1):
+        raise AssertionError(f"{TUNE_RING_CONFIG}: not rank 0 alone "
+                             f"searched")
 
 
 def phase_flash_bert(torch, timer):
@@ -5053,6 +5616,27 @@ def p6_lr_control(torch) -> int:
     return 0
 
 
+def tune_only(torch) -> int:
+    """``--tune``: the kernels' build and the tune phase alone (its one-card
+    parts and the 4-rank swap drill), for work on that phase."""
+    from autodist_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "build_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tune_out, leg_row = phase_tune(torch, smi)
+    emit({"phase": "tune", "wall_s": time.perf_counter() - t0, **tune_out})
+    ring, wall, _ = phase_train_ring("tune")
+    emit({"phase": "tune", "config": TUNE_RING_CONFIG, "wall_s": wall,
+          **ring[TUNE_RING_CONFIG]})
+    emit({"kernels": [leg_row]})
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5060,9 +5644,16 @@ def main() -> int:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         return ring_worker(int(args["--ring-rank"]), args["--ring-init"],
                            args["--ring-mode"])
+    if "--tune-predict" in sys.argv:
+        # the CPU's prediction for the tune phase's 4-rank drill (meta
+        # tensors: no card needed)
+        emit({"phase": "tune_predict", **tune_prediction()})
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--tune" in sys.argv:
+        return tune_only(torch)
     if "--p6-lr-control" in sys.argv:
         return p6_lr_control(torch)
     if "--collective-alpha" in sys.argv:
@@ -5158,6 +5749,9 @@ def main() -> int:
     emit({"phase": "telemetry", "card": smi, **telemetry_out})
     auto_out = phase_auto(torch, ps_out)
     emit({"phase": "auto", "card": smi, **auto_out})
+    t0 = time.perf_counter()
+    tune_out, leg_row = phase_tune(torch, smi)
+    emit({"phase": "tune", "wall_s": time.perf_counter() - t0, **tune_out})
     for row in flash_rows:
         row["launches_by_path"] = {"train_fit": {
             "launches": fit_out["launches"][row["name"]],
@@ -5242,6 +5836,16 @@ def main() -> int:
         row["launches_by_path"][AUTO_RING_CONFIG + " (rank 0)"] = {
             "launches": auto_ring["launches"][row["name"]],
             "per_step": auto_ring["launches_per_step"][row["name"]]}
+    tune_ring = ring[TUNE_RING_CONFIG]
+    emit({"phase": "tune", "config": TUNE_RING_CONFIG, "card": smi,
+          "ranks": RING_RANKS, "params_identical_across_ranks": True,
+          "ms_label": "4 ranks time-sharing one card over gloo "
+                      "(host-staged wire)", **tune_ring})
+    for row in sync_rows + flash_rows:
+        row["launches_by_path"][TUNE_RING_CONFIG + " after the swap (rank 0)"
+                                ] = {
+            "launches": tune_ring["launches"][row["name"]],
+            "per_step": tune_ring["launches_per_step_after"][row["name"]]}
     for config in P6_CONFIGS:
         emit({"phase": "train_p6", "config": config, "card": smi,
               "ranks": RING_RANKS,
@@ -5346,7 +5950,8 @@ def main() -> int:
             for name, out in examples_out["twins"].items()
             if out["launches"].get(row["name"])})
 
-    emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10],
+    emit({"kernels": flash_rows + sync_rows + quant_rows + [k9, k10,
+                                                           leg_row],
           "card": smi, "serving_slice_s": serving_slice_s,
           "examples_s": examples_out["seconds"],
           "total_s": time.perf_counter() - t_start})

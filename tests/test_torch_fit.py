@@ -18,7 +18,10 @@ against the JAX package on the CPU.
   harness's injected spike), the failure marker in the supervisor's
   format, an exhausted rollback budget; ``StepHealthMonitor`` against
   the JAX one on the same observations;
-* the options still to port raise, naming their ROADMAP item.
+* the options that raised naming their ROADMAP item until P8's second
+  half (``tuner``, ``tiers``, ``snapshot_every``, ``snapshot_keep``,
+  ``snapshot_dir``) now train (``tests/test_torch_tiers.py`` and
+  ``tests/test_torch_tuner.py`` hold them to the JAX package).
 """
 import os
 import signal
@@ -42,6 +45,7 @@ from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
 from autodist_tpu_torch.checkpoint import Saver
+from autodist_tpu_torch.checkpoint.tiers import CheckpointTiers
 from autodist_tpu_torch.const import P8
 from autodist_tpu_torch.fit import Callback, History, TimeHistory
 from autodist_tpu_torch.graph_item import flatten
@@ -614,19 +618,33 @@ def test_step_health_monitor_matches_jax():
 
 
 _UNPORTED_FIT = [
-    (dict(tuner=object()), P8),
-    (dict(tiers=object()), "P9 — telemetry and resilience"),
-    (dict(snapshot_every=2), "P9 — telemetry and resilience"),
-    (dict(snapshot_keep=2), "P9 — telemetry and resilience"),
-    (dict(snapshot_dir="snapshots"), "P9 — telemetry and resilience"),
+    (lambda tmp: dict(tuner=_tuner()), P8),
+    (lambda tmp: dict(tiers=CheckpointTiers(snapshot_every=1)),
+     "P9 — telemetry and resilience"),
+    (lambda tmp: dict(snapshot_every=2), "P9 — telemetry and resilience"),
+    (lambda tmp: dict(snapshot_keep=2), "P9 — telemetry and resilience"),
+    (lambda tmp: dict(snapshot_dir=str(tmp / "snapshots")),
+     "P9 — telemetry and resilience"),
 ]
 
 
-# the ids the cases have had since ``validate=True`` (option0) was ported
+def _tuner():
+    from autodist_tpu_torch.autodist import get_default_autodist
+    from autodist_tpu_torch.strategy import ScheduleTuner
+
+    ad = get_default_autodist()
+    return ScheduleTuner(ad.graph_item, ad.resource_spec, interval=1,
+                         profile=False, calibration_path=None)
+
+
+# the ids the cases have had since ``validate=True`` (option0) was ported;
+# each option raised naming its ROADMAP item until P8's second half
+# brought the tuner and the checkpoint tiers: each now trains
 @pytest.mark.parametrize("option,item", _UNPORTED_FIT, ids=[
     f"option{i + 1}-{item}" for i, (_, item) in enumerate(_UNPORTED_FIT)])
-def test_unported_fit_options_raise_naming_their_item(option, item):
+def test_unported_fit_options_raise_naming_their_item(option, item,
+                                                      tmp_path):
     sess = _make_session()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        sess.fit(_batches(2), epochs=1, **option)
-    assert sess.step_count == 0
+    hist = sess.fit(_batches(2), epochs=1, **option(tmp_path))
+    assert hist.steps_run == 2 and sess.step_count == 2
+    assert np.isfinite(hist.history["epoch_loss"][-1])

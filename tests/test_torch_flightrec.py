@@ -11,9 +11,10 @@
 * crash bundles: written by the port, read and rendered by either
   package; the port's ``--hang-report`` CLI; the fatal handlers armed in
   a child process;
-* the session's step cursors, and what waits on the schedule IR (ROADMAP
-  P8) refused: ``traced_stamp``, ``publish_ir``, ``set_fingerprint`` and
-  ``AUTODIST_FLIGHTREC=legs``.
+* the session's step cursors; ``publish_ir`` and ``set_fingerprint``;
+  ``traced_stamp`` and ``AUTODIST_FLIGHTREC=legs``, which raised naming
+  P8 until its second half, stamp leg cursors now
+  (``tests/test_torch_legs.py`` holds them to the JAX package's).
 """
 import json
 import os
@@ -34,7 +35,6 @@ from autodist_tpu.telemetry import events as jev
 from autodist_tpu.telemetry import flightrec as jfr
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
-from autodist_tpu_torch.const import P8
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.ops.fused_kernels import fusable_adam
 from autodist_tpu_torch.strategy import Zero1
@@ -304,15 +304,21 @@ def test_fatal_handlers_dump_a_bundle_in_a_child(tmp_path):
     assert any(f.startswith("fatal-") for f in os.listdir(run_dir))
 
 
-# -- the schedule IR's hooks; the leg cursors wait (P8, second half) ---------
+# -- the schedule IR's hooks and the leg cursors ------------------------------
 
 @pytest.mark.parametrize("call", [
     pytest.param(lambda: fr.traced_stamp("leg"), id="<lambda>0"),
 ])
 def test_schedule_ir_stamps_raise_naming_p8(call):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {P8}"):
+    """``traced_stamp`` raised naming P8 until its second half: on the CPU
+    it records a leg cursor at once."""
+    fr.set_fingerprint("f00")
+    try:
         call()
-    fr.set_fingerprint(None)
+        cur = fr.latest_cursor()
+        assert (cur.leg, cur.kind, cur.fingerprint) == ("leg", "leg", "f00")
+    finally:
+        fr.set_fingerprint(None)
 
 
 def test_fingerprint_stamps_cursors_and_ir_publishes_as_the_jax_package(
@@ -346,9 +352,7 @@ def test_fingerprint_stamps_cursors_and_ir_publishes_as_the_jax_package(
 @pytest.mark.parametrize("mode", ["legs", "trace", "host", "auto", "", "0"])
 def test_flightrec_legs_mode_raises_the_others_stamp_no_legs(mode,
                                                              monkeypatch):
+    """``legs`` and ``trace`` raised naming P8 until its second half: they
+    turn the leg cursors on now; every other mode leaves them off."""
     monkeypatch.setenv("AUTODIST_FLIGHTREC", mode)
-    if mode in ("legs", "trace"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP: {P8}"):
-            fr.trace_stamps_enabled()
-    else:
-        assert fr.trace_stamps_enabled() is False
+    assert fr.trace_stamps_enabled() is (mode in ("legs", "trace"))

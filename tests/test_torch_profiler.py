@@ -12,7 +12,7 @@ JAX package's on the CPU.
 * ``parse_trace``'s choice on a trace with device events (the device
   ranges only) and on another profiler's trace;
 * the micro-runs: the local programs compute what the JAX package's do
-  (rtol 1e-6), ``_time_group`` times them, ``profile_ir`` raises (P8);
+  (rtol 1e-6), ``_time_group`` times them, ``profile_ir`` samples every leg;
 * ``fit_leg_constants`` (planted, quantized, with records),
   ``calibration.json`` and its discovery, equal to the JAX package's;
 * ``export_trace``, the registry snapshots' merge, ``per_host_step_stats``
@@ -39,7 +39,6 @@ from autodist_tpu.telemetry import profiler as jprof
 from autodist_tpu.telemetry import registry as jreg
 from autodist_tpu.telemetry import timeline as jtl
 from autodist_tpu.telemetry import trace_export as jte
-from autodist_tpu_torch.const import P8
 from autodist_tpu_torch.telemetry import __main__ as cli
 from autodist_tpu_torch.telemetry import aggregate as agg
 from autodist_tpu_torch.telemetry import calibration as cal
@@ -244,8 +243,15 @@ def test_micro_run_local_programs_compute_what_jax_does(kind):
 
 
 def test_profile_ir_raises_naming_p8():
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {P8}"):
-        prof.LegProfiler().profile_ir(object())
+    """``profile_ir`` raised naming P8 until its second half was ported:
+    it now gives one sample per leg (``tests/test_torch_legs.py`` holds
+    it to the JAX package's)."""
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+
+    ir = sir.build_schedule_ir(axes={"data": 4}, guard=True, per_var=[
+        sir.PerVarEntry(name="w", dtype="float32", nbytes=64)])
+    samples = prof.LegProfiler(warmup=1, repeats=1).profile_ir(ir)
+    assert [s.leg_id for s in samples] == [leg.id for leg in ir.legs]
 
 
 # -- leg calibration ---------------------------------------------------------

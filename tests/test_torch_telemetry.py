@@ -14,8 +14,8 @@
   session wrote;
 * the session: ``session.telemetry`` (None under ``AUTODIST_TELEMETRY=0``,
   with the same losses bit for bit), ``fit``'s phases, health, goodput
-  and journal events, ``AUTODIST_FLIGHTREC=legs`` refused (P8), the plan
-  dump; the JAX package's session tests on 2 gloo ranks (records flushed
+  and journal events, ``AUTODIST_FLIGHTREC=legs`` stamping the IR's
+  legs, the plan dump; the JAX package's session tests on 2 gloo ranks (records flushed
   to the env directory, ``AUTODIST_TRACE_AT`` windows, ``fit``'s phases,
   telemetry on against off);
 * the server's ``/metrics`` and request spans on the paged engine.
@@ -49,7 +49,6 @@ from autodist_tpu.telemetry import trace_export as jte
 from autodist_tpu.utils.tracing import _parse_trace_at as jparse_trace_at
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
-from autodist_tpu_torch.const import P8
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.ops.fused_kernels import fusable_adam
 from autodist_tpu_torch.strategy import Zero1
@@ -553,9 +552,18 @@ def test_skip_and_rollback_are_journaled(tmp_path):
 
 
 def test_flightrec_legs_and_plan_dump(monkeypatch, tmp_path):
+    """``AUTODIST_FLIGHTREC=legs`` refused naming P8 until its second
+    half: the session builds and its step stamps the IR's legs now."""
+    from autodist_tpu_torch.telemetry import flightrec
+
     monkeypatch.setenv("AUTODIST_FLIGHTREC", "legs")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {P8}"):
-        _lm_session()
+    flightrec.reset_for_testing()
+    sess, batch = _lm_session()
+    sess.run(batch)
+    legs = {leg.id for leg in sess.schedule_ir.legs}
+    seen = [c.leg for c in flightrec.ring().cursors() if c.kind == "leg"]
+    assert seen and set(seen) <= legs
+    flightrec.reset_for_testing()
     monkeypatch.delenv("AUTODIST_FLIGHTREC")
     monkeypatch.setenv("AUTODIST_DUMP_GRAPHS", "1")
     monkeypatch.setattr(tracing, "DEFAULT_GRAPH_DIR", str(tmp_path))

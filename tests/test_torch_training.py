@@ -404,10 +404,14 @@ def test_unported_factory_options_and_fit_raise():
     ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.sgd(0.1),
                loss_fn=spec.loss_fn)
     sess = ad.create_distributed_session()
-    # validate=True runs since P8's first half; the tuner is its second
-    with pytest.raises(NotImplementedError, match="ROADMAP: P8, second half"):
-        sess.fit([spec.sample_batch(2)], validate=True, tuner=object())
-    assert sess.step_count == 0
+    # validate=True runs since P8's first half, the tuner since its second
+    # (it raised naming P8 until then)
+    from autodist_tpu_torch.strategy import ScheduleTuner
+
+    tuner = ScheduleTuner(ad.graph_item, ad.resource_spec, interval=1,
+                          profile=False, calibration_path=None)
+    sess.fit([spec.sample_batch(2)], validate=True, tuner=tuner)
+    assert sess.step_count == 1 and tuner.swaps == 0
 
 
 def test_autodist_defaults_to_ps_load_balancing(jmodel):

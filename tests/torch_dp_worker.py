@@ -90,6 +90,14 @@ candidate (``max_evals=1``): a rank that searched on its own would stop
 there, as a search stops on its wall-clock budget on a slower host, and
 would pick another plan.
 
+``tune`` (4 ranks, no ``IN``) trains ``AllReduce`` 3 steps, feeds rank 0
+drifted leg samples and the others on-model ones, runs
+``ScheduleTuner.maybe_retune`` on every rank and 3 more steps, asks a
+swap with a rank-local strategy on rank 1, replays the swap step's
+snapshot on an oracle session of the winner, and restores a
+``PSLoadBalancing`` session (its ``embed`` stored 1/N) from a snapshot
+(:func:`tune_main`).
+
 Each rank runs one intra-op thread: ranks do not contend for the host's
 cores, and the sums come out the same on any host.
 """
@@ -1183,6 +1191,98 @@ def auto_main(data):
             **{f"p:{k}": v for k, v in flatten(sess.params)}}
 
 
+def tune_main():
+    """The ``tune`` mode: the ScheduleTuner on every rank (see
+    ``tests/test_torch_tuner.py``).  Rank 0 alone is fed the drifted
+    samples (the others on-model ones): its decision is the world's."""
+    from autodist_tpu_torch.autodist import get_default_autodist
+    from autodist_tpu_torch.checkpoint.tiers import (capture_snapshot,
+                                                     load_snapshot)
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import ScheduleTuner
+    from autodist_tpu_torch.strategy.search import SearchSpace
+    from autodist_tpu_torch.telemetry.calibration import (LEG_KINDS,
+                                                          LegCalibration)
+
+    rank = dist.get_rank()
+    active = LegCalibration()
+    for kind in LEG_KINDS:
+        active.bandwidths[kind], active.alphas[kind] = 45e9, 5e-6
+    active.quant_overhead_per_byte = 0.0
+    samples = []
+    for nb in (1 << 18, 1 << 20, 4 << 20):
+        for kind in ("all_reduce", "reduce_scatter", "all_gather",
+                     "ps_exchange", "ppermute_hop", "update", "psum_guard"):
+            slow = 20 if kind == "all_reduce" and rank == 0 else 1
+            samples += [{"kind": kind, "measured_s": slow * nb / 45e9 + 5e-6,
+                         "nbytes": nb} for _ in range(6)]
+    rs = ResourceSpec(resource_info={
+        "nodes": [{"address": "localhost", "chips": dist.get_world_size()}]})
+
+    sess, batch = session("allreduce")
+    gi = get_default_autodist().graph_item
+    old_fp = sess.schedule_fingerprint
+    for _ in range(STEPS):
+        sess.run(batch)
+    anchor = capture_snapshot(sess)
+    tuner = ScheduleTuner(gi, rs, constants=active,
+                          space=SearchSpace(max_rounds=1),
+                          calibration_path=None)
+    tuner.feed_samples(samples)
+    swapped = tuner.maybe_retune(sess)
+    out = {"swapped": swapped, "searched": tuner.last_result is not None,
+           "moments_exact": tuner.last_swap_exact_opt,
+           "old_fp": old_fp, "new_fp": sess.schedule_fingerprint,
+           "step_after_swap": sess.step_count}
+    out["losses"] = np.array([float(sess.run(batch)["loss"])
+                              for _ in range(STEPS)])
+    params = dict(flatten(sess.params))
+    out.update({f"p:{k}": v for k, v in params.items()})
+    strategy = sess._step.compiled_strategy.strategy
+
+    # a rank-local decision: rank 1 asks for another strategy
+    local = strategy if rank != 1 else port_strategy.AllReduce().build(
+        gi, rs)
+    try:
+        tuner.hot_swap(sess, local)
+        out["local_decision_raised"] = False
+    except RuntimeError:
+        out["local_decision_raised"] = True
+    out["fp_after_local"] = sess.schedule_fingerprint
+    del sess
+
+    class Fixed:
+        def build(self, graph_item, resource_spec):
+            return strategy
+
+    _reset_default_autodist_for_testing()
+    spec = transformer_lm(**CFG)
+    ad = AutoDist(strategy_builder=Fixed(), device="cpu")
+    with ad.scope():
+        ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.adam(
+            1e-2), loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars)
+    oracle = ad.create_distributed_session()
+    tuner.adopt_snapshot(oracle, anchor, oracle._step)
+    out["oracle_losses"] = np.array([float(oracle.run(batch)["loss"])
+                                     for _ in range(STEPS)])
+    got = dict(flatten(oracle.params))
+    out["oracle_params_equal"] = all(np.array_equal(got[n], v)
+                                     for n, v in params.items())
+    del oracle
+
+    # a 1/N-stored session's snapshot restores exactly
+    ps, batch = session("PSLoadBalancing")
+    out["stored"] = bool(ps.stored_buckets)
+    for _ in range(2):
+        ps.run(batch)
+    snap = capture_snapshot(ps)
+    first = [float(ps.run(batch)["loss"]) for _ in range(2)]
+    load_snapshot(ps, snap)
+    out["stored_resume_exact"] = first == [float(ps.run(batch)["loss"])
+                                           for _ in range(2)]
+    return out
+
+
 def session(strategy="allreduce", device="cpu"):
     """The facade's session for ``strategy`` in this process, and the
     model's fixed global batch: ``"allreduce"`` (``adam``), ``"zero1"``,
@@ -1296,6 +1396,9 @@ def main():
             return
         if strategy == "auto":
             np.savez(out, **auto_main(np.load(sys.argv[6])))
+            return
+        if strategy == "tune":
+            np.savez(out, **tune_main())
             return
         sess, batch = session(strategy)
         results = [sess.run(batch) for _ in range(STEPS)]
