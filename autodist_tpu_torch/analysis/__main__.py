@@ -12,7 +12,8 @@ GraphItem catalog JSON (``GraphItem.serialize()`` output).  ``strategy``
 is a builder class name from ``autodist_tpu_torch.strategy`` (built
 against the virtual resource spec) or a path to a serialized Strategy
 JSON.  A catalog's variables are ``meta`` tensors: nothing is allocated.
-``--elastic-from`` raises naming P9, as ``analyze(elastic=...)`` does.
+``--elastic-from`` runs the ``elastic/*`` rules, as ``analyze(elastic=...)``
+does.
 Without ``--mesh`` or a resource spec the mesh is the visible CUDA cards
 (one on the CPU).
 
@@ -253,8 +254,7 @@ def main(argv=None) -> int:
                              "data=8) and resumes at --mesh — runs the "
                              "elastic/* rules plus the normal passes on "
                              "the new mesh (ring degeneracy re-check, "
-                             "HBM at the new 1/M; docs/resilience.md); "
-                             "the elastic pass is P9's and raises")
+                             "HBM at the new 1/M)")
     parser.add_argument("--numerics", default=None, metavar="SPEC",
                         help="stamp a numerics-guard config onto the "
                              "program before analyzing (docs/numerics.md)"

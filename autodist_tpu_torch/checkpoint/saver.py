@@ -51,6 +51,19 @@ under the dtype name ``"bfloat16"``.  No Orbax.
 * **Ranks:** every rank takes part in a save (the ZeRO-1 and parameter
   gathers); rank 0
   writes, and the ranks meet at a barrier once the step is committed.
+* **Elastic resume:** a checkpoint whose ZeRO-1 buckets were padded for
+  another data-axis size restores exactly: the bucket membership must
+  match (:func:`~autodist_tpu_torch.resilience.elastic.layout_mismatch`,
+  else :class:`~autodist_tpu_torch.resilience.elastic.ElasticResumeError`),
+  each whole bucket vector is cut back to its ``total`` and re-padded to
+  the session's ``padded_total``, and each rank takes its 1/M chunk
+  (``elastic/reshard`` is journaled).  Compressor sync state restarts
+  across a resize, as in the JAX package.
+* **Heartbeats and chaos:** save, wait and restore run inside
+  ``heartbeat_phase("checkpoint/save"|"checkpoint/wait"|
+  "checkpoint/restore")`` (a long save is not a wedge); the chaos seams
+  :func:`set_storage_stall` and :func:`add_pre_save_hook` are the JAX
+  package's.
 
 Verified-good steps: :meth:`Saver.mark_good` stamps a step that passes a
 (deep) :meth:`Saver.verify` and whose training health the caller vouches
@@ -64,9 +77,7 @@ IR's); a restore whose session executes another schedule logs the drift
 
 :func:`import_logical_state` puts a logical state into the session's
 layout; the RAM and peer tiers (``checkpoint/tiers.py``) restore through
-it too.  Not ported: elastic resume (a checkpoint whose ZeRO-1 bucket
-layout differs from the session's, e.g. written at another data-axis
-size) is P9.
+it too, so they resume across a resize as well.
 """
 from __future__ import annotations
 
@@ -84,12 +95,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.convert import _pack_tree_state, _rank_shard
 from autodist_tpu_torch.graph_item import flatten, unflatten
 from autodist_tpu_torch.kernel.synchronization.stale_sync import (
     MASTER_KEY, STALE_KEYS)
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
+from autodist_tpu_torch.resilience import elastic as elastic_mod
+from autodist_tpu_torch.resilience.elastic import bucket_layout
+from autodist_tpu_torch.resilience.heartbeat import heartbeat_phase
 from autodist_tpu_torch.telemetry import emit_event
 
 log = logging.getLogger(__name__)
@@ -108,6 +121,38 @@ META_FORMAT = 2
 #: one item on the host: ``[(name, payload array, dtype name)]`` and the
 #: tree skeleton (leaves as ``[dtype, shape]``, empty subtrees kept).
 HostItem = Tuple[List[Tuple[str, np.ndarray, str]], Any]
+
+# -- chaos seams (resilience/chaos.py) ---------------------------------------
+# ``storage_stall`` makes saves block; pre-save hooks fire at the top of
+# every Saver.save (``kill@...,during=save`` arms one that exits there).
+_storage_stall_s: float = 0.0
+_pre_save_hooks: list = []
+
+
+def set_storage_stall(seconds: float) -> None:
+    """Make every subsequent save/wait sleep ``seconds`` first — the
+    deterministic slow-storage drill (0 clears it)."""
+    global _storage_stall_s
+    _storage_stall_s = max(float(seconds), 0.0)
+
+
+def add_pre_save_hook(fn) -> None:
+    """Register ``fn(path)`` to run at the top of every save (chaos:
+    kill-during-save).  A drill seam, not a public extension point."""
+    _pre_save_hooks.append(fn)
+
+
+def clear_save_hooks() -> None:
+    global _storage_stall_s
+    _storage_stall_s = 0.0
+    _pre_save_hooks.clear()
+
+
+def _maybe_stall(where: str) -> None:
+    if _storage_stall_s > 0:
+        log.warning("CHAOS storage_stall: %s blocked %.3fs", where,
+                    _storage_stall_s)
+        time.sleep(_storage_stall_s)
 
 
 # -- host copies, digests, files ---------------------------------------------
@@ -238,15 +283,6 @@ def _read_meta(path: str) -> dict:
     return {"step": int(m.group(1)) if m else 0}
 
 
-def bucket_layout(buckets: Sequence) -> List[dict]:
-    """The serializable ZeRO-1 bucket plan the meta records (the JAX
-    package's ``resilience/elastic.py:bucket_layout``)."""
-    return [{"key": b.key, "dtype": str(b.dtype), "total": int(b.total),
-             "padded_total": int(b.padded_total),
-             "vars": [{"name": v.name, "shape": list(v.shape)}
-                      for v in b.vars]} for b in buckets]
-
-
 def _unpack_layout(opt_state, layout: Sequence[dict]) -> Dict[str, Any]:
     """A logical ``{"vars", "zero1"}`` state → the per-variable state of
     a session without ZeRO-1 buckets: each bucket vector cut back into
@@ -271,7 +307,7 @@ def _unpack_layout(opt_state, layout: Sequence[dict]) -> Dict[str, Any]:
 def import_logical_state(session, params, opt_state, step: int, *,
                          zero1_layout: Optional[Sequence[dict]] = None,
                          sync_state=None, source: str = "",
-                         data_axis_size: Optional[int] = None) -> None:
+                         data_axis_size: Optional[int] = None) -> bool:
     """Load a LOGICAL state (``session.export_state()``'s layout: whole
     ZeRO-1 bucket vectors; ``export_sync_state()``'s sync state) into the
     session's own layout, as :meth:`Saver.restore` and the RAM and peer
@@ -282,20 +318,40 @@ def import_logical_state(session, params, opt_state, step: int, *,
     are sliced to the chunk this rank holds (``session._step.
     shard_owner``); a ZeRO-1 state into a session without buckets is cut
     back per variable; a per-variable state into a ZeRO-1 session is
-    packed into its buckets.  A ZeRO-1 layout that differs from the
-    session's raises (elastic resume is P9).  A sync state that does not
-    fit the session's (another strategy or compressor) starts fresh, with
-    a warning, as in the JAX package."""
+    packed into its buckets.  A ZeRO-1 layout padded for another
+    data-axis size is resliced exactly (elastic resume: truncate the old
+    zero pad, re-pad, take this rank's chunk; ``elastic/reshard`` is
+    journaled); one whose bucket membership differs raises
+    :class:`~autodist_tpu_torch.resilience.elastic.ElasticResumeError`.
+    A sync state that does not fit the session's (another strategy or
+    compressor, or a resized mesh) starts fresh, with a warning, as in
+    the JAX package.  Returns True when the state was resliced."""
     d, _, rank = Saver._mesh(session)
     old = list(zero1_layout or [])
     new = tuple(session.zero1_buckets or ())
+    resliced = False
     if old and new:
-        if old != bucket_layout(new):
-            raise not_ported(
-                f"restoring {source or 'a state'}: its ZeRO-1 bucket layout "
-                f"(written at data-axis size {data_axis_size}) differs from "
-                f"this session's (size {d}); elastic resume",
-                "P9 — telemetry and resilience")
+        check_layout(old, new, source)
+        repad = elastic_mod.needs_reshard(old, new)
+        resliced = repad or (data_axis_size is not None
+                             and int(data_axis_size) != d)
+        t0 = time.perf_counter()
+        if repad:
+            opt_state = elastic_mod.reshard_opt_state(opt_state, old,
+                                                      session)
+        if resliced:
+            moved = sum(int(x.numel()) * x.element_size()
+                        for slot in opt_state["zero1"].values()
+                        if isinstance(slot, dict) for x in slot.values())
+            log.info("elastic resume: resliced %d ZeRO-1 optimizer "
+                     "bucket(s) from data-axis %s to %s (exact — only zero "
+                     "padding changed)", len(old), data_axis_size, d)
+            emit_event("elastic/reshard", path=source, buckets=len(old),
+                       from_axis=data_axis_size, to_axis=int(d),
+                       repadded=sum(int(o["padded_total"]) != b.padded_total
+                                    for o, b in zip(old, new)),
+                       bytes=int(moved),
+                       duration_s=round(time.perf_counter() - t0, 6))
         by_key = {b.key: b for b in new}
         owner = session._step.shard_owner
         opt_state = dict(opt_state, zero1={
@@ -311,6 +367,19 @@ def import_logical_state(session, params, opt_state, step: int, *,
     if sync_state is not None:
         sync_state = _sync_for(session, sync_state, source)
     session.import_state(params, opt_state, int(step), sync_state=sync_state)
+    return resliced
+
+
+def check_layout(old: Sequence[dict], new: Sequence, source: str) -> None:
+    """Raise :class:`~autodist_tpu_torch.resilience.elastic.
+    ElasticResumeError` when the writer's ZeRO-1 layout ``old`` cannot map
+    onto the session's buckets ``new`` (another bucket membership)."""
+    mismatch = elastic_mod.layout_mismatch(old, new)
+    if mismatch:
+        raise elastic_mod.ElasticResumeError(
+            f"cannot resume {source or 'a state'}: {mismatch}; elastic "
+            "resume requires the same bucket membership (same "
+            "bucket_bytes / variable catalog) at any axis size")
 
 
 def _sync_for(session, saved, source) -> Optional[Dict[str, Any]]:
@@ -367,7 +436,7 @@ def _log_schedule_drift(meta: dict, session, path: str) -> None:
         "session executes %s%s", path, old_fp, new_fp,
         " — same mesh, so the sync config itself drifted "
         "(bucket_bytes/overlap/compressor/guard)" if same_mesh
-        else " (expected across a mesh resize)")
+        else " (expected across an elastic mesh resize)")
 
 
 class Saver:
@@ -422,7 +491,15 @@ class Saver:
     def wait(self) -> None:
         """Block until the in-flight async save is durable, apply its good
         mark and the retention, then meet the other ranks (so none reads
-        the directory before rank 0 is done with it)."""
+        the directory before rank 0 is done with it).  Phase-tagged on
+        the heartbeat beacon: a long storage stall here reads as a
+        checkpoint wait, not a wedge."""
+        with heartbeat_phase("checkpoint/wait"):
+            _maybe_stall("Saver.wait")
+            self._settle()
+
+    def _settle(self) -> None:
+        """:meth:`wait`'s body, without the phase and the chaos stall."""
         pending = self._thread is not None
         self._join()
         self._apply_pending_mark()
@@ -601,10 +678,26 @@ class Saver:
         if session is None:
             raise ValueError("Saver has no bound session")
         self._session = session
-        self.wait()                 # one save in flight at most
         t_save = time.perf_counter()
         step = session.step_count if step is None else int(step)
         path = self._step_dir(directory, step)
+        for hook in list(_pre_save_hooks):   # chaos: kill-during-save
+            hook(path)
+        with heartbeat_phase("checkpoint/save", step):
+            _maybe_stall("Saver.save")
+            self._settle()              # one save in flight at most
+            self._save(session, directory, step, path, t_save, extra_meta,
+                       mark_good)
+        # journaled as in the JAX package: an async save's duration is its
+        # snapshot and dispatch; durability lands at the next wait or save
+        emit_event("checkpoint/save", step=int(step), path=path,
+                   duration_s=round(time.perf_counter() - t_save, 6),
+                   async_save=self._async, mark_good=mark_good)
+        return path
+
+    def _save(self, session, directory: str, step: int, path: str,
+              t_save: float, extra_meta: Optional[dict],
+              mark_good: bool) -> None:
         d, _, rank = self._mesh(session)
         # every rank takes part in the gathers; rank 0 copies and writes
         params, opt_state = session.export_state()
@@ -648,12 +741,6 @@ class Saver:
             self.last_persist_s = time.perf_counter() - t_save
             self._maybe_gc()
             self._barrier(session)
-        # journaled as in the JAX package: an async save's duration is its
-        # snapshot and dispatch; durability lands at the next wait or save
-        emit_event("checkpoint/save", step=int(step), path=path,
-                   duration_s=round(time.perf_counter() - t_save, 6),
-                   async_save=self._async, mark_good=mark_good)
-        return path
 
     def _write_guarded(self, t_save: float, *args) -> None:
         try:
@@ -693,33 +780,42 @@ class Saver:
         vectors sliced to this rank's shards; a ZeRO-1 checkpoint into a
         session without buckets unpacked per variable; a per-variable
         state into a ZeRO-1 session packed into its buckets.  A ZeRO-1
-        layout that differs from the session's raises (elastic resume is
-        P9).  A sync state that does not fit the session's (another
-        strategy or compressor) is started fresh, with a warning, as in
-        the JAX package."""
+        layout padded for another data-axis size is resliced exactly
+        (elastic resume, ``resilience/elastic.py``); one whose bucket
+        membership differs raises :class:`~autodist_tpu_torch.resilience.
+        elastic.ElasticResumeError`.  A sync state that does not fit the
+        session's (another strategy or compressor) is started fresh, with
+        a warning, as in the JAX package."""
         session = session or self._session
         if session is None:
             raise ValueError("Saver has no bound session")
-        self.wait()                 # an in-flight save lands first
         t_restore = time.perf_counter()
+        with heartbeat_phase("checkpoint/restore"):
+            return self._restore(session, path, t_restore)
+
+    def _restore(self, session, path: str, t_restore: float) -> int:
+        self._settle()              # an in-flight save lands first
         path = os.path.abspath(path)
         meta = self.read_meta(path)
+        if meta.get("zero1_buckets") and session.zero1_buckets:
+            # a layout that cannot be resliced fails before any read
+            check_layout(meta["zero1_buckets"], session.zero1_buckets, path)
         sync_state = None
         if meta.get("has_sync_state") and \
                 os.path.isdir(os.path.join(path, "sync_state")):
             sync_state = read_item(path, "sync_state")
         step = int(meta.get("step", 0))
-        import_logical_state(session, read_item(path, "params"),
-                             read_item(path, "opt_state"), step,
-                             zero1_layout=meta.get("zero1_buckets"),
-                             sync_state=sync_state, source=path,
-                             data_axis_size=meta.get("data_axis_size"))
+        resliced = import_logical_state(
+            session, read_item(path, "params"), read_item(path, "opt_state"),
+            step, zero1_layout=meta.get("zero1_buckets"),
+            sync_state=sync_state, source=path,
+            data_axis_size=meta.get("data_axis_size"))
         _log_schedule_drift(meta, session, path)
         if session.mesh.device.type == "cuda":
             torch.cuda.synchronize(session.mesh.device)
         emit_event("checkpoint/restore", step=step, path=path,
                    duration_s=round(time.perf_counter() - t_restore, 6),
-                   elastic=False)
+                   elastic=resliced)
         return step
 
     @staticmethod

@@ -28,18 +28,18 @@ Every tier restores through the Saver's logical-to-session import
 (:func:`~autodist_tpu_torch.checkpoint.saver.import_logical_state`): this
 rank's ZeRO-1 shards come out as a Saver restore gives them, a variable
 stored 1/N is cut to this rank's part, and the stale and proxy state
-goes back to its own layout.  A snapshot's ZeRO-1 layout must be the
-session's (elastic resume across a mesh resize is P9, as for the Saver).
+goes back to its own layout.  Since a snapshot holds the LOGICAL state,
+it also restores across a mesh resize, resliced exactly as the Saver's
+elastic resume does (the JAX package refuses a RAM or peer snapshot of
+another mesh: its snapshots hold the physical per-device layout).
 
 ``export_state`` gathers over the ranks, so every rank captures at the
 same steps (``CheckpointTiers.on_step`` is called by every rank of a
-``fit``).  Where the JAX package enters a heartbeat phase, this port
-stamps the flight recorder's phase cursors (it has no heartbeat writer:
-P9).
+``fit``).  A snapshot runs inside ``heartbeat_phase("checkpoint/
+snapshot")``, as in the JAX package.
 """
 from __future__ import annotations
 
-import contextlib
 import io
 import json
 import logging
@@ -59,7 +59,8 @@ from autodist_tpu_torch.checkpoint.saver import (HostItem, Saver,
                                                  import_logical_state)
 from autodist_tpu_torch.const import ENV, P12, not_ported
 from autodist_tpu_torch.graph_item import flatten
-from autodist_tpu_torch.telemetry import emit_event, flightrec
+from autodist_tpu_torch.resilience.heartbeat import heartbeat_phase
+from autodist_tpu_torch.telemetry import emit_event
 
 log = logging.getLogger(__name__)
 
@@ -74,18 +75,6 @@ TIER_PERSISTENT = "persistent"
 
 class SnapshotError(RuntimeError):
     """A snapshot failed to capture, serialize, or verify."""
-
-
-@contextlib.contextmanager
-def phase(name: str, step: Optional[int] = None):
-    """Enter/exit phase cursors on the flight recorder around a block: what
-    the JAX package's ``heartbeat_phase`` stamps when no heartbeat writer
-    runs."""
-    flightrec.record_cursor(name, kind="phase", event="enter", step=step)
-    try:
-        yield
-    finally:
-        flightrec.record_cursor(name, kind="phase", event="exit", step=step)
 
 
 def _tree_digest(leaves: Dict[str, List[np.ndarray]],
@@ -214,20 +203,14 @@ def capture_snapshot(session, step: Optional[int] = None,
 
 
 def load_snapshot(session, snap: RamSnapshot) -> int:
-    """Restore a snapshot into the session (same mesh), its digest
-    re-checked first, through the Saver's logical-to-session import.
+    """Restore a snapshot into the session, its digest re-checked first,
+    through the Saver's logical-to-session import (on another mesh too:
+    ZeRO-1 buckets are resliced as an elastic Saver restore does).
     Returns the restored step."""
     if not snap.verify():
         raise SnapshotError(
             f"snapshot step {snap.step} failed its digest re-check; "
             "refusing to restore corrupted state")
-    have = snap.meta.get("mesh_axes")
-    want = _mesh_axes(session)
-    if have and have != want:
-        raise SnapshotError(
-            f"snapshot was taken on mesh {have} but this session runs "
-            f"{want}; RAM/peer snapshots restore same-mesh only (elastic "
-            "restore across a resize is P9)")
     try:
         params = snap.tree("params")
         opt_state = snap.tree("opt_state")
@@ -528,7 +511,7 @@ class CheckpointTiers:
             return None
         t0 = time.perf_counter()
         try:
-            with phase("checkpoint/snapshot", step):
+            with heartbeat_phase("checkpoint/snapshot", step):
                 snap = capture_snapshot(self._session, step=step,
                                         extra_meta=extra_meta)
         except SnapshotError as e:
@@ -571,14 +554,15 @@ def route_restore(session, directory: Optional[str] = None,
     persistent checkpoint under ``directory``.  The newest step wins; on
     a tie the cheaper tier.  A candidate that fails falls through to the
     next, so recovery is never worse than the persistent tier.  A
-    persistent checkpoint of another ZeRO-1 layout raises P9 inside the
-    Saver, and falls through like any failure (``validate_elastic`` is
-    accepted; its pre-flight is P9's too).
+    persistent checkpoint written on another mesh runs
+    :func:`~autodist_tpu_torch.resilience.elastic.preflight_elastic`
+    first (``validate_elastic``) and is resliced by the Saver; one whose
+    bucket layout cannot be resliced (``ElasticResumeError``) falls
+    through like any failure.
 
     Returns ``(step, tier, meta)`` (the meta carries ``data_state`` for
     the exact mid-epoch data resume), or None when no tier holds
     anything usable."""
-    del validate_elastic
     ram = tiers.ring.latest() if tiers is not None else None
     mirror = tiers.mirror if tiers is not None and tiers.mirror is not None \
         else (PeerMirror(peer_dir) if peer_dir else None)
@@ -608,12 +592,17 @@ def route_restore(session, directory: Optional[str] = None,
             if tier == TIER_PERSISTENT:
                 path = Saver._step_dir(directory, step)
                 meta = Saver.read_meta(path)
+                mesh_axes = meta.get("mesh_axes")
+                if validate_elastic and mesh_axes \
+                        and mesh_axes != _mesh_axes(session):
+                    from autodist_tpu_torch.resilience.elastic import \
+                        preflight_elastic
+                    preflight_elastic(session, meta,
+                                      context=f"route_restore:{path}")
                 restored = Saver(session).restore(path)
             else:
                 restored = load_snapshot(session, snap)
                 meta = dict(snap.meta)
-        except NotImplementedError:
-            raise                   # elastic resume (P9): never skipped
         except Exception as e:
             log.warning("restore routing: %s tier step %s unusable (%s): "
                         "falling through", tier, step, e)

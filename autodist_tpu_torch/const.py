@@ -78,8 +78,13 @@ class ENV(enum.Enum):
     # relaxes the one-AutoDist-per-process guard during tests
     AUTODIST_IS_TESTING = ("AUTODIST_IS_TESTING", _bool)
     # the supervisor's failure-marker directory (numerics rollbacks write
-    # their marker there)
+    # their marker there; resilience.Supervisor sets it for each attempt)
     AUTODIST_SUPERVISOR_DIR = ("AUTODIST_SUPERVISOR_DIR", _str)
+    # watcher behavior on worker death: fail_fast (default) | ignore |
+    # restart | supervised (resilience.supervisor.policy_from_env)
+    AUTODIST_FAILURE_POLICY = ("AUTODIST_FAILURE_POLICY", _str)
+    # deterministic fault-injection spec (resilience.chaos grammar)
+    AUTODIST_CHAOS = ("AUTODIST_CHAOS", _str)
     # proxy variables' refresh period in steps (1: always fresh)
     AUTODIST_PROXY_REFRESH = ("AUTODIST_PROXY_REFRESH", _proxy_refresh)
     # the hier cross-slice leg's wire: the compressor it names
@@ -141,8 +146,13 @@ class ENV(enum.Enum):
 #: the leg cursors) is ported whole: nothing raises naming it any more
 P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
       "analyzer's CLI, the leg profiler and the leg cursors")
+#: P9 (telemetry, then resilience: chaos, heartbeats, the Supervisor,
+#: elastic resume, the router and the drain) is ported whole: nothing
+#: raises naming it any more
 P9 = "P9 — telemetry and resilience"
 P10 = "P10 — non-data mesh axes"
+#: P11 (the rest of serving) is ported whole since its last raise, the
+#: SIGTERM drain, came with the router: nothing raises naming it any more
 P11 = "P11 — the rest of serving"
 P12 = "P12 — runtime, cluster and coordinator"
 

@@ -33,6 +33,12 @@ when the last measured persistent save would not finish in time (the
 :class:`~autodist_tpu_torch.strategy.tuner.ScheduleTuner` at its own
 interval, which may swap the session's schedule in place: the loop, the
 callbacks and the checkpoints do not notice.
+
+Resilience rides the callbacks: :class:`~autodist_tpu_torch.resilience.
+ChaosCallback` fires the ``AUTODIST_CHAOS`` events at step ends and
+:class:`~autodist_tpu_torch.resilience.HeartbeatCallback` bumps the
+beacon a :class:`~autodist_tpu_torch.resilience.Supervisor` watches; the
+preemption drain runs inside ``heartbeat_phase("draining")``.
 """
 from __future__ import annotations
 
@@ -52,6 +58,9 @@ from autodist_tpu_torch.numerics.policy import (ON_NONFINITE, NonFiniteError,
                                                 RollbackRequest,
                                                 StepHealthMonitor,
                                                 emit_failure_marker)
+# the exit code of a caller that stops on ``history.preempted``
+from autodist_tpu_torch.resilience.supervisor import \
+    PREEMPTED_EXIT_CODE  # noqa: F401
 
 log = logging.getLogger(__name__)
 
@@ -115,7 +124,9 @@ class History:
         #: partial epoch is NOT counted in ``epochs_run``).
         self.preempted = False
         #: where the emergency preemption state went ("persistent",
-        #: "peer", or None when no tier took it)
+        #: "peer", or None when no tier took it); callers exiting on
+        #: preemption should exit with :data:`PREEMPTED_EXIT_CODE`, so
+        #: the supervisor relaunches without consuming the restart budget
         self.preempt_tier: Optional[str] = None
         #: where the resume came from ("ram", "peer", "persistent", or
         #: None for a fresh start)
@@ -481,7 +492,7 @@ def _preempt_save(*, session, saver, tiers, checkpoint_dir, data_track,
     bounded) over gambling the window on unknown storage.  No window
     (grace 0) always saves persistently.  The tier that took the state,
     or None."""
-    from autodist_tpu_torch.checkpoint.tiers import phase
+    from autodist_tpu_torch.resilience.heartbeat import heartbeat_phase
     from autodist_tpu_torch.telemetry import emit_event
 
     grace = ENV.AUTODIST_PREEMPT_GRACE_S.val
@@ -499,7 +510,9 @@ def _preempt_save(*, session, saver, tiers, checkpoint_dir, data_track,
                tier="peer" if use_peer else
                ("persistent" if saver is not None else None))
     t0 = time.perf_counter()
-    with phase("draining", session.step_count):
+    # phase-tagged on the heartbeat beacon: the monitor reports DRAINING,
+    # not WEDGED, while the grace window runs
+    with heartbeat_phase("draining", session.step_count):
         if use_peer:
             snap = tiers.snapshot(session.step_count,
                                   extra_meta=_data_state_meta(data_track),

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -359,6 +359,7 @@ class GraphTransformer:
             if num_active else None
         vg_unscaled = scaled_value_and_grad(gi, names, None)
         warned: List[int] = []
+        inject = chaos_injector(gi, num_active, buckets, names)
 
         def sync(loss, grads):
             for bucket in buckets:
@@ -370,8 +371,10 @@ class GraphTransformer:
         def step(params, opt_state, sync_state, batch):
             scale = sync_state[NUMERICS_KEY]["scale"] \
                 if num_ls is not None else None
-            vg = vg_unscaled if scale is None \
-                else scaled_value_and_grad(gi, names, scale)
+            vg = vg_unscaled if scale is None and inject is None \
+                else scaled_value_and_grad(
+                    gi, names, scale,
+                    inject=inject(sync_state) if inject else None)
             loss, aux, grads = local_value_and_grad(vg, params, batch, data,
                                                     group, rank, warned)
             if data > 1:
@@ -434,13 +437,43 @@ def scaled_loss(gi, scale: Optional[torch.Tensor]) -> Callable:
     return loss_fn
 
 
+def chaos_injector(gi, num_active: bool, buckets: Sequence,
+                   names: Sequence[str]) -> Optional[Callable]:
+    """The step's chaos gradient injection, resolved when the step is
+    built: ``inject(sync_state)`` gives the wrapper of the per-microbatch
+    ``vg`` (keyed on the numerics state's device step counter), or None
+    when ``AUTODIST_CHAOS`` asks for no ``nan_grad``/``inf_grad`` here.
+    Without the numerics guard a requested injection warns and is
+    ignored, as in the JAX package."""
+    from autodist_tpu_torch.kernel.synchronization.explicit_sync import \
+        chaos_grad_events_probe
+
+    if not num_active:
+        if list(chaos_grad_events_probe()):
+            warnings.warn("AUTODIST_CHAOS requests a gradient injection "
+                          "but the numerics guard is off — nan_grad/"
+                          "inf_grad need capture(numerics=...); ignoring "
+                          "the event")
+        return None
+    injections = guard_mod.resolve_injections(buckets, names)
+    if not injections:
+        return None
+    return lambda sync_state: (lambda vg: guard_mod.wrap_injections(
+        vg, injections, sync_state[NUMERICS_KEY]["step"]))
+
+
 def scaled_value_and_grad(gi, names: Tuple[str, ...],
-                          scale: Optional[torch.Tensor]) -> Callable:
+                          scale: Optional[torch.Tensor],
+                          inject: Optional[Callable] = None) -> Callable:
     """``vg(params, batch) -> (loss, aux, {name: grad})`` of the captured
     loss, multiplied by ``scale`` before the backward pass when one is
     given (the loss scale), accumulated over ``accum_steps``
-    microbatches."""
+    microbatches.  ``inject`` wraps the per-microbatch ``vg`` before the
+    accumulation (the chaos gradient injection: scale, then injection,
+    then accumulation)."""
     vg = value_and_grad(scaled_loss(gi, scale), gi.has_aux, names)
+    if inject is not None:
+        vg = inject(vg)
     if gi.accum_steps > 1:
         vg = accumulate(vg, gi.accum_steps, gi.has_aux)
     return vg

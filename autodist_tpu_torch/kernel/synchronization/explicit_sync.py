@@ -186,6 +186,18 @@ def uses_explicit_path(compiled, skip_ps: bool = False) -> bool:
             and bool(compiled.fusable_groups()))
 
 
+def chaos_grad_events_probe():
+    """The ``nan_grad``/``inf_grad`` chaos events for this process, or []
+    when none apply or the spec does not parse — probed so a gradient
+    injection requested without the numerics guard warns instead of
+    silently never firing."""
+    try:
+        from autodist_tpu_torch.resilience import chaos as chaos_mod
+        return chaos_mod.grad_injections()
+    except Exception:  # noqa: BLE001 - a malformed spec is not an error here
+        return []
+
+
 def _grad_shaped_state(comp: Compressor, shape: tuple, dtype) -> bool:
     """Is ``comp``'s per-rank state for a value of ``shape`` None or one
     tensor of exactly that shape and dtype?  Probed on a meta tensor."""
@@ -632,6 +644,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     update_fused = fk.KERNEL_UPDATE in active
 
     vg_unscaled = gt.scaled_value_and_grad(gi, names, None)
+    # chaos nan_grad/inf_grad: on the device, keyed on the numerics
+    # state's step counter (scale, then injection, then accumulation)
+    inject = gt.chaos_injector(gi, num_active, buckets, names)
 
     def quant_reduce(b: Bucket, vec: torch.Tensor, state):
         """``(reduced, new residual, saturation count)`` of a quantized
@@ -764,13 +779,17 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
             else None
         if not pipe:
-            vg = vg_unscaled if scale is None \
-                else gt.scaled_value_and_grad(gi, names, scale)
+            vg = vg_unscaled if scale is None and inject is None \
+                else gt.scaled_value_and_grad(
+                    gi, names, scale,
+                    inject=inject(sync_state) if inject else None)
             loss, aux, grads = gt.local_value_and_grad(
                 vg, params, batch, d, group, rank, warned)
             return loss, aux, grads, {}, {}, {}
         loss_fn = gt.scaled_loss(gi, scale)
         single = gt.value_and_grad(loss_fn, has_aux, names)
+        if inject is not None:
+            single = inject(sync_state)(single)
         local = gt.local_rows(batch, d, rank, warned)
         slices = gt.microbatch_slices(gt._leading_dim(local),
                                       gi.accum_steps)

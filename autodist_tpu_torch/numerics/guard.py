@@ -12,18 +12,29 @@ plain AllReduce step runs the unfused per-variable form over its
 already-averaged gradients.
 
 The result is a :class:`GradHealth` returned with the step metrics, and
-the scalars for exact global-norm clipping and the skip gate.  The chaos
-injection of the JAX guard comes with P9.
+the scalars for exact global-norm clipping and the skip gate.
+
+Chaos gradient injection (:func:`resolve_injections`,
+:func:`wrap_injections`): the ``nan_grad``/``inf_grad`` events of
+``AUTODIST_CHAOS`` are resolved when the step is built and poison the
+named gradient leaf ON THE DEVICE when the numerics state's device step
+counter matches — no host read is added, as in the JAX package's
+compiled injection.  On the bucketed step the poisoned leaf is packed
+into its flat bucket before K4, so K4 is what detects it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import logging
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.numerics.loss_scale import update_state
+
+log = logging.getLogger(__name__)
 
 #: the sync-state key of the numerics step state (``~`` never starts a
 #: variable path or a bucket key)
@@ -215,3 +226,78 @@ def close_step(sync_state: Dict[str, Any], all_finite: torch.Tensor,
     return GradHealth(all_finite=all_finite, global_norm=global_norm,
                       loss_scale=ns["scale"], skipped_steps=new_ns["skipped"],
                       per_bucket=per_bucket)
+
+
+# -- chaos gradient injection (resolved when the step is built) --------------
+
+def resolve_injections(buckets: Sequence, known_names: Sequence[str],
+                       ) -> Dict[str, List[Tuple[int, float]]]:
+    """Map the ``nan_grad``/``inf_grad`` chaos events (``AUTODIST_CHAOS``)
+    onto gradient leaf names: ``bucket=<key>`` poisons the first member
+    of that bucket, ``var=<name>`` the named variable, neither the first
+    known variable (the JAX package's rule).  Returns ``{var_name:
+    [(step, value), ...]}``."""
+    from autodist_tpu_torch.resilience import chaos as chaos_mod
+
+    out: Dict[str, List[Tuple[int, float]]] = {}
+    by_key = {b.key: b for b in buckets}
+    for ev in chaos_mod.grad_injections():
+        value = float("nan") if ev.action == "nan_grad" else float("inf")
+        name: Optional[str] = None
+        if "bucket" in ev.args:
+            b = by_key.get(ev.args["bucket"])
+            if b is None:
+                log.warning(
+                    "CHAOS: %s names bucket %r but this program plans %s; "
+                    "ignoring the event", ev.action, ev.args["bucket"],
+                    sorted(by_key) or "no buckets")
+                continue
+            name = b.names[0]
+        elif "var" in ev.args:
+            name = ev.args["var"]
+            if name not in known_names:
+                log.warning("CHAOS: %s names unknown variable %r; ignoring "
+                            "the event", ev.action, name)
+                continue
+        elif known_names:
+            name = list(known_names)[0]
+        if name is None:
+            continue
+        step = ev.step if ev.step is not None else 0
+        out.setdefault(name, []).append((int(step), value))
+        log.warning("CHAOS: will inject %s into grad of %s at step %d "
+                    "(on the device step counter)", ev.action, name, step)
+    return out
+
+
+def _poison_leaf(g: torch.Tensor, cur_step: torch.Tensor, step: int,
+                 value: float) -> torch.Tensor:
+    """``g`` with its first element replaced by ``value`` where the device
+    step counter equals ``step`` (a select on the device, no host read)."""
+    if not g.is_floating_point():
+        return g
+    flat = g.reshape(-1).clone()
+    hit = cur_step.to(flat.device) == step
+    flat[:1] = torch.where(hit, torch.full_like(flat[:1], value), flat[:1])
+    return flat.view(g.shape)
+
+
+def wrap_injections(vg_fn: Callable,
+                    injections: Dict[str, List[Tuple[int, float]]],
+                    cur_step: torch.Tensor) -> Callable:
+    """Wrap ``vg(params, batch) -> (loss, aux, {name: grad})`` so the
+    chaos-named gradient leaves are poisoned when the device step counter
+    matches: the one injection point of the step, after the loss scale and
+    before microbatch accumulation, as in the JAX package."""
+    if not injections:
+        return vg_fn
+
+    def wrapped(params, batch):
+        loss, aux, grads = vg_fn(params, batch)
+        for name, events in injections.items():
+            if name in grads:
+                for step, value in events:
+                    grads[name] = _poison_leaf(grads[name], cur_step, step,
+                                               value)
+        return loss, aux, grads
+    return wrapped

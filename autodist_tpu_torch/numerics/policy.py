@@ -12,21 +12,20 @@ what a bad step costs:
   and go on).  The step itself behaves as under ``"skip"``, as in the JAX
   package.
 
-The config rides ``AutoDist.capture(numerics=...)``.  The monitor takes
-no injected loss spikes: the JAX package's chaos harness that injects
-them is P9.
+The config rides ``AutoDist.capture(numerics=...)``.  Chaos
+``loss_spike`` events (``AUTODIST_CHAOS``, :mod:`~autodist_tpu_torch.
+resilience.chaos`) multiply the loss the monitor OBSERVES, once each,
+and the rollback marker goes through the supervisor's
+:func:`~autodist_tpu_torch.resilience.supervisor.write_failure_marker`.
 """
 from __future__ import annotations
 
-import json
 import logging
 import math
-import os
 import socket
-import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 from autodist_tpu_torch.const import ENV
 
@@ -34,8 +33,6 @@ log = logging.getLogger(__name__)
 
 #: the exit code a numerics failure marker carries
 NUMERICS_MARKER_CODE = 74
-#: the supervisor's marker file name prefix
-_MARKER_PREFIX = "failure_"
 
 ON_NONFINITE = ("skip", "raise", "rollback")
 
@@ -114,17 +111,23 @@ class RollbackRequest(Exception):
 class StepHealthMonitor:
     """Host-side per-step health tracking for the ``raise``/``rollback``
     policies and the loss-spike detector.  ``observe`` returns None
-    (healthy), ``"raise"`` or ``"rollback"``."""
+    (healthy), ``"raise"`` or ``"rollback"``.  Chaos ``loss_spike``
+    events multiply the OBSERVED loss once at their step: a synthetic
+    detector drill that leaves the real trajectory untouched, so a
+    rollback drill can still match an uninterrupted oracle exactly."""
 
     #: minimum finite-loss samples before the z-score test is trusted.
     MIN_SAMPLES = 8
 
     def __init__(self, config: NumericsConfig,
                  policy: Optional[str] = None):
+        from autodist_tpu_torch.resilience import chaos as chaos_mod
+
         self.config = config
         self.policy = policy or config.on_nonfinite
         self._bad = 0
         self._losses: deque = deque(maxlen=config.spike_window)
+        self._spikes: List = list(chaos_mod.loss_spike_events())
 
     @property
     def bad_streak(self) -> int:
@@ -138,8 +141,22 @@ class StepHealthMonitor:
         steps."""
         self._bad = 0
 
+    def _chaos_factor(self, step: int) -> float:
+        """At most ONE loss_spike event fires per observation (each event
+        fires once): N queued events spike N successive observations
+        that reach their step."""
+        for ev in self._spikes:
+            if not ev.fired and (ev.step is None or step >= ev.step):
+                ev.fired = True
+                factor = float(ev.args.get("factor", 1e6))
+                log.warning("CHAOS: loss_spike observed at step %d "
+                            "(factor %g)", step, factor)
+                return factor
+        return 1.0
+
     def observe(self, step: int, loss: float,
                 all_finite: bool) -> Optional[str]:
+        loss = loss * self._chaos_factor(step)
         spiked = False
         if all_finite and math.isfinite(loss):
             if (self.config.spike_zscore is not None
@@ -167,28 +184,12 @@ class StepHealthMonitor:
         return None
 
 
-def write_failure_marker(marker_dir: str, address: str, code: int,
-                         reason: Optional[str] = None) -> str:
-    """The supervisor's failure marker (the JAX package's
-    ``resilience/supervisor.py:137-151``: ``failure_<address>.json`` with
-    ``address``, ``code``, ``time`` and an optional ``reason``), written
-    atomically."""
-    os.makedirs(marker_dir, exist_ok=True)
-    safe = address.replace("/", "_").replace(":", "_")
-    path = os.path.join(marker_dir, f"{_MARKER_PREFIX}{safe}.json")
-    payload = {"address": address, "code": int(code), "time": time.time()}
-    if reason:
-        payload["reason"] = str(reason)
-    with open(path + ".tmp", "w", encoding="utf-8") as f:
-        json.dump(payload, f)
-    os.replace(path + ".tmp", path)
-    return path
-
-
 def emit_failure_marker(reason: str) -> Optional[str]:
     """Write a numerics failure marker into the supervisor's marker
     directory (``AUTODIST_SUPERVISOR_DIR``) when one is set; the path, or
     None."""
+    from autodist_tpu_torch.resilience.supervisor import write_failure_marker
+
     marker_dir = ENV.AUTODIST_SUPERVISOR_DIR.val
     if not marker_dir:
         return None

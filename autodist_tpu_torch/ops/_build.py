@@ -6,14 +6,20 @@ takes seconds), loaded with :mod:`ctypes`.  Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 is reused.  :func:`build_all` starts one ``nvcc`` per missing library,
-all at once, and waits for them together.
+all at once, and waits for them together.  Each library's build holds a
+file lock (``fcntl.flock`` on ``<library>.lock`` beside it), so
+processes that start together (supervised attempts, serving replicas,
+gloo ranks on one card) build each library once, not once a process:
+the others wait on the lock and find the library built.
 
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` (the CPU tests), where only the plain versions run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -63,15 +69,45 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_locks(paths: Sequence[Path]):
+    """Hold the exclusive file lock of each library in ``paths`` (taken in
+    sorted order, so two processes never wait on each other in a cycle),
+    released on exit."""
+    files = []
+    try:
+        for path in sorted(paths):
+            f = open(path.with_name(path.name + ".lock"), "w")
+            files.append(f)
+            fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+    finally:
+        for f in files:
+            fcntl.flock(f, fcntl.LOCK_UN)
+            f.close()
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together.  Raises with the compiler's output if
-    any build fails.  Returns ``{source: library path}``."""
+    source, all started together, under the libraries' file locks (a
+    library another process built while this one waited is not built
+    again).  Raises with the compiler's output if any build fails.
+    Returns ``{source: library path}``."""
     paths = {src: library_path(src) for src in SOURCES}
     missing = [src for src, p in paths.items() if not p.exists()]
     if not missing:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_locks([paths[src] for src in missing]):
+        _build(paths, [src for src in missing if not paths[src].exists()])
+    return paths
+
+
+def _build(paths: Dict[str, Path], missing: Sequence[str]) -> None:
+    """One ``nvcc`` per source of ``missing``, all started together, each
+    output renamed into place when it succeeds."""
+    if not missing:
+        return
     nvcc = find_nvcc()
     procs = []
     for src in missing:
@@ -91,7 +127,6 @@ def build_all() -> Dict[str, Path]:
     if failures:
         raise RuntimeError("CUDA kernel build failed: "
                            + "\n".join(failures))
-    return paths
 
 
 def kernel(source: str, symbol: str, argtypes: Sequence,

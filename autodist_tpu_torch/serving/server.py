@@ -34,19 +34,31 @@ Endpoints
   queue gauges, with the JAX package's names and fixed bucket bounds,
   so scrapes of several replicas merge exactly.
 - ``GET /healthz``.
+- ``POST /admin/drain`` — stop admitting (429 with ``"draining": true``),
+  let in-flight work finish; ``POST /admin/undrain`` reverses it.
+  SIGTERM triggers the same drain when :func:`install_drain_on_sigterm`
+  is installed (``serve(drain_on_sigterm=True)``, the default of a
+  supervised replica), and the process exits with the supervisor's
+  ``PREEMPTED_EXIT_CODE`` once idle.  ``/v1/stats`` carries the
+  ``draining`` flag the router's candidate filter reads; each transition
+  is a ``serving/drain`` event.
 
 Each answered completion records a ``request`` span with its trace id
 (``X-Autodist-Trace``, or a fresh one), beside the scheduler's
 queue-wait/prefill/decode spans; a request that times out is journaled
 as ``serving/timeout``.
 
-Not ported yet: ``/admin/drain``, the SIGTERM drain and its events, and
-chaos injection (ROADMAP P11 and P9's resilience half).
+Serving chaos (``AUTODIST_CHAOS``: ``kill_replica``, ``slow_replica``,
+``drop_response``, ``stale_stats``; :class:`~autodist_tpu_torch.
+resilience.chaos.ServingChaos`) is clocked by the driver loop on serving
+progress, outside the lock.
 """
 from __future__ import annotations
 
 import json
 import logging
+import os
+import signal
 import threading
 import time
 import uuid
@@ -57,7 +69,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P11, not_ported
+from autodist_tpu_torch.resilience.chaos import ServingChaos
 from autodist_tpu_torch.serving.engine import (AdmissionError, DeadlineError,
                                                DecodeEngine)
 from autodist_tpu_torch.serving.scheduler import PagedDecodeEngine
@@ -99,6 +111,14 @@ class EngineServer:
         self._paged = hasattr(engine, "scheduler_stats")
         self._spec = getattr(engine, "_draft_spec", None) is not None
         self._timeout = float(request_timeout_s)
+        # DRAINING: stop admitting (429 + "draining": true), finish the
+        # in-flight work.  Set by POST /admin/drain or SIGTERM
+        # (install_drain_on_sigterm); the router reads it off /v1/stats.
+        self._draining = False
+        self._n_submitted = 0
+        # serving-plane chaos, clocked by the driver loop (empty: no-op)
+        self._chaos = ServingChaos.from_env()
+        self._stale_stats: Optional[Dict[str, Any]] = None
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         # Handlers wanting the lock bump this; the driver yields to them
@@ -154,10 +174,16 @@ class EngineServer:
         self._m_expired = reg.counter(
             "autodist_serving_deadline_expired_total",
             "admitted requests cancelled past their deadline (504)")
+        self._m_drain_refused = reg.counter(
+            "autodist_serving_drain_refused_total",
+            "requests refused because the replica is draining (429)")
         self._m_timeouts = reg.counter(
             "autodist_serving_timeouts_total",
             "requests that hit request_timeout_s and were cancelled "
             "(504)")
+        self._m_draining = reg.gauge(
+            "autodist_serving_draining",
+            "1 while the replica is draining, else 0")
         if self._paged:
             self._m_ttft = reg.histogram(
                 "autodist_serving_ttft_seconds",
@@ -246,6 +272,16 @@ class EngineServer:
         # The lock is RELEASED between iterations so handlers can submit
         # into (and stream from) the running batch.
         while True:
+            if self._chaos:
+                # the serving-chaos clock (submissions, generated tokens),
+                # outside the lock: a slow_replica sleep must not block
+                # handler submits
+                self._chaos.on_tick(
+                    requests=self._n_submitted,
+                    generated=int(getattr(self._engine.stats,
+                                          "generated_tokens", 0)))
+                if self._chaos.slow_s > 0:
+                    time.sleep(self._chaos.slow_s)
             with self._lock:
                 if self._stop:
                     return
@@ -321,6 +357,41 @@ class EngineServer:
             self._m_gamma.set(gamma)
             self._m_gamma_hist.observe(float(gamma))
 
+    # -- graceful drain ----------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain(self) -> None:
+        """Enter DRAINING: new submits answer 429 with ``"draining":
+        true``; in-flight work runs to completion.  Lock-free (a bool
+        flip), so it is safe from a signal handler."""
+        if not self._draining:
+            self._draining = True
+            self._m_draining.set(1)
+            emit_event("serving/drain", phase="start",
+                       outstanding=len(self._outstanding))
+            log.info("EngineServer: draining (%d in flight)",
+                     len(self._outstanding))
+
+    def undrain(self) -> None:
+        """Leave DRAINING and admit again (the rollback of an aborted
+        rolling restart)."""
+        if self._draining:
+            self._draining = False
+            self._m_draining.set(0)
+            emit_event("serving/drain", phase="undrain")
+
+    def idle(self) -> bool:
+        """True when nothing is in flight (the drained-exit condition)."""
+        return not self._outstanding
+
+    def _drain_retry_hint(self) -> float:
+        """Retry-After of a drain refusal: the engine's own hint."""
+        hint = getattr(self._engine, "_retry_hint", None)
+        return float(hint()) if callable(hint) else 1.0
+
     # -- request plumbing (called from handler threads) --------------------
 
     def _locked(self):
@@ -336,6 +407,8 @@ class EngineServer:
         with self._locked():
             if self._stop or self._engine_error is not None:
                 raise _Unavailable()
+            if self._draining:
+                raise _Draining(self._drain_retry_hint())
             self._m_queue.observe(float(len(self._outstanding)))
             kwargs = dict(temperature=temperature, eos_id=eos_id,
                           use_prefix=use_prefix)
@@ -358,6 +431,7 @@ class EngineServer:
                         f"engine); drop the {name} field")
                 kwargs[name] = value
             rid = self._engine.submit(prompt, max_new, **kwargs)
+            self._n_submitted += 1
             self._outstanding.add(rid)
             self._m_outstanding.set(len(self._outstanding))
             if stream:
@@ -425,6 +499,11 @@ class EngineServer:
         self._m_outstanding.set(len(self._outstanding))
 
     def stats(self) -> Dict[str, Any]:
+        if self._chaos and self._chaos.stats_stale \
+                and self._stale_stats is not None:
+            # stale_stats chaos: the router keeps scoring off this
+            # frozen snapshot
+            return dict(self._stale_stats)
         with self._locked():
             st = {k: int(v) for k, v in asdict(self._engine.stats).items()
                   if not k.startswith("_")}
@@ -446,6 +525,9 @@ class EngineServer:
                     st["ttft_p50_ms"] = round(p50 * 1e3, 3)
                     st["ttft_p99_ms"] = round(
                         self._m_ttft.percentile(0.99) * 1e3, 3)
+            st["draining"] = self._draining
+            if self._chaos and self._chaos.stats_stale:
+                self._stale_stats = dict(st)
             return st
 
     def render_metrics(self) -> str:
@@ -510,6 +592,14 @@ class _Unavailable(Exception):
 
 class _Timeout(Exception):
     pass
+
+
+class _Draining(Exception):
+    """Submit refused: the replica is draining (429 + draining flag)."""
+
+    def __init__(self, retry_after_s: float = 1.0):
+        super().__init__("replica is draining")
+        self.retry_after_s = float(retry_after_s)
 
 
 def _retry_headers(retry_after_s: float):
@@ -578,6 +668,13 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._json(200, {"id": rid,
                                  "cancelled": srv._cancel(rid)})
+        elif self.path == "/admin/drain":
+            srv.drain()
+            self._json(200, {"draining": True,
+                             "outstanding": len(srv._outstanding)})
+        elif self.path == "/admin/undrain":
+            srv.undrain()
+            self._json(200, {"draining": False})
         else:
             self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -623,6 +720,16 @@ class _Handler(BaseHTTPRequestHandler):
                               trace_id=trace_id, **knobs)
         except _Unavailable:
             self._json(503, {"error": "engine unavailable"})
+            return
+        except _Draining as e:
+            # healthy but leaving rotation: the router routes elsewhere
+            # without marking the replica down
+            srv.count_request(served=False)
+            srv._m_drain_refused.inc()
+            retry, headers = _retry_headers(e.retry_after_s)
+            self._json(429, {"error": "replica is draining",
+                             "draining": True, "retry_after_s": retry},
+                       headers=headers)
             return
         except DeadlineError as e:
             srv.count_request(served=False)
@@ -671,6 +778,13 @@ class _Handler(BaseHTTPRequestHandler):
                               latency_s=time.perf_counter() - t0)
             self._json(409, {"error": f"request {rid} was cancelled",
                              "id": rid})
+            return
+        if srv._chaos and srv._chaos.take_drop():
+            # drop_response chaos: the work is done but the client never
+            # hears — the connection is severed (a transport failure)
+            srv.count_request(served=False,
+                              latency_s=time.perf_counter() - t0)
+            self.close_connection = True
             return
         latency = time.perf_counter() - t0
         srv.count_request(served=True, latency_s=latency)
@@ -734,6 +848,9 @@ class _Handler(BaseHTTPRequestHandler):
                     elif tokens is _CANCELLED or tokens is None:
                         count(served=False)
                         emit({"id": rid, "done": True, "cancelled": True})
+                    elif srv._chaos and srv._chaos.take_drop():
+                        count(served=False)
+                        self.close_connection = True
                     else:
                         count(served=True)
                         final = srv.render(rid, tokens, prompt_len)
@@ -751,6 +868,38 @@ class _Handler(BaseHTTPRequestHandler):
             srv._cancel(rid)
             srv._finish_stream(rid)
             count(served=False)
+
+
+def install_drain_on_sigterm(server: EngineServer, *,
+                             exit_code: Optional[int] = None,
+                             settle_s: float = 0.25) -> None:
+    """SIGTERM → graceful drain: stop admitting, let in-flight work
+    finish, then ``os._exit`` once idle (plus ``settle_s`` for the last
+    responses to flush).  The default exit code is the supervisor's
+    ``PREEMPTED_EXIT_CODE`` (75): a drained replica relaunches WITHOUT
+    consuming restart budget, which is what lets
+    ``SupervisedReplicaPool.rolling_restart()`` cycle a whole pool.
+    Must be called from the main thread (the ``signal`` module's rule:
+    ``ValueError`` otherwise); the server's driver and HTTP threads
+    install nothing."""
+    from autodist_tpu_torch.resilience.supervisor import PREEMPTED_EXIT_CODE
+
+    code = PREEMPTED_EXIT_CODE if exit_code is None else int(exit_code)
+
+    def _on_term(signum, frame):
+        server.drain()
+
+        def _exit_when_idle():
+            while not server.idle():
+                time.sleep(0.05)
+            time.sleep(settle_s)
+            emit_event("serving/drain", phase="exit", code=code)
+            os._exit(code)
+
+        threading.Thread(target=_exit_when_idle, daemon=True,
+                         name="drain-exit").start()
+
+    signal.signal(signal.SIGTERM, _on_term)
 
 
 def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
@@ -774,10 +923,12 @@ def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
     and ``params`` for the draft model, plus optional ``gamma``
     (proposal depth, default 4) and ``adapt_gamma`` (SLO adaptation,
     default True).  It is a mode of the paged scheduler, so it implies
-    ``paged=True``.  ``drain_on_sigterm=True`` raises naming its ROADMAP
-    item."""
-    if drain_on_sigterm:
-        raise not_ported("serve(drain_on_sigterm=...)", P11)
+    ``paged=True``.
+
+    ``drain_on_sigterm`` installs :func:`install_drain_on_sigterm`
+    (graceful drain and exit 75 on SIGTERM).  The default (None)
+    installs it only in a supervised replica (``AUTODIST_REPLICA_NAME``
+    set): a process embedding a server keeps its own signal handling."""
     if "eos_id" not in engine_kwargs:
         eos = getattr(tokenizer, "eos_id", None)
         if eos is not None:
@@ -807,5 +958,14 @@ def serve(spec, params, *, host: str = "127.0.0.1", port: int = 8000,
         prefix_tokens = tokenizer.encode(prefix_text)
     if prefix_tokens is not None:
         eng.set_prefix(prefix_tokens)
-    return EngineServer(eng, host=host, port=port,
-                        tokenizer=tokenizer).start()
+    srv = EngineServer(eng, host=host, port=port,
+                       tokenizer=tokenizer).start()
+    if drain_on_sigterm is None:
+        drain_on_sigterm = bool(os.environ.get("AUTODIST_REPLICA_NAME"))
+    if drain_on_sigterm:
+        try:
+            install_drain_on_sigterm(srv)
+        except ValueError:   # not the main thread: skip, best-effort
+            log.warning("serve(): cannot install the SIGTERM drain handler "
+                        "off the main thread")
+    return srv

@@ -201,6 +201,23 @@ Phases, each printing one JSON line:
    ``kernels`` line gains the leg-cursor kernel (a port-only kernel: the
    JAX package stamps with a host callback), held against the plain
    host stamp;
+10d. resilience at full width (``resilience``, one card): (a) the guard
+   drill on ``train_ps``'s program with the rollback policy: under
+   ``AUTODIST_CHAOS=nan_grad@step=2,bucket=<first bucket>`` K4 flags that
+   bucket at step 2, the step is skipped with the parameters
+   bit-identical, steps 0–1 and 3 equal a clean run's 0–1 and 2 (K1–K5
+   counted: the skip drops one step's K5); ``loss_spike@step=9`` in
+   ``fit`` (epochs of 5) rolls back once to step 5 and ends on the clean
+   run's step-10 parameters bit for bit; (b) the Supervisor drill: a
+   ``Supervisor`` launches ``chip_smoke.py --resilience-worker CKPT HB
+   OUT`` (``fit``, 3 epochs of 2 steps, a checkpoint after each, the
+   heartbeat and chaos callbacks, ``AUTODIST_FLIGHTREC=legs``): attempt 0
+   dies under ``kill@step=3,attempt=0``, attempt 1 blocks under
+   ``hang@step=5,attempt=1,leg=<the first bucket's reduce leg>`` and the
+   monitor reads it WEDGED within its step timeout, the verdict naming
+   the leg, attempt 2 resumes and finishes on the digest of an
+   uninterrupted run made here (time to WEDGED, relaunch seconds, each
+   attempt's K4/K5/leg-cursor launches);
 11. ``Parallax()`` at full width (``train_parallax``): the embedding in a
    reduce-scatter bucket (K5), every other variable in all-reduce buckets
    (the tree update), K4 over all of them; 2 warm-up and 3 timed steps,
@@ -244,6 +261,26 @@ Phases, each printing one JSON line:
    per step from the plan, every rank's parameters bit-identical, wire
    bytes per rank per step from the plan against an f32 all-reduce's,
    ms per step and peak memory per rank;
+12b. elastic resume (``elastic``): after ``ps_lb``'s steps its 4 ranks
+   write a Saver checkpoint (``--elastic-dir``; ``embed`` stored 1/4)
+   and run 3 more steps (the donor); a one-card ``train_ps`` session
+   runs ``preflight_elastic`` and ``elastic_restore``: parameters equal
+   the ranks' gathered ones bit for bit, the first ``total`` elements of
+   every moment vector bit-exact and the pad zero, the next 3 losses
+   within rtol 1e-5 of the donor's with K4/K5 as the schedule IR
+   predicts; a checkpoint whose bucket cap drifted raises
+   ``ElasticResumeError`` before any read (the reshard's seconds and
+   bytes);
+12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
+   of ``chip_smoke.py --replica`` processes (the full-width paged
+   server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
+   requests of different lengths while ``kill_replica@replica=0,
+   tokens=5`` SIGKILLs replica 0 mid-decode: every output equals the
+   plain generator's, at least one ``recovered``; the pool relaunches
+   replica 0; ``POST /admin/drain`` on replica 1 takes it out of
+   rotation without a mark-down; ``rolling_restart`` under load drops no
+   request; the survivor's K9 is 12 per decode tick (the recovery's
+   extra ms against the healed pool, the relaunch and drain seconds);
 13. the BASELINE models (BASELINE.json), each at the repo's defaults, f32,
    weights from ``SEED``, batch 32 (the JAX examples' ``--batch-size``),
    through the facade under its BASELINE builder, 2 warm-up and 5 timed
@@ -329,6 +366,10 @@ exits 1 when one did, and stops at any other failure.
 
 ``python3 chip_smoke.py --collective-alpha`` measures only the launch
 latency of one collective (the cost model's ``COLLECTIVE_ALPHA``).
+
+``python3 chip_smoke.py --resilience`` builds the kernels and runs only
+the ``resilience``, ``elastic`` (the ring's ranks in mode ``elastic``:
+``ps_lb`` alone) and ``router`` phases.
 
 ``python3 chip_smoke.py --tune`` builds the kernels and runs only the
 ``tune`` phase and the ring's ``tune_swap``; ``python3 chip_smoke.py
@@ -431,8 +472,9 @@ RING_RANKS = 4
 RING_CONFIGS = ("int8_allreduce", "fp8_zero1")
 #: the 4-rank run of the facade's default builder, after the ring configs
 PS_LB_CONFIG = "ps_lb"
-#: (cut from 2 + 5 in PR 13 to keep the script's time with train_p6)
-RING_WARMUP, RING_TIMED = 1, 2
+#: (cut from 2 + 5, then from 1 + 2, to keep the script's time with
+#: train_p6 and then the resilience phases)
+RING_WARMUP, RING_TIMED = 1, 1
 #: the 4-rank run of ``AutoStrategy(search="beam")`` on a 4-chip spec,
 #: after ``train_p6`` (the ``auto`` phase's sixth check)
 AUTO_RING_CONFIG = "auto_beam"
@@ -442,8 +484,8 @@ AUTO_RING_CONFIG = "auto_beam"
 TUNE_RING_CONFIG = "tune_swap"
 #: steps before and after the swap (and the oracle's)
 TUNE_DRILL_STEPS = 3
-#: steps of each legs-on / legs-off median
-TUNE_LEG_STEPS = 10
+#: steps of each legs-on / legs-off median (cut from 10)
+TUNE_LEG_STEPS = 5
 #: cycles of the device-side delay of the stall check (~1 s on the H100)
 TUNE_SLEEP_CYCLES = 2_000_000_000
 #: the tiers drill: epochs x steps per epoch before the stop, snapshot
@@ -476,8 +518,9 @@ AUTO_FIT_STEPS = 2
 #: the ``train_fit`` phase: steps per epoch, epochs, and the rollback
 #: policy's streak of non-finite steps
 FIT_STEPS_PER_EPOCH, FIT_EPOCHS, FIT_ROLLBACK_AFTER = 3, 3, 2
-#: the steps of each timed ``fit`` epoch (``skip`` and ``rollback`` in turns)
-FIT_TIMED_STEPS = 10
+#: the steps of each timed ``fit`` epoch (``skip`` and ``rollback`` in
+#: turns; cut from 10)
+FIT_TIMED_STEPS = 5
 #: the ``telemetry`` phase: telemetry on and off in turns (on, off, off,
 #: on), each a fresh session of ``train_ps``'s program for ``WARMUP_STEPS``
 #: + ``TIMED_STEPS``; the trace window's steps; ``fit``'s epochs x steps;
@@ -577,7 +620,7 @@ PROXY_REFRESH, PROXY_STEPS = 2, 4
 #: ``train_p6``: the P6 options on the ring's 4 ranks, ``transformer_lm()``
 #: at full width and P6_LAYERS layers, in the order they run
 P6_LAYERS = 4
-P6_WARMUP, P6_TIMED = 1, 2
+P6_WARMUP, P6_TIMED = 1, 1          # cut from 1 + 2
 #: their learning rate: at 1e-3 Adam's fifth step on 4 layers spikes
 #: (8.74 -> 11.94) with the f32 wire as with the bf16 one, the two traces
 #: within 1e-4 of each other; at 3e-4 both fall on every step
@@ -617,8 +660,8 @@ SLOT_GEOM = dict(slots=8, window=1024, chunk=16)
 SLOT_PROFILE_TICKS = 16
 #: the depth of the slot engine's int8 pass (full width): its oracle, the
 #: plain generator on the int8 tree, runs every prompt position as one
-#: host-bound decode tick, 2231 for the seven requests
-SLOT_INT8_LAYERS = 6
+#: host-bound decode tick, 2231 for the seven requests (cut from 6)
+SLOT_INT8_LAYERS = 3
 #: beam search and score: batch, prompt, new tokens; score against the
 #: teacher-forced decode logits
 BEAM_BATCH, BEAM_PROMPT, BEAM_NEW = 2, 16, 32
@@ -639,6 +682,29 @@ TOKENIZER_MERGES = 512
 LORA_RANK = 8
 LORA_TARGETS = [("*/attn/out/*", 2), "*/attn/*", "*/mlp/*"]
 LORA_LR = 1e-3
+#: the resilience phase: the device step counter value ``nan_grad`` poisons,
+#: the fit epochs' length and the step ``loss_spike`` spikes (at least 8
+#: healthy losses before it: the detector's minimum window), its z-score
+#: threshold; the supervised worker's epochs of 2 steps, the monitor's
+#: step timeout (above a full-width checkpoint's save and verify, which
+#: beat phase-tagged but leave the step unchanged) and beacon timeout
+RES_NAN_STEP, RES_EPOCH_STEPS, RES_SPIKE_STEP = 2, 5, 9
+RES_SPIKE_ZSCORE = 3.0
+RES_SUP_EPOCHS = 3
+RES_SUP_NUMERICS = {"clip_norm": CLIP_NORM}
+RES_STEP_TIMEOUT_S, RES_BEACON_TIMEOUT_S = 10.0, 60.0
+#: the elastic phase: steps after the resume and the losses' bound against
+#: the 4-rank donor's (the JAX package's elastic test's)
+ELASTIC_STEPS, ELASTIC_LOSS_RTOL = 3, 1e-5
+ELASTIC_DRIFT_CAP = 1 << 10
+#: the router phase: ``kill_replica``'s threshold (generated tokens, counted
+#: at completions) and the requests' new tokens, all different so that
+#: replica 0's first completion finds others mid-decode
+ROUTER_KILL_TOKENS = 5
+#: recovered requests re-issued on the healed pool (the baseline of the
+#: recovery's extra ms)
+ROUTER_HEALED_REPEATS = 2
+ROUTER_NEW_TOKENS = tuple(range(24, 137, 16))
 LORA_WARMUP, LORA_TIMED = 2, 3
 
 
@@ -4725,10 +4791,12 @@ def phase_tune(torch, smi) -> tuple:
     return out, row
 
 
-def ring_worker(rank: int, init: str, mode: str) -> int:
+def ring_worker(rank: int, init: str, mode: str,
+                elastic_dir: str = None) -> int:
     """One rank of the ``train_ring`` phase (``mode`` "smoke"), or of
     ``--p6-lr-control`` ("lr_control"): prints ``RING_RESULT`` and its
-    JSON as the last line."""
+    JSON as the last line.  With ``elastic_dir``, ``ps_lb`` also writes
+    the ``elastic`` phase's donor checkpoint there."""
     import torch
     import torch.distributed as dist
     from autodist_tpu_torch import optim
@@ -4749,6 +4817,13 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
             del sess
             print("RING_RESULT " + json.dumps(out), flush=True)
             return 0
+        if mode == "elastic":
+            sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
+            out[PS_LB_CONFIG]["elastic_donor"] = _ps_lb_donor(
+                torch, sess, elastic_dir)
+            del sess
+            print("RING_RESULT " + json.dumps(out), flush=True)
+            return 0
         for name, builder, opt in (
                 ("int8_allreduce",
                  AllReduce(compressor="Int8Compressor", overlap="ring"),
@@ -4763,6 +4838,9 @@ def ring_worker(rank: int, init: str, mode: str) -> int:
             torch.cuda.empty_cache()
         sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
         out[PS_LB_CONFIG]["trace"] = _ps_lb_trace(torch, sess, rank)
+        if elastic_dir:
+            out[PS_LB_CONFIG]["elastic_donor"] = _ps_lb_donor(
+                torch, sess, elastic_dir)
         del sess
         torch.cuda.empty_cache()
         for name, builder, opt, accum, info, env in _p6_configs():
@@ -4857,13 +4935,15 @@ def phase_examples(torch, smi) -> dict:
     return {"twins": twins, "seconds": total}
 
 
-def phase_train_ring(mode: str = "smoke"):
+def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
     """Start the 4 ring ranks on the card, wait for them, check they agree
     and report rank 0's numbers (every rank's parameters must hash the
-    same); ``mode`` "lr_control" runs ``--p6-lr-control``'s ranks."""
+    same); ``mode`` "lr_control" runs ``--p6-lr-control``'s ranks;
+    ``elastic_dir`` receives ``ps_lb``'s donor checkpoint."""
     init = _rendezvous()
     cmd = [sys.executable, os.path.abspath(__file__), "--ring-init", init,
-           "--ring-mode", mode, "--ring-rank"]
+           "--ring-mode", mode] + (["--elastic-dir", elastic_dir]
+                                   if elastic_dir else []) + ["--ring-rank"]
     env = dict(os.environ, GLOO_SOCKET_IFNAME=LOOPBACK)
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE,
@@ -5525,6 +5605,669 @@ def phase_train_inception_v3(torch):
                         inception_flops(1000, 299, MODEL_BATCH))
 
 
+# -- resilience: chaos, heartbeats, the Supervisor (one card) ---------------
+
+def _resilience_session(spec, env=None, numerics=None):
+    """``train_ps``'s program (``AutoDist()``'s default, ``fusable_adam``,
+    the clip) with the rollback policy and the spike detector, built with
+    the environment ``env`` (``AUTODIST_CHAOS`` is read when the step is
+    built); the session and the batch."""
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        os.environ.pop(k, None) if v is None else os.environ.update({k: v})
+    try:
+        return _train_session(
+            spec, spec.init(SEED), TRAIN_SHAPE["B"], PSLoadBalancing(),
+            fk.fusable_adam(1e-3), numerics=numerics or {
+                "clip_norm": CLIP_NORM, "on_nonfinite": "rollback",
+                "spike_zscore": RES_SPIKE_ZSCORE,
+                "rollback_after": FIT_ROLLBACK_AFTER})
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.update(
+                {k: v})
+
+
+def _resilience_guard(torch, spec) -> dict:
+    """(a) The guard drill: a clean run; the same program under
+    ``nan_grad@step=2,bucket=<first bucket>`` (K4 flags step 2, which is
+    skipped with the parameters bit-identical; steps 0–1 and 3 equal the
+    clean run's 0–1 and 2); ``loss_spike@step=9`` in ``fit`` (one
+    rollback to step 5, replayed to the clean run's step-10 parameters
+    bit for bit)."""
+    import tempfile
+
+    from autodist_tpu_torch.kernel.synchronization.explicit_sync import \
+        leg_stamp_points
+
+    layers = spec.config["num_layers"]
+    clean, batch = _resilience_session(spec)
+    key = clean.zero1_buckets[0].key
+    reduce_leg = leg_stamp_points(clean.schedule_ir)["reduce"][key][0]
+    clean_losses, clean_copies = [], []
+    for _ in range(RES_NAN_STEP + 1):
+        clean_losses.append(float(clean.run(batch)["loss"]))
+        clean_copies.append(_device_copy(clean))
+    sess, _ = _resilience_session(spec, {
+        "AUTODIST_CHAOS": f"nan_grad@step={RES_NAN_STEP},bucket={key}"})
+    want = _expected_launches(sess, layers)
+    _reset_all_counts()
+    losses, flagged, skipped = [], None, None
+    for i in range(RES_NAN_STEP + 2):
+        before = _device_copy(sess) if i == RES_NAN_STEP else None
+        out = sess.run(batch)
+        h = out["grad_health"]
+        losses.append(float(out["loss"]))
+        if i == RES_NAN_STEP:
+            flagged = [k for k, v in h.per_bucket.items() if not v["finite"]]
+            skipped = int(h.skipped_steps)
+            if bool(h.all_finite) or flagged != [key] or skipped != 1 \
+                    or not _same_params(sess, before):
+                raise AssertionError(
+                    f"nan_grad step: all_finite {h.all_finite}, flagged "
+                    f"{flagged}, skipped {skipped}, parameters kept "
+                    f"{_same_params(sess, before)}")
+        elif not bool(h.all_finite):
+            raise AssertionError(f"step {i} was not finite: {h}")
+    torch.cuda.synchronize()
+    nan_launches = _kernel_counts()
+    steps = RES_NAN_STEP + 2
+    # the skipped step runs K4 (it detects the poison) and no update (K5)
+    expect = {k: v * steps for k, v in want.items()}
+    expect["adam_update"] -= want["adam_update"]
+    if nan_launches != expect:
+        raise AssertionError(f"nan_grad run launched {nan_launches}, "
+                             f"expected {expect}")
+    after = losses[:RES_NAN_STEP] + losses[RES_NAN_STEP + 1:]
+    if after != clean_losses or not _same_params(sess, clean_copies[-1]):
+        raise AssertionError(f"the unpoisoned steps' losses {after} are "
+                             f"not the clean run's {clean_losses}")
+    del sess, clean_copies
+    # the spike: the clean program continued to 10 steps is the oracle
+    for _ in range(2 * RES_EPOCH_STEPS - RES_NAN_STEP - 1):
+        clean.run(batch)
+    oracle = _device_copy(clean)
+    del clean
+    _fresh_peak(torch)
+    sess, _ = _resilience_session(spec)
+    ckpt = tempfile.mkdtemp(prefix="smoke_spike_")
+    # the health monitor reads the spike events when fit builds it
+    os.environ["AUTODIST_CHAOS"] = f"loss_spike@step={RES_SPIKE_STEP}"
+    try:
+        t0 = time.perf_counter()
+        hist = sess.fit([batch] * RES_EPOCH_STEPS, epochs=2,
+                        steps_per_epoch=RES_EPOCH_STEPS,
+                        checkpoint_dir=ckpt, checkpoint_keep=2)
+        fit_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("AUTODIST_CHAOS", None)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rbs = [(r["at_step"], r["restored_step"])
+           for r in hist.history.get("rollbacks", [])]
+    if rbs != [(RES_SPIKE_STEP, RES_EPOCH_STEPS)] \
+            or sess.step_count != 2 * RES_EPOCH_STEPS \
+            or not _same_params(sess, oracle):
+        raise AssertionError(f"loss_spike: rollbacks {rbs}, step "
+                             f"{sess.step_count}, oracle parameters "
+                             f"{_same_params(sess, oracle)}")
+    del sess, oracle
+    _fresh_peak(torch)
+    return {"nan_bucket": key, "nan_step": RES_NAN_STEP,
+            "k4_flagged": flagged, "skipped_steps": skipped,
+            "params_bit_identical_across_skip": True,
+            "unpoisoned_steps_equal_clean_run": True,
+            "losses": losses, "clean_losses": clean_losses,
+            "launches": nan_launches, "launches_per_step": want,
+            "spike_step": RES_SPIKE_STEP, "rollbacks": rbs,
+            "rollback_matches_oracle": True, "spike_fit_s": fit_s,
+            "reduce_leg": reduce_leg}
+
+
+class _ResilienceProgress:
+    """``fit`` callback of the supervised worker: after each step, the
+    step, the time and this attempt's launch counts (K4, K5, the leg
+    cursor) to ``<out>.progress`` (written atomically: a killed attempt
+    leaves its last line)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def on_train_begin(self, session) -> None: ...
+
+    def on_epoch_begin(self, epoch) -> None: ...
+
+    def on_step_end(self, step, metrics) -> None:
+        from autodist_tpu_torch.ops import leg_cursor
+
+        counts = _kernel_counts()
+        rec = {"step": int(step), "time": time.time(),
+               "attempt": os.environ.get("AUTODIST_ATTEMPT"),
+               "detect_stats": counts["detect_stats"],
+               "adam_update": counts["adam_update"],
+               "leg_cursor": leg_cursor.stamp.calls}
+        with open(self.path + ".tmp", "w", encoding="utf-8") as f:
+            json.dump(rec, f)
+        os.replace(self.path + ".tmp", self.path)
+
+    def on_epoch_end(self, epoch, logs) -> None: ...
+
+    def on_train_end(self, history) -> None: ...
+
+
+def resilience_worker(ckpt: str, hb_dir: str, out: str) -> int:
+    """One attempt of the supervisor drill (``--resilience-worker``):
+    ``train_ps``'s program through ``fit``, 3 epochs of 2 steps with a
+    checkpoint after each (resuming the newest), the heartbeat callback
+    on ``hb_dir`` and ``AUTODIST_CHAOS`` through the chaos callback; the
+    finished attempt writes its parameter digest to ``out``."""
+    import torch
+
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.resilience import (ChaosCallback, ChaosMonkey,
+                                               HeartbeatCallback,
+                                               HeartbeatWriter)
+
+    torch.cuda.set_device(0)
+    spec = transformer_lm()
+    sess, batch = _resilience_session(spec, numerics=RES_SUP_NUMERICS)
+    writer = HeartbeatWriter(hb_dir, "worker-0", interval=0.5)
+    hist = sess.fit([batch] * 2, epochs=RES_SUP_EPOCHS, steps_per_epoch=2,
+                    checkpoint_dir=ckpt, callbacks=[
+                        _ResilienceProgress(out + ".progress"),
+                        HeartbeatCallback(writer),
+                        ChaosCallback(ChaosMonkey.from_env())])
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump({"params_sha256": _params_digests(sess)["params_sha256"],
+                   "step": sess.step_count, "steps_run": hist.steps_run,
+                   "resume_tier": hist.resume_tier}, f)
+    return 0
+
+
+def _resilience_supervisor(torch, spec, reduce_leg: str) -> dict:
+    """(b) The Supervisor drill: ``--resilience-worker`` attempts under
+    ``kill@step=3,attempt=0`` and ``hang@step=5,attempt=1,leg=<reduce
+    leg>`` (``AUTODIST_FLIGHTREC=legs``): the monitor reads the hang as
+    WEDGED within its step timeout and the evidence names the leg; the
+    third attempt finishes, its digest the parent's uninterrupted run's."""
+    import tempfile
+
+    from autodist_tpu_torch.resilience import (Backoff, Supervisor,
+                                               SupervisorPolicy)
+    from autodist_tpu_torch.telemetry import events as ev
+
+    # the parent's oracle: the same fit, uninterrupted, no checkpoints
+    _fresh_peak(torch)
+    oracle, batch = _resilience_session(spec, numerics=RES_SUP_NUMERICS)
+    oracle.fit([batch] * 2, epochs=RES_SUP_EPOCHS, steps_per_epoch=2)
+    want = _params_digests(oracle)["params_sha256"]
+    del oracle
+    _fresh_peak(torch)
+
+    work = tempfile.mkdtemp(prefix="smoke_sup_")
+    ckpt, outs, launched = os.path.join(work, "ckpt"), [], []
+    # the attempts publish their schedule IR here, and the supervisor's
+    # crash bundles land here: the hang diagnosis reads both
+    tel = os.path.join(work, "telemetry")
+    chaos = (f"kill@step=3,attempt=0;hang@step=5,attempt=1,"
+             f"leg={reduce_leg}")
+
+    def launch(att):
+        out = os.path.join(work, f"attempt_{att.index}.json")
+        outs.append(out)
+        launched.append(time.time())
+        env = dict(os.environ, **att.env(), AUTODIST_CHAOS=chaos,
+                   AUTODIST_FLIGHTREC="legs", AUTODIST_TELEMETRY_DIR=tel)
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--resilience-worker", ckpt, att.heartbeat_dir, out],
+            env=env, start_new_session=True, stdout=subprocess.DEVNULL,
+            stderr=open(out + ".err", "w"))
+
+    sup = Supervisor(SupervisorPolicy(
+        max_restarts=3, heartbeat_timeout=RES_BEACON_TIMEOUT_S,
+        step_timeout=RES_STEP_TIMEOUT_S, poll_interval=0.2, kill_grace=10.0,
+        backoff=Backoff(max_tries=4, base=0.1, cap=0.2, jitter=0)),
+        checkpoint_dir=ckpt, workdir=os.path.join(work, "sup"))
+    ev.configure(None)
+    t0 = time.perf_counter()
+    os.environ["AUTODIST_TELEMETRY_DIR"] = tel
+    try:
+        report = sup.run(launch)
+        wall = time.perf_counter() - t0
+        progress = [json.load(open(o + ".progress")) for o in outs]
+        result = json.load(open(outs[-1])) if report.ok else None
+        errs = [open(o + ".err").read()[-2000:] for o in outs]
+    finally:
+        os.environ.pop("AUTODIST_TELEMETRY_DIR", None)
+        shutil.rmtree(work, ignore_errors=True)
+    events = ev.get_journal().events
+    fails = [e for e in events if e["kind"] == "supervisor/attempt_failure"]
+    starts = [e for e in events if e["kind"] == "supervisor/attempt_start"]
+    kinds = [(f.attempt, f.kind) for f in report.failures]
+    if not report.ok or kinds != [(0, "exit"), (1, "heartbeat")]:
+        raise AssertionError(f"supervisor: ok {report.ok}, failures "
+                             f"{report.failures}, gave up "
+                             f"{report.gave_up!r}; stderr {errs}")
+    wedge = report.failures[1]
+    if "wedged" not in wedge.detail or reduce_leg not in wedge.detail:
+        raise AssertionError(f"the WEDGED verdict does not name the "
+                             f"planted leg {reduce_leg}: {wedge.detail}")
+    if result["params_sha256"] != want \
+            or result["step"] != 2 * RES_SUP_EPOCHS:
+        raise AssertionError(f"the supervised run ended on {result}, the "
+                             f"uninterrupted run's digest is {want}")
+    if [p["step"] for p in progress] != [3, 5, 2 * RES_SUP_EPOCHS]:
+        raise AssertionError(f"attempts' last steps {progress}")
+    resume_steps = [s["resume_step"] for s in starts]
+    to_wedged = fails[1]["time"] - progress[1]["time"]
+    relaunch = [progress[i + 1]["time"] - fails[i]["time"]
+                for i in range(2)]
+    if not to_wedged <= RES_STEP_TIMEOUT_S + 5:
+        raise AssertionError(f"WEDGED after {to_wedged:.1f} s, the step "
+                             f"timeout is {RES_STEP_TIMEOUT_S} s")
+    if progress[1]["leg_cursor"] <= 0:
+        raise AssertionError("attempt 1 launched no leg cursor")
+    return {"attempts": report.attempts,
+            "failures": [{"attempt": f.attempt, "kind": f.kind,
+                          "culprit": f.culprit, "detail": f.detail}
+                         for f in report.failures],
+            "resume_steps": resume_steps, "params_equal_oracle": True,
+            "step_timeout_s": RES_STEP_TIMEOUT_S,
+            "time_to_wedged_s": to_wedged,
+            "relaunch_to_first_step_s": relaunch,
+            "attempt_last_steps": [p["step"] for p in progress],
+            "attempt_launches": [{k: p[k] for k in (
+                "detect_stats", "adam_update", "leg_cursor")}
+                for p in progress], "wall_s": wall}
+
+
+def phase_resilience(torch) -> dict:
+    """The ``resilience`` phase (one card): the guard drill and the
+    Supervisor drill at full width."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm()
+    t0 = time.perf_counter()
+    guard = _resilience_guard(torch, spec)
+    guard_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sup = _resilience_supervisor(torch, spec, guard["reduce_leg"])
+    return {"guard": guard, "guard_s": guard_s, "supervisor": sup,
+            "supervisor_s": time.perf_counter() - t1,
+            "total_s": time.perf_counter() - t0}
+
+
+# -- elastic: a 4-rank ZeRO-1 checkpoint on one card --------------------------
+
+def _ps_lb_donor(torch, sess, directory: str) -> dict:
+    """After ``ps_lb``'s steps: a Saver checkpoint of the 4 ranks (rank 0
+    writes), the logical parameters' digest at it, and the losses of
+    :data:`ELASTIC_STEPS` more steps (the donor's)."""
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    batch = transformer_lm().sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    t0 = time.perf_counter()
+    path = Saver(sess).save(directory)
+    save_s = time.perf_counter() - t0
+    digest = _params_digests(sess)["params_sha256"]
+    return {"path": path, "step": sess.step_count, "save_s": save_s,
+            "params_sha256": digest,
+            "losses": [float(sess.run(batch)["loss"])
+                       for _ in range(ELASTIC_STEPS)]}
+
+
+def _drifted_checkpoint(path: str, buckets, out: str) -> str:
+    """A step directory beside ``path`` whose items are links to its own
+    and whose meta records the layout the same catalog gets under a
+    bucket cap of :data:`ELASTIC_DRIFT_CAP` (what a drifted
+    ``bucket_bytes`` writes: every multi-member bucket splits)."""
+    from autodist_tpu_torch.checkpoint.saver import META_FILE, Saver
+    from autodist_tpu_torch.kernel.synchronization.bucketing import \
+        assign_buckets
+    from autodist_tpu_torch.resilience.elastic import bucket_layout
+
+    meta = Saver.read_meta(path)
+    entries = [(v.name, v.shape, b.dtype, b.compressor, b.group, b.mode,
+                b.stored) for b in buckets for v in b.vars]
+    meta["zero1_buckets"] = bucket_layout(assign_buckets(
+        entries, bucket_bytes=ELASTIC_DRIFT_CAP,
+        shard_divisor=meta.get("data_axis_size", 1)))
+    os.makedirs(out)
+    for item in meta.get("items", []):
+        if os.path.isdir(os.path.join(path, item)):
+            os.symlink(os.path.join(path, item), os.path.join(out, item))
+    with open(os.path.join(out, META_FILE), "w", encoding="utf-8") as f:
+        json.dump(meta, f)
+    return out
+
+
+def phase_elastic(torch, donor: dict) -> dict:
+    """The ``elastic`` phase: ``ps_lb``'s 4-rank checkpoint (``embed``
+    stored 1/4) into a one-card ``train_ps`` session: ``preflight_elastic``
+    then ``elastic_restore``; parameters bit-exact with the ranks'
+    gathered ones, every moment's first ``total`` elements bit-exact and
+    the pad zero, the next losses at rtol 1e-5 of the donor's with K4/K5
+    as the schedule IR predicts; a drifted bucket cap raises."""
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.checkpoint.saver import read_item
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.resilience import (ElasticResumeError,
+                                               elastic_restore,
+                                               preflight_elastic)
+    from autodist_tpu_torch.telemetry import events as ev
+
+    spec = transformer_lm()
+    layers = spec.config["num_layers"]
+    path = donor["path"]
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    sess, batch = _resilience_session(spec, numerics={
+        "clip_norm": CLIP_NORM})
+    meta = Saver.read_meta(path)
+    if meta["data_axis_size"] != RING_RANKS or sess.data_axis_size != 1:
+        raise AssertionError(f"elastic: checkpoint at data "
+                             f"{meta['data_axis_size']}, session at "
+                             f"{sess.data_axis_size}")
+    t1 = time.perf_counter()
+    preflight_elastic(sess, meta, context="chip_smoke elastic")
+    preflight_s = time.perf_counter() - t1
+    ev.configure(None)
+    t1 = time.perf_counter()
+    step = elastic_restore(sess, path, validate=False)
+    restore_s = time.perf_counter() - t1
+    (reshard,) = [e for e in ev.get_journal().events
+                  if e["kind"] == "elastic/reshard"]
+    if step != donor["step"] or \
+            _params_digests(sess)["params_sha256"] != donor["params_sha256"]:
+        raise AssertionError("elastic: the restored parameters are not "
+                             "the ranks' gathered parameters bit for bit")
+    saved = read_item(path, "opt_state")["zero1"]
+    _, opt = sess.export_state()
+    repadded = 0
+    for b, old in zip(sess.zero1_buckets, meta["zero1_buckets"]):
+        repadded += int(old["padded_total"] != b.padded_total)
+        for m in ("mu", "nu"):
+            got = opt["zero1"][m][b.key].cpu()
+            if not torch.equal(got[:b.total], saved[m][b.key][:b.total]) \
+                    or bool(got[b.total:].any()):
+                raise AssertionError(f"elastic: {m} of {b.key} is not the "
+                                     f"checkpoint's (or its pad is not 0)")
+    del saved, opt
+    want = _expected_launches(sess, layers)
+    predicted = _ir_predicted_launches(sess.schedule_ir, layers)
+    if want != predicted:
+        raise AssertionError(f"elastic: the plan's launches {want}, the "
+                             f"IR's {predicted}")
+    losses, _, step_s, launches = _checked_steps(
+        torch, "elastic", sess, batch, want, 0, ELASTIC_STEPS, True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, donor["losses"]))
+    if not rel <= ELASTIC_LOSS_RTOL:
+        raise AssertionError(f"elastic: losses {losses}, the donor's "
+                             f"{donor['losses']} (rel {rel:.2e})")
+    drift = _drifted_checkpoint(path, sess.zero1_buckets,
+                                os.path.join(os.path.dirname(path),
+                                             "drifted"))
+    try:
+        Saver(sess).restore(drift)
+        raise AssertionError("elastic: a drifted bucket cap restored")
+    except ElasticResumeError as e:
+        drift_error = str(e)[:200]
+    del sess
+    _fresh_peak(torch)
+    return {"from_data": meta["data_axis_size"], "to_data": 1,
+            "restored_step": step, "buckets": len(meta["zero1_buckets"]),
+            "repadded_buckets": repadded, "preflight_s": preflight_s,
+            "restore_s": restore_s, "reshard_s": reshard["duration_s"],
+            "reshard_bytes": reshard["bytes"],
+            "donor_save_s": donor["save_s"],
+            "params_equal_donor": True, "moments_equal_donor": True,
+            "losses": losses, "donor_losses": donor["losses"],
+            "max_rel_diff": rel, "rtol": ELASTIC_LOSS_RTOL,
+            "ms_per_step": statistics.median(step_s) * 1e3,
+            "launches": launches, "launches_per_step": want,
+            "ir_predicted_per_step": predicted,
+            "drifted_cap_raises": drift_error,
+            "total_s": time.perf_counter() - t0}
+
+
+# -- router: two supervised replicas on the card ------------------------------
+
+def replica_main() -> int:
+    """One serving replica of the ``router`` phase (``--replica``): the
+    full-width paged server from ``SEED``'s weights on a free port, its
+    address published to ``AUTODIST_REPLICA_ADDR_FILE``, beacons on
+    ``AUTODIST_REPLICA_HB_DIR``, and K9's launches and the decode ticks
+    in ``<address file>.k9`` (read by the parent)."""
+    import torch
+
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.resilience import HeartbeatWriter
+    from autodist_tpu_torch.serving import serve
+
+    torch.cuda.set_device(0)
+    addr = os.environ["AUTODIST_REPLICA_ADDR_FILE"]
+    spec = transformer_lm()
+    srv = serve(spec, spec.init(SEED, device="cuda"), paged=True,
+                device="cuda", host="127.0.0.1", port=0, **SERVE_GEOM)
+    writer = HeartbeatWriter(os.environ["AUTODIST_REPLICA_HB_DIR"],
+                             os.environ["AUTODIST_REPLICA_NAME"],
+                             interval=0.5).start()
+    host, port = srv.address
+
+    def publish(path, payload):
+        with open(path + ".tmp", "w", encoding="utf-8") as f:
+            json.dump(payload, f)
+        os.replace(path + ".tmp", path)
+    publish(addr, {"host": host, "port": port, "pid": os.getpid()})
+    eng = srv.engine
+    while True:
+        time.sleep(0.3)
+        writer.beat(step=int(eng.stats.ticks))
+        publish(addr + ".k9", {"paged_attention": fk.paged_attention.calls,
+                               "ticks": int(eng.stats.ticks)})
+
+
+def _router_requests(vocab: int):
+    """The kill drill's greedy requests: short ones (their completion
+    arms the kill) and long ones (in flight when it lands)."""
+    rng = np.random.RandomState(SEED + 7)
+    return [(rng.randint(0, vocab, int(rng.randint(8, 24))).astype(
+        np.int32), n) for n in ROUTER_NEW_TOKENS]
+
+
+def phase_router(torch) -> dict:
+    """The ``router`` phase: ``SupervisedReplicaPool(2)`` of full-width
+    paged replicas (``--replica``), ``Router(recover=True)``; chaos
+    SIGKILLs replica 0 mid-decode and the stitched outputs equal the
+    plain generator token for token, at least one ``recovered``; the pool
+    relaunches replica 0; ``/admin/drain`` on replica 1 takes it out of
+    rotation without a mark-down; ``rolling_restart`` drops nothing."""
+    import tempfile
+
+    from autodist_tpu_torch.models.generate import make_generator
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.resilience import Backoff, SupervisorPolicy
+    from autodist_tpu_torch.serving.router import (Router,
+                                                   SupervisedReplicaPool)
+
+    spec = transformer_lm()
+    work = tempfile.mkdtemp(prefix="smoke_pool_")
+    chaos = ("slow_replica@replica=0,seconds=0.05,attempt=0;"
+             f"kill_replica@replica=0,tokens={ROUTER_KILL_TOKENS},"
+             "attempt=0")
+    launches = []
+
+    def launch(index, attempt):
+        launches.append((index, attempt.index, time.time()))
+        env = dict(os.environ, AUTODIST_REPLICA_ADDR_FILE=os.path.join(
+            work, f"replica_{index}.addr.json"),
+            AUTODIST_REPLICA_HB_DIR=attempt.heartbeat_dir,
+            AUTODIST_REPLICA_NAME=f"replica-{index}",
+            AUTODIST_ATTEMPT=str(attempt.index), AUTODIST_CHAOS=chaos)
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--replica"],
+            env=env, start_new_session=True, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+
+    def wait(pred, timeout, what):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.2)
+        raise AssertionError(f"router: timed out waiting for {what}")
+
+    torch.cuda.empty_cache()
+    pool = SupervisedReplicaPool(2, launch, work, policy=SupervisorPolicy(
+        max_restarts=6, heartbeat_timeout=30.0, poll_interval=0.2,
+        kill_grace=10.0, backoff=Backoff(max_tries=8, base=0.2, cap=1.0,
+                                         jitter=0)))
+    eps = pool.endpoints()
+    router = Router(eps, probe_ttl_s=0.2, stats_ttl_s=0.1, retry_wait_s=0.2,
+                    max_attempts=40)
+    requests = _router_requests(spec.config["vocab_size"])
+    t0 = time.perf_counter()
+    try:
+        pool.start()
+        wait(lambda: all(ep.probe() for ep in eps), 300, "both replicas")
+        start_s = time.perf_counter() - t0
+        # the kill drill: every request in flight at once
+        results, errors, lat = {}, [], {}
+
+        def issue(i, prompt, n):
+            t = time.perf_counter()
+            try:
+                results[i] = router.complete(
+                    {"prompt_tokens": [int(x) for x in prompt],
+                     "max_new_tokens": n}, timeout_s=300)
+                lat[i] = time.perf_counter() - t
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append((i, repr(e)))
+
+        threads = [threading.Thread(target=issue, args=(i, p, n))
+                   for i, (p, n) in enumerate(requests)]
+        t_kill = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(results) != len(requests):
+            raise AssertionError(f"router: requests failed {errors}")
+        recovered = [i for i, r in results.items() if r.get("recovered")]
+        if not recovered:
+            raise AssertionError("router: no request was recovered from "
+                                 "the killed replica")
+        wait(lambda: eps[0].probe(), 300, "replica 0's relaunch")
+        relaunched = [t for i, a, t in launches if i == 0 and a == 1]
+        relaunch_s = time.time() - relaunched[0] if relaunched else None
+        replica0_up_s = time.time() - t_kill
+        # a fresh router for the healed pool: the drill's router holds
+        # replica 0's circuit breaker open after its in-flight failures
+        router = Router(eps, probe_ttl_s=0.2, stats_ttl_s=0.1,
+                        retry_wait_s=0.2, max_attempts=40)
+        # each recovered request again on the healed pool: its latency
+        # without the failure, the baseline of the recovery's extra ms
+        healed = {}
+        for i in recovered[:ROUTER_HEALED_REPEATS]:
+            t = time.perf_counter()
+            again = router.complete(
+                {"prompt_tokens": [int(x) for x in requests[i][0]],
+                 "max_new_tokens": requests[i][1]}, timeout_s=300)
+            healed[i] = time.perf_counter() - t
+            if again["tokens"] != results[i]["tokens"]:
+                raise AssertionError(f"router: request {i} on the healed "
+                                     f"pool differs from its recovery")
+        k9 = json.load(open(os.path.join(work, "replica_1.addr.json.k9")))
+        if k9["paged_attention"] != spec.config["num_layers"] * k9["ticks"] \
+                or k9["paged_attention"] <= 0:
+            raise AssertionError(f"router: the survivor's K9 {k9}")
+        # the drain: replica 1 leaves rotation, not marked down
+        cli1 = eps[1].client()
+        t1 = time.perf_counter()
+        status, body = cli1._request("POST", "/admin/drain", {})
+        if status != 200 or not body.get("draining"):
+            raise AssertionError(f"router: drain answered {status} {body}")
+        before = eps[1].fetch_stats()["requests_served"]
+        for prompt, _ in requests[:2]:
+            router.complete({"prompt_tokens": [int(x) for x in prompt],
+                             "max_new_tokens": 4}, timeout_s=120)
+        after = eps[1].fetch_stats()
+        if after["requests_served"] != before or not after["draining"] \
+                or "replica-1" in router._down_until:
+            raise AssertionError(f"router: the drained replica served or "
+                                 f"was marked down: {after}")
+        cli1._request("POST", "/admin/undrain", {})
+        drain_s = time.perf_counter() - t1
+        # the rolling restart under load
+        stop, load_errors, served = threading.Event(), [], []
+        prompt = [int(x) for x in requests[0][0]]
+
+        def load():
+            while not stop.is_set():
+                try:
+                    served.append(router.complete(
+                        {"prompt_tokens": prompt, "max_new_tokens": 4},
+                        timeout_s=300))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    load_errors.append(repr(e))
+                    return
+        loaders = [threading.Thread(target=load) for _ in range(2)]
+        old = {i: pool.current_proc(i).pid for i in range(2)}
+        t1 = time.perf_counter()
+        for t in loaders:
+            t.start()
+        try:
+            summary = pool.rolling_restart(drain_timeout_s=120.0,
+                                           relaunch_timeout_s=300.0)
+        finally:
+            stop.set()
+            for t in loaders:
+                t.join(timeout=300)
+        rolling_s = time.perf_counter() - t1
+        if summary["failed"] or load_errors or not served or any(
+                pool.current_proc(i).pid == old[i] for i in range(2)):
+            raise AssertionError(f"router: rolling restart {summary}, "
+                                 f"errors {load_errors}")
+        if len({tuple(s["tokens"]) for s in served}) != 1:
+            raise AssertionError("router: the rolling restart's answers "
+                                 "differ")
+    finally:
+        pool.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    # the oracle: the plain generator on the same weights
+    params = spec.init(SEED, device="cuda")
+    gen = make_generator(spec, device="cuda")
+    for i, (prompt, n) in enumerate(requests):
+        _check_exact(torch, gen, params, prompt, n, results[i]["tokens"],
+                     f"router request {i}")
+    _check_exact(torch, gen, params, requests[0][0], 4, served[0]["tokens"],
+                 "rolling restart request")
+    del params
+    torch.cuda.empty_cache()
+    return {"replicas": 2, "requests": len(requests),
+            "recovered": len(recovered),
+            "resumed_tokens": [results[i]["resumed_tokens"]
+                               for i in recovered],
+            "token_exact": True, "start_s": start_s,
+            "recovery_extra_ms": [(lat[i] - healed[i]) * 1e3
+                                  for i in healed],
+            "recovered_latency_s": [lat[i] for i in healed],
+            "healed_latency_s": [healed[i] for i in healed],
+            "relaunch_s": relaunch_s, "replica0_back_after_kill_s":
+                replica0_up_s, "drain_s": drain_s,
+            "drained_replica_skipped": True,
+            "rolling_restart_s": rolling_s,
+            "rolling_restart_served": len(served),
+            "rolling_restart_summary": summary,
+            "survivor_k9": k9, "total_s": time.perf_counter() - t0}
+
+
 def ring_repeat(torch, times: int) -> int:
     """``train_ring`` ``times`` times in a row: each repetition's outcome
     (rank digests agree, or which parameters differ) as one JSON line, then
@@ -5637,13 +6380,46 @@ def tune_only(torch) -> int:
     return 0
 
 
+def resilience_only(torch) -> int:
+    """``--resilience``: the kernels' build and the three resilience phases
+    alone (``ps_lb``'s 4 ranks write the elastic donor), for work on
+    them."""
+    import tempfile
+
+    from autodist_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "build_s": time.perf_counter() - t0})
+    res_out = phase_resilience(torch)
+    emit({"phase": "resilience", "card": smi, **res_out})
+    elastic_dir = tempfile.mkdtemp(prefix="smoke_elastic_")
+    try:
+        ring, wall, _ = phase_train_ring("elastic", elastic_dir)
+        emit({"phase": PS_LB_CONFIG, "wall_s": wall,
+              "losses": ring[PS_LB_CONFIG]["losses"]})
+        elastic_out = phase_elastic(torch,
+                                    ring[PS_LB_CONFIG]["elastic_donor"])
+    finally:
+        shutil.rmtree(elastic_dir, ignore_errors=True)
+    emit({"phase": "elastic", "card": smi, **elastic_out})
+    router_out = phase_router(torch)
+    emit({"phase": "router", "card": smi, **router_out})
+    emit({"phase": "resilience_total", "seconds": res_out["total_s"]
+          + elastic_out["total_s"] + router_out["total_s"]})
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if "--ring-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         return ring_worker(int(args["--ring-rank"]), args["--ring-init"],
-                           args["--ring-mode"])
+                           args["--ring-mode"], args.get("--elastic-dir"))
     if "--tune-predict" in sys.argv:
         # the CPU's prediction for the tune phase's 4-rank drill (meta
         # tensors: no card needed)
@@ -5652,8 +6428,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--resilience-worker" in sys.argv:
+        i = sys.argv.index("--resilience-worker")
+        return resilience_worker(*sys.argv[i + 1:i + 4])
+    if "--replica" in sys.argv:
+        return replica_main()
     if "--tune" in sys.argv:
         return tune_only(torch)
+    if "--resilience" in sys.argv:
+        return resilience_only(torch)
     if "--p6-lr-control" in sys.argv:
         return p6_lr_control(torch)
     if "--collective-alpha" in sys.argv:
@@ -5752,6 +6535,8 @@ def main() -> int:
     t0 = time.perf_counter()
     tune_out, leg_row = phase_tune(torch, smi)
     emit({"phase": "tune", "wall_s": time.perf_counter() - t0, **tune_out})
+    res_out = phase_resilience(torch)
+    emit({"phase": "resilience", "card": smi, **res_out})
     for row in flash_rows:
         row["launches_by_path"] = {"train_fit": {
             "launches": fit_out["launches"][row["name"]],
@@ -5791,7 +6576,11 @@ def main() -> int:
             "per_step": auto_out["trained"]["launches_per_step"][
                 row["name"]]}
 
-    ring, ring_wall, fused_vs_unfused = phase_train_ring()
+    import tempfile
+
+    elastic_dir = tempfile.mkdtemp(prefix="smoke_elastic_")
+    ring, ring_wall, fused_vs_unfused = phase_train_ring(
+        elastic_dir=elastic_dir)
     for config in RING_CONFIGS:
         rel = check_ring_losses(config, ring[config]["losses"],
                                 zero1_out["losses"])
@@ -5827,6 +6616,34 @@ def main() -> int:
         row["launches_by_path"][PS_LB_CONFIG + " (rank 0)"] = {
             "launches": ps_lb["launches"][row["name"]],
             "per_step": ps_lb["launches_per_step"][row["name"]]}
+    try:
+        elastic_out = phase_elastic(torch, ps_lb.pop("elastic_donor"))
+    finally:
+        shutil.rmtree(elastic_dir, ignore_errors=True)
+    emit({"phase": "elastic", "card": smi, **elastic_out})
+    router_out = phase_router(torch)
+    emit({"phase": "router", "card": smi, **router_out})
+    emit({"phase": "resilience_total", "card": smi,
+          "seconds": res_out["total_s"] + elastic_out["total_s"]
+          + router_out["total_s"],
+          "by_phase": {"resilience": res_out["total_s"],
+                       "elastic": elastic_out["total_s"],
+                       "router": router_out["total_s"]}})
+    for row in sync_rows:
+        row["launches_by_path"]["resilience nan_grad drill"] = {
+            "launches": res_out["guard"]["launches"][row["name"]],
+            "per_step": res_out["guard"]["launches_per_step"][row["name"]]}
+        row["launches_by_path"]["elastic resume (one card)"] = {
+            "launches": elastic_out["launches"][row["name"]],
+            "per_step": elastic_out["launches_per_step"][row["name"]]}
+    k9.setdefault("launches_by_path", {})[
+        "router survivor replica (its process)"] = {
+        "launches": router_out["survivor_k9"]["paged_attention"],
+        "decode_ticks": router_out["survivor_k9"]["ticks"]}
+    leg_row.setdefault("launches_by_path", {})[
+        "resilience supervisor attempt 1 (legs, until the hang)"] = {
+        "launches": res_out["supervisor"]["attempt_launches"][1][
+            "leg_cursor"]}
     auto_ring = ring[AUTO_RING_CONFIG]
     emit({"phase": "auto", "config": AUTO_RING_CONFIG, "card": smi,
           "ranks": RING_RANKS, "params_identical_across_ranks": True,
@@ -5932,13 +6749,13 @@ def main() -> int:
             "per_step": lora_out["launches_per_step"]}
     flash_rows[0]["launches_by_path"]["beam_score score"] = {
         "launches": beam_out["flash_fwd_per_score"], "per_step": None}
-    k9["launches_by_path"] = {
+    k9.setdefault("launches_by_path", {}).update({
         f"spec paged {name}": {
             "launches": spec_out[name]["paged"]["launches"][
                 "paged_attention"],
             "per_round": spec_out[name]["paged"][
                 "paged_attention_per_round"]}
-        for name in ("self", "draft2")}
+        for name in ("self", "draft2")})
     k10["launches_by_path"]["serve_slot int8"] = {
         "launches": slot_out["int8"]["launches"]["int8_matmul"],
         "per_dispatch": slot_out["int8"]["int8_matmul_per_dispatch"]}

@@ -299,8 +299,12 @@ def test_cross_strategy_restore(tmp_path, src, dst):
 
 
 def test_zero1_layout_of_another_data_size_raises(tmp_path):
-    """Elastic resume (a checkpoint's bucket layout differs from the
-    session's) is P9's, and raises naming it."""
+    """A ZeRO-1 layout recorded for another data-axis size whose vectors do
+    not have that size's padded length is inconsistent: elastic resume
+    raises ``ElasticResumeError`` (a consistent one restores exactly:
+    ``tests/test_torch_elastic.py``)."""
+    from autodist_tpu_torch.resilience.elastic import ElasticResumeError
+
     sess, batch = worker.session("zero1")
     sess.run(batch)
     path = Saver(sess).save(str(tmp_path / "e"))
@@ -310,8 +314,7 @@ def test_zero1_layout_of_another_data_size_raises(tmp_path):
         entry["padded_total"] += 2
     meta["data_axis_size"] = 2
     Path(meta_file).write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP: P9 — telemetry and resilience"):
+    with pytest.raises(ElasticResumeError, match="layout is inconsistent"):
         Saver(worker.session("zero1")[0]).restore(path)
 
 

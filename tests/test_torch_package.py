@@ -94,6 +94,13 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.utils.tracing\n"
         "import autodist_tpu_torch.utils.logging\n"
         "import autodist_tpu_torch.utils.metrics\n"
+        "import autodist_tpu_torch.resilience.backoff\n"
+        "import autodist_tpu_torch.resilience.heartbeat\n"
+        "import autodist_tpu_torch.resilience.chaos\n"
+        "import autodist_tpu_torch.resilience.supervisor\n"
+        "import autodist_tpu_torch.resilience.elastic\n"
+        "import autodist_tpu_torch.serving.router\n"
+        "from autodist_tpu_torch.resilience import Supervisor\n"
         "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
         "    ENV, Callback, TimeHistory, History, __version__)\n"
         "from autodist_tpu_torch.strategy import (AutoStrategy,\n"
@@ -297,6 +304,44 @@ def test_ptxas_report_is_parsed_per_flash_kernel():
         "other_kernel": {"registers": 40, "static_smem": 32768}}
 
 
+def test_concurrent_builds_of_a_library_serialize_on_its_file_lock(
+        tmp_path):
+    """Two processes that find a kernel library missing at once build it
+    once: the second waits on the library's file lock and finds it built.
+    A stub ``nvcc`` (``CUDA_HOME``) logs each run and takes a second."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    log = tmp_path / "nvcc.log"
+    stub = home / "bin" / "nvcc"
+    stub.write_text(
+        "#!" + sys.executable + "\n"
+        "import os, sys, time\n"
+        f"log = open({str(log)!r}, 'a')\n"
+        "log.write(f'start {os.getpid()} {time.time()}\\n'); log.flush()\n"
+        "time.sleep(1.0)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+        "log.write(f'end {os.getpid()} {time.time()}\\n')\n")
+    stub.chmod(0o755)
+    code = ("import sys; from pathlib import Path\n"
+            "from autodist_tpu_torch.ops import _build\n"
+            "_build.BUILD_DIR = Path(sys.argv[1])\n"
+            "_build.SOURCES = ('leg_cursor.cu',)\n"
+            "print(_build.build_all()['leg_cursor.cu'].read_text())\n")
+    env = dict(os.environ, CUDA_HOME=str(home))
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(tmp_path / "kernels")], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert [o.strip() for o in outs] == ["lib", "lib"]
+    runs = log.read_text().split()
+    assert runs[0::3] == ["start", "end"]       # one build, not two
+    libs = list((tmp_path / "kernels").glob("leg_cursor-*.so"))
+    assert len(libs) == 1
+    assert (libs[0].parent / (libs[0].name + ".lock")).exists()
+
+
 def test_build_paths_stay_in_the_checkout():
     from autodist_tpu_torch.ops import _build
 
@@ -350,7 +395,13 @@ def _public(module):
                                    ".kernel.synchronization.schedule_ir",
                                    ".checkpoint", ".checkpoint.tiers",
                                    ".strategy.tuner", ".patch",
-                                   ".analysis.simulate"])
+                                   ".analysis.simulate", ".resilience",
+                                   ".resilience.backoff",
+                                   ".resilience.heartbeat",
+                                   ".resilience.chaos",
+                                   ".resilience.supervisor",
+                                   ".resilience.elastic", ".serving",
+                                   ".serving.router", ".serving.server"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -406,6 +457,23 @@ def _with_env(name, value, fn):
             os.environ[name] = old
 
 
+def _drain_server(spec, params):
+    """``serve(drain_on_sigterm=True)``: it installs the SIGTERM drain on
+    this (the main) thread; the server is closed and the previous handler
+    put back."""
+    import signal
+
+    before = signal.getsignal(signal.SIGTERM)
+    srv = serve(spec, params, paged=True, device="cpu", port=0, window=16,
+                block_size=8, drain_on_sigterm=True)
+    try:
+        assert signal.getsignal(signal.SIGTERM) is not before
+        assert srv.stats()["draining"] is False
+    finally:
+        srv.close()
+        signal.signal(signal.SIGTERM, before)
+
+
 def _stub_calls(spec, ad, sess):
     from autodist_tpu_torch.runner import DistributedSession
     from autodist_tpu_torch.strategy import ScheduleTuner
@@ -434,9 +502,9 @@ def _stub_calls(spec, ad, sess):
             lambda: DistributedSession(sess._gi, sess._step)), None),
         "session.place_local_batch": (
             lambda: sess.place_local_batch(spec.sample_batch(2)), P12),
-        "serve(drain_on_sigterm=True)": (lambda: serve(
-            spec, params, paged=True, device="cpu", port=0,
-            drain_on_sigterm=True), P11),
+        # the SIGTERM drain, ported with the router (item None: it runs)
+        "serve(drain_on_sigterm=True)": (lambda: _drain_server(
+            spec, params), None),
         "PagedDecodeEngine(mesh=)": (lambda: PagedDecodeEngine(
             spec, params, device="cpu", mesh=object()), P10),
     }

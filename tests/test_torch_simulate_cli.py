@@ -14,7 +14,7 @@ autodist_tpu_torch.analysis``) against the JAX package's
   and expert catalogs name P10), a budget
   exceeded exits 1, ``--dump-ir``, ``--watermark``, ``--search-report``,
   ``--simulate``, ``--list-models`` and ``--list-rules``; the verdict is
-  checked, not the wall clock; ``--elastic-from`` names P9.
+  checked, not the wall clock; ``--elastic-from`` runs the elastic rules.
 """
 import io
 import json
@@ -231,6 +231,7 @@ def test_cli_lists_usage_and_elastic():
     with pytest.raises(SystemExit) as err:
         main(["mlp"])
     assert err.value.code == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP: P9"):
-        main(["mlp", "AllReduce", "--mesh", "data=4", "--elastic-from",
-              "data=8"])
+    rc, out = _run(main, ["mlp", "Zero1", "--mesh", "data=4",
+                          "--elastic-from", "data=8"])
+    assert rc == 0 and "elastic/axis-resize" in out \
+        and "elastic/hbm-grows" in out
