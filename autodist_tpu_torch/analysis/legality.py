@@ -9,10 +9,10 @@ Strategy over the compiled mesh's axes (the port's compiler lowers a
 Strategy node for node, so the projection is the lowered plan) and checks
 that every compiled plan agrees with it.
 
-The port's mesh has only the data axis (ROADMAP P10): a ``model``,
-``pipe``, ``expert`` or ``seq`` axis wider than 1, on the mesh or in the
-strategy's ``mesh_axes`` hint, is ``legality/axis-not-ported`` (ERROR,
-naming P10), so a search never picks such a plan.
+The port's mesh has the data and seq axes only (ROADMAP P10): a
+``model``, ``pipe`` or ``expert`` axis wider than 1, on the mesh or in
+the strategy's ``mesh_axes`` hint, is ``legality/axis-not-ported``
+(ERROR, naming P10), so a search never picks such a plan.
 
 Rules (docs/analysis.md):
 
@@ -48,7 +48,7 @@ Rules (docs/analysis.md):
   padded, or non-bucketable compressor); it falls back to a per-variable
   collective with replicated optimizer state.  Shares
   ``bucketing.bucket_drop_reason`` with the runtime.
-* ``legality/axis-not-ported`` (ERROR) — a non-data mesh axis wider
+* ``legality/axis-not-ported`` (ERROR) — a model, pipe or expert axis wider
   than 1: the port cannot lower it (ROADMAP P10).
 * ``legality/slice-mismatch`` (ERROR) — the resource spec's ``num_slices``
   does not divide the mesh's device count: a two-tier topology would
@@ -71,6 +71,7 @@ from autodist_tpu_torch.const import (
     MESH_AXIS_EXPERT,
     MESH_AXIS_MODEL,
     MESH_AXIS_PIPE,
+    MESH_AXIS_SEQ,
 )
 from autodist_tpu_torch.graph_item import VarInfo
 
@@ -447,18 +448,19 @@ def _check_slices(ctx: AnalysisContext) -> List[Diagnostic]:
 
 
 def _check_ported_axes(ctx: AnalysisContext) -> List[Diagnostic]:
-    """``legality/axis-not-ported``: a non-data axis wider than 1, on the
-    mesh or in the strategy's hint, which the port cannot lower."""
+    """``legality/axis-not-ported``: an axis other than ``data`` and
+    ``seq`` wider than 1, on the mesh or in the strategy's hint, which the
+    port cannot lower."""
     from autodist_tpu_torch.const import P10
 
     hint = getattr(ctx.strategy.graph_config, "mesh_axes", None) or {}
     wide = {str(a): int(n) for src in (ctx.axes, hint)
             for a, n in src.items()
-            if a != MESH_AXIS_DATA and int(n) > 1}
+            if a not in (MESH_AXIS_DATA, MESH_AXIS_SEQ) and int(n) > 1}
     return [diag(
         "legality/axis-not-ported", Severity.ERROR,
-        f"mesh axis {a!r} of size {n}: the port lowers the data axis only "
-        f"(not ported: {P10})", location=a,
+        f"mesh axis {a!r} of size {n}: the port lowers the data and seq "
+        f"axes only (not ported: {P10})", location=a,
         fix="drop the axis (pure data parallelism) until it is ported")
         for a, n in sorted(wide.items())]
 

@@ -884,6 +884,7 @@ int dispatch(int D, bool causal, const Args& a) {
   switch (D) {
     case 8: return causal ? L<8, true>::run(a) : L<8, false>::run(a);
     case 16: return causal ? L<16, true>::run(a) : L<16, false>::run(a);
+    case 32: return causal ? L<32, true>::run(a) : L<32, false>::run(a);
     case 64: return causal ? L<64, true>::run(a) : L<64, false>::run(a);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -893,7 +894,7 @@ int dispatch(int D, bool causal, const Args& a) {
 
 // All tensors contiguous f32 on the card, 16-byte aligned: q, k, v, o, dout,
 // dq, dk, dv [B, T, H, D]; lse and delta [B, H, T].  D is one of 8, 16,
-// 64.  Each entry launches one kernel on `stream`, allocates nothing,
+// 32, 64.  Each entry launches one kernel on `stream`, allocates nothing,
 // and returns the first error of raising the kernel's shared-memory limit
 // and of cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,

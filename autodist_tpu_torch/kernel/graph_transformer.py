@@ -15,6 +15,10 @@ One such step runs, in order:
    the global batch (its slice of the ``data`` axis), inside
    :func:`~autodist_tpu_torch.mesh.data_rows` so that a loss that is not
    a mean over rows (BERT's masked mean) keeps the global batch's value;
+   on a ``seq`` axis, on this rank's chunk of the batch's sequences
+   (:func:`seq_rows`, inside :func:`~autodist_tpu_torch.mesh.seq_chunk`),
+   the loss and the gradients then summed over the seq group (every
+   parameter is replicated over ``seq``);
 2. accumulation: with ``accum_steps > 1`` the gradients are averaged over
    microbatches in f32 — the even split of ``_accumulate_grads`` or the
    row-weighted uneven tail of ``_uneven_accumulate``;
@@ -40,6 +44,7 @@ explicit step.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -51,7 +56,8 @@ from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_ALL_REDUCE, Bucket, assign_buckets, pack_bucket, unpack_bucket)
-from autodist_tpu_torch.mesh import data_rows
+from autodist_tpu_torch.const import P10, not_ported
+from autodist_tpu_torch.mesh import SeqChunk, data_rows, seq_chunk
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
@@ -207,16 +213,80 @@ def local_rows(batch, data: int, rank: int, warned: List[int]):
     return _rows(batch, rank * (n // data), n // data)
 
 
+def seq_rows(batch, size: int, rank: int):
+    """Chunk ``rank`` of ``size`` of the batch's sequence leaves, by the
+    JAX package's rule (``batch_sharding_for_leaf``): dim 1 of a leaf of
+    rank >= 2 is cut when it equals the largest dim 1 of those leaves and
+    ``size`` divides it; other leaves stay whole.  Returns ``batch``
+    itself when nothing is cut."""
+    dims = [x.shape[1] for _, x in flatten(batch)
+            if isinstance(x, torch.Tensor) and x.dim() >= 2]
+    if not dims or max(dims) % size:
+        return batch
+    t = max(dims)
+    n = t // size
+    return tree_map(lambda x: x[:, rank * n:(rank + 1) * n]
+                    if isinstance(x, torch.Tensor) and x.dim() >= 2
+                    and x.shape[1] == t else x, batch)
+
+
+def mesh_seq_chunk(mesh) -> Optional[SeqChunk]:
+    """This rank's :class:`~autodist_tpu_torch.mesh.SeqChunk` on a mesh
+    with a ``seq`` axis wider than 1, else None."""
+    size = getattr(mesh, "seq_size", 1)
+    return SeqChunk(mesh.seq_group, size, mesh.seq_rank) if size > 1 \
+        else None
+
+
+def check_seq_program(gi, mesh) -> None:
+    """On a ``seq`` axis wider than 1 the captured loss must compute on a
+    chunk of each sequence (``loss_fn.sequence_parallel``: the flagship
+    LM's); any other program raises naming P10."""
+    if getattr(mesh, "seq_size", 1) > 1 and not getattr(
+            gi.loss_fn, "sequence_parallel", False):
+        raise not_ported(
+            f"training {getattr(gi.loss_fn, '__qualname__', 'this loss')} "
+            f"on a seq axis of size {mesh.seq_size} (only the "
+            f"transformer_lm loss computes on sequence chunks)", P10)
+
+
+def seq_sum(loss, grads: Dict[str, torch.Tensor], group):
+    """The loss and each gradient summed over the seq ``group``: one
+    ``all_reduce`` per gradient dtype over the gradients packed flat."""
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for n, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(n)
+    out = dict(grads)
+    for names in by_dtype.values():
+        flat = coll.all_reduce(torch.cat([grads[n].reshape(-1)
+                                          for n in names]), group)
+        for n, part in zip(names, flat.split([grads[n].numel()
+                                              for n in names])):
+            out[n] = part.view(grads[n].shape)
+    return coll.all_reduce(loss, group), out
+
+
 def local_value_and_grad(vg: Callable, params, batch, data: int, group,
-                         rank: int, warned: List[int]):
+                         rank: int, warned: List[int],
+                         seq: Optional[SeqChunk] = None):
     """``vg`` on this rank's rows of the global ``batch``, inside
     :func:`~autodist_tpu_torch.mesh.data_rows` when they are a ``1/data``
-    slice of it."""
+    slice of it; with ``seq``, on this rank's chunk of the sequences
+    inside :func:`~autodist_tpu_torch.mesh.seq_chunk`, the loss and the
+    gradients then summed over the seq group (a batch whose sequences do
+    not divide over the axis runs whole on every rank of it)."""
     local = local_rows(batch, data, rank, warned)
-    if local is batch:
-        return vg(params, local)
-    with data_rows(group, data):
-        return vg(params, local)
+    chunked = seq_rows(local, seq.size, seq.rank) if seq is not None \
+        else local
+    with contextlib.ExitStack() as stack:
+        if local is not batch:
+            stack.enter_context(data_rows(group, data))
+        if chunked is local:
+            return vg(params, local)
+        stack.enter_context(seq_chunk(seq.group, seq.size, seq.rank))
+        loss, aux, grads = vg(params, chunked)
+    loss, grads = seq_sum(loss, grads, seq.group)
+    return loss, aux, grads
 
 
 def value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
@@ -334,6 +404,7 @@ class GraphTransformer:
                 "(capture them via AutoDist.capture)")
         from autodist_tpu_torch.kernel.synchronization import explicit_sync
 
+        check_seq_program(gi, self.compiled.mesh)
         if explicit_sync.uses_explicit_path(self.compiled):
             return explicit_sync.make_explicit_step(gi, self.compiled,
                                                     extra_metrics_fn)
@@ -359,6 +430,7 @@ class GraphTransformer:
             if num_active else None
         vg_unscaled = scaled_value_and_grad(gi, names, None)
         warned: List[int] = []
+        seq = mesh_seq_chunk(mesh)
         inject = chaos_injector(gi, num_active, buckets, names)
 
         def sync(loss, grads):
@@ -376,7 +448,7 @@ class GraphTransformer:
                     gi, names, scale,
                     inject=inject(sync_state) if inject else None)
             loss, aux, grads = local_value_and_grad(vg, params, batch, data,
-                                                    group, rank, warned)
+                                                    group, rank, warned, seq)
             if data > 1:
                 loss = sync(loss, grads)
             metrics: Dict[str, Any] = {}

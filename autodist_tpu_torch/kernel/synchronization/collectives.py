@@ -13,6 +13,13 @@ tensors:
 * :func:`reduce_scatter` — ``reduce_scatter_tensor``, summed;
 * :func:`all_reduce` — ``all_reduce``, summed.
 
+:func:`ppermute`, :func:`all_to_all_tiled` and :func:`all_gather_tiled`
+are their differentiable forms on tensors of any shape, for the seq axis's
+attention: the backward of a ring shift is the reverse shift (JAX
+transposes ``ppermute`` so), that of an ``all_to_all`` the inverse
+``all_to_all``, that of an ``all_gather`` the ``psum_scatter`` of the
+cotangent.
+
 A collective over a part of the ranks (``axis_index_groups`` in ``lax``:
 the ``within`` and ``across`` groups of ``hier`` sync) runs over a
 process group of its own, made once per step by :func:`subgroups`.
@@ -110,12 +117,12 @@ def subgroups(group, rank_lists):
     return mine
 
 
-def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
-    """``lax.ppermute(t, perm=[(i, i + 1 mod n)])``: this rank's ``t``
-    goes to the next rank; returns what the previous rank sent."""
+def ring_shift(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """``lax.ppermute(t, perm=[(i, i + step mod n)])``: this rank's ``t``
+    goes to rank ``r + step``; returns what rank ``r - step`` sent."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (r + 1) % n)
-    prv = dist.get_global_rank(group, (r - 1) % n)
+    nxt = dist.get_global_rank(group, (r + step) % n)
+    prv = dist.get_global_rank(group, (r - step) % n)
 
     def op(out, src):
         reqs = dist.batch_isend_irecv([
@@ -173,3 +180,85 @@ def reduce_scatter_async(t: torch.Tensor, group) -> Pending:
     return _issue(group, t, t.numel() // n, lambda out, src, async_op:
                   dist.reduce_scatter_tensor(out, src, group=group,
                                              async_op=async_op), True)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, step):
+        ctx.group, ctx.step = group, step
+        return ring_shift(t, group, step).view(t.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, ctx.group, -ctx.step).view(g.shape), None, None
+
+
+def ppermute(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """:func:`ring_shift` of ``t`` (any shape), differentiable: the
+    cotangent travels the ring the other way."""
+    return _PPermute.apply(t, group, step)
+
+
+def _all_to_all_tiled(x: torch.Tensor, group, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    chunks = x.movedim(split_axis, 0)
+    chunks = chunks.reshape((n, chunks.shape[0] // n) + chunks.shape[1:])
+    got = all_to_all(chunks, group).view(chunks.shape)
+    # got[j] is rank j's chunk: back to x's layout, then joined along
+    # concat_axis in rank order
+    return torch.cat([c.movedim(0, split_axis) for c in got.unbind(0)],
+                     dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all_tiled(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return (_all_to_all_tiled(g, group, concat_axis, split_axis), None,
+                None, None)
+
+
+def all_to_all_tiled(x: torch.Tensor, group, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=, concat_axis=, tiled=True)``,
+    differentiable: ``x`` cut into ``n`` equal chunks along
+    ``split_axis``, chunk ``j`` sent to rank ``j``, the chunks received
+    joined along ``concat_axis`` in rank order.  Its backward is the
+    inverse ``all_to_all``."""
+    if x.shape[split_axis] % dist.get_world_size(group):
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not divide over "
+                         f"{dist.get_world_size(group)} ranks")
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        n = dist.get_world_size(group)
+        moved = x.movedim(axis, 0).contiguous()
+        out = all_gather(moved, group).view((n * moved.shape[0],)
+                                            + moved.shape[1:])
+        return out.movedim(0, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        moved = g.movedim(ctx.axis, 0).contiguous()
+        n = dist.get_world_size(ctx.group)
+        mine = reduce_scatter(moved, ctx.group).view(
+            (moved.shape[0] // n,) + moved.shape[1:])
+        return mine.movedim(0, ctx.axis), None, None
+
+
+def all_gather_tiled(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis=, tiled=True)``, differentiable: every
+    rank's ``x`` joined along ``axis`` in rank order; its backward is the
+    ``psum_scatter`` of the cotangent (this rank's part of the sum)."""
+    return _AllGather.apply(x, group, axis)

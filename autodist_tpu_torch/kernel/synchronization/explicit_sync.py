@@ -16,7 +16,10 @@ all-reduce buckets).  The step runs, on each rank, in order:
    and unpacked into transient full tensors; they are dropped once the
    backward has produced the gradients;
 1. loss and gradients on this rank's rows of the global batch (inside
-   :func:`~autodist_tpu_torch.mesh.data_rows`), the loss multiplied by
+   :func:`~autodist_tpu_torch.mesh.data_rows`; on a ``seq`` axis on its
+   chunk of the sequences, then summed over the seq group,
+   :func:`~autodist_tpu_torch.kernel.graph_transformer.
+   local_value_and_grad`), the loss multiplied by
    the loss scale first when one is on; with ``accum_steps > 1`` the
    microbatches accumulate inside the step, or, for the buckets the
    accumulation pipeline takes (``overlap.pipeline_eligible``), run
@@ -141,7 +144,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from autodist_tpu_torch.const import ENV, MESH_AXIS_DATA
+from autodist_tpu_torch.const import ENV, MESH_AXIS_DATA, P10, not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
@@ -772,6 +775,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     # -- the step ---------------------------------------------------------------
     warned: List[int] = []
+    seq = gt.mesh_seq_chunk(mesh)
+    if seq is not None and pipe:
+        raise not_ported("the accumulation pipeline on a seq axis", P10)
 
     def gradients(params, sync_state, batch):
         """``(loss, aux, local grads, pipelined buckets' reduced values,
@@ -784,7 +790,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                     gi, names, scale,
                     inject=inject(sync_state) if inject else None)
             loss, aux, grads = gt.local_value_and_grad(
-                vg, params, batch, d, group, rank, warned)
+                vg, params, batch, d, group, rank, warned, seq)
             return loss, aux, grads, {}, {}, {}
         loss_fn = gt.scaled_loss(gi, scale)
         single = gt.value_and_grad(loss_fn, has_aux, names)

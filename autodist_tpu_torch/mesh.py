@@ -2,11 +2,15 @@
 
 Port of the JAX package's ``mesh.py:39-111``.  Axes keep the canonical
 names and order (``pipe, data, expert, seq, model``, outermost first).
-The ``data`` axis spans the ``torch.distributed`` world: one rank per
-replica, NCCL between cards and gloo between CPU processes, built with
-``init_device_mesh`` when the world is larger than 1 (size 1 and no
-process group otherwise).  Any other axis wider than 1 shards tensors,
-which comes with slice P10 and raises here.
+The ``data`` and ``seq`` axes span the ``torch.distributed`` world: one
+rank per (replica, sequence chunk), NCCL between cards and gloo between
+CPU processes, built with ``init_device_mesh`` over the axes wider than 1
+in canonical order, so the ranks of one ``seq`` group are adjacent (rank
+``d·S + s``).  A ``seq`` axis cuts each sequence into ``S`` chunks: a
+rank computes on its chunk inside :func:`seq_chunk`, and the attention
+functions of :mod:`autodist_tpu_torch.parallel` exchange K/V over the
+axis's group.  The ``pipe``, ``expert`` and ``model`` axes come with the
+rest of slice P10 and raise here.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ AXIS_ORDER = (MESH_AXIS_PIPE, MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
 @dataclass
 class Mesh:
     """Axis sizes in canonical order, the device every rank computes on,
-    and the data axis's ``DeviceMesh`` (None at size 1)."""
+    and the ``DeviceMesh`` over the data and seq axes wider than 1 (None
+    when neither is)."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -41,17 +46,36 @@ class Mesh:
         return self.shape.get(MESH_AXIS_DATA, 1)
 
     @property
+    def seq_size(self) -> int:
+        return self.shape.get(MESH_AXIS_SEQ, 1)
+
+    def _has(self, axis: str) -> bool:
+        return self.device_mesh is not None and \
+            axis in (self.device_mesh.mesh_dim_names or ())
+
+    @property
     def data_group(self):
         """The data axis's process group (None at size 1)."""
-        if self.device_mesh is None:
-            return None
-        return self.device_mesh.get_group(MESH_AXIS_DATA)
+        return self.device_mesh.get_group(MESH_AXIS_DATA) \
+            if self._has(MESH_AXIS_DATA) else None
 
     @property
     def data_rank(self) -> int:
-        if self.device_mesh is None:
-            return 0
-        return self.device_mesh.get_local_rank(MESH_AXIS_DATA)
+        return self.device_mesh.get_local_rank(MESH_AXIS_DATA) \
+            if self._has(MESH_AXIS_DATA) else 0
+
+    @property
+    def seq_group(self):
+        """The seq axis's process group: this rank and the ranks holding
+        the other chunks of its sequences (None at size 1)."""
+        return self.device_mesh.get_group(MESH_AXIS_SEQ) \
+            if self._has(MESH_AXIS_SEQ) else None
+
+    @property
+    def seq_rank(self) -> int:
+        """Which chunk of each sequence this rank holds."""
+        return self.device_mesh.get_local_rank(MESH_AXIS_SEQ) \
+            if self._has(MESH_AXIS_SEQ) else 0
 
 
 #: ``(group, size)`` while a step computes the loss on this rank's rows
@@ -76,6 +100,42 @@ def data_rows(group, size: int):
 def current_data_rows():
     """``(group, size)`` inside :func:`data_rows`, else None."""
     return _DATA_ROWS.get()
+
+
+@dataclass(frozen=True)
+class SeqChunk:
+    """This rank's chunk of every sequence: chunk ``rank`` of ``size``
+    over the seq axis's process ``group``."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+#: the :class:`SeqChunk` while a step computes the loss on this rank's
+#: chunk of the batch's sequences, else None
+_SEQ_CHUNK: contextvars.ContextVar = contextvars.ContextVar("seq_chunk",
+                                                            default=None)
+
+
+@contextlib.contextmanager
+def seq_chunk(group, size: int, rank: int):
+    """Marks the code inside as computing on chunk ``rank`` of ``size`` of
+    each sequence (dim 1 of the batch's sequence leaves), the other chunks
+    held by the seq axis's ``group``.  Sequence-parallel attention and the
+    models that run on a seq axis read it through
+    :func:`current_seq_chunk` (the twin of the JAX package's seq-sharded
+    activations under ``shard_map``)."""
+    token = _SEQ_CHUNK.set(SeqChunk(group, int(size), int(rank)))
+    try:
+        yield
+    finally:
+        _SEQ_CHUNK.reset(token)
+
+
+def current_seq_chunk() -> Optional[SeqChunk]:
+    """The :class:`SeqChunk` inside :func:`seq_chunk`, else None."""
+    return _SEQ_CHUNK.get()
 
 
 def _canonical_axes(axes: Dict[str, int]) -> Dict[str, int]:
@@ -113,7 +173,8 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
         axes = dict(resource_spec.mesh_hint) if (
             resource_spec is not None and resource_spec.mesh_hint) else {}
     axes = dict(axes)
-    wide = {ax: n for ax, n in axes.items() if ax != MESH_AXIS_DATA and n > 1}
+    wide = {ax: n for ax, n in axes.items()
+            if ax not in (MESH_AXIS_DATA, MESH_AXIS_SEQ) and n > 1}
     if wide:
         raise not_ported(f"mesh axes {wide}", "P10 — non-data mesh axes")
     specified = math.prod(axes.values()) if axes else 1
@@ -126,11 +187,15 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
     axes = _canonical_axes(axes)
     dev = rank_device(device)
     device_mesh = None
-    if axes.get(MESH_AXIS_DATA, 1) > 1:       # a mesh may lack the axis
+    # a mesh may lack an axis; data before seq, so seq groups are adjacent
+    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_SEQ)
+                 if axes.get(ax, 1) > 1)
+    if dims:
         from torch.distributed.device_mesh import init_device_mesh
 
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        device_mesh = init_device_mesh(dev.type, (axes[MESH_AXIS_DATA],),
-                                       mesh_dim_names=(MESH_AXIS_DATA,))
+        device_mesh = init_device_mesh(dev.type,
+                                       tuple(axes[ax] for ax in dims),
+                                       mesh_dim_names=dims)
     return Mesh(shape=axes, device=dev, device_mesh=device_mesh)

@@ -10,6 +10,15 @@ method-interceptor rerouting: a projection whose weight is a
 
 Layouts are the JAX package's: q/k/v kernels ``[D, H, Dh]``, ``out``
 ``[H, Dh, D]``, MLP kernels ``[D, F]`` / ``[F, D]``.
+
+On a ``seq`` mesh axis (inside :func:`~autodist_tpu_torch.mesh.seq_chunk`)
+a layer holds this rank's chunk of each sequence.  A sequence-parallel
+``attn_fn`` (``attn_fn.sequence_parallel``: ring, Ulysses) takes the
+chunks as they are; dense, flash and the backend default gather K and V
+over the seq group (its backward a reduce-scatter) and attend with the
+causal offset of the local queries (:func:`gathered_attention`), what
+GSPMD does with the JAX package's plain attention on a seq-sharded
+batch.
 """
 from __future__ import annotations
 
@@ -20,7 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch.const import P10, not_ported
 from autodist_tpu_torch.graph_item import rematerialize
+from autodist_tpu_torch.mesh import current_seq_chunk
 from autodist_tpu_torch.models.base import layer_norm
 from autodist_tpu_torch.ops.quant import Quantized, int8_matmul
 
@@ -43,19 +54,74 @@ def lecun_normal(shape, fan_in: int, gen: torch.Generator,
     return (t.clamp_(-2.0, 2.0) * std).to(dtype)
 
 
-def dense_attention(q, k, v, causal: bool) -> torch.Tensor:
+def dense_attention(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """Reference attention: softmax(QKᵀ/√d)V.  [B, T, H, D] layout, mask
-    filled with ``finfo.min``, softmax in f32 then cast back."""
+    filled with ``finfo.min``, softmax in f32 then cast back.  Queries sit
+    at positions ``q_offset .. q_offset + Tq`` and keys at ``0 .. Tk``: the
+    causal mask allows key ``j`` for query ``i`` when ``j <= q_offset + i``."""
     depth = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) \
         / q.new_tensor(float(depth)).sqrt()
     if causal:
-        t_q, t_k = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones((t_q, t_k), dtype=torch.bool,
-                          device=q.device).tril()
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _gathered_kind(attn_fn: Callable, q) -> str:
+    """How a non-sequence-parallel ``attn_fn`` attends over gathered K/V:
+    ``"dense"`` or ``"flash"`` (what it runs on ``q``'s device)."""
+    from autodist_tpu_torch.ops.flash_attention import flash_attention
+
+    if getattr(attn_fn, "backend_default", False):
+        return "flash" if q.device.type == "cuda" else "dense"
+    if attn_fn is dense_attention:
+        return "dense"
+    if attn_fn is flash_attention:
+        return "flash"
+    raise not_ported(f"attention function {attn_fn!r} on a seq axis (pass "
+                     f"a sequence-parallel one, dense_attention or "
+                     f"flash_attention)", P10)
+
+
+def gathered_attention(attn_fn: Callable, q, k, v, causal: bool,
+                       chunk) -> torch.Tensor:
+    """A non-sequence-parallel ``attn_fn`` on this rank's chunk ``q``:
+    K and V gathered over the seq group (``all_gather``, whose backward
+    reduce-scatters dK and dV), then :func:`dense_attention` with the
+    queries' offset where
+    ``attn_fn`` is dense, or the flash kernels over the gathered blocks
+    where it is flash (the diagonal block causal, the earlier ones full,
+    merged in log space; later blocks skipped under a causal mask).  Any
+    other function raises naming P10."""
+    from autodist_tpu_torch.kernel.synchronization.collectives import \
+        all_gather_tiled
+
+    kind = _gathered_kind(attn_fn, q)
+    k_all = all_gather_tiled(k, chunk.group, 1)
+    v_all = all_gather_tiled(v, chunk.group, 1)
+    t = q.shape[1]
+    if kind == "dense":
+        return dense_attention(q, k_all, v_all, causal, chunk.rank * t)
+    from autodist_tpu_torch.ops.flash_attention import \
+        flash_attention_with_lse
+    from autodist_tpu_torch.parallel.ring_attention import merge_partial
+
+    def block(j):
+        return (k_all[:, j * t:(j + 1) * t].contiguous(),
+                v_all[:, j * t:(j + 1) * t].contiguous())
+
+    o, lse = flash_attention_with_lse(q, *block(chunk.rank), causal)
+    acc, lse_acc = o.float(), lse.transpose(1, 2)
+    for j in range(chunk.size):
+        if j == chunk.rank or (causal and j > chunk.rank):
+            continue
+        o_b, lse_b = flash_attention_with_lse(q, *block(j), False)
+        acc, lse_acc = merge_partial(acc, lse_acc, o_b, lse_b.transpose(1, 2))
+    return acc.to(q.dtype)
 
 
 def default_attention() -> Callable:
@@ -72,6 +138,7 @@ def default_attention() -> Callable:
             return flash_attention(q, k, v, causal)
         return dense_attention(q, k, v, causal)
 
+    attn_fn.backend_default = True
     return attn_fn
 
 
@@ -107,7 +174,13 @@ class MultiHeadAttention(nn.Module):
         hd = (self.num_heads, self.head_dim)
         q, k, v = (linear(x, params[n]["kernel"]).view(lead + hd)
                    for n in ("query", "key", "value"))
-        out = (attn_fn or self.attn_fn)(q, k, v, self.causal)
+        fn = attn_fn or self.attn_fn
+        chunk = current_seq_chunk()
+        if (chunk is not None and chunk.size > 1
+                and not getattr(fn, "sequence_parallel", False)):
+            out = gathered_attention(fn, q, k, v, self.causal, chunk)
+        else:
+            out = fn(q, k, v, self.causal)
         return linear(out.reshape(lead + (-1,)), params["out"]["kernel"])
 
 

@@ -11,6 +11,14 @@ every decoder parameter stays float32 (the JAX modules' default
 parameter dtype), and the forward promotes as JAX does, so from the first
 LayerNorm on the model computes in float32 and the tied head gives
 float32 logits.
+
+On a ``seq`` mesh axis (inside :func:`~autodist_tpu_torch.mesh.seq_chunk`)
+the loss computes on this rank's chunk of each sequence: positions are
+global (``r·T/s + i``), the chunk's last label is the first token of the
+next chunk (one ring shift of a token column over the seq group; the last
+chunk drops its last position, as ``logits[:, :-1]`` does), and the loss
+is the chunk's sum of token losses over the global count, which the
+session sums over the seq group to JAX's global mean.
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from autodist_tpu_torch.kernel.synchronization.collectives import \
+    ring_shift
+from autodist_tpu_torch.mesh import current_seq_chunk
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
                                             promote_f32, resolve_device)
 from autodist_tpu_torch.models.transformer import (TransformerStack,
@@ -59,10 +70,13 @@ class TransformerLM(nn.Module):
                   "decoder": self.decoder.init(d, gen, torch.float32)}
         return _to_device(params, device)
 
-    def features(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Pre-logits activations ``[B, T, D]``."""
+    def features(self, params, tokens: torch.Tensor,
+                 offset: int = 0) -> torch.Tensor:
+        """Pre-logits activations ``[B, T, D]`` of tokens at positions
+        ``offset .. offset + T``."""
+        t = tokens.shape[1]
         x = embed_lookup(params["embed"], tokens, params["pos_embed"].dtype) \
-            + params["pos_embed"][None, :tokens.shape[1]]
+            + params["pos_embed"][None, offset:offset + t]
         # JAX promotes the embeddings' dtype against the float32 LayerNorm
         # scale and the residual stream after it: the decoder runs in f32
         return self.decoder(params["decoder"], promote_f32(x))
@@ -116,15 +130,42 @@ def transformer_lm(vocab_size: int = 32128, num_layers: int = 12,
         tokens = torch.as_tensor(tokens, device=params["pos_embed"].device)
         return model(params, tokens.long())
 
+    def token_loss(h, embed, labels):
+        """Mean token loss of features ``h`` against ``labels`` through the
+        tied head ``embed``."""
+        if xent_chunk:
+            return chunked_softmax_cross_entropy(h, embed, labels,
+                                                 chunk=xent_chunk)
+        logits = torch.einsum("btd,vd->btv", h, embed.to(h.dtype))
+        return cross_entropy_loss(logits, labels)
+
+    def seq_loss(params, tokens, chunk):
+        """This rank's part of the global mean: its chunk's token losses
+        summed, over the global count ``B·(T − 1)``."""
+        b, t = tokens.shape
+        nxt = ring_shift(tokens[:, :1], chunk.group, step=-1).view(b, 1)
+        labels = torch.cat([tokens[:, 1:], nxt], dim=1)
+        h = model.features(params, tokens, offset=chunk.rank * t)
+        if chunk.rank == chunk.size - 1:        # no label past the end
+            h, labels = h[:, :-1], labels[:, :-1]
+        local = b * labels.shape[1]
+        return token_loss(h, params["embed"], labels) \
+            * (local / (b * (t * chunk.size - 1)))
+
     def loss_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"],
                                  device=params["embed"].device).long()
+        chunk = current_seq_chunk()
+        if chunk is not None and chunk.size > 1:
+            return seq_loss(params, tokens, chunk)
         if xent_chunk:
             return chunked_softmax_cross_entropy(
                 model.features(params, tokens)[:, :-1], params["embed"],
                 tokens[:, 1:], chunk=xent_chunk)
         logits = model(params, tokens)
         return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+
+    loss_fn.sequence_parallel = True
 
     def make_batch(rng: np.random.RandomState, batch_size: int):
         return {"tokens": rng.randint(

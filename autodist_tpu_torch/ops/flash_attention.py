@@ -47,7 +47,7 @@ from autodist_tpu_torch.const import not_ported
 _NEG_INF = -1e30  # finite -inf: masked scores stay NaN-free
 #: head dims the kernels are built for (each a whole number of the tensor
 #: cores' 8-wide k-steps; D = 8 takes one n-tile, the others pairs)
-HEAD_DIMS = (8, 16, 64)
+HEAD_DIMS = (8, 16, 32, 64)
 _SOURCE = "flash_attention.cu"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 5 + [_I] * 5 + [_F, _P]
@@ -312,8 +312,10 @@ def flash_attention_with_lse(q, k, v, causal: bool = False):
 
 def make_flash_attention() -> Callable:
     """The flash ``attn_fn``.  Data parallelism needs nothing of the kernel
-    (each rank attends over its own rows), and ``build_mesh`` refuses the
-    model and seq axes that would shard heads or positions (slice P10)."""
+    (each rank attends over its own rows); on a seq axis the ring and
+    Ulysses functions of :mod:`autodist_tpu_torch.parallel` call it on
+    blocks, and ``build_mesh`` refuses the model axis that would shard
+    heads (slice P10)."""
     return flash_attention
 
 

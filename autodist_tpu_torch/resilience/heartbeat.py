@@ -166,7 +166,10 @@ class HeartbeatWriter:
                 payload["cursor"] = cursor
         except Exception:   # cursors are advisory; never kill the beacon
             pass
-        tmp = self._path + ".tmp"
+        # one staging file per writing thread: the refresh thread and a
+        # step loop beat concurrently, and a shared one could be truncated
+        # by the second writer just before the first renames it into place
+        tmp = f"{self._path}.{os.getpid()}.{threading.get_ident()}.tmp"
         try:
             with open(tmp, "w", encoding="utf-8") as f:
                 json.dump(payload, f)

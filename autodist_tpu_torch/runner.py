@@ -502,8 +502,11 @@ class DistributedSession:
         of the loss on this rank's rows of the last batch, counted by
         ``torch.utils.flop_counter.FlopCounterMode`` (the matmuls and
         convolutions; gathers, norms, elementwise ops and the hand-written
-        kernels count 0).  Counted once and cached, "unavailable" (None: no
-        counted op) too; None before the first :meth:`run`."""
+        kernels count 0); on a ``seq`` axis, this rank's 1/seq share of
+        its rows' whole sequences (counted without the seq group's
+        collectives, so one rank may call it alone).  Counted once and
+        cached, "unavailable" (None: no counted op) too; None before the
+        first :meth:`run`."""
         if self._flops is None and self._last_batch is not None:
             from torch.utils.flop_counter import FlopCounterMode
 
@@ -522,7 +525,8 @@ class DistributedSession:
             with counter:
                 out = self._gi.loss_fn(params, batch)
                 (out[0] if self._gi.has_aux else out).backward()
-            self._flops = float(counter.get_total_flops()) or False
+            self._flops = float(counter.get_total_flops()) \
+                / getattr(mesh, "seq_size", 1) or False
         return self._flops or None
 
     def mfu(self) -> Optional[float]:

@@ -1,8 +1,10 @@
 """Byte-level BPE tokenizer: encode, decode, a trainer and a JSON file
 format.
 
-Port of the JAX package's ``runtime/tokenizer.py``, its pure-Python path
-only (the native encode comes with the runtime, ROADMAP P12): a
+Port of the JAX package's ``runtime/tokenizer.py``: encode runs in the
+native library (``native/tokenizer.cpp``, built and bound by
+:mod:`autodist_tpu_torch.runtime.native`), with the bit-identical Python
+path where the library is unavailable.  A
 :class:`BPETokenizer` plugs into ``serve(tokenizer=...)`` so
 ``{"prompt": "text"}`` round-trips.  Files are the same
 ``autodist-bpe-v2`` JSON, so a file written by either package loads in
@@ -29,9 +31,15 @@ invalidation over a linked symbol list, O(n log n) per segment.
 """
 from __future__ import annotations
 
+import ctypes
 import heapq
 import json
+import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from autodist_tpu_torch.runtime import native
 
 _BASE = 256
 
@@ -132,6 +140,11 @@ class BPETokenizer:
         self._special_by_id: Dict[int, str] = {}
         for text, sid in (special_tokens or {}).items():
             self._register_special(text, int(sid))
+        self._native: Optional[int] = None
+        self._native_tried = False
+        # encode() runs on concurrent server handler threads: one native
+        # handle per tokenizer, made once
+        self._native_lock = threading.Lock()
 
     def _register_special(self, text: str, sid: int) -> None:
         if sid < len(self._bytes):
@@ -206,14 +219,36 @@ class BPETokenizer:
             yield best, self.special_tokens[best]
             pos = best_at + len(best)
 
+    def _get_native(self):
+        """The native encoder's handle (made at first use), or None when
+        the library is unavailable or there are no merges."""
+        with self._native_lock:
+            if not self._native_tried:
+                self._native_tried = True
+                lib = native.get_lib()
+                if lib is not None and self.merges:
+                    flat = np.asarray(self.merges, np.int32).reshape(-1)
+                    self._native = lib.ad_bpe_create_v2(
+                        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                        len(self.merges), int(self.pretokenize))
+            return self._native
+
     def _encode_plain(self, text: str) -> List[int]:
         data = text.encode("utf-8")
         if not data:
             return []
-        return self._encode_py(data)
+        handle = self._get_native()
+        if handle is None:
+            return self._encode_py(data)
+        out = np.empty(len(data), np.int32)
+        n = native.get_lib().ad_bpe_encode(
+            handle, data, len(data),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out[:n].tolist()
 
     def _encode_py(self, data: bytes) -> List[int]:
-        """Pretokenize, then merge each segment."""
+        """The Python path: pretokenize, then merge each segment (the
+        native encode's result, id for id)."""
         segs = _pretokenize(data) if self.pretokenize \
             else [(0, len(data))]
         out: List[int] = []
@@ -365,3 +400,12 @@ class BPETokenizer:
         if special_tokens:
             tok.add_special_tokens(list(special_tokens))
         return tok
+
+    def __del__(self):  # pragma: no cover - interpreter teardown
+        try:
+            if self._native is not None:
+                lib = native.get_lib()
+                if lib is not None:
+                    lib.ad_bpe_destroy(self._native)
+        except Exception:
+            pass

@@ -32,7 +32,9 @@ Phases, each printing one JSON line:
    The flash kernels K1–K3 are checked at the training shape (B 8, T 1024,
    H 12, D 64, causal), at it with q x 4 (full), at a ragged T = 1000
    (causal and not) and at D = 16: o and lse at rtol/atol 1e-5, dQ/dK/dV
-   at 1e-4, and two backward runs must give identical bits;
+   at 1e-4, and two backward runs must give identical bits; then at the
+   ``long_context`` twin's block (B 4, T 512, H 4, D 32, causal and
+   not), timed non-causal (the ring's off-diagonal blocks);
 3. the slice at full width: ``transformer_lm()`` at its defaults (12
    layers, 12 heads x 64, vocab 32128, random weights from seed 0) served
    by ``serve(..., paged=True)`` over real HTTP after one warm-up pass of
@@ -191,9 +193,9 @@ Phases, each printing one JSON line:
    inside ``ad.scope()`` (``optim.adamw``, ``opt.init``,
    ``torch.func.grad_and_value``), 1 + 2 steps bit for bit the explicit
    ``capture()``'s.  The ring's 4 ranks (phase 12) run (c) ``tune_swap``:
-   ``AllReduce`` 3 steps, the planted all-reduce drift, ``ScheduleTuner.
+   ``AllReduce`` 1 step, the planted all-reduce drift, ``ScheduleTuner.
    maybe_retune`` (rank 0 alone searches), a fingerprint-changing swap
-   at an unchanged step, 3 steps, K1–K5 each step as each schedule's IR
+   at an unchanged step, 1 step, K1–K5 each step as each schedule's IR
    predicts, one fingerprint and bit-identical parameters on the 4
    ranks, and an oracle started on the winner from the swap step's
    snapshot matching the swapped run's losses and parameters bit for
@@ -271,6 +273,21 @@ Phases, each printing one JSON line:
    predicts; a checkpoint whose bucket cap drifted raises
    ``ElasticResumeError`` before any read (the reshard's seconds and
    bytes);
+12d. the ``seq`` mesh axis, on the same 4 ranks (no new group):
+   ``seq_ring`` and ``seq_ulysses`` train ``transformer_lm()`` at full
+   width on a ``{"seq": 4}`` mesh (each rank holds 256 of the 1024
+   positions of the same 8 rows), ``AllReduce()`` + ``adamw(1e-3)``, 1 +
+   1 steps, attention through ``make_ring_attention`` (K1 on the
+   diagonal block causal, then on each of 3 blocks shifted around the
+   ring, merged in log space; K2/K3 in the backward: 48 each a step a
+   rank) and ``make_ulysses_attention`` (two all-to-alls around one K1
+   over the whole sequence on 3 heads: 12 each); every rank ends on one
+   parameter digest, rank 0's losses within rtol 1e-4 of phase 5's
+   one-card flash run (same weights, batch and Adam); ms per step and
+   peak memory per rank over its entry (4 host-staged ranks sharing one
+   card: not a user's rate).  Then the ``long_context`` twin at
+   ``--data-shards 1 --seq-shards 4`` and its own other defaults (seq 2048, head dim 32:
+   K1–K3 at D = 32, 8 each a step);
 12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
    of ``chip_smoke.py --replica`` processes (the full-width paged
    server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
@@ -480,10 +497,32 @@ RING_WARMUP, RING_TIMED = 1, 1
 AUTO_RING_CONFIG = "auto_beam"
 #: each ring step's loss against the one-card f32 ``train_zero1`` run's at
 #: the same step (same init, batch, Adam and clip): quantization noise only
+#: the seq configurations' steps (against phase 5's first 2; cut from
+#: 1 + 2 to keep the script's time)
+SEQ_WARMUP, SEQ_TIMED = 1, 1
+#: the seq axis's ring configurations (after ``tune_swap``), K1, K2 and K3
+#: each per step per rank: 4 ring steps x 12 layers, one per layer
+SEQ_CONFIGS = ("seq_ring", "seq_ulysses")
+SEQ_LAUNCHES = {"seq_ring": 48, "seq_ulysses": 12}
+#: rank 0's seq losses against phase 5's one-card flash run's
+SEQ_LOSS_RTOL = 1e-4
+#: the ``long_context`` twin on the ring ranks, and its K1–K3 a step (2
+#: layers x 4 ring blocks) over its 3 warm-up, 1 + 19 timed and 1 closing
+#: steps (``benchmark.common.run_benchmark``'s defaults)
+LONG_CONTEXT_ARGS = ("--data-shards", "1", "--seq-shards", "4")
+LONG_CONTEXT_LAUNCHES = 8 * 24
+#: the twin's local block at ``--seq-shards 4`` (seq 2048, batch 4, 4 x 32
+#: heads): K1–K3 at D = 32
+LONG_SHAPE = dict(B=4, T=512, H=4, D=32)
+#: the ``train_fit`` loader drill: rows of the token set, epochs; the
+#: preemption after this many steps (mid-epoch 1); rows timed for the
+#: loader's batches per second
+FIT_LOADER_ROWS, FIT_LOADER_EPOCHS, FIT_LOADER_PREEMPT = 16, 2, 3
+LOADER_RATE_ROWS = 512
 #: the tune phase: the ring configuration of the 4-rank swap drill
 TUNE_RING_CONFIG = "tune_swap"
-#: steps before and after the swap (and the oracle's)
-TUNE_DRILL_STEPS = 3
+#: steps before and after the swap (and the oracle's; cut from 3)
+TUNE_DRILL_STEPS = 1
 #: steps of each legs-on / legs-off median (cut from 10)
 TUNE_LEG_STEPS = 5
 #: cycles of the device-side delay of the stall check (~1 s on the H100)
@@ -562,6 +601,8 @@ EXAMPLE_TWINS = (
     ("serving_engine", ()),
     ("serve_http", ()),
     ("speculative_draft", ()),
+    ("input_pipeline", ()),
+    ("implicit_capture", ()),
 )
 #: the twins whose JAX scripts pass ``dense_attention``: no K1, no K9
 EXAMPLE_DENSE = ("generate_text", "lora_finetune", "serving_engine",
@@ -599,8 +640,9 @@ REMAT_RTOL = 1e-6
 #: ``train_bf16_state``'s steps: 8, as step 7 of this model, batch and
 #: Adam is a spike that step 8 takes back (``train_zero1``'s losses)
 BF16_WARMUP, BF16_TIMED = 2, 6
-#: ``export``: the prompt (batch 1 x 128 tokens) and the CPU serving
-#: tolerance (the JAX package's saved-model test's)
+#: ``export``: the prompt (batch 1 x 128 tokens) and the tolerance of
+#: the CPU serving against the CPU eager forward and of the card against
+#: the float64 forward (the JAX package's saved-model test's)
 EXPORT_TOKENS = (1, 128)
 #: the exported trees: the f32 weights and their int8 tree
 EXPORT_TREES = ("f32", "int8")
@@ -708,7 +750,15 @@ ROUTER_NEW_TOKENS = tuple(range(24, 137, 16))
 LORA_WARMUP, LORA_TIMED = 2, 3
 
 
+#: the process's start on the host clock (``emit``'s ``t_s``)
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase's line also carries
+    ``t_s``, the seconds since the process started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1863,12 +1913,42 @@ def phase_lora(torch, spec, params, device="cuda", geom=SLOT_GEOM):
 
 
 
+#: ``lm_params``' first draw of each LM configuration and seed
+_LM_PARAMS = {}
+
+
+def lm_params(spec, seed: int = SEED, device=None):
+    """``spec.init(seed, device=device)`` for a ``transformer_lm`` spec,
+    drawn on the CPU once a process for each configuration and seed and
+    copied from that draw after it: the same bits (the LMs here are all
+    float32, so the config and the seed fix them), without the CPU's
+    truncated-normal draw of every session (the 4 ring ranks draw at
+    once on the host's shared cores).  The device is resolved as the
+    spec's own ``init`` resolves it."""
+    from autodist_tpu_torch.models import base
+
+    key = (spec.name, tuple(sorted(spec.config.items())), seed)
+    if key not in _LM_PARAMS:
+        _LM_PARAMS[key] = spec.init(seed, device="cpu")
+    device = base.resolve_device(device)
+
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        return tree.to(device, copy=True)
+    return copy(_LM_PARAMS[key])
+
+
 def _fresh_peak(torch) -> None:
     """Drop the last phase's facade (the process's default AutoDist holds
-    its session) and restart the peak-memory counter from what is left."""
+    its session), collect what only reference cycles still hold, and
+    restart the peak-memory counter from what is left."""
+    import gc
+
     from autodist_tpu_torch import autodist as adm
 
     adm._reset_default_autodist_for_testing()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1923,7 +2003,7 @@ def phase_train(torch):
 
     spec = transformer_lm()       # attn_fn=None: K1–K3 on the card
     layers = spec.config["num_layers"]
-    params = spec.init(SEED)
+    params = lm_params(spec)
     shapes = {n: tuple(x.shape) for n, x in flatten(params)}
     _fresh_peak(torch)
     sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"])
@@ -1987,7 +2067,7 @@ def phase_train_parity(torch):
 
     flash_spec = transformer_lm(num_layers=2)
     dense_spec = transformer_lm(num_layers=2, attn_fn=dense_attention)
-    params = flash_spec.init(SEED)
+    params = lm_params(flash_spec)
     out = {}
     for name, spec in (("flash", flash_spec), ("dense", dense_spec)):
         sess, batch = _train_session(spec, params, TRAIN_SHAPE["B"])
@@ -2130,7 +2210,7 @@ def phase_train_zero1(torch):
     spec = transformer_lm()
     layers = spec.config["num_layers"]
     _fresh_peak(torch)
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  Zero1(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
     n_buckets = len(sess.zero1_buckets)
@@ -2219,7 +2299,7 @@ def _dots_kept_ops(torch) -> dict:
         return CheckpointPolicy.PREFER_RECOMPUTE
 
     spec = transformer_lm(num_layers=1)
-    params = spec.init(SEED)
+    params = lm_params(spec)
     for _, x in flatten(params):
         x.requires_grad_()
     checkpoint(spec.loss_fn, params, spec.sample_batch(2, seed=SEED),
@@ -2246,7 +2326,7 @@ def phase_train_remat(torch):
     from autodist_tpu_torch.strategy import Zero1
 
     layers = transformer_lm().config["num_layers"]
-    params0 = flatten(transformer_lm().init(SEED, device="cpu"))
+    params0 = flatten(lm_params(transformer_lm(), device="cpu"))
     configs, runs = [], {}
     for remat, rows in REMAT_CONFIGS:
         spec = transformer_lm(remat=remat)
@@ -2309,7 +2389,7 @@ def phase_train_bf16_state(torch, zero1_out):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         sess, batch = _train_session(
-            spec, spec.init(SEED), TRAIN_SHAPE["B"], Zero1(),
+            spec, lm_params(spec), TRAIN_SHAPE["B"], Zero1(),
             cast_opt_state(fk.fusable_adam(1e-3)),
             numerics={"clip_norm": CLIP_NORM})
     reason = fk.fused_drop_reason(fk.KERNEL_UPDATE, optimizer_fusable=False)
@@ -2389,22 +2469,53 @@ def _dir_size(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
+def _tree_to(tree, to):
+    """``.to(to)`` (a device or a dtype) of every tensor of a
+    parameter tree (dicts of tensors and ``Quantized`` leaves)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, to) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_to(x, to) for x in tree))
+    return tree.to(to)
+
+
 def phase_export(torch):
     """The full-width LM's logits ``apply_fn`` exported from card params
     (f32, and its int8 tree), served by a fresh process that imports the
     checkpoint package and the operators, not the models: on the card
     bit for bit the eager forward (K1 12 launches; K10 73 on the int8
-    tree), on the CPU at ``EXPORT_RTOL`` / ``EXPORT_ATOL``; export and
-    load seconds, artifact bytes."""
+    tree); on the CPU, where K1's operator runs its plain version, at
+    ``EXPORT_RTOL`` / ``EXPORT_ATOL`` of the CPU eager forward of the
+    same tree through the same attention function (the saved-model
+    test's comparison: a float32 forward of 12 random layers on the CPU
+    and on the card differs by the hosts' rounding, which that tolerance
+    does not cover on every host); and the f32 tree's card output at the
+    same tolerance of a float64 forward of its weights.  Reports the CPU
+    against the card, and both against float64; export and load seconds,
+    artifact bytes."""
+    import math
     import tempfile
 
     from autodist_tpu_torch.checkpoint import SavedModelBuilder
     from autodist_tpu_torch.models.quantize import quantize_lm_params
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops.flash_attention import flash_attention
+
+    def attention_f64(q, k, v, causal: bool):
+        # softmax attention in the inputs' dtype throughout
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) \
+            / math.sqrt(q.shape[-1])
+        if causal:
+            t = q.shape[1]
+            mask = torch.ones((t, t), dtype=torch.bool).tril()
+            logits = logits.masked_fill(~mask, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd",
+                            torch.softmax(logits, dim=-1), v)
 
     spec = transformer_lm()
+    plain_spec = transformer_lm(attn_fn=flash_attention)
     layers = spec.config["num_layers"]
-    params = spec.init(SEED)
+    params = lm_params(spec)
     trees = dict(zip(EXPORT_TREES, (params, quantize_lm_params(params))))
     tokens = np.random.RandomState(SEED).randint(
         0, spec.config["vocab_size"], EXPORT_TOKENS).astype(np.int32)
@@ -2412,10 +2523,17 @@ def phase_export(torch):
     out = {"tokens": list(EXPORT_TOKENS)}
     try:
         np.save(os.path.join(root, "tokens.npy"), tokens)
-        eager = {}
+        eager, eager_cpu = {}, {}
         for case, tree in trees.items():
             with torch.no_grad():
                 eager[case] = spec.apply_fn(tree, tokens).cpu().numpy()
+                cpu_tree = _tree_to(tree, "cpu")
+                eager_cpu[case] = plain_spec.apply_fn(cpu_tree,
+                                                      tokens).numpy()
+                if case == "f32":
+                    f64 = transformer_lm(attn_fn=attention_f64).apply_fn(
+                        _tree_to(cpu_tree, torch.float64), tokens).numpy()
+                del cpu_tree
             t0 = time.perf_counter()
             builder = SavedModelBuilder(os.path.join(root, case))
             builder.add_graph_and_variables(spec.apply_fn, tree, [tokens])
@@ -2450,8 +2568,14 @@ def phase_export(torch):
                 raise AssertionError(
                     f"export {case}: the card's output differs from the "
                     f"eager forward by {np.abs(card - want).max():.3e}")
-            np.testing.assert_allclose(cpu, want, rtol=EXPORT_RTOL,
-                                       atol=EXPORT_ATOL)
+            np.testing.assert_allclose(cpu, eager_cpu[case],
+                                       rtol=EXPORT_RTOL, atol=EXPORT_ATOL)
+            if case == "f32":
+                np.testing.assert_allclose(card, f64, rtol=EXPORT_RTOL,
+                                           atol=EXPORT_ATOL)
+                out[case]["f64_max_abs_err"] = {
+                    "card": float(np.abs(card - f64).max()),
+                    "cpu": float(np.abs(cpu - f64).max())}
             on_card = served[f"{case}/cuda"]
             k10 = 6 * layers + 1 if case == "int8" else 0
             if (on_card["flash_fwd"], on_card["int8_matmul"]) \
@@ -2461,7 +2585,8 @@ def phase_export(torch):
             out[case].update(
                 card=on_card, cpu=served[f"{case}/cpu"],
                 card_bit_equal=True,
-                cpu_max_abs_err=float(np.abs(cpu - want).max()))
+                cpu_max_abs_err=float(np.abs(cpu - eager_cpu[case]).max()),
+                cpu_vs_card_max_abs_err=float(np.abs(cpu - want).max()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2483,7 +2608,7 @@ def phase_train_ps(torch, zero1_out):
     _fresh_peak(torch)
     ad = adm.AutoDist()                       # no builder: the default
     with ad.scope():
-        gi = ad.capture(params=spec.init(SEED),
+        gi = ad.capture(params=lm_params(spec),
                         optimizer=fk.fusable_adam(1e-3),
                         loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
                         numerics={"clip_norm": CLIP_NORM})
@@ -2533,7 +2658,7 @@ def _fit_session(spec):
     adm._reset_default_autodist_for_testing()
     ad = adm.AutoDist()
     with ad.scope():
-        ad.capture(params=spec.init(SEED), optimizer=fk.fusable_adam(1e-3),
+        ad.capture(params=lm_params(spec), optimizer=fk.fusable_adam(1e-3),
                    loss_fn=loss_fn, sparse_vars=spec.sparse_vars,
                    numerics={"clip_norm": CLIP_NORM,
                              "on_nonfinite": "rollback",
@@ -2559,6 +2684,107 @@ def _fit_data(batch, poison=None, steps=None):
         return iter([with_s(float("nan") if bad and i in poison[1] else 1.0)
                      for i in range(steps)])
     return factory
+
+
+class _RecordingLoader:
+    """A ``runtime.DataLoader`` whose yielded batches' token digests are
+    kept in order (``fit`` sees the loader itself: ``state`` and
+    ``load_state`` pass through)."""
+
+    def __init__(self, loader):
+        self.loader, self.seen = loader, []
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.seen.append(hashlib.sha256(
+                batch["tokens"].tobytes()).hexdigest()[:16])
+            yield batch
+
+
+def _fit_loader_drill(torch, spec, root: str) -> dict:
+    """``fit`` fed by the native ``DataLoader`` on ``train_fit``'s program:
+    :data:`FIT_LOADER_EPOCHS` epochs over :data:`FIT_LOADER_ROWS` token
+    rows (shuffled, batch 8) uninterrupted; the same preempted after
+    :data:`FIT_LOADER_PREEMPT` steps (mid-epoch 1: the checkpoint records
+    the loader's position) and resumed by a fresh session and loader.
+    The resumed run's first batch is the uninterrupted run's next one and
+    its final parameters the uninterrupted run's, bit for bit.  Then the
+    loader's batches per second over :data:`LOADER_RATE_ROWS` rows (host
+    only: shuffle, gather)."""
+    import signal
+
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.checkpoint.saver import tree_digest
+    from autodist_tpu_torch.fit import Callback
+    from autodist_tpu_torch.runtime import DataLoader, native_available
+
+    seq = spec.config["seq_len"]
+    tokens = np.random.RandomState(SEED + 11).randint(
+        0, spec.config["vocab_size"], (LOADER_RATE_ROWS, seq)
+    ).astype(np.int32)
+
+    def loader():
+        data = {"tokens": tokens[:FIT_LOADER_ROWS],
+                "s": np.ones((FIT_LOADER_ROWS,), np.float32)}
+        return _RecordingLoader(DataLoader(data, TRAIN_SHAPE["B"],
+                                           shuffle=True, seed=SEED))
+
+    class PreemptAt(Callback):
+        def on_step_end(self, step, metrics):
+            if step == FIT_LOADER_PREEMPT:
+                os.kill(os.getpid(), signal.SIGUSR1)
+
+    ref_loader = loader()
+    sess = _fit_session(spec)
+    sess.fit(ref_loader, epochs=FIT_LOADER_EPOCHS, on_nonfinite="skip")
+    total = sess.step_count
+    digest = tree_digest(sess.device_params)
+    del sess
+    torch.cuda.empty_cache()
+    ck = os.path.join(root, "loader")
+    sess = _fit_session(spec)
+    hist = sess.fit(loader(), epochs=FIT_LOADER_EPOCHS, checkpoint_dir=ck,
+                    preemption_signals=("SIGUSR1",), callbacks=[PreemptAt()])
+    per_epoch = FIT_LOADER_ROWS // TRAIN_SHAPE["B"]
+    state = Saver.read_meta(Saver.latest_checkpoint(ck))["data_state"]
+    if not hist.preempted or sess.step_count != FIT_LOADER_PREEMPT or \
+            state != {"epoch": FIT_LOADER_PREEMPT // per_epoch,
+                      "offset": FIT_LOADER_PREEMPT % per_epoch,
+                      "seed": SEED}:
+        raise AssertionError(f"loader preemption: step {sess.step_count}, "
+                             f"data state {state}")
+    del sess
+    torch.cuda.empty_cache()
+    resumed_loader = loader()
+    sess = _fit_session(spec)
+    hist = sess.fit(resumed_loader, epochs=FIT_LOADER_EPOCHS,
+                    checkpoint_dir=ck, resume=True)
+    if resumed_loader.seen[0] != ref_loader.seen[FIT_LOADER_PREEMPT] or \
+            sess.step_count != total or \
+            hist.steps_run != total - FIT_LOADER_PREEMPT:
+        raise AssertionError(f"the resumed run's batches "
+                             f"{resumed_loader.seen} against "
+                             f"{ref_loader.seen}, step {sess.step_count}")
+    if tree_digest(sess.device_params) != digest:
+        raise AssertionError("the loader-resumed run's parameters differ")
+    del sess
+    torch.cuda.empty_cache()
+    timed = DataLoader({"tokens": tokens}, TRAIN_SHAPE["B"], shuffle=True,
+                       seed=SEED)
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in timed)
+    rate = batches / (time.perf_counter() - t0)
+    return {"native_available": native_available(), "steps": total,
+            "preempted_at": FIT_LOADER_PREEMPT, "data_state": state,
+            "next_batch_equal": True, "params_digest_equal": True,
+            "loader_batches_per_s": rate, "loader_rows": LOADER_RATE_ROWS,
+            "loader_batch_shape": [TRAIN_SHAPE["B"], seq]}
 
 
 def _per_step_ms(th, steps: int) -> list:
@@ -2762,6 +2988,9 @@ def phase_train_fit(torch, ps_out):
                             order="skip, rollback, rollback, skip")
         del sess
         torch.cuda.empty_cache()
+
+        # 6. the native loader feeding fit, cut mid-epoch and resumed
+        out["loader"] = _fit_loader_drill(torch, spec, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2779,7 +3008,7 @@ def _telemetry_session(spec, env):
     for k, v in env.items():
         os.environ.pop(k, None) if v is None else os.environ.update({k: v})
     try:
-        return _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+        return _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                               PSLoadBalancing(), fk.fusable_adam(1e-3),
                               numerics={"clip_norm": CLIP_NORM})
     finally:
@@ -2925,7 +3154,7 @@ def _serve_metrics(torch, spec, tmp: str, device: str = "cuda") -> dict:
 
     span_dir = os.path.join(tmp, "spans")
     configure_spans(span_dir)
-    params = spec.init(SEED, device=device)
+    params = lm_params(spec, device=device)
     vocab = spec.config["vocab_size"]
     rng = np.random.RandomState(SEED + 7)
     fk.paged_attention.calls = 0
@@ -3283,7 +3512,7 @@ def phase_auto(torch, ps_out):
     spec = transformer_lm()
     layers = spec.config["num_layers"]
     _fresh_peak(torch)
-    params = spec.init(SEED)
+    params = lm_params(spec)
     numerics = {"clip_norm": CLIP_NORM}
     gi = GraphItem(params, optimizer=fk.fusable_adam(1e-3),
                    loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
@@ -3431,7 +3660,7 @@ def _auto_ring_train(torch):
     _fresh_peak(torch)
     builder = AutoStrategy(search="beam")
     t0 = time.perf_counter()
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  builder, fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM},
                                  resource_info=_auto_info(torch, RING_RANKS),
@@ -3460,6 +3689,90 @@ def _auto_ring_train(torch):
         **_params_digests(sess)}
 
 
+def _seq_train(torch, name):
+    """The ``seq_ring`` / ``seq_ulysses`` configuration on this rank:
+    ``transformer_lm()`` at full width on a ``{"seq": 4}`` mesh over the 4
+    ranks (this rank's 256 positions of phase 5's 8 x 1024 batch), ring or
+    Ulysses attention with the flash kernels inside, ``AllReduce()`` +
+    ``adamw(1e-3)``, 1 + 1 steps, each launching K1, K2 and K3
+    :data:`SEQ_LAUNCHES` times.  Rank-identical parameters are checked
+    by the caller, the losses against the one-card run by the main
+    process."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.mesh import build_mesh
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.parallel import (make_ring_attention,
+                                             make_ulysses_attention)
+    from autodist_tpu_torch.strategy import AllReduce
+
+    _fresh_peak(torch)
+    at_entry = torch.cuda.memory_allocated()
+    axes = {"seq": RING_RANKS}
+    mesh = build_mesh(axes)
+    make = make_ring_attention if name == "seq_ring" \
+        else make_ulysses_attention
+    spec = transformer_lm(attn_fn=make(mesh, inner="flash"))
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(strategy_builder=AllReduce(), mesh_axes=axes)
+    with ad.scope():
+        ad.capture(params=lm_params(spec), optimizer=optim.adamw(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars)
+    sess = ad.create_distributed_session(mesh=mesh)
+    if (sess.mesh.seq_size, sess.data_axis_size) != (RING_RANKS, 1):
+        raise AssertionError(f"{name}: mesh {sess.mesh.shape}")
+    batch = spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED)
+    n = SEQ_LAUNCHES[name]
+    want = dict(dict.fromkeys(_kernel_counts(), 0), flash_fwd=n,
+                flash_dq=n, flash_dkv=n)
+    losses, _, step_s, launches = _checked_steps(
+        torch, name, sess, batch, want, SEQ_WARMUP, SEQ_TIMED,
+        guarded=False)
+    return sess, {
+        "mesh": dict(sess.mesh.shape), "positions_per_rank":
+        spec.config["seq_len"] // RING_RANKS, "losses": losses,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                             "(host-staged K/V and gradients)",
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_entry": at_entry,
+        "peak_over_entry": torch.cuda.max_memory_allocated() - at_entry,
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
+
+
+def _long_context_twin(torch):
+    """``examples_torch/long_context.py`` on this rank through its
+    ``main`` (:data:`LONG_CONTEXT_ARGS`, its own other defaults; output to
+    stderr): K1–K3 at D = 32, :data:`LONG_CONTEXT_LAUNCHES` each."""
+    import contextlib
+
+    from autodist_tpu_torch import autodist as adm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    _fresh_peak(torch)
+    adm._reset_default_autodist_for_testing()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rate = importlib.import_module("examples_torch.long_context").main(
+            list(LONG_CONTEXT_ARGS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _kernel_counts()
+    want = dict(dict.fromkeys(launches, 0),
+                **dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                                LONG_CONTEXT_LAUNCHES))
+    if launches != want:
+        raise AssertionError(f"long_context launched {launches}, expected "
+                             f"{want}")
+    return {"args": list(LONG_CONTEXT_ARGS), "seconds": seconds,
+            "tokens_per_s": rate, "launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
 def phase_train_parallax(torch, ps_out):
     """``Parallax()`` at full width: the embedding (a sparse variable) on
     PS in a reduce-scatter bucket with K5, every dense variable in
@@ -3472,7 +3785,7 @@ def phase_train_parallax(torch, ps_out):
     spec = transformer_lm()
     layers = spec.config["num_layers"]
     _fresh_peak(torch)
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  Parallax(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
     step = sess._step
@@ -3519,7 +3832,7 @@ def phase_train_zero1_parity(torch):
     from autodist_tpu_torch.strategy import AllReduce, Zero1
 
     spec = transformer_lm(num_layers=2)
-    params = spec.init(SEED)
+    params = lm_params(spec)
 
     def loss_fn(p, b):            # the batch's "s" column poisons a step
         return spec.loss_fn(p, b) * b["s"].mean()
@@ -3637,7 +3950,7 @@ def phase_train_accum(torch):
     for overlap in ("none", "pipeline"):
         _fresh_peak(torch)
         sess, batch = _train_session(
-            spec, spec.init(SEED), TRAIN_SHAPE["B"], Zero1(overlap=overlap),
+            spec, lm_params(spec), TRAIN_SHAPE["B"], Zero1(overlap=overlap),
             fk.fusable_adam(1e-3), numerics={"clip_norm": CLIP_NORM},
             accum_steps=ACCUM_STEPS)
         piped = len(sess._step.pipelined_keys)
@@ -3725,7 +4038,7 @@ def phase_train_stale(torch):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # the guard's drop, as in JAX
         sess, batch = _train_session(
-            spec, spec.init(SEED), TRAIN_SHAPE["B"], PS(staleness=STALE_DEPTH),
+            spec, lm_params(spec), TRAIN_SHAPE["B"], PS(staleness=STALE_DEPTH),
             fk.fusable_adam(1e-3), numerics={"clip_norm": CLIP_NORM})
     if sess._step.fused_kernels != ("update",):
         raise AssertionError(f"train_stale runs {sess._step.fused_kernels}")
@@ -3785,7 +4098,7 @@ def phase_train_stale(torch):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             sess, batch = _train_session(
-                spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                spec, lm_params(spec), TRAIN_SHAPE["B"],
                 PS(local_proxy_variable=True), fk.fusable_adam(1e-3),
                 numerics={"clip_norm": CLIP_NORM})
     finally:
@@ -3960,7 +4273,7 @@ def _p6_train(torch, name, builder, optimizer, accum, resource_info, env):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the JAX fallbacks' warnings
             sess, batch = _train_session(
-                spec, spec.init(SEED), TRAIN_SHAPE["B"], builder, optimizer,
+                spec, lm_params(spec), TRAIN_SHAPE["B"], builder, optimizer,
                 numerics={"clip_norm": CLIP_NORM},
                 resource_info=resource_info, accum_steps=accum)
     finally:
@@ -4026,7 +4339,7 @@ def _ring_train(torch, name, builder, optimizer):
     spec = transformer_lm()
     layers = spec.config["num_layers"]
     _fresh_peak(torch)
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  builder, optimizer,
                                  numerics={"clip_norm": CLIP_NORM})
     step = sess._step
@@ -4182,7 +4495,7 @@ def _ps_lb_train(torch):
 
     spec = transformer_lm()
     _fresh_peak(torch)
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  PSLoadBalancing(), fk.fusable_adam(1e-3),
                                  numerics={"clip_norm": CLIP_NORM})
     d = sess.data_axis_size
@@ -4293,7 +4606,7 @@ def _p6_lr_control(torch) -> dict:
         for wire, comp in (("f32", "NoneCompressor"),
                            ("bf16", "HorovodCompressor")):
             sess, batch = _train_session(
-                spec, spec.init(SEED), TRAIN_SHAPE["B"],
+                spec, lm_params(spec), TRAIN_SHAPE["B"],
                 AllReduce(compressor=comp), optim.adam(lr),
                 numerics={"clip_norm": CLIP_NORM})
             out[f"{wire} lr {lr:g}"] = [float(sess.run(batch)["loss"])
@@ -4363,7 +4676,7 @@ def tune_prediction(device: str = "meta", chips: int = RING_RANKS) -> dict:
                                                           fit_leg_constants)
 
     spec = transformer_lm()
-    gi = GraphItem(spec.init(SEED, device=device),
+    gi = GraphItem(lm_params(spec, device=device),
                    optimizer=fk.fusable_adam(1e-3), loss_fn=spec.loss_fn,
                    sparse_vars=spec.sparse_vars,
                    numerics={"clip_norm": CLIP_NORM})
@@ -4394,11 +4707,12 @@ def tune_prediction(device: str = "meta", chips: int = RING_RANKS) -> dict:
 
 def _tune_ring_train(torch):
     """The ``tune_swap`` configuration on this rank (4 ranks on one card):
-    ``AllReduce`` with ``fusable_adam`` and the clip at full width, 3
-    steps, the planted drift, ``ScheduleTuner.maybe_retune`` (only rank 0
-    searches; every rank swaps), 3 steps on the winner, then an oracle
-    session started on the winner's Strategy from the anchor snapshot
-    taken at the swap step: its 3 steps must give the swapped run's losses
+    ``AllReduce`` with ``fusable_adam`` and the clip at full width,
+    :data:`TUNE_DRILL_STEPS` steps, the planted drift,
+    ``ScheduleTuner.maybe_retune`` (only rank 0 searches; every rank
+    swaps), as many steps on the winner, then an oracle session started
+    on the winner's Strategy from the anchor snapshot taken at the swap
+    step: its steps must give the swapped run's losses
     and parameters bit for bit.  K1–K5 each step as each schedule's IR
     predicts."""
     from autodist_tpu_torch import autodist as adm
@@ -4415,7 +4729,7 @@ def _tune_ring_train(torch):
     info = _auto_info(torch, RING_RANKS)
     kw = dict(numerics={"clip_norm": CLIP_NORM}, resource_info=info)
     _fresh_peak(torch)
-    sess, batch = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                  AllReduce(), fk.fusable_adam(1e-3), **kw)
     gi = adm.get_default_autodist().graph_item
     old_fp = sess.schedule_fingerprint
@@ -4463,7 +4777,7 @@ def _tune_ring_train(torch):
            "schedule_fingerprint": new_fp}
     del sess
     _fresh_peak(torch)
-    oracle, _ = _train_session(spec, spec.init(SEED), TRAIN_SHAPE["B"],
+    oracle, _ = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"],
                                _FixedBuilder(strategy), fk.fusable_adam(1e-3),
                                **kw)
     tuner.adopt_snapshot(oracle, anchor, oracle._step)
@@ -4742,10 +5056,10 @@ def _tune_implicit(torch, spec) -> dict:
         with ad.scope():
             if mode == "implicit":
                 opt = optim.adamw(1e-3)
-                opt.init(spec.init(SEED))
+                opt.init(lm_params(spec))
                 torch.func.grad_and_value(spec.loss_fn)
             else:
-                ad.capture(params=spec.init(SEED),
+                ad.capture(params=lm_params(spec),
                            optimizer=optim.adamw(1e-3), loss_fn=spec.loss_fn)
         sess = ad.create_distributed_session()
         want = _ir_predicted_launches(sess.schedule_ir,
@@ -4807,7 +5121,10 @@ def ring_worker(rank: int, init: str, mode: str,
     dist.init_process_group("gloo", init_method=init,
                             world_size=RING_RANKS, rank=rank)
     try:
-        out = {"rank": rank}
+        out = {"rank": rank, "t_s": {}}
+
+        def stamp(name):        # each configuration's end, on this rank
+            out["t_s"][name] = time.perf_counter() - T_START
         if mode == "lr_control":
             out["lr_control"] = _p6_lr_control(torch)
             print("RING_RESULT " + json.dumps(out), flush=True)
@@ -4815,6 +5132,16 @@ def ring_worker(rank: int, init: str, mode: str,
         if mode == "tune":
             sess, out[TUNE_RING_CONFIG] = _tune_ring_train(torch)
             del sess
+            print("RING_RESULT " + json.dumps(out), flush=True)
+            return 0
+        if mode == "seq":
+            for name in SEQ_CONFIGS:
+                sess, out[name] = _seq_train(torch, name)
+                del sess
+                torch.cuda.empty_cache()
+                stamp(name)
+            out["long_context"] = _long_context_twin(torch)
+            stamp("long_context")
             print("RING_RESULT " + json.dumps(out), flush=True)
             return 0
         if mode == "elastic":
@@ -4831,16 +5158,21 @@ def ring_worker(rank: int, init: str, mode: str,
                 ("fp8_zero1", Zero1(compressor="Fp8Compressor",
                                     overlap="ring"), fk.fusable_adam(1e-3))):
             sess, out[name] = _ring_train(torch, name, builder, opt)
+            stamp(name)
             if name == "int8_allreduce":
                 out["fused_vs_unfused"] = _ring_fused_vs_unfused(
                     torch, sess, TRAIN_SHAPE["B"] // RING_RANKS, rank)
+                stamp("fused_vs_unfused")
             del sess
             torch.cuda.empty_cache()
         sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
+        stamp(PS_LB_CONFIG)
         out[PS_LB_CONFIG]["trace"] = _ps_lb_trace(torch, sess, rank)
+        stamp(PS_LB_CONFIG + " trace")
         if elastic_dir:
             out[PS_LB_CONFIG]["elastic_donor"] = _ps_lb_donor(
                 torch, sess, elastic_dir)
+            stamp(PS_LB_CONFIG + " donor")
         del sess
         torch.cuda.empty_cache()
         for name, builder, opt, accum, info, env in _p6_configs():
@@ -4848,12 +5180,22 @@ def ring_worker(rank: int, init: str, mode: str,
                                         info, env)
             del sess
             torch.cuda.empty_cache()
+            stamp(name)
         sess, out[AUTO_RING_CONFIG] = _auto_ring_train(torch)
         del sess
         torch.cuda.empty_cache()
+        stamp(AUTO_RING_CONFIG)
         sess, out[TUNE_RING_CONFIG] = _tune_ring_train(torch)
         del sess
         torch.cuda.empty_cache()
+        stamp(TUNE_RING_CONFIG)
+        for name in SEQ_CONFIGS:
+            sess, out[name] = _seq_train(torch, name)
+            del sess
+            torch.cuda.empty_cache()
+            stamp(name)
+        out["long_context"] = _long_context_twin(torch)
+        stamp("long_context")
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -4905,13 +5247,19 @@ def phase_examples(torch, smi) -> dict:
     if root not in sys.path:
         sys.path.insert(0, root)
     twins, total = {}, 0.0
+    import tempfile
+
     for name, args in EXAMPLE_TWINS:
         _fresh_peak(torch)
         _reset_all_counts()
+        ck = tempfile.mkdtemp(prefix="smoke_pipeline_")
+        if name == "input_pipeline":         # a fresh checkpoint directory
+            args = tuple(args) + ("--checkpoint-dir", ck)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
             result = importlib.import_module(
                 "examples_torch." + name).main(list(args))
+        shutil.rmtree(ck, ignore_errors=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         total += seconds
@@ -4925,7 +5273,7 @@ def phase_examples(torch, smi) -> dict:
             raise AssertionError(f"examples {name}: dense attention, but "
                                  f"launches {launches}")
         rate = result if name.startswith(("benchmark.", "lm1b.")) or \
-            name == "serving_engine" else None
+            name in ("serving_engine", "input_pipeline") else None
         twins[name] = {"seconds": seconds, "rate": rate,
                        "launches": {k: v for k, v in launches.items() if v},
                        "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -4980,10 +5328,13 @@ def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
     if mode == "tune":
         _check_rank_results(results, (TUNE_RING_CONFIG,))
         return results[0], wall, None
+    if mode == "seq":
+        _check_rank_results(results, SEQ_CONFIGS)
+        return results[0], wall, None
     if mode != "smoke":
         return results[0], wall, None
     _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
-                        + (AUTO_RING_CONFIG, TUNE_RING_CONFIG))
+                        + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS)
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
@@ -5036,6 +5387,28 @@ def phase_flash_bert(torch, timer):
           "q_mul": 1.0, "max_abs_err": e})
     return {row["name"]: row for row in _flash_rows(
         torch, timer, bwd, dict(BERT_SHAPE, causal=False), errs)}
+
+
+def phase_flash_long(torch, timer):
+    """K1–K3 at D = 32, the ``long_context`` twin's block on one ring rank
+    (:data:`LONG_SHAPE`): held against their plain versions causal (the
+    diagonal block) and not (the shifted blocks) at the flash tolerances,
+    then timed non-causal as :func:`phase_flash` times its shape.  Rows
+    by kernel name."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    b, t, h, d = (LONG_SHAPE[x] for x in "BTHD")
+    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for causal in (True, False):
+        e, bwd = _flash_case(torch, fa, gen, b, t, h, d, causal)
+        errs["flash_fwd"] = max(errs["flash_fwd"], e["o"], e["lse"])
+        errs["flash_dq"] = max(errs["flash_dq"], e["dq"])
+        errs["flash_dkv"] = max(errs["flash_dkv"], e["dk"], e["dv"])
+        emit({"phase": "flash_check", "shape": [b, t, h, d],
+              "causal": causal, "q_mul": 1.0, "max_abs_err": e})
+    return {row["name"]: row for row in _flash_rows(
+        torch, timer, bwd, dict(LONG_SHAPE, causal=False), errs)}
 
 
 def phase_sync_lm1b_bucket(torch, timer):
@@ -5621,7 +5994,7 @@ def _resilience_session(spec, env=None, numerics=None):
         os.environ.pop(k, None) if v is None else os.environ.update({k: v})
     try:
         return _train_session(
-            spec, spec.init(SEED), TRAIN_SHAPE["B"], PSLoadBalancing(),
+            spec, lm_params(spec), TRAIN_SHAPE["B"], PSLoadBalancing(),
             fk.fusable_adam(1e-3), numerics=numerics or {
                 "clip_norm": CLIP_NORM, "on_nonfinite": "rollback",
                 "spike_zscore": RES_SPIKE_ZSCORE,
@@ -6241,7 +6614,7 @@ def phase_router(torch) -> dict:
         pool.stop()
         shutil.rmtree(work, ignore_errors=True)
     # the oracle: the plain generator on the same weights
-    params = spec.init(SEED, device="cuda")
+    params = lm_params(spec, device="cuda")
     gen = make_generator(spec, device="cuda")
     for i, (prompt, n) in enumerate(requests):
         _check_exact(torch, gen, params, prompt, n, results[i]["tokens"],
@@ -6268,6 +6641,66 @@ def phase_router(torch) -> dict:
             "survivor_k9": k9, "total_s": time.perf_counter() - t0}
 
 
+def check_seq(ring, train_losses, smi) -> dict:
+    """Rank 0's ``seq_ring`` / ``seq_ulysses`` losses against the one-card
+    flash run's (``train_losses``, phase 5's) at :data:`SEQ_LOSS_RTOL`;
+    emits each configuration's line and the twin's; returns the K1–K3
+    launches by path."""
+    paths = {}
+    for config in SEQ_CONFIGS:
+        out = ring[config]
+        ref = train_losses[:len(out["losses"])]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref))
+        if not rel <= SEQ_LOSS_RTOL:
+            raise AssertionError(f"{config}: rank 0's losses "
+                                 f"{out['losses']} differ from the one-card "
+                                 f"run's {ref} by {rel:.2e}")
+        emit({"phase": config, "card": smi, "ranks": RING_RANKS,
+              "params_identical_across_ranks": True,
+              "one_card_losses": ref, "max_rel_diff_vs_one_card": rel,
+              "rtol": SEQ_LOSS_RTOL, **out})
+        paths[config + " (rank 0)"] = out
+    emit({"phase": "long_context", "card": smi, "ranks": RING_RANKS,
+          **ring["long_context"]})
+    paths["long_context D=32 (rank 0)"] = dict(
+        ring["long_context"], launches_per_step={
+            k: 8 for k in ("flash_fwd", "flash_dq", "flash_dkv")})
+    return paths
+
+
+def seq_only(torch) -> int:
+    """``--seq``: the build, K1–K3 at D = 32 against their plain versions,
+    a one-card flash reference of 2 steps (phase 5's program) and the
+    ring ranks' ``seq_ring``, ``seq_ulysses`` and ``long_context``, with
+    their checks."""
+    from autodist_tpu_torch.device_timer import Timer
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    proc = start_ptxas_report("flash_attention.cu")
+    _build.build_all()
+    report = read_ptxas_report(proc)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "build_s": time.perf_counter() - t0,
+          "ptxas_d32": {k: v for k, v in report.items() if "<32," in k}})
+    rows = phase_flash_long(torch, Timer())
+    spec = transformer_lm()
+    _fresh_peak(torch)
+    sess, batch = _train_session(spec, lm_params(spec), TRAIN_SHAPE["B"])
+    losses = [float(sess.run(batch)["loss"])
+              for _ in range(SEQ_WARMUP + SEQ_TIMED)]
+    del sess
+    _fresh_peak(torch)
+    ring, wall, _ = phase_train_ring(mode="seq")
+    check_seq(ring, losses, smi)
+    emit({"phase": "seq_only", "ring_wall_s": wall,
+          "d32_ms": {k: r["ms"] for k, r in rows.items()}})
+    print(smi, flush=True)
+    return 0
+
+
 def ring_repeat(torch, times: int) -> int:
     """``train_ring`` ``times`` times in a row: each repetition's outcome
     (rank digests agree, or which parameters differ) as one JSON line, then
@@ -6283,6 +6716,7 @@ def ring_repeat(torch, times: int) -> int:
             ring, _, _ = phase_train_ring()
             emit({"phase": "ring_repeat", "run": i, "ok": True,
                   "wall_s": time.perf_counter() - t0,
+                  "rank0_t_s": ring["t_s"],
                   "params_sha256": {c: ring[c]["params_sha256"]
                                     for c in RING_CONFIGS + (PS_LB_CONFIG,)
                                     + P6_CONFIGS}})
@@ -6435,6 +6869,8 @@ def main() -> int:
         return replica_main()
     if "--tune" in sys.argv:
         return tune_only(torch)
+    if "--seq" in sys.argv:
+        return seq_only(torch)
     if "--resilience" in sys.argv:
         return resilience_only(torch)
     if "--p6-lr-control" in sys.argv:
@@ -6474,6 +6910,7 @@ def main() -> int:
     k9, k10 = phase_kernels(torch, timer)
     flash_rows = phase_flash(torch, timer)
     bert_rows = phase_flash_bert(torch, timer)
+    long_rows = phase_flash_long(torch, timer)
     sync_rows = phase_sync_kernels(torch, timer)
     lm1b_bucket = phase_sync_lm1b_bucket(torch, timer)
     quant_rows = phase_quant_kernels(torch, timer)
@@ -6482,7 +6919,7 @@ def main() -> int:
 
     spec = transformer_lm()          # the repo's defaults, float32
     t0 = time.perf_counter()
-    params = spec.init(SEED, device="cuda")
+    params = lm_params(spec, device="cuda")
     init_s = time.perf_counter() - t0
     serve_out = phase_serve(torch, spec, params)
     serve_oracle = serve_out.pop("oracle")
@@ -6591,7 +7028,8 @@ def main() -> int:
               "max_rel_diff_vs_f32": rel, "rtol_vs_f32": RING_LOSS_RTOL,
               **ring[config]})
     emit({"phase": "train_ring_fused_vs_unfused", "atol": 1e-6,
-          "per_rank": fused_vs_unfused, "wall_s": ring_wall})
+          "per_rank": fused_vs_unfused, "wall_s": ring_wall,
+          "rank0_t_s": ring["t_s"]})
     for row in quant_rows:
         row["launches"] = sum(ring[c]["launches"][row["name"]]
                               for c in RING_CONFIGS)
@@ -6663,6 +7101,19 @@ def main() -> int:
                                 ] = {
             "launches": tune_ring["launches"][row["name"]],
             "per_step": tune_ring["launches_per_step_after"][row["name"]]}
+    seq_paths = check_seq(ring, train_out["losses"], smi)
+    for row in flash_rows:
+        row["launches_by_path"].update({
+            path: {"launches": out["launches"][row["name"]],
+                   "per_step": out["launches_per_step"][row["name"]]}
+            for path, out in seq_paths.items()})
+        long_row = long_rows[row["name"]]
+        long_row["ptxas"] = {
+            c: ptxas_report[f"{row['name']}_kernel<32, {c}>"]
+            for c in ("causal", "full")}
+        long_row["launches"] = ring["long_context"]["launches"][row["name"]]
+        long_row["launches_per_step"] = 8
+        row["d32_shape"] = long_row
     for config in P6_CONFIGS:
         emit({"phase": "train_p6", "config": config, "card": smi,
               "ranks": RING_RANKS,
@@ -6718,7 +7169,7 @@ def main() -> int:
 
     _fresh_peak(torch)
     t0 = time.perf_counter()
-    params = spec.init(SEED, device="cuda")
+    params = lm_params(spec, device="cuda")
 
     def timed(name, fn, *args, **kwargs):
         t = time.perf_counter()
@@ -6732,7 +7183,7 @@ def main() -> int:
     int8_spec = transformer_lm(**{
         **{k: v for k, v in spec.config.items() if k != "seq_len"},
         "num_layers": SLOT_INT8_LAYERS})
-    qparams = quantize_lm_params(int8_spec.init(SEED, device="cuda"))
+    qparams = quantize_lm_params(lm_params(int8_spec, device="cuda"))
     slot_out["int8"] = timed("serve_slot", phase_serve_slot, int8_spec,
                              qparams, "int8")
     del qparams

@@ -321,6 +321,20 @@ def test_non_data_axes_are_a_p10_error(mesh):
         "legality/axis-not-ported")
 
 
+def test_seq_axis_is_lowered_not_a_p10_error():
+    """The port lowers the seq axis: a data × seq mesh and a seq hint raise
+    no ``legality/axis-not-ported``; a model hint beside it still does."""
+    jgi, pgi = _programs(GI)
+    report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
+                     mesh={"data": 4, "seq": 2})
+    assert not report.by_rule("legality/axis-not-ported")
+    hinted = Strategy.from_dict(full_cover(jgi).to_dict())
+    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2}
+    errs = analyze(hinted, pgi, mesh=AXES8).by_rule(
+        "legality/axis-not-ported")
+    assert [d.location for d in errs] == ["model"]
+
+
 # -- the validate hooks --------------------------------------------------------
 
 def _facade(builder, **capture):

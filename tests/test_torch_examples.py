@@ -41,7 +41,8 @@ TWINS = ("linear_regression", "image_classifier", "generate_text",
          "sentiment_classifier", "lora_finetune", "serving_engine",
          "serve_http", "speculative_draft", "benchmark.common",
          "benchmark.imagenet", "benchmark.bert", "benchmark.ncf",
-         "lm1b.lm1b_train")
+         "lm1b.lm1b_train", "long_context", "input_pipeline",
+         "implicit_capture")
 
 
 @pytest.fixture(autouse=True)
@@ -150,6 +151,51 @@ def test_speculative_draft_example(capsys):
     _, out = _run(capsys, "speculative_draft")
     assert "acceptance rate:" in out
     assert "token-exact" in out
+
+
+def test_implicit_capture_example(capsys):
+    losses, out = _run(capsys, "implicit_capture")
+    assert "step  35" in out and len(losses) == 40
+
+
+def test_input_pipeline_example(capsys, tmp_path):
+    rate, out = _run(capsys, "input_pipeline",
+                     ("--epochs", "2", "--rows", "512", "--batch-size", "32",
+                      "--checkpoint-dir", str(tmp_path / "ck")))
+    assert "final loss" in out and "native loader True" in out
+    assert (tmp_path / "ck").is_dir() and rate > 0
+
+
+#: the long-context twin on 2 gloo ranks of one seq group, small
+LONG_CONTEXT_RANK = (
+    "import sys; sys.path.insert(0, {root!r}); sys.path.insert(0, {tests!r})\n"
+    "import torch, torch_launch\n"
+    "torch.set_num_threads(1)\n"
+    "rank, init = int(sys.argv[1]), sys.argv[2]\n"
+    "torch_launch.init_process_group(init, 2, rank)\n"
+    "from examples_torch import long_context\n"
+    "rate = long_context.main(['--data-shards', '1', '--seq-shards', '2',"
+    " '--seq-len', '64', '--batch-size', '2', '--steps', '2',"
+    " '--warmup', '1', '--device', 'cpu'])\n"
+    "print('RATE', rate)\n")
+
+
+def test_long_context_example_on_two_seq_ranks(tmp_path):
+    """The twin's ring attention on a ``{"data": 1, "seq": 2}`` mesh of 2
+    gloo ranks (the caller made the process group): both ranks train and
+    report the same losses."""
+    import torch_launch
+
+    code = LONG_CONTEXT_RANK.format(root=str(ROOT),
+                                    tests=str(ROOT / "tests"))
+    logs = torch_launch.run(lambda rank, init: ["-c", code, rank, init],
+                            world=2, tmp_dir=tmp_path, timeout=240)
+    lines = [[ln for ln in log.splitlines()
+              if ln.startswith("transformer_lm:")] for log in logs]
+    assert all(len(x) == 1 for x in lines), logs
+    losses = [ln[0].split("loss ")[1] for ln in lines]
+    assert losses[0] == losses[1]
+    assert all("RATE" in log for log in logs)
 
 
 # -- against the JAX scripts -------------------------------------------------

@@ -100,6 +100,10 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.resilience.supervisor\n"
         "import autodist_tpu_torch.resilience.elastic\n"
         "import autodist_tpu_torch.serving.router\n"
+        "import autodist_tpu_torch.runtime.data_loader\n"
+        "import autodist_tpu_torch.runtime.native\n"
+        "import autodist_tpu_torch.parallel.ring_attention\n"
+        "import autodist_tpu_torch.parallel.ulysses\n"
         "from autodist_tpu_torch.resilience import Supervisor\n"
         "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
         "    ENV, Callback, TimeHistory, History, __version__)\n"
@@ -359,7 +363,6 @@ def test_build_paths_stay_in_the_checkout():
 #: JAX modules the port has no counterpart of, with the reason
 JAX_ONLY_MODULES = {
     "autodist_tpu.ops.pallas_utils": "Pallas helpers: the port has no Pallas",
-    "autodist_tpu.parallel": P10,
     "autodist_tpu.utils.compat": "JAX version shims: the port has no JAX",
     "autodist_tpu.utils.network": P12,
     "autodist_tpu.utils.visualization": "sharding renderings of JAX arrays",
@@ -401,7 +404,8 @@ def _public(module):
                                    ".resilience.chaos",
                                    ".resilience.supervisor",
                                    ".resilience.elastic", ".serving",
-                                   ".serving.router", ".serving.server"])
+                                   ".serving.router", ".serving.server",
+                                   ".runtime", ".parallel"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -479,8 +483,12 @@ def _stub_calls(spec, ad, sess):
     from autodist_tpu_torch.strategy import ScheduleTuner
     from autodist_tpu_torch.telemetry import LegProfiler, flightrec
 
+    from autodist_tpu_torch import parallel
+
     params = sess.device_params
     return {
+        **{f"parallel.{n}": (getattr(parallel, n), P10)
+           for n in PARALLEL_STUBS},
         "models.moe_transformer_lm": (models.moe_transformer_lm, P10),
         "models.pipelined_transformer_lm": (models.pipelined_transformer_lm,
                                             P10),
@@ -510,7 +518,13 @@ def _stub_calls(spec, ad, sess):
     }
 
 
-STUBS = ["models.moe_transformer_lm", "models.pipelined_transformer_lm",
+#: the P10 names of ``autodist_tpu_torch.parallel`` that raise (its
+#: sequence-parallel attention runs)
+PARALLEL_STUBS = ["moe_ffn", "init_moe_params", "pipeline_apply",
+                  "stack_stage_params", "one_f_one_b", "schedule_ticks_1f1b",
+                  "bubble_fraction_1f1b"]
+STUBS = [f"parallel.{n}" for n in PARALLEL_STUBS] + [
+         "models.moe_transformer_lm", "models.pipelined_transformer_lm",
          "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
          "AutoDist.coordinator", "LegProfiler.profile_ir",
          "flightrec.traced_stamp", "fit(tuner=)",

@@ -23,6 +23,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -356,6 +357,45 @@ def test_dropped_heartbeats_stop_the_beacon(tmp_path):
     time.sleep(0.02)
     w.beat(step=1)
     assert os.stat(w.path).st_mtime_ns == before
+
+
+def test_concurrent_beats_never_publish_a_torn_beacon(tmp_path, monkeypatch):
+    """A step loop and the refresh thread beat the same beacon.  Force the
+    worst interleaving: the second writer opens its staging file after
+    the first has written its own and before the first renames it into
+    place.  The beacon the monitor then reads is the first writer's,
+    whole (a staging file shared by both would be truncated under it and
+    read as no beacon at all, a DEAD verdict once the grace is over)."""
+    w = heartbeat.HeartbeatWriter(str(tmp_path), "w4")
+    first = threading.get_ident()
+    second_opened, first_read = threading.Event(), threading.Event()
+    seen = {}
+    real_replace, real_dump = os.replace, json.dump
+    other = threading.Thread(target=w.beat, kwargs={"step": 2})
+
+    def replace(src, dst):
+        if threading.get_ident() == first and dst == w.path:
+            other.start()                 # it opens its staging file now
+            assert second_opened.wait(10)
+            real_replace(src, dst)
+            seen["beacon"] = open(w.path).read()
+            first_read.set()
+            return
+        real_replace(src, dst)
+
+    def dump(obj, f, *a, **kw):
+        if threading.get_ident() != first:
+            second_opened.set()
+            assert first_read.wait(10)
+        real_dump(obj, f, *a, **kw)
+
+    monkeypatch.setattr(os, "replace", replace)
+    monkeypatch.setattr(json, "dump", dump)
+    w.beat(step=1)
+    other.join(10)
+    assert json.loads(seen["beacon"])["step"] == 1
+    assert json.load(open(w.path))["step"] == 2
+    assert [n for n in os.listdir(tmp_path)] == [os.path.basename(w.path)]
 
 
 # -- the supervisor -------------------------------------------------------------

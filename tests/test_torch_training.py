@@ -476,12 +476,18 @@ def test_non_data_mesh_axes_raise():
 
 @pytest.mark.parametrize("axis", ["pipe", "expert", "seq", "model"])
 def test_build_mesh_refuses_non_data_axes(axis):
-    """No layer shards heads or positions: attention and the step rely on
-    ``build_mesh`` refusing every axis but ``data``."""
+    """No layer shards heads or experts or stages: the step relies on
+    ``build_mesh`` refusing every axis but ``data`` and ``seq``.  A ``seq``
+    axis builds (``tests/test_torch_sequence_parallel.py`` trains on one);
+    on this one-process world its size 2 does not divide the world."""
     from autodist_tpu_torch.mesh import build_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        build_mesh({axis: 2}, device="cpu")
+    if axis == "seq":
+        with pytest.raises(ValueError, match="divide the world size"):
+            build_mesh({axis: 2}, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
+            build_mesh({axis: 2}, device="cpu")
     assert build_mesh({axis: 1}, device="cpu").data_size == 1
 
 
