@@ -9,10 +9,10 @@ Strategy over the compiled mesh's axes (the port's compiler lowers a
 Strategy node for node, so the projection is the lowered plan) and checks
 that every compiled plan agrees with it.
 
-The port's mesh has the data and seq axes only (ROADMAP P10): a
-``model``, ``pipe`` or ``expert`` axis wider than 1, on the mesh or in
-the strategy's ``mesh_axes`` hint, is ``legality/axis-not-ported``
-(ERROR, naming P10), so a search never picks such a plan.
+The port's mesh has the data, seq and model axes (ROADMAP P10): a
+``pipe`` or ``expert`` axis wider than 1, on the mesh or in the
+strategy's ``mesh_axes`` hint, is ``legality/axis-not-ported`` (ERROR,
+naming P10), so a search never picks such a plan.
 
 Rules (docs/analysis.md):
 
@@ -48,8 +48,8 @@ Rules (docs/analysis.md):
   padded, or non-bucketable compressor); it falls back to a per-variable
   collective with replicated optimizer state.  Shares
   ``bucketing.bucket_drop_reason`` with the runtime.
-* ``legality/axis-not-ported`` (ERROR) — a model, pipe or expert axis wider
-  than 1: the port cannot lower it (ROADMAP P10).
+* ``legality/axis-not-ported`` (ERROR) — a pipe or expert axis wider than
+  1: the port cannot lower it (ROADMAP P10).
 * ``legality/slice-mismatch`` (ERROR) — the resource spec's ``num_slices``
   does not divide the mesh's device count: a two-tier topology would
   leave a ragged slice.  Shares ``resource_spec.slice_mismatch_reason``
@@ -324,15 +324,21 @@ def _lower_from_compiled(ctx: AnalysisContext
         lite = plans.get(name)
         if lite is None:
             continue
-        stored = {vp.storage_axis: MESH_AXIS_DATA} \
-            if d > 1 and vp.storage_axis is not None \
-            and vp.stored_at(d) else {}
+        placement = {i: e for i, e in enumerate(vp.param_spec or ())
+                     if e is not None}
+        if not placement and d > 1 and vp.storage_axis is not None \
+                and vp.stored_at(d):
+            placement = {vp.storage_axis: MESH_AXIS_DATA}
+        # PS plans shard their update over data, but a variable sharded
+        # over model (unpadded) reduces its shard on the per-shard tier
+        per_shard = MESH_AXIS_MODEL in placement.values() \
+            and lite.pad is None
         want_mode = "reduce_scatter" if lite.sync_kind == "PS" \
-            else lite.sync_mode
+            and not per_shard else lite.sync_mode
         if (vp.sync_kind != lite.sync_kind
                 or (vp.compressor or "NoneCompressor") != lite.compressor
                 or (vp.sync_mode or "all_reduce") != want_mode
-                or (lite.sync_kind == "PS" and stored != lite.placement)):
+                or placement != lite.placement):
             diags.append(diag(
                 "legality/indivisible-partition", Severity.ERROR,
                 "the compiled plan is not the plan its strategy node "
@@ -448,19 +454,20 @@ def _check_slices(ctx: AnalysisContext) -> List[Diagnostic]:
 
 
 def _check_ported_axes(ctx: AnalysisContext) -> List[Diagnostic]:
-    """``legality/axis-not-ported``: an axis other than ``data`` and
-    ``seq`` wider than 1, on the mesh or in the strategy's hint, which the
-    port cannot lower."""
+    """``legality/axis-not-ported``: an axis other than ``data``, ``seq``
+    and ``model`` wider than 1, on the mesh or in the strategy's hint,
+    which the port cannot lower."""
     from autodist_tpu_torch.const import P10
 
     hint = getattr(ctx.strategy.graph_config, "mesh_axes", None) or {}
     wide = {str(a): int(n) for src in (ctx.axes, hint)
             for a, n in src.items()
-            if a not in (MESH_AXIS_DATA, MESH_AXIS_SEQ) and int(n) > 1}
+            if a not in (MESH_AXIS_DATA, MESH_AXIS_SEQ, MESH_AXIS_MODEL)
+            and int(n) > 1}
     return [diag(
         "legality/axis-not-ported", Severity.ERROR,
-        f"mesh axis {a!r} of size {n}: the port lowers the data and seq "
-        f"axes only (not ported: {P10})", location=a,
+        f"mesh axis {a!r} of size {n}: the port lowers the data, seq and "
+        f"model axes only (not ported: {P10})", location=a,
         fix="drop the axis (pure data parallelism) until it is ported")
         for a, n in sorted(wide.items())]
 

@@ -47,7 +47,12 @@ under the dtype name ``"bfloat16"``.  No Orbax.
   the other way round.  A variable stored 1/N is saved whole (gathered)
   and restored into each rank's part, so such a checkpoint written on N
   ranks restores on 1 and the other way round, where the bucket layouts
-  agree (a stored variable fills buckets of its own at every size).
+  agree (a stored variable fills buckets of its own at every size).  A
+  variable sharded over ``model``, its optimizer slots and its
+  compressor state are saved whole (gathered over the model group) and a
+  restore cuts each rank's shard (``session._step.model_shards``), so a
+  checkpoint of a ``{"data": 2, "model": 2}`` session restores on one
+  process and the other way round.
 * **Ranks:** every rank takes part in a save (the ZeRO-1 and parameter
   gathers); rank 0
   writes, and the ranks meet at a barrier once the step is committed.
@@ -96,7 +101,8 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch.convert import _pack_tree_state, _rank_shard
-from autodist_tpu_torch.graph_item import flatten, unflatten
+from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
+from autodist_tpu_torch.kernel.synchronization.collectives import shard_of
 from autodist_tpu_torch.kernel.synchronization.stale_sync import (
     MASTER_KEY, STALE_KEYS)
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
@@ -405,6 +411,11 @@ def _sync_for(session, saved, source) -> Optional[Dict[str, Any]]:
             if all(x.dim() >= 1 and x.shape[0] == d for _, x in rows):
                 got = unflatten([(n, x[rank]) for n, x in rows]) \
                     if isinstance(got, dict) else got[rank]
+            shard = session._step.model_shards.get(key)
+            if shard is not None:       # a model-sharded variable's state
+                dim, k, mrank = shard
+                got = tree_map(lambda x: shard_of(x, k, mrank, dim).clone(),
+                               got)
         ok = got is not None and (
             [(n, tuple(x.shape), x.dtype) for n, x in flatten(got)]
             == [(n, tuple(x.shape), x.dtype) for n, x in flatten(value)])
@@ -473,10 +484,15 @@ class Saver:
         return mesh.data_size, mesh.data_group, mesh.data_rank
 
     @staticmethod
+    def _writer() -> bool:
+        """Does this rank write?  The world's rank 0: the ranks of one
+        seq or model group share a data rank."""
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+    @staticmethod
     def _barrier(session) -> None:
-        d, group, _ = Saver._mesh(session)
-        if d > 1:
-            dist.barrier(group=group)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     # -- durability --------------------------------------------------------
     def _join(self) -> None:
@@ -656,8 +672,8 @@ class Saver:
     def _maybe_gc(self) -> None:
         if self._keep is None or self._gc_dir is None:
             return
-        if self._session is not None and self._mesh(self._session)[2] != 0:
-            return                      # rank 0 owns the directory
+        if not self._writer():
+            return                      # the writer owns the directory
         steps = self._committed_steps(self._gc_dir)
         good = self.good_steps(self._gc_dir)
         protected = {max(good)} if good else set()
@@ -698,13 +714,14 @@ class Saver:
     def _save(self, session, directory: str, step: int, path: str,
               t_save: float, extra_meta: Optional[dict],
               mark_good: bool) -> None:
-        d, _, rank = self._mesh(session)
+        d = session.mesh.data_size
+        writer = self._writer()
         # every rank takes part in the gathers; rank 0 copies and writes
         params, opt_state = session.export_state()
         sync_state = session.export_sync_state()
         has_sync = bool(flatten(sync_state))
         items: Dict[str, HostItem] = {}
-        if rank == 0:
+        if writer:
             items = {"params": host_item(params),
                      "opt_state": host_item(opt_state)}
             if has_sync:
@@ -732,9 +749,9 @@ class Saver:
                 name=f"checkpoint-step_{step}", daemon=True)
             self._thread.start()
             if mark_good:
-                self._pending_mark = path if rank == 0 else None
+                self._pending_mark = path if writer else None
         else:
-            if rank == 0:
+            if writer:
                 self._write(directory, step, items, meta, extra)
                 if mark_good:
                     Saver.mark_good(path)

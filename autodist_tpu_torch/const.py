@@ -150,6 +150,10 @@ P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
 #: elastic resume, the router and the drain) is ported whole: nothing
 #: raises naming it any more
 P9 = "P9 — telemetry and resilience"
+#: P10's ``seq`` and ``model`` axes are ported (ring and Ulysses attention;
+#: model-sharded variables on the bucketed step and K1–K3 over heads):
+#: what still raises naming it is the ``pipe`` and ``expert`` axes, the
+#: pipelines, MoE and the serving engines' ``mesh=``
 P10 = "P10 — non-data mesh axes"
 #: P11 (the rest of serving) is ported whole since its last raise, the
 #: SIGTERM drain, came with the router: nothing raises naming it any more

@@ -6,9 +6,12 @@ need the explicit bucketed step (a compressor, the ``reduce_scatter`` of
 ``ring`` or ``full`` schedule) go to :func:`~autodist_tpu_torch.kernel.
 synchronization.explicit_sync.make_explicit_step` (``:228``); the PS
 family's weight-update sharding, which the JAX package runs on its GSPMD
-step (``:428-470``), runs there.  Every other plan (``AllReduce``,
-``PartitionedAR``, ``RandomAxisPartitionAR``: replicated AllReduce plans
-on a data-only mesh) runs the twin of the JAX GSPMD step (``:325-493``).
+step (``:428-470``), runs there, and so does any plan whose variable
+keeps a ``model`` sharding (the explicit path's per-shard tier, where
+the JAX package shards through GSPMD).  Every other plan (``AllReduce``,
+and ``PartitionedAR``, ``RandomAxisPartitionAR`` on a mesh without
+``model``: replicated AllReduce plans) runs the twin of the JAX GSPMD
+step (``:325-493``).
 One such step runs, in order:
 
 1. loss and gradients: ``loss_fn`` under autograd on this rank's rows of
@@ -57,7 +60,8 @@ from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     MODE_ALL_REDUCE, Bucket, assign_buckets, pack_bucket, unpack_bucket)
 from autodist_tpu_torch.const import P10, not_ported
-from autodist_tpu_torch.mesh import SeqChunk, data_rows, seq_chunk
+from autodist_tpu_torch.mesh import (SeqChunk, data_rows, manual_axes,
+                                     seq_chunk)
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
@@ -103,9 +107,13 @@ class DistributedStep:
     calls them), ``import_sync_state(sync_state, params)`` this rank's
     sync state back from it.  ``stored_shapes`` gives the logical
     ``(shape, dtype)`` of each variable stored 1/N between steps (data
-    size > 1), by name, and ``shard_params(params)`` cuts a placed tree
-    to this rank's parts of them (the step's own layout; the identity
-    without them)."""
+    size > 1) or sharded over ``model``, by name, and
+    ``shard_params(params)`` cuts a placed tree to this rank's parts of
+    them (the step's own layout; the identity without them).
+    ``model_shards`` maps each variable sharded over ``model`` to ``(tensor
+    dim, shard count, this rank's shard)``; its optimizer slots and
+    compressor state are shards too, and ``shard_opt_state(opt_state)``
+    cuts a logical optimizer state to them (the identity without any)."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -127,6 +135,9 @@ class DistributedStep:
     stored_shapes: Dict[str, Tuple[Tuple[int, ...], str]] = field(
         default_factory=dict)
     shard_params: Callable = lambda params: params
+    model_shards: Dict[str, Tuple[int, int, int]] = field(
+        default_factory=dict)
+    shard_opt_state: Callable = lambda opt_state: opt_state
     #: the :class:`~autodist_tpu_torch.strategy.compiler.CompiledStrategy`
     #: this step lowers (set by :meth:`GraphTransformer.transform`)
     compiled_strategy: Any = None
@@ -160,6 +171,23 @@ class DistributedStep:
                     .to(self.device)
             return x
         return tree_map(put, batch)
+
+
+def map_model_leaves(tree, model_shards: Dict[str, Tuple[int, int, int]],
+                     fn: Callable, prefix: Tuple[str, ...] = ()):
+    """``tree`` (an optimizer state, a nested dict) with ``fn(leaf, name,
+    dim)`` applied to each tensor whose path ends in the name of a
+    variable sharded over ``model`` (its slot in a per-variable state:
+    ``mu/<name>``); every other leaf, and the structure, as it is."""
+    if isinstance(tree, dict):
+        return {k: map_model_leaves(v, model_shards, fn, prefix + (k,))
+                for k, v in tree.items()}
+    if model_shards and isinstance(tree, torch.Tensor):
+        for i in range(len(prefix)):
+            name = "/".join(prefix[i:])
+            if name in model_shards:
+                return fn(tree, name, model_shards[name][0])
+    return tree
 
 
 def microbatch_slices(length: int, accum: int) -> List[Tuple[int, int]]:
@@ -279,6 +307,7 @@ def local_value_and_grad(vg: Callable, params, batch, data: int, group,
     chunked = seq_rows(local, seq.size, seq.rank) if seq is not None \
         else local
     with contextlib.ExitStack() as stack:
+        stack.enter_context(manual_axes())
         if local is not batch:
             stack.enter_context(data_rows(group, data))
         if chunked is local:
@@ -405,6 +434,9 @@ class GraphTransformer:
         from autodist_tpu_torch.kernel.synchronization import explicit_sync
 
         check_seq_program(gi, self.compiled.mesh)
+        # a variable whose model sharding is dropped is replicated, with
+        # the JAX package's warning, on either step
+        explicit_sync.partition_support(gi, self.compiled, warn=True)
         if explicit_sync.uses_explicit_path(self.compiled):
             return explicit_sync.make_explicit_step(gi, self.compiled,
                                                     extra_metrics_fn)

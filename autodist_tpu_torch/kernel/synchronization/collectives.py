@@ -20,6 +20,18 @@ transposes ``ppermute`` so), that of an ``all_to_all`` the inverse
 ``all_to_all``, that of an ``all_gather`` the ``psum_scatter`` of the
 cotangent.
 
+The model axis's gather and slice: :func:`gather_shards` joins every
+rank's shard of a variable along its sharded dim (the bucketed step's
+gather of a model-sharded parameter before the loss, and of its moments
+for a logical export), :func:`shard_of` cuts this rank's shard back out.
+:func:`gather_replicated` and :func:`slice_replicated` are their
+differentiable forms for values REPLICATED over the group (every rank
+holds the same full tensor and the same cotangent of it, as q, k, v and
+the attention output of ``make_flash_attention(mesh)`` are): the gather's
+backward takes this rank's part of the cotangent (a ``psum_scatter``
+would add the replicas' copies), the slice's backward gathers the parts,
+so every rank gets the full gradient it would get without the group.
+
 A collective over a part of the ranks (``axis_index_groups`` in ``lax``:
 the ``within`` and ``across`` groups of ``hier`` sync) runs over a
 process group of its own, made once per step by :func:`subgroups`.
@@ -262,3 +274,59 @@ def all_gather_tiled(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     rank's ``x`` joined along ``axis`` in rank order; its backward is the
     ``psum_scatter`` of the cotangent (this rank's part of the sum)."""
     return _AllGather.apply(x, group, axis)
+
+
+def gather_shards(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis=, tiled=True)``, not differentiable: every
+    rank's shard joined along ``axis`` in rank order (``x`` itself when
+    ``group`` is None)."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    moved = x.movedim(axis, 0).contiguous()
+    out = all_gather(moved, group).view((n * moved.shape[0],)
+                                        + moved.shape[1:])
+    return out.movedim(0, axis).contiguous()
+
+
+def shard_of(x: torch.Tensor, n: int, rank: int, axis: int) -> torch.Tensor:
+    """Shard ``rank`` of ``n`` of ``x`` along ``axis`` (a view)."""
+    size = x.shape[axis] // n
+    return x.narrow(axis, rank * size, size)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (dist.get_world_size(group), dist.get_rank(group), axis)
+        return gather_shards(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, rank, axis = ctx.args
+        return shard_of(g, n, rank, axis).contiguous(), None, None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return shard_of(x, dist.get_world_size(group), dist.get_rank(group),
+                        axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_shards(g, ctx.group, ctx.axis), None, None
+
+
+def gather_replicated(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """:func:`gather_shards`, differentiable for an output replicated over
+    ``group``: the backward is this rank's part of the cotangent."""
+    return _GatherReplicated.apply(x, group, axis)
+
+
+def slice_replicated(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """This rank's part of ``x`` (replicated over ``group``) along
+    ``axis``, differentiable: the backward gathers every rank's part of
+    the cotangent, the full gradient of ``x``."""
+    return _SliceReplicated.apply(x, group, axis)

@@ -29,7 +29,17 @@ all-reduce buckets).  The step runs, on each rank, in order:
    with flat buckets (``PowerSGDCompressor``: its factors need the 2-D
    gradient) reduces through its compressor's ``reduce`` with its state
    under its name in the sync state (a ZeRO-1 request falls back to it,
-   with the JAX package's warning, and to the tree update);
+   with the JAX package's warning, and to the tree update); so does a
+   variable that keeps its ``model`` sharding (:func:`partition_support`,
+   the JAX package's ``_partition_support`` over
+   :func:`partition_drop_reason`; every other sharding is replicated
+   with its warning): the session holds its shard, step 0 gathers it
+   over the model group into the full tensor the loss sees, the full
+   gradient (summed over ``seq`` first) is cut back to the shard, whose
+   data mean runs through the compressor with shard-shaped state, and
+   the tree update runs on the shard and its own moments; the guard
+   counts a shard once over the model group (``shard_axes_size``) and,
+   on a model mesh, rolls up over every rank;
 3. per bucket of :func:`plan_step_buckets`' plan: pack, then the
    reduction over the data group under the bucket's lowering, read from
    the bucket's node in the step's schedule IR (:func:`plan_step`: the
@@ -124,9 +134,7 @@ the step runs at every data size, where the JAX package takes its GSPMD
 step at size 1 (there every compressor but the quantized wire returns
 the gradient as it is, and staleness applies); the quantized ring's hop
 kernels run whenever a bucket is quantized (the JAX package's are an
-opt-in; both put the same bits on the wire).  The port's mesh has only
-the data axis (P10), so no variable keeps a per-shard collective
-(:func:`partition_drop_reason` gives the JAX rule).  Under
+opt-in; both put the same bits on the wire).  Under
 ``AUTODIST_FLIGHTREC=legs`` the step stamps a leg cursor where the JAX
 package's stamps one (:func:`leg_stamp_points`: each bucket's reduce, the
 guard roll-up, the ZeRO-1 or tree update, each parameter gather, a
@@ -143,8 +151,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from autodist_tpu_torch.const import ENV, MESH_AXIS_DATA, P10, not_ported
+from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, MESH_AXIS_MODEL,
+                                      P10, not_ported)
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
@@ -158,7 +168,7 @@ from autodist_tpu_torch.kernel.synchronization.bucketing import (
     unpack_bucket)
 from autodist_tpu_torch.kernel.synchronization.compressor import (
     Compressor, get_compressor)
-from autodist_tpu_torch.mesh import data_rows
+from autodist_tpu_torch.mesh import data_rows, manual_axes
 from autodist_tpu_torch.numerics import guard as guard_mod
 from autodist_tpu_torch.numerics import loss_scale as ls_mod
 from autodist_tpu_torch.numerics.guard import NUMERICS_KEY
@@ -179,11 +189,17 @@ def uses_explicit_path(compiled, skip_ps: bool = False) -> bool:
     """Does the plan need the explicit bucketed step?  A compressor,
     ZeRO-1 (``reduce_scatter``), a non-zero ``bucket_bytes``, an explicit
     ``pipeline``/``ring``/``full`` schedule, ``hier``, and fused groups
-    with a group to fuse do.  ``skip_ps``: would the JAX package lower
-    the plan on its explicit path (it runs PS plans on its GSPMD step, so
-    they give no reason)?"""
+    with a group to fuse do, and so does a variable sharded over
+    ``model`` (unpadded: the sharding the step keeps; the JAX package
+    runs such a plan on its GSPMD step unless it has another reason).
+    ``skip_ps``: would the JAX package lower the plan on its explicit
+    path (it runs PS plans and model shardings on its GSPMD step, so they
+    give no reason)?"""
     if any(_explicit_reason(plan) for plan in compiled.var_plans.values()
            if not (skip_ps and plan.sync_kind == "PS")):
+        return True
+    if not skip_ps and any(plan.model_sharded
+                           for plan in compiled.var_plans.values()):
         return True
     return (any(plan.fused for plan in compiled.var_plans.values())
             and bool(compiled.fusable_groups()))
@@ -241,7 +257,45 @@ def partition_drop_reason(spec_axes, shape, dtype, axis_sizes, padded,
     return None
 
 
-def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
+def partition_support(gi, compiled, warn: bool = False
+                      ) -> Dict[str, Tuple[str, int, int]]:
+    """Which variables keep their ``model`` sharding on the bucketed step
+    (the JAX package's ``_partition_support``): ``{name: (axis name,
+    tensor dim, shard count)}``.  Every other sharded plan is replicated
+    for the reason :func:`partition_drop_reason` gives, with the JAX
+    package's warning when ``warn``.  Shardings over ``data`` (PS storage
+    on a mesh without ``model``, :meth:`~autodist_tpu_torch.strategy.
+    compiler.VarPlan.stored_at`) are the stored buckets' and not
+    considered here."""
+    sizes = dict(getattr(compiled.mesh, "shape", None) or {})
+    if int(sizes.get(MESH_AXIS_MODEL, 1)) <= 1:
+        return {}
+    infos = {v.name: v for v in gi.info.variables}
+    pads = compiled.pad_plans()
+    part: Dict[str, Tuple[str, int, int]] = {}
+    for name, plan in compiled.var_plans.items():
+        v = infos.get(name)
+        if not plan.param_spec or v is None:
+            continue
+        spec_axes = [(i, e) for i, e in enumerate(plan.param_spec)
+                     if e is not None]
+        why = partition_drop_reason(
+            spec_axes, v.shape, getattr(torch, v.dtype), sizes,
+            name in pads, get_compressor(plan.compressor or
+                                         "NoneCompressor"))
+        if why is not None:
+            if warn:
+                warnings.warn(
+                    f"explicit sync path: replicating {name} ({why}); its "
+                    "partitioning is dropped for this program")
+            continue
+        (dim, axis_name), = spec_axes
+        part[name] = (axis_name, dim, int(sizes[axis_name]))
+    return part
+
+
+def plan_step_buckets(gi, compiled, d: int,
+                      part: Optional[Dict] = None) -> List[Bucket]:
     """The step's buckets: every synced variable whose compressor composes
     with flat buckets, in catalog order, keyed by (mode, dtype,
     compressor, group), capped by the largest ``bucket_bytes`` of the
@@ -249,12 +303,15 @@ def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
     stored 1/N fill buckets of their own (``Bucket.stored``), at ``d`` 1
     too, where nothing is sharded, so that a checkpoint's bucket layout
     does not depend on the data size (but for a variable the JAX rule
-    keeps replicated at ``d``, ``VarPlan.stored_at``)."""
+    keeps replicated at ``d``, ``VarPlan.stored_at``).  The variables that
+    keep a ``model`` sharding (``part``, :func:`partition_support`) take
+    the per-shard tier instead."""
+    part = partition_support(gi, compiled) if part is None else part
     entries = []
     cap = 0
     for v in gi.info.variables:
         plan = compiled.var_plans.get(v.name)
-        if plan is None:
+        if plan is None or v.name in part:
             continue
         comp = plan.compressor or "NoneCompressor"
         if bucket_drop_reason((), False, comp) is not None:
@@ -266,6 +323,16 @@ def plan_step_buckets(gi, compiled, d: int) -> List[Bucket]:
         cap = max(cap, plan.bucket_bytes)
     return assign_buckets(entries, bucket_bytes=cap or DEFAULT_BUCKET_BYTES,
                           shard_divisor=max(d, 1))
+
+
+def shard_shape(shape, info) -> Tuple[int, ...]:
+    """``shape`` with the sharded dim of ``info`` (a
+    :func:`partition_support` entry, or None) cut to one shard."""
+    shape = list(shape)
+    if info is not None:
+        _, dim, n = info
+        shape[dim] //= n
+    return tuple(shape)
 
 
 def _mean_over(x: torch.Tensor, d: int, group) -> torch.Tensor:
@@ -311,7 +378,8 @@ def plan_step(gi, compiled) -> StepPlan:
     from this port's bucket plan."""
     d = compiled.mesh.data_size
     plans = compiled.var_plans
-    buckets = plan_step_buckets(gi, compiled, d)
+    part = partition_support(gi, compiled)
+    buckets = plan_step_buckets(gi, compiled, d, part)
     bucketed = {n for b in buckets for n in b.names}
     rs_buckets = [b for b in buckets if b.mode == MODE_REDUCE_SCATTER]
     num_slices = int(getattr(compiled, "num_slices", 1) or 1)
@@ -343,7 +411,8 @@ def plan_step(gi, compiled) -> StepPlan:
                      if v.trainable and v.name in plans
                      and v.name not in bucketed
                      and _meta_state(get_compressor(plans[v.name].compressor),
-                                     v.shape, v.dtype) is not None]
+                                     shard_shape(v.shape, part.get(v.name)),
+                                     v.dtype) is not None]
     stateful_buckets = [b.key for b in buckets if _meta_state(
         get_compressor(b.compressor), (b.padded_total,), b.dtype) is not None]
     sync_keys = stateful_vars + stateful_buckets \
@@ -443,7 +512,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     tree_names = tuple(n for n in names if n not in rs_names)
     optimizer, has_aux = gi.optimizer, gi.has_aux
 
-    # -- the per-variable tier: non-bucketable compressors ------------------
+    shapes = {v.name: (tuple(v.shape), v.dtype) for v in gi.info.variables}
+    # -- the per-variable tier: non-bucketable compressors and the variables
+    # sharded over model (each rank reduces its shard over data) ------------
+    part = partition_support(gi, compiled)
+    m, mgroup, mrank = mesh.model_size, mesh.model_group, mesh.model_rank
+    model_shards = {n: (dim, k, mrank) for n, (_, dim, k) in part.items()}
     pervar = {n: get_compressor(plans[n].compressor) for n in names
               if n in plans and n not in bucketed}
     for n in pervar:
@@ -528,6 +602,10 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 "gradient compression; the explicit compressor path runs "
                 "fully synchronous — staleness/proxy settings are ignored")
         else:
+            if any(plans[n].staleness or plans[n].local_replication
+                   for n in part):
+                raise not_ported("bounded staleness or proxies of a "
+                                 "variable sharded over model", P10)
             stale = stale_sync.StaleSync(compiled, rs_buckets, chunk_of,
                                          gather_full)
     proxied = set(stale.proxied_keys) if stale is not None else set()
@@ -565,11 +643,21 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     def shard_params(params):
         """``params`` (placed) with each stored member cut to this rank's
-        part, a flat tensor that does not require grad; a leaf already
-        cut is kept."""
-        if not stored:
+        part, a flat tensor, and each variable sharded over ``model`` to
+        this rank's shard, neither requiring grad; a leaf already cut is
+        kept."""
+        if not stored and not part:
             return params
         leaves = dict(flatten(params))
+        for n, (_, dim, k) in part.items():
+            x = leaves[n].detach()
+            if tuple(x.shape) == shapes[n][0]:
+                x = coll.shard_of(x, k, mrank, dim).clone()
+            elif tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
+                raise ValueError(
+                    f"{n}: shape {tuple(x.shape)} is neither the variable "
+                    f"{shapes[n][0]} nor this rank's model shard")
+            leaves[n] = x
         for b in stored:
             for n, v, (a, e) in zip(b.names, b.vars, spans(b)):
                 x = leaves[n].detach().reshape(-1)
@@ -589,11 +677,16 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         other leaf as it is.  ``lend``: the stored parts borrow their
         values' storage in the gathered vector until :func:`reclaim`, so
         that a rank does not hold its chunk twice while the compute copy
-        lives (the peak of the step)."""
-        if not stored:
+        lives (the peak of the step).  A variable sharded over ``model``
+        is gathered over the model group into its full tensor."""
+        if not stored and not part:
             return params
         leaves = dict(flatten(params))
         compute = dict(leaves)
+        for n, (_, dim, _k) in part.items():
+            with sync_span(f"model_gather/{n}"):
+                full = coll.gather_shards(leaves[n].detach(), mgroup, dim)
+            compute[n] = full.requires_grad_(grad and n in trainable)
         for b in starts:
             with sync_span(f"param_gather/{b.key}"):
                 full = gather_full(b, stored_chunk(b, leaves))
@@ -620,6 +713,12 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
     num_active = sp.guard
+    # the roll-up spans every rank on a model axis (a shard's partial
+    # differs across the model group), else the data group
+    if m > 1:
+        guard_n, guard_group = dist.get_world_size(), dist.group.WORLD
+    else:
+        guard_n, guard_group = d, (group if d > 1 else None)
     if num_cfg is not None and num_cfg.guard and stale is not None:
         warnings.warn(
             "numerics guard disabled: bounded-staleness/proxy sync state "
@@ -686,8 +785,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         for v in gi.info.variables:
             if v.name in pervar:
                 st = pervar[v.name].init_state(torch.zeros(
-                    v.shape, dtype=getattr(torch, v.dtype),
-                    device=mesh.device))
+                    shard_shape(v.shape, part.get(v.name)),
+                    dtype=getattr(torch, v.dtype), device=mesh.device))
                 if st is not None:
                     state[v.name] = st
         if stale is not None:
@@ -714,7 +813,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     def export_params(params, sync_state):
         """The parameters' true values, logical (a gather when variables
         are stored 1/N or proxies lag)."""
-        if not proxied and not stored:
+        if not proxied and not stored and not part:
             return params
         leaves = true_leaves(params, sync_state)
         return unflatten([(n, leaves[n]) for n, _ in flatten(params)])
@@ -731,6 +830,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 out[key] = tree_map(lambda x: (coll.all_gather(x, group)
                                                if d > 1 else x)
                                     .reshape((d,) + tuple(x.shape)), value)
+                if key in part:     # [data, *shard] -> [data, *full]
+                    out[key] = tree_map(lambda x: coll.gather_shards(
+                        x, mgroup, part[key][1] + 1), out[key])
         if stale is not None:
             out.update(stale.export_state(sync_state, dict(flatten(params))))
         return out
@@ -765,13 +867,38 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     def export_opt_state(opt_state):
         """The LOGICAL state: ZeRO-1 shards gathered to full bucket vectors
         (``padded_total`` long, in chunk order), copies on the device."""
+        tree = opt_state["vars"] if rs_buckets else opt_state
+        tree = gt.map_model_leaves(
+            gt.copy_tree(tree), model_shards,
+            lambda x, n, dim: coll.gather_shards(x, mgroup, dim))
         if not rs_buckets:
-            return gt.copy_tree(opt_state)
+            return tree
         zero1 = {k: v.detach().clone() if isinstance(v, torch.Tensor)
                  else {key: gather_full(by_key[key], s).detach().clone()
                        for key, s in v.items()}
                  for k, v in opt_state["zero1"].items()}
-        return {"vars": gt.copy_tree(opt_state["vars"]), "zero1": zero1}
+        return {"vars": tree, "zero1": zero1}
+
+    def shard_opt_state(opt_state):
+        """``opt_state`` with each slot of a variable sharded over
+        ``model`` cut to this rank's shard where it is logical; a slot
+        already cut is kept."""
+        if not part:
+            return opt_state
+
+        def cut(x, n, dim):
+            if tuple(x.shape) == shapes[n][0]:
+                return coll.shard_of(x, part[n][2], mrank, dim).clone()
+            if tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
+                raise ValueError(
+                    f"{n}: optimizer slot of shape {tuple(x.shape)} is "
+                    f"neither the variable {shapes[n][0]} nor this rank's "
+                    f"model shard")
+            return x
+        if rs_buckets:
+            return dict(opt_state, vars=gt.map_model_leaves(
+                opt_state["vars"], model_shards, cut))
+        return gt.map_model_leaves(opt_state, model_shards, cut)
 
     # -- the step ---------------------------------------------------------------
     warned: List[int] = []
@@ -809,10 +936,11 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 issue_fns, quant_fns=qfns,
                 quant_states={k: sync_state[k] for k in qfns},
                 stamp=lambda key, slot: stamp("reduce", key, slot))
-        if local is batch:
-            return run()
-        with data_rows(group, d):
-            return run()
+        with manual_axes():
+            if local is batch:
+                return run()
+            with data_rows(group, d):
+                return run()
 
     def step(params, opt_state, sync_state, batch):
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
@@ -821,8 +949,13 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         loss, aux, grads, pipe_red, pipe_state, pipe_sat = gradients(
             materialize(params, lend=True), sync_state, batch)
         reclaim(params)
+        for n, (_, dim, k) in part.items():
+            # the gradient of the full tensor (the seq sum applied), cut
+            # to this rank's shard: slicing commutes with the data mean
+            grads[n] = coll.shard_of(grads[n], k, mrank, dim).clone(
+                memory_format=torch.contiguous_format)
 
-        health = guard_mod.HealthAccumulator(d, fused=True) \
+        health = guard_mod.HealthAccumulator(guard_n, fused=True) \
             if num_active else None
         reduced: Dict[str, torch.Tensor] = {}
         new_state: Dict[str, Any] = dict(pipe_state)
@@ -833,7 +966,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             if n in sync_state:
                 new_state[n] = st
             if health is not None:
+                # a shard counts once over the model group
                 health.add(n, grads[n], finite_src=g,
+                           shard_axes_size=part[n][2] if n in part else 1,
                            saturation=guard_mod.wire_saturation(
                                g, ls_mod.wire_dtype_of(comp.name)))
         for b in buckets:
@@ -887,7 +1022,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                                        device=mesh.device)
             with sync_span("guard_rollup"):
                 all_finite, gnorm, per_bucket, inv_scale, mult = \
-                    guard_mod.rollup(health, group if d > 1 else None, loss,
+                    guard_mod.rollup(health, guard_group, loss,
                                      scale, num_cfg.clip_norm)
             ok = bool(all_finite)       # the skip gate's one host sync
         if ok:
@@ -977,7 +1112,6 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 if n not in keep:
                     leaves[n].copy_(arr)
 
-    shapes = {v.name: (tuple(v.shape), v.dtype) for v in gi.info.variables}
     return gt.DistributedStep(
         step_fn=step, init_fn=init_fn,
         eval_fn=gt.make_eval_step(gi.loss_fn, has_aux, extra_metrics_fn),
@@ -990,5 +1124,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         export_opt_state=export_opt_state, export_params=export_params,
         export_sync_state=export_sync_state,
         import_sync_state=import_sync_state,
-        stored_shapes={n: shapes[n] for b in stored for n in b.names},
-        shard_params=shard_params, schedule_ir=ir)
+        stored_shapes={**{n: shapes[n] for b in stored for n in b.names},
+                       **{n: shapes[n] for n in part}},
+        shard_params=shard_params, model_shards=model_shards,
+        shard_opt_state=shard_opt_state, schedule_ir=ir)

@@ -639,13 +639,21 @@ def fact_from_planlite(name: str, plan: Any) -> PlanFact:
 
 
 def fact_from_varplan(plan: Any, var_info: Any, data: int = 1) -> PlanFact:
-    """Project a compiler ``VarPlan`` (+ its ``VarInfo``).  The port's
-    mesh has only the data axis, so a plan is partitioned exactly when
-    its variable is stored 1/N at data size ``data``
-    (``VarPlan.stored_at``), padded when its storage dim does not
-    divide."""
-    stored = (int(data) > 1 and getattr(plan, "storage_axis", None)
-              is not None and plan.stored_at(int(data)))
+    """Project a compiler ``VarPlan`` (+ its ``VarInfo``).  A plan is
+    partitioned when its ``param_spec`` shards a dim (over ``model``),
+    padded when that sharding pads (the JAX package's projection); on a
+    mesh without ``model`` the spec is replicated and a plan is
+    partitioned exactly when its variable is stored 1/N at data size
+    ``data`` (``VarPlan.stored_at``, JAX's ``param_spec`` over
+    ``data``), padded when its storage dim does not divide."""
+    spec = tuple(getattr(plan, "param_spec", ()) or ())
+    if spec:
+        partitioned = True
+        padded = getattr(plan, "pad_axis", None) is not None
+    else:
+        partitioned = (int(data) > 1 and getattr(plan, "storage_axis", None)
+                       is not None and plan.stored_at(int(data)))
+        padded = bool(partitioned and plan.storage_dim % int(data))
     return PlanFact(
         name=plan.var_name, shape=tuple(var_info.shape),
         dtype=str(var_info.dtype), sync_kind=plan.sync_kind,
@@ -656,8 +664,7 @@ def fact_from_varplan(plan: Any, var_info: Any, data: int = 1) -> PlanFact:
         overlap=getattr(plan, "overlap", overlap_mod.OVERLAP_AUTO) or
         overlap_mod.OVERLAP_AUTO,
         staleness=int(getattr(plan, "staleness", 0) or 0),
-        partitioned=bool(stored),
-        padded=bool(stored and plan.storage_dim % int(data)),
+        partitioned=bool(partitioned), padded=bool(padded),
         hier=bool(getattr(plan, "hier", False)))
 
 

@@ -2,15 +2,19 @@
 
 Port of the JAX package's ``mesh.py:39-111``.  Axes keep the canonical
 names and order (``pipe, data, expert, seq, model``, outermost first).
-The ``data`` and ``seq`` axes span the ``torch.distributed`` world: one
-rank per (replica, sequence chunk), NCCL between cards and gloo between
-CPU processes, built with ``init_device_mesh`` over the axes wider than 1
-in canonical order, so the ranks of one ``seq`` group are adjacent (rank
-``d·S + s``).  A ``seq`` axis cuts each sequence into ``S`` chunks: a
-rank computes on its chunk inside :func:`seq_chunk`, and the attention
-functions of :mod:`autodist_tpu_torch.parallel` exchange K/V over the
-axis's group.  The ``pipe``, ``expert`` and ``model`` axes come with the
-rest of slice P10 and raise here.
+The ``data``, ``seq`` and ``model`` axes span the ``torch.distributed``
+world: one rank per (replica, sequence chunk, model shard), NCCL between
+cards and gloo between CPU processes, built with ``init_device_mesh``
+over the axes wider than 1 in canonical order, so the ranks of one
+``model`` group are adjacent, then those of one ``seq`` group (rank
+``(d·S + s)·M + m``).  A ``seq`` axis cuts each sequence into ``S``
+chunks: a rank computes on its chunk inside :func:`seq_chunk`, and the
+attention functions of :mod:`autodist_tpu_torch.parallel` exchange K/V
+over the axis's group.  A ``model`` axis shards the variables a
+partitioner names (``strategy/compiler.py``): the ranks of one model
+group see the same rows of the batch (it is cut over ``data`` only) and
+each holds its shard of every such variable.  The ``pipe`` and
+``expert`` axes come with the rest of slice P10 and raise here.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ AXIS_ORDER = (MESH_AXIS_PIPE, MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
 @dataclass
 class Mesh:
     """Axis sizes in canonical order, the device every rank computes on,
-    and the ``DeviceMesh`` over the data and seq axes wider than 1 (None
-    when neither is)."""
+    and the ``DeviceMesh`` over the data, seq and model axes wider than 1
+    (None when none is)."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -48,6 +52,10 @@ class Mesh:
     @property
     def seq_size(self) -> int:
         return self.shape.get(MESH_AXIS_SEQ, 1)
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get(MESH_AXIS_MODEL, 1)
 
     def _has(self, axis: str) -> bool:
         return self.device_mesh is not None and \
@@ -76,6 +84,20 @@ class Mesh:
         """Which chunk of each sequence this rank holds."""
         return self.device_mesh.get_local_rank(MESH_AXIS_SEQ) \
             if self._has(MESH_AXIS_SEQ) else 0
+
+    @property
+    def model_group(self):
+        """The model axis's process group: this rank and the ranks holding
+        the other shards of its model-sharded variables (None at size
+        1)."""
+        return self.device_mesh.get_group(MESH_AXIS_MODEL) \
+            if self._has(MESH_AXIS_MODEL) else None
+
+    @property
+    def model_rank(self) -> int:
+        """Which shard of each model-sharded variable this rank holds."""
+        return self.device_mesh.get_local_rank(MESH_AXIS_MODEL) \
+            if self._has(MESH_AXIS_MODEL) else 0
 
 
 #: ``(group, size)`` while a step computes the loss on this rank's rows
@@ -138,6 +160,31 @@ def current_seq_chunk() -> Optional[SeqChunk]:
     return _SEQ_CHUNK.get()
 
 
+#: the axes the code inside :func:`manual_axes` runs per rank over
+_MANUAL: contextvars.ContextVar = contextvars.ContextVar("manual_axes",
+                                                        default=frozenset())
+
+
+@contextlib.contextmanager
+def manual_axes(axes=AXIS_ORDER):
+    """Marks the code inside as running per rank over ``axes``: the twin
+    of the JAX package's manual axes inside ``shard_map`` (the explicit
+    step runs the loss so, every model-sharded variable gathered).
+    :func:`~autodist_tpu_torch.ops.flash_attention.make_flash_attention`
+    reads it through :func:`current_manual_axes`: inside, K1 runs on this
+    rank's full heads instead of sharding them over ``model``."""
+    token = _MANUAL.set(_MANUAL.get() | frozenset(axes))
+    try:
+        yield
+    finally:
+        _MANUAL.reset(token)
+
+
+def current_manual_axes() -> frozenset:
+    """The axes of the enclosing :func:`manual_axes` (empty outside)."""
+    return _MANUAL.get()
+
+
 def _canonical_axes(axes: Dict[str, int]) -> Dict[str, int]:
     ordered = {name: axes[name] for name in AXIS_ORDER if name in axes}
     for name, size in axes.items():
@@ -174,7 +221,8 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
             resource_spec is not None and resource_spec.mesh_hint) else {}
     axes = dict(axes)
     wide = {ax: n for ax, n in axes.items()
-            if ax not in (MESH_AXIS_DATA, MESH_AXIS_SEQ) and n > 1}
+            if ax not in (MESH_AXIS_DATA, MESH_AXIS_SEQ, MESH_AXIS_MODEL)
+            and n > 1}
     if wide:
         raise not_ported(f"mesh axes {wide}", "P10 — non-data mesh axes")
     specified = math.prod(axes.values()) if axes else 1
@@ -187,9 +235,10 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
     axes = _canonical_axes(axes)
     dev = rank_device(device)
     device_mesh = None
-    # a mesh may lack an axis; data before seq, so seq groups are adjacent
-    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_SEQ)
-                 if axes.get(ax, 1) > 1)
+    # a mesh may lack an axis; canonical order, so the ranks of a model
+    # group are adjacent, then those of a seq group
+    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_SEQ,
+                               MESH_AXIS_MODEL) if axes.get(ax, 1) > 1)
     if dims:
         from torch.distributed.device_mesh import init_device_mesh
 

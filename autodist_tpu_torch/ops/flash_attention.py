@@ -310,13 +310,44 @@ def flash_attention_with_lse(q, k, v, causal: bool = False):
     return FlashAttention.apply(q, k, v, causal)
 
 
-def make_flash_attention() -> Callable:
-    """The flash ``attn_fn``.  Data parallelism needs nothing of the kernel
-    (each rank attends over its own rows); on a seq axis the ring and
-    Ulysses functions of :mod:`autodist_tpu_torch.parallel` call it on
-    blocks, and ``build_mesh`` refuses the model axis that would shard
-    heads (slice P10)."""
-    return flash_attention
+def make_flash_attention(mesh=None) -> Callable:
+    """The flash ``attn_fn``, the twin of the JAX package's
+    ``make_flash_attention(mesh)`` (``ops/flash_attention.py:348-402``).
+
+    Without a mesh, or on a mesh whose ``model`` axis is 1 or does not
+    divide the heads, it is :func:`flash_attention` itself.  With a
+    ``model`` axis of size M dividing H, called outside a step, q, k and v
+    (replicated over the model group, ``[B, T, H, D]``) are cut to this
+    rank's ``H/M`` heads, K1 runs on them and the output is gathered over
+    the model group on the heads dim; the backward runs K2 and K3 on the
+    rank's heads.  For these replicated values the gather's backward takes
+    this rank's heads of the cotangent and the cut's backward gathers the
+    heads' gradients (``collectives.gather_replicated`` /
+    ``slice_replicated``), so q, k and v get on every rank the gradient
+    the call without a mesh gives.  Inside a step (the loss under
+    :func:`~autodist_tpu_torch.mesh.manual_axes`, the JAX package's
+    already-manual axes) K1 runs on the rank's full heads.  ``data`` needs
+    nothing (each rank attends over its own rows); the ``seq`` axis
+    composes with the ring and Ulysses functions of
+    :mod:`autodist_tpu_torch.parallel`, which call this kernel on
+    blocks."""
+    if mesh is None or getattr(mesh, "model_size", 1) <= 1:
+        return flash_attention
+    from autodist_tpu_torch.const import MESH_AXIS_MODEL
+    from autodist_tpu_torch.kernel.synchronization import collectives as coll
+    from autodist_tpu_torch.mesh import current_manual_axes
+
+    m = mesh.model_size
+
+    def attn_fn(q, k, v, causal: bool = False):
+        if MESH_AXIS_MODEL in current_manual_axes() or q.shape[2] % m:
+            return flash_attention(q, k, v, causal)
+        group = mesh.model_group
+        q, k, v = (coll.slice_replicated(x, group, 2) for x in (q, k, v))
+        return coll.gather_replicated(flash_attention(q, k, v, causal),
+                                      group, 2)
+
+    return attn_fn
 
 
 #: wrapper calls that launched their kernel since the last reset (CPU

@@ -31,7 +31,8 @@ from autodist_tpu_torch.const import P12, not_ported
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
-                                                         local_rows)
+                                                         local_rows,
+                                                         map_model_leaves)
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
 from autodist_tpu_torch.telemetry import flightrec
 from autodist_tpu_torch.telemetry.timeline import StepRecorder
@@ -169,7 +170,8 @@ class DistributedSession:
     def sharded_params(self):
         """The JAX session's name for :attr:`device_params`: the device
         tree the step holds, with this rank's shard of each variable
-        stored 1/N."""
+        stored 1/N and of each variable sharded over ``model`` (its
+        sharded dim cut to 1/M)."""
         return self._params
 
     @property
@@ -233,7 +235,8 @@ class DistributedSession:
         a fresh one, zero residuals).  ``params`` are the true values; a
         proxy's compute copy takes the stale state's ``cache``."""
         self._params = self._step.place_params(params)
-        self._opt_state = _place(opt_state, self._step.device)
+        self._opt_state = self._step.shard_opt_state(
+            _place(opt_state, self._step.device))
         self._sync_state = self._adopt(sync_state)
         self._step_count = step
 
@@ -267,7 +270,7 @@ class DistributedSession:
             leaf.requires_grad_(name in self._step.trainable
                                 and name not in self._step.stored_shapes)
         self._params = params
-        self._opt_state = opt_state
+        self._opt_state = self._step.shard_opt_state(opt_state)
         self._sync_state = (
             self._step.init_sync_state(params) if sync_state is None
             else self._step.import_sync_state(sync_state, params))
@@ -276,8 +279,15 @@ class DistributedSession:
     def restore_targets(self):
         """``(params, opt_state)`` of ``device="meta"`` tensors with the
         shapes and dtypes :meth:`export_state` gives: the LOGICAL layout,
-        each ZeRO-1 bucket's state vector ``padded_total`` long."""
-        opt = self._opt_state
+        each ZeRO-1 bucket's state vector ``padded_total`` long, each
+        model-sharded variable and its slots whole."""
+        shards = self._step.model_shards
+
+        def full(x, name, dim):
+            shape = list(x.shape)
+            shape[dim] *= shards[name][1]
+            return torch.empty(shape, dtype=x.dtype, device="meta")
+        opt = map_model_leaves(self._opt_state, shards, full)
         if self.zero1_buckets:
             sizes = {b.key: b.padded_total for b in self.zero1_buckets}
             opt = {"vars": tree_map(_meta, opt["vars"]),

@@ -66,7 +66,8 @@ def plan_table(compiled) -> str:
             extras.append("sparse")
         if p.hier:
             extras.append("hier")
-        storage = "1/N" if p.stored_at(data) else "replicated"
+        storage = "1/N" if p.stored_at(data) else (
+            "model" if p.model_sharded else "replicated")
         lines.append(f"{name:40s} {p.sync_kind:10s} {p.sync_mode:15s} "
                      f"{storage:10s} {' '.join(extras)}")
     return "\n".join(lines) + "\n"

@@ -172,7 +172,10 @@ Phases, each printing one JSON line:
    the session and a second build; an illegal plan (a variable left
    unsynced) refused with ``StrategyValidationError`` and no launch; a
    4-byte ``all_reduce``'s launch latency on a one-rank NCCL group beside
-   the cost model's ``COLLECTIVE_ALPHA``.  The ring's 4 ranks (phase 12)
+   the cost model's ``COLLECTIVE_ALPHA``, and in units of a trivial
+   kernel launch timed just before by the same clock, which must lie
+   within 3x of ``ALPHA_PER_LAUNCH`` (a slow host moves both readings;
+   a collective grown on the card moves the ratio).  The ring's 4 ranks (phase 12)
    then build ``AutoStrategy(search="beam")`` for 4 cards, validate,
    train 1 + 2 steps with the IR's launches and end bit-identical;
 10c. the schedule tuner and its tiers (``tune``), at full width: (a)
@@ -288,6 +291,25 @@ Phases, each printing one JSON line:
    card: not a user's rate).  Then the ``long_context`` twin at
    ``--data-shards 1 --seq-shards 4`` and its own other defaults (seq 2048, head dim 32:
    K1–K3 at D = 32, 8 each a step);
+12e. the ``model`` mesh axis, on the same 4 ranks (no new group), 1 + 1
+   steps each, ``PartitionedPS()`` + ``fusable_adam(1e-3)`` + the clip
+   at full width: ``tp_ps`` on ``{"data": 2, "model": 2}`` (default
+   attention: K1–K3 12 each a step a rank, on the rank's full heads
+   inside the step) and ``tp_seq``, Program A's twin, on ``{"model": 2,
+   "seq": 2}`` with ``make_ring_attention`` (2 ring blocks x 12 layers:
+   24 each); K4 and K5 as the session's schedule IR predicts (its
+   per-variable legs included); every rank ends on one digest of the
+   gathered parameters, holds exactly half of the logical bytes of its
+   model-sharded parameters and moments (the plan's count printed beside
+   the measured bytes), and rank 0's losses and global norms are within
+   rtol 1e-4 of a one-card ``PartitionedPS()`` run of the same weights, batch and
+   optimizer (``tp_reference``, in the main process before the ring);
+   ms per step and peak memory per rank over its entry.  Then
+   ``flash_model``: ``make_flash_attention(mesh)`` on ``{"model": 4}``
+   at [8, 1024, 12, 64], causal: each rank launches K1 once on its 3
+   heads and K2/K3 once in the backward of a fixed cotangent; the
+   gathered output and dq/dk/dv equal the unsharded one-card K1–K3
+   results bit for bit (else within rtol/atol 1e-5, reported);
 12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
    of ``chip_smoke.py --replica`` processes (the full-width paged
    server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
@@ -382,7 +404,9 @@ which parameters differed) and a count of the runs that diverged; it
 exits 1 when one did, and stops at any other failure.
 
 ``python3 chip_smoke.py --collective-alpha`` measures only the launch
-latency of one collective (the cost model's ``COLLECTIVE_ALPHA``).
+latency of one collective (the cost model's ``COLLECTIVE_ALPHA``) and of
+a trivial kernel, and their ratio, which the ``auto`` phase's gate
+holds.
 
 ``python3 chip_smoke.py --resilience`` builds the kernels and runs only
 the ``resilience``, ``elastic`` (the ring's ranks in mode ``elastic``:
@@ -506,6 +530,22 @@ SEQ_CONFIGS = ("seq_ring", "seq_ulysses")
 SEQ_LAUNCHES = {"seq_ring": 48, "seq_ulysses": 12}
 #: rank 0's seq losses against phase 5's one-card flash run's
 SEQ_LOSS_RTOL = 1e-4
+#: the model axis's ring configurations (after ``long_context``): mesh,
+#: K1–K3 each per step per rank (12 layers, x 2 ring blocks on seq), the
+#: steps, and rank 0's losses and global norms against the one-card
+#: ``tp_reference``'s
+TP_CONFIGS = ("tp_ps", "tp_seq")
+TP_AXES = {"tp_ps": {"data": 2, "model": 2},
+           "tp_seq": {"model": 2, "seq": 2}}
+TP_FLASH = {"tp_ps": 12, "tp_seq": 24}
+TP_WARMUP, TP_TIMED = 1, 1
+TP_LOSS_RTOL = 1e-4
+#: ``make_flash_attention(mesh)`` over the model axis: the mesh, the
+#: shape (``transformer_lm()``'s attention at batch 8), the tolerance
+#: that holds when the gathered result is not bit-equal to one card's
+FLASH_MODEL = "flash_model"
+FLASH_MODEL_AXES = {"model": 4}
+FLASH_MODEL_TOL = 1e-5
 #: the ``long_context`` twin on the ring ranks, and its K1–K3 a step (2
 #: layers x 4 ring blocks) over its 3 warm-up, 1 + 19 timed and 1 closing
 #: steps (``benchmark.common.run_benchmark``'s defaults)
@@ -3632,17 +3672,23 @@ def phase_auto(torch, ps_out):
     del ad, params, gi
     torch.cuda.empty_cache()
     alpha = collective_alpha(torch)
+    # the cost model's constant beside the host reading, not gated: a
+    # host clock over back-to-back calls reads the host's speed too
     ratio = alpha["host_s_per_call"] / cm.COLLECTIVE_ALPHA
-    if not 1 / ALPHA_FACTOR <= ratio <= ALPHA_FACTOR:
+    gated = alpha["per_launch"] / ALPHA_PER_LAUNCH
+    if not 1 / ALPHA_FACTOR <= gated <= ALPHA_FACTOR:
         raise AssertionError(
-            f"auto: this card's collective latency "
-            f"{alpha['host_s_per_call']:.3e} s is {ratio:.2f}x the cost "
-            f"model's COLLECTIVE_ALPHA {cm.COLLECTIVE_ALPHA:.3e} s")
+            f"auto: one collective costs {alpha['per_launch']:.2f} kernel "
+            f"launches on this card ({alpha['host_s_per_call']:.3e} s over "
+            f"{alpha['launch_s_per_call']:.3e} s), {gated:.2f}x the "
+            f"{ALPHA_PER_LAUNCH} of earlier runs")
     return {"choices": choices, "trained": trained,
             "fingerprints": fps, "refused_rules": refused,
             "collective_alpha": {**alpha,
                                  "cost_model_alpha_s": cm.COLLECTIVE_ALPHA,
-                                 "ratio": ratio},
+                                 "ratio": ratio,
+                                 "per_launch_constant": ALPHA_PER_LAUNCH,
+                                 "gated_ratio": gated},
             "wall_s": time.perf_counter() - t_phase}
 
 
@@ -3771,6 +3817,203 @@ def _long_context_twin(torch):
     return {"args": list(LONG_CONTEXT_ARGS), "seconds": seconds,
             "tokens_per_s": rate, "launches": launches,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _tp_session(spec, axes=None, mesh=None):
+    """``PartitionedPS()`` with ``fusable_adam(1e-3)`` and the clip on
+    ``spec`` through the facade (on ``axes``; one card without): the
+    session and the fixed batch of 8 rows."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PartitionedPS
+
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(strategy_builder=PartitionedPS(), mesh_axes=axes)
+    with ad.scope():
+        ad.capture(params=lm_params(spec), optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   numerics={"clip_norm": CLIP_NORM})
+    return (ad.create_distributed_session(mesh=mesh),
+            spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED))
+
+
+def phase_tp_reference(torch):
+    """The one-card run the model axis's ring configurations are held to:
+    ``PartitionedPS()`` + ``fusable_adam(1e-3)`` + the clip at full width,
+    the same weights and batch, 1 + 1 steps, K1–K5 as its schedule IR
+    predicts."""
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+
+    spec = transformer_lm()
+    _fresh_peak(torch)
+    sess, batch = _tp_session(spec)
+    want = _ir_predicted_launches(sess.schedule_ir,
+                                  spec.config["num_layers"])
+    losses, norms, step_s, launches = _checked_steps(
+        torch, "tp_reference", sess, batch, want, TP_WARMUP, TP_TIMED,
+        guarded=True)
+    del sess
+    torch.cuda.empty_cache()
+    return {"builder": "PartitionedPS", "losses": losses,
+            "global_norms": norms,
+            "ms_per_step": statistics.median(step_s) * 1e3,
+            "launches": launches, "launches_per_step": want}
+
+
+def _tp_bytes(torch, sess) -> dict:
+    """The bytes this rank holds of its model-sharded parameters and of
+    their Adam moments, beside the plan's count (each kept sharding's
+    logical bytes over the model size; two moments each); raises unless
+    they agree."""
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.kernel.graph_transformer import map_model_leaves
+
+    step = sess._step
+    infos = {v.name: v for v in sess._gi.info.variables}
+    m = sess.mesh.model_size
+    plan = sum(infos[n].byte_size for n, p in
+               step.compiled_strategy.var_plans.items()
+               if p.model_sharded) // m
+    logical = sum(infos[n].byte_size for n in step.model_shards)
+    held = sum(x.numel() * x.element_size()
+               for n, x in flatten(sess.device_params)
+               if n in step.model_shards)
+    moments = []
+    tree = sess.opt_state["vars"] if sess.zero1_buckets else sess.opt_state
+    map_model_leaves(tree, step.model_shards, lambda x, n, dim: moments.append(
+        x.numel() * x.element_size()))
+    out = {"sharded_vars": len(step.model_shards),
+           "logical_param_bytes": logical,
+           "plan_param_bytes_per_rank": plan,
+           "param_bytes_held": held,
+           "plan_moment_bytes_per_rank": 2 * plan,
+           "moment_bytes_held": sum(moments)}
+    if not (step.model_shards and held == plan == logical // m
+            and sum(moments) == 2 * plan):
+        raise AssertionError(f"model shards: {out}")
+    return out
+
+
+def _tp_train(torch, name):
+    """The ``tp_ps`` / ``tp_seq`` configuration on this rank (see the
+    module docstring): the session and its numbers; rank-identical
+    parameters are checked by the caller, the losses against
+    ``tp_reference`` by the main process."""
+    from autodist_tpu_torch.mesh import build_mesh
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.parallel import make_ring_attention
+
+    _fresh_peak(torch)
+    at_entry = torch.cuda.memory_allocated()
+    axes = TP_AXES[name]
+    mesh = build_mesh(axes)
+    spec = transformer_lm(attn_fn=make_ring_attention(mesh, inner="flash")) \
+        if "seq" in axes else transformer_lm()
+    sess, batch = _tp_session(spec, axes, mesh)
+    if {k: v for k, v in sess.mesh.shape.items() if v > 1} != axes:
+        raise AssertionError(f"{name}: mesh {sess.mesh.shape}")
+    held = _tp_bytes(torch, sess)
+    want = _ir_predicted_launches(sess.schedule_ir, TP_FLASH[name])
+    losses, norms, step_s, launches = _checked_steps(
+        torch, name, sess, batch, want, TP_WARMUP, TP_TIMED, guarded=True)
+    return sess, {
+        "mesh": dict(axes), "builder": "PartitionedPS",
+        "schedule_fingerprint": sess.schedule_fingerprint,
+        "losses": losses, "global_norms": norms, **held,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                             "(host-staged gathers and reductions)",
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_entry": at_entry,
+        "peak_over_entry": torch.cuda.max_memory_allocated() - at_entry,
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
+
+
+def _flash_model(torch) -> dict:
+    """``flash_model`` on this rank: ``make_flash_attention(mesh)`` on
+    :data:`FLASH_MODEL_AXES` at the training shape, causal, forward and
+    the backward of a fixed cotangent, against the unsharded K1–K3 on the
+    same inputs (one card, this process): equal bits, or within
+    :data:`FLASH_MODEL_TOL` (reported)."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    from autodist_tpu_torch.mesh import build_mesh
+
+    _fresh_peak(torch)
+    mesh = build_mesh(FLASH_MODEL_AXES)
+    if mesh.model_size != RING_RANKS:
+        raise AssertionError(f"{FLASH_MODEL}: mesh {mesh.shape}")
+    b, t, h, d = (TRAIN_SHAPE[k] for k in "BTHD")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+
+    def run(fn):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*qkv, True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        return [o.detach()] + [x.grad for x in qkv]
+
+    ref = run(fa.flash_attention)
+    _reset_all_counts()             # the wrapper's launches from here
+    t0 = time.perf_counter()
+    got = run(fa.make_flash_attention(mesh))
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    want = dict(dict.fromkeys(launches, 0), flash_fwd=1, flash_dq=1,
+                flash_dkv=1)
+    if launches != want:
+        raise AssertionError(f"{FLASH_MODEL}: launched {launches}, "
+                             f"expected {want}")
+    names = ("o", "dq", "dk", "dv")
+    equal = {n: bool(torch.equal(a, r)) for n, a, r in zip(names, got, ref)}
+    err = {n: float((a - r).abs().max()) for n, a, r in zip(names, got, ref)}
+    if not all(equal.values()):
+        for n, a, r in zip(names, got, ref):
+            torch.testing.assert_close(a, r, rtol=FLASH_MODEL_TOL,
+                                       atol=FLASH_MODEL_TOL, msg=n)
+    return {"mesh": FLASH_MODEL_AXES, "shape": [b, t, h, d],
+            "heads_per_rank": h // mesh.model_size, "causal": True,
+            "bit_equal_to_one_card": equal, "max_abs_err": err,
+            "tolerance_if_not_equal": FLASH_MODEL_TOL,
+            "fwd_bwd_wall_ms": wall * 1e3,
+            "wall_label": "4 ranks time-sharing one card over gloo "
+                          "(host-staged head gathers)",
+            "launches": launches, "launches_per_step": want}
+
+
+def check_tp(ring, ref, smi) -> dict:
+    """Rank 0's ``tp_ps`` / ``tp_seq`` losses and global norms (the
+    guard's roll-up over the model group) against ``tp_reference``'s at
+    :data:`TP_LOSS_RTOL`; emits each configuration's line and
+    ``flash_model``'s; returns K1–K5's launches by path."""
+    paths = {}
+    for config in TP_CONFIGS:
+        out = ring[config]
+        rels = {}
+        for key in ("losses", "global_norms"):
+            want = ref[key][:len(out[key])]
+            rels[key] = max(abs(a - b) / abs(b)
+                            for a, b in zip(out[key], want))
+            if not rels[key] <= TP_LOSS_RTOL:
+                raise AssertionError(
+                    f"{config}: rank 0's {key} {out[key]} differ from the "
+                    f"one-card PartitionedPS run's {want} by "
+                    f"{rels[key]:.2e}")
+        emit({"phase": config, "card": smi, "ranks": RING_RANKS,
+              "params_identical_across_ranks": True,
+              "one_card_losses": ref["losses"][:len(out["losses"])],
+              "one_card_global_norms":
+                  ref["global_norms"][:len(out["global_norms"])],
+              "max_rel_diff_vs_one_card": rels["losses"],
+              "max_rel_norm_diff_vs_one_card": rels["global_norms"],
+              "rtol": TP_LOSS_RTOL, **out})
+        paths[config + " (rank 0)"] = out
+    emit({"phase": FLASH_MODEL, "card": smi, "ranks": RING_RANKS,
+          **ring[FLASH_MODEL]})
+    paths[FLASH_MODEL + " (rank 0)"] = ring[FLASH_MODEL]
+    return paths
 
 
 def phase_train_parallax(torch, ps_out):
@@ -5196,10 +5439,23 @@ def ring_worker(rank: int, init: str, mode: str,
             stamp(name)
         out["long_context"] = _long_context_twin(torch)
         stamp("long_context")
+        _tp_ring(torch, out, stamp)
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _tp_ring(torch, out, stamp) -> None:
+    """The model axis's ring configurations and ``flash_model`` on this
+    rank, into ``out``."""
+    for name in TP_CONFIGS:
+        sess, out[name] = _tp_train(torch, name)
+        del sess
+        torch.cuda.empty_cache()
+        stamp(name)
+    out[FLASH_MODEL] = _flash_model(torch)
+    stamp(FLASH_MODEL)
 
 
 def _rendezvous() -> str:
@@ -5334,7 +5590,8 @@ def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
     if mode != "smoke":
         return results[0], wall, None
     _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
-                        + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS)
+                        + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS
+                        + TP_CONFIGS)
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
@@ -5359,7 +5616,8 @@ def _check_rank_results(results, configs) -> None:
             if res[config]["launches"] != results[0][config]["launches"]:
                 raise AssertionError(f"{config}: ranks launched "
                                      f"differently")
-    for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG} & set(configs):
+    for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG, *TP_CONFIGS} \
+            & set(configs):
         fps = [res[config]["schedule_fingerprint"] for res in results]
         if len(set(fps)) != 1:
             raise AssertionError(f"{config}: schedule fingerprints by rank "
@@ -6738,12 +6996,32 @@ def nvidia_smi() -> str:
 
 
 #: the launch-latency probe: warm-up and timed 4-byte all_reduce calls
+#: (and as many launches of a trivial kernel just before them)
 ALPHA_WARMUP, ALPHA_CALLS = 100, 2000
-#: how far (either way) the ``auto`` phase's reading may lie from the
-#: cost model's ``COLLECTIVE_ALPHA``: the model's drift threshold
-#: (``telemetry.calibration.DRIFT_THRESHOLD``); three machines read
-#: 0.85–1.73x of it
+#: how far (either way) the ``auto`` phase's gated reading may lie from
+#: its constant: the cost model's drift threshold
+#: (``telemetry.calibration.DRIFT_THRESHOLD``)
 ALPHA_FACTOR = 3.0
+#: the gated reading's constant: one collective's host cost over one
+#: trivial kernel launch's, both timed back to back in the same process
+#: (``collective_alpha``'s ``per_launch``), so that a host slower in
+#: every call moves both and the ratio holds: the median of three
+#: ``--collective-alpha`` readings, 4.92, 6.74 and 5.84 (38.5–38.7 µs
+#: over 5.7–7.8 µs; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+ALPHA_PER_LAUNCH = 5.84
+
+
+def _host_calls(torch, call) -> float:
+    """Seconds a call of ``call()`` over ``ALPHA_CALLS`` calls back to back
+    after ``ALPHA_WARMUP``, by the host clock up to a synchronize."""
+    for _ in range(ALPHA_WARMUP):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ALPHA_CALLS):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ALPHA_CALLS
 
 
 def collective_alpha(torch) -> dict:
@@ -6752,10 +7030,16 @@ def collective_alpha(torch) -> dict:
     to back after ``ALPHA_WARMUP``, timed by the host clock up to a
     synchronize (``host_s_per_call``: what a step that issues the
     collective waits) and by CUDA events (``device_s_per_call``).  The
-    cost model's ``COLLECTIVE_ALPHA`` is the host reading."""
+    cost model's ``COLLECTIVE_ALPHA`` is the host reading.  Just before,
+    the same count of launches of a trivial kernel (a 4-byte in-place
+    add) by the same clock (``launch_s_per_call``): ``per_launch``, the
+    collective's cost in launches, is what a slow host leaves as it is
+    and a collective grown several-fold on the card does not."""
     import torch.distributed as dist
 
     assert not dist.is_initialized()
+    x = torch.ones(1, device="cuda")
+    launch_s = _host_calls(torch, lambda: x.add_(1.0))
     dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
                             rank=0)
     try:
@@ -6776,7 +7060,8 @@ def collective_alpha(torch) -> dict:
     finally:
         dist.destroy_process_group()
     return {"calls": ALPHA_CALLS, "nbytes": 4,
-            "host_s_per_call": host_s, "device_s_per_call": device_s}
+            "host_s_per_call": host_s, "device_s_per_call": device_s,
+            "launch_s_per_call": launch_s, "per_launch": host_s / launch_s}
 
 
 def p6_lr_control(torch) -> int:
@@ -6992,6 +7277,8 @@ def main() -> int:
         "int8"]["card"]["int8_matmul"]}
     parallax_out = phase_train_parallax(torch, ps_out)
     emit({"phase": "train_parallax", "card": smi, **parallax_out})
+    tp_ref = phase_tp_reference(torch)
+    emit({"phase": "tp_reference", "card": smi, **tp_ref})
     for row in sync_rows:
         row["launches_by_path"] = {
             path: {"launches": out["launches"][row["name"]],
@@ -7102,6 +7389,13 @@ def main() -> int:
             "launches": tune_ring["launches"][row["name"]],
             "per_step": tune_ring["launches_per_step_after"][row["name"]]}
     seq_paths = check_seq(ring, train_out["losses"], smi)
+    tp_paths = check_tp(ring, tp_ref, smi)
+    for row in flash_rows + sync_rows:
+        row["launches_by_path"].update({
+            path: {"launches": out["launches"][row["name"]],
+                   "per_step": out["launches_per_step"][row["name"]]}
+            for path, out in tp_paths.items()
+            if out["launches"][row["name"]]})
     for row in flash_rows:
         row["launches_by_path"].update({
             path: {"launches": out["launches"][row["name"]],

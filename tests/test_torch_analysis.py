@@ -308,31 +308,41 @@ def test_memory_terms_equal_jax(opt, cast, plan, d):
                                   {"model": 2, "data": 4},
                                   {"expert": 2, "data": 4}))
 def test_non_data_axes_are_a_p10_error(mesh):
+    """``pipe`` and ``expert`` are ``legality/axis-not-ported`` (on the mesh
+    or in the strategy's hint); ``model`` is lowered now, so a model mesh
+    raises nothing and a pipe hint beside it still does."""
     jgi, pgi = _programs(GI)
     report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
                      mesh=mesh)
     errs = report.by_rule("legality/axis-not-ported")
     (axis,) = [a for a, n in mesh.items() if a != "data"]
+    hinted = Strategy.from_dict(full_cover(jgi).to_dict())
+    if axis == "model":
+        assert not errs
+        hinted.graph_config.mesh_axes = {"model": 2, "pipe": 2}
+        assert [d.location for d in analyze(hinted, pgi, mesh=mesh).by_rule(
+            "legality/axis-not-ported")] == ["pipe"]
+        return
     assert [d.location for d in errs] == [axis]
     assert P10 in errs[0].message
-    hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    hinted.graph_config.mesh_axes = {"model": 2}
+    hinted.graph_config.mesh_axes = {axis: 2}
     assert analyze(hinted, pgi, mesh=AXES8).by_rule(
         "legality/axis-not-ported")
 
 
 def test_seq_axis_is_lowered_not_a_p10_error():
     """The port lowers the seq axis: a data × seq mesh and a seq hint raise
-    no ``legality/axis-not-ported``; a model hint beside it still does."""
+    no ``legality/axis-not-ported``; nor does a model hint beside it, while
+    an expert hint still does."""
     jgi, pgi = _programs(GI)
     report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
                      mesh={"data": 4, "seq": 2})
     assert not report.by_rule("legality/axis-not-ported")
     hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2}
+    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2, "expert": 2}
     errs = analyze(hinted, pgi, mesh=AXES8).by_rule(
         "legality/axis-not-ported")
-    assert [d.location for d in errs] == ["model"]
+    assert [d.location for d in errs] == ["expert"]
 
 
 # -- the validate hooks --------------------------------------------------------

@@ -394,6 +394,74 @@ def test_differentiable_collectives_on_nccl(dev):
         dist.destroy_process_group()
 
 
+def test_model_axis_gather_and_slice_on_nccl(dev):
+    """The model axis's gather and slice on a one-rank NCCL group move
+    device tensors: ``gather_shards`` and ``shard_of`` give back their
+    input, the differentiable ``gather_replicated`` / ``slice_replicated``
+    pass the cotangent through."""
+    import torch.distributed as dist
+
+    from autodist_tpu_torch.kernel.synchronization import collectives as coll
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        group = dist.group.WORLD
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn(2, 8, 4, 32, generator=gen).to(dev)
+        g = torch.randn(2, 8, 4, 32, generator=gen).to(dev)
+        for axis in (0, 2):
+            out = coll.gather_shards(x, group, axis)
+            assert out.device == x.device and torch.equal(out, x)
+            assert torch.equal(coll.shard_of(x, 1, 0, axis), x)
+        for fn in (lambda t: coll.gather_replicated(t, group, 2),
+                   lambda t: coll.slice_replicated(t, group, 2)):
+            leaf = x.clone().requires_grad_(True)
+            out = fn(leaf)
+            assert out.device == x.device and torch.equal(out, x)
+            out.backward(g)
+            assert torch.equal(leaf.grad, g)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_flash_over_a_one_rank_nccl_model_group(dev):
+    """``make_flash_attention(mesh)`` through its sharded branch on a
+    one-rank NCCL model group (a mesh of model size 2 whose group holds
+    this rank alone: the cut keeps every head, the gather is NCCL's):
+    output and dq/dk/dv equal ``flash_attention``'s bit for bit; inside
+    ``manual_axes`` it is ``flash_attention`` itself."""
+    import types
+
+    import torch.distributed as dist
+
+    from autodist_tpu_torch.mesh import manual_axes
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = types.SimpleNamespace(model_size=2,
+                                     model_group=dist.group.WORLD)
+        wrapped = fa.make_flash_attention(mesh)
+        gen = torch.Generator().manual_seed(9)
+        q, k, v, do = (torch.randn(2, 128, 4, 64, generator=gen).to(dev)
+                       for _ in range(4))
+        outs = []
+        for fn in (wrapped, fa.flash_attention):
+            qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = fn(*qkv, True)
+            o.backward(do)
+            outs.append([o.detach()] + [x.grad for x in qkv])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        with manual_axes():
+            assert torch.equal(wrapped(q, k, v, True), outs[1][0])
+    finally:
+        dist.destroy_process_group()
+
+
 def test_flash_rejects_what_it_cannot_take(dev):
     x = torch.zeros(1, 8, 2, 8, device=dev)
     with pytest.raises(NotImplementedError, match="bf16"):

@@ -104,6 +104,13 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.runtime.native\n"
         "import autodist_tpu_torch.parallel.ring_attention\n"
         "import autodist_tpu_torch.parallel.ulysses\n"
+        "import autodist_tpu_torch.kernel.synchronization.collectives\n"
+        "import autodist_tpu_torch.analysis.legality\n"
+        "import autodist_tpu_torch.analysis.memory\n"
+        "import autodist_tpu_torch.analysis.precision\n"
+        "from autodist_tpu_torch.mesh import manual_axes, Mesh\n"
+        "from autodist_tpu_torch.ops import make_flash_attention\n"
+        "make_flash_attention(Mesh(shape={'model': 1}, device=None))\n"
         "from autodist_tpu_torch.resilience import Supervisor\n"
         "from autodist_tpu_torch import (AutoDist, ResourceSpec, DeviceSpec,\n"
         "    ENV, Callback, TimeHistory, History, __version__)\n"

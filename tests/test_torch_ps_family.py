@@ -18,7 +18,8 @@ JAX package.
   reduce-scatter bucket's moments; a JAX PS state continues in the port;
 * the case-matrix twin (``tests/test_case_matrix.py``: cases ``sparse``,
   ``scan``, ``while_loop``, ``dynamic_lstm`` × all 8 builders) on two
-  gloo ranks and the reference-variant twin on ``scan``, held to that
+  gloo ranks and on four as ``{"data": 2, "model": 2}`` (its ``dp4tp2``
+  cells), and the reference-variant twin on ``scan``, held to that
   test's JAX single-device loop at its rtol 1e-4.
 
 Every multi-rank run is one launch of a gloo worker pair
@@ -542,10 +543,35 @@ def test_case_matrix_on_two_gloo_ranks(gloo, single_device_losses, case,
     """The twin of ``tests/test_case_matrix.py``'s data-parallel cells:
     3 ``adam(1e-2)`` steps on 2 gloo ranks at the case's tolerance of the
     JAX single-device loop (rtol 1e-4; 2e-2 for ``bf16_remat``, bf16
-    parameters and batch under ``remat="dots"``).  (The ``dp4tp2`` mesh
-    waits for P10.)"""
+    parameters and batch under ``remat="dots"``)."""
     want, rtol = single_device_losses(case)
     for out in gloo:
+        np.testing.assert_allclose(out[f"case/{case}/{name}"], want,
+                                   rtol=rtol)
+
+
+@pytest.fixture(scope="module")
+def gloo_model(case_data):
+    """One launch of 4 gloo ranks in ``ps_model`` mode: every rank's
+    outputs."""
+    tmp = case_data.parent
+    torch_launch.run(
+        lambda rank, init: [WORKER, rank, 4, init,
+                            tmp / f"model{rank}.npz", "ps_model", case_data],
+        world=4, tmp_dir=tmp, timeout=300)
+    return [np.load(tmp / f"model{r}.npz") for r in range(4)]
+
+
+@pytest.mark.parametrize("name", worker.CASE_BUILDERS)
+@pytest.mark.parametrize("case", worker.CASES)
+def test_case_matrix_on_a_data_model_mesh(gloo_model, single_device_losses,
+                                          case, name):
+    """The twin of ``tests/test_case_matrix.py``'s ``dp4tp2`` cells on 4
+    gloo ranks as ``{"data": 2, "model": 2}``: the partitioners shard
+    over ``model`` (a padded partition is replicated), 3 ``adam(1e-2)``
+    steps at the case's tolerance of the JAX single-device loop."""
+    want, rtol = single_device_losses(case)
+    for out in gloo_model:
         np.testing.assert_allclose(out[f"case/{case}/{name}"], want,
                                    rtol=rtol)
 

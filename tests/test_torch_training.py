@@ -465,24 +465,35 @@ def test_ps_family_and_partitioned_builders_build(name):
 
 
 def test_non_data_mesh_axes_raise():
-    ad = AutoDist(strategy_builder=AllReduce(), mesh_axes={"model": 2},
-                  device="cpu")
+    """A ``model`` axis is lowered now: on this one-process world its size
+    2 does not divide the world (``tests/test_torch_model_axis.py`` trains
+    on one); ``pipe`` and ``expert`` still raise naming P10."""
     spec = transformer_lm(**CFG)
-    ad.capture(params=spec.init(0, device="cpu"), optimizer=optim.sgd(0.1),
-               loss_fn=spec.loss_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        ad.create_distributed_session()
+    for axes, error, match in (({"model": 2}, ValueError,
+                                "divide the world size"),
+                               ({"pipe": 2}, NotImplementedError,
+                                "ROADMAP: P10"),
+                               ({"expert": 2}, NotImplementedError,
+                                "ROADMAP: P10")):
+        _reset_default_autodist_for_testing()
+        ad = AutoDist(strategy_builder=AllReduce(), mesh_axes=axes,
+                      device="cpu")
+        ad.capture(params=spec.init(0, device="cpu"),
+                   optimizer=optim.sgd(0.1), loss_fn=spec.loss_fn)
+        with pytest.raises(error, match=match):
+            ad.create_distributed_session()
 
 
 @pytest.mark.parametrize("axis", ["pipe", "expert", "seq", "model"])
 def test_build_mesh_refuses_non_data_axes(axis):
-    """No layer shards heads or experts or stages: the step relies on
-    ``build_mesh`` refusing every axis but ``data`` and ``seq``.  A ``seq``
-    axis builds (``tests/test_torch_sequence_parallel.py`` trains on one);
-    on this one-process world its size 2 does not divide the world."""
+    """No layer shards experts or stages: the step relies on
+    ``build_mesh`` refusing ``pipe`` and ``expert``.  A ``seq`` or
+    ``model`` axis builds (``tests/test_torch_sequence_parallel.py`` and
+    ``tests/test_torch_model_axis.py`` train on them); on this one-process
+    world its size 2 does not divide the world."""
     from autodist_tpu_torch.mesh import build_mesh
 
-    if axis == "seq":
+    if axis in ("seq", "model"):
         with pytest.raises(ValueError, match="divide the world size"):
             build_mesh({axis: 2}, device="cpu")
     else:

@@ -23,7 +23,9 @@ parameters and batches, :func:`ps_main`): the model under each of
 :data:`PS_LM_BUILDERS` with ``fusable_adam(1e-2)`` and ``numerics=
 {"clip_norm": 1.0}``, every case of :data:`CASES` under every builder of
 :data:`CASE_BUILDERS`, and every one of :data:`REFERENCE_VARIANTS` on
-``scan``, each case with ``adam(1e-2)`` for 3 steps.
+``scan``, each case with ``adam(1e-2)`` for 3 steps.  ``ps_model`` (4
+ranks, the same ``IN``) trains every case under every builder on
+``{"data": 2, "model": 2}`` (:func:`ps_model_main`).
 
 ``models`` trains each BASELINE configuration of :data:`MODEL_RUNS` (a
 tiny model of each family under its builder and optimizer, NCF's under
@@ -226,10 +228,11 @@ def case_loss(case):
     return loss
 
 
-def case_losses(case, builder, data):
-    """3 ``adam`` steps of ``case`` under ``builder``: the losses.
-    ``data`` holds ``{case}/p/{name}`` and ``{case}/b/{key}`` arrays, a
-    bfloat16 one as its 16-bit payload under ``...:bfloat16``."""
+def case_losses(case, builder, data, mesh_axes=None):
+    """3 ``adam`` steps of ``case`` under ``builder`` (on ``mesh_axes``,
+    default pure data parallelism): the losses.  ``data`` holds
+    ``{case}/p/{name}`` and ``{case}/b/{key}`` arrays, a bfloat16 one as
+    its 16-bit payload under ``...:bfloat16``."""
     _reset_default_autodist_for_testing()
     part = {}
     for k in data.files:
@@ -240,7 +243,8 @@ def case_losses(case, builder, data):
     params = unflatten([(k[2:], v) for k, v in part.items()
                         if k.startswith("p/")])
     batch = {k[2:]: v for k, v in part.items() if k.startswith("b/")}
-    ad = AutoDist(strategy_builder=builder, device="cpu")
+    ad = AutoDist(strategy_builder=builder, device="cpu",
+                  mesh_axes=mesh_axes)
     with ad.scope():
         ad.capture(params=params, optimizer=optim.adam(CASE_LR),
                    loss_fn=case_loss(case),
@@ -248,6 +252,27 @@ def case_losses(case, builder, data):
                    remat="dots" if case == "bf16_remat" else None)
     sess = ad.create_distributed_session()
     return np.array([float(sess.run(batch)["loss"]) for _ in range(STEPS)])
+
+
+#: the ``ps_model`` mode's mesh: the case matrix's ``dp4tp2`` cell on 4
+#: ranks
+CASE_MODEL_AXES = {"data": 2, "model": 2}
+
+
+def ps_model_main(data):
+    """The ``ps_model`` mode: every case of :data:`CASES` under every
+    builder of :data:`CASE_BUILDERS` on :data:`CASE_MODEL_AXES`."""
+    import warnings
+
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # padded shardings replicated
+        for case in CASES:
+            for name in CASE_BUILDERS:
+                out[f"case/{case}/{name}"] = case_losses(
+                    case, getattr(port_strategy, name)(), data,
+                    CASE_MODEL_AXES)
+    return out
 
 
 #: the ``levers`` mode's remat model (``tests/test_remat.py``'s) and its
@@ -1367,6 +1392,9 @@ def main():
             return
         if strategy == "ps":
             np.savez(out, **ps_main(np.load(sys.argv[6])))
+            return
+        if strategy == "ps_model":
+            np.savez(out, **ps_model_main(np.load(sys.argv[6])))
             return
         if strategy == "models":
             np.savez(out, **models_main(np.load(sys.argv[6])))
