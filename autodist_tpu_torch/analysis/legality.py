@@ -9,10 +9,10 @@ Strategy over the compiled mesh's axes (the port's compiler lowers a
 Strategy node for node, so the projection is the lowered plan) and checks
 that every compiled plan agrees with it.
 
-The port's mesh has the data, seq and model axes (ROADMAP P10): a
-``pipe`` or ``expert`` axis wider than 1, on the mesh or in the
-strategy's ``mesh_axes`` hint, is ``legality/axis-not-ported`` (ERROR,
-naming P10), so a search never picks such a plan.
+The port's mesh has the data, expert, seq and model axes (ROADMAP
+P10): a ``pipe`` axis wider than 1, on the mesh or in the strategy's
+``mesh_axes`` hint, is ``legality/axis-not-ported`` (ERROR, naming P10),
+so a search never picks such a plan.
 
 Rules (docs/analysis.md):
 
@@ -48,8 +48,8 @@ Rules (docs/analysis.md):
   padded, or non-bucketable compressor); it falls back to a per-variable
   collective with replicated optimizer state.  Shares
   ``bucketing.bucket_drop_reason`` with the runtime.
-* ``legality/axis-not-ported`` (ERROR) — a pipe or expert axis wider than
-  1: the port cannot lower it (ROADMAP P10).
+* ``legality/axis-not-ported`` (ERROR) — a pipe axis wider than 1: the
+  port cannot lower it (ROADMAP P10).
 * ``legality/slice-mismatch`` (ERROR) — the resource spec's ``num_slices``
   does not divide the mesh's device count: a two-tier topology would
   leave a ragged slice.  Shares ``resource_spec.slice_mismatch_reason``
@@ -310,6 +310,8 @@ def _lower_from_compiled(ctx: AnalysisContext
     plan that names a variable the catalog lacks, or whose sync kind,
     compressor, mode or storage differs from what its node asks for,
     was built by hand and is reported."""
+    from autodist_tpu_torch.strategy.compiler import per_shard_spec
+
     plans, diags = _lower_from_strategy(ctx)
     known = {v.name for v in ctx.graph_item.info.variables}
     d = int(ctx.axes.get(MESH_AXIS_DATA, 1))
@@ -330,9 +332,9 @@ def _lower_from_compiled(ctx: AnalysisContext
                 and vp.stored_at(d):
             placement = {vp.storage_axis: MESH_AXIS_DATA}
         # PS plans shard their update over data, but a variable sharded
-        # over model (unpadded) reduces its shard on the per-shard tier
-        per_shard = MESH_AXIS_MODEL in placement.values() \
-            and lite.pad is None
+        # over model or expert alone (unpadded) reduces its shard on the
+        # per-shard tier
+        per_shard = per_shard_spec(tuple(placement.values()), lite.pad)
         want_mode = "reduce_scatter" if lite.sync_kind == "PS" \
             and not per_shard else lite.sync_mode
         if (vp.sync_kind != lite.sync_kind
@@ -454,20 +456,20 @@ def _check_slices(ctx: AnalysisContext) -> List[Diagnostic]:
 
 
 def _check_ported_axes(ctx: AnalysisContext) -> List[Diagnostic]:
-    """``legality/axis-not-ported``: an axis other than ``data``, ``seq``
-    and ``model`` wider than 1, on the mesh or in the strategy's hint,
-    which the port cannot lower."""
+    """``legality/axis-not-ported``: an axis other than ``data``,
+    ``expert``, ``seq`` and ``model`` wider than 1, on the mesh or in the
+    strategy's hint, which the port cannot lower."""
     from autodist_tpu_torch.const import P10
 
     hint = getattr(ctx.strategy.graph_config, "mesh_axes", None) or {}
     wide = {str(a): int(n) for src in (ctx.axes, hint)
             for a, n in src.items()
-            if a not in (MESH_AXIS_DATA, MESH_AXIS_SEQ, MESH_AXIS_MODEL)
-            and int(n) > 1}
+            if a not in (MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
+                         MESH_AXIS_MODEL) and int(n) > 1}
     return [diag(
         "legality/axis-not-ported", Severity.ERROR,
-        f"mesh axis {a!r} of size {n}: the port lowers the data, seq and "
-        f"model axes only (not ported: {P10})", location=a,
+        f"mesh axis {a!r} of size {n}: the port lowers the data, expert, "
+        f"seq and model axes only (not ported: {P10})", location=a,
         fix="drop the axis (pure data parallelism) until it is ported")
         for a, n in sorted(wide.items())]
 

@@ -48,10 +48,11 @@ under the dtype name ``"bfloat16"``.  No Orbax.
   and restored into each rank's part, so such a checkpoint written on N
   ranks restores on 1 and the other way round, where the bucket layouts
   agree (a stored variable fills buckets of its own at every size).  A
-  variable sharded over ``model``, its optimizer slots and its
-  compressor state are saved whole (gathered over the model group) and a
-  restore cuts each rank's shard (``session._step.model_shards``), so a
-  checkpoint of a ``{"data": 2, "model": 2}`` session restores on one
+  variable sharded over ``model`` or ``expert`` (an MoE expert stack),
+  its optimizer slots and its compressor state are saved whole (gathered
+  over that axis's group) and a restore cuts each rank's shard
+  (``session._step.model_shards``), so a checkpoint of a ``{"data": 2,
+  "model": 2}`` or a ``{"data": 2, "expert": 2}`` session restores on one
   process and the other way round.
 * **Ranks:** every rank takes part in a save (the ZeRO-1 and parameter
   gathers); rank 0
@@ -412,7 +413,7 @@ def _sync_for(session, saved, source) -> Optional[Dict[str, Any]]:
                 got = unflatten([(n, x[rank]) for n, x in rows]) \
                     if isinstance(got, dict) else got[rank]
             shard = session._step.model_shards.get(key)
-            if shard is not None:       # a model-sharded variable's state
+            if shard is not None:   # a model- or expert-sharded variable's
                 dim, k, mrank = shard
                 got = tree_map(lambda x: shard_of(x, k, mrank, dim).clone(),
                                got)
@@ -486,7 +487,7 @@ class Saver:
     @staticmethod
     def _writer() -> bool:
         """Does this rank write?  The world's rank 0: the ranks of one
-        seq or model group share a data rank."""
+        seq, model or expert group share a data rank."""
         return not dist.is_initialized() or dist.get_rank() == 0
 
     @staticmethod

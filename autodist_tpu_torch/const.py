@@ -26,6 +26,9 @@ MESH_AXIS_MODEL = "model"    # tensor/model parallelism
 MESH_AXIS_SEQ = "seq"        # sequence/context parallelism
 MESH_AXIS_PIPE = "pipe"      # pipeline parallelism
 MESH_AXIS_EXPERT = "expert"  # expert parallelism (MoE)
+#: the axes a variable keeps its shards over on the bucketed step (a
+#: sharding over ``data`` is PS storage instead)
+SHARD_AXES = (MESH_AXIS_MODEL, MESH_AXIS_EXPERT)
 
 
 def _bool(v):
@@ -150,10 +153,13 @@ P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
 #: elastic resume, the router and the drain) is ported whole: nothing
 #: raises naming it any more
 P9 = "P9 — telemetry and resilience"
-#: P10's ``seq`` and ``model`` axes are ported (ring and Ulysses attention;
-#: model-sharded variables on the bucketed step and K1–K3 over heads):
-#: what still raises naming it is the ``pipe`` and ``expert`` axes, the
-#: pipelines, MoE and the serving engines' ``mesh=``
+#: P10's ``seq``, ``model`` and ``expert`` axes are ported (ring and
+#: Ulysses attention; model- and expert-sharded variables on the bucketed
+#: step, K1–K3 over heads, the top-2 MoE FFN and the MoE LM): what still
+#: raises naming it is the ``pipe`` axis, the pipelines (``pipeline_vars``,
+#: ``grad_fn``, the pipelined LMs), ``mpmd``, the serving engines'
+#: ``mesh=``, and a loss without ``sequence_parallel`` (every model but
+#: ``transformer_lm``, the MoE LM too) on ``seq``
 P10 = "P10 — non-data mesh axes"
 #: P11 (the rest of serving) is ported whole since its last raise, the
 #: SIGTERM drain, came with the router: nothing raises naming it any more

@@ -12,6 +12,8 @@ Both packages key parameters by the same logical names
   or, given a session's ``stored_buckets``, cut to one rank's parts of
   the variables stored 1/N (``session.device_params``' layout, what
   ``session.load_state`` takes);
+  or to one rank's shard of each variable sharded over ``model`` or
+  ``expert`` (the MoE LM's expert stacks, ``E/X`` experts a rank);
 * :func:`params_to_numpy` is the inverse: the port's tree as nested
   dicts of numpy arrays;
 * :func:`opt_state_from_jax` / :func:`opt_state_to_numpy` carry the
@@ -72,14 +74,26 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], device="cpu",
                     stored_buckets: Sequence = (), rank: int = 0,
-                    data: int = 1) -> Dict[str, Any]:
+                    data: int = 1,
+                    shards: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves) → the port's tree on
     ``device``.  ``(q, scale)`` pairs become ``Quantized``.  With
     ``stored_buckets`` (a session's buckets stored 1/N), each of their
     members becomes rank ``rank`` of ``data``'s part of its bucket's
-    chunk, a flat tensor."""
+    chunk, a flat tensor.  With ``shards`` (``{name: (dim, count,
+    shard)}``, a session's ``_step.model_shards``: the variables sharded
+    over ``model`` or ``expert``, the MoE expert stacks ``layers_i/moe/wi``
+    and ``wo`` along their leading dim), each of them becomes that shard
+    of itself."""
     if any("/" in k for k in tree):
         tree = _unflatten(tree)
+    if shards:
+        flat = dict(flatten(params_from_jax(tree, device)))
+        for n, (dim, count, shard) in shards.items():
+            size = flat[n].shape[dim] // count
+            flat[n] = flat[n].narrow(dim, shard * size, size).clone()
+        return _unflatten(flat)
     if stored_buckets:
         flat = dict(flatten(params_from_jax(tree, device)))
         for b in stored_buckets:

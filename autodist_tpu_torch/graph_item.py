@@ -170,9 +170,12 @@ class GraphItem:
     off).  ``remat`` rematerializes the loss in the backward: ``None`` /
     ``"none"`` off, ``"full"`` (recompute everything), ``"dots"`` (keep
     the matmul outputs), ``"dots_no_batch"`` (keep the 2-D matmul
-    outputs); see :data:`_REMAT_POLICIES`.  ``grad_fn``,
-    ``pipeline_vars`` and ``expert_vars`` belong to later slices and
-    raise."""
+    outputs); see :data:`_REMAT_POLICIES`.  ``expert_vars`` flags the
+    stacks whose leading dim is the MoE expert axis (``VarInfo.expert``:
+    the compiler shards that dim over ``expert``); like the other
+    patterns each is an exact name, a path prefix or a glob
+    (``"*/moe/wi"``).  ``grad_fn`` and ``pipeline_vars`` belong to the
+    pipelines and raise."""
 
     def __init__(self, params: Any, optimizer: Any = None,
                  loss_fn: Optional[Callable] = None,
@@ -190,9 +193,9 @@ class GraphItem:
             raise not_ported("capture(grad_fn=...)",
                              "P10 — non-data mesh axes (the 1F1B pipeline "
                              "backward)")
-        if pipeline_vars or expert_vars:
-            raise not_ported("pipeline_vars / expert_vars",
-                             "P10 — non-data mesh axes")
+        if pipeline_vars:
+            raise not_ported("pipeline_vars", "P10 — non-data mesh axes "
+                             "(the pipelines)")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = params
@@ -205,6 +208,7 @@ class GraphItem:
         self.numerics = NumericsConfig.coerce(numerics)
         self._sparse_patterns = tuple(sparse_vars)
         self._untrainable_patterns = tuple(untrainable_vars)
+        self._expert_patterns = tuple(expert_vars)
         self.info = self._build_info()
 
     @staticmethod
@@ -223,7 +227,8 @@ class GraphItem:
                     dtype=_dtype_name(leaf),
                     trainable=not self._matches(name,
                                                 self._untrainable_patterns),
-                    sparse=self._matches(name, self._sparse_patterns))
+                    sparse=self._matches(name, self._sparse_patterns),
+                    expert=self._matches(name, self._expert_patterns))
             for name, leaf in flatten(self.params)])
 
     @property

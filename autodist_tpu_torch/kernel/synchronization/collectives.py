@@ -20,10 +20,14 @@ transposes ``ppermute`` so), that of an ``all_to_all`` the inverse
 ``all_to_all``, that of an ``all_gather`` the ``psum_scatter`` of the
 cotangent.
 
-The model axis's gather and slice: :func:`gather_shards` joins every
-rank's shard of a variable along its sharded dim (the bucketed step's
-gather of a model-sharded parameter before the loss, and of its moments
-for a logical export), :func:`shard_of` cuts this rank's shard back out.
+The model and expert axes' gather and slice: :func:`gather_shards`
+joins every rank's shard of a variable along its sharded dim over that
+axis's group (the bucketed step's gather of a model-sharded parameter,
+or of an MoE expert stack along its leading dim, before the loss, and of
+its moments for a logical export), :func:`shard_of` cuts this rank's
+shard back out.  The MoE FFN outside a step crosses the expert group by
+:func:`all_to_all_tiled` and gathers its output with
+:func:`gather_replicated`.
 :func:`gather_replicated` and :func:`slice_replicated` are their
 differentiable forms for values REPLICATED over the group (every rank
 holds the same full tensor and the same cotangent of it, as q, k, v and

@@ -30,16 +30,18 @@ all-reduce buckets).  The step runs, on each rank, in order:
    gradient) reduces through its compressor's ``reduce`` with its state
    under its name in the sync state (a ZeRO-1 request falls back to it,
    with the JAX package's warning, and to the tree update); so does a
-   variable that keeps its ``model`` sharding (:func:`partition_support`,
-   the JAX package's ``_partition_support`` over
-   :func:`partition_drop_reason`; every other sharding is replicated
+   variable that keeps its ``model`` or ``expert`` sharding
+   (:func:`partition_support`, the JAX package's ``_partition_support``
+   over :func:`partition_drop_reason`; every other sharding is replicated
    with its warning): the session holds its shard, step 0 gathers it
-   over the model group into the full tensor the loss sees, the full
-   gradient (summed over ``seq`` first) is cut back to the shard, whose
-   data mean runs through the compressor with shard-shaped state, and
-   the tree update runs on the shard and its own moments; the guard
-   counts a shard once over the model group (``shard_axes_size``) and,
-   on a model mesh, rolls up over every rank;
+   over that axis's group into the full tensor the loss sees (an expert
+   stack too: the loss runs every expert locally, as the JAX package's
+   explicit path does), the full gradient (summed over ``seq`` first) is
+   cut back to the shard, whose data mean runs through the compressor
+   with shard-shaped state, and the tree update runs on the shard and its
+   own moments; the guard counts a shard once over its group
+   (``shard_axes_size``) and, on a model or expert mesh, rolls up over
+   every rank;
 3. per bucket of :func:`plan_step_buckets`' plan: pack, then the
    reduction over the data group under the bucket's lowering, read from
    the bucket's node in the step's schedule IR (:func:`plan_step`: the
@@ -153,8 +155,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, MESH_AXIS_MODEL,
-                                      P10, not_ported)
+from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, P10, SHARD_AXES,
+                                      not_ported)
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
@@ -190,11 +192,11 @@ def uses_explicit_path(compiled, skip_ps: bool = False) -> bool:
     ZeRO-1 (``reduce_scatter``), a non-zero ``bucket_bytes``, an explicit
     ``pipeline``/``ring``/``full`` schedule, ``hier``, and fused groups
     with a group to fuse do, and so does a variable sharded over
-    ``model`` (unpadded: the sharding the step keeps; the JAX package
-    runs such a plan on its GSPMD step unless it has another reason).
-    ``skip_ps``: would the JAX package lower the plan on its explicit
-    path (it runs PS plans and model shardings on its GSPMD step, so they
-    give no reason)?"""
+    ``model`` or ``expert`` (unpadded: a sharding the step can keep; the
+    JAX package runs such a plan on its GSPMD step unless it has another
+    reason).  ``skip_ps``: would the JAX package lower the plan on its
+    explicit path (it runs PS plans and model or expert shardings on its
+    GSPMD step, so they give no reason)?"""
     if any(_explicit_reason(plan) for plan in compiled.var_plans.values()
            if not (skip_ps and plan.sync_kind == "PS")):
         return True
@@ -259,23 +261,24 @@ def partition_drop_reason(spec_axes, shape, dtype, axis_sizes, padded,
 
 def partition_support(gi, compiled, warn: bool = False
                       ) -> Dict[str, Tuple[str, int, int]]:
-    """Which variables keep their ``model`` sharding on the bucketed step
-    (the JAX package's ``_partition_support``): ``{name: (axis name,
-    tensor dim, shard count)}``.  Every other sharded plan is replicated
-    for the reason :func:`partition_drop_reason` gives, with the JAX
-    package's warning when ``warn``.  Shardings over ``data`` (PS storage
-    on a mesh without ``model``, :meth:`~autodist_tpu_torch.strategy.
-    compiler.VarPlan.stored_at`) are the stored buckets' and not
-    considered here."""
+    """Which variables keep their ``model`` or ``expert`` sharding on the
+    bucketed step (the JAX package's ``_partition_support``, which is
+    axis-generic): ``{name: (axis name, tensor dim, shard count)}``.
+    Every other sharded plan is replicated for the reason
+    :func:`partition_drop_reason` gives, with the JAX package's warning
+    when ``warn``.  Shardings over ``data`` alone (PS storage on a mesh
+    without ``model``, :meth:`~autodist_tpu_torch.strategy.compiler.
+    VarPlan.stored_at`) are the stored buckets' and not considered
+    here."""
     sizes = dict(getattr(compiled.mesh, "shape", None) or {})
-    if int(sizes.get(MESH_AXIS_MODEL, 1)) <= 1:
+    if all(int(sizes.get(a, 1)) <= 1 for a in SHARD_AXES):
         return {}
     infos = {v.name: v for v in gi.info.variables}
     pads = compiled.pad_plans()
     part: Dict[str, Tuple[str, int, int]] = {}
     for name, plan in compiled.var_plans.items():
         v = infos.get(name)
-        if not plan.param_spec or v is None:
+        if v is None or not any(a in SHARD_AXES for a in plan.param_spec):
             continue
         spec_axes = [(i, e) for i, e in enumerate(plan.param_spec)
                      if e is not None]
@@ -514,10 +517,11 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     shapes = {v.name: (tuple(v.shape), v.dtype) for v in gi.info.variables}
     # -- the per-variable tier: non-bucketable compressors and the variables
-    # sharded over model (each rank reduces its shard over data) ------------
+    # sharded over model or expert (each rank reduces its shard over data) --
     part = partition_support(gi, compiled)
-    m, mgroup, mrank = mesh.model_size, mesh.model_group, mesh.model_rank
-    model_shards = {n: (dim, k, mrank) for n, (_, dim, k) in part.items()}
+    shard_group = {n: mesh.axis_group(ax) for n, (ax, _, _) in part.items()}
+    model_shards = {n: (dim, k, mesh.axis_rank(ax))
+                    for n, (ax, dim, k) in part.items()}
     pervar = {n: get_compressor(plans[n].compressor) for n in names
               if n in plans and n not in bucketed}
     for n in pervar:
@@ -643,20 +647,20 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     def shard_params(params):
         """``params`` (placed) with each stored member cut to this rank's
-        part, a flat tensor, and each variable sharded over ``model`` to
-        this rank's shard, neither requiring grad; a leaf already cut is
-        kept."""
+        part, a flat tensor, and each variable sharded over ``model`` or
+        ``expert`` to this rank's shard, neither requiring grad; a leaf
+        already cut is kept."""
         if not stored and not part:
             return params
         leaves = dict(flatten(params))
         for n, (_, dim, k) in part.items():
             x = leaves[n].detach()
             if tuple(x.shape) == shapes[n][0]:
-                x = coll.shard_of(x, k, mrank, dim).clone()
+                x = coll.shard_of(x, k, model_shards[n][2], dim).clone()
             elif tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
                 raise ValueError(
                     f"{n}: shape {tuple(x.shape)} is neither the variable "
-                    f"{shapes[n][0]} nor this rank's model shard")
+                    f"{shapes[n][0]} nor this rank's {part[n][0]} shard")
             leaves[n] = x
         for b in stored:
             for n, v, (a, e) in zip(b.names, b.vars, spans(b)):
@@ -678,14 +682,16 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         values' storage in the gathered vector until :func:`reclaim`, so
         that a rank does not hold its chunk twice while the compute copy
         lives (the peak of the step).  A variable sharded over ``model``
-        is gathered over the model group into its full tensor."""
+        or ``expert`` is gathered over that axis's group into its full
+        tensor."""
         if not stored and not part:
             return params
         leaves = dict(flatten(params))
         compute = dict(leaves)
-        for n, (_, dim, _k) in part.items():
-            with sync_span(f"model_gather/{n}"):
-                full = coll.gather_shards(leaves[n].detach(), mgroup, dim)
+        for n, (ax, dim, _k) in part.items():
+            with sync_span(f"{ax}_gather/{n}"):
+                full = coll.gather_shards(leaves[n].detach(), shard_group[n],
+                                          dim)
             compute[n] = full.requires_grad_(grad and n in trainable)
         for b in starts:
             with sync_span(f"param_gather/{b.key}"):
@@ -713,9 +719,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
     num_active = sp.guard
-    # the roll-up spans every rank on a model axis (a shard's partial
-    # differs across the model group), else the data group
-    if m > 1:
+    # the roll-up spans every rank on a model or expert axis (a shard's
+    # partial differs across its group), else the data group
+    if mesh.model_size > 1 or mesh.expert_size > 1:
         guard_n, guard_group = dist.get_world_size(), dist.group.WORLD
     else:
         guard_n, guard_group = d, (group if d > 1 else None)
@@ -832,7 +838,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                                     .reshape((d,) + tuple(x.shape)), value)
                 if key in part:     # [data, *shard] -> [data, *full]
                     out[key] = tree_map(lambda x: coll.gather_shards(
-                        x, mgroup, part[key][1] + 1), out[key])
+                        x, shard_group[key], part[key][1] + 1), out[key])
         if stale is not None:
             out.update(stale.export_state(sync_state, dict(flatten(params))))
         return out
@@ -870,7 +876,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         tree = opt_state["vars"] if rs_buckets else opt_state
         tree = gt.map_model_leaves(
             gt.copy_tree(tree), model_shards,
-            lambda x, n, dim: coll.gather_shards(x, mgroup, dim))
+            lambda x, n, dim: coll.gather_shards(x, shard_group[n], dim))
         if not rs_buckets:
             return tree
         zero1 = {k: v.detach().clone() if isinstance(v, torch.Tensor)
@@ -881,19 +887,20 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     def shard_opt_state(opt_state):
         """``opt_state`` with each slot of a variable sharded over
-        ``model`` cut to this rank's shard where it is logical; a slot
-        already cut is kept."""
+        ``model`` or ``expert`` cut to this rank's shard where it is
+        logical; a slot already cut is kept."""
         if not part:
             return opt_state
 
         def cut(x, n, dim):
             if tuple(x.shape) == shapes[n][0]:
-                return coll.shard_of(x, part[n][2], mrank, dim).clone()
+                return coll.shard_of(x, part[n][2], model_shards[n][2],
+                                     dim).clone()
             if tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
                 raise ValueError(
                     f"{n}: optimizer slot of shape {tuple(x.shape)} is "
                     f"neither the variable {shapes[n][0]} nor this rank's "
-                    f"model shard")
+                    f"{part[n][0]} shard")
             return x
         if rs_buckets:
             return dict(opt_state, vars=gt.map_model_leaves(
@@ -952,7 +959,8 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         for n, (_, dim, k) in part.items():
             # the gradient of the full tensor (the seq sum applied), cut
             # to this rank's shard: slicing commutes with the data mean
-            grads[n] = coll.shard_of(grads[n], k, mrank, dim).clone(
+            grads[n] = coll.shard_of(grads[n], k, model_shards[n][2],
+                                     dim).clone(
                 memory_format=torch.contiguous_format)
 
         health = guard_mod.HealthAccumulator(guard_n, fused=True) \
@@ -966,7 +974,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             if n in sync_state:
                 new_state[n] = st
             if health is not None:
-                # a shard counts once over the model group
+                # a shard counts once over its model or expert group
                 health.add(n, grads[n], finite_src=g,
                            shard_axes_size=part[n][2] if n in part else 1,
                            saturation=guard_mod.wire_saturation(

@@ -2,19 +2,22 @@
 
 Port of the JAX package's ``mesh.py:39-111``.  Axes keep the canonical
 names and order (``pipe, data, expert, seq, model``, outermost first).
-The ``data``, ``seq`` and ``model`` axes span the ``torch.distributed``
-world: one rank per (replica, sequence chunk, model shard), NCCL between
-cards and gloo between CPU processes, built with ``init_device_mesh``
-over the axes wider than 1 in canonical order, so the ranks of one
-``model`` group are adjacent, then those of one ``seq`` group (rank
-``(d·S + s)·M + m``).  A ``seq`` axis cuts each sequence into ``S``
-chunks: a rank computes on its chunk inside :func:`seq_chunk`, and the
-attention functions of :mod:`autodist_tpu_torch.parallel` exchange K/V
-over the axis's group.  A ``model`` axis shards the variables a
-partitioner names (``strategy/compiler.py``): the ranks of one model
-group see the same rows of the batch (it is cut over ``data`` only) and
-each holds its shard of every such variable.  The ``pipe`` and
-``expert`` axes come with the rest of slice P10 and raise here.
+The ``data``, ``expert``, ``seq`` and ``model`` axes span the
+``torch.distributed`` world: one rank per (replica, expert shard,
+sequence chunk, model shard), NCCL between cards and gloo between CPU
+processes, built with ``init_device_mesh`` over the axes wider than 1 in
+canonical order, so the ranks of one ``model`` group are adjacent, then
+those of one ``seq`` group, then those of one ``expert`` group (rank
+``((d·X + x)·S + s)·M + m``: where the JAX package's devices sit).  A
+``seq`` axis cuts each sequence into ``S`` chunks: a rank computes on its
+chunk inside :func:`seq_chunk`, and the attention functions of
+:mod:`autodist_tpu_torch.parallel` exchange K/V over the axis's group.  A
+``model`` axis shards the variables a partitioner names, an ``expert``
+axis the leading (expert) dim of every ``expert_vars`` stack
+(``strategy/compiler.py``): the ranks of one model or expert group see
+the same rows of the batch (it is cut over ``data`` only) and each holds
+its shard of every such variable.  The ``pipe`` axis comes with the
+pipelines (the rest of slice P10) and raises here.
 """
 from __future__ import annotations
 
@@ -38,8 +41,8 @@ AXIS_ORDER = (MESH_AXIS_PIPE, MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
 @dataclass
 class Mesh:
     """Axis sizes in canonical order, the device every rank computes on,
-    and the ``DeviceMesh`` over the data, seq and model axes wider than 1
-    (None when none is)."""
+    and the ``DeviceMesh`` over the data, expert, seq and model axes wider
+    than 1 (None when none is)."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -57,6 +60,10 @@ class Mesh:
     def model_size(self) -> int:
         return self.shape.get(MESH_AXIS_MODEL, 1)
 
+    @property
+    def expert_size(self) -> int:
+        return self.shape.get(MESH_AXIS_EXPERT, 1)
+
     def _has(self, axis: str) -> bool:
         return self.device_mesh is not None and \
             axis in (self.device_mesh.mesh_dim_names or ())
@@ -64,40 +71,55 @@ class Mesh:
     @property
     def data_group(self):
         """The data axis's process group (None at size 1)."""
-        return self.device_mesh.get_group(MESH_AXIS_DATA) \
-            if self._has(MESH_AXIS_DATA) else None
+        return self.axis_group(MESH_AXIS_DATA)
 
     @property
     def data_rank(self) -> int:
-        return self.device_mesh.get_local_rank(MESH_AXIS_DATA) \
-            if self._has(MESH_AXIS_DATA) else 0
+        return self.axis_rank(MESH_AXIS_DATA)
 
     @property
     def seq_group(self):
         """The seq axis's process group: this rank and the ranks holding
         the other chunks of its sequences (None at size 1)."""
-        return self.device_mesh.get_group(MESH_AXIS_SEQ) \
-            if self._has(MESH_AXIS_SEQ) else None
+        return self.axis_group(MESH_AXIS_SEQ)
 
     @property
     def seq_rank(self) -> int:
         """Which chunk of each sequence this rank holds."""
-        return self.device_mesh.get_local_rank(MESH_AXIS_SEQ) \
-            if self._has(MESH_AXIS_SEQ) else 0
+        return self.axis_rank(MESH_AXIS_SEQ)
 
     @property
     def model_group(self):
         """The model axis's process group: this rank and the ranks holding
         the other shards of its model-sharded variables (None at size
         1)."""
-        return self.device_mesh.get_group(MESH_AXIS_MODEL) \
-            if self._has(MESH_AXIS_MODEL) else None
+        return self.axis_group(MESH_AXIS_MODEL)
 
     @property
     def model_rank(self) -> int:
         """Which shard of each model-sharded variable this rank holds."""
-        return self.device_mesh.get_local_rank(MESH_AXIS_MODEL) \
-            if self._has(MESH_AXIS_MODEL) else 0
+        return self.axis_rank(MESH_AXIS_MODEL)
+
+    @property
+    def expert_group(self):
+        """The expert axis's process group: this rank and the ranks holding
+        the other experts of each expert stack (None at size 1)."""
+        return self.axis_group(MESH_AXIS_EXPERT)
+
+    @property
+    def expert_rank(self) -> int:
+        """Which experts of each stack this rank holds (the ``expert_rank``
+        -th ``1/expert_size`` of its leading dim)."""
+        return self.axis_rank(MESH_AXIS_EXPERT)
+
+    def axis_group(self, axis: str):
+        """The process group of ``axis`` (None at size 1)."""
+        return self.device_mesh.get_group(axis) if self._has(axis) else None
+
+    def axis_rank(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 at size 1)."""
+        return self.device_mesh.get_local_rank(axis) \
+            if self._has(axis) else 0
 
 
 #: ``(group, size)`` while a step computes the loss on this rank's rows
@@ -169,10 +191,13 @@ _MANUAL: contextvars.ContextVar = contextvars.ContextVar("manual_axes",
 def manual_axes(axes=AXIS_ORDER):
     """Marks the code inside as running per rank over ``axes``: the twin
     of the JAX package's manual axes inside ``shard_map`` (the explicit
-    step runs the loss so, every model-sharded variable gathered).
-    :func:`~autodist_tpu_torch.ops.flash_attention.make_flash_attention`
-    reads it through :func:`current_manual_axes`: inside, K1 runs on this
-    rank's full heads instead of sharding them over ``model``."""
+    step runs the loss so, every model- or expert-sharded variable
+    gathered).  :func:`~autodist_tpu_torch.ops.flash_attention.
+    make_flash_attention` and :func:`~autodist_tpu_torch.parallel.moe.
+    moe_ffn` read it through :func:`current_manual_axes`: inside, K1 runs
+    on this rank's full heads instead of sharding them over ``model``,
+    and the MoE FFN runs every expert locally instead of crossing the
+    ``expert`` group."""
     token = _MANUAL.set(_MANUAL.get() | frozenset(axes))
     try:
         yield
@@ -221,8 +246,8 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
             resource_spec is not None and resource_spec.mesh_hint) else {}
     axes = dict(axes)
     wide = {ax: n for ax, n in axes.items()
-            if ax not in (MESH_AXIS_DATA, MESH_AXIS_SEQ, MESH_AXIS_MODEL)
-            and n > 1}
+            if ax not in (MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
+                          MESH_AXIS_MODEL) and n > 1}
     if wide:
         raise not_ported(f"mesh axes {wide}", "P10 — non-data mesh axes")
     specified = math.prod(axes.values()) if axes else 1
@@ -236,9 +261,10 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
     dev = rank_device(device)
     device_mesh = None
     # a mesh may lack an axis; canonical order, so the ranks of a model
-    # group are adjacent, then those of a seq group
-    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_SEQ,
-                               MESH_AXIS_MODEL) if axes.get(ax, 1) > 1)
+    # group are adjacent, then those of a seq group, then an expert group
+    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_EXPERT,
+                               MESH_AXIS_SEQ, MESH_AXIS_MODEL)
+                 if axes.get(ax, 1) > 1)
     if dims:
         from torch.distributed.device_mesh import init_device_mesh
 

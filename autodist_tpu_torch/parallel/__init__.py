@@ -2,16 +2,15 @@
 
 Port of the JAX package's ``parallel/``: sequence parallelism over the
 ``seq`` mesh axis — ring attention (:mod:`.ring_attention`) and Ulysses
-all-to-all (:mod:`.ulysses`).  Expert parallelism (MoE) and the pipeline
-schedules come with the rest of ROADMAP P10: their names raise naming it.
+all-to-all (:mod:`.ulysses`) — and expert parallelism over the ``expert``
+axis, the top-2 MoE FFN (:mod:`.moe`).  The pipeline schedules come with
+the rest of ROADMAP P10: their names raise naming it.
 """
 from autodist_tpu_torch.const import P10, unported_function
+from autodist_tpu_torch.parallel.moe import init_moe_params, moe_ffn
 from autodist_tpu_torch.parallel.ring_attention import make_ring_attention
 from autodist_tpu_torch.parallel.ulysses import make_ulysses_attention
 
-moe_ffn = unported_function("moe_ffn", "the expert-parallel MoE FFN", P10)
-init_moe_params = unported_function("init_moe_params",
-                                    "the MoE FFN's parameters", P10)
 pipeline_apply = unported_function("pipeline_apply",
                                    "the GPipe pipeline schedule", P10)
 stack_stage_params = unported_function("stack_stage_params",

@@ -1,14 +1,14 @@
 """StrategyCompiler: lower a Strategy onto the mesh.
 
 Port of the JAX package's ``strategy/compiler.py:93-486`` for the port's
-mesh (``data``, ``seq`` and ``model`` axes).  Each per-variable config
-becomes a :class:`VarPlan`; ``param_spec`` and ``opt_spec`` are the JAX
-plan's ``PartitionSpec`` entries as a tuple (trailing Nones trimmed,
-``()`` replicated), ``pad_axis``/``pad_dim`` its pad-to-divisible
-sharding (``_partition_spec``, ``compiler.py:286-330``: a dim that does
-not divide the axis pads to the next multiple, unless that would at
-least double it, which keeps the variable replicated with the JAX
-warning).
+mesh (``data``, ``expert``, ``seq`` and ``model`` axes).  Each
+per-variable config becomes a :class:`VarPlan`; ``param_spec`` and
+``opt_spec`` are the JAX plan's ``PartitionSpec`` entries as a tuple
+(trailing Nones trimmed, ``()`` replicated), ``pad_axis``/``pad_dim``
+its pad-to-divisible sharding (``_partition_spec``,
+``compiler.py:286-330``: a dim that does not divide the axis pads to the
+next multiple, unless that would at least double it, which keeps the
+variable replicated with the JAX warning).
 
 * **AllReduce** plans average the gradient over ``data`` and carry
   ``compressor``, ``sync_mode`` (``"reduce_scatter"`` for ZeRO-1 weight-
@@ -35,6 +35,15 @@ warning).
   ``local_replication`` (proxy variables), which the step runs
   (``kernel/synchronization/stale_sync.py``).  ``sync=False`` is carried
   along and the step stays bulk-synchronous, as in the JAX package.
+* **The expert axis** is structural (``compiler.py:401-469``): dim 0 of
+  an ``expert_vars`` stack shards over ``expert`` after the
+  synchronizer's lowering (under AllReduce after the partition, under PS
+  before ``_wus_opt_spec`` fills a free dim with ``data``), in every plan,
+  the untouched variables' too; a partitioner may not claim that dim.  A
+  stack sharded over ``expert`` alone takes the per-shard tier as a
+  model-sharded variable does (:func:`per_shard_spec`); a stack sharded
+  over two axes is replicated on the bucketed step, with the JAX
+  warning.
 * **Parameter storage over data** (``storage_axis``): the dim the JAX
   lowering shards the parameter over ``data`` between steps on a mesh
   without ``model`` (its ``param_spec``): a partitioner's axis under PS,
@@ -68,7 +77,8 @@ import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from autodist_tpu_torch.const import MESH_AXIS_DATA, MESH_AXIS_MODEL
+from autodist_tpu_torch.const import (MESH_AXIS_DATA, MESH_AXIS_EXPERT,
+                                      MESH_AXIS_MODEL, SHARD_AXES)
 from autodist_tpu_torch.kernel.synchronization.bucketing import \
     MODE_REDUCE_SCATTER
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
@@ -143,9 +153,10 @@ class VarPlan:
 
     @property
     def model_sharded(self) -> bool:
-        """Does ``param_spec`` shard a dim over ``model`` without padding
-        it (the sharding the bucketed step keeps)?"""
-        return MESH_AXIS_MODEL in self.param_spec and self.pad_axis is None
+        """Does ``param_spec`` shard a dim over ``model`` or ``expert``
+        without padding it (a sharding the bucketed step keeps)?"""
+        return self.pad_axis is None and any(
+            a in SHARD_AXES for a in self.param_spec)
 
     def stored_at(self, data: int) -> bool:
         """Is the parameter stored 1/N at data size ``data``?  Not when
@@ -270,12 +281,50 @@ class StrategyCompiler:
             plans[var.name] = self._compile_node(node, var)
         for name, var in known.items():
             if var.trainable and name not in plans:
-                plans[name] = VarPlan(var_name=name)   # replicate + average
+                # replicate + average, the expert stacking still applied
+                spec = self._apply_structural_specs(var, ())
+                plans[name] = VarPlan(var_name=name, param_spec=spec,
+                                      opt_spec=spec)
         return CompiledStrategy(strategy=strategy, mesh=self.mesh,
                                 var_plans=plans, num_slices=self.num_slices)
 
+    def _structural_spec(self, var, spec, target: int, mesh_axis: str,
+                         label: str):
+        """``spec`` with dim ``target`` of ``var`` over ``mesh_axis`` when
+        it divides the axis; otherwise ``spec`` as it is, with the JAX
+        warning."""
+        size = self._size(mesh_axis)
+        if size <= 1 or len(var.shape) <= target:
+            return spec
+        if var.shape[target] % size:
+            _warn_once(
+                "%s variable %s dim %d (size %d) is not divisible by the %r "
+                "axis (size %d); keeping it replicated", label, var.name,
+                target, var.shape[target], mesh_axis, size)
+            return spec
+        entries = list(spec) + [None] * (len(var.shape) - len(spec))
+        entries[target] = mesh_axis
+        return spec_from_entries(entries)
+
+    @staticmethod
+    def _structural_axes(var) -> Tuple[int, ...]:
+        """The dims the expert stacking owns (a strategy partitioner may
+        not claim them): dim 0 of an ``expert_vars`` stack."""
+        return (0,) if var.expert else ()
+
+    def _apply_structural_specs(self, var, spec):
+        """The expert stack's leading dim over ``expert``, after the
+        synchronizer's lowering (so it composes with a ``model`` or
+        ``data`` sharding of another dim)."""
+        if var.expert:
+            spec = self._structural_spec(var, spec, 0, MESH_AXIS_EXPERT,
+                                         "expert")
+        return spec
+
     def _compile_node(self, node, var) -> VarPlan:
         axis, num_shards = parse_partitioner(node.partitioner)
+        if axis in self._structural_axes(var):
+            axis, num_shards = None, 1      # owned by the expert stacking
         if axis is not None and (len(var.shape) <= axis
                                  or var.shape[axis] < 2):
             raise ValueError(
@@ -292,14 +341,20 @@ class StrategyCompiler:
             if sparse_shard:
                 spec, pad = self._partition_spec(
                     var, 0, model_axis or MESH_AXIS_DATA)
-            opt_spec = spec if spec else self._wus_opt_spec(var, spec)
+            if var.expert:
+                # the expert dim over expert, then WUS fills a free dim
+                # with data (a no-op when the spec already carries it)
+                spec = self._apply_structural_specs(var, spec)
+                opt_spec = self._wus_opt_spec(var, spec)
+            else:
+                opt_spec = spec if spec else self._wus_opt_spec(var, spec)
             storage = None
             if model_axis is None:
                 storage = 0 if sparse_shard else axis
-            per_shard = bool(spec) and model_axis is not None and pad is None
             return VarPlan(
                 var_name=var.name, sync_kind="PS",
-                sync_mode="all_reduce" if per_shard else MODE_REDUCE_SCATTER,
+                sync_mode=("all_reduce" if per_shard_spec(spec, pad)
+                           else MODE_REDUCE_SCATTER),
                 reduction_destination=sync.reduction_destination,
                 partition_axis=axis, num_shards=num_shards,
                 sparse=var.sparse, staleness=int(sync.staleness),
@@ -311,6 +366,7 @@ class StrategyCompiler:
         if not isinstance(sync, AllReduceSynchronizerConfig):
             raise ValueError(f"node {node.var_name} has no synchronizer")
         spec, pad = self._partition_spec(var, axis, model_axis)
+        spec = self._apply_structural_specs(var, spec)
         return VarPlan(
             var_name=var.name, compressor=sync.compressor, group=sync.group,
             fused=sync.fused, sync_mode=sync.sync or "all_reduce",
@@ -320,3 +376,13 @@ class StrategyCompiler:
             num_shards=num_shards if model_axis else 1, sparse=var.sparse,
             param_spec=spec, opt_spec=spec,
             pad_axis=pad[0] if pad else None, pad_dim=pad[1] if pad else 0)
+
+
+
+def per_shard_spec(spec, pad) -> bool:
+    """Does a PS plan's ``spec`` shard one dim, over ``model`` or
+    ``expert``, unpadded?  Its gradient is then an ``"all_reduce"`` of the
+    shard over ``data`` (the bucketed step's per-shard tier) instead of a
+    reduce-scatter."""
+    axes = [a for a in spec if a is not None]
+    return pad is None and len(axes) == 1 and axes[0] in SHARD_AXES

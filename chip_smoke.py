@@ -310,6 +310,25 @@ Phases, each printing one JSON line:
    heads and K2/K3 once in the backward of a fixed cotangent; the
    gathered output and dq/dk/dv equal the unsharded one-card K1–K3
    results bit for bit (else within rtol/atol 1e-5, reported);
+12f. the ``expert`` mesh axis: ``moe_reference`` in the main process
+   after ``tp_reference``: ``moe_transformer_lm()`` at the JAX defaults
+   (vocab 32128, 12 layers, 12 x 64 heads, d_ff 3072, 8 experts, seq
+   1024, random weights from seed 0) with its attention through K1–K3,
+   batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the clip,
+   1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR
+   predicts, finite falling losses, ``grad_health`` finite; ms per step,
+   tokens/s, peak memory and ``mfu_f32`` over :func:`moe_flops_per_step`
+   (the one-hot dispatch and combine einsums counted).  Last on the ring
+   ranks, ``moe_ffn_ep``: ``moe_ffn(mesh=)`` on ``{"expert": 4}`` with 2
+   of 8 experts a rank at the LM's layer shape (8 x 1024 x 768, d_ff
+   3072), forward and backward, against the one-card call within
+   rtol/atol 1e-5, and the int8 wire's exact construction (d_model 256,
+   identity experts) bit for bit; then ``moe_ep``: the reference's
+   program on ``{"data": 2, "expert": 2}``, 1 + 1 steps, K1–K3 12 a step
+   a rank, K4/K5 as the IR predicts, one digest, each rank holding
+   exactly half of every expert stack's bytes and of their moments, rank
+   0's losses and global norms within rtol 1e-4 of ``moe_reference``'s
+   first; ms per step and peak memory per rank over its entry;
 12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
    of ``chip_smoke.py --replica`` processes (the full-width paged
    server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
@@ -403,6 +422,9 @@ instantiation's ``ptxas`` line), and K4/K5 at one of lm1b's tables
 which parameters differed) and a count of the runs that diverged; it
 exits 1 when one did, and stops at any other failure.
 
+``python3 chip_smoke.py --moe`` builds the kernels and runs only
+``moe_reference`` and the ring's ``moe_ffn_ep`` and ``moe_ep``.
+
 ``python3 chip_smoke.py --collective-alpha`` measures only the launch
 latency of one collective (the cost model's ``COLLECTIVE_ALPHA``) and of
 a trivial kernel, and their ratio, which the ``auto`` phase's gate
@@ -444,7 +466,8 @@ under ``bert_shape``, ``train_fit``'s in ``launches_by_path``), the 13
 ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
 ``train_fit``, ``train_remat``'s configurations (K1–K5),
 ``train_bf16_state`` (K1–K5), the export's serving process (K1, K10),
-``train_parallax``, rank 0's ``ps_lb``, ``train_accum``, ``train_stale``,
+``train_parallax``, rank 0's ``ps_lb``, ``moe_reference`` and rank 0's
+``moe_ep`` (K1–K5), ``train_accum``, ``train_stale``,
 rank 0's ``train_p6`` configurations (K1–K8), ``train_vgg16``,
 ``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 6
 quantized-ring
@@ -458,6 +481,7 @@ prints no result.
 import hashlib
 import importlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -546,6 +570,20 @@ TP_LOSS_RTOL = 1e-4
 FLASH_MODEL = "flash_model"
 FLASH_MODEL_AXES = {"model": 4}
 FLASH_MODEL_TOL = 1e-5
+#: the expert axis: the one-card MoE reference's steps (its first 1 + 1
+#: losses hold ``moe_ep``'s), the ring configuration's mesh and steps,
+#: rank 0's losses and global norms against the reference's, and
+#: ``moe_ffn_ep``'s mesh, tolerance and int8 construction (d_model 256,
+#: identity experts, integer tokens with every block's amax 127)
+MOE_REF_WARMUP, MOE_REF_TIMED = 1, 3
+MOE_EP = "moe_ep"
+MOE_EP_AXES = {"data": 2, "expert": 2}
+MOE_EP_WARMUP, MOE_EP_TIMED = 1, 1
+MOE_LOSS_RTOL = 1e-4
+MOE_FFN_EP = "moe_ffn_ep"
+MOE_FFN_AXES = {"expert": 4}
+MOE_FFN_TOL = 1e-5
+MOE_EXACT = dict(g=8, s=8, m=256, e=8)
 #: the ``long_context`` twin on the ring ranks, and its K1–K3 a step (2
 #: layers x 4 ring blocks) over its 3 warm-up, 1 + 19 timed and 1 closing
 #: steps (``benchmark.common.run_benchmark``'s defaults)
@@ -3860,21 +3898,24 @@ def phase_tp_reference(torch):
             "launches": launches, "launches_per_step": want}
 
 
-def _tp_bytes(torch, sess) -> dict:
-    """The bytes this rank holds of its model-sharded parameters and of
-    their Adam moments, beside the plan's count (each kept sharding's
-    logical bytes over the model size; two moments each); raises unless
-    they agree."""
+def _shard_bytes(torch, sess) -> dict:
+    """The bytes this rank holds of its model- or expert-sharded
+    parameters and of their Adam moments, beside the plan's count (each
+    kept sharding's logical bytes over its axis's size; two moments
+    each); raises unless they agree."""
     from autodist_tpu_torch.graph_item import flatten
     from autodist_tpu_torch.kernel.graph_transformer import map_model_leaves
 
     step = sess._step
     infos = {v.name: v for v in sess._gi.info.variables}
-    m = sess.mesh.model_size
-    plan = sum(infos[n].byte_size for n, p in
-               step.compiled_strategy.var_plans.items()
-               if p.model_sharded) // m
+    shape = sess.mesh.shape
+    plan = sum(infos[n].byte_size // math.prod(shape.get(a, 1)
+                                               for a in p.param_spec if a)
+               for n, p in step.compiled_strategy.var_plans.items()
+               if p.model_sharded)
     logical = sum(infos[n].byte_size for n in step.model_shards)
+    per_rank = sum(infos[n].byte_size // k
+                   for n, (_, k, _) in step.model_shards.items())
     held = sum(x.numel() * x.element_size()
                for n, x in flatten(sess.device_params)
                if n in step.model_shards)
@@ -3888,7 +3929,7 @@ def _tp_bytes(torch, sess) -> dict:
            "param_bytes_held": held,
            "plan_moment_bytes_per_rank": 2 * plan,
            "moment_bytes_held": sum(moments)}
-    if not (step.model_shards and held == plan == logical // m
+    if not (step.model_shards and held == plan == per_rank
             and sum(moments) == 2 * plan):
         raise AssertionError(f"model shards: {out}")
     return out
@@ -3912,7 +3953,7 @@ def _tp_train(torch, name):
     sess, batch = _tp_session(spec, axes, mesh)
     if {k: v for k, v in sess.mesh.shape.items() if v > 1} != axes:
         raise AssertionError(f"{name}: mesh {sess.mesh.shape}")
-    held = _tp_bytes(torch, sess)
+    held = _shard_bytes(torch, sess)
     want = _ir_predicted_launches(sess.schedule_ir, TP_FLASH[name])
     losses, norms, step_s, launches = _checked_steps(
         torch, name, sess, batch, want, TP_WARMUP, TP_TIMED, guarded=True)
@@ -4014,6 +4055,259 @@ def check_tp(ring, ref, smi) -> dict:
           **ring[FLASH_MODEL]})
     paths[FLASH_MODEL + " (rank 0)"] = ring[FLASH_MODEL]
     return paths
+
+
+def moe_flops_per_step(cfg, batch: int, capacity_factor: float = 2.0
+                       ) -> dict:
+    """Model FLOPs of one training step of ``moe_transformer_lm``: 6 per
+    token and weight of the attention projections and the tied head; the
+    experts at their capacity (``E·C`` slots a group, full or not: the
+    one-hot formulation computes every slot), 3 passes; the dispatch and
+    combine einsums, ``2·G·S·E·C·M`` each a pass, the dispatch in 2
+    (forward and the input's gradient: the one-hot takes none) and the
+    combine in 3; the router, 3 passes; and the nine causal ``T x T x D``
+    products of the flash kernels a layer."""
+    d = cfg["num_heads"] * cfg["head_dim"]
+    t, e, f = cfg["seq_len"], cfg["num_experts"], cfg["d_ff"]
+    layers = cfg["num_layers"]
+    c = max(1, int(capacity_factor * t / e))
+    tokens = batch * t
+    dense = 6.0 * tokens * (layers * 4 * d * d + cfg["vocab_size"] * d)
+    experts = 3 * 4.0 * e * batch * c * d * f * layers
+    routing = (2 + 3) * 2.0 * batch * t * e * c * d * layers
+    router = 3 * 2.0 * tokens * d * e * layers
+    attn = 9 * 2.0 * batch * cfg["num_heads"] * t * (t + 1) // 2 \
+        * cfg["head_dim"] * layers
+    total = dense + experts + routing + router + attn
+    return {"projections_and_head": dense, "experts": experts,
+            "dispatch_and_combine": routing, "router": router,
+            "attention": attn, "total": total, "capacity": c}
+
+
+def _moe_spec(mesh=None):
+    """``moe_transformer_lm`` at the repo's defaults, its attention through
+    K1–K3 (``attn_fn`` defaults to dense, as in the JAX package)."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    from autodist_tpu_torch.models.moe_lm import moe_transformer_lm
+
+    return moe_transformer_lm(mesh, attn_fn=fa.flash_attention)
+
+
+def _moe_session(spec, axes=None, mesh=None):
+    """``PSLoadBalancing()`` (the facade's default builder, named) with
+    ``fusable_adam(1e-3)`` and the clip on the MoE LM through the facade
+    (on ``axes``; one card without), its expert stacks flagged: the
+    session and the fixed batch of 8 rows."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(strategy_builder=PSLoadBalancing(), mesh_axes=axes)
+    with ad.scope():
+        ad.capture(params=lm_params(spec), optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                   expert_vars=spec.expert_vars,
+                   numerics={"clip_norm": CLIP_NORM})
+    return (ad.create_distributed_session(mesh=mesh),
+            spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED))
+
+
+def phase_moe_reference(torch):
+    """``moe_reference``: the MoE LM at the JAX defaults (vocab 32128, 12
+    layers, 12 x 64 heads, d_ff 3072, 8 experts, seq 1024) on one card,
+    batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the clip,
+    1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR predicts,
+    finite falling losses, every step's ``grad_health`` finite; ms per
+    step, tokens/s, peak memory and ``mfu_f32`` from the written-out
+    FLOPs.  Its losses and global norms hold ``moe_ep``'s."""
+    spec = _moe_spec()
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    sess, batch = _moe_session(spec)
+    build_s = time.perf_counter() - t0
+    cfg = spec.config
+    want = _ir_predicted_launches(sess.schedule_ir, cfg["num_layers"])
+    losses, norms, step_s, launches = _checked_steps(
+        torch, "moe_reference", sess, batch, want, MOE_REF_WARMUP,
+        MOE_REF_TIMED, guarded=True)
+    _check_falling(losses)
+    infos = sess._gi.info.variables
+    step = statistics.median(step_s)
+    flops = moe_flops_per_step(cfg, TRAIN_SHAPE["B"])
+    out = {"builder": "PSLoadBalancing", "config": cfg,
+           "params": sum(int(np.prod(v.shape)) for v in infos),
+           "param_bytes": sum(v.byte_size for v in infos),
+           "expert_param_bytes": sum(v.byte_size for v in infos
+                                     if v.expert),
+           "session_build_s": build_s, "losses": losses,
+           "global_norms": norms, "ms_per_step": step * 1e3,
+           "ms_per_step_min": min(step_s) * 1e3,
+           "ms_per_step_max": max(step_s) * 1e3,
+           "tokens_per_s": TRAIN_SHAPE["B"] * cfg["seq_len"] / step,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_tflop_per_step": flops["total"] / 1e12,
+           "model_tflop_split": {k: v / 1e12 for k, v in flops.items()
+                                 if k != "capacity"},
+           "capacity": flops["capacity"],
+           "mfu_f32": flops["total"] / step / H100_F32_FLOPS,
+           "launches": launches, "launches_per_step": want}
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_ep_train(torch):
+    """``moe_ep`` on this rank: the MoE LM on :data:`MOE_EP_AXES` (its
+    MoE layers given the mesh), ``moe_reference``'s program; the session
+    and its numbers (rank-identical parameters are the caller's check,
+    the losses against ``moe_reference`` the main process's)."""
+    from autodist_tpu_torch.mesh import build_mesh
+
+    _fresh_peak(torch)
+    at_entry = torch.cuda.memory_allocated()
+    mesh = build_mesh(MOE_EP_AXES)
+    spec = _moe_spec(mesh)
+    sess, batch = _moe_session(spec, MOE_EP_AXES, mesh)
+    if {k: v for k, v in sess.mesh.shape.items() if v > 1} != MOE_EP_AXES:
+        raise AssertionError(f"{MOE_EP}: mesh {sess.mesh.shape}")
+    held = _shard_bytes(torch, sess)
+    stacks = sorted(v.name for v in sess._gi.info.variables if v.expert)
+    sharded = sorted(sess._step.model_shards)
+    if sharded != stacks:
+        raise AssertionError(f"{MOE_EP}: sharded {sharded}, expert stacks "
+                             f"{stacks}")
+    want = _ir_predicted_launches(sess.schedule_ir,
+                                  spec.config["num_layers"])
+    losses, norms, step_s, launches = _checked_steps(
+        torch, MOE_EP, sess, batch, want, MOE_EP_WARMUP, MOE_EP_TIMED,
+        guarded=True)
+    return sess, {
+        "mesh": dict(MOE_EP_AXES), "builder": "PSLoadBalancing",
+        "schedule_fingerprint": sess.schedule_fingerprint,
+        "losses": losses, "global_norms": norms, **held,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                             "(host-staged expert gathers and reductions)",
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_entry": at_entry,
+        "peak_over_entry": torch.cuda.max_memory_allocated() - at_entry,
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
+
+
+def _moe_ffn_ep(torch) -> dict:
+    """``moe_ffn_ep`` on this rank: ``moe_ffn(mesh=)`` on
+    :data:`MOE_FFN_AXES` with this rank's 2 of the 8 experts, at the MoE
+    LM's layer shape (8 x 1024 x 768, d_ff 3072), forward and the
+    backward of a fixed cotangent, against the one-card call on the same
+    inputs and all 8 experts (this process) within rtol/atol
+    :data:`MOE_FFN_TOL`: ``y``, aux, the gradients of x, the router and
+    this rank's experts; then the int8 wire's exact construction
+    (:data:`MOE_EXACT`), the quantized run equal to the f32 run bit for
+    bit.  Neither launches a kernel of K1–K10."""
+    from autodist_tpu_torch.mesh import build_mesh
+    from autodist_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+
+    _fresh_peak(torch)
+    mesh = build_mesh(MOE_FFN_AXES)
+    n, r = mesh.expert_size, mesh.expert_rank
+    if n != RING_RANKS:
+        raise AssertionError(f"{MOE_FFN_EP}: mesh {mesh.shape}")
+    b, t = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
+    m = TRAIN_SHAPE["H"] * TRAIN_SHAPE["D"]
+    params = init_moe_params(SEED, m, 3072, 8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(b, t, m, device="cuda", generator=gen)
+    dy = torch.randn(b, t, m, device="cuda", generator=gen)
+
+    def run(p, mesh_):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xx = x.clone().requires_grad_(True)
+        y, aux = moe_ffn(leaves, xx, mesh=mesh_)
+        ((y * dy).sum() + aux).backward()
+        torch.cuda.synchronize()
+        return {"y": y.detach(), "aux": aux.detach(), "dx": xx.grad,
+                **{f"d{k}": v.grad for k, v in leaves.items()}}
+
+    ref = run(params, None)
+    mine = {k: v if k == "router" else v.chunk(n)[r].clone()
+            for k, v in params.items()}
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    got = run(mine, mesh)
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    for k in ("dwi", "dwo"):
+        ref[k] = ref[k].chunk(n)[r]
+    err = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=MOE_FFN_TOL,
+                                   atol=MOE_FFN_TOL, msg=k)
+    g, s, em, e = (MOE_EXACT[k] for k in "gsme")
+    eye = torch.eye(em, device="cuda").expand(e // n, em, em).contiguous()
+    exact = {"router": torch.randn(em, e, device="cuda", generator=gen),
+             "wi": eye, "wo": eye.clone()}
+    tokens = torch.randint(-126, 127, (g, s, em), device="cuda",
+                           generator=gen).float()
+    tokens[:, :, 0] = 127.0
+    runs = {wire: moe_ffn(exact, tokens, mesh=mesh, wire=wire,
+                          capacity_factor=float(e), activation=lambda v: v)
+            for wire in (None, "int8")}
+    bit_equal = all(torch.equal(a, b) for a, b in zip(runs[None],
+                                                      runs["int8"]))
+    if not bit_equal:
+        raise AssertionError(f"{MOE_FFN_EP}: the int8 wire changed the "
+                             f"grid-exact construction's output")
+    if any(launches.values()):
+        raise AssertionError(f"{MOE_FFN_EP}: launched {launches}")
+    return {"mesh": MOE_FFN_AXES, "shape": [b, t, m], "d_ff": 3072,
+            "experts": 8, "experts_per_rank": 8 // n,
+            "max_abs_err": err, "rtol": MOE_FFN_TOL, "atol": MOE_FFN_TOL,
+            "int8_exact": {"shape": [g, s, em], "experts": e,
+                           "bit_equal_to_f32_wire": bit_equal},
+            "fwd_bwd_wall_ms": wall * 1e3,
+            "wall_label": "4 ranks time-sharing one card over gloo "
+                          "(host-staged all-to-alls)",
+            "launches": launches}
+
+
+def _moe_ring(torch, out, stamp) -> None:
+    """The expert axis's ring configurations on this rank, into ``out``:
+    ``moe_ffn_ep``, then ``moe_ep``."""
+    out[MOE_FFN_EP] = _moe_ffn_ep(torch)
+    stamp(MOE_FFN_EP)
+    sess, out[MOE_EP] = _moe_ep_train(torch)
+    del sess
+    torch.cuda.empty_cache()
+    stamp(MOE_EP)
+
+
+def check_moe(ring, ref, smi) -> dict:
+    """Rank 0's ``moe_ep`` losses and global norms (the guard's roll-up
+    over every rank, each expert shard counted once) against
+    ``moe_reference``'s first at :data:`MOE_LOSS_RTOL`; emits its line
+    and ``moe_ffn_ep``'s; returns K1–K5's launches by path."""
+    out = ring[MOE_EP]
+    rels = {}
+    for key in ("losses", "global_norms"):
+        want = ref[key][:len(out[key])]
+        rels[key] = max(abs(a - b) / abs(b) for a, b in zip(out[key], want))
+        if not rels[key] <= MOE_LOSS_RTOL:
+            raise AssertionError(
+                f"{MOE_EP}: rank 0's {key} {out[key]} differ from the "
+                f"one-card run's {want} by {rels[key]:.2e}")
+    emit({"phase": MOE_EP, "card": smi, "ranks": RING_RANKS,
+          "params_identical_across_ranks": True,
+          "one_card_losses": ref["losses"][:len(out["losses"])],
+          "one_card_global_norms":
+              ref["global_norms"][:len(out["global_norms"])],
+          "max_rel_diff_vs_one_card": rels["losses"],
+          "max_rel_norm_diff_vs_one_card": rels["global_norms"],
+          "rtol": MOE_LOSS_RTOL, **out})
+    emit({"phase": MOE_FFN_EP, "card": smi, "ranks": RING_RANKS,
+          **ring[MOE_FFN_EP]})
+    return {MOE_EP + " (rank 0)": out}
 
 
 def phase_train_parallax(torch, ps_out):
@@ -5387,6 +5681,10 @@ def ring_worker(rank: int, init: str, mode: str,
             stamp("long_context")
             print("RING_RESULT " + json.dumps(out), flush=True)
             return 0
+        if mode == "moe":
+            _moe_ring(torch, out, stamp)
+            print("RING_RESULT " + json.dumps(out), flush=True)
+            return 0
         if mode == "elastic":
             sess, out[PS_LB_CONFIG] = _ps_lb_train(torch)
             out[PS_LB_CONFIG]["elastic_donor"] = _ps_lb_donor(
@@ -5440,6 +5738,7 @@ def ring_worker(rank: int, init: str, mode: str,
         out["long_context"] = _long_context_twin(torch)
         stamp("long_context")
         _tp_ring(torch, out, stamp)
+        _moe_ring(torch, out, stamp)
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -5587,11 +5886,14 @@ def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
     if mode == "seq":
         _check_rank_results(results, SEQ_CONFIGS)
         return results[0], wall, None
+    if mode == "moe":
+        _check_rank_results(results, (MOE_EP,))
+        return results[0], wall, None
     if mode != "smoke":
         return results[0], wall, None
     _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
                         + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS
-                        + TP_CONFIGS)
+                        + TP_CONFIGS + (MOE_EP,))
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
@@ -5616,8 +5918,8 @@ def _check_rank_results(results, configs) -> None:
             if res[config]["launches"] != results[0][config]["launches"]:
                 raise AssertionError(f"{config}: ranks launched "
                                      f"differently")
-    for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG, *TP_CONFIGS} \
-            & set(configs):
+    for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG, *TP_CONFIGS,
+                   MOE_EP} & set(configs):
         fps = [res[config]["schedule_fingerprint"] for res in results]
         if len(set(fps)) != 1:
             raise AssertionError(f"{config}: schedule fingerprints by rank "
@@ -6959,6 +7261,27 @@ def seq_only(torch) -> int:
     return 0
 
 
+def moe_only(torch) -> int:
+    """``--moe``: the build, ``moe_reference`` and the ring ranks'
+    ``moe_ffn_ep`` and ``moe_ep``, with their checks."""
+    from autodist_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "build_s": time.perf_counter() - t0})
+    ref = phase_moe_reference(torch)
+    emit({"phase": "moe_reference", "card": smi, **ref})
+    _fresh_peak(torch)
+    ring, wall, _ = phase_train_ring(mode="moe")
+    check_moe(ring, ref, smi)
+    emit({"phase": "moe_only", "ring_wall_s": wall,
+          "rank0_t_s": ring["t_s"]})
+    print(smi, flush=True)
+    return 0
+
+
 def ring_repeat(torch, times: int) -> int:
     """``train_ring`` ``times`` times in a row: each repetition's outcome
     (rank digests agree, or which parameters differ) as one JSON line, then
@@ -7156,6 +7479,8 @@ def main() -> int:
         return tune_only(torch)
     if "--seq" in sys.argv:
         return seq_only(torch)
+    if "--moe" in sys.argv:
+        return moe_only(torch)
     if "--resilience" in sys.argv:
         return resilience_only(torch)
     if "--p6-lr-control" in sys.argv:
@@ -7279,6 +7604,8 @@ def main() -> int:
     emit({"phase": "train_parallax", "card": smi, **parallax_out})
     tp_ref = phase_tp_reference(torch)
     emit({"phase": "tp_reference", "card": smi, **tp_ref})
+    moe_ref = phase_moe_reference(torch)
+    emit({"phase": "moe_reference", "card": smi, **moe_ref})
     for row in sync_rows:
         row["launches_by_path"] = {
             path: {"launches": out["launches"][row["name"]],
@@ -7390,6 +7717,8 @@ def main() -> int:
             "per_step": tune_ring["launches_per_step_after"][row["name"]]}
     seq_paths = check_seq(ring, train_out["losses"], smi)
     tp_paths = check_tp(ring, tp_ref, smi)
+    tp_paths.update(check_moe(ring, moe_ref, smi))
+    tp_paths["moe_reference"] = moe_ref
     for row in flash_rows + sync_rows:
         row["launches_by_path"].update({
             path: {"launches": out["launches"][row["name"]],

@@ -11,8 +11,9 @@
   sync state, activations) are equal at rtol 1e-9 for adam, adamw, sgd
   with momentum and adagrad, plain and under ``cast_opt_state``, for
   replicated, PS and ZeRO-1 plans;
-* a case that needs a ``model``, ``pipe`` or ``expert`` axis is held to
-  the port's P10 ERROR (``legality/axis-not-ported``);
+* a case that needs a ``pipe`` axis is held to the port's P10 ERROR
+  (``legality/axis-not-ported``); ``model`` and ``expert`` meshes are
+  lowered;
 * ``preflight``, ``create_distributed_session(validate=True)`` and
   ``fit(validate=True)`` raise ``StrategyValidationError`` on an illegal
   plan before any step runs, and pass a legal one.
@@ -308,18 +309,18 @@ def test_memory_terms_equal_jax(opt, cast, plan, d):
                                   {"model": 2, "data": 4},
                                   {"expert": 2, "data": 4}))
 def test_non_data_axes_are_a_p10_error(mesh):
-    """``pipe`` and ``expert`` are ``legality/axis-not-ported`` (on the mesh
-    or in the strategy's hint); ``model`` is lowered now, so a model mesh
-    raises nothing and a pipe hint beside it still does."""
+    """``pipe`` is ``legality/axis-not-ported`` (on the mesh or in the
+    strategy's hint); ``model`` and ``expert`` are lowered now, so their
+    mesh raises nothing and a pipe hint beside them still does."""
     jgi, pgi = _programs(GI)
     report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
                      mesh=mesh)
     errs = report.by_rule("legality/axis-not-ported")
     (axis,) = [a for a, n in mesh.items() if a != "data"]
     hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    if axis == "model":
+    if axis in ("model", "expert"):
         assert not errs
-        hinted.graph_config.mesh_axes = {"model": 2, "pipe": 2}
+        hinted.graph_config.mesh_axes = {axis: 2, "pipe": 2}
         assert [d.location for d in analyze(hinted, pgi, mesh=mesh).by_rule(
             "legality/axis-not-ported")] == ["pipe"]
         return
@@ -332,17 +333,18 @@ def test_non_data_axes_are_a_p10_error(mesh):
 
 def test_seq_axis_is_lowered_not_a_p10_error():
     """The port lowers the seq axis: a data × seq mesh and a seq hint raise
-    no ``legality/axis-not-ported``; nor does a model hint beside it, while
-    an expert hint still does."""
+    no ``legality/axis-not-ported``; nor do model and expert hints beside
+    it, while a pipe hint still does."""
     jgi, pgi = _programs(GI)
     report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
                      mesh={"data": 4, "seq": 2})
     assert not report.by_rule("legality/axis-not-ported")
     hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2, "expert": 2}
+    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2, "expert": 2,
+                                     "pipe": 2}
     errs = analyze(hinted, pgi, mesh=AXES8).by_rule(
         "legality/axis-not-ported")
-    assert [d.location for d in errs] == ["expert"]
+    assert [d.location for d in errs] == ["pipe"]
 
 
 # -- the validate hooks --------------------------------------------------------

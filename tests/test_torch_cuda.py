@@ -857,3 +857,59 @@ def test_bf16_lm_trains_a_step_through_the_f32_flash_kernels(dev):
     assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
     assert np.isfinite(loss)
     assert sess.device_params["embed"].dtype == torch.bfloat16
+
+
+def test_moe_lm_step_on_the_card_launches_k1_k3_and_matches_the_cpu(dev):
+    """One step of the MoE LM (2 layers, 4 experts, the JAX test's other
+    widths and seq 64) through the facade's default ``PSLoadBalancing``
+    with ``fusable_adam`` and the clip, its attention through
+    ``flash_attention``: on the card K1–K3 once per layer each, K4/K5 as
+    the schedule IR predicts; the loss, the global norm and the updated
+    parameters at rtol 1e-4 of the CPU run's (K1–K5's plain versions)."""
+    import os
+
+    from autodist_tpu_torch.autodist import (
+        AutoDist, _reset_default_autodist_for_testing)
+    from autodist_tpu_torch.graph_item import flatten
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.models.moe_lm import moe_transformer_lm
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    os.environ["AUTODIST_IS_TESTING"] = "True"
+    layers = 2
+    spec = moe_transformer_lm(
+        None, vocab_size=64, num_layers=layers, num_heads=2, head_dim=16,
+        d_ff=32, num_experts=4, max_len=64, attn_fn=fa.flash_attention)
+    batch = spec.sample_batch(4)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _reset_default_autodist_for_testing()
+        ad = AutoDist(strategy_builder=PSLoadBalancing(), device=device)
+        with ad.scope():
+            ad.capture(params=spec.init(0, device="cpu"),
+                       optimizer=fk.fusable_adam(1e-3),
+                       loss_fn=spec.loss_fn, sparse_vars=spec.sparse_vars,
+                       expert_vars=spec.expert_vars,
+                       numerics={"clip_norm": 1.0})
+        sess = ad.create_distributed_session()
+        fa.reset_counts()
+        k4, k5 = fk.fused_detect_stats.calls, fk.fused_adam_update.calls
+        out = sess.run(batch)
+        launched = (fa.flash_attention.fwd_calls, fa.flash_attention.dq_calls,
+                    fa.flash_attention.dkv_calls,
+                    fk.fused_detect_stats.calls - k4,
+                    fk.fused_adam_update.calls - k5)
+        ir = sess.schedule_ir
+        want = (layers, layers, layers,
+                2 * sum(leg.kind == sir.LEG_FUSED_DETECT for leg in ir.legs),
+                sum(leg.kind == sir.LEG_FUSED_UPDATE for leg in ir.legs))
+        assert launched == (want if device == "cuda" else (0,) * 5)
+        assert bool(out["grad_health"].all_finite)
+        runs[device] = (float(out["loss"]),
+                        float(out["grad_health"].global_norm),
+                        dict(flatten(sess.params)))
+    (gl, gn, gp), (wl, wn, wp) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose([gl, gn], [wl, wn], rtol=1e-4)
+    for n in wp:
+        np.testing.assert_allclose(gp[n], wp[n], rtol=1e-4, atol=1e-6,
+                                   err_msg=n)

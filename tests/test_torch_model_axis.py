@@ -2,7 +2,8 @@
 
 * ``build_mesh`` over ``{"data": 2, "model": 2}`` and ``{"model": 2,
   "seq": 2}`` on 4 gloo ranks: the ranks of a model group are adjacent;
-  ``pipe`` and ``expert`` still raise naming P10;
+  ``pipe`` still raises naming P10 (the expert axis's layout is
+  ``tests/test_torch_moe.py``'s);
 * the compiler's plans on a model mesh equal the JAX compiler's
   ``VarPlan`` layouts for all 8 builders (``param_spec``, ``opt_spec``,
   the pad, the partition fields), with a padded and a "more than
@@ -183,7 +184,7 @@ def test_mesh_layout_on_four_ranks(ranks):
                                             2, 2]
 
 
-@pytest.mark.parametrize("axis", ["pipe", "expert"])
+@pytest.mark.parametrize("axis", ["pipe"])
 def test_pipe_and_expert_still_raise_naming_p10(axis):
     with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
         build_mesh({axis: 2, "model": 1}, device="cpu")

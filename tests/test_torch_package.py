@@ -412,7 +412,8 @@ def _public(module):
                                    ".resilience.supervisor",
                                    ".resilience.elastic", ".serving",
                                    ".serving.router", ".serving.server",
-                                   ".runtime", ".parallel"])
+                                   ".runtime", ".parallel",
+                                   ".models.moe_lm"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -496,7 +497,6 @@ def _stub_calls(spec, ad, sess):
     return {
         **{f"parallel.{n}": (getattr(parallel, n), P10)
            for n in PARALLEL_STUBS},
-        "models.moe_transformer_lm": (models.moe_transformer_lm, P10),
         "models.pipelined_transformer_lm": (models.pipelined_transformer_lm,
                                             P10),
         "models.pipelined_moe_transformer_lm": (
@@ -526,12 +526,11 @@ def _stub_calls(spec, ad, sess):
 
 
 #: the P10 names of ``autodist_tpu_torch.parallel`` that raise (its
-#: sequence-parallel attention runs)
-PARALLEL_STUBS = ["moe_ffn", "init_moe_params", "pipeline_apply",
-                  "stack_stage_params", "one_f_one_b", "schedule_ticks_1f1b",
-                  "bubble_fraction_1f1b"]
+#: sequence-parallel attention and its MoE FFN run)
+PARALLEL_STUBS = ["pipeline_apply", "stack_stage_params", "one_f_one_b",
+                  "schedule_ticks_1f1b", "bubble_fraction_1f1b"]
 STUBS = [f"parallel.{n}" for n in PARALLEL_STUBS] + [
-         "models.moe_transformer_lm", "models.pipelined_transformer_lm",
+         "models.pipelined_transformer_lm",
          "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
          "AutoDist.coordinator", "LegProfiler.profile_ir",
          "flightrec.traced_stamp", "fit(tuner=)",

@@ -465,16 +465,17 @@ def test_ps_family_and_partitioned_builders_build(name):
 
 
 def test_non_data_mesh_axes_raise():
-    """A ``model`` axis is lowered now: on this one-process world its size
-    2 does not divide the world (``tests/test_torch_model_axis.py`` trains
-    on one); ``pipe`` and ``expert`` still raise naming P10."""
+    """``model`` and ``expert`` axes are lowered now: on this one-process
+    world their size 2 does not divide the world
+    (``tests/test_torch_model_axis.py`` and ``tests/test_torch_moe.py``
+    train on them); ``pipe`` still raises naming P10."""
     spec = transformer_lm(**CFG)
     for axes, error, match in (({"model": 2}, ValueError,
                                 "divide the world size"),
                                ({"pipe": 2}, NotImplementedError,
                                 "ROADMAP: P10"),
-                               ({"expert": 2}, NotImplementedError,
-                                "ROADMAP: P10")):
+                               ({"expert": 2}, ValueError,
+                                "divide the world size")):
         _reset_default_autodist_for_testing()
         ad = AutoDist(strategy_builder=AllReduce(), mesh_axes=axes,
                       device="cpu")
@@ -486,14 +487,15 @@ def test_non_data_mesh_axes_raise():
 
 @pytest.mark.parametrize("axis", ["pipe", "expert", "seq", "model"])
 def test_build_mesh_refuses_non_data_axes(axis):
-    """No layer shards experts or stages: the step relies on
-    ``build_mesh`` refusing ``pipe`` and ``expert``.  A ``seq`` or
-    ``model`` axis builds (``tests/test_torch_sequence_parallel.py`` and
-    ``tests/test_torch_model_axis.py`` train on them); on this one-process
-    world its size 2 does not divide the world."""
+    """No layer shards stages: the step relies on ``build_mesh`` refusing
+    ``pipe``.  A ``seq``, ``model`` or ``expert`` axis builds
+    (``tests/test_torch_sequence_parallel.py``,
+    ``tests/test_torch_model_axis.py`` and ``tests/test_torch_moe.py``
+    train on them); on this one-process world its size 2 does not divide
+    the world."""
     from autodist_tpu_torch.mesh import build_mesh
 
-    if axis in ("seq", "model"):
+    if axis in ("seq", "model", "expert"):
         with pytest.raises(ValueError, match="divide the world size"):
             build_mesh({axis: 2}, device="cpu")
     else:
