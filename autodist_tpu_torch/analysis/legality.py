@@ -9,10 +9,8 @@ Strategy over the compiled mesh's axes (the port's compiler lowers a
 Strategy node for node, so the projection is the lowered plan) and checks
 that every compiled plan agrees with it.
 
-The port's mesh has the data, expert, seq and model axes (ROADMAP
-P10): a ``pipe`` axis wider than 1, on the mesh or in the strategy's
-``mesh_axes`` hint, is ``legality/axis-not-ported`` (ERROR, naming P10),
-so a search never picks such a plan.
+The port lowers every axis of the JAX package's mesh (``pipe``, ``data``,
+``expert``, ``seq``, ``model``), so the rules are the JAX pass's.
 
 Rules (docs/analysis.md):
 
@@ -48,8 +46,6 @@ Rules (docs/analysis.md):
   padded, or non-bucketable compressor); it falls back to a per-variable
   collective with replicated optimizer state.  Shares
   ``bucketing.bucket_drop_reason`` with the runtime.
-* ``legality/axis-not-ported`` (ERROR) — a pipe axis wider than 1: the
-  port cannot lower it (ROADMAP P10).
 * ``legality/slice-mismatch`` (ERROR) — the resource spec's ``num_slices``
   does not divide the mesh's device count: a two-tier topology would
   leave a ragged slice.  Shares ``resource_spec.slice_mismatch_reason``
@@ -71,7 +67,6 @@ from autodist_tpu_torch.const import (
     MESH_AXIS_EXPERT,
     MESH_AXIS_MODEL,
     MESH_AXIS_PIPE,
-    MESH_AXIS_SEQ,
 )
 from autodist_tpu_torch.graph_item import VarInfo
 
@@ -332,8 +327,8 @@ def _lower_from_compiled(ctx: AnalysisContext
                 and vp.stored_at(d):
             placement = {vp.storage_axis: MESH_AXIS_DATA}
         # PS plans shard their update over data, but a variable sharded
-        # over model or expert alone (unpadded) reduces its shard on the
-        # per-shard tier
+        # over model or expert alone, or over pipe (and expert), unpadded,
+        # reduces its shard on the per-shard tier
         per_shard = per_shard_spec(tuple(placement.values()), lite.pad)
         want_mode = "reduce_scatter" if lite.sync_kind == "PS" \
             and not per_shard else lite.sync_mode
@@ -455,25 +450,6 @@ def _check_slices(ctx: AnalysisContext) -> List[Diagnostic]:
             "resize the mesh to a multiple of the slice count")]
 
 
-def _check_ported_axes(ctx: AnalysisContext) -> List[Diagnostic]:
-    """``legality/axis-not-ported``: an axis other than ``data``,
-    ``expert``, ``seq`` and ``model`` wider than 1, on the mesh or in the
-    strategy's hint, which the port cannot lower."""
-    from autodist_tpu_torch.const import P10
-
-    hint = getattr(ctx.strategy.graph_config, "mesh_axes", None) or {}
-    wide = {str(a): int(n) for src in (ctx.axes, hint)
-            for a, n in src.items()
-            if a not in (MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
-                         MESH_AXIS_MODEL) and int(n) > 1}
-    return [diag(
-        "legality/axis-not-ported", Severity.ERROR,
-        f"mesh axis {a!r} of size {n}: the port lowers the data, expert, "
-        f"seq and model axes only (not ported: {P10})", location=a,
-        fix="drop the axis (pure data parallelism) until it is ported")
-        for a, n in sorted(wide.items())]
-
-
 @register_pass("legality")
 def run(ctx: AnalysisContext) -> List[Diagnostic]:
     if ctx.compiled is not None:
@@ -485,5 +461,4 @@ def run(ctx: AnalysisContext) -> List[Diagnostic]:
     diags += _check_batch_layout(ctx)
     diags += _check_mesh_hint(ctx)
     diags += _check_slices(ctx)
-    diags += _check_ported_axes(ctx)
     return diags

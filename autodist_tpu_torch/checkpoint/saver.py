@@ -48,12 +48,13 @@ under the dtype name ``"bfloat16"``.  No Orbax.
   and restored into each rank's part, so such a checkpoint written on N
   ranks restores on 1 and the other way round, where the bucket layouts
   agree (a stored variable fills buckets of its own at every size).  A
-  variable sharded over ``model`` or ``expert`` (an MoE expert stack),
-  its optimizer slots and its compressor state are saved whole (gathered
-  over that axis's group) and a restore cuts each rank's shard
-  (``session._step.model_shards``), so a checkpoint of a ``{"data": 2,
-  "model": 2}`` or a ``{"data": 2, "expert": 2}`` session restores on one
-  process and the other way round.
+  variable sharded over ``model``, ``expert`` (an MoE expert stack) or
+  ``pipe`` (a stage stack, in its stored device-major order), its
+  optimizer slots and its compressor state are saved whole (gathered
+  over those axes' groups) and a restore cuts each rank's shard
+  (``session._step.shard_cuts``), so a checkpoint of a ``{"data": 2,
+  "model": 2}``, ``{"data": 2, "expert": 2}`` or ``{"pipe": 2, "data":
+  2}`` session restores on one process and the other way round.
 * **Ranks:** every rank takes part in a save (the ZeRO-1 and parameter
   gathers); rank 0
   writes, and the ranks meet at a barrier once the step is committed.
@@ -412,11 +413,10 @@ def _sync_for(session, saved, source) -> Optional[Dict[str, Any]]:
             if all(x.dim() >= 1 and x.shape[0] == d for _, x in rows):
                 got = unflatten([(n, x[rank]) for n, x in rows]) \
                     if isinstance(got, dict) else got[rank]
-            shard = session._step.model_shards.get(key)
-            if shard is not None:   # a model- or expert-sharded variable's
-                dim, k, mrank = shard
-                got = tree_map(lambda x: shard_of(x, k, mrank, dim).clone(),
-                               got)
+            for dim, k, srank in session._step.shard_cuts.get(key, ()):
+                # a model-, expert- or pipe-sharded variable's state
+                got = tree_map(lambda x, dim=dim, k=k, srank=srank:
+                               shard_of(x, k, srank, dim).clone(), got)
         ok = got is not None and (
             [(n, tuple(x.shape), x.dtype) for n, x in flatten(got)]
             == [(n, tuple(x.shape), x.dtype) for n, x in flatten(value)])

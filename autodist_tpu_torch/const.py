@@ -27,8 +27,10 @@ MESH_AXIS_SEQ = "seq"        # sequence/context parallelism
 MESH_AXIS_PIPE = "pipe"      # pipeline parallelism
 MESH_AXIS_EXPERT = "expert"  # expert parallelism (MoE)
 #: the axes a variable keeps its shards over on the bucketed step (a
-#: sharding over ``data`` is PS storage instead)
-SHARD_AXES = (MESH_AXIS_MODEL, MESH_AXIS_EXPERT)
+#: sharding over ``data`` is PS storage instead): a stage stack's leading
+#: dim over ``pipe``, its expert dim over ``expert``, a partitioned dim
+#: over ``model``
+SHARD_AXES = (MESH_AXIS_PIPE, MESH_AXIS_MODEL, MESH_AXIS_EXPERT)
 
 
 def _bool(v):
@@ -153,13 +155,15 @@ P8 = ("P8, second half — the self-tuning loop, the what-if simulator, the "
 #: elastic resume, the router and the drain) is ported whole: nothing
 #: raises naming it any more
 P9 = "P9 — telemetry and resilience"
-#: P10's ``seq``, ``model`` and ``expert`` axes are ported (ring and
-#: Ulysses attention; model- and expert-sharded variables on the bucketed
-#: step, K1–K3 over heads, the top-2 MoE FFN and the MoE LM): what still
-#: raises naming it is the ``pipe`` axis, the pipelines (``pipeline_vars``,
-#: ``grad_fn``, the pipelined LMs), ``mpmd``, the serving engines'
-#: ``mesh=``, and a loss without ``sequence_parallel`` (every model but
-#: ``transformer_lm``, the MoE LM too) on ``seq``
+#: P10's ``seq``, ``model``, ``expert`` and ``pipe`` axes are ported (ring
+#: and Ulysses attention; model- and expert-sharded variables on the
+#: bucketed step, K1–K3 over heads, the top-2 MoE FFN and the MoE LM;
+#: GPipe and 1F1B over the pipe group, ``capture(grad_fn=)`` and the
+#: pipelined LMs): what still raises naming it is ``mpmd``,
+#: ``kernel/sharding_utils``, the serving engines' ``mesh=``, a loss
+#: without ``sequence_parallel`` (every model but ``transformer_lm``, the
+#: MoE and pipelined LMs too) on ``seq``, and a ``pipe`` mesh with a
+#: ``seq`` axis
 P10 = "P10 — non-data mesh axes"
 #: P11 (the rest of serving) is ported whole since its last raise, the
 #: SIGTERM drain, came with the router: nothing raises naming it any more

@@ -84,15 +84,21 @@ def params_from_jax(tree: Dict[str, Any], device="cpu",
     chunk, a flat tensor.  With ``shards`` (``{name: (dim, count,
     shard)}``, a session's ``_step.model_shards``: the variables sharded
     over ``model`` or ``expert``, the MoE expert stacks ``layers_i/moe/wi``
-    and ``wo`` along their leading dim), each of them becomes that shard
-    of itself."""
+    and ``wo`` along their leading dim; or ``{name: ((dim, count, shard),
+    ...)}``, a session's ``_step.shard_cuts``, whose stage stacks are cut
+    over ``pipe`` along dim 0 and over ``expert`` along dim 1), each of
+    them becomes that shard of itself."""
     if any("/" in k for k in tree):
         tree = _unflatten(tree)
     if shards:
         flat = dict(flatten(params_from_jax(tree, device)))
-        for n, (dim, count, shard) in shards.items():
-            size = flat[n].shape[dim] // count
-            flat[n] = flat[n].narrow(dim, shard * size, size).clone()
+        for n, cuts in shards.items():
+            if cuts and isinstance(cuts[0], int):
+                cuts = (cuts,)
+            for dim, count, shard in cuts:
+                size = flat[n].shape[dim] // count
+                flat[n] = flat[n].narrow(dim, shard * size, size)
+            flat[n] = flat[n].clone()
         return _unflatten(flat)
     if stored_buckets:
         flat = dict(flatten(params_from_jax(tree, device)))

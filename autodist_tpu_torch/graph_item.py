@@ -19,7 +19,6 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from autodist_tpu_torch.const import not_ported
 from autodist_tpu_torch.numerics.policy import NumericsConfig
 
 _aten = torch.ops.aten
@@ -172,10 +171,14 @@ class GraphItem:
     the matmul outputs), ``"dots_no_batch"`` (keep the 2-D matmul
     outputs); see :data:`_REMAT_POLICIES`.  ``expert_vars`` flags the
     stacks whose leading dim is the MoE expert axis (``VarInfo.expert``:
-    the compiler shards that dim over ``expert``); like the other
-    patterns each is an exact name, a path prefix or a glob
-    (``"*/moe/wi"``).  ``grad_fn`` and ``pipeline_vars`` belong to the
-    pipelines and raise."""
+    the compiler shards that dim over ``expert``, or the dim after the
+    stage dim of a ``pipeline_vars`` stack); ``pipeline_vars`` flags the
+    stage stacks (``VarInfo.pipeline``: their leading dim over ``pipe``);
+    like the other patterns each is an exact name, a path prefix or a
+    glob (``"*/moe/wi"``).  ``grad_fn(params, batch) -> (loss, grads)``
+    replaces autograd in the step (the 1F1B pipeline backward of
+    :mod:`autodist_tpu_torch.parallel.pipeline_1f1b` plugs in here);
+    it does not combine with ``has_aux``."""
 
     def __init__(self, params: Any, optimizer: Any = None,
                  loss_fn: Optional[Callable] = None,
@@ -189,13 +192,8 @@ class GraphItem:
                  grad_fn: Optional[Callable] = None,
                  accum_steps: int = 1,
                  numerics=None):
-        if grad_fn is not None:
-            raise not_ported("capture(grad_fn=...)",
-                             "P10 — non-data mesh axes (the 1F1B pipeline "
-                             "backward)")
-        if pipeline_vars:
-            raise not_ported("pipeline_vars", "P10 — non-data mesh axes "
-                             "(the pipelines)")
+        if grad_fn is not None and has_aux:
+            raise ValueError("grad_fn does not support has_aux")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.params = params
@@ -205,9 +203,11 @@ class GraphItem:
         self.has_aux = has_aux
         self.metrics_fn = metrics_fn
         self.accum_steps = accum_steps
+        self.grad_fn = grad_fn
         self.numerics = NumericsConfig.coerce(numerics)
         self._sparse_patterns = tuple(sparse_vars)
         self._untrainable_patterns = tuple(untrainable_vars)
+        self._pipeline_patterns = tuple(pipeline_vars)
         self._expert_patterns = tuple(expert_vars)
         self.info = self._build_info()
 
@@ -228,6 +228,7 @@ class GraphItem:
                     trainable=not self._matches(name,
                                                 self._untrainable_patterns),
                     sparse=self._matches(name, self._sparse_patterns),
+                    pipeline=self._matches(name, self._pipeline_patterns),
                     expert=self._matches(name, self._expert_patterns))
             for name, leaf in flatten(self.params)])
 

@@ -7,8 +7,14 @@ need the explicit bucketed step (a compressor, the ``reduce_scatter`` of
 synchronization.explicit_sync.make_explicit_step` (``:228``); the PS
 family's weight-update sharding, which the JAX package runs on its GSPMD
 step (``:428-470``), runs there, and so does any plan whose variable
-keeps a ``model`` sharding (the explicit path's per-shard tier, where
-the JAX package shards through GSPMD).  Every other plan (``AllReduce``,
+keeps a ``model``, ``expert`` or ``pipe`` sharding (the explicit path's
+per-shard tier, where the JAX package shards through GSPMD).  A captured
+``grad_fn`` (``capture(grad_fn=)``: the 1F1B pipeline backward) replaces
+autograd on either step, with the JAX package's contract and refusals
+(:func:`manual_value_and_grad`, :func:`check_grad_fn_program`; loss
+scaling off, :func:`resolve_grad_fn_loss_scale`).  The batch is cut
+over ``data`` only: the ranks of a pipe group see the same rows.  Every
+other plan (``AllReduce``,
 and ``PartitionedAR``, ``RandomAxisPartitionAR`` on a mesh without
 ``model``: replicated AllReduce plans) runs the twin of the JAX GSPMD
 step (``:325-493``).
@@ -110,10 +116,13 @@ class DistributedStep:
     size > 1) or sharded over ``model``, by name, and
     ``shard_params(params)`` cuts a placed tree to this rank's parts of
     them (the step's own layout; the identity without them).
-    ``model_shards`` maps each variable sharded over ``model`` to ``(tensor
-    dim, shard count, this rank's shard)``; its optimizer slots and
-    compressor state are shards too, and ``shard_opt_state(opt_state)``
-    cuts a logical optimizer state to them (the identity without any)."""
+    ``model_shards`` maps each variable sharded over ``model`` or
+    ``expert`` to ``(tensor dim, shard count, this rank's shard)``;
+    ``shard_cuts`` maps every sharded variable, the stage stacks cut over
+    ``pipe`` too, to its cuts in order (the stage dim first); its
+    optimizer slots and compressor state are shards too, and
+    ``shard_opt_state(opt_state)`` cuts a logical optimizer state to them
+    (the identity without any)."""
 
     step_fn: Callable
     init_fn: Callable            # params -> optimizer state
@@ -136,6 +145,8 @@ class DistributedStep:
         default_factory=dict)
     shard_params: Callable = lambda params: params
     model_shards: Dict[str, Tuple[int, int, int]] = field(
+        default_factory=dict)
+    shard_cuts: Dict[str, Tuple[Tuple[int, int, int], ...]] = field(
         default_factory=dict)
     shard_opt_state: Callable = lambda opt_state: opt_state
     #: the :class:`~autodist_tpu_torch.strategy.compiler.CompiledStrategy`
@@ -173,21 +184,22 @@ class DistributedStep:
         return tree_map(put, batch)
 
 
-def map_model_leaves(tree, model_shards: Dict[str, Tuple[int, int, int]],
-                     fn: Callable, prefix: Tuple[str, ...] = ()):
-    """``tree`` (an optimizer state, a nested dict) with ``fn(leaf, name,
-    dim)`` applied to each tensor whose path ends in the name of a
-    variable sharded over ``model`` (its slot in a per-variable state:
-    ``mu/<name>``); every other leaf, and the structure, as it is."""
+def map_var_leaves(tree, names, fn: Callable,
+                   prefix: Tuple[str, ...] = ()):
+    """``tree`` (an optimizer state, a nested dict) with ``fn(leaf,
+    name)`` applied to each tensor whose path ends in one of ``names``
+    (a variable's slot in a per-variable state: ``mu/<name>``); every
+    other leaf, and the structure, as it is."""
     if isinstance(tree, dict):
-        return {k: map_model_leaves(v, model_shards, fn, prefix + (k,))
+        return {k: map_var_leaves(v, names, fn, prefix + (k,))
                 for k, v in tree.items()}
-    if model_shards and isinstance(tree, torch.Tensor):
+    if names and isinstance(tree, torch.Tensor):
         for i in range(len(prefix)):
             name = "/".join(prefix[i:])
-            if name in model_shards:
-                return fn(tree, name, model_shards[name][0])
+            if name in names:
+                return fn(tree, name)
     return tree
+
 
 
 def microbatch_slices(length: int, accum: int) -> List[Tuple[int, int]]:
@@ -269,7 +281,12 @@ def mesh_seq_chunk(mesh) -> Optional[SeqChunk]:
 def check_seq_program(gi, mesh) -> None:
     """On a ``seq`` axis wider than 1 the captured loss must compute on a
     chunk of each sequence (``loss_fn.sequence_parallel``: the flagship
-    LM's); any other program raises naming P10."""
+    LM's), on a mesh without ``pipe``; any other program raises naming
+    P10."""
+    if getattr(mesh, "seq_size", 1) > 1 and getattr(mesh, "pipe_size",
+                                                    1) > 1:
+        raise not_ported(f"a pipe axis of size {mesh.pipe_size} with a seq "
+                         f"axis of size {mesh.seq_size}", P10)
     if getattr(mesh, "seq_size", 1) > 1 and not getattr(
             gi.loss_fn, "sequence_parallel", False):
         raise not_ported(
@@ -330,6 +347,53 @@ def value_and_grad(loss_fn: Callable, has_aux: bool, names: Tuple[str, ...]):
                  for n, g in zip(names, grads)}
         return loss.detach(), _detach(aux), grads
     return vg
+
+
+def manual_value_and_grad(grad_fn: Callable, names: Tuple[str, ...]):
+    """``vg(params, batch) -> (loss, None, {name: grad})`` of a captured
+    ``grad_fn(params, batch) -> (loss, grads)`` (the JAX package's
+    contract, ``graph_transformer.py:293-305``): the parameters it is
+    given are the ones the loss would see (logical, but for a stage
+    stack, which is this rank's stages inside a step), the gradients it
+    returns are theirs, a variable it leaves out gets zeros.  The port
+    keeps no padded shard, so nothing is padded or unpadded around it."""
+    def vg(params, batch):
+        leaves = dict(flatten(params))
+        loss, grads = grad_fn(params, batch)
+        got = dict(flatten(grads))
+        out = {n: (got[n].detach() if n in got
+                   else torch.zeros_like(leaves[n])) for n in names}
+        return loss.detach(), None, out
+    return vg
+
+
+def resolve_grad_fn_loss_scale(gi, loss_scale):
+    """``loss_scale``, or None with the JAX package's warning when the
+    captured ``grad_fn`` owns the backward pass (``graph_transformer.py:
+    349-352``): the scale cannot be threaded through it."""
+    if loss_scale is not None and gi.grad_fn is not None:
+        warnings.warn(
+            "numerics: loss scaling disabled — capture(grad_fn=...) owns "
+            "the backward pass, so the scale cannot be threaded through "
+            "it (guard/clip/skip stay active)")
+        return None
+    return loss_scale
+
+
+def check_grad_fn_program(gi, compiled) -> None:
+    """A captured ``grad_fn`` does not combine with what the JAX package
+    lowers on its explicit path (a compressor, fused groups, ZeRO-1, an
+    explicit schedule: ``graph_transformer.py:229-234``), which raises
+    its ``ValueError``."""
+    from autodist_tpu_torch.kernel.synchronization import explicit_sync
+
+    if gi.grad_fn is not None and explicit_sync.uses_explicit_path(
+            compiled, skip_ps=True):
+        raise ValueError(
+            "capture(grad_fn=...) cannot combine with gradient "
+            "compressors / fused groups (the explicit shard_map "
+            "path owns the gradient computation); drop the "
+            "compressor or the manual grad_fn")
 
 
 def accumulate(vg: Callable, accum: int, has_aux: bool):
@@ -434,6 +498,7 @@ class GraphTransformer:
         from autodist_tpu_torch.kernel.synchronization import explicit_sync
 
         check_seq_program(gi, self.compiled.mesh)
+        check_grad_fn_program(gi, self.compiled)
         # a variable whose model sharding is dropped is replicated, with
         # the JAX package's warning, on either step
         explicit_sync.partition_support(gi, self.compiled, warn=True)
@@ -457,8 +522,8 @@ class GraphTransformer:
         has_aux, optimizer = gi.has_aux, gi.optimizer
         num_cfg = gi.numerics
         num_active = num_cfg is not None and num_cfg.guard
-        num_ls = ls_mod.resolve_loss_scale(
-            num_cfg.loss_scale, [v.dtype for v in gi.info.variables]) \
+        num_ls = resolve_grad_fn_loss_scale(gi, ls_mod.resolve_loss_scale(
+            num_cfg.loss_scale, [v.dtype for v in gi.info.variables])) \
             if num_active else None
         vg_unscaled = scaled_value_and_grad(gi, names, None)
         warned: List[int] = []
@@ -574,8 +639,11 @@ def scaled_value_and_grad(gi, names: Tuple[str, ...],
     given (the loss scale), accumulated over ``accum_steps``
     microbatches.  ``inject`` wraps the per-microbatch ``vg`` before the
     accumulation (the chaos gradient injection: scale, then injection,
-    then accumulation)."""
-    vg = value_and_grad(scaled_loss(gi, scale), gi.has_aux, names)
+    then accumulation).  A captured ``grad_fn`` replaces autograd (and
+    takes no scale: :func:`resolve_grad_fn_loss_scale`)."""
+    vg = manual_value_and_grad(gi.grad_fn, names) \
+        if gi.grad_fn is not None \
+        else value_and_grad(scaled_loss(gi, scale), gi.has_aux, names)
     if inject is not None:
         vg = inject(vg)
     if gi.accum_steps > 1:

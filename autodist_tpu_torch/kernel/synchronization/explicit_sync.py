@@ -40,8 +40,13 @@ all-reduce buckets).  The step runs, on each rank, in order:
    cut back to the shard, whose data mean runs through the compressor
    with shard-shaped state, and the tree update runs on the shard and its
    own moments; the guard counts a shard once over its group
-   (``shard_axes_size``) and, on a model or expert mesh, rolls up over
-   every rank;
+   (``shard_axes_size``) and, on a model, expert or pipe mesh, rolls up
+   over every rank.  A stage stack (:func:`pipe_support`: its leading
+   dim over ``pipe``) takes this tier too, but its stage dim is never
+   gathered: the loss computes on this rank's ``L/S`` rows (the pipeline
+   schedules move activations between the ranks of the pipe group), its
+   gradient is this rank's already, and only an ``expert`` dim after it
+   is gathered and cut as above;
 3. per bucket of :func:`plan_step_buckets`' plan: pack, then the
    reduction over the data group under the bucket's lowering, read from
    the bucket's node in the step's schedule IR (:func:`plan_step`: the
@@ -141,13 +146,18 @@ opt-in; both put the same bits on the wire).  Under
 package's stamps one (:func:`leg_stamp_points`: each bucket's reduce, the
 guard roll-up, the ZeRO-1 or tree update, each parameter gather, a
 pipelined bucket's reduce per microbatch slot), stream-ordered on the
-card (``ops/leg_cursor.py``).  A stored variable lives in its flat bucket: a rank
+card (``ops/leg_cursor.py``).  On a ``pipe`` mesh the activation hops
+of the schedules have no leg in the IR (the JAX package's GSPMD inserts
+them, its IR has none either), and a stage stack keeps its ``pipe`` cut
+beside an ``expert`` one where the JAX explicit path would replicate a
+multi-axis sharding.  A stored variable lives in its flat bucket: a rank
 holds its chunk of the bucket vector where the JAX package holds its
 slice of the variable along the storage axis (``param_spec =
 P("data")``), the flat bucket padded where JAX pads the dim.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -155,8 +165,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, P10, SHARD_AXES,
-                                      not_ported)
+from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, MESH_AXIS_PIPE,
+                                      P10, SHARD_AXES, not_ported)
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
@@ -259,6 +269,25 @@ def partition_drop_reason(spec_axes, shape, dtype, axis_sizes, padded,
     return None
 
 
+def pipe_support(gi, compiled) -> Dict[str, Tuple[int, int]]:
+    """The stage stacks the bucketed step keeps cut over ``pipe``: ``{name:
+    (tensor dim 0, stage count)}`` for every variable whose plan leads
+    with ``pipe`` (the compiler's structural stage dim, never padded).
+    Unlike a ``model`` or ``expert`` shard, the stage dim is not gathered
+    for the loss: a rank computes on its own stages only.  The JAX
+    package keeps no multi-axis sharding on its explicit path; the port
+    keeps a stack's ``pipe`` cut whatever else its plan shards, and
+    :func:`partition_support` decides on the rest."""
+    s = int((getattr(compiled.mesh, "shape", None) or {})
+            .get(MESH_AXIS_PIPE, 1))
+    if s <= 1:
+        return {}
+    infos = {v.name for v in gi.info.variables}
+    return {name: (0, s) for name, plan in compiled.var_plans.items()
+            if name in infos and plan.param_spec
+            and plan.param_spec[0] == MESH_AXIS_PIPE}
+
+
 def partition_support(gi, compiled, warn: bool = False
                       ) -> Dict[str, Tuple[str, int, int]]:
     """Which variables keep their ``model`` or ``expert`` sharding on the
@@ -269,7 +298,10 @@ def partition_support(gi, compiled, warn: bool = False
     when ``warn``.  Shardings over ``data`` alone (PS storage on a mesh
     without ``model``, :meth:`~autodist_tpu_torch.strategy.compiler.
     VarPlan.stored_at`) are the stored buckets' and not considered
-    here."""
+    here.  A stage stack's ``pipe`` dim is :func:`pipe_support`'s: the
+    rule here runs on the rest of its spec (its ``expert`` dim after the
+    stage dim is kept so; a ``data`` dim, storage, is not: the stack is
+    replicated over ``data``)."""
     sizes = dict(getattr(compiled.mesh, "shape", None) or {})
     if all(int(sizes.get(a, 1)) <= 1 for a in SHARD_AXES):
         return {}
@@ -280,8 +312,12 @@ def partition_support(gi, compiled, warn: bool = False
         v = infos.get(name)
         if v is None or not any(a in SHARD_AXES for a in plan.param_spec):
             continue
+        staged = plan.param_spec[0] == MESH_AXIS_PIPE
         spec_axes = [(i, e) for i, e in enumerate(plan.param_spec)
-                     if e is not None]
+                     if e is not None and not (
+                         staged and e in (MESH_AXIS_PIPE, MESH_AXIS_DATA))]
+        if not spec_axes:
+            continue
         why = partition_drop_reason(
             spec_axes, v.shape, getattr(torch, v.dtype), sizes,
             name in pads, get_compressor(plan.compressor or
@@ -307,14 +343,16 @@ def plan_step_buckets(gi, compiled, d: int,
     too, where nothing is sharded, so that a checkpoint's bucket layout
     does not depend on the data size (but for a variable the JAX rule
     keeps replicated at ``d``, ``VarPlan.stored_at``).  The variables that
-    keep a ``model`` sharding (``part``, :func:`partition_support`) take
-    the per-shard tier instead."""
+    keep a ``model`` sharding (``part``, :func:`partition_support`) and
+    the stage stacks (:func:`pipe_support`) take the per-shard tier
+    instead."""
     part = partition_support(gi, compiled) if part is None else part
+    staged = pipe_support(gi, compiled)
     entries = []
     cap = 0
     for v in gi.info.variables:
         plan = compiled.var_plans.get(v.name)
-        if plan is None or v.name in part:
+        if plan is None or v.name in part or v.name in staged:
             continue
         comp = plan.compressor or "NoneCompressor"
         if bucket_drop_reason((), False, comp) is not None:
@@ -328,12 +366,17 @@ def plan_step_buckets(gi, compiled, d: int,
                           shard_divisor=max(d, 1))
 
 
-def shard_shape(shape, info) -> Tuple[int, ...]:
+def shard_shape(shape, info, stage=None) -> Tuple[int, ...]:
     """``shape`` with the sharded dim of ``info`` (a
-    :func:`partition_support` entry, or None) cut to one shard."""
+    :func:`partition_support` entry, or None) and the stage dim of
+    ``stage`` (a :func:`pipe_support` entry, or None) cut to one
+    shard."""
     shape = list(shape)
     if info is not None:
         _, dim, n = info
+        shape[dim] //= n
+    if stage is not None:
+        dim, n = stage
         shape[dim] //= n
     return tuple(shape)
 
@@ -382,6 +425,7 @@ def plan_step(gi, compiled) -> StepPlan:
     d = compiled.mesh.data_size
     plans = compiled.var_plans
     part = partition_support(gi, compiled)
+    staged = pipe_support(gi, compiled)
     buckets = plan_step_buckets(gi, compiled, d, part)
     bucketed = {n for b in buckets for n in b.names}
     rs_buckets = [b for b in buckets if b.mode == MODE_REDUCE_SCATTER]
@@ -414,7 +458,8 @@ def plan_step(gi, compiled) -> StepPlan:
                      if v.trainable and v.name in plans
                      and v.name not in bucketed
                      and _meta_state(get_compressor(plans[v.name].compressor),
-                                     shard_shape(v.shape, part.get(v.name)),
+                                     shard_shape(v.shape, part.get(v.name),
+                                                 staged.get(v.name)),
                                      v.dtype) is not None]
     stateful_buckets = [b.key for b in buckets if _meta_state(
         get_compressor(b.compressor), (b.padded_total,), b.dtype) is not None]
@@ -522,6 +567,17 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     shard_group = {n: mesh.axis_group(ax) for n, (ax, _, _) in part.items()}
     model_shards = {n: (dim, k, mesh.axis_rank(ax))
                     for n, (ax, dim, k) in part.items()}
+    # the stage stacks: cut over pipe, never gathered for the loss
+    staged = pipe_support(gi, compiled)
+    pipe_group = mesh.pipe_group
+    # every cut of a sharded variable's leaf, in order: its stage dim
+    # over pipe, then its model or expert dim
+    shard_cuts: Dict[str, Tuple[Tuple[int, int, int], ...]] = {
+        n: ((dim, k, mesh.pipe_rank),) for n, (dim, k) in staged.items()}
+    for n, cut in model_shards.items():
+        shard_cuts[n] = shard_cuts.get(n, ()) + (cut,)
+    shard_count = {n: math.prod(k for _, k, _ in cs)
+                   for n, cs in shard_cuts.items()}
     pervar = {n: get_compressor(plans[n].compressor) for n in names
               if n in plans and n not in bucketed}
     for n in pervar:
@@ -607,7 +663,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 "fully synchronous — staleness/proxy settings are ignored")
         else:
             if any(plans[n].staleness or plans[n].local_replication
-                   for n in part):
+                   for n in list(part) + list(staged)):
                 raise not_ported("bounded staleness or proxies of a "
                                  "variable sharded over model", P10)
             stale = stale_sync.StaleSync(compiled, rs_buckets, chunk_of,
@@ -645,23 +701,42 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             if part.numel() and part.data_ptr() != leaves[n].data_ptr():
                 leaves[n].copy_(part)
 
+    def local_shape(n: str) -> Tuple[int, ...]:
+        return shard_shape(shapes[n][0], part.get(n), staged.get(n))
+
+    def cut(x: torch.Tensor, n: str, what: str) -> torch.Tensor:
+        """This rank's shard of ``n``'s logical ``x`` (every cut of
+        :data:`shard_cuts`, a copy), or ``x`` itself when it is one."""
+        if tuple(x.shape) == shapes[n][0]:
+            for dim, k, r in shard_cuts[n]:
+                x = coll.shard_of(x, k, r, dim)
+            return x.clone()
+        if tuple(x.shape) != local_shape(n):
+            raise ValueError(
+                f"{n}: {what} of shape {tuple(x.shape)} is neither the "
+                f"variable {shapes[n][0]} nor this rank's shard "
+                f"{local_shape(n)}")
+        return x
+
+    def uncut(x: torch.Tensor, n: str) -> torch.Tensor:
+        """The logical value of ``n`` from this rank's shard ``x`` (a
+        gather over each cut's group, the last cut first)."""
+        if n in part:
+            x = coll.gather_shards(x, shard_group[n], part[n][1])
+        if n in staged:
+            x = coll.gather_shards(x, pipe_group, staged[n][0])
+        return x
+
     def shard_params(params):
         """``params`` (placed) with each stored member cut to this rank's
-        part, a flat tensor, and each variable sharded over ``model`` or
-        ``expert`` to this rank's shard, neither requiring grad; a leaf
-        already cut is kept."""
-        if not stored and not part:
+        part, a flat tensor, and each variable sharded over ``model``,
+        ``expert`` or ``pipe`` to this rank's shard, neither requiring
+        grad; a leaf already cut is kept."""
+        if not stored and not shard_cuts:
             return params
         leaves = dict(flatten(params))
-        for n, (_, dim, k) in part.items():
-            x = leaves[n].detach()
-            if tuple(x.shape) == shapes[n][0]:
-                x = coll.shard_of(x, k, model_shards[n][2], dim).clone()
-            elif tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
-                raise ValueError(
-                    f"{n}: shape {tuple(x.shape)} is neither the variable "
-                    f"{shapes[n][0]} nor this rank's {part[n][0]} shard")
-            leaves[n] = x
+        for n in shard_cuts:
+            leaves[n] = cut(leaves[n].detach(), n, "parameter")
         for b in stored:
             for n, v, (a, e) in zip(b.names, b.vars, spans(b)):
                 x = leaves[n].detach().reshape(-1)
@@ -683,11 +758,16 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         that a rank does not hold its chunk twice while the compute copy
         lives (the peak of the step).  A variable sharded over ``model``
         or ``expert`` is gathered over that axis's group into its full
-        tensor."""
-        if not stored and not part:
+        tensor; a stage stack's compute leaf is its shard itself (a view
+        that requires grad: the update writes the shard in place)."""
+        if not stored and not shard_cuts:
             return params
         leaves = dict(flatten(params))
         compute = dict(leaves)
+        for n in staged:
+            if n not in part:
+                compute[n] = leaves[n].detach().requires_grad_(
+                    grad and n in trainable)
         for n, (ax, dim, _k) in part.items():
             with sync_span(f"{ax}_gather/{n}"):
                 full = coll.gather_shards(leaves[n].detach(), shard_group[n],
@@ -719,9 +799,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     # -- numerics guard: resolved when the step is built --------------------
     num_cfg = gi.numerics
     num_active = sp.guard
-    # the roll-up spans every rank on a model or expert axis (a shard's
-    # partial differs across its group), else the data group
-    if mesh.model_size > 1 or mesh.expert_size > 1:
+    # the roll-up spans every rank on a model, expert or pipe axis (a
+    # shard's partial differs across its group), else the data group
+    if shard_cuts:
         guard_n, guard_group = dist.get_world_size(), dist.group.WORLD
     else:
         guard_n, guard_group = d, (group if d > 1 else None)
@@ -732,9 +812,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             "route through the explicit bucketed path")
     num_ls = None
     if num_active:
-        num_ls = ls_mod.resolve_loss_scale(
+        num_ls = gt.resolve_grad_fn_loss_scale(gi, ls_mod.resolve_loss_scale(
             num_cfg.loss_scale,
-            [v.dtype for v in gi.info.variables] + [b.dtype for b in buckets])
+            [v.dtype for v in gi.info.variables] + [b.dtype for b in buckets]))
         for b in buckets:
             why = ls_mod.scale_saturates_wire(num_ls, b.compressor)
             if why is not None:
@@ -791,7 +871,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         for v in gi.info.variables:
             if v.name in pervar:
                 st = pervar[v.name].init_state(torch.zeros(
-                    shard_shape(v.shape, part.get(v.name)),
+                    local_shape(v.name),
                     dtype=getattr(torch, v.dtype), device=mesh.device))
                 if st is not None:
                     state[v.name] = st
@@ -818,10 +898,13 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     def export_params(params, sync_state):
         """The parameters' true values, logical (a gather when variables
-        are stored 1/N or proxies lag)."""
-        if not proxied and not stored and not part:
+        are stored 1/N or sharded, or proxies lag)."""
+        if not proxied and not stored and not shard_cuts:
             return params
         leaves = true_leaves(params, sync_state)
+        for n, (dim, _) in staged.items():
+            leaves[n] = coll.gather_shards(leaves[n].detach(), pipe_group,
+                                           dim)
         return unflatten([(n, leaves[n]) for n, _ in flatten(params)])
 
     def export_sync_state(params, sync_state):
@@ -836,9 +919,9 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
                 out[key] = tree_map(lambda x: (coll.all_gather(x, group)
                                                if d > 1 else x)
                                     .reshape((d,) + tuple(x.shape)), value)
-                if key in part:     # [data, *shard] -> [data, *full]
-                    out[key] = tree_map(lambda x: coll.gather_shards(
-                        x, shard_group[key], part[key][1] + 1), out[key])
+                if key in shard_cuts:   # [data, *shard] -> [data, *full]
+                    out[key] = tree_map(lambda x: uncut(
+                        x.movedim(0, -1), key).movedim(-1, 0), out[key])
         if stale is not None:
             out.update(stale.export_state(sync_state, dict(flatten(params))))
         return out
@@ -874,9 +957,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         """The LOGICAL state: ZeRO-1 shards gathered to full bucket vectors
         (``padded_total`` long, in chunk order), copies on the device."""
         tree = opt_state["vars"] if rs_buckets else opt_state
-        tree = gt.map_model_leaves(
-            gt.copy_tree(tree), model_shards,
-            lambda x, n, dim: coll.gather_shards(x, shard_group[n], dim))
+        tree = gt.map_var_leaves(gt.copy_tree(tree), shard_cuts, uncut)
         if not rs_buckets:
             return tree
         zero1 = {k: v.detach().clone() if isinstance(v, torch.Tensor)
@@ -887,25 +968,17 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
 
     def shard_opt_state(opt_state):
         """``opt_state`` with each slot of a variable sharded over
-        ``model`` or ``expert`` cut to this rank's shard where it is
-        logical; a slot already cut is kept."""
-        if not part:
+        ``model``, ``expert`` or ``pipe`` cut to this rank's shard where
+        it is logical; a slot already cut is kept."""
+        if not shard_cuts:
             return opt_state
 
-        def cut(x, n, dim):
-            if tuple(x.shape) == shapes[n][0]:
-                return coll.shard_of(x, part[n][2], model_shards[n][2],
-                                     dim).clone()
-            if tuple(x.shape) != shard_shape(shapes[n][0], part[n]):
-                raise ValueError(
-                    f"{n}: optimizer slot of shape {tuple(x.shape)} is "
-                    f"neither the variable {shapes[n][0]} nor this rank's "
-                    f"{part[n][0]} shard")
-            return x
+        def cut_slot(x, n):
+            return cut(x, n, "optimizer slot")
         if rs_buckets:
-            return dict(opt_state, vars=gt.map_model_leaves(
-                opt_state["vars"], model_shards, cut))
-        return gt.map_model_leaves(opt_state, model_shards, cut)
+            return dict(opt_state, vars=gt.map_var_leaves(
+                opt_state["vars"], shard_cuts, cut_slot))
+        return gt.map_var_leaves(opt_state, shard_cuts, cut_slot)
 
     # -- the step ---------------------------------------------------------------
     warned: List[int] = []
@@ -953,6 +1026,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         scale = sync_state[NUMERICS_KEY]["scale"] if num_ls is not None \
             else None
         # the stored buckets' compute copy lives until the gradients exist
+        # (a stage stack computes on this rank's stages, as it is)
         loss, aux, grads, pipe_red, pipe_state, pipe_sat = gradients(
             materialize(params, lend=True), sync_state, batch)
         reclaim(params)
@@ -974,9 +1048,10 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
             if n in sync_state:
                 new_state[n] = st
             if health is not None:
-                # a shard counts once over its model or expert group
+                # a shard counts once over its model, expert and pipe
+                # groups
                 health.add(n, grads[n], finite_src=g,
-                           shard_axes_size=part[n][2] if n in part else 1,
+                           shard_axes_size=shard_count.get(n, 1),
                            saturation=guard_mod.wire_saturation(
                                g, ls_mod.wire_dtype_of(comp.name)))
         for b in buckets:
@@ -1133,6 +1208,7 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
         export_sync_state=export_sync_state,
         import_sync_state=import_sync_state,
         stored_shapes={**{n: shapes[n] for b in stored for n in b.names},
-                       **{n: shapes[n] for n in part}},
+                       **{n: shapes[n] for n in shard_cuts}},
         shard_params=shard_params, model_shards=model_shards,
+        shard_cuts=shard_cuts,
         shard_opt_state=shard_opt_state, schedule_ir=ir)

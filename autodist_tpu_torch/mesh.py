@@ -2,13 +2,14 @@
 
 Port of the JAX package's ``mesh.py:39-111``.  Axes keep the canonical
 names and order (``pipe, data, expert, seq, model``, outermost first).
-The ``data``, ``expert``, ``seq`` and ``model`` axes span the
-``torch.distributed`` world: one rank per (replica, expert shard,
-sequence chunk, model shard), NCCL between cards and gloo between CPU
-processes, built with ``init_device_mesh`` over the axes wider than 1 in
-canonical order, so the ranks of one ``model`` group are adjacent, then
-those of one ``seq`` group, then those of one ``expert`` group (rank
-``((d·X + x)·S + s)·M + m``: where the JAX package's devices sit).  A
+Every axis spans the ``torch.distributed`` world: one rank per (pipeline
+stage, replica, expert shard, sequence chunk, model shard), NCCL between
+cards and gloo between CPU processes, built with ``init_device_mesh``
+over the axes wider than 1 in canonical order, so the ranks of one
+``model`` group are adjacent, then those of one ``seq`` group, then
+those of one ``expert`` group, then those of one ``data`` group, and the
+pipe groups are outermost (rank ``(((p·D + d)·X + x)·S + s)·M + m``:
+where the JAX package's devices sit).  A
 ``seq`` axis cuts each sequence into ``S`` chunks: a rank computes on its
 chunk inside :func:`seq_chunk`, and the attention functions of
 :mod:`autodist_tpu_torch.parallel` exchange K/V over the axis's group.  A
@@ -16,8 +17,12 @@ chunk inside :func:`seq_chunk`, and the attention functions of
 axis the leading (expert) dim of every ``expert_vars`` stack
 (``strategy/compiler.py``): the ranks of one model or expert group see
 the same rows of the batch (it is cut over ``data`` only) and each holds
-its shard of every such variable.  The ``pipe`` axis comes with the
-pipelines (the rest of slice P10) and raises here.
+its shard of every such variable.  A ``pipe`` axis holds one pipeline
+stage a rank: the leading (stage) dim of every ``pipeline_vars`` stack is
+cut over it, the ranks of a data group share a stage, and the schedules
+of :mod:`autodist_tpu_torch.parallel.pipeline` and
+:mod:`~autodist_tpu_torch.parallel.pipeline_1f1b` move activations
+between the ranks of a pipe group.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch.distributed as dist
 
 from autodist_tpu_torch.const import (MESH_AXIS_DATA, MESH_AXIS_EXPERT,
                                       MESH_AXIS_MODEL, MESH_AXIS_PIPE,
-                                      MESH_AXIS_SEQ, not_ported)
+                                      MESH_AXIS_SEQ)
 
 AXIS_ORDER = (MESH_AXIS_PIPE, MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
               MESH_AXIS_MODEL)
@@ -41,8 +46,8 @@ AXIS_ORDER = (MESH_AXIS_PIPE, MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
 @dataclass
 class Mesh:
     """Axis sizes in canonical order, the device every rank computes on,
-    and the ``DeviceMesh`` over the data, expert, seq and model axes wider
-    than 1 (None when none is)."""
+    and the ``DeviceMesh`` over the axes wider than 1 (None when none
+    is)."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -63,6 +68,10 @@ class Mesh:
     @property
     def expert_size(self) -> int:
         return self.shape.get(MESH_AXIS_EXPERT, 1)
+
+    @property
+    def pipe_size(self) -> int:
+        return self.shape.get(MESH_AXIS_PIPE, 1)
 
     def _has(self, axis: str) -> bool:
         return self.device_mesh is not None and \
@@ -111,6 +120,19 @@ class Mesh:
         """Which experts of each stack this rank holds (the ``expert_rank``
         -th ``1/expert_size`` of its leading dim)."""
         return self.axis_rank(MESH_AXIS_EXPERT)
+
+    @property
+    def pipe_group(self):
+        """The pipe axis's process group: this rank and the ranks holding
+        the other stages of its pipeline (None at size 1)."""
+        return self.axis_group(MESH_AXIS_PIPE)
+
+    @property
+    def pipe_rank(self) -> int:
+        """Which stage of each pipeline this rank holds (the
+        ``pipe_rank``-th ``1/pipe_size`` of every stage stack's leading
+        dim)."""
+        return self.axis_rank(MESH_AXIS_PIPE)
 
     def axis_group(self, axis: str):
         """The process group of ``axis`` (None at size 1)."""
@@ -192,12 +214,14 @@ def manual_axes(axes=AXIS_ORDER):
     """Marks the code inside as running per rank over ``axes``: the twin
     of the JAX package's manual axes inside ``shard_map`` (the explicit
     step runs the loss so, every model- or expert-sharded variable
-    gathered).  :func:`~autodist_tpu_torch.ops.flash_attention.
-    make_flash_attention` and :func:`~autodist_tpu_torch.parallel.moe.
-    moe_ffn` read it through :func:`current_manual_axes`: inside, K1 runs
-    on this rank's full heads instead of sharding them over ``model``,
-    and the MoE FFN runs every expert locally instead of crossing the
-    ``expert`` group."""
+    gathered, every stage stack this rank's stage).
+    :func:`~autodist_tpu_torch.ops.flash_attention.
+    make_flash_attention`, :func:`~autodist_tpu_torch.parallel.moe.
+    moe_ffn` and the pipeline schedules read it through
+    :func:`current_manual_axes`: inside, K1 runs on this rank's full heads
+    instead of sharding them over ``model``, the MoE FFN runs every expert
+    locally instead of crossing the ``expert`` group, and a schedule takes
+    its stage leaves as this rank's chunks instead of cutting them."""
     token = _MANUAL.set(_MANUAL.get() | frozenset(axes))
     try:
         yield
@@ -245,11 +269,6 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
         axes = dict(resource_spec.mesh_hint) if (
             resource_spec is not None and resource_spec.mesh_hint) else {}
     axes = dict(axes)
-    wide = {ax: n for ax, n in axes.items()
-            if ax not in (MESH_AXIS_DATA, MESH_AXIS_EXPERT, MESH_AXIS_SEQ,
-                          MESH_AXIS_MODEL) and n > 1}
-    if wide:
-        raise not_ported(f"mesh axes {wide}", "P10 — non-data mesh axes")
     specified = math.prod(axes.values()) if axes else 1
     if world % specified != 0:
         raise ValueError(f"mesh axes {axes} (product {specified}) do not "
@@ -261,10 +280,10 @@ def build_mesh(axes: Optional[Dict[str, int]] = None, resource_spec=None,
     dev = rank_device(device)
     device_mesh = None
     # a mesh may lack an axis; canonical order, so the ranks of a model
-    # group are adjacent, then those of a seq group, then an expert group
-    dims = tuple(ax for ax in (MESH_AXIS_DATA, MESH_AXIS_EXPERT,
-                               MESH_AXIS_SEQ, MESH_AXIS_MODEL)
-                 if axes.get(ax, 1) > 1)
+    # group are adjacent, then those of a seq group, then an expert group,
+    # then a data group, the pipe groups outermost (an axis of another
+    # name after them, as the JAX package places it)
+    dims = tuple(ax for ax, n in axes.items() if n > 1)
     if dims:
         from torch.distributed.device_mesh import init_device_mesh
 

@@ -3,10 +3,9 @@ weight-only int8 tree, and the reference's benchmark families:
 ``resnet50``/``resnet101``, ``vgg16``, ``densenet121``, ``inception_v3``,
 ``bert`` (``bert_base``, ``bert_large``), the ``lm1b`` LSTM and ``ncf``.
 ``ALL_MODELS`` is the JAX package's dict.  The LoRA helpers, the
-speculative generator and the expert-parallel ``moe_transformer_lm`` are
-ported; the JAX package's pipelined models (P10) are names that raise
-naming their ROADMAP item."""
-from autodist_tpu_torch.const import P10, unported_function
+speculative generator, the expert-parallel ``moe_transformer_lm`` and the
+pipelined ``pipelined_transformer_lm`` and ``pipelined_moe_transformer_lm``
+are ported too."""
 from autodist_tpu_torch.models.base import (ModelSpec, cross_entropy_loss,
                                             resolve_device)
 from autodist_tpu_torch.models.bert import bert, bert_base, bert_large
@@ -17,6 +16,9 @@ from autodist_tpu_torch.models.lm1b import lm1b
 from autodist_tpu_torch.models.lora import lora_init, lora_merge, lora_setup
 from autodist_tpu_torch.models.moe_lm import moe_transformer_lm
 from autodist_tpu_torch.models.ncf import ncf
+from autodist_tpu_torch.models.pipelined_lm import pipelined_transformer_lm
+from autodist_tpu_torch.models.pipelined_moe_lm import \
+    pipelined_moe_transformer_lm
 from autodist_tpu_torch.models.quantize import (dequantize_lm_params,
                                                 quantize_lm_params)
 from autodist_tpu_torch.models.resnet import resnet50, resnet101
@@ -24,11 +26,6 @@ from autodist_tpu_torch.models.speculative import make_speculative_generator
 from autodist_tpu_torch.models.transformer_lm import (TransformerLM,
                                                       transformer_lm)
 from autodist_tpu_torch.models.vgg import vgg16
-
-pipelined_transformer_lm = unported_function(
-    "pipelined_transformer_lm", "the pipelined LM", P10)
-pipelined_moe_transformer_lm = unported_function(
-    "pipelined_moe_transformer_lm", "the pipelined MoE LM", P10)
 
 ALL_MODELS = {
     "resnet50": resnet50,

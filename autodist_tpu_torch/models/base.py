@@ -58,6 +58,7 @@ class ModelSpec:
     grad_fn: Any = None
     sparse_vars: Tuple[str, ...] = ()
     untrainable_vars: Tuple[str, ...] = ()
+    pipeline_vars: Tuple[str, ...] = ()  # leading dim = pipeline-stage axis
     expert_vars: Tuple[str, ...] = ()    # leading dim = MoE expert axis
     config: Dict[str, Any] = field(default_factory=dict)
 

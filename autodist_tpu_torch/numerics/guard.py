@@ -109,8 +109,10 @@ class HealthAccumulator:
         ``value`` is the REDUCED tensor the update consumes (the mean
         gradient, or this rank's shard of it).  ``shard_axes_size`` is the
         number of ranks ``value`` is sharded over (0 or 1: replicated on
-        every rank); the contribution is divided by its replication factor
-        so the all_reduce counts each element once.  ``finite_src`` gives
+        every rank; a ZeRO-1 shard's data size; a model or expert shard's
+        group size; a stage stack's ``pipe`` size, times its expert group's
+        for an expert stack); the contribution is divided by its
+        replication factor so the all_reduce counts each element once.  ``finite_src`` gives
         the finiteness bit from another tensor (the packed local vector
         before the reduction).  ``saturation`` is an optional 0/1 scalar
         of pre-quantization wire saturation, ``sat_count`` an optional

@@ -2,26 +2,19 @@
 
 Port of the JAX package's ``parallel/``: sequence parallelism over the
 ``seq`` mesh axis — ring attention (:mod:`.ring_attention`) and Ulysses
-all-to-all (:mod:`.ulysses`) — and expert parallelism over the ``expert``
-axis, the top-2 MoE FFN (:mod:`.moe`).  The pipeline schedules come with
-the rest of ROADMAP P10: their names raise naming it.
+all-to-all (:mod:`.ulysses`) — expert parallelism over the ``expert``
+axis, the top-2 MoE FFN (:mod:`.moe`), and pipeline parallelism over the
+``pipe`` axis: GPipe and the interleaved schedule (:mod:`.pipeline`) and
+the hand-scheduled 1F1B backward (:mod:`.pipeline_1f1b`).
 """
-from autodist_tpu_torch.const import P10, unported_function
 from autodist_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+from autodist_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                  stack_stage_params)
+from autodist_tpu_torch.parallel.pipeline_1f1b import (bubble_fraction_1f1b,
+                                                       one_f_one_b,
+                                                       schedule_ticks_1f1b)
 from autodist_tpu_torch.parallel.ring_attention import make_ring_attention
 from autodist_tpu_torch.parallel.ulysses import make_ulysses_attention
-
-pipeline_apply = unported_function("pipeline_apply",
-                                   "the GPipe pipeline schedule", P10)
-stack_stage_params = unported_function("stack_stage_params",
-                                       "the pipeline's stage parameters",
-                                       P10)
-one_f_one_b = unported_function("one_f_one_b",
-                                "the 1F1B pipeline schedule", P10)
-schedule_ticks_1f1b = unported_function("schedule_ticks_1f1b",
-                                        "the 1F1B schedule's ticks", P10)
-bubble_fraction_1f1b = unported_function("bubble_fraction_1f1b",
-                                         "the 1F1B schedule's bubble", P10)
 
 
 def sequence_parallel_attention(kind: str, mesh, axis_name: str = "seq"):

@@ -32,7 +32,7 @@ from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
                                                          local_rows,
-                                                         map_model_leaves)
+                                                         map_var_leaves)
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
 from autodist_tpu_torch.telemetry import flightrec
 from autodist_tpu_torch.telemetry.timeline import StepRecorder
@@ -280,14 +280,16 @@ class DistributedSession:
         """``(params, opt_state)`` of ``device="meta"`` tensors with the
         shapes and dtypes :meth:`export_state` gives: the LOGICAL layout,
         each ZeRO-1 bucket's state vector ``padded_total`` long, each
-        model-sharded variable and its slots whole."""
-        shards = self._step.model_shards
+        sharded variable (over ``model``, ``expert`` or ``pipe``) and its
+        slots whole."""
+        cuts = self._step.shard_cuts
 
-        def full(x, name, dim):
+        def full(x, name):
             shape = list(x.shape)
-            shape[dim] *= shards[name][1]
+            for dim, count, _ in cuts[name]:
+                shape[dim] *= count
             return torch.empty(shape, dtype=x.dtype, device="meta")
-        opt = map_model_leaves(self._opt_state, shards, full)
+        opt = map_var_leaves(self._opt_state, cuts, full)
         if self.zero1_buckets:
             sizes = {b.key: b.padded_total for b in self.zero1_buckets}
             opt = {"vars": tree_map(_meta, opt["vars"]),

@@ -1,7 +1,7 @@
 """StrategyCompiler: lower a Strategy onto the mesh.
 
 Port of the JAX package's ``strategy/compiler.py:93-486`` for the port's
-mesh (``data``, ``expert``, ``seq`` and ``model`` axes).  Each
+mesh (``pipe``, ``data``, ``expert``, ``seq`` and ``model`` axes).  Each
 per-variable config becomes a :class:`VarPlan`; ``param_spec`` and
 ``opt_spec`` are the JAX plan's ``PartitionSpec`` entries as a tuple
 (trailing Nones trimmed, ``()`` replicated), ``pad_axis``/``pad_dim``
@@ -35,15 +35,17 @@ variable replicated with the JAX warning).
   ``local_replication`` (proxy variables), which the step runs
   (``kernel/synchronization/stale_sync.py``).  ``sync=False`` is carried
   along and the step stays bulk-synchronous, as in the JAX package.
-* **The expert axis** is structural (``compiler.py:401-469``): dim 0 of
-  an ``expert_vars`` stack shards over ``expert`` after the
-  synchronizer's lowering (under AllReduce after the partition, under PS
-  before ``_wus_opt_spec`` fills a free dim with ``data``), in every plan,
-  the untouched variables' too; a partitioner may not claim that dim.  A
-  stack sharded over ``expert`` alone takes the per-shard tier as a
-  model-sharded variable does (:func:`per_shard_spec`); a stack sharded
-  over two axes is replicated on the bucketed step, with the JAX
-  warning.
+* **The pipe and expert axes** are structural (``compiler.py:401-469``):
+  dim 0 of a ``pipeline_vars`` stack shards over ``pipe``, and the
+  expert dim of an ``expert_vars`` stack (dim 0, or dim 1 after a stage
+  dim) over ``expert``, after the synchronizer's lowering (under
+  AllReduce after the partition, under PS before ``_wus_opt_spec`` fills
+  a free dim with ``data``), in every plan, the untouched variables' too;
+  a partitioner may not claim those dims.  A stack sharded over
+  ``expert`` or ``pipe`` alone, or over ``pipe`` and ``expert``, takes
+  the per-shard tier as a model-sharded variable does
+  (:func:`per_shard_spec`); a variable sharded over two axes other than
+  that pair is replicated on the bucketed step, with the JAX warning.
 * **Parameter storage over data** (``storage_axis``): the dim the JAX
   lowering shards the parameter over ``data`` between steps on a mesh
   without ``model`` (its ``param_spec``): a partitioner's axis under PS,
@@ -78,7 +80,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from autodist_tpu_torch.const import (MESH_AXIS_DATA, MESH_AXIS_EXPERT,
-                                      MESH_AXIS_MODEL, SHARD_AXES)
+                                      MESH_AXIS_MODEL, MESH_AXIS_PIPE,
+                                      SHARD_AXES)
 from autodist_tpu_torch.kernel.synchronization.bucketing import \
     MODE_REDUCE_SCATTER
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizerConfig,
@@ -153,8 +156,9 @@ class VarPlan:
 
     @property
     def model_sharded(self) -> bool:
-        """Does ``param_spec`` shard a dim over ``model`` or ``expert``
-        without padding it (a sharding the bucketed step keeps)?"""
+        """Does ``param_spec`` shard a dim over ``model``, ``expert`` or
+        ``pipe`` without padding it (a sharding the bucketed step
+        keeps)?"""
         return self.pad_axis is None and any(
             a in SHARD_AXES for a in self.param_spec)
 
@@ -308,17 +312,28 @@ class StrategyCompiler:
 
     @staticmethod
     def _structural_axes(var) -> Tuple[int, ...]:
-        """The dims the expert stacking owns (a strategy partitioner may
-        not claim them): dim 0 of an ``expert_vars`` stack."""
-        return (0,) if var.expert else ()
+        """The dims the pipeline and expert stacking own (a strategy
+        partitioner may not claim them): dim 0 of a ``pipeline_vars``
+        stack, and the expert dim of an ``expert_vars`` stack (its
+        leading dim, or the one after the stage dim)."""
+        axes = []
+        if var.pipeline:
+            axes.append(0)
+        if var.expert:
+            axes.append(1 if var.pipeline else 0)
+        return tuple(axes)
 
     def _apply_structural_specs(self, var, spec):
-        """The expert stack's leading dim over ``expert``, after the
-        synchronizer's lowering (so it composes with a ``model`` or
-        ``data`` sharding of another dim)."""
+        """The stage stack's leading dim over ``pipe`` and the expert dim
+        over ``expert``, after the synchronizer's lowering (so they
+        compose with a ``model`` or ``data`` sharding of another dim)."""
+        if var.pipeline:
+            spec = self._structural_spec(var, spec, 0, MESH_AXIS_PIPE,
+                                         "pipeline")
         if var.expert:
-            spec = self._structural_spec(var, spec, 0, MESH_AXIS_EXPERT,
-                                         "expert")
+            spec = self._structural_spec(var, spec,
+                                         1 if var.pipeline else 0,
+                                         MESH_AXIS_EXPERT, "expert")
         return spec
 
     def _compile_node(self, node, var) -> VarPlan:
@@ -341,9 +356,9 @@ class StrategyCompiler:
             if sparse_shard:
                 spec, pad = self._partition_spec(
                     var, 0, model_axis or MESH_AXIS_DATA)
-            if var.expert:
-                # the expert dim over expert, then WUS fills a free dim
-                # with data (a no-op when the spec already carries it)
+            if var.pipeline or var.expert:
+                # the structural dims over pipe/expert, then WUS fills a
+                # free dim with data (a no-op when the spec carries it)
                 spec = self._apply_structural_specs(var, spec)
                 opt_spec = self._wus_opt_spec(var, spec)
             else:
@@ -380,9 +395,12 @@ class StrategyCompiler:
 
 
 def per_shard_spec(spec, pad) -> bool:
-    """Does a PS plan's ``spec`` shard one dim, over ``model`` or
-    ``expert``, unpadded?  Its gradient is then an ``"all_reduce"`` of the
-    shard over ``data`` (the bucketed step's per-shard tier) instead of a
-    reduce-scatter."""
+    """Does a PS plan's ``spec`` shard dims over ``model``, ``expert`` or
+    ``pipe`` only, unpadded (one dim, or a stage stack's ``pipe`` dim
+    and its ``expert`` dim)?  Its gradient is then an ``"all_reduce"`` of
+    the shard over ``data`` (the bucketed step's per-shard tier) instead
+    of a reduce-scatter."""
     axes = [a for a in spec if a is not None]
-    return pad is None and len(axes) == 1 and axes[0] in SHARD_AXES
+    rest = [a for a in axes if a != MESH_AXIS_PIPE]
+    return (pad is None and bool(axes) and len(rest) <= 1
+            and all(a in SHARD_AXES for a in axes))

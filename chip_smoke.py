@@ -329,6 +329,26 @@ Phases, each printing one JSON line:
    exactly half of every expert stack's bytes and of their moments, rank
    0's losses and global norms within rtol 1e-4 of ``moe_reference``'s
    first; ms per step and peak memory per rank over its entry;
+12g. the ``pipe`` mesh axis: ``pipe_reference`` in the main process after
+   ``moe_reference``: ``pipelined_transformer_lm()`` at the JAX defaults
+   (vocab 32128, 12 layers, 12 x 64 heads, d_ff 3072, seq 1024) at pipe 1
+   with its attention through K1–K3, batch 8, ``PSLoadBalancing()`` +
+   ``fusable_adam(1e-3)`` + the clip, 1 + 3 steps (K1–K3 12 a step, K4/K5
+   as the IR predicts; ms per step, tokens/s, peak, ``mfu_f32``), the
+   check that the 1F1B spec's stack is the same draw stored device-major,
+   and the pipelined MoE LM at 4 layers (full width, 8 experts) at pipe 1,
+   1 + 1 steps.  Last on the ring ranks: ``pipe_gpipe``, the reference's
+   program on ``{"pipe": 4}``, M = 8; ``pipe_1f1b``, interleaved 1F1B (V
+   = 2) through ``capture(grad_fn=)`` on ``{"pipe": 2, "data": 2}``, M = 4
+   a data shard; ``pipe_moe``, the MoE LM on ``{"pipe": 2, "expert": 2}``,
+   M = 8; each 1 + 1 steps, K1–K3 a step a rank as :data:`PIPE_FLASH`
+   says (a rank computes only on the ticks where it holds a microbatch),
+   K4/K5 as the IR predicts, one digest, each rank holding exactly its
+   plan's share of every stage stack and of its moments (1/4, 1/2, and
+   1/4 of the expert stacks), rank 0's losses and global norms within
+   rtol 1e-4 of the one-card references'; then the 1F1B twin
+   (``examples_torch/pipeline_1f1b.py``) once, its losses equal on every
+   rank;
 12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
    of ``chip_smoke.py --replica`` processes (the full-width paged
    server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
@@ -467,7 +487,9 @@ ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
 ``train_fit``, ``train_remat``'s configurations (K1–K5),
 ``train_bf16_state`` (K1–K5), the export's serving process (K1, K10),
 ``train_parallax``, rank 0's ``ps_lb``, ``moe_reference`` and rank 0's
-``moe_ep`` (K1–K5), ``train_accum``, ``train_stale``,
+``moe_ep`` (K1–K5), ``pipe_reference``, its MoE reference, rank 0's
+``pipe_gpipe``, ``pipe_1f1b``, ``pipe_moe`` and the 1F1B twin (K1–K5),
+``train_accum``, ``train_stale``,
 rank 0's ``train_p6`` configurations (K1–K8), ``train_vgg16``,
 ``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 6
 quantized-ring
@@ -584,6 +606,30 @@ MOE_FFN_EP = "moe_ffn_ep"
 MOE_FFN_AXES = {"expert": 4}
 MOE_FFN_TOL = 1e-5
 MOE_EXACT = dict(g=8, s=8, m=256, e=8)
+#: the pipe axis: the ring configurations, their meshes, microbatches and
+#: K1–K3 a step a rank (a rank computes only on the ticks where it holds
+#: a microbatch: 3 layers x 8 microbatches under GPipe on ``{"pipe":
+#: 4}``; 6 layers x 4 microbatches forward and again in the 1F1B
+#: recompute, one backward, on ``{"pipe": 2, "data": 2}``; 2 layers x 8
+#: under the MoE GPipe on ``{"pipe": 2, "expert": 2}``), the one-card
+#: reference's steps (its first 1 + 1 losses hold the ring's), the depth
+#: of the MoE run (cut from 12 for time only), and the 1F1B twin's
+#: arguments on the ring ranks (``tests/test_examples.py``'s)
+PIPE_GPIPE, PIPE_1F1B, PIPE_MOE = "pipe_gpipe", "pipe_1f1b", "pipe_moe"
+PIPE_CONFIGS = (PIPE_GPIPE, PIPE_1F1B, PIPE_MOE)
+PIPE_AXES = {PIPE_GPIPE: {"pipe": 4}, PIPE_1F1B: {"pipe": 2, "data": 2},
+             PIPE_MOE: {"pipe": 2, "expert": 2}}
+PIPE_MICROBATCHES = {PIPE_GPIPE: 8, PIPE_1F1B: 4, PIPE_MOE: 8}
+PIPE_FLASH = {PIPE_GPIPE: (24, 24, 24), PIPE_1F1B: (48, 24, 24),
+              PIPE_MOE: (16, 16, 16)}
+PIPE_REF_WARMUP, PIPE_REF_TIMED = 1, 3
+PIPE_WARMUP, PIPE_TIMED = 1, 1
+PIPE_LOSS_RTOL = 1e-4
+PIPE_MOE_LAYERS = 4
+PIPE_TWIN = "pipeline_1f1b"
+PIPE_TWIN_ARGS = ("--pipe", "2", "--data-shards", "2", "--virtual-stages",
+                  "2", "--num-layers", "4", "--seq-len", "16",
+                  "--batch-size", "8", "--steps", "3")
 #: the ``long_context`` twin on the ring ranks, and its K1–K3 a step (2
 #: layers x 4 ring blocks) over its 3 warm-up, 1 + 19 timed and 1 closing
 #: steps (``benchmark.common.run_benchmark``'s defaults)
@@ -3899,39 +3945,40 @@ def phase_tp_reference(torch):
 
 
 def _shard_bytes(torch, sess) -> dict:
-    """The bytes this rank holds of its model- or expert-sharded
-    parameters and of their Adam moments, beside the plan's count (each
-    kept sharding's logical bytes over its axis's size; two moments
-    each); raises unless they agree."""
+    """The bytes this rank holds of its sharded parameters (over
+    ``model``, ``expert`` or ``pipe``: ``shard_cuts``) and of their Adam
+    moments, beside the plan's count (each kept sharding's logical bytes
+    over the product of its axes' sizes; two moments each); raises unless
+    they agree."""
     from autodist_tpu_torch.graph_item import flatten
-    from autodist_tpu_torch.kernel.graph_transformer import map_model_leaves
+    from autodist_tpu_torch.kernel.graph_transformer import map_var_leaves
 
     step = sess._step
+    cuts = step.shard_cuts
     infos = {v.name: v for v in sess._gi.info.variables}
     shape = sess.mesh.shape
     plan = sum(infos[n].byte_size // math.prod(shape.get(a, 1)
                                                for a in p.param_spec if a)
                for n, p in step.compiled_strategy.var_plans.items()
                if p.model_sharded)
-    logical = sum(infos[n].byte_size for n in step.model_shards)
-    per_rank = sum(infos[n].byte_size // k
-                   for n, (_, k, _) in step.model_shards.items())
+    logical = sum(infos[n].byte_size for n in cuts)
+    per_rank = sum(infos[n].byte_size // math.prod(k for _, k, _ in c)
+                   for n, c in cuts.items())
     held = sum(x.numel() * x.element_size()
-               for n, x in flatten(sess.device_params)
-               if n in step.model_shards)
+               for n, x in flatten(sess.device_params) if n in cuts)
     moments = []
     tree = sess.opt_state["vars"] if sess.zero1_buckets else sess.opt_state
-    map_model_leaves(tree, step.model_shards, lambda x, n, dim: moments.append(
+    map_var_leaves(tree, cuts, lambda x, n: moments.append(
         x.numel() * x.element_size()))
-    out = {"sharded_vars": len(step.model_shards),
+    out = {"sharded_vars": len(cuts),
            "logical_param_bytes": logical,
            "plan_param_bytes_per_rank": plan,
            "param_bytes_held": held,
            "plan_moment_bytes_per_rank": 2 * plan,
            "moment_bytes_held": sum(moments)}
-    if not (step.model_shards and held == plan == per_rank
+    if not (cuts and held == plan == per_rank
             and sum(moments) == 2 * plan):
-        raise AssertionError(f"model shards: {out}")
+        raise AssertionError(f"sharded variables: {out}")
     return out
 
 
@@ -4308,6 +4355,237 @@ def check_moe(ring, ref, smi) -> dict:
     emit({"phase": MOE_FFN_EP, "card": smi, "ranks": RING_RANKS,
           **ring[MOE_FFN_EP]})
     return {MOE_EP + " (rank 0)": out}
+
+
+def _pipe_spec(name=None, mesh=None):
+    """The pipe axis's programs with their attention through K1–K3: the
+    pipelined LM at the JAX defaults (``name`` None: pipe 1, the
+    reference; :data:`PIPE_GPIPE` on ``mesh``; :data:`PIPE_1F1B`: 1F1B,
+    V = 2, :data:`PIPE_MICROBATCHES` a data shard), or the pipelined MoE
+    LM at :data:`PIPE_MOE_LAYERS` layers (:data:`PIPE_MOE`, and
+    ``"moe_reference"`` at pipe 1)."""
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    from autodist_tpu_torch.models import (pipelined_moe_transformer_lm,
+                                           pipelined_transformer_lm)
+
+    if name in (PIPE_MOE, "moe_reference"):
+        return pipelined_moe_transformer_lm(
+            mesh, num_layers=PIPE_MOE_LAYERS, attn_fn=fa.flash_attention,
+            num_microbatches=PIPE_MICROBATCHES[PIPE_MOE] if mesh else None)
+    if name == PIPE_1F1B:
+        return pipelined_transformer_lm(
+            mesh, attn_fn=fa.flash_attention, schedule="1f1b",
+            num_virtual_stages=2,
+            num_microbatches=PIPE_MICROBATCHES[PIPE_1F1B])
+    return pipelined_transformer_lm(
+        mesh, attn_fn=fa.flash_attention,
+        num_microbatches=PIPE_MICROBATCHES[PIPE_GPIPE] if mesh else None)
+
+
+def _pipe_session(spec, axes=None, mesh=None):
+    """``PSLoadBalancing()`` with ``fusable_adam(1e-3)`` and the clip on a
+    pipelined LM through the facade (on ``axes``; one card without), its
+    stage stacks flagged and its 1F1B ``grad_fn`` taken when it has one:
+    the session and the fixed batch of 8 rows."""
+    from autodist_tpu_torch import autodist as adm
+    from autodist_tpu_torch.ops import fused_kernels as fk
+    from autodist_tpu_torch.strategy import PSLoadBalancing
+
+    adm._reset_default_autodist_for_testing()
+    ad = adm.AutoDist(strategy_builder=PSLoadBalancing(), mesh_axes=axes)
+    with ad.scope():
+        ad.capture(params=lm_params(spec), optimizer=fk.fusable_adam(1e-3),
+                   loss_fn=spec.loss_fn, grad_fn=spec.grad_fn,
+                   sparse_vars=spec.sparse_vars,
+                   pipeline_vars=spec.pipeline_vars,
+                   expert_vars=spec.expert_vars,
+                   numerics={"clip_norm": CLIP_NORM})
+    return (ad.create_distributed_session(mesh=mesh),
+            spec.sample_batch(TRAIN_SHAPE["B"], seed=SEED))
+
+
+def phase_pipe_reference(torch):
+    """``pipe_reference``: ``pipelined_transformer_lm()`` at the JAX
+    defaults at pipe 1 (the plain loop over the 12-layer stack) on one
+    card, batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the
+    clip, 1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR
+    predicts, finite falling losses; ms per step, tokens/s, peak memory
+    and ``mfu_f32``.  Its losses and global norms hold ``pipe_gpipe``'s,
+    and ``pipe_1f1b``'s: the 1F1B spec draws the same layers from the
+    same seed and stores them device-major, which the check here
+    confirms bit for bit on the CPU draws.  Then ``moe_reference``: the
+    pipelined MoE LM at :data:`PIPE_MOE_LAYERS` layers the same way, 1 + 1
+    steps, the oracle of ``pipe_moe``."""
+    from autodist_tpu_torch.mesh import Mesh
+    from autodist_tpu_torch.parallel.pipeline import interleaved_stage_order
+
+    out = {}
+    for name, warmup, timed in (("reference", PIPE_REF_WARMUP,
+                                 PIPE_REF_TIMED),
+                                ("moe_reference", PIPE_WARMUP, PIPE_TIMED)):
+        spec = _pipe_spec(name)
+        _fresh_peak(torch)
+        t0 = time.perf_counter()
+        sess, batch = _pipe_session(spec)
+        build_s = time.perf_counter() - t0
+        cfg = spec.config
+        want = _ir_predicted_launches(sess.schedule_ir, cfg["num_layers"])
+        losses, norms, step_s, launches = _checked_steps(
+            torch, f"pipe_{name}", sess, batch, want, warmup, timed,
+            guarded=True)
+        step = statistics.median(step_s)
+        infos = sess._gi.info.variables
+        row = {"builder": "PSLoadBalancing", "config": cfg,
+               "stack_bytes": sum(v.byte_size for v in infos
+                                  if v.pipeline),
+               "session_build_s": build_s, "losses": losses,
+               "global_norms": norms, "ms_per_step": step * 1e3,
+               "tokens_per_s": TRAIN_SHAPE["B"] * cfg["seq_len"] / step,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches, "launches_per_step": want}
+        if name == "reference":
+            _check_falling(losses)
+            flops = model_flops_per_step(cfg, TRAIN_SHAPE["B"])
+            row.update(ms_per_step_min=min(step_s) * 1e3,
+                       ms_per_step_max=max(step_s) * 1e3,
+                       model_tflop_per_step=flops["total"] / 1e12,
+                       mfu_f32=flops["total"] / step / H100_F32_FLOPS)
+        else:
+            flops = moe_flops_per_step(cfg, TRAIN_SHAPE["B"])
+            row["mfu_f32"] = flops["total"] / step / H100_F32_FLOPS
+        out[name] = row
+        del sess
+        torch.cuda.empty_cache()
+    # the 1F1B spec's stack is the reference's, stored device-major
+    ref = lm_params(_pipe_spec(), device="cpu")["stack"]
+    mine = lm_params(_pipe_spec(PIPE_1F1B, Mesh(
+        shape=PIPE_AXES[PIPE_1F1B], device=torch.device("cpu"))),
+        device="cpu")["stack"]
+    lpc = 12 // 4
+    order = interleaved_stage_order(2, 2)
+    rows = [order.index(g) * lpc + k for g in range(4) for k in range(lpc)]
+    from autodist_tpu_torch.graph_item import flatten
+
+    same = all(torch.equal(a[rows], b) for (_, a), (_, b) in zip(
+        flatten(mine), flatten(ref)))
+    if not same:
+        raise AssertionError("pipe_1f1b's stack is not the reference's "
+                             "layers in device-major order")
+    out["reference"]["is_pipe_1f1b_pipeline_order"] = same
+    return out
+
+
+def _pipe_train(torch, name):
+    """The ``pipe_gpipe`` / ``pipe_1f1b`` / ``pipe_moe`` configuration on
+    this rank (see the module docstring): the session's numbers, K1–K3 a
+    step as :data:`PIPE_FLASH` says and K4/K5 as the IR predicts, this
+    rank's stage bytes and the digest of the gathered parameters."""
+    from autodist_tpu_torch.mesh import build_mesh
+
+    axes = PIPE_AXES[name]
+    _fresh_peak(torch)
+    at_entry = torch.cuda.memory_allocated()
+    mesh = build_mesh(axes)
+    spec = _pipe_spec(name, mesh)
+    t0 = time.perf_counter()
+    sess, batch = _pipe_session(spec, axes, mesh)
+    build_s = time.perf_counter() - t0
+    if {k: v for k, v in sess.mesh.shape.items() if v > 1} != axes:
+        raise AssertionError(f"{name}: mesh {sess.mesh.shape}")
+    held = _shard_bytes(torch, sess)
+    stacks = sorted(v.name for v in sess._gi.info.variables if v.pipeline)
+    if sorted(sess._step.shard_cuts) != stacks:
+        raise AssertionError(f"{name}: cut {sorted(sess._step.shard_cuts)}"
+                             f", stage stacks {stacks}")
+    want = _ir_predicted_launches(sess.schedule_ir,
+                                  spec.config["num_layers"])
+    want.update(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                    PIPE_FLASH[name]))
+    losses, norms, step_s, launches = _checked_steps(
+        torch, name, sess, batch, want, PIPE_WARMUP, PIPE_TIMED,
+        guarded=True)
+    return sess, {
+        "mesh": dict(axes), "builder": "PSLoadBalancing",
+        "schedule": spec.config["schedule"],
+        "virtual_stages": 2 if name == PIPE_1F1B else 1,
+        "microbatches": PIPE_MICROBATCHES[name],
+        "num_layers": spec.config["num_layers"],
+        "schedule_fingerprint": sess.schedule_fingerprint,
+        "session_build_s": build_s, "losses": losses,
+        "global_norms": norms, **held,
+        "ms_per_step": statistics.median(step_s) * 1e3,
+        "ms_per_step_label": "4 ranks time-sharing one card over gloo "
+                             "(host-staged activation hops and "
+                             "reductions)",
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_entry": at_entry,
+        "peak_over_entry": torch.cuda.max_memory_allocated() - at_entry,
+        "launches": launches, "launches_per_step": want,
+        **_params_digests(sess)}
+
+
+def _pipe_twin(torch) -> dict:
+    """The 1F1B twin (``examples_torch/pipeline_1f1b.py``) on this rank at
+    :data:`PIPE_TWIN_ARGS` (``{"pipe": 2, "data": 2}``, V = 2): its
+    1F1B and GPipe losses (its own drift check holds), seconds and
+    launches; its output goes to stderr."""
+    import contextlib
+
+    twin = importlib.import_module(f"examples_torch.{PIPE_TWIN}")
+    _fresh_peak(torch)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = twin.main(list(PIPE_TWIN_ARGS))
+    torch.cuda.synchronize()
+    return {"args": list(PIPE_TWIN_ARGS), "losses": losses,
+            "seconds": time.perf_counter() - t0,
+            "launches": _kernel_counts()}
+
+
+def _pipe_ring(torch, out, stamp) -> None:
+    """The pipe axis's ring configurations on this rank, into ``out``:
+    ``pipe_gpipe``, ``pipe_1f1b``, ``pipe_moe``, then the 1F1B twin."""
+    for name in PIPE_CONFIGS:
+        sess, out[name] = _pipe_train(torch, name)
+        del sess
+        torch.cuda.empty_cache()
+        stamp(name)
+    out[PIPE_TWIN] = _pipe_twin(torch)
+    stamp(PIPE_TWIN)
+
+
+def check_pipe(ring, ref, smi) -> dict:
+    """Rank 0's ``pipe_gpipe`` and ``pipe_1f1b`` losses and global norms
+    against ``pipe_reference``'s first and ``pipe_moe``'s against the
+    MoE reference's at :data:`PIPE_LOSS_RTOL`; emits each line and the
+    twin's; returns K1–K5's launches by path."""
+    paths = {}
+    for name in PIPE_CONFIGS:
+        out = ring[name]
+        base = ref["moe_reference" if name == PIPE_MOE else "reference"]
+        rels = {}
+        for key in ("losses", "global_norms"):
+            want = base[key][:len(out[key])]
+            rels[key] = max(abs(a - b) / abs(b)
+                            for a, b in zip(out[key], want))
+            if not rels[key] <= PIPE_LOSS_RTOL:
+                raise AssertionError(
+                    f"{name}: rank 0's {key} {out[key]} differ from the "
+                    f"one-card run's {want} by {rels[key]:.2e}")
+        emit({"phase": name, "card": smi, "ranks": RING_RANKS,
+              "params_identical_across_ranks": True,
+              "one_card_losses": base["losses"][:len(out["losses"])],
+              "one_card_global_norms":
+                  base["global_norms"][:len(out["global_norms"])],
+              "max_rel_diff_vs_one_card": rels["losses"],
+              "max_rel_norm_diff_vs_one_card": rels["global_norms"],
+              "rtol": PIPE_LOSS_RTOL, **out})
+        paths[f"{name} (rank 0)"] = out
+    emit({"phase": PIPE_TWIN, "card": smi, "ranks": RING_RANKS,
+          **ring[PIPE_TWIN]})
+    paths.update({f"pipe_{k}": v for k, v in ref.items()})
+    return paths
 
 
 def phase_train_parallax(torch, ps_out):
@@ -5739,6 +6017,7 @@ def ring_worker(rank: int, init: str, mode: str,
         stamp("long_context")
         _tp_ring(torch, out, stamp)
         _moe_ring(torch, out, stamp)
+        _pipe_ring(torch, out, stamp)
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -5893,7 +6172,7 @@ def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
         return results[0], wall, None
     _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
                         + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS
-                        + TP_CONFIGS + (MOE_EP,))
+                        + TP_CONFIGS + (MOE_EP,) + PIPE_CONFIGS)
     return results[0], wall, [res["fused_vs_unfused"] for res in results]
 
 
@@ -5919,11 +6198,14 @@ def _check_rank_results(results, configs) -> None:
                 raise AssertionError(f"{config}: ranks launched "
                                      f"differently")
     for config in {AUTO_RING_CONFIG, TUNE_RING_CONFIG, *TP_CONFIGS,
-                   MOE_EP} & set(configs):
+                   MOE_EP, *PIPE_CONFIGS} & set(configs):
         fps = [res[config]["schedule_fingerprint"] for res in results]
         if len(set(fps)) != 1:
             raise AssertionError(f"{config}: schedule fingerprints by rank "
                                  f"{fps}")
+    if PIPE_GPIPE in configs and len({
+            json.dumps(res[PIPE_TWIN]["losses"]) for res in results}) != 1:
+        raise AssertionError(f"{PIPE_TWIN}: the ranks' losses differ")
     if TUNE_RING_CONFIG in configs and [
             res[TUNE_RING_CONFIG]["searched"] for res in results] != [
                 True] + [False] * (len(results) - 1):
@@ -7606,6 +7888,8 @@ def main() -> int:
     emit({"phase": "tp_reference", "card": smi, **tp_ref})
     moe_ref = phase_moe_reference(torch)
     emit({"phase": "moe_reference", "card": smi, **moe_ref})
+    pipe_ref = phase_pipe_reference(torch)
+    emit({"phase": "pipe_reference", "card": smi, **pipe_ref})
     for row in sync_rows:
         row["launches_by_path"] = {
             path: {"launches": out["launches"][row["name"]],
@@ -7719,12 +8003,16 @@ def main() -> int:
     tp_paths = check_tp(ring, tp_ref, smi)
     tp_paths.update(check_moe(ring, moe_ref, smi))
     tp_paths["moe_reference"] = moe_ref
+    tp_paths.update(check_pipe(ring, pipe_ref, smi))
     for row in flash_rows + sync_rows:
         row["launches_by_path"].update({
             path: {"launches": out["launches"][row["name"]],
                    "per_step": out["launches_per_step"][row["name"]]}
             for path, out in tp_paths.items()
             if out["launches"][row["name"]]})
+        if ring[PIPE_TWIN]["launches"][row["name"]]:
+            row["launches_by_path"][f"examples {PIPE_TWIN} (rank 0)"] = {
+                "launches": ring[PIPE_TWIN]["launches"][row["name"]]}
     for row in flash_rows:
         row["launches_by_path"].update({
             path: {"launches": out["launches"][row["name"]],

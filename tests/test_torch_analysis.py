@@ -11,9 +11,8 @@
   sync state, activations) are equal at rtol 1e-9 for adam, adamw, sgd
   with momentum and adagrad, plain and under ``cast_opt_state``, for
   replicated, PS and ZeRO-1 plans;
-* a case that needs a ``pipe`` axis is held to the port's P10 ERROR
-  (``legality/axis-not-ported``); ``model`` and ``expert`` meshes are
-  lowered;
+* ``pipe``, ``model``, ``expert`` and ``seq`` meshes and hints give the
+  JAX analyzer's findings (no axis is refused any more);
 * ``preflight``, ``create_distributed_session(validate=True)`` and
   ``fit(validate=True)`` raise ``StrategyValidationError`` on an illegal
   plan before any step runs, and pass a legal one.
@@ -39,7 +38,6 @@ from autodist_tpu_torch.analysis import (StrategyValidationError, analyze,
 from autodist_tpu_torch.analysis import memory
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
-from autodist_tpu_torch.const import P10
 from autodist_tpu_torch.graph_item import GraphItem, flatten, unflatten
 from autodist_tpu_torch.models.bert import bert
 from autodist_tpu_torch.models.ncf import ncf
@@ -309,42 +307,34 @@ def test_memory_terms_equal_jax(opt, cast, plan, d):
                                   {"model": 2, "data": 4},
                                   {"expert": 2, "data": 4}))
 def test_non_data_axes_are_a_p10_error(mesh):
-    """``pipe`` is ``legality/axis-not-ported`` (on the mesh or in the
-    strategy's hint); ``model`` and ``expert`` are lowered now, so their
-    mesh raises nothing and a pipe hint beside them still does."""
+    """No axis is refused any more: ``pipe`` (since the pipelines),
+    ``model`` and ``expert`` meshes, and hints naming them, give the JAX
+    analyzer's findings, rule for rule."""
     jgi, pgi = _programs(GI)
-    report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
-                     mesh=mesh)
-    errs = report.by_rule("legality/axis-not-ported")
+    jstrat = full_cover(jgi)
+    assert _findings(analyze(Strategy.from_dict(jstrat.to_dict()), pgi,
+                             mesh=mesh)) == \
+        _findings(jax_analyze(jstrat, jgi, mesh=mesh))
     (axis,) = [a for a, n in mesh.items() if a != "data"]
-    hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    if axis in ("model", "expert"):
-        assert not errs
-        hinted.graph_config.mesh_axes = {axis: 2, "pipe": 2}
-        assert [d.location for d in analyze(hinted, pgi, mesh=mesh).by_rule(
-            "legality/axis-not-ported")] == ["pipe"]
-        return
-    assert [d.location for d in errs] == [axis]
-    assert P10 in errs[0].message
-    hinted.graph_config.mesh_axes = {axis: 2}
-    assert analyze(hinted, pgi, mesh=AXES8).by_rule(
-        "legality/axis-not-ported")
+    jstrat.graph_config.mesh_axes = {axis: 2, "pipe": 2}
+    jrep, prep = _both(jstrat, jgi, pgi, mesh=mesh)
+    assert _findings(prep) == _findings(jrep)
+    assert not prep.by_rule("legality/axis-not-ported")
 
 
 def test_seq_axis_is_lowered_not_a_p10_error():
-    """The port lowers the seq axis: a data × seq mesh and a seq hint raise
-    no ``legality/axis-not-ported``; nor do model and expert hints beside
-    it, while a pipe hint still does."""
+    """The port lowers the seq axis: a data × seq mesh and a hint naming
+    every axis give the JAX analyzer's findings; no
+    ``legality/axis-not-ported`` is left."""
     jgi, pgi = _programs(GI)
-    report = analyze(Strategy.from_dict(full_cover(jgi).to_dict()), pgi,
-                     mesh={"data": 4, "seq": 2})
-    assert not report.by_rule("legality/axis-not-ported")
-    hinted = Strategy.from_dict(full_cover(jgi).to_dict())
-    hinted.graph_config.mesh_axes = {"seq": 2, "model": 2, "expert": 2,
+    jstrat = full_cover(jgi)
+    jrep, prep = _both(jstrat, jgi, pgi, mesh={"data": 4, "seq": 2})
+    assert _findings(prep) == _findings(jrep)
+    jstrat.graph_config.mesh_axes = {"seq": 2, "model": 2, "expert": 2,
                                      "pipe": 2}
-    errs = analyze(hinted, pgi, mesh=AXES8).by_rule(
-        "legality/axis-not-ported")
-    assert [d.location for d in errs] == ["pipe"]
+    jrep, prep = _both(jstrat, jgi, pgi, mesh=AXES8)
+    assert _findings(prep) == _findings(jrep)
+    assert not prep.by_rule("legality/axis-not-ported")
 
 
 # -- the validate hooks --------------------------------------------------------

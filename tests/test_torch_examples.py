@@ -42,7 +42,7 @@ TWINS = ("linear_regression", "image_classifier", "generate_text",
          "serve_http", "speculative_draft", "benchmark.common",
          "benchmark.imagenet", "benchmark.bert", "benchmark.ncf",
          "lm1b.lm1b_train", "long_context", "input_pipeline",
-         "implicit_capture")
+         "implicit_capture", "pipeline_1f1b", "moe_pipeline")
 
 
 @pytest.fixture(autouse=True)
@@ -196,6 +196,51 @@ def test_long_context_example_on_two_seq_ranks(tmp_path):
     losses = [ln[0].split("loss ")[1] for ln in lines]
     assert losses[0] == losses[1]
     assert all("RATE" in log for log in logs)
+
+
+PIPE_RANK = (
+    "import sys; sys.path.insert(0, {root!r}); sys.path.insert(0, {tests!r})\n"
+    "import torch, torch_launch\n"
+    "torch.set_num_threads(1)\n"
+    "rank, init = int(sys.argv[1]), sys.argv[2]\n"
+    "torch_launch.init_process_group(init, 2, rank)\n"
+    "from examples_torch import {twin}\n"
+    "out = {twin}.main({argv!r} + ['--device', 'cpu'])\n"
+    "print('RESULT', out)\n")
+
+
+@pytest.mark.parametrize("twin,argv", [
+    ("pipeline_1f1b", ["--pipe", "2", "--data-shards", "1",
+                       "--virtual-stages", "2", "--num-layers", "4",
+                       "--seq-len", "16", "--batch-size", "8",
+                       "--steps", "3"]),
+    ("moe_pipeline", ["--pipe", "2", "--expert-shards", "1",
+                      "--data-shards", "1", "--seq-len", "16",
+                      "--steps", "2", "--warmup", "1"]),
+])
+def test_pipeline_twins_on_two_pipe_ranks(tmp_path, twin, argv):
+    """The pipeline twins on a ``{"pipe": 2}`` mesh of 2 gloo ranks (the
+    caller made the process group), at the JAX tests' arguments: the
+    1F1B twin's interleaved 1F1B and GPipe runs agree (its own assert)
+    and both ranks print the same losses; the MoE twin trains on both
+    ranks with the same loss line."""
+    import torch_launch
+
+    code = PIPE_RANK.format(root=str(ROOT), tests=str(ROOT / "tests"),
+                            twin=twin, argv=argv)
+    logs = torch_launch.run(lambda rank, init: ["-c", code, rank, init],
+                            world=2, tmp_dir=tmp_path, timeout=240)
+    key = "  1f1b:" if twin == "pipeline_1f1b" \
+        else "pipelined_moe_transformer_lm:"
+    lines = [[ln for ln in log.splitlines() if ln.startswith(key)]
+             for log in logs]
+    assert all(len(x) == 1 for x in lines), logs
+    if twin == "pipeline_1f1b":
+        assert lines[0] == lines[1]
+        assert all("max relative drift" in log for log in logs)
+    else:
+        assert lines[0][0].split("loss ")[1] == lines[1][0].split("loss ")[1]
+    assert all("RESULT" in log for log in logs)
 
 
 # -- against the JAX scripts -------------------------------------------------

@@ -1,9 +1,9 @@
 """The port's ``model`` mesh axis against the JAX package.
 
 * ``build_mesh`` over ``{"data": 2, "model": 2}`` and ``{"model": 2,
-  "seq": 2}`` on 4 gloo ranks: the ranks of a model group are adjacent;
-  ``pipe`` still raises naming P10 (the expert axis's layout is
-  ``tests/test_torch_moe.py``'s);
+  "seq": 2}`` on 4 gloo ranks: the ranks of a model group are adjacent
+  (the expert and pipe axes' layouts are ``tests/test_torch_moe.py``'s
+  and ``tests/test_torch_pipeline.py``'s);
 * the compiler's plans on a model mesh equal the JAX compiler's
   ``VarPlan`` layouts for all 8 builders (``param_spec``, ``opt_spec``,
   the pad, the partition fields), with a padded and a "more than
@@ -186,9 +186,13 @@ def test_mesh_layout_on_four_ranks(ranks):
 
 @pytest.mark.parametrize("axis", ["pipe"])
 def test_pipe_and_expert_still_raise_naming_p10(axis):
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
+    """Both axes build now (``tests/test_torch_pipeline.py`` and
+    ``tests/test_torch_moe.py`` train on them): on this one-process world
+    a size of 2 does not divide the world, and a size of 1 builds."""
+    with pytest.raises(ValueError, match="divide the world size"):
         build_mesh({axis: 2, "model": 1}, device="cpu")
-    assert build_mesh({"model": 1}, device="cpu").model_size == 1
+    mesh = build_mesh({axis: 1, "model": 1}, device="cpu")
+    assert mesh.model_size == mesh.pipe_size == 1
 
 
 # -- the compiler -----------------------------------------------------------

@@ -214,18 +214,18 @@ def test_expert_mesh_layout_on_four_ranks(ranks):
 
 def test_capture_flags_expert_vars_as_jax_does(lm_inputs):
     """``expert_vars`` matches names exact, by path prefix or glob, as the
-    JAX catalog does; ``pipeline_vars`` still raises naming P10."""
+    JAX catalog does, and so does ``pipeline_vars`` (ported since)."""
     params = lm_inputs[0]
     for pats in (("*/moe/wi", "*/moe/wo"), ("layers_0/moe/wi",),
                  ("layers_1/moe",)):
-        want = {v.name for v in JGraphItem(params, expert_vars=pats)
-                .info.variables if v.expert}
-        got = {v.name for v in GraphItem(params_from_jax(params),
-                                         expert_vars=pats).info.variables
-               if v.expert}
-        assert got == want and got
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        GraphItem(params_from_jax(params), pipeline_vars=("embed",))
+        for flag in ("expert", "pipeline"):
+            kw = {f"{flag}_vars": pats}
+            want = {v.name for v in JGraphItem(params, **kw)
+                    .info.variables if getattr(v, flag)}
+            got = {v.name for v in GraphItem(params_from_jax(params),
+                                             **kw).info.variables
+                   if getattr(v, flag)}
+            assert got == want and got
 
 
 # -- the FFN against JAX ------------------------------------------------------

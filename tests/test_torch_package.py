@@ -104,6 +104,10 @@ def test_imports_with_jax_blocked_and_loads_nothing_of_jax_package():
         "import autodist_tpu_torch.runtime.native\n"
         "import autodist_tpu_torch.parallel.ring_attention\n"
         "import autodist_tpu_torch.parallel.ulysses\n"
+        "import autodist_tpu_torch.parallel.pipeline\n"
+        "import autodist_tpu_torch.parallel.pipeline_1f1b\n"
+        "import autodist_tpu_torch.models.pipelined_lm\n"
+        "import autodist_tpu_torch.models.pipelined_moe_lm\n"
         "import autodist_tpu_torch.kernel.synchronization.collectives\n"
         "import autodist_tpu_torch.analysis.legality\n"
         "import autodist_tpu_torch.analysis.memory\n"
@@ -413,7 +417,11 @@ def _public(module):
                                    ".resilience.elastic", ".serving",
                                    ".serving.router", ".serving.server",
                                    ".runtime", ".parallel",
-                                   ".models.moe_lm"])
+                                   ".models.moe_lm",
+                                   ".parallel.pipeline",
+                                   ".parallel.pipeline_1f1b",
+                                   ".models.pipelined_lm",
+                                   ".models.pipelined_moe_lm"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -491,16 +499,8 @@ def _stub_calls(spec, ad, sess):
     from autodist_tpu_torch.strategy import ScheduleTuner
     from autodist_tpu_torch.telemetry import LegProfiler, flightrec
 
-    from autodist_tpu_torch import parallel
-
     params = sess.device_params
     return {
-        **{f"parallel.{n}": (getattr(parallel, n), P10)
-           for n in PARALLEL_STUBS},
-        "models.pipelined_transformer_lm": (models.pipelined_transformer_lm,
-                                            P10),
-        "models.pipelined_moe_transformer_lm": (
-            models.pipelined_moe_transformer_lm, P10),
         "AutoDist.cluster": (lambda: ad.cluster, P12),
         "AutoDist.coordinator": (lambda: ad.coordinator, P12),
         # P8's second half, ported since: each now runs (item None)
@@ -525,14 +525,7 @@ def _stub_calls(spec, ad, sess):
     }
 
 
-#: the P10 names of ``autodist_tpu_torch.parallel`` that raise (its
-#: sequence-parallel attention and its MoE FFN run)
-PARALLEL_STUBS = ["pipeline_apply", "stack_stage_params", "one_f_one_b",
-                  "schedule_ticks_1f1b", "bubble_fraction_1f1b"]
-STUBS = [f"parallel.{n}" for n in PARALLEL_STUBS] + [
-         "models.pipelined_transformer_lm",
-         "models.pipelined_moe_transformer_lm", "AutoDist.cluster",
-         "AutoDist.coordinator", "LegProfiler.profile_ir",
+STUBS = ["AutoDist.cluster", "AutoDist.coordinator", "LegProfiler.profile_ir",
          "flightrec.traced_stamp", "fit(tuner=)",
          "AUTODIST_FLIGHTREC=legs", "session.place_local_batch",
          "serve(drain_on_sigterm=True)", "PagedDecodeEngine(mesh=)"]

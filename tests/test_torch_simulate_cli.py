@@ -11,7 +11,7 @@ autodist_tpu_torch.analysis``) against the JAX package's
 * the CLI's exit codes and output match the JAX CLI's: a non-divisible
   partition exits 1 with ``legality/indivisible-partition``, the demo
   catalogs under every builder exit 0 with the same table (the pipeline
-  catalog names P10, the expert catalog's output is JAX's), a budget
+  and expert catalogs on their own meshes too), a budget
   exceeded exits 1, ``--dump-ir``, ``--watermark``, ``--search-report``,
   ``--simulate``, ``--list-models`` and ``--list-rules``; the verdict is
   checked, not the wall clock; ``--elastic-from`` runs the elastic rules.
@@ -154,16 +154,12 @@ def test_cli_every_builder_on_every_demo_model(model):
 @pytest.mark.parametrize("model,mesh", [("pipeline", "pipe=4,data=2"),
                                         ("moe", "data=8")])
 def test_cli_pipeline_and_expert_catalogs_name_p10(model, mesh):
-    """The pipeline and expert catalogs: the JAX CLI analyzes them clean;
-    the port's catalog refuses ``pipeline_vars`` naming P10 (the
-    pipelines), as its GraphItem does, and analyzes the expert catalog
-    with the JAX CLI's output, on a data mesh and on an expert mesh."""
-    if model == "pipeline":
-        with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-            main([model, "AllReduce", "--mesh", mesh])
-        assert _run(jmain, [model, "AllReduce", "--mesh", mesh])[0] == 0
-        return
-    for m in (mesh, "data=4,expert=2"):
+    """The pipeline and expert catalogs analyze with the JAX CLI's exit
+    code and output: the pipeline catalog on a pipe mesh and a data mesh,
+    the expert catalog on a data mesh and an expert mesh, under three
+    builders."""
+    other = "data=8" if model == "pipeline" else "data=4,expert=2"
+    for m in (mesh, other):
         for builder in ("AllReduce", "PSLoadBalancing", "Parallax"):
             rc, out = _run(main, [model, builder, "--mesh", m])
             jrc, jout = _run(jmain, [model, builder, "--mesh", m])

@@ -38,7 +38,7 @@ from autodist_tpu_torch.autodist import (AutoDist,
 from autodist_tpu_torch.convert import (opt_state_from_jax,
                                         opt_state_to_numpy, params_from_jax,
                                         params_to_numpy)
-from autodist_tpu_torch.graph_item import GraphItem, flatten
+from autodist_tpu_torch.graph_item import GraphItem, flatten, unflatten
 from autodist_tpu_torch.kernel.synchronization.bucketing import (
     assign_buckets, pack_bucket, unpack_bucket)
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
@@ -322,14 +322,15 @@ class _PSBuilder(StrategyBuilder):
     (AllReduce(overlap="pipeline"), {}, "P6"),
     (AllReduce(hier=True), {}, "P6"),
     (_PSBuilder(), {}, "P6 — pipelining, hier and staleness"),
-    (AllReduce(), {"grad_fn": lambda p, b: None}, "P10"),
+    (AllReduce(), {"grad_fn": "autograd"}, "P10"),
     (AllReduce(), {"pipeline_vars": ("embed",)}, "P10"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(
         jmodel, builder, capture, item):
-    """The options still to port (P10) raise naming their ROADMAP item.
-    The P6 options, ported, train on one rank and match their oracle: the
-    compressors, fused groups, the pipeline and ``hier`` equal the plain
+    """The P6 and P10 options, ported, train on one rank and match their
+    oracle: the compressors, fused groups, the pipeline, ``hier``, a
+    ``grad_fn`` (here autograd's own gradients, handed back by hand) and
+    ``pipeline_vars`` on a mesh without ``pipe`` equal the plain
     ``AllReduce()`` session bit for bit (the JAX package runs them on its
     GSPMD step at data size 1, where nothing is compressed), and
     ``staleness=2`` leaves the parameters unchanged for 2 steps, then
@@ -349,16 +350,14 @@ def test_unported_options_raise_naming_their_roadmap_item(
                        **cap)
         return ad, ad.create_distributed_session()
 
-    if not item.startswith("P6"):
-        ad = AutoDist(strategy_builder=builder, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-            with ad.scope():
-                ad.capture(params=params_from_jax(params),
-                           optimizer=optim.adam(1e-3), loss_fn=spec.loss_fn,
-                           **capture)
-            ad.create_distributed_session()
-        assert not ad.is_built()
-        return
+    if capture.get("grad_fn") == "autograd":
+        def grad_fn(p, b):
+            named = flatten(p)
+            loss = spec.loss_fn(p, b)
+            grads = torch.autograd.grad(loss, [x for _, x in named])
+            return loss, unflatten([(n, g) for (n, _), g in zip(named,
+                                                                grads)])
+        capture = dict(capture, grad_fn=grad_fn)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # the JAX fallbacks' warnings
         _, sess = session(builder, **capture)
@@ -465,42 +464,31 @@ def test_ps_family_and_partitioned_builders_build(name):
 
 
 def test_non_data_mesh_axes_raise():
-    """``model`` and ``expert`` axes are lowered now: on this one-process
-    world their size 2 does not divide the world
-    (``tests/test_torch_model_axis.py`` and ``tests/test_torch_moe.py``
-    train on them); ``pipe`` still raises naming P10."""
+    """``model``, ``expert`` and ``pipe`` axes are lowered now: on this
+    one-process world their size 2 does not divide the world
+    (``tests/test_torch_model_axis.py``, ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_pipeline.py`` train on them)."""
     spec = transformer_lm(**CFG)
-    for axes, error, match in (({"model": 2}, ValueError,
-                                "divide the world size"),
-                               ({"pipe": 2}, NotImplementedError,
-                                "ROADMAP: P10"),
-                               ({"expert": 2}, ValueError,
-                                "divide the world size")):
+    for axes in ({"model": 2}, {"pipe": 2}, {"expert": 2}):
         _reset_default_autodist_for_testing()
         ad = AutoDist(strategy_builder=AllReduce(), mesh_axes=axes,
                       device="cpu")
         ad.capture(params=spec.init(0, device="cpu"),
                    optimizer=optim.sgd(0.1), loss_fn=spec.loss_fn)
-        with pytest.raises(error, match=match):
+        with pytest.raises(ValueError, match="divide the world size"):
             ad.create_distributed_session()
 
 
 @pytest.mark.parametrize("axis", ["pipe", "expert", "seq", "model"])
 def test_build_mesh_refuses_non_data_axes(axis):
-    """No layer shards stages: the step relies on ``build_mesh`` refusing
-    ``pipe``.  A ``seq``, ``model`` or ``expert`` axis builds
-    (``tests/test_torch_sequence_parallel.py``,
-    ``tests/test_torch_model_axis.py`` and ``tests/test_torch_moe.py``
-    train on them); on this one-process world its size 2 does not divide
-    the world."""
+    """Every axis builds (``tests/test_torch_sequence_parallel.py``,
+    ``tests/test_torch_model_axis.py``, ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_pipeline.py`` train on them); on this one-process
+    world a size of 2 does not divide the world."""
     from autodist_tpu_torch.mesh import build_mesh
 
-    if axis in ("seq", "model", "expert"):
-        with pytest.raises(ValueError, match="divide the world size"):
-            build_mesh({axis: 2}, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-            build_mesh({axis: 2}, device="cpu")
+    with pytest.raises(ValueError, match="divide the world size"):
+        build_mesh({axis: 2}, device="cpu")
     assert build_mesh({axis: 1}, device="cpu").data_size == 1
 
 

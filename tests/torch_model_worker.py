@@ -62,7 +62,7 @@ from autodist_tpu_torch.checkpoint.tiers import (  # noqa: E402
     capture_snapshot, load_snapshot)
 from autodist_tpu_torch.graph_item import flatten, unflatten  # noqa: E402
 from autodist_tpu_torch.kernel.graph_transformer import \
-    map_model_leaves  # noqa: E402
+    map_var_leaves  # noqa: E402
 from autodist_tpu_torch.mesh import build_mesh, manual_axes  # noqa: E402
 from autodist_tpu_torch.models.transformer_lm import \
     transformer_lm  # noqa: E402
@@ -118,7 +118,7 @@ def _shard_facts(out, prefix, sess):
     held = dict(flatten(sess.device_params))
     moments = {}
     tree = sess.opt_state["vars"] if sess.zero1_buckets else sess.opt_state
-    map_model_leaves(tree, shards, lambda x, n, dim: moments.__setitem__(
+    map_var_leaves(tree, shards, lambda x, n: moments.__setitem__(
         n, moments.get(n, 0) + _nbytes(x)))
     for n, (dim, k, rank) in shards.items():
         full = _nbytes(held[n]) * k
@@ -265,14 +265,16 @@ def bad_moment_main(data, out):
     params, opt = sess.export_state()
     victim = []
 
-    def grow(x, n, dim):
+    shards = sess._step.model_shards
+
+    def grow(x, n):
         if victim:
             return x
         victim.append(n)
         shape = list(x.shape)
-        shape[dim] += 1
+        shape[shards[n][0]] += 1
         return torch.zeros(shape)
-    bad = map_model_leaves(opt, sess._step.model_shards, grow)
+    bad = map_var_leaves(opt, shards, grow)
     try:
         sess.import_state(params, bad)
         out["bad_moment"] = np.array(f"{victim[0]}|")

@@ -56,7 +56,7 @@ from autodist_tpu_torch.checkpoint.saver import tree_digest  # noqa: E402
 from autodist_tpu_torch.convert import params_from_jax  # noqa: E402
 from autodist_tpu_torch.graph_item import flatten  # noqa: E402
 from autodist_tpu_torch.kernel.graph_transformer import \
-    map_model_leaves  # noqa: E402
+    map_var_leaves  # noqa: E402
 from autodist_tpu_torch.mesh import build_mesh  # noqa: E402
 from autodist_tpu_torch.models.moe_lm import moe_transformer_lm  # noqa: E402
 from autodist_tpu_torch.ops.fused_kernels import fusable_adam  # noqa: E402
@@ -170,7 +170,7 @@ def _shard_facts(out, prefix, sess):
     held = dict(flatten(sess.device_params))
     moments = {}
     tree = sess.opt_state["vars"] if sess.zero1_buckets else sess.opt_state
-    map_model_leaves(tree, shards, lambda x, n, dim: moments.__setitem__(
+    map_var_leaves(tree, shards, lambda x, n: moments.__setitem__(
         n, moments.get(n, 0) + _nbytes(x)))
     for n, (dim, k, rank) in shards.items():
         full = _nbytes(held[n]) * k
