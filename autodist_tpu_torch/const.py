@@ -131,6 +131,14 @@ class ENV(enum.Enum):
     AUTODIST_BUDDY = ("AUTODIST_BUDDY", _str)
     # which supervisor attempt this process belongs to
     AUTODIST_ATTEMPT = ("AUTODIST_ATTEMPT", _int0)
+    # MPMD pipeline runtime (parallel/mpmd): which pipeline stage this
+    # process runs (stamped by StageRunner; the chaos `stage=` filter
+    # reads it), the shared activation-transport directory (any
+    # directory every stage process sees), and the transport recv
+    # deadline in seconds
+    AUTODIST_STAGE = ("AUTODIST_STAGE", _str)
+    AUTODIST_MPMD_DIR = ("AUTODIST_MPMD_DIR", _str)
+    AUTODIST_MPMD_TIMEOUT_S = ("AUTODIST_MPMD_TIMEOUT_S", _float0)
     # dump the strategy's plan table at session build
     AUTODIST_DUMP_GRAPHS = ("AUTODIST_DUMP_GRAPHS", _bool)
     # pre-flight static strategy analysis (autodist_tpu_torch.analysis)
@@ -159,11 +167,11 @@ P9 = "P9 — telemetry and resilience"
 #: and Ulysses attention; model- and expert-sharded variables on the
 #: bucketed step, K1–K3 over heads, the top-2 MoE FFN and the MoE LM;
 #: GPipe and 1F1B over the pipe group, ``capture(grad_fn=)`` and the
-#: pipelined LMs): what still raises naming it is ``mpmd``,
-#: ``kernel/sharding_utils``, the serving engines' ``mesh=``, a loss
-#: without ``sequence_parallel`` (every model but ``transformer_lm``, the
-#: MoE and pipelined LMs too) on ``seq``, and a ``pipe`` mesh with a
-#: ``seq`` axis
+#: pipelined LMs), and so are the MPMD pipeline runtime, the sharding
+#: utilities and the serving engines' meshes: what still raises naming
+#: it is a loss without ``sequence_parallel`` (every model but
+#: ``transformer_lm``, the MoE and pipelined LMs too) on ``seq``, and a
+#: ``pipe`` mesh with a ``seq`` axis
 P10 = "P10 — non-data mesh axes"
 #: P11 (the rest of serving) is ported whole since its last raise, the
 #: SIGTERM drain, came with the router: nothing raises naming it any more

@@ -107,6 +107,17 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
+                       path: Tuple = ()) -> Any:
+    """:func:`tree_map` with each leaf's key path: ``fn(path, leaf,
+    *rest_leaves)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
 def _dtype_name(leaf) -> str:
     return str(leaf.dtype).replace("torch.", "")
 

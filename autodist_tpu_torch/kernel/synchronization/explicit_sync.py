@@ -169,6 +169,7 @@ from autodist_tpu_torch.const import (ENV, MESH_AXIS_DATA, MESH_AXIS_PIPE,
                                       P10, SHARD_AXES, not_ported)
 from autodist_tpu_torch.graph_item import flatten, tree_map, unflatten
 from autodist_tpu_torch.kernel import graph_transformer as gt
+from autodist_tpu_torch.kernel import sharding_utils as su
 from autodist_tpu_torch.kernel.synchronization import collectives as coll
 from autodist_tpu_torch.kernel.synchronization import overlap as ov_mod
 from autodist_tpu_torch.kernel.synchronization import quant_ring
@@ -572,10 +573,17 @@ def make_explicit_step(gi, compiled, extra_metrics_fn=None
     pipe_group = mesh.pipe_group
     # every cut of a sharded variable's leaf, in order: its stage dim
     # over pipe, then its model or expert dim
+
+    def kept_spec(n: str) -> tuple:
+        spec = [None] * len(shapes[n][0])
+        if n in staged:
+            spec[staged[n][0]] = MESH_AXIS_PIPE
+        if n in part:
+            spec[part[n][1]] = part[n][0]
+        return tuple(spec)
     shard_cuts: Dict[str, Tuple[Tuple[int, int, int], ...]] = {
-        n: ((dim, k, mesh.pipe_rank),) for n, (dim, k) in staged.items()}
-    for n, cut in model_shards.items():
-        shard_cuts[n] = shard_cuts.get(n, ()) + (cut,)
+        n: su.cuts_of(mesh, kept_spec(n))
+        for n in dict.fromkeys([*staged, *part])}
     shard_count = {n: math.prod(k for _, k, _ in cs)
                    for n, cs in shard_cuts.items()}
     pervar = {n: get_compressor(plans[n].compressor) for n in names

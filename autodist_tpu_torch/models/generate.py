@@ -79,12 +79,17 @@ def require_lm_spec(spec: ModelSpec, who: str) -> None:
 
 def sample_next_token(logits: torch.Tensor, rng: Optional[torch.Generator],
                       temperature: float = 0.0, top_k: int = 0,
-                      top_p: float = 0.0) -> torch.Tensor:
+                      top_p: float = 0.0, noise_rows=None) -> torch.Tensor:
     """Greedy / temperature / top-k / nucleus selection over ``logits``
     [B, V] → int64 [B].  The single definition of the sampling filters,
     shared by :func:`make_generator` and the serving engine.  Sampling
     is Gumbel-max with noise drawn from ``rng`` (the same distribution
-    as the JAX package's categorical sampling, not the same bits)."""
+    as the JAX package's categorical sampling, not the same bits).
+
+    ``noise_rows=(n, rows)``: ``logits`` are the rows ``rows`` (a slice
+    or an index tensor) of an ``[n, V]`` batch that is sampled as a
+    whole; the noise is drawn over all ``n`` rows and these rows of it
+    kept, so a shard of the batch draws what the whole batch draws."""
     if not (temperature and temperature > 0.0):
         return torch.argmax(logits, dim=-1)
     scaled = logits.float() / temperature
@@ -104,7 +109,12 @@ def sample_next_token(logits: torch.Tensor, rng: Optional[torch.Generator],
                                           device=scaled.device)
                              ).amin(dim=-1, keepdim=True)
         scaled = torch.where(scaled < cutoff, neg_inf, scaled)
-    u = torch.rand(scaled.shape, generator=rng, device=scaled.device)
+    if noise_rows is None:
+        u = torch.rand(scaled.shape, generator=rng, device=scaled.device)
+    else:
+        n, rows = noise_rows
+        u = torch.rand((n, scaled.shape[-1]), generator=rng,
+                       device=scaled.device)[rows]
     return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
 

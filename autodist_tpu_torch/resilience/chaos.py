@@ -60,8 +60,8 @@ process group is up); ``attempt`` matches ``AUTODIST_ATTEMPT``, which
 the job supervisor stamps on every relaunch — so ``attempt=0`` means
 "fail the first try, let the retry succeed", the canonical recovery
 drill. ``stage`` matches the MPMD pipeline stage a process runs
-(``AUTODIST_STAGE``, which the MPMD stage runner stamps; the port has
-none before P10, so nothing sets it yet): ``stage=1`` and
+(``AUTODIST_STAGE``, which :class:`~autodist_tpu_torch.parallel.mpmd.
+StageRunner` stamps at construction): ``stage=1`` and
 ``stage=stage1`` both mean "only the stage-1 program's workers" — the
 spelling is normalized through the schedule IR's shared ``stage_name``
 helper, the same one the partitioner and ``stage_of`` use. Note ``proc``

@@ -33,6 +33,7 @@ from autodist_tpu_torch.kernel.graph_transformer import (DistributedStep,
                                                          copy_tree,
                                                          local_rows,
                                                          map_var_leaves)
+from autodist_tpu_torch.kernel.sharding_utils import abstract_like
 from autodist_tpu_torch.numerics.guard import GradHealth, health_to_host
 from autodist_tpu_torch.telemetry import flightrec
 from autodist_tpu_torch.telemetry.timeline import StepRecorder
@@ -292,13 +293,13 @@ class DistributedSession:
         opt = map_var_leaves(self._opt_state, cuts, full)
         if self.zero1_buckets:
             sizes = {b.key: b.padded_total for b in self.zero1_buckets}
-            opt = {"vars": tree_map(_meta, opt["vars"]),
+            opt = {"vars": abstract_like(opt["vars"]),
                    "zero1": {k: _meta(v) if not isinstance(v, dict) else
                              {key: _meta(s, sizes[key])
                               for key, s in v.items()}
                              for k, v in opt["zero1"].items()}}
         else:
-            opt = tree_map(_meta, opt)
+            opt = abstract_like(opt)
         return self._logical(
             _meta,
             lambda shape, dtype: torch.empty(shape, dtype=dtype,

@@ -27,8 +27,22 @@ requests admitted between chunks without stopping the batch.
 Attention is the plain masked softmax over the ring cache (no kernel of
 its own, as in the JAX engine); on a weight-only int8 tree every
 projection and the tied head run the int8 kernel (K10).  The buffers
-are updated in place where the JAX programs donated them.  The
-mesh-sharded slot pool (``mesh=``/``slot_axis=``) is not ported.
+are updated in place where the JAX programs donated them.
+
+* **Sharded slot pool** (``mesh=``/``slot_axis=``).  Each rank of the
+  ``slot_axis`` group owns ``slots/n`` contiguous slots: its token buffer
+  and its ``[L, W, slots/n, H, Dh]`` caches hold those slots only, and
+  the decode and prefill programs run on them alone (there is no
+  cross-slot math, so no collective runs inside a program).  The host
+  state — queue, admission, prefix pins, per-slot bounds — is the same on
+  every rank: every rank runs the same ``submit``/admission logic on the
+  same inputs, and after each chunk and each boundary's prefills the
+  owned rows' tokens and done flags are all-gathered over the group
+  before any host decision, so ``run()`` returns every request on every
+  rank.  The shared prefix K/V is replicated.  Each tick's and each
+  prefill's sampling noise is drawn over the whole pool on every rank,
+  which keeps its own rows: the ranks' generators stay in step and the
+  sharded engine samples what the one-card engine does.
 """
 from __future__ import annotations
 
@@ -40,7 +54,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P10, not_ported
+from autodist_tpu_torch.kernel.synchronization import collectives
 from autodist_tpu_torch.models.base import ModelSpec, resolve_device
 from autodist_tpu_torch.models.generate import (_prefill_forward,
                                                 _token_step, _vocab_size,
@@ -139,18 +153,20 @@ class DeadlineError(RuntimeError):
 
 def _sample_per_slot(logits: torch.Tensor, rng: Optional[torch.Generator],
                      temp: torch.Tensor, top_k: int, top_p: float,
-                     any_sampled: bool = True) -> torch.Tensor:
+                     any_sampled: bool = True,
+                     noise_rows=None) -> torch.Tensor:
     """Per-slot temperature over one logits batch [B, V]: rows with
     ``temp[b] == 0`` take the argmax, others sample from
     ``logits / temp[b]`` through the engine-wide top-k/top-p filters
     (``sample_next_token`` at temperature 1.0 on the pre-scaled logits).
     ``any_sampled=False`` (the host knows every row is greedy) skips the
-    sampling branch, and with it the noise draw."""
+    sampling branch, and with it the noise draw.  ``noise_rows`` is
+    :func:`sample_next_token`'s: these rows of a batch sampled whole."""
     greedy = torch.argmax(logits, dim=-1)
     if not any_sampled:
         return greedy
     scaled = logits.float() / torch.clamp(temp, min=TEMPERATURE_FLOOR)[:, None]
-    sampled = sample_next_token(scaled, rng, 1.0, top_k, top_p)
+    sampled = sample_next_token(scaled, rng, 1.0, top_k, top_p, noise_rows)
     return torch.where(temp > 0.0, sampled, greedy)
 
 
@@ -173,14 +189,16 @@ def _write_prompt_program(tokens: torch.Tensor, prompt_pb: torch.Tensor,
 @torch.no_grad()
 def _chunk_program(n: int, knobs, params, tokens, kc, vc, start, p_end,
                    end, done, active, temp, eos, use_prefix, kp, vp,
-                   tick0: int, rng, any_sampled: bool):
+                   tick0: int, rng, any_sampled: bool, noise_rows):
     """``n`` decode ticks of all slots in lockstep over the ring cache.
 
     ``start``/``p_end``/``end``/``done``/``active``/``temp``/``eos``/
     ``use_prefix`` are per-slot [B] tensors on the device; ``kp``/``vp``
     [L, Ppb, H, Dh] the shared prefix's K/V, attended by the slots with
     ``use_prefix`` when ``plen`` > 0.  Returns ``(done, busy)`` device
-    tensors: the new done flags and the live slot-ticks."""
+    tensors: the new done flags and the live slot-ticks.  ``noise_rows``
+    (``(slots, rows)``) places these slots in the whole pool, whose
+    sampling noise each tick draws."""
     top_k, top_p, plen = knobs
     num_layers, window = kc.shape[0], kc.shape[1]
     embed, pos_embed, layer_params, ln_final = unpack_lm_params(
@@ -206,7 +224,8 @@ def _chunk_program(n: int, knobs, params, tokens, kc, vc, start, p_end,
         logits = _token_step(layer_params, ln_final, embed, x, kc, vc,
                              t_ring, window, attn_mask=mask,
                              prefix_kv=prefix_kv, prefix_mask=pmask)
-        raw = _sample_per_slot(logits, rng, temp, top_k, top_p, any_sampled)
+        raw = _sample_per_slot(logits, rng, temp, top_k, top_p, any_sampled,
+                               noise_rows)
         live = active & ~done
         busy = busy + live.sum()
         # teacher-force inside the prompt; only live slots write
@@ -223,7 +242,7 @@ def _chunk_program(n: int, knobs, params, tokens, kc, vc, start, p_end,
 @torch.no_grad()
 def _prefill_program(knobs, with_prefix: bool, params, tokens, kc, vc,
                      prompts_kpb, slot_ids, row_map, t0: int, p_lens, temp,
-                     kp, vp, rng, any_sampled: bool):
+                     kp, vp, rng, any_sampled: bool, noise_rows):
     """Parallel prefill batched over a boundary's admissions: ONE
     [K, Pb] causal forward charges S slots' K/V (``row_map[j]`` is slot
     ``slot_ids[j]``'s prompt row: identical prompts are computed once)
@@ -233,7 +252,9 @@ def _prefill_program(knobs, with_prefix: bool, params, tokens, kc, vc,
 
     ``prompts_kpb``/``temp`` are device tensors; ``slot_ids``,
     ``row_map`` and ``p_lens`` are host int arrays (they pick the cache
-    ranges).  Returns the tokens that landed (a device tensor [S])."""
+    ranges).  ``noise_rows`` (``(n, rows)``) places these S slots among
+    the n slots the dispatch serves over every rank.  Returns the tokens
+    that landed (a device tensor [S])."""
     top_k, top_p, plen = knobs
     num_layers, window, _, heads, head_dim = kc.shape
     embed, pos_embed, layer_params, ln_final = unpack_lm_params(
@@ -261,7 +282,7 @@ def _prefill_program(knobs, with_prefix: bool, params, tokens, kc, vc,
     last = xs[torch.arange(xs.shape[0], device=dev), last_pos]   # [K, D]
     logits = head_logits(embed, last)[rows]                      # [S, V]
     toks = _sample_per_slot(logits, rng, temp[slots], top_k, top_p,
-                            any_sampled)
+                            any_sampled, noise_rows)
     t0r = t0 % window
     tokens[slots, t0r] = toks.to(tokens.dtype)
     # the values that LANDED: padded duplicate entries may have drawn
@@ -343,6 +364,11 @@ class DecodeEngine:
     ``("decode", ticks, live_slot_ticks, seconds)`` and
     ``("prefill", rows, prompt_tokens, seconds)`` — each closed by the
     dispatch's own host sync.
+
+    ``mesh``/``slot_axis``: multi-rank serving — the slot pool is sharded
+    over the mesh axis's process group (its size must divide ``slots``);
+    every rank of the group calls the same methods with the same
+    arguments.
     """
 
     def __init__(self, spec: ModelSpec, params, *, slots: int = 8,
@@ -352,9 +378,6 @@ class DecodeEngine:
                  rng: Optional[torch.Generator] = None, prefill: bool = True,
                  mesh=None, slot_axis: str = "data",
                  max_queue: int = 1024, device=None):
-        if mesh is not None or slot_axis != "data":
-            raise not_ported("DecodeEngine(mesh=..., slot_axis=...), the "
-                             "sharded slot pool", P10)
         require_lm_spec(spec, "DecodeEngine")
         cfg = spec.config
         self._device = resolve_device(device)
@@ -367,6 +390,22 @@ class DecodeEngine:
                 f"{cfg['max_len']} (pos_embed rows)")
         if slots < 1 or window < 2 or chunk < 1:
             raise ValueError("need slots >= 1, window >= 2, chunk >= 1")
+        # the slot group: this rank owns slots lo .. lo + n_local - 1
+        self._group, self._lo, self._n_local = None, 0, slots
+        if mesh is not None:
+            if slot_axis not in mesh.shape:
+                raise ValueError(
+                    f"slot_axis {slot_axis!r} not in mesh axes "
+                    f"{tuple(mesh.shape)}")
+            n_shards = mesh.shape[slot_axis]
+            if slots % n_shards:
+                raise ValueError(
+                    f"slots={slots} must divide over the {slot_axis!r} "
+                    f"axis ({n_shards} shards)")
+            self._group = mesh.axis_group(slot_axis)
+            if self._group is not None:
+                self._n_local = slots // n_shards
+                self._lo = mesh.axis_rank(slot_axis) * self._n_local
         vocab = _vocab_size(params)
         check_sampling_args(vocab, temperature, top_k, top_p, eos_id, rng)
         if max_queue < 1:
@@ -416,9 +455,11 @@ class DecodeEngine:
 
     def _alloc_state(self) -> None:
         """(Re)allocate the engine state.  The token buffer and the KV
-        cache live on the device; start/p_end/end/done/active and the
-        per-slot knobs live on the host (admission edits them in numpy)
-        and go down with each dispatch."""
+        cache live on the device (this rank's ``n_local`` slots of them);
+        start/p_end/end/done/active and the per-slot knobs live on the
+        host for every slot (admission edits them in numpy) and go down
+        with each dispatch.  A sharded pool also keeps a host copy of
+        every slot's tokens, refreshed by each gather."""
         slots, window, cfg = self._slots, self._window, self._cfg
         self._tokens = self._kc = self._vc = None   # drop before realloc
         self._start = np.zeros(slots, np.int64)
@@ -431,15 +472,41 @@ class DecodeEngine:
         self._use_prefix = np.zeros(slots, bool)
         self._tick = 0
         dtype = self._params["pos_embed"].dtype
-        cache_shape = (cfg["num_layers"], window, slots, cfg["num_heads"],
+        local = self._n_local
+        cache_shape = (cfg["num_layers"], window, local, cfg["num_heads"],
                        cfg["head_dim"])
-        self._tokens = torch.zeros((slots, window), dtype=torch.int64,
+        self._host_tokens = np.zeros((slots, window), np.int64) \
+            if self._group is not None else None
+        self._tokens = torch.zeros((local, window), dtype=torch.int64,
                                    device=self._device)
         self._kc = torch.zeros(cache_shape, dtype=dtype, device=self._device)
         self._vc = torch.zeros(cache_shape, dtype=dtype, device=self._device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
+
+    def _own(self, a: np.ndarray) -> torch.Tensor:
+        """This rank's slots of a per-slot host vector, on the device."""
+        return self._dev(a[self._lo:self._lo + self._n_local])
+
+    def _gather_rows(self, done: torch.Tensor, busy) -> tuple:
+        """All-gather the owned rows' tokens, their done flags and the
+        live slot-ticks over the slot group: ``(done [slots] bool, total
+        busy)``; the tokens land in the host copy.  The one-card engine
+        does not take this path: it pulls only the ``[slots]`` done flags
+        a chunk and one token row per finished request, where this pulls
+        every slot's whole row (``slots x window`` int64) a chunk, which
+        a sharded pool needs because a rank's host reads rows it does
+        not hold."""
+        n, w = self._n_local, self._window
+        packed = torch.cat([self._tokens.reshape(-1), done.long().reshape(-1),
+                            torch.as_tensor(busy, dtype=torch.int64,
+                                            device=self._device).reshape(1)])
+        rows = collectives.all_gather(packed, self._group).cpu().numpy() \
+            .reshape(-1, n * w + n + 1)
+        self._host_tokens = rows[:, :n * w].reshape(self._slots, w)
+        return rows[:, n * w:n * w + n].reshape(-1).astype(bool), \
+            int(rows[:, -1].sum())
 
     # ------------------------------------------------------------------
     # public API
@@ -622,7 +689,8 @@ class DecodeEngine:
         s, pe, e = int(self._start[b]), int(self._p_end[b]), \
             int(self._end[b])
         written = min(e, self._tick + 1)
-        row = self._tokens[b].cpu().numpy().astype(np.int32)
+        row = (self._tokens[b].cpu().numpy() if self._group is None
+               else self._host_tokens[b]).astype(np.int32)
         seq = row[(s + np.arange(written - s)) % self._window]
         eos = int(self._eos[b])
         if eos >= 0:
@@ -702,9 +770,10 @@ class DecodeEngine:
             # AHEAD of the tick and is consumed tick by tick.
             p, t0 = req.prompt.size, self._tick
             try:
-                _write_prompt_program(self._tokens,
-                                      self._dev(self._pad_bucket(req.prompt)),
-                                      b, t0)
+                if 0 <= b - self._lo < self._n_local:
+                    _write_prompt_program(
+                        self._tokens, self._dev(self._pad_bucket(req.prompt)),
+                        b - self._lo, t0)
             except Exception:
                 self._poisoned = True
                 raise
@@ -735,63 +804,106 @@ class DecodeEngine:
                 > self._window
             buckets.setdefault((pb, req.use_prefix, wrapped), {}).setdefault(
                 req.prompt.tobytes(), []).append((b, req))
+        landed = []
         for (pb, with_prefix, _), uniq in sorted(buckets.items()):
             entries = list(uniq.values())
             while entries:
                 k = 1 << (len(entries).bit_length() - 1)  # pow2 <= len
-                self._run_prefill(entries[:k], pb, with_prefix)
+                landed += self._run_prefill(entries[:k], pb, with_prefix)
                 entries = entries[k:]
+        if self._group is not None:
+            # the first tokens landed on their owners' rows: gather them
+            try:
+                self._gather_rows(self._own(self._done), 0)
+            except Exception:
+                self._poisoned = True
+                raise
+            t0r = self._tick % self._window
+            landed = [(b, req, int(self._host_tokens[b, t0r]))
+                      for b, req, _ in landed]
+        for b, req, tok in landed:
+            self._land(b, req, tok)
 
-    def _run_prefill(self, entries, pb: int, with_prefix: bool) -> None:
-        """One batched prefill over K unique prompts serving S slots; the
-        slots join the global tick already generating."""
+    def _run_prefill(self, entries, pb: int, with_prefix: bool) -> list:
+        """One batched prefill over K unique prompts serving S slots (on a
+        sharded pool, this rank's slots among them); returns ``(slot,
+        request, first token)`` of every slot served (the token -1 on a
+        sharded pool: it is read after the gather)."""
         t0, k = self._tick, len(entries)
-        prompts = np.zeros((k, pb), np.int64)
-        p_lens = np.zeros(k, np.int64)
-        slot_ids, row_map, flat = [], [], []
-        for i, slot_reqs in enumerate(entries):
+        lo, hi = self._lo, self._lo + self._n_local
+        flat, rows, picks = [], [], []
+        for slot_reqs in entries:
             prompt = slot_reqs[0][1].prompt
-            prompts[i, :prompt.size] = prompt
-            p_lens[i] = prompt.size
+            mine = []
             for b, req in slot_reqs:
-                slot_ids.append(b)
-                row_map.append(i)
+                if lo <= b < hi:
+                    picks.append(len(flat))
                 flat.append((b, req))
                 # the program samples each first token through these
                 self._temp[b] = req.temperature
                 self._eos[b] = req.eos_id
                 self._use_prefix[b] = req.use_prefix
+                if lo <= b < hi:
+                    mine.append(b - lo)
+            if mine:
+                rows.append((prompt, mine))
+        prompts = np.zeros((len(rows), pb), np.int64)
+        p_lens = np.zeros(len(rows), np.int64)
+        slot_ids, row_map = [], []
+        for i, (prompt, mine) in enumerate(rows):
+            prompts[i, :prompt.size] = prompt
+            p_lens[i] = prompt.size
+            slot_ids += mine
+            row_map += [i] * len(mine)
         slot_ids = np.asarray(slot_ids, np.int64)
         row_map = np.asarray(row_map, np.int64)
-        any_sampled = bool(np.any(self._temp[slot_ids] > 0))
+        temp = self._temp[lo:hi]
+        # every rank draws the noise of all served slots (the one-card
+        # draw) and keeps its own rows, so the ranks' generators stay in
+        # step and sample what one card would
+        any_sampled = bool(np.any(self._temp[[b for b, _ in flat]] > 0))
         t_wall = time.perf_counter()
+        toks = np.full(len(flat), -1, np.int64)
         try:
             knobs, kp, vp = self._dispatch_args(with_prefix)
-            toks = _prefill_program(
-                knobs, with_prefix, self._params, self._tokens, self._kc,
-                self._vc, self._dev(prompts), slot_ids, row_map, t0, p_lens,
-                self._dev(self._temp), kp, vp, self._rng,
-                any_sampled).cpu().numpy()
+            if rows:
+                got = _prefill_program(
+                    knobs, with_prefix, self._params, self._tokens,
+                    self._kc, self._vc, self._dev(prompts), slot_ids,
+                    row_map, t0, p_lens, self._dev(temp), kp, vp,
+                    self._rng, any_sampled,
+                    (len(flat), self._dev(np.asarray(picks, np.int64)))
+                ).cpu().numpy()
+                if self._group is None:
+                    toks = got
+            elif any_sampled:       # no slot here: draw the ranks' noise
+                torch.rand((len(flat), self._vocab), generator=self._rng,
+                           device=self._device)
         except Exception:
             self._poisoned = True
             raise
-        self.timeline.append(("prefill", k, int(p_lens.sum()),
-                              time.perf_counter() - t_wall))
-        for j, (b, req) in enumerate(flat):
-            p, tok = req.prompt.size, int(toks[j])
-            self._start[b] = t0 - p
-            self._p_end[b] = t0
-            self._end[b] = t0 + req.max_new_tokens
-            self._done[b] = (req.max_new_tokens == 1
-                             or (req.eos_id >= 0 and tok == req.eos_id))
-            self._active[b] = True
-            self._slot_req[b] = req
-            self.stats.prompt_tokens += p
-            self.stats.prefilled_tokens += p
-            self.stats.prefill_admissions += 1
-            self.stats.prefix_admissions += int(req.use_prefix)
+        self.timeline.append(("prefill", k, int(sum(
+            e[0][1].prompt.size for e in entries)),
+            time.perf_counter() - t_wall))
         self.stats.prefill_dedup_hits += len(flat) - k
         self.stats.prefill_dispatches += 1
+        return [(b, req, int(tok)) for (b, req), tok in zip(flat, toks)]
+
+    def _land(self, b: int, req: Request, tok: int) -> None:
+        """Slot ``b`` joins the global tick with its prefilled prompt and
+        first token ``tok``."""
+        p, t0 = req.prompt.size, self._tick
+        self._start[b] = t0 - p
+        self._p_end[b] = t0
+        self._end[b] = t0 + req.max_new_tokens
+        self._done[b] = (req.max_new_tokens == 1
+                         or (req.eos_id >= 0 and tok == req.eos_id))
+        self._active[b] = True
+        self._slot_req[b] = req
+        self.stats.prompt_tokens += p
+        self.stats.prefilled_tokens += p
+        self.stats.prefill_admissions += 1
+        self.stats.prefix_admissions += int(req.use_prefix)
 
     def _dispatch_args(self, with_prefix: bool):
         """(knobs, kp, vp) of one dispatch: prefix-touching dispatches
@@ -849,14 +961,18 @@ class DecodeEngine:
             knobs, kp, vp = self._dispatch_args(with_prefix)
             done, busy = _chunk_program(
                 n, knobs, self._params, self._tokens, self._kc, self._vc,
-                self._dev(self._start), self._dev(self._p_end),
-                self._dev(self._end), self._dev(self._done),
-                self._dev(self._active), self._dev(self._temp),
-                self._dev(self._eos), self._dev(self._use_prefix), kp, vp,
-                self._tick, self._rng, bool(np.any(self._temp[live] > 0)))
-            # the one per-chunk host pull: the [B] done vector
-            self._done = done.cpu().numpy()
-            busy = int(busy)
+                self._own(self._start), self._own(self._p_end),
+                self._own(self._end), self._own(self._done),
+                self._own(self._active), self._own(self._temp),
+                self._own(self._eos), self._own(self._use_prefix), kp, vp,
+                self._tick, self._rng, bool(np.any(self._temp[live] > 0)),
+                (self._slots, slice(self._lo, self._lo + self._n_local)))
+            if self._group is None:
+                # the one per-chunk host pull: the [B] done vector
+                self._done = done.cpu().numpy()
+                busy = int(busy)
+            else:
+                self._done, busy = self._gather_rows(done, busy)
         except Exception:
             self._poisoned = True
             raise

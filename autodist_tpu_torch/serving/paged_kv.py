@@ -27,6 +27,14 @@ The block math is the shared ``TransformerLayer`` (the ``attn_fn``
 seam), so greedy paged output equals the per-request ``make_generator``
 output token for token.  Every ``clip`` of the JAX programs is kept:
 torch raises (CPU) or asserts on the device (CUDA) where JAX clamps.
+
+On a pool sharded over a model group (``head_shard = (group, M,
+rank)``), the pools hold this rank's ``H/M`` contiguous heads: q, k and
+v are computed whole (replicated over the group, as the model axis does
+in training), cut to the rank's heads, written to its pool and attended
+there (the paged-attention kernel on ``H/M`` heads), and the attention
+output is gathered over the group on the heads dim (:func:`_over_heads`,
+the pattern of ``ops.flash_attention.make_flash_attention(mesh)``).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from autodist_tpu_torch.kernel.synchronization import collectives
 from autodist_tpu_torch.models.base import layer_norm
 from autodist_tpu_torch.models.generate import (_d_ff, decode_layer,
                                                 unpack_lm_params)
@@ -316,8 +325,30 @@ class PrefixTrie:
 # device programs: plain functions that update tokens and pools in place
 # ---------------------------------------------------------------------------
 
+def _over_heads(attn, head_shard):
+    """``attn(q, k, v, causal)`` over q, k, v ``[B, T, H, Dh]`` when
+    the pools hold this rank's heads only: cut each to the rank's
+    contiguous ``H/M`` heads, attend, gather the output over the model
+    group on the heads dim (``attn`` itself when ``head_shard`` is
+    None)."""
+    if head_shard is None:
+        return attn
+    group, count, rank = head_shard
+
+    def fn(q, k, v, causal):
+        q, k, v = (collectives.shard_of(t, count, rank, 2).contiguous()
+                   for t in (q, k, v))
+        return collectives.all_gather_tiled(attn(q, k, v, causal), group, 2)
+    return fn
+
+
+def _head_count(kc, head_shard) -> int:
+    """The model's head count from a (possibly head-sharded) pool."""
+    return kc.shape[-2] * (head_shard[1] if head_shard is not None else 1)
+
+
 def _paged_token_step(layer_params, ln_final_scale, embed, x, kc, vc,
-                      bt, blk, off, rel):
+                      bt, blk, off, rel, head_shard=None):
     """One decode position through all layers over the PAGED cache.
 
     ``kc``/``vc``: [L, NB, BS, H, Dh] pools; ``bt``: [B, MAXB] int32
@@ -326,10 +357,11 @@ def _paged_token_step(layer_params, ln_final_scale, embed, x, kc, vc,
     [B] int32 logical sequence position (0 for dead slots, whose output
     is thrown away).  Each layer writes this tick's
     K/V into the pool in place, then attends through the table
-    (:func:`~autodist_tpu_torch.ops.fused_kernels.paged_attention`).
-    Returns logits [B, V]."""
-    heads, hd = kc.shape[-2], kc.shape[-1]
-    layer = decode_layer(heads, hd, _d_ff(layer_params))
+    (:func:`~autodist_tpu_torch.ops.fused_kernels.paged_attention`), on
+    this rank's heads when ``head_shard`` shards the pool.  Returns logits
+    [B, V]."""
+    layer = decode_layer(_head_count(kc, head_shard), kc.shape[-1],
+                         _d_ff(layer_params))
     x = x[:, None, :]                                   # [B, 1, D]
     for i, lp in enumerate(layer_params):
 
@@ -339,7 +371,7 @@ def _paged_token_step(layer_params, ln_final_scale, embed, x, kc, vc,
             return paged_attention(q[:, 0], kc[_i], vc[_i], bt,
                                    rel)[:, None]
 
-        x = layer(lp, x, paged_attn)
+        x = layer(lp, x, _over_heads(paged_attn, head_shard))
     x = layer_norm(x, ln_final_scale)
     return head_logits(embed, x[:, 0])
 
@@ -347,7 +379,7 @@ def _paged_token_step(layer_params, ln_final_scale, embed, x, kc, vc,
 @torch.no_grad()
 def _paged_chunk_program(n: int, knobs, params, tokens, kc, vc, bt, start,
                          p_end, end, done, active, temp, eos, tick0: int,
-                         rng, any_sampled: bool):
+                         rng, any_sampled: bool, head_shard=None):
     """``n`` decode ticks of all slots in lockstep over the paged pool.
 
     Positions are LOGICAL (``rel = tick - start``; the block table is the
@@ -358,7 +390,8 @@ def _paged_chunk_program(n: int, knobs, params, tokens, kc, vc, bt, start,
     vector (``bt`` [B, MAXB] int32) on the same device.  Nothing is read
     back to the host here: returns ``(done, busy)`` device tensors, the
     new done flags and the live slot-ticks.  ``knobs`` = (top_k, top_p,
-    block_size)."""
+    block_size); ``head_shard`` = ``(group, M, rank)`` of a
+    head-sharded pool."""
     top_k, top_p, bs = knobs
     num_layers = kc.shape[0]
     slots, w = tokens.shape
@@ -380,7 +413,8 @@ def _paged_chunk_program(n: int, knobs, params, tokens, kc, vc, bt, start,
         # instead of up to the whole window
         logits = _paged_token_step(layer_params, ln_final, embed, x, kc, vc,
                                    bt, blk, rel % bs,
-                                   torch.where(live, rel, 0).to(torch.int32))
+                                   torch.where(live, rel, 0).to(torch.int32),
+                                   head_shard)
         raw = _sample_per_slot(logits, rng, temp, top_k, top_p, any_sampled)
         busy = busy + live.sum()
         w_pos = torch.clamp(rel + 1, 0, w - 1)
@@ -395,7 +429,7 @@ def _paged_chunk_program(n: int, knobs, params, tokens, kc, vc, bt, start,
 def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
                            bt_rows, slot_ids, n_shared, c_lens, is_final,
                            temp, rng, any_sampled: bool,
-                           with_preds: bool = False):
+                           with_preds: bool = False, head_shard=None):
     """One prefill CHUNK for K rows: a [K, Pb]-parallel causal forward
     over each row's next ``c_lens[k]`` uncharged prompt tokens, with
     everything already charged — trie-cached prefix blocks AND earlier
@@ -416,17 +450,20 @@ def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
     position: the ``n_shared`` context mask makes a multi-token verify
     the same program as a prefill chunk.  Otherwise only the last
     position's logits are computed.  ``knobs`` = (top_k, top_p,
-    block_size)."""
+    block_size); ``head_shard`` = ``(group, M, rank)`` of a head-sharded
+    pool (the attention and the pool writes then see this rank's
+    heads)."""
     top_k, top_p, bs = knobs
     num_layers = kc.shape[0]
-    heads, hd = kc.shape[-2], kc.shape[-1]
+    heads, hd = kc.shape[-2], kc.shape[-1]         # this rank's heads
     k_rows, pb = chunk_kpb.shape
     maxb = bt_rows.shape[1]
     w = maxb * bs
     dev = tokens.device
     embed, pos_embed, layer_params, ln_final = unpack_lm_params(
         params, num_layers)
-    layer = decode_layer(heads, hd, _d_ff(layer_params))
+    layer = decode_layer(_head_count(kc, head_shard), hd,
+                         _d_ff(layer_params))
     cols = torch.arange(pb, device=dev)
     pos = n_shared[:, None] + cols[None, :]                 # [K, Pb]
     pos_ids = torch.clamp(pos, 0, pos_embed.shape[0] - 1)
@@ -455,7 +492,7 @@ def _paged_prefill_program(knobs, params, tokens, kc, vc, chunk_kpb,
         return out + torch.einsum("bhqk,bkhd->bqhd", probs[..., w:], v)
 
     for lp in layer_params:
-        x = layer(lp, x, capture_attn)
+        x = layer(lp, x, _over_heads(capture_attn, head_shard))
     x = layer_norm(x, ln_final)
 
     valid = cols[None, :] < c_lens[:, None]

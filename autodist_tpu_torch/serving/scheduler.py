@@ -44,7 +44,12 @@ request's lifecycle (``queue_wait``, ``prefill``, ``decode``, and the
 speculative ``spec_draft``/``spec_verify``) is recorded as request spans
 (``telemetry.profiler.record_span``) with its trace id.
 
-Not ported yet: the mesh-sharded pool (``mesh=`` raises).
+The pool shards over a mesh's model axis (``mesh=``, ``model_axis=``):
+each rank of the model group holds ``H/M`` heads of every K/V pool (the
+draft's too), the paged programs attend them there and gather the heads
+(``paged_kv._over_heads``); the block tables, the prefix trie and
+admission are host state, the same on every rank of the group, which all
+call the same methods with the same arguments.
 """
 from __future__ import annotations
 
@@ -56,7 +61,6 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from autodist_tpu_torch.const import P10, not_ported
 from autodist_tpu_torch.models.base import ModelSpec, resolve_device
 from autodist_tpu_torch.models.generate import (_vocab_size,
                                                 check_sampling_args,
@@ -215,13 +219,11 @@ class PagedDecodeEngine:
                  top_k: int = 0, top_p: float = 0.0,
                  eos_id: Optional[int] = None,
                  rng: Optional[torch.Generator] = None, device=None,
-                 mesh=None, draft_spec: Optional[ModelSpec] = None,
+                 mesh=None, model_axis: str = "model",
+                 draft_spec: Optional[ModelSpec] = None,
                  draft_params=None, gamma: int = 4,
                  adapt_gamma: bool = True,
                  deadline_defaults: Optional[Dict[str, float]] = None):
-        if mesh is not None:
-            raise not_ported("PagedDecodeEngine(mesh=...), the sharded pool",
-                             P10)
         require_lm_spec(spec, "PagedDecodeEngine")
         cfg = spec.config
         self._device = resolve_device(device)
@@ -275,6 +277,20 @@ class PagedDecodeEngine:
                     f"runs on {self._device}")
             check_speculative_args(gamma, temperature)
 
+        if mesh is not None and model_axis not in mesh.shape:
+            raise ValueError(f"model_axis {model_axis!r} not in mesh "
+                             f"axes {tuple(mesh.shape)}")
+        # (group, M, rank) of a pool sharded over the model group
+        self._head_shard = None
+        group = mesh.axis_group(model_axis) if mesh is not None else None
+        if group is not None:
+            m = mesh.shape[model_axis]
+            for c in [cfg] + ([draft_spec.config] if draft_spec else []):
+                if c["num_heads"] % m:
+                    raise ValueError(
+                        f"num_heads={c['num_heads']} must divide over the "
+                        f"{model_axis!r} axis ({m} shards)")
+            self._head_shard = (group, m, mesh.axis_rank(model_axis))
         self._draft_spec = draft_spec
         self._draft_params = draft_params
         self._gamma_max = int(gamma)
@@ -357,8 +373,9 @@ class PagedDecodeEngine:
         self._draft_blocks_live = 0
         self._tick = 0
         dtype = self._params["pos_embed"].dtype
+        m = self._head_shard[1] if self._head_shard is not None else 1
         pool_shape = (cfg["num_layers"], self._num_blocks, self._block_size,
-                      cfg["num_heads"], cfg["head_dim"])
+                      cfg["num_heads"] // m, cfg["head_dim"])
         self._tokens = torch.zeros((slots, w), dtype=torch.int64,
                                    device=self._device)
         self._kc = torch.zeros(pool_shape, dtype=dtype, device=self._device)
@@ -366,7 +383,7 @@ class PagedDecodeEngine:
         if self._draft_spec is not None:
             dcfg = self._draft_spec.config
             dshape = (dcfg["num_layers"], self._num_blocks, self._block_size,
-                      dcfg["num_heads"], dcfg["head_dim"])
+                      dcfg["num_heads"] // m, dcfg["head_dim"])
             ddtype = self._draft_params["pos_embed"].dtype
             self._dkc = torch.zeros(dshape, dtype=ddtype, device=self._device)
             self._dvc = torch.zeros(dshape, dtype=ddtype, device=self._device)
@@ -900,7 +917,8 @@ class PagedDecodeEngine:
                 self._dev(chunk), self._dev(bt_rows), self._dev(slot_ids),
                 self._dev(n_shared), self._dev(c_lens), self._dev(is_final),
                 self._dev(self._temp), self._rng,
-                bool(np.any(self._temp[slot_ids] > 0)))
+                bool(np.any(self._temp[slot_ids] > 0)),
+                head_shard=self._head_shard)
             landed = landed.cpu().numpy()
         except Exception:
             self._poisoned = True
@@ -961,7 +979,7 @@ class PagedDecodeEngine:
                 self._dvc, self._dev(chunk), self._dev(bt_rows),
                 self._dev(slot_ids), self._dev(n_shared), self._dev(c_lens),
                 self._dev(np.zeros(k_pad, bool)), self._dev(self._temp),
-                self._rng, False)
+                self._rng, False, head_shard=self._head_shard)
         except Exception:
             self._poisoned = True
             raise
@@ -987,7 +1005,8 @@ class PagedDecodeEngine:
                 self._dev(self._p_end), self._dev(self._end),
                 self._dev(self._done), self._dev(self._active),
                 self._dev(self._temp), self._dev(self._eos), self._tick,
-                self._rng, bool(np.any(self._temp[self._active] > 0)))
+                self._rng, bool(np.any(self._temp[self._active] > 0)),
+                head_shard=self._head_shard)
             self._done = done.cpu().numpy()
             busy = int(busy)
         except Exception:
@@ -1077,7 +1096,7 @@ class PagedDecodeEngine:
                 self._dev(active), self._dev(np.zeros(self._slots,
                                                       np.float32)),
                 self._dev(np.full(self._slots, -1, np.int64)), 0,
-                self._rng, False)
+                self._rng, False, head_shard=self._head_shard)
         except Exception:
             self._poisoned = True
             raise
@@ -1101,7 +1120,8 @@ class PagedDecodeEngine:
                 chunk, self._dev(self._bt[slot_ids]), slots_dev,
                 self._dev(n_shared), self._dev(c_lens),
                 self._dev(np.zeros(k_pad, bool)), self._dev(self._temp),
-                self._rng, False, with_preds=True)
+                self._rng, False, with_preds=True,
+                head_shard=self._head_shard)
             # the round's ONE host sync: predictions and proposals
             preds, props = torch.stack([preds, chunk]).cpu().numpy()
         except Exception:

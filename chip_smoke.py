@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    paged-attention sources beside the build give each kernel's
    registers, spills and static shared memory.
    K9 (paged attention) is checked at the engine's decode shape in five
-   rel cases at 1e-5, K10 (int8 matmul) at its eight serving shapes (M 8
+   rel cases at 1e-5, and again on 3 of its 12 heads (``h3_shape``: a
+   rank's heads in ``serve_tp``, more splits a head), K10 (int8 matmul) at its eight serving shapes (M 8
    and 512 against the four (K, N) of the model) at rtol 1e-5 / atol
    1e-4, each twice with identical bits; K10's row in the ``kernels``
    line carries every shape with its ``vs_library`` and its top-level
@@ -293,11 +294,11 @@ Phases, each printing one JSON line:
    K1–K3 at D = 32, 8 each a step);
 12e. the ``model`` mesh axis, on the same 4 ranks (no new group), 1 + 1
    steps each, ``PartitionedPS()`` + ``fusable_adam(1e-3)`` + the clip
-   at full width: ``tp_ps`` on ``{"data": 2, "model": 2}`` (default
-   attention: K1–K3 12 each a step a rank, on the rank's full heads
-   inside the step) and ``tp_seq``, Program A's twin, on ``{"model": 2,
-   "seq": 2}`` with ``make_ring_attention`` (2 ring blocks x 12 layers:
-   24 each); K4 and K5 as the session's schedule IR predicts (its
+   at full width and :data:`TP_LAYERS` layers: ``tp_ps`` on ``{"data":
+   2, "model": 2}`` (default attention: K1–K3 once a layer each a step a
+   rank, on the rank's full heads inside the step) and ``tp_seq``,
+   Program A's twin, on ``{"model": 2, "seq": 2}`` with
+   ``make_ring_attention`` (2 ring blocks a layer); K4 and K5 as the session's schedule IR predicts (its
    per-variable legs included); every rank ends on one digest of the
    gathered parameters, holds exactly half of the logical bytes of its
    model-sharded parameters and moments (the plan's count printed beside
@@ -311,11 +312,12 @@ Phases, each printing one JSON line:
    gathered output and dq/dk/dv equal the unsharded one-card K1–K3
    results bit for bit (else within rtol/atol 1e-5, reported);
 12f. the ``expert`` mesh axis: ``moe_reference`` in the main process
-   after ``tp_reference``: ``moe_transformer_lm()`` at the JAX defaults
-   (vocab 32128, 12 layers, 12 x 64 heads, d_ff 3072, 8 experts, seq
-   1024, random weights from seed 0) with its attention through K1–K3,
-   batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the clip,
-   1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR
+   after ``tp_reference``: ``moe_transformer_lm()`` at the JAX widths
+   (vocab 32128, 12 x 64 heads, d_ff 3072, 8 experts, seq 1024, random
+   weights from seed 0) and :data:`MOE_LAYERS` layers with its attention
+   through K1–K3, batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)``
+   + the clip, 1 + 3 steps: K1–K3 once a layer each a step, K4/K5 as the
+   schedule IR
    predicts, finite falling losses, ``grad_health`` finite; ms per step,
    tokens/s, peak memory and ``mfu_f32`` over :func:`moe_flops_per_step`
    (the one-hot dispatch and combine einsums counted).  Last on the ring
@@ -324,19 +326,21 @@ Phases, each printing one JSON line:
    3072), forward and backward, against the one-card call within
    rtol/atol 1e-5, and the int8 wire's exact construction (d_model 256,
    identity experts) bit for bit; then ``moe_ep``: the reference's
-   program on ``{"data": 2, "expert": 2}``, 1 + 1 steps, K1–K3 12 a step
-   a rank, K4/K5 as the IR predicts, one digest, each rank holding
+   program on ``{"data": 2, "expert": 2}``, 1 + 1 steps, K1–K3 once a
+   layer a step a rank, K4/K5 as the IR predicts, one digest, each rank holding
    exactly half of every expert stack's bytes and of their moments, rank
    0's losses and global norms within rtol 1e-4 of ``moe_reference``'s
    first; ms per step and peak memory per rank over its entry;
 12g. the ``pipe`` mesh axis: ``pipe_reference`` in the main process after
-   ``moe_reference``: ``pipelined_transformer_lm()`` at the JAX defaults
-   (vocab 32128, 12 layers, 12 x 64 heads, d_ff 3072, seq 1024) at pipe 1
-   with its attention through K1–K3, batch 8, ``PSLoadBalancing()`` +
-   ``fusable_adam(1e-3)`` + the clip, 1 + 3 steps (K1–K3 12 a step, K4/K5
-   as the IR predicts; ms per step, tokens/s, peak, ``mfu_f32``), the
+   ``moe_reference``: ``pipelined_transformer_lm()`` at the JAX widths
+   (vocab 32128, 12 x 64 heads, d_ff 3072, seq 1024) and
+   :data:`PIPE_LAYERS` layers at pipe 1 with its attention through K1–K3,
+   batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the clip, 1
+   + 3 steps (K1–K3 once a layer a step, K4/K5 as the IR predicts; ms per
+   step, tokens/s, peak, ``mfu_f32``), the
    check that the 1F1B spec's stack is the same draw stored device-major,
-   and the pipelined MoE LM at 4 layers (full width, 8 experts) at pipe 1,
+   and the pipelined MoE LM at :data:`PIPE_MOE_LAYERS` layers (full
+   width, 8 experts) at pipe 1,
    1 + 1 steps.  Last on the ring ranks: ``pipe_gpipe``, the reference's
    program on ``{"pipe": 4}``, M = 8; ``pipe_1f1b``, interleaved 1F1B (V
    = 2) through ``capture(grad_fn=)`` on ``{"pipe": 2, "data": 2}``, M = 4
@@ -348,7 +352,31 @@ Phases, each printing one JSON line:
    1/4 of the expert stacks), rank 0's losses and global norms within
    rtol 1e-4 of the one-card references'; then the 1F1B twin
    (``examples_torch/pipeline_1f1b.py``) once, its losses equal on every
-   rank;
+   rank; then the engines' meshes, last on the ring ranks:
+   ``serve_tp``, phase 3's requests through ``PagedDecodeEngine`` on
+   ``{"model": 4}`` (each rank's K and V pools hold 3 of the 12 heads,
+   170,459,136 of 681,836,544 B; K9 12 a decode tick a rank on its 3
+   heads, the heads gathered after it; the logits' largest difference
+   from one decode tick over all 12 heads on the same pools), and
+   ``serve_slots``, Program G's twin at full width: the slot engine at
+   ``SLOT_GEOM`` on ``{"data": 4}`` (2 of the 8 slots a rank,
+   150,994,944 of 603,979,776 B of K and V), Program G's 8 requests and
+   its prefix pass with mixed ``use_prefix``; every rank's tokens equal
+   the plain generator's (checked in the serving slice, phase 15);
+12h. the MPMD pipeline runtime (``mpmd``), after the ring: the
+   full-width LM's 12 blocks as two stage programs (6 blocks each; the
+   embedding, the position table and the final norm frozen and closed
+   over by the first stage's function and the last stage's loss), each
+   stage its own world of 2 gloo ranks (``chip_smoke.py --mpmd-worker``
+   processes), batch 8 (4 one-row microbatches a rank), ZeRO-1 SGD inside
+   a stage, 3 steps, the activations staged through a transport
+   directory; a clean job and a chaos job (stage 1's rank 0 killed after
+   step 1, the stage-1 world relaunched by its ``Supervisor``) run at once
+   beside the same program at data size 1 in this process: the clean
+   job's losses within rtol 1e-5 of it, one digest per stage world, one
+   schedule fingerprint everywhere (``build_pipeline_ir``'s), K1–K3 24 a
+   step a rank, K4/K5 none, the chaos job's losses and parameters the
+   clean job's bit for bit;
 12c. the supervised replica pool (``router``): ``SupervisedReplicaPool(2)``
    of ``chip_smoke.py --replica`` processes (the full-width paged
    server, K9) behind ``Router(recover=True)``; 8 concurrent greedy
@@ -489,6 +517,7 @@ ZeRO-1 steps for K4 and K5, with their launches on ``train_ps``,
 ``train_parallax``, rank 0's ``ps_lb``, ``moe_reference`` and rank 0's
 ``moe_ep`` (K1–K5), ``pipe_reference``, its MoE reference, rank 0's
 ``pipe_gpipe``, ``pipe_1f1b``, ``pipe_moe`` and the 1F1B twin (K1–K5),
+each clean ``mpmd`` rank (K1–K3), rank 0's ``serve_tp`` (K9),
 ``train_accum``, ``train_stale``,
 rank 0's ``train_p6`` configurations (K1–K8), ``train_vgg16``,
 ``train_lm1b`` and ``train_ncf`` in ``launches_by_path``, rank 0's 6
@@ -577,13 +606,15 @@ SEQ_LAUNCHES = {"seq_ring": 48, "seq_ulysses": 12}
 #: rank 0's seq losses against phase 5's one-card flash run's
 SEQ_LOSS_RTOL = 1e-4
 #: the model axis's ring configurations (after ``long_context``): mesh,
-#: K1–K3 each per step per rank (12 layers, x 2 ring blocks on seq), the
-#: steps, and rank 0's losses and global norms against the one-card
-#: ``tp_reference``'s
+#: depth (full width, :data:`TP_LAYERS` layers: cut from 12 for time
+#: only), K1–K3 each per step per rank (one per layer, x 2 ring blocks on
+#: seq), the steps, and rank 0's losses and global norms against the
+#: one-card ``tp_reference``'s
 TP_CONFIGS = ("tp_ps", "tp_seq")
 TP_AXES = {"tp_ps": {"data": 2, "model": 2},
            "tp_seq": {"model": 2, "seq": 2}}
-TP_FLASH = {"tp_ps": 12, "tp_seq": 24}
+TP_LAYERS = 8
+TP_FLASH = {"tp_ps": TP_LAYERS, "tp_seq": 2 * TP_LAYERS}
 TP_WARMUP, TP_TIMED = 1, 1
 TP_LOSS_RTOL = 1e-4
 #: ``make_flash_attention(mesh)`` over the model axis: the mesh, the
@@ -592,11 +623,13 @@ TP_LOSS_RTOL = 1e-4
 FLASH_MODEL = "flash_model"
 FLASH_MODEL_AXES = {"model": 4}
 FLASH_MODEL_TOL = 1e-5
-#: the expert axis: the one-card MoE reference's steps (its first 1 + 1
+#: the expert axis: the MoE LM's depth (full width, cut from 12 layers
+#: for time only), the one-card MoE reference's steps (its first 1 + 1
 #: losses hold ``moe_ep``'s), the ring configuration's mesh and steps,
 #: rank 0's losses and global norms against the reference's, and
 #: ``moe_ffn_ep``'s mesh, tolerance and int8 construction (d_model 256,
 #: identity experts, integer tokens with every block's amax 127)
+MOE_LAYERS = 8
 MOE_REF_WARMUP, MOE_REF_TIMED = 1, 3
 MOE_EP = "moe_ep"
 MOE_EP_AXES = {"data": 2, "expert": 2}
@@ -608,28 +641,57 @@ MOE_FFN_TOL = 1e-5
 MOE_EXACT = dict(g=8, s=8, m=256, e=8)
 #: the pipe axis: the ring configurations, their meshes, microbatches and
 #: K1–K3 a step a rank (a rank computes only on the ticks where it holds
-#: a microbatch: 3 layers x 8 microbatches under GPipe on ``{"pipe":
-#: 4}``; 6 layers x 4 microbatches forward and again in the 1F1B
-#: recompute, one backward, on ``{"pipe": 2, "data": 2}``; 2 layers x 8
-#: under the MoE GPipe on ``{"pipe": 2, "expert": 2}``), the one-card
-#: reference's steps (its first 1 + 1 losses hold the ring's), the depth
-#: of the MoE run (cut from 12 for time only), and the 1F1B twin's
-#: arguments on the ring ranks (``tests/test_examples.py``'s)
+#: a microbatch: L/4 layers x 8 microbatches under GPipe on ``{"pipe":
+#: 4}``; L/2 layers x 4 microbatches forward and again in the 1F1B
+#: recompute, one backward, on ``{"pipe": 2, "data": 2}``; L'/2 layers
+#: x 8 under the MoE GPipe on ``{"pipe": 2, "expert": 2}``), the one-card
+#: reference's steps (its first 1 + 1 losses hold the ring's), the depths
+#: L of the pipelined LM and L' of the pipelined MoE LM (full width; cut
+#: from 12 for time only), and the 1F1B twin's arguments on the ring
+#: ranks (``tests/test_examples.py``'s)
 PIPE_GPIPE, PIPE_1F1B, PIPE_MOE = "pipe_gpipe", "pipe_1f1b", "pipe_moe"
 PIPE_CONFIGS = (PIPE_GPIPE, PIPE_1F1B, PIPE_MOE)
 PIPE_AXES = {PIPE_GPIPE: {"pipe": 4}, PIPE_1F1B: {"pipe": 2, "data": 2},
              PIPE_MOE: {"pipe": 2, "expert": 2}}
 PIPE_MICROBATCHES = {PIPE_GPIPE: 8, PIPE_1F1B: 4, PIPE_MOE: 8}
-PIPE_FLASH = {PIPE_GPIPE: (24, 24, 24), PIPE_1F1B: (48, 24, 24),
-              PIPE_MOE: (16, 16, 16)}
+PIPE_LAYERS, PIPE_MOE_LAYERS = 8, 4
+PIPE_FLASH = {PIPE_GPIPE: (PIPE_LAYERS // 4 * 8,) * 3,
+              PIPE_1F1B: (PIPE_LAYERS * 4,) + (PIPE_LAYERS // 2 * 4,) * 2,
+              PIPE_MOE: (PIPE_MOE_LAYERS // 2 * 8,) * 3}
 PIPE_REF_WARMUP, PIPE_REF_TIMED = 1, 3
 PIPE_WARMUP, PIPE_TIMED = 1, 1
 PIPE_LOSS_RTOL = 1e-4
-PIPE_MOE_LAYERS = 4
 PIPE_TWIN = "pipeline_1f1b"
 PIPE_TWIN_ARGS = ("--pipe", "2", "--data-shards", "2", "--virtual-stages",
                   "2", "--num-layers", "4", "--seq-len", "16",
                   "--batch-size", "8", "--steps", "3")
+#: the MPMD pipeline runtime (``mpmd``): 2 stage worlds of 2 gloo ranks
+#: each on the card, the full-width LM's blocks split 6 a stage, global
+#: batch 8 (4 one-row microbatches a DP rank), ZeRO-1 SGD within a stage;
+#: K1–K3 a step a rank (6 blocks x 4 microbatches, no recompute); the
+#: chaos job kills stage 1's rank 0 after step 1 (its first attempt
+#: only) and a Supervisor relaunches that stage's group
+MPMD_STAGES, MPMD_DP, MPMD_MICRO, MPMD_BATCH = 2, 2, 4, 8
+MPMD_LAYERS, MPMD_STEPS, MPMD_LR = 12, 3, 0.05
+MPMD_FLASH = 24
+MPMD_BUCKET_BYTES = 1 << 25
+MPMD_LOSS_RTOL = 1e-5
+MPMD_CHAOS = "kill@step=1,proc=0,attempt=0,stage=1"
+MPMD_TIMEOUT_S = 600
+#: the engines' meshes on the ring ranks: the paged engine's pools over
+#: ``{"model": 4}`` (K9 on 12 / 4 heads, 12 launches a decode tick a
+#: rank) and the slot engine's slots over ``{"data": 4}`` (Program G's
+#: requests); each rank's share of the K and V memory
+SERVE_TP, SERVE_SLOTS = "serve_tp", "serve_slots"
+SERVE_TP_AXES, SERVE_SLOTS_AXES = {"model": 4}, {"data": 4}
+SERVE_TP_POOL_BYTES = (170_459_136, 681_836_544)
+SERVE_SLOTS_CACHE_BYTES = (150_994_944, 603_979_776)
+#: ``serve_slots``' sampled pass: the engine-wide knobs, the generator's
+#: seed and Program G's requests' temperatures in turn (one greedy); the
+#: ranks' tokens must equal the one-card engine's under that generator
+SERVE_SLOTS_SAMPLED = dict(temperature=1.0, top_k=40)
+SERVE_SLOTS_SAMPLE_SEED = 11
+SERVE_SLOTS_TEMPS = (1.0, 0.7, 0.0, 1.3)
 #: the ``long_context`` twin on the ring ranks, and its K1–K3 a step (2
 #: layers x 4 ring blocks) over its 3 warm-up, 1 + 19 timed and 1 closing
 #: steps (``benchmark.common.run_benchmark``'s defaults)
@@ -894,9 +956,57 @@ def bound_ms(nbytes: float, flops: float, flops_per_s=H100_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _k9_row(torch, timer, F, q, kc, vc, bt, rel_specs) -> dict:
+    """K9 at one shape: held against its plain version at 1e-5 in each
+    ``rel_specs`` case (and bit-identical when run twice), then timed at
+    a full window with its bound, the plain version and SDPA."""
+    from autodist_tpu_torch.ops import _build
+    from autodist_tpu_torch.ops import fused_kernels as fk
+
+    b, h, dh = q.shape
+    bs, maxb = kc.shape[1], bt.shape[1]
+    dev = q.device
+    w = maxb * bs
+    err = 0.0
+    for name, rel_list in rel_specs.items():
+        rel = torch.tensor(rel_list, dtype=torch.int32, device=dev)
+        out = fk.paged_attention(q, kc, vc, bt, rel)
+        again = fk.paged_attention(q, kc, vc, bt, rel)
+        ref = fk.paged_attention_reference(q, kc, vc, bt, rel)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
+                                   msg=f"K9 H={h} rel={name}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K9 not bit-identical at H={h} "
+                                 f"rel={name}")
+        err = max(err, (out - ref).abs().max().item())
+    rel = torch.full((b,), w - 1, dtype=torch.int32, device=dev)
+    live = int((rel.long() + 1).sum())
+    nbytes = (live * h * dh * 2 * 4 + 2 * b * h * dh * 4
+              + b * maxb * 4 + b * 4)
+    bound, by = bound_ms(nbytes, 4.0 * live * h * dh)
+    kb = kc[bt.long()].reshape(b, w, h, dh).permute(0, 2, 1, 3).contiguous()
+    vb = vc[bt.long()].reshape(b, w, h, dh).permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(w, device=dev)[None, :] <= rel[:, None].long())
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return {
+        "shape": dict(B=b, H=h, Dh=dh, BS=bs, MAXB=maxb, rel=w - 1),
+        "splits": fk.splits_for(b, h, w, _build.sm_count(dev)),
+        "max_abs_err": err,
+        "ms": timer(lambda: fk.paged_attention(q, kc, vc, bt, rel)),
+        "plain_ms": timer(
+            lambda: fk.paged_attention_reference(q, kc, vc, bt, rel)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+            q4, kb, vb, attn_mask=mask)),
+        "library_call": "F.scaled_dot_product_attention on the gathered "
+                        "window (gather not timed)",
+    }
+
+
 def phase_kernels(torch, timer):
     import torch.nn.functional as F
-    from autodist_tpu_torch.ops import fused_kernels as fk
     from autodist_tpu_torch.ops import quant
 
     gen = torch.Generator().manual_seed(SEED)
@@ -914,42 +1024,14 @@ def phase_kernels(torch, timer):
                  "block_edge": [31, 32, 63, 64, 95, 96, 127, 128],
                  "full": [w - 1] * b,
                  "mixed": [0, 15, 31, 32, 500, 700, 1000, w - 1]}
-    k9_err = 0.0
-    for name, rel_list in rel_specs.items():
-        rel = torch.tensor(rel_list, dtype=torch.int32, device=dev)
-        out = fk.paged_attention(q, kc, vc, bt, rel)
-        again = fk.paged_attention(q, kc, vc, bt, rel)
-        ref = fk.paged_attention_reference(q, kc, vc, bt, rel)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
-                                   msg=f"K9 rel={name}")
-        if not torch.equal(out, again):
-            raise AssertionError(f"K9 not bit-identical at rel={name}")
-        k9_err = max(k9_err, (out - ref).abs().max().item())
-    rel = torch.full((b,), w - 1, dtype=torch.int32, device=dev)
-    live = int((rel.long() + 1).sum())
-    nbytes = (live * h * dh * 2 * 4 + 2 * b * h * dh * 4
-              + b * maxb * 4 + b * 4)
-    k9_bound, k9_by = bound_ms(nbytes, 4.0 * live * h * dh)
-    kb = kc[bt.long()].reshape(b, w, h, dh).permute(0, 2, 1, 3).contiguous()
-    vb = vc[bt.long()].reshape(b, w, h, dh).permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(w, device=dev)[None, :] <= rel[:, None].long())
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
-    k9 = {
-        "name": "paged_attention", "route": "cuda", "source": K9_SOURCE,
-        "replaces": K9_REPLACES,
-        "shape": dict(B=b, H=h, Dh=dh, BS=bs, MAXB=maxb, rel=w - 1),
-        "max_abs_err": k9_err,
-        "ms": timer(lambda: fk.paged_attention(q, kc, vc, bt, rel)),
-        "plain_ms": timer(
-            lambda: fk.paged_attention_reference(q, kc, vc, bt, rel)),
-        "bound_ms": k9_bound, "bound_by": k9_by,
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q4, kb, vb, attn_mask=mask)),
-        "library_call": "F.scaled_dot_product_attention on the gathered "
-                        "window (gather not timed)",
-    }
+    k9 = {"name": "paged_attention", "route": "cuda", "source": K9_SOURCE,
+          "replaces": K9_REPLACES,
+          **_k9_row(torch, timer, F, q, kc, vc, bt, rel_specs)}
+    # the head-sharded pool's shape: this rank's 12 / 4 heads (serve_tp)
+    h3 = h // SERVE_TP_AXES["model"]
+    k9["h3_shape"] = _k9_row(torch, timer, F,
+                             *(t[..., :h3, :].contiguous()
+                               for t in (q, kc, vc)), bt, rel_specs)
     emit({"phase": "kernel", **k9})
 
     # --- K10: every (M, K, N) the serving path gives it -----------------
@@ -3923,12 +4005,12 @@ def _tp_session(spec, axes=None, mesh=None):
 
 def phase_tp_reference(torch):
     """The one-card run the model axis's ring configurations are held to:
-    ``PartitionedPS()`` + ``fusable_adam(1e-3)`` + the clip at full width,
-    the same weights and batch, 1 + 1 steps, K1–K5 as its schedule IR
-    predicts."""
+    ``PartitionedPS()`` + ``fusable_adam(1e-3)`` + the clip at full width
+    and :data:`TP_LAYERS` layers, the same weights and batch, 1 + 1
+    steps, K1–K5 as its schedule IR predicts."""
     from autodist_tpu_torch.models.transformer_lm import transformer_lm
 
-    spec = transformer_lm()
+    spec = transformer_lm(num_layers=TP_LAYERS)
     _fresh_peak(torch)
     sess, batch = _tp_session(spec)
     want = _ir_predicted_launches(sess.schedule_ir,
@@ -3995,8 +4077,9 @@ def _tp_train(torch, name):
     at_entry = torch.cuda.memory_allocated()
     axes = TP_AXES[name]
     mesh = build_mesh(axes)
-    spec = transformer_lm(attn_fn=make_ring_attention(mesh, inner="flash")) \
-        if "seq" in axes else transformer_lm()
+    attn = {"attn_fn": make_ring_attention(mesh, inner="flash")} \
+        if "seq" in axes else {}
+    spec = transformer_lm(num_layers=TP_LAYERS, **attn)
     sess, batch = _tp_session(spec, axes, mesh)
     if {k: v for k, v in sess.mesh.shape.items() if v > 1} != axes:
         raise AssertionError(f"{name}: mesh {sess.mesh.shape}")
@@ -4132,12 +4215,14 @@ def moe_flops_per_step(cfg, batch: int, capacity_factor: float = 2.0
 
 
 def _moe_spec(mesh=None):
-    """``moe_transformer_lm`` at the repo's defaults, its attention through
-    K1–K3 (``attn_fn`` defaults to dense, as in the JAX package)."""
+    """``moe_transformer_lm`` at the repo's widths and :data:`MOE_LAYERS`
+    layers, its attention through K1–K3 (``attn_fn`` defaults to dense, as
+    in the JAX package)."""
     fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
     from autodist_tpu_torch.models.moe_lm import moe_transformer_lm
 
-    return moe_transformer_lm(mesh, attn_fn=fa.flash_attention)
+    return moe_transformer_lm(mesh, num_layers=MOE_LAYERS,
+                              attn_fn=fa.flash_attention)
 
 
 def _moe_session(spec, axes=None, mesh=None):
@@ -4161,10 +4246,12 @@ def _moe_session(spec, axes=None, mesh=None):
 
 
 def phase_moe_reference(torch):
-    """``moe_reference``: the MoE LM at the JAX defaults (vocab 32128, 12
-    layers, 12 x 64 heads, d_ff 3072, 8 experts, seq 1024) on one card,
+    """``moe_reference``: the MoE LM at the JAX widths (vocab 32128, 12 x
+    64 heads, d_ff 3072, 8 experts, seq 1024; :data:`MOE_LAYERS` layers)
+    on one card,
     batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the clip,
-    1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR predicts,
+    1 + 3 steps: K1–K3 once a layer each a step, K4/K5 as the schedule IR
+    predicts,
     finite falling losses, every step's ``grad_health`` finite; ms per
     step, tokens/s, peak memory and ``mfu_f32`` from the written-out
     FLOPs.  Its losses and global norms hold ``moe_ep``'s."""
@@ -4358,12 +4445,12 @@ def check_moe(ring, ref, smi) -> dict:
 
 
 def _pipe_spec(name=None, mesh=None):
-    """The pipe axis's programs with their attention through K1–K3: the
-    pipelined LM at the JAX defaults (``name`` None: pipe 1, the
-    reference; :data:`PIPE_GPIPE` on ``mesh``; :data:`PIPE_1F1B`: 1F1B,
-    V = 2, :data:`PIPE_MICROBATCHES` a data shard), or the pipelined MoE
-    LM at :data:`PIPE_MOE_LAYERS` layers (:data:`PIPE_MOE`, and
-    ``"moe_reference"`` at pipe 1)."""
+    """The pipe axis's programs at the JAX widths and :data:`PIPE_LAYERS`
+    layers, their attention through K1–K3: the pipelined LM (``name``
+    None: pipe 1, the reference; :data:`PIPE_GPIPE` on ``mesh``;
+    :data:`PIPE_1F1B`: 1F1B, V = 2, :data:`PIPE_MICROBATCHES` a data
+    shard), or the pipelined MoE LM at :data:`PIPE_MOE_LAYERS` layers
+    (:data:`PIPE_MOE`, and ``"moe_reference"`` at pipe 1)."""
     fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
     from autodist_tpu_torch.models import (pipelined_moe_transformer_lm,
                                            pipelined_transformer_lm)
@@ -4374,11 +4461,11 @@ def _pipe_spec(name=None, mesh=None):
             num_microbatches=PIPE_MICROBATCHES[PIPE_MOE] if mesh else None)
     if name == PIPE_1F1B:
         return pipelined_transformer_lm(
-            mesh, attn_fn=fa.flash_attention, schedule="1f1b",
-            num_virtual_stages=2,
+            mesh, num_layers=PIPE_LAYERS, attn_fn=fa.flash_attention,
+            schedule="1f1b", num_virtual_stages=2,
             num_microbatches=PIPE_MICROBATCHES[PIPE_1F1B])
     return pipelined_transformer_lm(
-        mesh, attn_fn=fa.flash_attention,
+        mesh, num_layers=PIPE_LAYERS, attn_fn=fa.flash_attention,
         num_microbatches=PIPE_MICROBATCHES[PIPE_GPIPE] if mesh else None)
 
 
@@ -4406,9 +4493,10 @@ def _pipe_session(spec, axes=None, mesh=None):
 
 def phase_pipe_reference(torch):
     """``pipe_reference``: ``pipelined_transformer_lm()`` at the JAX
-    defaults at pipe 1 (the plain loop over the 12-layer stack) on one
-    card, batch 8, ``PSLoadBalancing()`` + ``fusable_adam(1e-3)`` + the
-    clip, 1 + 3 steps: K1–K3 12 each a step, K4/K5 as the schedule IR
+    widths and :data:`PIPE_LAYERS` layers at pipe 1 (the plain loop over
+    the stack) on one card, batch 8, ``PSLoadBalancing()`` +
+    ``fusable_adam(1e-3)`` + the clip, 1 + 3 steps: K1–K3 once a layer
+    each a step, K4/K5 as the schedule IR
     predicts, finite falling losses; ms per step, tokens/s, peak memory
     and ``mfu_f32``.  Its losses and global norms hold ``pipe_gpipe``'s,
     and ``pipe_1f1b``'s: the 1F1B spec draws the same layers from the
@@ -4461,7 +4549,7 @@ def phase_pipe_reference(torch):
     mine = lm_params(_pipe_spec(PIPE_1F1B, Mesh(
         shape=PIPE_AXES[PIPE_1F1B], device=torch.device("cpu"))),
         device="cpu")["stack"]
-    lpc = 12 // 4
+    lpc = PIPE_LAYERS // 4
     order = interleaved_stage_order(2, 2)
     rows = [order.index(g) * lpc + k for g in range(4) for k in range(lpc)]
     from autodist_tpu_torch.graph_item import flatten
@@ -4586,6 +4674,553 @@ def check_pipe(ring, ref, smi) -> dict:
           **ring[PIPE_TWIN]})
     paths.update({f"pipe_{k}": v for k, v in ref.items()})
     return paths
+
+
+# --- P10's rest: the MPMD pipeline runtime and the engines' meshes --------
+
+def _mpmd_rows(tokens, rank: int, dp: int) -> list:
+    """Data-parallel rank ``rank``'s rows of each of the
+    :data:`MPMD_MICRO` microbatches (disjoint rows; at ``dp`` 1 every
+    microbatch whole)."""
+    rows = tokens.shape[0] // (MPMD_MICRO * dp)
+    return [tokens[j * dp * rows + rank * rows:
+                   j * dp * rows + (rank + 1) * rows]
+            for j in range(MPMD_MICRO)]
+
+
+def _mpmd_case(torch, dp: int, device=None):
+    """The full-width LM as :data:`MPMD_STAGES` stage programs:
+    ``(program, per-stage params, stage_fn_for, loss_fn, tokens)``.  The
+    blocks are the catalog (numpy, from the one CPU draw); the embedding,
+    the position table and the final norm are frozen, closed over by stage
+    0's ``stage_fn`` and the last stage's ``loss_fn``: the head is tied to
+    the embedding, and a tied weight cannot live on two stages.  Attention
+    is the flash kernels (K1–K3); ``device`` is resolved as the model's
+    own (the card)."""
+    from autodist_tpu_torch.graph_item import flatten, unflatten
+    from autodist_tpu_torch.models import base
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.models.base import (cross_entropy_loss,
+                                                layer_norm, promote_f32)
+    from autodist_tpu_torch.models.generate import decode_layer
+    from autodist_tpu_torch.models.quantize import embed_lookup
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.parallel import mpmd
+
+    fa = importlib.import_module("autodist_tpu_torch.ops.flash_attention")
+    spec = transformer_lm(num_layers=MPMD_LAYERS)
+    cfg = spec.config
+    host = lm_params(spec, device="cpu")
+    layers = [{n: v.numpy() for n, v in flatten(
+        host["decoder"][f"layers_{i}"])} for i in range(MPMD_LAYERS)]
+    part, stage_params = mpmd.partition_params(layers, MPMD_STAGES)
+    rows = MPMD_BATCH // (MPMD_MICRO * dp)
+    prog = mpmd.build_pipeline_ir(
+        layer_params=layers, num_stages=MPMD_STAGES,
+        num_microbatches=MPMD_MICRO,
+        act_nbytes=rows * cfg["seq_len"] * cfg["num_heads"]
+        * cfg["head_dim"] * 4, data_axis=dp, zero1=True,
+        bucket_bytes=MPMD_BUCKET_BYTES)
+    device = base.resolve_device(device)
+    embed = host["embed"].to(device)
+    pos = host["pos_embed"].to(device)
+    ln = host["decoder"]["ln_final"]["scale"].to(device)
+    layer = decode_layer(cfg["num_heads"], cfg["head_dim"], cfg["d_ff"])
+
+    def stage_fn_for(stage):
+        pre = sir.stage_name(stage)
+
+        def fn(p, h):
+            if stage == 0:
+                h = promote_f32(embed_lookup(embed, h.long(), pos.dtype)
+                                + pos[None, :h.shape[1]])
+            for j in part.layers[stage]:
+                head = f"{pre}/l{j}/"
+                h = layer(unflatten([(n[len(head):], v) for n, v in p.items()
+                                     if n.startswith(head)]), h,
+                          fa.flash_attention)
+            return h
+        return fn
+
+    def loss_fn(y, tokens):
+        logits = torch.einsum("btd,vd->btv", layer_norm(y, ln),
+                              embed.to(y.dtype))
+        return cross_entropy_loss(logits[:, :-1], tokens.long()[:, 1:])
+
+    tokens = np.random.RandomState(SEED).randint(
+        0, cfg["vocab_size"], (MPMD_BATCH, cfg["seq_len"])).astype(np.int64)
+    return prog, stage_params, stage_fn_for, loss_fn, tokens
+
+
+def mpmd_worker(stage: int, rank: int, init: str, root: str,
+                job: str) -> int:
+    """One rank of one stage world of an ``mpmd`` job: its StageRunner
+    over :data:`MPMD_STEPS` steps, one JSON line a step and a last one
+    (parameters' checksum and digest, fingerprint, launches) appended to
+    ``root/<job>/steps.s<stage>r<rank>``; the ``chaos`` job snapshots
+    every step and takes ``AUTODIST_CHAOS`` from the supervisor."""
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch.parallel import mpmd
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", LOOPBACK)
+    dist.init_process_group("gloo", init_method=init, world_size=MPMD_DP,
+                            rank=rank)
+    try:
+        prog, stage_params, stage_fn_for, loss_fn, tokens = _mpmd_case(
+            torch, MPMD_DP)
+        jobdir = os.path.join(root, job)
+        last = stage == MPMD_STAGES - 1
+        runner = mpmd.StageRunner(
+            prog, stage, stage_fn=stage_fn_for(stage),
+            params=stage_params[stage],
+            transport=mpmd.ActivationTransport(
+                os.path.join(jobdir, "acts"), channel=f"dp{rank}",
+                timeout_s=MPMD_TIMEOUT_S),
+            lr=MPMD_LR, loss_fn=loss_fn if last else None, zero1=True,
+            state_dir=os.path.join(jobdir, "state")
+            if job == "chaos" else None)
+        mbs = _mpmd_rows(tokens, rank, MPMD_DP)
+        log = os.path.join(jobdir, f"steps.s{stage}r{rank}")
+        _reset_all_counts()
+        t0, first = time.perf_counter(), runner.step
+        while runner.step < MPMD_STEPS:
+            loss = runner.run_step(mbs if stage == 0 else None,
+                                   mbs if last else None)
+            torch.cuda.synchronize()
+            with open(log, "a", encoding="utf-8") as f:
+                f.write(json.dumps({
+                    "step": runner.step - 1, "loss": loss,
+                    "attempt": int(os.environ.get("AUTODIST_ATTEMPT", "0")),
+                    "fingerprint": runner.fingerprint,
+                    "t_s": time.perf_counter() - t0}) + "\n")
+        launches = _kernel_counts()
+        host = [runner.params[n].cpu().numpy()
+                for n in sorted(runner.params)]
+        with open(log, "a", encoding="utf-8") as f:
+            f.write(json.dumps({
+                "done": True, "fingerprint": runner.fingerprint,
+                "checksum": float(sum(np.abs(h.astype(np.float64)).sum()
+                                      for h in host)),
+                "digest": hashlib.sha256(b"".join(
+                    h.tobytes() for h in host)).hexdigest(),
+                "launches": launches, "steps_run": runner.step - first,
+                "seconds": time.perf_counter() - t0}) + "\n")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mpmd_job(root: str, job: str) -> dict:
+    """One job's logs: the last stage's losses by step (a replayed
+    step's last line kept; the data-parallel mean is every rank's, so the
+    ranks' lines must agree), each process's last line, every
+    fingerprint."""
+    losses, final, fps = {}, {}, set()
+    for st in range(MPMD_STAGES):
+        for r in range(MPMD_DP):
+            with open(os.path.join(root, job, f"steps.s{st}r{r}"),
+                      encoding="utf-8") as f:
+                for line in f:
+                    rec = json.loads(line)
+                    fps.add(rec["fingerprint"])
+                    if rec.get("done"):
+                        final[f"s{st}r{r}"] = rec
+                    elif st == MPMD_STAGES - 1:
+                        if losses.get(rec["step"], rec["loss"]) \
+                                != rec["loss"]:
+                            raise AssertionError(
+                                f"mpmd {job}: step {rec['step']}'s loss "
+                                f"differs across the last stage's ranks")
+                        losses[rec["step"]] = rec["loss"]
+    return {"losses": [losses.get(k) for k in range(MPMD_STEPS)],
+            "final": final, "fingerprints": sorted(fps)}
+
+
+def _mpmd_reference(torch) -> list:
+    """The same program at data size 1 in this process, on the card: the
+    stages on threads over the in-memory transport, the whole batch."""
+    from autodist_tpu_torch.parallel import mpmd
+
+    prog, stage_params, stage_fn_for, loss_fn, tokens = _mpmd_case(torch, 1)
+    runners = [mpmd.StageRunner(
+        prog, st, stage_fn=stage_fn_for(st), params=stage_params[st],
+        transport=mpmd.ActivationTransport("", channel="reference"),
+        lr=MPMD_LR, loss_fn=loss_fn if st == MPMD_STAGES - 1 else None,
+        zero1=True) for st in range(MPMD_STAGES)]
+    mbs = _mpmd_rows(tokens, 0, 1)
+    losses = []
+    for _ in range(MPMD_STEPS):
+        res = [None] * MPMD_STAGES
+
+        def run(st):
+            res[st] = runners[st].run_step(
+                mbs if st == 0 else None,
+                mbs if st == MPMD_STAGES - 1 else None)
+        threads = [threading.Thread(target=run, args=(st,))
+                   for st in range(MPMD_STAGES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if res[-1] is None:
+            raise RuntimeError("mpmd reference: a stage thread failed")
+        losses.append(res[-1])
+    torch.cuda.synchronize()
+    return losses
+
+
+def phase_mpmd(torch) -> dict:
+    """The MPMD pipeline runtime at full width: a clean job and a chaos
+    job, each two stage worlds of two gloo ranks on the card (8
+    processes at once), and the one-process reference meanwhile.  The
+    clean job's losses hold the reference's at :data:`MPMD_LOSS_RTOL`,
+    each stage world ends on one digest, every process runs
+    ``build_pipeline_ir``'s fingerprint, each clean rank launches K1–K3
+    :data:`MPMD_FLASH` a step and K4/K5 never; the chaos job (stage 1's
+    rank 0 killed after step 1, the stage-1 world relaunched by its
+    Supervisor) ends on the clean job's losses and parameters bit for
+    bit."""
+    import tempfile
+
+    from autodist_tpu_torch.resilience import (Backoff, Supervisor,
+                                               SupervisorPolicy)
+
+    root = tempfile.mkdtemp(prefix="smoke_mpmd_")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME=LOOPBACK)
+    logs, launched, stopping = [], [], threading.Event()
+
+    def launch(job, stage, extra):
+        if stopping.is_set():      # the phase failed: start nothing more
+            return {}
+        init = "file://" + os.path.join(tempfile.mkdtemp(dir=root), "rdv")
+        procs = {}
+        for r in range(MPMD_DP):
+            path = os.path.join(root, f"{job}.s{stage}r{r}.{len(logs)}.log")
+            logs.append(path)
+            with open(path, "w") as out:
+                procs[f"s{stage}r{r}"] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mpmd-worker", str(stage), str(r), init, root, job],
+                    env=dict(env, **extra), stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+        launched.extend(procs.values())
+        return procs
+
+    t0 = time.perf_counter()
+    for job in ("clean", "chaos"):
+        os.makedirs(os.path.join(root, job), exist_ok=True)
+    clean = {}
+    for st in range(MPMD_STAGES):
+        clean.update(launch("clean", st, {}))
+    reports = {}
+
+    def supervise(st):
+        sup = Supervisor(SupervisorPolicy(
+            max_restarts=1, poll_interval=0.1, kill_grace=10.0,
+            backoff=Backoff(max_tries=2, base=0.01, cap=0.01)),
+            workdir=os.path.join(root, f"sup{st}"))
+        reports[st] = sup.run(lambda att: launch(
+            "chaos", st, {"AUTODIST_CHAOS": MPMD_CHAOS, **att.env()}))
+    sups = [threading.Thread(target=supervise, args=(st,), daemon=True)
+            for st in range(MPMD_STAGES)]
+    for t in sups:
+        t.start()
+    try:
+        t_ref = time.perf_counter()
+        ref = _mpmd_reference(torch)
+        ref_s = time.perf_counter() - t_ref
+        deadline = time.monotonic() + MPMD_TIMEOUT_S
+        for name, p in clean.items():
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        for t in sups:
+            t.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        stopping.set()
+        for p in launched:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+
+    def tails():
+        out = []
+        for path in logs:
+            with open(path, encoding="utf-8", errors="replace") as f:
+                out.append(f"--- {os.path.basename(path)}\n"
+                           + f.read()[-1500:])
+        return "\n".join(out)
+    bad = {n: p.returncode for n, p in clean.items() if p.returncode}
+    if bad or any(t.is_alive() for t in sups) or not all(
+            reports.get(st) is not None and reports[st].ok
+            for st in range(MPMD_STAGES)):
+        raise RuntimeError(f"mpmd: clean exits {bad}, chaos reports "
+                           f"{reports}\n{tails()}")
+    runs = {job: _mpmd_job(root, job) for job in ("clean", "chaos")}
+    want_fp = _mpmd_case(torch, MPMD_DP)[0].ir.fingerprint()
+    c, k = runs["clean"], runs["chaos"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(c["losses"], ref))
+    checks = {
+        "losses within rtol of the one-process run": rel <= MPMD_LOSS_RTOL,
+        "one digest per stage world": all(
+            c["final"][f"s{st}r0"]["digest"]
+            == c["final"][f"s{st}r{r}"]["digest"]
+            for st in range(MPMD_STAGES) for r in range(MPMD_DP)),
+        "one fingerprint, build_pipeline_ir's": c["fingerprints"]
+        == k["fingerprints"] == [want_fp],
+        "K1-K3 a step a rank, K4/K5 0": all(
+            [f["launches"][n] for n in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")]
+            == [MPMD_FLASH * MPMD_STEPS] * 3
+            and f["launches"]["detect_stats"] == 0
+            and f["launches"]["adam_update"] == 0
+            for f in c["final"].values()),
+        "the chaos job relaunched stage 1 once": reports[0].attempts == 1
+        and reports[1].attempts == 2,
+        "chaos losses bit for bit": k["losses"] == c["losses"],
+        "chaos parameters bit for bit": {
+            n: (f["checksum"], f["digest"]) for n, f in k["final"].items()}
+        == {n: (f["checksum"], f["digest"])
+            for n, f in c["final"].items()},
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mpmd: {failed}: clean {c}, chaos {k}, "
+                             f"reference {ref}\n{tails()}")
+    shutil.rmtree(root, ignore_errors=True)
+    rank0 = c["final"]["s0r0"]
+    return {"stages": MPMD_STAGES, "ranks_per_stage": MPMD_DP,
+            "layers": MPMD_LAYERS, "microbatches": MPMD_MICRO,
+            "batch": MPMD_BATCH, "steps": MPMD_STEPS,
+            "losses": c["losses"], "one_process_losses": ref,
+            "max_rel_diff_vs_one_process": rel, "rtol": MPMD_LOSS_RTOL,
+            "chaos_losses": k["losses"], "chaos": MPMD_CHAOS,
+            "restarts": reports[1].attempts - 1,
+            "schedule_fingerprint": want_fp,
+            "launches": rank0["launches"],
+            "launches_per_step": {n: v / MPMD_STEPS for n, v in
+                                  rank0["launches"].items()},
+            "seconds_by_rank": {n: f["seconds"]
+                                for n, f in c["final"].items()},
+            "reference_s": ref_s, "wall_s": wall,
+            "seconds_label": "8 stage processes and the reference at once "
+                             "on one card over gloo (host-staged)"}
+
+
+def _program_g_requests(vocab: int, n: int):
+    """Program G's requests (``__graft_entry__.py``) at ``vocab``:
+    ``2n`` requests, the shared prefix, and the prefix pass's ``n``
+    requests with mixed ``use_prefix``."""
+    rng = np.random.RandomState(5)
+    reqs = [(rng.randint(0, vocab, rng.randint(2, 6)).astype(np.int32),
+             int(rng.randint(3, 9))) for _ in range(2 * n)]
+    prefix = rng.randint(0, vocab, 6).astype(np.int32)
+    pre = [(rng.randint(0, vocab, rng.randint(2, 5)).astype(np.int32),
+            int(rng.randint(3, 7)), bool(i % 2)) for i in range(n)]
+    return reqs, prefix, pre
+
+
+def _tp_logits_probe(torch, eng, params) -> float:
+    """One decode tick at the engine's shape through the paged token step
+    twice, on the same random pools, block table and inputs: over all the
+    heads (the one-card engine's tick: K9 on 12 heads) and over this
+    rank's heads of the model group (the sharded engine's: K9 on 3, the
+    heads gathered); the logits' largest absolute difference."""
+    from autodist_tpu_torch.models.generate import unpack_lm_params
+    from autodist_tpu_torch.serving.paged_kv import _paged_token_step
+
+    cfg, dev = eng._cfg, eng._device
+    nl, h, dh = cfg["num_layers"], cfg["num_heads"], cfg["head_dim"]
+    b, maxb, bs = eng._slots, eng._maxb, eng._block_size
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kc = torch.randn((nl, eng._num_blocks, bs, h, dh), generator=gen,
+                     device=dev)
+    vc = torch.randn(kc.shape, generator=gen, device=dev)
+    bt = torch.randint(1, eng._num_blocks, (b, maxb), generator=gen,
+                       device=dev, dtype=torch.int32)
+    x = torch.randn((b, h * dh), generator=gen, device=dev)
+    rel = torch.tensor([0, 15, 31, 32, 500, 700, 1000, maxb * bs - 1][:b],
+                       dtype=torch.int32, device=dev).clamp(max=maxb * bs - 1)
+    blk = bt.long()[torch.arange(b, device=dev), rel.long() // bs]
+    off = rel.long() % bs
+    _, m, rank = eng._head_shard
+    embed, _, layers, ln = unpack_lm_params(params, nl)
+
+    def cut(t):
+        return t[..., rank * h // m:(rank + 1) * h // m, :].contiguous()
+    with torch.no_grad():
+        one = _paged_token_step(layers, ln, embed, x, kc.clone(),
+                                vc.clone(), bt, blk, off, rel)
+        tp = _paged_token_step(layers, ln, embed, x, cut(kc), cut(vc), bt,
+                               blk, off, rel, head_shard=eng._head_shard)
+    return (one - tp).abs().max().item()
+
+
+def _serve_tp(torch) -> dict:
+    """``serve``'s requests through ``PagedDecodeEngine`` on
+    :data:`SERVE_TP_AXES`: each rank holds 1/4 of every K/V pool's heads
+    and runs K9 on them, 12 launches a decode tick; the tokens (checked
+    against the plain generator by the parent), the pool bytes a rank
+    and the logits' difference from the one-card tick."""
+    from autodist_tpu_torch.mesh import build_mesh
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.serving import PagedDecodeEngine
+
+    spec = transformer_lm()
+    cfg = spec.config
+    params = lm_params(spec, device="cuda")
+    requests, _ = _serve_requests(cfg["vocab_size"], SEED + 1)
+    eng = PagedDecodeEngine(spec, params, device="cuda",
+                            mesh=build_mesh(SERVE_TP_AXES), **SERVE_GEOM)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, n) for p, n, _ in requests]
+    res = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _kernel_counts()
+    eng.assert_no_leaks()
+    ticks = eng.stats.ticks
+    if launches["paged_attention"] != cfg["num_layers"] * ticks or any(
+            v for n, v in launches.items()
+            if n not in ("paged_attention",)):
+        raise AssertionError(f"{SERVE_TP}: launches {launches} for {ticks} "
+                             f"decode ticks")
+    pool = (eng._kc.numel() + eng._vc.numel()) * eng._kc.element_size()
+    shards = SERVE_TP_AXES["model"]
+    if (pool, pool * shards) != SERVE_TP_POOL_BYTES or \
+            eng._kc.shape[3] != cfg["num_heads"] // shards:
+        raise AssertionError(f"{SERVE_TP}: pool {tuple(eng._kc.shape)}, "
+                             f"{pool} B a rank")
+    return {"tokens": [res[i].tolist() for i in ids], "launches": launches,
+            "decode_ticks": ticks,
+            "paged_attention_per_tick": launches["paged_attention"] / ticks,
+            "heads_per_rank": int(eng._kc.shape[3]),
+            "pool_bytes_per_rank": pool, "pool_bytes_one_card": pool * shards,
+            "seconds": seconds,
+            "logits_max_abs_diff_vs_one_card": _tp_logits_probe(
+                torch, eng, params)}
+
+
+def _sampled_slot_run(torch, spec, params, reqs, mesh=None) -> list:
+    """Program G's requests sampled (:data:`SERVE_SLOTS_SAMPLED`, the
+    temperatures :data:`SERVE_SLOTS_TEMPS` in turn) on the slot engine at
+    :data:`SLOT_GEOM` from a card generator seeded
+    :data:`SERVE_SLOTS_SAMPLE_SEED`; on ``mesh`` its slots are sharded."""
+    from autodist_tpu_torch.serving import DecodeEngine
+
+    rng = torch.Generator(device="cuda").manual_seed(SERVE_SLOTS_SAMPLE_SEED)
+    eng = DecodeEngine(spec, params, device="cuda", mesh=mesh, rng=rng,
+                       **SLOT_GEOM, **SERVE_SLOTS_SAMPLED)
+    temps = SERVE_SLOTS_TEMPS
+    ids = [eng.submit(p, n, temperature=temps[i % len(temps)])
+           for i, (p, n) in enumerate(reqs)]
+    res = eng.run()
+    return [res[i].tolist() for i in ids]
+
+
+def _serve_slots(torch) -> dict:
+    """Program G at full width: the slot engine (``serve()``'s default)
+    at :data:`SLOT_GEOM` with its slots over :data:`SERVE_SLOTS_AXES`,
+    2 a rank; Program G's requests, then its prefix pass, then the
+    requests sampled; the tokens (checked by the parent against the plain
+    generator, the sampled ones against the one-card engine) and the
+    cache bytes a rank."""
+    from autodist_tpu_torch.mesh import build_mesh
+    from autodist_tpu_torch.models.transformer_lm import transformer_lm
+    from autodist_tpu_torch.serving import DecodeEngine
+
+    spec = transformer_lm()
+    cfg = spec.config
+    params = lm_params(spec, device="cuda")
+    shards = SERVE_SLOTS_AXES["data"]
+    reqs, prefix, pre = _program_g_requests(cfg["vocab_size"], shards)
+    eng = DecodeEngine(spec, params, device="cuda",
+                       mesh=build_mesh(SERVE_SLOTS_AXES), **SLOT_GEOM)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, n) for p, n in reqs]
+    res = eng.run()
+    eng.set_prefix(prefix)
+    pre_ids = [eng.submit(p, n, use_prefix=u) for p, n, u in pre]
+    res_pre = eng.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cache = (eng._kc.numel() + eng._vc.numel()) * eng._kc.element_size()
+    if (cache, cache * shards) != SERVE_SLOTS_CACHE_BYTES or \
+            tuple(eng._tokens.shape) != (SLOT_GEOM["slots"] // shards,
+                                         SLOT_GEOM["window"]):
+        raise AssertionError(f"{SERVE_SLOTS}: caches {tuple(eng._kc.shape)}"
+                             f", {cache} B a rank")
+    out = {"tokens": [res[i].tolist() for i in ids],
+           "prefix_tokens": [res_pre[i].tolist() for i in pre_ids],
+           "launches": _kernel_counts(), "seconds": seconds,
+           "slots_per_rank": int(eng._kc.shape[2]),
+           "cache_bytes_per_rank": cache,
+           "cache_bytes_one_card": cache * shards,
+           "prefix_admissions": eng.stats.prefix_admissions}
+    del eng
+    torch.cuda.empty_cache()
+    out["sampled_tokens"] = _sampled_slot_run(torch, spec, params, reqs,
+                                              build_mesh(SERVE_SLOTS_AXES))
+    return out
+
+
+def _serve_mesh_ring(torch, out, stamp) -> None:
+    """The engines' meshes on this rank, into ``out``: ``serve_tp`` and
+    ``serve_slots``."""
+    for name, fn in ((SERVE_TP, _serve_tp), (SERVE_SLOTS, _serve_slots)):
+        out[name] = fn(torch)
+        torch.cuda.empty_cache()
+        stamp(name)
+
+
+def check_serve_mesh(torch, ring_results, tp_oracle, spec, params,
+                     smi) -> dict:
+    """Every rank's ``serve_tp`` tokens equal the plain generator's
+    answers to ``serve``'s requests (``tp_oracle``) and every rank's
+    ``serve_slots`` tokens the generator's to Program G's requests and
+    prefix pass, and its sampled tokens the one-card engine's under the
+    same generator; emits both lines; returns rank 0's results."""
+    from autodist_tpu_torch.models.generate import make_generator
+
+    gen = make_generator(spec, device="cuda")
+    reqs, prefix, pre = _program_g_requests(spec.config["vocab_size"],
+                                            SERVE_SLOTS_AXES["data"])
+    want = {"tokens": [gen(params, p[None, :], n)[0].cpu().numpy()
+                       for p, n in reqs],
+            "prefix_tokens": []}
+    for p, n, use in pre:
+        full = np.concatenate([prefix, p]) if use else p
+        got = gen(params, full[None, :], n)[0].cpu().numpy()
+        want["prefix_tokens"].append(got[prefix.size:] if use else got)
+    want["sampled_tokens"] = _sampled_slot_run(torch, spec, params, reqs)
+    for r, res in enumerate(ring_results):
+        for i, toks in enumerate(res[SERVE_TP]["tokens"]):
+            if not np.array_equal(np.asarray(toks), tp_oracle[i]):
+                raise AssertionError(f"{SERVE_TP}: rank {r} request {i} "
+                                     f"differs from the generator")
+        for key, of in (("tokens", "the generator"),
+                        ("prefix_tokens", "the generator"),
+                        ("sampled_tokens", "the one-card engine")):
+            for i, toks in enumerate(res[SERVE_SLOTS][key]):
+                if not np.array_equal(np.asarray(toks), want[key][i]):
+                    raise AssertionError(
+                        f"{SERVE_SLOTS}: rank {r} {key} {i} differs from "
+                        f"{of}")
+    out = {}
+    for name in (SERVE_TP, SERVE_SLOTS):
+        out[name] = {k: v for k, v in ring_results[0][name].items()
+                     if k not in ("tokens", "prefix_tokens",
+                                  "sampled_tokens")}
+        emit({"phase": name, "card": smi, "ranks": RING_RANKS,
+              "token_exact_vs_generator": True,
+              "ranks_identical": True,
+              **({"sampled_equal_one_card_engine": True,
+                  "sampled_requests": len(want["sampled_tokens"])}
+                 if name == SERVE_SLOTS else {}),
+              "seconds_label": "4 ranks time-sharing one card over gloo "
+                               "(host-staged wire)", **out[name]})
+    return out
 
 
 def phase_train_parallax(torch, ps_out):
@@ -6018,6 +6653,7 @@ def ring_worker(rank: int, init: str, mode: str,
         _tp_ring(torch, out, stamp)
         _moe_ring(torch, out, stamp)
         _pipe_ring(torch, out, stamp)
+        _serve_mesh_ring(torch, out, stamp)
         print("RING_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -6170,6 +6806,9 @@ def phase_train_ring(mode: str = "smoke", elastic_dir: str = None):
         return results[0], wall, None
     if mode != "smoke":
         return results[0], wall, None
+    # the engines' meshes are checked on every rank's tokens
+    results[0]["serve_mesh_ranks"] = [
+        {n: res[n] for n in (SERVE_TP, SERVE_SLOTS)} for res in results]
     _check_rank_results(results, RING_CONFIGS + (PS_LB_CONFIG,) + P6_CONFIGS
                         + (AUTO_RING_CONFIG, TUNE_RING_CONFIG) + SEQ_CONFIGS
                         + TP_CONFIGS + (MOE_EP,) + PIPE_CONFIGS)
@@ -7755,6 +8394,10 @@ def main() -> int:
     if "--resilience-worker" in sys.argv:
         i = sys.argv.index("--resilience-worker")
         return resilience_worker(*sys.argv[i + 1:i + 4])
+    if "--mpmd-worker" in sys.argv:
+        i = sys.argv.index("--mpmd-worker")
+        stage, rank, init, root, job = sys.argv[i + 1:i + 6]
+        return mpmd_worker(int(stage), int(rank), init, root, job)
     if "--replica" in sys.argv:
         return replica_main()
     if "--tune" in sys.argv:
@@ -8025,6 +8668,14 @@ def main() -> int:
         long_row["launches"] = ring["long_context"]["launches"][row["name"]]
         long_row["launches_per_step"] = 8
         row["d32_shape"] = long_row
+    t0 = time.perf_counter()
+    mpmd_out = phase_mpmd(torch)
+    emit({"phase": "mpmd", "card": smi, "phase_s": time.perf_counter() - t0,
+          **mpmd_out})
+    for row in flash_rows:
+        row["launches_by_path"]["mpmd (each clean stage rank)"] = {
+            "launches": mpmd_out["launches"][row["name"]],
+            "per_step": mpmd_out["launches_per_step"][row["name"]]}
     for config in P6_CONFIGS:
         emit({"phase": "train_p6", "config": config, "card": smi,
               "ranks": RING_RANKS,
@@ -8089,6 +8740,11 @@ def main() -> int:
               "wall_s": time.perf_counter() - t, **out})
         return out
 
+    serve_mesh = check_serve_mesh(torch, ring["serve_mesh_ranks"],
+                                  serve_oracle, spec, params, smi)
+    k9.setdefault("launches_by_path", {})[f"{SERVE_TP} (rank 0, 3 heads)"] = {
+        "launches": serve_mesh[SERVE_TP]["launches"]["paged_attention"],
+        "per_tick": serve_mesh[SERVE_TP]["paged_attention_per_tick"]}
     slot_out = {"f32": timed("serve_slot", phase_serve_slot, spec, params,
                              "f32", oracle=serve_oracle)}
     int8_spec = transformer_lm(**{

@@ -30,9 +30,10 @@ from autodist_tpu.strategy import AllReduce as JAllReduce
 from autodist_tpu_torch import models, optim
 from autodist_tpu_torch.autodist import (AutoDist,
                                          _reset_default_autodist_for_testing)
-from autodist_tpu_torch.const import P10, P11, P12
+from autodist_tpu_torch.const import P11, P12
 from autodist_tpu_torch.convert import params_from_jax
 from autodist_tpu_torch.graph_item import flatten
+from autodist_tpu_torch.mesh import Mesh
 from autodist_tpu_torch.models import base
 from autodist_tpu_torch.models.generate import make_generator
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
@@ -421,7 +422,12 @@ def _public(module):
                                    ".parallel.pipeline",
                                    ".parallel.pipeline_1f1b",
                                    ".models.pipelined_lm",
-                                   ".models.pipelined_moe_lm"])
+                                   ".models.pipelined_moe_lm",
+                                   ".kernel.sharding_utils",
+                                   ".parallel.mpmd",
+                                   ".parallel.mpmd.partition",
+                                   ".parallel.mpmd.transport",
+                                   ".parallel.mpmd.runner"])
 def test_public_names_of_each_scope_exist_in_the_port(scope):
     jmod = importlib.import_module("autodist_tpu" + scope)
     port = importlib.import_module("autodist_tpu_torch" + scope)
@@ -520,8 +526,11 @@ def _stub_calls(spec, ad, sess):
         # the SIGTERM drain, ported with the router (item None: it runs)
         "serve(drain_on_sigterm=True)": (lambda: _drain_server(
             spec, params), None),
+        # the head-sharded pool, ported with P10's engine meshes: it runs
         "PagedDecodeEngine(mesh=)": (lambda: PagedDecodeEngine(
-            spec, params, device="cpu", mesh=object()), P10),
+            spec, params, device="cpu", window=16, block_size=8,
+            mesh=Mesh(shape={"model": 1}, device=torch.device("cpu"))),
+            None),
     }
 
 

@@ -23,6 +23,7 @@ from autodist_tpu.models.transformer import dense_attention as jdense
 from autodist_tpu.models.transformer_lm import transformer_lm as jlm
 from autodist_tpu.serving import paged_kv as jpaged
 from autodist_tpu_torch.convert import params_from_jax
+from autodist_tpu_torch.mesh import Mesh
 from autodist_tpu_torch.models import quantize
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.serving import (AdmissionError, PagedDecodeEngine,
@@ -307,8 +308,11 @@ def test_paged_validation_and_unported_modes(lm):
                           block_size=8, draft_spec=spec,
                           draft_params=params, temperature=0.5,
                           rng=torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        PagedDecodeEngine(spec, params, device="cpu", mesh=object())
+    # the head-sharded pool (ported): JAX's validation of the mesh
+    two = Mesh(shape={"model": 2}, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        PagedDecodeEngine(spec, params, **GEOM, mesh=two,
+                          model_axis="data")
     # serve()'s default is the slot engine, as in the JAX package: its
     # window must fit the model like the paged engine's
     with pytest.raises(ValueError, match="max_len"):

@@ -26,6 +26,7 @@ from autodist_tpu.models.transformer import dense_attention as jdense
 from autodist_tpu.models.transformer_lm import transformer_lm as jlm
 from autodist_tpu.serving import DecodeEngine as JDecodeEngine
 from autodist_tpu_torch.convert import params_from_jax
+from autodist_tpu_torch.mesh import Mesh
 from autodist_tpu_torch.models import quantize
 from autodist_tpu_torch.models.transformer_lm import transformer_lm
 from autodist_tpu_torch.serving import (AdmissionError, DecodeEngine,
@@ -334,10 +335,15 @@ def test_engine_rebase_poison_and_validation(lm, monkeypatch):
         eng.submit(np.arange(2), 2)
         eng.submit(np.arange(2), 2)
     assert exc.value.retry_after_s > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        DecodeEngine(spec, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP: P10"):
-        DecodeEngine(spec, params, device="cpu", slot_axis="model")
+    # the sharded pool (ported): JAX's validation of the mesh
+    four = Mesh(shape={"data": 4}, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="must divide"):
+        DecodeEngine(spec, params, device="cpu", window=16, slots=3,
+                     mesh=four)
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        DecodeEngine(spec, params, device="cpu", window=16, slots=4,
+                     mesh=four, slot_axis="model")
+    DecodeEngine(spec, params, device="cpu", window=16, slot_axis="model")
 
 
 # ---------------------------------------------------------------------------
